@@ -1,0 +1,295 @@
+"""Continuous-batching scheduler (mirrors ``accelerate_tpu/serving/
+scheduler.py``): iteration-level admission, chunked prefill and
+page-pressure eviction.
+
+Pure host-side, deterministic bookkeeping — the port keeps its own copy of
+the JAX package's numpy logic.  Given the same request trace and plugin
+knobs every decision (admission order, chunk sizes, interleave, evictions)
+replays identically, and the ``events`` log equals the JAX scheduler's.
+The host mirrors the device allocator's free count with the same
+arithmetic (``paged_cache.pages_for``), so it evicts before a device-side
+pop could underflow.
+
+Policy:
+
+- **Admission**: FIFO.  A waiting request is admitted when a decode slot
+  is free and the pool has pages for its whole prompt.
+- **Chunked prefill**: admitted prompts prefill in chunks of at most
+  ``prefill_chunk`` tokens, padded up to the smallest shape bucket.
+- **Interleave**: prefill and decode alternate whenever both have work.
+- **Eviction**: when a step needs more fresh pages than the pool has, the
+  youngest admitted sequence is preempted — its pages are released and the
+  request requeues at the head of the line (recompute-on-readmit).
+
+The multi-tenant adapter bypass, prefix reuse, speculative reservations
+and the overload controls (bounded queue, shedding, deadlines,
+cancellation) of the JAX scheduler come with ROADMAP Queue A's later
+serving items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Optional
+
+from .paged_cache import pages_for
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request.  ``arrival_step`` is in virtual engine-step
+    time.  ``adapter_id`` and ``deadline_ticks`` keep the JAX fields; any
+    value but 0 is a later slice's feature."""
+
+    uid: int
+    prompt: tuple  # int token ids
+    max_new_tokens: int
+    arrival_step: int = 0
+    adapter_id: int = 0
+    deadline_ticks: int = 0
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Host-side record of one occupied decode slot."""
+
+    request: Request
+    admit_seq: int                 # monotone admission counter (eviction order)
+    prefilled: int = 0             # prompt tokens written so far
+    tokens: Optional[list] = None  # generated token ids
+
+    def __post_init__(self):
+        if self.tokens is None:
+            self.tokens = []
+
+    @property
+    def prefill_done(self) -> bool:
+        return self.prefilled >= self.request.prompt_len
+
+    @property
+    def seq_len(self) -> int:
+        # tokens written into the KV cache (prompt prefix + decoded tokens;
+        # the latest sampled token is written by the NEXT decode step)
+        return self.prefilled + max(0, len(self.tokens) - 1)
+
+
+class ContinuousBatchingScheduler:
+    """Deterministic admit/prefill/decode/evict policy over a fixed slot set.
+
+    The engine asks :meth:`admit` each tick, then :meth:`next_action`; it
+    reports executed work back through ``note_*`` so the host page mirror
+    stays exact.  ``events`` is the decision log."""
+
+    def __init__(self, num_slots: int, num_pages: int, page_size: int,
+                 pages_per_slot: int, prefill_chunk: int, prefill_buckets: tuple):
+        self.num_slots = num_slots
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.pages_per_slot = pages_per_slot
+        self.prefill_chunk = prefill_chunk
+        self.prefill_buckets = tuple(sorted(prefill_buckets))
+        self.waiting: deque[Request] = deque()
+        self.slots: dict[int, SlotState] = {}
+        self.free_slots: list[int] = list(range(num_slots))
+        self.free_pages = num_pages          # host mirror of the device stack
+        self._admit_counter = 0
+        self._last_was_prefill = False
+        self.events: list[tuple] = []        # the determinism log
+
+    # -- queueing -----------------------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        if request.adapter_id:
+            raise NotImplementedError(
+                f"request {request.uid} carries adapter_id={request.adapter_id}: "
+                "multi-tenant LoRA serving is ROADMAP Queue A item A11"
+            )
+        if request.deadline_ticks:
+            raise NotImplementedError(
+                f"request {request.uid} carries deadline_ticks: deadlines and "
+                "the overload controls are ROADMAP Queue A item A11"
+            )
+        total = request.prompt_len + request.max_new_tokens
+        cap = min(self.pages_per_slot, self.num_pages) * self.page_size
+        if request.prompt_len < 1:
+            raise ValueError(f"request {request.uid}: empty prompt")
+        if request.max_new_tokens < 1:
+            raise ValueError(
+                f"request {request.uid}: max_new_tokens must be >= 1 "
+                f"(got {request.max_new_tokens})"
+            )
+        if total > cap:
+            raise ValueError(
+                f"request {request.uid}: prompt+max_new_tokens={total} exceeds "
+                f"the per-sequence KV capacity {cap} "
+                f"(min(pages_per_slot={self.pages_per_slot}, "
+                f"num_pages={self.num_pages}) * page_size={self.page_size})"
+            )
+        self.waiting.append(request)
+        self.events.append(("submit", request.uid))
+
+    def requeue_front(self, request: Request) -> None:
+        self.waiting.appendleft(request)
+
+    def _release_slot_pages(self, st: SlotState) -> int:
+        """The one host-side page-release arithmetic (finish and evict both
+        route through it).  Returns the pages added to the free mirror."""
+        freed = int(pages_for(st.seq_len, self.page_size))
+        self.free_pages += freed
+        return freed
+
+    # -- admission ----------------------------------------------------------
+
+    def admit(self) -> list[int]:
+        """Admit, FIFO, while a slot is free and the pool can hold the whole
+        prompt (``submit`` already guarantees a lone sequence can never
+        outgrow the pool).  Returns the admitted slot ids."""
+        admitted = []
+        while self.waiting and self.free_slots:
+            req = self.waiting[0]
+            if self.admission_page_need(req) > self.free_pages:
+                break
+            self.waiting.popleft()
+            slot = self.free_slots.pop(0)
+            self.slots[slot] = SlotState(req, self._admit_counter)
+            self._admit_counter += 1
+            admitted.append(slot)
+            self.events.append(("admit", req.uid, slot))
+        return admitted
+
+    def admission_page_need(self, req: Request) -> int:
+        """Pages admission demands before scheduling ``req``: its prompt."""
+        return pages_for(req.prompt_len, self.page_size)
+
+    # -- the per-tick decision ----------------------------------------------
+
+    def prefilling_slots(self) -> list[int]:
+        return sorted(
+            (s for s, st in self.slots.items() if not st.prefill_done),
+            key=lambda s: self.slots[s].admit_seq,
+        )
+
+    def decoding_slots(self) -> list[int]:
+        return sorted(s for s, st in self.slots.items() if st.prefill_done)
+
+    def next_action(self):
+        """``("prefill", slot, start, chunk_len, bucket)`` or
+        ``("decode", slots)`` or ``("idle",)`` — prefill and decode
+        alternate when both have work."""
+        pre = self.prefilling_slots()
+        dec = self.decoding_slots()
+        do_prefill = bool(pre) and not (dec and self._last_was_prefill)
+        if do_prefill:
+            slot = pre[0]
+            st = self.slots[slot]
+            start = st.prefilled
+            chunk = min(self.prefill_chunk, st.request.prompt_len - start)
+            self._last_was_prefill = True
+            return ("prefill", slot, start, chunk, self.bucket_for(chunk))
+        self._last_was_prefill = False
+        if dec:
+            return ("decode", dec)
+        return ("idle",)
+
+    def bucket_for(self, chunk_len: int) -> int:
+        for b in self.prefill_buckets:
+            if b >= chunk_len:
+                return b
+        return self.prefill_buckets[-1]
+
+    # -- page-pressure eviction ---------------------------------------------
+
+    def decode_page_need(self, slots: list[int]) -> list[int]:
+        """Slots whose next decode token crosses a page boundary (needs a
+        fresh page this step)."""
+        return [s for s in slots if self.slots[s].seq_len % self.page_size == 0]
+
+    def _evict_until(self, active: list[int], fits) -> list[int]:
+        """Evict the youngest-admitted sequence — removing it from
+        ``active`` when it was scheduled this tick — until
+        ``fits(active)``.  Returns the evicted slots."""
+        evicted = []
+        while not fits(active):
+            victims = sorted(self.slots, key=lambda s: -self.slots[s].admit_seq)
+            if not victims:  # pragma: no cover - submit() capacity guard
+                break
+            victim = victims[0]
+            self.evict(victim)
+            evicted.append(victim)
+            if victim in active:
+                active.remove(victim)
+        return evicted
+
+    def plan_evictions(self, slots: list[int]) -> tuple[list[int], list[int]]:
+        """Evict youngest-admitted sequences until this decode step's fresh
+        pages fit the pool.  Returns ``(surviving_decode_slots,
+        evicted_slots)``; the evicted requests are requeued at the front."""
+        active = list(slots)
+        evicted = self._evict_until(
+            active, lambda a: len(self.decode_page_need(a)) <= self.free_pages
+        )
+        return active, evicted
+
+    def plan_prefill_evictions(self, slot: int, chunk_len: int) -> tuple[bool, list[int]]:
+        """Make room for one prefill chunk's fresh pages.  Prefers evicting
+        OTHER sequences (youngest first); falls back to evicting the
+        prefilling slot itself when it is the only tenant left.  Returns
+        ``(slot_survived, evicted_slots)``."""
+        evicted = []
+        while True:
+            st = self.slots.get(slot)
+            if st is None:
+                return False, evicted
+            needed = (pages_for(st.prefilled + chunk_len, self.page_size)
+                      - pages_for(st.prefilled, self.page_size))
+            if needed <= self.free_pages:
+                return True, evicted
+            victims = sorted(
+                (s for s in self.slots if s != slot),
+                key=lambda s: -self.slots[s].admit_seq,
+            ) or [slot]
+            self.evict(victims[0])
+            evicted.append(victims[0])
+
+    def evict(self, slot: int) -> Request:
+        st = self.slots.pop(slot)
+        self._release_slot_pages(st)
+        self.free_slots.append(slot)
+        self.free_slots.sort()
+        self.requeue_front(st.request)
+        self.events.append(("evict", st.request.uid, slot))
+        return st.request
+
+    # -- execution feedback (keeps the host page mirror exact) ---------------
+
+    def note_prefill(self, slot: int, chunk_len: int) -> None:
+        st = self.slots[slot]
+        before = pages_for(st.prefilled, self.page_size)
+        st.prefilled += chunk_len
+        self.free_pages -= pages_for(st.prefilled, self.page_size) - before
+        self.events.append(("prefill", st.request.uid, slot, st.prefilled))
+
+    def note_decode(self, slots_needing_pages: list[int]) -> None:
+        self.free_pages -= len(slots_needing_pages)
+        self.events.append(("decode", tuple(sorted(slots_needing_pages))))
+
+    def finish(self, slot: int) -> SlotState:
+        """Retire a finished sequence: free its pages and its slot."""
+        st = self.slots.pop(slot)
+        self._release_slot_pages(st)
+        self.free_slots.append(slot)
+        self.free_slots.sort()
+        self.events.append(("finish", st.request.uid, slot))
+        return st
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - self.free_pages
+
+    def idle(self) -> bool:
+        return not self.waiting and not self.slots
