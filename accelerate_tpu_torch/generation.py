@@ -62,7 +62,7 @@ def sample_logits(logits, generator: Optional[torch.Generator], config: Generati
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate(model, input_ids, generation_config: Optional[GenerationConfig] = None,
              *, prompt_lengths=None, generator: Optional[torch.Generator] = None):
     """Generate ``max_new_tokens`` continuations for a batch of prompts on

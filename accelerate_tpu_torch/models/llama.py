@@ -1,26 +1,23 @@
 """Llama-family decoder (mirrors ``accelerate_tpu/models/llama.py``).
 
-The serving path of the port: the model with its dense KV cache (for
+The model with its uncached forward (training), its dense KV cache (for
 :func:`~accelerate_tpu_torch.generation.generate`) and its paged KV cache
-(for :class:`~accelerate_tpu_torch.serving.ServingEngine`).  Parameter
-names follow HF's Llama ``state_dict`` (``model.layers.{i}.self_attn.
-q_proj.weight`` ``[out, in]``, ...); ``models/convert.py`` maps a JAX
-param tree onto them.
+(for :class:`~accelerate_tpu_torch.serving.ServingEngine`), plus the loss
+functions of the training step.  Parameter names follow HF's Llama
+``state_dict`` (``model.layers.{i}.self_attn.q_proj.weight`` ``[out, in]``,
+...); ``models/convert.py`` maps a JAX param tree onto them.
 
 ``attn_implementation``:
 
-- ``"native"``: gather the pages through the block table and run
-  :func:`cached_attention` (the JAX ``"native"`` route and the tests'
-  reference);
-- ``"flash"``: the paged kernels of ``ops/flash_attention.py`` —
-  :func:`paged_decode_attention` for decode (``T == 1``) and
-  :func:`paged_multitoken_attention` for a prefill chunk (``T > 1``),
-  CUDA kernels on the card and their plain versions on the CPU.
+- ``"native"``: :func:`native_attention` uncached, and for the paged cache
+  a gather through the block table into :func:`cached_attention` (the JAX
+  ``"native"`` route and the tests' reference);
+- ``"flash"``: uncached, :func:`~..ops.flash_attention.flash_attention`
+  (kernels #1-#3); paged, :func:`paged_decode_attention` for decode
+  (``T == 1``) and :func:`paged_multitoken_attention` for a prefill chunk
+  (``T > 1``) — CUDA kernels on the card, their plain versions on the CPU.
 
-The uncached forward runs :func:`native_attention`; the flash forward
-kernel (#1) and its backward (#2/#3) come with the training slice
-(ROADMAP slice 2).  Scan, remat, fp8, LoRA and the collective-matmul
-routes are not ported.
+Scan, remat, fp8, LoRA and the collective-matmul routes are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +30,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.flash_attention import paged_decode_attention, paged_multitoken_attention
+from ..ops.flash_attention import (
+    flash_attention,
+    paged_decode_attention,
+    paged_multitoken_attention,
+)
 from ..utils.device import resolve_device
 from .layers import QuantizableDense
 
@@ -50,6 +51,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     attn_implementation: str = "native"  # native | flash
+    remat: bool = False
+    scan_layers: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -59,6 +62,13 @@ class LlamaConfig:
                 f"{self.attn_implementation!r} (ring/ulysses are ROADMAP "
                 "item A13, slice 6)"
             )
+        for knob in ("remat", "scan_layers"):
+            if getattr(self, knob):
+                raise NotImplementedError(
+                    f"LlamaConfig.{knob}=True is not ported yet (ROADMAP item "
+                    "A12, slice 5: activation checkpointing and the scanned "
+                    "layer stack)"
+                )
 
     @property
     def head_dim(self) -> int:
@@ -132,19 +142,38 @@ def apply_rope(x, cos, sin, positions):
     return out.to(x.dtype)
 
 
-def native_attention(q, k, v):
-    """Causal attention with an f32 softmax.  q: [B, T, H, D]; k/v:
-    [B, S, Hkv, D] (GQA broadcast here)."""
+def native_attention(q, k, v, *, causal: bool = True, segment_ids=None):
+    """Reference-semantics attention with an f32 softmax.  q: [B, T, H, D];
+    k/v: [B, S, Hkv, D] (GQA broadcast here); ``segment_ids`` [B, T] masks
+    cross-segment pairs (self-attention)."""
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
     scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(d)
-    mask = torch.ones(t, s, dtype=torch.bool, device=q.device).tril(diagonal=s - t)
-    scores = scores.masked_fill(~mask, -1e30)
+    if causal:
+        mask = torch.ones(t, s, dtype=torch.bool, device=q.device).tril(diagonal=s - t)
+        scores = scores.masked_fill(~mask, -1e30)
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        scores = scores.masked_fill(~same[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def get_attention_impl(name: str):
+    """The uncached attention function of ``attn_implementation``."""
+    if name == "native":
+        return native_attention
+    if name == "flash":
+        return flash_attention
+    if name in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"{name!r} attention is context / sequence parallelism, ROADMAP "
+            "item A13 (slice 6)"
+        )
+    raise ValueError(f"unknown attention implementation {name!r}")
 
 
 # Sentinel position for unwritten / padding dense-cache slots: larger than
@@ -291,7 +320,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = QuantizableDense(qd, cfg.hidden_size, cfg.dtype)
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
-                paged_write: Optional[_PagedWrite] = None, attn_implementation=None):
+                paged_write: Optional[_PagedWrite] = None, attn_implementation=None,
+                segment_ids=None):
         cfg = self.config
         impl = attn_implementation or cfg.attn_implementation
         b, t = x.shape[:2]
@@ -341,12 +371,8 @@ class LlamaAttention(nn.Module):
                          "index": idx + t}
             return self.o_proj(out.reshape(b, t, -1)), new_cache
 
-        if impl != "native":
-            raise NotImplementedError(
-                "the uncached flash forward is kernel #1 (_attn_kernel), "
-                "ROADMAP slice 2; use attn_implementation='native'"
-            )
-        return self.o_proj(native_attention(q, k, v).reshape(b, t, -1))
+        out = get_attention_impl(impl)(q, k, v, causal=True, segment_ids=segment_ids)
+        return self.o_proj(out.reshape(b, t, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -371,9 +397,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
-                paged_write=None, attn_implementation=None):
+                paged_write=None, attn_implementation=None, segment_ids=None):
         attn = self.self_attn(self.input_layernorm(x), positions, cos, sin, cache,
-                              cache_write_mask, paged_write, attn_implementation)
+                              cache_write_mask, paged_write, attn_implementation,
+                              segment_ids)
         new_cache = None
         if cache is not None:
             attn, new_cache = attn
@@ -415,19 +442,23 @@ class _LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Decoder LM.  ``forward(input_ids, positions=None, cache=None,
-    cache_write_mask=None, attn_implementation=None)`` returns f32 logits
-    ``[B, T, V]``, or
-    ``(logits, new_cache)`` with a cache (dense from :func:`init_cache`,
-    or the per-layer paged views the serving engine builds).  Caches are
-    updated in place; ``new_cache`` holds the same tensors.
+    """Decoder LM.  ``forward(input_ids, positions=None, segment_ids=None,
+    output_hidden=False, cache=None, cache_write_mask=None,
+    attn_implementation=None)`` returns f32 logits ``[B, T, V]`` — or the
+    final-norm hidden states ``[B, T, H]`` with ``output_hidden`` (the fused
+    linear + CE loss applies the head itself) — or ``(logits, new_cache)``
+    with a cache (dense from :func:`init_cache`, or the per-layer paged
+    views the serving engine builds).  Caches are updated in place;
+    ``new_cache`` holds the same tensors.  ``segment_ids`` [B, T] masks
+    cross-segment attention (packed sequences, uncached forward only).
     ``attn_implementation`` overrides the config's for one call (the
     serving engine's ``decode_kernel``).
 
     Built on ``device`` (``"cuda"`` unless the caller asks for the CPU)
     with random weights from ``seed``; ``load_state_dict`` replaces them
-    (``models/convert.py`` builds one from a JAX param tree).  Inference
-    only: parameters do not require grad."""
+    (``models/convert.py`` builds one from a JAX param tree).  Parameters
+    are trainable; the serving engine and ``generate`` run under
+    ``torch.inference_mode()``."""
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -441,7 +472,6 @@ class LlamaForCausalLM(nn.Module):
         self.register_buffer("rope_cos", torch.from_numpy(cos).to(dev), persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(dev), persistent=False)
         self._init_weights(seed)
-        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -470,8 +500,8 @@ class LlamaForCausalLM(nn.Module):
                 std *= residual_scale
             p.copy_(torch.randn(p.shape, generator=gen, device=self.device) * std)
 
-    def forward(self, input_ids, positions=None, cache=None, cache_write_mask=None,
-                attn_implementation: Optional[str] = None):
+    def forward(self, input_ids, positions=None, segment_ids=None, output_hidden: bool = False,
+                cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None):
         b, t = input_ids.shape
         if positions is None:
             base = torch.arange(t, device=input_ids.device)
@@ -497,6 +527,94 @@ class LlamaForCausalLM(nn.Module):
                 new_cache.append(layer_cache)
             else:
                 x = layer(x, positions, self.rope_cos, self.rope_sin,
-                          attn_implementation=attn_implementation)
-        logits = self.lm_head(self.model.norm(x))
+                          attn_implementation=attn_implementation, segment_ids=segment_ids)
+        x = self.model.norm(x)
+        if output_hidden:
+            return (x, new_cache) if cache is not None else x
+        logits = self.lm_head(x)
         return (logits, new_cache) if cache is not None else logits
+
+
+def causal_lm_loss(logits, labels, ignore_index: int = -100, shifted: bool = False):
+    """Shifted next-token cross-entropy, ``logsumexp - label_logit`` in f32
+    (JAX ``causal_lm_loss``).  ``shifted=True``: ``labels`` are already
+    next-token aligned with ``logits``."""
+    if shifted:
+        logits = logits.float()
+    else:
+        logits = logits[:, :-1].float()
+        labels = labels[:, 1:]
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = lse - label_logit
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _apply(model, params, input_ids, **kwargs):
+    """``model`` run with ``params`` (a name -> tensor dict over its
+    parameters, as a train state holds them) in place of its own; with
+    ``params=None``, its own."""
+    if params is None:
+        return model(input_ids, **kwargs)
+    return torch.func.functional_call(model, params, (input_ids,), kwargs)
+
+
+def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int] = None):
+    """``loss_fn(params, batch)`` for ``Accelerator.prepare_train_step``
+    (JAX ``make_llama_loss_fn``).  ``batch`` holds ``input_ids`` and
+    ``labels`` (or pre-shifted ``shift_labels``), optionally
+    ``segment_ids``.  With ``fused_vocab_chunks``, the head moves inside
+    the chunked fused linear + CE (``ops/fused_xent.py``), so the ``[B, T,
+    V]`` logits never exist; the port's head weight is ``[V, H]``, the
+    ``vocab_major`` layout."""
+    if fused_vocab_chunks is None:
+        def loss_fn(params, batch):
+            logits = _apply(model, params, batch["input_ids"],
+                            segment_ids=batch.get("segment_ids"))
+            if "shift_labels" in batch:
+                return causal_lm_loss(logits, batch["shift_labels"], shifted=True)
+            return causal_lm_loss(logits, batch["labels"])
+
+        return loss_fn
+
+    from ..ops.fused_xent import fused_causal_lm_loss
+
+    cfg = model.config
+
+    def fused_loss_fn(params, batch):
+        hidden = _apply(model, params, batch["input_ids"],
+                        segment_ids=batch.get("segment_ids"), output_hidden=True)
+        head = (params if params is not None else dict(model.named_parameters()))
+        weight = head["lm_head.weight"].to(cfg.dtype)  # [V, H]
+        shifted = "shift_labels" in batch
+        return fused_causal_lm_loss(
+            hidden, weight, batch["shift_labels"] if shifted else batch["labels"],
+            vocab_major=True, num_chunks=fused_vocab_chunks, shifted=shifted,
+        )
+
+    return fused_loss_fn
+
+
+def count_params(params) -> int:
+    """Elements of a module's parameters or of a name -> tensor dict."""
+    tensors = params.parameters() if isinstance(params, nn.Module) else params.values()
+    return sum(int(t.numel()) for t in tensors)
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs per token, ``6 N + 12 L H D T`` (the PaLM appendix
+    formula; JAX ``flops_per_token``, untied head)."""
+    n_params = (
+        cfg.vocab_size * cfg.hidden_size * 2
+        + cfg.num_hidden_layers * (
+            cfg.hidden_size * cfg.head_dim * (cfg.num_attention_heads + 2 * cfg.num_key_value_heads)
+            + cfg.num_attention_heads * cfg.head_dim * cfg.hidden_size
+            + 3 * cfg.hidden_size * cfg.intermediate_size
+            + 2 * cfg.hidden_size
+        )
+        + cfg.hidden_size
+    )
+    attn_flops = 12 * cfg.num_hidden_layers * cfg.num_attention_heads * cfg.head_dim * seq_len
+    return 6 * n_params + attn_flops

@@ -45,29 +45,47 @@ def nvcc_path() -> str:
     return found
 
 
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` that has no library built from the
+    same source and flags in ``build/`` yet, one ``nvcc`` per source, all
+    started together.  Returns each library's path."""
+    out = {name: _target(name) for name in names}
+    started = {}
+    for name, lib in out.items():
+        if lib.is_file():
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        started[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in started.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out[name])
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": stderr,
+                           "path": str(out[name])}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library built from the same
     source and flags is already in ``build/``.  Returns the library path."""
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.is_file():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(out)})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                       "ptxas": proc.stderr, "path": str(out)}
-    return out
+    return build_all([name])[name]
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -118,7 +118,7 @@ class ServingEngine:
         return [{"k_pages": l["k_pages"], "v_pages": l["v_pages"],
                  "block_tables": block_tables} for l in self.cache["layers"]]
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def decode_step(self, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """One token for every slot at once; dead slots write nowhere and
         their sampled token is ignored.  Pops a page for each active slot
@@ -142,7 +142,7 @@ class ServingEngine:
         cache["seq_lens"] = pos + active_t.to(torch.int32)
         return next_tok
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def prefill_step(self, slot: int, chunk_ids: np.ndarray, start: int,
                      chunk_len: int) -> torch.Tensor:
         """One bucket-padded chunk of one sequence's prompt.  Returns the
@@ -166,6 +166,7 @@ class ServingEngine:
         cache["seq_lens"][slot] = start + chunk_len
         return logits[0, chunk_len - 1]
 
+    @torch.inference_mode()
     def release_step(self, mask: np.ndarray) -> None:
         """Push every page of the masked slots back onto the free stack and
         zero their lengths."""
@@ -176,6 +177,7 @@ class ServingEngine:
             self.plugin.page_size,
         )
 
+    @torch.inference_mode()
     def sample_first(self, last: torch.Tensor) -> torch.Tensor:
         return sample_logits(last[None], self._step_generator(), self.gen_config)[0]
 

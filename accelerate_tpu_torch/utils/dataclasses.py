@@ -1,11 +1,51 @@
-"""Plugin dataclasses of the port (mirrors ``ServingPlugin`` of
-``accelerate_tpu/utils/dataclasses.py`` :487)."""
+"""Plugin dataclasses of the port (mirrors ``accelerate_tpu/utils/
+dataclasses.py``: ``GradSyncKwargs`` :155, ``GradientAccumulationPlugin``
+:269, ``ServingPlugin`` :487)."""
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass
+class GradSyncKwargs:
+    """How gradients are formed and reduced (the JAX package's fields).
+    ``grad_dtype="bf16"`` differentiates with respect to the compute-width
+    copy of the params, so every gradient is born bf16.  ``comm_dtype``
+    casts the gradients before the (single-device, so absent) reduction;
+    ``average_grads`` is moot on one device.  The compression and
+    hierarchical knobs are multi-GPU reductions, ROADMAP item A13: the
+    train step raises when one is set."""
+
+    comm_dtype: Optional[str] = None     # None | "bf16" | "fp16"
+    average_grads: bool = True
+    grad_dtype: Optional[str] = None     # None | "bf16"
+    compression: Optional[str] = None    # "powersgd" (A13)
+    rank: int = 4
+    hierarchical: Optional[bool] = None  # True requires a dcn axis (A13)
+    dcn_compression: Optional[str] = None
+
+
+@dataclass
+class GradientAccumulationPlugin:
+    """Gradient accumulation: ``in_step`` splits each batch into
+    ``num_steps`` microbatches inside one train step and sums their
+    gradients in f32.  ``across_steps`` (the sum carried between calls)
+    parses as in JAX; the Accelerator raises ``NotImplementedError`` for it."""
+
+    num_steps: int = 1
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
+    sync_each_batch: bool = False
+    mode: str = "in_step"  # "in_step" | "across_steps"
+
+    def __post_init__(self):
+        if self.mode not in ("in_step", "across_steps"):
+            raise ValueError(f"invalid gradient accumulation mode {self.mode!r}")
+        if self.num_steps < 1:
+            raise ValueError("gradient_accumulation num_steps must be >= 1")
 
 
 @dataclass

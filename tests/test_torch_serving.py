@@ -225,7 +225,7 @@ def test_port_imports_no_jax():
     profile_serving.py) import JAX, Flax or the JAX package, not even a
     module of it that does not import JAX."""
     files = sorted((REPO / "accelerate_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_serving.py"]
+        REPO / "chip_smoke.py", REPO / "profile_serving.py", REPO / "profile_training.py"]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
     for path in files:
