@@ -20,6 +20,14 @@ Its third slice is quantized serving: int8 weight-only models (W8A16,
 W8A16 matmul kernels (``csrc/quantized_matmul.cu``), and int8 / fp8 KV
 pages through the paged kernels' quantized variants, both through
 ``ServingEngine`` and ``generate_paged``.
+
+Its fourth slice is multi-tenant LoRA serving: ``ops/lora.py``
+(``lora_apply`` and the gather-matmul kernel #10, ``csrc/lora.cu``), the
+adapter pool ``serving/adapters.py`` (``AdapterStore``: hot-swap from
+pinned host memory on a side stream, LRU, refcount pinning), per-slot
+adapter routing through ``ServingEngine`` and ``generate_paged``, and the
+fused LoRA-query + paged-decode op ``fused_bgmv_paged_decode`` (kernels
+#8 / #9 in ``csrc/paged_attention.cu``).
 """
 
 from .accelerator import Accelerator, TrainState
@@ -27,8 +35,15 @@ from .generation import GenerationConfig, generate, generate_paged, sample_logit
 from .models import LlamaConfig, LlamaForCausalLM, make_llama_loss_fn
 from .ops.quantized_matmul import quantized_matmul
 from .optimizer import AcceleratedOptimizer, make_optimizer
-from .serving import Request, ServingEngine, replay, synthesize_trace
-from .utils.dataclasses import GradientAccumulationPlugin, GradSyncKwargs, ServingPlugin
+from .ops.flash_attention import fused_bgmv_paged_decode
+from .ops.lora import lora_apply
+from .serving import AdapterStore, Request, ServingEngine, replay, synthesize_trace
+from .utils.dataclasses import (
+    GradientAccumulationPlugin,
+    GradSyncKwargs,
+    LoraPlugin,
+    ServingPlugin,
+)
 from .utils.quantization import (
     QuantizationConfig,
     QuantizedTensor,
@@ -41,11 +56,13 @@ from .utils.quantization import (
 __all__ = [
     "AcceleratedOptimizer",
     "Accelerator",
+    "AdapterStore",
     "GenerationConfig",
     "GradSyncKwargs",
     "GradientAccumulationPlugin",
     "LlamaConfig",
     "LlamaForCausalLM",
+    "LoraPlugin",
     "QuantizationConfig",
     "QuantizedTensor",
     "Request",
@@ -53,8 +70,10 @@ __all__ = [
     "ServingPlugin",
     "TrainState",
     "dequantize",
+    "fused_bgmv_paged_decode",
     "generate",
     "generate_paged",
+    "lora_apply",
     "make_llama_loss_fn",
     "make_optimizer",
     "quantize",

@@ -113,8 +113,8 @@ def generate(model, input_ids, generation_config: Optional[GenerationConfig] = N
 
 def _later_slice(knob: str) -> NotImplementedError:
     return NotImplementedError(
-        f"generate_paged({knob}=...): multi-tenant adapters, speculative decode and "
-        "prefix caching are ROADMAP Queue A item A11")
+        f"generate_paged({knob}=...): speculative decode and prefix caching are "
+        "ROADMAP Queue A item A11")
 
 
 def generate_paged(model, input_ids, generation_config: Optional[GenerationConfig] = None, *,
@@ -132,15 +132,18 @@ def generate_paged(model, input_ids, generation_config: Optional[GenerationConfi
     resident at once, pages of 16 tokens, a prefill chunk of ``max(16, T)``.
     Pass one with ``kv_dtype="int8"`` / ``"fp8"`` for quantized pages; a
     model quantized with ``quantize_model_`` decodes through the W8A16
-    kernels.  ``seed`` seeds the engine's sampling generator.  Adapters,
-    speculation and prefix caching (``adapters``, ``adapter_ids``,
-    ``speculate``, ``speculate_k``, ``draft_model``, ``prefix_cache``) raise
-    ``NotImplementedError`` (ROADMAP A11); their off values pass."""
+    kernels.  ``seed`` seeds the engine's sampling generator.
+
+    Multi-tenant: pass an :class:`~accelerate_tpu_torch.serving.AdapterStore`
+    as ``adapters`` plus per-row tenant ``adapter_ids`` (0 = the base model)
+    to decode each row through its LoRA adapter.  Speculation and prefix
+    caching (``speculate``, ``speculate_k``, ``draft_model``,
+    ``prefix_cache``) raise ``NotImplementedError`` (ROADMAP A11); their off
+    values pass."""
     from .serving import Request, ServingEngine
     from .utils.dataclasses import ServingPlugin
 
-    for knob, value in (("adapters", adapters), ("adapter_ids", adapter_ids),
-                        ("speculate_k", speculate_k), ("draft_model", draft_model)):
+    for knob, value in (("speculate_k", speculate_k), ("draft_model", draft_model)):
         if value is not None:
             raise _later_slice(knob)
     for knob, value in (("speculate", speculate), ("prefix_cache", prefix_cache)):
@@ -154,16 +157,22 @@ def generate_paged(model, input_ids, generation_config: Optional[GenerationConfi
     else:
         lens = [int(x) for x in np.asarray(
             prompt_lengths.cpu() if isinstance(prompt_lengths, torch.Tensor) else prompt_lengths)]
+    if adapter_ids is None:
+        tenants = [0] * b
+    else:
+        tenants = [int(x) for x in np.asarray(
+            adapter_ids.cpu() if isinstance(adapter_ids, torch.Tensor) else adapter_ids)]
     n_new = gc.max_new_tokens
     if serving_plugin is None:
         page_size = 16
         pages = max(1, -(-(t_prompt + n_new) // page_size))
         serving_plugin = ServingPlugin(num_slots=b, page_size=page_size, pages_per_slot=pages,
                                        num_pages=b * pages, prefill_chunk=max(16, t_prompt))
-    engine = ServingEngine(model, serving_plugin, gc, seed=seed, device=model.device)
+    engine = ServingEngine(model, serving_plugin, gc, seed=seed, device=model.device,
+                           adapters=adapters)
     for i in range(b):
         engine.add_request(Request(uid=i, prompt=tuple(int(x) for x in ids[i, :lens[i]]),
-                                   max_new_tokens=n_new))
+                                   max_new_tokens=n_new, adapter_id=tenants[i]))
     results = engine.run([])
     out = torch.full((b, n_new), gc.pad_token_id, dtype=torch.int32)
     for i in range(b):

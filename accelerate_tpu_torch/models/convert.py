@@ -14,6 +14,13 @@ scales bitwise, **in the JAX layout**: ``[in, out]`` = ``[H, F]``, k2d codes
 ``[H, F]`` int8 with scales ``[F / block, H]`` (or the flat layout), which
 is the operand layout of the port's W8A16 kernels, so nothing is
 transposed.  :func:`load_converted_state` loads such a state into a model.
+
+LoRA: a JAX adapter tree (``init_adapter_params``: ``{layers_0: {self_attn:
+{q_proj: {"a", "b"}}}}``) or a JAX ``lora`` pool (``init_lora_pool``, the
+``AdapterStore.pool``) becomes the port's flat ``{module name: {"a",
+"b"}}`` through :func:`lora_tree_from_flax`: flax module paths map to the
+port's module names through :func:`flax_to_hf_name`, and the factors keep
+JAX's ``[in, out]`` orientation and their dtype (bf16 exactly).
 """
 
 from __future__ import annotations
@@ -72,6 +79,38 @@ def _quantized_from_jax(leaf) -> QuantizedTensor:
                            torch.from_numpy(np.array(leaf.scale, dtype=np.float32, copy=True)),
                            leaf.shape, dtype, leaf.scheme, leaf.block_size,
                            getattr(leaf, "layout", "flat"))
+
+
+def _tensor_from_numpy(leaf) -> torch.Tensor:
+    """A CPU tensor of a numpy-convertible leaf in its own dtype; numpy's
+    ``ml_dtypes`` bfloat16 (what ``np.asarray`` of a JAX bf16 array gives)
+    crosses through f32, which holds every bf16 value exactly."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(np.array(arr, copy=True))
+
+
+def flax_module_to_port_name(path: str) -> str:
+    """A flax module path (``layers_0/self_attn/q_proj``, ``lm_head``) ->
+    the port's module name (``model.layers.0.self_attn.q_proj``)."""
+    name = flax_to_hf_name("params." + path.replace("/", ".") + ".kernel")
+    return name[: -len(".weight")]
+
+
+def lora_tree_from_flax(tree) -> dict:
+    """A JAX adapter tree or ``lora`` pool (nested dicts ending in ``{"a",
+    "b"}`` leaves, numpy-convertible) -> the port's ``{module name: {"a",
+    "b"}}`` of CPU tensors, each factor in its own dtype, values
+    unchanged."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        *module, factor = path
+        if factor not in ("a", "b"):
+            raise KeyError(f"not a LoRA factor: {'/'.join(path)!r}")
+        out.setdefault(flax_module_to_port_name("/".join(module)), {})[factor] = \
+            _tensor_from_numpy(leaf)
+    return out
 
 
 def torch_state_from_flax(params) -> dict:

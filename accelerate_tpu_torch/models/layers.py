@@ -13,7 +13,15 @@ call) the layer holds the codes and scales of a
 in place of its weight, in the JAX kernel orientation ``[in, out]``, and
 runs ``quantized_matmul(x.to(dtype), qt, out_dtype=dtype)``: the W8A16
 kernels #11 / #12 on the card for int8, the dequantize fallback for nf4.
-The LoRA, fp8 and collective-matmul routes belong to later slices.
+
+LoRA (JAX :118-127): given per-row ``adapter_ids`` and the adapter pool
+``lora`` (``{module name: {"a", "b"}}``, what
+:class:`~accelerate_tpu_torch.serving.adapters.AdapterStore` holds), a layer
+whose ``lora_key`` names a pool entry adds
+:func:`~accelerate_tpu_torch.ops.lora.lora_apply` after its base product,
+on the bf16 and the int8 route alike.  ``lora_key`` is the layer's module
+name, set by the model that owns it.  The fp8 and collective-matmul routes
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.lora import lora_apply
 from ..ops.quantized_matmul import quantized_matmul
 from ..utils.quantization import QuantizedTensor
 
@@ -35,6 +44,9 @@ class QuantizableDense(nn.Module):
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
+        self.in_features = in_features
+        self.out_features = out_features
+        self.lora_key: Optional[str] = None   # the module name, set by the owning model
         self.weight: Optional[nn.Parameter] = nn.Parameter(
             torch.empty(out_features, in_features, dtype=dtype))
         self._qmeta: Optional[tuple] = None   # (shape, dtype, scheme, block_size, layout)
@@ -60,8 +72,14 @@ class QuantizableDense(nn.Module):
             return None
         return QuantizedTensor(self.qcodes, self.qscales, *self._qmeta)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, adapter_ids=None, lora: Optional[dict] = None
+                ) -> torch.Tensor:
         qt = self.quantized
         if qt is not None:
-            return quantized_matmul(x.to(self.dtype), qt, out_dtype=self.dtype)
-        return F.linear(x.to(self.weight.dtype), self.weight)
+            y = quantized_matmul(x.to(self.dtype), qt, out_dtype=self.dtype)
+        else:
+            y = F.linear(x.to(self.weight.dtype), self.weight)
+        entry = lora.get(self.lora_key) if (adapter_ids is not None and lora) else None
+        if entry is not None:
+            y = lora_apply(x.to(self.dtype), y, entry["a"], entry["b"], adapter_ids)
+        return y

@@ -22,8 +22,14 @@ JAX :247-316): the paged branch then quantizes on write
 (:func:`paged_write_kv_quantized`) and hands the per-(kv head, page)
 scales to the kernels (#5 / #7) or to the native gather.
 
-Scan, remat, fp8 compute, LoRA and the collective-matmul routes are not
-ported.
+Multi-tenant LoRA (JAX :478-480, :562-608, :731-737): ``forward(...,
+adapter_ids=, lora=)`` threads per-row pool-slot ids and the adapter pool
+(``{module name: {"a", "b"}}``, passed on every call as JAX passes its
+``lora`` collection, so the model always reads the current slots) to every
+dense and the head; the targeted ones add their adapter delta
+(``ops/lora.py``).
+
+Scan, remat, fp8 compute and the collective-matmul routes are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..ops.flash_attention import (
     paged_multitoken_attention,
 )
 from ..utils.device import resolve_device
+from ..ops.lora import lora_apply
 from .layers import QuantizableDense
 
 
@@ -460,13 +467,13 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
                 paged_write: Optional[_PagedWrite] = None, attn_implementation=None,
-                segment_ids=None):
+                segment_ids=None, adapter_ids=None, lora=None):
         cfg = self.config
         impl = attn_implementation or cfg.attn_implementation
         b, t = x.shape[:2]
-        q = self.q_proj(x).reshape(b, t, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
+        q = self.q_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_attention_heads, cfg.head_dim)
+        k = self.k_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
+        v = self.v_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -507,7 +514,7 @@ class LlamaAttention(nn.Module):
                 out = cached_attention(q, k_lin, v_lin, kv_pos, pos_i32)
             new_cache = {"k_pages": k_pages, "v_pages": v_pages,
                          "block_tables": cache["block_tables"], **scales}
-            return self.o_proj(out.reshape(b, t, -1)), new_cache
+            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora), new_cache
 
         if cache is not None:
             # dense autoregressive path: write K/V and positions at the
@@ -523,10 +530,10 @@ class LlamaAttention(nn.Module):
             out = cached_attention(q, cache["k"], cache["v"], cache["pos"], positions)
             new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
                          "index": idx + t}
-            return self.o_proj(out.reshape(b, t, -1)), new_cache
+            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora), new_cache
 
         out = get_attention_impl(impl)(q, k, v, causal=True, segment_ids=segment_ids)
-        return self.o_proj(out.reshape(b, t, -1))
+        return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora)
 
 
 class LlamaMLP(nn.Module):
@@ -537,8 +544,10 @@ class LlamaMLP(nn.Module):
         self.up_proj = QuantizableDense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
         self.down_proj = QuantizableDense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
 
-    def forward(self, x):
-        return self.down_proj(torch.nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, adapter_ids=None, lora=None):
+        gate = self.gate_proj(x, adapter_ids, lora)
+        up = self.up_proj(x, adapter_ids, lora)
+        return self.down_proj(torch.nn.functional.silu(gate) * up, adapter_ids, lora)
 
 
 class LlamaBlock(nn.Module):
@@ -551,15 +560,16 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
-                paged_write=None, attn_implementation=None, segment_ids=None):
+                paged_write=None, attn_implementation=None, segment_ids=None,
+                adapter_ids=None, lora=None):
         attn = self.self_attn(self.input_layernorm(x), positions, cos, sin, cache,
                               cache_write_mask, paged_write, attn_implementation,
-                              segment_ids)
+                              segment_ids, adapter_ids, lora)
         new_cache = None
         if cache is not None:
             attn, new_cache = attn
         h = x + attn
-        out = h + self.mlp(self.post_attention_layernorm(h))
+        out = h + self.mlp(self.post_attention_layernorm(h), adapter_ids, lora)
         return (out, new_cache) if cache is not None else out
 
 
@@ -571,19 +581,27 @@ class LMHead(nn.Module):
     torch.float32)``), so the logits are never rounded to bf16 — the JAX
     head's ``preferred_element_type=float32``.  On the CPU the operands are
     widened to f32 first (bf16 values are exact in f32), which computes the
-    same sums."""
+    same sums.  With ``lm_head`` a LoRA target, the f32 logits take the
+    adapter delta (JAX :731-737)."""
 
     def __init__(self, hidden: int, vocab_size: int, dtype: torch.dtype):
         super().__init__()
+        self.in_features = hidden
+        self.out_features = vocab_size
+        self.lora_key: Optional[str] = None   # the module name, set by the owning model
         self.weight = nn.Parameter(torch.empty(vocab_size, hidden, dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, adapter_ids=None, lora=None):
         x2 = x.reshape(-1, x.shape[-1]).to(self.weight.dtype)
         if x2.device.type == "cuda" and self.weight.dtype != torch.float32:
             y = torch.mm(x2, self.weight.t(), out_dtype=torch.float32)
         else:
             y = x2.float() @ self.weight.float().t()
-        return y.reshape(*x.shape[:-1], -1)
+        y = y.reshape(*x.shape[:-1], -1)
+        entry = lora.get(self.lora_key) if (adapter_ids is not None and lora) else None
+        if entry is not None:
+            y = lora_apply(x, y, entry["a"], entry["b"], adapter_ids)
+        return y
 
 
 class _LlamaModel(nn.Module):
@@ -598,7 +616,7 @@ class _LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """Decoder LM.  ``forward(input_ids, positions=None, segment_ids=None,
     output_hidden=False, cache=None, cache_write_mask=None,
-    attn_implementation=None)`` returns f32 logits ``[B, T, V]`` — or the
+    attn_implementation=None, adapter_ids=None, lora=None)`` returns f32 logits ``[B, T, V]`` — or the
     final-norm hidden states ``[B, T, H]`` with ``output_hidden`` (the fused
     linear + CE loss applies the head itself) — or ``(logits, new_cache)``
     with a cache (dense from :func:`init_cache`, or the per-layer paged
@@ -606,7 +624,9 @@ class LlamaForCausalLM(nn.Module):
     ``new_cache`` holds the same tensors.  ``segment_ids`` [B, T] masks
     cross-segment attention (packed sequences, uncached forward only).
     ``attn_implementation`` overrides the config's for one call (the
-    serving engine's ``decode_kernel``).
+    serving engine's ``decode_kernel``).  ``adapter_ids`` [B] and the
+    adapter pool ``lora`` route each row through its LoRA adapter (id 0:
+    the base model, bitwise).
 
     Built on ``device`` (``"cuda"`` unless the caller asks for the CPU)
     with random weights from ``seed``; ``load_state_dict`` replaces them
@@ -625,6 +645,9 @@ class LlamaForCausalLM(nn.Module):
                                     config.rope_theta)
         self.register_buffer("rope_cos", torch.from_numpy(cos).to(dev), persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(dev), persistent=False)
+        for name, mod in self.named_modules():
+            if isinstance(mod, (QuantizableDense, LMHead)):
+                mod.lora_key = name
         self._init_weights(seed)
 
     @property
@@ -655,7 +678,8 @@ class LlamaForCausalLM(nn.Module):
             p.copy_(torch.randn(p.shape, generator=gen, device=self.device) * std)
 
     def forward(self, input_ids, positions=None, segment_ids=None, output_hidden: bool = False,
-                cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None):
+                cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None,
+                adapter_ids=None, lora: Optional[dict] = None):
         b, t = input_ids.shape
         if positions is None:
             base = torch.arange(t, device=input_ids.device)
@@ -678,15 +702,16 @@ class LlamaForCausalLM(nn.Module):
             if cache is not None:
                 x, layer_cache = layer(x, positions, self.rope_cos, self.rope_sin,
                                        cache[i], cache_write_mask, paged_write,
-                                       attn_implementation)
+                                       attn_implementation, adapter_ids=adapter_ids, lora=lora)
                 new_cache.append(layer_cache)
             else:
                 x = layer(x, positions, self.rope_cos, self.rope_sin,
-                          attn_implementation=attn_implementation, segment_ids=segment_ids)
+                          attn_implementation=attn_implementation, segment_ids=segment_ids,
+                          adapter_ids=adapter_ids, lora=lora)
         x = self.model.norm(x)
         if output_hidden:
             return (x, new_cache) if cache is not None else x
-        logits = self.lm_head(x)
+        logits = self.lm_head(x, adapter_ids, lora)
         return (logits, new_cache) if cache is not None else logits
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with
 a plain C interface, bound with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds).  The library lands in ``build/`` at the root of the
-checkout, named by a hash of its source and flags, at the first call that
-needs it; later calls and later processes reuse it.  Nothing here runs at
+checkout, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, at the first call that needs it; later
+calls and later processes reuse it.  Nothing here runs at
 import time: the CPU tests import every module of the port and have no
 ``nvcc``.
 """
@@ -47,7 +48,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

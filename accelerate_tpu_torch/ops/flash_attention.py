@@ -31,6 +31,14 @@ scales, the two paged wrappers hand over to
 (#7, ``_paged_multitoken_kernel_quant``), which count their own launches.
 Codes widen to ``f32(code) * (amax / QMAX)`` (JAX ``_dequant_tile`` :579;
 QMAX 127 for int8, 448 for e4m3).
+
+:func:`fused_bgmv_paged_decode` (JAX :1011) is decode with a per-slot LoRA
+query delta folded in: the delta ``(x . A[id]) . B[id]`` in f32, roped at
+the slot's position, added to the pre-roped base query in an f32 tile,
+then the decode page loop — kernel #8 (JAX ``_fused_bgmv_decode_kernel``)
+over bf16 pages, #9 (``_fused_bgmv_decode_kernel_quant``) over quantized
+pages.  Like JAX's engine, the port's engine does not call it; it is a
+public op of its own.
 """
 
 from __future__ import annotations
@@ -54,7 +62,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCH = ([_I] + [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)
 # the same with k_scales, v_scales after v_pages
 _QLAUNCH = ([_I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)
+# device, q_base, x, a_stack, b_stack, ids, cos, sin, k_pages, v_pages,
+# k_scales, v_scales, block_tables, positions, out, then S H Hkv D P page n
+# d_in r N max_len, sm_scale and the stream
+_FUSED_LAUNCH = ([_I] + [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P], _I)
 _SIGNATURES = {
+    **{f"fused_bgmv_paged_decode_{suffix}": _FUSED_LAUNCH for suffix in ("bf16", "int8", "fp8")},
     "paged_decode_attention_bf16": _LAUNCH,
     "paged_multitoken_attention_bf16": _LAUNCH,
     **{f"paged_{kind}_attention_{suffix}": _QLAUNCH
@@ -320,6 +333,152 @@ paged_multitoken_attention_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Fused LoRA query + paged decode (kernels #8, #9)
+# ---------------------------------------------------------------------------
+
+FUSED_MAX_RANK = 64
+
+
+def _fused_geometry(x, q_base, a_stack, b_stack, k_pages):
+    """JAX's argument checks (:1051, :1056-1059)."""
+    s_slots, h, d = q_base.shape
+    hkv = k_pages.shape[0]
+    if h % hkv != 0:
+        raise ValueError(f"num q heads {h} not divisible by kv heads {hkv}")
+    num_adapters, _, rank = a_stack.shape
+    if tuple(b_stack.shape) != (num_adapters, rank, h * d):
+        raise ValueError(
+            f"b_stack shape {tuple(b_stack.shape)} != {(num_adapters, rank, h * d)}"
+        )
+    return s_slots, h, d, hkv, num_adapters, rank
+
+
+def fused_bgmv_paged_decode_plain(x, q_base, a_stack, b_stack, adapter_ids, cos, sin,
+                                  k_pages, v_pages, block_tables, positions, *,
+                                  k_scales=None, v_scales=None,
+                                  sm_scale: Optional[float] = None):
+    """Plain PyTorch version of kernels #8 / #9 with their roundings: the
+    delta ``(x . A[id]) . B[id]`` in f32, roped split-half in f32 at
+    ``clamp(pos, 0, max_len - 1)``, ``q = f32(q_base) + gate * delta``
+    (``gate = (id != 0)``), then :func:`paged_decode_attention_plain` on that
+    f32 ``q``, which it never rounds.  Returns ``q_base.dtype``."""
+    s_slots, h, d, _, _, _ = _fused_geometry(x, q_base, a_stack, b_stack, k_pages)
+    ids = adapter_ids.long()
+    hl = torch.bmm(x.float()[:, None], a_stack[ids].float())           # [S, 1, r]
+    delta = torch.bmm(hl, b_stack[ids].float())[:, 0].reshape(s_slots, h, d)
+    p = positions.long().clamp(0, cos.shape[0] - 1)
+    c, sn = cos.float()[p][:, None], sin.float()[p][:, None]             # [S, 1, D/2]
+    d1, d2 = delta.chunk(2, dim=-1)
+    roped = torch.cat([d1 * c - d2 * sn, d2 * c + d1 * sn], dim=-1)
+    gate = (ids != 0).float()[:, None, None]
+    q = q_base.float() + gate * roped
+    return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, positions,
+                                        k_scales=k_scales, v_scales=v_scales,
+                                        sm_scale=sm_scale).to(q_base.dtype)
+
+
+def _run_fused(name, x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages, v_pages,
+               block_tables, positions, k_scales, v_scales, sm_scale):
+    """The fused wrappers' body: the plain version on a CPU tensor; on a
+    CUDA tensor, checks the operands, launches
+    ``fused_bgmv_paged_decode_{bf16,int8,fp8}`` on the current stream and
+    counts the launch on the wrapper ``name``."""
+    s_slots, h, d, hkv, num_adapters, rank = _fused_geometry(x, q_base, a_stack, b_stack,
+                                                             k_pages)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: pass both k_scales and v_scales, or neither")
+    if q_base.device.type == "cpu":
+        return fused_bgmv_paged_decode_plain(
+            x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages, v_pages,
+            block_tables, positions, k_scales=k_scales, v_scales=v_scales, sm_scale=sm_scale)
+    if q_base.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q_base.device}")
+    _check_kernel_operands(name, q_base, k_pages, v_pages, block_tables, positions,
+                           k_scales, v_scales)
+    dev = q_base.device
+    for label, t, dtype in (("x", x, torch.bfloat16), ("a_stack", a_stack, torch.bfloat16),
+                            ("b_stack", b_stack, torch.bfloat16),
+                            ("adapter_ids", adapter_ids, torch.int32),
+                            ("cos", cos, torch.float32), ("sin", sin, torch.float32)):
+        if t.device != dev or not t.is_contiguous() or t.dtype != dtype:
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} tensor on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+    d_in = x.shape[1]
+    max_len = cos.shape[0]
+    if (tuple(x.shape) != (s_slots, d_in) or a_stack.shape[1] != d_in
+            or tuple(adapter_ids.shape) != (s_slots,) or tuple(positions.shape) != (s_slots,)
+            or block_tables.shape[0] != s_slots
+            or tuple(cos.shape) != (max_len, d // 2) or tuple(sin.shape) != (max_len, d // 2)):
+        raise ValueError(f"{name}: operand shapes do not fit q_base {tuple(q_base.shape)}")
+    if rank > FUSED_MAX_RANK:
+        raise ValueError(f"{name}: the CUDA kernel takes rank <= {FUSED_MAX_RANK}, got {rank}")
+    _, num_pages, page_size, n = _geometry(h, k_pages, block_tables, d)
+    out = torch.empty_like(q_base)
+    quantized = k_scales is not None
+    suffix = _KV_SUFFIX[k_pages.dtype] if quantized else "bf16"
+    err = getattr(_lib(), f"fused_bgmv_paged_decode_{suffix}")(
+        dev.index or 0, q_base.data_ptr(), x.data_ptr(), a_stack.data_ptr(),
+        b_stack.data_ptr(), adapter_ids.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quantized else None, v_scales.data_ptr() if quantized else None,
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        s_slots, h, hkv, d, num_pages, page_size, n, d_in, rank, num_adapters, max_len,
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        msg = _lib().paged_attention_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+    _WRAPPERS[name].launches += 1
+    return out
+
+
+def fused_bgmv_paged_decode(x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages,
+                            v_pages, block_tables, positions, *, k_scales=None, v_scales=None,
+                            sm_scale: Optional[float] = None):
+    """Fused per-tenant LoRA query projection + paged decode attention (JAX
+    ``fused_bgmv_paged_decode``): kernel #8.
+
+    x: ``[S, d_in]`` attention input (post-norm hidden states); q_base:
+    ``[S, H, D]`` base queries, already roped; a_stack ``[N, d_in, r]``;
+    b_stack ``[N, r, H*D]`` (the AdapterStore pool layout, row 0 the id-0
+    base slot); adapter_ids ``[S]`` int32; cos/sin ``[max_len, D/2]`` f32
+    rope tables (dead slots' positions clamp to the table); the rest as in
+    :func:`paged_decode_attention`.  Quantized pages pass ``k_scales`` /
+    ``v_scales`` and go to :func:`fused_bgmv_paged_decode_quant` (#9).
+    Returns ``[S, H, D]`` in ``q_base.dtype``.
+
+    CUDA tensors launch ``fused_bgmv_paged_decode_bf16``
+    (``csrc/paged_attention.cu``; bf16 operands, r <= 64); CPU tensors run
+    :func:`fused_bgmv_paged_decode_plain`."""
+    if k_scales is not None or v_scales is not None:
+        return fused_bgmv_paged_decode_quant(
+            x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages, v_pages,
+            block_tables, positions, k_scales=k_scales, v_scales=v_scales, sm_scale=sm_scale)
+    return _run_fused("fused_bgmv_paged_decode", x, q_base, a_stack, b_stack, adapter_ids,
+                      cos, sin, k_pages, v_pages, block_tables, positions, None, None, sm_scale)
+
+
+fused_bgmv_paged_decode.launches = 0
+
+
+def fused_bgmv_paged_decode_quant(x, q_base, a_stack, b_stack, adapter_ids, cos, sin,
+                                  k_pages, v_pages, block_tables, positions, *, k_scales,
+                                  v_scales, sm_scale: Optional[float] = None):
+    """Kernel #9 (JAX ``_fused_bgmv_decode_kernel_quant``): the fused op over
+    int8 / e4m3 pages with their per-(kv head, page) amaxes.  CUDA tensors
+    launch ``fused_bgmv_paged_decode_{int8,fp8}``; CPU tensors run
+    :func:`fused_bgmv_paged_decode_plain` with the scales."""
+    return _run_fused("fused_bgmv_paged_decode_quant", x, q_base, a_stack, b_stack,
+                      adapter_ids, cos, sin, k_pages, v_pages, block_tables, positions,
+                      k_scales, v_scales, sm_scale)
+
+
+fused_bgmv_paged_decode_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Flash attention (kernels #1-#3)
 # ---------------------------------------------------------------------------
 
@@ -566,7 +725,8 @@ flash_dkv.launches = 0
 # wrapper's module name neither takes nor hides a launch
 _WRAPPERS = {fn.__name__: fn for fn in (
     paged_decode_attention, paged_multitoken_attention, paged_decode_attention_quant,
-    paged_multitoken_attention_quant, flash_fwd, flash_dq, flash_dkv)}
+    paged_multitoken_attention_quant, fused_bgmv_paged_decode, fused_bgmv_paged_decode_quant,
+    flash_fwd, flash_dq, flash_dkv)}
 
 
 class _Flash(torch.autograd.Function):

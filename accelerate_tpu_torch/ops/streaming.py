@@ -1,0 +1,289 @@
+"""Host-to-device streaming: byte accounting and the layer prefetcher
+(mirrors the part of ``accelerate_tpu/ops/streaming.py`` the adapter pool
+needs: ``tree_bytes`` :64, ``HOST_BYTES_PER_PARAM`` :81, ``StreamStats``
+:92, ``predicted_overlap`` :148, ``LayerPrefetcher`` :304).
+
+On the card an upload is a copy from pinned host memory with
+``non_blocking=True`` on a side CUDA stream (:func:`stage_tree`): the
+copy runs while the compute stream works, an event marks its end, and
+:meth:`StagedTree.wait` makes the compute stream (not the host) wait on
+that event before the tree is read.  On the CPU a "staged" tree is the
+host tree itself.  The chunked optimizer offload and ``generate_streamed``
+of the JAX module are ROADMAP items A12 / A9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..resilience.retry import DEFAULT_POLICY, RetryPolicy, with_retries
+
+# ---------------------------------------------------------------------------
+# Byte accounting
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    """Total payload bytes of a tree's tensor / numpy leaves (nested dicts,
+    lists and tuples; a :class:`StagedTree` counts its device tree)."""
+    if isinstance(tree, StagedTree):
+        tree = tree.tree
+    total = 0
+    for leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif hasattr(leaf, "nbytes"):
+            total += int(leaf.nbytes)
+    return total
+
+
+# Host bytes touched per param per offloaded step, by optimizer recipe (the
+# JAX package's host-byte ladder; the denominator of the per-adapter state
+# accounting in ``ops/lora.py``).
+HOST_BYTES_PER_PARAM: dict[str, float] = {
+    "adamw": 28.0,
+    "lion": 16.0,
+    "adamw-sr": 14.0,
+    "lion-sr": 10.0,
+    "adamw-sr8": 10.1,
+    "lion-sr8": 8.1,
+}
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Overlap accounting for one streaming run (JAX's fields, less the
+    collective-matmul plane's ``ici_bytes`` / ``tp_overlap_frac``: ROADMAP
+    item A13).
+
+    ``h2d_bytes``/``d2h_bytes`` are exact (summed from leaf bytes);
+    ``fetch_wait_s`` is the host time spent waiting on an in-flight
+    transfer — on the card the compute stream waits on the copy's event and
+    the host does not, so it stays near 0 there; ``prefetch_hits`` counts
+    fetches that were already in flight when requested."""
+
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    fetches: int = 0
+    prefetch_hits: int = 0
+    fetch_wait_s: float = 0.0
+    wall_s: float = 0.0
+    transfer_retries: int = 0
+
+    def overlap_report(self, serial_transfer_s: Optional[float] = None) -> dict:
+        rep = {
+            "h2d_bytes": int(self.h2d_bytes),
+            "d2h_bytes": int(self.d2h_bytes),
+            "fetches": self.fetches,
+            "prefetch_hits": self.prefetch_hits,
+            "fetch_wait_s": round(self.fetch_wait_s, 4),
+            "wall_s": round(self.wall_s, 4),
+        }
+        if self.wall_s > 0:
+            rep["stall_frac"] = round(self.fetch_wait_s / self.wall_s, 4)
+        if serial_transfer_s:
+            rep["overlap_frac"] = round(
+                max(0.0, 1.0 - self.fetch_wait_s / serial_transfer_s), 4
+            )
+        if self.transfer_retries:
+            rep["transfer_retries"] = self.transfer_retries
+        return rep
+
+
+def predicted_overlap(transfer_s: float, compute_s: float) -> float:
+    """Fraction of serial transfer time a perfect double buffer hides: the
+    transfer can only disappear under compute that exists to hide it."""
+    if transfer_s <= 0:
+        return 1.0
+    return min(1.0, max(0.0, compute_s / transfer_s))
+
+
+# ---------------------------------------------------------------------------
+# Staging on a side stream
+# ---------------------------------------------------------------------------
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+@dataclasses.dataclass
+class StagedTree:
+    """A device tree whose upload may still be in flight: ``event`` marks
+    the end of its copy on the side stream (None on the CPU), ``source``
+    holds the pinned host tensors the copy reads until it has ended."""
+
+    tree: Any
+    event: Optional[torch.cuda.Event] = None
+    source: Any = None
+    device: Optional[torch.device] = None
+
+    def wait(self) -> Any:
+        """Make the current stream wait on the copy (the host does not
+        wait) and return the device tree."""
+        if self.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.event)
+        return self.tree
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device=key)
+    return _SIDE_STREAMS[key]
+
+
+def stage_tree(host_tree, device) -> StagedTree:
+    """Start the upload of ``host_tree`` (nested dict of CPU tensors) to
+    ``device``.  On the card: each leaf is pinned (a copy, unless it already
+    is), the device buffers are allocated on the current stream, and the
+    copies run with ``non_blocking=True`` on a side stream that first waits
+    for the current stream; each buffer is marked as used by the side
+    stream, so the allocator never hands it out while its copy is in
+    flight, even if the staged tree is dropped unread.  On the CPU the
+    tree is returned as it is."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return StagedTree(_map(host_tree, lambda t: t.to(device)))
+    source = _map(host_tree, lambda t: t if t.is_pinned() else t.pin_memory())
+    dest = _map(source, lambda t: torch.empty(t.shape, dtype=t.dtype, device=device))
+    side = _side_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for src, dst in zip(_leaves(source), _leaves(dest)):
+            dst.copy_(src, non_blocking=True)
+            dst.record_stream(side)
+        event = torch.cuda.Event()
+        event.record(side)
+    return StagedTree(dest, event, source, device)
+
+
+# ---------------------------------------------------------------------------
+# The layer prefetcher
+# ---------------------------------------------------------------------------
+
+
+class LayerPrefetcher:
+    """Host-driven double buffer over per-layer weight trees (JAX
+    ``LayerPrefetcher``).
+
+    ``fetch(i)`` must *dispatch* the upload of layer ``i``'s tree and
+    return at once — a :class:`StagedTree` from :func:`stage_tree`, or a
+    plain tree.  ``get(i)`` first issues the prefetch of the next ``depth``
+    layers, then resolves layer ``i``: for a staged tree, the current
+    stream waits on its copy.  ``depth=0`` keeps the slots but no sequential
+    lookahead: the caller prefetches explicitly (:meth:`prefetch`), as the
+    adapter pool does for the scheduler's waiting queue.  ``enabled=False``
+    degrades to a fetch per ``get`` whose copy the host waits for.
+
+    A resolved tree's pinned source stays referenced until its copy has
+    ended.  ``retry_policy`` bounds re-attempts of a failing ``fetch``
+    (None: fail on the first error).
+    """
+
+    def __init__(self, fetch: Callable[[int], Any], n_layers: int, *,
+                 depth: int = 1, enabled: bool = True,
+                 stats: Optional[StreamStats] = None,
+                 retry_policy: Optional[RetryPolicy] = DEFAULT_POLICY):
+        if n_layers < 1:
+            raise ValueError(f"n_layers must be >= 1, got {n_layers}")
+        if depth < 0:
+            raise ValueError(f"depth must be >= 0, got {depth}")
+        self.fetch = fetch
+        self.n_layers = n_layers
+        self.depth = depth
+        self.enabled = enabled
+        self.stats = stats
+        self.retry_policy = retry_policy
+        self._slots: dict[int, Any] = {}
+        self._in_flight: list[StagedTree] = []
+
+    def _on_retry(self, site, attempt, exc):
+        if self.stats is not None:
+            self.stats.transfer_retries += 1
+
+    def _issue(self, i: int):
+        if self.retry_policy is not None:
+            tree = with_retries(self.fetch, i, policy=self.retry_policy,
+                                site=f"layer-prefetch[{i}]", on_retry=self._on_retry)
+        else:
+            tree = self.fetch(i)
+        if self.stats is not None:
+            self.stats.h2d_bytes += tree_bytes(tree)
+            self.stats.fetches += 1
+        return tree
+
+    def _resolve(self, tree, block: bool):
+        if not isinstance(tree, StagedTree):
+            return tree
+        t0 = time.perf_counter()
+        if block and tree.event is not None:
+            tree.event.synchronize()
+        out = tree.wait()
+        if self.stats is not None:
+            self.stats.fetch_wait_s += time.perf_counter() - t0
+        self._in_flight = [s for s in self._in_flight if not s.done()]
+        if not tree.done():
+            self._in_flight.append(tree)   # keeps its pinned source alive
+        return out
+
+    def get(self, i: int):
+        """The device tree for layer ``i``; issues the next prefetches first."""
+        if not (0 <= i < self.n_layers):
+            raise IndexError(f"layer {i} out of range [0, {self.n_layers})")
+        if not self.enabled:
+            return self._resolve(self._issue(i), block=True)
+        tree = self._slots.pop(i, None)
+        if tree is None:
+            # cold miss: issue the layer needed now before any lookahead
+            tree = self._issue(i)
+        elif self.stats is not None:
+            self.stats.prefetch_hits += 1
+        for d in range(1, self.depth + 1):
+            j = i + d
+            if j < self.n_layers and j not in self._slots:
+                self._slots[j] = self._issue(j)
+        return self._resolve(tree, block=False)
+
+    def prefetch(self, i: int) -> bool:
+        """Dispatch layer ``i``'s upload now without waiting for it.  Returns
+        True when a transfer was issued (False: already in flight, or
+        prefetch disabled)."""
+        if not (0 <= i < self.n_layers):
+            raise IndexError(f"layer {i} out of range [0, {self.n_layers})")
+        if not self.enabled or i in self._slots:
+            return False
+        self._slots[i] = self._issue(i)
+        return True
+
+    def invalidate(self, i: int) -> None:
+        """Discard layer ``i``'s staged upload if one is in flight — its
+        source changed, so the staged copy must never be served."""
+        self._slots.pop(i, None)
+
+    def drop(self):
+        """Release every staged upload."""
+        self._slots.clear()

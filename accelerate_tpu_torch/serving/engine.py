@@ -21,14 +21,23 @@ pages (JAX :52-68), the model quantizes on write and the paged kernels #5 /
 #7 read the codes.  A model quantized with ``quantize_model_`` (int8
 weights) serves through the W8A16 kernels #11 / #12 the same way.
 
-Speculative decode, prefix caching, multi-tenant adapters, telemetry spans,
-fault plans and the overload ladder are later items of ROADMAP Queue A
-(A11); the engine raises ``NotImplementedError`` when a plugin switches one
-on.
+Multi-tenant LoRA (``adapters=AdapterStore(...)``, JAX :598-606,
+:666-687, :922-930): the scheduler pins each request's adapter on
+admission; every decode step hands the model the per-slot pool slots
+(built on the host, checked there against the pool and uploaded once per
+tick, never read back) and the store's pool, every prefill chunk its
+slot's pool slot.  The LoRA products run under the store's
+``LoraPlugin.kernel`` mode: ``"auto"`` takes kernel #10 (``bgmv``) on
+decode, the gathered product on prefill chunks.
+
+Speculative decode, prefix caching, telemetry spans, fault plans and the
+overload ladder are later items of ROADMAP Queue A (A11); the engine
+raises ``NotImplementedError`` when a plugin switches one on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -37,6 +46,7 @@ import torch
 
 from ..generation import GenerationConfig, sample_logits
 from ..models.llama import init_paged_cache
+from ..ops.lora import lora_kernel
 from ..utils.dataclasses import ServingPlugin
 from ..utils.device import resolve_device
 from .paged_cache import allocate, release
@@ -68,13 +78,16 @@ class ServingEngine:
 
     ``device`` defaults to ``"cuda"`` (raises without one); the model must
     live there.  ``seed`` seeds the per-step sampling generator.
+    ``adapters`` (an :class:`~.adapters.AdapterStore` over this model, on
+    the engine's device) turns on multi-tenant LoRA: requests carry an
+    ``adapter_id``.
     ``run(trace)`` replays a list of :class:`~.scheduler.Request` with
     virtual-time arrivals.
     """
 
     def __init__(self, model, plugin: Optional[ServingPlugin] = None,
                  generation_config: Optional[GenerationConfig] = None, *,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, adapters=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type or (
                 self.device.index is not None and model.device.index != self.device.index):
@@ -87,12 +100,19 @@ class ServingEngine:
         # versions on a CPU tensor; "native" only when asked for
         self.attn_implementation = "flash" if p.decode_kernel == "auto" else p.decode_kernel
         self.model = model
+        self.adapters = adapters
+        if adapters is not None and (adapters.device.type != self.device.type or (
+                adapters.device.index is not None and self.device.index is not None
+                and adapters.device.index != self.device.index)):
+            raise ValueError(f"the adapter pool lives on {adapters.device}, the engine "
+                             f"on {self.device}")
         self.cache = init_paged_cache(model.config, p.num_pages, p.page_size,
                                       p.num_slots, p.pages_per_slot, kv_dtype=p.kv_dtype,
                                       device=self.device)
         self.sched = ContinuousBatchingScheduler(
             p.num_slots, p.num_pages, p.page_size, p.pages_per_slot,
-            p.prefill_chunk, p.prefill_buckets,
+            p.prefill_chunk, p.prefill_buckets, adapters=adapters,
+            max_bypass_age=adapters.plugin.max_bypass_age if adapters is not None else 16,
         )
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
@@ -117,16 +137,36 @@ class ServingEngine:
 
     # -- device steps (in place on self.cache) --------------------------------
 
+    def _lora_args(self, ids: np.ndarray) -> dict:
+        """The model's LoRA keywords for per-row pool slots ``ids`` (none
+        without a store): the ids, checked against the pool on the host and
+        uploaded once, and the pool itself."""
+        if self.adapters is None:
+            return {}
+        pool_slots = self.adapters.plugin.pool_slots
+        if ids.size and (int(ids.min()) < 0 or int(ids.max()) > pool_slots):
+            raise ValueError(f"adapter pool slots {ids.tolist()} outside [0, {pool_slots}]")
+        return {"adapter_ids": torch.from_numpy(ids).to(self.device),
+                "lora": self.adapters.pool}
+
+    def _lora_scope(self):
+        if self.adapters is None:
+            return contextlib.nullcontext()
+        return lora_kernel(self.adapters.plugin.kernel)
+
     def _layer_caches(self, block_tables):
         """Each layer's model-facing cache: its pages (and, quantized,
         their scales) with this step's block tables."""
         return [{**layer, "block_tables": block_tables} for layer in self.cache["layers"]]
 
     @torch.inference_mode()
-    def decode_step(self, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
+    def decode_step(self, tokens: np.ndarray, active: np.ndarray,
+                    adapter_slots: Optional[np.ndarray] = None) -> torch.Tensor:
         """One token for every slot at once; dead slots write nowhere and
         their sampled token is ignored.  Pops a page for each active slot
-        whose next position starts one.  Returns the sampled tokens [S]."""
+        whose next position starts one.  ``adapter_slots`` [S]: each slot's
+        adapter pool slot (multi-tenant mode; zeros when None).  Returns the
+        sampled tokens [S]."""
         cache, page = self.cache, self.plugin.page_size
         tokens_t = torch.from_numpy(tokens).to(self.device)
         active_t = torch.from_numpy(active).to(self.device)
@@ -137,21 +177,26 @@ class ServingEngine:
             cache["block_tables"], cache["free_stack"], cache["free_top"],
             torch.arange(n_slots, device=self.device), pos // page, need,
         )
-        logits, _ = self.model(
-            tokens_t[:, None], positions=pos[:, None],
-            cache=self._layer_caches(block_tables), cache_write_mask=active_t[:, None],
-            attn_implementation=self.attn_implementation,
-        )
+        if adapter_slots is None:
+            adapter_slots = np.zeros((n_slots,), np.int32)
+        with self._lora_scope():
+            logits, _ = self.model(
+                tokens_t[:, None], positions=pos[:, None],
+                cache=self._layer_caches(block_tables), cache_write_mask=active_t[:, None],
+                attn_implementation=self.attn_implementation,
+                **self._lora_args(adapter_slots),
+            )
         next_tok = sample_logits(logits[:, 0], self._step_generator(), self.gen_config)
         cache["seq_lens"] = pos + active_t.to(torch.int32)
         return next_tok
 
     @torch.inference_mode()
     def prefill_step(self, slot: int, chunk_ids: np.ndarray, start: int,
-                     chunk_len: int) -> torch.Tensor:
-        """One bucket-padded chunk of one sequence's prompt.  Returns the
-        logits of the chunk's last real token (the decode-loop seed once
-        the prompt completes)."""
+                     chunk_len: int, adapter_slot: int = 0) -> torch.Tensor:
+        """One bucket-padded chunk of one sequence's prompt, through the
+        sequence's adapter pool slot ``adapter_slot`` in multi-tenant mode.
+        Returns the logits of the chunk's last real token (the decode-loop
+        seed once the prompt completes)."""
         cache, page = self.cache, self.plugin.page_size
         width = chunk_ids.shape[0]
         lane = torch.arange(width, device=self.device, dtype=torch.int32)
@@ -162,11 +207,13 @@ class ServingEngine:
             cache["block_tables"], cache["free_stack"], cache["free_top"],
             torch.full((width,), slot, device=self.device), positions // page, need,
         )
-        logits, _ = self.model(
-            torch.from_numpy(chunk_ids).to(self.device)[None], positions=positions[None],
-            cache=self._layer_caches(block_tables[slot:slot + 1]),
-            cache_write_mask=wmask[None], attn_implementation=self.attn_implementation,
-        )
+        with self._lora_scope():
+            logits, _ = self.model(
+                torch.from_numpy(chunk_ids).to(self.device)[None], positions=positions[None],
+                cache=self._layer_caches(block_tables[slot:slot + 1]),
+                cache_write_mask=wmask[None], attn_implementation=self.attn_implementation,
+                **self._lora_args(np.asarray([adapter_slot], np.int32)),
+            )
         cache["seq_lens"][slot] = start + chunk_len
         return logits[0, chunk_len - 1]
 
@@ -204,9 +251,10 @@ class ServingEngine:
         """Run every device step once before taking traffic — decode,
         release and each bucket's prefill (plus the first-token sampler) —
         as no-ops: decode with zero active slots, a zero-length chunk into
-        an idle slot, an empty release mask.  This builds the CUDA kernels
-        and brings up cuBLAS before the first request's clock starts.
-        Tokens are never recorded and ``steps`` does not advance."""
+        an idle slot, an empty release mask — and, in multi-tenant mode, one
+        insert into the adapter pool's null slot.  This builds the CUDA
+        kernels and brings up cuBLAS before the first request's clock
+        starts.  Tokens are never recorded and ``steps`` does not advance."""
         if self.sched.slots:
             raise RuntimeError("warmup() must run before any traffic is admitted")
         n = self.plugin.num_slots
@@ -218,6 +266,8 @@ class ServingEngine:
             self.sample_first(last)
         self.release_step(np.zeros((n,), bool))
         self.decode_step(np.zeros((n,), np.int32), np.zeros((n,), bool))
+        if self.adapters is not None:
+            self.adapters.warmup_insert()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmed_up = True
@@ -236,7 +286,7 @@ class ServingEngine:
                 st = self.sched.slots[slot]
                 ids = np.zeros((bucket,), np.int32)
                 ids[:chunk] = st.request.prompt[start:start + chunk]
-                last = self.prefill_step(slot, ids, start, chunk)
+                last = self.prefill_step(slot, ids, start, chunk, st.adapter_slot)
                 self.sched.note_prefill(slot, chunk)
                 m["prefill_steps"] += 1
                 m["prefill_scheduled_tokens"] += bucket
@@ -259,10 +309,12 @@ class ServingEngine:
                 n = self.plugin.num_slots
                 tokens = np.zeros((n,), np.int32)
                 active = np.zeros((n,), bool)
+                adapter_slots = np.zeros((n,), np.int32)
                 for s in active_slots:
                     tokens[s] = self.sched.slots[s].tokens[-1]
                     active[s] = True
-                next_tok = self.decode_step(tokens, active)
+                    adapter_slots[s] = self.sched.slots[s].adapter_slot
+                next_tok = self.decode_step(tokens, active, adapter_slots)
                 self.sched.note_decode(needing)
                 next_np = next_tok.cpu().numpy()  # the tick's one host sync
                 done_slots = [s for s in active_slots

@@ -1,12 +1,13 @@
 """Traffic replay (mirrors ``accelerate_tpu/serving/harness.py``:
-``synthesize_trace`` :32, ``replay`` :263).
+``synthesize_trace`` :32, ``replay`` :263, ``_adapter_fields`` :612).
 
 Replays a seeded request trace (Poisson arrivals in virtual engine-step
 time, mixed prompt/output lengths) through a
 :class:`~.engine.ServingEngine` and reports the serving metrics users feel:
 tokens per second, time to first token and the per-token latency, in wall
-time.  The JAX harness's prefix, speculation, adapter and digital-twin
-fields belong to later slices.
+time, and the multi-tenant adapter pool's fields.  The JAX harness's
+prefix, speculation, overload and digital-twin fields belong to ROADMAP
+item A11 (the twin registry to A14).
 """
 
 from __future__ import annotations
@@ -27,11 +28,14 @@ def synthesize_trace(
     mean_interarrival_steps: float = 2.0,
     prompt_len_range: tuple = (4, 24),
     new_tokens_range: tuple = (2, 16),
+    adapters: int = 0,
 ) -> list[Request]:
     """A deterministic request trace: exponential gaps in virtual
-    engine-step time, uniformly mixed prompt/output lengths.  Same seed ->
-    the same trace as the JAX package's ``synthesize_trace`` with its
-    adapter, deadline and prefix options off."""
+    engine-step time, uniformly mixed prompt/output lengths.  With
+    ``adapters=N`` each request draws a tenant ``adapter_id`` uniformly
+    from ``0..N`` (id 0: the base model), after its prompt, as JAX draws
+    it.  Same seed -> the same trace as the JAX package's
+    ``synthesize_trace`` with its deadline and prefix options off."""
     rng = np.random.default_rng(seed)
     trace = []
     t = 0.0
@@ -40,8 +44,9 @@ def synthesize_trace(
         p_len = int(rng.integers(prompt_len_range[0], prompt_len_range[1] + 1))
         n_new = int(rng.integers(new_tokens_range[0], new_tokens_range[1] + 1))
         prompt = tuple(int(x) for x in rng.integers(1, vocab_size, p_len))
+        adapter_id = int(rng.integers(0, adapters + 1)) if adapters > 0 else 0
         trace.append(Request(uid=uid, prompt=prompt, max_new_tokens=n_new,
-                             arrival_step=int(t)))
+                             arrival_step=int(t), adapter_id=adapter_id))
     return trace
 
 
@@ -49,6 +54,36 @@ def _percentile_ms(samples: list, q: float) -> float:
     if not samples:
         return 0.0
     return float(np.percentile(np.asarray(samples), q)) * 1e3
+
+
+def _adapter_fields(engine, trace: list[Request]) -> dict:
+    """The multi-tenant block of the serving report (JAX
+    ``_adapter_fields``, without the twin registry): the pool's measured
+    hit rate beside its LRU-replay prediction, swaps and swap bytes, and the
+    trace's tenant census.  Zeros without a store."""
+    store = getattr(engine, "adapters", None)
+    tenant_ids = [r.adapter_id for r in sorted(trace, key=lambda r: (r.arrival_step, r.uid))]
+    if store is None:
+        return {
+            "adapters": 0, "adapter_requests": 0,
+            "adapter_pool_slots": 0, "lora_rank": 0,
+            "adapter_pool_hit_rate": 0.0,
+            "adapter_pool_hit_rate_predicted": 0.0,
+            "adapter_swaps": 0, "adapter_swap_bytes": 0,
+        }
+    from .adapters import predicted_adapter_hit_rate
+
+    return {
+        "adapters": len({t for t in tenant_ids if t}),
+        "adapter_requests": sum(1 for t in tenant_ids if t),
+        "adapter_pool_slots": store.plugin.pool_slots,
+        "lora_rank": store.plugin.rank,
+        "adapter_pool_hit_rate": store.hit_rate(),
+        "adapter_pool_hit_rate_predicted": predicted_adapter_hit_rate(
+            tenant_ids, store.plugin.pool_slots),
+        "adapter_swaps": store.swaps,
+        "adapter_swap_bytes": store.swap_bytes,
+    }
 
 
 def replay(engine, trace: list[Request]) -> dict:
@@ -95,4 +130,5 @@ def replay(engine, trace: list[Request]) -> dict:
         "idle_steps": m["idle_steps"],
         "evictions": m["evictions"],
         "num_slots": p.num_slots,
+        **_adapter_fields(engine, trace),
     }

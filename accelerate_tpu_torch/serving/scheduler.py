@@ -12,8 +12,16 @@ pop could underflow.
 
 Policy:
 
-- **Admission**: FIFO.  A waiting request is admitted when a decode slot
-  is free and the pool has pages for its whole prompt.
+- **Admission**: FIFO, with a **bounded-age adapter bypass** in
+  multi-tenant mode.  A waiting request is admitted when a decode slot is
+  free and the pool has pages for its whole prompt; a request carrying an
+  ``adapter_id`` must also have its adapter pin-able in the
+  :class:`~.adapters.AdapterStore` (admission pins it).  When the head of
+  the line is blocked on adapter-pool contention, younger requests whose
+  adapters are resident (or who carry none) may admit past it for at most
+  ``max_bypass_age`` engine ticks; after that the line holds until the
+  head admits.  The first two waiting requests' adapters, and a blocked
+  head's, are prefetched each tick.
 - **Chunked prefill**: admitted prompts prefill in chunks of at most
   ``prefill_chunk`` tokens, padded up to the smallest shape bucket.
 - **Interleave**: prefill and decode alternate whenever both have work.
@@ -21,10 +29,9 @@ Policy:
   youngest admitted sequence is preempted — its pages are released and the
   request requeues at the head of the line (recompute-on-readmit).
 
-The multi-tenant adapter bypass, prefix reuse, speculative reservations
-and the overload controls (bounded queue, shedding, deadlines,
-cancellation) of the JAX scheduler come with ROADMAP Queue A's later
-serving items.
+Prefix reuse, speculative reservations and the overload controls
+(bounded queue, shedding, deadlines, cancellation) of the JAX scheduler
+come with ROADMAP Queue A item A11.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from .paged_cache import pages_for
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request.  ``arrival_step`` is in virtual engine-step
-    time.  ``adapter_id`` and ``deadline_ticks`` keep the JAX fields; any
-    value but 0 is a later slice's feature."""
+    time.  ``adapter_id`` is the requesting tenant's LoRA adapter (0 = the
+    base model); admission maps it to a pool slot through the
+    :class:`~.adapters.AdapterStore`.  ``deadline_ticks`` keeps the JAX
+    field; any value but 0 is ROADMAP item A11."""
 
     uid: int
     prompt: tuple  # int token ids
@@ -62,6 +71,7 @@ class SlotState:
     admit_seq: int                 # monotone admission counter (eviction order)
     prefilled: int = 0             # prompt tokens written so far
     tokens: Optional[list] = None  # generated token ids
+    adapter_slot: int = 0          # device pool slot the request decodes with
 
     def __post_init__(self):
         if self.tokens is None:
@@ -86,29 +96,40 @@ class ContinuousBatchingScheduler:
     stays exact.  ``events`` is the decision log."""
 
     def __init__(self, num_slots: int, num_pages: int, page_size: int,
-                 pages_per_slot: int, prefill_chunk: int, prefill_buckets: tuple):
+                 pages_per_slot: int, prefill_chunk: int, prefill_buckets: tuple,
+                 adapters=None, max_bypass_age: int = 16):
         self.num_slots = num_slots
         self.num_pages = num_pages
         self.page_size = page_size
         self.pages_per_slot = pages_per_slot
         self.prefill_chunk = prefill_chunk
         self.prefill_buckets = tuple(sorted(prefill_buckets))
+        self.adapters = adapters             # AdapterStore (multi-tenant mode)
+        self.max_bypass_age = max_bypass_age
         self.waiting: deque[Request] = deque()
         self.slots: dict[int, SlotState] = {}
         self.free_slots: list[int] = list(range(num_slots))
         self.free_pages = num_pages          # host mirror of the device stack
         self._admit_counter = 0
         self._last_was_prefill = False
+        self._head_block_age = 0             # ticks the line head has been
+        self._head_block_uid = None          # adapter-blocked (fairness bound)
         self.events: list[tuple] = []        # the determinism log
 
     # -- queueing -----------------------------------------------------------
 
     def submit(self, request: Request) -> None:
         if request.adapter_id:
-            raise NotImplementedError(
-                f"request {request.uid} carries adapter_id={request.adapter_id}: "
-                "multi-tenant LoRA serving is ROADMAP Queue A item A11"
-            )
+            if self.adapters is None:
+                raise ValueError(
+                    f"request {request.uid} carries adapter_id="
+                    f"{request.adapter_id} but the engine has no AdapterStore"
+                )
+            if not self.adapters.known(request.adapter_id):
+                raise ValueError(
+                    f"request {request.uid}: adapter {request.adapter_id} "
+                    "was never published to the AdapterStore"
+                )
         if request.deadline_ticks:
             raise NotImplementedError(
                 f"request {request.uid} carries deadline_ticks: deadlines and "
@@ -145,18 +166,68 @@ class ContinuousBatchingScheduler:
 
     # -- admission ----------------------------------------------------------
 
+    def _adapter_ready(self, req: Request) -> bool:
+        return (self.adapters is None or req.adapter_id == 0
+                or self.adapters.can_pin(req.adapter_id))
+
+    def _pick_admissible(self) -> Optional[int]:
+        """Index into ``waiting`` of the next request admission may take:
+        the head when its adapter is pin-able, else — within the bounded
+        bypass age — the first younger request that is.  ``None`` holds the
+        line."""
+        if self._adapter_ready(self.waiting[0]):
+            return 0
+        if self._head_block_age > self.max_bypass_age:
+            return None  # fairness: the starved head gets the next free slot
+        for i in range(1, len(self.waiting)):
+            if self._adapter_ready(self.waiting[i]):
+                return i
+        return None
+
     def admit(self) -> list[int]:
-        """Admit, FIFO, while a slot is free and the pool can hold the whole
-        prompt (``submit`` already guarantees a lone sequence can never
-        outgrow the pool).  Returns the admitted slot ids."""
+        """Admit while a slot is free and the pool can hold the whole prompt
+        (``submit`` already guarantees a lone sequence can never outgrow the
+        pool): FIFO, except that a head blocked on adapter-pool contention
+        is bypassed by adapter-ready requests for at most
+        ``max_bypass_age`` ticks.  Admission pins the request's adapter.
+        Returns the admitted slot ids."""
+        if self.adapters is not None:
+            # start the next arrivals' adapter uploads under this tick's work
+            for req in list(self.waiting)[:2]:
+                if req.adapter_id:
+                    self.adapters.prefetch(req.adapter_id)
+        if self.waiting and not self._adapter_ready(self.waiting[0]):
+            head = self.waiting[0]
+            # one fairness tick per engine step the head stays blocked
+            if self._head_block_uid != head.uid:
+                self._head_block_uid = head.uid
+                self._head_block_age = 0
+            self._head_block_age += 1
+            if self.adapters is not None and head.adapter_id:
+                # stream the starved tenant's adapter now, so its pin is a
+                # hit the moment a pool slot frees
+                self.adapters.prefetch(head.adapter_id)
+        else:
+            self._head_block_uid = None
+            self._head_block_age = 0
         admitted = []
         while self.waiting and self.free_slots:
-            req = self.waiting[0]
+            idx = self._pick_admissible()
+            if idx is None:
+                break
+            req = self.waiting[idx]
             if self.admission_page_need(req) > self.free_pages:
                 break
-            self.waiting.popleft()
+            del self.waiting[idx]
+            adapter_slot = 0
+            if self.adapters is not None and req.adapter_id:
+                adapter_slot, swapped = self.adapters.pin(req.adapter_id)
+                if swapped:
+                    self.events.append(("swap", req.adapter_id, adapter_slot))
+            if idx > 0:
+                self.events.append(("bypass", req.uid, self.waiting[0].uid))
             slot = self.free_slots.pop(0)
-            self.slots[slot] = SlotState(req, self._admit_counter)
+            self.slots[slot] = SlotState(req, self._admit_counter, adapter_slot=adapter_slot)
             self._admit_counter += 1
             admitted.append(slot)
             self.events.append(("admit", req.uid, slot))
@@ -261,6 +332,10 @@ class ContinuousBatchingScheduler:
         self._release_slot_pages(st)
         self.free_slots.append(slot)
         self.free_slots.sort()
+        if self.adapters is not None:
+            # drop this request's hold only: the adapter stays hot while
+            # other in-flight requests share it
+            self.adapters.unpin(st.request.adapter_id)
         self.requeue_front(st.request)
         self.events.append(("evict", st.request.uid, slot))
         return st.request
@@ -284,6 +359,8 @@ class ContinuousBatchingScheduler:
         self._release_slot_pages(st)
         self.free_slots.append(slot)
         self.free_slots.sort()
+        if self.adapters is not None:
+            self.adapters.unpin(st.request.adapter_id)
         self.events.append(("finish", st.request.uid, slot))
         return st
 

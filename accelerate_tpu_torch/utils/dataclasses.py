@@ -1,6 +1,6 @@
 """Plugin dataclasses of the port (mirrors ``accelerate_tpu/utils/
 dataclasses.py``: ``GradSyncKwargs`` :155, ``GradientAccumulationPlugin``
-:269, ``ServingPlugin`` :487)."""
+:269, ``ServingPlugin`` :487, ``LoraPlugin`` :720)."""
 
 from __future__ import annotations
 
@@ -228,3 +228,72 @@ class ServingPlugin:
                     f"prefill_buckets {self.prefill_buckets} must include a bucket "
                     f">= prefill_chunk={self.prefill_chunk}"
                 )
+
+
+@dataclass
+class LoraPlugin:
+    """Multi-tenant batched-LoRA knobs (``serving/adapters.py`` +
+    ``ops/lora.py``): the same fields, defaults, ``ACCELERATE_LORA_*``
+    environment defaults and validation as the JAX package's plugin
+    (explicit arguments always win).
+
+    A fixed-size device pool holds the hot adapters as stacked A/B factors
+    (slot 0 is the null adapter, the base model), cold adapters hot-swap in
+    from host memory, and every row routes through its adapter by id.
+    ``kernel``: ``"auto"`` (kernel #10 at T = 1, the gathered product
+    otherwise), ``"native"`` or ``"bgmv"``.  ``optimizer`` names the
+    per-adapter fine-tuning recipe of ``LoraTrainer``, which is ROADMAP
+    item A11."""
+
+    rank: Optional[int] = None               # env ACCELERATE_LORA_RANK, default 8
+    alpha: Optional[float] = None            # folded into stored B as alpha / rank
+                                             # (env ACCELERATE_LORA_ALPHA, default 16.0)
+    pool_slots: Optional[int] = None         # resident adapters besides the null slot
+                                             # (env ACCELERATE_LORA_POOL_SLOTS, default 4)
+    targets: Optional[tuple] = None          # env ACCELERATE_LORA_TARGETS, comma-separated,
+                                             # default q_proj,v_proj
+    kernel: str = ""                         # env ACCELERATE_LORA_KERNEL, default auto
+    max_bypass_age: Optional[int] = None     # ticks a swap-blocked head of line lets
+                                             # younger requests admit past it
+                                             # (env ACCELERATE_LORA_BYPASS_AGE, default
+                                             # 16; 0 = strict FIFO)
+    optimizer: str = ""                      # env ACCELERATE_LORA_OPTIMIZER, default lion-sr8
+
+    def __post_init__(self):
+        env = os.environ
+        if self.rank is None:
+            self.rank = int(env.get("ACCELERATE_LORA_RANK", 8))
+        if self.alpha is None:
+            self.alpha = float(env.get("ACCELERATE_LORA_ALPHA", 16.0))
+        if self.pool_slots is None:
+            self.pool_slots = int(env.get("ACCELERATE_LORA_POOL_SLOTS", 4))
+        if self.targets is None:
+            raw = env.get("ACCELERATE_LORA_TARGETS", "q_proj,v_proj")
+            self.targets = tuple(t.strip() for t in raw.split(",") if t.strip())
+        elif isinstance(self.targets, str):
+            self.targets = tuple(t.strip() for t in self.targets.split(",") if t.strip())
+        else:
+            self.targets = tuple(self.targets)
+        if not self.kernel:
+            self.kernel = env.get("ACCELERATE_LORA_KERNEL", "auto")
+        from ..ops.lora import normalize_lora_kernel
+
+        self.kernel = normalize_lora_kernel(self.kernel)
+        if self.max_bypass_age is None:
+            self.max_bypass_age = int(env.get("ACCELERATE_LORA_BYPASS_AGE", 16))
+        if not self.optimizer:
+            self.optimizer = env.get("ACCELERATE_LORA_OPTIMIZER", "lion-sr8")
+        if self.rank < 1:
+            raise ValueError(f"LoraPlugin.rank must be >= 1, got {self.rank}")
+        if self.alpha <= 0:
+            raise ValueError(f"LoraPlugin.alpha must be > 0, got {self.alpha}")
+        if self.pool_slots < 1:
+            raise ValueError(
+                f"LoraPlugin.pool_slots must be >= 1, got {self.pool_slots}"
+            )
+        if self.max_bypass_age < 0:
+            raise ValueError(
+                f"LoraPlugin.max_bypass_age must be >= 0, got {self.max_bypass_age}"
+            )
+        if not self.targets:
+            raise ValueError("LoraPlugin.targets must name at least one module")

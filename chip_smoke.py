@@ -43,6 +43,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
    with every launch of the four held against its plain version;
+5c. holds the LoRA gather-matmul kernel #10 (``bgmv``) against its plain
+   version at the 600m q_proj (1536 -> 1536) and v_proj (1536 -> 768)
+   shapes, 16 slots, rank 16, ids mixing 0 and 1..4, and times it (20
+   launches in a CUDA graph) beside its plain version, its bound and the
+   gathered ``torch.bmm`` pair (a yardstick only);
+5d. serves the same 16-request trace with 8 tenants' rank-16 LoRA adapters
+   on q_proj and v_proj (``bench.py --serve --adapters 8``: a pool of 4
+   slots, so the trace hot-swaps) through ``AdapterStore`` and
+   ``ServingEngine(adapters=)``: every request finishes, the page mirror is
+   in sync, #10 launches for both targets of every layer on every decode
+   step (#4 / #6 as in the bf16 serve), each swap moves one adapter's
+   2,752,512 bytes; a second serve holds every #10 and paged launch against
+   its plain version on the engine's own operands, and a teacher-forced
+   rerun of one adapter request through kernels and plain versions agrees;
+   reports its tokens/s, latencies, pool hit rate (measured and predicted),
+   swaps and swap bytes beside the bf16 serve's;
+5e. drives the fused LoRA-query + paged-decode op (#8 over bf16 pages, #9
+   over int8 and fp8 pages) on a LoRA engine's own operands after its
+   decode ticks (layer 0's pages, block tables, positions, q_proj stacks,
+   normed input and roped base q), held against its plain version and
+   against the composed route (#10, rope, #4 / #5), timed beside both and
+   beside the composed route with SDPA over the gathered pages;
 6. trains the 600m Llama (bench.py's training step: bf16, flash attention,
    lion-sr on bf16 params, bf16 gradients, fused linear + CE over 4 vocab
    chunks, batch 10 x 2048 of seeded random tokens, the same batch every
@@ -55,7 +77,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step's own operands; checks that one step at batch 2 through the
    kernels and through their plain versions agrees (loss, grad norm and
    every leaf's gradient);
-7. prints the kernels' JSON line (all nine kernels), then ``{"ok": true,
+7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
+   launches of the op phase, since no engine calls them), then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 ``profile_serving.py`` profiles a window of the same engine's ticks.
@@ -87,7 +110,9 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
 # an all-zero row's limit stays above 0 and the limit of a tensor whose every
 # value is small (the gradients of a random model) scales down with it.  The
 # worst error over a whole output must also stay within KERNEL_TOL of the
-# output's largest |ref|
+# output's largest |ref|.  Kernel #10's outputs (LoRA deltas) are not O(1):
+# there each element may also be off by half a bf16 step of its |ref|, the
+# output's one rounding (``held_to_plain(rounding_slack=True)``)
 KERNEL_TOL = 2e-2
 ROW_SCALE_FLOOR = 1e-3
 
@@ -101,6 +126,9 @@ TRACE = dict(vocab_size=32000, mean_interarrival_steps=0.5,
              prompt_len_range=(64, 512), new_tokens_range=(32, 256))
 MAX_NEW = 256
 N_REQUESTS = 16
+# the 16 decode slots' positions of the paged decode cases: 0, page edges and
+# 2047, the block table's last token
+DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 2046, 2047]
 
 # quantized serving: int8 weights and int8 pages on the same engine and
 # trace; generate_paged at batch 4 with fp8 pages
@@ -119,6 +147,18 @@ REPLACES = {"paged_decode_attention": "accelerate_tpu/ops/flash_attention.py:589
             "paged_multitoken_attention_quant": "accelerate_tpu/ops/flash_attention.py:818",
             "quantized_matmul_tiled": "accelerate_tpu/ops/quantized_matmul.py:59",
             "quantized_matmul_wholef": "accelerate_tpu/ops/quantized_matmul.py:101"}
+
+# multi-tenant LoRA serving: bench.py --serve --adapters 8 (bench.py:500-537)
+LORA = dict(rank=16, pool_slots=4, targets=("q_proj", "v_proj"), kernel="auto")
+LORA_TENANTS = 8
+# one adapter: 16 layers x (q 1536x16 + 16x1536, v 1536x16 + 16x768) bf16
+LORA_ADAPTER_BYTES = 16 * (1536 * 16 + 16 * 1536 + 1536 * 16 + 16 * 768) * 2
+LORA_IDS = [0, 1, 2, 1, 3, 0, 4, 4, 2, 0, 1, 3, 3, 4, 0, 2]   # 16 slots, ids 0..4
+LORA_SHAPES = {"q_proj": (1536, 1536), "v_proj": (1536, 768)}
+LORA_TICKS = 24       # decode ticks before the fused op takes the engine's operands
+LORA_REPLACES = {"bgmv": "accelerate_tpu/ops/lora.py:177",
+                 "fused_bgmv_paged_decode": "accelerate_tpu/ops/flash_attention.py:988",
+                 "fused_bgmv_paged_decode_quant": "accelerate_tpu/ops/flash_attention.py:999"}
 
 # the 600m training step (bench.py's headline configuration on one chip)
 TRAIN = dict(batch=10, seq=2048, warmup=2, timed=10, ce_chunks=4, optimizer="lion-sr")
@@ -232,17 +272,33 @@ def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, de
                 page=page, n=n, kv_dtype=kv_dtype)
 
 
-def held_to_plain(torch, name, out, ref) -> dict:
+def half_ulp_bf16(torch, ref):
+    """Half a bf16 step at each |ref|: what one rounding of an exact value
+    to bf16 may move it (0 at 0)."""
+    mag = ref.float().abs()
+    _, exp = torch.frexp(mag)
+    return torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), exp - 9),
+                       torch.zeros_like(mag))
+
+
+def held_to_plain(torch, name, out, ref, rounding_slack=False) -> dict:
     """A kernel's ``out`` against ``ref``, its plain version in f32 on the
-    same bf16 operands, row by row (see ``KERNEL_TOL``).  Returns the
+    same bf16 operands, row by row (see ``KERNEL_TOL``).  With
+    ``rounding_slack`` each element may also be off by half a bf16 step of
+    its |ref|, the one rounding of a bf16 output (for outputs that leave
+    O(1): at |ref| >= 8 half a step is above KERNEL_TOL).  Returns the
     readings; raises if a row fails or ``out`` is not finite."""
     width = out.shape[-2] * out.shape[-1]
-    diff = (out.float() - ref.float()).reshape(-1, width).abs().amax(dim=1)
+    err = (out.float() - ref.float()).abs()
+    if rounding_slack:
+        err = (err - half_ulp_bf16(torch, ref)).clamp(min=0)
+    diff = err.reshape(-1, width).amax(dim=1)
     scale = ref.float().reshape(-1, width).abs().amax(dim=1)
     floor = ROW_SCALE_FLOOR * scale.max().clamp(max=1.0).item()
     ratio = diff / (KERNEL_TOL * scale.clamp(min=max(floor, 1e-30), max=1.0))
     worst = int(ratio.argmax())
-    rep = {"max_abs_err": diff.max().item(), "err_over_limit": ratio.max().item(),
+    rep = {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "err_over_limit": ratio.max().item(),
            "worst_row_err": diff[worst].item(), "worst_row_ref_max": scale[worst].item(),
            "min_row_ref_max": scale.min().item(), "tensor_ref_max": scale.max().item(),
            "err_over_tensor_max": (diff.max() / scale.max().clamp(min=1e-30)).item()}
@@ -338,12 +394,9 @@ def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
     """Kernels #4 / #6, and #5 / #7 over int8 and fp8 pages, against their
     plain versions at the 600m shapes."""
     reports = {}
-    # #4 / #5: 16 decode slots, ragged positions incl. 0, page edges and
-    # 2047 (the block table's last token)
-    dec_pos = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 2046, 2047]
     quant_decode, quant_multi = [], []
     for kv_dtype in (None, "int8", "fp8"):
-        rep = case_report(torch, F, fa, paged_case(torch, slots=16, width=1, pos0=dec_pos,
+        rep = case_report(torch, F, fa, paged_case(torch, slots=16, width=1, pos0=DEC_POS,
                                                    kv_dtype=kv_dtype, device=device),
                           decode=True)
         log("kernel paged_decode_attention", json.dumps(rep))
@@ -844,15 +897,42 @@ def checked_qmm(torch, kernel, plain, readings: list):
 
 
 @contextlib.contextmanager
+def routed_bgmv(lora_mod, fn):
+    """Route the LoRA route's kernel #10 through ``fn`` (``lora_apply``
+    looks ``bgmv`` up when called)."""
+    saved = lora_mod.bgmv
+    lora_mod.bgmv = fn
+    try:
+        yield
+    finally:
+        lora_mod.bgmv = saved
+
+
+def checked_bgmv(torch, kernel, plain, readings: list):
+    """Kernel #10 followed on every call by its plain version in f32 on the
+    same operands; rows are slots."""
+    def call(x, a_stack, b_stack, ids):
+        out = kernel(x, a_stack, b_stack, ids)
+        ref = plain(x.float(), a_stack, b_stack, ids)
+        readings.append(held_to_plain(torch, "bgmv", out[:, None], ref[:, None],
+                                      rounding_slack=True))
+        return out
+    return call
+
+
+@contextlib.contextmanager
 def checked_kernels(torch, llama_mod, fa, qmm, readings: dict):
-    """Every launch of the paged kernels and the W8A16 matmuls held against
-    its plain version while the block runs; readings by kernel name.  The
-    checked launches count on the wrappers: read the main path's counts
-    before."""
+    """Every launch of the paged kernels, the W8A16 matmuls and the LoRA
+    kernel #10 held against its plain version while the block runs;
+    readings by kernel name.  The checked launches count on the wrappers:
+    read the main path's counts before."""
+    from accelerate_tpu_torch.ops import lora as lora_mod
+
     for name in ("paged_decode_attention", "paged_multitoken_attention",
-                 "quantized_matmul_tiled", "quantized_matmul_wholef"):
+                 "quantized_matmul_tiled", "quantized_matmul_wholef", "bgmv"):
         readings.setdefault(name, [])
-    with routed_attention(
+    with routed_bgmv(lora_mod, checked_bgmv(torch, lora_mod.bgmv, lora_mod.bgmv_plain,
+                                            readings["bgmv"])), routed_attention(
         llama_mod,
         checked(torch, fa.paged_decode_attention, fa.paged_decode_attention_plain,
                 readings["paged_decode_attention"]),
@@ -885,15 +965,18 @@ def worst_readings(readings: dict, required) -> dict:
     return rep
 
 
-def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16") -> dict:
+def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
+                  adapters=None) -> dict:
     """Serve ``trace`` on a fresh engine with every kernel launch held
     against its plain version on the operands the engine gives it: the
-    allocator's block tables, bucket-padded prefill windows and the dead
-    slots of each decode step.  Returns each kernel's worst readings."""
+    allocator's block tables, bucket-padded prefill windows, the dead slots
+    of each decode step and, with ``adapters`` (a fresh store), each slot's
+    adapter ids.  Returns each kernel's worst readings."""
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
 
     engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
-                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device)
+                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
+                           adapters=adapters)
     engine.warmup()
     readings = {}
     with checked_kernels(torch, llama_mod, fa, qmm, readings):
@@ -901,16 +984,20 @@ def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16") -> d
     required = ["paged_decode_attention", "paged_multitoken_attention"]
     if kv_dtype != "bf16":
         required.append("quantized_matmul_tiled")
+    if adapters is not None:
+        required.append("bgmv")
     return worst_readings(readings, required)
 
 
 def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
-                         kv_dtype="bf16") -> dict:
+                         kv_dtype="bf16", adapters=None) -> dict:
     """Run prompt + generated tokens through the model's paged path twice,
-    with the kernels and with their plain versions (the W8A16 matmuls'
-    too): the prompt as one prefill chunk, then one decode step per later
-    token.  Compares every position's logits."""
+    with the kernels and with their plain versions (the W8A16 matmuls' and
+    the LoRA kernel's too): the prompt as one prefill chunk, then one decode
+    step per later token; with ``adapters``, through the request's tenant,
+    pinned for the run.  Compares every position's logits."""
     from accelerate_tpu_torch.models.llama import init_paged_cache
+    from accelerate_tpu_torch.ops import lora as lora_mod
 
     dev = model.device
     tokens = list(request.prompt) + list(generated[:-1])
@@ -919,6 +1006,10 @@ def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
     n_pages = -(-len(tokens) // page)
     ids = torch.tensor(tokens, device=dev)[None]
     pos = torch.arange(len(tokens), device=dev)[None]
+    lora_kw = {}
+    if adapters is not None:
+        slot, _ = adapters.pin(request.adapter_id)
+        lora_kw = dict(adapter_ids=torch.tensor([slot], device=dev), lora=adapters.pool)
 
     def run():
         cache = init_paged_cache(model.config, n_pages, page, 1, n_pages, kv_dtype=kv_dtype,
@@ -930,15 +1021,18 @@ def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
             for a, b in [(0, p_len)] + [(t, t + 1) for t in range(p_len, len(tokens))]:
                 lg, layers = model(ids[:, a:b], positions=pos[:, a:b], cache=layers,
                                    cache_write_mask=torch.ones(1, b - a, dtype=torch.bool,
-                                                               device=dev))
+                                                               device=dev), **lora_kw)
                 out.append(lg[0])
         return torch.cat(out)
 
     k_logits = run()
     with routed_attention(llama_mod, fa.paged_decode_attention_plain,
                           fa.paged_multitoken_attention_plain), \
-            routed_qmm(qmm, qmm.quantized_matmul_plain, qmm.quantized_matmul_wholef_plain):
+            routed_qmm(qmm, qmm.quantized_matmul_plain, qmm.quantized_matmul_wholef_plain), \
+            routed_bgmv(lora_mod, lora_mod.bgmv_plain):
         p_logits = run()
+    if adapters is not None:
+        adapters.unpin(request.adapter_id)
     if k_logits.shape != (len(tokens), model.config.vocab_size):
         raise AssertionError(f"teacher-forced logits of shape {tuple(k_logits.shape)}")
     if not (torch.isfinite(k_logits).all() and torch.isfinite(p_logits).all()):
@@ -949,30 +1043,51 @@ def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
     # engine served (reported, not gated: the engine ran bucket-padded
     # prefill chunks, so the matrix products saw other shapes)
     served = (k_logits[p_len - 1:].argmax(-1).tolist() == list(generated))
-    rep = {"uid": request.uid, "positions": len(tokens), "argmax_agreement": agree,
+    rep = {"uid": request.uid, "adapter_id": request.adapter_id,
+           "positions": len(tokens), "argmax_agreement": agree,
            "mean_abs_dlogit_over_mean_abs_logit": rel, "kernel_argmax_equals_served": served}
     if agree < 0.98 or rel > 1e-2:
         raise AssertionError(f"teacher-forced check failed: {rep}")
     return rep
 
 
-def serve_once(torch, model, trace, kv_dtype):
-    """A fresh engine warmed up, every launch count zeroed, the trace
-    served: the engine, the replay report and the launch counts."""
-    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin, replay
+def launch_counts() -> dict:
+    """Every serving kernel wrapper's launch count."""
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import lora as lora_mod
     from accelerate_tpu_torch.ops import quantized_matmul as qmm
 
-    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
-                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device)
-    engine.warmup()
-    fa.reset_launch_counts()
-    qmm.reset_launch_counts()
-    report = replay(engine, trace)
-    launches = {name: getattr(mod, name).launches for mod, name in (
+    return {name: getattr(mod, name).launches for mod, name in (
         (fa, "paged_decode_attention"), (fa, "paged_multitoken_attention"),
         (fa, "paged_decode_attention_quant"), (fa, "paged_multitoken_attention_quant"),
-        (qmm, "quantized_matmul_tiled"), (qmm, "quantized_matmul_wholef"))}
+        (fa, "fused_bgmv_paged_decode"), (fa, "fused_bgmv_paged_decode_quant"),
+        (qmm, "quantized_matmul_tiled"), (qmm, "quantized_matmul_wholef"),
+        (lora_mod, "bgmv"))}
+
+
+def reset_counts() -> None:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import lora as lora_mod
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+    fa.reset_launch_counts()
+    qmm.reset_launch_counts()
+    lora_mod.reset_launch_counts()
+
+
+def serve_once(torch, model, trace, kv_dtype, adapters=None):
+    """A fresh engine warmed up (with ``adapters``, a fresh store),
+    every launch count zeroed, the trace served: the engine, the replay
+    report and the launch counts."""
+    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin, replay
+
+    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
+                           adapters=adapters)
+    engine.warmup()
+    reset_counts()
+    report = replay(engine, trace)
+    launches = launch_counts()
     if report["completed"] != len(trace):
         raise AssertionError(f"{report['completed']} of {len(trace)} requests finished")
     for r in trace:
@@ -1024,7 +1139,7 @@ def engine_phase(torch, card: str, device: str = "cuda") -> dict:
         f"{report['p50_token_latency_ms']:.3f} ms / p99 {report['p99_token_latency_ms']:.3f} ms")
     return {"decode": launches["paged_decode_attention"],
             "prefill": launches["paged_multitoken_attention"], "in_path": in_path,
-            "report": report, "results": dict(engine.results), "trace": trace,
+            "report": report, "results": dict(engine.results), "trace": trace, "model": model,
             "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values())}
 
 
@@ -1130,18 +1245,14 @@ def generate_paged_phase(torch, model, card: str) -> dict:
     plugin = dict(num_slots=b, page_size=16, pages_per_slot=pages, num_pages=b * pages,
                   prefill_chunk=max(16, t_prompt), kv_dtype=GEN_PAGED["kv_dtype"])
     gc = GenerationConfig(max_new_tokens=new)
-    fa.reset_launch_counts()
-    qmm.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with recorded_engines(serving_mod) as engines:
         out = generate_paged(model, ids, gc, prompt_lengths=lens,
                              serving_plugin=ServingPlugin(**plugin))
     sync(torch)
     wall = time.perf_counter() - t0
-    launches = {name: getattr(mod, name).launches for mod, name in (
-        (fa, "paged_decode_attention"), (fa, "paged_multitoken_attention"),
-        (fa, "paged_decode_attention_quant"), (fa, "paged_multitoken_attention_quant"),
-        (qmm, "quantized_matmul_tiled"), (qmm, "quantized_matmul_wholef"))}
+    launches = launch_counts()
     if len(engines) != 1:
         raise AssertionError(f"generate_paged built {len(engines)} engines")
     m = engines[0].metrics
@@ -1162,13 +1273,405 @@ def generate_paged_phase(torch, model, card: str) -> dict:
     with checked_kernels(torch, llama_mod, fa, qmm, readings):
         again = generate_paged(model, ids, gc, prompt_lengths=lens,
                                serving_plugin=ServingPlugin(**plugin))
-    in_path = worst_readings(readings, list(readings))
+    in_path = worst_readings(readings, ["paged_decode_attention", "paged_multitoken_attention",
+                                        "quantized_matmul_tiled", "quantized_matmul_wholef"])
     rep = {"card": card, "batch": b, "prompt_lens": [int(x) for x in lens], "max_new": new,
            "kv_dtype": plugin["kv_dtype"], "wall_s": wall, "tokens_per_s": b * new / wall,
            "decode_steps": decode_steps, "prefill_steps": prefill_steps, "launches": launches,
            "checked_rerun_tokens_equal": bool(torch.equal(out, again)), "in_path": in_path}
     log("generate_paged", json.dumps(rep))
     return {"launches": launches, "in_path": in_path}
+
+
+# -- multi-tenant LoRA: kernel #10, the LoRA serve, the fused op #8 / #9 ------
+
+
+def lora_bound(ids, d_in, rank, d_out):
+    """Bytes and flops of #10 for this data: ids read, the whole bf16
+    output written, and for the nonzero ids only (an id-0 row's delta is
+    zeros, read from nothing) their rows of x and the factors of each
+    distinct id read once; 2 flops per multiply-add of those rows."""
+    nonzero = [int(i) for i in ids.tolist() if int(i) != 0]
+    nbytes = (len(ids) * 4 + len(ids) * d_out * 2 + len(nonzero) * d_in * 2
+              + len(set(nonzero)) * (d_in * rank + rank * d_out) * 2)
+    return nbytes, 2 * len(nonzero) * rank * (d_in + d_out)
+
+
+def lora_kernel_phases(torch, device: str = "cuda") -> dict:
+    """#10 against its plain version at the 600m q_proj and v_proj shapes
+    (16 slots, rank 16, ids mixing 0 and 1..4), timed as 20 launches in a
+    CUDA graph beside its plain version, its bound and the gathered
+    ``torch.bmm`` pair.  Enough copies of the stacks and x rotate between
+    launches that each finds its factors out of the L2, as a layer of the
+    real decode step does."""
+    from accelerate_tpu_torch.ops import lora as lora_mod
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    rank, pool = LORA["rank"], LORA["pool_slots"] + 1
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=device)
+    cases = []
+    for label, (d_in, d_out) in LORA_SHAPES.items():
+        stack_bytes = pool * rank * (d_in + d_out) * 2
+        copies = max(2, -(-2 * L2_BYTES // stack_bytes))
+        stacks = []
+        for _ in range(copies):
+            a = (torch.randn(pool, d_in, rank, generator=gen, device=device) / d_in ** 0.5)
+            b = (torch.randn(pool, rank, d_out, generator=gen, device=device) / rank ** 0.5)
+            a[0], b[0] = 0, 0
+            x = torch.randn(len(LORA_IDS), d_in, generator=gen, device=device).bfloat16()
+            stacks.append((x, a.bfloat16(), b.bfloat16()))
+        x, a, b = stacks[0]
+        out = lora_mod.bgmv(x, a, b, ids)
+        again = lora_mod.bgmv(x, a, b, ids)
+        sync(torch)
+        if not torch.equal(out, again):
+            raise AssertionError("bgmv: two runs on the same operands differ")
+        held = held_to_plain(torch, f"bgmv {label}", out[:, None],
+                             lora_mod.bgmv_plain(x.float(), a, b, ids)[:, None],
+                             rounding_slack=True)
+        # the same with B 16 times larger: deltas well above 8, where one
+        # bf16 rounding moves an output by more than KERNEL_TOL
+        big = lora_mod.bgmv(x, a, b * 16, ids)
+        sync(torch)
+        held_big = held_to_plain(torch, f"bgmv {label} x16", big[:, None], lora_mod.bgmv_plain(
+            x.float(), a, b * 16, ids)[:, None], rounding_slack=True)
+        rot = lambda fn: (lambda i: fn(*stacks[i % copies], ids))
+        ms = time_ms(torch, rot(lora_mod.bgmv), graph=True)
+        plain_ms = time_ms(torch, rot(lora_mod.bgmv_plain), iters=5)
+        idx = ids.long()
+        library_ms = time_ms(torch, lambda i: torch.bmm(
+            torch.bmm(stacks[i % copies][0][:, None], stacks[i % copies][1][idx]),
+            stacks[i % copies][2][idx]), graph=True)
+        nbytes, flops = lora_bound(ids, d_in, rank, d_out)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rep = {**held, "large_delta": {"ref_max": held_big["tensor_ref_max"],
+                                       "max_abs_err": held_big["max_abs_err"],
+                                       "err_over_limit": held_big["err_over_limit"]},
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "shape": {"dense": label, "slots": len(LORA_IDS), "d_in": d_in, "d_out": d_out,
+                         "rank": rank, "pool_slots": pool, "ids": LORA_IDS,
+                         "stack_copies": copies}}
+        log("kernel bgmv", json.dumps(rep))
+        cases.append(rep)
+    main = _with_cases(cases, cases[0])
+    main["library_call"] = "gathered torch.bmm pair (a_stack[ids], b_stack[ids], two bmm)"
+    return {"bgmv": main}
+
+
+def lora_store(torch, model):
+    """The pool of ``LORA`` over ``model`` with the 8 tenants published, each
+    from its own seeded generator (seed 1000 + tenant, init_b="normal")."""
+    from accelerate_tpu_torch import AdapterStore, LoraPlugin
+
+    store = AdapterStore(model, LoraPlugin(**LORA))
+    for t in range(1, LORA_TENANTS + 1):
+        store.publish_random(t, torch.Generator().manual_seed(1000 + t), init_b="normal")
+    return store
+
+
+def base_rows_check(torch, model, trace, store, prefill=48, decode=16) -> dict:
+    """A live base-model row (adapter id 0) beside an adapter row, teacher
+    forced through the paged path (one prefill chunk of ``prefill`` prompt
+    tokens, then ``decode`` single-token steps, where #10 runs): the id-0
+    row's logits must be bitwise those of the same batch run without
+    adapters, and the adapter row's must differ from its base logits."""
+    from accelerate_tpu_torch.models.llama import init_paged_cache
+
+    dev, page = model.device, PLUGIN["page_size"]
+    first = next(r for r in trace if r.adapter_id)
+    other = next(r for r in trace if r.uid != first.uid)
+    n = prefill + decode
+    tokens = torch.tensor([list(other.prompt[:n]), list(first.prompt[:n])], device=dev)
+    pos = torch.arange(n, device=dev)[None].expand(2, n)
+    n_pages = -(-n // page)
+    slot, _ = store.pin(first.adapter_id)
+    lora_kw = dict(adapter_ids=torch.tensor([0, slot], device=dev), lora=store.pool)
+
+    def run(**kw):
+        cache = init_paged_cache(model.config, 2 * n_pages, page, 2, n_pages, device=dev)
+        bt = torch.arange(2 * n_pages, dtype=torch.int32, device=dev).reshape(2, n_pages)
+        layers = [{**l, "block_tables": bt} for l in cache["layers"]]
+        out = []
+        with torch.inference_mode():
+            for a, b in [(0, prefill)] + [(t, t + 1) for t in range(prefill, n)]:
+                lg, layers = model(tokens[:, a:b], positions=pos[:, a:b], cache=layers,
+                                   cache_write_mask=torch.ones(2, b - a, dtype=torch.bool,
+                                                               device=dev), **kw)
+                out.append(lg)
+        return torch.cat(out, dim=1)
+
+    with_lora, without = run(**lora_kw), run()
+    store.unpin(first.adapter_id)
+    rep = {"uids": [other.uid, first.uid], "adapter_ids": [0, first.adapter_id],
+           "positions": n, "base_row_bitwise": bool(torch.equal(with_lora[0], without[0])),
+           "adapter_row_max_abs_dlogit": (with_lora[1] - without[1]).abs().max().item()}
+    if not (rep["base_row_bitwise"] and rep["adapter_row_max_abs_dlogit"] > 0):
+        raise AssertionError(f"base-model row beside an adapter row: {rep}")
+    return rep
+
+
+def lora_engine_phase(torch, card: str, bf16: dict) -> dict:
+    """The 600m model serving the 8-tenant trace from a pool of 4: launches,
+    swaps and swap bytes, a checked second serve, the teacher-forced check;
+    its metrics beside the bf16 serve's."""
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import synthesize_trace
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.serving import adapter_pool_accounting
+
+    model = bf16["model"]
+    layers = model.config.num_hidden_layers
+    trace = synthesize_trace(0, N_REQUESTS, **TRACE, adapters=LORA_TENANTS)
+    store = lora_store(torch, model)
+    engine, report, launches = serve_once(torch, model, trace, "bf16", adapters=store)
+    m = engine.metrics
+    expect_launches(launches, {"paged_decode_attention": m["decode_steps"] * layers,
+                               "paged_multitoken_attention": m["prefill_steps"] * layers,
+                               "bgmv": 2 * layers * m["decode_steps"]})
+    if not (report["adapter_swaps"] > 0
+            and report["adapter_swap_bytes"] == report["adapter_swaps"] * LORA_ADAPTER_BYTES):
+        raise AssertionError(f"{report['adapter_swaps']} swaps moved "
+                             f"{report['adapter_swap_bytes']} bytes, expected "
+                             f"{LORA_ADAPTER_BYTES} each")
+    bf = bf16["report"]
+    rep = {"card": card, "lora": {**LORA, "targets": list(LORA["targets"])},
+           "tenants": LORA_TENANTS, **report, "launches": launches,
+           "pool_bytes": sum(t.numel() * t.element_size() for fac in store.pool.values()
+                             for t in fac.values()),
+           "pool_accounting": adapter_pool_accounting(store.spec, rank=LORA["rank"],
+                                                      pool_slots=LORA["pool_slots"]),
+           "bf16": {k: bf[k] for k in ("tokens_per_sec", "ttft_p50_ms", "p50_token_latency_ms",
+                                       "p99_token_latency_ms")}}
+    log("lora_engine", json.dumps(rep))
+    in_path = in_path_check(torch, model, llama_mod, fa, qmm, trace,
+                            adapters=lora_store(torch, model))
+    log("lora_in_path", json.dumps(in_path))
+    first = next(r for r in trace if r.adapter_id)
+    checks = [teacher_forced_check(torch, model, llama_mod, fa, qmm, first,
+                                   engine.results[first.uid], adapters=store)]
+    log("lora_teacher_forced", json.dumps(checks))
+    base_rows = base_rows_check(torch, model, trace, store)
+    log("lora_base_rows", json.dumps(base_rows))
+    log(f"LoRA serving on {card}: {report['tokens_per_sec']:.1f} tokens/s "
+        f"(bf16 {bf['tokens_per_sec']:.1f}), TTFT p50 {report['ttft_p50_ms']:.2f} ms "
+        f"({bf['ttft_p50_ms']:.2f}), token latency p50 {report['p50_token_latency_ms']:.3f} / "
+        f"p99 {report['p99_token_latency_ms']:.3f} ms ({bf['p50_token_latency_ms']:.3f} / "
+        f"{bf['p99_token_latency_ms']:.3f}); pool hit rate {report['adapter_pool_hit_rate']} "
+        f"(predicted {report['adapter_pool_hit_rate_predicted']}), "
+        f"{report['adapter_swaps']} swaps, {report['adapter_swap_bytes']} bytes")
+    return {"launches": launches, "in_path": in_path, "report": rep, "trace": trace,
+            "store": store}
+
+
+def lora_decode_operands(torch, model, store, trace, kv_dtype: str) -> dict:
+    """A LoRA engine's operands after ``LORA_TICKS`` decode ticks, for the
+    fused op: layer 0's pages (and scales), the block tables, each slot's
+    last written position (-1 for an empty slot: no page is read), the
+    tokens at those positions through layer 0's input norm (x), their
+    roped base queries, the slots' adapter pool slots, layer 0's q_proj
+    stacks and the model's rope tables."""
+    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
+    from accelerate_tpu_torch.models.llama import apply_rope
+
+    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
+                           adapters=store)
+    engine.warmup()
+    pending = sorted(trace, key=lambda r: (r.arrival_step, r.uid))
+    while engine.metrics["decode_steps"] < LORA_TICKS:
+        while pending and pending[0].arrival_step <= engine.steps:
+            engine.add_request(pending.pop(0))
+        engine.step()
+    dev, cfg = model.device, model.config
+    slots = PLUGIN["num_slots"]
+    seq = engine.cache["seq_lens"].cpu()
+    pos = torch.full((slots,), -1, dtype=torch.int32)
+    tokens = torch.zeros(slots, dtype=torch.long)
+    ids = torch.zeros(slots, dtype=torch.int32)
+    for s, st in engine.sched.slots.items():
+        n = int(seq[s])
+        if n:
+            pos[s], tokens[s] = n - 1, (list(st.request.prompt) + st.tokens)[n - 1]
+            ids[s] = st.adapter_slot
+    pos, ids = pos.to(dev), ids.to(dev)
+    block = model.model.layers[0]
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    x = block.input_layernorm(model.model.embed_tokens(tokens.to(dev)))
+    q = block.self_attn.q_proj(x[:, None]).reshape(slots, 1, h, d)
+    q_base = apply_rope(q, model.rope_cos, model.rope_sin, pos[:, None])[:, 0].contiguous()
+    layer = engine.cache["layers"][0]
+    stacks = store.pool["model.layers.0.self_attn.q_proj"]
+    return {"x": x.contiguous(), "q_base": q_base, "a": stacks["a"], "b": stacks["b"],
+            "ids": ids, "cos": model.rope_cos, "sin": model.rope_sin,
+            "pages": [layer["k_pages"], layer["v_pages"]],
+            "scales": ([layer["k_scales"], layer["v_scales"]] if "k_scales" in layer else []),
+            "bt": engine.cache["block_tables"].clone(), "pos": pos,
+            "operands": f"LoRA engine after {engine.metrics['decode_steps']} decode ticks"}
+
+
+def synthetic_fused_operands(torch, kv_dtype: str, device: str = "cuda") -> dict:
+    """#4's 16-slot decode case (``paged_case`` at ``DEC_POS``) with random
+    x, q_base and q_proj stacks, ids ``LORA_IDS``: #8 / #9 at the shape #4 /
+    #5 are timed at, for the prediction's comparison."""
+    from accelerate_tpu_torch.models.llama import rope_frequencies
+
+    case = paged_case(torch, slots=16, width=1, pos0=DEC_POS, seed=8,
+                      kv_dtype=None if kv_dtype == "bf16" else kv_dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    d_in, h, d, rank = MODEL["hidden_size"], case["h"], case["d"], LORA["rank"]
+    pool = LORA["pool_slots"] + 1
+    a = torch.randn(pool, d_in, rank, generator=gen, device=device) / d_in ** 0.5
+    b = torch.randn(pool, rank, h * d, generator=gen, device=device) / rank ** 0.5
+    a[0], b[0] = 0, 0
+    cos, sin = (torch.from_numpy(t).to(device) for t in
+                rope_frequencies(d, MODEL["max_position_embeddings"], 10000.0))
+    return {"x": torch.randn(16, d_in, generator=gen, device=device).bfloat16(),
+            "q_base": case["q"][:, 0].contiguous(), "a": a.bfloat16(), "b": b.bfloat16(),
+            "ids": torch.tensor(LORA_IDS, dtype=torch.int32, device=device), "cos": cos,
+            "sin": sin, "pages": list(case["pools"][0][:2]), "scales": list(case["pools"][0][2:]),
+            "bt": case["bt"], "pos": case["positions"][:, 0].contiguous(),
+            "operands": "synthetic: #4's 16-slot decode case"}
+
+
+def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
+    """#8 (bf16 pages) or #9 (int8 / fp8) on ``ops``: held against its plain
+    version and against the composed route (#10, rope, #4 / #5); timed in a
+    CUDA graph over 4 rotating copies of the pages, beside the plain version
+    and the composed route with SDPA over the gathered pages."""
+    from accelerate_tpu_torch.models.llama import apply_rope, paged_gather_kv
+    from accelerate_tpu_torch.ops import lora as lora_mod
+
+    x, q_base, a, b, ids, cos, sin = (ops[k] for k in ("x", "q_base", "a", "b", "ids", "cos",
+                                                        "sin"))
+    bt, pos = ops["bt"], ops["pos"]
+    slots, h, d = q_base.shape
+    hkv, _, page, _ = ops["pages"][0].shape
+    n = bt.shape[1]
+    quant = bool(ops["scales"])
+    kw = dict(k_scales=ops["scales"][0], v_scales=ops["scales"][1]) if quant else {}
+    kp, vp = ops["pages"]
+    name = "fused_bgmv_paged_decode" + ("_quant" if quant else "")
+    kernel = fa.fused_bgmv_paged_decode
+    args = (x, q_base, a, b, ids, cos, sin)
+    out = kernel(*args, kp, vp, bt, pos, **kw)
+    sync(torch)
+    held = held_to_plain(torch, f"{name} {kv_dtype}", out, fa.fused_bgmv_paged_decode_plain(
+        x, q_base.float(), a, b, ids, cos, sin, kp, vp, bt, pos, **kw))
+    gate = (ids != 0).float()[:, None, None]
+
+    def composed_q():
+        delta = lora_mod.bgmv(x, a, b, ids).reshape(slots, 1, h, d)
+        return (q_base.float() + gate * apply_rope(delta.float(), cos, sin, pos[:, None])[:, 0]
+                ).bfloat16()
+
+    composed = fa.paged_decode_attention(composed_q(), kp, vp, bt, pos, **kw)
+    held_composed = held_to_plain(torch, f"{name} {kv_dtype} vs composed", out, composed)
+    pools = [(kp, vp, *ops["scales"])] + [
+        tuple(t.clone() for t in (kp, vp, *ops["scales"])) for _ in range(3)]
+
+    def rotating(fn):
+        def call(i):
+            pk, pv, *sc = pools[i % len(pools)]
+            skw = dict(k_scales=sc[0], v_scales=sc[1]) if sc else {}
+            return fn(*args, pk, pv, bt, pos, **skw)
+        return call
+
+    ms = time_ms(torch, rotating(kernel), graph=True)
+    plain_ms = time_ms(torch, rotating(fa.fused_bgmv_paged_decode_plain), iters=5)
+    composed_ms = time_ms(torch, lambda i: fa.paged_decode_attention(
+        composed_q(), *pools[i % len(pools)][:2], bt, pos,
+        **(dict(k_scales=pools[i % len(pools)][2], v_scales=pools[i % len(pools)][3])
+           if quant else {})), graph=True)
+    # yardstick: the composed route with one SDPA call over the gathered,
+    # dequantized KV (set-up not timed), as #4's row times it
+    k_lin, v_lin, _ = paged_gather_kv(kp, vp, bt, kw.get("k_scales"), kw.get("v_scales"),
+                                      torch.bfloat16)
+    k_lin = k_lin.permute(0, 2, 1, 3).repeat_interleave(h // hkv, dim=1).contiguous()
+    v_lin = v_lin.permute(0, 2, 1, 3).repeat_interleave(h // hkv, dim=1).contiguous()
+    mask = (torch.arange(n * page, device=x.device)[None, None, None, :]
+            <= pos[:, None, None, None])
+    idx = ids.long()
+
+    def library(i):
+        delta = torch.bmm(torch.bmm(x[:, None], a[idx]), b[idx]).reshape(slots, 1, h, d)
+        q = (q_base.float() + gate * apply_rope(delta.float(), cos, sin, pos[:, None])[:, 0])
+        return F.scaled_dot_product_attention(q.bfloat16()[:, :, None], k_lin, v_lin,
+                                              attn_mask=mask)
+    library_ms = time_ms(torch, library, graph=True)
+    # what this data needs: positions and ids read, the whole output
+    # written; for each live slot (position >= 0) its base q, the block-table
+    # entries of its pages and each distinct page once; for each live slot
+    # with a nonzero id its x, its rope row (cos and sin) and each distinct
+    # id's factors once (the null slot's zeros and a dead slot's operands
+    # are read by nothing the output needs)
+    live = [(min(int(p) // page, n - 1) + 1) if int(p) >= 0 else 0 for p in pos.tolist()]
+    read = [int(pid) for s, c in enumerate(live) for pid in bt[s, :c].tolist()]
+    pages_read = len(set(read))
+    page_bytes = hkv * page * d * kp.element_size() + (hkv * 4 if quant else 0)
+    d_in, rank = a.shape[1], a.shape[2]
+    adapted = [int(i) for i, c in zip(ids.tolist(), live) if c and int(i) != 0]
+    n_live = sum(1 for c in live if c)
+    nbytes = (slots * 8 + q_base.numel() * 2 + n_live * h * d * 2 + len(read) * 4
+              + pages_read * 2 * page_bytes + len(adapted) * (d_in * 2 + d * 4)
+              + len(set(adapted)) * rank * (d_in + h * d) * 2)
+    flops = 4 * h * d * sum(int(p) + 1 for p in pos.tolist() if int(p) >= 0) \
+        + 2 * len(adapted) * rank * (d_in + h * d)
+    bound_ms, bound_by = bound(nbytes, flops)
+    rep = {**held, "vs_composed": {k: held_composed[k] for k in ("max_abs_err",
+                                                                 "err_over_limit")},
+           "ms": ms, "plain_ms": plain_ms, "composed_ms": composed_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": {"slots": slots, "heads": h, "kv_heads": hkv, "head_dim": d, "page": page,
+                     "pages_per_slot": n, "pages_read": pages_read, "kv_dtype": kv_dtype,
+                     "d_in": d_in, "rank": rank, "ids": [int(i) for i in ids.tolist()],
+                     "positions": [int(p) for p in pos.tolist()],
+                     "operands": ops["operands"]}}
+    log("kernel", name, json.dumps(rep))
+    return rep
+
+
+def fused_op_phase(torch, F, fa, model, trace) -> dict:
+    """#8 over a bf16-page LoRA engine's operands, #9 over an int8 and an
+    fp8 engine's: one launch each through ``fused_bgmv_paged_decode`` (the
+    op phase's launches, counted from zero), then the checks and timings;
+    then both again on #4 / #5's synthetic 16-slot case."""
+    readings = {}
+    for kv_dtype in ("bf16", "int8", "fp8"):
+        ops = lora_decode_operands(torch, model, lora_store(torch, model), trace, kv_dtype)
+        reset_counts()
+        kw = dict(k_scales=ops["scales"][0], v_scales=ops["scales"][1]) if ops["scales"] else {}
+        fa.fused_bgmv_paged_decode(ops["x"], ops["q_base"], ops["a"], ops["b"], ops["ids"],
+                                   ops["cos"], ops["sin"], *ops["pages"], ops["bt"], ops["pos"],
+                                   **kw)
+        sync(torch)
+        counts = launch_counts()
+        name = "fused_bgmv_paged_decode" + ("_quant" if kw else "")
+        expect_launches(counts, {name: 1})
+        rep = fused_case(torch, F, fa, ops, kv_dtype)
+        rep["launches"] = counts[name]
+        readings.setdefault(name, []).append(rep)
+        del ops
+        torch.cuda.empty_cache()
+    for kv_dtype in ("bf16", QUANT_KV):
+        rep = fused_case(torch, F, fa, synthetic_fused_operands(torch, kv_dtype, model.device.type),
+                         kv_dtype)
+        rep["launches"] = 0
+        readings["fused_bgmv_paged_decode" + ("_quant" if kv_dtype != "bf16" else "")].append(rep)
+    reports = {}
+    for name, cases in readings.items():
+        main = next(c for c in cases if c["shape"]["kv_dtype"] in ("bf16", QUANT_KV))
+        reports[name] = _with_cases(cases, main)
+        reports[name]["launches"] = sum(c["launches"] for c in cases)
+        reports[name]["in_path"] = {"calls": len(cases),
+                                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                                    "err_over_limit": max(c["err_over_limit"] for c in cases),
+                                    "vs_composed_err_over_limit": max(
+                                        c["vs_composed"]["err_over_limit"] for c in cases)}
+        reports[name]["library_call"] = ("composed route: gathered bmm pair, rope, "
+                                         "F.scaled_dot_product_attention over the gathered KV")
+    return reports
 
 
 def main() -> int:
@@ -1197,7 +1700,7 @@ def main() -> int:
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention", "flash_attention", "quantized_matmul"])
+    libs = _build.build_all(["paged_attention", "flash_attention", "quantized_matmul", "lora"])
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(lib.name for lib in libs.values())}")
     for name in libs:
@@ -1217,6 +1720,8 @@ def main() -> int:
     phase_done("W8A16 kernels #11, #12")
     kernels.update(flash_kernel_phases(torch, F, fa))
     phase_done("flash kernels #1-#3")
+    kernels.update(lora_kernel_phases(torch))
+    phase_done("LoRA kernel #10")
     with torch.inference_mode():
         serve = engine_phase(torch, card)
         phase_done("bf16 serve")
@@ -1224,6 +1729,11 @@ def main() -> int:
         phase_done("quantized serve")
         gen = generate_paged_phase(torch, quant.pop("model"), card)
         phase_done("generate_paged")
+        lora = lora_engine_phase(torch, card, serve)
+        phase_done("LoRA serve")
+        kernels.update(fused_op_phase(torch, F, fa, serve.pop("model"), lora["trace"]))
+        phase_done("fused LoRA decode #8, #9")
+    del lora["store"]
     torch.cuda.empty_cache()
     train = training_phase(torch, fa, card)
     phase_done("training")
@@ -1244,16 +1754,25 @@ def main() -> int:
                                    quant_in_path["quantized_matmul_tiled"]),
         "quantized_matmul_wholef": (gen["launches"]["quantized_matmul_wholef"],
                                     gen["in_path"]["quantized_matmul_wholef"]),
+        "bgmv": (lora["launches"]["bgmv"], lora["in_path"]["bgmv"]),
+        # no engine calls #8 / #9: their launches are the op phase's
+        "fused_bgmv_paged_decode": (kernels["fused_bgmv_paged_decode"]["launches"],
+                                    kernels["fused_bgmv_paged_decode"]["in_path"]),
+        "fused_bgmv_paged_decode_quant": (kernels["fused_bgmv_paged_decode_quant"]["launches"],
+                                          kernels["fused_bgmv_paged_decode_quant"]["in_path"]),
     }
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
                "paged": "accelerate_tpu_torch/csrc/paged_attention.cu",
-               "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu"}
+               "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
+               "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",
+               "bgmv": "accelerate_tpu_torch/csrc/lora.cu"}
     entries = []
     for name, (count, in_path) in main_path.items():
         rep = kernels[name]
         source = sources[next(k for k in sources if name.startswith(k))]
         entries.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": FLASH_REPLACES.get(name) or REPLACES[name],
+                        "replaces": (FLASH_REPLACES.get(name) or REPLACES.get(name)
+                                     or LORA_REPLACES[name]),
                         "launches": count,
                         "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],

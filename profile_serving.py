@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 profile_serving.py
 Serves ``chip_smoke.py``'s 16-request trace on the 600m Llama (random
 weights from seed 0); with ``--quantized``, with int8 weights
 (``quantize_model_``) from int8 KV pages, as ``chip_smoke.py``'s quantized
-serve.  After ``--skip`` ticks, the next ``--window`` ticks run under
+serve; with ``--adapters``, the 8-tenant trace through a pool of 4 rank-16
+LoRA adapters on q_proj and v_proj, as ``chip_smoke.py``'s LoRA serve.
+After ``--skip`` ticks, the next ``--window`` ticks run under
 ``torch.profiler``, each closed by a device sync.  Prints the card's name
 and power limit, then one JSON line: the host wall per tick kind, the
 device's busy share of the window (the union of its kernels' intervals),
@@ -23,10 +25,14 @@ import math
 import sys
 import time
 
-from chip_smoke import MAX_NEW, MODEL, N_REQUESTS, PLUGIN, QUANT_KV, ROOT, TRACE, card_line, log
+from chip_smoke import (
+    LORA, LORA_TENANTS, MAX_NEW, MODEL, N_REQUESTS, PLUGIN, QUANT_KV, ROOT, TRACE, card_line,
+    log, lora_store,
+)
 
 
-def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str = "bf16") -> dict:
+def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str = "bf16",
+                  adapters=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch import (
@@ -35,9 +41,11 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
 
     on_card = model.device.type == "cuda"
     engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
-                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device)
+                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
+                           adapters=adapters)
     engine.warmup()
-    pending = sorted(synthesize_trace(0, N_REQUESTS, **TRACE),
+    tenants = LORA_TENANTS if adapters is not None else 0
+    pending = sorted(synthesize_trace(0, N_REQUESTS, **TRACE, adapters=tenants),
                      key=lambda r: (r.arrival_step, r.uid))
 
     def tick():
@@ -68,7 +76,10 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
-    return {"card": card, "kv_dtype": kv_dtype, "ticks": window, "window_ms": window_ms,
+    return {"card": card, "kv_dtype": kv_dtype,
+            "lora": None if adapters is None else {**LORA, "targets": list(LORA["targets"]),
+                                                   "tenants": tenants},
+            "ticks": window, "window_ms": window_ms,
             "host_ms_per_tick": {k: 1e3 * sum(v) / len(v) for k, v in walls.items()},
             "ticks_by_kind": {k: len(v) for k, v in walls.items()},
             "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
@@ -85,6 +96,9 @@ def main() -> int:
     parser.add_argument("--window", type=int, default=40, help="ticks under the profiler")
     parser.add_argument("--quantized", action="store_true",
                         help="int8 weights and int8 KV pages (chip_smoke's quantized serve)")
+    parser.add_argument("--adapters", action="store_true",
+                        help="8 tenants' LoRA adapters through a pool of 4 (chip_smoke's LoRA "
+                             "serve)")
     args = parser.parse_args()
 
     import torch
@@ -104,7 +118,10 @@ def main() -> int:
     if args.quantized:
         quantize_model_(model, QuantizationConfig(load_in_8bit=True))
         kv_dtype = QUANT_KV
-    log("profile", json.dumps(profile_ticks(torch, model, card, args.skip, args.window, kv_dtype)))
+    adapters = lora_store(torch, model) if args.adapters else None
+    with torch.inference_mode():
+        report = profile_ticks(torch, model, card, args.skip, args.window, kv_dtype, adapters)
+    log("profile", json.dumps(report))
     return 0
 
 

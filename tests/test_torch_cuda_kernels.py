@@ -3,7 +3,9 @@ versions, on the card: the paged kernels at the 600m serving model's shapes
 (16 q heads over 8 kv heads, pages of 64 tokens, 32 pages per slot), with
 bf16, int8 and fp8 pages, the flash kernels up to the 600m training shape
 (T 2048, head dim 96), the W8A16 matmuls at the 600m model's four dense
-shapes, and the other head dims the kernels are built for.
+shapes, the LoRA kernels (#10 ``bgmv``, #8 / #9 ``fused_bgmv_paged_decode``)
+at the 600m q_proj / v_proj shapes, and the other head dims the kernels are
+built for.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so on a machine with a card and no
@@ -22,12 +24,19 @@ and dv, with the plain version run on the same bf16 operands; #3 must give
 bitwise-equal dk/dv on two runs.  The W8A16 matmuls' rows are output rows
 (one token over F), against the plain version in f32; both must give
 bitwise-equal outputs on two runs (their H splits add in a fixed order).
+#10's rows are output rows against ``bgmv_plain`` (f32 h and delta, one
+rounding); its deltas are not O(1), so each element may also be off by
+half a bf16 step of its |ref| (at |ref| >= 8 that step is above 2e-2);
+#8 / #9 are held to the paged limits against
+``fused_bgmv_paged_decode_plain`` and against the composed route (#10, rope,
+#4 / #5), which rounds the delta and q to bf16 on the way.
 """
 
 import pytest
 import torch
 
 from accelerate_tpu_torch.ops import flash_attention as tfa
+from accelerate_tpu_torch.ops import lora as tlora
 from accelerate_tpu_torch.ops import quantized_matmul as tqm
 
 TOL = 2e-2
@@ -41,12 +50,23 @@ def cuda():
         pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
     tfa.reset_launch_counts()
     tqm.reset_launch_counts()
+    tlora.reset_launch_counts()
     return torch.device("cuda")
 
 
-def _assert_rows_close(out, ref):
+def _half_ulp_bf16(ref):
+    mag = ref.float().abs()
+    _, exp = torch.frexp(mag)
+    return torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), exp - 9),
+                       torch.zeros_like(mag))
+
+
+def _assert_rows_close(out, ref, rounding_slack=False):
     width = out.shape[-2] * out.shape[-1]
-    diff = (out.float() - ref.float()).reshape(-1, width).abs().amax(dim=1)
+    err = (out.float() - ref.float()).abs()
+    if rounding_slack:   # one bf16 rounding of an output that is not O(1)
+        err = (err - _half_ulp_bf16(ref)).clamp(min=0)
+    diff = err.reshape(-1, width).amax(dim=1)
     scale = ref.float().reshape(-1, width).abs().amax(dim=1)
     floor = ROW_SCALE_FLOOR * scale.max().clamp(max=1.0).item()
     limit = TOL * scale.clamp(min=max(floor, 1e-30), max=1.0)
@@ -401,3 +421,168 @@ def test_quantized_engine_serves_through_the_kernels(cuda):
     assert tqm.quantized_matmul_tiled.launches == 7 * layers * (m["decode_steps"]
                                                                  + m["prefill_steps"])
     assert tqm.quantized_matmul_wholef.launches == 0
+
+
+# -- LoRA kernels #10, #8, #9 -------------------------------------------------
+
+LORA_IDS = [0, 1, 2, 1, 3, 0, 4, 4, 2, 0, 1, 3, 3, 4, 0, 2]   # 16 slots, repeats, zeros
+
+
+def _lora_stacks(gen, dev, d_in, rank, d_out, n_adapters=5):
+    """A pool of ``n_adapters`` slots, slot 0 the null adapter, the factors
+    scaled as ``init_adapter_params`` draws them (delta of O(1))."""
+    a = (torch.randn(n_adapters, d_in, rank, generator=gen, device=dev) / d_in ** 0.5).bfloat16()
+    b = (torch.randn(n_adapters, rank, d_out, generator=gen, device=dev) / rank ** 0.5).bfloat16()
+    a[0] = 0
+    b[0] = 0
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [4, 16, 64])
+@pytest.mark.parametrize("d_out", [768, 1536, 1001])
+@pytest.mark.parametrize("b_scale", [1.0, 16.0])      # 16: deltas well above 8
+def test_bgmv_kernel_matches_plain(cuda, rank, d_out, b_scale):
+    gen = torch.Generator(device=cuda).manual_seed(rank + d_out)
+    a, b = _lora_stacks(gen, cuda, 1536, rank, d_out)
+    b = b * b_scale
+    x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+    out = tlora.bgmv(x, a, b, ids)
+    again = tlora.bgmv(x, a, b, ids)
+    torch.cuda.synchronize()
+    assert tlora.bgmv.launches == 2
+    assert torch.equal(out, again)
+    ref = tlora.bgmv_plain(x.float(), a, b, ids)
+    if b_scale > 1:
+        assert ref.abs().max() > 8
+    _assert_rows_close(out[:, None], ref[:, None], rounding_slack=True)
+    assert not out[ids == 0].any()          # id-0 rows: zeros
+
+
+@pytest.mark.cuda
+def test_bgmv_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 64, generator=gen, device=cuda).bfloat16()
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    a, b = _lora_stacks(gen, cuda, 64, 65, 32)
+    with pytest.raises(ValueError, match="rank"):
+        tlora.bgmv(x, a, b, ids)
+    a, b = _lora_stacks(gen, cuda, 64, 8, 32)
+    with pytest.raises(TypeError):
+        tlora.bgmv(x.float(), a, b, ids)
+    assert tlora.bgmv.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_fused_bgmv_paged_decode_matches_plain_and_composed(cuda, kv_dtype):
+    """16 decode slots at the 600m attention geometry: mixed adapter ids,
+    a dead slot (position -1: no page is read, zeros), positions past the
+    rope table (they clamp to its last row) and page edges."""
+    from accelerate_tpu_torch.models.llama import apply_rope, rope_frequencies
+
+    d, rank = 96, 16
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    if kv_dtype is None:
+        kp, vp = _pools(gen, cuda, d)
+        kw = {}
+    else:
+        kp, ks, vp, vs = _quant_pools(gen, cuda, d, kv_dtype)
+        kw = dict(k_scales=ks, v_scales=vs)
+    pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000,
+                        2047, -1], dtype=torch.int32, device=cuda)
+    bt = torch.randperm(NUM_PAGES, generator=torch.Generator().manual_seed(1))[:16 * 16]
+    bt = torch.cat([bt.reshape(16, 16), bt.reshape(16, 16)], dim=1).to(torch.int32).to(cuda)
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_frequencies(d, 1024, 10000.0))
+    x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+    q_base = torch.randn(16, H, d, generator=gen, device=cuda).bfloat16()
+    a, b = _lora_stacks(gen, cuda, 1536, rank, H * d)
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+
+    out = tfa.fused_bgmv_paged_decode(x, q_base, a, b, ids, cos, sin, kp, vp, bt, pos, **kw)
+    torch.cuda.synchronize()
+    launched = tfa.fused_bgmv_paged_decode_quant if kw else tfa.fused_bgmv_paged_decode
+    assert launched.launches == 1
+    ref = tfa.fused_bgmv_paged_decode_plain(x, q_base, a, b, ids, cos, sin, kp, vp, bt, pos, **kw)
+    _assert_rows_close(out, ref)
+    assert not out[15].any()                  # the dead slot
+    # the composed route: #10, rope of the bf16 delta, bf16 q, then #4 / #5
+    delta = tlora.bgmv(x, a, b, ids).reshape(16, 1, H, d)
+    delta = apply_rope(delta.float(), cos, sin, pos[:, None])[:, 0]
+    q = (q_base.float() + (ids != 0).float()[:, None, None] * delta).bfloat16()
+    composed = tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
+    _assert_rows_close(out, composed)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_what_it_does_not_take(cuda):
+    from accelerate_tpu_torch.models.llama import rope_frequencies
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    kp, vp = _pools(gen, cuda, 96)
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_frequencies(96, 64, 10000.0))
+    x = torch.randn(2, 1536, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(2, H, 96, generator=gen, device=cuda).bfloat16()
+    bt = torch.zeros(2, N, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    a, b = _lora_stacks(gen, cuda, 1536, 65, H * 96)
+    with pytest.raises(ValueError, match="rank"):
+        tfa.fused_bgmv_paged_decode(x, q, a, b, ids, cos, sin, kp, vp, bt, pos)
+    a, b = _lora_stacks(gen, cuda, 1536, 8, H * 96 - 1)
+    with pytest.raises(ValueError, match="b_stack shape"):
+        tfa.fused_bgmv_paged_decode(x, q, a, b, ids, cos, sin, kp, vp, bt, pos)
+    assert tfa.fused_bgmv_paged_decode.launches == 0
+
+
+@pytest.mark.cuda
+def test_lora_engine_serves_through_the_kernels(cuda):
+    """A tiny bf16 model at head dim 64 serving three tenants from a pool of
+    two on the card: every request finishes, the pool hot-swaps (this
+    trace's host schedule makes two swaps), #10 launches for q_proj and
+    v_proj of every layer on every decode step, and every launch of a
+    second serve agrees with its plain version on the engine's own operands
+    (the default alpha 16 over rank 8 gives deltas above 8)."""
+    from accelerate_tpu_torch import (
+        AdapterStore, GenerationConfig, LlamaConfig, LlamaForCausalLM, LoraPlugin,
+        ServingEngine, ServingPlugin, synthesize_trace,
+    )
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, seed=0)
+
+    def serve(after_warmup=lambda: None):
+        store = AdapterStore(model, LoraPlugin(rank=8, pool_slots=2, kernel="auto"))
+        for t in (1, 2, 3):
+            store.publish_random(t, torch.Generator().manual_seed(100 + t))
+        eng = ServingEngine(model, ServingPlugin(num_slots=4, page_size=16, pages_per_slot=4,
+                                                 num_pages=16, prefill_chunk=32),
+                            GenerationConfig(max_new_tokens=16), adapters=store)
+        eng.warmup()
+        tlora.reset_launch_counts()
+        after_warmup()
+        results = eng.run(synthesize_trace(0, 8, adapters=3))
+        return eng, results
+
+    eng, results = serve()
+    assert len(results) == 8 and eng.free_page_mirror_in_sync()
+    assert eng.adapters.swaps >= 2 and eng.adapters.swap_bytes > 0
+    assert tlora.bgmv.launches == 2 * cfg.num_hidden_layers * eng.metrics["decode_steps"]
+    real, checked = tlora.bgmv, []
+
+    def held(x, a, b, ids):
+        out = real(x, a, b, ids)
+        ref = tlora.bgmv_plain(x.float(), a, b, ids)
+        _assert_rows_close(out[:, None], ref[:, None], rounding_slack=True)
+        checked.append(ref.abs().max().item())
+        return out
+
+    tlora.bgmv = held
+    try:
+        serve(checked.clear)
+    finally:
+        tlora.bgmv = real
+    assert len(checked) == real.launches > 0
+    assert max(checked) > 8

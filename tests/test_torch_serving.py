@@ -249,7 +249,7 @@ def test_generate_paged_matches_jax(qmodels):
 
 
 @pytest.mark.parametrize("knob", [dict(speculate="ngram"), dict(prefix_cache=True),
-                                  dict(adapter_ids=[0]), dict(speculate_k=2)])
+                                  dict(draft_model=object()), dict(speculate_k=2)])
 def test_generate_paged_later_slice_knobs_raise(models, knob):
     with pytest.raises(NotImplementedError, match="A11"):
         generate_paged(models[2], np.ones((1, 3), np.int32), GenerationConfig(max_new_tokens=2),
@@ -262,7 +262,7 @@ def test_request_guards(models):
         eng.add_request(Request(uid=0, prompt=(), max_new_tokens=2))
     with pytest.raises(ValueError, match="capacity"):
         eng.add_request(Request(uid=1, prompt=(1,) * 36, max_new_tokens=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no AdapterStore"):
         eng.add_request(Request(uid=2, prompt=(1, 2), max_new_tokens=2, adapter_id=1))
 
 
