@@ -11,14 +11,14 @@
 //       accelerate_tpu/ops/flash_attention.py  _paged_multitoken_kernel
 //       (launched by paged_multitoken_attention): a window of T contiguous
 //       query tokens per slot, once per layer on every prefill chunk.
-//   paged_decode_attention_{int8,fp8}      replace _paged_decode_kernel_quant,
-//   paged_multitoken_attention_{int8,fp8}  replace _paged_multitoken_kernel_quant:
+//   paged_decode_attention_{int8,fp8}      replace _paged_decode_kernel_quant:
 //       the same over quantized pages, int8 or e4m3 codes with one f32
 //       amax per (kv head, page) in k_scales / v_scales [Hkv, P].  Codes
 //       are read at one byte per element and widened in the tile to
 //       f32(code) * (amax / QMAX) (QMAX 127 / 448), the TPU kernels'
 //       _dequant_tile; the scale is looked up through the same block-table
-//       entry as the page.
+//       entry as the page.  (_paged_multitoken_kernel_quant is replaced
+//       by the tensor-core kernel of paged_prefill.cu.)
 //   fused_bgmv_paged_decode_bf16     replaces the Pallas TPU kernel
 //       accelerate_tpu/ops/flash_attention.py  _fused_bgmv_decode_kernel
 //       (launched by fused_bgmv_paged_decode), and
@@ -592,8 +592,6 @@ int paged_multitoken_attention_bf16(int device, const void* q, const void* k_pag
 
 PAGED_QUANT_ENTRY(paged_decode_attention_int8, int8_t, 8, 1, true)
 PAGED_QUANT_ENTRY(paged_decode_attention_fp8, fp8, 8, 1, true)
-PAGED_QUANT_ENTRY(paged_multitoken_attention_int8, int8_t, 64, 2, false)
-PAGED_QUANT_ENTRY(paged_multitoken_attention_fp8, fp8, 64, 2, false)
 #undef PAGED_QUANT_ENTRY
 
 // Fused LoRA query + decode: q_base / out [S, H, D] (q_base already roped),

@@ -17,105 +17,55 @@
 // H a multiple of 8; out [M, F] bf16 or f32.
 //
 // What bounds them on an H100: the codes are read once at one byte per
-// weight, so at decode (m <= 16) both are bound by HBM bytes (a 1536 x 4096
+// weight, so at decode (m <= 64) both are bound by HBM bytes (a 1536 x 4096
 // dense: 6.3 MB, ~1.9 us at 3.35 TB/s); at a 512-row prefill chunk the
 // tiled kernel does 2 * 512 flops per code byte and is bound by the tensor
 // cores.  The TPU kernels walked K serially and kept the sum in VMEM; here
-// both kernels split H over blocks so a decode-shaped call fills the 132
-// SMs, each block writes its partial sums to an f32 scratch, and a second
-// pass adds the slices in a fixed order: no float atomics, bitwise equal run
-// to run.
+// H may be split over blocks so a call fills the 132 SMs.
 //
-// #11: 64 x 64 output tiles (16 x 64 at m <= 16), K tiles of 64, four
-// warps; x, codes and scales double-buffered with cp.async (codes at one
-// byte per weight); each K tile's codes are dequantized to a bf16 tile
-// (rows past H select-zeroed) and read with ldmatrix.trans into mma.sync
-// m16n8k16 bf16 fragments.
+// #11, qmm_tiled: tiles of BM rows by 128 output columns, K tiles of 64;
+// the caller picks BM from m: 16 (m <= 16) or 64 (m <= 64) at decode
+// width, 128 at prefill width.  A producer warp keeps six K tiles in
+// flight by TMA (x bf16 and the codes in the 128-byte swizzle, the K tile's
+// scales), completing on mbarriers; two consumer warpgroups own 64 output
+// columns each.  The product runs transposed, out^T = W^T x^T: the
+// dequantized weight is the register A operand of wgmma m64nBMk16 and x
+// the K-major shared-memory B operand, so the dequantized weight never
+// goes to shared memory (no proxy fence, no barrier between the
+// warpgroups).  Each thread loads its codes with ldmatrix.trans (two
+// adjacent columns' codes at the fragment's k pairs, in one word) and
+// converts them to bf16(f32(code) * s): a byte permute into the f32 bit
+// pattern 2^23 + code + 128, a subtract, one multiply, one rounding.  The
+// scale varies along K, so it cannot move to the epilogue.  The next K
+// tile's conversion runs while this tile's wgmma does, into other
+// registers: the fragments of the product in flight are pinned until its
+// wgmma.wait_group (hopper::fence_operand), else the compiler may reuse
+// them for the next tile's and the tensor cores read a half-converted
+// operand whenever the product runs late (two blocks on one SM).
+// With H split (at most 8 slices), each block writes its f32 partial tile
+// to a scratch and counts its arrival on the tile's int32 counter; the last
+// block to arrive adds the slices in slice order (bitwise equal run to run,
+// whichever block is last), writes the output and sets the counter back to
+// 0, so one launch does the whole product and a CUDA graph can replay it.
 // #12: CUDA-core FMAs.  A block owns 256 columns and a slice of H; each of
 // its 8 warps reads rows of codes 8 bytes per thread (256 contiguous bytes
 // per warp and row), multiplies by the block's staged bf16(x * s) and sums
-// in registers; the 8 warps are added in shared memory in a fixed order.
+// in registers; the 8 warps are added in shared memory in a fixed order,
+// and a second pass adds the slices of H in slice order.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-// -- PTX helpers (as in flash_attention.cu) ------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// mma fragments (g = lane / 4, t = lane % 4):
-//   A 16x16: a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
-//   B 16x8:  b0 = B[2t..][g], b1 = B[2t+8..][g]
-//   C 16x8:  c0,c1 = C[g][2t, 2t+1], c2,c3 = C[g+8][2t, 2t+1]
-
-// A = tile[r0:r0+16, c0:c0+16]
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int r0, int c0, int lane) {
-    const int mat = lane >> 3;
-    const int row = r0 + (lane & 7) + ((mat & 1) << 3);
-    const int col = c0 + ((mat >> 1) << 3);
-    ldsm_x4(a, tile + row * LD + col);
-}
-
-// B[k][n] = tile[k][n] for k in k0..k0+15, n in n0..n0+15 (transposed load):
-// b[0], b[1] for the n-tile at n0, b[2], b[3] for the one at n0 + 8
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t* b, const bf16* tile, int k0, int n0, int lane) {
-    const int mat = lane >> 3;
-    const int row = k0 + (lane & 7) + ((mat & 1) << 3);
-    const int col = n0 + ((mat >> 1) << 3);
-    ldsm_x4_t(b, tile + row * LD + col);
-}
 
 __device__ __forceinline__ void store2(void* out, size_t idx, float a, float b, bool f32) {
     if (f32) {
@@ -134,148 +84,246 @@ __device__ __forceinline__ void store1(void* out, size_t idx, float a, bool f32)
     }
 }
 
-// -- kernel #11: tiled W8A16 ---------------------------------------------
+// -- kernel #11: tensor-core W8A16 (wgmma) ----------------------------------
 
-constexpr int TILED_THREADS = 128;  // four warps
-constexpr int BN = 64;              // output columns per tile (inside one q-block)
-constexpr int BK = 64;              // rows of H per K tile
-constexpr int LDA = BK + 8;         // padded bf16 rows: an odd number of 16-byte
-constexpr int LDB = BN + 8;         // chunks, so ldmatrix's 8 row reads hit 32 banks
+constexpr int QMM_BF = 128;            // output columns (F) per tile, inside one q-block
+constexpr int QMM_BK = 64;             // rows of H per K tile
+constexpr int QMM_THREADS = 288;       // two consumer warpgroups and a producer warp
+constexpr int QMM_STAGES = 6;          // K tiles in flight
+constexpr int QMM_MAX_SPLITS = 8;      // slices of H, all read at once by the sum
 
-// BM output rows per tile, WM warps along M (4 / WM along N)
-template <int BM, int WM>
-__global__ void __launch_bounds__(TILED_THREADS)
-qmm_tiled_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ codes,
-                 const float* __restrict__ scales, void* __restrict__ out,
-                 float* __restrict__ partial, int M, int H, int F, int qblock,
-                 int k_per_split, int out_f32) {
-    constexpr int WN = 4 / WM;
-    constexpr int WTM = BM / WM;  // rows per warp
-    constexpr int WTN = BN / WN;  // columns per warp
-    constexpr int MT = WTM / 16;
-    constexpr int NT = WTN / 8;
-    static_assert(MT >= 1 && NT % 2 == 0, "warp tile must be 16 x 16k");
+// BM output rows (tokens) per tile: 16, 64 or 128
+template <int BM>
+struct QmmPlan {
+    static constexpr int kXBytes = BM * 128;                // bf16 x tile, 128-byte swizzle
+    static constexpr int kCBytes = QMM_BK * QMM_BF;         // int8 codes, 128-byte swizzle
+    static constexpr int kSBytes = QMM_BK * 4;              // the K tile's scales
+    static constexpr uint32_t kTx = kXBytes + kCBytes + kSBytes;
+    static constexpr int kStageBytes = (kXBytes + kCBytes + kSBytes + 1023) / 1024 * 1024;
+    static constexpr int kBar = QMM_STAGES * kStageBytes;   // full[stages], empty[stages]
+    static constexpr size_t kBytes = (size_t)kBar + 16 * QMM_STAGES + 1024;
+};
 
-    __shared__ __align__(16) bf16 As[2][BM * LDA];
-    __shared__ __align__(16) int8_t Cs[2][BK * BN];
-    __shared__ __align__(16) float Ss[2][BK];
-    __shared__ __align__(16) bf16 Bs[BK * LDB];
+__device__ __forceinline__ void store4(void* out, size_t idx, float4 v, bool f32) {
+    if (f32) {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + idx) = v;
+    } else {
+        uint2 p;
+        p.x = hopper::pack_bf16(v.x, v.y);
+        p.y = hopper::pack_bf16(v.z, v.w);
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + idx) = p;
+    }
+}
 
-    const int n0 = blockIdx.x * BN;
+// f32(code) of byte b of a word whose bytes were xor-ed with 0x80: exact,
+// through the f32 bit pattern 2^23 + (code + 128) (a byte permute, no
+// int-to-float conversion)
+__device__ __forceinline__ float code_at(uint32_t biased, int b) {
+    return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + b)) - 8388736.f;
+}
+
+// The weight is the register A operand of out^T = W^T x^T: A's row r of
+// warp wl of warpgroup wg is output column f = 64 wg + 16 wl + 2 (r % 8) +
+// r / 8 (a permutation inside each 16 rows, so that a thread's two rows
+// are two adjacent columns).  ldmatrix.trans on the codes as 16-bit pairs
+// then hands each thread the codes of f and f + 1 at rows h0 + 2t and
+// h0 + 2t + 1 in one word, exactly the fragment's k pairs: one
+// ldmatrix.x4 brings two k16 steps.  Each step's fragment is
+// bf16(f32(code[h][f]) * s[h]) at rows h = h0 + 2t, +1, +8, +9.
+__device__ __forceinline__ void weight_fragments(const unsigned char* cs, const float* ss,
+                                                 int chunk, int lane, int t4,
+                                                 uint32_t (*a)[4]) {
+#pragma unroll
+    for (int q = 0; q < QMM_BK / 32; ++q) {
+        const int row = 32 * q + lane;   // lanes 8i..8i+7 give matrix i's rows
+        uint32_t w[4];
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                     : "r"(hopper::smem_u32(cs + row * 128 + ((chunk ^ (row & 7)) << 4))));
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+            const int h = 32 * q + 16 * step + 2 * t4;
+            const uint32_t lo = w[2 * step] ^ 0x80808080u;       // rows h, h + 1
+            const uint32_t hi = w[2 * step + 1] ^ 0x80808080u;   // rows h + 8, h + 9
+            const float2 s01 = *reinterpret_cast<const float2*>(ss + h);
+            const float2 s89 = *reinterpret_cast<const float2*>(ss + h + 8);
+            uint32_t* f = a[2 * q + step];
+            f[0] = hopper::pack_bf16(code_at(lo, 0) * s01.x, code_at(lo, 2) * s01.y);  // f
+            f[1] = hopper::pack_bf16(code_at(lo, 1) * s01.x, code_at(lo, 3) * s01.y);  // f + 1
+            f[2] = hopper::pack_bf16(code_at(hi, 0) * s89.x, code_at(hi, 2) * s89.y);
+            f[3] = hopper::pack_bf16(code_at(hi, 1) * s89.x, code_at(hi, 3) * s89.y);
+        }
+    }
+}
+
+// consumers: warpgroup wg owns output columns n0 + 64 wg .. + 63 of the
+// tile's BM rows; its weight fragments come straight from the codes.  The
+// tile goes to `out`, or with H split to this slice's f32 partial tile
+// `dst`.
+template <int BM>
+__device__ __forceinline__ void consume(const unsigned char* smem, uint32_t sbase,
+                                        uint32_t full0, uint32_t empty0, int nkt, void* out,
+                                        float* dst, int M, int F, int n0, int m0, int out_f32) {
+    using L = QmmPlan<BM>;
+    constexpr int S = QMM_STAGES;
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7;
+    const int wl = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int chunk = wg * 4 + wl;     // the 16-byte chunk of a code row holding f, f + 1
+    const int f = n0 + 16 * chunk + 2 * g;
+
+    float acc[BM / 2];
+#pragma unroll
+    for (int e = 0; e < BM / 2; ++e) acc[e] = 0.f;
+
+    // weight fragments of this K tile and of the next: the next tile's
+    // conversion runs while this tile's product is on the tensor cores
+    uint32_t a[QMM_BK / 16][4], a_next[QMM_BK / 16][4];
+    auto convert = [&](int kt, uint32_t (*frag)[4]) {
+        const int st = kt % S;
+        hopper::mbar_wait(full0 + 8 * st, (kt / S) & 1);
+        const unsigned char* cs = smem + st * L::kStageBytes + L::kXBytes;
+        weight_fragments(cs, reinterpret_cast<const float*>(cs + L::kCBytes), chunk, lane, t4,
+                         frag);
+    };
+    convert(0, a);
+    for (int kt = 0; kt < nkt; ++kt) {
+        const int st = kt % S;
+        const uint32_t xs = sbase + st * L::kStageBytes;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QMM_BK / 16; ++kk)
+            hopper::wgmma_rs<BM>(acc, a[kk], hopper::sw128_desc(xs + kk * 32));
+        hopper::wgmma_commit();
+        if (kt + 1 < nkt) convert(kt + 1, a_next);
+        hopper::wgmma_wait<0>();
+        // the products read a and wrote acc until the wait: their registers
+        // stay theirs until here, so a_next's conversion cannot take them
+#pragma unroll
+        for (int kk = 0; kk < QMM_BK / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hopper::fence_operand(a[kk][e]);
+#pragma unroll
+        for (int e = 0; e < BM / 2; ++e) hopper::fence_operand(acc[e]);
+        // this tile's x and codes are read: its stage is free
+        if (lane == 0) hopper::mbar_arrive(empty0 + 8 * st);
+#pragma unroll
+        for (int kk = 0; kk < QMM_BK / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[kk][e] = a_next[kk][e];
+    }
+
+    // acc[4j + 0, 1]: out[m0 + 8j + 2t, + 1][f]; acc[4j + 2, 3]: the same at f + 1
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int row = m0 + 8 * j + 2 * t4 + e;
+            if (row >= M) continue;
+            const float lo = acc[4 * j + e], hi = acc[4 * j + 2 + e];
+            if (dst != nullptr) {
+                *reinterpret_cast<float2*>(dst + (size_t)row * F + f) = make_float2(lo, hi);
+            } else {
+                store2(out, (size_t)row * F + f, lo, hi, out_f32);
+            }
+        }
+    }
+}
+
+// The H split's slices are blockIdx.z: with more than one, each block
+// writes its f32 partial tile to `partial` [splits, M, F] and counts its
+// arrival on the tile's int32 counter; the last block to arrive adds the
+// slices in slice order and sets the counter back to 0.
+template <int BM>
+__global__ void __launch_bounds__(QMM_THREADS)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_codes,
+                 const __grid_constant__ CUtensorMap tm_scales, void* __restrict__ out,
+                 float* __restrict__ partial, int* __restrict__ counters, int M, int H, int F,
+                 int qblock, int k_tiles_per_split, int out_f32) {
+    using L = QmmPlan<BM>;
+    constexpr int S = QMM_STAGES;
+
+    const int n0 = blockIdx.x * QMM_BF;
     const int m0 = blockIdx.y * BM;
     const int split = blockIdx.z;
-    const int k_begin = split * k_per_split;
-    const int k_end = min(H, k_begin + k_per_split);
-    const int n_kt = (k_end - k_begin + BK - 1) / BK;
-    const float* srow = scales + (size_t)(n0 / qblock) * H;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wm = warp / WN, wn = warp % WN;
+    const int splits = gridDim.z;
+    const int k_begin = split * k_tiles_per_split * QMM_BK;
+    const int nkt = min(k_tiles_per_split, (H - k_begin + QMM_BK - 1) / QMM_BK);
+    const int tid = threadIdx.x;
 
-    auto load = [&](int kt, int st) {
-        const int k0 = k_begin + kt * BK;
-        for (int c = tid; c < BM * (BK / 8); c += TILED_THREADS) {
-            const int r = c / (BK / 8);
-            const int col = (c % (BK / 8)) * 8;
-            const bool ok = m0 + r < M && k0 + col < k_end;
-            cp_async16(&As[st][r * LDA + col],
-                       x + (ok ? (size_t)(m0 + r) * H + k0 + col : 0), ok);
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ int last_block;
+    // the swizzled tiles need 1024-byte aligned shared addresses
+    unsigned char* smem =
+        smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+    const uint32_t sbase = hopper::smem_u32(smem);
+    const uint32_t full0 = sbase + L::kBar;         // TMA landed: one arrival + bytes
+    const uint32_t empty0 = full0 + 8 * S;          // stage read: one arrival per consumer warp
+    if (tid == 0) {
+        for (int st = 0; st < S; ++st) {
+            hopper::mbar_init(full0 + 8 * st, 1);
+            hopper::mbar_init(empty0 + 8 * st, 8);
         }
-        for (int c = tid; c < BK * (BN / 16); c += TILED_THREADS) {
-            const int r = c / (BN / 16);
-            const int col = (c % (BN / 16)) * 16;
-            const bool ok = k0 + r < k_end;
-            cp_async16(&Cs[st][r * BN + col],
-                       codes + (ok ? (size_t)(k0 + r) * F + n0 + col : 0), ok);
-        }
-        if (tid < BK / 4) {
-            const bool ok = k0 + tid * 4 < k_end;
-            cp_async16(&Ss[st][tid * 4], srow + (ok ? k0 + tid * 4 : 0), ok);
-        }
-    };
-
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    load(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt & 1;
-        if (kt + 1 < n_kt) {
-            load(kt + 1, st ^ 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-
-        // dequantize: thread tid owns 32 codes of row tid / 2;
-        // w = bf16(f32(code) * s), rows past this slice of H select-zeroed
-        {
-            const int r = tid >> 1;
-            const int c0 = (tid & 1) * 32;
-            const bool live = k_begin + kt * BK + r < k_end;
-            const float s = Ss[st][r];
-            const uint4 raw[2] = {*reinterpret_cast<const uint4*>(&Cs[st][r * BN + c0]),
-                                  *reinterpret_cast<const uint4*>(&Cs[st][r * BN + c0 + 16])};
-            const int8_t* b = reinterpret_cast<const int8_t*>(raw);
-            uint32_t packed[16];
-#pragma unroll
-            for (int e = 0; e < 16; ++e) {
-                packed[e] = live ? pack_bf16((float)b[2 * e] * s, (float)b[2 * e + 1] * s) : 0u;
-            }
-            uint4* dst = reinterpret_cast<uint4*>(&Bs[r * LDB + c0]);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
-                                    packed[4 * q + 3]);
-            }
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks) {
-            uint32_t af[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-                load_a<LDA>(af[mt], As[st], wm * WTM + mt * 16, ks * 16, lane);
-#pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t bfr[4];
-                load_b_cols<LDB>(bfr, Bs, ks * 16, wn * WTN + np * 16, lane);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    mma(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-                    mma(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-                }
-            }
-        }
-        __syncthreads();
+        hopper::mbar_init_fence();
     }
+    __syncthreads();
 
-    const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            const int col = n0 + wn * WTN + nt * 8 + 2 * t4;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * WTM + mt * 16 + g + 8 * half;
-                if (row >= M) continue;
-                const float a = acc[mt][nt][2 * half], b = acc[mt][nt][2 * half + 1];
-                if (partial != nullptr) {
-                    *reinterpret_cast<float2*>(partial + ((size_t)split * M + row) * F + col) =
-                        make_float2(a, b);
-                } else {
-                    store2(out, (size_t)row * F + col, a, b, out_f32);
-                }
+    if (tid >= 256) {
+        // producer: x, the codes and their scales of each K tile by TMA,
+        // S tiles ahead of the consumers
+        if (tid == 256) {
+            const int fb = n0 / qblock;
+            for (int kt = 0; kt < nkt; ++kt) {
+                const int st = kt % S;
+                if (kt >= S) hopper::mbar_wait(empty0 + 8 * st, ((kt / S) - 1) & 1);
+                const uint32_t xs = sbase + st * L::kStageBytes;
+                const uint32_t full = full0 + 8 * st;
+                const int k0 = k_begin + kt * QMM_BK;
+                hopper::mbar_arrive_expect_tx(full, L::kTx);
+                hopper::tma_load_2d(xs, &tm_x, full, k0, m0);
+                hopper::tma_load_2d(xs + L::kXBytes, &tm_codes, full, n0, k0);
+                hopper::tma_load_2d(xs + L::kXBytes + L::kCBytes, &tm_scales, full, k0, fb);
             }
         }
+        return;
     }
+    float* dst = splits > 1 ? partial + (size_t)split * M * F : nullptr;
+    consume<BM>(smem, sbase, full0, empty0, nkt, out, dst, M, F, n0, m0, out_f32);
+    if (dst == nullptr) return;
+
+    // H split: the last block of this output tile adds the slices in
+    // order, every slice's load of a position in flight at once
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    __threadfence();
+    hopper::named_barrier(1, 256);
+    if (tid == 0) last_block = atomicAdd(counters + tile, 1) == splits - 1;
+    hopper::named_barrier(1, 256);
+    if (!last_block) return;
+    __threadfence();
+    const int positions = min(BM, M - m0) * (QMM_BF / 4);
+    for (int p = tid; p < positions; p += 256) {
+        const size_t off = (size_t)(m0 + p / (QMM_BF / 4)) * F + n0 + (p % (QMM_BF / 4)) * 4;
+        float4 v[QMM_MAX_SPLITS];
+#pragma unroll
+        for (int sp = 0; sp < QMM_MAX_SPLITS; ++sp)
+            if (sp < splits)
+                v[sp] = __ldcg(reinterpret_cast<const float4*>(partial + (size_t)sp * M * F + off));
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int sp = 0; sp < QMM_MAX_SPLITS; ++sp) {
+            if (sp < splits) {
+                sum.x += v[sp].x;
+                sum.y += v[sp].y;
+                sum.z += v[sp].z;
+                sum.w += v[sp].w;
+            }
+        }
+        store4(out, off, sum, out_f32);
+    }
+    if (tid == 0) counters[tile] = 0;
 }
 
 // -- kernel #12: whole-F decode ------------------------------------------
@@ -396,19 +444,6 @@ cudaError_t reduce_splits(const float* partial, void* out, int splits, size_t n,
     return cudaGetLastError();
 }
 
-template <int BM, int WM>
-cudaError_t launch_tiled(const void* x, const void* codes, const void* scales, void* out,
-                         float* partial, int M, int H, int F, int qblock, int splits,
-                         int k_per_split, int out_f32, cudaStream_t stream) {
-    const dim3 grid(F / BN, (M + BM - 1) / BM, splits);
-    if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-    qmm_tiled_kernel<BM, WM><<<grid, TILED_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(codes),
-        static_cast<const float*>(scales), out, splits > 1 ? partial : nullptr,
-        M, H, F, qblock, k_per_split, out_f32);
-    return cudaGetLastError();
-}
-
 template <int M>
 cudaError_t launch_wholef(const void* x, const void* codes, const void* scales, void* out,
                           float* partial, int H, int F, int qblock, int splits,
@@ -419,6 +454,75 @@ cudaError_t launch_wholef(const void* x, const void* codes, const void* scales, 
         static_cast<const bf16*>(x), static_cast<const int8_t*>(codes),
         static_cast<const float*>(scales), out, splits > 1 ? partial : nullptr,
         H, F, qblock, rows_per_split, out_f32);
+    return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once through the
+// runtime (no link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &found) == cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// a 2-D row-major tensor [rows, cols] of `bytes`-wide elements, read in
+// boxes of box_cols x box_rows; out-of-bounds boxes read as zeros
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
+                int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM>
+cudaError_t launch_wgmma(const void* x, const void* codes, const void* scales, void* out,
+                         float* partial, int* counters, int M, int H, int F, int qblock,
+                         int splits, int k_tiles_per_split, int out_f32, cudaStream_t stream) {
+    using L = QmmPlan<BM>;
+    const dim3 grid(F / QMM_BF, (M + BM - 1) / BM, splits);
+    if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
+    CUtensorMap tm_x, tm_codes, tm_scales;
+    if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, H, QMM_BK, BM,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&tm_codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, H, F, QMM_BF, QMM_BK,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&tm_scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, F / qblock, H,
+                    QMM_BK, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return cudaErrorNotSupported;
+    auto kernel = qmm_wgmma_kernel<BM>;
+    // raise the shared-memory limit once per device, not on every launch (a
+    // launch may be captured into a CUDA graph)
+    static bool allowed[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64 || !allowed[dev]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)L::kBytes);
+        if (err != cudaSuccess) return err;
+        if (dev < 64) allowed[dev] = true;
+    }
+    kernel<<<grid, QMM_THREADS, L::kBytes, stream>>>(
+        tm_x, tm_codes, tm_scales, out, splits > 1 ? partial : nullptr, counters, M, H, F, qblock,
+        k_tiles_per_split, out_f32);
     return cudaGetLastError();
 }
 
@@ -446,26 +550,36 @@ int on_device(int device, Body body) {
 
 extern "C" {
 
-// #11.  `splits` slices of H (ceil(ceil(H / 64) / splits) K tiles each);
-// with more than one, `partial` is an f32 scratch [splits, M, F].
+// #11.  block_m 16 or 64 (decode width, m <= 64) or 128 (prefill width);
+// `splits` slices of H (at most 8) of ceil(ceil(H / 64) / splits) K tiles
+// each.  With more than one, `partial` is an f32 scratch [splits, M, F] and
+// `counters` an int32 scratch of one zero per output tile (F / 128 *
+// ceil(M / block_m)), left at zero.
 int qmm_tiled(int device, const void* x, const void* codes, const void* scales, void* out,
-              void* partial, int M, int H, int F, int qblock, int splits, int out_f32,
-              void* stream) {
-    if (!valid_shape(M, H, F, qblock, splits, partial)) return (int)cudaErrorInvalidValue;
-    const int k_tiles = (H + BK - 1) / BK;
+              void* partial, void* counters, int M, int H, int F, int qblock, int block_m,
+              int splits, int out_f32, void* stream) {
+    if (!valid_shape(M, H, F, qblock, splits, partial) || F % QMM_BF != 0 ||
+        splits > QMM_MAX_SPLITS || (splits > 1 && counters == nullptr) ||
+        (block_m != 16 && block_m != 64 && block_m != 128))
+        return (int)cudaErrorInvalidValue;
+    const int k_tiles = (H + QMM_BK - 1) / QMM_BK;
     const int per = (k_tiles + splits - 1) / splits;
     if ((k_tiles + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* part = static_cast<float*>(partial);
+    int* cnt = static_cast<int*>(counters);
     return on_device(device, [&]() {
-        cudaError_t err = M <= 16
-            ? launch_tiled<16, 1>(x, codes, scales, out, part, M, H, F, qblock, splits,
-                                  per * BK, out_f32, st)
-            : launch_tiled<64, 2>(x, codes, scales, out, part, M, H, F, qblock, splits,
-                                  per * BK, out_f32, st);
-        if (err == cudaSuccess && splits > 1)
-            err = reduce_splits(part, out, splits, (size_t)M * F, out_f32, st);
-        return err;
+        switch (block_m) {
+            case 16:
+                return launch_wgmma<16>(x, codes, scales, out, part, cnt, M, H, F, qblock, splits,
+                                        per, out_f32, st);
+            case 64:
+                return launch_wgmma<64>(x, codes, scales, out, part, cnt, M, H, F, qblock, splits,
+                                        per, out_f32, st);
+            default:
+                return launch_wgmma<128>(x, codes, scales, out, part, cnt, M, H, F, qblock,
+                                         splits, per, out_f32, st);
+        }
     });
 }
 

@@ -70,10 +70,21 @@ _SIGNATURES = {
     **{f"fused_bgmv_paged_decode_{suffix}": _FUSED_LAUNCH for suffix in ("bf16", "int8", "fp8")},
     "paged_decode_attention_bf16": _LAUNCH,
     "paged_multitoken_attention_bf16": _LAUNCH,
-    **{f"paged_{kind}_attention_{suffix}": _QLAUNCH
-       for kind in ("decode", "multitoken") for suffix in ("int8", "fp8")},
+    **{f"paged_decode_attention_{suffix}": _QLAUNCH for suffix in ("int8", "fp8")},
     "paged_attention_error_string": ([_I], ctypes.c_char_p),
 }
+# kernel #7 on the tensor cores (csrc/paged_prefill.cu)
+_PREFILL_SIGNATURES = {
+    **{f"paged_multitoken_attention_{suffix}": _QLAUNCH for suffix in ("int8", "fp8")},
+    "paged_prefill_error_string": ([_I], ctypes.c_char_p),
+}
+# #7's tiles: 64 query rows by 64 kv tokens, whatever the page size; its
+# shared memory: two bf16 tiles (K, V) of 64-column chunks, two stages of
+# K and V codes, two f32 column scales per token, and per block-table
+# entry the page id and its two amaxes, plus 1 KB of alignment
+PREFILL_ROWS, PREFILL_KV_TILE = 64, 64
+PREFILL_PAGE_SIZES = (16, 64)   # the pages #7 was measured on: generate_paged's, the serve's
+_MAX_SHARED_BYTES = 232448      # H100: a block's opt-in shared memory
 
 # Max code magnitude per quantized page dtype (JAX _KV_QMAX :649): symmetric
 # int8 uses the full [-127, 127] band; e4m3 codes saturate at 448
@@ -90,6 +101,39 @@ def _kv_qmax_for(pages) -> float:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("paged_attention", _SIGNATURES)
+
+
+def _prefill_lib() -> ctypes.CDLL:
+    return _build.load("paged_prefill", _PREFILL_SIGNATURES)
+
+
+def prefill_quant_plan(width: int, heads: int, kv_heads: int, page_size: int,
+                       head_dim: int, pages_per_slot: int) -> dict:
+    """Kernel #7's launch plan for a ``width``-token window per slot:
+    ``row_tiles`` blocks of 64 token-major query rows per (slot, kv head);
+    kv tiles of 64 tokens, ``pages_per_kv_tile`` whole pages each (one
+    page of 64, or four of 16); the block's shared memory.  Raises
+    ValueError for what the kernel does not take: a head dim other than
+    64, 96 or 128, a page size other than 16 or 64, or a block table too
+    long for shared memory."""
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_multitoken_attention_quant: the CUDA kernel is built for "
+                         f"head dims {_KERNEL_HEAD_DIMS}, got {head_dim}")
+    if page_size not in PREFILL_PAGE_SIZES:
+        raise ValueError(f"paged_multitoken_attention_quant: the CUDA kernel walks kv tiles of "
+                         f"{PREFILL_KV_TILE} tokens over page sizes {PREFILL_PAGE_SIZES}, "
+                         f"got {page_size}")
+    chunks = -(-head_dim // 64)
+    shared = (2 * chunks * PREFILL_KV_TILE * 128 + 4 * PREFILL_KV_TILE * head_dim
+              + 2 * PREFILL_KV_TILE * 4 + 12 * pages_per_slot + 1024)
+    if shared > _MAX_SHARED_BYTES:
+        raise ValueError(f"paged_multitoken_attention_quant: {pages_per_slot} block-table "
+                         f"entries per slot need {shared} bytes of shared memory, above "
+                         f"{_MAX_SHARED_BYTES}")
+    group = heads // kv_heads
+    return {"row_tiles": -(-width * group // PREFILL_ROWS), "rows": PREFILL_ROWS,
+            "kv_tile": PREFILL_KV_TILE,
+            "pages_per_kv_tile": PREFILL_KV_TILE // page_size, "shared_bytes": shared}
 
 
 def _check_kernel_operands(name, q, k_pages, v_pages, block_tables, positions,
@@ -209,12 +253,13 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, positions,
 
 
 def _run(name, plain, base, q, k_pages, v_pages, block_tables, positions, sm_scale,
-         k_scales=None, v_scales=None):
+         k_scales=None, v_scales=None, lib=None):
     """The paged wrappers' body: the plain version on a CPU tensor; on a
     CUDA tensor, checks the operands, launches ``<base>_bf16`` (or
-    ``<base>_int8`` / ``<base>_fp8`` for quantized pages) on the current
-    stream into a fresh output and counts the launch on the wrapper
-    ``name``; any other device raises."""
+    ``<base>_int8`` / ``<base>_fp8`` for quantized pages) of
+    ``lib`` (default ``csrc/paged_attention.cu``'s) on the current stream
+    into a fresh output and counts the launch on the wrapper ``name``; any
+    other device raises."""
     s_slots, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     width = q.shape[1] if q.dim() == 4 else 1
     hkv, num_pages, page_size, n = _geometry(h, k_pages, block_tables, d)
@@ -234,18 +279,24 @@ def _run(name, plain, base, q, k_pages, v_pages, block_tables, positions, sm_sca
         raise ValueError(f"{name}: positions {tuple(positions.shape)} / "
                          f"block_tables {tuple(block_tables.shape)} do not "
                          f"match q {tuple(q.shape)}")
+    prefill = lib is _prefill_lib
+    if prefill:
+        prefill_quant_plan(width, h, hkv, page_size, d, n)
+    lib = (lib or _lib)()
     out = torch.empty_like(q)
     scale_ptrs = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
     suffix = _KV_SUFFIX[k_pages.dtype] if quantized else "bf16"
-    err = getattr(_lib(), f"{base}_{suffix}")(
+    err = getattr(lib, f"{base}_{suffix}")(
         q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *scale_ptrs, block_tables.data_ptr(), positions.data_ptr(),
         out.data_ptr(), s_slots, width, h, hkv, d, num_pages, page_size, n,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
-        msg = _lib().paged_attention_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+        err_string = (lib.paged_prefill_error_string if prefill
+                      else lib.paged_attention_error_string)
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: {err_string(err).decode()} "
+                           f"({err})")
     _WRAPPERS[name].launches += 1
     return out
 
@@ -321,12 +372,14 @@ paged_multitoken_attention.launches = 0
 def paged_multitoken_attention_quant(q, k_pages, v_pages, block_tables, positions, *,
                                      k_scales, v_scales, sm_scale: Optional[float] = None):
     """Kernel #7 (JAX ``_paged_multitoken_kernel_quant``): the multi-token
-    window over int8 / e4m3 pages.  CUDA tensors launch
-    ``paged_multitoken_attention_{int8,fp8}``; CPU tensors run
+    window over int8 / e4m3 pages.  CUDA tensors launch the tensor-core
+    kernel ``paged_multitoken_attention_{int8,fp8}``
+    (``csrc/paged_prefill.cu``) on the plan of :func:`prefill_quant_plan`,
+    which refuses what it does not take; CPU tensors run
     :func:`paged_multitoken_attention_plain` with the scales."""
     return _run("paged_multitoken_attention_quant", paged_multitoken_attention_plain,
                 "paged_multitoken_attention", q, k_pages, v_pages, block_tables, positions,
-                sm_scale, k_scales, v_scales)
+                sm_scale, k_scales, v_scales, lib=_prefill_lib)
 
 
 paged_multitoken_attention_quant.launches = 0

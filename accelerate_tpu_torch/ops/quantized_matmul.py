@@ -17,7 +17,10 @@ the same call:
 
 The CUDA kernels use their own tiles (``csrc/quantized_matmul.cu``), so
 JAX's tile knobs ``block_m`` / ``block_k`` / ``block_f`` are not taken; the
-route is the one JAX takes at its default tiles.  The two kernels round
+route is the one JAX takes at its default tiles.  #11's tile plan
+(:func:`tiled_plan`) is the port's own: 16- or 64-row tiles at decode
+width (m <= 64), 128-row tiles above, and a split of H over blocks that the
+kernel adds back itself, in one launch.  The two kernels round
 differently, and each plain version follows its own kernel:
 
 - #11: ``w = bf16(f32(code) * scale)``, then ``bf16(x) @ w`` in f32;
@@ -37,6 +40,7 @@ caller may route a stand-in in their place.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -51,12 +55,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # qblock splits out_is_f32, and the stream
 _LAUNCH = ([_I] + [_P] * 5 + [_I] * 6 + [_P], _I)
 _SIGNATURES = {
-    "qmm_tiled": _LAUNCH,
+    # device, x, codes, scales, out, partial, counters (both NULL unless
+    # split), then M H F qblock block_m splits out_is_f32, and the stream
+    "qmm_tiled": ([_I] + [_P] * 6 + [_I] * 7 + [_P], _I),
     "qmm_wholef": _LAUNCH,
     "qmm_error_string": ([_I], ctypes.c_char_p),
 }
-_NUM_SMS = 132          # H100 SXM: the split planners aim at two blocks per SM
-_TILED_BN, _TILED_BK = 64, 64
+_NUM_SMS = 132          # H100 SXM
+_TILED_BN, _TILED_BK = 128, 64
+_DECODE_MAX_M = 64      # #11's decode-width plan up to here, the prefill plan above
+_MAX_SPLITS = 8         # #11's slices of H, all read at once by the kernel's sum
 _WHOLEF_COLS, _WHOLEF_MAX_M = 256, 8
 
 
@@ -178,15 +186,38 @@ def _check_operands(name, x, codes, scales, qblock, out_dtype):
         raise TypeError(f"{name}: the CUDA kernel writes bfloat16 or float32, not {out_dtype}")
 
 
-def tiled_splits(m: int, h: int, f: int) -> int:
-    """Kernel #11's split of H: enough K slices that the grid holds about
-    two blocks per SM, each slice at least two 64-row K tiles."""
-    bm = 16 if m <= 16 else 64
-    blocks = (f // _TILED_BN) * -(-m // bm)
+@dataclass(frozen=True)
+class TiledPlan:
+    """Kernel #11's launch plan for an ``[m, H] @ [H, F]`` call.
+
+    Tiles are ``block_m`` rows by 128 output columns: ``block_m`` 16 (m <=
+    16) or 64 (m <= 64) at decode width, where the call is bound by the
+    code bytes, and 128 above, where it is bound by the tensor cores.  H
+    is cut into ``splits`` slices of ``k_tiles_per_split`` 64-row K tiles
+    (the last may be shorter); with ``splits > 1`` the kernel adds the
+    slices itself, counting arrivals on ``tiles`` int32 counters."""
+
+    block_m: int
+    splits: int
+    k_tiles_per_split: int
+    tiles: int
+
+
+def tiled_plan(m: int, h: int, f: int) -> TiledPlan:
+    """#11's tile plan.  H is split while the output tiles leave SMs idle
+    (two blocks of each tile fit on the SMs), into at most 8 slices (the kernel's sum reads all of a position's
+    slices at once), each at least two K tiles at decode width and four at
+    prefill width.  The slice count is then the one the C entry point
+    recomputes from it (``ceil(k_tiles / ceil(k_tiles / splits))``)."""
+    decode = m <= _DECODE_MAX_M
+    block_m = 16 if m <= 16 else 64 if decode else 128
+    tiles = (f // _TILED_BN) * -(-m // block_m)
     k_tiles = -(-h // _TILED_BK)
-    splits = max(1, min(k_tiles // 2, -(-2 * _NUM_SMS // blocks)))
+    min_per = 2 if decode else 4
+    splits = max(1, min(_MAX_SPLITS, -(-k_tiles // min_per), _NUM_SMS // tiles))
     per = -(-k_tiles // splits)
-    return -(-k_tiles // per)
+    return TiledPlan(block_m=block_m, splits=-(-k_tiles // per), k_tiles_per_split=per,
+                     tiles=tiles)
 
 
 def wholef_splits(m: int, h: int, f: int) -> int:
@@ -198,26 +229,49 @@ def wholef_splits(m: int, h: int, f: int) -> int:
     return -(-h // rows)
 
 
+def _raise_on(name, err):
+    if err:
+        msg = _lib().qmm_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+
+
 def _launch(name, cname, x, codes, scales, qblock, out_dtype, splits):
-    """Launch ``cname`` on the current stream into a fresh output (and an
-    f32 scratch of partial sums when H is split) and count the launch on
-    the wrapper ``name``."""
+    """Launch ``cname`` (#12) on the current stream into a fresh output
+    (and an f32 scratch of partial sums when H is split, added by a second
+    launch) and count the launch on the wrapper ``name``."""
     m, h = x.shape
     f = codes.shape[1]
     out = torch.empty(m, f, dtype=out_dtype, device=x.device)
     partial = (torch.empty(splits, m, f, dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    err = getattr(_lib(), cname)(
+    _raise_on(name, getattr(_lib(), cname)(
         x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         m, h, f, qblock, splits, int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        msg = _lib().qmm_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+    ))
     _WRAPPERS[name].launches += 1
     return out
+
+
+# #11's arrival counters, one int32 per output tile of a split call, per
+# device: allocated zeroed once and left at zero by every launch.  H is
+# split only while two blocks of each tile fit on the SMs (tiled_plan),
+# so a split call has at most _NUM_SMS // 2 tiles
+_COUNTERS: dict = {}
+
+
+def _counters(device, tiles: int):
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "quantized_matmul_tiled: the split's counter scratch must be allocated "
+                "before a CUDA graph capture: run the call once outside the capture")
+        buf = torch.zeros(_NUM_SMS // 2, dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    assert tiles <= buf.numel(), (tiles, buf.numel())
+    return buf
 
 
 def _device_route(name, x) -> bool:
@@ -230,15 +284,31 @@ def _device_route(name, x) -> bool:
 
 def quantized_matmul_tiled(x, codes, scales, *, qblock: int, out_dtype=None):
     """Kernel #11 (JAX ``_qmm_kernel``): ``[m, F]``.  CUDA tensors launch
-    ``qmm_tiled`` (``csrc/quantized_matmul.cu``); CPU tensors run
-    :func:`quantized_matmul_plain`."""
+    ``qmm_tiled`` (``csrc/quantized_matmul.cu``) once, on the plan of
+    :func:`tiled_plan`; CPU tensors run :func:`quantized_matmul_plain`.
+    Launches on one device share its counter scratch, so they run in
+    stream order (one stream, or streams that wait on each other)."""
     out_dtype = out_dtype or x.dtype
     if not _device_route("quantized_matmul_tiled", x):
         return quantized_matmul_plain(x, codes, scales, qblock=qblock, out_dtype=out_dtype)
     _check_operands("quantized_matmul_tiled", x, codes, scales, qblock, out_dtype)
     m, h = x.shape
-    return _launch("quantized_matmul_tiled", "qmm_tiled", x, codes, scales, qblock, out_dtype,
-                   tiled_splits(m, h, codes.shape[1]))
+    f = codes.shape[1]
+    plan = tiled_plan(m, h, f)
+    out = torch.empty(m, f, dtype=out_dtype, device=x.device)
+    partial = counters = None
+    if plan.splits > 1:
+        partial = torch.empty(plan.splits, m, f, dtype=torch.float32, device=x.device)
+        counters = _counters(x.device, plan.tiles)
+    _raise_on("quantized_matmul_tiled", _lib().qmm_tiled(
+        x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        m, h, f, qblock, plan.block_m, plan.splits, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ))
+    _WRAPPERS["quantized_matmul_tiled"].launches += 1
+    return out
 
 
 quantized_matmul_tiled.launches = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -15,10 +15,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s bf16); the
    same for the quantized paged kernels (#5, #7) over int8 and fp8 pages
    written by the port's own ``paged_write_kv_quantized`` (SDPA over the
-   dequantized gathered KV as the yardstick), and for the W8A16 matmuls at
-   the 600m model's four dense shapes and one H with a partial K tile: #11
-   at m 16 and 512, #12 at m 1, 4 and 8 (``F.linear`` on the dequantized
-   bf16 weight as the yardstick);
+   dequantized gathered KV as the yardstick; #7 also at ``generate_paged``'s
+   pages of 16, 4 prompts of 250 tokens), and for the W8A16 matmuls at the
+   600m model's four dense shapes and one H with a partial K tile: #11 at m
+   16, 64, 65 (its plan switch) and 512, #12 at m 1, 4 and 8 (``F.linear``
+   on the dequantized bf16 weight as the yardstick); with ``--before DIR``
+   (a checkout of the commit before the redesign of #7 and #11, such as
+   ``git archive`` of it unpacked under ``build/``) #7 and #11 are also
+   held to their plain versions and timed in their earlier designs (the
+   CUDA-core #7, the mma.sync #11), built from DIR's sources
+   (``before_ms``);
 4. holds the flash-attention kernels (#1 forward, #2 dq, #3 dk/dv) against
    their plain versions at the 600m training shapes (16 q / 8 kv heads,
    head dim 96, T 2048): at batch 2 causal, segments, positions,
@@ -90,7 +96,9 @@ not inside a checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -134,11 +142,13 @@ DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 20
 # trace; generate_paged at batch 4 with fp8 pages
 QUANT_KV = "int8"
 GEN_PAGED = dict(batch=4, prompt_len_range=(128, 256), max_new=64, kv_dtype="fp8")
+GEN_T = 250           # the prefill window of kernel #7's case at generate_paged's geometry
 # the 600m model's denses (H -> F) and an H with a partial 64-row K tile
 QMM_SHAPES = {"q_proj / o_proj": (1536, 1536), "k_proj / v_proj": (1536, 768),
               "gate_proj / up_proj": (1536, 4096), "down_proj": (4096, 1536),
               "masked_k_tail": (1576, 768)}
-QMM_M = {"quantized_matmul_tiled": (16, 512), "quantized_matmul_wholef": (1, 4, 8)}
+# #11 at the decode step (16), the plan switch (64 / 65) and a prefill chunk (512)
+QMM_M = {"quantized_matmul_tiled": (16, 64, 65, 512), "quantized_matmul_wholef": (1, 4, 8)}
 QMM_MAIN = {"quantized_matmul_tiled": ("gate_proj / up_proj", 16),       # the decode step
             "quantized_matmul_wholef": ("gate_proj / up_proj", 4)}     # generate_paged's
 REPLACES = {"paged_decode_attention": "accelerate_tpu/ops/flash_attention.py:589",
@@ -220,7 +230,93 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda"):
+# -- #7 and #11 as the commit before their redesign built them (--before) ------
+
+# filled by main() from ``--before DIR``: name -> a callable with the
+# kernel wrapper's arguments that launches the earlier design
+BEFORE: dict = {}
+BEFORE_SOURCES = ("paged_attention", "quantized_matmul")
+
+
+def start_before_build(path: Path) -> dict:
+    """Start one nvcc per earlier source, ``DIR/accelerate_tpu_torch/csrc/
+    {paged_attention,quantized_matmul}.cu`` (with the headers beside them),
+    into ``build/before/``, with the port's flags."""
+    from accelerate_tpu_torch.ops import _build
+
+    out = ROOT / "build" / "before"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in BEFORE_SOURCES:
+        src = path / "accelerate_tpu_torch" / "csrc" / f"{name}.cu"
+        if not src.is_file():
+            raise FileNotFoundError(f"--before: {src} is not there")
+        lib = out / f"lib{name}.so"
+        procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                                         str(src)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True), lib)
+    return procs
+
+
+def before_kernels(torch, procs: dict) -> dict:
+    """Bind the earlier designs built by :func:`start_before_build`: #7's
+    CUDA-core template (``paged_multitoken_attention_{int8,fp8}`` of the
+    earlier ``paged_attention.cu``) and #11's mma.sync kernel (``qmm_tiled``
+    of the earlier ``quantized_matmul.cu``, with its own split of H and its
+    second launch for the sum), called as their wrappers called them."""
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"--before: nvcc failed on {name}.cu:\n{err}")
+        libs[name] = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    pa, qm = libs["paged_attention"], libs["quantized_matmul"]
+    for suffix in ("int8", "fp8"):
+        fn = getattr(pa, f"paged_multitoken_attention_{suffix}")
+        fn.argtypes, fn.restype = [I] + [P] * 8 + [I] * 8 + [ctypes.c_float, P], I
+    qm.qmm_tiled.argtypes, qm.qmm_tiled.restype = [I] + [P] * 5 + [I] * 6 + [P], I
+
+    def attention(q, kp, vp, bt, pos, *, k_scales, v_scales):
+        s_slots, t, h, d = q.shape
+        hkv, num_pages, page, _ = kp.shape
+        out = torch.empty_like(q)
+        fn = getattr(pa, "paged_multitoken_attention_"
+                     + ("int8" if kp.dtype == torch.int8 else "fp8"))
+        err = fn(q.device.index or 0, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 k_scales.data_ptr(), v_scales.data_ptr(), bt.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), s_slots, t, h, hkv, d, num_pages, page, bt.shape[1],
+                 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"--before: #7 launch failed ({err})")
+        return out
+
+    def matmul(x, codes, scales, *, qblock, out_dtype):
+        m, h = x.shape
+        f = codes.shape[1]
+        # the earlier split of H: about two 64 x 64 (16 x 64 at m <= 16)
+        # blocks per SM, each slice at least two 64-row K tiles
+        blocks = (f // 64) * -(-m // (16 if m <= 16 else 64))
+        k_tiles = -(-h // 64)
+        splits = max(1, min(k_tiles // 2, -(-2 * 132 // blocks)))
+        per = -(-k_tiles // splits)
+        splits = -(-k_tiles // per)
+        out = torch.empty(m, f, dtype=out_dtype, device=x.device)
+        partial = (torch.empty(splits, m, f, dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        err = qm.qmm_tiled(x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                           out.data_ptr(), None if partial is None else partial.data_ptr(),
+                           m, h, f, qblock, splits, int(out_dtype == torch.float32),
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"--before: #11 launch failed ({err})")
+        return out
+
+    return {"paged_multitoken_attention_quant": attention, "quantized_matmul_tiled": matmul}
+
+
+def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda",
+               page=None, n=None):
     """Random bf16 operands at the 600m paged-attention geometry.  Each
     slot's live block-table entries name distinct pages, drawn without
     replacement from the pool as the engine's allocator hands them out;
@@ -230,12 +326,14 @@ def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, de
     does.  With ``kv_dtype`` ``"int8"`` / ``"fp8"`` each pool holds codes
     written through ``paged_write_kv_quantized``, so each page's scale is
     its rows' amax: a pool is then ``(k_pages, v_pages, k_scales,
-    v_scales)``."""
+    v_scales)``.  ``page`` / ``n`` override the engine's page size and
+    pages per slot (``generate_paged`` provisions pages of 16)."""
     from accelerate_tpu_torch.models.llama import KV_QUANT_DTYPES, paged_write_kv_quantized
 
     hkv, h = MODEL["num_key_value_heads"], MODEL["num_attention_heads"]
     d = MODEL["hidden_size"] // h
-    page, n, num_pages = PLUGIN["page_size"], PLUGIN["pages_per_slot"], PLUGIN["num_pages"]
+    page, n = page or PLUGIN["page_size"], n or PLUGIN["pages_per_slot"]
+    num_pages = max(PLUGIN["num_pages"], slots * n)
     gen = torch.Generator(device=device).manual_seed(seed)
     dev = device
 
@@ -340,6 +438,12 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
     ms = time_ms(torch, rotating(kernel), graph=True)
     plain_ms = time_ms(torch, rotating(plain), iters=5)
+    # #7's earlier CUDA-core design (--before), timed beside its replacement
+    before = {}
+    if quant and not decode and BEFORE:
+        held_to_plain(torch, name + " (earlier design)", BEFORE[name](qk, kp, vp, bt, pk, **kw),
+                      ref)
+        before = {"before_ms": time_ms(torch, rotating(BEFORE[name]), graph=True)}
 
     # yardstick: one SDPA call over the gathered KV (dequantized to bf16 for
     # quantized pages), GQA heads repeated and the positional mask given as
@@ -370,7 +474,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
     flops = 4 * h * d * int((positions.long() + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {**held, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **before,
             "shape": {"slots": slots, "width": width, "heads": h, "kv_heads": hkv,
                       "head_dim": d, "page": page, "pages_per_slot": n,
                       "pages_read": pages_read, "kv_dtype": case["kv_dtype"] or "bf16",
@@ -378,7 +482,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
 
 CASE_KEYS = ("shape", "max_abs_err", "err_over_limit", "worst_row_err", "worst_row_ref_max",
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms")
 
 
 def _with_cases(cases: list, main: dict) -> dict:
@@ -386,7 +490,7 @@ def _with_cases(cases: list, main: dict) -> dict:
     rep = dict(main)
     rep["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     rep["err_over_limit"] = max(c["err_over_limit"] for c in cases)
-    rep["cases"] = [{k: c[k] for k in CASE_KEYS} for c in cases]
+    rep["cases"] = [{k: c[k] for k in CASE_KEYS if k in c} for c in cases]
     return rep
 
 
@@ -420,7 +524,14 @@ def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
             main = next(c for c in cases if c["shape"]["width"] == 512 and c["shape"]["pos0"] == [0])
             reports["paged_multitoken_attention"] = _with_cases(cases, main)
         else:
-            quant_multi += cases
+            # #7 at generate_paged's geometry: pages of 16, GEN_PAGED's
+            # batch of prompts of ~250 tokens from position 0
+            rep = case_report(torch, F, fa, paged_case(
+                torch, slots=GEN_PAGED["batch"], width=GEN_T, pos0=[0] * GEN_PAGED["batch"],
+                seed=GEN_T, kv_dtype=kv_dtype, device=device, page=16,
+                n=-(-(GEN_T + GEN_PAGED["max_new"]) // 16)), decode=False)
+            log("kernel paged_multitoken_attention", json.dumps(rep))
+            quant_multi += cases + [rep]
     # the quantized serve's pages are QUANT_KV's: its shapes are the main ones
     main = next(c for c in quant_decode if c["shape"]["kv_dtype"] == QUANT_KV)
     reports["paged_decode_attention_quant"] = _with_cases(quant_decode, main)
@@ -471,12 +582,21 @@ def qmm_kernel_phases(torch, F, device: str = "cuda") -> dict:
                 ms = time_ms(torch, rot(kernel), graph=True)
                 plain_ms = time_ms(torch, rot(plain), iters=5)
                 library_ms = time_ms(torch, lambda i: F.linear(x, dense[i % copies]), graph=True)
+                before = {}
+                if name in BEFORE:   # #11's earlier mma.sync design (--before)
+                    early = BEFORE[name](x, qt.data, qt.scale, qblock=128,
+                                         out_dtype=torch.bfloat16)
+                    held_to_plain(torch, f"{name} {label} m {m} (earlier design)",
+                                  early[:, None], ref[:, None])
+                    before = {"before_ms": time_ms(torch, rot(BEFORE[name]), graph=True)}
                 nbytes = h * f + (f // 128) * h * 4 + m * h * 2 + m * f * 2
                 bound_ms, bound_by = bound(nbytes, 2 * m * h * f)
                 rep = {**held, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_ms": bound_ms, "bound_by": bound_by, **before,
                        "shape": {"dense": label, "m": m, "H": h, "F": f, "qblock": 128,
                                  "weight_copies": copies}}
+                if name.endswith("tiled"):
+                    rep["shape"]["plan"] = vars(qmm.tiled_plan(m, h, f))
                 log("kernel", name, json.dumps(rep))
                 readings[name].append(rep)
         del weights, dense
@@ -1675,6 +1795,11 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--before", type=Path, default=None, metavar="DIR",
+                        help="a checkout of the commit before the redesign of #7 and #11: "
+                             "its designs are built and timed beside them (before_ms)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1700,7 +1825,11 @@ def main() -> int:
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["paged_attention", "flash_attention", "quantized_matmul", "lora"])
+    before_procs = start_before_build(args.before.resolve()) if args.before else None
+    libs = _build.build_all(["paged_attention", "paged_prefill", "flash_attention",
+                             "quantized_matmul", "lora"])
+    if before_procs:
+        BEFORE.update(before_kernels(torch, before_procs))
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(lib.name for lib in libs.values())}")
     for name in libs:
@@ -1762,6 +1891,7 @@ def main() -> int:
                                           kernels["fused_bgmv_paged_decode_quant"]["in_path"]),
     }
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
+               "paged_multitoken_attention_quant": "accelerate_tpu_torch/csrc/paged_prefill.cu",
                "paged": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",
@@ -1779,6 +1909,7 @@ def main() -> int:
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
                         "card": card, "shape": rep["shape"],
+                        **({"before_ms": rep["before_ms"]} if "before_ms" in rep else {}),
                         **({"cases": rep["cases"]} if "cases" in rep else {})})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@ After ``--skip`` ticks, the next ``--window`` ticks run under
 ``torch.profiler``, each closed by a device sync.  Prints the card's name
 and power limit, then one JSON line: the host wall per tick kind, the
 device's busy share of the window (the union of its kernels' intervals),
-device time in all and by kernel, and the host ops of most self time.  The
-profiler slows the host, so the busy share is a lower bound on the
-unprofiled one.
+device time in all and by kernel (with each kernel's launches), and the
+host ops of most self time.  The profiler slows the host, so the busy
+share is a lower bound on the unprofiled one.
 """
 
 from __future__ import annotations
@@ -69,9 +69,10 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
         window_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end, by_name = 0.0, -math.inf, {}
+    busy_us, end, by_name, count = 0.0, -math.inf, {}, {}
     for start, stop, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+        count[name] = count.get(name, 0) + 1
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -85,7 +86,8 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
             "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
             "device_ms": sum(by_name.values()) if spans else None,
             "kernels_launched": len(spans),
-            "top_kernels_ms": [{"name": n[:90], "ms": ms} for n, ms in top],
+            "top_kernels_ms": [{"name": n[:90], "ms": ms, "launches": count[n]}
+                               for n, ms in top],
             "top_host_ops_self_ms": [{"name": e.key[:60], "calls": e.count,
                                       "ms": e.self_cpu_time_total / 1e3} for e in host_ops]}
 

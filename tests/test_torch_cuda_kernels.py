@@ -285,6 +285,88 @@ def test_quantized_multitoken_kernel_matches_plain(cuda, kv_dtype, width, pos0, 
     _assert_rows_close(out, ref)
 
 
+def _quant_pool(gen, dev, hkv, num_pages, page, d, kv_dtype, extreme=False):
+    """``(k_pages, k_scales, v_pages, v_scales)`` at any geometry: values
+    written through the port's quantized write, or with ``extreme`` every
+    code at +-QMAX (127 / 448) under amaxes in [0.25, 1)."""
+    from accelerate_tpu_torch.models.llama import KV_QUANT_DTYPES, paged_write_kv_quantized
+
+    out = []
+    for _ in range(2):
+        if extreme:
+            qmax = 127.0 if kv_dtype == "int8" else 448.0
+            sign = torch.randint(0, 2, (hkv, num_pages, page, d), generator=gen, device=dev) * 2 - 1
+            pages = (sign * qmax).to(KV_QUANT_DTYPES[kv_dtype])
+            scales = 0.25 + 0.75 * torch.rand(hkv, num_pages, generator=gen, device=dev)
+        else:
+            pages = torch.zeros(hkv, num_pages, page, d, dtype=KV_QUANT_DTYPES[kv_dtype],
+                                device=dev)
+            scales = torch.zeros(hkv, num_pages, device=dev)
+            vals = torch.randn(num_pages, page, hkv, d, generator=gen, device=dev).bfloat16()
+            ids = torch.arange(num_pages, device=dev)[:, None].expand(num_pages, page)
+            offs = torch.arange(page, device=dev)[None].expand(num_pages, page)
+            paged_write_kv_quantized(pages, scales, vals, ids, offs, kv_dtype)
+        out += [pages, scales]
+    return out
+
+
+# kernel #7's geometries: (slots, width, first positions, page size, pages
+# per slot, kv heads, GQA group, head dim)
+PREFILL_CASES = [
+    (2, 100, [37, 0], 16, 20, 8, 2, 96),         # pages of 16, pos0 mid-page
+    (1, 512, [0], 64, 32, 8, 2, 96),             # the serve's chunk
+    (4, 250, [0, 0, 0, 0], 16, 20, 8, 2, 96),    # generate_paged's prompts
+    (3, 77, [5, 70, 130], 64, 8, 8, 1, 128),     # group 1, rows no multiple of 64
+    (2, 33, [300, 17], 16, 32, 4, 4, 64),        # group 4
+    (2, 50, [1000, 3], 16, 80, 2, 8, 64),        # group 8, a long window
+    (2, 16, [1024, 2000], 64, 32, 8, 2, 96),     # a short chunk deep in the table
+    (2, 8, [-20, -3], 16, 4, 8, 2, 96),          # a window wholly / partly before 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_tensor_core_multitoken_kernel_geometries(cuda, kv_dtype, extreme, case):
+    """#7 over pages of 16 and 64, GQA groups 1-8, head dims 64-128, row
+    counts that are no multiple of the 64-row tile, several slots, first
+    positions mid-page, codes at +-QMAX, and a window wholly before
+    position 0 (zeros)."""
+    slots, width, pos0, page, n, hkv, group, d = case
+    gen = torch.Generator(device=cuda).manual_seed(width + page + d)
+    num_pages = slots * n
+    kp, ks, vp, vs = _quant_pool(gen, cuda, hkv, num_pages, page, d, kv_dtype, extreme)
+    bt = torch.randperm(num_pages, generator=gen, device=cuda).int().reshape(slots, n)
+    pos = (torch.tensor(pos0, dtype=torch.int32, device=cuda)[:, None]
+           + torch.arange(width, dtype=torch.int32, device=cuda)).contiguous()
+    q = torch.randn(slots, width, hkv * group, d, generator=gen, device=cuda).bfloat16()
+    out = tfa.paged_multitoken_attention(q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert tfa.paged_multitoken_attention_quant.launches == 1
+    ref = tfa.paged_multitoken_attention_plain(q.float(), kp, vp, bt, pos, k_scales=ks,
+                                               v_scales=vs)
+    _assert_rows_close(out, ref)
+    dead = pos[:, -1] < 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+@pytest.mark.cuda
+def test_tensor_core_multitoken_kernel_refuses_what_it_does_not_take(cuda):
+    """Page sizes that neither divide the 64-token kv tile nor are
+    multiples of it, and head dims other than 64 / 96 / 128, are refused
+    before any launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for page, d in ((24, 96), (16, 80)):
+        kp, ks, vp, vs = _quant_pool(gen, cuda, 8, 4, page, d, "int8")
+        q = torch.zeros(1, 8, 16, d, dtype=torch.bfloat16, device=cuda)
+        bt = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+        pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+        with pytest.raises(ValueError, match="page sizes|head dims"):
+            tfa.paged_multitoken_attention(q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)
+    assert tfa.paged_multitoken_attention_quant.launches == 0
+
+
 def _qweight(gen, dev, h, f):
     from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize
 
@@ -315,6 +397,49 @@ def test_tiled_qmm_kernel_matches_plain(cuda, h, f, m):
     ref = tqm.quantized_matmul_plain(x, qt.data, qt.scale, qblock=128, out_dtype=torch.float32)
     _assert_rows_close(out[:, None], ref[:, None])
     torch.testing.assert_close(out32, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, f", [(1576, 768), (1536, 4096)])
+@pytest.mark.parametrize("m", [9, 16, 17, 37, 64, 65, 512])
+def test_tiled_qmm_plans_match_plain_and_are_deterministic(cuda, h, f, m):
+    """#11 at both tile plans and around their switches (16 / 17, 64 / 65),
+    with a partial last K tile (H 1576): one launch a call, f32 sums
+    against the plain version, and ten runs bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(h + m)
+    qt = _qweight(gen, cuda, h, f)
+    x = torch.randn(m, h, generator=gen, device=cuda).bfloat16()
+    runs = [tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128, out_dtype=torch.float32)
+            for _ in range(10)]
+    torch.cuda.synchronize()
+    assert tqm.quantized_matmul_tiled.launches == 10
+    out = runs[0]
+    assert all(torch.equal(out, again) for again in runs[1:])
+    ref = tqm.quantized_matmul_plain(x, qt.data, qt.scale, qblock=128, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, h, f", [(16, 1536, 4096), (512, 4096, 1536), (37, 1576, 768)])
+def test_tiled_qmm_replays_in_a_cuda_graph(cuda, m, h, f):
+    """With H split, #11 counts arrivals in a scratch that every launch
+    leaves at zero: a captured launch replayed three times gives the eager
+    output bitwise each time, and the counters are back at zero."""
+    assert tqm.tiled_plan(m, h, f).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    qt = _qweight(gen, cuda, h, f)
+    x = torch.randn(m, h, generator=gen, device=cuda).bfloat16()
+    eager = tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert int(tqm._COUNTERS[x.device].abs().sum()) == 0
 
 
 @pytest.mark.cuda

@@ -229,6 +229,35 @@ def test_quant_wrappers_dispatch_and_check():
         tfa._kv_qmax_for(torch.zeros(2, dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("width, heads, kv_heads, page, d, pages_per_kv_tile, row_tiles", [
+    (512, 16, 8, 64, 96, 1, 16),     # the serve's chunk: a page a tile
+    (250, 16, 8, 16, 96, 4, 8),      # generate_paged: four pages a tile
+    (77, 8, 8, 64, 128, 1, 2),       # group 1
+    (33, 16, 2, 16, 64, 4, 5),       # group 8
+    (16, 16, 4, 64, 96, 1, 1),       # group 4, one row tile
+])
+def test_prefill_quant_plan_tiles(width, heads, kv_heads, page, d, pages_per_kv_tile, row_tiles):
+    """Kernel #7's plan: 64 token-major query rows per block, kv tiles of
+    64 tokens over whole pages (pages of 16: four a tile)."""
+    plan = tfa.prefill_quant_plan(width, heads, kv_heads, page, d, 32)
+    assert (plan["rows"], plan["kv_tile"]) == (64, 64)
+    assert plan["pages_per_kv_tile"] == pages_per_kv_tile
+    assert plan["row_tiles"] == row_tiles == -(-width * (heads // kv_heads) // 64)
+    assert plan["pages_per_kv_tile"] * page == 64
+    assert plan["shared_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("page, d, n, match", [
+    (24, 96, 32, "page sizes"), (48, 96, 32, "page sizes"), (100, 64, 32, "page sizes"),
+    (0, 96, 32, "page sizes"), (8, 96, 32, "page sizes"), (32, 96, 32, "page sizes"),
+    (128, 96, 32, "page sizes"), (16, 80, 32, "head dims"), (64, 256, 32, "head dims"),
+    (16, 128, 20000, "shared memory"),
+])
+def test_prefill_quant_plan_refuses_what_the_kernel_does_not_take(page, d, n, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.prefill_quant_plan(16, 16, 8, page, d, n)
+
+
 @pytest.fixture(scope="module")
 def tiny_params():
     jmodel = jl.LlamaForCausalLM(jl.LlamaConfig.tiny(dtype=jnp.float32))

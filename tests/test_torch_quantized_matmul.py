@@ -78,6 +78,26 @@ def test_plain_matches_pallas(h, f, m, kw, route, out_dtype):
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("h, f", [(1536, 1536), (1536, 768), (1536, 4096), (4096, 1536)])
+@pytest.mark.parametrize("m", [48, 512])
+def test_quantized_matmul_at_the_600m_shapes_matches_jax(h, f, m):
+    """The 600m model's four denses at 48 rows (three 16-token rows) and at
+    a 512-token chunk, both on the tiled route: f32 out within 1e-5 of
+    max|ref| (summation order only).  The op agrees at 48 rows; the
+    model-level delta found there is bf16 input roundings that flip
+    (``test_torch_quantization.py``)."""
+    rng = np.random.default_rng(h + f + m)
+    w = (rng.normal(size=(h, f)) / h ** 0.5).astype(np.float32)
+    jqt = jq.quantize(w, jq.QuantizationConfig(load_in_8bit=True))
+    tqt = tq.quantize(torch.from_numpy(w), tq.QuantizationConfig(load_in_8bit=True))
+    x = rng.normal(size=(m, h)).astype(np.float32)
+    assert tqm._route(m, tqt, None) == "tiled"
+    want = jqm.quantized_matmul(jnp.asarray(x, jnp.bfloat16), jqt, out_dtype=jnp.float32,
+                                interpret=True)
+    got = tqm.quantized_matmul(torch.from_numpy(x).bfloat16(), tqt, out_dtype=torch.float32)
+    _assert_close(got, want)
+
+
 def test_leading_dims_and_f32_input():
     """x of any leading shape; an f32 x gives f32 out by default (x is
     rounded to bf16 for the product, as in JAX)."""
@@ -129,18 +149,52 @@ def test_tile_planners_equal_jax():
 def test_split_planners_agree_with_the_kernels_rule():
     """The C entry points recompute each slice's length from the split
     count and refuse a count that does not come back: hold the planners to
-    that rule at the 600m shapes and around them."""
-    for m in (1, 4, 8, 9, 16, 100, 512):
+    that rule at the 600m shapes and around them.  #11's slices cover H
+    exactly, each at least one 64-row K tile, at most 8 of them; its plan
+    switches from the decode width (16-row tiles to m 16, 64-row tiles to
+    m 64) to the prefill width (128-row tiles) between m 64 and 65, and its
+    counters are one per output tile, within the fixed scratch of 66 that
+    a split call uses."""
+    for m in (1, 4, 8, 9, 16, 17, 37, 48, 64, 65, 100, 512):
         for h in (128, 256, 1000, 1536, 1576, 4096):
             for f in (128, 768, 1536, 4096):
-                s = tqm.tiled_splits(m, h, f)
+                plan = tqm.tiled_plan(m, h, f)
                 k_tiles = -(-h // 64)
-                per = -(-k_tiles // s)
-                assert s >= 1 and -(-k_tiles // per) == s, (m, h, f)
+                per = -(-k_tiles // plan.splits)
+                assert plan.splits >= 1 and -(-k_tiles // per) == plan.splits, (m, h, f)
+                assert plan.k_tiles_per_split == per >= 1, (m, h, f)
+                slices = [(s * per * 64, min(h, (s + 1) * per * 64)) for s in range(plan.splits)]
+                assert slices[0][0] == 0 and slices[-1][1] == h, (m, h, f)
+                assert all(a < b for a, b in slices), (m, h, f)
+                assert all(b == c for (_, b), (c, _) in zip(slices, slices[1:])), (m, h, f)
+                assert plan.block_m == (16 if m <= 16 else 64 if m <= 64 else 128), (m, h, f)
+                assert plan.splits <= 8, (m, h, f)
+                assert plan.tiles == (f // 128) * -(-m // plan.block_m), (m, h, f)
+                if plan.splits > 1:
+                    assert plan.tiles <= tqm._NUM_SMS // 2, (m, h, f)
                 if m <= 8:
                     s = tqm.wholef_splits(m, h, f)
                     rows = -(-(-(-h // s)) // 8) * 8
                     assert s >= 1 and -(-h // rows) == s, (m, h, f)
+
+
+@pytest.mark.parametrize("m, h, f, block_m, splits, per", [
+    (16, 1536, 4096, 16, 4, 6),       # gate / up at the 16-slot decode step
+    (17, 1536, 4096, 64, 4, 6),       # the first 64-row m
+    (64, 1536, 4096, 64, 4, 6),       # the last decode-width m
+    (65, 1536, 4096, 128, 4, 6),      # the first prefill-width m
+    (512, 1536, 4096, 128, 1, 24),    # gate / up at a 512-token chunk: no split
+    (512, 4096, 1536, 128, 2, 32),    # down_proj at 512: 48 tiles, two slices
+    (512, 1536, 768, 128, 5, 5),      # k / v at 512
+    (16, 4096, 1536, 16, 8, 8),       # down_proj at 16: 8 slices at most
+    (16, 1576, 768, 16, 7, 4),        # a partial last K tile
+])
+def test_tiled_plan_at_the_600m_shapes(m, h, f, block_m, splits, per):
+    """The plans the 600m serve launches #11 on: one block per SM, H split
+    (into at most 8 slices) only while tiles leave SMs idle."""
+    plan = tqm.tiled_plan(m, h, f)
+    assert (plan.block_m, plan.splits, plan.k_tiles_per_split) == (block_m, splits, per)
+    assert plan.tiles * plan.splits <= 132
 
 
 def test_plain_versions_round_like_their_kernels():

@@ -294,10 +294,11 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax():
     """Neither the port nor its scripts for the card (chip_smoke.py,
-    profile_serving.py) import JAX, Flax or the JAX package, not even a
-    module of it that does not import JAX."""
+    profile_serving.py, stress_qmm.py, ...) import JAX, Flax or the JAX
+    package, not even a module of it that does not import JAX."""
     files = sorted((REPO / "accelerate_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_serving.py", REPO / "profile_training.py"]
+        REPO / name for name in ("chip_smoke.py", "profile_serving.py", "profile_training.py",
+                                 "time_training_step.py", "stress_qmm.py")]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
     for path in files:
