@@ -1,24 +1,23 @@
-// Paged attention for the serving engine, hand-written for Hopper (sm_90a).
+// Paged attention for the serving engine's decode step, hand-written for
+// Hopper (sm_90a).
 //
-// Six entry points share one kernel template, templated on the page
+// Its entry points share one kernel template, templated on the page
 // element type:
 //
 //   paged_decode_attention_bf16      replaces the Pallas TPU kernel
 //       accelerate_tpu/ops/flash_attention.py  _paged_decode_kernel
 //       (launched by paged_decode_attention): ragged T = 1 decode, one
 //       query token per slot, once per layer on every decode step.
-//   paged_multitoken_attention_bf16  replaces the Pallas TPU kernel
-//       accelerate_tpu/ops/flash_attention.py  _paged_multitoken_kernel
-//       (launched by paged_multitoken_attention): a window of T contiguous
-//       query tokens per slot, once per layer on every prefill chunk.
+//       (_paged_multitoken_kernel and _paged_multitoken_kernel_quant, the
+//       prefill chunk's, are replaced by the tensor-core kernel of
+//       paged_prefill.cu.)
 //   paged_decode_attention_{int8,fp8}      replace _paged_decode_kernel_quant:
 //       the same over quantized pages, int8 or e4m3 codes with one f32
 //       amax per (kv head, page) in k_scales / v_scales [Hkv, P].  Codes
 //       are read at one byte per element and widened in the tile to
 //       f32(code) * (amax / QMAX) (QMAX 127 / 448), the TPU kernels'
 //       _dequant_tile; the scale is looked up through the same block-table
-//       entry as the page.  (_paged_multitoken_kernel_quant is replaced
-//       by the tensor-core kernel of paged_prefill.cu.)
+//       entry as the page.
 //   fused_bgmv_paged_decode_bf16     replaces the Pallas TPU kernel
 //       accelerate_tpu/ops/flash_attention.py  _fused_bgmv_decode_kernel
 //       (launched by fused_bgmv_paged_decode), and
@@ -50,22 +49,17 @@
 // pages serially and carried m, l and acc in VMEM scratch; here the block
 // loops over its pages itself, reading each physical page id from the
 // block table, and stops at the last page its own last row can see
-// (min(last_row_pos / page, n - 1)).  Row tiles split the T * group query
-// rows of a prefill chunk over many blocks: a 512-token chunk of the 600m
-// model (group 2) makes 16 tiles of 64 rows per kv head, 128 blocks in all,
-// where one block per kv head would leave most of the 132 SMs idle.
+// (min(last_row_pos / page, n - 1)).  A decode block holds one slot's GQA
+// group of query rows (up to 8; larger groups take several row tiles).
 //
-// What bounds it on an H100:
-//   * decode reads every live K/V page once for 16 or so query rows per
-//     kv head: it is bound by HBM bytes (the live pages over 3.35 TB/s);
-//   * a 512-token prefill chunk does about 2 * 512 * 2 flops per kv
-//     element it reads and sits near the compute/bandwidth ridge;
-//   * quantized pages halve the decode kernel's bytes: codes travel to
-//     shared memory at one byte per element and are widened only where
-//     the scores and p . v read them.
-// This first version is plain CUDA cores, one page in flight per block and
-// a barrier between the load and the math.  The faster forms (wgmma tiles,
-// TMA loads double-buffered, decode split over pages) are later work.
+// What bounds it on an H100: decode reads every live K/V page once for 16
+// or so query rows per kv head: it is bound by HBM bytes (the live pages
+// over 3.35 TB/s).  Quantized pages halve the bytes: codes travel to shared
+// memory at one byte per element and are widened only where the scores
+// and p . v read them.  This first version is plain CUDA cores, one page in
+// flight per block and a barrier between the load and the math.  The
+// faster forms (TMA loads double-buffered, decode split over pages) are
+// later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
@@ -563,18 +557,6 @@ int paged_decode_attention_bf16(int device, const void* q, const void* k_pages,
     return dispatch<bf16, 8, 1>(device, q, k_pages, v_pages, nullptr, nullptr, block_tables,
                                 positions, out, S, 1, H, Hkv, D, P, page, n, 1, sm_scale,
                                 stream);
-}
-
-// Multi-token: q / out [S, T, H, D], positions [S, T] (only column 0 is
-// read; rows are contiguous).  Rows per block: 64.
-int paged_multitoken_attention_bf16(int device, const void* q, const void* k_pages,
-                                    const void* v_pages, const void* block_tables,
-                                    const void* positions, void* out, int S, int T,
-                                    int H, int Hkv, int D, int P, int page, int n,
-                                    float sm_scale, void* stream) {
-    return dispatch<bf16, 64, 2>(device, q, k_pages, v_pages, nullptr, nullptr, block_tables,
-                                 positions, out, S, T, H, Hkv, D, P, page, n, T, sm_scale,
-                                 stream);
 }
 
 // Quantized pages: as above, with k_pages / v_pages int8 or e4m3 codes and

@@ -1,17 +1,18 @@
-// Paged multi-token attention over quantized pages on the tensor cores,
-// hand-written for Hopper (sm_90a).
+// Paged multi-token attention on the tensor cores, hand-written for Hopper
+// (sm_90a): one kernel template over the page element.
 //
-//   paged_multitoken_attention_{int8,fp8}  replace the Pallas TPU kernel
-//       accelerate_tpu/ops/flash_attention.py  _paged_multitoken_kernel_quant
-//       (launched by paged_multitoken_attention over int8 / e4m3 pages):
-//       a window of T contiguous query tokens per slot against the slot's
-//       paged K/V, once per layer on every prefill chunk of a serve with
-//       quantized pages.  Pages are codes with one f32 amax per (kv head,
-//       page) in k_scales / v_scales [Hkv, P]; a code stands for
-//       f32(code) * (amax / QMAX), QMAX 127 (int8) or 448 (e4m3).
+//   paged_multitoken_attention_bf16  replaces the Pallas TPU kernel
+//       accelerate_tpu/ops/flash_attention.py  _paged_multitoken_kernel
+//       (launched by paged_multitoken_attention over bf16 pages): kernel #6;
+//   paged_multitoken_attention_{int8,fp8}  replace _paged_multitoken_kernel_quant
+//       (the same over int8 / e4m3 pages): kernel #7.  Pages are codes with
+//       one f32 amax per (kv head, page) in k_scales / v_scales [Hkv, P]; a
+//       code stands for f32(code) * (amax / QMAX), QMAX 127 (int8) or 448
+//       (e4m3).
+// Both run once per layer on every prefill chunk of a serve: a window of T
+// contiguous query tokens per slot against the slot's paged K/V.
 //
-// Semantics (those of _paged_multitoken_body and of the CUDA-core template
-// in paged_attention.cu):
+// Semantics (those of _paged_multitoken_body):
 //   * q / out [S, T, H, D] bf16, pages [Hkv, P, page, D], block_tables
 //     [S, n], positions [S, T] (column 0 read): query row r of a slot is
 //     token r / group of q head h * group + r % group (token-major rows),
@@ -24,35 +25,41 @@
 //
 // Design.  One block of one warpgroup (128 threads) per (64 query rows,
 // kv head, slot); row tiles that walk the most kv tiles are scheduled
-// first.  The block walks kv tiles of 64 tokens: one page of 64 (the
-// serve's pages) or four pages of 16 (generate_paged's), the only page
-// sizes taken, each token located through the block table with its own
-// page's scale.
-//   * The block table row and each page's two amaxes are staged in shared
-//     memory once, so a tile's addresses never wait on a global load.
-//   * Codes arrive by cp.async at one byte per element, double-buffered:
-//     tile j + 1's copies run under tile j's math.
-//   * Every int8 code (|c| <= 127) and every e4m3 value is exact in bf16,
-//     and the scale is constant over a page, so codes widen once per
-//     element to bf16 shared-memory tiles with no multiply.  S = Q K^T is
-//     then wgmma m64n64k16 (Q from registers, K the K-major B operand), D
-//     in k16 steps; the K scale times sm_scale multiplies S's columns after
-//     the product.  The online softmax stays in registers (row max and row
-//     sum over the four lanes of a quad).  V's scale multiplies p in f32,
-//     p is rounded once to bf16 and is the register A operand of P V, V the
-//     MN-major B operand (the transpose bit), in 64- and 32-wide wgmmas.
+// first.  The block walks kv tiles of 64 tokens whatever the page size:
+// each token is found through its own block-table entry (page i / page,
+// row i % page), so a tile may hold several pages (pages of 1 to 32), part
+// of one (pages of 100) or exactly one (pages of 64); a page of 128 spans
+// two tiles.
+//   * The block table row (and, for codes, each page's two amaxes) is
+//     staged in shared memory once, so a tile's addresses never wait on a
+//     global load.
+//   * bf16 pages: each token row goes by cp.async, 16 bytes a copy, straight
+//     into its place in the 128-byte-swizzled K and V tiles, three stages
+//     deep (tiles j + 1 and j + 2 in flight under tile j's math); there is
+//     no staging area and no widening pass.
+//   * Codes: they arrive by cp.async at one byte per element, double-
+//     buffered.  Every int8 code (|c| <= 127) and every e4m3 value is exact
+//     in bf16, and the scale is constant over a page, so codes widen once
+//     per element to bf16 tiles with no multiply.
+//   * S = Q K^T is wgmma m64n64k16 (Q from registers, K the K-major B
+//     operand), D in k16 steps; sm_scale * log2(e) (times the column's K
+//     scale for codes) multiplies S's columns after the product.  The
+//     online softmax stays in registers (row max and row sum over the four
+//     lanes of a quad).  p (times the column's V scale for codes) is rounded
+//     once to bf16 and is the register A operand of P V, V the MN-major B
+//     operand (the transpose bit), in 64- and 32-wide wgmmas.
 //   * The kernel's departures from exact f32 arithmetic besides its f32
-//     sums: the bf16 rounding of p * v_scale; the reassociated K scale
-//     ((q . code) * scale in place of q . (code * scale)); and the
-//     exponential, ex2.approx.ftz.f32 (about 2 ulp, subnormal inputs and
-//     results flushed to zero), on scores kept in base-2 units
-//     (sm_scale * log2(e) folded into the K scale).
+//     sums: the bf16 rounding of p (p * v_scale for codes); the exponential,
+//     ex2.approx.ftz.f32 (about 2 ulp, subnormal inputs and results flushed
+//     to zero), on scores kept in base-2 units; for codes, the reassociated
+//     K scale ((q . code) * scale in place of q . (code * scale)).
 //
 // What bounds it on an H100: a 512-token chunk of the 600m model (16 q /
 // 8 kv heads, D 96) does 4 * 96 flops per (row, visible key) pair, about
-// 0.8 GFLOP over 0.8 MB of codes: below a microsecond at either roof.  The
-// kernel is bound by its latency chain per kv tile (copy wait, widen,
-// product, softmax, product), which the double-buffered copies shorten.
+// 0.8 GFLOP over 1.6 MB of bf16 pages (0.8 MB of codes): below a
+// microsecond at either roof.  The kernel is bound by its latency chain
+// per kv tile (copy wait, for codes the widening, product, softmax,
+// product), which the copies in flight shorten.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
@@ -83,7 +90,15 @@ constexpr int kThreads = 128;   // one warpgroup
 constexpr int kRows = 64;       // query rows per block
 constexpr int kCols = 64;       // kv tokens per tile
 
+// the page element: bf16 (copied as it is) or a one-byte code widened to bf16
+struct Bf16Pages {
+    static constexpr bool kQuant = false;
+    typedef bf16 Elem;
+};
+
 struct Int8Codes {
+    static constexpr bool kQuant = true;
+    typedef uint8_t Elem;
     static constexpr float kQmax = 127.f;
     // four codes -> four bf16, exactly: each code through the f32 bit
     // pattern 2^23 + (code + 128) (a byte permute, no int-to-float convert)
@@ -102,6 +117,8 @@ struct Int8Codes {
 };
 
 struct Fp8Codes {
+    static constexpr bool kQuant = true;
+    typedef uint8_t Elem;
     static constexpr float kQmax = 448.f;
     __device__ static uint32_t widen2(uint16_t two) {   // e4m3 -> half -> bf16, exact
         const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3));
@@ -118,34 +135,39 @@ struct Fp8Codes {
     }
 };
 
-// shared-memory plan of one block at head dim D and n block-table entries
-template <int D>
+// shared-memory plan of one block at head dim D and n block-table entries:
+// bf16 pages fill kStages stages of (K, V) bf16 tiles in place; codes fill
+// two stages of (K, V) codes, widened into one (K, V) pair of bf16 tiles
+template <typename C, int D>
 struct Plan {
+    static constexpr int kStages = C::kQuant ? 1 : 3;       // (K, V) bf16 tile pairs
     static constexpr int kChunks = (D + 63) / 64;          // 64-column chunks of a bf16 tile
     static constexpr int kTileBytes = kChunks * kCols * 128;
-    static constexpr int kCodeBytes = kCols * D;            // one tile of K (or V) codes
-    static constexpr int kK = 0;                            // bf16 K tile
-    static constexpr int kV = kK + kTileBytes;              // bf16 V tile
-    static constexpr int kStage = kV + kTileBytes;          // 2 stages x (K codes, V codes)
-    static constexpr int kColScale = kStage + 4 * kCodeBytes;   // [2][kCols] f32
-    static constexpr int kTable = kColScale + 2 * kCols * 4;    // [n] int32, [n] k amax, [n] v amax
-    static size_t bytes(int n) { return (size_t)kTable + 12 * (size_t)n + 1024; }
+    static constexpr int kCodeBytes = C::kQuant ? kCols * D : 0;   // one tile of codes
+    static constexpr int kK = 0;                            // stage s: K at kK + 2 s kTileBytes, V after
+    static constexpr int kStage = kK + kStages * 2 * kTileBytes;    // 2 stages x (K codes, V codes)
+    static constexpr int kColScale = kStage + 4 * kCodeBytes;       // [2][kCols] f32 (codes)
+    static constexpr int kTable = kColScale + (C::kQuant ? 2 * kCols * 4 : 0);
+    // [n] int32 page ids, then for codes [n] k amax, [n] v amax
+    static size_t bytes(int n) {
+        return (size_t)kTable + (C::kQuant ? 12 : 4) * (size_t)n + 1024;
+    }
 };
 
 template <typename C, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict__ k_pages,
-                           const uint8_t* __restrict__ v_pages,
-                           const float* __restrict__ k_scales,
-                           const float* __restrict__ v_scales,
-                           const int* __restrict__ block_tables,
-                           const int* __restrict__ positions, bf16* __restrict__ out,
-                           int T, int H, int Hkv, int P, int page, int n, int pos_stride,
-                           float sm_scale) {
-    using L = Plan<D>;
+paged_prefill_kernel(const bf16* __restrict__ q, const typename C::Elem* __restrict__ k_pages,
+                     const typename C::Elem* __restrict__ v_pages,
+                     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+                     const int* __restrict__ block_tables, const int* __restrict__ positions,
+                     bf16* __restrict__ out, int T, int H, int Hkv, int P, int page, int n,
+                     int pos_stride, float sm_scale) {
+    using L = Plan<C, D>;
+    using E = typename C::Elem;
     constexpr int KSTEPS = D / 16;
-    constexpr int CH16 = D / 16;     // 16-byte code chunks of a token row
-    constexpr int CH8 = D / 8;       // 8-element bf16 groups of a token row
+    constexpr int PIECE = 16 / (int)sizeof(E);   // elements per 16-byte copy
+    constexpr int CH16 = D / PIECE;              // 16-byte copies of a token row
+    constexpr int CH8 = D / 8;                   // 8-element bf16 groups of a token row
 
     const int row_tiles = gridDim.x;
     const int z = row_tiles - 1 - (int)blockIdx.x;   // heaviest row tiles first
@@ -162,10 +184,10 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
     // the swizzled tiles need 1024-byte aligned shared addresses
     unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     const uint32_t sbase = smem_u32(smem);
-    float* col_k = reinterpret_cast<float*>(smem + L::kColScale);
+    float* col_k = reinterpret_cast<float*>(smem + L::kColScale);   // codes only
     float* col_v = col_k + kCols;
     int* table = reinterpret_cast<int*>(smem + L::kTable);
-    float* amax_k = reinterpret_cast<float*>(table + n);
+    float* amax_k = reinterpret_cast<float*>(table + n);              // codes only
     float* amax_v = amax_k + n;
 
     const int pos0 = positions[(size_t)s * pos_stride];
@@ -203,20 +225,25 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         }
     }
 
-    // the visited block-table entries, then each page's amaxes (by cp.async)
+    // the visited block-table entries, then (codes) each page's amaxes by
+    // cp.async, in the first copy group
     for (int i = tid; i < npg; i += kThreads) table[i] = block_tables[(size_t)s * n + i];
     __syncthreads();
-    for (int i = tid; i < npg; i += kThreads) {
-        const size_t sidx = (size_t)h * P + table[i];
-        cp_async4(smem_u32(amax_k + i), k_scales + sidx, true);
-        cp_async4(smem_u32(amax_v + i), v_scales + sidx, true);
+    if constexpr (C::kQuant) {
+        for (int i = tid; i < npg; i += kThreads) {
+            const size_t sidx = (size_t)h * P + table[i];
+            cp_async4(smem_u32(amax_k + i), k_scales + sidx, true);
+            cp_async4(smem_u32(amax_v + i), v_scales + sidx, true);
+        }
     }
 
-    // copies of kv tile j's codes into stage st: token rows of D bytes,
-    // zero past the visited pages
+    // copies of kv tile j's token rows, zero past the visited pages: codes
+    // into code stage st, row-major; bf16 rows into their swizzled places
+    // in stage st's K and V tiles
     auto issue = [&](int j, int st) {
-        const uint32_t kdst = sbase + L::kStage + st * 2 * L::kCodeBytes;
-        const uint32_t vdst = kdst + L::kCodeBytes;
+        const uint32_t kdst = C::kQuant ? sbase + L::kStage + st * 2 * L::kCodeBytes
+                                        : sbase + L::kK + st * 2 * L::kTileBytes;
+        const uint32_t vdst = kdst + (C::kQuant ? L::kCodeBytes : L::kTileBytes);
         for (int c = tid; c < kCols * CH16; c += kThreads) {
             const int tok = c / CH16;
             const int part = c % CH16;
@@ -225,10 +252,11 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
             size_t src = 0;
             if (ok) {
                 const int pid = table[i / page];
-                src = (((size_t)h * P + pid) * page + i % page) * D + part * 16;
+                src = (((size_t)h * P + pid) * page + i % page) * D + part * PIECE;
             }
-            cp_async16(kdst + c * 16, k_pages + src, ok);
-            cp_async16(vdst + c * 16, v_pages + src, ok);
+            const uint32_t off = C::kQuant ? c * 16 : sw128_offset(tok, part * PIECE, kCols);
+            cp_async16(kdst + off, k_pages + src, ok);
+            cp_async16(vdst + off, v_pages + src, ok);
         }
     };
 
@@ -240,19 +268,28 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};
 
-    if (n_tiles > 0) issue(0, 0);
-    cp_async_commit();
+    if constexpr (C::kQuant) {
+        if (n_tiles > 0) issue(0, 0);
+        cp_async_commit();
+    } else {
+#pragma unroll
+        for (int st = 0; st < L::kStages - 1; ++st) {
+            if (st < n_tiles) issue(st, st);
+            cp_async_commit();
+        }
+    }
 
     for (int j = 0; j < n_tiles; ++j) {
-        const int st = j & 1;
-        if (j + 1 < n_tiles) issue(j + 1, st ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
+        int ts = 0;   // the (K, V) bf16 tile pair tile j is read from
+        if constexpr (C::kQuant) {
+            const int st = j & 1;
+            if (j + 1 < n_tiles) issue(j + 1, st ^ 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+            __syncthreads();
 
-        // widen tile j's codes into the bf16 K and V tiles; each tile
-        // column's scales
-        {
+            // widen tile j's codes into the bf16 K and V tiles; each tile
+            // column's scales
             const unsigned char* kc = smem + L::kStage + st * 2 * L::kCodeBytes;
             const unsigned char* vc = kc + L::kCodeBytes;
             for (int c = tid; c < kCols * CH8; c += kThreads) {
@@ -261,7 +298,7 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
                 const uint32_t off = sw128_offset(tok, col, kCols);
                 *reinterpret_cast<uint4*>(smem + L::kK + off) =
                     C::widen8(*reinterpret_cast<const uint2*>(kc + tok * D + col));
-                *reinterpret_cast<uint4*>(smem + L::kV + off) =
+                *reinterpret_cast<uint4*>(smem + L::kK + L::kTileBytes + off) =
                     C::widen8(*reinterpret_cast<const uint2*>(vc + tok * D + col));
             }
             if (tid < kCols) {
@@ -270,9 +307,22 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
                 col_k[tid] = __fdiv_rn(amax_k[pi], C::kQmax) * sm_scale_log2;
                 col_v[tid] = __fdiv_rn(amax_v[pi], C::kQmax);
             }
+            fence_async_shared();
+            __syncthreads();
+        } else {
+            // tile j's copies (this thread's) have landed; the barrier makes
+            // every thread's visible, and frees the stage tile j - 1 was
+            // read from for tile j + kStages - 1
+            ts = j % L::kStages;
+            cp_async_wait<L::kStages - 2>();
+            fence_async_shared();
+            __syncthreads();
+            if (j + L::kStages - 1 < n_tiles)
+                issue(j + L::kStages - 1, (j + L::kStages - 1) % L::kStages);
+            cp_async_commit();
         }
-        fence_async_shared();
-        __syncthreads();
+        const uint32_t ktile = sbase + L::kK + ts * 2 * L::kTileBytes;
+        const uint32_t vtile = ktile + L::kTileBytes;
 
         // S = Q K^T over the D / 16 k-steps
         float sc[32];
@@ -281,11 +331,13 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-            const uint32_t addr = sbase + L::kK + (kk >> 2) * kCols * 128 + (kk & 3) * 32;
+            const uint32_t addr = ktile + (kk >> 2) * kCols * 128 + (kk & 3) * 32;
             wgmma_m64n64k16_rs<0>(sc, qf[kk], sw128_desc(addr));
         }
         wgmma_commit();
         wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) fence_operand(sc[e]);
 
         // scale, mask and the online softmax, in registers; a tile every
         // column of which this thread's rows see and visit skips the mask
@@ -294,7 +346,8 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb) {
-            const float2 ck = *reinterpret_cast<const float2*>(col_k + 8 * jb + 2 * t4);
+            float2 ck = make_float2(sm_scale_log2, sm_scale_log2);
+            if constexpr (C::kQuant) ck = *reinterpret_cast<const float2*>(col_k + 8 * jb + 2 * t4);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int hh = e >> 1;
@@ -320,14 +373,20 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         uint32_t pf[4][4];
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb) {
-            const float2 cv = *reinterpret_cast<const float2*>(col_v + 8 * jb + 2 * t4);
             float pv[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int hh = e >> 1;
                 const float p = exp2_approx(sc[4 * jb + e] - m_run[hh]);
                 rs[hh] += p;
-                pv[e] = p * ((e & 1) ? cv.y : cv.x);
+                pv[e] = p;
+            }
+            if constexpr (C::kQuant) {
+                const float2 cv = *reinterpret_cast<const float2*>(col_v + 8 * jb + 2 * t4);
+                pv[0] *= cv.x;
+                pv[1] *= cv.y;
+                pv[2] *= cv.x;
+                pv[3] *= cv.y;
             }
             // k-step jb / 2 of P V: a0 / a1 from the even 8-column block,
             // a2 / a3 from the odd one
@@ -347,7 +406,7 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
             for (int c = 0; c < L::kChunks; ++c) {
-                const uint32_t addr = sbase + L::kV + c * kCols * 128 + kk * 2048;
+                const uint32_t addr = vtile + c * kCols * 128 + kk * 2048;
                 if (D - 64 * c >= 64) {
                     wgmma_m64n64k16_rs<1>(acc[c], pf[kk], sw128_desc(addr));
                 } else {
@@ -357,6 +416,14 @@ paged_prefill_quant_kernel(const bf16* __restrict__ q, const uint8_t* __restrict
         }
         wgmma_commit();
         wgmma_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) fence_operand(pf[kk][e]);
+#pragma unroll
+        for (int c = 0; c < L::kChunks; ++c)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) fence_operand(acc[c][e]);
     }
     cp_async_wait<0>();
 
@@ -393,11 +460,12 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* k_scales, const void* v_scales, const void* block_tables,
                    const void* positions, void* out, int S, int T, int H, int Hkv, int P,
                    int page, int n, float sm_scale, cudaStream_t stream) {
+    using E = typename C::Elem;
     const int rows = T * (H / Hkv);
     const dim3 grid((rows + kRows - 1) / kRows, Hkv, S);
     if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-    const size_t smem = Plan<D>::bytes(n);
-    auto kernel = paged_prefill_quant_kernel<C, D>;
+    const size_t smem = Plan<C, D>::bytes(n);
+    auto kernel = paged_prefill_kernel<C, D>;
     // raise the shared-memory limit once per device and size, not on every
     // launch (a launch may be captured into a CUDA graph)
     static size_t smem_allowed[64] = {};
@@ -410,8 +478,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
         if (dev < 64) smem_allowed[dev] = smem;
     }
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const uint8_t*>(k_pages),
-        static_cast<const uint8_t*>(v_pages), static_cast<const float*>(k_scales),
+        static_cast<const bf16*>(q), static_cast<const E*>(k_pages),
+        static_cast<const E*>(v_pages), static_cast<const float*>(k_scales),
         static_cast<const float*>(v_scales), static_cast<const int*>(block_tables),
         static_cast<const int*>(positions), static_cast<bf16*>(out), T, H, Hkv, P, page, n,
         T, sm_scale);
@@ -424,10 +492,8 @@ int dispatch(int device, const void* q, const void* k_pages, const void* v_pages
              const void* positions, void* out, int S, int T, int H, int Hkv, int D, int P,
              int page, int n, float sm_scale, void* stream) {
     if (S <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0 || n <= 0 ||
-        k_scales == nullptr || v_scales == nullptr)
+        (C::kQuant && (k_scales == nullptr || v_scales == nullptr)))
         return (int)cudaErrorInvalidValue;
-    // a kv tile is 64 tokens: one page of 64 or four of 16
-    if (page != 16 && page != 64) return (int)cudaErrorInvalidValue;
     int prev = 0;
     cudaError_t err = cudaGetDevice(&prev);
     if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
@@ -460,9 +526,19 @@ int dispatch(int device, const void* q, const void* k_pages, const void* v_pages
 
 extern "C" {
 
-// q / out [S, T, H, D] bf16, k_pages / v_pages [Hkv, P, page, D] int8 or
-// e4m3 codes, k_scales / v_scales [Hkv, P] f32, block_tables [S, n] and
-// positions [S, T] int32 (column 0 read).
+// #6: q / out [S, T, H, D] bf16, k_pages / v_pages [Hkv, P, page, D] bf16,
+// block_tables [S, n] and positions [S, T] int32 (column 0 read).
+int paged_multitoken_attention_bf16(int device, const void* q, const void* k_pages,
+                                    const void* v_pages, const void* block_tables,
+                                    const void* positions, void* out, int S, int T, int H,
+                                    int Hkv, int D, int P, int page, int n, float sm_scale,
+                                    void* stream) {
+    return dispatch<Bf16Pages>(device, q, k_pages, v_pages, nullptr, nullptr, block_tables,
+                               positions, out, S, T, H, Hkv, D, P, page, n, sm_scale, stream);
+}
+
+// #7: as above with k_pages / v_pages int8 or e4m3 codes and k_scales /
+// v_scales [Hkv, P] f32.
 int paged_multitoken_attention_int8(int device, const void* q, const void* k_pages,
                                     const void* v_pages, const void* k_scales,
                                     const void* v_scales, const void* block_tables,

@@ -457,41 +457,6 @@ cudaError_t launch_wholef(const void* x, const void* codes, const void* scales, 
     return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, looked up once through the
-// runtime (no link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                             cudaEnableDefault, &found) == cudaSuccess &&
-            found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-    return fn;
-}
-
-// a 2-D row-major tensor [rows, cols] of `bytes`-wide elements, read in
-// boxes of box_cols x box_rows; out-of-bounds boxes read as zeros
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
-                int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-    EncodeTiledFn fn = encode_tiled();
-    if (fn == nullptr) return false;
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
-    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-    const cuuint32_t elem[2] = {1, 1};
-    return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM>
 cudaError_t launch_wgmma(const void* x, const void* codes, const void* scales, void* out,
                          float* partial, int* counters, int M, int H, int F, int qblock,
@@ -500,6 +465,7 @@ cudaError_t launch_wgmma(const void* x, const void* codes, const void* scales, v
     const dim3 grid(F / QMM_BF, (M + BM - 1) / BM, splits);
     if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
     CUtensorMap tm_x, tm_codes, tm_scales;
+    using hopper::tensor_map;
     if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, H, QMM_BK, BM,
                     CU_TENSOR_MAP_SWIZZLE_128B) ||
         !tensor_map(&tm_codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, H, F, QMM_BF, QMM_BK,

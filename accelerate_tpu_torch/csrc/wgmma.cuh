@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels of
-// paged_prefill.cu and quantized_matmul.cu: cp.async copies, mbarriers and
-// TMA loads, the wgmma shared-memory descriptor of a 128-byte-swizzled
-// bf16 tile, and the warpgroup matrix-multiply instructions the kernels
-// issue.
+// flash_attention.cu, paged_prefill.cu and quantized_matmul.cu: cp.async
+// copies, mbarriers and TMA loads (and, on the host, the tensor maps they
+// read), register reallocation between warpgroups, the wgmma shared-memory
+// descriptor of a 128-byte-swizzled bf16 tile, and the warpgroup
+// matrix-multiply instructions the kernels issue.
 //
 // Shared-memory tiles (sw128_offset): a bf16 tile is kept in chunks of 64
 // columns; each chunk is rows of 128 bytes, 1024-byte aligned, and the
@@ -20,6 +21,10 @@
 // columns of one chunk, so the descriptor's leading-byte offset is unused;
 // its stride-byte offset is 1024, the distance between groups of 8 rows.
 //
+// An A operand in shared memory (wgmma_m64n128k16_ss) is a K-major tile of
+// the same layout: 64 rows of 128 bytes per chunk, 8-row groups 1024 bytes
+// apart, a k16 step 32 bytes along the row.
+//
 // Fragments (g = lane / 4, t = lane % 4, w = warp of the warpgroup):
 //   * accumulator of m64nN: d[4j + 0, 1] = C[16w + g][8j + 2t, +1],
 //     d[4j + 2, 3] = C[16w + g + 8][8j + 2t, +1];
@@ -29,7 +34,9 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -163,6 +170,32 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint
         : "memory");
 }
 
+// a 4-D box of the tensor map at (c0 innermost, c1, c2, c3), as above
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
+           "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// Move registers between the warpgroups of a block: every warp of the
+// warpgroup executes it, and the count is a multiple of 8 in [24, 256].
+// The block's pool is what it was launched with (the kernel's register
+// count times its threads); an increase waits until a decrease elsewhere
+// has freed enough.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // a barrier among `count` threads (whole warps) under id `id` (1-15; 0 is
 // __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
@@ -238,6 +271,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
 }
 
+// d[64 x 128] = A[64 x 16] . B[16 x 128] (+ d if `accumulate`): A and B
+// both K-major tiles in shared memory, through `desc_a` and `desc_b`
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                    int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
+          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // the m64nNk16 product for N in {16, 64, 128}, B K-major
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -252,5 +305,51 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
 }
 
 #undef HOPPER_ACC8
+
+// -- tensor maps (host) ------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, looked up once through the
+// runtime (no link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &found) == cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// a rank-`rank` tensor of `dims` elements (innermost first), `strides` the
+// byte strides of dims 1 .. rank - 1, read in boxes of `box`; elements out
+// of bounds read as zeros
+inline bool tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr || rank < 1 || rank > 5) return false;
+    const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+    return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D row-major tensor [rows, cols] of `bytes`-wide elements, read in
+// boxes of box_cols x box_rows
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
+                       int rows, int cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    return tensor_map_nd(map, type, 2, base, dims, strides, box, swizzle);
+}
 
 }  // namespace hopper

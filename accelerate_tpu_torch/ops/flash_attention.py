@@ -17,8 +17,9 @@ Mirrors ``accelerate_tpu/ops/flash_attention.py``:
   prefill).
 
 All keep the JAX public layouts.  On a CUDA tensor a wrapper launches its
-hand-written kernel (``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
-built at first use) or raises; on a CPU tensor it runs the plain version
+hand-written kernel (``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``
+for decode, ``csrc/paged_prefill.cu`` for a prefill window, built at first
+use) or raises; on a CPU tensor it runs the plain version
 beside it.  Each wrapper counts its kernel launches in a plain integer
 attribute, ``launches``, on itself whatever the module's names hold, so a
 caller may route a stand-in in its place (``chip_smoke.py`` does).
@@ -69,21 +70,23 @@ _FUSED_LAUNCH = ([_I] + [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P], _I)
 _SIGNATURES = {
     **{f"fused_bgmv_paged_decode_{suffix}": _FUSED_LAUNCH for suffix in ("bf16", "int8", "fp8")},
     "paged_decode_attention_bf16": _LAUNCH,
-    "paged_multitoken_attention_bf16": _LAUNCH,
     **{f"paged_decode_attention_{suffix}": _QLAUNCH for suffix in ("int8", "fp8")},
     "paged_attention_error_string": ([_I], ctypes.c_char_p),
 }
-# kernel #7 on the tensor cores (csrc/paged_prefill.cu)
+# kernels #6 (bf16 pages) and #7 (codes) on the tensor cores (csrc/paged_prefill.cu)
 _PREFILL_SIGNATURES = {
+    "paged_multitoken_attention_bf16": _LAUNCH,
     **{f"paged_multitoken_attention_{suffix}": _QLAUNCH for suffix in ("int8", "fp8")},
     "paged_prefill_error_string": ([_I], ctypes.c_char_p),
 }
-# #7's tiles: 64 query rows by 64 kv tokens, whatever the page size; its
-# shared memory: two bf16 tiles (K, V) of 64-column chunks, two stages of
-# K and V codes, two f32 column scales per token, and per block-table
-# entry the page id and its two amaxes, plus 1 KB of alignment
+# #6 / #7's tiles: 64 query rows by 64 kv tokens, whatever the page size
+# (each token found through its own block-table entry); their shared
+# memory, beside 1 KB of alignment: bf16 pages three stages of bf16 K and
+# V tiles of 64-column chunks and a page id per block-table entry; codes
+# one pair of bf16 tiles, two stages of K and V codes, two f32 column
+# scales per token, and per entry the page id and its two amaxes
 PREFILL_ROWS, PREFILL_KV_TILE = 64, 64
-PREFILL_PAGE_SIZES = (16, 64)   # the pages #7 was measured on: generate_paged's, the serve's
+_PREFILL_BF16_STAGES = 3
 _MAX_SHARED_BYTES = 232448      # H100: a block's opt-in shared memory
 
 # Max code magnitude per quantized page dtype (JAX _KV_QMAX :649): symmetric
@@ -107,33 +110,37 @@ def _prefill_lib() -> ctypes.CDLL:
     return _build.load("paged_prefill", _PREFILL_SIGNATURES)
 
 
-def prefill_quant_plan(width: int, heads: int, kv_heads: int, page_size: int,
-                       head_dim: int, pages_per_slot: int) -> dict:
-    """Kernel #7's launch plan for a ``width``-token window per slot:
-    ``row_tiles`` blocks of 64 token-major query rows per (slot, kv head);
-    kv tiles of 64 tokens, ``pages_per_kv_tile`` whole pages each (one
-    page of 64, or four of 16); the block's shared memory.  Raises
-    ValueError for what the kernel does not take: a head dim other than
-    64, 96 or 128, a page size other than 16 or 64, or a block table too
-    long for shared memory."""
+def prefill_plan(width: int, heads: int, kv_heads: int, page_size: int, head_dim: int,
+                 pages_per_slot: int, *, quantized: bool) -> dict:
+    """The launch plan of kernel #6 (bf16 pages) or #7 (``quantized``: int8
+    / e4m3 codes) for a ``width``-token window per slot: ``row_tiles``
+    blocks of 64 token-major query rows per (slot, kv head); kv tiles of 64
+    tokens whatever the page size, each token found through its own
+    block-table entry, so a slot's table spans ``kv_tiles`` of them (a page
+    of 64 is one tile, a page of 128 two); the block's shared memory.
+    Raises ValueError for what the kernel does not take: a head dim other
+    than 64, 96 or 128, a page size below 1, or a block table too long for
+    shared memory."""
+    name = "paged_multitoken_attention" + ("_quant" if quantized else "")
     if head_dim not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_multitoken_attention_quant: the CUDA kernel is built for "
-                         f"head dims {_KERNEL_HEAD_DIMS}, got {head_dim}")
-    if page_size not in PREFILL_PAGE_SIZES:
-        raise ValueError(f"paged_multitoken_attention_quant: the CUDA kernel walks kv tiles of "
-                         f"{PREFILL_KV_TILE} tokens over page sizes {PREFILL_PAGE_SIZES}, "
-                         f"got {page_size}")
-    chunks = -(-head_dim // 64)
-    shared = (2 * chunks * PREFILL_KV_TILE * 128 + 4 * PREFILL_KV_TILE * head_dim
-              + 2 * PREFILL_KV_TILE * 4 + 12 * pages_per_slot + 1024)
+        raise ValueError(f"{name}: the CUDA kernel is built for head dims {_KERNEL_HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if page_size < 1:
+        raise ValueError(f"{name}: page size must be positive, got {page_size}")
+    tile = 2 * -(-head_dim // 64) * PREFILL_KV_TILE * 128      # a bf16 (K, V) tile pair
+    if quantized:
+        shared = (tile + 4 * PREFILL_KV_TILE * head_dim + 2 * PREFILL_KV_TILE * 4
+                  + 12 * pages_per_slot + 1024)
+    else:
+        shared = _PREFILL_BF16_STAGES * tile + 4 * pages_per_slot + 1024
     if shared > _MAX_SHARED_BYTES:
-        raise ValueError(f"paged_multitoken_attention_quant: {pages_per_slot} block-table "
-                         f"entries per slot need {shared} bytes of shared memory, above "
-                         f"{_MAX_SHARED_BYTES}")
+        raise ValueError(f"{name}: {pages_per_slot} block-table entries per slot need "
+                         f"{shared} bytes of shared memory, above {_MAX_SHARED_BYTES}")
     group = heads // kv_heads
     return {"row_tiles": -(-width * group // PREFILL_ROWS), "rows": PREFILL_ROWS,
             "kv_tile": PREFILL_KV_TILE,
-            "pages_per_kv_tile": PREFILL_KV_TILE // page_size, "shared_bytes": shared}
+            "kv_tiles": -(-pages_per_slot * page_size // PREFILL_KV_TILE),
+            "shared_bytes": shared}
 
 
 def _check_kernel_operands(name, q, k_pages, v_pages, block_tables, positions,
@@ -281,7 +288,7 @@ def _run(name, plain, base, q, k_pages, v_pages, block_tables, positions, sm_sca
                          f"match q {tuple(q.shape)}")
     prefill = lib is _prefill_lib
     if prefill:
-        prefill_quant_plan(width, h, hkv, page_size, d, n)
+        prefill_plan(width, h, hkv, page_size, d, n, quantized=quantized)
     lib = (lib or _lib)()
     out = torch.empty_like(q)
     scale_ptrs = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
@@ -355,15 +362,17 @@ def paged_multitoken_attention(q, k_pages, v_pages, block_tables, positions, *,
     ``[S, T, H, D]``.  Quantized pages pass ``k_scales`` / ``v_scales``
     and go to :func:`paged_multitoken_attention_quant` (kernel #7).
 
-    CUDA tensors launch ``paged_multitoken_attention_bf16``; CPU tensors
-    run :func:`paged_multitoken_attention_plain`."""
+    CUDA tensors launch kernel #6, the tensor-core kernel
+    ``paged_multitoken_attention_bf16`` (``csrc/paged_prefill.cu``), on the
+    plan of :func:`prefill_plan`, which refuses what it does not take; CPU
+    tensors run :func:`paged_multitoken_attention_plain`."""
     if k_scales is not None or v_scales is not None:
         return paged_multitoken_attention_quant(q, k_pages, v_pages, block_tables, positions,
                                                 k_scales=k_scales, v_scales=v_scales,
                                                 sm_scale=sm_scale)
     return _run("paged_multitoken_attention", paged_multitoken_attention_plain,
                 "paged_multitoken_attention", q, k_pages, v_pages, block_tables, positions,
-                sm_scale)
+                sm_scale, lib=_prefill_lib)
 
 
 paged_multitoken_attention.launches = 0
@@ -374,7 +383,7 @@ def paged_multitoken_attention_quant(q, k_pages, v_pages, block_tables, position
     """Kernel #7 (JAX ``_paged_multitoken_kernel_quant``): the multi-token
     window over int8 / e4m3 pages.  CUDA tensors launch the tensor-core
     kernel ``paged_multitoken_attention_{int8,fp8}``
-    (``csrc/paged_prefill.cu``) on the plan of :func:`prefill_quant_plan`,
+    (``csrc/paged_prefill.cu``) on the plan of :func:`prefill_plan`,
     which refuses what it does not take; CPU tensors run
     :func:`paged_multitoken_attention_plain` with the scales."""
     return _run("paged_multitoken_attention_quant", paged_multitoken_attention_plain,
@@ -716,7 +725,9 @@ def flash_fwd(q, k, v, seg_q=None, seg_kv=None, pos_q=None, pos_kv=None, *,
               causal: bool = True, sm_scale: float):
     """Kernel #1 (JAX ``_attn_kernel``): ``(out [B, T, H, D], lse [B, H, T]
     f32)``.  CUDA tensors launch ``flash_attention_fwd_bf16``
-    (``csrc/flash_attention.cu``); CPU tensors run :func:`flash_fwd_plain`."""
+    (``csrc/flash_attention.cu``: ``wgmma`` products on tiles that TMA
+    brings in from a producer warpgroup); CPU tensors run
+    :func:`flash_fwd_plain`."""
     if not _flash_route("flash_fwd", q):
         return flash_fwd_plain(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
                                causal=causal, sm_scale=sm_scale)

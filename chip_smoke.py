@@ -9,29 +9,32 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    reports the build times;
 3. holds each paged kernel (#4, #6) against its plain PyTorch version at
    the shapes of the 600m serving model (block tables of distinct pages, as
-   the allocator hands them out), and times the kernel, the plain version
+   the allocator hands them out; #6 also at ``generate_paged``'s pages of
+   16 and over pages of 32), and times the kernel, the plain version
    and one ``F.scaled_dot_product_attention`` call over the gathered KV (a
    yardstick only; the port never calls it) beside the least time the card
    could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s bf16); the
    same for the quantized paged kernels (#5, #7) over int8 and fp8 pages
    written by the port's own ``paged_write_kv_quantized`` (SDPA over the
    dequantized gathered KV as the yardstick; #7 also at ``generate_paged``'s
-   pages of 16, 4 prompts of 250 tokens), and for the W8A16 matmuls at the
-   600m model's four dense shapes and one H with a partial K tile: #11 at m
-   16, 64, 65 (its plan switch) and 512, #12 at m 1, 4 and 8 (``F.linear``
-   on the dequantized bf16 weight as the yardstick); with ``--before DIR``
-   (a checkout of the commit before the redesign of #7 and #11, such as
-   ``git archive`` of it unpacked under ``build/``) #7 and #11 are also
-   held to their plain versions and timed in their earlier designs (the
-   CUDA-core #7, the mma.sync #11), built from DIR's sources
-   (``before_ms``);
+   pages of 16, 4 prompts of 250 tokens, and over pages of 32), and for the
+   W8A16 matmuls at the 600m model's four dense shapes and one H with a
+   partial K tile: #11 at m 16, 64, 65 (its plan switch) and 512, #12 at m
+   1, 4 and 8 (``F.linear`` on the dequantized bf16 weight as the
+   yardstick); with ``--before DIR`` (a checkout of the commit before the
+   redesign of #6 and #1, such as ``git archive`` of it unpacked under
+   ``build/``) #6 is also held to its plain version and timed in its
+   earlier design (the CUDA-core template of DIR's ``paged_attention.cu``),
+   and #1 likewise (the mma.sync forward of DIR's ``flash_attention.cu``)
+   in phase 4 (``before_ms``);
 4. holds the flash-attention kernels (#1 forward, #2 dq, #3 dk/dv) against
    their plain versions at the 600m training shapes (16 q / 8 kv heads,
    head dim 96, T 2048): at batch 2 causal, segments, positions,
    non-causal, T not a multiple of the tile, and a nonzero logsumexp
    gradient; at the main path's batch 10 causal; runs #3 twice and
    requires bitwise-equal dk/dv; times the three kernels, their plain
-   versions and SDPA's forward and backward at batch 10;
+   versions and SDPA's forward and backward at batch 10 (and #1's earlier
+   design with ``--before``);
 5. serves a 16-request trace on the 600m Llama (random weights from seed
    0) through ``ServingEngine`` under ``torch.inference_mode()``, checks
    that every request finishes, that the host page mirror agrees with the
@@ -44,11 +47,15 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    (#5, #7 and #11 launched once per layer and dense of every step, #12
    never; the pool's bytes per page equal to ``kv_page_bytes``), and
    reports its tokens/s, latencies, weight and pool bytes beside the bf16
-   serve's;
+   serve's; then serves 8 of the requests from int8 pages of 32 tokens
+   under ``decode_kernel="auto"`` (#5 and #7 once per layer of every step,
+   every request finishing), and again with every launch held against its
+   plain version;
 5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
-   with every launch of the four held against its plain version;
+   with every launch of the four held against its plain version; then the
+   same with the bf16 model over bf16 pages (#4, #6);
 5c. holds the LoRA gather-matmul kernel #10 (``bgmv``) against its plain
    version at the 600m q_proj (1536 -> 1536) and v_proj (1536 -> 768)
    shapes, 16 slots, rank 16, ids mixing 0 and 1..4, and times it (20
@@ -141,6 +148,12 @@ DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 20
 # quantized serving: int8 weights and int8 pages on the same engine and
 # trace; generate_paged at batch 4 with fp8 pages
 QUANT_KV = "int8"
+# the quantized serve again over pages of 32 tokens (the same tokens per
+# slot and in the pool) under decode_kernel="auto", on the trace's first 8
+# requests
+PAGES_32 = dict(PLUGIN, page_size=32, pages_per_slot=2 * PLUGIN["pages_per_slot"],
+                num_pages=2 * PLUGIN["num_pages"], decode_kernel="auto")
+PAGES_32_REQUESTS = 8
 GEN_PAGED = dict(batch=4, prompt_len_range=(128, 256), max_new=64, kv_dtype="fp8")
 GEN_T = 250           # the prefill window of kernel #7's case at generate_paged's geometry
 # the 600m model's denses (H -> F) and an H with a partial 64-row K tile
@@ -230,17 +243,17 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- #7 and #11 as the commit before their redesign built them (--before) ------
+# -- #6 and #1 as the commit before their redesign built them (--before) -------
 
 # filled by main() from ``--before DIR``: name -> a callable with the
 # kernel wrapper's arguments that launches the earlier design
 BEFORE: dict = {}
-BEFORE_SOURCES = ("paged_attention", "quantized_matmul")
+BEFORE_SOURCES = ("paged_attention", "flash_attention")
 
 
 def start_before_build(path: Path) -> dict:
     """Start one nvcc per earlier source, ``DIR/accelerate_tpu_torch/csrc/
-    {paged_attention,quantized_matmul}.cu`` (with the headers beside them),
+    {paged_attention,flash_attention}.cu`` (with the headers beside them),
     into ``build/before/``, with the port's flags."""
     from accelerate_tpu_torch.ops import _build
 
@@ -259,11 +272,11 @@ def start_before_build(path: Path) -> dict:
 
 
 def before_kernels(torch, procs: dict) -> dict:
-    """Bind the earlier designs built by :func:`start_before_build`: #7's
-    CUDA-core template (``paged_multitoken_attention_{int8,fp8}`` of the
-    earlier ``paged_attention.cu``) and #11's mma.sync kernel (``qmm_tiled``
-    of the earlier ``quantized_matmul.cu``, with its own split of H and its
-    second launch for the sum), called as their wrappers called them."""
+    """Bind the earlier designs built by :func:`start_before_build`: #6's
+    CUDA-core template (``paged_multitoken_attention_bf16`` of the earlier
+    ``paged_attention.cu``) and #1's mma.sync forward
+    (``flash_attention_fwd_bf16`` of the earlier ``flash_attention.cu``),
+    called as their wrappers called them."""
     libs = {}
     for name, (proc, lib) in procs.items():
         _, err = proc.communicate()
@@ -271,48 +284,38 @@ def before_kernels(torch, procs: dict) -> dict:
             raise RuntimeError(f"--before: nvcc failed on {name}.cu:\n{err}")
         libs[name] = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    pa, qm = libs["paged_attention"], libs["quantized_matmul"]
-    for suffix in ("int8", "fp8"):
-        fn = getattr(pa, f"paged_multitoken_attention_{suffix}")
-        fn.argtypes, fn.restype = [I] + [P] * 8 + [I] * 8 + [ctypes.c_float, P], I
-    qm.qmm_tiled.argtypes, qm.qmm_tiled.restype = [I] + [P] * 5 + [I] * 6 + [P], I
+    pa, fl = libs["paged_attention"], libs["flash_attention"]
+    pa.paged_multitoken_attention_bf16.argtypes = [I] + [P] * 6 + [I] * 8 + [ctypes.c_float, P]
+    pa.paged_multitoken_attention_bf16.restype = I
+    fl.flash_attention_fwd_bf16.argtypes = [I] + [P] * 9 + [I] * 7 + [ctypes.c_float, P]
+    fl.flash_attention_fwd_bf16.restype = I
 
-    def attention(q, kp, vp, bt, pos, *, k_scales, v_scales):
+    def attention(q, kp, vp, bt, pos):
         s_slots, t, h, d = q.shape
         hkv, num_pages, page, _ = kp.shape
         out = torch.empty_like(q)
-        fn = getattr(pa, "paged_multitoken_attention_"
-                     + ("int8" if kp.dtype == torch.int8 else "fp8"))
-        err = fn(q.device.index or 0, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                 k_scales.data_ptr(), v_scales.data_ptr(), bt.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), s_slots, t, h, hkv, d, num_pages, page, bt.shape[1],
-                 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+        err = pa.paged_multitoken_attention_bf16(
+            q.device.index or 0, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), s_slots, t, h, hkv, d, num_pages, page, bt.shape[1],
+            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"--before: #7 launch failed ({err})")
+            raise RuntimeError(f"--before: #6 launch failed ({err})")
         return out
 
-    def matmul(x, codes, scales, *, qblock, out_dtype):
-        m, h = x.shape
-        f = codes.shape[1]
-        # the earlier split of H: about two 64 x 64 (16 x 64 at m <= 16)
-        # blocks per SM, each slice at least two 64-row K tiles
-        blocks = (f // 64) * -(-m // (16 if m <= 16 else 64))
-        k_tiles = -(-h // 64)
-        splits = max(1, min(k_tiles // 2, -(-2 * 132 // blocks)))
-        per = -(-k_tiles // splits)
-        splits = -(-k_tiles // per)
-        out = torch.empty(m, f, dtype=out_dtype, device=x.device)
-        partial = (torch.empty(splits, m, f, dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        err = qm.qmm_tiled(x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-                           out.data_ptr(), None if partial is None else partial.data_ptr(),
-                           m, h, f, qblock, splits, int(out_dtype == torch.float32),
-                           torch.cuda.current_stream().cuda_stream)
+    def flash_fwd(q, k, v, *, causal, sm_scale):
+        b, t, h, d = q.shape
+        s, hkv = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+        err = fl.flash_attention_fwd_bf16(
+            q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
+            None, out.data_ptr(), lse.data_ptr(), b, t, s, h, hkv, d, int(causal),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"--before: #11 launch failed ({err})")
-        return out
+            raise RuntimeError(f"--before: #1 launch failed ({err})")
+        return out, lse
 
-    return {"paged_multitoken_attention_quant": attention, "quantized_matmul_tiled": matmul}
+    return {"paged_multitoken_attention": attention, "flash_fwd": flash_fwd}
 
 
 def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda",
@@ -438,9 +441,9 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
     ms = time_ms(torch, rotating(kernel), graph=True)
     plain_ms = time_ms(torch, rotating(plain), iters=5)
-    # #7's earlier CUDA-core design (--before), timed beside its replacement
+    # #6's earlier CUDA-core design (--before), timed beside its replacement
     before = {}
-    if quant and not decode and BEFORE:
+    if not decode and name in BEFORE:
         held_to_plain(torch, name + " (earlier design)", BEFORE[name](qk, kp, vp, bt, pk, **kw),
                       ref)
         before = {"before_ms": time_ms(torch, rotating(BEFORE[name]), graph=True)}
@@ -520,23 +523,27 @@ def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
                                   decode=False)
                 log("kernel paged_multitoken_attention", json.dumps(rep))
                 cases.append(rep)
-        if kv_dtype is None:
-            main = next(c for c in cases if c["shape"]["width"] == 512 and c["shape"]["pos0"] == [0])
-            reports["paged_multitoken_attention"] = _with_cases(cases, main)
-        else:
-            # #7 at generate_paged's geometry: pages of 16, GEN_PAGED's
-            # batch of prompts of ~250 tokens from position 0
-            rep = case_report(torch, F, fa, paged_case(
-                torch, slots=GEN_PAGED["batch"], width=GEN_T, pos0=[0] * GEN_PAGED["batch"],
-                seed=GEN_T, kv_dtype=kv_dtype, device=device, page=16,
-                n=-(-(GEN_T + GEN_PAGED["max_new"]) // 16)), decode=False)
+        # generate_paged's geometry: pages of 16, GEN_PAGED's batch of
+        # prompts of ~250 tokens from position 0; and the serve's chunk over
+        # pages of 32 (a page size the engine takes and #7 once refused)
+        for extra in (dict(slots=GEN_PAGED["batch"], width=GEN_T, pos0=[0] * GEN_PAGED["batch"],
+                           seed=GEN_T, page=16, n=-(-(GEN_T + GEN_PAGED["max_new"]) // 16)),
+                      dict(slots=1, width=512, pos0=[0], seed=532, page=32,
+                           n=2 * PLUGIN["pages_per_slot"])):
+            rep = case_report(torch, F, fa, paged_case(torch, kv_dtype=kv_dtype, device=device,
+                                                       **extra), decode=False)
             log("kernel paged_multitoken_attention", json.dumps(rep))
-            quant_multi += cases + [rep]
+            cases.append(rep)
+        is_main = lambda c: (c["shape"]["width"] == 512 and c["shape"]["pos0"] == [0]
+                             and c["shape"]["page"] == PLUGIN["page_size"])
+        if kv_dtype is None:
+            reports["paged_multitoken_attention"] = _with_cases(cases, next(filter(is_main, cases)))
+        else:
+            quant_multi += cases
     # the quantized serve's pages are QUANT_KV's: its shapes are the main ones
     main = next(c for c in quant_decode if c["shape"]["kv_dtype"] == QUANT_KV)
     reports["paged_decode_attention_quant"] = _with_cases(quant_decode, main)
-    main = next(c for c in quant_multi if c["shape"]["kv_dtype"] == QUANT_KV
-                and c["shape"]["width"] == 512 and c["shape"]["pos0"] == [0])
+    main = next(c for c in quant_multi if c["shape"]["kv_dtype"] == QUANT_KV and is_main(c))
     reports["paged_multitoken_attention_quant"] = _with_cases(quant_multi, main)
     return reports
 
@@ -718,6 +725,16 @@ def flash_kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
             rep[label] = held_to_plain(torch, f"flash B {b} {label}", x, ref)
             readings[name].append(dict(rep[label], case=f"causal_b{b}", tensor=label))
     log("kernel flash", f"causal_b{b}", json.dumps(rep))
+    before = {}
+    if "flash_fwd" in BEFORE:   # #1's earlier mma.sync design (--before)
+        early = BEFORE["flash_fwd"](q, k, v, **kw)
+        sync(torch)
+        for label, x, ref in zip(("out", "lse"), early, fa.flash_fwd_plain(q, k, v, **kw)):
+            if label == "lse":
+                x, ref = x[..., None], ref[..., None]
+            held_to_plain(torch, f"flash_fwd (earlier design) {label}", x, ref)
+        del early
+        before = {"flash_fwd": time_ms(torch, lambda i: BEFORE["flash_fwd"](q, k, v, **kw))}
     del out, dq, dkv_a, dkv_b
     ms = {"flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw)),
           "flash_dq": time_ms(torch, lambda i: fa.flash_dq(q, k, v, g, lse, delta, **kw)),
@@ -752,14 +769,16 @@ def flash_kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
             "library_call": ("F.scaled_dot_product_attention forward" if name == "flash_fwd"
                              else "its backward (dq, dk and dv in one call)"),
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            **({"before_ms": before[name]} if name in before else {}),
             "shape": {"batch": b, "seq": seq, "heads": h, "kv_heads": hkv, "head_dim": d,
                       "causal": True, "unmasked_pairs": pairs},
             "cases": [c["name"] for c in cases] + [f"causal_b{b}"],
         }
         log("kernel", name, json.dumps(reports[name]))
-    log(f"flash at B {b}: fwd {ms['flash_fwd']:.3f} ms, dq + dkv "
-        f"{ms['flash_dq'] + ms['flash_dkv']:.3f} ms; SDPA fwd {sdpa_fwd:.3f} ms, bwd "
-        f"{sdpa_bwd:.3f} ms")
+    log(f"flash at B {b}: fwd {ms['flash_fwd']:.4f} ms"
+        + (f" (earlier design {before['flash_fwd']:.4f} ms)" if before else "")
+        + f", dq + dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms; SDPA fwd {sdpa_fwd:.4f} ms, "
+        f"bwd {sdpa_bwd:.4f} ms")
     return reports
 
 
@@ -1086,7 +1105,7 @@ def worst_readings(readings: dict, required) -> dict:
 
 
 def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
-                  adapters=None) -> dict:
+                  adapters=None, plugin=PLUGIN) -> dict:
     """Serve ``trace`` on a fresh engine with every kernel launch held
     against its plain version on the operands the engine gives it: the
     allocator's block tables, bucket-padded prefill windows, the dead slots
@@ -1094,7 +1113,7 @@ def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
     adapter ids.  Returns each kernel's worst readings."""
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
 
-    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+    engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
                            adapters=adapters)
     engine.warmup()
@@ -1195,13 +1214,13 @@ def reset_counts() -> None:
     lora_mod.reset_launch_counts()
 
 
-def serve_once(torch, model, trace, kv_dtype, adapters=None):
+def serve_once(torch, model, trace, kv_dtype, adapters=None, plugin=PLUGIN):
     """A fresh engine warmed up (with ``adapters``, a fresh store),
     every launch count zeroed, the trace served: the engine, the replay
     report and the launch counts."""
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin, replay
 
-    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+    engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
                            adapters=adapters)
     engine.warmup()
@@ -1326,6 +1345,32 @@ def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> di
     return {"model": model, "launches": launches, "in_path": in_path, "report": rep}
 
 
+def pages_32_phase(torch, model, card: str, trace) -> dict:
+    """The int8-weight model serving the trace's first requests from int8
+    pages of 32 tokens under ``decode_kernel="auto"``: every request
+    finishes through #5 and #7 (and #11), once per layer of every step;
+    then again with every launch held against its plain version."""
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+    trace = trace[:PAGES_32_REQUESTS]
+    engine, report, launches = serve_once(torch, model, trace, QUANT_KV, plugin=PAGES_32)
+    m = engine.metrics
+    layers = MODEL["num_hidden_layers"]
+    expect_launches(launches, {
+        "paged_decode_attention_quant": m["decode_steps"] * layers,
+        "paged_multitoken_attention_quant": m["prefill_steps"] * layers,
+        "quantized_matmul_tiled": 7 * layers * (m["decode_steps"] + m["prefill_steps"])})
+    in_path = in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype=QUANT_KV,
+                            plugin=PAGES_32)
+    rep = {"card": card, "kv_dtype": QUANT_KV, "page_size": PAGES_32["page_size"],
+           "decode_kernel": PAGES_32["decode_kernel"], "requests": len(trace), **report,
+           "launches": launches, "in_path": in_path}
+    log("pages_32", json.dumps(rep))
+    return rep
+
+
 @contextlib.contextmanager
 def recorded_engines(serving_mod):
     """The :class:`ServingEngine` instances built while the block runs
@@ -1344,11 +1389,12 @@ def recorded_engines(serving_mod):
         serving_mod.ServingEngine = base
 
 
-def generate_paged_phase(torch, model, card: str) -> dict:
-    """``generate_paged`` at batch 4 with int8 weights and fp8 pages:
-    #12 on every decode step, #11 on every prefill chunk, #5 / #7 over fp8
-    pages, held to the steps its engine counted; then the same call with
-    every launch held against its plain version."""
+def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_dtype"]) -> dict:
+    """``generate_paged`` at batch 4, held to the steps its engine
+    counted: with int8 weights and fp8 pages, #12 on every decode step, #11
+    on every prefill chunk, #5 / #7 over the pages; with bf16 weights and
+    pages (``kv_dtype="bf16"``), #4 and #6.  Then the same call with every
+    launch held against its plain version."""
     import accelerate_tpu_torch.models.llama as llama_mod
     import accelerate_tpu_torch.serving as serving_mod
     from accelerate_tpu_torch import GenerationConfig, ServingPlugin, generate_paged
@@ -1363,7 +1409,7 @@ def generate_paged_phase(torch, model, card: str) -> dict:
     # generate_paged's own offline provisioning, with fp8 pages
     pages = -(-(t_prompt + new) // 16)
     plugin = dict(num_slots=b, page_size=16, pages_per_slot=pages, num_pages=b * pages,
-                  prefill_chunk=max(16, t_prompt), kv_dtype=GEN_PAGED["kv_dtype"])
+                  prefill_chunk=max(16, t_prompt), kv_dtype=kv_dtype)
     gc = GenerationConfig(max_new_tokens=new)
     reset_counts()
     t0 = time.perf_counter()
@@ -1382,19 +1428,23 @@ def generate_paged_phase(torch, model, card: str) -> dict:
     if decode_steps < new - 1:
         raise AssertionError(f"{decode_steps} decode steps for {new} new tokens")
     layers = MODEL["num_hidden_layers"]
+    quant = kv_dtype != "bf16"
     expect_launches(launches, {
         "paged_decode_attention_quant": decode_steps * layers,
         "paged_multitoken_attention_quant": prefill_steps * layers,
         "quantized_matmul_tiled": 7 * layers * prefill_steps,
-        "quantized_matmul_wholef": 7 * layers * decode_steps})
+        "quantized_matmul_wholef": 7 * layers * decode_steps} if quant else {
+        "paged_decode_attention": decode_steps * layers,
+        "paged_multitoken_attention": prefill_steps * layers})
     if tuple(out.shape) != (b, new) or not bool(((out >= 0) & (out < MODEL["vocab_size"])).all()):
         raise AssertionError(f"generate_paged returned {tuple(out.shape)} / out-of-vocab ids")
     readings = {}
     with checked_kernels(torch, llama_mod, fa, qmm, readings):
         again = generate_paged(model, ids, gc, prompt_lengths=lens,
                                serving_plugin=ServingPlugin(**plugin))
-    in_path = worst_readings(readings, ["paged_decode_attention", "paged_multitoken_attention",
-                                        "quantized_matmul_tiled", "quantized_matmul_wholef"])
+    in_path = worst_readings(readings, ["paged_decode_attention", "paged_multitoken_attention"]
+                             + (["quantized_matmul_tiled", "quantized_matmul_wholef"] if quant
+                                else []))
     rep = {"card": card, "batch": b, "prompt_lens": [int(x) for x in lens], "max_new": new,
            "kv_dtype": plugin["kv_dtype"], "wall_s": wall, "tokens_per_s": b * new / wall,
            "decode_steps": decode_steps, "prefill_steps": prefill_steps, "launches": launches,
@@ -1797,7 +1847,7 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
-                        help="a checkout of the commit before the redesign of #7 and #11: "
+                        help="a checkout of the commit before the redesign of #6 and #1: "
                              "its designs are built and timed beside them (before_ms)")
     args = parser.parse_args()
     import torch
@@ -1856,8 +1906,12 @@ def main() -> int:
         phase_done("bf16 serve")
         quant = quant_engine_phase(torch, card, serve)
         phase_done("quantized serve")
+        pages_32_phase(torch, quant["model"], card, serve["trace"])
+        phase_done("quantized serve over pages of 32")
         gen = generate_paged_phase(torch, quant.pop("model"), card)
         phase_done("generate_paged")
+        generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
+        phase_done("generate_paged over bf16 pages")
         lora = lora_engine_phase(torch, card, serve)
         phase_done("LoRA serve")
         kernels.update(fused_op_phase(torch, F, fa, serve.pop("model"), lora["trace"]))
@@ -1891,7 +1945,7 @@ def main() -> int:
                                           kernels["fused_bgmv_paged_decode_quant"]["in_path"]),
     }
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
-               "paged_multitoken_attention_quant": "accelerate_tpu_torch/csrc/paged_prefill.cu",
+               "paged_multitoken_attention": "accelerate_tpu_torch/csrc/paged_prefill.cu",
                "paged": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",

@@ -24,6 +24,8 @@ and dv, with the plain version run on the same bf16 operands; #3 must give
 bitwise-equal dk/dv on two runs.  The W8A16 matmuls' rows are output rows
 (one token over F), against the plain version in f32; both must give
 bitwise-equal outputs on two runs (their H splits add in a fixed order).
+#6 and #7 (``paged_prefill.cu``) run every geometry of ``PREFILL_CASES``
+over bf16, int8 and fp8 pages, pages of 1 to 128 tokens.
 #10's rows are output rows against ``bgmv_plain`` (f32 h and delta, one
 rounding); its deltas are not O(1), so each element may also be off by
 half a bf16 step of its |ref| (at |ref| >= 8 that step is above 2e-2);
@@ -157,6 +159,11 @@ def _flash_fwd_bwd(fn, q, k, v, g, g_lse, causal, kw):
     (1, 192, 4, 2, 96, True, True, False),       # packed segments
     (1, 192, 4, 2, 96, True, False, True),       # explicit (shuffled) positions
     (2, 2048, 16, 8, 96, True, False, False),    # the 600m training shape at batch 2
+    (2, 129, 16, 8, 96, True, False, False),     # one row past the forward's 128-row tile
+    (1, 2047, 16, 8, 96, True, False, False),    # one short of the last 128-key tile
+    (2, 320, 8, 4, 64, False, False, False),     # D 64, non-causal, a partial key tile
+    (2, 300, 4, 2, 128, False, False, False),    # D 128, non-causal, a partial key tile
+    (2, 384, 16, 4, 96, True, True, False),      # GQA group 4 with segments
 ])
 def test_flash_kernels_match_plain(cuda, b, t, h, hkv, d, causal, seg, pos):
     gen = torch.Generator(device=cuda).manual_seed(t + d + h)
@@ -310,8 +317,23 @@ def _quant_pool(gen, dev, hkv, num_pages, page, d, kv_dtype, extreme=False):
     return out
 
 
-# kernel #7's geometries: (slots, width, first positions, page size, pages
-# per slot, kv heads, GQA group, head dim)
+def _bf16_pool(gen, dev, hkv, num_pages, page, d, extreme=False):
+    """``(k_pages, v_pages)`` bf16 at any geometry: normal values, or with
+    ``extreme`` every value at +-amax for one amax in [0.25, 1) per (kv
+    head, page), the values the extreme code pools stand for."""
+    out = []
+    for _ in range(2):
+        if extreme:
+            sign = torch.randint(0, 2, (hkv, num_pages, page, d), generator=gen, device=dev) * 2 - 1
+            amax = 0.25 + 0.75 * torch.rand(hkv, num_pages, 1, 1, generator=gen, device=dev)
+            out.append((sign * amax).bfloat16())
+        else:
+            out.append(torch.randn(hkv, num_pages, page, d, generator=gen, device=dev).bfloat16())
+    return out
+
+
+# kernels #6 / #7's geometries: (slots, width, first positions, page size,
+# pages per slot, kv heads, GQA group, head dim)
 PREFILL_CASES = [
     (2, 100, [37, 0], 16, 20, 8, 2, 96),         # pages of 16, pos0 mid-page
     (1, 512, [0], 64, 32, 8, 2, 96),             # the serve's chunk
@@ -321,49 +343,69 @@ PREFILL_CASES = [
     (2, 50, [1000, 3], 16, 80, 2, 8, 64),        # group 8, a long window
     (2, 16, [1024, 2000], 64, 32, 8, 2, 96),     # a short chunk deep in the table
     (2, 8, [-20, -3], 16, 4, 8, 2, 96),          # a window wholly / partly before 0
+    (2, 40, [0, 23], 1, 96, 8, 2, 96),           # pages of 1: 64 pages a tile
+    (2, 70, [5, 131], 8, 40, 8, 2, 64),          # pages of 8, windows mid-page
+    (2, 90, [13, 200], 24, 16, 8, 2, 96),        # pages of 24: no divisor of the tile
+    (1, 512, [0], 32, 32, 8, 2, 96),             # the serve's chunk over pages of 32
+    (2, 60, [47, 300], 48, 10, 4, 4, 128),       # pages of 48, group 4
+    (2, 130, [99, 250], 100, 5, 8, 2, 96),       # pages of 100: tiles inside pages
+    (2, 200, [127, 1], 128, 4, 8, 2, 96),        # pages of 128: two tiles a page
+    (2, 8, [-40, -1], 100, 3, 8, 2, 64),         # before 0 over pages of 100
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
 @pytest.mark.parametrize("extreme", [False, True])
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_tensor_core_multitoken_kernel_geometries(cuda, kv_dtype, extreme, case):
-    """#7 over pages of 16 and 64, GQA groups 1-8, head dims 64-128, row
-    counts that are no multiple of the 64-row tile, several slots, first
-    positions mid-page, codes at +-QMAX, and a window wholly before
-    position 0 (zeros)."""
+    """#6 (bf16 pages) and #7 (codes) over pages of 1 to 128, GQA groups
+    1-8, head dims 64-128, row counts that are no multiple of the 64-row
+    tile, several slots, first positions mid-page, values at +-amax (codes
+    at +-QMAX), and windows wholly before position 0 (zeros)."""
     slots, width, pos0, page, n, hkv, group, d = case
     gen = torch.Generator(device=cuda).manual_seed(width + page + d)
     num_pages = slots * n
-    kp, ks, vp, vs = _quant_pool(gen, cuda, hkv, num_pages, page, d, kv_dtype, extreme)
+    if kv_dtype == "bf16":
+        kp, vp = _bf16_pool(gen, cuda, hkv, num_pages, page, d, extreme)
+        kw, wrapper = {}, tfa.paged_multitoken_attention
+    else:
+        kp, ks, vp, vs = _quant_pool(gen, cuda, hkv, num_pages, page, d, kv_dtype, extreme)
+        kw, wrapper = dict(k_scales=ks, v_scales=vs), tfa.paged_multitoken_attention_quant
     bt = torch.randperm(num_pages, generator=gen, device=cuda).int().reshape(slots, n)
     pos = (torch.tensor(pos0, dtype=torch.int32, device=cuda)[:, None]
            + torch.arange(width, dtype=torch.int32, device=cuda)).contiguous()
     q = torch.randn(slots, width, hkv * group, d, generator=gen, device=cuda).bfloat16()
-    out = tfa.paged_multitoken_attention(q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)
+    out = tfa.paged_multitoken_attention(q, kp, vp, bt, pos, **kw)
     torch.cuda.synchronize()
-    assert tfa.paged_multitoken_attention_quant.launches == 1
-    ref = tfa.paged_multitoken_attention_plain(q.float(), kp, vp, bt, pos, k_scales=ks,
-                                               v_scales=vs)
+    assert wrapper.launches == 1
+    assert tfa.paged_multitoken_attention.launches + tfa.paged_multitoken_attention_quant.launches == 1
+    ref = tfa.paged_multitoken_attention_plain(q.float(), kp if kw else kp.float(),
+                                               vp if kw else vp.float(), bt, pos, **kw)
     _assert_rows_close(out, ref)
     dead = pos[:, -1] < 0
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
 @pytest.mark.cuda
-def test_tensor_core_multitoken_kernel_refuses_what_it_does_not_take(cuda):
-    """Page sizes that neither divide the 64-token kv tile nor are
-    multiples of it, and head dims other than 64 / 96 / 128, are refused
-    before any launch."""
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_tensor_core_multitoken_kernel_refuses_what_it_does_not_take(cuda, kv_dtype):
+    """Head dims other than 64 / 96 / 128 are refused before any launch;
+    every page size is taken."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for page, d in ((24, 96), (16, 80)):
-        kp, ks, vp, vs = _quant_pool(gen, cuda, 8, 4, page, d, "int8")
+    for d in (80, 256):
+        if kv_dtype == "bf16":
+            kp, vp = _bf16_pool(gen, cuda, 8, 4, 24, d)
+            kw = {}
+        else:
+            kp, ks, vp, vs = _quant_pool(gen, cuda, 8, 4, 24, d, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
         q = torch.zeros(1, 8, 16, d, dtype=torch.bfloat16, device=cuda)
         bt = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
         pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
-        with pytest.raises(ValueError, match="page sizes|head dims"):
-            tfa.paged_multitoken_attention(q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.paged_multitoken_attention(q, kp, vp, bt, pos, **kw)
+    assert tfa.paged_multitoken_attention.launches == 0
     assert tfa.paged_multitoken_attention_quant.launches == 0
 
 
@@ -546,6 +588,38 @@ def test_quantized_engine_serves_through_the_kernels(cuda):
     assert tqm.quantized_matmul_tiled.launches == 7 * layers * (m["decode_steps"]
                                                                  + m["prefill_steps"])
     assert tqm.quantized_matmul_wholef.launches == 0
+
+
+@pytest.mark.cuda
+def test_quantized_engine_serves_pages_of_32_under_auto(cuda):
+    """int8 pages of 32 tokens, which the kernel once refused, served under
+    ``decode_kernel="auto"``: every request finishes through #5 and #7 (no
+    gathered native route), and each launches once per layer of every
+    step."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaConfig, LlamaForCausalLM, ServingEngine, ServingPlugin,
+        synthesize_trace,
+    )
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, seed=0)
+    eng = ServingEngine(model, ServingPlugin(num_slots=8, page_size=32, pages_per_slot=4,
+                                             num_pages=32, prefill_chunk=64, kv_dtype="int8",
+                                             decode_kernel="auto"),
+                        GenerationConfig(max_new_tokens=30))
+    eng.warmup()
+    tfa.reset_launch_counts()
+    # prompts of up to three pages, some in two prefill chunks
+    trace = synthesize_trace(0, 8, prompt_len_range=(20, 90), new_tokens_range=(4, 30))
+    results = eng.run(trace)
+    assert sorted(results) == [r.uid for r in trace]
+    assert all(len(results[r.uid]) == r.max_new_tokens for r in trace)
+    assert eng.free_page_mirror_in_sync()
+    layers, m = cfg.num_hidden_layers, eng.metrics
+    assert tfa.paged_decode_attention_quant.launches == m["decode_steps"] * layers > 0
+    assert tfa.paged_multitoken_attention_quant.launches == m["prefill_steps"] * layers > 0
+    assert tfa.paged_decode_attention.launches == tfa.paged_multitoken_attention.launches == 0
 
 
 # -- LoRA kernels #10, #8, #9 -------------------------------------------------

@@ -229,33 +229,68 @@ def test_quant_wrappers_dispatch_and_check():
         tfa._kv_qmax_for(torch.zeros(2, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("width, heads, kv_heads, page, d, pages_per_kv_tile, row_tiles", [
-    (512, 16, 8, 64, 96, 1, 16),     # the serve's chunk: a page a tile
-    (250, 16, 8, 16, 96, 4, 8),      # generate_paged: four pages a tile
-    (77, 8, 8, 64, 128, 1, 2),       # group 1
-    (33, 16, 2, 16, 64, 4, 5),       # group 8
-    (16, 16, 4, 64, 96, 1, 1),       # group 4, one row tile
+@pytest.mark.parametrize("width, heads, kv_heads, page, d, kv_tiles, row_tiles", [
+    (512, 16, 8, 64, 96, 32, 16),    # the serve's chunk: a page a tile
+    (250, 16, 8, 16, 96, 8, 8),      # generate_paged: four pages a tile
+    (77, 8, 8, 64, 128, 32, 2),      # group 1
+    (33, 16, 2, 16, 64, 8, 5),       # group 8
+    (16, 16, 4, 128, 96, 64, 1),     # group 4, one row tile; pages of 128: two tiles a page
 ])
-def test_prefill_quant_plan_tiles(width, heads, kv_heads, page, d, pages_per_kv_tile, row_tiles):
-    """Kernel #7's plan: 64 token-major query rows per block, kv tiles of
-    64 tokens over whole pages (pages of 16: four a tile)."""
-    plan = tfa.prefill_quant_plan(width, heads, kv_heads, page, d, 32)
-    assert (plan["rows"], plan["kv_tile"]) == (64, 64)
-    assert plan["pages_per_kv_tile"] == pages_per_kv_tile
-    assert plan["row_tiles"] == row_tiles == -(-width * (heads // kv_heads) // 64)
-    assert plan["pages_per_kv_tile"] * page == 64
+def test_prefill_quant_plan_tiles(width, heads, kv_heads, page, d, kv_tiles, row_tiles):
+    """Kernels #6 / #7's plan: 64 token-major query rows per block, kv
+    tiles of 64 tokens whatever the page size, so a 32-entry table spans
+    32 * page / 64 of them."""
+    for quantized in (True, False):
+        plan = tfa.prefill_plan(width, heads, kv_heads, page, d, 32, quantized=quantized)
+        assert (plan["rows"], plan["kv_tile"]) == (64, 64)
+        assert plan["kv_tiles"] == kv_tiles == -(-32 * page // 64)
+        assert plan["row_tiles"] == row_tiles == -(-width * (heads // kv_heads) // 64)
+        assert plan["shared_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("page", [24, 48, 100, 8, 32, 128])
+def test_prefill_plan_takes_page_size(page, quantized):
+    """Every positive page size: a token is found through its own
+    block-table entry, so a tile may hold several pages, part of one or
+    exactly one."""
+    plan = tfa.prefill_plan(16, 16, 8, page, 96, 32, quantized=quantized)
+    assert plan["kv_tiles"] == -(-32 * page // 64)
     assert plan["shared_bytes"] <= 232448
 
 
-@pytest.mark.parametrize("page, d, n, match", [
-    (24, 96, 32, "page sizes"), (48, 96, 32, "page sizes"), (100, 64, 32, "page sizes"),
-    (0, 96, 32, "page sizes"), (8, 96, 32, "page sizes"), (32, 96, 32, "page sizes"),
-    (128, 96, 32, "page sizes"), (16, 80, 32, "head dims"), (64, 256, 32, "head dims"),
-    (16, 128, 20000, "shared memory"),
+@pytest.mark.parametrize("page, d, n, quantized, match", [
+    (0, 96, 32, True, "page size"), (16, 80, 32, True, "head dims"),
+    (64, 256, 32, True, "head dims"), (16, 128, 20000, True, "shared memory"),
+    (0, 96, 32, False, "page size"), (16, 80, 32, False, "head dims"),
+    (64, 256, 32, False, "head dims"), (16, 128, 40000, False, "shared memory"),
 ])
-def test_prefill_quant_plan_refuses_what_the_kernel_does_not_take(page, d, n, match):
+def test_prefill_quant_plan_refuses_what_the_kernel_does_not_take(page, d, n, quantized, match):
     with pytest.raises(ValueError, match=match):
-        tfa.prefill_quant_plan(16, 16, 8, page, d, n)
+        tfa.prefill_plan(16, 16, 8, page, d, n, quantized=quantized)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("page", [8, 32, 128])
+def test_quant_plain_multitoken_matches_pallas_at_page_sizes(kv_dtype, page):
+    """The quantized multitoken route against JAX's Pallas kernel (interpret
+    mode) over pages of 8, 32 and 128: windows mid-page, one that starts at
+    0 and one that lies partly before 0."""
+    rng = np.random.default_rng(page)
+    n = max(2, 64 // page)
+    kp, ks, vp, vs = _quant_pools(rng, kv_dtype, num_pages=4 * n, page=page)
+    bt = rng.permutation(4 * n).reshape(4, n).astype(np.int32)
+    width = 6
+    pos0 = np.asarray([0, page - 3, page * n - width, -3], np.int32)
+    q = rng.normal(size=(4, width, 4, 32)).astype(np.float32)
+    pos = pos0[:, None] + np.arange(width, dtype=np.int32)[None]
+    ref = jfa.paged_multitoken_attention(
+        jnp.asarray(q), jnp.asarray(_bits(kp)).view(JAX_DTYPE[kv_dtype]),
+        jnp.asarray(_bits(vp)).view(JAX_DTYPE[kv_dtype]), jnp.asarray(bt), jnp.asarray(pos),
+        k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy()))
+    got = tfa.paged_multitoken_attention(_t(q), kp, vp, _t(bt), _t(pos), k_scales=ks,
+                                         v_scales=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 
 
 @pytest.fixture(scope="module")

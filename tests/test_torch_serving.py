@@ -298,7 +298,8 @@ def test_port_imports_no_jax():
     package, not even a module of it that does not import JAX."""
     files = sorted((REPO / "accelerate_tpu_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "profile_serving.py", "profile_training.py",
-                                 "time_training_step.py", "stress_qmm.py")]
+                                 "time_training_step.py", "stress_qmm.py",
+                                 "time_flash_fwd_parts.py")]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
     for path in files:
