@@ -55,27 +55,71 @@
 //     kernel's too) and the exponential, ex2.approx.ftz.f32 (about 2 ulp,
 //     subnormals flushed to zero).  A row whose every score is masked keeps
 //     m = DEFAULT_MASK_VALUE in natural units for its lse.
-// Backward (#2, #3): 64 query rows by 64 keys, four warps of 16 rows each
-// (dq asks for three blocks per SM, dkv fits two); every product is
-// mma.sync m16n8k16 bf16 with f32 accumulation, operands read from shared
-// memory with ldmatrix.  K/V tiles (dq) and Q/g tiles (dkv) are
-// double-buffered with cp.async, so the next tile's load runs under this
-// tile's math.  Shared-memory rows are padded to D + 8 elements: an odd
-// number of 16-byte chunks, so ldmatrix's eight row reads fall in distinct
-// banks.
-// All three skip the per-element mask on tiles wholly inside it (below the
-// causal diagonal, in bounds, no segments or positions).
+// Backward (#2, #3), designed for Hopper as the forward is: blocks of two
+// consumer warpgroups of 64 rows (256 threads), whose thread 0 also issues
+// the TMA loads, under mbarriers, from 4-D tensor maps in 64-column boxes
+// with the 128-byte swizzle (columns past D and rows past T or S arrive as
+// zeros); every product is a wgmma, and there is no online softmax (p comes
+// from lse), so a tile's element work is one exponential and a few FMAs a
+// pair.
+//   * dq (#2): one block per (128 query rows, batch * q head).  Q and dO
+//     land once; K and V tiles of 128 keys (64 at D 128) stream through a
+//     ring of two stages (four at D 128), K and V on barriers of their own,
+//     each tile loaded while the one before it is computed.  Per key tile a
+//     consumer warpgroup issues S = Q K^T, then dP = dO V^T (wgmma m64n128k16,
+//     m64n64k16 at D 128, both operands in shared memory, K-major), turns S
+//     into p while dP runs, forms ds and rounds it to bf16 as the register A
+//     operand of dQ += dS K (one m64nDk16 a 16 keys: K the MN-major B
+//     operand, its two 64-column chunks a leading-byte offset apart), then
+//     releases the stage.  Registers a consumer thread at D 96: S and dP
+//     64 + 64, dQ 48, the dS operand 32: 208 before addresses.
+//   * dk / dv (#3): one block per (128 keys, batch * kv head), each consumer
+//     warpgroup owning 64 of them with K and V resident.  The block walks
+//     every (GQA group member, query tile) pair itself, keeping the group
+//     sum in registers: no atomics, and two runs give bitwise-equal
+//     gradients.  Each query tile's Q and dO stream through a ring of four
+//     stages on barriers of their own, two tiles ahead.  Its lse and delta
+//     pass through a double buffer of each warpgroup's in shared memory,
+//     loaded from L2 a tile ahead of their use (a TMA box of them would
+//     start at an element that is not 16-byte aligned whenever T is odd);
+//     segment ids and positions, off the unmasked fast path, come from L2.
+//     Per tile: S^T = K Q^T and dP^T = V dO^T (wgmma m64nBQk16, shared-memory
+//     operands, K-major); p^T = exp(S^T - lse) with lse broadcast along the
+//     columns; dV += bf16(P^T) dO and dK += bf16(dS^T) Q with the register A
+//     operand and dO / Q as MN-major B, left running under the next tile's
+//     S^T and dP^T (every wait of the loop has a fixed group count, so ptxas
+//     keeps the pipeline).  Registers a consumer thread at D 96 with 64-query
+//     tiles: dK + dV 48 + 48, S^T and dP^T 32 + 32, the two A operands of the
+//     products in flight 16 + 16: 192 before addresses.  At D 128 dK + dV
+//     take 128, so the query tile is 32.
+//   * Why 256 threads: ptxas compiles every warp of a kernel for the
+//     registers of its launch bounds, and one spill or one move that
+//     defines a wgmma operand inside a pipeline stage makes it serialise
+//     every wgmma of the function (info C7512 / C7513).  The register file
+//     is split between the SM's four sub-partitions: 384 threads (the
+//     forward's producer warpgroup) or 288 (a producer warp) put three warps
+//     on one of them, and ptxas allows 168 registers a thread whatever
+//     setmaxnreg grants at run time; 256 threads allow 255.  So a consumer
+//     thread issues the loads, at the start of each tile, into the stage of
+//     a tile the other warpgroup has most likely released by then.
+//   * A warpgroup with nothing in a tile (past the causal diagonal, or rows
+//     past T / keys past S) waits for the tile's loads and releases it
+//     without computing, so each stage's release still counts both
+//     warpgroups.
+//   * Blocks run heaviest causal tiles first (dq: the last query tiles, dkv:
+//     the first key tiles) within groups of 8 (batch, head) pairs.
+// All three take a branch of their own, uniform over the warpgroup, on
+// tiles wholly inside the mask (below the causal diagonal, in bounds, no
+// segments or positions); the others mask by selects.
 //
 // Grid, and what replaces the TPU's serial grid axis:
 //   * forward and dq: one block per (query tile, batch * q head); the block
 //     walks the key tiles itself, up to the diagonal when causal by index,
 //     over all of them when positions are given (the diagonal is then data
-//     dependent, as in the Pallas skip rule).  Query tiles run heaviest
-//     first so the causal tail is short;
+//     dependent, as in the Pallas skip rule);
 //   * dkv: one block per (key tile, batch * kv head); the block walks every
-//     (group member, query tile) pair itself and keeps the dk / dv sums in
-//     registers, so the GQA group sum needs no atomics and two runs give
-//     bitwise-equal gradients.
+//     (group member, query tile) pair itself, from the first query tile that
+//     reaches its keys when causal by index.
 //
 // What bounds them on an H100: at the 600m training shape (B 10, T 2048,
 // 16 q / 8 kv heads, D 96, causal) the forward does 4 * D flops per
@@ -89,8 +133,13 @@
 // under the softmax; the warpgroups taking turns to issue) needs about 190
 // registers a thread, and ptxas compiles the consumers for the 168 of
 // the launch bounds whatever setmaxnreg grants at run time: the spills
-// make it serialise every wgmma.  The backward kernels are still mma.sync,
-// which reaches a fraction of that peak.
+// make it serialise every wgmma.  The backward kernels chain their
+// products per tile the same way (two products, the element work, one or
+// two products), the two consumer warpgroups of a block overlapping each
+// other's element work with their products.  Timed alone, no single part
+// of that chain dominates: at the training shape leaving out the
+// exponentials, the later loads, the first or the second products, or
+// adding a third warpgroup, moved #2 and #3 by at most a fifth each.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
@@ -107,12 +156,11 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+using hopper::pack_bf16;
+
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int BQ = 64;        // query rows per tile (dq, dkv)
-constexpr int BK = 64;        // keys per tile (dq, dkv)
-constexpr int THREADS = 128;  // four warps of 16 rows (dq, dkv)
 
 struct Params {
     const bf16* q;
@@ -134,51 +182,7 @@ struct Params {
     float sm_scale;
 };
 
-// -- PTX helpers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
+// -- helpers ---------------------------------------------------------------
 
 __device__ __forceinline__ float exp2_approx(float x) {
     float y;
@@ -194,82 +198,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// -- fragment loads from a row-major shared tile of row stride LD --------
-//
-// mma fragments (g = lane / 4, t = lane % 4):
-//   A 16x16: a0 = A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
-//   B 16x8:  b0 = B[2t..][g], b1 = B[2t+8..][g]
-//   C 16x8:  c0,c1 = C[g][2t, 2t+1], c2,c3 = C[g+8][2t, 2t+1]
-
-// A = tile[r0:r0+16, c0:c0+16]
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int r0, int c0, int lane) {
-    const int mat = lane >> 3;
-    const int row = r0 + (lane & 7) + ((mat & 1) << 3);
-    const int col = c0 + ((mat >> 1) << 3);
-    ldsm_x4(a, tile + row * LD + col);
-}
-
-// B[k][n] = tile[n][k] for n in n0..n0+15, k in k0..k0+15:
-// b[0], b[1] for the n-tile at n0, b[2], b[3] for the one at n0 + 8
-template <int LD>
-__device__ __forceinline__ void load_b_rows(uint32_t* b, const bf16* tile, int n0, int k0, int lane) {
-    const int mat = lane >> 3;
-    const int row = n0 + (lane & 7) + ((mat >> 1) << 3);
-    const int col = k0 + ((mat & 1) << 3);
-    ldsm_x4(b, tile + row * LD + col);
-}
-
-// B[k][n] = tile[k][n] for k in k0..k0+15, n in n0..n0+15 (transposed load)
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t* b, const bf16* tile, int k0, int n0, int lane) {
-    const int mat = lane >> 3;
-    const int row = k0 + (lane & 7) + ((mat & 1) << 3);
-    const int col = n0 + ((mat >> 1) << 3);
-    ldsm_x4_t(b, tile + row * LD + col);
-}
-
-// rows row0 .. row0 + ROWS - 1 of a strided global array (D contiguous
-// elements per row) into tile[ROWS][LD]; rows at or past `limit` are zeros
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, size_t row_stride,
-                                          int row0, int limit, int tid) {
-    constexpr int CH = D / 8;
-    for (int c = tid; c < ROWS * CH; c += THREADS) {
-        const int r = c / CH;
-        const int col = (c % CH) * 8;
-        const int row = row0 + r;
-        const bool ok = row < limit;
-        cp_async16(tile + r * LD + col, base + (size_t)(ok ? row : 0) * row_stride + col, ok);
-    }
-}
-
-// int32 ids of rows row0 .. row0 + n - 1 (0 past limit / when absent)
-__device__ __forceinline__ void load_ids(int* dst, const int* src, int row0, int limit,
-                                         int n, int tid) {
-    for (int i = tid; i < n; i += THREADS) {
-        const int row = row0 + i;
-        dst[i] = (src != nullptr && row < limit) ? src[row] : 0;
-    }
-}
-
-// whether query row `row` (ids sq, pq) attends key `col` (ids sk, pk)
-__device__ __forceinline__ bool attends(const Params& p, bool segmented, bool positioned,
-                                        int row, int col, int sq, int sk, int pq, int pk) {
-    bool ok = row < p.T && col < p.S;
-    if (p.causal) ok = ok && (positioned ? pq >= pk : row >= col);
-    if (segmented) ok = ok && sq == sk;
-    return ok;
-}
-
-// whether every (row, key) pair of a tile attends, so the tile needs no
-// mask: in bounds, no segments or positions, wholly below the diagonal
-__device__ __forceinline__ bool tile_unmasked(const Params& p, bool segmented, bool positioned,
-                                              int q0, int k0) {
-    return !segmented && !positioned && q0 + BQ <= p.T && k0 + BK <= p.S &&
-           (!p.causal || q0 >= k0 + BK - 1);
 }
 
 // -- kernel #1: forward, on the tensor cores ------------------------------
@@ -542,331 +470,556 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
 }
 
-// -- kernel #2: dq -------------------------------------------------------
+// -- kernels #2 and #3: the backward, on the tensor cores -------------------
+
+constexpr int BWD_THREADS = 256;   // two consumer warpgroups; thread 0 also loads
+constexpr int BWD_ROWS = 64;       // query rows (dq) or keys (dkv) of a warpgroup
+constexpr int BWD_CHUNK = BWD_ROWS * 128;   // a 64-row, 64-column swizzled chunk
+constexpr int BWD_NO_KEY = 0x7fffffff;
+
+// (tile, batch * head) of this block: heaviest first within groups of
+// FWD_GROUP (batch, head) pairs launched together, so that their operands
+// stay in L2; the heaviest tile is the last (dq) or the first (dkv)
+struct BlockTile {
+    int tile, bh;
+};
+
+__device__ __forceinline__ BlockTile block_tile(int n_bh, bool heaviest_last) {
+    const int n_t = gridDim.x;
+    const int lin = blockIdx.y * n_t + blockIdx.x;
+    const int grp = lin / (n_t * FWD_GROUP), in_grp = lin % (n_t * FWD_GROUP);
+    const int grp_size = min(FWD_GROUP, n_bh - grp * FWD_GROUP);
+    const int rank = in_grp / grp_size;
+    return {heaviest_last ? n_t - 1 - rank : rank, grp * FWD_GROUP + in_grp % grp_size};
+}
 
 template <int D>
-struct Dq {
-    static constexpr int LD = D + 8;
-    static constexpr size_t smem() {
-        return sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * LD + sizeof(int) * 4 * BK;
-    }
+struct DqPlan {
+    // keys per tile: 128 (S and dP as m64n128 products) where the
+    // registers allow it, in two stages; 64 at D 128, in four
+    static constexpr int kBK = D <= 96 ? 128 : 64;
+    static constexpr int kStages = kBK == 128 ? 2 : 4;
+    static constexpr int kChunks = (D + 63) / 64;
+    static constexpr int kTile = kChunks * BWD_CHUNK;   // 64 rows of Q or dO
+    static constexpr int kKV = kChunks * kBK * 128;     // a K or V tile
+    static constexpr int kQ = 0;                        // Q [warpgroup][chunk][64 rows][128 B]
+    static constexpr int kG = 2 * kTile;                // dO, the same
+    static constexpr int kStage = 4 * kTile;   // stage s: K at kStage + 2 s kKV, V after it
+    static constexpr int kBar = kStage + kStages * 2 * kKV;
+    // qg_full, k_full[stages], v_full[stages], empty[stages]
+    static constexpr size_t kBytes = (size_t)kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 3) flash_dq_kernel(const Params p) {
-    constexpr int LD = D + 8;
-    constexpr int KS = D / 16;
-    constexpr int DT = D / 8;
-    constexpr int NT = BK / 8;
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
+                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const Params p) {
+    using L = DqPlan<D>;
+    constexpr int S = L::kStages;
+    constexpr int BK = L::kBK;
+    constexpr int KSTEPS = D / 16;
 
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Gs = Qs + BQ * LD;
-    bf16* Ks = Gs + BQ * LD;       // [2][BK][LD]
-    bf16* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
-    int* ids = reinterpret_cast<int*>(Vs + 2 * BK * LD);
+    extern __shared__ unsigned char smem_raw[];
+    // the swizzled tiles need 1024-byte aligned shared addresses
+    unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+    const uint32_t sbase = hopper::smem_u32(smem);
+    const uint32_t qg_full = sbase + L::kBar;   // TMA landed: one arrival + bytes
+    const uint32_t k_full0 = qg_full + 8;
+    const uint32_t v_full0 = k_full0 + 8 * S;
+    // a stage read: one thread of each consumer warp arrives
+    const uint32_t empty0 = v_full0 + 8 * S;
 
-    const int qt = gridDim.x - 1 - blockIdx.x;
-    const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+    const BlockTile tile = block_tile(p.B * p.H, true);
+    const int b = tile.bh / p.H, h = tile.bh % p.H;
     const int hk = h / (p.H / p.Hkv);
-    const int q0 = qt * BQ;
+    const int q0 = tile.tile * 2 * BWD_ROWS;
     const bool segmented = p.seg_q != nullptr, positioned = p.pos_q != nullptr;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const bool causal = p.causal != 0;
+    int n_kt = (p.S + BK - 1) / BK;
+    if (causal && !positioned) n_kt = min(n_kt, (min(q0 + 2 * BWD_ROWS, p.T) - 1) / BK + 1);
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+
+    if (tid == 0) {
+        hopper::mbar_init(qg_full, 1);
+        for (int st = 0; st < S; ++st) {
+            hopper::mbar_init(k_full0 + 8 * st, 1);
+            hopper::mbar_init(v_full0 + 8 * st, 1);
+            hopper::mbar_init(empty0 + 8 * st, 8);
+        }
+        hopper::mbar_init_fence();
+    }
+    __syncthreads();
+
+    // thread 0 loads: key tile j into stage j % S, K and V on barriers of
+    // their own, once both warpgroups have released the tile S before it
+    auto load_kv = [&](int j) {
+        const int st = j % S;
+        const uint32_t ks = sbase + L::kStage + st * 2 * L::kKV;
+        const uint32_t kf = k_full0 + 8 * st, vf = v_full0 + 8 * st;
+        if (j >= S) hopper::mbar_wait(empty0 + 8 * st, ((j / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(kf, L::kKV);
+        for (int c = 0; c < L::kChunks; ++c)
+            hopper::tma_load_4d(ks + c * BK * 128, &tm_k, kf, 64 * c, hk, j * BK, b);
+        hopper::mbar_arrive_expect_tx(vf, L::kKV);
+        for (int c = 0; c < L::kChunks; ++c)
+            hopper::tma_load_4d(ks + L::kKV + c * BK * 128, &tm_v, vf, 64 * c, hk, j * BK, b);
+    };
+    if (tid == 0) {
+        hopper::mbar_arrive_expect_tx(qg_full, 4 * L::kTile);
+        for (int w = 0; w < 2; ++w) {
+            for (int c = 0; c < L::kChunks; ++c) {
+                const int off = (w * L::kChunks + c) * BWD_CHUNK;
+                hopper::tma_load_4d(sbase + L::kQ + off, &tm_q, qg_full, 64 * c, h,
+                                    q0 + BWD_ROWS * w, b);
+                hopper::tma_load_4d(sbase + L::kG + off, &tm_g, qg_full, 64 * c, h,
+                                    q0 + BWD_ROWS * w, b);
+            }
+        }
+        for (int j = 0; j < min(S, n_kt); ++j) load_kv(j);
+    }
+
+    // consumer warpgroup cw owns query rows r0 .. r0 + 63
+    const int cw = warp >> 2, wq = warp & 3;
+    const bool lead = lane == 0;   // a warp's products are done when its wait is
     const int g = lane >> 2, t4 = lane & 3;
-    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const int r0 = q0 + BWD_ROWS * cw;
+    const int row[2] = {r0 + 16 * wq + g, r0 + 16 * wq + g + 8};
+    const bool row_in[2] = {row[0] < p.T, row[1] < p.T};
     int sq[2] = {0, 0}, pq[2] = {0, 0};
-    float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+    // -lse in base-2 units and delta * sm_scale of each of the thread's rows
+    float nlse[2] = {0.f, 0.f}, dsc[2] = {0.f, 0.f};
     for (int r = 0; r < 2; ++r) {
-        if (row[r] < p.T) {
+        if (row_in[r]) {
+            const size_t lrow = ((size_t)b * p.H + h) * p.T + row[r];
+            nlse[r] = -p.lse_in[lrow] * kLog2e;
+            dsc[r] = p.delta[lrow] * p.sm_scale;
             if (segmented) sq[r] = p.seg_q[(size_t)b * p.T + row[r]];
             if (positioned) pq[r] = p.pos_q[(size_t)b * p.T + row[r]];
-            lse[r] = p.lse_in[((size_t)b * p.H + h) * p.T + row[r]];
-            delta[r] = p.delta[((size_t)b * p.H + h) * p.T + row[r]];
         }
     }
+    const int* seg_k = segmented ? p.seg_kv + (size_t)b * p.S : nullptr;
+    const int* pos_k = positioned ? p.pos_kv + (size_t)b * p.S : nullptr;
+    const float scale2 = p.sm_scale * kLog2e;
+    // the last key this warpgroup's rows attend, when causal by index
+    const int last_key = r0 >= p.T ? -1
+                         : (causal && !positioned) ? r0 + BWD_ROWS - 1 : BWD_NO_KEY;
+    const uint32_t qa = sbase + L::kQ + cw * L::kTile;   // this warpgroup's A rows
+    const uint32_t ga = sbase + L::kG + cw * L::kTile;
 
-    const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.Hkv * D;
-    const bf16* kbase = p.k + ((size_t)b * p.S * p.Hkv + hk) * D;
-    const bf16* vbase = p.v + ((size_t)b * p.S * p.Hkv + hk) * D;
-    int n_kt = (p.S + BK - 1) / BK;
-    if (p.causal && !positioned) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
-
-    auto load_kv = [&](int kt, int stage) {
-        load_tile<D, LD, BK>(Ks + stage * BK * LD, kbase, kv_stride, kt * BK, p.S, tid);
-        load_tile<D, LD, BK>(Vs + stage * BK * LD, vbase, kv_stride, kt * BK, p.S, tid);
-        const int* seg = segmented ? p.seg_kv + (size_t)b * p.S : nullptr;
-        const int* pos = positioned ? p.pos_kv + (size_t)b * p.S : nullptr;
-        load_ids(ids + stage * BK, seg, kt * BK, p.S, BK, tid);
-        load_ids(ids + (2 + stage) * BK, pos, kt * BK, p.S, BK, tid);
-    };
-
-    load_tile<D, LD, BQ>(Qs, p.q + ((size_t)b * p.T * p.H + h) * D, q_stride, q0, p.T, tid);
-    load_tile<D, LD, BQ>(Gs, p.g + ((size_t)b * p.T * p.H + h) * D, q_stride, q0, p.T, tid);
-    load_kv(0, 0);
-    cp_async_commit();
-
-    float dq[DT][4];
+    // dQ: element 4 j + 2 hh + c01 is row 8 hh + g, column 8 j + 2 t4 + c01
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 
-    for (int kt = 0; kt < n_kt; ++kt) {
-        const int stage = kt & 1;
-        if (kt + 1 < n_kt) {
-            load_kv(kt + 1, stage ^ 1);
-            cp_async_commit();
-            cp_async_wait<1>();
+    hopper::mbar_wait(qg_full, 0);
+    for (int j = 0; j < n_kt; ++j) {
+        const int st = j % S;
+        const uint32_t parity = (j / S) & 1;
+        const uint32_t ks = sbase + L::kStage + st * 2 * L::kKV;
+        const uint32_t vs = ks + L::kKV;
+        const int k0 = j * BK;
+        // the tile S - 1 ahead, into the stage of tile j - 1, which the
+        // other warpgroup has most likely released by now
+        if (tid == 0 && j >= 1 && j + S - 1 < n_kt) load_kv(j + S - 1);
+        if (k0 > last_key) {
+            // nothing here for these rows: wait for the tile, so that the
+            // stage's release counts it, and release it
+            hopper::mbar_wait(k_full0 + 8 * st, parity);
+            hopper::mbar_wait(v_full0 + 8 * st, parity);
+            if (lead) hopper::mbar_arrive(empty0 + 8 * st);
+            continue;
+        }
+
+        // S = Q K^T, then dP = dO V^T, over the D / 16 k-steps
+        float sc[BK / 2], dp[BK / 2];
+        hopper::mbar_wait(k_full0 + 8 * st, parity);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+            hopper::wgmma_ss<BK>(sc, hopper::sw128_desc(qa + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+                                 hopper::sw128_desc(ks + (kk >> 2) * BK * 128 + (kk & 3) * 32),
+                                 kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::mbar_wait(v_full0 + 8 * st, parity);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+            hopper::wgmma_ss<BK>(dp, hopper::sw128_desc(ga + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+                                 hopper::sw128_desc(vs + (kk >> 2) * BK * 128 + (kk & 3) * 32),
+                                 kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) hopper::fence_operand(sc[e]);
+
+        // p = exp(s - lse) on the valid set, 0 off it, while dP runs; a tile
+        // wholly inside the mask takes a branch of its own, uniform over the
+        // warpgroup
+        const bool unmasked = !segmented && !positioned && r0 + BWD_ROWS <= p.T &&
+                              k0 + BK <= p.S && (!causal || r0 >= k0 + BK - 1);
+        if (unmasked) {
+#pragma unroll
+            for (int e = 0; e < BK / 2; ++e)
+                sc[e] = exp2_approx(fmaf(sc[e], scale2, nlse[(e >> 1) & 1]));
         } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const bf16* Kt = Ks + stage * BK * LD;
-        const bf16* Vt = Vs + stage * BK * LD;
-        const int* sk = ids + stage * BK;
-        const int* pk = ids + (2 + stage) * BK;
-
-        // s = q k^T, dp = g v^T
-        float s[NT][4], dpv[NT][4];
 #pragma unroll
-        for (int i = 0; i < NT; ++i) {
-            s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-            dpv[i][0] = dpv[i][1] = dpv[i][2] = dpv[i][3] = 0.f;
-        }
+            for (int jb = 0; jb < BK / 8; ++jb) {
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            uint32_t qa[4], ga[4];
-            load_a<LD>(qa, Qs, warp * 16, ks * 16, lane);
-            load_a<LD>(ga, Gs, warp * 16, ks * 16, lane);
+                for (int c01 = 0; c01 < 2; ++c01) {
+                    const int col = k0 + 8 * jb + 2 * t4 + c01;
+                    const bool in = col < p.S;
+                    const int cc = in ? col : p.S - 1;
+                    const int sk = segmented ? __ldg(seg_k + cc) : 0;
+                    const int pk = positioned ? __ldg(pos_k + cc) : 0;
 #pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t bf[4];
-                load_b_rows<LD>(bf, Kt, np * 16, ks * 16, lane);
-                mma(s[2 * np], qa, bf[0], bf[1]);
-                mma(s[2 * np + 1], qa, bf[2], bf[3]);
-                load_b_rows<LD>(bf, Vt, np * 16, ks * 16, lane);
-                mma(dpv[2 * np], ga, bf[0], bf[1]);
-                mma(dpv[2 * np + 1], ga, bf[2], bf[3]);
-            }
-        }
-        // ds = p (dp - delta) * scale, p = exp(s - lse), zero off the mask
-        const int k0 = kt * BK;
-        const bool unmasked = tile_unmasked(p, segmented, positioned, q0, k0);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = e >> 1;
-                const int lc = nt * 8 + 2 * t4 + (e & 1);
-                float ds = 0.f;
-                if (unmasked || attends(p, segmented, positioned, row[r], k0 + lc, sq[r],
-                                        sk[lc], pq[r], pk[lc])) {
-                    const float pe = __expf(s[nt][e] * p.sm_scale - lse[r]);
-                    ds = pe * (dpv[nt][e] - delta[r]) * p.sm_scale;
+                    for (int hh = 0; hh < 2; ++hh) {
+                        const int e = 4 * jb + 2 * hh + c01;
+                        const bool before = positioned ? pq[hh] >= pk : row[hh] >= col;
+                        const bool ok = in && row_in[hh] && (!causal || before) &&
+                                        (!segmented || sq[hh] == sk);
+                        const float x = exp2_approx(fmaf(sc[e], scale2, nlse[hh]));
+                        sc[e] = ok ? x : 0.f;
+                    }
                 }
-                s[nt][e] = ds;
             }
         }
-        // dq += bf16(ds) . k
+        hopper::wgmma_wait<0>();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                    pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                    pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                    pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        for (int e = 0; e < BK / 2; ++e) hopper::fence_operand(dp[e]);
+
+        // ds = p (dp - delta) scale, rounded to bf16: k-step jb / 2 of
+        // dQ += dS K takes a0 / a1 from the even 8-column block, a2 / a3
+        // from the odd one
+        uint32_t dsf[BK / 16][4];
 #pragma unroll
-            for (int dp = 0; dp < DT / 2; ++dp) {
-                uint32_t bf[4];
-                load_b_cols<LD>(bf, Kt, kk * 16, dp * 16, lane);
-                mma(dq[2 * dp], da, bf[0], bf[1]);
-                mma(dq[2 * dp + 1], da, bf[2], bf[3]);
-            }
+        for (int jb = 0; jb < BK / 8; ++jb) {
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                ds[e] = sc[4 * jb + e] * fmaf(dp[4 * jb + e], p.sm_scale, -dsc[e >> 1]);
+            dsf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+            dsf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
-        __syncthreads();
+
+        // dQ += dS K, one wgmma of all D head-dim columns per 16 keys
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            hopper::wgmma_rs_mn<D>(acc, dsf[kk], hopper::sw128_desc(ks + kk * 2048, BK * 128));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hopper::fence_operand(dsf[kk][e]);
+        if (lead) hopper::mbar_arrive(empty0 + 8 * st);   // this tile's K and V are read
     }
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (row[r] >= p.T) continue;
-        bf16* drow = p.dq + (((size_t)b * p.T + row[r]) * p.H + h) * D + 2 * t4;
+    for (int hh = 0; hh < 2; ++hh) {
+        if (!row_in[hh]) continue;
+        bf16* drow = p.dq + (((size_t)b * p.T + row[hh]) * p.H + h) * D + 2 * t4;
 #pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-            *reinterpret_cast<uint32_t*>(drow + dt * 8) = pack_bf16(dq[dt][2 * r], dq[dt][2 * r + 1]);
+        for (int jb = 0; jb < D / 8; ++jb)
+            *reinterpret_cast<uint32_t*>(drow + 8 * jb) =
+                pack_bf16(acc[4 * jb + 2 * hh], acc[4 * jb + 2 * hh + 1]);
     }
 }
 
-// -- kernel #3: dk, dv ---------------------------------------------------
-
 template <int D>
-struct Dkv {
-    static constexpr int LD = D + 8;
-    static constexpr size_t smem() {
-        // K, V once; Q and g double-buffered; per stage lse, delta, seg, pos
-        return sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * LD + sizeof(float) * 8 * BQ;
-    }
+struct DkvPlan {
+    static constexpr int kChunks = (D + 63) / 64;
+    static constexpr int BQ = D > 96 ? 32 : 64;            // query rows per tile
+    static constexpr int kKV = kChunks * BWD_CHUNK;        // a warpgroup's 64 keys of K or V
+    static constexpr int kQTile = kChunks * BQ * 128;      // a query tile of Q or dO
+    static constexpr int kK = 0;                           // K [warpgroup][chunk][64 rows][128 B]
+    static constexpr int kV = 2 * kKV;                     // V, the same
+    static constexpr int kStages = 4;                      // query tiles in flight
+    static constexpr int kStage = 4 * kKV;
+    static constexpr int kStageBytes = 2 * kQTile;         // a stage: Q, then dO
+    static constexpr int kBar = kStage + kStages * kStageBytes;
+    // kv_full, q_full[stages], g_full[stages], q_empty[stages]
+    static constexpr int kRows = kBar + 128;
+    // lse and delta of BQ query rows, [warpgroup][2 buffers][lse, delta][BQ]
+    static constexpr size_t kBytes = (size_t)kRows + 2 * 2 * 2 * BQ * 4 + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_dkv_kernel(const Params p) {
-    constexpr int LD = D + 8;
-    constexpr int KS = D / 16;
-    constexpr int DT = D / 8;
-    constexpr int NT = BQ / 8;  // n-tiles over a query tile
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
+                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                 const Params p) {
+    using L = DkvPlan<D>;
+    constexpr int S = L::kStages;
+    constexpr int BQ = L::BQ;
+    constexpr int KSTEPS = D / 16;
 
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem);
-    bf16* Vs = Ks + BK * LD;
-    bf16* Qs = Vs + BK * LD;       // [2][BQ][LD]
-    bf16* Gs = Qs + 2 * BQ * LD;   // [2][BQ][LD]
-    float* rows = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // [2][4][BQ]
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+    const uint32_t sbase = hopper::smem_u32(smem);
+    const uint32_t kv_full = sbase + L::kBar;
+    const uint32_t q_full0 = kv_full + 8;      // a stage's Q
+    const uint32_t g_full0 = q_full0 + 8 * S;  // and its dO
+    const uint32_t q_empty0 = g_full0 + 8 * S;
 
-    const int kt = blockIdx.x;
-    const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+    const BlockTile tile = block_tile(p.B * p.Hkv, false);
+    const int b = tile.bh / p.Hkv, hk = tile.bh % p.Hkv;
     const int group = p.H / p.Hkv;
-    const int k0 = kt * BK;
+    const int k0 = tile.tile * 2 * BWD_ROWS;
     const bool segmented = p.seg_q != nullptr, positioned = p.pos_q != nullptr;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const bool causal = p.causal != 0;
+    const int n_qt = (p.T + BQ - 1) / BQ;
+    // query tiles with a row at or after this block's first key (causal by index)
+    const int qt_first = (causal && !positioned) ? min(k0 / BQ, n_qt) : 0;
+    const int per_head = n_qt - qt_first;
+    const int n_it = group * per_head;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+
+    if (tid == 0) {
+        hopper::mbar_init(kv_full, 1);
+        for (int st = 0; st < S; ++st) {
+            hopper::mbar_init(q_full0 + 8 * st, 1);
+            hopper::mbar_init(g_full0 + 8 * st, 1);
+            hopper::mbar_init(q_empty0 + 8 * st, 8);
+        }
+        hopper::mbar_init_fence();
+    }
+    __syncthreads();
+
+    // thread 0 loads: iteration it's Q and dO into stage it % S, on
+    // barriers of their own, once both warpgroups have released the
+    // iteration S before it
+    auto load_q = [&](int it) {
+        const int st = it % S;
+        const int h = hk * group + it / per_head;
+        const int q0 = (qt_first + it % per_head) * BQ;
+        const uint32_t qs = sbase + L::kStage + st * L::kStageBytes;
+        const uint32_t qf = q_full0 + 8 * st, gf = g_full0 + 8 * st;
+        if (it >= S) hopper::mbar_wait(q_empty0 + 8 * st, ((it / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(qf, L::kQTile);
+        for (int c = 0; c < L::kChunks; ++c)
+            hopper::tma_load_4d(qs + c * BQ * 128, &tm_q, qf, 64 * c, h, q0, b);
+        hopper::mbar_arrive_expect_tx(gf, L::kQTile);
+        for (int c = 0; c < L::kChunks; ++c)
+            hopper::tma_load_4d(qs + L::kQTile + c * BQ * 128, &tm_g, gf, 64 * c, h, q0, b);
+    };
+    if (tid == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 4 * L::kKV);
+        for (int w = 0; w < 2; ++w) {
+            for (int c = 0; c < L::kChunks; ++c) {
+                const int off = (w * L::kChunks + c) * BWD_CHUNK;
+                hopper::tma_load_4d(sbase + L::kK + off, &tm_k, kv_full, 64 * c, hk,
+                                    k0 + BWD_ROWS * w, b);
+                hopper::tma_load_4d(sbase + L::kV + off, &tm_v, kv_full, 64 * c, hk,
+                                    k0 + BWD_ROWS * w, b);
+            }
+        }
+        for (int it = 0; it < min(S, n_it); ++it) load_q(it);
+    }
+
+    // consumer warpgroup cw owns keys kr0 .. kr0 + 63
+    const int cw = warp >> 2, wq = warp & 3;
+    const bool lead = lane == 0;
     const int g = lane >> 2, t4 = lane & 3;
-    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    const int kr0 = k0 + BWD_ROWS * cw;
+    const int key[2] = {kr0 + 16 * wq + g, kr0 + 16 * wq + g + 8};
+    const bool key_in[2] = {key[0] < p.S, key[1] < p.S};
     int sk[2] = {0, 0}, pk[2] = {0, 0};
     for (int r = 0; r < 2; ++r) {
-        if (key[r] < p.S) {
+        if (key_in[r]) {
             if (segmented) sk[r] = p.seg_kv[(size_t)b * p.S + key[r]];
             if (positioned) pk[r] = p.pos_kv[(size_t)b * p.S + key[r]];
         }
     }
+    const float scale2 = p.sm_scale * kLog2e;
+    const uint32_t ka = sbase + L::kK + cw * L::kKV;   // this warpgroup's A rows
+    const uint32_t va = sbase + L::kV + cw * L::kKV;
 
-    const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.Hkv * D;
-    const int n_qt = (p.T + BQ - 1) / BQ;
-    // query tiles with a row at or after this tile's first key (causal by index)
-    const int qt_first = (p.causal && !positioned) ? min(k0 / BQ, n_qt) : 0;
-    const int per_head = n_qt - qt_first;
-    const int n_it = group * per_head;
+    // element 4 j + 2 hh + c01: key row 8 hh + g, column 8 j + 2 t4 + c01
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) {
+        dk[e] = 0.f;
+        dv[e] = 0.f;
+    }
 
-    auto load_q = [&](int it, int stage) {
-        const int h = hk * group + it / per_head;
-        const int q0 = (qt_first + it % per_head) * BQ;
-        const size_t head = ((size_t)b * p.T * p.H + h) * D;
-        load_tile<D, LD, BQ>(Qs + stage * BQ * LD, p.q + head, q_stride, q0, p.T, tid);
-        load_tile<D, LD, BQ>(Gs + stage * BQ * LD, p.g + head, q_stride, q0, p.T, tid);
-        float* rs = rows + stage * 4 * BQ;
-        for (int i = tid; i < BQ; i += THREADS) {
-            const int row = q0 + i;
-            const bool ok = row < p.T;
-            const size_t lrow = ((size_t)b * p.H + h) * p.T + row;
-            rs[i] = ok ? p.lse_in[lrow] : 0.f;
-            rs[BQ + i] = ok ? p.delta[lrow] : 0.f;
-            reinterpret_cast<int*>(rs)[2 * BQ + i] =
-                (ok && segmented) ? p.seg_q[(size_t)b * p.T + row] : 0;
-            reinterpret_cast<int*>(rs)[3 * BQ + i] =
-                (ok && positioned) ? p.pos_q[(size_t)b * p.T + row] : 0;
-        }
+    // lse (negated, in base-2 units) and delta of each iteration's query
+    // rows pass through a double buffer of this warpgroup's in shared
+    // memory: each of its first 2 BQ threads loads one of them from L2 an
+    // iteration ahead of its use, and a named barrier per iteration orders
+    // the writes of one buffer before its reads and the reads before the
+    // next writes
+    float* rows = reinterpret_cast<float*>(smem + L::kRows) + cw * 4 * BQ;
+    const int wtid = tid & 127;
+    auto fetch = [&](int it) {
+        const int qi = (qt_first + it % per_head) * BQ + wtid % BQ;
+        if (it >= n_it || wtid >= 2 * BQ || qi >= p.T) return 0.f;
+        const size_t at = ((size_t)b * p.H + hk * group + it / per_head) * p.T + qi;
+        return wtid < BQ ? -__ldg(p.lse_in + at) * kLog2e : __ldg(p.delta + at);
     };
+    if (wtid < 2 * BQ) rows[wtid] = fetch(0);
 
-    float dk[DT][4], dv[DT][4];
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-        dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-        dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-    }
-
-    if (n_it > 0) {
-        load_tile<D, LD, BK>(Ks, p.k + ((size_t)b * p.S * p.Hkv + hk) * D, kv_stride, k0, p.S, tid);
-        load_tile<D, LD, BK>(Vs, p.v + ((size_t)b * p.S * p.Hkv + hk) * D, kv_stride, k0, p.S, tid);
-        load_q(0, 0);
-        cp_async_commit();
-    }
-
-    for (int it = 0; it < n_it; ++it) {
-        const int stage = it & 1;
-        if (it + 1 < n_it) {
-            load_q(it + 1, stage ^ 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const bf16* Qt = Qs + stage * BQ * LD;
-        const bf16* Gt = Gs + stage * BQ * LD;
-        const float* lse = rows + stage * 4 * BQ;
-        const float* delta = lse + BQ;
-        const int* sq = reinterpret_cast<const int*>(lse) + 2 * BQ;
-        const int* pq = reinterpret_cast<const int*>(lse) + 3 * BQ;
-        const int q0 = (qt_first + it % per_head) * BQ;
-
-        // s^T = k q^T and dp^T = v g^T: rows are this warp's keys
-        float st[NT][4], dpt[NT][4];
-#pragma unroll
-        for (int i = 0; i < NT; ++i) {
-            st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
-            dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
-        }
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-            uint32_t ka[4], va[4];
-            load_a<LD>(ka, Ks, warp * 16, ks * 16, lane);
-            load_a<LD>(va, Vs, warp * 16, ks * 16, lane);
-#pragma unroll
-            for (int np = 0; np < NT / 2; ++np) {
-                uint32_t bf[4];
-                load_b_rows<LD>(bf, Qt, np * 16, ks * 16, lane);
-                mma(st[2 * np], ka, bf[0], bf[1]);
-                mma(st[2 * np + 1], ka, bf[2], bf[3]);
-                load_b_rows<LD>(bf, Gt, np * 16, ks * 16, lane);
-                mma(dpt[2 * np], va, bf[0], bf[1]);
-                mma(dpt[2 * np + 1], va, bf[2], bf[3]);
-            }
-        }
-        // p^T and ds^T, zero off the mask
-        const bool unmasked = tile_unmasked(p, segmented, positioned, q0, k0);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = e >> 1;
-                const int lq = nt * 8 + 2 * t4 + (e & 1);
-                float pe = 0.f, ds = 0.f;
-                if (unmasked || attends(p, segmented, positioned, q0 + lq, key[r], sq[lq],
-                                        sk[r], pq[lq], pk[r])) {
-                    pe = __expf(st[nt][e] * p.sm_scale - lse[lq]);
-                    ds = pe * (dpt[nt][e] - delta[lq]) * p.sm_scale;
-                }
-                st[nt][e] = pe;
-                dpt[nt][e] = ds;
-            }
-        }
-        // dv += bf16(p)^T . g and dk += bf16(ds)^T . q
+    // dV += P^T dO and dK += dS^T Q of an iteration run on under the next
+    // iteration's S^T and dP^T; `pending` is the stage they read until they
+    // are retired
+    int pending = -1;
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+    auto retire = [&]() {
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {
-            const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                                    pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                                    pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                                    pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-            const uint32_t da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                                    pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                                    pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                                    pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
-            for (int dp = 0; dp < DT / 2; ++dp) {
-                uint32_t bf[4];
-                load_b_cols<LD>(bf, Gt, kk * 16, dp * 16, lane);
-                mma(dv[2 * dp], pa, bf[0], bf[1]);
-                mma(dv[2 * dp + 1], pa, bf[2], bf[3]);
-                load_b_cols<LD>(bf, Qt, kk * 16, dp * 16, lane);
-                mma(dk[2 * dp], da, bf[0], bf[1]);
-                mma(dk[2 * dp + 1], da, bf[2], bf[3]);
+            for (int e = 0; e < 4; ++e) {
+                hopper::fence_operand(pf[kk][e]);
+                hopper::fence_operand(dsf[kk][e]);
             }
         }
-        __syncthreads();
+        if (lead) hopper::mbar_arrive(q_empty0 + 8 * pending);   // its Q and dO are read
+        pending = -1;
+    };
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+        const int st = it % S;
+        const uint32_t parity = (it / S) & 1;
+        const int q0 = (qt_first + it % per_head) * BQ;
+        const uint32_t qs = sbase + L::kStage + st * L::kStageBytes;
+        const uint32_t gs = qs + L::kQTile;
+        // iteration it + 2, into the stage of iteration it - 2, whose
+        // products both warpgroups have most likely retired by now
+        if (tid == 0 && it >= S - 2 && it + 2 < n_it) load_q(it + 2);
+        hopper::named_barrier(1 + cw, 128);   // this iteration's rows are in
+        const float next = fetch(it + 1);
+        const float* nlse = rows + (it & 1) * 2 * BQ;
+        const float* dlt = nlse + BQ;
+        if (kr0 >= p.S || (causal && !positioned && q0 + BQ - 1 < kr0)) {
+            // nothing here for these keys: finish the products in flight,
+            // wait for the tile, so that the stage's release counts it, and
+            // release it
+            hopper::wgmma_wait<0>();
+            if (pending >= 0) retire();
+            hopper::mbar_wait(q_full0 + 8 * st, parity);
+            hopper::mbar_wait(g_full0 + 8 * st, parity);
+            if (lead) hopper::mbar_arrive(q_empty0 + 8 * st);
+        } else {
+            // S^T = K Q^T, then dP^T = V dO^T: rows are this warpgroup's keys
+            float sc[BQ / 2], dp[BQ / 2];
+            hopper::mbar_wait(q_full0 + 8 * st, parity);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+                hopper::wgmma_ss<BQ>(
+                    sc, hopper::sw128_desc(ka + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+                    hopper::sw128_desc(qs + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::mbar_wait(g_full0 + 8 * st, parity);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+                hopper::wgmma_ss<BQ>(
+                    dp, hopper::sw128_desc(va + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+                    hopper::sw128_desc(gs + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<2>();   // the last iteration's dV and dK, if any
+            if (pending >= 0) retire();
+            hopper::wgmma_wait<1>();
+#pragma unroll
+            for (int e = 0; e < BQ / 2; ++e) hopper::fence_operand(sc[e]);
+
+            // p^T = exp(s^T - lse) on the valid set, 0 off it, while dP^T
+            // runs; element e of the accumulator is key row
+            // 16 wq + g + 8 ((e >> 1) & 1), query column 8 (e >> 2) + 2 t4 + (e & 1)
+            const bool unmasked = !segmented && !positioned && q0 + BQ <= p.T &&
+                                  kr0 + BWD_ROWS <= p.S && (!causal || q0 >= kr0 + BWD_ROWS - 1);
+            if (unmasked) {
+#pragma unroll
+                for (int jb = 0; jb < BQ / 8; ++jb) {
+                    const float2 nl = *reinterpret_cast<const float2*>(nlse + 8 * jb + 2 * t4);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        sc[4 * jb + e] = exp2_approx(fmaf(sc[4 * jb + e], scale2,
+                                                          (e & 1) ? nl.y : nl.x));
+                    }
+                }
+            } else {
+                const int* seg_q = segmented ? p.seg_q + (size_t)b * p.T : nullptr;
+                const int* pos_q = positioned ? p.pos_q + (size_t)b * p.T : nullptr;
+#pragma unroll
+                for (int jb = 0; jb < BQ / 8; ++jb) {
+#pragma unroll
+                    for (int c01 = 0; c01 < 2; ++c01) {
+                        const int lq = 8 * jb + 2 * t4 + c01;
+                        const int qi = q0 + lq;
+                        const bool in = qi < p.T;
+                        const int qc = in ? qi : p.T - 1;
+                        const int sq = segmented ? __ldg(seg_q + qc) : 0;
+                        const int pq = positioned ? __ldg(pos_q + qc) : 0;
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const int e = 4 * jb + 2 * hh + c01;
+                            const bool before = positioned ? pq >= pk[hh] : qi >= key[hh];
+                            const bool ok = in && key_in[hh] && (!causal || before) &&
+                                            (!segmented || sq == sk[hh]);
+                            const float x = exp2_approx(fmaf(sc[e], scale2, nlse[lq]));
+                            sc[e] = ok ? x : 0.f;
+                        }
+                    }
+                }
+            }
+            hopper::wgmma_wait<0>();
+#pragma unroll
+            for (int e = 0; e < BQ / 2; ++e) hopper::fence_operand(dp[e]);
+
+            // ds^T = p^T (dp^T - delta) scale; p^T and ds^T rounded to bf16
+            // as the A operands of dV += P^T dO and dK += dS^T Q (k-step
+            // jb / 2: a0 / a1 from the even 8-column block, a2 / a3 from the
+            // odd one)
+#pragma unroll
+            for (int jb = 0; jb < BQ / 8; ++jb) {
+                const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * jb + 2 * t4);
+                float ds[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    ds[e] = sc[4 * jb + e] * (dp[4 * jb + e] - ((e & 1) ? dl.y : dl.x)) *
+                            p.sm_scale;
+                pf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(sc[4 * jb + 0], sc[4 * jb + 1]);
+                pf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(sc[4 * jb + 2], sc[4 * jb + 3]);
+                dsf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+                dsf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+            }
+
+            // dV += P^T dO and dK += dS^T Q, one wgmma of all D head-dim
+            // columns each per 16 queries
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk) {
+                hopper::wgmma_rs_mn<D>(dv, pf[kk], hopper::sw128_desc(gs + kk * 2048, BQ * 128));
+                hopper::wgmma_rs_mn<D>(dk, dsf[kk], hopper::sw128_desc(qs + kk * 2048, BQ * 128));
+            }
+            hopper::wgmma_commit();
+            pending = st;
+        }
+        if (wtid < 2 * BQ) rows[((it + 1) & 1) * 2 * BQ + wtid] = next;
     }
+    hopper::wgmma_wait<0>();
+    if (pending >= 0) retire();
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (key[r] >= p.S) continue;
-        const size_t off = (((size_t)b * p.S + key[r]) * p.Hkv + hk) * D + 2 * t4;
+    for (int hh = 0; hh < 2; ++hh) {
+        if (!key_in[hh]) continue;
+        const size_t off = (((size_t)b * p.S + key[hh]) * p.Hkv + hk) * D + 2 * t4;
 #pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-            *reinterpret_cast<uint32_t*>(p.dk + off + dt * 8) = pack_bf16(dk[dt][2 * r], dk[dt][2 * r + 1]);
-            *reinterpret_cast<uint32_t*>(p.dv + off + dt * 8) = pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
+        for (int jb = 0; jb < D / 8; ++jb) {
+            *reinterpret_cast<uint32_t*>(p.dk + off + 8 * jb) =
+                pack_bf16(dk[4 * jb + 2 * hh], dk[4 * jb + 2 * hh + 1]);
+            *reinterpret_cast<uint32_t*>(p.dv + off + 8 * jb) =
+                pack_bf16(dv[4 * jb + 2 * hh], dv[4 * jb + 2 * hh + 1]);
         }
     }
 }
@@ -924,28 +1077,63 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// #2, #3
+// a [B, L, heads, D] bf16 tensor as a 4-D map (D, heads, L, B) in 64-column
+// boxes of `rows` rows, 128-byte swizzle
+template <int D>
+bool head_map(CUtensorMap* map, const void* base, int B, int L, int heads, int rows) {
+    const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+    return hopper::tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
+                                 box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// #2
+template <int D>
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+    using L = DqPlan<D>;
+    const dim3 grid((p.T + 2 * BWD_ROWS - 1) / (2 * BWD_ROWS), p.B * p.H);
+    if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+    CUtensorMap tm_q, tm_g, tm_k, tm_v;
+    if (!head_map<D>(&tm_q, p.q, p.B, p.T, p.H, BWD_ROWS) ||
+        !head_map<D>(&tm_g, p.g, p.B, p.T, p.H, BWD_ROWS) ||
+        !head_map<D>(&tm_k, p.k, p.B, p.S, p.Hkv, L::kBK) ||
+        !head_map<D>(&tm_v, p.v, p.B, p.S, p.Hkv, L::kBK))
+        return cudaErrorNotSupported;
+    auto kernel = flash_dq_kernel<D>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, BWD_THREADS, L::kBytes, stream>>>(tm_q, tm_g, tm_k, tm_v, p);
+    return cudaGetLastError();
+}
+
+// #3
+template <int D>
+cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+    using L = DkvPlan<D>;
+    const dim3 grid((p.S + 2 * BWD_ROWS - 1) / (2 * BWD_ROWS), p.B * p.Hkv);
+    if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+    CUtensorMap tm_q, tm_g, tm_k, tm_v;
+    if (!head_map<D>(&tm_q, p.q, p.B, p.T, p.H, L::BQ) ||
+        !head_map<D>(&tm_g, p.g, p.B, p.T, p.H, L::BQ) ||
+        !head_map<D>(&tm_k, p.k, p.B, p.S, p.Hkv, BWD_ROWS) ||
+        !head_map<D>(&tm_v, p.v, p.B, p.S, p.Hkv, BWD_ROWS))
+        return cudaErrorNotSupported;
+    auto kernel = flash_dkv_kernel<D>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, BWD_THREADS, L::kBytes, stream>>>(tm_q, tm_g, tm_k, tm_v, p);
+    return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
     if (kind == kFwd) return launch_fwd<D>(p, stream);
-    void (*kernel)(Params);
-    dim3 grid;
-    size_t smem;
-    if (kind == kDq) {
-        kernel = flash_dq_kernel<D>;
-        grid = dim3((p.T + BQ - 1) / BQ, p.B * p.H);
-        smem = Dq<D>::smem();
-    } else {
-        kernel = flash_dkv_kernel<D>;
-        grid = dim3((p.S + BK - 1) / BK, p.B * p.Hkv);
-        smem = Dkv<D>::smem();
-    }
-    if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem, stream>>>(p);
-    return cudaGetLastError();
+    if (kind == kDq) return launch_dq<D>(p, stream);
+    return launch_dkv<D>(p, stream);
 }
 
 int run(int device, Kind kind, const Params& p, int D, void* stream) {

@@ -21,9 +21,9 @@
 // columns of one chunk, so the descriptor's leading-byte offset is unused;
 // its stride-byte offset is 1024, the distance between groups of 8 rows.
 //
-// An A operand in shared memory (wgmma_m64n128k16_ss) is a K-major tile of
-// the same layout: 64 rows of 128 bytes per chunk, 8-row groups 1024 bytes
-// apart, a k16 step 32 bytes along the row.
+// An A operand in shared memory (wgmma_m64n128k16_ss, wgmma_ss) is a
+// K-major tile of the same layout: 64 rows of 128 bytes per chunk, 8-row
+// groups 1024 bytes apart, a k16 step 32 bytes along the row.
 //
 // Fragments (g = lane / 4, t = lane % 4, w = warp of the warpgroup):
 //   * accumulator of m64nN: d[4j + 0, 1] = C[16w + g][8j + 2t, +1],
@@ -109,11 +109,14 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col, int rows) {
                       ((col & 7) << 1));
 }
 
-// descriptor of a 128-byte-swizzled tile starting at shared address `addr`
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+// descriptor of a 128-byte-swizzled tile starting at shared address `addr`;
+// `chunk_bytes`, the distance between its 64-column chunks, is the
+// leading-byte offset an MN-major operand wider than 64 columns steps by
+// (K-major operands and narrower ones never read it)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t chunk_bytes = 16) {
     uint64_t d = 0;
     d |= (uint64_t)((addr & 0x3FFFF) >> 4);   // start address, 16-byte units
-    d |= (uint64_t)1 << 16;                   // leading-byte offset (unused)
+    d |= (uint64_t)((chunk_bytes >> 4) & 0x3FFF) << 16;   // leading-byte offset
     d |= (uint64_t)(1024 >> 4) << 32;         // stride-byte offset: 8 rows
     d |= (uint64_t)1 << 62;                   // 128-byte swizzle
     return d;
@@ -222,6 +225,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
 }
 
+// d[64 x 96] += A[64 x 16] . B[16 x 96], as above (an MN-major B spans two
+// chunks: its descriptor carries the chunk distance)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %54, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
+          HOPPER_ACC8(32), HOPPER_ACC8(40)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+}
+
 // d[64 x 32] += A[64 x 16] . B[16 x 32], as above
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -291,6 +313,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, u
         : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d if `accumulate`), as above
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] = A[64 x 16] . B[16 x 32] (+ d if `accumulate`), as above
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the m64nNk16 product for N in {32, 64, 128}, A and B K-major in shared
+// memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+    static_assert(N == 32 || N == 64 || N == 128, "N 32, 64 or 128");
+    if constexpr (N == 32) {
+        wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+    } else if constexpr (N == 64) {
+        wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+    } else {
+        wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+    }
+}
+
 // the m64nNk16 product for N in {16, 64, 128}, B K-major
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -301,6 +369,20 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
         wgmma_m64n64k16_rs<0>(d, a, desc_b);
     } else {
         wgmma_m64n128k16_rs<0>(d, a, desc_b);
+    }
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N] for N in {64, 96, 128}, B MN-major
+// (its descriptor carries the chunk distance)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float* d, const uint32_t* a, uint64_t desc_b) {
+    static_assert(N == 64 || N == 96 || N == 128, "N 64, 96 or 128");
+    if constexpr (N == 64) {
+        wgmma_m64n64k16_rs<1>(d, a, desc_b);
+    } else if constexpr (N == 96) {
+        wgmma_m64n96k16_rs<1>(d, a, desc_b);
+    } else {
+        wgmma_m64n128k16_rs<1>(d, a, desc_b);
     }
 }
 

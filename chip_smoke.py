@@ -21,20 +21,24 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    W8A16 matmuls at the 600m model's four dense shapes and one H with a
    partial K tile: #11 at m 16, 64, 65 (its plan switch) and 512, #12 at m
    1, 4 and 8 (``F.linear`` on the dequantized bf16 weight as the
-   yardstick); with ``--before DIR`` (a checkout of the commit before the
-   redesign of #6 and #1, such as ``git archive`` of it unpacked under
-   ``build/``) #6 is also held to its plain version and timed in its
-   earlier design (the CUDA-core template of DIR's ``paged_attention.cu``),
-   and #1 likewise (the mma.sync forward of DIR's ``flash_attention.cu``)
-   in phase 4 (``before_ms``);
+   yardstick);
 4. holds the flash-attention kernels (#1 forward, #2 dq, #3 dk/dv) against
    their plain versions at the 600m training shapes (16 q / 8 kv heads,
    head dim 96, T 2048): at batch 2 causal, segments, positions,
    non-causal, T not a multiple of the tile, and a nonzero logsumexp
-   gradient; at the main path's batch 10 causal; runs #3 twice and
-   requires bitwise-equal dk/dv; times the three kernels, their plain
-   versions and SDPA's forward and backward at batch 10 (and #1's earlier
-   design with ``--before``);
+   gradient; at the main path's batch 10 causal; runs #2 and #3 twice and
+   requires bitwise-equal dq and dk/dv, then launches both 20 times back
+   to back on the same operands and requires every output bitwise equal to
+   the first; times the three kernels, their plain versions and SDPA's
+   forward and backward at batch 10; prints ptxas's registers and spills
+   for ``flash_attention.cu`` and, for #2 and #3, the ``HGMMA`` and
+   ``WARPGROUP.DEPBAR`` counts of their SASS (``cuobjdump -sass``).  With
+   ``--before DIR`` (a checkout of the commit before the redesign of #2
+   and #3, such as ``git archive`` of it unpacked under ``build/``) the
+   earlier #2 and #3 (the mma.sync designs of DIR's
+   ``flash_attention.cu``, built from DIR with its headers) are held to
+   their plain versions at batch 10 and timed beside the new ones
+   (``before_ms``);
 5. serves a 16-request trace on the 600m Llama (random weights from seed
    0) through ``ServingEngine`` under ``torch.inference_mode()``, checks
    that every request finishes, that the host page mirror agrees with the
@@ -108,6 +112,7 @@ import contextlib
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -243,79 +248,66 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- #6 and #1 as the commit before their redesign built them (--before) -------
+# -- #2 and #3 as the commit before their redesign built them (--before) -------
 
 # filled by main() from ``--before DIR``: name -> a callable with the
 # kernel wrapper's arguments that launches the earlier design
 BEFORE: dict = {}
-BEFORE_SOURCES = ("paged_attention", "flash_attention")
 
 
-def start_before_build(path: Path) -> dict:
-    """Start one nvcc per earlier source, ``DIR/accelerate_tpu_torch/csrc/
-    {paged_attention,flash_attention}.cu`` (with the headers beside them),
-    into ``build/before/``, with the port's flags."""
+def start_before_build(path: Path):
+    """Start nvcc on ``DIR/accelerate_tpu_torch/csrc/flash_attention.cu``
+    (its headers beside it) into ``build/before/``, with the port's flags.
+    Returns the process and the library's path."""
     from accelerate_tpu_torch.ops import _build
 
+    src = path / "accelerate_tpu_torch" / "csrc" / "flash_attention.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"--before: {src} is not there")
     out = ROOT / "build" / "before"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in BEFORE_SOURCES:
-        src = path / "accelerate_tpu_torch" / "csrc" / f"{name}.cu"
-        if not src.is_file():
-            raise FileNotFoundError(f"--before: {src} is not there")
-        lib = out / f"lib{name}.so"
-        procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                                         str(src)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True), lib)
-    return procs
+    lib = out / "libflash_attention.so"
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, lib
 
 
-def before_kernels(torch, procs: dict) -> dict:
-    """Bind the earlier designs built by :func:`start_before_build`: #6's
-    CUDA-core template (``paged_multitoken_attention_bf16`` of the earlier
-    ``paged_attention.cu``) and #1's mma.sync forward
-    (``flash_attention_fwd_bf16`` of the earlier ``flash_attention.cu``),
-    called as their wrappers called them."""
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"--before: nvcc failed on {name}.cu:\n{err}")
-        libs[name] = ctypes.CDLL(str(lib))
+def before_kernels(torch, build) -> dict:
+    """Bind the earlier #2 and #3 built by :func:`start_before_build`
+    (``flash_attention_dq_bf16`` and ``flash_attention_dkv_bf16`` of the
+    earlier ``flash_attention.cu``), called as their wrappers call them."""
+    proc, lib = build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"--before: nvcc failed on flash_attention.cu:\n{err}")
+    fl = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    pa, fl = libs["paged_attention"], libs["flash_attention"]
-    pa.paged_multitoken_attention_bf16.argtypes = [I] + [P] * 6 + [I] * 8 + [ctypes.c_float, P]
-    pa.paged_multitoken_attention_bf16.restype = I
-    fl.flash_attention_fwd_bf16.argtypes = [I] + [P] * 9 + [I] * 7 + [ctypes.c_float, P]
-    fl.flash_attention_fwd_bf16.restype = I
+    fl.flash_attention_dq_bf16.argtypes = [I] + [P] * 11 + [I] * 7 + [ctypes.c_float, P]
+    fl.flash_attention_dq_bf16.restype = I
+    fl.flash_attention_dkv_bf16.argtypes = [I] + [P] * 12 + [I] * 7 + [ctypes.c_float, P]
+    fl.flash_attention_dkv_bf16.restype = I
 
-    def attention(q, kp, vp, bt, pos):
-        s_slots, t, h, d = q.shape
-        hkv, num_pages, page, _ = kp.shape
-        out = torch.empty_like(q)
-        err = pa.paged_multitoken_attention_bf16(
-            q.device.index or 0, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), s_slots, t, h, hkv, d, num_pages, page, bt.shape[1],
-            1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"--before: #6 launch failed ({err})")
-        return out
-
-    def flash_fwd(q, k, v, *, causal, sm_scale):
+    def launch(fn, label, q, k, v, own, causal, sm_scale):
         b, t, h, d = q.shape
         s, hkv = k.shape[1], k.shape[2]
-        out = torch.empty_like(q)
-        lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-        err = fl.flash_attention_fwd_bf16(
-            q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
-            None, out.data_ptr(), lse.data_ptr(), b, t, s, h, hkv, d, int(causal),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+        err = fn(q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                 None, None, *[x.data_ptr() for x in own], b, t, s, h, hkv, d, int(causal),
+                 float(sm_scale), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"--before: #1 launch failed ({err})")
-        return out, lse
+            raise RuntimeError(f"--before: {label} launch failed ({err})")
 
-    return {"paged_multitoken_attention": attention, "flash_fwd": flash_fwd}
+    def flash_dq(q, k, v, g, lse, delta, *, causal, sm_scale):
+        dq = torch.empty_like(q)
+        launch(fl.flash_attention_dq_bf16, "#2", q, k, v, [g, lse, delta, dq], causal, sm_scale)
+        return dq
+
+    def flash_dkv(q, k, v, g, lse, delta, *, causal, sm_scale):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        launch(fl.flash_attention_dkv_bf16, "#3", q, k, v, [g, lse, delta, dk, dv], causal,
+               sm_scale)
+        return dk, dv
+
+    return {"flash_dq": flash_dq, "flash_dkv": flash_dkv}
 
 
 def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda",
@@ -441,12 +433,6 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
     ms = time_ms(torch, rotating(kernel), graph=True)
     plain_ms = time_ms(torch, rotating(plain), iters=5)
-    # #6's earlier CUDA-core design (--before), timed beside its replacement
-    before = {}
-    if not decode and name in BEFORE:
-        held_to_plain(torch, name + " (earlier design)", BEFORE[name](qk, kp, vp, bt, pk, **kw),
-                      ref)
-        before = {"before_ms": time_ms(torch, rotating(BEFORE[name]), graph=True)}
 
     # yardstick: one SDPA call over the gathered KV (dequantized to bf16 for
     # quantized pages), GQA heads repeated and the positional mask given as
@@ -477,7 +463,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
     flops = 4 * h * d * int((positions.long() + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {**held, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, **before,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": {"slots": slots, "width": width, "heads": h, "kv_heads": hkv,
                       "head_dim": d, "page": page, "pages_per_slot": n,
                       "pages_read": pages_read, "kv_dtype": case["kv_dtype"] or "bf16",
@@ -485,7 +471,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
 
 CASE_KEYS = ("shape", "max_abs_err", "err_over_limit", "worst_row_err", "worst_row_ref_max",
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms")
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
 def _with_cases(cases: list, main: dict) -> dict:
@@ -589,17 +575,10 @@ def qmm_kernel_phases(torch, F, device: str = "cuda") -> dict:
                 ms = time_ms(torch, rot(kernel), graph=True)
                 plain_ms = time_ms(torch, rot(plain), iters=5)
                 library_ms = time_ms(torch, lambda i: F.linear(x, dense[i % copies]), graph=True)
-                before = {}
-                if name in BEFORE:   # #11's earlier mma.sync design (--before)
-                    early = BEFORE[name](x, qt.data, qt.scale, qblock=128,
-                                         out_dtype=torch.bfloat16)
-                    held_to_plain(torch, f"{name} {label} m {m} (earlier design)",
-                                  early[:, None], ref[:, None])
-                    before = {"before_ms": time_ms(torch, rot(BEFORE[name]), graph=True)}
                 nbytes = h * f + (f // 128) * h * 4 + m * h * 2 + m * f * 2
                 bound_ms, bound_by = bound(nbytes, 2 * m * h * f)
                 rep = {**held, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by, **before,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
                        "shape": {"dense": label, "m": m, "H": h, "F": f, "qblock": 128,
                                  "weight_copies": copies}}
                 if name.endswith("tiled"):
@@ -623,6 +602,64 @@ FLASH_HEADS = dict(h=MODEL["num_attention_heads"], hkv=MODEL["num_key_value_head
 FLASH_REPLACES = {"flash_fwd": "accelerate_tpu/ops/flash_attention.py:195",
                   "flash_dq": "accelerate_tpu/ops/flash_attention.py:329",
                   "flash_dkv": "accelerate_tpu/ops/flash_attention.py:375"}
+REPEATS = 20          # back-to-back launches of #2 / #3 held bitwise to the first
+# the kernel functions of #2 and #3 in flash_attention.cu (mangled name prefix)
+BWD_FUNCTIONS = {"flash_dq": "flash_dq_kernel", "flash_dkv": "flash_dkv_kernel"}
+# filled by main(): name -> per head dim, ptxas's registers and spills and
+# the SASS's HGMMA and WARPGROUP.DEPBAR counts
+SASS: dict = {}
+
+
+def kernel_sass(lib: Path, ptxas: str) -> dict:
+    """For #2 and #3 at each head dim: ptxas's registers, spilled bytes and
+    whether it serialised the function's wgmmas (C7512 / C7513), from the build
+    log; the ``HGMMA`` and ``WARPGROUP.DEPBAR`` counts of the SASS
+    (``cuobjdump -sass`` of the library)."""
+    from accelerate_tpu_torch.ops import _build
+
+    out = {name: {} for name in BWD_FUNCTIONS}
+
+    def entry(mangled):
+        for name, fn in BWD_FUNCTIONS.items():
+            m = re.match(rf"_ZN\S*{fn}ILi(\d+)E", mangled)
+            if m:
+                return out[name].setdefault(f"D{m.group(1)}", {})
+        return None
+
+    current = None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = entry(m.group(1))
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = entry(m.group(1))
+        if re.search(r"\(C751\d\)", line):   # "wgmma.mma_async instructions are serialized"
+            m = re.search(r"function '(\S+)'", line)
+            rec = entry(m.group(1)) if m else current
+            if rec is not None:   # the reason ptxas gives
+                rec["serialized"] = re.split(r" (?:for|in) the function",
+                                             line.split("due to", 1)[-1])[0].strip()
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        log(f"no {cuobjdump}: the SASS counts are not measured")
+        return out
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    for block in sass.split("Function : ")[1:]:
+        rec = entry(block.split()[0])
+        if rec is not None:
+            rec["hgmma"] = len(re.findall(r"\bHGMMA\.", block))
+            rec["depbar"] = block.count("WARPGROUP.DEPBAR")
+    return out
 
 
 def flash_inputs(torch, *, b, t, seg=False, pos=False, lse_grad=False, seed=0, device="cuda"):
@@ -700,18 +737,35 @@ def flash_kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
 
     # the main path's shape: batch 10, causal.  Each kernel against its
     # plain version on the same operands (the backward ones on the
-    # kernel's lse and delta, as the step gives them), #3 run twice
+    # kernel's lse and delta, as the step gives them), #2 and #3 run twice
     b = TRAIN["batch"]
     q, k, v, g, _, _ = flash_inputs(torch, b=b, t=seq, seed=7, device=device)
     kw = dict(causal=True, sm_scale=d ** -0.5)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa.flash_dq(q, k, v, g, lse, delta, **kw)
+    dq_b = fa.flash_dq(q, k, v, g, lse, delta, **kw)
     dkv_a = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
     dkv_b = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
     sync(torch)
+    if not torch.equal(dq, dq_b):
+        raise AssertionError("flash_dq: two runs on the same operands differ")
     if not (torch.equal(dkv_a[0], dkv_b[0]) and torch.equal(dkv_a[1], dkv_b[1])):
         raise AssertionError("flash_dkv: two runs on the same operands differ")
+    del dq_b, dkv_b
+    # then 20 launches of each back to back: every output bitwise the
+    # first's (a register of a wgmma in flight reused early shows here)
+    for name, first in (("flash_dq", (dq,)), ("flash_dkv", dkv_a)):
+        fn = getattr(fa, name)
+        runs = [fn(q, k, v, g, lse, delta, **kw) for _ in range(REPEATS)]
+        sync(torch)
+        for i, run in enumerate(runs):
+            run = run if isinstance(run, tuple) else (run,)
+            if not all(torch.equal(x, y) for x, y in zip(first, run)):
+                raise AssertionError(f"{name}: launch {i + 2} of {REPEATS + 1} differs from "
+                                     "the first on the same operands")
+        del runs
+    log(f"flash_dq, flash_dkv: {REPEATS + 2} launches each on the same operands, bitwise equal")
     rep = {}
     for name, got, plain, labels in (
         ("flash_fwd", (out, lse), lambda: fa.flash_fwd_plain(q, k, v, **kw), ("out", "lse")),
@@ -725,17 +779,23 @@ def flash_kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
             rep[label] = held_to_plain(torch, f"flash B {b} {label}", x, ref)
             readings[name].append(dict(rep[label], case=f"causal_b{b}", tensor=label))
     log("kernel flash", f"causal_b{b}", json.dumps(rep))
+    # #2 and #3's earlier mma.sync designs (--before): held to their plain
+    # versions on the same operands and timed beside the new ones
     before = {}
-    if "flash_fwd" in BEFORE:   # #1's earlier mma.sync design (--before)
-        early = BEFORE["flash_fwd"](q, k, v, **kw)
+    for name, labels in (("flash_dq", ("dq",)), ("flash_dkv", ("dk", "dv"))):
+        if name not in BEFORE:
+            continue
+        early = BEFORE[name](q, k, v, g, lse, delta, **kw)
         sync(torch)
-        for label, x, ref in zip(("out", "lse"), early, fa.flash_fwd_plain(q, k, v, **kw)):
-            if label == "lse":
-                x, ref = x[..., None], ref[..., None]
-            held_to_plain(torch, f"flash_fwd (earlier design) {label}", x, ref)
-        del early
-        before = {"flash_fwd": time_ms(torch, lambda i: BEFORE["flash_fwd"](q, k, v, **kw))}
-    del out, dq, dkv_a, dkv_b
+        early = early if isinstance(early, tuple) else (early,)
+        refs = getattr(fa, name + "_plain")(q, k, v, g, lse, delta, **kw)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        early_rep = {label: held_to_plain(torch, f"{name} (earlier design) {label}", x, ref)
+                     for label, x, ref in zip(labels, early, refs)}
+        log("kernel flash", f"{name} earlier design causal_b{b}", json.dumps(early_rep))
+        del early, refs
+        before[name] = time_ms(torch, lambda i, fn=BEFORE[name]: fn(q, k, v, g, lse, delta, **kw))
+    del out, dq, dkv_a
     ms = {"flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw)),
           "flash_dq": time_ms(torch, lambda i: fa.flash_dq(q, k, v, g, lse, delta, **kw)),
           "flash_dkv": time_ms(torch, lambda i: fa.flash_dkv(q, k, v, g, lse, delta, **kw))}
@@ -770,15 +830,17 @@ def flash_kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
                              else "its backward (dq, dk and dv in one call)"),
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             **({"before_ms": before[name]} if name in before else {}),
+            **({"sass": SASS[name]} if name in SASS else {}),
             "shape": {"batch": b, "seq": seq, "heads": h, "kv_heads": hkv, "head_dim": d,
                       "causal": True, "unmasked_pairs": pairs},
             "cases": [c["name"] for c in cases] + [f"causal_b{b}"],
         }
         log("kernel", name, json.dumps(reports[name]))
-    log(f"flash at B {b}: fwd {ms['flash_fwd']:.4f} ms"
-        + (f" (earlier design {before['flash_fwd']:.4f} ms)" if before else "")
-        + f", dq + dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms; SDPA fwd {sdpa_fwd:.4f} ms, "
-        f"bwd {sdpa_bwd:.4f} ms")
+    log(f"flash at B {b}: fwd {ms['flash_fwd']:.4f} ms, dq {ms['flash_dq']:.4f} + dkv "
+        f"{ms['flash_dkv']:.4f} = {ms['flash_dq'] + ms['flash_dkv']:.4f} ms"
+        + (f" (earlier designs {before['flash_dq']:.4f} + {before['flash_dkv']:.4f} = "
+           f"{before['flash_dq'] + before['flash_dkv']:.4f} ms)" if before else "")
+        + f"; SDPA fwd {sdpa_fwd:.4f} ms, bwd {sdpa_bwd:.4f} ms")
     return reports
 
 
@@ -1847,8 +1909,9 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
-                        help="a checkout of the commit before the redesign of #6 and #1: "
-                             "its designs are built and timed beside them (before_ms)")
+                        help="a checkout of the commit before the redesign of #2 and #3: "
+                             "its flash_attention.cu is built, and its #2 and #3 are held to "
+                             "their plain versions and timed beside the new ones (before_ms)")
     args = parser.parse_args()
     import torch
 
@@ -1875,16 +1938,19 @@ def main() -> int:
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    before_procs = start_before_build(args.before.resolve()) if args.before else None
+    before_build = start_before_build(args.before.resolve()) if args.before else None
     libs = _build.build_all(["paged_attention", "paged_prefill", "flash_attention",
                              "quantized_matmul", "lora"])
-    if before_procs:
-        BEFORE.update(before_kernels(torch, before_procs))
+    if before_build:
+        BEFORE.update(before_kernels(torch, before_build))
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(lib.name for lib in libs.values())}")
     for name in libs:
         log(f"{name}: nvcc {_build.BUILD_LOG[name]['seconds']:.2f} s")
         log(_build.BUILD_LOG[name]["ptxas"].strip())
+    SASS.update(kernel_sass(libs["flash_attention"], _build.BUILD_LOG["flash_attention"]["ptxas"]))
+    log("flash #2 / #3 (registers, spilled bytes, HGMMA, WARPGROUP.DEPBAR per head dim):",
+        json.dumps(SASS))
 
     t_phase = time.perf_counter()
 

@@ -20,8 +20,11 @@ max|out - ref| <= 2e-2 * max|ref|.  bf16 operands, f32 accumulation in
 both, one bf16 rounding of the kernel's output: 2e-2 on rows of O(1),
 scaled down with rows that average a deep window, whose outputs are small.
 The flash kernels (#1-#3) are held to the same limits on out, lse, dq, dk
-and dv, with the plain version run on the same bf16 operands; #3 must give
-bitwise-equal dk/dv on two runs.  The W8A16 matmuls' rows are output rows
+and dv, with the plain version run on the same bf16 operands, at the edges
+of their tiles (#1: 128 query rows, 128 keys; #2: 128 query rows, 128 keys,
+64 at head dim 128; #3: 128 keys, 64 queries, 32 at head dim 128) and with
+T != S; #2 and #3 must give bitwise-equal dq / dk / dv over repeated
+launches.  The W8A16 matmuls' rows are output rows
 (one token over F), against the plain version in f32; both must give
 bitwise-equal outputs on two runs (their H splits add in a fixed order).
 #6 and #7 (``paged_prefill.cu``) run every geometry of ``PREFILL_CASES``
@@ -127,10 +130,12 @@ def test_kernel_refuses_unbuilt_head_dim(cuda):
     assert tfa.paged_decode_attention.launches == 0
 
 
-def _flash_inputs(gen, dev, b, t, h, hkv, d, seg, pos):
+def _flash_inputs(gen, dev, b, t, h, hkv, d, seg, pos, s=None):
+    """q / g over ``t`` rows, k / v over ``s`` keys (``t`` by default)."""
+    s = t if s is None else s
     q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
-    k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).bfloat16()
     g = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
     g_lse = torch.randn(b, t, h, generator=gen, device=dev)
     kw = {}
@@ -140,6 +145,9 @@ def _flash_inputs(gen, dev, b, t, h, hkv, d, seg, pos):
     if pos:
         kw["positions"] = torch.stack([torch.randperm(t, generator=gen, device=dev)
                                        for _ in range(b)]).int()
+        if s != t:
+            kw["kv_positions"] = torch.stack([torch.randperm(s, generator=gen, device=dev)
+                                              for _ in range(b)]).int()
     return q, k, v, g, g_lse, kw
 
 
@@ -152,22 +160,46 @@ def _flash_fwd_bwd(fn, q, k, v, g, g_lse, causal, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, t, h, hkv, d, causal, seg, pos", [
-    (2, 256, 4, 2, 64, True, False, False),
-    (1, 200, 16, 8, 96, True, False, False),     # T not a multiple of the 64-row tile
-    (2, 128, 4, 4, 128, False, False, False),
-    (1, 192, 4, 2, 96, True, True, False),       # packed segments
-    (1, 192, 4, 2, 96, True, False, True),       # explicit (shuffled) positions
-    (2, 2048, 16, 8, 96, True, False, False),    # the 600m training shape at batch 2
-    (2, 129, 16, 8, 96, True, False, False),     # one row past the forward's 128-row tile
-    (1, 2047, 16, 8, 96, True, False, False),    # one short of the last 128-key tile
-    (2, 320, 8, 4, 64, False, False, False),     # D 64, non-causal, a partial key tile
-    (2, 300, 4, 2, 128, False, False, False),    # D 128, non-causal, a partial key tile
-    (2, 384, 16, 4, 96, True, True, False),      # GQA group 4 with segments
+@pytest.mark.parametrize("b, t, s, h, hkv, d, causal, seg, pos", [
+    (2, 256, None, 4, 2, 64, True, False, False),
+    (1, 200, None, 16, 8, 96, True, False, False),     # T not a multiple of the 64-row tile
+    (2, 128, None, 4, 4, 128, False, False, False),
+    (1, 192, None, 4, 2, 96, True, True, False),       # packed segments
+    (1, 192, None, 4, 2, 96, True, False, True),       # explicit (shuffled) positions
+    (2, 2048, None, 16, 8, 96, True, False, False),    # the 600m training shape at batch 2
+    (2, 129, None, 16, 8, 96, True, False, False),     # one row past the forward's 128-row tile
+    (1, 2047, None, 16, 8, 96, True, False, False),    # one short of the last 128-key tile
+    (2, 320, None, 8, 4, 64, False, False, False),     # D 64, non-causal, a partial key tile
+    (2, 300, None, 4, 2, 128, False, False, False),    # D 128, non-causal, a partial key tile
+    (2, 384, None, 16, 4, 96, True, True, False),      # GQA group 4 with segments
+    # the backward's tiles: #2 128 query rows by 128 keys (64 at D 128), #3
+    # 128 keys by 64 queries (32 at D 128); one short of and one past each
+    (1, 63, None, 4, 2, 64, True, False, False),
+    (1, 65, None, 4, 2, 64, True, False, False),
+    (1, 127, None, 4, 2, 64, True, False, False),
+    (1, 129, None, 4, 2, 64, True, False, False),
+    (1, 63, None, 16, 8, 96, True, False, False),
+    (1, 65, None, 16, 8, 96, True, False, False),
+    (1, 127, None, 16, 8, 96, True, False, False),
+    (1, 257, None, 16, 8, 96, True, False, False),
+    (1, 31, None, 4, 2, 128, True, False, False),
+    (1, 33, None, 4, 2, 128, True, False, False),
+    (1, 65, None, 4, 2, 128, True, False, False),
+    (1, 127, None, 4, 2, 128, True, False, False),
+    (1, 129, None, 4, 2, 128, True, False, False),
+    # GQA groups 1 and 4 with positions
+    (2, 192, None, 4, 4, 96, True, False, True),
+    (2, 192, None, 16, 4, 96, True, False, True),
+    # T != S (None: S = T), causal by index (a row attends the keys at or
+    # before its own index) and not
+    (2, 192, 320, 16, 8, 96, True, False, False),
+    (2, 320, 192, 16, 8, 96, True, False, False),
+    (2, 192, 320, 4, 2, 64, False, False, False),
+    (2, 320, 192, 4, 1, 128, False, False, False),
 ])
-def test_flash_kernels_match_plain(cuda, b, t, h, hkv, d, causal, seg, pos):
-    gen = torch.Generator(device=cuda).manual_seed(t + d + h)
-    q, k, v, g, g_lse, kw = _flash_inputs(gen, cuda, b, t, h, hkv, d, seg, pos)
+def test_flash_kernels_match_plain(cuda, b, t, s, h, hkv, d, causal, seg, pos):
+    gen = torch.Generator(device=cuda).manual_seed(t + d + h + 3 * (s or 0))
+    q, k, v, g, g_lse, kw = _flash_inputs(gen, cuda, b, t, h, hkv, d, seg, pos, s=s)
     got = _flash_fwd_bwd(tfa.flash_attention, q, k, v, g, g_lse, causal, kw)
     torch.cuda.synchronize()
     assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (1, 1, 1)
@@ -180,16 +212,21 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hkv, d, causal, seg, pos):
 
 
 @pytest.mark.cuda
-def test_flash_dkv_is_deterministic(cuda):
-    """The GQA group sum runs inside one block: two runs agree bitwise."""
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+def test_flash_dkv_is_deterministic(cuda, kernel):
+    """#2 and #3 sum in a fixed order (#3's GQA group inside one block, no
+    atomics): 20 launches back to back on the same operands agree bitwise
+    with the first."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, g, _, _ = _flash_inputs(gen, cuda, 2, 512, 16, 8, 96, False, False)
     out, lse = tfa.flash_fwd(q, k, v, causal=True, sm_scale=96 ** -0.5)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    first = tfa.flash_dkv(q, k, v, g, lse, delta, causal=True, sm_scale=96 ** -0.5)
-    second = tfa.flash_dkv(q, k, v, g, lse, delta, causal=True, sm_scale=96 ** -0.5)
+    fn = getattr(tfa, kernel)
+    runs = [fn(q, k, v, g, lse, delta, causal=True, sm_scale=96 ** -0.5) for _ in range(20)]
     torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+    for later in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], later))
 
 
 @pytest.mark.cuda

@@ -32,10 +32,12 @@ def _zero_counts():
     yield
 
 
-def _inputs(seed, b, t, h, hkv, d):
+def _inputs(seed, b, t, h, hkv, d, s=None):
+    """q / g / g_lse over ``t`` rows, k / v over ``s`` keys (``t`` by default)."""
+    s = t if s is None else s
     rng = np.random.default_rng(seed)
-    arrays = [rng.normal(size=s).astype(np.float32)
-              for s in ((b, t, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, t, h, d), (b, t, h))]
+    arrays = [rng.normal(size=shape).astype(np.float32)
+              for shape in ((b, t, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, t, h, d), (b, t, h))]
     seg = np.sort(rng.integers(0, 3, (b, t)), axis=1).astype(np.int32)
     pos = np.stack([rng.permutation(t) for _ in range(b)]).astype(np.int32)
     return arrays, seg, pos
@@ -60,17 +62,26 @@ def _port_flash(fn, q, k, v, g, g_lse, dtype, **kw):
 
 
 @pytest.mark.parametrize("case", ["causal", "non_causal", "segments", "positions",
-                                  "bf16_causal"])
+                                  "bf16_causal", "kernel_geometry_bf16_causal",
+                                  "kernel_geometry_non_causal_s_ne_t"])
 def test_plain_flash_matches_jax_flash(case):
     """T = 200 with 128-row tiles (an out-of-bounds tail in the JAX kernel),
-    GQA 4/2, nonzero ``g_lse``."""
-    (q, k, v, g, g_lse), seg, pos = _inputs(0, 2, 200, 4, 2, 32)
-    jkw, tkw = {"causal": case != "non_causal"}, {"causal": case != "non_causal"}
+    GQA 4/2, nonzero ``g_lse``; and at the CUDA kernels' own head geometry
+    (16 q / 8 kv heads, head dim 96) with T 136, past one 128-row tile (S 200
+    in the non-causal case): the plain versions are the card's yardstick
+    for kernels #1-#3."""
+    if case.startswith("kernel_geometry"):
+        s = 200 if case.endswith("s_ne_t") else None
+        (q, k, v, g, g_lse), seg, pos = _inputs(0, 1, 136, 16, 8, 96, s=s)
+    else:
+        (q, k, v, g, g_lse), seg, pos = _inputs(0, 2, 200, 4, 2, 32)
+    causal = "non_causal" not in case
+    jkw, tkw = {"causal": causal}, {"causal": causal}
     if case == "segments":
         jkw["segment_ids"], tkw["segment_ids"] = jnp.asarray(seg), torch.from_numpy(seg)
     if case == "positions":
         jkw["positions"], tkw["positions"] = jnp.asarray(pos), torch.from_numpy(pos)
-    bf16 = case.startswith("bf16")
+    bf16 = "bf16" in case
     want = _jax_flash(q, k, v, g, g_lse, jnp.bfloat16 if bf16 else jnp.float32, **jkw)
     got = _port_flash(tfa.flash_attention, q, k, v, g, g_lse,
                       torch.bfloat16 if bf16 else torch.float32, **tkw)
