@@ -6,7 +6,7 @@ the JAX package.  Its first slice is the paged serving engine: the Llama
 model with dense and paged KV caches, the page allocator, the
 continuous-batching scheduler, the engine and the replay harness, with
 hand-written CUDA kernels for paged decode and paged prefill attention
-(``csrc/paged_attention.cu``).  Entry points run on ``"cuda"`` unless the
+(``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``).  Entry points run on ``"cuda"`` unless the
 caller passes ``device="cpu"``.
 
 Its second slice is the single-device bf16 training step: ``Accelerator``

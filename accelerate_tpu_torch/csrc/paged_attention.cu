@@ -1,23 +1,9 @@
-// Paged attention for the serving engine's decode step, hand-written for
-// Hopper (sm_90a).
+// Fused LoRA query + paged decode attention, hand-written for Hopper
+// (sm_90a).
 //
 // Its entry points share one kernel template, templated on the page
 // element type:
 //
-//   paged_decode_attention_bf16      replaces the Pallas TPU kernel
-//       accelerate_tpu/ops/flash_attention.py  _paged_decode_kernel
-//       (launched by paged_decode_attention): ragged T = 1 decode, one
-//       query token per slot, once per layer on every decode step.
-//       (_paged_multitoken_kernel and _paged_multitoken_kernel_quant, the
-//       prefill chunk's, are replaced by the tensor-core kernel of
-//       paged_prefill.cu.)
-//   paged_decode_attention_{int8,fp8}      replace _paged_decode_kernel_quant:
-//       the same over quantized pages, int8 or e4m3 codes with one f32
-//       amax per (kv head, page) in k_scales / v_scales [Hkv, P].  Codes
-//       are read at one byte per element and widened in the tile to
-//       f32(code) * (amax / QMAX) (QMAX 127 / 448), the TPU kernels'
-//       _dequant_tile; the scale is looked up through the same block-table
-//       entry as the page.
 //   fused_bgmv_paged_decode_bf16     replaces the Pallas TPU kernel
 //       accelerate_tpu/ops/flash_attention.py  _fused_bgmv_decode_kernel
 //       (launched by fused_bgmv_paged_decode), and
@@ -30,8 +16,16 @@
 //       q heads, ropes it split-half with the f32 tables at
 //       min(max(pos, 0), max_len - 1), and writes f32(q_base) + gate * delta,
 //       gate = (id != 0) as a multiply, into an f32 query tile; the page loop
-//       of the decode kernels then runs unchanged on that f32 tile (the TPU
-//       kernel's f32 q_scratch: q is never rounded to bf16).
+//       then runs on that f32 tile (the TPU kernel's f32 q_scratch: q is
+//       never rounded to bf16).  Quantized pages are int8 or e4m3 codes with
+//       one f32 amax per (kv head, page) in k_scales / v_scales [Hkv, P],
+//       read at one byte per element and widened in the tile to f32(code) *
+//       (amax / QMAX) (QMAX 127 / 448), the TPU kernels' _dequant_tile; the
+//       scale is looked up through the same block-table entry as the page.
+//
+// The template is the first design of the plain decode kernels #4 / #5
+// (one block per (slot, kv head), pages walked in order), which have moved
+// to paged_decode.cu's split page loop.
 //
 // Semantics (kept from the Pallas bodies):
 //   * q [S, T, H, D], pages [Hkv, P, page, D], block_tables [S, n], all
@@ -56,10 +50,10 @@
 // or so query rows per kv head: it is bound by HBM bytes (the live pages
 // over 3.35 TB/s).  Quantized pages halve the bytes: codes travel to shared
 // memory at one byte per element and are widened only where the scores
-// and p . v read them.  This first version is plain CUDA cores, one page in
-// flight per block and a barrier between the load and the math.  The
-// faster forms (TMA loads double-buffered, decode split over pages) are
-// later work.
+// and p . v read them.  This design is plain CUDA cores, one page in
+// flight per block and a barrier between the load and the math; the split
+// page loop with bulk copies in flight (paged_decode.cu) has not yet been
+// carried over to the fused kernels.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
@@ -69,8 +63,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "lora_common.cuh"
 
@@ -82,20 +74,6 @@ typedef __nv_fp8_e4m3 fp8;
 // DEFAULT_MASK_VALUE of the JAX package: finite, so exp(mask - m) is 0 and
 // never NaN.
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;
-
-__device__ __forceinline__ float dot8(const uint4 a, const uint4 b) {
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 fa = __bfloat1622float2(a2[i]);
-        const float2 fb = __bfloat1622float2(b2[i]);
-        s = fmaf(fa.x, fb.x, s);
-        s = fmaf(fa.y, fb.y, s);
-    }
-    return s;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -122,8 +100,7 @@ template <> struct PageElem<fp8> {
     }
 };
 
-// The LoRA operands of the fused decode entry points (unused otherwise):
-// x [S, d_in], a [N, d_in, r], b [N, r, H * D] bf16, ids [S] int32, cos /
+// The LoRA operands of the fused decode entry points: x [S, d_in], a [N, d_in, r], b [N, r, H * D] bf16, ids [S] int32, cos /
 // sin [max_len, D / 2] f32.
 struct LoraArgs {
     const bf16* x = nullptr;
@@ -139,17 +116,15 @@ constexpr int kMaxLoraRank = 64;
 
 // E: page element; D: head dim; ROW_TILE: query rows per block; RG: row
 // groups, so a block has D * RG threads and thread (d, rg) owns output
-// column d of rows rg * ROW_TILE / RG .. (rg + 1) * ROW_TILE / RG - 1.
-// FUSED: the query tile is f32 and a LoRA prologue fills it.
-template <typename E, int D, int ROW_TILE, int RG, bool FUSED = false>
+// column d of rows rg * ROW_TILE / RG .. (rg + 1) * ROW_TILE / RG - 1.  The
+// query tile is f32, and a LoRA prologue fills it.
+template <typename E, int D, int ROW_TILE, int RG>
 struct Tile {
-    using QE = typename std::conditional<FUSED, float, bf16>::type;
     static constexpr int kThreads = D * RG;
     static constexpr int kRowsPerThread = ROW_TILE / RG;
     static constexpr int kChunks = D / 8;        // 8-element chunks of a q row
-    static constexpr int kQStride = FUSED ? D + 4 : D + 8;
-                                                 // padded q row: an odd number of
-                                                 // 16-byte chunks, so the 16-byte
+    static constexpr int kQStride = D + 4;       // padded f32 q row: an odd number
+                                                 // of 16-byte chunks, so the 16-byte
                                                  // reads of 8 lanes hit 32 banks
     static constexpr int kPerLoad = 16 / (int)sizeof(E);   // page elements per 16 bytes
     static constexpr int kStride = D + kPerLoad; // padded K row, likewise
@@ -157,36 +132,19 @@ struct Tile {
     static_assert(D % 16 == 0, "head dim must be a multiple of 16");
     static_assert(kThreads % 32 == 0, "block must be whole warps");
     static_assert(kRowsPerThread % 4 == 0, "rows per thread read as float4");
-    static_assert(!FUSED || (kThreads >= kMaxLoraRank && kThreads % 32 == 0),
-                  "one thread per rank column, whole warps");
+    static_assert(kThreads >= kMaxLoraRank, "one thread per rank column");
 
     static size_t smem_bytes(int page) {
-        return sizeof(QE) * (size_t)ROW_TILE * kQStride             // Q
+        return sizeof(float) * (size_t)ROW_TILE * kQStride          // Q
              + sizeof(E) * (size_t)page * (kStride + D)             // K, V
              + sizeof(float) * (size_t)page * kPStride              // scores / p
              + sizeof(float) * 3 * ROW_TILE                         // m, l, alpha
-             + (FUSED ? sizeof(float) * (kThreads / 32 + 1) * kMaxLoraRank : 0);  // LoRA h
+             + sizeof(float) * (kThreads / 32 + 1) * kMaxLoraRank;  // LoRA h
     }
 };
 
-// q . k over 8 elements of one row: bf16 q against 8 one-byte codes widened
-// to f32(code) * scale
-template <typename E>
-__device__ __forceinline__ float dot8_codes(const uint4 a, const uint2 codes, float scale) {
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const uint8_t* c = reinterpret_cast<const uint8_t*>(&codes);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 fa = __bfloat1622float2(a2[i]);
-        s = fmaf(fa.x, PageElem<E>::widen(c[2 * i]) * scale, s);
-        s = fmaf(fa.y, PageElem<E>::widen(c[2 * i + 1]) * scale, s);
-    }
-    return s;
-}
-
-// q . k over 8 elements of one row with an f32 q (the fused kernels' tile):
-// two float4 of q against 8 bf16 keys
+// q . k over 8 elements of one row with the f32 q tile: two float4 of q
+// against 8 bf16 keys
 __device__ __forceinline__ float dot8_f32(const float4 a0, const float4 a1, const uint4 b) {
     const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
     const float2 f0 = __bfloat1622float2(b2[0]), f1 = __bfloat1622float2(b2[1]);
@@ -266,7 +224,7 @@ __device__ __forceinline__ void lora_query_tile(const LoraArgs& L, const bf16* _
     }
 }
 
-template <typename E, int D, int ROW_TILE, int RG, bool FUSED>
+template <typename E, int D, int ROW_TILE, int RG>
 __global__ void __launch_bounds__(D * RG)
 paged_attention_kernel(const bf16* __restrict__ q,
                        const E* __restrict__ k_pages,
@@ -278,8 +236,7 @@ paged_attention_kernel(const bf16* __restrict__ q,
                        bf16* __restrict__ out,
                        int T, int H, int Hkv, int P, int page, int n,
                        int pos_stride, float sm_scale, const LoraArgs lora) {
-    using Cfg = Tile<E, D, ROW_TILE, RG, FUSED>;
-    using QE = typename Cfg::QE;
+    using Cfg = Tile<E, D, ROW_TILE, RG>;
     constexpr bool QUANT = PageElem<E>::kQuant;
     constexpr int THREADS = Cfg::kThreads;
     constexpr int RPT = Cfg::kRowsPerThread;
@@ -297,7 +254,7 @@ paged_attention_kernel(const bf16* __restrict__ q,
     const int tid = threadIdx.x;
 
     extern __shared__ __align__(16) unsigned char smem[];
-    QE* Qs = reinterpret_cast<QE*>(smem);
+    float* Qs = reinterpret_cast<float*>(smem);
     E* Ks = reinterpret_cast<E*>(Qs + ROW_TILE * QS);
     E* Vs = Ks + page * KS;
     float* Ps = reinterpret_cast<float*>(Vs + page * D);
@@ -307,28 +264,10 @@ paged_attention_kernel(const bf16* __restrict__ q,
 
     const int pos0 = positions[(size_t)s * pos_stride];
 
-    if constexpr (FUSED) {
-        float* red = a_s + ROW_TILE;
-        lora_query_tile<D, ROW_TILE, THREADS>(lora, q, Qs, QS, red,
-                                              red + THREADS / 32 * kMaxLoraRank, s, h, H,
-                                              group, r0, nrows, pos0, tid);
-    } else {
-        // the block's query rows, token-major: row r0 + r is token (r0 + r) /
-        // group of q head h * group + (r0 + r) % group
-        for (int c = tid; c < ROW_TILE * CH; c += THREADS) {
-            const int r = c / CH;
-            const int col = (c % CH) * 8;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (r < nrows) {
-                const int gr = r0 + r;
-                const int tok = gr / group;
-                const int g = gr % group;
-                val = *reinterpret_cast<const uint4*>(
-                    q + (((size_t)s * T + tok) * H + (size_t)h * group + g) * D + col);
-            }
-            *reinterpret_cast<uint4*>(Qs + r * QS + col) = val;
-        }
-    }
+    float* red = a_s + ROW_TILE;
+    lora_query_tile<D, ROW_TILE, THREADS>(lora, q, Qs, QS, red,
+                                          red + THREADS / 32 * kMaxLoraRank, s, h, H,
+                                          group, r0, nrows, pos0, tid);
     for (int r = tid; r < ROW_TILE; r += THREADS) {
         m_s[r] = -INFINITY;
         l_s[r] = 0.f;
@@ -372,29 +311,16 @@ paged_attention_kernel(const bf16* __restrict__ q,
             const int r = idx / page;
             const int t = idx % page;
             float dot = 0.f;
-            if constexpr (FUSED) {
-                const float4* qrow = reinterpret_cast<const float4*>(Qs + r * QS);
-                if constexpr (QUANT) {
-                    const uint2* krow = reinterpret_cast<const uint2*>(Ks + t * KS);
+            const float4* qrow = reinterpret_cast<const float4*>(Qs + r * QS);
+            if constexpr (QUANT) {
+                const uint2* krow = reinterpret_cast<const uint2*>(Ks + t * KS);
 #pragma unroll
-                    for (int c = 0; c < CH; ++c)
-                        dot += dot8_f32_codes<E>(qrow[2 * c], qrow[2 * c + 1], krow[c], k_scale);
-                } else {
-                    const uint4* krow = reinterpret_cast<const uint4*>(Ks + t * KS);
-#pragma unroll
-                    for (int c = 0; c < CH; ++c) dot += dot8_f32(qrow[2 * c], qrow[2 * c + 1], krow[c]);
-                }
+                for (int c = 0; c < CH; ++c)
+                    dot += dot8_f32_codes<E>(qrow[2 * c], qrow[2 * c + 1], krow[c], k_scale);
             } else {
-                const uint4* qrow = reinterpret_cast<const uint4*>(Qs + r * QS);
-                if constexpr (QUANT) {
-                    const uint2* krow = reinterpret_cast<const uint2*>(Ks + t * KS);
+                const uint4* krow = reinterpret_cast<const uint4*>(Ks + t * KS);
 #pragma unroll
-                    for (int c = 0; c < CH; ++c) dot += dot8_codes<E>(qrow[c], krow[c], k_scale);
-                } else {
-                    const uint4* krow = reinterpret_cast<const uint4*>(Ks + t * KS);
-#pragma unroll
-                    for (int c = 0; c < CH; ++c) dot += dot8(qrow[c], krow[c]);
-                }
+                for (int c = 0; c < CH; ++c) dot += dot8_f32(qrow[2 * c], qrow[2 * c + 1], krow[c]);
             }
             float sc = dot * sm_scale;
             if (kv_start + t > pos0 + (r0 + r) / group) sc = kMaskValue;
@@ -464,18 +390,18 @@ paged_attention_kernel(const bf16* __restrict__ q,
     }
 }
 
-template <typename E, int D, int ROW_TILE, int RG, bool FUSED>
+template <typename E, int D, int ROW_TILE, int RG>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* k_scales, const void* v_scales,
                    const void* block_tables, const void* positions, void* out,
                    int S, int T, int H, int Hkv, int P, int page, int n,
                    int pos_stride, float sm_scale, const LoraArgs& lora, cudaStream_t stream) {
-    using Cfg = Tile<E, D, ROW_TILE, RG, FUSED>;
+    using Cfg = Tile<E, D, ROW_TILE, RG>;
     const int rows = T * (H / Hkv);
     const dim3 grid(S, Hkv, (rows + ROW_TILE - 1) / ROW_TILE);
     if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
     const size_t smem = Cfg::smem_bytes(page);
-    auto kernel = paged_attention_kernel<E, D, ROW_TILE, RG, FUSED>;
+    auto kernel = paged_attention_kernel<E, D, ROW_TILE, RG>;
     // raise the kernel's shared-memory limit once per device and size, not
     // on every launch (a launch may be captured into a CUDA graph)
     static size_t smem_allowed[64] = {};
@@ -496,18 +422,18 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
     return cudaGetLastError();
 }
 
-template <typename E, int ROW_TILE, int RG, bool FUSED = false>
+template <typename E, int ROW_TILE, int RG>
 int dispatch(int device, const void* q, const void* k_pages, const void* v_pages,
              const void* k_scales, const void* v_scales,
              const void* block_tables, const void* positions, void* out,
              int S, int T, int H, int Hkv, int D, int P, int page, int n,
-             int pos_stride, float sm_scale, void* stream, const LoraArgs& lora = LoraArgs()) {
+             int pos_stride, float sm_scale, void* stream, const LoraArgs& lora) {
     if (S <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0 || n <= 0)
         return (int)cudaErrorInvalidValue;
     if (PageElem<E>::kQuant && (k_scales == nullptr || v_scales == nullptr))
         return (int)cudaErrorInvalidValue;
-    if (FUSED && (T != 1 || lora.r < 1 || lora.r > kMaxLoraRank || lora.d_in <= 0 ||
-                  lora.n_adapters <= 0 || lora.max_len <= 0 || D % 2 != 0))
+    if (T != 1 || lora.r < 1 || lora.r > kMaxLoraRank || lora.d_in <= 0 ||
+        lora.n_adapters <= 0 || lora.max_len <= 0 || D % 2 != 0)
         return (int)cudaErrorInvalidValue;
     // launch on the tensors' device, and leave the caller's current device
     // as it was
@@ -518,18 +444,18 @@ int dispatch(int device, const void* q, const void* k_pages, const void* v_pages
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
         case 64:
-            err = launch<E, 64, ROW_TILE, RG, FUSED>(q, k_pages, v_pages, k_scales, v_scales,
-                                              block_tables, positions, out, S, T, H, Hkv, P,
+            err = launch<E, 64, ROW_TILE, RG>(q, k_pages, v_pages, k_scales, v_scales,
+                                       block_tables, positions, out, S, T, H, Hkv, P,
                                               page, n, pos_stride, sm_scale, lora, st);
             break;
         case 96:
-            err = launch<E, 96, ROW_TILE, RG, FUSED>(q, k_pages, v_pages, k_scales, v_scales,
-                                              block_tables, positions, out, S, T, H, Hkv, P,
+            err = launch<E, 96, ROW_TILE, RG>(q, k_pages, v_pages, k_scales, v_scales,
+                                       block_tables, positions, out, S, T, H, Hkv, P,
                                               page, n, pos_stride, sm_scale, lora, st);
             break;
         case 128:
-            err = launch<E, 128, ROW_TILE, RG, FUSED>(q, k_pages, v_pages, k_scales, v_scales,
-                                               block_tables, positions, out, S, T, H, Hkv, P,
+            err = launch<E, 128, ROW_TILE, RG>(q, k_pages, v_pages, k_scales, v_scales,
+                                        block_tables, positions, out, S, T, H, Hkv, P,
                                                page, n, pos_stride, sm_scale, lora, st);
             break;
         default:
@@ -545,36 +471,6 @@ int dispatch(int device, const void* q, const void* k_pages, const void* v_pages
 }  // namespace
 
 extern "C" {
-
-// Decode: q / out [S, H, D] (T = 1), positions [S].  Rows per block: the
-// GQA group, up to 8 (larger groups take several row tiles).
-int paged_decode_attention_bf16(int device, const void* q, const void* k_pages,
-                                const void* v_pages, const void* block_tables,
-                                const void* positions, void* out, int S, int T, int H,
-                                int Hkv, int D, int P, int page, int n,
-                                float sm_scale, void* stream) {
-    if (T != 1) return (int)cudaErrorInvalidValue;
-    return dispatch<bf16, 8, 1>(device, q, k_pages, v_pages, nullptr, nullptr, block_tables,
-                                positions, out, S, 1, H, Hkv, D, P, page, n, 1, sm_scale,
-                                stream);
-}
-
-// Quantized pages: as above, with k_pages / v_pages int8 or e4m3 codes and
-// k_scales / v_scales [Hkv, P] f32, each page's running amax.
-#define PAGED_QUANT_ENTRY(name, E, ROW_TILE, RG, decode)                                  \
-    int name(int device, const void* q, const void* k_pages, const void* v_pages,       \
-             const void* k_scales, const void* v_scales, const void* block_tables,       \
-             const void* positions, void* out, int S, int T, int H, int Hkv, int D,      \
-             int P, int page, int n, float sm_scale, void* stream) {                      \
-        if (decode && T != 1) return (int)cudaErrorInvalidValue;                         \
-        return dispatch<E, ROW_TILE, RG>(device, q, k_pages, v_pages, k_scales, v_scales, \
-                                         block_tables, positions, out, S, T, H, Hkv, D,  \
-                                         P, page, n, decode ? 1 : T, sm_scale, stream);  \
-    }
-
-PAGED_QUANT_ENTRY(paged_decode_attention_int8, int8_t, 8, 1, true)
-PAGED_QUANT_ENTRY(paged_decode_attention_fp8, fp8, 8, 1, true)
-#undef PAGED_QUANT_ENTRY
 
 // Fused LoRA query + decode: q_base / out [S, H, D] (q_base already roped),
 // positions [S], x [S, d_in], a_stack [N, d_in, r], b_stack [N, r, H * D],
@@ -598,9 +494,9 @@ PAGED_QUANT_ENTRY(paged_decode_attention_fp8, fp8, 8, 1, true)
         lora.r = r;                                                                      \
         lora.n_adapters = n_adapters;                                                    \
         lora.max_len = max_len;                                                          \
-        return dispatch<E, 8, 1, true>(device, q_base, k_pages, v_pages, k_scales,       \
-                                       v_scales, block_tables, positions, out, S, 1, H,  \
-                                       Hkv, D, P, page, n, 1, sm_scale, stream, lora);   \
+        return dispatch<E, 8, 1>(device, q_base, k_pages, v_pages, k_scales, v_scales,  \
+                                 block_tables, positions, out, S, 1, H, Hkv, D, P, page, \
+                                 n, 1, sm_scale, stream, lora);                         \
     }
 
 FUSED_ENTRY(fused_bgmv_paged_decode_bf16, bf16)

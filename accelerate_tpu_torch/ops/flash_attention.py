@@ -17,12 +17,14 @@ Mirrors ``accelerate_tpu/ops/flash_attention.py``:
   prefill).
 
 All keep the JAX public layouts.  On a CUDA tensor a wrapper launches its
-hand-written kernel (``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``
-for decode, ``csrc/paged_prefill.cu`` for a prefill window, built at first
-use) or raises; on a CPU tensor it runs the plain version
-beside it.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``launches``, on itself whatever the module's names hold, so a
-caller may route a stand-in in its place (``chip_smoke.py`` does).
+hand-written kernel (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``
+for decode on the split plan of :func:`decode_split_plan`,
+``csrc/paged_prefill.cu`` for a prefill window, ``csrc/paged_attention.cu``
+for the fused LoRA decode; built at first use) or raises; on a CPU tensor it
+runs the plain version beside it.  Each wrapper counts its kernel launches
+in a plain integer attribute, ``launches``, on itself whatever the module's
+names hold, so a caller may route a stand-in in its place
+(``chip_smoke.py`` does).
 
 Quantized pages (int8 or e4m3 codes with per-(kv head, page) f32 amaxes
 ``k_scales`` / ``v_scales`` ``[Hkv, P]``, JAX :675 / :829): given the
@@ -63,14 +65,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCH = ([_I] + [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P], _I)
 # the same with k_scales, v_scales after v_pages
 _QLAUNCH = ([_I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)
+# kernels #4 / #5 (csrc/paged_decode.cu): device, q, k_pages, v_pages,
+# [k_scales, v_scales,] block_tables, positions, out, work, counters, then
+# S H Hkv D P page n span rows, sm_scale and the stream
+_DECODE_LAUNCH = ([_I] + [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P], _I)
+_DECODE_QLAUNCH = ([_I] + [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P], _I)
+_DECODE_SIGNATURES = {
+    "paged_decode_attention_bf16": _DECODE_LAUNCH,
+    **{f"paged_decode_attention_{suffix}": _DECODE_QLAUNCH for suffix in ("int8", "fp8")},
+    "paged_decode_error_string": ([_I], ctypes.c_char_p),
+}
 # device, q_base, x, a_stack, b_stack, ids, cos, sin, k_pages, v_pages,
 # k_scales, v_scales, block_tables, positions, out, then S H Hkv D P page n
 # d_in r N max_len, sm_scale and the stream
 _FUSED_LAUNCH = ([_I] + [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P], _I)
+# kernels #8 / #9 (csrc/paged_attention.cu)
 _SIGNATURES = {
     **{f"fused_bgmv_paged_decode_{suffix}": _FUSED_LAUNCH for suffix in ("bf16", "int8", "fp8")},
-    "paged_decode_attention_bf16": _LAUNCH,
-    **{f"paged_decode_attention_{suffix}": _QLAUNCH for suffix in ("int8", "fp8")},
     "paged_attention_error_string": ([_I], ctypes.c_char_p),
 }
 # kernels #6 (bf16 pages) and #7 (codes) on the tensor cores (csrc/paged_prefill.cu)
@@ -106,8 +117,66 @@ def _lib() -> ctypes.CDLL:
     return _build.load("paged_attention", _SIGNATURES)
 
 
+def _decode_lib() -> ctypes.CDLL:
+    return _build.load("paged_decode", _DECODE_SIGNATURES)
+
+
 def _prefill_lib() -> ctypes.CDLL:
     return _build.load("paged_prefill", _PREFILL_SIGNATURES)
+
+
+# #4 / #5 split a slot's page loop into chunks of this many kv tokens (at
+# least one page), one block each (csrc/paged_decode.cu)
+DECODE_CHUNK_TOKENS = 256
+
+
+def decode_split_plan(slots: int, heads: int, kv_heads: int, head_dim: int, page_size: int,
+                      pages_per_slot: int) -> dict:
+    """The launch plan of kernels #4 / #5 (``csrc/paged_decode.cu``), host
+    arithmetic only.  A chunk is ``span`` pages of a block table
+    (``DECODE_CHUNK_TOKENS // page_size``, at least 1): a slot at ``pos``
+    uses the first ``ceil(min(pos + 1, pages_per_slot * page_size) /
+    (span * page_size))`` of the ``chunks`` a table holds, whatever the
+    other slots hold.  A block takes ``rows`` query rows (the GQA group
+    rounded up to 2, 4 or 8; groups above 8 take ``row_tiles`` tiles of 8).
+    ``workspace`` is the f32 shape of the chunks' partials (acc over the
+    head dim, then m and l), needed only where ``chunks`` > 1, and
+    ``counters`` the int32 count of the per-(slot, kv head x row tile)
+    counters the last chunk of each merges under."""
+    if page_size < 1 or pages_per_slot < 1:
+        raise ValueError(f"paged_decode_attention: page size {page_size} and pages per slot "
+                         f"{pages_per_slot} must be positive")
+    if kv_heads < 1 or heads % kv_heads:
+        raise ValueError(f"num q heads {heads} not divisible by kv heads {kv_heads}")
+    group = heads // kv_heads
+    rows = 2 if group <= 2 else 4 if group <= 4 else 8
+    row_tiles = -(-group // rows)
+    span = max(1, DECODE_CHUNK_TOKENS // page_size)
+    chunks = -(-pages_per_slot // span)
+    return {"span": span, "chunk_tokens": span * page_size, "chunks": chunks, "rows": rows,
+            "row_tiles": row_tiles,
+            "workspace": (slots, kv_heads * row_tiles, chunks, rows, head_dim + 2),
+            "counters": slots * kv_heads * row_tiles}
+
+
+# the zeroed counters of #4 / #5, one buffer per (device, stream, size):
+# every launch leaves them at 0, so none pays a memset and their address is
+# fixed; launches on one stream run in order, so they never share a buffer
+# with a launch in flight on another stream
+_DECODE_COUNTERS: dict = {}
+
+
+def _decode_counters(device, stream: int, size: int):
+    key = (device.index or 0, stream, size)
+    buf = _DECODE_COUNTERS.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode_attention: the merge counters of this stream and size must be "
+                "allocated before a CUDA graph capture: run the call once on the capture "
+                "stream outside the capture")
+        buf = _DECODE_COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=device)
+    return buf
 
 
 def prefill_plan(width: int, heads: int, kv_heads: int, page_size: int, head_dim: int,
@@ -259,14 +328,16 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, positions,
     )[:, 0]
 
 
-def _run(name, plain, base, q, k_pages, v_pages, block_tables, positions, sm_scale,
-         k_scales=None, v_scales=None, lib=None):
+def _run(name, plain, q, k_pages, v_pages, block_tables, positions, sm_scale,
+         k_scales=None, v_scales=None, *, decode: bool):
     """The paged wrappers' body: the plain version on a CPU tensor; on a
-    CUDA tensor, checks the operands, launches ``<base>_bf16`` (or
-    ``<base>_int8`` / ``<base>_fp8`` for quantized pages) of
-    ``lib`` (default ``csrc/paged_attention.cu``'s) on the current stream
-    into a fresh output and counts the launch on the wrapper ``name``; any
-    other device raises."""
+    CUDA tensor, checks the operands, launches
+    ``paged_decode_attention_*`` (``decode``: kernel #4 / #5,
+    ``csrc/paged_decode.cu``, on :func:`decode_split_plan`) or
+    ``paged_multitoken_attention_*`` (#6 / #7, ``csrc/paged_prefill.cu``,
+    on :func:`prefill_plan`), ``_bf16`` or ``_int8`` / ``_fp8`` for
+    quantized pages, on the current stream into a fresh output and counts
+    the launch on the wrapper ``name``; any other device raises."""
     s_slots, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     width = q.shape[1] if q.dim() == 4 else 1
     hkv, num_pages, page_size, n = _geometry(h, k_pages, block_tables, d)
@@ -286,24 +357,37 @@ def _run(name, plain, base, q, k_pages, v_pages, block_tables, positions, sm_sca
         raise ValueError(f"{name}: positions {tuple(positions.shape)} / "
                          f"block_tables {tuple(block_tables.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    prefill = lib is _prefill_lib
-    if prefill:
-        prefill_plan(width, h, hkv, page_size, d, n, quantized=quantized)
-    lib = (lib or _lib)()
     out = torch.empty_like(q)
     scale_ptrs = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
     suffix = _KV_SUFFIX[k_pages.dtype] if quantized else "bf16"
-    err = getattr(lib, f"{base}_{suffix}")(
-        q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        *scale_ptrs, block_tables.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), s_slots, width, h, hkv, d, num_pages, page_size, n,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if decode:
+        plan = decode_split_plan(s_slots, h, hkv, d, page_size, n)
+        lib, err_string = _decode_lib(), "paged_decode_error_string"
+        work = counters = None
+        if plan["chunks"] > 1:
+            work = torch.empty(plan["workspace"], dtype=torch.float32, device=q.device)
+            counters = _decode_counters(q.device, stream, plan["counters"])
+        err = getattr(lib, f"paged_decode_attention_{suffix}")(
+            q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            *scale_ptrs, block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            s_slots, h, hkv, d, num_pages, page_size, n, plan["span"], plan["rows"],
+            float(sm_scale), stream,
+        )
+    else:
+        prefill_plan(width, h, hkv, page_size, d, n, quantized=quantized)
+        lib, err_string = _prefill_lib(), "paged_prefill_error_string"
+        err = getattr(lib, f"paged_multitoken_attention_{suffix}")(
+            q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            *scale_ptrs, block_tables.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), s_slots, width, h, hkv, d, num_pages, page_size, n,
+            float(sm_scale), stream,
+        )
     if err:
-        err_string = (lib.paged_prefill_error_string if prefill
-                      else lib.paged_attention_error_string)
-        raise RuntimeError(f"{name}: CUDA kernel launch failed: {err_string(err).decode()} "
-                           f"({err})")
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: "
+                           f"{getattr(lib, err_string)(err).decode()} ({err})")
     _WRAPPERS[name].launches += 1
     return out
 
@@ -322,14 +406,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions, *,
     :func:`paged_decode_attention_quant` (kernel #5).
 
     CUDA tensors launch ``paged_decode_attention_bf16``
-    (``csrc/paged_attention.cu``) on the current stream; CPU tensors run
-    :func:`paged_decode_attention_plain`."""
+    (``csrc/paged_decode.cu``: the page loop split over blocks on the plan
+    of :func:`decode_split_plan`, merged in the same launch) on the current
+    stream, with that stream's merge counters: a CUDA graph capture needs
+    one call on its capture stream beforehand, and the graph's launches
+    keep that stream's counters, so replay it in order with the stream's
+    own launches.  CPU tensors run :func:`paged_decode_attention_plain`."""
     if k_scales is not None or v_scales is not None:
         return paged_decode_attention_quant(q, k_pages, v_pages, block_tables, positions,
                                             k_scales=k_scales, v_scales=v_scales,
                                             sm_scale=sm_scale)
-    return _run("paged_decode_attention", paged_decode_attention_plain, "paged_decode_attention",
-                q, k_pages, v_pages, block_tables, positions, sm_scale)
+    return _run("paged_decode_attention", paged_decode_attention_plain, q, k_pages, v_pages,
+                block_tables, positions, sm_scale, decode=True)
 
 
 paged_decode_attention.launches = 0
@@ -339,11 +427,10 @@ def paged_decode_attention_quant(q, k_pages, v_pages, block_tables, positions, *
                                  k_scales, v_scales, sm_scale: Optional[float] = None):
     """Kernel #5 (JAX ``_paged_decode_kernel_quant``): decode over int8 /
     e4m3 pages with their per-(kv head, page) amaxes.  CUDA tensors launch
-    ``paged_decode_attention_{int8,fp8}``; CPU tensors run
-    :func:`paged_decode_attention_plain` with the scales."""
-    return _run("paged_decode_attention_quant", paged_decode_attention_plain,
-                "paged_decode_attention", q, k_pages, v_pages, block_tables, positions,
-                sm_scale, k_scales, v_scales)
+    ``paged_decode_attention_{int8,fp8}`` (``csrc/paged_decode.cu``); CPU
+    tensors run :func:`paged_decode_attention_plain` with the scales."""
+    return _run("paged_decode_attention_quant", paged_decode_attention_plain, q, k_pages,
+                v_pages, block_tables, positions, sm_scale, k_scales, v_scales, decode=True)
 
 
 paged_decode_attention_quant.launches = 0
@@ -370,9 +457,8 @@ def paged_multitoken_attention(q, k_pages, v_pages, block_tables, positions, *,
         return paged_multitoken_attention_quant(q, k_pages, v_pages, block_tables, positions,
                                                 k_scales=k_scales, v_scales=v_scales,
                                                 sm_scale=sm_scale)
-    return _run("paged_multitoken_attention", paged_multitoken_attention_plain,
-                "paged_multitoken_attention", q, k_pages, v_pages, block_tables, positions,
-                sm_scale, lib=_prefill_lib)
+    return _run("paged_multitoken_attention", paged_multitoken_attention_plain, q, k_pages,
+                v_pages, block_tables, positions, sm_scale, decode=False)
 
 
 paged_multitoken_attention.launches = 0
@@ -386,9 +472,9 @@ def paged_multitoken_attention_quant(q, k_pages, v_pages, block_tables, position
     (``csrc/paged_prefill.cu``) on the plan of :func:`prefill_plan`,
     which refuses what it does not take; CPU tensors run
     :func:`paged_multitoken_attention_plain` with the scales."""
-    return _run("paged_multitoken_attention_quant", paged_multitoken_attention_plain,
-                "paged_multitoken_attention", q, k_pages, v_pages, block_tables, positions,
-                sm_scale, k_scales, v_scales, lib=_prefill_lib)
+    return _run("paged_multitoken_attention_quant", paged_multitoken_attention_plain, q,
+                k_pages, v_pages, block_tables, positions, sm_scale, k_scales, v_scales,
+                decode=False)
 
 
 paged_multitoken_attention_quant.launches = 0

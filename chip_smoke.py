@@ -9,19 +9,29 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    reports the build times;
 3. holds each paged kernel (#4, #6) against its plain PyTorch version at
    the shapes of the 600m serving model (block tables of distinct pages, as
-   the allocator hands them out; #6 also at ``generate_paged``'s pages of
-   16 and over pages of 32), and times the kernel, the plain version
-   and one ``F.scaled_dot_product_attention`` call over the gathered KV (a
-   yardstick only; the port never calls it) beside the least time the card
-   could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s bf16); the
-   same for the quantized paged kernels (#5, #7) over int8 and fp8 pages
-   written by the port's own ``paged_write_kv_quantized`` (SDPA over the
-   dequantized gathered KV as the yardstick; #7 also at ``generate_paged``'s
-   pages of 16, 4 prompts of 250 tokens, and over pages of 32), and for the
-   W8A16 matmuls at the 600m model's four dense shapes and one H with a
-   partial K tile: #11 at m 16, 64, 65 (its plan switch) and 512, #12 at m
-   1, 4 and 8 (``F.linear`` on the dequantized bf16 weight as the
-   yardstick);
+   the allocator hands them out; #4 also at the same tokens over pages of
+   32 and at ``generate_paged``'s 4 slots over pages of 16, #6 also at
+   ``generate_paged``'s pages of 16 and over pages of 32), and times the
+   kernel, the plain version and one ``F.scaled_dot_product_attention``
+   call over the gathered KV (a yardstick only; the port never calls it)
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   flops over 989 TFLOP/s bf16); the same for the quantized paged kernels
+   (#5, #7) over int8 and fp8 pages written by the port's own
+   ``paged_write_kv_quantized`` (SDPA over the dequantized gathered KV as
+   the yardstick; #5 at the same three decode cases, #7 also at
+   ``generate_paged``'s pages of 16, 4 prompts of 250 tokens, and over
+   pages of 32); requires #4 / #5 to give bitwise-equal outputs over 21
+   launches on the same operands and for each slot alone and in the
+   16-slot batch, and prints ptxas's registers and spills for each
+   instance of ``paged_decode.cu``; and for the W8A16 matmuls at the 600m
+   model's four dense shapes and one H with a partial K tile: #11 at m 16,
+   64, 65 (its plan switch) and 512, #12 at m 1, 4 and 8 (``F.linear`` on
+   the dequantized bf16 weight as the yardstick).  With ``--before DIR``
+   (a checkout of an earlier commit, such as ``git archive`` of it unpacked
+   under ``build/``), #4 / #5 as DIR's ``paged_attention.cu`` built them
+   (one block per slot and kv head, pages in turn) are held to their plain
+   versions at every decode case and timed beside the new ones
+   (``before_ms``);
 4. holds the flash-attention kernels (#1 forward, #2 dq, #3 dk/dv) against
    their plain versions at the 600m training shapes (16 q / 8 kv heads,
    head dim 96, T 2048): at batch 2 causal, segments, positions,
@@ -33,12 +43,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    forward and backward at batch 10; prints ptxas's registers and spills
    for ``flash_attention.cu`` and, for #2 and #3, the ``HGMMA`` and
    ``WARPGROUP.DEPBAR`` counts of their SASS (``cuobjdump -sass``).  With
-   ``--before DIR`` (a checkout of the commit before the redesign of #2
-   and #3, such as ``git archive`` of it unpacked under ``build/``) the
-   earlier #2 and #3 (the mma.sync designs of DIR's
-   ``flash_attention.cu``, built from DIR with its headers) are held to
-   their plain versions at batch 10 and timed beside the new ones
-   (``before_ms``);
+   ``--before DIR`` the #2 and #3 of DIR's ``flash_attention.cu`` (built
+   from DIR with its headers) are held to their plain versions at batch 10
+   and timed beside the new ones (``before_ms``);
 5. serves a 16-request trace on the 600m Llama (random weights from seed
    0) through ``ServingEngine`` under ``torch.inference_mode()``, checks
    that every request finishes, that the host page mirror agrees with the
@@ -161,6 +168,10 @@ PAGES_32 = dict(PLUGIN, page_size=32, pages_per_slot=2 * PLUGIN["pages_per_slot"
 PAGES_32_REQUESTS = 8
 GEN_PAGED = dict(batch=4, prompt_len_range=(128, 256), max_new=64, kv_dtype="fp8")
 GEN_T = 250           # the prefill window of kernel #7's case at generate_paged's geometry
+# #4 / #5 at generate_paged's geometry: 4 slots over pages of 16 mid-decode,
+# on both sides of the 256-token chunk edge (255 ends the first chunk, 256
+# leaves one live key in the second)
+GEN_DEC_POS = [130, 255, 256, 313]
 # the 600m model's denses (H -> F) and an H with a partial 64-row K tile
 QMM_SHAPES = {"q_proj / o_proj": (1536, 1536), "k_proj / v_proj": (1536, 768),
               "gate_proj / up_proj": (1536, 4096), "down_proj": (4096, 1536),
@@ -214,17 +225,27 @@ def sync(torch):
         torch.cuda.synchronize()
 
 
+_CAPTURE: dict = {}     # the one stream every graph of time_ms is captured on
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
     """Mean device time of ``fn(i)`` over ``iters`` calls, CUDA events.
     With ``graph`` the ``iters`` calls are captured in one CUDA graph and
     the graph is timed: a kernel of a few microseconds then reads its own
-    time, not the rate at which the host launches it."""
-    for i in range(warmup):
-        fn(i)
+    time, not the rate at which the host launches it.  The warm-up runs on
+    the capture stream, so what a kernel keeps per stream (#4 / #5's merge
+    counters) exists before the capture."""
+    if graph and "stream" not in _CAPTURE:
+        _CAPTURE["stream"] = torch.cuda.Stream()
+    side = _CAPTURE["stream"] if graph else torch.cuda.current_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i)
     torch.cuda.synchronize()
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=side):
             for i in range(iters):
                 fn(i)
         g.replay()
@@ -242,45 +263,71 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, graph: bool = False) ->
     return start.elapsed_time(end) / iters
 
 
+def live_kv_bytes(torch, bt, last_pos, pages, quant: bool) -> tuple[int, int]:
+    """The distinct pages and the K + V bytes a paged attention call must
+    read at least: slot s reaches keys 0 .. min(last_pos[s], n * page - 1),
+    key i at row i % page of page bt[s, i // page]; each distinct (page,
+    row) is read once for K and once for V in every kv head, and each
+    distinct page's K and V scales (f32 per kv head) when ``quant``."""
+    hkv, _, page, d = pages.shape
+    n = bt.shape[1]
+    keys = torch.arange(n * page, device=bt.device)
+    live = keys[None, :] <= last_pos.long()[:, None]                     # [S, n * page]
+    rows = (bt.long()[:, keys // page] * page + keys % page)[live]
+    pages_read = int(torch.unique(rows // page).numel())
+    rows_read = int(torch.unique(rows).numel())
+    nbytes = 2 * hkv * (rows_read * d * pages.element_size() + (pages_read * 4 if quant else 0))
+    return pages_read, nbytes
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- #2 and #3 as the commit before their redesign built them (--before) -------
+# -- the earlier designs of #2 / #3 and #4 / #5 (--before) --------------------
 
 # filled by main() from ``--before DIR``: name -> a callable with the
 # kernel wrapper's arguments that launches the earlier design
 BEFORE: dict = {}
+BEFORE_SOURCES = ("flash_attention", "paged_attention")
 
 
-def start_before_build(path: Path):
-    """Start nvcc on ``DIR/accelerate_tpu_torch/csrc/flash_attention.cu``
-    (its headers beside it) into ``build/before/``, with the port's flags.
-    Returns the process and the library's path."""
+def start_before_build(path: Path) -> dict:
+    """Start nvcc on ``DIR/accelerate_tpu_torch/csrc/<name>.cu`` for each
+    of ``BEFORE_SOURCES`` (their headers beside them) into
+    ``build/before/``, with the port's flags, all at once.  Returns, by
+    name, the process and the library's path."""
     from accelerate_tpu_torch.ops import _build
 
-    src = path / "accelerate_tpu_torch" / "csrc" / "flash_attention.cu"
-    if not src.is_file():
-        raise FileNotFoundError(f"--before: {src} is not there")
     out = ROOT / "build" / "before"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libflash_attention.so"
-    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, lib
+    started = {}
+    for name in BEFORE_SOURCES:
+        src = path / "accelerate_tpu_torch" / "csrc" / f"{name}.cu"
+        if not src.is_file():
+            raise FileNotFoundError(f"--before: {src} is not there")
+        lib = out / f"lib{name}.so"
+        started[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib)
+    return started
 
 
-def before_kernels(torch, build) -> dict:
-    """Bind the earlier #2 and #3 built by :func:`start_before_build`
-    (``flash_attention_dq_bf16`` and ``flash_attention_dkv_bf16`` of the
-    earlier ``flash_attention.cu``), called as their wrappers call them."""
-    proc, lib = build
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"--before: nvcc failed on flash_attention.cu:\n{err}")
-    fl = ctypes.CDLL(str(lib))
+def before_kernels(torch, builds: dict) -> dict:
+    """Bind the earlier designs built by :func:`start_before_build`, called
+    as their wrappers call them: #2 and #3 (``flash_attention_dq_bf16`` and
+    ``flash_attention_dkv_bf16`` of the earlier ``flash_attention.cu``) and
+    #4 / #5 (``paged_decode_attention_{bf16,int8,fp8}`` of the earlier
+    ``paged_attention.cu``: one block per (slot, kv head), pages in turn)."""
+    libs = {}
+    for name, (proc, lib) in builds.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"--before: nvcc failed on {name}.cu:\n{err}")
+        libs[name] = ctypes.CDLL(str(lib))
+    fl = libs["flash_attention"]
     P, I = ctypes.c_void_p, ctypes.c_int
     fl.flash_attention_dq_bf16.argtypes = [I] + [P] * 11 + [I] * 7 + [ctypes.c_float, P]
     fl.flash_attention_dq_bf16.restype = I
@@ -307,7 +354,38 @@ def before_kernels(torch, build) -> dict:
                sm_scale)
         return dk, dv
 
-    return {"flash_dq": flash_dq, "flash_dkv": flash_dkv}
+    kernels = {"flash_dq": flash_dq, "flash_dkv": flash_dkv}
+    # the earlier decode entry points, where DIR's paged_attention.cu still
+    # has them: device, q, k_pages, v_pages, [k_scales, v_scales,]
+    # block_tables, positions, out, S T H Hkv D P page n, sm_scale, stream
+    pa = libs["paged_attention"]
+    if not hasattr(pa, "paged_decode_attention_bf16"):
+        log("--before: DIR's paged_attention.cu has no paged_decode_attention_* (#4 / #5 "
+            "live in paged_decode.cu there): no earlier #4 / #5 to time")
+        return kernels
+    for suffix, scales in (("bf16", 0), ("int8", 2), ("fp8", 2)):
+        fn = getattr(pa, f"paged_decode_attention_{suffix}")
+        fn.argtypes = [I] + [P] * (6 + scales) + [I] * 8 + [ctypes.c_float, P]
+        fn.restype = I
+
+    def paged_decode(q, k_pages, v_pages, block_tables, positions, *, k_scales=None,
+                     v_scales=None):
+        out = torch.empty_like(q)
+        hkv, num_pages, page, d = k_pages.shape
+        scales = [k_scales.data_ptr(), v_scales.data_ptr()] if k_scales is not None else []
+        suffix = ("bf16" if k_scales is None
+                  else "int8" if k_pages.dtype == torch.int8 else "fp8")
+        err = getattr(pa, f"paged_decode_attention_{suffix}")(
+            q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(), q.shape[0], 1,
+            q.shape[1], hkv, d, num_pages, page, block_tables.shape[1], d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"--before: paged_decode_attention_{suffix} launch failed ({err})")
+        return out
+
+    return {**kernels, "paged_decode_attention": paged_decode,
+            "paged_decode_attention_quant": paged_decode}
 
 
 def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda",
@@ -433,6 +511,16 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
     ms = time_ms(torch, rotating(kernel), graph=True)
     plain_ms = time_ms(torch, rotating(plain), iters=5)
+    # #4 / #5's earlier design (--before): held to the plain version and
+    # timed the same way
+    before = {}
+    if decode and name in BEFORE:
+        early = BEFORE[name](qk, kp, vp, bt, pk, **kw)
+        sync(torch)
+        before["before_err_over_limit"] = held_to_plain(
+            torch, f"{name} (earlier design)", early, ref)["err_over_limit"]
+        before["before_ms"] = time_ms(torch, rotating(BEFORE[name]), graph=True)
+        del early
 
     # yardstick: one SDPA call over the gathered KV (dequantized to bf16 for
     # quantized pages), GQA heads repeated and the positional mask given as
@@ -451,19 +539,15 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
         q_lin, k_lin, v_lin, attn_mask=mask), graph=True)
 
     # least time for this data: q/out/tables read or written once, each
-    # distinct page the slots' live entries name read once for K and for V
-    # in every kv head (one byte per element and an f32 scale when
-    # quantized); 4 flops per (q row, head dim, live key)
-    live_pages = torch.clamp(positions[:, -1].long() // page, max=n - 1) + 1
-    read = torch.cat([bt[s, :int(c)] for s, c in enumerate(live_pages.tolist())])
-    pages_read = int(torch.unique(read).numel())
-    page_bytes = hkv * page * d * kp.element_size() + (hkv * 4 if quant else 0)
-    nbytes = (2 * q.numel() * 2 + bt.numel() * 4 + positions.numel() * 4
-              + pages_read * 2 * page_bytes)
+    # distinct live row (page, row) the slots' keys reach read once for K
+    # and for V in every kv head, and each distinct page's f32 scales when
+    # quantized; 4 flops per (q row, head dim, live key)
+    pages_read, kv_bytes = live_kv_bytes(torch, bt, positions[:, -1], kp, quant)
+    nbytes = 2 * q.numel() * 2 + bt.numel() * 4 + positions.numel() * 4 + kv_bytes
     flops = 4 * h * d * int((positions.long() + 1).sum())
     bound_ms, bound_by = bound(nbytes, flops)
     return {**held, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **before,
             "shape": {"slots": slots, "width": width, "heads": h, "kv_heads": hkv,
                       "head_dim": d, "page": page, "pages_per_slot": n,
                       "pages_read": pages_read, "kv_dtype": case["kv_dtype"] or "bf16",
@@ -471,7 +555,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
 
 CASE_KEYS = ("shape", "max_abs_err", "err_over_limit", "worst_row_err", "worst_row_ref_max",
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms")
 
 
 def _with_cases(cases: list, main: dict) -> dict:
@@ -483,20 +567,113 @@ def _with_cases(cases: list, main: dict) -> dict:
     return rep
 
 
+# #4 / #5's decode cases: the serve's 16 slots over pages of 64 (the main
+# path's shape), the same tokens over the quantized serve's pages of 32, and
+# generate_paged's 4 slots over pages of 16
+DEC_CASES = (dict(slots=16, pos0=DEC_POS),
+             dict(slots=16, pos0=DEC_POS, page=PAGES_32["page_size"],
+                  n=PAGES_32["pages_per_slot"]),
+             dict(slots=GEN_PAGED["batch"], pos0=GEN_DEC_POS, page=16,
+                  n=-(-(GEN_T + GEN_PAGED["max_new"]) // 16)))
+# filled by main(): ptxas's registers and spilled bytes of each #4 / #5 instance
+DECODE_PTXAS: dict = {}
+
+
+def decode_ptxas(ptxas: str) -> dict:
+    """ptxas's registers and spilled bytes of each instance of
+    ``paged_decode.cu``'s kernel in its build log, by page kind, head dim
+    and query rows a block."""
+    kinds = {"Bf16Pages": "bf16", "Int8Codes": "int8", "Fp8Codes": "fp8"}
+    out, current = {}, None
+    for line in ptxas.splitlines():
+        m = (re.search(r"Compiling entry function '(\S+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            k = re.search(r"(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)E", m.group(1))
+            current = (out.setdefault(f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}", {})
+                       if k and "paged_decode_kernel" in m.group(1) else None)
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
+
+
+def decode_bitwise(torch, fa, case) -> dict:
+    """#4 / #5 on ``case``'s operands: ``REPEATS`` more launches bitwise
+    equal to the first, and each slot alone (a one-slot batch of its query,
+    table row and position) bitwise equal to its row of the batch.  A CPU
+    rehearsal has no kernel to hold to this (its plain version's batched
+    sums differ by slot count)."""
+    if case["q"].device.type != "cuda":
+        return {}
+    (kp, vp), kw = _pool_args(case["pools"][0])
+    q, bt, pos = case["q"][:, 0].contiguous(), case["bt"], case["positions"][:, 0].contiguous()
+    first = fa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
+    runs = [fa.paged_decode_attention(q, kp, vp, bt, pos, **kw) for _ in range(REPEATS)]
+    alone = [fa.paged_decode_attention(q[i:i + 1].contiguous(), kp, vp, bt[i:i + 1].contiguous(),
+                                       pos[i:i + 1].contiguous(), **kw)
+             for i in range(q.shape[0])]
+    sync(torch)
+    for i, run in enumerate(runs):
+        if not torch.equal(run, first):
+            raise AssertionError(f"paged decode: launch {i + 2} of {REPEATS + 1} differs from "
+                                 "the first on the same operands")
+    for i, out in enumerate(alone):
+        if not torch.equal(out[0], first[i]):
+            raise AssertionError(f"paged decode: slot {i} alone differs from its row of the batch")
+    streams = decode_two_streams(torch, fa, (q, q.flip(0).contiguous()), (kp, vp, bt, pos), kw)
+    return {"repeats_bitwise": REPEATS + 1, "slots_alone_bitwise": len(alone),
+            "two_streams_bitwise": streams}
+
+
+def decode_two_streams(torch, fa, qs, operands, kw) -> int:
+    """#4 / #5 launched ``REPEATS`` times on each of two streams at once,
+    each stream its own queries over the same pages (so the same merge
+    counter size): every launch bitwise equal to its query's launch alone
+    on the current stream.  Returns the launches checked."""
+    refs = [fa.paged_decode_attention(q, *operands, **kw) for q in qs]
+    streams = [torch.cuda.Stream() for _ in qs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[] for _ in qs]
+    for _ in range(REPEATS):
+        for j, (q, st) in enumerate(zip(qs, streams)):
+            with torch.cuda.stream(st):
+                outs[j].append(fa.paged_decode_attention(q, *operands, **kw))
+    sync(torch)
+    for j, runs in enumerate(outs):
+        for i, out in enumerate(runs):
+            if not torch.equal(out, refs[j]):
+                raise AssertionError(f"paged decode: launch {i + 1} on stream {j} differs from "
+                                     "the same call alone")
+    return sum(len(runs) for runs in outs)
+
+
 def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
     """Kernels #4 / #6, and #5 / #7 over int8 and fp8 pages, against their
     plain versions at the 600m shapes."""
     reports = {}
     quant_decode, quant_multi = [], []
     for kv_dtype in (None, "int8", "fp8"):
-        rep = case_report(torch, F, fa, paged_case(torch, slots=16, width=1, pos0=DEC_POS,
-                                                   kv_dtype=kv_dtype, device=device),
-                          decode=True)
-        log("kernel paged_decode_attention", json.dumps(rep))
+        cases = []
+        for i, extra in enumerate(DEC_CASES):
+            case = paged_case(torch, width=1, kv_dtype=kv_dtype, device=device, seed=i, **extra)
+            rep = case_report(torch, F, fa, case, decode=True)
+            if i == 0:
+                rep["bitwise"] = decode_bitwise(torch, fa, case)
+                rep["ptxas"] = DECODE_PTXAS
+            log("kernel paged_decode_attention", json.dumps(rep))
+            cases.append(rep)
+            del case
         if kv_dtype is None:
-            reports["paged_decode_attention"] = rep
+            reports["paged_decode_attention"] = _with_cases(cases, cases[0])
         else:
-            quant_decode.append(rep)
+            quant_decode += cases
         # #6 / #7: one prefill chunk, T in {16, 512}, starting at 0 or a
         # mid-table page boundary; the 512-token chunk from 0 is the main
         # path's shape
@@ -527,7 +704,8 @@ def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
         else:
             quant_multi += cases
     # the quantized serve's pages are QUANT_KV's: its shapes are the main ones
-    main = next(c for c in quant_decode if c["shape"]["kv_dtype"] == QUANT_KV)
+    main = next(c for c in quant_decode if c["shape"]["kv_dtype"] == QUANT_KV
+                and c["shape"]["page"] == PLUGIN["page_size"])
     reports["paged_decode_attention_quant"] = _with_cases(quant_decode, main)
     main = next(c for c in quant_multi if c["shape"]["kv_dtype"] == QUANT_KV and is_main(c))
     reports["paged_multitoken_attention_quant"] = _with_cases(quant_multi, main)
@@ -1834,19 +2012,19 @@ def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
     library_ms = time_ms(torch, library, graph=True)
     # what this data needs: positions and ids read, the whole output
     # written; for each live slot (position >= 0) its base q, the block-table
-    # entries of its pages and each distinct page once; for each live slot
+    # entries of its pages and each distinct live row of them once (and each
+    # distinct page's scales when quantized); for each live slot
     # with a nonzero id its x, its rope row (cos and sin) and each distinct
     # id's factors once (the null slot's zeros and a dead slot's operands
     # are read by nothing the output needs)
     live = [(min(int(p) // page, n - 1) + 1) if int(p) >= 0 else 0 for p in pos.tolist()]
     read = [int(pid) for s, c in enumerate(live) for pid in bt[s, :c].tolist()]
-    pages_read = len(set(read))
-    page_bytes = hkv * page * d * kp.element_size() + (hkv * 4 if quant else 0)
+    pages_read, kv_bytes = live_kv_bytes(torch, bt, pos, kp, quant)
     d_in, rank = a.shape[1], a.shape[2]
     adapted = [int(i) for i, c in zip(ids.tolist(), live) if c and int(i) != 0]
     n_live = sum(1 for c in live if c)
     nbytes = (slots * 8 + q_base.numel() * 2 + n_live * h * d * 2 + len(read) * 4
-              + pages_read * 2 * page_bytes + len(adapted) * (d_in * 2 + d * 4)
+              + kv_bytes + len(adapted) * (d_in * 2 + d * 4)
               + len(set(adapted)) * rank * (d_in + h * d) * 2)
     flops = 4 * h * d * sum(int(p) + 1 for p in pos.tolist() if int(p) >= 0) \
         + 2 * len(adapted) * rank * (d_in + h * d)
@@ -1909,9 +2087,10 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
-                        help="a checkout of the commit before the redesign of #2 and #3: "
-                             "its flash_attention.cu is built, and its #2 and #3 are held to "
-                             "their plain versions and timed beside the new ones (before_ms)")
+                        help="a checkout of an earlier commit: its flash_attention.cu and "
+                             "paged_attention.cu are built, and its #2 / #3 and #4 / #5 are "
+                             "held to their plain versions and timed beside the new ones "
+                             "(before_ms)")
     args = parser.parse_args()
     import torch
 
@@ -1939,8 +2118,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     before_build = start_before_build(args.before.resolve()) if args.before else None
-    libs = _build.build_all(["paged_attention", "paged_prefill", "flash_attention",
-                             "quantized_matmul", "lora"])
+    libs = _build.build_all(["paged_attention", "paged_decode", "paged_prefill",
+                             "flash_attention", "quantized_matmul", "lora"])
     if before_build:
         BEFORE.update(before_kernels(torch, before_build))
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
@@ -1951,6 +2130,9 @@ def main() -> int:
     SASS.update(kernel_sass(libs["flash_attention"], _build.BUILD_LOG["flash_attention"]["ptxas"]))
     log("flash #2 / #3 (registers, spilled bytes, HGMMA, WARPGROUP.DEPBAR per head dim):",
         json.dumps(SASS))
+    DECODE_PTXAS.update(decode_ptxas(_build.BUILD_LOG["paged_decode"]["ptxas"]))
+    log("paged decode #4 / #5 (registers, spilled bytes by pages, head dim, rows):",
+        json.dumps(DECODE_PTXAS))
 
     t_phase = time.perf_counter()
 
@@ -2012,7 +2194,7 @@ def main() -> int:
     }
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
                "paged_multitoken_attention": "accelerate_tpu_torch/csrc/paged_prefill.cu",
-               "paged": "accelerate_tpu_torch/csrc/paged_attention.cu",
+               "paged_decode_attention": "accelerate_tpu_torch/csrc/paged_decode.cu",
                "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",
                "bgmv": "accelerate_tpu_torch/csrc/lora.cu"}
@@ -2029,8 +2211,8 @@ def main() -> int:
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
                         "card": card, "shape": rep["shape"],
-                        **({"before_ms": rep["before_ms"]} if "before_ms" in rep else {}),
-                        **({"cases": rep["cases"]} if "cases" in rep else {})})
+                        **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases")
+                           if k in rep}})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,12 @@ launches.  The W8A16 matmuls' rows are output rows
 (one token over F), against the plain version in f32; both must give
 bitwise-equal outputs on two runs (their H splits add in a fixed order).
 #6 and #7 (``paged_prefill.cu``) run every geometry of ``PREFILL_CASES``
-over bf16, int8 and fp8 pages, pages of 1 to 128 tokens.
+over bf16, int8 and fp8 pages, pages of 1 to 128 tokens; #4 and #5
+(``paged_decode.cu``) every geometry of ``DECODE_CASES`` (pages of 1 to
+128, GQA groups 1 to 16, positions at the edges of the split plan's chunks
+and before 0), and must give bitwise-equal outputs over repeated launches,
+for a slot alone and the same slot in a batch, on two streams at once and
+replayed from a CUDA graph.
 #10's rows are output rows against ``bgmv_plain`` (f32 h and delta, one
 rounding); its deltas are not O(1), so each element may also be off by
 half a bf16 step of its |ref| (at |ref| >= 8 that step is above 2e-2);
@@ -86,26 +91,155 @@ def _pools(gen, dev, d):
     return kp, vp
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d, h", [(64, 16), (96, 16), (128, 16), (96, 8), (96, 64)])
-def test_decode_kernel_matches_plain(cuda, d, h):
-    gen = torch.Generator(device=cuda).manual_seed(d + h)
-    kp, vp = _pools(gen, cuda, d)
-    slots = 16
-    bt = torch.randint(0, NUM_PAGES, (slots, N), generator=gen, device=cuda, dtype=torch.int32)
-    pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500,
-                        2000, 2046, 2047], dtype=torch.int32, device=cuda)
-    q = torch.randn(slots, h, d, generator=gen, device=cuda).bfloat16()
-    out = tfa.paged_decode_attention(q, kp, vp, bt, pos)
+DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 2046, 2047]
+# #4 / #5's geometries besides the 600m serve's: (page size, pages per
+# slot, kv heads, GQA group, head dim); positions from _decode_positions
+DECODE_CASES = [
+    (1, 600, 2, 2, 64),        # pages of 1: 256 pages a chunk, one bulk copy a token
+    (16, 48, 8, 2, 96),        # generate_paged's pages of 16
+    (32, 64, 8, 2, 96),        # the quantized serve's pages of 32
+    (64, 32, 8, 4, 128),       # group 4
+    (100, 9, 4, 4, 128),       # pages of 100: chunks of 2 pages, tiles across pages
+    (128, 8, 8, 1, 64),        # pages of 128, group 1
+    (128, 8, 2, 8, 128),       # pages of 128 at D 128, group 8
+    (24, 30, 4, 3, 96),        # group 3 in a tile of 4 rows, pages of 24
+    (16, 40, 1, 16, 64),       # group 16: two row tiles
+]
+
+
+def _decode_positions(page, n):
+    """Positions at the split plan's chunk edges (the last key of a chunk,
+    a chunk's single live key), before 0, 0, the table's last token and
+    past it."""
+    ct = tfa.decode_split_plan(1, 2, 1, 64, page, n)["chunk_tokens"]
+    end = n * page
+    return sorted({-5, -1, 0, 1, ct - 1, ct, ct + 1, 2 * ct - 1, 2 * ct, end // 2 + 3, end - 1,
+                   end + 7})
+
+
+def _decode_operands(gen, dev, case, kv_dtype, pos=None):
+    """q, the page pool (and scale keywords), a table of distinct pages and
+    the positions (by default ``_decode_positions``) of a ``DECODE_CASES``
+    geometry."""
+    page, n, hkv, group, d = case
+    pos = _decode_positions(page, n) if pos is None else pos
+    slots, num_pages = len(pos), len(pos) * n
+    if kv_dtype == "bf16":
+        kp, vp = _bf16_pool(gen, dev, hkv, num_pages, page, d)
+        kw = {}
+    else:
+        kp, ks, vp, vs = _quant_pool(gen, dev, hkv, num_pages, page, d, kv_dtype)
+        kw = dict(k_scales=ks, v_scales=vs)
+    bt = torch.randperm(num_pages, generator=gen, device=dev).int().reshape(slots, n)
+    q = torch.randn(slots, hkv * group, d, generator=gen, device=dev).bfloat16()
+    return q, kp, vp, kw, bt, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _check_decode(q, kp, vp, kw, bt, pos):
+    out = tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
     torch.cuda.synchronize()
-    assert tfa.paged_decode_attention.launches == 1
+    wrapper = tfa.paged_decode_attention_quant if kw else tfa.paged_decode_attention
+    assert wrapper.launches == 1
+    assert tfa.paged_decode_attention.launches + tfa.paged_decode_attention_quant.launches == 1
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    ref = tfa.paged_decode_attention_plain(q.float(), kp.float(), vp.float(), bt, pos)
+    ref = tfa.paged_decode_attention_plain(q.float(), kp if kw else kp.float(),
+                                           vp if kw else vp.float(), bt, pos, **kw)
     _assert_rows_close(out, ref)
+    dead = pos < 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width, pos0", [(16, 0), (512, 0), (512, 1024), (7, 61), (100, 1948)])
+@pytest.mark.parametrize("d, h, case", [(64, 16, None), (96, 16, None), (128, 16, None),
+                                        (96, 8, None), (96, 64, None)]
+                         + [(None, None, c) for c in DECODE_CASES])
+def test_decode_kernel_matches_plain(cuda, d, h, case):
+    """#4 at the 600m serve's table (head dims 64 / 96 / 128, groups 1, 2
+    and 8) and at every ``DECODE_CASES`` geometry."""
+    if case is None:
+        gen = torch.Generator(device=cuda).manual_seed(d + h)
+        kp, vp = _pools(gen, cuda, d)
+        slots = 16
+        bt = torch.randint(0, NUM_PAGES, (slots, N), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        pos = torch.tensor(DEC_POS, dtype=torch.int32, device=cuda)
+        q = torch.randn(slots, h, d, generator=gen, device=cuda).bfloat16()
+        _check_decode(q, kp, vp, {}, bt, pos)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(sum(case))
+        _check_decode(*_decode_operands(gen, cuda, case, "bf16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("page, n", [(64, 32), (16, 48)])
+def test_decode_kernel_is_deterministic_and_slot_independent(cuda, kv_dtype, page, n):
+    """#4 / #5: 20 launches on the same operands bitwise equal to the first,
+    and each slot alone (a one-slot batch) bitwise equal to its row of the
+    16-slot batch, whose other slots take other chunk counts."""
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    q, kp, vp, kw, bt, pos = _decode_operands(
+        gen, cuda, (page, n, HKV, 2, 96), kv_dtype,
+        pos=[-1, 0, 1, 63, 64, 255, 256, 257, 300, 511, 512, 600, 700, 766, 767, 800])
+    first = tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
+    runs = [tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw) for _ in range(20)]
+    alone = [tfa.paged_decode_attention(q[i:i + 1].contiguous(), kp, vp, bt[i:i + 1].contiguous(),
+                                        pos[i:i + 1].contiguous(), **kw)
+             for i in range(q.shape[0])]
+    torch.cuda.synchronize()
+    assert all(torch.equal(run, first) for run in runs)
+    for i, out in enumerate(alone):
+        assert torch.equal(out[0], first[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_decode_kernel_on_two_streams_and_in_a_cuda_graph(cuda, kv_dtype):
+    """#4 / #5 keep merge counters per stream: two streams launching at once
+    at one counter size give each call's own output bitwise; a capture on
+    a stream with no counters yet refuses, and after one call there the
+    replayed graph equals the eager launch bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, kp, vp, kw, bt, pos = _decode_operands(
+        gen, cuda, (16, 48, HKV, 2, 96), kv_dtype,
+        pos=[-1, 0, 255, 256, 257, 511, 512, 700, 767, 100, 300, 3])
+    qs = (q, q.flip(0).contiguous())
+    refs = [tfa.paged_decode_attention(x, kp, vp, bt, pos, **kw) for x in qs]
+    streams = [torch.cuda.Stream() for _ in qs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[j].append(tfa.paged_decode_attention(qs[j], kp, vp, bt, pos, **kw))
+    torch.cuda.synchronize()
+    for j in range(2):
+        assert all(torch.equal(out, refs[j]) for out in outs[j]), j
+
+    # a counter size (slot count) that no other call of these tests uses
+    k = {"bf16": 11, "int8": 10, "fp8": 9}[kv_dtype]
+    q11, bt11, pos11 = q[:k].contiguous(), bt[:k].contiguous(), pos[:k].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=side):
+            tfa.paged_decode_attention(q11, kp, vp, bt11, pos11, **kw)
+    with torch.cuda.stream(side):
+        eager = tfa.paged_decode_attention(q11, kp, vp, bt11, pos11, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = tfa.paged_decode_attention(q11, kp, vp, bt11, pos11, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, pos0",[(16, 0), (512, 0), (512, 1024), (7, 61), (100, 1948)])
 def test_multitoken_kernel_matches_plain(cuda, width, pos0):
     gen = torch.Generator(device=cuda).manual_seed(width + pos0)
     kp, vp = _pools(gen, cuda, 96)
@@ -293,21 +427,23 @@ def _quant_pools(gen, dev, d, kv_dtype, num_pages=NUM_PAGES):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("d", [64, 96, 128])
-def test_quantized_decode_kernel_matches_plain(cuda, kv_dtype, d):
-    gen = torch.Generator(device=cuda).manual_seed(d)
-    kp, ks, vp, vs = _quant_pools(gen, cuda, d, kv_dtype)
-    slots = 16
-    bt = torch.randint(0, NUM_PAGES, (slots, N), generator=gen, device=cuda, dtype=torch.int32)
-    pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500,
-                        2000, 2046, 2047], dtype=torch.int32, device=cuda)
-    q = torch.randn(slots, H, d, generator=gen, device=cuda).bfloat16()
-    out = tfa.paged_decode_attention(q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)
-    torch.cuda.synchronize()
-    assert tfa.paged_decode_attention_quant.launches == 1
-    assert tfa.paged_decode_attention.launches == 0
-    ref = tfa.paged_decode_attention_plain(q.float(), kp, vp, bt, pos, k_scales=ks, v_scales=vs)
-    _assert_rows_close(out, ref)
+@pytest.mark.parametrize("d, case", [(64, None), (96, None), (128, None)]
+                         + [(None, c) for c in DECODE_CASES])
+def test_quantized_decode_kernel_matches_plain(cuda, kv_dtype, d, case):
+    """#5 at the 600m serve's table (head dims 64 / 96 / 128) and at every
+    ``DECODE_CASES`` geometry, over int8 and e4m3 codes."""
+    if case is None:
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        kp, ks, vp, vs = _quant_pools(gen, cuda, d, kv_dtype)
+        slots = 16
+        bt = torch.randint(0, NUM_PAGES, (slots, N), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        pos = torch.tensor(DEC_POS, dtype=torch.int32, device=cuda)
+        q = torch.randn(slots, H, d, generator=gen, device=cuda).bfloat16()
+        _check_decode(q, kp, vp, dict(k_scales=ks, v_scales=vs), bt, pos)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(sum(case))
+        _check_decode(*_decode_operands(gen, cuda, case, kv_dtype))
 
 
 @pytest.mark.cuda
