@@ -47,11 +47,23 @@
 // block to arrive adds the slices in slice order (bitwise equal run to run,
 // whichever block is last), writes the output and sets the counter back to
 // 0, so one launch does the whole product and a CUDA graph can replay it.
-// #12: CUDA-core FMAs.  A block owns 256 columns and a slice of H; each of
-// its 8 warps reads rows of codes 8 bytes per thread (256 contiguous bytes
-// per warp and row), multiplies by the block's staged bf16(x * s) and sums
-// in registers; the 8 warps are added in shared memory in a fixed order,
-// and a second pass adds the slices of H in slice order.
+// #12, qmm_wholef: one launch of blocks of 128 output columns by a slice
+// of H, about one and a half waves on the 132 SMs (ops/quantized_matmul.py
+// wholef_plan: at most 8 slices, each at least two 64-row K tiles).  A
+// producer warp issues the slice's code tiles by TMA (128-byte swizzle, up
+// to 16 in flight: the whole slice at the 600m shapes) as the block
+// starts; meanwhile the 8 consumer warps stage bf16(x * s) for the slice,
+// behind one barrier.  The product runs on the tensor cores (mma.sync
+// m16n8k16, out^T = codes^T xs^T): the codes, exact in bf16 and widened by
+// byte permutes, are the A operand of 16 columns a warp, read by
+// ldmatrix.trans as #11 reads them; bf16(x * s) is B, the <= 8 rows of x
+// as n.  The rounding is the TPU kernel's: one bf16 rounding of x * s,
+// exact codes, f32 sums.  The blocks of one column tile form a
+// thread-block cluster: each keeps its f32 partial tile in shared memory,
+// and block 0 adds them in slice order through distributed shared memory
+// (no scratch, no counters): on the card the counter scheme #11 uses (a
+// fence, an atomic and a reread from L2 by the last block, in series) was
+// the largest part of a call at these shapes (PERF.md, section 6).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (accelerate_tpu_torch/ops/_build.py)
@@ -73,14 +85,6 @@ __device__ __forceinline__ void store2(void* out, size_t idx, float a, float b, 
     } else {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + idx) =
             __floats2bfloat162_rn(a, b);
-    }
-}
-
-__device__ __forceinline__ void store1(void* out, size_t idx, float a, bool f32) {
-    if (f32) {
-        static_cast<float*>(out)[idx] = a;
-    } else {
-        static_cast<bf16*>(out)[idx] = __float2bfloat16_rn(a);
     }
 }
 
@@ -328,132 +332,257 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 // -- kernel #12: whole-F decode ------------------------------------------
 
-constexpr int WF_THREADS = 256;  // 8 warps = 8 row groups
-constexpr int WF_COLS = 256;     // 32 lanes x 8 columns
-constexpr int WF_CHUNK = 64;     // rows of H staged at a time (8 per warp)
-constexpr int WF_XS = WF_CHUNK;  // per (q-block, row of x) stride of the staged bf16(x * s)
+constexpr int WF_BF = 128;                 // output columns per block: one 128-byte code row
+constexpr int WF_BK = 64;                  // rows of H per code tile
+constexpr int WF_TILE = WF_BK * WF_BF;     // bytes of a code tile, 128-byte swizzle
+constexpr int WF_STAGES = 16;              // code tiles in flight, at most
+constexpr int WF_MAX_PER = 64;             // most K tiles a slice holds (bounds the staged x * s)
+constexpr int WF_MAX_SPLITS = 8;           // slices of H: the blocks of a (portable) cluster
+constexpr int WF_THREADS = 288;            // 8 consumer warps (16 columns each) and a producer warp
 
+// bytes of dynamic shared memory: the 1024-byte alignment slack, `stages`
+// code tiles, the slice's staged bf16(x * s) (M rows of `per` K tiles and a
+// 16-byte pad), the block's f32 partial tile and the stages' mbarriers
+__host__ __device__ constexpr size_t wf_smem_bytes(int M, int per, int stages) {
+    return 1024 + (size_t)stages * WF_TILE + (size_t)M * (per * WF_BK + 8) * 2 +
+           (size_t)M * WF_BF * 4 + 16 * stages;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of the shared memory of the cluster's block `rank` at the
+// address `addr` has in this block's shared memory
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
+    return v;
+}
+
+// d[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16_k16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The split's slices of H are blockIdx.y, each `per` K tiles of 64 rows
+// (the last may be shorter), and the blocks of one column tile form a
+// cluster.  A producer warp copies the slice's code tiles by TMA into a
+// ring of `stages` tiles as soon as the block starts; the 8 consumer warps
+// meanwhile stage xs[m][r] = bf16(f32(x[m][h0 + r]) * s[n0 / qb][h0 + r])
+// for the whole slice (one barrier), then run mma.sync m16n8k16 on each
+// arrived tile: A = the codes of the warp's 16 columns (exact in bf16;
+// ldmatrix.trans as #11's weight_fragments reads them), B = xs with the M
+// <= 8 rows of x as n, two accumulators in turn.  With more than one
+// slice, each block leaves its f32 partial tile in its shared memory and
+// the cluster's block 0 adds them in slice order through distributed
+// shared memory.
 template <int M>
 __global__ void __launch_bounds__(WF_THREADS)
-qmm_wholef_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ codes,
-                  const float* __restrict__ scales, void* __restrict__ out,
-                  float* __restrict__ partial, int H, int F, int qblock,
-                  int rows_per_split, int out_f32) {
-    // xs[j][m][r] = bf16(f32(x[m][h0 + r]) * s[fb0 + j][h0 + r]), j = the
-    // tile's first or second q-block; the +1 puts the two in other banks
-    constexpr int XSJ = M * WF_XS + 1;
-    __shared__ float xs[2 * XSJ];
-    __shared__ __align__(16) float red[8][WF_COLS];
-
-    const int n0 = blockIdx.x * WF_COLS;
+qmm_wholef_kernel(const __grid_constant__ CUtensorMap tm_codes, const bf16* __restrict__ x,
+                  const float* __restrict__ scales, void* __restrict__ out, int H, int F,
+                  int qblock, int per, int stages, int out_f32) {
+    const int n0 = blockIdx.x * WF_BF;
     const int split = blockIdx.y;
-    const int h_begin = split * rows_per_split;
-    const int h_end = min(H, h_begin + rows_per_split);
+    const int splits = gridDim.y;
+    const int k_tiles = (H + WF_BK - 1) / WF_BK;
+    const int kt0 = split * per;
+    const int nkt = min(per, k_tiles - kt0);
+    const int h_begin = kt0 * WF_BK;
+    const int rows = nkt * WF_BK;                // staged rows, zeros past H
+    const int xs_stride = rows + 8;              // 16 bytes of pad: conflict-free B loads
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int col = n0 + lane * 8;
-    const bool col_ok = col < F;
-    const int fb0 = n0 / qblock;
-    const int nfb = F / qblock;
-    const int j = col_ok ? col / qblock - fb0 : 0;
 
-    float acc[M][8];
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
+    extern __shared__ unsigned char smem_raw[];
+    // the swizzled code tiles need 1024-byte aligned shared addresses
+    unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+    bf16* xs = reinterpret_cast<bf16*>(smem + (size_t)stages * WF_TILE);
+    float* part = reinterpret_cast<float*>(xs + (size_t)M * (per * WF_BK + 8));   // [M][128]
+    const uint32_t sbase = hopper::smem_u32(smem);
+    const uint32_t full0 = hopper::smem_u32(part + M * WF_BF);
+    const uint32_t empty0 = full0 + 8 * stages;
+    if (tid == 0) {
+        for (int st = 0; st < stages; ++st) {
+            hopper::mbar_init(full0 + 8 * st, 1);
+            hopper::mbar_init(empty0 + 8 * st, 8);
+        }
+        hopper::mbar_init_fence();
+    }
+    __syncthreads();
 
-    for (int h0 = h_begin; h0 < h_end; h0 += WF_CHUNK) {
-        const int rows = min(WF_CHUNK, h_end - h0);
-        __syncthreads();
-        for (int i = tid; i < 2 * M * WF_CHUNK; i += WF_THREADS) {
-            const int jj = i / (M * WF_CHUNK);
-            const int m = (i / WF_CHUNK) % M;
-            const int r = i % WF_CHUNK;
-            float v = 0.f;
-            if (r < rows && fb0 + jj < nfb) {
-                const float xv = __bfloat162float(x[(size_t)m * H + h0 + r]);
-                v = __bfloat162float(__float2bfloat16_rn(xv * scales[(size_t)(fb0 + jj) * H + h0 + r]));
-            }
-            xs[jj * XSJ + m * WF_XS + r] = v;
-        }
-        __syncthreads();
-        if (!col_ok) continue;
-        uint2 raw[WF_CHUNK / 8];
-#pragma unroll
-        for (int i = 0; i < WF_CHUNK / 8; ++i) {
-            const int r = warp * (WF_CHUNK / 8) + i;
-            raw[i] = r < rows ? __ldg(reinterpret_cast<const uint2*>(codes + (size_t)(h0 + r) * F + col))
-                              : make_uint2(0u, 0u);
-        }
-#pragma unroll
-        for (int i = 0; i < WF_CHUNK / 8; ++i) {
-            const int r = warp * (WF_CHUNK / 8) + i;
-            const int8_t* b = reinterpret_cast<const int8_t*>(&raw[i]);
-            float cf[8];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) cf[c] = (float)b[c];
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-                const float xv = xs[j * XSJ + m * WF_XS + r];
-#pragma unroll
-                for (int c = 0; c < 8; ++c) acc[m][c] = fmaf(xv, cf[c], acc[m][c]);
+    if (warp == 8) {
+        // producer: every code tile of the slice, `stages` ahead of the
+        // consumers, the first ones before any arithmetic
+        if (lane == 0) {
+            for (int kt = 0; kt < nkt; ++kt) {
+                const int st = kt % stages;
+                if (kt >= stages) hopper::mbar_wait(empty0 + 8 * st, ((kt / stages) - 1) & 1);
+                const uint32_t full = full0 + 8 * st;
+                hopper::mbar_arrive_expect_tx(full, WF_TILE);
+                hopper::tma_load_2d(sbase + st * WF_TILE, &tm_codes, full, n0, h_begin + kt * WF_BK);
             }
         }
-    }
+        __syncwarp();
+    } else {
+        // xs for the whole slice, 8 values of one row of x a thread at a time
+        const int fb = n0 / qblock;
+        const int units = M * (rows / 8);
+        for (int i = tid; i < units; i += 256) {
+            const int m = i / (rows / 8);
+            const int r = (i % (rows / 8)) * 8;
+            const int h = h_begin + r;
+            uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+            if (h < H) {      // H % 8 == 0: the 8 values lie wholly inside or outside
+                const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * H + h));
+                const float* sp = scales + (size_t)fb * H + h;
+                const float4 s0 = __ldg(reinterpret_cast<const float4*>(sp));
+                const float4 s1 = __ldg(reinterpret_cast<const float4*>(sp + 4));
+                const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+                const float2 x01 = __bfloat1622float2(x2[0]), x23 = __bfloat1622float2(x2[1]);
+                const float2 x45 = __bfloat1622float2(x2[2]), x67 = __bfloat1622float2(x2[3]);
+                packed.x = hopper::pack_bf16(x01.x * s0.x, x01.y * s0.y);
+                packed.y = hopper::pack_bf16(x23.x * s0.z, x23.y * s0.w);
+                packed.z = hopper::pack_bf16(x45.x * s1.x, x45.y * s1.y);
+                packed.w = hopper::pack_bf16(x67.x * s1.z, x67.y * s1.w);
+            }
+            *reinterpret_cast<uint4*>(xs + (size_t)m * xs_stride + r) = packed;
+        }
+        hopper::named_barrier(1, 256);
 
-    // the 8 warps' sums, added in a fixed order, one output row at a time
+        // out^T[16 columns x 8] += codes^T[16 x k16] . xs^T[k16 x 8] per
+        // step: A row g is column f = n0 + 16 warp + 2g, row g + 8 is f + 1
+        // (a thread's two rows are adjacent columns); B column n is row n of x
+        const int g = lane >> 2, t4 = lane & 3;
+        const bf16* xrow = xs + (size_t)(g < M ? g : 0) * xs_stride + 2 * t4;
+        float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        for (int kt = 0; kt < nkt; ++kt) {
+            const int st = kt % stages;
+            hopper::mbar_wait(full0 + 8 * st, (kt / stages) & 1);
+            const unsigned char* cs = smem + st * WF_TILE;
+            uint32_t w[2][4];
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-        __syncthreads();
-        float4* dst = reinterpret_cast<float4*>(&red[warp][lane * 8]);
-        dst[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-        dst[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
-        __syncthreads();
-        float sum = 0.f;
+            for (int q = 0; q < WF_BK / 32; ++q) {
+                const int row = 32 * q + lane;   // lanes 8i..8i+7 give matrix i's rows
+                asm volatile(
+                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                    : "=r"(w[q][0]), "=r"(w[q][1]), "=r"(w[q][2]), "=r"(w[q][3])
+                    : "r"(hopper::smem_u32(cs + row * 128 + ((warp ^ (row & 7)) << 4))));
+            }
+            // this tile's codes are in registers: its stage is free
+            __syncwarp();
+            if (lane == 0) hopper::mbar_arrive(empty0 + 8 * st);
 #pragma unroll
-        for (int w = 0; w < 8; ++w) sum += red[w][tid];
-        const int f = n0 + tid;
-        if (f < F) {
-            if (partial != nullptr) {
-                partial[((size_t)split * M + m) * F + f] = sum;
-            } else {
-                store1(out, (size_t)m * F + f, sum, out_f32);
+            for (int q = 0; q < WF_BK / 32; ++q) {
+#pragma unroll
+                for (int step = 0; step < 2; ++step) {
+                    const int h = kt * WF_BK + 32 * q + 16 * step;
+                    const uint32_t lo = w[q][2 * step] ^ 0x80808080u;      // rows h + 2t, + 1
+                    const uint32_t hi = w[q][2 * step + 1] ^ 0x80808080u;  // rows h + 2t + 8, + 9
+                    const uint32_t b0 = g < M ? *reinterpret_cast<const uint32_t*>(xrow + h) : 0u;
+                    const uint32_t b1 =
+                        g < M ? *reinterpret_cast<const uint32_t*>(xrow + h + 8) : 0u;
+                    mma_bf16_k16(d[step],
+                                 hopper::pack_bf16(code_at(lo, 0), code_at(lo, 2)),   // f
+                                 hopper::pack_bf16(code_at(lo, 1), code_at(lo, 3)),   // f + 1
+                                 hopper::pack_bf16(code_at(hi, 0), code_at(hi, 2)),
+                                 hopper::pack_bf16(code_at(hi, 1), code_at(hi, 3)), b0, b1);
+                }
             }
         }
-    }
-}
 
-// out = sum over the slices of H of the partial sums, in slice order
-__global__ void reduce_splits_kernel(const float* __restrict__ partial, void* __restrict__ out,
-                                     int splits, size_t n, int out_f32) {
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (size_t)gridDim.x * blockDim.x) {
-        float s = 0.f;
-        for (int sp = 0; sp < splits; ++sp) s += partial[(size_t)sp * n + i];
-        store1(out, i, s, out_f32);
+        // d[.][0], d[.][1]: rows 2t, 2t + 1 of x at column f; d[.][2],
+        // d[.][3]: the same at f + 1
+        const int f = 16 * warp + 2 * g;
+        const int m0 = 2 * t4, m1 = 2 * t4 + 1;
+        const float v00 = d[0][0] + d[1][0], v10 = d[0][1] + d[1][1];
+        const float v01 = d[0][2] + d[1][2], v11 = d[0][3] + d[1][3];
+        if (splits == 1) {
+            if (m0 < M) store2(out, (size_t)m0 * F + n0 + f, v00, v01, out_f32);
+            if (m1 < M) store2(out, (size_t)m1 * F + n0 + f, v10, v11, out_f32);
+        } else {
+            if (m0 < M) *reinterpret_cast<float2*>(part + m0 * WF_BF + f) = make_float2(v00, v01);
+            if (m1 < M) *reinterpret_cast<float2*>(part + m1 * WF_BF + f) = make_float2(v10, v11);
+        }
     }
-}
+    if (splits == 1) return;
 
-cudaError_t reduce_splits(const float* partial, void* out, int splits, size_t n, int out_f32,
-                          cudaStream_t stream) {
-    const int threads = 256;
-    size_t blocks = (n + threads - 1) / threads;
-    if (blocks > 132 * 8) blocks = 132 * 8;
-    reduce_splits_kernel<<<(unsigned)blocks, threads, 0, stream>>>(partial, out, splits, n,
-                                                                   out_f32);
-    return cudaGetLastError();
+    // H split: the cluster's block 0 adds the slices' partial tiles in slice
+    // order (rank = slice: the cluster spans gridDim.y); the others keep
+    // theirs until it has read them
+    cluster_sync();
+    uint32_t rank;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+    if (rank == 0) {
+        const uint32_t part0 = hopper::smem_u32(part);
+        for (int p = tid; p < M * (WF_BF / 4); p += WF_THREADS) {
+            const int m = p / (WF_BF / 4), c = (p % (WF_BF / 4)) * 4;
+            const uint32_t addr = part0 + (uint32_t)(m * WF_BF + c) * 4;
+            float4 v[WF_MAX_SPLITS];
+#pragma unroll
+            for (int sp = 0; sp < WF_MAX_SPLITS; ++sp)
+                if (sp < splits) v[sp] = ld_cluster_f4(addr, sp);
+            float4 sum = v[0];
+#pragma unroll
+            for (int sp = 1; sp < WF_MAX_SPLITS; ++sp) {
+                if (sp < splits) {
+                    sum.x += v[sp].x;
+                    sum.y += v[sp].y;
+                    sum.z += v[sp].z;
+                    sum.w += v[sp].w;
+                }
+            }
+            store4(out, (size_t)m * F + n0 + c, sum, out_f32);
+        }
+    }
+    cluster_sync();
 }
 
 template <int M>
-cudaError_t launch_wholef(const void* x, const void* codes, const void* scales, void* out,
-                          float* partial, int H, int F, int qblock, int splits,
-                          int rows_per_split, int out_f32, cudaStream_t stream) {
-    const dim3 grid((F + WF_COLS - 1) / WF_COLS, splits);
-    if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-    qmm_wholef_kernel<M><<<grid, WF_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(codes),
-        static_cast<const float*>(scales), out, splits > 1 ? partial : nullptr,
-        H, F, qblock, rows_per_split, out_f32);
+cudaError_t launch_wholef(const void* x, const void* codes, const void* scales, void* out, int H,
+                          int F, int qblock, int splits, int per, int out_f32,
+                          cudaStream_t stream) {
+    CUtensorMap tm_codes;
+    if (!hopper::tensor_map(&tm_codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, H, F, WF_BF, WF_BK,
+                            CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorNotSupported;
+    const int stages = per < WF_STAGES ? per : WF_STAGES;
+    auto kernel = qmm_wholef_kernel<M>;
+    // raise the shared-memory limit to the largest plan once per device,
+    // not on every launch (a launch may be captured into a CUDA graph)
+    static bool allowed[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64 || !allowed[dev]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)wf_smem_bytes(M, WF_MAX_PER, WF_STAGES));
+        if (err != cudaSuccess) return err;
+        if (dev < 64) allowed[dev] = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(F / WF_BF, splits);
+    cfg.blockDim = dim3(WF_THREADS);
+    cfg.dynamicSmemBytes = wf_smem_bytes(M, per, stages);
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = splits;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, tm_codes, static_cast<const bf16*>(x),
+                             static_cast<const float*>(scales), out, H, F, qblock, per, stages,
+                             out_f32);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
@@ -492,9 +621,9 @@ cudaError_t launch_wgmma(const void* x, const void* codes, const void* scales, v
     return cudaGetLastError();
 }
 
-bool valid_shape(int M, int H, int F, int qblock, int splits, const void* partial) {
+bool valid_shape(int M, int H, int F, int qblock, int splits) {
     return M > 0 && H > 0 && F > 0 && H % 8 == 0 && qblock > 0 && qblock % 128 == 0 &&
-           F % qblock == 0 && splits > 0 && (splits == 1 || partial != nullptr);
+           F % qblock == 0 && splits > 0;
 }
 
 // run `body` on `device`, leaving the caller's current device as it was
@@ -524,8 +653,8 @@ extern "C" {
 int qmm_tiled(int device, const void* x, const void* codes, const void* scales, void* out,
               void* partial, void* counters, int M, int H, int F, int qblock, int block_m,
               int splits, int out_f32, void* stream) {
-    if (!valid_shape(M, H, F, qblock, splits, partial) || F % QMM_BF != 0 ||
-        splits > QMM_MAX_SPLITS || (splits > 1 && counters == nullptr) ||
+    if (!valid_shape(M, H, F, qblock, splits) || F % QMM_BF != 0 || splits > QMM_MAX_SPLITS ||
+        (splits > 1 && (partial == nullptr || counters == nullptr)) ||
         (block_m != 16 && block_m != 64 && block_m != 128))
         return (int)cudaErrorInvalidValue;
     const int k_tiles = (H + QMM_BK - 1) / QMM_BK;
@@ -549,33 +678,28 @@ int qmm_tiled(int device, const void* x, const void* codes, const void* scales, 
     });
 }
 
-// #12, M <= 8.  `splits` slices of H of round_up(ceil(H / splits), 8) rows.
+// #12, M <= 8.  `splits` (at most 8) slices of H of ceil(ceil(H / 64) /
+// splits) K tiles each (at most 64), added in one launch.
 int qmm_wholef(int device, const void* x, const void* codes, const void* scales, void* out,
-               void* partial, int M, int H, int F, int qblock, int splits, int out_f32,
-               void* stream) {
-    if (!valid_shape(M, H, F, qblock, splits, partial) || M > 8)
+               int M, int H, int F, int qblock, int splits, int out_f32, void* stream) {
+    if (!valid_shape(M, H, F, qblock, splits) || M > 8 || splits > WF_MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
-    const int rows = ((H + splits - 1) / splits + 7) / 8 * 8;
-    if ((H + rows - 1) / rows != splits) return (int)cudaErrorInvalidValue;
+    const int k_tiles = (H + WF_BK - 1) / WF_BK;
+    const int per = (k_tiles + splits - 1) / splits;
+    if ((k_tiles + per - 1) / per != splits || per > WF_MAX_PER) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    float* part = static_cast<float*>(partial);
     return on_device(device, [&]() {
-        cudaError_t err;
         switch (M) {
-#define QMM_WHOLEF_CASE(m)                                                                \
-            case m:                                                                       \
-                err = launch_wholef<m>(x, codes, scales, out, part, H, F, qblock, splits, \
-                                       rows, out_f32, st);                                \
-                break;
+#define QMM_WHOLEF_CASE(m)                                                                   \
+            case m:                                                                          \
+                return launch_wholef<m>(x, codes, scales, out, H, F, qblock, splits, per,   \
+                                        out_f32, st);
             QMM_WHOLEF_CASE(1) QMM_WHOLEF_CASE(2) QMM_WHOLEF_CASE(3) QMM_WHOLEF_CASE(4)
             QMM_WHOLEF_CASE(5) QMM_WHOLEF_CASE(6) QMM_WHOLEF_CASE(7) QMM_WHOLEF_CASE(8)
 #undef QMM_WHOLEF_CASE
             default:
-                err = cudaErrorInvalidValue;
+                return cudaErrorInvalidValue;
         }
-        if (err == cudaSuccess && splits > 1)
-            err = reduce_splits(part, out, splits, (size_t)M * F, out_f32, st);
-        return err;
     });
 }
 

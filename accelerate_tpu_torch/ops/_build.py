@@ -57,12 +57,16 @@ def _target(name: str) -> Path:
 def build_all(names) -> dict[str, Path]:
     """Compile every ``csrc/<name>.cu`` that has no library built from the
     same source and flags in ``build/`` yet, one ``nvcc`` per source, all
-    started together.  Returns each library's path."""
+    started together (each library's ptxas report beside it, so that a
+    later process reads it from ``BUILD_LOG`` too).  Returns each
+    library's path."""
     out = {name: _target(name) for name in names}
     started = {}
     for name, lib in out.items():
         if lib.is_file():
-            BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(lib)})
+            log = lib.with_suffix(".ptxas")     # the build's ptxas report, kept beside it
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "path": str(lib),
+                                        "ptxas": log.read_text() if log.is_file() else ""})
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -77,6 +81,7 @@ def build_all(names) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu:\n{stdout}\n{stderr}")
             continue
+        out[name].with_suffix(".ptxas").write_text(stderr)
         os.replace(tmp, out[name])
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": stderr,
                            "path": str(out[name])}

@@ -14,14 +14,16 @@ Two routes, two roundings (:func:`lora_apply`):
   ``x.dtype`` and runs two batched products in that dtype (``torch.bmm``),
   so ``h`` is rounded to ``x.dtype`` — JAX's two einsums.  Bitwise equal to
   the per-row :func:`lora_apply_sequential`.
-- **bgmv**: kernel #10 (:func:`bgmv`, ``csrc/lora.cu``) for T = 1 decode:
-  ``h`` and the delta in f32, rounded once to ``x.dtype``.
+- **bgmv**: kernel #10 for T = 1 decode: ``h`` and the delta in f32,
+  rounded once to ``x.dtype``.  :func:`lora_apply` calls
+  :func:`bgmv_apply` (``csrc/lora.cu``: the delta and the select below in
+  one launch); :func:`bgmv` is the delta alone (JAX's ``bgmv``).
 
 Both return ``where(ids > 0, y + delta, y)``, so id-0 rows are bitwise the
 base output, negative zeros included.  ``"auto"`` takes bgmv at T = 1 on
 any device — the CUDA kernel on a CUDA tensor, its plain version
-:func:`bgmv_plain` (the kernel's rounding) on a CPU tensor — and native
-otherwise (JAX's ``auto`` takes bgmv only on a TPU).
+:func:`bgmv_apply_plain` (the kernel's rounding) on a CPU tensor — and
+native otherwise (JAX's ``auto`` takes bgmv only on a TPU).
 
 The device pool behind the stacks is
 :class:`accelerate_tpu_torch.serving.adapters.AdapterStore`.  Pools and
@@ -100,7 +102,8 @@ def lora_apply(x, y, a_stack, b_stack, adapter_ids, *, kernel: Optional[str] = N
     ``[P+1, r, d_out]`` (slot 0 = the null adapter); ``adapter_ids``:
     ``[B]`` int pool-slot indices on ``x``'s device.  Id-0 rows come back
     bitwise unchanged (a ``where`` select, not ``y + 0``).  ``kernel``
-    overrides the ambient mode (:func:`lora_kernel`)."""
+    overrides the ambient mode (:func:`lora_kernel`); at T = 1 under bgmv
+    the whole call is :func:`bgmv_apply`, looked up when called."""
     ids = torch.as_tensor(adapter_ids, device=x.device).to(torch.int32)
     squeeze = x.dim() == 2
     if squeeze:
@@ -110,13 +113,14 @@ def lora_apply(x, y, a_stack, b_stack, adapter_ids, *, kernel: Optional[str] = N
     mode = _resolve_kernel(normalize_lora_kernel(kernel) if kernel is not None
                            else lora_kernel_mode(), t)
     if mode == "bgmv" and t == 1:
-        delta = bgmv(x[:, 0].contiguous(), a_stack, b_stack, ids)[:, None]
+        out = bgmv_apply(x[:, 0].contiguous(), y[:, 0].contiguous(), a_stack, b_stack,
+                         ids)[:, None]
     else:
         idx = ids.long()
         a = a_stack[idx].to(x.dtype)                # [B, d_in, r]
         b = b_stack[idx].to(x.dtype)                # [B, r, d_out]
         delta = torch.bmm(torch.bmm(x, a), b)
-    out = torch.where((ids > 0)[:, None, None], y + delta.to(y.dtype), y)
+        out = torch.where((ids > 0)[:, None, None], y + delta.to(y.dtype), y)
     return out[:, 0] if squeeze else out
 
 
@@ -149,9 +153,10 @@ def lora_apply_sequential(x, y, a_stack, b_stack, adapter_ids):
 BGMV_MAX_RANK = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# device, x, a_stack, b_stack, ids, out, then S d_in r d_out N, the stream
+# device, x, [y,] a_stack, b_stack, ids, out, then S d_in r d_out N, the stream
 _SIGNATURES = {
     "bgmv_bf16": ([_I] + [_P] * 5 + [_I] * 5 + [_P], _I),
+    "bgmv_apply_bf16": ([_I] + [_P] * 6 + [_I] * 5 + [_P], _I),
     "lora_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -161,79 +166,121 @@ def _lib() -> ctypes.CDLL:
 
 
 def bgmv_plain(x, a_stack, b_stack, ids):
-    """Plain PyTorch version of kernel #10 with its rounding: per row,
-    ``h = x[s] . A[ids[s]]`` and ``delta = h . B[ids[s]]`` in f32 (operands
-    widened to f32), rounded once to ``x.dtype``."""
-    idx = torch.as_tensor(ids, device=x.device).long()
+    """Plain PyTorch version of kernel #10's delta with its rounding: per
+    row, ``h = x[s] . A[ids[s]]`` and ``delta = h . B[ids[s]]`` in f32
+    (operands widened to f32), rounded once to ``x.dtype``; a row whose id
+    is outside ``[1, N)`` gives zeros, as the kernel writes them."""
+    ids = torch.as_tensor(ids, device=x.device)
+    valid = (ids > 0) & (ids < a_stack.shape[0])
+    idx = torch.where(valid, ids, torch.zeros_like(ids)).long()
     h = torch.bmm(x.float()[:, None], a_stack[idx].float())        # [S, 1, r]
-    return torch.bmm(h, b_stack[idx].float())[:, 0].to(x.dtype)   # [S, d_out]
+    delta = torch.bmm(h, b_stack[idx].float())[:, 0]               # [S, d_out]
+    return torch.where(valid[:, None], delta, torch.zeros_like(delta)).to(x.dtype)
 
 
-def _check_bgmv_operands(x, a_stack, b_stack, ids):
-    dev = x.device
-    for label, t in (("x", x), ("a_stack", a_stack), ("b_stack", b_stack), ("ids", ids)):
-        if t.device != dev:
-            raise ValueError(f"bgmv: {label} is on {t.device}, x on {dev}")
+def bgmv_apply_plain(x, y, a_stack, b_stack, ids):
+    """Plain PyTorch version of :func:`bgmv_apply`: the composition
+    ``where(ids > 0, y + bgmv_plain(x, ...).to(y.dtype), y)``, so id-0 rows
+    are ``y`` bitwise and an id ``>= N`` adds a zero delta."""
+    ids = torch.as_tensor(ids, device=x.device)
+    delta = bgmv_plain(x, a_stack, b_stack, ids)
+    return torch.where((ids > 0)[:, None], y + delta.to(y.dtype), y)
+
+
+def _check_bgmv(name, x, a_stack, b_stack, ids, y=None):
+    """Shapes on any device; on a CUDA device also what the kernel takes:
+    bf16 operands, int32 ids, contiguous on x's device, ``r <= 64``.
+    Returns the int32 ids on x's device."""
+    s_slots, d_in = x.shape
+    n_adapters, d_in_a, rank = a_stack.shape
+    d_out = b_stack.shape[2]
+    if d_in_a != d_in or tuple(b_stack.shape[:2]) != (n_adapters, rank):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, a_stack {tuple(a_stack.shape)} and "
+                         f"b_stack {tuple(b_stack.shape)} do not fit together")
+    if y is not None and tuple(y.shape) != (s_slots, d_out):
+        raise ValueError(f"{name}: y of shape {tuple(y.shape)} for {s_slots} rows of "
+                         f"{d_out} columns")
+    ids = torch.as_tensor(ids, device=x.device).to(torch.int32)
+    if tuple(ids.shape) != (s_slots,):
+        raise ValueError(f"{name}: ids of shape {tuple(ids.shape)} for {s_slots} rows")
+    if x.device.type == "cpu":
+        return ids
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    tensors = (("x", x), ("a_stack", a_stack), ("b_stack", b_stack), ("ids", ids)) + (
+        (("y", y),) if y is not None else ())
+    for label, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"bgmv: {label} must be contiguous")
-    for label, t in (("x", x), ("a_stack", a_stack), ("b_stack", b_stack)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"bgmv: {label} must be torch.bfloat16 for the CUDA kernel, "
+            raise ValueError(f"{name}: {label} must be contiguous")
+        if label != "ids" and t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {label} must be torch.bfloat16 for the CUDA kernel, "
                             f"got {t.dtype}")
-    if ids.dtype != torch.int32:
-        raise TypeError(f"bgmv: ids must be int32, got {ids.dtype}")
+    if rank > BGMV_MAX_RANK:
+        raise ValueError(f"{name}: the CUDA kernel takes rank <= {BGMV_MAX_RANK}, got {rank}")
+    return ids
+
+
+def _launch(name, cname, x, a_stack, b_stack, ids, y=None):
+    s_slots, d_in = x.shape
+    n_adapters, _, rank = a_stack.shape
+    d_out = b_stack.shape[2]
+    out = torch.empty(s_slots, d_out, dtype=x.dtype, device=x.device)
+    err = getattr(_lib(), cname)(
+        x.device.index or 0, x.data_ptr(), *([] if y is None else [y.data_ptr()]),
+        a_stack.data_ptr(), b_stack.data_ptr(), ids.data_ptr(), out.data_ptr(), s_slots, d_in,
+        rank, d_out, n_adapters, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        msg = _lib().lora_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
+    _WRAPPERS[name].launches += 1
+    return out
 
 
 def bgmv(x, a_stack, b_stack, ids):
-    """Kernel #10 (JAX ``bgmv`` / ``_bgmv_kernel``): the per-slot adapter
-    delta ``(x[s] @ a_stack[ids[s]]) @ b_stack[ids[s]]``, f32-accumulated,
-    in ``x.dtype``.
+    """Kernel #10's delta (JAX ``bgmv`` / ``_bgmv_kernel``): the per-slot
+    adapter delta ``(x[s] @ a_stack[ids[s]]) @ b_stack[ids[s]]``,
+    f32-accumulated, in ``x.dtype``.
 
     ``x``: ``[S, d_in]``; stacks ``[N, d_in, r]`` / ``[N, r, d_out]``;
     ``ids``: ``[S]`` int32.  CUDA tensors launch ``bgmv_bf16``
     (``csrc/lora.cu``, bf16 operands, ``r <= 64``) on the current stream,
     reading only each row's own factors; an id outside ``[1, N)`` gives a
-    zero row (the caller's ``where`` discards id-0 rows, and the engine
-    checks ids against the pool on the host).  CPU tensors run
-    :func:`bgmv_plain`."""
-    s_slots, d_in = x.shape
-    n_adapters, d_in_a, rank = a_stack.shape
-    d_out = b_stack.shape[2]
-    if d_in_a != d_in or tuple(b_stack.shape[:2]) != (n_adapters, rank):
-        raise ValueError(f"bgmv: x {tuple(x.shape)}, a_stack {tuple(a_stack.shape)} and "
-                         f"b_stack {tuple(b_stack.shape)} do not fit together")
-    ids = torch.as_tensor(ids, device=x.device).to(torch.int32)
-    if tuple(ids.shape) != (s_slots,):
-        raise ValueError(f"bgmv: ids of shape {tuple(ids.shape)} for {s_slots} rows")
+    zero row (the engine checks ids against the pool on the host).  CPU
+    tensors run :func:`bgmv_plain`."""
+    ids = _check_bgmv("bgmv", x, a_stack, b_stack, ids)
     if x.device.type == "cpu":
         return bgmv_plain(x, a_stack, b_stack, ids)
-    if x.device.type != "cuda":
-        raise ValueError(f"bgmv: unsupported device {x.device}")
-    _check_bgmv_operands(x, a_stack, b_stack, ids)
-    if rank > BGMV_MAX_RANK:
-        raise ValueError(f"bgmv: the CUDA kernel takes rank <= {BGMV_MAX_RANK}, got {rank}")
-    out = torch.empty(s_slots, d_out, dtype=x.dtype, device=x.device)
-    err = _lib().bgmv_bf16(
-        x.device.index or 0, x.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), s_slots, d_in, rank, d_out, n_adapters,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        msg = _lib().lora_error_string(err).decode()
-        raise RuntimeError(f"bgmv: CUDA kernel launch failed: {msg} ({err})")
-    _WRAPPERS["bgmv"].launches += 1
-    return out
+    return _launch("bgmv", "bgmv_bf16", x, a_stack, b_stack, ids)
 
 
 bgmv.launches = 0
 
-# the wrapper's counter, bound here so that a stand-in routed in under its
-# module name neither takes nor hides a launch
-_WRAPPERS = {"bgmv": bgmv}
+
+def bgmv_apply(x, y, a_stack, b_stack, ids):
+    """Kernel #10 with :func:`lora_apply`'s select folded in:
+    ``where(ids > 0, y + bgmv(x, ...), y)`` in one launch.  ``y``: the base
+    output ``[S, d_out]``, a new tensor returned (id-0 rows bitwise ``y``).
+    CUDA tensors launch ``bgmv_apply_bf16`` (``csrc/lora.cu``: one block
+    per row and 256 output columns) on the current stream; CPU tensors run
+    :func:`bgmv_apply_plain`."""
+    ids = _check_bgmv("bgmv_apply", x, a_stack, b_stack, ids, y=y)
+    if x.device.type == "cpu":
+        return bgmv_apply_plain(x, y, a_stack, b_stack, ids)
+    return _launch("bgmv_apply", "bgmv_apply_bf16", x, a_stack, b_stack, ids, y=y)
+
+
+bgmv_apply.launches = 0
+
+# the wrappers' counters, bound here so that a stand-in routed in under a
+# wrapper's module name neither takes nor hides a launch
+_WRAPPERS = {"bgmv": bgmv, "bgmv_apply": bgmv_apply}
 
 
 def reset_launch_counts() -> None:
-    """Zero kernel #10's launch counter."""
+    """Zero kernel #10's launch counters (both entry points)."""
     for wrapper in _WRAPPERS.values():
         wrapper.launches = 0
 

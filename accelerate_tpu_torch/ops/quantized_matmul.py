@@ -20,8 +20,10 @@ JAX's tile knobs ``block_m`` / ``block_k`` / ``block_f`` are not taken; the
 route is the one JAX takes at its default tiles.  #11's tile plan
 (:func:`tiled_plan`) is the port's own: 16- or 64-row tiles at decode
 width (m <= 64), 128-row tiles above, and a split of H over blocks that the
-kernel adds back itself, in one launch.  The two kernels round
-differently, and each plain version follows its own kernel:
+kernel adds back itself, in one launch; so is #12's (:func:`wholef_plan`:
+128-column tiles by up to 8 slices of H, one cluster a tile, one launch).
+The two kernels round differently, and each plain version follows its own
+kernel:
 
 - #11: ``w = bf16(f32(code) * scale)``, then ``bf16(x) @ w`` in f32;
 - #12: per quantization block ``b`` of F, ``bf16(f32(x) * s[b, :]) @
@@ -51,21 +53,21 @@ from ..utils.quantization import QuantizedTensor, dequantize
 from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# device, x, codes, scales, out, partial (NULL unless split), then M H F
-# qblock splits out_is_f32, and the stream
-_LAUNCH = ([_I] + [_P] * 5 + [_I] * 6 + [_P], _I)
+# device, x, codes, scales, out, [partial, counters (both NULL unless
+# split),] then M H F qblock [block_m] splits out_is_f32, and the stream
 _SIGNATURES = {
-    # device, x, codes, scales, out, partial, counters (both NULL unless
-    # split), then M H F qblock block_m splits out_is_f32, and the stream
     "qmm_tiled": ([_I] + [_P] * 6 + [_I] * 7 + [_P], _I),
-    "qmm_wholef": _LAUNCH,
+    "qmm_wholef": ([_I] + [_P] * 4 + [_I] * 6 + [_P], _I),
     "qmm_error_string": ([_I], ctypes.c_char_p),
 }
 _NUM_SMS = 132          # H100 SXM
 _TILED_BN, _TILED_BK = 128, 64
 _DECODE_MAX_M = 64      # #11's decode-width plan up to here, the prefill plan above
 _MAX_SPLITS = 8         # #11's slices of H, all read at once by the kernel's sum
-_WHOLEF_COLS, _WHOLEF_MAX_M = 256, 8
+_WHOLEF_BF, _WHOLEF_BK, _WHOLEF_MAX_M = 128, 64, 8
+_WHOLEF_MIN_PER = 2     # #12's shortest slice in K tiles: partials a small share of the codes
+_WHOLEF_MAX_PER = 64    # #12's longest slice: the staged x * s fits shared memory
+_WHOLEF_MAX_SPLITS = 8  # #12's slices: the blocks of one (portable) thread-block cluster
 
 
 def _lib() -> ctypes.CDLL:
@@ -220,13 +222,41 @@ def tiled_plan(m: int, h: int, f: int) -> TiledPlan:
                      tiles=tiles)
 
 
-def wholef_splits(m: int, h: int, f: int) -> int:
-    """Kernel #12's split of H: about two blocks per SM over the F column
-    tiles, each slice a multiple of the block's 8 row groups."""
-    tiles = -(-f // _WHOLEF_COLS)
-    splits = max(1, min(-(-h // 8), -(-2 * _NUM_SMS // tiles)))
-    rows = -(-(-(-h // splits)) // 8) * 8
-    return -(-h // rows)
+@dataclass(frozen=True)
+class WholefPlan:
+    """Kernel #12's launch plan for an ``[m, H] @ [H, F]`` call, ``m <= 8``.
+
+    Blocks are 128 output columns (``tiles`` of them) by a slice of
+    ``k_tiles_per_split`` 64-row K tiles of H (the last may be shorter);
+    with ``splits > 1`` the blocks of a column tile form a thread-block
+    cluster and add their slices through distributed shared memory, in
+    the same launch."""
+
+    splits: int
+    k_tiles_per_split: int
+    tiles: int
+
+
+def wholef_plan(m: int, h: int, f: int) -> WholefPlan:
+    """#12's plan: about one and a half waves of blocks on the SMs (H split
+    while the column tiles leave SMs idle; a block's chain of tiles is
+    latency-bound, so a second block on an SM hides it: on the card the
+    600m denses ran fastest so), at most 8 slices (a cluster), each at
+    least two K tiles and at most 64 (the slice's staged ``bf16(x * s)`` in
+    shared memory, so H <= 32768).  The slice count is then the one the C
+    entry point recomputes from it (``ceil(k_tiles / ceil(k_tiles /
+    splits))``); ``m`` does not change the plan.  Raises ValueError for an
+    H above 32768."""
+    del m
+    tiles = f // _WHOLEF_BF
+    k_tiles = -(-h // _WHOLEF_BK)
+    if k_tiles > _WHOLEF_MAX_SPLITS * _WHOLEF_MAX_PER:
+        raise ValueError(f"quantized_matmul_wholef: the CUDA kernel takes H <= "
+                         f"{_WHOLEF_MAX_SPLITS * _WHOLEF_MAX_PER * _WHOLEF_BK}, got {h}")
+    splits = max(1, min(3 * _NUM_SMS // (2 * tiles), -(-k_tiles // _WHOLEF_MIN_PER),
+                        _WHOLEF_MAX_SPLITS), -(-k_tiles // _WHOLEF_MAX_PER))
+    per = -(-k_tiles // splits)
+    return WholefPlan(splits=-(-k_tiles // per), k_tiles_per_split=per, tiles=tiles)
 
 
 def _raise_on(name, err):
@@ -235,42 +265,24 @@ def _raise_on(name, err):
         raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
 
 
-def _launch(name, cname, x, codes, scales, qblock, out_dtype, splits):
-    """Launch ``cname`` (#12) on the current stream into a fresh output
-    (and an f32 scratch of partial sums when H is split, added by a second
-    launch) and count the launch on the wrapper ``name``."""
-    m, h = x.shape
-    f = codes.shape[1]
-    out = torch.empty(m, f, dtype=out_dtype, device=x.device)
-    partial = (torch.empty(splits, m, f, dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    _raise_on(name, getattr(_lib(), cname)(
-        x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), None if partial is None else partial.data_ptr(),
-        m, h, f, qblock, splits, int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    ))
-    _WRAPPERS[name].launches += 1
-    return out
-
-
-# #11's arrival counters, one int32 per output tile of a split call, per
-# device: allocated zeroed once and left at zero by every launch.  H is
-# split only while two blocks of each tile fit on the SMs (tiled_plan),
-# so a split call has at most _NUM_SMS // 2 tiles
+# The arrival counters of #11's split calls: one zeroed int32 buffer per
+# (device, stream, size), allocated at the first split call on that stream
+# and left at zero by every launch, so no launch pays a memset.  Launches
+# on one stream run in order and may share a buffer; launches on two
+# streams never do.
 _COUNTERS: dict = {}
 
 
-def _counters(device, tiles: int):
-    buf = _COUNTERS.get(device)
+def _counters(device, stream: int, size: int):
+    key = (device.index or 0, stream, size)
+    buf = _COUNTERS.get(key)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "quantized_matmul_tiled: the split's counter scratch must be allocated "
-                "before a CUDA graph capture: run the call once outside the capture")
-        buf = torch.zeros(_NUM_SMS // 2, dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    assert tiles <= buf.numel(), (tiles, buf.numel())
+                "quantized_matmul_tiled: the split's counters of this stream and size must be "
+                "allocated before a CUDA graph capture: run the call once on the capture "
+                "stream outside the capture")
+        buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=device)
     return buf
 
 
@@ -286,8 +298,8 @@ def quantized_matmul_tiled(x, codes, scales, *, qblock: int, out_dtype=None):
     """Kernel #11 (JAX ``_qmm_kernel``): ``[m, F]``.  CUDA tensors launch
     ``qmm_tiled`` (``csrc/quantized_matmul.cu``) once, on the plan of
     :func:`tiled_plan`; CPU tensors run :func:`quantized_matmul_plain`.
-    Launches on one device share its counter scratch, so they run in
-    stream order (one stream, or streams that wait on each other)."""
+    A split call's counters are its stream's (``_counters``): a CUDA graph
+    capture needs one eager call of the same plan on its stream first."""
     out_dtype = out_dtype or x.dtype
     if not _device_route("quantized_matmul_tiled", x):
         return quantized_matmul_plain(x, codes, scales, qblock=qblock, out_dtype=out_dtype)
@@ -295,17 +307,17 @@ def quantized_matmul_tiled(x, codes, scales, *, qblock: int, out_dtype=None):
     m, h = x.shape
     f = codes.shape[1]
     plan = tiled_plan(m, h, f)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty(m, f, dtype=out_dtype, device=x.device)
     partial = counters = None
     if plan.splits > 1:
         partial = torch.empty(plan.splits, m, f, dtype=torch.float32, device=x.device)
-        counters = _counters(x.device, plan.tiles)
+        counters = _counters(x.device, stream, plan.tiles)
     _raise_on("quantized_matmul_tiled", _lib().qmm_tiled(
         x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
-        m, h, f, qblock, plan.block_m, plan.splits, int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        m, h, f, qblock, plan.block_m, plan.splits, int(out_dtype == torch.float32), stream,
     ))
     _WRAPPERS["quantized_matmul_tiled"].launches += 1
     return out
@@ -316,8 +328,9 @@ quantized_matmul_tiled.launches = 0
 
 def quantized_matmul_wholef(x, codes, scales, *, qblock: int, out_dtype=None):
     """Kernel #12 (JAX ``_qmm_wholef_kernel``), ``m <= 8``: ``[m, F]``.
-    CUDA tensors launch ``qmm_wholef``; CPU tensors run
-    :func:`quantized_matmul_wholef_plain`."""
+    CUDA tensors launch ``qmm_wholef`` once, on the plan of
+    :func:`wholef_plan` (no scratch: a split adds its slices inside a
+    cluster); CPU tensors run :func:`quantized_matmul_wholef_plain`."""
     out_dtype = out_dtype or x.dtype
     if not _device_route("quantized_matmul_wholef", x):
         return quantized_matmul_wholef_plain(x, codes, scales, qblock=qblock,
@@ -327,8 +340,16 @@ def quantized_matmul_wholef(x, codes, scales, *, qblock: int, out_dtype=None):
     if m > _WHOLEF_MAX_M:
         raise ValueError(f"quantized_matmul_wholef: the CUDA kernel takes at most "
                          f"{_WHOLEF_MAX_M} rows, got {m}")
-    return _launch("quantized_matmul_wholef", "qmm_wholef", x, codes, scales, qblock, out_dtype,
-                   wholef_splits(m, h, codes.shape[1]))
+    f = codes.shape[1]
+    plan = wholef_plan(m, h, f)
+    out = torch.empty(m, f, dtype=out_dtype, device=x.device)
+    _raise_on("quantized_matmul_wholef", _lib().qmm_wholef(
+        x.device.index or 0, x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        m, h, f, qblock, plan.splits, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ))
+    _WRAPPERS["quantized_matmul_wholef"].launches += 1
+    return out
 
 
 quantized_matmul_wholef.launches = 0

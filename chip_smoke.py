@@ -26,11 +26,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    instance of ``paged_decode.cu``; and for the W8A16 matmuls at the 600m
    model's four dense shapes and one H with a partial K tile: #11 at m 16,
    64, 65 (its plan switch) and 512, #12 at m 1, 4 and 8 (``F.linear`` on
-   the dequantized bf16 weight as the yardstick).  With ``--before DIR``
-   (a checkout of an earlier commit, such as ``git archive`` of it unpacked
-   under ``build/``), #4 / #5 as DIR's ``paged_attention.cu`` built them
-   (one block per slot and kv head, pages in turn) are held to their plain
-   versions at every decode case and timed beside the new ones
+   the dequantized bf16 weight as the yardstick), #12 also on two streams
+   at once (bitwise) and with ptxas's registers and spills of each
+   instance.  With ``--before DIR`` (a checkout of an earlier commit, such
+   as ``git archive`` of it unpacked under ``build/``), #4 / #5 as DIR's
+   ``paged_attention.cu`` built them (one block per slot and kv head, pages
+   in turn), where it has them, and #12 as DIR's ``quantized_matmul.cu``
+   builds it (both its launches, on DIR's split rule), where it has that
+   design, are held to their plain versions and timed beside the new ones
    (``before_ms``);
 4. holds the flash-attention kernels (#1 forward, #2 dq, #3 dk/dv) against
    their plain versions at the 600m training shapes (16 q / 8 kv heads,
@@ -65,29 +68,37 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
 5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
-   with every launch of the four held against its plain version; then the
-   same with the bf16 model over bf16 pages (#4, #6);
-5c. holds the LoRA gather-matmul kernel #10 (``bgmv``) against its plain
-   version at the 600m q_proj (1536 -> 1536) and v_proj (1536 -> 768)
-   shapes, 16 slots, rank 16, ids mixing 0 and 1..4, and times it (20
-   launches in a CUDA graph) beside its plain version, its bound and the
-   gathered ``torch.bmm`` pair (a yardstick only);
+   with every launch of the four held against its plain version, under
+   ``torch.profiler``: one device kernel per #12 call; then the same with
+   the bf16 model over bf16 pages (#4, #6);
+5c. holds the LoRA kernel #10 with the select folded in (``bgmv_apply``)
+   against its plain composition at the 600m q_proj (1536 -> 1536) and
+   v_proj (1536 -> 768) shapes, 16 slots, rank 16, ids mixing 0 and 1..4:
+   bitwise the select over the kernel's own delta, id-0 rows ``y``
+   bitwise; holds the delta alone (``bgmv``) to ``bgmv_plain``; and times
+   both (20 launches in a CUDA graph) beside its plain version, its bound,
+   the delta and the three elementwise launches it replaces, and the
+   gathered ``torch.bmm`` pair (a yardstick only); prints ptxas's registers
+   and spills of each instance.  With ``--before DIR``, DIR's #10 plus
+   those three launches are held to the plain composition and timed the
+   same way (``before_ms``);
 5d. serves the same 16-request trace with 8 tenants' rank-16 LoRA adapters
    on q_proj and v_proj (``bench.py --serve --adapters 8``: a pool of 4
    slots, so the trace hot-swaps) through ``AdapterStore`` and
    ``ServingEngine(adapters=)``: every request finishes, the page mirror is
-   in sync, #10 launches for both targets of every layer on every decode
-   step (#4 / #6 as in the bf16 serve), each swap moves one adapter's
-   2,752,512 bytes; a second serve holds every #10 and paged launch against
-   its plain version on the engine's own operands, and a teacher-forced
-   rerun of one adapter request through kernels and plain versions agrees;
+   in sync, #10 (``bgmv_apply``) launches for both targets of every layer
+   on every decode step (#4 / #6 as in the bf16 serve), each swap moves
+   one adapter's 2,752,512 bytes; a second serve holds every #10 and paged
+   launch against its plain version on the engine's own operands, and a
+   teacher-forced rerun of one adapter request through kernels and plain
+   versions agrees;
    reports its tokens/s, latencies, pool hit rate (measured and predicted),
    swaps and swap bytes beside the bf16 serve's;
 5e. drives the fused LoRA-query + paged-decode op (#8 over bf16 pages, #9
    over int8 and fp8 pages) on a LoRA engine's own operands after its
    decode ticks (layer 0's pages, block tables, positions, q_proj stacks,
    normed input and roped base q), held against its plain version and
-   against the composed route (#10, rope, #4 / #5), timed beside both and
+   against the composed route (#10's delta, rope, #4 / #5), timed beside both and
    beside the composed route with SDPA over the gathered pages;
 6. trains the 600m Llama (bench.py's training step: bf16, flash attention,
    lion-sr on bf16 params, bf16 gradients, fused linear + CE over 4 vocab
@@ -139,7 +150,9 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
 # worst error over a whole output must also stay within KERNEL_TOL of the
 # output's largest |ref|.  Kernel #10's outputs (LoRA deltas) are not O(1):
 # there each element may also be off by half a bf16 step of its |ref|, the
-# output's one rounding (``held_to_plain(rounding_slack=True)``)
+# output's one rounding (``held_to_plain(slack=half_ulp_bf16(ref))``), and
+# its fused output (y + delta, two roundings) by half a step of the delta
+# and half a step of the sum (``lora_plain``)
 KERNEL_TOL = 2e-2
 ROW_SCALE_FLOOR = 1e-3
 
@@ -195,7 +208,7 @@ LORA_ADAPTER_BYTES = 16 * (1536 * 16 + 16 * 1536 + 1536 * 16 + 16 * 768) * 2
 LORA_IDS = [0, 1, 2, 1, 3, 0, 4, 4, 2, 0, 1, 3, 3, 4, 0, 2]   # 16 slots, ids 0..4
 LORA_SHAPES = {"q_proj": (1536, 1536), "v_proj": (1536, 768)}
 LORA_TICKS = 24       # decode ticks before the fused op takes the engine's operands
-LORA_REPLACES = {"bgmv": "accelerate_tpu/ops/lora.py:177",
+LORA_REPLACES = {"bgmv_apply": "accelerate_tpu/ops/lora.py:177",
                  "fused_bgmv_paged_decode": "accelerate_tpu/ops/flash_attention.py:988",
                  "fused_bgmv_paged_decode_quant": "accelerate_tpu/ops/flash_attention.py:999"}
 
@@ -286,12 +299,12 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- the earlier designs of #2 / #3 and #4 / #5 (--before) --------------------
+# -- the earlier designs of #2 / #3, #4 / #5, #10 and #12 (--before) ---------
 
 # filled by main() from ``--before DIR``: name -> a callable with the
 # kernel wrapper's arguments that launches the earlier design
 BEFORE: dict = {}
-BEFORE_SOURCES = ("flash_attention", "paged_attention")
+BEFORE_SOURCES = ("flash_attention", "paged_attention", "quantized_matmul", "lora")
 
 
 def start_before_build(path: Path) -> dict:
@@ -315,12 +328,36 @@ def start_before_build(path: Path) -> dict:
     return started
 
 
-def before_kernels(torch, builds: dict) -> dict:
+def before_function(path: Path, name: str):
+    """The module-level function ``name`` of the Python source ``path``,
+    with the module's constant assignments it may read (the file is not
+    imported: its package is another checkout's)."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+
+    def constant(node) -> bool:      # NAME[, NAME...] = literal[, literal...]
+        return (isinstance(node, ast.Assign)
+                and all(isinstance(t, (ast.Name, ast.Tuple)) for t in node.targets)
+                and all(isinstance(v, (ast.Constant, ast.Tuple, ast.expr_context))
+                        for v in ast.walk(node.value)))
+
+    keep = [node for node in tree.body
+            if (isinstance(node, ast.FunctionDef) and node.name == name) or constant(node)]
+    namespace: dict = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"), namespace)
+    return namespace.get(name)
+
+
+def before_kernels(torch, builds: dict, path: Path) -> dict:
     """Bind the earlier designs built by :func:`start_before_build`, called
     as their wrappers call them: #2 and #3 (``flash_attention_dq_bf16`` and
-    ``flash_attention_dkv_bf16`` of the earlier ``flash_attention.cu``) and
+    ``flash_attention_dkv_bf16`` of the earlier ``flash_attention.cu``),
     #4 / #5 (``paged_decode_attention_{bf16,int8,fp8}`` of the earlier
-    ``paged_attention.cu``: one block per (slot, kv head), pages in turn)."""
+    ``paged_attention.cu``: one block per (slot, kv head), pages in turn),
+    #12 (the earlier ``qmm_wholef``: two launches, on the earlier
+    ``wholef_splits``) and #10 (the earlier ``bgmv_bf16`` with the three
+    elementwise launches of the select around it)."""
     libs = {}
     for name, (proc, lib) in builds.items():
         _, err = proc.communicate()
@@ -355,6 +392,7 @@ def before_kernels(torch, builds: dict) -> dict:
         return dk, dv
 
     kernels = {"flash_dq": flash_dq, "flash_dkv": flash_dkv}
+    kernels.update(before_w8a16_lora(torch, libs, path))
     # the earlier decode entry points, where DIR's paged_attention.cu still
     # has them: device, q, k_pages, v_pages, [k_scales, v_scales,]
     # block_tables, positions, out, S T H Hkv D P page n, sm_scale, stream
@@ -386,6 +424,58 @@ def before_kernels(torch, builds: dict) -> dict:
 
     return {**kernels, "paged_decode_attention": paged_decode,
             "paged_decode_attention_quant": paged_decode}
+
+
+def before_w8a16_lora(torch, libs: dict, path: Path) -> dict:
+    """#10's earlier route (DIR's ``bgmv_bf16``, then the id test, the add
+    and the select: four launches) and, where DIR has it, #12's earlier
+    design (``qmm_wholef`` with an f32 scratch and a second launch that
+    adds the slices, split by DIR's ``wholef_splits``)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lo = libs["lora"]
+    lo.bgmv_bf16.argtypes = [I] + [P] * 5 + [I] * 5 + [P]
+    lo.bgmv_bf16.restype = I
+
+    def bgmv_apply(x, y, a_stack, b_stack, ids):
+        delta = torch.empty(x.shape[0], b_stack.shape[2], dtype=x.dtype, device=x.device)
+        err = lo.bgmv_bf16(x.device.index or 0, x.data_ptr(), a_stack.data_ptr(),
+                           b_stack.data_ptr(), ids.data_ptr(), delta.data_ptr(), x.shape[0],
+                           x.shape[1], a_stack.shape[2], b_stack.shape[2], a_stack.shape[0],
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"--before: bgmv_bf16 launch failed ({err})")
+        return torch.where((ids > 0)[:, None], y + delta, y)
+
+    kernels = {"bgmv_apply": bgmv_apply}
+    splits_of = before_function(path / "accelerate_tpu_torch" / "ops" / "quantized_matmul.py",
+                                "wholef_splits")
+    if splits_of is None:
+        log("--before: DIR's quantized_matmul.py has no wholef_splits (its #12 is this "
+            "design): no earlier #12 to time")
+        return kernels
+    qm = libs["quantized_matmul"]
+    qm.qmm_wholef.argtypes = [I] + [P] * 5 + [I] * 6 + [P]
+    qm.qmm_wholef.restype = I
+
+    def wholef(x, codes, scales, *, qblock, out_dtype=None):
+        out_dtype = out_dtype or x.dtype
+        m, h = x.shape
+        f = codes.shape[1]
+        splits = splits_of(m, h, f)
+        out = torch.empty(m, f, dtype=out_dtype, device=x.device)
+        partial = (torch.empty(splits, m, f, dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        err = qm.qmm_wholef(x.device.index or 0, x.data_ptr(), codes.data_ptr(),
+                            scales.data_ptr(), out.data_ptr(),
+                            None if partial is None else partial.data_ptr(), m, h, f, qblock,
+                            splits, int(out_dtype == torch.float32),
+                            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"--before: qmm_wholef launch failed ({err})")
+        return out
+
+    kernels["quantized_matmul_wholef"] = wholef
+    return kernels
 
 
 def paged_case(torch, *, slots, width, pos0, copies=4, seed=0, kv_dtype=None, device="cuda",
@@ -452,17 +542,17 @@ def half_ulp_bf16(torch, ref):
                        torch.zeros_like(mag))
 
 
-def held_to_plain(torch, name, out, ref, rounding_slack=False) -> dict:
+def held_to_plain(torch, name, out, ref, slack=None) -> dict:
     """A kernel's ``out`` against ``ref``, its plain version in f32 on the
-    same bf16 operands, row by row (see ``KERNEL_TOL``).  With
-    ``rounding_slack`` each element may also be off by half a bf16 step of
-    its |ref|, the one rounding of a bf16 output (for outputs that leave
-    O(1): at |ref| >= 8 half a step is above KERNEL_TOL).  Returns the
-    readings; raises if a row fails or ``out`` is not finite."""
+    same bf16 operands, row by row (see ``KERNEL_TOL``).  With ``slack``
+    (a tensor like ``ref``) each element may also be off by that much: the
+    roundings of a bf16 output that leaves O(1) (at |ref| >= 8 half a bf16
+    step is above KERNEL_TOL).  Returns the readings; raises if a row fails
+    or ``out`` is not finite."""
     width = out.shape[-2] * out.shape[-1]
     err = (out.float() - ref.float()).abs()
-    if rounding_slack:
-        err = (err - half_ulp_bf16(torch, ref)).clamp(min=0)
+    if slack is not None:
+        err = (err - slack).clamp(min=0)
     diff = err.reshape(-1, width).amax(dim=1)
     scale = ref.float().reshape(-1, width).abs().amax(dim=1)
     floor = ROW_SCALE_FLOOR * scale.max().clamp(max=1.0).item()
@@ -477,6 +567,19 @@ def held_to_plain(torch, name, out, ref, rounding_slack=False) -> dict:
             and rep["err_over_tensor_max"] <= KERNEL_TOL):
         raise AssertionError(f"{name}: output off its plain version: {rep}")
     return rep
+
+
+def lora_plain(torch, lora_mod, x, y, a_stack, b_stack, ids):
+    """#10's fused plain version in f32 on the kernel's bf16 operands,
+    ``where(ids > 0, y + delta, y)`` with the f32 delta of ``bgmv_plain``,
+    and the slack of the kernel's two roundings (the delta's and the
+    sum's, half a bf16 step each; none on the rows it copies)."""
+    delta = lora_mod.bgmv_plain(x.float(), a_stack, b_stack, ids)
+    live = (ids > 0)[:, None]
+    ref = torch.where(live, y.float() + delta, y.float())
+    slack = torch.where(live, half_ulp_bf16(torch, delta) + half_ulp_bf16(torch, ref),
+                        torch.zeros_like(ref))
+    return ref, slack
 
 
 def _pool_args(pool):
@@ -555,7 +658,8 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
 
 CASE_KEYS = ("shape", "max_abs_err", "err_over_limit", "worst_row_err", "worst_row_ref_max",
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms")
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms", "delta_ms",
+             "four_launch_ms")
 
 
 def _with_cases(cases: list, main: dict) -> dict:
@@ -584,14 +688,24 @@ def decode_ptxas(ptxas: str) -> dict:
     ``paged_decode.cu``'s kernel in its build log, by page kind, head dim
     and query rows a block."""
     kinds = {"Bf16Pages": "bf16", "Int8Codes": "int8", "Fp8Codes": "fp8"}
+
+    def instance(name):
+        k = re.search(r"(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)E", name)
+        return f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}"
+
+    return kernel_ptxas(ptxas, "paged_decode_kernel", instance)
+
+
+def kernel_ptxas(ptxas: str, kernel: str, instance) -> dict:
+    """ptxas's registers and spilled bytes of each instance of ``kernel`` in
+    a build log, keyed by ``instance(mangled name)``."""
     out, current = {}, None
     for line in ptxas.splitlines():
         m = (re.search(r"Compiling entry function '(\S+)'", line)
              or re.search(r"Function properties for (\S+)", line))
         if m:
-            k = re.search(r"(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)E", m.group(1))
-            current = (out.setdefault(f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}", {})
-                       if k and "paged_decode_kernel" in m.group(1) else None)
+            current = (out.setdefault(instance(m.group(1)), {}) if kernel in m.group(1)
+                       else None)
         if current is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -601,6 +715,28 @@ def decode_ptxas(ptxas: str) -> dict:
         if m:
             current["registers"] = int(m.group(1))
     return out
+
+
+def two_streams_bitwise(torch, calls) -> int:
+    """Each of ``calls`` once on the current stream, then ``REPEATS`` times
+    on a stream of its own, the streams launching at once: every launch
+    bitwise equal to its call's first.  Returns the launches checked."""
+    refs = [call() for call in calls]
+    streams = [torch.cuda.Stream() for _ in calls]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[] for _ in calls]
+    for _ in range(REPEATS):
+        for j, (call, st) in enumerate(zip(calls, streams)):
+            with torch.cuda.stream(st):
+                outs[j].append(call())
+    sync(torch)
+    for j, runs in enumerate(outs):
+        for i, out in enumerate(runs):
+            if not torch.equal(out, refs[j]):
+                raise AssertionError(f"launch {i + 1} on stream {j} differs from the same call "
+                                     "alone")
+    return sum(len(runs) for runs in outs)
 
 
 def decode_bitwise(torch, fa, case) -> dict:
@@ -626,32 +762,12 @@ def decode_bitwise(torch, fa, case) -> dict:
     for i, out in enumerate(alone):
         if not torch.equal(out[0], first[i]):
             raise AssertionError(f"paged decode: slot {i} alone differs from its row of the batch")
-    streams = decode_two_streams(torch, fa, (q, q.flip(0).contiguous()), (kp, vp, bt, pos), kw)
+    # each stream its own queries over the same pages: the same counter size
+    streams = two_streams_bitwise(torch, [
+        lambda q=q: fa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
+        for q in (q, q.flip(0).contiguous())])
     return {"repeats_bitwise": REPEATS + 1, "slots_alone_bitwise": len(alone),
             "two_streams_bitwise": streams}
-
-
-def decode_two_streams(torch, fa, qs, operands, kw) -> int:
-    """#4 / #5 launched ``REPEATS`` times on each of two streams at once,
-    each stream its own queries over the same pages (so the same merge
-    counter size): every launch bitwise equal to its query's launch alone
-    on the current stream.  Returns the launches checked."""
-    refs = [fa.paged_decode_attention(q, *operands, **kw) for q in qs]
-    streams = [torch.cuda.Stream() for _ in qs]
-    for st in streams:
-        st.wait_stream(torch.cuda.current_stream())
-    outs = [[] for _ in qs]
-    for _ in range(REPEATS):
-        for j, (q, st) in enumerate(zip(qs, streams)):
-            with torch.cuda.stream(st):
-                outs[j].append(fa.paged_decode_attention(q, *operands, **kw))
-    sync(torch)
-    for j, runs in enumerate(outs):
-        for i, out in enumerate(runs):
-            if not torch.equal(out, refs[j]):
-                raise AssertionError(f"paged decode: launch {i + 1} on stream {j} differs from "
-                                     "the same call alone")
-    return sum(len(runs) for runs in outs)
 
 
 def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
@@ -717,11 +833,17 @@ def kernel_phases(torch, F, fa, device: str = "cuda") -> dict:
 L2_BYTES = 50 * 2**20     # H100 L2
 
 
+# filled by main(): ptxas's registers and spilled bytes of each #12 instance
+WHOLEF_PTXAS: dict = {}
+
+
 def qmm_kernel_phases(torch, F, device: str = "cuda") -> dict:
     """#11 and #12 against their plain versions at the 600m dense shapes,
-    timed beside ``F.linear`` on the dequantized bf16 weight.  Enough
-    copies of each weight rotate between timed launches that each launch
-    finds its codes out of the L2, as one dense of the real model does."""
+    timed beside ``F.linear`` on the dequantized bf16 weight (and, with
+    ``--before``, #12's earlier design).  Enough copies of each weight
+    rotate between timed launches that each launch finds its codes out of
+    the L2, as one dense of the real model does.  #12 at its main shape
+    also runs on two streams at once, bitwise."""
     from accelerate_tpu_torch.ops import quantized_matmul as qmm
     from accelerate_tpu_torch.utils.quantization import QuantizationConfig, dequantize, quantize
 
@@ -761,6 +883,14 @@ def qmm_kernel_phases(torch, F, device: str = "cuda") -> dict:
                                  "weight_copies": copies}}
                 if name.endswith("tiled"):
                     rep["shape"]["plan"] = vars(qmm.tiled_plan(m, h, f))
+                else:
+                    rep["shape"]["plan"] = vars(qmm.wholef_plan(m, h, f))
+                    rep.update(before_wholef(torch, rot, x, qt, ref, label, m))
+                    if (label, m) == QMM_MAIN[name] and x.device.type == "cuda":
+                        xs = (x, torch.randn(m, h, generator=gen, device=device).bfloat16())
+                        rep["two_streams_bitwise"] = two_streams_bitwise(torch, [
+                            lambda x=x: kernel(x, qt.data, qt.scale, qblock=128) for x in xs])
+                        rep["ptxas"] = WHOLEF_PTXAS
                 log("kernel", name, json.dumps(rep))
                 readings[name].append(rep)
         del weights, dense
@@ -771,6 +901,20 @@ def qmm_kernel_phases(torch, F, device: str = "cuda") -> dict:
         reports[name] = _with_cases(cases, main)
         reports[name]["library_call"] = "F.linear on the dequantized bf16 weight"
     return reports
+
+
+def before_wholef(torch, rot, x, qt, ref, label, m) -> dict:
+    """#12's earlier design (``--before``) on the case's operands: held to
+    the plain version and timed as the kernel is."""
+    early = BEFORE.get("quantized_matmul_wholef")
+    if early is None:
+        return {}
+    out = early(x, qt.data, qt.scale, qblock=128, out_dtype=torch.bfloat16)
+    sync(torch)
+    held = held_to_plain(torch, f"quantized_matmul_wholef {label} m {m} (earlier design)",
+                         out[:, None], ref[:, None])
+    return {"before_err_over_limit": held["err_over_limit"],
+            "before_ms": time_ms(torch, rot(early), graph=True)}
 
 
 # -- flash attention kernels #1-#3 -------------------------------------------
@@ -1278,23 +1422,29 @@ def checked_qmm(torch, kernel, plain, readings: list):
 @contextlib.contextmanager
 def routed_bgmv(lora_mod, fn):
     """Route the LoRA route's kernel #10 through ``fn`` (``lora_apply``
-    looks ``bgmv`` up when called)."""
-    saved = lora_mod.bgmv
-    lora_mod.bgmv = fn
+    looks ``bgmv_apply`` up when called)."""
+    saved = lora_mod.bgmv_apply
+    lora_mod.bgmv_apply = fn
     try:
         yield
     finally:
-        lora_mod.bgmv = saved
+        lora_mod.bgmv_apply = saved
 
 
-def checked_bgmv(torch, kernel, plain, readings: list):
-    """Kernel #10 followed on every call by its plain version in f32 on the
-    same operands; rows are slots."""
-    def call(x, a_stack, b_stack, ids):
-        out = kernel(x, a_stack, b_stack, ids)
-        ref = plain(x.float(), a_stack, b_stack, ids)
-        readings.append(held_to_plain(torch, "bgmv", out[:, None], ref[:, None],
-                                      rounding_slack=True))
+def checked_bgmv(torch, lora_mod, readings: list):
+    """Kernel #10 (``bgmv_apply``) followed on every call by its plain
+    version in f32 on the same operands (``lora_plain``); rows are slots,
+    and id-0 rows must be ``y`` bitwise."""
+    kernel = lora_mod.bgmv_apply
+
+    def call(x, y, a_stack, b_stack, ids):
+        out = kernel(x, y, a_stack, b_stack, ids)
+        ref, slack = lora_plain(torch, lora_mod, x, y, a_stack, b_stack, ids)
+        readings.append(held_to_plain(torch, "bgmv_apply", out[:, None], ref[:, None],
+                                      slack=slack[:, None]))
+        base = ids == 0
+        if not torch.equal(out[base].view(torch.int16), y[base].view(torch.int16)):
+            raise AssertionError("bgmv_apply: an id-0 row is not y bitwise")
         return out
     return call
 
@@ -1308,22 +1458,19 @@ def checked_kernels(torch, llama_mod, fa, qmm, readings: dict):
     from accelerate_tpu_torch.ops import lora as lora_mod
 
     for name in ("paged_decode_attention", "paged_multitoken_attention",
-                 "quantized_matmul_tiled", "quantized_matmul_wholef", "bgmv"):
+                 "quantized_matmul_tiled", "quantized_matmul_wholef", "bgmv_apply"):
         readings.setdefault(name, [])
-    with routed_bgmv(lora_mod, checked_bgmv(torch, lora_mod.bgmv, lora_mod.bgmv_plain,
-                                            readings["bgmv"])), routed_attention(
-        llama_mod,
-        checked(torch, fa.paged_decode_attention, fa.paged_decode_attention_plain,
-                readings["paged_decode_attention"]),
-        checked(torch, fa.paged_multitoken_attention, fa.paged_multitoken_attention_plain,
-                readings["paged_multitoken_attention"]),
-    ), routed_qmm(
-        qmm,
-        checked_qmm(torch, qmm.quantized_matmul_tiled, qmm.quantized_matmul_plain,
-                    readings["quantized_matmul_tiled"]),
-        checked_qmm(torch, qmm.quantized_matmul_wholef, qmm.quantized_matmul_wholef_plain,
-                    readings["quantized_matmul_wholef"]),
-    ):
+    decode = checked(torch, fa.paged_decode_attention, fa.paged_decode_attention_plain,
+                     readings["paged_decode_attention"])
+    multitoken = checked(torch, fa.paged_multitoken_attention,
+                         fa.paged_multitoken_attention_plain,
+                         readings["paged_multitoken_attention"])
+    tiled = checked_qmm(torch, qmm.quantized_matmul_tiled, qmm.quantized_matmul_plain,
+                        readings["quantized_matmul_tiled"])
+    wholef = checked_qmm(torch, qmm.quantized_matmul_wholef, qmm.quantized_matmul_wholef_plain,
+                         readings["quantized_matmul_wholef"])
+    with (routed_bgmv(lora_mod, checked_bgmv(torch, lora_mod, readings["bgmv_apply"])),
+          routed_attention(llama_mod, decode, multitoken), routed_qmm(qmm, tiled, wholef)):
         yield
 
 
@@ -1364,7 +1511,7 @@ def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
     if kv_dtype != "bf16":
         required.append("quantized_matmul_tiled")
     if adapters is not None:
-        required.append("bgmv")
+        required.append("bgmv_apply")
     return worst_readings(readings, required)
 
 
@@ -1408,7 +1555,7 @@ def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
     with routed_attention(llama_mod, fa.paged_decode_attention_plain,
                           fa.paged_multitoken_attention_plain), \
             routed_qmm(qmm, qmm.quantized_matmul_plain, qmm.quantized_matmul_wholef_plain), \
-            routed_bgmv(lora_mod, lora_mod.bgmv_plain):
+            routed_bgmv(lora_mod, lora_mod.bgmv_apply_plain):
         p_logits = run()
     if adapters is not None:
         adapters.unpin(request.adapter_id)
@@ -1441,7 +1588,7 @@ def launch_counts() -> dict:
         (fa, "paged_decode_attention_quant"), (fa, "paged_multitoken_attention_quant"),
         (fa, "fused_bgmv_paged_decode"), (fa, "fused_bgmv_paged_decode_quant"),
         (qmm, "quantized_matmul_tiled"), (qmm, "quantized_matmul_wholef"),
-        (lora_mod, "bgmv"))}
+        (lora_mod, "bgmv_apply"), (lora_mod, "bgmv"))}
 
 
 def reset_counts() -> None:
@@ -1629,12 +1776,37 @@ def recorded_engines(serving_mod):
         serving_mod.ServingEngine = base
 
 
+@contextlib.contextmanager
+def wholef_kernels_seen(torch):
+    """Count, under ``torch.profiler``, the device kernels the block runs
+    that are #12's (``qmm_wholef_kernel``) and the second pass its earlier
+    design launched (``reduce_splits_kernel``: none now)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {"qmm_wholef": 0, "other_qmm": 0}
+    if not torch.cuda.is_available():      # a CPU rehearsal: no kernel to see
+        yield seen
+        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield seen
+    sync(torch)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("torch.profiler saw no device kernel: cannot count #12's launches")
+    for e in device:
+        if "qmm_wholef_kernel" in e.name:
+            seen["qmm_wholef"] += 1
+        elif "reduce_splits" in e.name:
+            seen["other_qmm"] += 1
+
+
 def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_dtype"]) -> dict:
     """``generate_paged`` at batch 4, held to the steps its engine
     counted: with int8 weights and fp8 pages, #12 on every decode step, #11
     on every prefill chunk, #5 / #7 over the pages; with bf16 weights and
     pages (``kv_dtype="bf16"``), #4 and #6.  Then the same call with every
-    launch held against its plain version."""
+    launch held against its plain version, under ``torch.profiler``: as
+    many #12 device kernels as #12 calls."""
     import accelerate_tpu_torch.models.llama as llama_mod
     import accelerate_tpu_torch.serving as serving_mod
     from accelerate_tpu_torch import GenerationConfig, ServingPlugin, generate_paged
@@ -1679,16 +1851,23 @@ def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_
     if tuple(out.shape) != (b, new) or not bool(((out >= 0) & (out < MODEL["vocab_size"])).all()):
         raise AssertionError(f"generate_paged returned {tuple(out.shape)} / out-of-vocab ids")
     readings = {}
-    with checked_kernels(torch, llama_mod, fa, qmm, readings):
+    calls = qmm._WRAPPERS["quantized_matmul_wholef"].launches
+    with wholef_kernels_seen(torch) as seen, checked_kernels(torch, llama_mod, fa, qmm, readings):
         again = generate_paged(model, ids, gc, prompt_lengths=lens,
                                serving_plugin=ServingPlugin(**plugin))
+    calls = qmm._WRAPPERS["quantized_matmul_wholef"].launches - calls
+    if torch.cuda.is_available() and (seen["qmm_wholef"] != calls or seen["other_qmm"]):
+        raise AssertionError(f"#12: {calls} wrapper calls ran {seen['qmm_wholef']} "
+                             f"qmm_wholef kernels and {seen['other_qmm']} other W8A16 kernels "
+                             "(one device launch a call)")
     in_path = worst_readings(readings, ["paged_decode_attention", "paged_multitoken_attention"]
                              + (["quantized_matmul_tiled", "quantized_matmul_wholef"] if quant
                                 else []))
     rep = {"card": card, "batch": b, "prompt_lens": [int(x) for x in lens], "max_new": new,
            "kv_dtype": plugin["kv_dtype"], "wall_s": wall, "tokens_per_s": b * new / wall,
            "decode_steps": decode_steps, "prefill_steps": prefill_steps, "launches": launches,
-           "checked_rerun_tokens_equal": bool(torch.equal(out, again)), "in_path": in_path}
+           "checked_rerun_tokens_equal": bool(torch.equal(out, again)), "in_path": in_path,
+           "wholef_device_kernels_per_call": seen["qmm_wholef"] / calls if calls else None}
     log("generate_paged", json.dumps(rep))
     return {"launches": launches, "in_path": in_path}
 
@@ -1696,29 +1875,65 @@ def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_
 # -- multi-tenant LoRA: kernel #10, the LoRA serve, the fused op #8 / #9 ------
 
 
-def lora_bound(ids, d_in, rank, d_out):
+def lora_bound(ids, d_in, rank, d_out, y: bool = False):
     """Bytes and flops of #10 for this data: ids read, the whole bf16
-    output written, and for the nonzero ids only (an id-0 row's delta is
+    output written (and with ``y``, the fused entry point's, the whole base
+    output read), and for the nonzero ids only (an id-0 row's delta is
     zeros, read from nothing) their rows of x and the factors of each
     distinct id read once; 2 flops per multiply-add of those rows."""
     nonzero = [int(i) for i in ids.tolist() if int(i) != 0]
-    nbytes = (len(ids) * 4 + len(ids) * d_out * 2 + len(nonzero) * d_in * 2
+    nbytes = (len(ids) * 4 + len(ids) * d_out * 2 * (2 if y else 1) + len(nonzero) * d_in * 2
               + len(set(nonzero)) * (d_in * rank + rank * d_out) * 2)
     return nbytes, 2 * len(nonzero) * rank * (d_in + d_out)
 
 
+# filled by main(): ptxas's registers and spilled bytes of each #10 instance
+LORA_PTXAS: dict = {}
+
+
+def lora_case(torch, lora_mod, name, x, y, a, b, ids) -> tuple[dict, dict]:
+    """#10 on one set of operands: ``bgmv_apply`` twice (bitwise), bitwise
+    the select over the delta-only entry point's output on the same
+    operands, id-0 rows ``y`` bitwise; the fused output held to
+    ``lora_plain`` and the delta to ``bgmv_plain``.  Returns both
+    readings."""
+    out = lora_mod.bgmv_apply(x, y, a, b, ids)
+    again = lora_mod.bgmv_apply(x, y, a, b, ids)
+    delta = lora_mod.bgmv(x, a, b, ids)
+    sync(torch)
+    bits = lambda t: t.view(torch.int16)
+    if not torch.equal(bits(out), bits(again)):
+        raise AssertionError(f"{name}: two runs on the same operands differ")
+    if not torch.equal(bits(out), bits(torch.where((ids > 0)[:, None], y + delta, y))):
+        raise AssertionError(f"{name}: not the select over the kernel's own delta")
+    if not torch.equal(bits(out[ids == 0]), bits(y[ids == 0])):
+        raise AssertionError(f"{name}: an id-0 row is not y bitwise")
+    ref, slack = lora_plain(torch, lora_mod, x, y, a, b, ids)
+    held = held_to_plain(torch, name, out[:, None], ref[:, None], slack=slack[:, None])
+    ref_delta = lora_mod.bgmv_plain(x.float(), a, b, ids)
+    held_delta = held_to_plain(torch, f"{name} (delta)", delta[:, None], ref_delta[:, None],
+                               slack=half_ulp_bf16(torch, ref_delta)[:, None])
+    return held, held_delta
+
+
 def lora_kernel_phases(torch, device: str = "cuda") -> dict:
-    """#10 against its plain version at the 600m q_proj and v_proj shapes
-    (16 slots, rank 16, ids mixing 0 and 1..4), timed as 20 launches in a
-    CUDA graph beside its plain version, its bound and the gathered
-    ``torch.bmm`` pair.  Enough copies of the stacks and x rotate between
-    launches that each finds its factors out of the L2, as a layer of the
-    real decode step does."""
+    """#10 with the select folded in (``bgmv_apply``) and its delta alone
+    (``bgmv``) at the 600m q_proj and v_proj shapes (16 slots, rank 16, ids
+    mixing 0 and 1..4; ``lora_case``), again with B 16 times larger (deltas
+    well above 8, where one bf16 rounding moves an output by more than
+    KERNEL_TOL); timed as 20 launches in a CUDA graph beside its plain
+    version, its bound (y read too), the delta alone, the route it
+    replaces (the delta, then the id test, the add and the select: four
+    launches; with ``--before``, DIR's) and the gathered ``torch.bmm``
+    pair.  Enough copies of the operands rotate between launches that each
+    finds its factors out of the L2, as a layer of the real decode step
+    does."""
     from accelerate_tpu_torch.ops import lora as lora_mod
 
     gen = torch.Generator(device=device).manual_seed(10)
     rank, pool = LORA["rank"], LORA["pool_slots"] + 1
     ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=device)
+    slots = len(LORA_IDS)
     cases = []
     for label, (d_in, d_out) in LORA_SHAPES.items():
         stack_bytes = pool * rank * (d_in + d_out) * 2
@@ -1728,45 +1943,60 @@ def lora_kernel_phases(torch, device: str = "cuda") -> dict:
             a = (torch.randn(pool, d_in, rank, generator=gen, device=device) / d_in ** 0.5)
             b = (torch.randn(pool, rank, d_out, generator=gen, device=device) / rank ** 0.5)
             a[0], b[0] = 0, 0
-            x = torch.randn(len(LORA_IDS), d_in, generator=gen, device=device).bfloat16()
-            stacks.append((x, a.bfloat16(), b.bfloat16()))
-        x, a, b = stacks[0]
-        out = lora_mod.bgmv(x, a, b, ids)
-        again = lora_mod.bgmv(x, a, b, ids)
-        sync(torch)
-        if not torch.equal(out, again):
-            raise AssertionError("bgmv: two runs on the same operands differ")
-        held = held_to_plain(torch, f"bgmv {label}", out[:, None],
-                             lora_mod.bgmv_plain(x.float(), a, b, ids)[:, None],
-                             rounding_slack=True)
-        # the same with B 16 times larger: deltas well above 8, where one
-        # bf16 rounding moves an output by more than KERNEL_TOL
-        big = lora_mod.bgmv(x, a, b * 16, ids)
-        sync(torch)
-        held_big = held_to_plain(torch, f"bgmv {label} x16", big[:, None], lora_mod.bgmv_plain(
-            x.float(), a, b * 16, ids)[:, None], rounding_slack=True)
+            x = torch.randn(slots, d_in, generator=gen, device=device).bfloat16()
+            y = torch.randn(slots, d_out, generator=gen, device=device).bfloat16()
+            stacks.append((x, y, a.bfloat16(), b.bfloat16()))
+        x, y, a, b = stacks[0]
+        y[:, 0] = -0.0          # id-0 rows keep it, live rows add to it
+        held, held_delta = lora_case(torch, lora_mod, f"bgmv_apply {label}", x, y, a, b, ids)
+        big, big_delta = lora_case(torch, lora_mod, f"bgmv_apply {label} x16", x, y, a, b * 16,
+                                   ids)
         rot = lambda fn: (lambda i: fn(*stacks[i % copies], ids))
-        ms = time_ms(torch, rot(lora_mod.bgmv), graph=True)
-        plain_ms = time_ms(torch, rot(lora_mod.bgmv_plain), iters=5)
+        ms = time_ms(torch, rot(lora_mod.bgmv_apply), graph=True)
+        plain_ms = time_ms(torch, rot(lora_mod.bgmv_apply_plain), iters=5)
+        delta_ms = time_ms(torch, lambda i: lora_mod.bgmv(stacks[i % copies][0],
+                                                          *stacks[i % copies][2:], ids),
+                           graph=True)
+
+        def four_launches(x, y, a, b, ids):
+            return torch.where((ids > 0)[:, None], y + lora_mod.bgmv(x, a, b, ids), y)
+
+        four_launch_ms = time_ms(torch, rot(four_launches), graph=True)
+        before = {}
+        if "bgmv_apply" in BEFORE:
+            early = BEFORE["bgmv_apply"](x, y, a, b, ids)
+            sync(torch)
+            ref, slack = lora_plain(torch, lora_mod, x, y, a, b, ids)
+            before["before_err_over_limit"] = held_to_plain(
+                torch, f"bgmv_apply {label} (earlier route)", early[:, None], ref[:, None],
+                slack=slack[:, None])["err_over_limit"]
+            before["before_ms"] = time_ms(torch, rot(BEFORE["bgmv_apply"]), graph=True)
         idx = ids.long()
         library_ms = time_ms(torch, lambda i: torch.bmm(
-            torch.bmm(stacks[i % copies][0][:, None], stacks[i % copies][1][idx]),
-            stacks[i % copies][2][idx]), graph=True)
-        nbytes, flops = lora_bound(ids, d_in, rank, d_out)
+            torch.bmm(stacks[i % copies][0][:, None], stacks[i % copies][2][idx]),
+            stacks[i % copies][3][idx]), graph=True)
+        nbytes, flops = lora_bound(ids, d_in, rank, d_out, y=True)
         bound_ms, bound_by = bound(nbytes, flops)
-        rep = {**held, "large_delta": {"ref_max": held_big["tensor_ref_max"],
-                                       "max_abs_err": held_big["max_abs_err"],
-                                       "err_over_limit": held_big["err_over_limit"]},
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "shape": {"dense": label, "slots": len(LORA_IDS), "d_in": d_in, "d_out": d_out,
+        rep = {**held, "delta": {k: held_delta[k] for k in ("max_abs_err", "err_over_limit")},
+               "large_delta": {"ref_max": big_delta["tensor_ref_max"],
+                               "max_abs_err": big["max_abs_err"],
+                               "err_over_limit": big["err_over_limit"],
+                               "delta_err_over_limit": big_delta["err_over_limit"]},
+               "ms": ms, "plain_ms": plain_ms, "delta_ms": delta_ms,
+               "four_launch_ms": four_launch_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, **before,
+               "shape": {"dense": label, "slots": slots, "d_in": d_in, "d_out": d_out,
                          "rank": rank, "pool_slots": pool, "ids": LORA_IDS,
                          "stack_copies": copies}}
-        log("kernel bgmv", json.dumps(rep))
+        log("kernel bgmv_apply", json.dumps(rep))
         cases.append(rep)
     main = _with_cases(cases, cases[0])
+    for key in ("delta_ms", "four_launch_ms", "before_ms"):
+        if key in cases[0]:
+            main[key] = cases[0][key]
+    main["ptxas"] = LORA_PTXAS
     main["library_call"] = "gathered torch.bmm pair (a_stack[ids], b_stack[ids], two bmm)"
-    return {"bgmv": main}
+    return {"bgmv_apply": main}
 
 
 def lora_store(torch, model):
@@ -1839,7 +2069,7 @@ def lora_engine_phase(torch, card: str, bf16: dict) -> dict:
     m = engine.metrics
     expect_launches(launches, {"paged_decode_attention": m["decode_steps"] * layers,
                                "paged_multitoken_attention": m["prefill_steps"] * layers,
-                               "bgmv": 2 * layers * m["decode_steps"]})
+                               "bgmv_apply": 2 * layers * m["decode_steps"]})
     if not (report["adapter_swaps"] > 0
             and report["adapter_swap_bytes"] == report["adapter_swaps"] * LORA_ADAPTER_BYTES):
         raise AssertionError(f"{report['adapter_swaps']} swaps moved "
@@ -2087,10 +2317,11 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
-                        help="a checkout of an earlier commit: its flash_attention.cu and "
-                             "paged_attention.cu are built, and its #2 / #3 and #4 / #5 are "
-                             "held to their plain versions and timed beside the new ones "
-                             "(before_ms)")
+                        help="a checkout of an earlier commit: its flash_attention.cu, "
+                             "paged_attention.cu, quantized_matmul.cu and lora.cu are built, "
+                             "and its #2 / #3, #4 / #5, #12 and #10 (with the select's three "
+                             "launches) are held to their plain versions and timed beside the "
+                             "new ones (before_ms)")
     args = parser.parse_args()
     import torch
 
@@ -2121,7 +2352,7 @@ def main() -> int:
     libs = _build.build_all(["paged_attention", "paged_decode", "paged_prefill",
                              "flash_attention", "quantized_matmul", "lora"])
     if before_build:
-        BEFORE.update(before_kernels(torch, before_build))
+        BEFORE.update(before_kernels(torch, before_build, args.before.resolve()))
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(lib.name for lib in libs.values())}")
     for name in libs:
@@ -2133,6 +2364,14 @@ def main() -> int:
     DECODE_PTXAS.update(decode_ptxas(_build.BUILD_LOG["paged_decode"]["ptxas"]))
     log("paged decode #4 / #5 (registers, spilled bytes by pages, head dim, rows):",
         json.dumps(DECODE_PTXAS))
+    WHOLEF_PTXAS.update(kernel_ptxas(
+        _build.BUILD_LOG["quantized_matmul"]["ptxas"], "qmm_wholef_kernel",
+        lambda name: "M " + re.search(r"qmm_wholef_kernelILi(\d+)E", name).group(1)))
+    log("W8A16 #12 (registers, spilled bytes by rows of x):", json.dumps(WHOLEF_PTXAS))
+    LORA_PTXAS.update(kernel_ptxas(
+        _build.BUILD_LOG["lora"]["ptxas"], "bgmv_kernel",
+        lambda name: "bgmv_apply" if "bgmv_kernelILb1E" in name else "bgmv"))
+    log("LoRA #10 (registers, spilled bytes by entry point):", json.dumps(LORA_PTXAS))
 
     t_phase = time.perf_counter()
 
@@ -2185,7 +2424,7 @@ def main() -> int:
                                    quant_in_path["quantized_matmul_tiled"]),
         "quantized_matmul_wholef": (gen["launches"]["quantized_matmul_wholef"],
                                     gen["in_path"]["quantized_matmul_wholef"]),
-        "bgmv": (lora["launches"]["bgmv"], lora["in_path"]["bgmv"]),
+        "bgmv_apply": (lora["launches"]["bgmv_apply"], lora["in_path"]["bgmv_apply"]),
         # no engine calls #8 / #9: their launches are the op phase's
         "fused_bgmv_paged_decode": (kernels["fused_bgmv_paged_decode"]["launches"],
                                     kernels["fused_bgmv_paged_decode"]["in_path"]),
@@ -2197,7 +2436,7 @@ def main() -> int:
                "paged_decode_attention": "accelerate_tpu_torch/csrc/paged_decode.cu",
                "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
                "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",
-               "bgmv": "accelerate_tpu_torch/csrc/lora.cu"}
+               "bgmv_apply": "accelerate_tpu_torch/csrc/lora.cu"}
     entries = []
     for name, (count, in_path) in main_path.items():
         rep = kernels[name]
@@ -2211,7 +2450,8 @@ def main() -> int:
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
                         "card": card, "shape": rep["shape"],
-                        **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases")
+                        **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
+                                               "delta_ms", "four_launch_ms")
                            if k in rep}})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

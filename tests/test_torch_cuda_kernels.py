@@ -37,6 +37,10 @@ replayed from a CUDA graph.
 #10's rows are output rows against ``bgmv_plain`` (f32 h and delta, one
 rounding); its deltas are not O(1), so each element may also be off by
 half a bf16 step of its |ref| (at |ref| >= 8 that step is above 2e-2);
+its fused entry point ``bgmv_apply`` is held bitwise to the select over
+the kernel's own delta, id-0 rows bitwise ``y``;
+#12 (``quantized_matmul_wholef``) at every m from 1 to 8, one launch a
+call, on two streams at once and replayed from a CUDA graph, as is #11;
 #8 / #9 are held to the paged limits against
 ``fused_bgmv_paged_decode_plain`` and against the composed route (#10, rope,
 #4 / #5), which rounds the delta and q to bf16 on the way.
@@ -637,30 +641,76 @@ def test_tiled_qmm_plans_match_plain_and_are_deterministic(cuda, h, f, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, h, f", [(16, 1536, 4096), (512, 4096, 1536), (37, 1576, 768)])
 def test_tiled_qmm_replays_in_a_cuda_graph(cuda, m, h, f):
-    """With H split, #11 counts arrivals in a scratch that every launch
-    leaves at zero: a captured launch replayed three times gives the eager
-    output bitwise each time, and the counters are back at zero."""
+    """With H split, #11 counts arrivals in its stream's scratch, which
+    every launch leaves at zero: after one eager call on the capture
+    stream, a captured launch replayed three times gives the eager output
+    bitwise each time, and the counters are back at zero."""
     assert tqm.tiled_plan(m, h, f).splits > 1
     gen = torch.Generator(device=cuda).manual_seed(m)
     qt = _qweight(gen, cuda, h, f)
     x = torch.randn(m, h, generator=gen, device=cuda).bfloat16()
-    eager = tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128)
+    out, eager = _replayed(lambda: tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128))
+    assert torch.equal(out, eager)
+    assert all(int(buf.abs().sum()) == 0 for buf in tqm._COUNTERS.values())
+
+
+def _replayed(call):
+    """``call()`` eagerly on a side stream, then captured there and the
+    graph replayed three times, each replay's output compared bitwise with
+    the eager one.  Returns (captured output, eager output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128)
+    with torch.cuda.graph(graph, stream=side):
+        out = call()
     for _ in range(3):
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
-    assert int(tqm._COUNTERS[x.device].abs().sum()) == 0
+    return out, eager
+
+
+def _two_streams(calls, repeats=10):
+    """Each of ``calls`` once on the current stream, then ``repeats`` times
+    on its own stream, the streams launching at once: every launch bitwise
+    equal to its call's first."""
+    refs = [call() for call in calls]
+    streams = [torch.cuda.Stream() for _ in calls]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[] for _ in calls]
+    for _ in range(repeats):
+        for j, (call, st) in enumerate(zip(calls, streams)):
+            with torch.cuda.stream(st):
+                outs[j].append(call())
+    torch.cuda.synchronize()
+    for j, runs in enumerate(outs):
+        assert all(torch.equal(out, refs[j]) for out in runs), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, h, f", [(16, 1536, 4096), (37, 1576, 768)])
+def test_tiled_qmm_on_two_streams_at_once(cuda, m, h, f):
+    """#11's split counters are per stream: two streams launching the same
+    plan at once each get their own call's output, bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    qt = _qweight(gen, cuda, h, f)
+    xs = [torch.randn(m, h, generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    _two_streams([lambda x=x: tqm.quantized_matmul_tiled(x, qt.data, qt.scale, qblock=128)
+                  for x in xs])
+    assert all(int(buf.abs().sum()) == 0 for buf in tqm._COUNTERS.values())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h, f", DENSES)
-@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_wholef_qmm_kernel_matches_plain_and_is_deterministic(cuda, h, f, m):
+    """#12 at the 600m denses and the masked K tail, every m it takes: one
+    launch a call, bitwise repeats, f32 sums against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(h + f + m)
     qt = _qweight(gen, cuda, h, f)
     x = torch.randn(m, h, generator=gen, device=cuda).bfloat16()
@@ -676,6 +726,33 @@ def test_wholef_qmm_kernel_matches_plain_and_is_deterministic(cuda, h, f, m):
                                             out_dtype=torch.float32)
     _assert_rows_close(out[:, None], ref[:, None])
     torch.testing.assert_close(out32, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, h, f", [(4, 1536, 4096), (8, 1536, 768), (1, 4096, 1536)])
+def test_wholef_qmm_in_a_cuda_graph_and_on_two_streams(cuda, m, h, f):
+    """#12 splits H and adds the slices inside a thread-block cluster, with
+    no scratch: a capture on a fresh stream (no eager call there first)
+    replays the eager launch bitwise; two streams launching at once each
+    get their own call's output bitwise."""
+    assert tqm.wholef_plan(m, h, f).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(m + h)
+    qt = _qweight(gen, cuda, h, f)
+    xs = [torch.randn(m, h, generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    eager = tqm.quantized_matmul_wholef(xs[0], qt.data, qt.scale, qblock=128)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tqm.quantized_matmul_wholef(xs[0], qt.data, qt.scale, qblock=128)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    _two_streams([lambda x=x: tqm.quantized_matmul_wholef(x, qt.data, qt.scale, qblock=128)
+                  for x in xs])
 
 
 @pytest.mark.cuda
@@ -832,6 +909,66 @@ def test_bgmv_kernel_matches_plain(cuda, rank, d_out, b_scale):
     assert not out[ids == 0].any()          # id-0 rows: zeros
 
 
+# (ids, pool slots): slots sharing adapters, each slot its own adapter, ids
+# outside [1, N)
+APPLY_IDS = [
+    (LORA_IDS, 5),
+    ([1, 1, 1, 1, 1, 1, 2, 0, 1, 1, 0, 2, 1, 1, 0, 1], 3),
+    (list(range(1, 17)), 17),
+    ([0, -1, 5, 7, 1, 0, 6, 2, 0, 0, 3, -3, 9, 4, 1, 0], 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids, pool", APPLY_IDS)
+@pytest.mark.parametrize("rank, d_out", [(16, 1536), (16, 768), (4, 1001), (64, 1536), (33, 768)])
+def test_bgmv_apply_kernel_matches_plain(cuda, ids, pool, rank, d_out):
+    """#10 with the select folded in, one launch: equal to its plain version
+    given the kernel's own delta (which is held to ``bgmv_plain``), id <= 0
+    rows ``y`` bitwise (-0.0 included), id >= N rows ``y + 0``; bitwise
+    repeats; the delta-only entry point on the same operands."""
+    gen = torch.Generator(device=cuda).manual_seed(rank + d_out + pool)
+    a, b = _lora_stacks(gen, cuda, 1536, rank, d_out, n_adapters=pool)
+    x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+    y = torch.randn(16, d_out, generator=gen, device=cuda).bfloat16()
+    y[:, 0] = -0.0
+    ids_t = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    out = tlora.bgmv_apply(x, y, a, b, ids_t)
+    again = tlora.bgmv_apply(x, y, a, b, ids_t)
+    delta = tlora.bgmv(x, a, b, ids_t)
+    torch.cuda.synchronize()
+    assert (tlora.bgmv_apply.launches, tlora.bgmv.launches) == (2, 1)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    _assert_rows_close(delta[:, None], tlora.bgmv_plain(x.float(), a, b, ids_t)[:, None],
+                       rounding_slack=True)
+    composed = torch.where((ids_t > 0)[:, None], y + delta, y)
+    assert torch.equal(out.view(torch.int16), composed.view(torch.int16))
+    base = ids_t <= 0
+    assert torch.equal(out[base].view(torch.int16), y[base].view(torch.int16))
+    outside = (ids_t <= 0) | (ids_t >= pool)
+    assert not delta[outside].any()
+
+
+@pytest.mark.cuda
+def test_bgmv_apply_replays_in_a_cuda_graph(cuda):
+    """#10's grid is fixed in shape whatever the ids: a captured launch
+    replayed gives the eager output bitwise, and new ids written into the
+    captured tensor between replays are taken."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    a, b = _lora_stacks(gen, cuda, 1536, 16, 1536)
+    x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+    y = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+    _replayed(lambda: tlora.bgmv_apply(x, y, a, b, ids))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tlora.bgmv_apply(x, y, a, b, ids)
+    ids.copy_(ids.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tlora.bgmv_apply(x, y, a, b, ids))
+
+
 @pytest.mark.cuda
 def test_bgmv_kernel_refuses_what_it_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -843,7 +980,10 @@ def test_bgmv_kernel_refuses_what_it_does_not_take(cuda):
     a, b = _lora_stacks(gen, cuda, 64, 8, 32)
     with pytest.raises(TypeError):
         tlora.bgmv(x.float(), a, b, ids)
-    assert tlora.bgmv.launches == 0
+    y = torch.zeros(4, 32, device=cuda)
+    with pytest.raises(TypeError, match="y must be"):
+        tlora.bgmv_apply(x, y, a, b, ids)
+    assert tlora.bgmv.launches == 0 and tlora.bgmv_apply.launches == 0
 
 
 @pytest.mark.cuda
@@ -912,10 +1052,11 @@ def test_fused_kernel_refuses_what_it_does_not_take(cuda):
 def test_lora_engine_serves_through_the_kernels(cuda):
     """A tiny bf16 model at head dim 64 serving three tenants from a pool of
     two on the card: every request finishes, the pool hot-swaps (this
-    trace's host schedule makes two swaps), #10 launches for q_proj and
-    v_proj of every layer on every decode step, and every launch of a
-    second serve agrees with its plain version on the engine's own operands
-    (the default alpha 16 over rank 8 gives deltas above 8)."""
+    trace's host schedule makes two swaps), #10 (``bgmv_apply``, the delta
+    and the select in one launch) launches for q_proj and v_proj of every
+    layer on every decode step, and every launch of a second serve agrees
+    with its plain version on the engine's own operands (the default alpha
+    16 over rank 8 gives deltas above 8)."""
     from accelerate_tpu_torch import (
         AdapterStore, GenerationConfig, LlamaConfig, LlamaForCausalLM, LoraPlugin,
         ServingEngine, ServingPlugin, synthesize_trace,
@@ -941,20 +1082,23 @@ def test_lora_engine_serves_through_the_kernels(cuda):
     eng, results = serve()
     assert len(results) == 8 and eng.free_page_mirror_in_sync()
     assert eng.adapters.swaps >= 2 and eng.adapters.swap_bytes > 0
-    assert tlora.bgmv.launches == 2 * cfg.num_hidden_layers * eng.metrics["decode_steps"]
-    real, checked = tlora.bgmv, []
+    assert tlora.bgmv_apply.launches == 2 * cfg.num_hidden_layers * eng.metrics["decode_steps"]
+    assert tlora.bgmv.launches == 0
+    real, checked = tlora.bgmv_apply, []
 
-    def held(x, a, b, ids):
-        out = real(x, a, b, ids)
-        ref = tlora.bgmv_plain(x.float(), a, b, ids)
+    def held(x, y, a, b, ids):
+        out = real(x, y, a, b, ids)
+        delta = tlora.bgmv_plain(x.float(), a, b, ids)
+        ref = torch.where((ids > 0)[:, None], y.float() + delta, y.float())
         _assert_rows_close(out[:, None], ref[:, None], rounding_slack=True)
-        checked.append(ref.abs().max().item())
+        assert torch.equal(out[ids == 0], y[ids == 0])
+        checked.append(delta.abs().max().item())
         return out
 
-    tlora.bgmv = held
+    tlora.bgmv_apply = held
     try:
         serve(checked.clear)
     finally:
-        tlora.bgmv = real
+        tlora.bgmv_apply = real
     assert len(checked) == real.launches > 0
     assert max(checked) > 8

@@ -161,6 +161,100 @@ def test_auto_takes_bgmv_at_t1_on_any_device_and_native_otherwise():
         tlora.normalize_lora_kernel("pallas")
 
 
+def _apply_operands(rng, s, d, r, o, pool):
+    """bf16 x, y (with -0.0 and +0.0 on id-0 rows and on an id >= N row),
+    stacks with a zero slot 0 and ids mixing 0, -1, 1..pool and pool + 1
+    (>= N)."""
+    x = torch.from_numpy(rng.normal(size=(s, d)).astype(np.float32)).bfloat16()
+    y = torch.from_numpy(rng.normal(size=(s, o)).astype(np.float32)).bfloat16()
+    a = torch.from_numpy(rng.normal(size=(pool + 1, d, r)).astype(np.float32) / d ** 0.5)
+    b = torch.from_numpy(rng.normal(size=(pool + 1, r, o)).astype(np.float32) / r ** 0.5)
+    a[0] = b[0] = 0.0
+    ids = torch.from_numpy(np.resize(np.asarray([0, 1, 2, -1, pool, 0, pool + 1, 1], np.int32),
+                                     s))
+    y[(ids <= 0) | (ids > pool), :2] = torch.tensor([-0.0, 0.0], dtype=torch.bfloat16)
+    return x, y, a.bfloat16(), b.bfloat16(), ids
+
+
+@pytest.mark.parametrize("rank", [1, 4, 8, 16, 33, 64])
+def test_bgmv_apply_plain_is_the_composition(rank):
+    """#10's fused plain version is bitwise ``where(ids > 0, y +
+    bgmv_plain(...), y)``: id-0 (and negative-id) rows are ``y`` bitwise,
+    -0.0 included; an id >= N adds a zero delta (-0.0 + 0 = +0.0, the
+    composition's own answer); every rank the kernel takes."""
+    x, y, a, b, ids = _apply_operands(np.random.default_rng(rank), 8, 48, rank, 40, 3)
+    got = tlora.bgmv_apply(x, y, a, b, ids)
+    delta = tlora.bgmv_plain(x, a, b, ids)
+    want = torch.where((ids > 0)[:, None], y + delta.to(y.dtype), y)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                       want.view(torch.int16))
+    base = ids <= 0
+    assert torch.equal(got[base].view(torch.int16), y[base].view(torch.int16))
+    assert torch.signbit(got[base][:, 0].float()).all()
+    big = ids >= a.shape[0]
+    assert not delta[big].any()
+    assert torch.equal(got[big].float(), (y[big].float() + 0.0).bfloat16().float())
+    assert not torch.signbit(got[big][:, 0].float()).any()
+    assert tlora.bgmv_apply.launches == 0 and tlora.bgmv.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bgmv_apply_matches_jax_lora_apply(dtype):
+    """The fused wrapper's plain version (the CPU route of ``lora_apply`` at
+    T = 1) against JAX's ``lora_apply(kernel="bgmv")`` (its Pallas kernel
+    in interpret mode), at the tolerance ``test_lora_apply_matches_jax``
+    states; id-0 rows bitwise ``y`` on both sides, -0.0 included."""
+    (jx, jy, ja, jb, jids), (x, y, a, b, ids) = _operands(
+        np.random.default_rng(12), 6, 1, 16, 4, 24, 3, dtype)
+    want = jlora.lora_apply(jx, jy, ja, jb, jids, kernel="bgmv")[:, 0]
+    got = tlora.bgmv_apply(x[:, 0], y[:, 0], a, b, ids)
+    assert got.dtype == TDT[dtype]
+    rtol = 1e-5 if dtype == "float32" else 4 * BF16_STEP
+    scale = np.abs(_f32(want)).max()
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol, atol=rtol * scale)
+    for row in np.flatnonzero(np.asarray(jids) == 0):
+        assert torch.equal(got[row], y[row, 0])
+        np.testing.assert_array_equal(_f32(got[row]), _f32(want[row]))
+    assert torch.signbit(got[0, 0]) and np.signbit(_f32(want)[0, 0])
+
+
+def test_lora_apply_at_t1_is_one_bgmv_apply_call():
+    """At T = 1 under bgmv, ``lora_apply`` is one call of ``bgmv_apply``
+    (looked up when called, so a stand-in sees it) and nothing else: no
+    ``bgmv`` call, no select around it."""
+    _, (x, y, a, b, ids) = _operands(np.random.default_rng(4), 6, 1, 16, 4, 24, 3, "bfloat16")
+    real, calls = tlora.bgmv_apply, []
+
+    def stand_in(*args):
+        calls.append(args)
+        return real(*args)
+
+    tlora.bgmv_apply = stand_in
+    try:
+        out = tlora.lora_apply(x, y, a, b, ids)
+        out2 = tlora.lora_apply(x[:, 0], y[:, 0], a, b, ids)
+    finally:
+        tlora.bgmv_apply = real
+    assert len(calls) == 2 and out.shape == y.shape and torch.equal(out[:, 0], out2)
+    assert torch.equal(out2, tlora.bgmv_apply_plain(x[:, 0], y[:, 0], a, b, ids))
+
+
+def test_bgmv_wrappers_check_operands():
+    """Shapes are checked on every device; the CUDA-only checks (bf16,
+    rank, rows) leave a CPU call to the plain version."""
+    x, y, a, b, ids = _apply_operands(np.random.default_rng(7), 4, 16, 4, 8, 2)
+    with pytest.raises(ValueError, match="y of shape"):
+        tlora.bgmv_apply(x, y[:, :4], a, b, ids)
+    with pytest.raises(ValueError, match="ids of shape"):
+        tlora.bgmv(x, a, b, ids[:3])
+    with pytest.raises(ValueError, match="do not fit"):
+        tlora.bgmv_apply(x, y, a[:, :8], b, ids)
+    meta = [t.to("meta") for t in (x, y, a, b)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlora.bgmv_apply(*meta, ids.to("meta"))
+    assert tlora.bgmv_apply(x.float(), y.float(), a.float(), b.float(), ids).dtype == torch.float32
+
+
 def _quant_pool(rng, hkv, num_pages, page, d):
     """JAX tests/test_serving.py's emulated int8 write: per-(head, page)
     amax codes."""

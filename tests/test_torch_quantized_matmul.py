@@ -152,9 +152,11 @@ def test_split_planners_agree_with_the_kernels_rule():
     that rule at the 600m shapes and around them.  #11's slices cover H
     exactly, each at least one 64-row K tile, at most 8 of them; its plan
     switches from the decode width (16-row tiles to m 16, 64-row tiles to
-    m 64) to the prefill width (128-row tiles) between m 64 and 65, and its
-    counters are one per output tile, within the fixed scratch of 66 that
-    a split call uses."""
+    m 64) to the prefill width (128-row tiles) between m 64 and 65, and it
+    splits H only while its output tiles fill at most half the SMs (66).
+    #12's slices (m <= 8) cover H exactly too, at most 8 of them, each 1 to
+    64 K tiles, at least 2 where H has them, over 128-column tiles, about
+    one and a half waves of blocks."""
     for m in (1, 4, 8, 9, 16, 17, 37, 48, 64, 65, 100, 512):
         for h in (128, 256, 1000, 1536, 1576, 4096):
             for f in (128, 768, 1536, 4096):
@@ -173,9 +175,14 @@ def test_split_planners_agree_with_the_kernels_rule():
                 if plan.splits > 1:
                     assert plan.tiles <= tqm._NUM_SMS // 2, (m, h, f)
                 if m <= 8:
-                    s = tqm.wholef_splits(m, h, f)
-                    rows = -(-(-(-h // s)) // 8) * 8
-                    assert s >= 1 and -(-h // rows) == s, (m, h, f)
+                    wf = tqm.wholef_plan(m, h, f)
+                    per = -(-k_tiles // wf.splits)
+                    assert wf.splits >= 1 and -(-k_tiles // per) == wf.splits, (m, h, f)
+                    assert wf.k_tiles_per_split == per and 1 <= per <= 64, (m, h, f)
+                    assert per >= min(2, k_tiles), (m, h, f)
+                    assert wf.tiles == f // 128 and wf.splits <= 8, (m, h, f)
+                    assert wf.splits == 1 or 2 * wf.tiles * wf.splits <= 3 * tqm._NUM_SMS, \
+                        (m, h, f)
 
 
 @pytest.mark.parametrize("m, h, f, block_m, splits, per", [
@@ -195,6 +202,27 @@ def test_tiled_plan_at_the_600m_shapes(m, h, f, block_m, splits, per):
     plan = tqm.tiled_plan(m, h, f)
     assert (plan.block_m, plan.splits, plan.k_tiles_per_split) == (block_m, splits, per)
     assert plan.tiles * plan.splits <= 132
+
+
+@pytest.mark.parametrize("h, f, splits, per", [
+    (1536, 4096, 6, 4),       # gate / up: 32 column tiles, 192 blocks
+    (1536, 1536, 8, 3),       # q / o
+    (1536, 768, 8, 3),        # k / v: slices of three K tiles, not of 24 rows
+    (4096, 1536, 8, 8),       # down
+    (1576, 768, 7, 4),        # a partial last K tile
+    (4096, 11008, 2, 32),     # 86 column tiles
+    (28672, 8192, 7, 64),     # a slice of at most 64 K tiles
+])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_wholef_plan_at_the_600m_shapes(m, h, f, splits, per):
+    """The plans #12 runs the 600m model's denses on in ``generate_paged``
+    (and two larger ones): one launch of about one and a half waves of
+    blocks, at most 8 slices (one cluster a column tile), each of at least
+    two and at most 64 K tiles; an H past 8 x 64 K tiles is refused."""
+    plan = tqm.wholef_plan(m, h, f)
+    assert (plan.splits, plan.k_tiles_per_split, plan.tiles) == (splits, per, f // 128)
+    with pytest.raises(ValueError, match="H <= 32768"):
+        tqm.wholef_plan(m, 32776, f)
 
 
 def test_plain_versions_round_like_their_kernels():
