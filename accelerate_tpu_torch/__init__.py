@@ -27,7 +27,7 @@ adapter pool ``serving/adapters.py`` (``AdapterStore``: hot-swap from
 pinned host memory on a side stream, LRU, refcount pinning), per-slot
 adapter routing through ``ServingEngine`` and ``generate_paged``, and the
 fused LoRA-query + paged-decode op ``fused_bgmv_paged_decode`` (kernels
-#8 / #9 in ``csrc/paged_attention.cu``).
+#8 / #9, on the decode kernels' split page loop in ``csrc/paged_decode.cu``).
 """
 
 from .accelerator import Accelerator, TrainState

@@ -1,6 +1,7 @@
 // Shared by the LoRA kernels: kernel #10 (bgmv_bf16, lora.cu) and the
-// prologue of #8 / #9 (fused_bgmv_paged_decode_*, paged_attention.cu), so
-// that both take h = x . A[id] with the same f32 reduction and rounding.
+// prologue of #8 / #9 (fused_bgmv_paged_decode_*, paged_decode.cu: each
+// block of a cluster takes a slice of d_in's rows), so that both take
+// h = x . A[id] with the same f32 reduction and rounding.
 // ops/_build.py hashes every csrc/*.cuh into each library's name, so an
 // edit here rebuilds both.
 

@@ -348,22 +348,6 @@ __host__ __device__ constexpr size_t wf_smem_bytes(int M, int per, int stages) {
            (size_t)M * WF_BF * 4 + 16 * stages;
 }
 
-__device__ __forceinline__ void cluster_sync() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n"
-                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// 16 bytes of the shared memory of the cluster's block `rank` at the
-// address `addr` has in this block's shared memory
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-    float4 v;
-    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
-    return v;
-}
-
 // d[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 sums
 __device__ __forceinline__ void mma_bf16_k16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                              uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -517,10 +501,8 @@ qmm_wholef_kernel(const __grid_constant__ CUtensorMap tm_codes, const bf16* __re
     // H split: the cluster's block 0 adds the slices' partial tiles in slice
     // order (rank = slice: the cluster spans gridDim.y); the others keep
     // theirs until it has read them
-    cluster_sync();
-    uint32_t rank;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-    if (rank == 0) {
+    hopper::cluster_sync();
+    if (hopper::cluster_ctarank() == 0) {
         const uint32_t part0 = hopper::smem_u32(part);
         for (int p = tid; p < M * (WF_BF / 4); p += WF_THREADS) {
             const int m = p / (WF_BF / 4), c = (p % (WF_BF / 4)) * 4;
@@ -528,7 +510,7 @@ qmm_wholef_kernel(const __grid_constant__ CUtensorMap tm_codes, const bf16* __re
             float4 v[WF_MAX_SPLITS];
 #pragma unroll
             for (int sp = 0; sp < WF_MAX_SPLITS; ++sp)
-                if (sp < splits) v[sp] = ld_cluster_f4(addr, sp);
+                if (sp < splits) v[sp] = hopper::ld_cluster_f4(addr, sp);
             float4 sum = v[0];
 #pragma unroll
             for (int sp = 1; sp < WF_MAX_SPLITS; ++sp) {
@@ -542,7 +524,7 @@ qmm_wholef_kernel(const __grid_constant__ CUtensorMap tm_codes, const bf16* __re
             store4(out, (size_t)m * F + n0 + c, sum, out_f32);
         }
     }
-    cluster_sync();
+    hopper::cluster_sync();
 }
 
 template <int M>

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the tensor-core kernels of
-// flash_attention.cu, paged_prefill.cu and quantized_matmul.cu: cp.async
+// Hopper building blocks shared by the kernels of flash_attention.cu,
+// paged_prefill.cu, paged_decode.cu and quantized_matmul.cu: cp.async
 // copies, mbarriers and TMA loads (and, on the host, the tensor maps they
-// read), register reallocation between warpgroups, the wgmma shared-memory
+// read), register reallocation between warpgroups, thread-block cluster
+// barriers and distributed shared-memory loads, the wgmma shared-memory
 // descriptor of a 128-byte-swizzled bf16 tile, and the warpgroup
 // matrix-multiply instructions the kernels issue.
 //
@@ -203,6 +204,60 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// -- thread-block clusters ---------------------------------------------------
+// Every thread of every block of the cluster executes each barrier; a block
+// must not exit while a peer may still read its shared memory.
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+    cluster_arrive();
+    cluster_wait();
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+    return r;
+}
+
+// the shared::cluster address of this block's shared address `addr` in the
+// cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+    return remote;
+}
+
+// 16 bytes (4 bytes) of the shared memory of the cluster's block `rank` at
+// the address `addr` has in this block's shared memory
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(cluster_map(addr, rank))
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t rank) {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_map(addr, rank))
+                 : "memory");
+    return v;
 }
 
 #define HOPPER_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \

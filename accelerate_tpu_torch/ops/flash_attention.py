@@ -18,9 +18,9 @@ Mirrors ``accelerate_tpu/ops/flash_attention.py``:
 
 All keep the JAX public layouts.  On a CUDA tensor a wrapper launches its
 hand-written kernel (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``
-for decode on the split plan of :func:`decode_split_plan`,
-``csrc/paged_prefill.cu`` for a prefill window, ``csrc/paged_attention.cu``
-for the fused LoRA decode; built at first use) or raises; on a CPU tensor it
+for decode and the fused LoRA decode on the split plan of
+:func:`decode_split_plan`, ``csrc/paged_prefill.cu`` for a prefill window;
+built at first use) or raises; on a CPU tensor it
 runs the plain version beside it.  Each wrapper counts its kernel launches
 in a plain integer attribute, ``launches``, on itself whatever the module's
 names hold, so a caller may route a stand-in in its place
@@ -70,19 +70,16 @@ _QLAUNCH = ([_I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I)
 # S H Hkv D P page n span rows, sm_scale and the stream
 _DECODE_LAUNCH = ([_I] + [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P], _I)
 _DECODE_QLAUNCH = ([_I] + [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P], _I)
+# kernels #8 / #9 (the same file): device, q_base, x, a_stack, b_stack, ids,
+# cos, sin, k_pages, v_pages, k_scales, v_scales, block_tables, positions,
+# out, work, counters, then S H Hkv D P page n span rows cluster d_in r N
+# max_len, sm_scale and the stream
+_FUSED_LAUNCH = ([_I] + [_P] * 16 + [_I] * 14 + [ctypes.c_float, _P], _I)
 _DECODE_SIGNATURES = {
     "paged_decode_attention_bf16": _DECODE_LAUNCH,
     **{f"paged_decode_attention_{suffix}": _DECODE_QLAUNCH for suffix in ("int8", "fp8")},
-    "paged_decode_error_string": ([_I], ctypes.c_char_p),
-}
-# device, q_base, x, a_stack, b_stack, ids, cos, sin, k_pages, v_pages,
-# k_scales, v_scales, block_tables, positions, out, then S H Hkv D P page n
-# d_in r N max_len, sm_scale and the stream
-_FUSED_LAUNCH = ([_I] + [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P], _I)
-# kernels #8 / #9 (csrc/paged_attention.cu)
-_SIGNATURES = {
     **{f"fused_bgmv_paged_decode_{suffix}": _FUSED_LAUNCH for suffix in ("bf16", "int8", "fp8")},
-    "paged_attention_error_string": ([_I], ctypes.c_char_p),
+    "paged_decode_error_string": ([_I], ctypes.c_char_p),
 }
 # kernels #6 (bf16 pages) and #7 (codes) on the tensor cores (csrc/paged_prefill.cu)
 _PREFILL_SIGNATURES = {
@@ -111,10 +108,6 @@ def _kv_qmax_for(pages) -> float:
     if pages.dtype not in _KV_QMAX:
         raise ValueError(f"quantized KV pages must be int8 or float8_e4m3fn, got {pages.dtype}")
     return _KV_QMAX[pages.dtype]
-
-
-def _lib() -> ctypes.CDLL:
-    return _build.load("paged_attention", _SIGNATURES)
 
 
 def _decode_lib() -> ctypes.CDLL:
@@ -159,20 +152,41 @@ def decode_split_plan(slots: int, heads: int, kv_heads: int, head_dim: int, page
             "counters": slots * kv_heads * row_tiles}
 
 
-# the zeroed counters of #4 / #5, one buffer per (device, stream, size):
-# every launch leaves them at 0, so none pays a memset and their address is
-# fixed; launches on one stream run in order, so they never share a buffer
-# with a launch in flight on another stream
+# #8 / #9 form thread-block clusters of at most this many blocks (the
+# portable cluster size) that share one h = x . A[id]
+FUSED_MAX_CLUSTER = 8
+
+
+def fused_decode_plan(slots: int, heads: int, kv_heads: int, head_dim: int, page_size: int,
+                      pages_per_slot: int) -> dict:
+    """The launch plan of kernels #8 / #9 (``csrc/paged_decode.cu``), host
+    arithmetic only: :func:`decode_split_plan`'s split, workspace and
+    counters unchanged (so an id-0 slot's output is #4 / #5's bitwise), and
+    the ``kv_heads * row_tiles`` blocks of a (slot, chunk) grouped into
+    thread-block clusters of ``cluster`` blocks, the largest divisor of
+    that count up to 8, each block computing h over 1/cluster of d_in's
+    rows.  A cluster's blocks share their slot and chunk, so they are live
+    or dead together."""
+    plan = decode_split_plan(slots, heads, kv_heads, head_dim, page_size, pages_per_slot)
+    blocks = kv_heads * plan["row_tiles"]
+    cluster = max(c for c in range(1, FUSED_MAX_CLUSTER + 1) if blocks % c == 0)
+    return {**plan, "cluster": cluster}
+
+
+# the zeroed counters of #4 / #5 (and #8 / #9, on the same plan), one buffer
+# per (device, stream, size): every launch leaves them at 0, so none pays a
+# memset and their address is fixed; launches on one stream run in order,
+# so they never share a buffer with a launch in flight on another stream
 _DECODE_COUNTERS: dict = {}
 
 
-def _decode_counters(device, stream: int, size: int):
+def _decode_counters(device, stream: int, size: int, name: str = "paged_decode_attention"):
     key = (device.index or 0, stream, size)
     buf = _DECODE_COUNTERS.get(key)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "paged_decode_attention: the merge counters of this stream and size must be "
+                f"{name}: the merge counters of this stream and size must be "
                 "allocated before a CUDA graph capture: run the call once on the capture "
                 "stream outside the capture")
         buf = _DECODE_COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=device)
@@ -501,16 +515,12 @@ def _fused_geometry(x, q_base, a_stack, b_stack, k_pages):
     return s_slots, h, d, hkv, num_adapters, rank
 
 
-def fused_bgmv_paged_decode_plain(x, q_base, a_stack, b_stack, adapter_ids, cos, sin,
-                                  k_pages, v_pages, block_tables, positions, *,
-                                  k_scales=None, v_scales=None,
-                                  sm_scale: Optional[float] = None):
-    """Plain PyTorch version of kernels #8 / #9 with their roundings: the
-    delta ``(x . A[id]) . B[id]`` in f32, roped split-half in f32 at
-    ``clamp(pos, 0, max_len - 1)``, ``q = f32(q_base) + gate * delta``
-    (``gate = (id != 0)``), then :func:`paged_decode_attention_plain` on that
-    f32 ``q``, which it never rounds.  Returns ``q_base.dtype``."""
-    s_slots, h, d, _, _, _ = _fused_geometry(x, q_base, a_stack, b_stack, k_pages)
+def fused_query_plain(x, q_base, a_stack, b_stack, adapter_ids, cos, sin, positions):
+    """The f32 query of kernels #8 / #9: the delta ``(x . A[id]) . B[id]``
+    in f32, roped split-half in f32 at ``clamp(pos, 0, max_len - 1)``, then
+    ``f32(q_base) + gate * delta`` (``gate = (id != 0)``).  ``[S, H, D]``
+    f32."""
+    s_slots, h, d = q_base.shape
     ids = adapter_ids.long()
     hl = torch.bmm(x.float()[:, None], a_stack[ids].float())           # [S, 1, r]
     delta = torch.bmm(hl, b_stack[ids].float())[:, 0].reshape(s_slots, h, d)
@@ -519,7 +529,19 @@ def fused_bgmv_paged_decode_plain(x, q_base, a_stack, b_stack, adapter_ids, cos,
     d1, d2 = delta.chunk(2, dim=-1)
     roped = torch.cat([d1 * c - d2 * sn, d2 * c + d1 * sn], dim=-1)
     gate = (ids != 0).float()[:, None, None]
-    q = q_base.float() + gate * roped
+    return q_base.float() + gate * roped
+
+
+def fused_bgmv_paged_decode_plain(x, q_base, a_stack, b_stack, adapter_ids, cos, sin,
+                                  k_pages, v_pages, block_tables, positions, *,
+                                  k_scales=None, v_scales=None,
+                                  sm_scale: Optional[float] = None):
+    """Plain PyTorch version of kernels #8 / #9 with their roundings:
+    :func:`fused_query_plain`'s f32 query, then
+    :func:`paged_decode_attention_plain` on it, which never rounds it.
+    Returns ``q_base.dtype``."""
+    _fused_geometry(x, q_base, a_stack, b_stack, k_pages)
+    q = fused_query_plain(x, q_base, a_stack, b_stack, adapter_ids, cos, sin, positions)
     return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, positions,
                                         k_scales=k_scales, v_scales=v_scales,
                                         sm_scale=sm_scale).to(q_base.dtype)
@@ -529,8 +551,9 @@ def _run_fused(name, x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages
                block_tables, positions, k_scales, v_scales, sm_scale):
     """The fused wrappers' body: the plain version on a CPU tensor; on a
     CUDA tensor, checks the operands, launches
-    ``fused_bgmv_paged_decode_{bf16,int8,fp8}`` on the current stream and
-    counts the launch on the wrapper ``name``."""
+    ``fused_bgmv_paged_decode_{bf16,int8,fp8}`` (``csrc/paged_decode.cu``,
+    on :func:`fused_decode_plan`) on the current stream with that stream's
+    merge counters and counts the launch on the wrapper ``name``."""
     s_slots, h, d, hkv, num_adapters, rank = _fused_geometry(x, q_base, a_stack, b_stack,
                                                              k_pages)
     if sm_scale is None:
@@ -553,6 +576,8 @@ def _run_fused(name, x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages
         if t.device != dev or not t.is_contiguous() or t.dtype != dtype:
             raise ValueError(f"{name}: {label} must be a contiguous {dtype} tensor on {dev}, "
                              f"got {t.dtype} on {t.device}")
+        if label not in ("x", "adapter_ids") and t.data_ptr() % 16:   # 16-byte loads
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
     d_in = x.shape[1]
     max_len = cos.shape[0]
     if (tuple(x.shape) != (s_slots, d_in) or a_stack.shape[1] != d_in
@@ -563,20 +588,29 @@ def _run_fused(name, x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages
     if rank > FUSED_MAX_RANK:
         raise ValueError(f"{name}: the CUDA kernel takes rank <= {FUSED_MAX_RANK}, got {rank}")
     _, num_pages, page_size, n = _geometry(h, k_pages, block_tables, d)
+    plan = fused_decode_plan(s_slots, h, hkv, d, page_size, n)
     out = torch.empty_like(q_base)
     quantized = k_scales is not None
     suffix = _KV_SUFFIX[k_pages.dtype] if quantized else "bf16"
-    err = getattr(_lib(), f"fused_bgmv_paged_decode_{suffix}")(
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = counters = None
+    if plan["chunks"] > 1:
+        work = torch.empty(plan["workspace"], dtype=torch.float32, device=dev)
+        counters = _decode_counters(dev, stream, plan["counters"], name)
+    lib = _decode_lib()
+    err = getattr(lib, f"fused_bgmv_paged_decode_{suffix}")(
         dev.index or 0, q_base.data_ptr(), x.data_ptr(), a_stack.data_ptr(),
         b_stack.data_ptr(), adapter_ids.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quantized else None, v_scales.data_ptr() if quantized else None,
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        s_slots, h, hkv, d, num_pages, page_size, n, d_in, rank, num_adapters, max_len,
-        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+        None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        s_slots, h, hkv, d, num_pages, page_size, n, plan["span"], plan["rows"],
+        plan["cluster"], d_in, rank, num_adapters, max_len, float(sm_scale), stream,
     )
     if err:
-        msg = _lib().paged_attention_error_string(err).decode()
+        msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed: {msg} ({err})")
     _WRAPPERS[name].launches += 1
     return out
@@ -598,7 +632,12 @@ def fused_bgmv_paged_decode(x, q_base, a_stack, b_stack, adapter_ids, cos, sin, 
     Returns ``[S, H, D]`` in ``q_base.dtype``.
 
     CUDA tensors launch ``fused_bgmv_paged_decode_bf16``
-    (``csrc/paged_attention.cu``; bf16 operands, r <= 64); CPU tensors run
+    (``csrc/paged_decode.cu``: #4's split page loop on
+    :func:`fused_decode_plan`, the LoRA prologue shared in a thread-block
+    cluster, the f32 query as two bf16 halves on the tensor cores; bf16
+    operands, r <= 64), with the current stream's merge counters as
+    :func:`paged_decode_attention` takes them (a CUDA graph capture needs
+    one call on its capture stream beforehand); CPU tensors run
     :func:`fused_bgmv_paged_decode_plain`."""
     if k_scales is not None or v_scales is not None:
         return fused_bgmv_paged_decode_quant(

@@ -97,9 +97,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
 5e. drives the fused LoRA-query + paged-decode op (#8 over bf16 pages, #9
    over int8 and fp8 pages) on a LoRA engine's own operands after its
    decode ticks (layer 0's pages, block tables, positions, q_proj stacks,
-   normed input and roped base q), held against its plain version and
-   against the composed route (#10's delta, rope, #4 / #5), timed beside both and
-   beside the composed route with SDPA over the gathered pages;
+   normed input and roped base q), and on #4 / #5's 16-slot case, held
+   against its plain version and against the composed route (#10's delta,
+   rope, #4 / #5), requires 21 launches bitwise equal and the rows of id-0
+   slots bitwise equal to #4's / #5's output on the base q, prints ptxas's
+   registers and spills of each #8 / #9 instance of ``paged_decode.cu``,
+   and times it beside its plain version, the composed route and the
+   composed route with SDPA over the gathered pages; with ``--before DIR``
+   also DIR's #8 / #9 (from its ``paged_attention.cu``, or from its
+   ``paged_decode.cu`` where it has no such file), held to the plain
+   version (``before_ms``);
 6. trains the 600m Llama (bench.py's training step: bf16, flash attention,
    lion-sr on bf16 params, bf16 gradients, fused linear + CE over 4 vocab
    chunks, batch 10 x 2048 of seeded random tokens, the same batch every
@@ -307,9 +314,18 @@ BEFORE: dict = {}
 BEFORE_SOURCES = ("flash_attention", "paged_attention", "quantized_matmul", "lora")
 
 
+def before_sources(path: Path) -> list:
+    """``BEFORE_SOURCES`` as DIR has them: where DIR has no
+    ``paged_attention.cu`` (#8 / #9 live in ``paged_decode.cu`` there),
+    its ``paged_decode.cu`` in its place."""
+    csrc = path / "accelerate_tpu_torch" / "csrc"
+    return [name if name != "paged_attention" or (csrc / f"{name}.cu").is_file()
+            else "paged_decode" for name in BEFORE_SOURCES]
+
+
 def start_before_build(path: Path) -> dict:
     """Start nvcc on ``DIR/accelerate_tpu_torch/csrc/<name>.cu`` for each
-    of ``BEFORE_SOURCES`` (their headers beside them) into
+    of :func:`before_sources` (their headers beside them) into
     ``build/before/``, with the port's flags, all at once.  Returns, by
     name, the process and the library's path."""
     from accelerate_tpu_torch.ops import _build
@@ -317,7 +333,7 @@ def start_before_build(path: Path) -> dict:
     out = ROOT / "build" / "before"
     out.mkdir(parents=True, exist_ok=True)
     started = {}
-    for name in BEFORE_SOURCES:
+    for name in before_sources(path):
         src = path / "accelerate_tpu_torch" / "csrc" / f"{name}.cu"
         if not src.is_file():
             raise FileNotFoundError(f"--before: {src} is not there")
@@ -353,11 +369,10 @@ def before_kernels(torch, builds: dict, path: Path) -> dict:
     """Bind the earlier designs built by :func:`start_before_build`, called
     as their wrappers call them: #2 and #3 (``flash_attention_dq_bf16`` and
     ``flash_attention_dkv_bf16`` of the earlier ``flash_attention.cu``),
-    #4 / #5 (``paged_decode_attention_{bf16,int8,fp8}`` of the earlier
-    ``paged_attention.cu``: one block per (slot, kv head), pages in turn),
     #12 (the earlier ``qmm_wholef``: two launches, on the earlier
-    ``wholef_splits``) and #10 (the earlier ``bgmv_bf16`` with the three
-    elementwise launches of the select around it)."""
+    ``wholef_splits``), #10 (the earlier ``bgmv_bf16`` with the three
+    elementwise launches of the select around it), and :func:`before_paged`'s
+    #8 / #9 and #4 / #5."""
     libs = {}
     for name, (proc, lib) in builds.items():
         _, err = proc.communicate()
@@ -393,16 +408,72 @@ def before_kernels(torch, builds: dict, path: Path) -> dict:
 
     kernels = {"flash_dq": flash_dq, "flash_dkv": flash_dkv}
     kernels.update(before_w8a16_lora(torch, libs, path))
+    kernels.update(before_paged(torch, libs))
+    return kernels
+
+
+def before_paged(torch, libs: dict) -> dict:
+    """DIR's #8 / #9 and, where its ``paged_attention.cu`` still has them,
+    its #4 / #5, called as their wrappers call them.  From a
+    ``paged_attention.cu``: the first decode design (one block per (slot,
+    kv head), pages in turn); from a ``paged_decode.cu``: the split page
+    loop, launched on this tree's ``fused_decode_plan`` and merge counters."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    suffixes = ("bf16", "int8", "fp8")
+    suffix_of = lambda k_pages, k_scales: (
+        "bf16" if k_scales is None else "int8" if k_pages.dtype == torch.int8 else "fp8")
+    split = "paged_attention" not in libs
+    lib = libs["paged_decode" if split else "paged_attention"]
+    for suffix in suffixes:
+        fn = getattr(lib, f"fused_bgmv_paged_decode_{suffix}")
+        fn.argtypes = ([I] + [P] * 16 + [I] * 14 if split else [I] + [P] * 14 + [I] * 11) + [
+            ctypes.c_float, P]
+        fn.restype = I
+
+    def fused(x, q_base, a_stack, b_stack, adapter_ids, cos, sin, k_pages, v_pages,
+              block_tables, positions, *, k_scales=None, v_scales=None):
+        out = torch.empty_like(q_base)
+        s_slots, h, d = q_base.shape
+        hkv, num_pages, page, _ = k_pages.shape
+        n = block_tables.shape[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        plan = []
+        if split:
+            pl = fa.fused_decode_plan(s_slots, h, hkv, d, page, n)
+            work = counters = None
+            if pl["chunks"] > 1:
+                work = torch.empty(pl["workspace"], dtype=torch.float32, device=q_base.device)
+                counters = fa._decode_counters(q_base.device, stream, pl["counters"])
+            plan = [None if work is None else work.data_ptr(),
+                    None if counters is None else counters.data_ptr()]
+        sizes = [s_slots, h, hkv, d, num_pages, page, n]
+        if split:
+            sizes += [pl["span"], pl["rows"], pl["cluster"]]
+        suffix = suffix_of(k_pages, k_scales)
+        err = getattr(lib, f"fused_bgmv_paged_decode_{suffix}")(
+            q_base.device.index or 0, q_base.data_ptr(), x.data_ptr(), a_stack.data_ptr(),
+            b_stack.data_ptr(), adapter_ids.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(), block_tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), *plan, *sizes, x.shape[1], a_stack.shape[2],
+            a_stack.shape[0], cos.shape[0], d ** -0.5, stream)
+        if err:
+            raise RuntimeError(f"--before: fused_bgmv_paged_decode_{suffix} launch failed ({err})")
+        return out
+
+    kernels = {"fused_bgmv_paged_decode": fused, "fused_bgmv_paged_decode_quant": fused}
     # the earlier decode entry points, where DIR's paged_attention.cu still
     # has them: device, q, k_pages, v_pages, [k_scales, v_scales,]
     # block_tables, positions, out, S T H Hkv D P page n, sm_scale, stream
-    pa = libs["paged_attention"]
-    if not hasattr(pa, "paged_decode_attention_bf16"):
-        log("--before: DIR's paged_attention.cu has no paged_decode_attention_* (#4 / #5 "
+    if split or not hasattr(lib, "paged_decode_attention_bf16"):
+        log("--before: DIR has no paged_decode_attention_* in a paged_attention.cu (#4 / #5 "
             "live in paged_decode.cu there): no earlier #4 / #5 to time")
         return kernels
-    for suffix, scales in (("bf16", 0), ("int8", 2), ("fp8", 2)):
-        fn = getattr(pa, f"paged_decode_attention_{suffix}")
+    for suffix, scales in zip(suffixes, (0, 2, 2)):
+        fn = getattr(lib, f"paged_decode_attention_{suffix}")
         fn.argtypes = [I] + [P] * (6 + scales) + [I] * 8 + [ctypes.c_float, P]
         fn.restype = I
 
@@ -411,9 +482,8 @@ def before_kernels(torch, builds: dict, path: Path) -> dict:
         out = torch.empty_like(q)
         hkv, num_pages, page, d = k_pages.shape
         scales = [k_scales.data_ptr(), v_scales.data_ptr()] if k_scales is not None else []
-        suffix = ("bf16" if k_scales is None
-                  else "int8" if k_pages.dtype == torch.int8 else "fp8")
-        err = getattr(pa, f"paged_decode_attention_{suffix}")(
+        suffix = suffix_of(k_pages, k_scales)
+        err = getattr(lib, f"paged_decode_attention_{suffix}")(
             q.device.index or 0, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(), q.shape[0], 1,
             q.shape[1], hkv, d, num_pages, page, block_tables.shape[1], d ** -0.5,
@@ -659,7 +729,7 @@ def case_report(torch, F, fa, case, decode: bool) -> dict:
 
 CASE_KEYS = ("shape", "max_abs_err", "err_over_limit", "worst_row_err", "worst_row_ref_max",
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "before_ms", "delta_ms",
-             "four_launch_ms")
+             "four_launch_ms", "composed_ms", "bitwise")
 
 
 def _with_cases(cases: list, main: dict) -> dict:
@@ -679,21 +749,56 @@ DEC_CASES = (dict(slots=16, pos0=DEC_POS),
                   n=PAGES_32["pages_per_slot"]),
              dict(slots=GEN_PAGED["batch"], pos0=GEN_DEC_POS, page=16,
                   n=-(-(GEN_T + GEN_PAGED["max_new"]) // 16)))
-# filled by main(): ptxas's registers and spilled bytes of each #4 / #5 instance
+# filled by main(): ptxas's registers and spilled bytes of each #4 / #5
+# instance and of each #8 / #9 instance
 DECODE_PTXAS: dict = {}
+FUSED_PTXAS: dict = {}
 
 
-def decode_ptxas(ptxas: str) -> dict:
+def decode_ptxas(ptxas: str) -> tuple[dict, dict]:
     """ptxas's registers and spilled bytes of each instance of
     ``paged_decode.cu``'s kernel in its build log, by page kind, head dim
-    and query rows a block."""
+    and query rows a block: #4 / #5's instances, then #8 / #9's (the
+    template's LoRA query)."""
     kinds = {"Bf16Pages": "bf16", "Int8Codes": "int8", "Fp8Codes": "fp8"}
 
     def instance(name):
-        k = re.search(r"(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)E", name)
-        return f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}"
+        k = re.search(r"(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)ELb([01])E", name)
+        return (("fused " if k.group(4) == "1" else "")
+                + f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}")
 
-    return kernel_ptxas(ptxas, "paged_decode_kernel", instance)
+    every = kernel_ptxas(ptxas, "paged_decode_kernel", instance)
+    return ({k: v for k, v in every.items() if not k.startswith("fused ")},
+            {k[len("fused "):]: v for k, v in every.items() if k.startswith("fused ")})
+
+
+def decode_loop_spills(lib: Path, ptxas: dict, fused: dict) -> None:
+    """Add to each spilling instance of ``paged_decode.cu``'s kernel (the
+    records of :func:`decode_ptxas`) the local-memory loads and stores its
+    SASS has inside the page loop, between its first and last ``HMMA``
+    (``cuobjdump -sass`` of the library)."""
+    from accelerate_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        log(f"no {cuobjdump}: the page loop's spills are not counted")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    kinds = {"Bf16Pages": "bf16", "Int8Codes": "int8", "Fp8Codes": "fp8"}
+    for block in sass.split("Function : ")[1:]:
+        k = re.search(r"paged_decode_kernel\S*?(Bf16Pages|Int8Codes|Fp8Codes)\S*?Li(\d+)ELi(\d+)"
+                      r"ELb([01])E", block.split()[0])
+        if not k:
+            continue
+        rec = (fused if k.group(4) == "1" else ptxas).get(
+            f"{kinds[k.group(1)]} D{k.group(2)} rows {k.group(3)}")
+        if not rec or not rec.get("spill_bytes"):
+            continue
+        ops = re.findall(r"\b(HMMA|LDL|STL)\b", block)
+        mma = [i for i, op in enumerate(ops) if op == "HMMA"]
+        rec["loop_spill_instructions"] = sum(
+            1 for i, op in enumerate(ops) if op != "HMMA" and mma and mma[0] < i < mma[-1])
 
 
 def kernel_ptxas(ptxas: str, kernel: str, instance) -> dict:
@@ -2175,11 +2280,38 @@ def synthetic_fused_operands(torch, kv_dtype: str, device: str = "cuda") -> dict
             "operands": "synthetic: #4's 16-slot decode case"}
 
 
+def fused_bitwise(torch, fa, ops: dict, out) -> dict:
+    """#8 / #9's ``out`` on ``ops``: ``REPEATS`` more launches bitwise equal
+    to it, and the rows of id-0 slots bitwise #4's (bf16 pages) or #5's
+    (codes) output on ``q_base``.  A CPU rehearsal has no kernel to hold to
+    this."""
+    if out.device.type != "cuda":
+        return {}
+    kw = dict(k_scales=ops["scales"][0], v_scales=ops["scales"][1]) if ops["scales"] else {}
+    args = [ops[k] for k in ("x", "q_base", "a", "b", "ids", "cos", "sin")] + [
+        *ops["pages"], ops["bt"], ops["pos"]]
+    runs = [fa.fused_bgmv_paged_decode(*args, **kw) for _ in range(REPEATS)]
+    base = fa.paged_decode_attention(ops["q_base"], *ops["pages"], ops["bt"], ops["pos"], **kw)
+    sync(torch)
+    for i, run in enumerate(runs):
+        if not torch.equal(run, out):
+            raise AssertionError(f"fused decode: launch {i + 2} of {REPEATS + 1} differs from "
+                                 "the first on the same operands")
+    zero = ops["ids"] == 0
+    if not torch.equal(out[zero], base[zero]):
+        raise AssertionError("fused decode: an id-0 row differs from the decode kernel's on "
+                             "q_base")
+    return {"repeats_bitwise": REPEATS + 1, "id0_rows_bitwise": int(zero.sum()),
+            "id0_live_rows": int((zero & (ops["pos"] >= 0)).sum())}
+
+
 def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
     """#8 (bf16 pages) or #9 (int8 / fp8) on ``ops``: held against its plain
-    version and against the composed route (#10, rope, #4 / #5); timed in a
-    CUDA graph over 4 rotating copies of the pages, beside the plain version
-    and the composed route with SDPA over the gathered pages."""
+    version and against the composed route (#10, rope, #4 / #5), repeats and
+    id-0 rows held bitwise (:func:`fused_bitwise`); timed in a CUDA graph
+    over 4 rotating copies of the pages, beside the plain version, the
+    composed route, the composed route with SDPA over the gathered pages
+    and, with ``--before``, the earlier design (``before_ms``)."""
     from accelerate_tpu_torch.models.llama import apply_rope, paged_gather_kv
     from accelerate_tpu_torch.ops import lora as lora_mod
 
@@ -2197,8 +2329,10 @@ def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
     args = (x, q_base, a, b, ids, cos, sin)
     out = kernel(*args, kp, vp, bt, pos, **kw)
     sync(torch)
-    held = held_to_plain(torch, f"{name} {kv_dtype}", out, fa.fused_bgmv_paged_decode_plain(
-        x, q_base.float(), a, b, ids, cos, sin, kp, vp, bt, pos, **kw))
+    ref = fa.fused_bgmv_paged_decode_plain(x, q_base.float(), a, b, ids, cos, sin, kp, vp, bt,
+                                           pos, **kw)
+    held = held_to_plain(torch, f"{name} {kv_dtype}", out, ref)
+    bitwise = fused_bitwise(torch, fa, ops, out)
     gate = (ids != 0).float()[:, None, None]
 
     def composed_q():
@@ -2220,6 +2354,14 @@ def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
 
     ms = time_ms(torch, rotating(kernel), graph=True)
     plain_ms = time_ms(torch, rotating(fa.fused_bgmv_paged_decode_plain), iters=5)
+    before = {}
+    if name in BEFORE:
+        early = BEFORE[name](*args, kp, vp, bt, pos, **kw)
+        sync(torch)
+        before["before_err_over_limit"] = held_to_plain(
+            torch, f"{name} {kv_dtype} (earlier design)", early, ref)["err_over_limit"]
+        before["before_ms"] = time_ms(torch, rotating(BEFORE[name]), graph=True)
+        del early
     composed_ms = time_ms(torch, lambda i: fa.paged_decode_attention(
         composed_q(), *pools[i % len(pools)][:2], bt, pos,
         **(dict(k_scales=pools[i % len(pools)][2], v_scales=pools[i % len(pools)][3])
@@ -2262,7 +2404,7 @@ def fused_case(torch, F, fa, ops: dict, kv_dtype: str) -> dict:
     rep = {**held, "vs_composed": {k: held_composed[k] for k in ("max_abs_err",
                                                                  "err_over_limit")},
            "ms": ms, "plain_ms": plain_ms, "composed_ms": composed_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms": bound_ms, "bound_by": bound_by, **before, "bitwise": bitwise,
            "shape": {"slots": slots, "heads": h, "kv_heads": hkv, "head_dim": d, "page": page,
                      "pages_per_slot": n, "pages_read": pages_read, "kv_dtype": kv_dtype,
                      "d_in": d_in, "rank": rank, "ids": [int(i) for i in ids.tolist()],
@@ -2311,6 +2453,7 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
                                         c["vs_composed"]["err_over_limit"] for c in cases)}
         reports[name]["library_call"] = ("composed route: gathered bmm pair, rope, "
                                          "F.scaled_dot_product_attention over the gathered KV")
+        reports[name]["ptxas"] = FUSED_PTXAS
     return reports
 
 
@@ -2318,10 +2461,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
                         help="a checkout of an earlier commit: its flash_attention.cu, "
-                             "paged_attention.cu, quantized_matmul.cu and lora.cu are built, "
-                             "and its #2 / #3, #4 / #5, #12 and #10 (with the select's three "
-                             "launches) are held to their plain versions and timed beside the "
-                             "new ones (before_ms)")
+                             "paged_attention.cu (where it has one, else paged_decode.cu), "
+                             "quantized_matmul.cu and lora.cu are built, and its #2 / #3, "
+                             "#4 / #5 (where paged_attention.cu has them), #8 / #9, #12 and "
+                             "#10 (with the select's three launches) are held to their plain "
+                             "versions and timed beside the new ones (before_ms)")
     args = parser.parse_args()
     import torch
 
@@ -2349,8 +2493,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     before_build = start_before_build(args.before.resolve()) if args.before else None
-    libs = _build.build_all(["paged_attention", "paged_decode", "paged_prefill",
-                             "flash_attention", "quantized_matmul", "lora"])
+    libs = _build.build_all(["paged_decode", "paged_prefill", "flash_attention",
+                             "quantized_matmul", "lora"])
     if before_build:
         BEFORE.update(before_kernels(torch, before_build, args.before.resolve()))
     log(f"build (parallel nvcc): {time.perf_counter() - t0:.2f} s -> "
@@ -2361,9 +2505,14 @@ def main() -> int:
     SASS.update(kernel_sass(libs["flash_attention"], _build.BUILD_LOG["flash_attention"]["ptxas"]))
     log("flash #2 / #3 (registers, spilled bytes, HGMMA, WARPGROUP.DEPBAR per head dim):",
         json.dumps(SASS))
-    DECODE_PTXAS.update(decode_ptxas(_build.BUILD_LOG["paged_decode"]["ptxas"]))
+    decode, fused = decode_ptxas(_build.BUILD_LOG["paged_decode"]["ptxas"])
+    DECODE_PTXAS.update(decode)
+    FUSED_PTXAS.update(fused)
+    decode_loop_spills(libs["paged_decode"], DECODE_PTXAS, FUSED_PTXAS)
     log("paged decode #4 / #5 (registers, spilled bytes by pages, head dim, rows):",
         json.dumps(DECODE_PTXAS))
+    log("fused LoRA decode #8 / #9 (registers, spilled bytes by pages, head dim, rows):",
+        json.dumps(FUSED_PTXAS))
     WHOLEF_PTXAS.update(kernel_ptxas(
         _build.BUILD_LOG["quantized_matmul"]["ptxas"], "qmm_wholef_kernel",
         lambda name: "M " + re.search(r"qmm_wholef_kernelILi(\d+)E", name).group(1)))
@@ -2434,7 +2583,7 @@ def main() -> int:
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
                "paged_multitoken_attention": "accelerate_tpu_torch/csrc/paged_prefill.cu",
                "paged_decode_attention": "accelerate_tpu_torch/csrc/paged_decode.cu",
-               "fused": "accelerate_tpu_torch/csrc/paged_attention.cu",
+               "fused": "accelerate_tpu_torch/csrc/paged_decode.cu",
                "quantized_matmul": "accelerate_tpu_torch/csrc/quantized_matmul.cu",
                "bgmv_apply": "accelerate_tpu_torch/csrc/lora.cu"}
     entries = []
@@ -2451,7 +2600,7 @@ def main() -> int:
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
-                                               "delta_ms", "four_launch_ms")
+                                               "delta_ms", "four_launch_ms", "composed_ms")
                            if k in rep}})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -986,45 +986,235 @@ def test_bgmv_kernel_refuses_what_it_does_not_take(cuda):
     assert tlora.bgmv.launches == 0 and tlora.bgmv_apply.launches == 0
 
 
+# #8 / #9's geometries besides the 600m engine's: (page size, pages per
+# slot, kv heads, GQA group, head dim, LoRA rank); positions from
+# _decode_positions, a rope table half the slot's capacity (later positions
+# clamp to its last row)
+FUSED_CASES = [
+    (1, 600, 2, 2, 64, 8),        # pages of 1: 3 chunks, a cluster of 3
+    (16, 48, 8, 1, 96, 1),        # group 1, rank 1 (lora_h's scalar path)
+    (16, 200, 2, 2, 96, 16),      # 13 chunks: clusters of 8, the grid padded to 16
+    (64, 32, 8, 2, 96, 64),       # the 600m table at rank 64
+    (128, 8, 2, 8, 128, 16),      # pages of 128, group 8
+    (16, 40, 1, 16, 64, 8),       # group 16: two row tiles
+    (24, 30, 4, 3, 96, 16),       # group 3 in a tile of 4 rows, pages of 24
+    (32, 64, 8, 4, 128, 33),      # group 4 at D 128, a rank no multiple of 8
+]
+
+
+def _fused_operands(gen, dev, case, kv_dtype, pos=None, n_adapters=5, ids=None):
+    """A ``FUSED_CASES`` geometry's operands as a dict of the op's keyword
+    names: ``_decode_operands``' pages, table, positions and q (as q_base),
+    x and a pool of ``n_adapters`` (slot 0 null), ids cycling over
+    ``LORA_IDS`` (every slot's id a pool slot), and f32 rope tables."""
+    from accelerate_tpu_torch.models.llama import rope_frequencies
+
+    page, n, hkv, group, d, rank = case
+    q, kp, vp, kw, bt, pos = _decode_operands(gen, dev, case[:5], kv_dtype, pos)
+    slots, h = q.shape[:2]
+    a, b = _lora_stacks(gen, dev, 1536, rank, h * d, n_adapters=n_adapters)
+    ids = [LORA_IDS[i % len(LORA_IDS)] % n_adapters for i in range(slots)] if ids is None else ids
+    cos, sin = (torch.from_numpy(t).to(dev) for t in
+                rope_frequencies(d, max(1, n * page // 2), 10000.0))
+    return dict(x=torch.randn(slots, 1536, generator=gen, device=dev).bfloat16(), q_base=q,
+                a_stack=a, b_stack=b, adapter_ids=torch.tensor(ids, dtype=torch.int32, device=dev),
+                cos=cos, sin=sin, k_pages=kp, v_pages=vp, block_tables=bt, positions=pos, **kw)
+
+
+def _fused(ops):
+    return tfa.fused_bgmv_paged_decode(**ops)
+
+
+def _composed(ops):
+    """The composed route: #10's bf16 delta, rope, the query rounded to
+    bf16, then #4 / #5."""
+    from accelerate_tpu_torch.models.llama import apply_rope
+
+    q_base, ids, pos = ops["q_base"], ops["adapter_ids"], ops["positions"]
+    slots, h, d = q_base.shape
+    delta = tlora.bgmv(ops["x"], ops["a_stack"], ops["b_stack"], ids).reshape(slots, 1, h, d)
+    delta = apply_rope(delta.float(), ops["cos"], ops["sin"], pos[:, None])[:, 0]
+    q = (q_base.float() + (ids != 0).float()[:, None, None] * delta).bfloat16()
+    kw = {k: ops[k] for k in ("k_scales", "v_scales") if k in ops}
+    return tfa.paged_decode_attention(q, ops["k_pages"], ops["v_pages"], ops["block_tables"],
+                                      pos, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
-def test_fused_bgmv_paged_decode_matches_plain_and_composed(cuda, kv_dtype):
-    """16 decode slots at the 600m attention geometry: mixed adapter ids,
-    a dead slot (position -1: no page is read, zeros), positions past the
-    rope table (they clamp to its last row) and page edges."""
-    from accelerate_tpu_torch.models.llama import apply_rope, rope_frequencies
+@pytest.mark.parametrize("case", [None] + FUSED_CASES)
+def test_fused_bgmv_paged_decode_matches_plain_and_composed(cuda, kv_dtype, case):
+    """16 decode slots at the 600m attention geometry (``case`` None): mixed
+    adapter ids, a dead slot (position -1: no page is read, zeros),
+    positions past the rope table (they clamp to its last row) and page
+    edges; and every ``FUSED_CASES`` geometry (pages of 1 to 128, groups 1
+    to 16, ranks 1 to 64, a table of 13 chunks) at the split plan's chunk
+    edges, before 0 and past the table."""
+    from accelerate_tpu_torch.models.llama import rope_frequencies
 
-    d, rank = 96, 16
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    if kv_dtype is None:
-        kp, vp = _pools(gen, cuda, d)
-        kw = {}
+    if case is None:
+        d, rank = 96, 16
+        gen = torch.Generator(device=cuda).manual_seed(8)
+        if kv_dtype is None:
+            kp, vp = _pools(gen, cuda, d)
+            kw = {}
+        else:
+            kp, ks, vp, vs = _quant_pools(gen, cuda, d, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+        pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000,
+                            2047, -1], dtype=torch.int32, device=cuda)
+        bt = torch.randperm(NUM_PAGES, generator=torch.Generator().manual_seed(1))[:16 * 16]
+        bt = torch.cat([bt.reshape(16, 16), bt.reshape(16, 16)], dim=1).to(torch.int32).to(cuda)
+        cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_frequencies(d, 1024, 10000.0))
+        x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+        q_base = torch.randn(16, H, d, generator=gen, device=cuda).bfloat16()
+        a, b = _lora_stacks(gen, cuda, 1536, rank, H * d)
+        ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+        ops = dict(x=x, q_base=q_base, a_stack=a, b_stack=b, adapter_ids=ids, cos=cos, sin=sin,
+                   k_pages=kp, v_pages=vp, block_tables=bt, positions=pos, **kw)
     else:
-        kp, ks, vp, vs = _quant_pools(gen, cuda, d, kv_dtype)
-        kw = dict(k_scales=ks, v_scales=vs)
-    pos = torch.tensor([0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000,
-                        2047, -1], dtype=torch.int32, device=cuda)
-    bt = torch.randperm(NUM_PAGES, generator=torch.Generator().manual_seed(1))[:16 * 16]
-    bt = torch.cat([bt.reshape(16, 16), bt.reshape(16, 16)], dim=1).to(torch.int32).to(cuda)
-    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_frequencies(d, 1024, 10000.0))
-    x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
-    q_base = torch.randn(16, H, d, generator=gen, device=cuda).bfloat16()
-    a, b = _lora_stacks(gen, cuda, 1536, rank, H * d)
-    ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(sum(case))
+        ops = _fused_operands(gen, cuda, case, kv_dtype or "bf16")
+        pos = ops["positions"]
+        assert pos.max() >= ops["cos"].shape[0]
 
-    out = tfa.fused_bgmv_paged_decode(x, q_base, a, b, ids, cos, sin, kp, vp, bt, pos, **kw)
+    out = _fused(ops)
     torch.cuda.synchronize()
-    launched = tfa.fused_bgmv_paged_decode_quant if kw else tfa.fused_bgmv_paged_decode
+    launched = (tfa.fused_bgmv_paged_decode_quant if "k_scales" in ops
+                else tfa.fused_bgmv_paged_decode)
     assert launched.launches == 1
-    ref = tfa.fused_bgmv_paged_decode_plain(x, q_base, a, b, ids, cos, sin, kp, vp, bt, pos, **kw)
+    ref = tfa.fused_bgmv_paged_decode_plain(**ops)
     _assert_rows_close(out, ref)
-    assert not out[15].any()                  # the dead slot
-    # the composed route: #10, rope of the bf16 delta, bf16 q, then #4 / #5
-    delta = tlora.bgmv(x, a, b, ids).reshape(16, 1, H, d)
-    delta = apply_rope(delta.float(), cos, sin, pos[:, None])[:, 0]
-    q = (q_base.float() + (ids != 0).float()[:, None, None] * delta).bfloat16()
-    composed = tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
-    _assert_rows_close(out, composed)
+    dead = pos < 0
+    assert dead.any() and not out[dead].any()
+    _assert_rows_close(out, _composed(ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", [(64, 32, HKV, 2, 96, 16), (16, 200, 2, 2, 96, 16)])
+def test_fused_decode_is_deterministic_and_slot_independent(cuda, kv_dtype, case):
+    """#8 / #9: 20 launches on the same operands bitwise equal to the first
+    (h's shares added in rank order, the chunks merged in chunk order), and
+    each slot alone bitwise equal to its row of the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(case[0] + case[1])
+    ops = _fused_operands(gen, cuda, case, kv_dtype)
+    first = _fused(ops)
+    runs = [_fused(ops) for _ in range(20)]
+    per_slot = ("x", "q_base", "adapter_ids", "block_tables", "positions")
+    alone = [_fused({k: (v[i:i + 1].contiguous() if k in per_slot else v)
+                     for k, v in ops.items()}) for i in range(ops["q_base"].shape[0])]
+    torch.cuda.synchronize()
+    assert all(torch.equal(run, first) for run in runs)
+    for i, out in enumerate(alone):
+        assert torch.equal(out[0], first[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_fused_decode_on_two_streams_and_in_a_cuda_graph(cuda, kv_dtype):
+    """#8 / #9 keep #4 / #5's merge counters per stream: two streams
+    launching at once give each call's own output bitwise; a capture on a
+    stream with no counters yet refuses, and one captured after a warm call
+    there replays the eager output bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    ops = _fused_operands(gen, cuda, (16, 48, HKV, 2, 96, 16), kv_dtype)
+    flipped = {k: (v.flip(0).contiguous() if k in ("x", "q_base", "adapter_ids") else v)
+               for k, v in ops.items()}
+    _two_streams([lambda: _fused(ops), lambda: _fused(flipped)])
+    # a slot count (counter size) that no other call of these tests uses
+    k = {"bf16": 7, "int8": 6, "fp8": 5}[kv_dtype]
+    few = {key: (v[:k].contiguous() if key in ("x", "q_base", "adapter_ids", "block_tables",
+                                               "positions") else v)
+           for key, v in ops.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            _fused(few)
+    _replayed(lambda: _fused(few))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", [(64, 32, HKV, 2, 96, 16)] + FUSED_CASES)
+def test_fused_decode_id0_rows_equal_the_decode_kernel(cuda, kv_dtype, case):
+    """An id-0 slot's query is f32(q_base) exactly, and its q_lo rows are
+    zero: its rows equal #4's (bf16 pages) or #5's (codes) output on q_base
+    bitwise, at every page size and every position of the case."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(case) + 1)
+    ops = _fused_operands(gen, cuda, case, kv_dtype)
+    out = _fused(ops)
+    kw = {k: ops[k] for k in ("k_scales", "v_scales") if k in ops}
+    base = tfa.paged_decode_attention(ops["q_base"], ops["k_pages"], ops["v_pages"],
+                                      ops["block_tables"], ops["positions"], **kw)
+    torch.cuda.synchronize()
+    zero = ops["adapter_ids"] == 0
+    assert zero.any() and (~zero).any()
+    assert torch.equal(out[zero], base[zero])
+
+
+def _split_key_pools(gen, dev, hkv, num_pages, page, d, kv_dtype, scale=48.0):
+    """Pages whose every K row is scale * (e_i - e_j) for two random head
+    dims i != j (codes: +-QMAX under an amax of ``scale``) and whose V rows
+    are written as ``_quant_pool`` / ``_bf16_pool`` write them: a key's
+    score is scale * (q_i - q_j) * sm_scale, so a query near 64 in every
+    element, whose bf16 rounding moves it by up to 0.25, moves the scores
+    by several units."""
+    i = torch.randint(0, d, (hkv, num_pages, page, 1), generator=gen, device=dev)
+    j = (i + torch.randint(1, d, (hkv, num_pages, page, 1), generator=gen, device=dev)) % d
+    unit = torch.zeros(hkv, num_pages, page, d, device=dev)
+    unit.scatter_(-1, i, 1.0)
+    unit.scatter_(-1, j, -1.0)
+    if kv_dtype == "bf16":
+        return dict(k_pages=(unit * scale).bfloat16(),
+                    v_pages=_bf16_pool(gen, dev, hkv, num_pages, page, d)[1])
+    from accelerate_tpu_torch.models.llama import KV_QUANT_DTYPES
+
+    qmax = 127.0 if kv_dtype == "int8" else 448.0
+    _, _, vp, vs = _quant_pool(gen, dev, hkv, num_pages, page, d, kv_dtype)
+    return dict(k_pages=(unit * qmax).to(KV_QUANT_DTYPES[kv_dtype]), v_pages=vp,
+                k_scales=torch.full((hkv, num_pages), scale, device=dev), v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_fused_decode_keeps_the_f32_query(cuda, kv_dtype):
+    """The q-precision case: q_base near 64 and a delta of a few tenths, so
+    bf16(q) != q, over keys that weigh differences of q's elements.  The
+    kernel's error against the plain version on the f32 query is at most a
+    quarter of the distance between the plain version on the f32 query and
+    on bf16(q) (what one rounding of q, as the composed route takes it,
+    would cost)."""
+    page, n, hkv, group, d = 16, 8, 2, 2, 96
+    slots, h = 6, 2 * 2
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    pools = _split_key_pools(gen, cuda, hkv, slots * n, page, d, kv_dtype)
+    bt = torch.randperm(slots * n, generator=gen, device=cuda).int().reshape(slots, n)
+    pos = torch.tensor([3, 17, 40, 77, 100, 127], dtype=torch.int32, device=cuda)
+    a, b = _lora_stacks(gen, cuda, 1536, 16, h * d)
+    from accelerate_tpu_torch.models.llama import rope_frequencies
+
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_frequencies(d, 256, 10000.0))
+    ops = dict(x=torch.randn(slots, 1536, generator=gen, device=cuda).bfloat16(),
+               q_base=(64 + torch.randn(slots, h, d, generator=gen, device=cuda) / 4).bfloat16(),
+               a_stack=a, b_stack=b * 0.3,
+               adapter_ids=torch.tensor([1, 2, 3, 4, 1, 2], dtype=torch.int32, device=cuda),
+               cos=cos, sin=sin, block_tables=bt, positions=pos, **pools)
+    out = _fused(ops)
+    q = tfa.fused_query_plain(ops["x"], ops["q_base"], ops["a_stack"], ops["b_stack"],
+                              ops["adapter_ids"], cos, sin, pos)
+    assert (q.bfloat16().float() != q).float().mean() > 0.5
+    kw = {k: pools[k] for k in ("k_scales", "v_scales") if k in pools}
+    plain = lambda query: tfa.paged_decode_attention_plain(
+        query, pools["k_pages"], pools["v_pages"], bt, pos, **kw)
+    ref, rounded = plain(q), plain(q.bfloat16().float())
+    torch.cuda.synchronize()
+    dist = (ref - rounded).abs().max().item()
+    err = (out.float() - ref).abs().max().item()
+    assert dist > 0.1, dist
+    assert err <= dist / 4, (err, dist)
+    _assert_rows_close(out, ref)
 
 
 @pytest.mark.cuda

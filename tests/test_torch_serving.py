@@ -299,7 +299,7 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "accelerate_tpu_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "profile_serving.py", "profile_training.py",
                                  "time_training_step.py", "stress_qmm.py",
-                                 "time_flash_fwd_parts.py")]
+                                 "time_flash_fwd_parts.py", "time_fused_decode.py")]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
     for path in files:
