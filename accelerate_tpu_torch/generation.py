@@ -111,12 +111,6 @@ def generate(model, input_ids, generation_config: Optional[GenerationConfig] = N
     return torch.stack(tokens, dim=1)
 
 
-def _later_slice(knob: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"generate_paged({knob}=...): speculative decode and prefix caching are "
-        "ROADMAP Queue A item A11")
-
-
 def generate_paged(model, input_ids, generation_config: Optional[GenerationConfig] = None, *,
                    prompt_lengths=None, serving_plugin=None, seed: int = 0,
                    adapters=None, adapter_ids=None, speculate=None, speculate_k=None,
@@ -136,19 +130,29 @@ def generate_paged(model, input_ids, generation_config: Optional[GenerationConfi
 
     Multi-tenant: pass an :class:`~accelerate_tpu_torch.serving.AdapterStore`
     as ``adapters`` plus per-row tenant ``adapter_ids`` (0 = the base model)
-    to decode each row through its LoRA adapter.  Speculation and prefix
-    caching (``speculate``, ``speculate_k``, ``draft_model``,
-    ``prefix_cache``) raise ``NotImplementedError`` (ROADMAP A11); their off
-    values pass."""
+    to decode each row through its LoRA adapter.
+
+    Speculative decode: ``speculate="ngram"`` (prompt-lookup self-drafting)
+    or ``"draft"`` (pass ``draft_model``, a small model with its own
+    weights) emits up to ``speculate_k + 1`` tokens per verify pass; greedy
+    tokens are the plain path's.  ``speculate=True`` means ``"ngram"``.
+    Prefix caching: ``prefix_cache=True`` (or ``"on"``) arms the
+    content-addressed copy-on-write page cache; greedy tokens are the same
+    with it on or off.  ``False`` is an explicit opt-out over a plugin or
+    environment that armed either."""
+    import dataclasses as _dc
+
     from .serving import Request, ServingEngine
     from .utils.dataclasses import ServingPlugin
 
-    for knob, value in (("speculate_k", speculate_k), ("draft_model", draft_model)):
-        if value is not None:
-            raise _later_slice(knob)
-    for knob, value in (("speculate", speculate), ("prefix_cache", prefix_cache)):
-        if value not in (None, False, "off"):
-            raise _later_slice(knob)
+    if speculate is True:
+        speculate = "ngram"
+    elif speculate is False:
+        speculate = "off"
+    if prefix_cache is True:
+        prefix_cache = "on"
+    elif prefix_cache is False:
+        prefix_cache = "off"
     gc = generation_config or GenerationConfig()
     ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor) else input_ids)
     b, t_prompt = ids.shape
@@ -163,13 +167,21 @@ def generate_paged(model, input_ids, generation_config: Optional[GenerationConfi
         tenants = [int(x) for x in np.asarray(
             adapter_ids.cpu() if isinstance(adapter_ids, torch.Tensor) else adapter_ids)]
     n_new = gc.max_new_tokens
+    knobs = {**({"speculate": speculate} if speculate is not None else {}),
+             **({"prefix_cache": prefix_cache} if prefix_cache is not None else {})}
     if serving_plugin is None:
         page_size = 16
         pages = max(1, -(-(t_prompt + n_new) // page_size))
         serving_plugin = ServingPlugin(num_slots=b, page_size=page_size, pages_per_slot=pages,
-                                       num_pages=b * pages, prefill_chunk=max(16, t_prompt))
+                                       num_pages=b * pages, prefill_chunk=max(16, t_prompt),
+                                       **knobs,
+                                       **({"speculate_k": speculate_k} if speculate_k else {}))
+    elif knobs or speculate_k:
+        serving_plugin = _dc.replace(
+            serving_plugin, **knobs,
+            **({"speculate_k": speculate_k, "speculate_buckets": None} if speculate_k else {}))
     engine = ServingEngine(model, serving_plugin, gc, seed=seed, device=model.device,
-                           adapters=adapters)
+                           adapters=adapters, draft_model=draft_model)
     for i in range(b):
         engine.add_request(Request(uid=i, prompt=tuple(int(x) for x in ids[i, :lens[i]]),
                                    max_new_tokens=n_new, adapter_id=tenants[i]))

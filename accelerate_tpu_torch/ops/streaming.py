@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..resilience.faults import maybe_fail_transfer
 from ..resilience.retry import DEFAULT_POLICY, RetryPolicy, with_retries
 
 # ---------------------------------------------------------------------------
@@ -226,11 +227,15 @@ class LayerPrefetcher:
             self.stats.transfer_retries += 1
 
     def _issue(self, i: int):
+        def attempt():
+            maybe_fail_transfer("transfer")
+            return self.fetch(i)
+
         if self.retry_policy is not None:
-            tree = with_retries(self.fetch, i, policy=self.retry_policy,
+            tree = with_retries(attempt, policy=self.retry_policy,
                                 site=f"layer-prefetch[{i}]", on_retry=self._on_retry)
         else:
-            tree = self.fetch(i)
+            tree = attempt()
         if self.stats is not None:
             self.stats.h2d_bytes += tree_bytes(tree)
             self.stats.fetches += 1

@@ -12,8 +12,8 @@ small, explicit budget of re-attempts with exponential backoff, after
 which the original exception propagates.
 
 Fatal filesystem errors (missing paths, permission walls) are never
-retried.  The JAX package's fault-injection hooks
-(``maybe_fail_transfer``) are ROADMAP item A14 and not ported.
+retried.  The fault plan's ``maybe_fail_transfer`` (``faults.py``) fires
+inside each attempt, so an injected failure takes the real backoff path.
 """
 
 from __future__ import annotations

@@ -7,7 +7,11 @@
 - :mod:`.engine` — the prefill/decode/release steps and the host loop;
 - :mod:`.harness` — seeded traffic replay and the serving metrics;
 - :mod:`.adapters` — the multi-tenant LoRA adapter pool (hot-swap, LRU,
-  refcount pinning) and its accounting.
+  refcount pinning) and its accounting;
+- :mod:`.speculate` — speculative decode's draft providers and acceptance
+  arithmetic;
+- :mod:`.prefix_cache` — the content-addressed copy-on-write prefix cache;
+- :mod:`.overload` — the serving resource contract's checker.
 """
 
 from .adapters import (
@@ -18,7 +22,8 @@ from .adapters import (
     predicted_adapter_hit_rate,
 )
 from .engine import ServingEngine
-from .harness import replay, synthesize_trace
+from .harness import predicted_prefix_hit_rate, replay, synthesize_trace
+from .overload import verify_serving_invariants
 from .paged_cache import (
     allocate,
     kv_page_bytes,
@@ -27,24 +32,50 @@ from .paged_cache import (
     push_pages,
     release,
 )
+from .prefix_cache import (
+    PrefixCache,
+    block_hashes,
+    prefix_cache_accounting,
+    unbounded_prefix_hit_rate,
+)
 from .scheduler import ContinuousBatchingScheduler, Request, SlotState
+from .speculate import (
+    DraftModelDraft,
+    NgramDraft,
+    Speculator,
+    make_draft_provider,
+    predicted_acceptance,
+    speculative_page_need,
+)
 
 __all__ = [
     "AdapterPoolFullError",
     "AdapterStore",
     "ContinuousBatchingScheduler",
+    "DraftModelDraft",
     "LoraTrainer",
+    "NgramDraft",
+    "PrefixCache",
     "Request",
     "ServingEngine",
     "SlotState",
+    "Speculator",
     "adapter_pool_accounting",
     "allocate",
+    "block_hashes",
     "kv_page_bytes",
     "kv_pool_accounting",
+    "make_draft_provider",
     "pages_for",
+    "predicted_acceptance",
     "predicted_adapter_hit_rate",
+    "predicted_prefix_hit_rate",
+    "prefix_cache_accounting",
     "push_pages",
     "release",
     "replay",
+    "speculative_page_need",
     "synthesize_trace",
+    "unbounded_prefix_hit_rate",
+    "verify_serving_invariants",
 ]

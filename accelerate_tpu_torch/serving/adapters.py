@@ -24,7 +24,7 @@ cold adapters in on demand:
 
 Slots, evictions, hits, swaps and ``swap_bytes`` follow the JAX store
 exactly over the same publish / prefetch / pin / unpin sequence.
-``LoraTrainer`` (per-adapter fine-tuning) is ROADMAP item A11.
+``LoraTrainer`` (per-adapter fine-tuning) is ROADMAP item A11e.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..ops.lora import (
     lora_spec,
 )
 from ..ops.streaming import LayerPrefetcher, StreamStats, predicted_overlap, stage_tree
+from ..resilience.faults import maybe_fail_transfer
 from ..resilience.retry import DEFAULT_POLICY, with_retries
 from ..utils.dataclasses import LoraPlugin
 
@@ -151,6 +152,7 @@ class AdapterStore:
     def _host_tree(self, tid: int) -> dict:
         if self._offload is not None:
             def attempt():
+                maybe_fail_transfer("adapter_memmap")
                 return {path: {f: self._offload.load_tensor(f"adapter_{tid}/{path}/{f}")
                                for f in _FACTORS} for path in self.spec}
 
@@ -166,6 +168,7 @@ class AdapterStore:
     def _ensure_prefetcher(self) -> LayerPrefetcher:
         if self._prefetcher is None or self._prefetcher.n_layers != len(self._tids):
             def fetch(idx):
+                maybe_fail_transfer("adapter_transfer")
                 return stage_tree(self._host_tree(self._tids[idx]), self.device)
 
             self._prefetcher = LayerPrefetcher(fetch, max(1, len(self._tids)), depth=0,
@@ -339,10 +342,10 @@ def adapter_pool_accounting(spec: dict, *, rank: int, pool_slots: int,
 
 class LoraTrainer:
     """Per-adapter LoRA fine-tuning against a frozen base model (JAX
-    ``LoraTrainer``): not ported yet, ROADMAP item A11."""
+    ``LoraTrainer``): not ported yet, ROADMAP item A11e."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "LoraTrainer (batched multi-tenant LoRA fine-tuning with per-adapter "
-            "host optimizer state) is ROADMAP Queue A item A11"
+            "host optimizer state) is ROADMAP Queue A item A11e"
         )

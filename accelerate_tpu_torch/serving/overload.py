@@ -1,0 +1,187 @@
+"""The serving resource contract (mirrors the invariant checker of
+``accelerate_tpu/serving/overload.py``: ``verify_serving_invariants``
+:145, ``_verify_refcounted`` :239).
+
+:func:`verify_serving_invariants` checks, exactly, that the host free-page
+mirror equals the device allocator, that every physical page is free or
+owned (with the prefix cache armed: shared pages counted once, refcounts
+balancing the index and slot holds, no referenced page on the free stack),
+that device sequence lengths match the host's, that slot accounting is
+exact and that adapter refcounts balance the in-flight census.  The
+degradation ladder, shedding, deadlines and cancellation of the same JAX
+module are ROADMAP item A11d.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+from .paged_cache import pages_for
+
+
+def verify_serving_invariants(engine) -> list[str]:
+    """The serving resource contract, checked exactly (the reusable
+    extension of ``ServingEngine.free_page_mirror_in_sync``).  Returns a
+    list of violations — empty means every invariant holds:
+
+    - host free-page mirror == device ``free_top``;
+    - host page conservation: free + Σ ``pages_for(kv_tokens)`` over
+      occupied slots == ``num_pages``;
+    - device page conservation: the live free-stack entries are unique, and
+      together with every live sequence's block-table prefix they cover the
+      physical pages exactly once (zero leaked pages, zero double-owners);
+      with prefix caching armed this becomes the REFCOUNTED contract
+      (:func:`_verify_refcounted`): shared pages count once however many
+      rows alias them, refcounts balance the index + slot holds exactly,
+      the host shared-prefix mirror matches the device block-table rows,
+      and no referenced page ever sits on the free stack (the double-free
+      exclusion);
+    - device ``seq_lens`` match the host ``kv_tokens`` per occupied slot and
+      read 0 for free slots;
+    - slot accounting: ``free_slots`` ∪ occupied == all slots, disjoint;
+    - adapter refcounts balance the in-flight census per tenant.
+
+    One host sync (the cache fetch) — a test/replay-time checker, never
+    called from the hot path.
+    """
+    problems: list[str] = []
+    sched = engine.sched
+    cache = engine.cache
+    page = sched.page_size
+    prefix = getattr(engine, "prefix", None)
+    free_top = int(cache["free_top"])
+    if free_top != sched.free_pages:
+        problems.append(
+            f"free-page mirror diverged: device free_top={free_top} vs "
+            f"host free_pages={sched.free_pages}"
+        )
+    stack = cache["free_stack"].cpu().numpy()[:max(free_top, 0)].tolist()
+    if len(set(stack)) != len(stack):
+        problems.append("free stack holds duplicate physical pages")
+    seq_lens = cache["seq_lens"].cpu().numpy()
+    block_tables = cache["block_tables"].cpu().numpy()
+    if prefix is None:
+        held = sum(int(pages_for(st.kv_tokens, page))
+                   for st in sched.slots.values())
+        if sched.free_pages + held != sched.num_pages:
+            problems.append(
+                f"host page conservation broken: free={sched.free_pages} + "
+                f"held={held} != num_pages={sched.num_pages}"
+            )
+        owned: list[int] = []
+        for slot in range(seq_lens.shape[0]):
+            n = int(pages_for(int(seq_lens[slot]), page))
+            owned.extend(int(p) for p in block_tables[slot, :n])
+        if sorted(owned + stack) != list(range(sched.num_pages)):
+            leaked = set(range(sched.num_pages)) - set(owned) - set(stack)
+            doubled = [p for p, c in Counter(owned + stack).items() if c > 1]
+            problems.append(
+                f"device page conservation broken: leaked={sorted(leaked)} "
+                f"double-owned={sorted(doubled)}"
+            )
+    else:
+        problems.extend(_verify_refcounted(engine, stack, seq_lens,
+                                           block_tables))
+    for slot, st in sched.slots.items():
+        if int(seq_lens[slot]) != st.kv_tokens:
+            problems.append(
+                f"slot {slot}: device seq_len={int(seq_lens[slot])} vs host "
+                f"kv_tokens={st.kv_tokens}"
+            )
+    for slot in range(sched.num_slots):
+        if slot not in sched.slots and int(seq_lens[slot]) != 0:
+            problems.append(
+                f"free slot {slot} still carries device seq_len="
+                f"{int(seq_lens[slot])}"
+            )
+    if sorted(sched.free_slots + list(sched.slots)) != list(range(sched.num_slots)):
+        problems.append(
+            f"slot accounting broken: free={sched.free_slots} "
+            f"occupied={sorted(sched.slots)}"
+        )
+    if engine.adapters is not None:
+        in_flight = Counter(
+            st.request.adapter_id for st in sched.slots.values()
+            if st.request.adapter_id
+        )
+        for tid in set(in_flight) | set(engine.adapters.refcount):
+            want, got = in_flight.get(tid, 0), engine.adapters.refcount.get(tid, 0)
+            if want != got:
+                problems.append(
+                    f"adapter {tid}: refcount={got} vs {want} in-flight holds"
+                )
+    return problems
+
+
+def _verify_refcounted(engine, stack, seq_lens, block_tables) -> list[str]:
+    """The refcounted page-conservation contract (prefix caching armed):
+
+    - **mirror exact**: each occupied slot's host ``shared_pages`` list
+      equals its device block-table row prefix (the COW release keep-count
+      arithmetic depends on it);
+    - **refcounts exact**: ``refcount[p] == (index holds p) + (slots
+      listing p)`` — no phantom or missing holds;
+    - **no referenced page on the free stack** — THE double-free a refcount
+      bug causes (the host-side twin is ``PrefixCache.pop_pending``'s
+      assertion);
+    - **conservation**: free stack ∪ refcounted shared pages ∪ per-slot
+      private pages covers the pool exactly once (zero leaks, zero double
+      owners — a shared page counts ONCE however many rows alias it);
+    - **drained**: no page stuck in ``pending_free`` across a tick boundary.
+    """
+    problems: list[str] = []
+    sched = engine.sched
+    prefix = engine.prefix
+    page = sched.page_size
+    slot_holds: Counter = Counter()
+    private: list[int] = []
+    for slot, st in sched.slots.items():
+        k = len(st.shared_pages)
+        total = int(pages_for(st.kv_tokens, page))
+        row = [int(p) for p in block_tables[slot, :total]]
+        if row[:k] != [int(p) for p in st.shared_pages]:
+            problems.append(
+                f"slot {slot}: shared-prefix mirror diverged — host "
+                f"{st.shared_pages} vs device row {row[:k]}"
+            )
+        slot_holds.update(int(p) for p in st.shared_pages)
+        private.extend(row[k:])
+    index_pages = set(prefix.index.values())
+    for p in set(slot_holds) | index_pages | set(prefix.refcount):
+        want = slot_holds.get(p, 0) + (1 if p in index_pages else 0)
+        got = prefix.refcount.get(p, 0)
+        if want != got:
+            problems.append(
+                f"page {p}: refcount={got} vs {want} holds "
+                f"(index={p in index_pages}, slots={slot_holds.get(p, 0)})"
+            )
+    shared = set(prefix.refcount)
+    referenced_on_stack = shared & set(stack)
+    if referenced_on_stack:
+        problems.append(
+            f"referenced pages on the free stack (double-free): "
+            f"{sorted(referenced_on_stack)}"
+        )
+    if prefix.pending_free:
+        problems.append(
+            f"pending_free not drained across the tick boundary: "
+            f"{prefix.pending_free}"
+        )
+    dup_private = [p for p, c in Counter(private).items() if c > 1]
+    if dup_private:
+        problems.append(f"private pages double-owned: {sorted(dup_private)}")
+    cover = sorted(list(shared) + private + stack)
+    if cover != list(range(sched.num_pages)):
+        counts = Counter(list(shared) + private + stack)
+        leaked = set(range(sched.num_pages)) - set(counts)
+        doubled = [p for p, c in counts.items() if c > 1]
+        problems.append(
+            f"refcounted page conservation broken: free={len(stack)} + "
+            f"shared={len(shared)} + private={len(private)} vs "
+            f"pool={sched.num_pages}; leaked={sorted(leaked)} "
+            f"double-class={sorted(doubled)}"
+        )
+    return problems
+
+
+__all__ = ["verify_serving_invariants"]

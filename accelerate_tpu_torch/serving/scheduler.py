@@ -28,10 +28,24 @@ Policy:
 - **Eviction**: when a step needs more fresh pages than the pool has, the
   youngest admitted sequence is preempted — its pages are released and the
   request requeues at the head of the line (recompute-on-readmit).
+- **Speculative reservations** (``speculate_k`` > 0): admission also
+  demands the worst-case pages of the request's first verify pass, and a
+  verify pass under page pressure first zeroes draft depths,
+  youngest-admitted first (a ``("despeculate", slots)`` event), before it
+  evicts anyone.  Page arithmetic follows the device's KV length
+  (``SlotState.kv_tokens``), which a verify pass advances by the accepted
+  drafts plus one.
+- **Prefix reuse** (with a :class:`~.prefix_cache.PrefixCache`): admission
+  matches the prompt's full-page prefix against the index, strikes the hit
+  from the page demand, takes one refcount per hit page and starts chunked
+  prefill at the hit boundary.  Page pressure reclaims index-only pages
+  (least recently used first) before it evicts a live sequence, and a
+  page some slot still shares is never a victim.  Every release path goes
+  through ``_release_slot_pages``: private pages free by count, shared
+  pages drop one refcount and free at zero.
 
-Prefix reuse, speculative reservations and the overload controls
-(bounded queue, shedding, deadlines, cancellation) of the JAX scheduler
-come with ROADMAP Queue A item A11.
+The overload controls of the JAX scheduler (bounded queue, shedding,
+deadlines, cancellation) are ROADMAP Queue A item A11d.
 """
 
 from __future__ import annotations
@@ -49,7 +63,7 @@ class Request:
     time.  ``adapter_id`` is the requesting tenant's LoRA adapter (0 = the
     base model); admission maps it to a pool slot through the
     :class:`~.adapters.AdapterStore`.  ``deadline_ticks`` keeps the JAX
-    field; any value but 0 is ROADMAP item A11."""
+    field; any value but 0 is ROADMAP item A11d."""
 
     uid: int
     prompt: tuple  # int token ids
@@ -72,10 +86,20 @@ class SlotState:
     prefilled: int = 0             # prompt tokens written so far
     tokens: Optional[list] = None  # generated token ids
     adapter_slot: int = 0          # device pool slot the request decodes with
+    shared_pages: Optional[list] = None  # prefix-cache page ids this slot
+                                   # holds a refcount on: always a
+                                   # contiguous block-table row prefix
+                                   # (adopted prefix + own inserted pages)
+    kv_len: Optional[int] = None   # the device's KV length once a verify
+                                   # pass set it (an EOS inside an accepted
+                                   # window retires the host stream short of
+                                   # the KV the pass wrote)
 
     def __post_init__(self):
         if self.tokens is None:
             self.tokens = []
+        if self.shared_pages is None:
+            self.shared_pages = []
 
     @property
     def prefill_done(self) -> bool:
@@ -87,6 +111,13 @@ class SlotState:
         # the latest sampled token is written by the NEXT decode step)
         return self.prefilled + max(0, len(self.tokens) - 1)
 
+    @property
+    def kv_tokens(self) -> int:
+        """Tokens resident in the device KV cache: ``seq_len`` unless a
+        verify pass pinned ``kv_len``.  All page arithmetic (evict, finish,
+        need) keys off this, so the host mirror follows the allocator."""
+        return self.kv_len if self.kv_len is not None else self.seq_len
+
 
 class ContinuousBatchingScheduler:
     """Deterministic admit/prefill/decode/evict policy over a fixed slot set.
@@ -97,7 +128,8 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, num_slots: int, num_pages: int, page_size: int,
                  pages_per_slot: int, prefill_chunk: int, prefill_buckets: tuple,
-                 adapters=None, max_bypass_age: int = 16):
+                 adapters=None, max_bypass_age: int = 16, speculate_k: int = 0,
+                 prefix=None):
         self.num_slots = num_slots
         self.num_pages = num_pages
         self.page_size = page_size
@@ -105,7 +137,9 @@ class ContinuousBatchingScheduler:
         self.prefill_chunk = prefill_chunk
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.adapters = adapters             # AdapterStore (multi-tenant mode)
+        self.prefix = prefix                 # PrefixCache (COW prefix reuse)
         self.max_bypass_age = max_bypass_age
+        self.speculate_k = speculate_k       # admission reserves verify pages
         self.waiting: deque[Request] = deque()
         self.slots: dict[int, SlotState] = {}
         self.free_slots: list[int] = list(range(num_slots))
@@ -115,6 +149,12 @@ class ContinuousBatchingScheduler:
         self._head_block_age = 0             # ticks the line head has been
         self._head_block_uid = None          # adapter-blocked (fairness bound)
         self.events: list[tuple] = []        # the determinism log
+        self.evicted_keep: dict[int, int] = {}  # slot -> shared-prefix page
+                                             # count parked by evict() for
+                                             # the engine's COW release
+        self._prefix_counted: set[int] = set()  # uids already counted in
+                                             # the hit-rate twin (readmits
+                                             # skip the rate counters)
 
     # -- queueing -----------------------------------------------------------
 
@@ -133,7 +173,7 @@ class ContinuousBatchingScheduler:
         if request.deadline_ticks:
             raise NotImplementedError(
                 f"request {request.uid} carries deadline_ticks: deadlines and "
-                "the overload controls are ROADMAP Queue A item A11"
+                "the overload controls are ROADMAP Queue A item A11d"
             )
         total = request.prompt_len + request.max_new_tokens
         cap = min(self.pages_per_slot, self.num_pages) * self.page_size
@@ -157,10 +197,24 @@ class ContinuousBatchingScheduler:
     def requeue_front(self, request: Request) -> None:
         self.waiting.appendleft(request)
 
+    def mark_prefix_counted(self, uids) -> None:
+        """Pre-seed the once-only offered-traffic set behind the prefix
+        hit-rate twin: a request already counted as offered traffic
+        elsewhere does not count a second lookup at its admission here."""
+        self._prefix_counted.update(uids)
+
     def _release_slot_pages(self, st: SlotState) -> int:
         """The one host-side page-release arithmetic (finish and evict both
-        route through it).  Returns the pages added to the free mirror."""
-        freed = int(pages_for(st.seq_len, self.page_size))
+        route through it): private pages — everything past the slot's
+        shared prefix — free at once (the engine's COW release pushes
+        exactly those); shared pages drop one refcount each, and only those
+        reaching zero join the free count (they queue for the engine's
+        ``push_free_step``).  Returns the pages added to the free mirror."""
+        total = int(pages_for(st.kv_tokens, self.page_size))
+        shared = len(st.shared_pages)
+        freed = total - shared
+        if shared and self.prefix is not None:
+            freed += self.prefix.unref_pages(st.shared_pages)
         self.free_pages += freed
         return freed
 
@@ -189,8 +243,10 @@ class ContinuousBatchingScheduler:
         (``submit`` already guarantees a lone sequence can never outgrow the
         pool): FIFO, except that a head blocked on adapter-pool contention
         is bypassed by adapter-ready requests for at most
-        ``max_bypass_age`` ticks.  Admission pins the request's adapter.
-        Returns the admitted slot ids."""
+        ``max_bypass_age`` ticks.  Admission pins the request's adapter and,
+        with the prefix cache, adopts the prompt's cached prefix (one
+        refcount per page; prefill starts at the hit boundary).  Returns
+        the admitted slot ids."""
         if self.adapters is not None:
             # start the next arrivals' adapter uploads under this tick's work
             for req in list(self.waiting)[:2]:
@@ -216,8 +272,24 @@ class ContinuousBatchingScheduler:
             if idx is None:
                 break
             req = self.waiting[idx]
-            if self.admission_page_need(req) > self.free_pages:
-                break
+            hashes = hit = ()
+            reserve = 0
+            if self.prefix is not None:
+                hashes = self.prefix.block_hashes(req.prompt, req.adapter_id)
+                hit = self.prefix.match(hashes)
+                # anti-thrash headroom: a hit makes readmission almost free,
+                # so an evicted request could take the pages a running slot
+                # needs to grow, and the two evict each other forever; one
+                # page of headroom per occupied slot (none when empty)
+                reserve = len(self.slots)
+            need = self.admission_page_need(req, hit_pages=len(hit))
+            if need > self.free_pages - reserve:
+                # index-only cached pages are the cheapest capacity: reclaim
+                # them before refusing, but never the pages this admission
+                # just matched, nor a page a live slot references
+                self._reclaim(need + reserve, protect=frozenset(hit))
+                if need > self.free_pages - reserve:
+                    break
             del self.waiting[idx]
             adapter_slot = 0
             if self.adapters is not None and req.adapter_id:
@@ -227,15 +299,60 @@ class ContinuousBatchingScheduler:
             if idx > 0:
                 self.events.append(("bypass", req.uid, self.waiting[0].uid))
             slot = self.free_slots.pop(0)
-            self.slots[slot] = SlotState(req, self._admit_counter, adapter_slot=adapter_slot)
+            shared: list = []
+            hit_tokens = 0
+            if hashes:
+                # commit the hit: a refcount on every shared page, prefill
+                # from the hit boundary; a readmission skips the hit-rate
+                # counters (the twin's predicted replay cannot see
+                # recompute churn)
+                shared = self.prefix.adopt(hashes, count=req.uid not in self._prefix_counted)
+                self._prefix_counted.add(req.uid)
+                hit_tokens = len(shared) * self.page_size
+                if shared:
+                    self.events.append(("prefix_hit", req.uid, hit_tokens))
+                    if len(shared) < len(hashes):
+                        self.events.append(("cow_fork", req.uid))
+            self.slots[slot] = SlotState(req, self._admit_counter, adapter_slot=adapter_slot,
+                                         shared_pages=shared, prefilled=hit_tokens)
             self._admit_counter += 1
             admitted.append(slot)
             self.events.append(("admit", req.uid, slot))
         return admitted
 
-    def admission_page_need(self, req: Request) -> int:
-        """Pages admission demands before scheduling ``req``: its prompt."""
-        return pages_for(req.prompt_len, self.page_size)
+    def _reclaim(self, demand: int, protect: frozenset = frozenset()) -> int:
+        """Free least recently used index-only prefix pages until
+        ``free_pages >= demand`` (best effort).  Freed ids queue in the
+        prefix cache's ``pending_free`` for the engine's next push; the host
+        mirror counts them at once.  ``protect`` exempts matched but not yet
+        adopted pages.  Returns the pages reclaimed."""
+        freed = 0
+        while self.free_pages < demand and self.prefix is not None:
+            page = self.prefix.reclaim_one(protect)
+            if page is None:
+                break
+            self.free_pages += 1
+            freed += 1
+            self.events.append(("prefix_evict", page))
+        return freed
+
+    def admission_page_need(self, req: Request, hit_pages: Optional[int] = None) -> int:
+        """Pages admission demands before scheduling ``req``: its prompt,
+        plus, with speculation, the worst-case pages of its first verify
+        pass (positions ``prompt_len .. prompt_len + depth``, the depth
+        clamped to the request's own budget, so the demand stays within
+        what ``submit`` guaranteed).  With the prefix cache, the cached
+        prefix's ``hit_pages`` come from the index, not the free pool
+        (``None`` probes the index)."""
+        if hit_pages is None:
+            hit_pages = 0
+            if self.prefix is not None:
+                hit_pages = len(self.prefix.match(
+                    self.prefix.block_hashes(req.prompt, req.adapter_id)))
+        if not self.speculate_k:
+            return pages_for(req.prompt_len, self.page_size) - hit_pages
+        depth = min(self.speculate_k, req.max_new_tokens - 1)
+        return pages_for(req.prompt_len + 1 + depth, self.page_size) - hit_pages
 
     # -- the per-tick decision ----------------------------------------------
 
@@ -278,14 +395,58 @@ class ContinuousBatchingScheduler:
     def decode_page_need(self, slots: list[int]) -> list[int]:
         """Slots whose next decode token crosses a page boundary (needs a
         fresh page this step)."""
-        return [s for s in slots if self.slots[s].seq_len % self.page_size == 0]
+        return [s for s in slots if self.slots[s].kv_tokens % self.page_size == 0]
+
+    def verify_page_need(self, slots: list[int], spec_lens: dict) -> dict:
+        """Worst-case fresh pages per slot for one verify pass: page starts
+        among the written positions ``[kv, kv + spec_len]`` (the device pops
+        them before the acceptance exists; it rolls the rejected ones
+        back)."""
+        from .speculate import speculative_page_need
+
+        return {s: speculative_page_need(self.slots[s].kv_tokens, spec_lens.get(s, 0),
+                                         self.page_size)
+                for s in slots}
+
+    def plan_speculative_evictions(self, slots: list[int],
+                                   spec_lens: dict) -> tuple[list[int], list[int]]:
+        """Fit the verify pass's worst-case page demand, degrading before
+        evicting: under pressure, zero draft depths in ``spec_lens``
+        (in place; the engine builds the pass from it), youngest-admitted
+        first, down to the plain-decode floor (a depth-0 lane is plain
+        decode), and only then run the shared evict-until-fit loop.
+        Returns ``(surviving_slots, evicted_slots)``."""
+        active = list(slots)
+
+        def over():
+            return sum(self.verify_page_need(active, spec_lens).values()) > self.free_pages
+
+        degraded = []
+        while over():
+            victims = [s for s in sorted(active, key=lambda s: -self.slots[s].admit_seq)
+                       if spec_lens.get(s, 0) > 0]
+            if not victims:
+                break
+            spec_lens[victims[0]] = 0
+            degraded.append(victims[0])
+        if degraded:
+            self.events.append(("despeculate", tuple(degraded)))
+        evicted = self._evict_until(
+            active,
+            lambda a: sum(self.verify_page_need(a, spec_lens).values()) <= self.free_pages,
+        )
+        return active, evicted
 
     def _evict_until(self, active: list[int], fits) -> list[int]:
-        """Evict the youngest-admitted sequence — removing it from
-        ``active`` when it was scheduled this tick — until
-        ``fits(active)``.  Returns the evicted slots."""
+        """The one evict-until-fit loop (plain and speculative decode share
+        it): reclaim one index-only prefix page and test again, else evict
+        the youngest-admitted sequence — removing it from ``active`` when
+        it was scheduled this tick — until ``fits(active)``.  Returns the
+        evicted slots."""
         evicted = []
         while not fits(active):
+            if self._reclaim(self.free_pages + 1):
+                continue
             victims = sorted(self.slots, key=lambda s: -self.slots[s].admit_seq)
             if not victims:  # pragma: no cover - submit() capacity guard
                 break
@@ -320,6 +481,8 @@ class ContinuousBatchingScheduler:
                       - pages_for(st.prefilled, self.page_size))
             if needed <= self.free_pages:
                 return True, evicted
+            if self._reclaim(needed):  # index-only pages first, always
+                continue
             victims = sorted(
                 (s for s in self.slots if s != slot),
                 key=lambda s: -self.slots[s].admit_seq,
@@ -329,6 +492,10 @@ class ContinuousBatchingScheduler:
 
     def evict(self, slot: int) -> Request:
         st = self.slots.pop(slot)
+        # the engine's COW release runs after this pop: park the keep count
+        # so the release still skips the shared prefix
+        if self.prefix is not None:
+            self.evicted_keep[slot] = len(st.shared_pages)
         self._release_slot_pages(st)
         self.free_slots.append(slot)
         self.free_slots.sort()
@@ -349,9 +516,32 @@ class ContinuousBatchingScheduler:
         self.free_pages -= pages_for(st.prefilled, self.page_size) - before
         self.events.append(("prefill", st.request.uid, slot, st.prefilled))
 
-    def note_decode(self, slots_needing_pages: list[int]) -> None:
+    def note_decode(self, slots_needing_pages: list[int],
+                    active_slots: Optional[list] = None) -> None:
         self.free_pages -= len(slots_needing_pages)
+        for s in active_slots or ():
+            # a slot whose kv_len an earlier verify pass set advances it: a
+            # despeculated plain decode writes one KV position
+            st = self.slots.get(s)
+            if st is not None and st.kv_len is not None:
+                st.kv_len += 1
         self.events.append(("decode", tuple(sorted(slots_needing_pages))))
+
+    def note_verify(self, accepted: dict) -> None:
+        """Execution feedback for one verify pass: ``accepted`` maps each
+        dispatched slot to its accepted draft count ``m`` (the pass emitted
+        ``m + 1`` tokens and kept the pages covering them; the rest rolled
+        back on the device).  Advancing ``kv_len`` by ``m + 1`` keeps the
+        host mirror exact."""
+        consumed = 0
+        for slot in sorted(accepted):
+            m = int(accepted[slot])
+            st = self.slots[slot]
+            kv = st.kv_tokens
+            consumed += int(pages_for(kv + m + 1, self.page_size) - pages_for(kv, self.page_size))
+            st.kv_len = kv + m + 1
+        self.free_pages -= consumed
+        self.events.append(("verify", tuple((s, int(accepted[s])) for s in sorted(accepted))))
 
     def finish(self, slot: int) -> SlotState:
         """Retire a finished sequence: free its pages and its slot."""

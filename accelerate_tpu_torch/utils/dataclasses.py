@@ -58,9 +58,13 @@ class ServingPlugin:
     ``decode_kernel="auto"`` resolves to ``"flash"``: the hand-written paged
     kernels on a CUDA tensor and their plain versions on a CPU tensor;
     ``"native"`` (gather + dense attention) runs only when asked for.
-    ``kv_dtype`` ``"int8"`` / ``"fp8"`` serves from quantized pages.  The
-    speculation, prefix-cache and overload knobs parse as in JAX; the
-    engine raises ``NotImplementedError`` when one is switched on.
+    ``kv_dtype`` ``"int8"`` / ``"fp8"`` serves from quantized pages;
+    ``speculate`` ``"ngram"`` / ``"draft"`` decodes speculatively and
+    ``prefix_cache="on"`` shares cached prompt pages.  The overload knobs
+    (``max_queue``, ``kv_shed_watermark``, ``default_deadline_ticks``,
+    ``ladder_reserve_frac``) parse as in JAX; the engine raises
+    ``NotImplementedError`` when one of the first three is set (ROADMAP
+    item A11d).
     """
 
     num_slots: Optional[int] = None          # concurrent decode lanes
@@ -243,7 +247,7 @@ class LoraPlugin:
     ``kernel``: ``"auto"`` (kernel #10 at T = 1, the gathered product
     otherwise), ``"native"`` or ``"bgmv"``.  ``optimizer`` names the
     per-adapter fine-tuning recipe of ``LoraTrainer``, which is ROADMAP
-    item A11."""
+    item A11e."""
 
     rank: Optional[int] = None               # env ACCELERATE_LORA_RANK, default 8
     alpha: Optional[float] = None            # folded into stored B as alpha / rank

@@ -65,6 +65,25 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    under ``decode_kernel="auto"`` (#5 and #7 once per layer of every step,
    every request finishing), and again with every launch held against its
    plain version;
+5a. speculative decode (``bench.py --serve --speculate 4``): the same
+   trace with prompt-lookup drafting, k 4, every verify pass kernel #6 at
+   [16, 5] (the host wall and kernel launches of each tick kind reported);
+   tokens held to the bf16 serve's greedy tokens under the token rule
+   (equal, or first different where the reference's two tokens are a
+   near-tie: their logit gap no larger than the largest |logit difference|
+   between the kernel route and the plain route, teacher-forced); a
+   checked rerun holds every launch against its plain version with the
+   serving resource contract checked after every tick; if no draft is
+   accepted, 8 prompts repeating a 5-token cycle serve too; then 4
+   requests through a 2-layer draft model at the 600m widths (kernel #1
+   at T 32, every launch held to its plain version);
+5a'. after the quantized serves: the prefix cache (``bench.py --serve
+   --prefix-share 0.5``, with ``--speculate 4``): the shared-preamble
+   trace with both features off, then on (hit rate beside its prediction,
+   shared pages, forks, skipped prefill, TTFT off and on, tokens under the
+   token rule), a checked rerun with the resource contract after every
+   tick, then the int8 model from int8 pages on its first 8 requests the
+   same way (#7 at [16, 5], #11 at m 80);
 5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
@@ -120,7 +139,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    kernels and through their plain versions agrees (loss, grad norm and
    every leaf's gradient);
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
-   launches of the op phase, since no engine calls them), then ``{"ok": true,
+   launches of the op phase, since no engine calls them; ``paths``: each
+   kernel's launches on the speculative, draft-model, prefix-cache and
+   int8 prefix-cache serves), then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 ``profile_serving.py`` profiles a window of the same engine's ticks.
@@ -218,6 +239,22 @@ LORA_TICKS = 24       # decode ticks before the fused op takes the engine's oper
 LORA_REPLACES = {"bgmv_apply": "accelerate_tpu/ops/lora.py:177",
                  "fused_bgmv_paged_decode": "accelerate_tpu/ops/flash_attention.py:988",
                  "fused_bgmv_paged_decode_quant": "accelerate_tpu/ops/flash_attention.py:999"}
+
+# speculative decode: bench.py --serve --speculate 4 (prompt lookup, k 4, one
+# verify bucket); when the seeded trace accepts no draft, CYCLE_REQUESTS
+# prompts that repeat a CYCLE-token cycle; a draft-model serve of
+# DRAFT_REQUESTS requests, DRAFT_NEW tokens each, through a DRAFT_LAYERS-layer
+# model at the 600m widths (kernel #1 at T = its window of 32)
+SPEC = dict(speculate="ngram", speculate_k=4)
+CYCLE, CYCLE_REQUESTS = 5, 8
+DRAFT_REQUESTS, DRAFT_NEW, DRAFT_LAYERS = 4, 32, 2
+# the prefix cache: bench.py --serve --prefix-share 0.5, served with both
+# features off, then with the prefix cache and speculation on; the int8
+# model from int8 pages on the trace's first PREFIX_QUANT_REQUESTS requests
+PREFIX_SHARE = 0.5
+PREFIX_QUANT_REQUESTS = 8
+# each new path's kernel-wrapper launches, counts zeroed just before it
+PATH_LAUNCHES: dict = {}
 
 # the 600m training step (bench.py's headline configuration on one chip)
 TRAIN = dict(batch=10, seq=2048, warmup=2, timed=10, ce_chunks=4, optimizer="lion-sr")
@@ -1508,7 +1545,8 @@ def checked(torch, kernel, plain, readings: list):
         quant = kw.get("k_scales") is not None
         ref = plain(q.float(), k_pages if quant else k_pages.float(),
                     v_pages if quant else v_pages.float(), block_tables, positions, **kw)
-        readings.append(held_to_plain(torch, kernel.__name__, out, ref))
+        readings.append({**held_to_plain(torch, kernel.__name__, out, ref),
+                         "width": q.shape[1] if q.dim() == 4 else 1})
         return out
     return call
 
@@ -1593,40 +1631,67 @@ def worst_readings(readings: dict, required) -> dict:
                      **{k: worst[k] for k in ("err_over_limit", "worst_row_err",
                                               "worst_row_ref_max")},
                      "min_row_ref_max": min(r["min_row_ref_max"] for r in calls)}
+        if "width" in worst:
+            widths: dict = {}
+            for r in calls:
+                widths[r["width"]] = widths.get(r["width"], 0) + 1
+            rep[name]["calls_by_width"] = dict(sorted(widths.items()))
     return rep
 
 
 def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
-                  adapters=None, plugin=PLUGIN) -> dict:
+                  adapters=None, plugin=PLUGIN, required=None, draft_model=None,
+                  invariants=False) -> dict:
     """Serve ``trace`` on a fresh engine with every kernel launch held
     against its plain version on the operands the engine gives it: the
     allocator's block tables, bucket-padded prefill windows, the dead slots
-    of each decode step and, with ``adapters`` (a fresh store), each slot's
-    adapter ids.  Returns each kernel's worst readings."""
+    of each decode step, the dead lanes of each verify pass and, with
+    ``adapters`` (a fresh store), each slot's adapter ids.  ``required``
+    (default: #4 and #6, #11 with int8 weights, #10 with adapters) must
+    each be called; with ``invariants`` the serving resource contract
+    (``verify_serving_invariants``: the page mirror, refcounts, the free
+    stack) is checked after every tick.  Returns each kernel's worst
+    readings."""
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
+    from accelerate_tpu_torch.serving import verify_serving_invariants
 
     engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
-                           adapters=adapters)
+                           adapters=adapters, draft_model=draft_model)
     engine.warmup()
     readings = {}
+    ticks = 0
     with checked_kernels(torch, llama_mod, fa, qmm, readings):
-        engine.run(trace)
-    required = ["paged_decode_attention", "paged_multitoken_attention"]
-    if kv_dtype != "bf16":
-        required.append("quantized_matmul_tiled")
-    if adapters is not None:
-        required.append("bgmv_apply")
-    return worst_readings(readings, required)
+        pending = sorted(trace, key=lambda r: (r.arrival_step, r.uid))
+        while pending or not engine.idle():
+            while pending and pending[0].arrival_step <= engine.steps:
+                engine.add_request(pending.pop(0))
+            engine.step()
+            ticks += 1
+            if invariants:
+                problems = verify_serving_invariants(engine)
+                if problems:
+                    raise AssertionError(f"tick {engine.steps}: {problems}")
+    if required is None:
+        required = ["paged_decode_attention", "paged_multitoken_attention"]
+        if kv_dtype != "bf16":
+            required.append("quantized_matmul_tiled")
+        if adapters is not None:
+            required.append("bgmv_apply")
+    rep = worst_readings(readings, required)
+    if invariants:
+        rep["invariants_checked_ticks"] = ticks
+    return rep
 
 
-def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
-                         kv_dtype="bf16", adapters=None) -> dict:
+def teacher_forced_logits(torch, model, llama_mod, fa, qmm, request, generated,
+                          kv_dtype="bf16", adapters=None):
     """Run prompt + generated tokens through the model's paged path twice,
     with the kernels and with their plain versions (the W8A16 matmuls' and
     the LoRA kernel's too): the prompt as one prefill chunk, then one decode
     step per later token; with ``adapters``, through the request's tenant,
-    pinned for the run.  Compares every position's logits."""
+    pinned for the run.  Returns both routes' logits, ``[T, V]`` f32: row
+    ``t`` predicts token ``t + 1``."""
     from accelerate_tpu_torch.models.llama import init_paged_cache
     from accelerate_tpu_torch.ops import lora as lora_mod
 
@@ -1664,6 +1729,17 @@ def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
         p_logits = run()
     if adapters is not None:
         adapters.unpin(request.adapter_id)
+    return k_logits, p_logits
+
+
+def teacher_forced_check(torch, model, llama_mod, fa, qmm, request, generated,
+                         kv_dtype="bf16", adapters=None) -> dict:
+    """:func:`teacher_forced_logits` of the request's served tokens; every
+    position's logits compared between the two routes."""
+    k_logits, p_logits = teacher_forced_logits(torch, model, llama_mod, fa, qmm, request,
+                                               generated, kv_dtype, adapters)
+    tokens = list(request.prompt) + list(generated[:-1])
+    p_len = request.prompt_len
     if k_logits.shape != (len(tokens), model.config.vocab_size):
         raise AssertionError(f"teacher-forced logits of shape {tuple(k_logits.shape)}")
     if not (torch.isfinite(k_logits).all() and torch.isfinite(p_logits).all()):
@@ -1689,6 +1765,7 @@ def launch_counts() -> dict:
     from accelerate_tpu_torch.ops import quantized_matmul as qmm
 
     return {name: getattr(mod, name).launches for mod, name in (
+        (fa, "flash_fwd"), (fa, "flash_dq"), (fa, "flash_dkv"),
         (fa, "paged_decode_attention"), (fa, "paged_multitoken_attention"),
         (fa, "paged_decode_attention_quant"), (fa, "paged_multitoken_attention_quant"),
         (fa, "fused_bgmv_paged_decode"), (fa, "fused_bgmv_paged_decode_quant"),
@@ -1706,28 +1783,58 @@ def reset_counts() -> None:
     lora_mod.reset_launch_counts()
 
 
-def serve_once(torch, model, trace, kv_dtype, adapters=None, plugin=PLUGIN):
-    """A fresh engine warmed up (with ``adapters``, a fresh store),
-    every launch count zeroed, the trace served: the engine, the replay
-    report and the launch counts."""
+def serve_once(torch, model, trace, kv_dtype="bf16", adapters=None, plugin=PLUGIN,
+               draft_model=None, engine=None) -> tuple:
+    """A fresh engine warmed up (with ``adapters``, a fresh store; or
+    ``engine``, warm already) serving ``trace`` with every launch count
+    zeroed first; every request must finish with its ``max_new_tokens``
+    and the serving resource contract hold (``verify_serving_invariants``:
+    page mirror, slots, adapter and prefix refcounts).  Per tick kind
+    ("verify", "decode", "prefill"): the host wall of each tick (it ends in
+    the tick's token fetch) and the kernel-wrapper launches.  Returns
+    ``(engine, report, launches, ticks)``; the report is ``replay``'s."""
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin, replay
 
-    engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
-                           GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
-                           adapters=adapters)
-    engine.warmup()
+    if engine is None:
+        engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
+                               GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
+                               adapters=adapters, draft_model=draft_model)
+        engine.warmup()
+    ticks: dict = {}
+    step = engine.step
+
+    def timed_step():
+        before = launch_counts()
+        t0 = time.perf_counter()
+        event = step()
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+        rec = ticks.setdefault(event["type"], {"ticks": 0, "host_s": 0.0, "launches": 0})
+        rec["ticks"] += 1
+        rec["host_s"] += wall
+        rec["launches"] += sum(after.values()) - sum(before.values())
+        return event
+
     reset_counts()
-    report = replay(engine, trace)
+    engine.step = timed_step
+    try:
+        report = replay(engine, trace)
+    finally:
+        del engine.step
     launches = launch_counts()
-    if report["completed"] != len(trace):
-        raise AssertionError(f"{report['completed']} of {len(trace)} requests finished")
     for r in trace:
-        if len(engine.results[r.uid]) != r.max_new_tokens:
-            raise AssertionError(f"request {r.uid}: {len(engine.results[r.uid])} tokens, "
-                                 f"expected {r.max_new_tokens}")
-    if not engine.free_page_mirror_in_sync():
-        raise AssertionError("host free-page mirror out of sync with the device allocator")
-    return engine, report, launches
+        if len(engine.results.get(r.uid, ())) != r.max_new_tokens:
+            raise AssertionError(f"request {r.uid}: {len(engine.results.get(r.uid, ()))} "
+                                 f"tokens, expected {r.max_new_tokens}")
+    from accelerate_tpu_torch.serving import verify_serving_invariants
+
+    problems = verify_serving_invariants(engine)
+    if problems:
+        raise AssertionError(f"serving invariants after the serve: {problems}")
+    per_tick = {kind: {"ticks": v["ticks"], "host_ms_per_tick": 1e3 * v["host_s"] / v["ticks"],
+                       "kernel_launches_per_tick": v["launches"] / v["ticks"]}
+                for kind, v in ticks.items()}
+    return engine, report, launches, per_tick
 
 
 def expect_launches(launches: dict, want: dict) -> None:
@@ -1752,7 +1859,7 @@ def engine_phase(torch, card: str, device: str = "cuda") -> dict:
     model = LlamaForCausalLM(cfg, device=device, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     trace = synthesize_trace(0, N_REQUESTS, **TRACE)
-    engine, report, launches = serve_once(torch, model, trace, "bf16")
+    engine, report, launches, _ = serve_once(torch, model, trace)
     setup_s = time.perf_counter() - t0 - report["wall_s"]
     m = engine.metrics
     layers = cfg.num_hidden_layers
@@ -1774,6 +1881,220 @@ def engine_phase(torch, card: str, device: str = "cuda") -> dict:
             "weight_bytes": sum(t.numel() * t.element_size() for t in model.state_dict().values())}
 
 
+# -- speculative decode and the prefix cache ----------------------------------
+
+
+def token_rule(torch, model, llama_mod, fa, qmm, trace, ref: dict, got: dict,
+               kv_dtype="bf16", label="") -> dict:
+    """Each request's tokens against the reference run's: equal, or first
+    different at an index ``i`` where the reference's token and the other
+    run's are a near-tie.  Near-tie: the reference sequence teacher-forced
+    through the kernel route and the plain route; at ``i`` the gap between
+    the two tokens' logits (kernel route) is no larger than the largest
+    |logit difference| between the routes at that position.  Prints every
+    divergence; raises on one that is not so explained."""
+    equal, divergences = 0, []
+    for r in trace:
+        a, b = list(ref[r.uid]), list(got[r.uid])
+        if a == b:
+            equal += 1
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            raise AssertionError(f"{label} request {r.uid}: {len(b)} tokens, reference {len(a)}")
+        # the reference teacher-forced up to its token i (row p_len - 1 + i)
+        k_logits, p_logits = teacher_forced_logits(torch, model, llama_mod, fa, qmm, r,
+                                                   a[:i + 1], kv_dtype=kv_dtype)
+        row = r.prompt_len - 1 + i
+        gap = abs(k_logits[row, a[i]] - k_logits[row, b[i]]).item()
+        dlogit = (k_logits[row] - p_logits[row]).abs().max().item()
+        div = {"uid": r.uid, "index": i, "reference_token": a[i], "token": b[i],
+               "logit_gap": gap, "max_abs_dlogit_kernel_vs_plain": dlogit,
+               "near_tie": gap <= dlogit}
+        log(f"token_rule {label}", json.dumps(div))
+        if not div["near_tie"]:
+            raise AssertionError(f"{label}: request {r.uid} diverges at token {i} without a "
+                                 f"near-tie: {div}")
+        divergences.append(div)
+    return {"requests": len(trace), "equal": equal, "divergences": divergences}
+
+
+SPEC_KEYS = ("tokens_per_sec", "tokens_per_step", "tokens_per_step_predicted", "accept_rate",
+             "accept_rate_predicted", "verify_steps", "drafted_tokens", "accepted_draft_tokens",
+             "speculative_rollbacks", "draft_overhead_frac", "ttft_p50_ms",
+             "p50_token_latency_ms", "p99_token_latency_ms", "evictions")
+
+
+def speculate_phase(torch, card: str, bf16: dict) -> dict:
+    """``bench.py --serve --speculate 4`` on the 600m model: the bf16
+    serve's trace with prompt-lookup drafting, k 4.  Every verify pass is
+    kernel #6 at [16, 5]; tokens against the bf16 serve's greedy tokens
+    under the token rule; a checked rerun holds every launch (prefill
+    windows and verify passes) against its plain version.  If the trace
+    accepts no draft, 8 requests repeating a 5-token cycle serve too.  Then
+    a draft-model serve (a 2-layer model at the 600m widths): #1 at T 32
+    on every draft token, each launch held to its plain version."""
+    import dataclasses
+
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, Request
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+    model, trace = bf16["model"], bf16["trace"]
+    layers = model.config.num_hidden_layers
+    plugin = {**PLUGIN, **SPEC}
+    engine, report, launches, ticks = serve_once(torch, model, trace, plugin=plugin)
+    m = engine.metrics
+    expect_launches(launches, {"paged_multitoken_attention":
+                               (m["verify_steps"] + m["prefill_steps"]) * layers})
+    PATH_LAUNCHES["speculate"] = launches
+    rule = token_rule(torch, model, llama_mod, fa, qmm, trace, bf16["results"], engine.results,
+                      label="speculate")
+    rep = {"card": card, **SPEC, "trace": "synthesize_trace(0, 16)",
+           **{k: report[k] for k in SPEC_KEYS}, "launches": launches, "ticks": ticks,
+           "greedy_tokens_per_sec": bf16["report"]["tokens_per_sec"], "token_rule": rule}
+    log("speculate", json.dumps(rep))
+    in_path = in_path_check(torch, model, llama_mod, fa, qmm, trace, plugin=plugin,
+                            required=["paged_multitoken_attention"], invariants=True)
+    log("speculate_in_path", json.dumps(in_path))
+    accepted = {"synthesize_trace(0, 16)": report["accepted_draft_tokens"]}
+    if not report["accepted_draft_tokens"]:
+        # prompt lookup finds the cycle; the model's greedy continuation
+        # decides whether the drafts are accepted
+        rng = np.random.default_rng(CYCLE)
+        cyc_trace = []
+        for uid in range(CYCLE_REQUESTS):
+            cyc = [int(x) for x in rng.integers(1, MODEL["vocab_size"], CYCLE)]
+            cyc_trace.append(Request(uid=uid, prompt=tuple((cyc * 64)[:128]), max_new_tokens=64))
+        ref, _, _, _ = serve_once(torch, model, cyc_trace, plugin=PLUGIN)
+        eng_c, rep_c, launches_c, ticks_c = serve_once(torch, model, cyc_trace, plugin=plugin)
+        rule_c = token_rule(torch, model, llama_mod, fa, qmm, cyc_trace, ref.results,
+                            eng_c.results, label="speculate cycle")
+        accepted[f"{CYCLE_REQUESTS} prompts of a {CYCLE}-token cycle"] = \
+            rep_c["accepted_draft_tokens"]
+        log("speculate_cycle", json.dumps({**{k: rep_c[k] for k in SPEC_KEYS},
+                                           "launches": launches_c, "ticks": ticks_c,
+                                           "token_rule": rule_c}))
+    if not any(accepted.values()):
+        raise AssertionError(f"no draft token accepted on any trace: {accepted}")
+    # the draft model: kernel #1 at the draft window
+    draft_cfg = LlamaConfig(**{**MODEL, "num_hidden_layers": DRAFT_LAYERS}, dtype=torch.bfloat16)
+    draft = LlamaForCausalLM(draft_cfg, device=model.device, seed=1)
+    d_trace = [dataclasses.replace(r, max_new_tokens=DRAFT_NEW) for r in trace[:DRAFT_REQUESTS]]
+    d_plugin = {**PLUGIN, "speculate": "draft", "speculate_k": SPEC["speculate_k"]}
+    eng_d, rep_d, launches_d, ticks_d = serve_once(torch, model, d_trace, plugin=d_plugin,
+                                                    draft_model=draft)
+    k = SPEC["speculate_k"]
+    passes = eng_d.metrics["verify_steps"]
+    expect_launches(launches_d, {
+        "paged_multitoken_attention": (passes + eng_d.metrics["prefill_steps"]) * layers,
+        "flash_fwd": passes * k * DRAFT_LAYERS})
+    PATH_LAUNCHES["speculate_draft"] = launches_d
+    ref_d = {r.uid: bf16["results"][r.uid][:DRAFT_NEW] for r in d_trace}
+    rule_d = token_rule(torch, model, llama_mod, fa, qmm, d_trace, ref_d, eng_d.results,
+                        label="speculate draft")
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        in_path_d = in_path_check(torch, model, llama_mod, fa, qmm, d_trace, plugin=d_plugin,
+                                  required=["paged_multitoken_attention"], draft_model=draft)
+    in_path_d.update(worst_readings(readings, ["flash_fwd"]))
+    rep_d = {"card": card, "draft_layers": DRAFT_LAYERS, "window": 32, "requests": len(d_trace),
+             **{k2: rep_d[k2] for k2 in SPEC_KEYS}, "launches": launches_d, "ticks": ticks_d,
+             "token_rule": rule_d, "in_path": in_path_d}
+    log("speculate_draft", json.dumps(rep_d))
+    log(f"speculative serving on {card}: {report['tokens_per_sec']:.1f} tokens/s (greedy "
+        f"{bf16['report']['tokens_per_sec']:.1f}), {report['tokens_per_step']} tokens a step, "
+        f"accept rate {report['accept_rate']} (predicted {report['accept_rate_predicted']}), "
+        f"{report['verify_steps']} verify passes, {report['speculative_rollbacks']} pages "
+        f"rolled back; {rule['equal']} of {rule['requests']} requests equal greedy")
+    return {"launches": launches, "in_path": in_path, "draft_in_path": in_path_d,
+            "report": rep}
+
+
+def prefix_phase(torch, card: str, bf16: dict, quant_model) -> dict:
+    """``bench.py --serve --prefix-share 0.5`` (plus ``--speculate 4``):
+    the trace ``synthesize_trace(0, 16, prefix_share=0.5)`` served with both
+    features off, then with the prefix cache and speculation on: tokens
+    under the token rule; the hit rate beside its prediction, shared pages,
+    forks, skipped prefill, TTFT off and on.  A checked rerun holds every
+    launch against its plain version and checks the page mirror, refcounts
+    and free stack after every tick.  Then the int8 model from int8 pages
+    on the first 8 requests the same way (#7 at [16, 5], #11 at m 80)."""
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import synthesize_trace
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+    model = bf16["model"]
+    layers = model.config.num_hidden_layers
+    trace = synthesize_trace(0, N_REQUESTS, **TRACE, prefix_share=PREFIX_SHARE)
+    on = {**PLUGIN, **SPEC, "prefix_cache": "on"}
+    off_eng, off_rep, _, _ = serve_once(torch, model, trace, plugin=PLUGIN)
+    engine, report, launches, ticks = serve_once(torch, model, trace, plugin=on)
+    m = engine.metrics
+    expect_launches(launches, {"paged_multitoken_attention":
+                               (m["verify_steps"] + m["prefill_steps"]) * layers})
+    PATH_LAUNCHES["prefix"] = launches
+    rule = token_rule(torch, model, llama_mod, fa, qmm, trace, off_eng.results, engine.results,
+                      label="prefix")
+    keys = ("prefix_hit_rate", "prefix_hit_rate_predicted", "pages_shared_peak", "cow_forks",
+            "prefill_tokens_skipped", "prefix_evictions", "ttft_p50_ms", "ttft_p50_ticks",
+            "tokens_per_sec", "accept_rate", "verify_steps", "accepted_draft_tokens",
+            "speculative_rollbacks", "p50_token_latency_ms")
+    rep = {"card": card, "prefix_share": PREFIX_SHARE, **SPEC, "on": {k: report[k] for k in keys},
+           "off": {k: off_rep[k] for k in ("ttft_p50_ms", "ttft_p50_ticks", "tokens_per_sec",
+                                           "p50_token_latency_ms")},
+           "launches": launches, "ticks": ticks, "token_rule": rule}
+    if not report["prefill_tokens_skipped"]:
+        # every admission raced its preamble's first prefill: serve the
+        # trace's first 8 requests again on the same engine, whose index
+        # now holds the preambles, so prefill starts from adopted pages
+        import dataclasses
+
+        again = [dataclasses.replace(r, uid=r.uid + 1000, arrival_step=engine.steps)
+                 for r in trace[:PREFIX_QUANT_REQUESTS]]
+        _, rep_again, _, _ = serve_once(torch, model, again, plugin=on, engine=engine)
+        rep["served_again"] = {k: rep_again[k] for k in ("prefix_hit_rate",
+                                                         "prefill_tokens_skipped")}
+        rule_again = token_rule(torch, model, llama_mod, fa, qmm, again,
+                                {r.uid: off_eng.results[r.uid - 1000] for r in again},
+                                engine.results, label="prefix served again")
+        rep["served_again"]["token_rule"] = rule_again
+        if not rep_again["prefill_tokens_skipped"]:
+            raise AssertionError("no prefill started from an adopted prefix")
+    log("prefix", json.dumps(rep))
+    in_path = in_path_check(torch, model, llama_mod, fa, qmm, trace, plugin=on,
+                            required=["paged_multitoken_attention"], invariants=True)
+    log("prefix_in_path", json.dumps(in_path))
+    # int8 weights, int8 pages: #7 at the verify width, #11 at m 16 * 5
+    q_trace = trace[:PREFIX_QUANT_REQUESTS]
+    q_off, _, _, _ = serve_once(torch, quant_model, q_trace, plugin=PLUGIN, kv_dtype=QUANT_KV)
+    q_eng, q_rep, q_launches, q_ticks = serve_once(torch, quant_model, q_trace, plugin=on,
+                                                    kv_dtype=QUANT_KV)
+    qm = q_eng.metrics
+    expect_launches(q_launches, {
+        "paged_multitoken_attention_quant": (qm["verify_steps"] + qm["prefill_steps"]) * layers,
+        "quantized_matmul_tiled": 7 * layers * (qm["verify_steps"] + qm["prefill_steps"])})
+    PATH_LAUNCHES["prefix_int8"] = q_launches
+    q_rule = token_rule(torch, quant_model, llama_mod, fa, qmm, q_trace, q_off.results,
+                        q_eng.results, kv_dtype=QUANT_KV, label="prefix int8")
+    q_in_path = in_path_check(torch, quant_model, llama_mod, fa, qmm, q_trace, kv_dtype=QUANT_KV,
+                              plugin=on, invariants=True,
+                              required=["paged_multitoken_attention", "quantized_matmul_tiled"])
+    q_rep = {"card": card, "kv_dtype": QUANT_KV, "weights": "int8 (W8A16)",
+             "requests": len(q_trace), **{k: q_rep[k] for k in keys}, "launches": q_launches,
+             "ticks": q_ticks, "token_rule": q_rule, "in_path": q_in_path}
+    log("prefix_int8", json.dumps(q_rep))
+    log(f"prefix-cache serving on {card}: hit rate {report['prefix_hit_rate']} (predicted "
+        f"{report['prefix_hit_rate_predicted']}), {report['prefill_tokens_skipped']} prefill "
+        f"tokens skipped, {report['pages_shared_peak']} pages shared at peak, "
+        f"{report['cow_forks']} forks; TTFT p50 {report['ttft_p50_ms']:.2f} ms (off "
+        f"{off_rep['ttft_p50_ms']:.2f}); {report['tokens_per_sec']:.1f} tokens/s (off "
+        f"{off_rep['tokens_per_sec']:.1f}); {rule['equal']} of {rule['requests']} requests equal")
+    return {"in_path": in_path, "quant_in_path": q_in_path, "report": rep, "quant": q_rep}
+
+
 def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> dict:
     """The 600m model with int8 weights serving the same trace from int8
     pages: launches, pool bytes, a checked second serve, the teacher-forced
@@ -1791,7 +2112,7 @@ def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> di
     model = quantize_model_(LlamaForCausalLM(cfg, device=device, seed=0),
                             QuantizationConfig(load_in_8bit=True))
     trace = bf16["trace"]
-    engine, report, launches = serve_once(torch, model, trace, QUANT_KV)
+    engine, report, launches, _ = serve_once(torch, model, trace, QUANT_KV)
     m = engine.metrics
     layers = cfg.num_hidden_layers
     expect_launches(launches, {
@@ -1847,7 +2168,7 @@ def pages_32_phase(torch, model, card: str, trace) -> dict:
     from accelerate_tpu_torch.ops import quantized_matmul as qmm
 
     trace = trace[:PAGES_32_REQUESTS]
-    engine, report, launches = serve_once(torch, model, trace, QUANT_KV, plugin=PAGES_32)
+    engine, report, launches, _ = serve_once(torch, model, trace, QUANT_KV, plugin=PAGES_32)
     m = engine.metrics
     layers = MODEL["num_hidden_layers"]
     expect_launches(launches, {
@@ -2170,7 +2491,7 @@ def lora_engine_phase(torch, card: str, bf16: dict) -> dict:
     layers = model.config.num_hidden_layers
     trace = synthesize_trace(0, N_REQUESTS, **TRACE, adapters=LORA_TENANTS)
     store = lora_store(torch, model)
-    engine, report, launches = serve_once(torch, model, trace, "bf16", adapters=store)
+    engine, report, launches, _ = serve_once(torch, model, trace, adapters=store)
     m = engine.metrics
     expect_launches(launches, {"paged_decode_attention": m["decode_steps"] * layers,
                                "paged_multitoken_attention": m["prefill_steps"] * layers,
@@ -2540,10 +2861,14 @@ def main() -> int:
     with torch.inference_mode():
         serve = engine_phase(torch, card)
         phase_done("bf16 serve")
+        spec = speculate_phase(torch, card, serve)
+        phase_done("speculative serve")
         quant = quant_engine_phase(torch, card, serve)
         phase_done("quantized serve")
         pages_32_phase(torch, quant["model"], card, serve["trace"])
         phase_done("quantized serve over pages of 32")
+        prefix = prefix_phase(torch, card, serve, quant["model"])
+        phase_done("prefix-cache serve")
         gen = generate_paged_phase(torch, quant.pop("model"), card)
         phase_done("generate_paged")
         generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
@@ -2598,10 +2923,17 @@ def main() -> int:
                         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
+                        # the launches of the speculative and prefix-cache
+                        # paths, each counted from 0 over its own serve
+                        "paths": {path: counts[name] for path, counts in PATH_LAUNCHES.items()
+                                  if counts.get(name)},
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
                                                "delta_ms", "four_launch_ms", "composed_ms")
                            if k in rep}})
+    log("speculate and prefix checked launches:", json.dumps({
+        "speculate": spec["in_path"], "speculate_draft": spec["draft_in_path"],
+        "prefix": prefix["in_path"], "prefix_int8": prefix["quant_in_path"]}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

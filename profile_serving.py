@@ -7,7 +7,9 @@ Serves ``chip_smoke.py``'s 16-request trace on the 600m Llama (random
 weights from seed 0); with ``--quantized``, with int8 weights
 (``quantize_model_``) from int8 KV pages, as ``chip_smoke.py``'s quantized
 serve; with ``--adapters``, the 8-tenant trace through a pool of 4 rank-16
-LoRA adapters on q_proj and v_proj, as ``chip_smoke.py``'s LoRA serve.
+LoRA adapters on q_proj and v_proj, as ``chip_smoke.py``'s LoRA serve;
+with ``--speculate K``, speculatively (prompt lookup, ``K`` drafts: every
+decode tick is a verify pass of ``K + 1`` lanes).
 After ``--skip`` ticks, the next ``--window`` ticks run under
 ``torch.profiler``, each closed by a device sync.  Prints the card's name
 and power limit, then one JSON line: the host wall per tick kind, the
@@ -32,7 +34,7 @@ from chip_smoke import (
 
 
 def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str = "bf16",
-                  adapters=None) -> dict:
+                  adapters=None, speculate: int = 0) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch import (
@@ -40,7 +42,8 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
     )
 
     on_card = model.device.type == "cuda"
-    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+    knobs = dict(speculate="ngram", speculate_k=speculate) if speculate else {}
+    engine = ServingEngine(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype, **knobs),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
                            adapters=adapters)
     engine.warmup()
@@ -77,7 +80,7 @@ def profile_ticks(torch, model, card: str, skip: int, window: int, kv_dtype: str
         end = max(end, stop)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
-    return {"card": card, "kv_dtype": kv_dtype,
+    return {"card": card, "kv_dtype": kv_dtype, **knobs,
             "lora": None if adapters is None else {**LORA, "targets": list(LORA["targets"]),
                                                    "tenants": tenants},
             "ticks": window, "window_ms": window_ms,
@@ -101,6 +104,8 @@ def main() -> int:
     parser.add_argument("--adapters", action="store_true",
                         help="8 tenants' LoRA adapters through a pool of 4 (chip_smoke's LoRA "
                              "serve)")
+    parser.add_argument("--speculate", type=int, default=0, metavar="K",
+                        help="speculative decode, prompt lookup with K drafts a verify pass")
     args = parser.parse_args()
 
     import torch
@@ -122,7 +127,8 @@ def main() -> int:
         kv_dtype = QUANT_KV
     adapters = lora_store(torch, model) if args.adapters else None
     with torch.inference_mode():
-        report = profile_ticks(torch, model, card, args.skip, args.window, kv_dtype, adapters)
+        report = profile_ticks(torch, model, card, args.skip, args.window, kv_dtype, adapters,
+                               args.speculate)
     log("profile", json.dumps(report))
     return 0
 

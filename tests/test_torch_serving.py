@@ -183,10 +183,12 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(models, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(speculate="ngram"), dict(prefix_cache="on"), dict(max_queue=4),
+    dict(kv_shed_watermark=0.5), dict(default_deadline_ticks=8), dict(max_queue=4),
 ])
 def test_later_slice_knobs_raise(models, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The overload knobs are ROADMAP item A11d (speculation and the prefix
+    cache are served now)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item A11d"):
         ServingEngine(models[2], ServingPlugin(**GEOMETRY, **knob), device="cpu")
 
 
@@ -248,12 +250,17 @@ def test_generate_paged_matches_jax(qmodels):
                                   generate(tmodel, batch, gc, prompt_lengths=lens).numpy())
 
 
-@pytest.mark.parametrize("knob", [dict(speculate="ngram"), dict(prefix_cache=True),
-                                  dict(draft_model=object()), dict(speculate_k=2)])
+@pytest.mark.parametrize("knob", [dict(max_queue=4), dict(kv_shed_watermark=0.5),
+                                  dict(default_deadline_ticks=8),
+                                  dict(max_queue=2, speculate="ngram", prefix_cache="on")])
 def test_generate_paged_later_slice_knobs_raise(models, knob):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """A plugin arming an overload knob (ROADMAP item A11d) is refused
+    through ``generate_paged`` too; speculation and the prefix cache pass."""
+    plugin = ServingPlugin(num_slots=1, page_size=4, pages_per_slot=2, num_pages=2,
+                           prefill_chunk=16, **knob)
+    with pytest.raises(NotImplementedError, match="A11d"):
         generate_paged(models[2], np.ones((1, 3), np.int32), GenerationConfig(max_new_tokens=2),
-                       **knob)
+                       serving_plugin=plugin)
 
 
 def test_request_guards(models):
