@@ -16,12 +16,14 @@ The port's hook sites so far:
 site                      kinds
 ========================  =====================================================
 ``serve_step``            ``preempt`` (drain the serving engine at a tick
-                          boundary) and ``prefix`` (flush the prefix index);
-                          ``cancel`` and ``deadline`` are the overload
-                          controls of ROADMAP item A11d, and the engine
-                          raises ``NotImplementedError`` for them
+                          boundary), ``prefix`` (flush the prefix index),
+                          ``cancel`` (the oldest live request cancels) and
+                          ``deadline`` (every live request expires; the
+                          degradation ladder escalates one stage)
 ``verify_step``           ``preempt`` — drain mid-speculative-verify, before
                           the pass dispatches
+``fleet_route``           ``replica_kill`` — the fleet router drains a
+                          replica and re-routes its pending work
 ``adapter_transfer``      ``transfer`` — the adapter pool's host-to-device
                           staging fails, inside the bounded-retry wrapper
 ``adapter_memmap``        ``transfer`` — the cold-tier read fails, inside its

@@ -49,14 +49,29 @@ the shared page ids into its block-table row and prefills from the hit
 boundary; releases push only the pages past a slot's shared prefix, and a
 shared page returns to the free stack when its last holder lets go.
 
+Overload control (JAX :471-478, :563-662, :997-1052): the scheduler
+bounds its queue and sheds (``max_queue``, ``kv_shed_watermark``), every
+request may carry a deadline (``Request.deadline_ticks``,
+``default_deadline_ticks``), :meth:`ServingEngine.cancel` retires a
+request at any stage at the next tick boundary, and every engine carries
+a :class:`~.overload.DegradationLadder` (despeculate, shrink prefill,
+tighten admission, shed) that an SLO monitor (:meth:`attach_slo`), a
+deadline storm or an operator escalates.  Every retirement releases its
+pages through the same keep-aware release the finish path uses.
+
+Disaggregation (``serving/transfer.py``, JAX :390, :504-507, :576-624): an
+engine built with ``hold_finished=True`` (the prefill role) parks each
+finished slot with its pages until the transport streams them; the decode
+role seats such a request with :meth:`adopt_prefilled`.
+
 Fault plans (``resilience/faults.py``): the ``serve_step`` site takes
-``preempt`` (drain at the tick boundary) and ``prefix`` (flush the prefix
-index), the ``verify_step`` site ``preempt`` (drain before the verify pass
+``preempt`` (drain at the tick boundary), ``prefix`` (flush the prefix
+index), ``cancel`` (the oldest live request cancels) and ``deadline``
+(every live request expires now and the ladder escalates one stage); the
+``verify_step`` site takes ``preempt`` (drain before the verify pass
 dispatches).  Request tracing (:meth:`ServingEngine.enable_tracing`)
-records host-side spans.  The overload controls (bounded queue, shedding,
-deadlines, cancellation, the degradation ladder) are ROADMAP Queue A item
-A11d: the engine raises ``NotImplementedError`` for their knobs and for
-the ``cancel`` / ``deadline`` faults.
+records host-side spans, the ``shed`` / ``cancel`` / ``ladder`` /
+``page_transfer`` instants included.
 """
 
 from __future__ import annotations
@@ -75,17 +90,11 @@ from ..resilience import faults as _faults
 from ..telemetry import RequestTracer
 from ..utils.dataclasses import ServingPlugin
 from ..utils.device import resolve_device
+from .overload import DegradationLadder
 from .paged_cache import allocate, pages_for, push_pages, release
 from .prefix_cache import PrefixCache
-from .scheduler import ContinuousBatchingScheduler, Request
+from .scheduler import ContinuousBatchingScheduler, Request, SlotState
 from .speculate import Speculator, make_draft_provider, speculative_page_need
-
-
-def _reject_overload_knobs(p: ServingPlugin) -> None:
-    if p.max_queue or p.kv_shed_watermark or p.default_deadline_ticks:
-        raise NotImplementedError(
-            "ServingPlugin.max_queue / kv_shed_watermark / default_deadline_ticks: "
-            "the overload controls are ROADMAP Queue A item A11d")
 
 
 class ServingEngine:
@@ -104,14 +113,16 @@ class ServingEngine:
     ``adapter_id``.  ``draft_model`` (a small
     :class:`~accelerate_tpu_torch.models.llama.LlamaForCausalLM` with its
     own weights, on the engine's device) drafts for
-    ``ServingPlugin(speculate="draft")``.
+    ``ServingPlugin(speculate="draft")``.  ``hold_finished=True`` makes a
+    prefill-role engine of a :class:`~.transfer.DisaggregatedPair`.
     ``run(trace)`` replays a list of :class:`~.scheduler.Request` with
     virtual-time arrivals.
     """
 
     def __init__(self, model, plugin: Optional[ServingPlugin] = None,
                  generation_config: Optional[GenerationConfig] = None, *,
-                 seed: int = 0, device=None, adapters=None, draft_model=None):
+                 seed: int = 0, device=None, adapters=None, draft_model=None,
+                 hold_finished: bool = False):
         self.device = resolve_device(device)
         for label, mod in (("model", model), ("draft model", draft_model)):
             if mod is not None and not self._on_engine_device(mod.device):
@@ -120,7 +131,6 @@ class ServingEngine:
         self.plugin = plugin or ServingPlugin()
         self.gen_config = generation_config or GenerationConfig()
         p = self.plugin
-        _reject_overload_knobs(p)
         # "auto" -> the paged kernels: CUDA kernels on the card, their plain
         # versions on a CPU tensor; "native" only when asked for
         self.attn_implementation = "flash" if p.decode_kernel == "auto" else p.decode_kernel
@@ -154,14 +164,26 @@ class ServingEngine:
             p.prefill_chunk, p.prefill_buckets, adapters=adapters,
             max_bypass_age=adapters.plugin.max_bypass_age if adapters is not None else 16,
             speculate_k=p.speculate_k if self._spec is not None else 0,
-            prefix=self.prefix,
+            max_queue=p.max_queue, kv_shed_watermark=p.kv_shed_watermark,
+            default_deadline_ticks=p.default_deadline_ticks, prefix=self.prefix,
         )
+        # overload control: the ladder is always armed (escalation is
+        # explicit: an SLO trip, a deadline storm or an operator call), and
+        # cancels wait here for the next tick boundary
+        self.despeculated = False
+        self.ladder = DegradationLadder(self)
+        self.slo = None                      # an attached SLOMonitor
+        self._pending_cancels: list[int] = []
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
         self.trace: Optional[RequestTracer] = None
         self.warmed_up = False
         self.steps = 0
         self.interrupted = False
+        # disaggregation: a prefill-role engine holds finished slots, pages
+        # intact, until the transport streams them and calls release_held()
+        self.hold_finished = hold_finished
+        self.held: list[int] = []
         self._undelivered: list[Request] = []
         self.results: dict[int, list[int]] = {}
         self._arrival_wall: dict[int, float] = {}
@@ -179,6 +201,9 @@ class ServingEngine:
             "verify_steps": 0, "draft_tokens": 0, "accepted_draft_tokens": 0,
             "decode_lane_passes": 0, "decode_emitted_tokens": 0,
             "speculative_rollbacks": 0,
+            # disaggregation (zeros unless a PagedKVTransport streams KV
+            # pages out of or into this engine)
+            "page_transfers": 0, "page_transfer_pages": 0, "page_transfer_bytes": 0,
         }
         self.ttft_s: list[float] = []
         # TTFT in virtual engine ticks (arrival -> first token)
@@ -410,6 +435,70 @@ class ServingEngine:
         self.sched.submit(request)
         self._arrival_wall[request.uid] = time.perf_counter()
 
+    def cancel(self, uid: int) -> None:
+        """Cancel ``uid`` at whatever stage it is in (queued, mid prefill,
+        decoding or between verify passes), at the next tick boundary: the
+        steps are atomic per tick, so the boundary is where pages, adapter
+        hold, slot and speculative state release together.  Idempotent;
+        unknown or finished uids drop silently.  A cancel still pending at a
+        preemption drain is owed: :meth:`remaining_requests` hands the
+        request back exactly once."""
+        if uid not in self._pending_cancels:
+            self._pending_cancels.append(uid)
+
+    def adopt_prefilled(self, request: Request, first_token: int) -> int:
+        """The decode role's half of the disaggregated handoff: occupy a
+        free slot for a request prefilled on another engine, whose first
+        token is sampled and whose pages the transport is about to write
+        into this pool.  The host mirror books ``pages_for(prompt_len)``
+        pages (the transport pops exactly those); decode goes on through the
+        ordinary tick loop.  Returns the slot."""
+        sched = self.sched
+        if not sched.free_slots:
+            raise RuntimeError("adopt_prefilled: no free decode slot")
+        n_pages = int(pages_for(request.prompt_len, self.plugin.page_size))
+        if n_pages > sched.free_pages:
+            raise RuntimeError(f"adopt_prefilled: request {request.uid} needs {n_pages} "
+                               f"pages, pool has {sched.free_pages} free")
+        slot = sched.free_slots.pop(0)
+        st = SlotState(request, sched._admit_counter, prefilled=request.prompt_len)
+        st.tokens = [int(first_token)]
+        if self.adapters is not None and request.adapter_id:
+            # the decode role pins the tenant in its own pool (the prefill
+            # role's pin went with the held slot); finish unpins
+            adapter_slot, swapped = self.adapters.pin(request.adapter_id)
+            st.adapter_slot = adapter_slot
+            if swapped:
+                sched.events.append(("swap", request.adapter_id, adapter_slot))
+        sched.slots[slot] = st
+        sched._admit_counter += 1
+        sched.free_pages -= n_pages
+        sched.events.append(("admit", request.uid, slot))
+        # the prefill engine delivered the first token: TTFT is its story
+        now = time.perf_counter()
+        self._arrival_wall[request.uid] = now
+        self._last_token_wall[request.uid] = now
+        self._ttft_seen.add(request.uid)
+        return slot
+
+    def release_held(self, slot: int) -> None:
+        """The prefill role's half of the handoff: retire a held finished
+        slot once its pages have been streamed out (device release first,
+        then the host mirror, as every retirement)."""
+        self.held.remove(slot)
+        self._release_slots([slot])
+        self.sched.finish(slot)
+        self._drain_prefix_frees()
+
+    def attach_slo(self, monitor) -> DegradationLadder:
+        """Feed per-token latency and TTFT samples into ``monitor`` as they
+        are measured and wire its trip / recover callbacks to the ladder
+        (trip: escalate one stage; recover: relax one).  Returns the
+        ladder."""
+        self.slo = monitor
+        self.ladder.attach(monitor)
+        return self.ladder
+
     def idle(self) -> bool:
         return self.sched.idle()
 
@@ -423,10 +512,14 @@ class ServingEngine:
 
     def remaining_requests(self) -> list[Request]:
         """After a drain: everything still owed — in flight, queued and
-        trace arrivals the replay never delivered — once per uid."""
+        trace arrivals the replay never delivered — once per uid, without
+        the deliberately retired (shed or cancelled).  A request whose
+        :meth:`cancel` is still pending was not retired: it comes back
+        exactly once; a processed cancel never does."""
+        retired = self.sched.retired_uids
         out, seen = [], set()
         for r in self.unfinished_requests() + list(self._undelivered):
-            if r.uid in self.results or r.uid in seen:
+            if r.uid in retired or r.uid in self.results or r.uid in seen:
                 continue
             seen.add(r.uid)
             out.append(r)
@@ -491,16 +584,22 @@ class ServingEngine:
                 self.interrupted = True
                 self._drain_prefix_frees()
                 return {"type": "preempted", "step": self.steps}
-            if ev.kind in ("cancel", "deadline"):
-                raise NotImplementedError(
-                    f"the {ev.kind!r} fault: cancellation and deadlines are ROADMAP "
-                    "Queue A item A11d")
-            if ev.kind == "prefix" and self.prefix is not None:
+            if ev.kind == "cancel":
+                # cancellation storm: the oldest live request cancels
+                self._inject_cancel_oldest()
+            elif ev.kind == "deadline":
+                # deadline storm: every live request expires now, and the
+                # overload signal escalates the ladder one stage
+                sched.force_expire_all()
+                self.ladder.escalate()
+            elif ev.kind == "prefix" and self.prefix is not None:
                 # cache-invalidation storm: every index hold drops; live
                 # slots keep their shared refcounts, future admissions miss
                 freed = self.prefix.flush()
                 sched.free_pages += freed
                 sched.events.append(("prefix_flush", freed))
+        sched.tick = self.steps
+        self._process_control()
         t_sched = tr.stamp() if tr is not None else 0.0
         admitted = sched.admit()
         if self.prefix is not None:
@@ -551,7 +650,7 @@ class ServingEngine:
                     window = (t_disp, tr.recorder.clock())
             else:
                 event["cancelled"] = True
-        elif action[0] == "decode" and self._spec is not None:
+        elif action[0] == "decode" and self._spec is not None and not self.despeculated:
             event["type"] = "verify"
             window = self._verify_tick(action[1], tr, event)
             if self.interrupted:  # preempted before the pass: nothing ran
@@ -583,7 +682,7 @@ class ServingEngine:
                     window = (t_disp, tr.recorder.clock())
                 done_slots = [s for s in active_slots
                               if self._record_token(s, int(next_np[s]), release=False)]
-                if done_slots:
+                if done_slots and not self.hold_finished:
                     self._release_slots(done_slots)
                     for s in done_slots:
                         sched.finish(s)
@@ -629,6 +728,58 @@ class ServingEngine:
         return self.results
 
     # -- internals -----------------------------------------------------------
+
+    def _process_control(self) -> None:
+        """The tick-boundary control pass, before admission (so a retired
+        request's pages and slot serve this very tick): apply pending
+        cancels, then cancel in-flight requests past their deadline."""
+        sched = self.sched
+        for uid in list(self._pending_cancels):
+            if self._apply_cancel(uid, reason="cancel"):
+                self._pending_cancels.remove(uid)
+            elif uid in self.results or uid in sched.retired_uids:
+                # raced a finish or a shed: nothing left to cancel
+                self._pending_cancels.remove(uid)
+            # else: not arrived yet — the cancel stays pending
+        for slot in sorted(sched.slots):
+            # a held finished slot delivered its tokens: its pages wait for
+            # the transfer, and a deadline cannot revoke them
+            if sched.slots[slot].finished:
+                continue
+            if sched.request_expired(sched.slots[slot].request):
+                self._cancel_slot(slot, reason="deadline")
+
+    def _apply_cancel(self, uid: int, reason: str) -> bool:
+        """Cancel ``uid`` at the stage it is in now.  Returns True when a
+        live request was retired."""
+        sched = self.sched
+        for slot, st in sched.slots.items():
+            if st.request.uid == uid and not st.finished:
+                self._cancel_slot(slot, reason=reason)
+                return True
+        return sched.cancel_queued(uid, reason=reason)
+
+    def _cancel_slot(self, slot: int, reason: str) -> None:
+        """Retire an admitted request: the device's pages first (the
+        release finish and evict use: keep-aware with the prefix cache), then
+        the scheduler's host mirror."""
+        uid = self.sched.slots[slot].request.uid
+        self._release_slots([slot])
+        self.sched.cancel_slot(slot, reason=reason)
+        self._arrival_wall.pop(uid, None)
+        self._last_token_wall.pop(uid, None)
+        self._ttft_seen.discard(uid)
+
+    def _inject_cancel_oldest(self) -> None:
+        """The cancellation storm's payload: cancel the oldest live request
+        — the oldest-admitted in flight, else the head of the line."""
+        sched = self.sched
+        live = [s for s in sched.slots if not sched.slots[s].finished]
+        if live:
+            self._cancel_slot(min(live, key=lambda s: sched.slots[s].admit_seq),
+                              reason="cancel")
+        elif sched.waiting:
+            sched.cancel_queued(sched.waiting[0].uid, reason="cancel")
 
     def _verify_tick(self, candidate_slots, tr, event):
         """One draft-and-verify pass (the decode action with speculation
@@ -720,7 +871,7 @@ class ServingEngine:
             # accepted drafts delivered (a pass emits m + 1 tokens for m
             # accepted drafts; a truncated tail does not count)
             delivered_drafts += r - 1
-        if done_slots:
+        if done_slots and not self.hold_finished:
             self._release_slots(done_slots)
             for s in done_slots:
                 sched.finish(s)
@@ -750,8 +901,12 @@ class ServingEngine:
                 self._ttft_seen.add(uid)
                 self.ttft_s.append(now - self._arrival_wall[uid])
                 self.ttft_ticks.append(self.steps - st.request.arrival_step)
+                if self.slo is not None:
+                    self.slo.observe("ttft_s", self.ttft_s[-1])
         elif uid in self._last_token_wall:
             self.token_gaps_s.append(now - self._last_token_wall[uid])
+            if self.slo is not None:
+                self.slo.observe("token_latency_s", self.token_gaps_s[-1])
         self._last_token_wall[uid] = now
         st.tokens.append(tok)
         if not st.prefill_done:
@@ -764,7 +919,11 @@ class ServingEngine:
             self._arrival_wall.pop(uid, None)
             self._last_token_wall.pop(uid, None)
             self._ttft_seen.discard(uid)
-            if release:
+            if self.hold_finished:
+                # prefill role: the pages stay until the transport streams them
+                st.finished = True
+                self.held.append(slot)
+            elif release:
                 self._release_slots([slot])
                 self.sched.finish(slot)
             return True

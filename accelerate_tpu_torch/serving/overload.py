@@ -1,22 +1,120 @@
-"""The serving resource contract (mirrors the invariant checker of
-``accelerate_tpu/serving/overload.py``: ``verify_serving_invariants``
-:145, ``_verify_refcounted`` :239).
+"""Overload control: the degradation ladder and the serving resource
+contract (mirrors ``accelerate_tpu/serving/overload.py``:
+``DegradationLadder`` :45, ``verify_serving_invariants`` :145,
+``_verify_refcounted`` :239).
+
+When p99 per-token latency, TTFT or occupancy breaches its SLO, the engine
+sheds pressure in a deterministic order that costs the least quality
+first, using only the steps :meth:`ServingEngine.warmup` already ran.  The
+four stages, in escalation order:
+
+1. **despeculate** — speculative verify passes stop; decode falls back to
+   the plain single-token step (kernel #4 / #5).
+2. **shrink_prefill** — prefill chunks clamp to the smallest prefill
+   bucket, so long prompts stop monopolising ticks (kernel #6 / #7 runs at
+   a width the buckets already have).
+3. **tighten_admission** — admission keeps a free-page reserve
+   (``ladder_reserve_frac`` of the pool) while the pool is contended, so
+   in-flight sequences stop being evicted to make room for newcomers.
+4. **shed** — the waiting line clamps to ``num_slots`` and sheds by the
+   deterministic policy (oldest-beyond-deadline first, then the newcomer).
 
 :func:`verify_serving_invariants` checks, exactly, that the host free-page
 mirror equals the device allocator, that every physical page is free or
 owned (with the prefix cache armed: shared pages counted once, refcounts
 balancing the index and slot holds, no referenced page on the free stack),
 that device sequence lengths match the host's, that slot accounting is
-exact and that adapter refcounts balance the in-flight census.  The
-degradation ladder, shedding, deadlines and cancellation of the same JAX
-module are ROADMAP item A11d.
+exact and that adapter refcounts balance the in-flight census.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
 
 from .paged_cache import pages_for
+
+
+class DegradationLadder:
+    """Deterministic graceful-degradation state machine for one engine.
+
+    Escalation is one stage per :meth:`escalate` call (an SLO trip, a
+    deadline-storm fault, or an operator action); :meth:`relax` steps back
+    down one stage, restoring that stage's knob.  Every transition appends
+    ``("ladder", stage)`` to the scheduler's event log.  Wire an
+    :class:`~accelerate_tpu_torch.telemetry.SLOMonitor` with
+    :meth:`attach`: trips escalate, recoveries relax.
+    """
+
+    STAGES = ("normal", "despeculate", "shrink_prefill", "tighten_admission",
+              "shed")
+
+    def __init__(self, engine, *, reserve_frac: Optional[float] = None):
+        self.engine = engine
+        self.level = 0
+        self.engagements = 0
+        frac = (reserve_frac if reserve_frac is not None
+                else engine.plugin.ladder_reserve_frac)
+        self._reserve_pages = max(1, int(engine.plugin.num_pages * frac))
+        self._saved_prefill_chunk = engine.plugin.prefill_chunk
+
+    @property
+    def stage(self) -> str:
+        return self.STAGES[self.level]
+
+    def escalate(self, metric=None, quantile=None, value=None) -> str:
+        """Move one stage up (no-op at the top).  The optional arguments
+        match the :class:`SLOMonitor` trip-callback signature."""
+        if self.level >= len(self.STAGES) - 1:
+            return self.stage
+        self.level += 1
+        self.engagements += 1
+        self._set(self.level, True)
+        self.engine.sched.events.append(("ladder", self.stage))
+        return self.stage
+
+    def relax(self, metric=None, quantile=None, value=None) -> str:
+        """Step one stage down, restoring that stage's knob (no-op at
+        normal)."""
+        if self.level == 0:
+            return self.stage
+        self._set(self.level, False)
+        self.level -= 1
+        self.engine.sched.events.append(("ladder", self.stage))
+        return self.stage
+
+    def _set(self, level: int, on: bool) -> None:
+        eng, sched = self.engine, self.engine.sched
+        if level == 1:
+            eng.despeculated = on
+        elif level == 2:
+            sched.prefill_chunk = (min(eng.plugin.prefill_buckets) if on
+                                   else self._saved_prefill_chunk)
+        elif level == 3:
+            sched.admission_reserve_pages = self._reserve_pages if on else 0
+        elif level == 4:
+            sched.shed_armed = on
+
+    def attach(self, monitor) -> None:
+        """Wire an SLO monitor: trips escalate one stage, recoveries relax
+        one.  Callbacks the monitor already carries keep firing — the
+        ladder chains in front of them."""
+        monitor.on_trip = _chained(self.escalate, monitor.on_trip)
+        monitor.on_recover = _chained(self.relax, monitor.on_recover)
+
+    def report(self) -> dict:
+        return {"stage": self.stage, "level": self.level,
+                "engagements": self.engagements}
+
+
+def _chained(first, then):
+    """A monitor callback that calls ``first`` and then ``then`` (the
+    callback the monitor carried before, if any)."""
+    def call(metric, quantile, value):
+        first(metric, quantile, value)
+        if then is not None:
+            then(metric, quantile, value)
+    return call
 
 
 def verify_serving_invariants(engine) -> list[str]:
@@ -184,4 +282,4 @@ def _verify_refcounted(engine, stack, seq_lens, block_tables) -> list[str]:
     return problems
 
 
-__all__ = ["verify_serving_invariants"]
+__all__ = ["DegradationLadder", "verify_serving_invariants"]

@@ -43,9 +43,25 @@ Policy:
   page some slot still shares is never a victim.  Every release path goes
   through ``_release_slot_pages``: private pages free by count, shared
   pages drop one refcount and free at zero.
+- **Overload control**: the waiting line is bounded (``max_queue``) and
+  sheds when the bound or the predicted KV pressure (used pages plus every
+  queued prompt's admission demand, as a pool fraction, against
+  ``kv_shed_watermark``) is exceeded.  The victim is deterministic: the
+  oldest request beyond its deadline first, else the youngest arrival.
+  Shedding never touches admitted sequences.  The degradation ladder
+  (``serving/overload.py``) tightens admission with a free-page reserve
+  and, at its top stage, clamps the line to ``num_slots``.
+- **Deadlines**: a request carrying ``deadline_ticks`` expires that many
+  engine ticks after ``arrival_step``; an expired queued request sheds
+  (reason ``"deadline"``) and the engine cancels an expired in-flight one
+  through :meth:`cancel_slot`.  Both count as ``deadline_misses``.
+- **Cancellation**: :meth:`cancel_queued` / :meth:`cancel_slot` retire a
+  request at any stage and release everything it holds (its pages through
+  ``_release_slot_pages``, its slot, its adapter hold); ``retired_uids``
+  records deliberate retirements so a drain never hands one back.
 
-The overload controls of the JAX scheduler (bounded queue, shedding,
-deadlines, cancellation) are ROADMAP Queue A item A11d.
+Every decision appends to ``events`` — ``("shed", uid, reason)``,
+``("cancel", uid, stage, reason)`` and ``("ladder", stage)`` included.
 """
 
 from __future__ import annotations
@@ -62,8 +78,9 @@ class Request:
     """One generation request.  ``arrival_step`` is in virtual engine-step
     time.  ``adapter_id`` is the requesting tenant's LoRA adapter (0 = the
     base model); admission maps it to a pool slot through the
-    :class:`~.adapters.AdapterStore`.  ``deadline_ticks`` keeps the JAX
-    field; any value but 0 is ROADMAP item A11d."""
+    :class:`~.adapters.AdapterStore`.  ``deadline_ticks`` is the request's
+    latency budget in the same virtual time: it expires ``deadline_ticks``
+    ticks after ``arrival_step`` (0 = no deadline)."""
 
     uid: int
     prompt: tuple  # int token ids
@@ -94,6 +111,8 @@ class SlotState:
                                    # pass set it (an EOS inside an accepted
                                    # window retires the host stream short of
                                    # the KV the pass wrote)
+    finished: bool = False         # finished, pages held for a KV transfer
+                                   # (a prefill-role engine's parked slot)
 
     def __post_init__(self):
         if self.tokens is None:
@@ -129,7 +148,8 @@ class ContinuousBatchingScheduler:
     def __init__(self, num_slots: int, num_pages: int, page_size: int,
                  pages_per_slot: int, prefill_chunk: int, prefill_buckets: tuple,
                  adapters=None, max_bypass_age: int = 16, speculate_k: int = 0,
-                 prefix=None):
+                 max_queue: int = 0, kv_shed_watermark: float = 0.0,
+                 default_deadline_ticks: int = 0, prefix=None):
         self.num_slots = num_slots
         self.num_pages = num_pages
         self.page_size = page_size
@@ -140,15 +160,31 @@ class ContinuousBatchingScheduler:
         self.prefix = prefix                 # PrefixCache (COW prefix reuse)
         self.max_bypass_age = max_bypass_age
         self.speculate_k = speculate_k       # admission reserves verify pages
+        self.max_queue = max_queue           # waiting-line bound (0 = unbounded)
+        self.kv_shed_watermark = kv_shed_watermark  # predicted-pressure shed (0 = off)
+        self.default_deadline_ticks = default_deadline_ticks
         self.waiting: deque[Request] = deque()
         self.slots: dict[int, SlotState] = {}
         self.free_slots: list[int] = list(range(num_slots))
         self.free_pages = num_pages          # host mirror of the device stack
+        self.tick = 0                        # virtual engine time (the engine
+                                             # sets it each step)
         self._admit_counter = 0
         self._last_was_prefill = False
         self._head_block_age = 0             # ticks the line head has been
         self._head_block_uid = None          # adapter-blocked (fairness bound)
         self.events: list[tuple] = []        # the determinism log
+        # overload and cancellation: the ladder sets the two knobs, the
+        # counters feed the serving report
+        self.admission_reserve_pages = 0     # tightened-admission free floor
+        self.shed_armed = False              # the ladder's shed stage
+        self.requests_shed = 0
+        self.deadline_misses = 0
+        self.cancelled = 0
+        self.pages_reclaimed_on_cancel = 0
+        self.retired_uids: set[int] = set()  # shed or cancelled: never
+                                             # handed back by a drain
+        self._force_expired: set[int] = set()  # the deadline storm's uids
         self.evicted_keep: dict[int, int] = {}  # slot -> shared-prefix page
                                              # count parked by evict() for
                                              # the engine's COW release
@@ -170,11 +206,6 @@ class ContinuousBatchingScheduler:
                     f"request {request.uid}: adapter {request.adapter_id} "
                     "was never published to the AdapterStore"
                 )
-        if request.deadline_ticks:
-            raise NotImplementedError(
-                f"request {request.uid} carries deadline_ticks: deadlines and "
-                "the overload controls are ROADMAP Queue A item A11d"
-            )
         total = request.prompt_len + request.max_new_tokens
         cap = min(self.pages_per_slot, self.num_pages) * self.page_size
         if request.prompt_len < 1:
@@ -191,8 +222,20 @@ class ContinuousBatchingScheduler:
                 f"(min(pages_per_slot={self.pages_per_slot}, "
                 f"num_pages={self.num_pages}) * page_size={self.page_size})"
             )
+        if request.deadline_ticks < 0:
+            raise ValueError(
+                f"request {request.uid}: deadline_ticks must be >= 0 "
+                f"(got {request.deadline_ticks})"
+            )
+        if request.deadline_ticks == 0 and self.default_deadline_ticks:
+            request = dataclasses.replace(request,
+                                          deadline_ticks=self.default_deadline_ticks)
         self.waiting.append(request)
         self.events.append(("submit", request.uid))
+        # backpressure at the door: the bound holds between ticks too
+        if self.max_queue:
+            while len(self.waiting) > self.max_queue:
+                self._shed(self._shed_victim(), "queue")
 
     def requeue_front(self, request: Request) -> None:
         self.waiting.appendleft(request)
@@ -203,9 +246,115 @@ class ContinuousBatchingScheduler:
         elsewhere does not count a second lookup at its admission here."""
         self._prefix_counted.update(uids)
 
+    # -- deadlines / shedding / cancellation ---------------------------------
+
+    def request_expired(self, req: Request) -> bool:
+        """Has ``req``'s deadline passed at the current :attr:`tick`?  The
+        deadline-storm fault force-expires live uids
+        (:meth:`force_expire_all`)."""
+        if req.uid in self._force_expired:
+            return True
+        return bool(req.deadline_ticks) and \
+            self.tick >= req.arrival_step + req.deadline_ticks
+
+    def force_expire_all(self) -> None:
+        """Deadline storm: every live request (queued and in flight)
+        expires now — queued ones shed on the next policy pass, in-flight
+        ones are cancelled by the engine's deadline sweep."""
+        self._force_expired.update(req.uid for req in self.waiting)
+        self._force_expired.update(st.request.uid for st in self.slots.values())
+
+    def _shed_victim(self) -> int:
+        """Index into ``waiting`` of the shed victim: the oldest request
+        beyond its deadline first (earliest arrival, uid breaking ties),
+        else the youngest arrival — the newcomer backs off."""
+        def age(i):
+            return (self.waiting[i].arrival_step, self.waiting[i].uid)
+
+        expired = [i for i, req in enumerate(self.waiting) if self.request_expired(req)]
+        if expired:
+            return min(expired, key=age)
+        return max(range(len(self.waiting)), key=age)
+
+    def _shed(self, idx: int, reason: str) -> Request:
+        req = self.waiting[idx]
+        del self.waiting[idx]
+        self.requests_shed += 1
+        # an expired victim is a deadline miss whatever triggered the shed
+        if reason == "deadline" or self.request_expired(req):
+            self.deadline_misses += 1
+        self.retired_uids.add(req.uid)
+        self._force_expired.discard(req.uid)
+        self.events.append(("shed", req.uid, reason))
+        return req
+
+    def predicted_kv_pressure(self) -> float:
+        """Predicted pool pressure if the whole waiting line admitted: used
+        pages plus every queued prompt's admission demand, as a fraction of
+        the pool (the ``kv_shed_watermark`` comparand)."""
+        demand = sum(self.admission_page_need(r) for r in self.waiting)
+        return (self.used_pages + demand) / self.num_pages
+
+    def _enforce_queue_policy(self) -> None:
+        """The per-tick admission-control pass, in order: (1) expired queued
+        requests shed, (2) the queue bound holds, (3) predicted KV pressure
+        sheds down to the watermark, (4) the ladder's shed stage clamps the
+        line to ``num_slots``."""
+        i = 0
+        while i < len(self.waiting):
+            if self.request_expired(self.waiting[i]):
+                self._shed(i, "deadline")
+            else:
+                i += 1
+        if self.max_queue:
+            while len(self.waiting) > self.max_queue:
+                self._shed(self._shed_victim(), "queue")
+        if self.kv_shed_watermark:
+            while self.waiting and self.predicted_kv_pressure() > self.kv_shed_watermark:
+                self._shed(self._shed_victim(), "kv_pressure")
+        if self.shed_armed:
+            while len(self.waiting) > self.num_slots:
+                self._shed(self._shed_victim(), "overload")
+
+    def cancel_queued(self, uid: int, reason: str = "cancel") -> bool:
+        """Retire a still-queued request.  Returns False when ``uid`` is not
+        in the waiting line (the engine's cancel retries at whatever stage
+        the request is in)."""
+        for i, req in enumerate(self.waiting):
+            if req.uid == uid:
+                del self.waiting[i]
+                self._retire_cancelled(req, "queued", reason, 0)
+                return True
+        return False
+
+    def cancel_slot(self, slot: int, reason: str = "cancel") -> Request:
+        """Retire an admitted request at whatever stage it is in (mid
+        prefill or decoding): its slot, its pages (``_release_slot_pages``,
+        the arithmetic finish and evict use; the engine releases the device
+        side with the same keep counts first) and its adapter hold."""
+        st = self.slots.pop(slot)
+        freed = self._release_slot_pages(st)
+        self.free_slots.append(slot)
+        self.free_slots.sort()
+        if self.adapters is not None:
+            self.adapters.unpin(st.request.adapter_id)
+        stage = "decode" if st.prefill_done else "prefill"
+        self._retire_cancelled(st.request, stage, reason, freed)
+        return st.request
+
+    def _retire_cancelled(self, req: Request, stage: str, reason: str, freed: int) -> None:
+        self.pages_reclaimed_on_cancel += freed
+        if reason == "deadline":
+            self.deadline_misses += 1
+        else:
+            self.cancelled += 1
+        self.retired_uids.add(req.uid)
+        self._force_expired.discard(req.uid)
+        self.events.append(("cancel", req.uid, stage, reason))
+
     def _release_slot_pages(self, st: SlotState) -> int:
-        """The one host-side page-release arithmetic (finish and evict both
-        route through it): private pages — everything past the slot's
+        """The one host-side page-release arithmetic (finish, evict and
+        cancel all route through it): private pages — everything past the slot's
         shared prefix — free at once (the engine's COW release pushes
         exactly those); shared pages drop one refcount each, and only those
         reaching zero join the free count (they queue for the engine's
@@ -245,8 +394,12 @@ class ContinuousBatchingScheduler:
         is bypassed by adapter-ready requests for at most
         ``max_bypass_age`` ticks.  Admission pins the request's adapter and,
         with the prefix cache, adopts the prompt's cached prefix (one
-        refcount per page; prefill starts at the hit boundary).  Returns
-        the admitted slot ids."""
+        refcount per page; prefill starts at the hit boundary).  The
+        admission-control pass (deadline expiry, queue bound, KV-pressure
+        watermark) runs first, and a tightened ladder
+        (:attr:`admission_reserve_pages`) keeps a free-page floor while
+        any slot is occupied.  Returns the admitted slot ids."""
+        self._enforce_queue_policy()
         if self.adapters is not None:
             # start the next arrivals' adapter uploads under this tick's work
             for req in list(self.waiting)[:2]:
@@ -273,7 +426,9 @@ class ContinuousBatchingScheduler:
                 break
             req = self.waiting[idx]
             hashes = hit = ()
-            reserve = 0
+            # the ladder's reserve applies only while the pool is contended:
+            # an empty engine admits its head regardless (no idle spin)
+            reserve = self.admission_reserve_pages if self.slots else 0
             if self.prefix is not None:
                 hashes = self.prefix.block_hashes(req.prompt, req.adapter_id)
                 hit = self.prefix.match(hashes)
@@ -281,7 +436,7 @@ class ContinuousBatchingScheduler:
                 # so an evicted request could take the pages a running slot
                 # needs to grow, and the two evict each other forever; one
                 # page of headroom per occupied slot (none when empty)
-                reserve = len(self.slots)
+                reserve += len(self.slots)
             need = self.admission_page_need(req, hit_pages=len(hit))
             if need > self.free_pages - reserve:
                 # index-only cached pages are the cheapest capacity: reclaim
@@ -363,7 +518,8 @@ class ContinuousBatchingScheduler:
         )
 
     def decoding_slots(self) -> list[int]:
-        return sorted(s for s, st in self.slots.items() if st.prefill_done)
+        return sorted(s for s, st in self.slots.items()
+                      if st.prefill_done and not st.finished)
 
     def next_action(self):
         """``("prefill", slot, start, chunk_len, bucket)`` or
@@ -447,7 +603,9 @@ class ContinuousBatchingScheduler:
         while not fits(active):
             if self._reclaim(self.free_pages + 1):
                 continue
-            victims = sorted(self.slots, key=lambda s: -self.slots[s].admit_seq)
+            # a finished slot parked for a KV transfer is never a victim
+            victims = sorted((s for s in self.slots if not self.slots[s].finished),
+                             key=lambda s: -self.slots[s].admit_seq)
             if not victims:  # pragma: no cover - submit() capacity guard
                 break
             victim = victims[0]
@@ -484,7 +642,7 @@ class ContinuousBatchingScheduler:
             if self._reclaim(needed):  # index-only pages first, always
                 continue
             victims = sorted(
-                (s for s in self.slots if s != slot),
+                (s for s in self.slots if s != slot and not self.slots[s].finished),
                 key=lambda s: -self.slots[s].admit_seq,
             ) or [slot]
             self.evict(victims[0])
@@ -546,11 +704,13 @@ class ContinuousBatchingScheduler:
     def finish(self, slot: int) -> SlotState:
         """Retire a finished sequence: free its pages and its slot."""
         st = self.slots.pop(slot)
+        st.finished = True
         self._release_slot_pages(st)
         self.free_slots.append(slot)
         self.free_slots.sort()
         if self.adapters is not None:
             self.adapters.unpin(st.request.adapter_id)
+        self._force_expired.discard(st.request.uid)
         self.events.append(("finish", st.request.uid, slot))
         return st
 

@@ -1,19 +1,25 @@
 """Telemetry of the port (mirrors ``accelerate_tpu/telemetry/``): the twin
-registry (:mod:`.twins`) and request trace spans (:mod:`.spans`), both
-host-side and invisible to tokens.  The SLO monitors (``slo.py``) and the
-training timeline (``timeline.py``) are ROADMAP items A11d and A14.
+registry (:mod:`.twins`), request trace spans (:mod:`.spans`) and the SLO
+monitors (:mod:`.slo`: P² streaming quantiles against warn / trip
+thresholds, Prometheus text), all host-side and invisible to tokens.  The
+training timeline (``timeline.py``) is ROADMAP item A14.
 """
 
+from .slo import SLOMonitor, SLOStatus, StreamingQuantile, prometheus_text
 from .spans import RequestTracer, SpanRecorder, VirtualClock, validate_chrome_trace
 from .twins import STANDARD_TWINS, Twin, TwinRegistry, twin_registry
 
 __all__ = [
     "STANDARD_TWINS",
     "RequestTracer",
+    "SLOMonitor",
+    "SLOStatus",
     "SpanRecorder",
+    "StreamingQuantile",
     "Twin",
     "TwinRegistry",
     "VirtualClock",
+    "prometheus_text",
     "twin_registry",
     "validate_chrome_trace",
 ]

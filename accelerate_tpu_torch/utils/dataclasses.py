@@ -61,10 +61,10 @@ class ServingPlugin:
     ``kv_dtype`` ``"int8"`` / ``"fp8"`` serves from quantized pages;
     ``speculate`` ``"ngram"`` / ``"draft"`` decodes speculatively and
     ``prefix_cache="on"`` shares cached prompt pages.  The overload knobs
-    (``max_queue``, ``kv_shed_watermark``, ``default_deadline_ticks``,
-    ``ladder_reserve_frac``) parse as in JAX; the engine raises
-    ``NotImplementedError`` when one of the first three is set (ROADMAP
-    item A11d).
+    bound the waiting line (``max_queue``), shed on predicted KV pressure
+    (``kv_shed_watermark``), stamp a deadline on requests that carry none
+    (``default_deadline_ticks``) and size the degradation ladder's
+    admission reserve (``ladder_reserve_frac``).
     """
 
     num_slots: Optional[int] = None          # concurrent decode lanes

@@ -84,6 +84,28 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    token rule), a checked rerun with the resource contract after every
    tick, then the int8 model from int8 pages on its first 8 requests the
    same way (#7 at [16, 5], #11 at m 80);
+5a''. overload, disaggregation and the fleet: 32 requests of the bench
+   trace through the speculative bf16 engine with a bounded queue, a
+   KV-pressure watermark and a default deadline, by ``chaos_replay`` under
+   a seeded cancel / deadline storm, the degradation ladder escalated at
+   fixed ticks and by the storm through despeculate (#4 from then on),
+   shrink_prefill (#6 at the smallest bucket), tighten_admission and shed:
+   sheds, deadline misses and cancels each occur, the survivors' tokens
+   meet the token rule against a fault-free serve of the survivors, and a
+   checked rerun of the storm holds every #4 / #6 launch to its plain
+   version with the resource contract after every tick; then
+   ``bench.py --serve --disaggregate``'s prefill -> decode pair over the
+   bf16 trace (#6 prefill, #4 decode) and over int8 weights and pages on
+   8 requests (#7 / #11, #5 / #11): page bytes equal to
+   ``transfer_accounting``, each slot's gather and scatter (CUDA events)
+   beside its bound, tokens/s beside the fused serve's, tokens under the
+   token rule, a checked rerun with the contract on both engines after
+   every tick; then ``bench.py --serve --fleet 2``'s router over two bf16
+   engines on the prefix-share trace, under ``affinity`` and
+   ``round_robin`` (hit rate, routed-by counts, per-replica occupancy,
+   the token rule), and a ``replica_kill`` at fleet tick 40: the drained
+   requests re-route exactly once, the survivors meet the token rule, the
+   fault-free placements repeat;
 5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
@@ -140,8 +162,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    every leaf's gradient);
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
-   kernel's launches on the speculative, draft-model, prefix-cache and
-   int8 prefix-cache serves), then ``{"ok": true,
+   kernel's launches on the speculative, draft-model, prefix-cache, int8
+   prefix-cache, overload, pair (bf16, int8) and fleet serves), then
+   ``{"ok": true,
    "device": {...}}`` as the last line.
 
 ``profile_serving.py`` profiles a window of the same engine's ticks.
@@ -255,6 +278,21 @@ PREFIX_SHARE = 0.5
 PREFIX_QUANT_REQUESTS = 8
 # each new path's kernel-wrapper launches, counts zeroed just before it
 PATH_LAUNCHES: dict = {}
+# overload: 32 requests of the bench trace through the speculative bf16
+# engine with a bounded queue, a KV-pressure watermark and a default
+# deadline, under a seeded cancel / deadline storm (FaultPlan.from_seed); the
+# operator escalates the ladder at LADDER_TICKS and the storm's deadline
+# event takes it to its fourth stage
+OVERLOAD_REQUESTS = 32
+OVERLOAD = dict(max_queue=10, kv_shed_watermark=0.95, default_deadline_ticks=400)
+STORM = dict(seed=45, n_steps=320, p_cancel=0.012, p_deadline=0.004)
+LADDER_TICKS = (24, 48, 72)
+# the disaggregated pair: the bf16 trace, and its first PAIR_INT8_REQUESTS
+# requests with int8 weights and int8 pages
+PAIR_INT8_REQUESTS = 8
+# the fleet: two fused bf16 engines over one model, the prefix-share trace,
+# a replica_kill at fleet tick FLEET_KILL_AT
+FLEET_REPLICAS, FLEET_KILL_AT = 2, 40
 
 # the 600m training step (bench.py's headline configuration on one chip)
 TRAIN = dict(batch=10, seq=2048, warmup=2, timed=10, ce_chunks=4, optimizer="lion-sr")
@@ -2092,7 +2130,459 @@ def prefix_phase(torch, card: str, bf16: dict, quant_model) -> dict:
         f"{report['cow_forks']} forks; TTFT p50 {report['ttft_p50_ms']:.2f} ms (off "
         f"{off_rep['ttft_p50_ms']:.2f}); {report['tokens_per_sec']:.1f} tokens/s (off "
         f"{off_rep['tokens_per_sec']:.1f}); {rule['equal']} of {rule['requests']} requests equal")
-    return {"in_path": in_path, "quant_in_path": q_in_path, "report": rep, "quant": q_rep}
+    return {"in_path": in_path, "quant_in_path": q_in_path, "report": rep, "quant": q_rep,
+            "trace": trace, "off_results": dict(off_eng.results)}
+
+
+# -- overload, the disaggregated pair, the fleet -------------------------------
+
+
+def ttft_p50_ms(engines) -> float:
+    samples = [t for eng in engines for t in eng.ttft_s]
+    return float(np.percentile(samples, 50)) * 1e3 if samples else 0.0
+
+
+def overload_phase(torch, card: str, bf16: dict) -> dict:
+    """The speculative bf16 engine under overload: 32 requests of the
+    bench trace with ``OVERLOAD``'s bounded queue, KV-pressure watermark
+    and default deadline, through ``chaos_replay`` under the seeded
+    ``STORM`` of cancels and a deadline storm; the ladder escalated at
+    ``LADDER_TICKS`` and by the storm's deadline event through all four
+    stages (#4 after despeculate, #6 at the smallest prefill bucket after
+    shrink_prefill).  Shed, deadline miss and cancel must each occur.  The
+    survivors' tokens are held to a fault-free serve of the survivors by
+    the token rule; a checked rerun of the storm holds every #4 / #6 launch
+    to its plain version and the resource contract after every tick.  SLO
+    quantiles of the run are reported, not gated (host clocks)."""
+    import dataclasses
+
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin, synthesize_trace
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.resilience import FaultPlan
+    from accelerate_tpu_torch.serving import chaos_replay, verify_serving_invariants
+    from accelerate_tpu_torch.serving.harness import _overload_fields
+    from accelerate_tpu_torch.telemetry import SLOMonitor, twin_registry
+
+    model = bf16["model"]
+    layers = model.config.num_hidden_layers
+    trace = synthesize_trace(0, OVERLOAD_REQUESTS, **TRACE)
+    plugin = ServingPlugin(**PLUGIN, **SPEC, **OVERLOAD)
+
+    def new_engine():
+        return ServingEngine(model, plugin, GenerationConfig(max_new_tokens=MAX_NEW),
+                             device=model.device)
+
+    def storm():
+        return FaultPlan.from_seed(STORM["seed"], STORM["n_steps"], p_cancel=STORM["p_cancel"],
+                                   p_deadline=STORM["p_deadline"], serving=True)
+
+    def escalate_at_fixed_ticks(engine):
+        if engine.steps in LADDER_TICKS:
+            engine.ladder.escalate()
+
+    def ticking(engine, per_tick):
+        # ``engine`` with ``per_tick(engine)`` run after each of its ticks
+        step = engine.step
+
+        def ticked():
+            event = step()
+            per_tick(engine)
+            return event
+
+        engine.step = ticked
+        return engine
+
+    lives, by_stage, last = [], {}, {}
+    warm = new_engine()
+    warm.warmup()
+
+    def factory():
+        eng = warm if not lives else new_engine()
+        lives.append(eng)
+        return ticking(eng, on_tick)
+
+    def on_tick(engine):
+        counts = launch_counts()
+        row = by_stage.setdefault(engine.ladder.stage, {"ticks": 0, "paged_decode_attention": 0,
+                                                        "paged_multitoken_attention": 0})
+        row["ticks"] += 1
+        for name in ("paged_decode_attention", "paged_multitoken_attention"):
+            row[name] += counts[name] - last.get(name, 0)
+        last.update(counts)
+        escalate_at_fixed_ticks(engine)
+
+    plan = storm()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = chaos_replay(factory, trace, plan, baseline_parity=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    metrics = {k: sum(eng.metrics[k] for eng in lives)
+               for k in ("decode_steps", "verify_steps", "prefill_steps", "generated_tokens")}
+    expect_launches(launches, {
+        "paged_decode_attention": metrics["decode_steps"] * layers,
+        "paged_multitoken_attention": (metrics["verify_steps"] + metrics["prefill_steps"]) * layers})
+    PATH_LAUNCHES["overload"] = launches
+    stages = [stage for life in rep["ladder_stages"] for stage in life]
+    for stage in ("despeculate", "shrink_prefill", "tighten_admission", "shed"):
+        if stage not in stages:
+            raise AssertionError(f"the ladder never reached {stage}: {stages}")
+    for key in ("requests_shed", "deadline_misses", "cancelled"):
+        if not rep[key]:
+            raise AssertionError(f"overload: no {key} on the storm: {rep}")
+    if not by_stage.get("despeculate", {}).get("paged_decode_attention") or \
+            not by_stage.get("shrink_prefill", {}).get("paged_multitoken_attention"):
+        raise AssertionError(f"no #4 after despeculate or no shrunk prefill: {by_stage}")
+    # the survivors, fault-free, deadlines dropped, knobs disarmed
+    survivors = [dataclasses.replace(r, arrival_step=0, deadline_ticks=0)
+                 for r in sorted(trace, key=lambda r: r.uid) if r.uid in rep["results"]]
+    base, _, _, _ = serve_once(torch, model, survivors, plugin={**PLUGIN, **SPEC})
+    rule = token_rule(torch, model, llama_mod, fa, qmm, survivors, base.results, rep["results"],
+                      label="overload")
+    # each serving.* twin's measured side (recorded here) beside the
+    # clean-run model's prediction, which a storm departs from on purpose
+    fields = _overload_fields(lives[-1], trace)
+    twins = {name: {"measured": twin_registry().get(f"serving.{name}").measured,
+                    "clean_run_model": 1.0 if name == "request_goodput_frac" else 0}
+             for name in ("requests_shed", "deadline_misses", "cancelled",
+                          "pages_reclaimed_on_cancel", "request_goodput_frac")}
+    slo = SLOMonitor({"token_latency_s": {"p99_trip": 0.1}, "ttft_s": {"p99_trip": 5.0}})
+    for eng in lives:
+        slo.observe_many("token_latency_s", eng.token_gaps_s)
+        slo.observe_many("ttft_s", eng.ttft_s)
+    # the checked rerun: the same storm and escalations, every #4 / #6
+    # launch against its plain version, the resource contract every tick
+    readings, checked_ticks = {}, [0]
+
+    def on_tick_checked(engine):
+        problems = verify_serving_invariants(engine)
+        if problems:
+            raise AssertionError(f"overload tick {engine.steps}: {problems}")
+        checked_ticks[0] += 1
+        escalate_at_fixed_ticks(engine)
+
+    with checked_kernels(torch, llama_mod, fa, qmm, readings):
+        rep_checked = chaos_replay(lambda: ticking(new_engine(), on_tick_checked), trace,
+                                   storm(), baseline_parity=False)
+    if rep_checked["results"] != rep["results"]:
+        raise AssertionError("overload: the checked rerun's survivors or tokens differ from "
+                             "the timed run's")
+    in_path = worst_readings(readings, ["paged_decode_attention", "paged_multitoken_attention"])
+    in_path["invariants_checked_ticks"] = checked_ticks[0]
+    out = {"card": card, "requests": len(trace), **OVERLOAD, "storm": STORM,
+           "ladder_ticks": list(LADDER_TICKS), "storm_events": [
+               (e.kind, e.at) for e in plan.events], "faults_fired": rep["faults_fired"],
+           "tokens_per_sec": metrics["generated_tokens"] / wall, "wall_s": wall,
+           "ttft_p50_ms": ttft_p50_ms(lives), "completed": rep["completed"],
+           "restarts": rep["restarts"],
+           **{k: rep[k] for k in ("requests_shed", "deadline_misses", "cancelled",
+                                  "pages_reclaimed_on_cancel")},
+           "request_goodput_frac": fields["request_goodput_frac"], "twins": twins,
+           "ladder_stages": rep["ladder_stages"], "by_stage": by_stage,
+           "launches": launches, "token_rule": rule,
+           "slo": slo.report(), "in_path": in_path}
+    log("overload", json.dumps(out))
+    log(f"overload on {card}: {out['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms; shed {rep['requests_shed']}, deadline misses "
+        f"{rep['deadline_misses']}, cancelled {rep['cancelled']}, pages reclaimed "
+        f"{rep['pages_reclaimed_on_cancel']}, goodput {fields['request_goodput_frac']}; "
+        f"{rule['equal']} of {rule['requests']} survivors equal the fault-free serve")
+    return {"in_path": in_path, "report": out}
+
+
+def serve_pair(torch, model, trace, kv_dtype="bf16", timed=False, invariants=False) -> tuple:
+    """A fresh ``DisaggregatedPair`` over ``model`` (PLUGIN's geometry,
+    ``kv_dtype`` pages), warmed, launch counts zeroed, driven tick by tick
+    over ``trace``; with ``timed`` each ``send`` / ``recv`` of the
+    transport is bracketed by CUDA events, with ``invariants`` the resource
+    contract of both engines is checked after every tick.  Returns ``(pair,
+    wall_s, launches (timed runs), transfer events, ticks)``."""
+    from accelerate_tpu_torch import GenerationConfig, ServingPlugin
+    from accelerate_tpu_torch.serving import DisaggregatedPair, verify_serving_invariants
+
+    pair = DisaggregatedPair(model, ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+                             GenerationConfig(max_new_tokens=MAX_NEW), device=model.device)
+    pair.warmup()
+    events = []
+    if timed:
+        t = pair.transport
+        send, recv = t.send, t.recv
+
+        def bracketed(fn, kind):
+            def call(*args):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args)
+                end.record()
+                # the live page count; no payload kept alive
+                events.append((kind, start, end, args[2] if kind == "recv" else args[1]))
+                return out
+            return call
+
+        t.send, t.recv = bracketed(send, "send"), bracketed(recv, "recv")
+    reset_counts()
+    ticks = 0
+    t0 = time.perf_counter()
+    for r in trace:
+        pair.submit(r)
+    while pair.tick():
+        ticks += 1
+        if invariants:
+            for eng in (pair.prefill_engine, pair.decode_engine):
+                problems = verify_serving_invariants(eng)
+                if problems:
+                    raise AssertionError(f"pair tick {ticks}: {problems}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if timed:
+        del pair.transport.send, pair.transport.recv
+    missing = [r.uid for r in trace if len(pair.results.get(r.uid, ())) != r.max_new_tokens]
+    if missing:
+        raise AssertionError(f"pair: requests {missing} did not finish")
+    # the checked rerun's routed wrappers carry no counts: read them on the
+    # main run only
+    return pair, wall, launch_counts() if timed else None, events, ticks
+
+
+def transfer_times(events, page_bytes: int) -> dict:
+    """Per slot: the mean ms of the transport's gather (``send``) and
+    scatter (``recv``) beside their bounds: read plus write of the live
+    pages each moves (``n_pages * page_bytes``) over 3.35 TB/s."""
+    send = [(s.elapsed_time(e), n) for kind, s, e, n in events if kind == "send"]
+    recv = [(s.elapsed_time(e), n) for kind, s, e, n in events if kind == "recv"]
+    count = max(len(send), 1)
+
+    def bound_ms(calls):
+        return sum(2 * n * page_bytes / HBM_BYTES_PER_S * 1e3 for _, n in calls) / count
+
+    send_ms, recv_ms = (sum(t for t, _ in calls) / count for calls in (send, recv))
+    return {"transfers": len(send), "page_bytes": page_bytes,
+            "live_pages_mean": sum(n for _, n in send) / count,
+            "send_ms": send_ms, "send_bound_ms": bound_ms(send),
+            "recv_ms": recv_ms, "recv_bound_ms": bound_ms(recv),
+            "slot_ms": send_ms + recv_ms, "slot_bound_ms": bound_ms(send) + bound_ms(recv)}
+
+
+def transfer_probe(torch, pair, n_pages: int, reps: int = 5) -> dict:
+    """Where a transfer's time goes, after a timed pair run (the pair is
+    not served again): the gather of the prefill engine's slot 0 over its
+    whole block-table row (JAX's ``pps``-wide wire shape) beside the
+    gather of its first ``n_pages`` pages, each the mean of ``reps``
+    CUDA-event times; then the live gather and a scatter into the idle
+    decode engine's slot 0, each once more under ``torch.profiler``: the
+    summed time of the device kernels each runs, beside its event time.
+    What the event time holds beyond the kernels is the card waiting on
+    the host (launches, the scatter's allocator sync)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = pair.transport
+
+    def event_ms(fn):
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sum(times) / reps
+
+    payload = t.send(0, n_pages)
+    calls = {"send_row": lambda: t.send(0), "send_live": lambda: t.send(0, n_pages),
+             "recv_live": lambda: t.recv(0, payload, n_pages, n_pages)}
+    out = {"n_pages": n_pages, "reps": reps}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = event_ms(fn)
+    if torch.cuda.is_available():          # a CPU rehearsal has no device kernel
+        for name in ("send_live", "recv_live"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                calls[name]()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not kernels:
+                raise AssertionError("torch.profiler saw no device kernel of the transport")
+            out[f"{name}_kernels"] = len(kernels)
+            out[f"{name}_kernel_ms"] = sum(
+                e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    return out
+
+
+def disaggregate_phase(torch, card: str, bf16: dict, quant: dict) -> dict:
+    """``bench.py --serve --disaggregate``'s pair (``bench.py:587-609``),
+    twice: the bf16 600m over the 16-request trace (#6 on the prefill
+    engine, #4 on the decode engine), and the int8-weight model over int8
+    pages on its first 8 requests (#7 / #11 prefill, #5 / #11 decode).
+    Each: transfers, pages and bytes against ``transfer_accounting`` (equal),
+    each slot's gather and scatter (CUDA events) against its bound, tokens/s
+    beside the fused serve's, tokens under the token rule against the fused
+    serve's; a checked rerun holds every kernel launch to its plain version
+    with the resource contract of both engines after every tick."""
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.serving import transfer_accounting
+    from accelerate_tpu_torch.telemetry import twin_registry
+
+    layers = MODEL["num_hidden_layers"]
+    out = {}
+    for label, model, trace, kv, ref, fused_tps in (
+            ("disaggregate", bf16["model"], bf16["trace"], "bf16", bf16["results"],
+             bf16["report"]["tokens_per_sec"]),
+            ("disaggregate_int8", quant["model"], bf16["trace"][:PAIR_INT8_REQUESTS], QUANT_KV,
+             quant["results"], quant["report"]["tokens_per_sec"])):
+        pair, wall, launches, events, ticks = serve_pair(torch, model, trace, kv, timed=True)
+        P, D = pair.prefill_engine, pair.decode_engine
+        prefill, decode = P.metrics["prefill_steps"], D.metrics["decode_steps"]
+        if kv == "bf16":
+            want = {"paged_multitoken_attention": prefill * layers,
+                    "paged_decode_attention": decode * layers}
+        else:
+            want = {"paged_multitoken_attention_quant": prefill * layers,
+                    "paged_decode_attention_quant": decode * layers,
+                    "quantized_matmul_tiled": 7 * layers * (prefill + decode)}
+        expect_launches(launches, want)
+        PATH_LAUNCHES[label] = launches
+        rep = pair.report()
+        acc = transfer_accounting(model.config, trace, PLUGIN["page_size"], dtype_bytes=2,
+                                  kv_dtype="" if kv == "bf16" else kv)
+        if rep["page_transfer_bytes"] != acc["page_transfer_bytes"] or \
+                rep["page_transfer_pages"] != acc["pages_predicted"]:
+            raise AssertionError(f"{label}: transfer bytes {rep} vs accounting {acc}")
+        twin = twin_registry().get("transfer.page_bytes")
+        times = transfer_times(events, pair.transport.schema["page_bytes"])
+        rule = token_rule(torch, model, llama_mod, fa, qmm, trace, ref, pair.results,
+                          kv_dtype=kv, label=label)
+        readings = {}
+        with checked_kernels(torch, llama_mod, fa, qmm, readings):
+            checked, _, _, _, checked_ticks = serve_pair(torch, model, trace, kv, invariants=True)
+        required = ["paged_decode_attention", "paged_multitoken_attention"]
+        if kv != "bf16":
+            required.append("quantized_matmul_tiled")
+        in_path = worst_readings(readings, required)
+        in_path["invariants_checked_ticks"] = checked_ticks
+        if checked.results != pair.results:
+            raise AssertionError(f"{label}: the checked rerun's tokens differ from the timed "
+                                 "run's")
+        del checked
+        probe = transfer_probe(torch, pair, round(times["live_pages_mean"]))
+        gen = sum(len(v) for v in pair.results.values())
+        out[label] = {"card": card, "kv_dtype": kv, "requests": len(trace), **rep,
+                      "transfer_accounting": acc, "twin_rel_err": twin.rel_err,
+                      "transfer": times, "transfer_probe": probe, "ticks": ticks,
+                      "wall_s": wall,
+                      "tokens_per_sec": gen / wall, "fused_tokens_per_sec": fused_tps,
+                      "launches": launches, "token_rule": rule,
+                      "in_path": in_path}
+        log(label, json.dumps(out[label]))
+        log(f"{label} on {card}: {rep['page_transfers']} transfers, {rep['page_transfer_pages']} "
+            f"pages, {rep['page_transfer_bytes']} bytes (accounting "
+            f"{acc['page_transfer_bytes']}); a slot's gather + scatter {times['slot_ms']:.4f} ms "
+            f"(bound {times['slot_bound_ms']:.4f}; whole-row gather {probe['send_row_ms']:.4f} "
+            f"ms against {probe['send_live_ms']:.4f} for {probe['n_pages']} live pages); "
+            f"{gen / wall:.1f} tokens/s (fused "
+            f"{fused_tps:.1f}); {rule['equal']} of {rule['requests']} requests equal the fused "
+            f"serve")
+    return out
+
+
+def placements(router) -> list:
+    """``(replica, uid)`` of every submit on each replica's engine."""
+    return [(rep.index, ev[1]) for rep in router.replicas
+            for ev in rep.backend.sched.events if ev[0] == "submit"]
+
+
+def fleet_phase(torch, card: str, bf16: dict, prefix: dict) -> dict:
+    """``bench.py --serve --fleet 2``'s router (``bench.py:610-640``) over
+    two fused bf16 engines sharing the model, on the prefix-share trace
+    with the prefix cache on: under ``affinity`` and under ``round_robin``
+    (hit rate, routed-by counts, per-replica occupancy, tokens under the
+    token rule against the fused serve with both features off), then a
+    ``fleet_chaos_replay`` with a ``replica_kill`` at fleet tick
+    ``FLEET_KILL_AT``: the drained requests re-route exactly once, the
+    survivors meet the token rule, and the fault-free baseline's
+    placements equal the first affinity run's."""
+    from collections import Counter
+
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.resilience import FaultEvent, FaultPlan
+    from accelerate_tpu_torch.serving import FleetRouter, fleet_chaos_replay, fleet_replay
+
+    model, trace, ref = bf16["model"], prefix["trace"], prefix["off_results"]
+    layers = model.config.num_hidden_layers
+    plugin = ServingPlugin(**PLUGIN, prefix_cache="on")
+    routers = []
+
+    def new_router(policy="affinity"):
+        r = FleetRouter([ServingEngine(model, plugin, GenerationConfig(max_new_tokens=MAX_NEW),
+                                       device=model.device) for _ in range(FLEET_REPLICAS)],
+                        policy=policy)
+        routers.append(r)
+        return r
+
+    def row(rep):
+        return {k: v for k, v in rep.items() if k not in ("results", "per_replica")}
+
+    out = {"card": card, "replicas": FLEET_REPLICAS, "requests": len(trace)}
+    for policy in ("affinity", "round_robin"):
+        router = new_router(policy)
+        router.warmup()
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = fleet_replay(router, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        engines = [r.backend for r in router.replicas]
+        expect_launches(launches, {
+            "paged_decode_attention": sum(e.metrics["decode_steps"] for e in engines) * layers,
+            "paged_multitoken_attention": sum(e.metrics["prefill_steps"]
+                                              for e in engines) * layers})
+        if policy == "affinity":
+            PATH_LAUNCHES["fleet"] = launches
+        rule = token_rule(torch, model, llama_mod, fa, qmm, trace, ref, rep["results"],
+                          label=f"fleet {policy}")
+        out[policy] = {**row(rep), "tokens_per_sec": sum(e.metrics["generated_tokens"]
+                                                         for e in engines) / wall,
+                       "per_replica": [{**r, "kv_pool_peak_utilization":
+                                        e.metrics["peak_used_pages"] / PLUGIN["num_pages"]}
+                                       for r, e in zip(rep["per_replica"], engines)],
+                       "launches": launches, "token_rule": rule}
+    first = placements(routers[0])
+    chaos = fleet_chaos_replay(new_router, trace,
+                               FaultPlan([FaultEvent("replica_kill", at=FLEET_KILL_AT)]))
+    chaos_router, baseline = routers[-2], routers[-1]
+    if placements(baseline) != first:
+        raise AssertionError("fleet: the two fault-free affinity runs placed requests apart")
+    drains = chaos["drain_events"]
+    counts = Counter(uid for _, uid in placements(chaos_router))
+    rerouted = sorted(uid for uid, n in counts.items() if n == 2)
+    if len(drains) != 1 or any(n > 2 for n in counts.values()) or \
+            len(rerouted) != drains[0]["survivors"] or set(counts) != {r.uid for r in trace} or \
+            chaos["goodput_frac"] != 1.0:
+        raise AssertionError(f"fleet: a drained request did not re-route exactly once: "
+                             f"{drains} {dict(counts)}")
+    rule = token_rule(torch, model, llama_mod, fa, qmm, trace, ref, chaos["results"],
+                      label="fleet chaos")
+    out["chaos"] = {**{k: v for k, v in chaos.items() if k not in ("results", "per_replica")},
+                    "rerouted": rerouted, "bitwise_equal_to_baseline": chaos["token_parity"],
+                    "token_rule": rule}
+    out["placements_equal_across_affinity_runs"] = True
+    log("fleet", json.dumps(out))
+    aff, rr = out["affinity"], out["round_robin"]
+    log(f"fleet on {card}: prefix hit rate affinity {aff['prefix_hit_rate']} / round robin "
+        f"{rr['prefix_hit_rate']}; routed by prefix {aff['routed_by_prefix']}, adapter "
+        f"{aff['routed_by_adapter']}, load {aff['routed_by_load']}; {aff['tokens_per_sec']:.1f} / "
+        f"{rr['tokens_per_sec']:.1f} tokens/s; replica_kill at tick {FLEET_KILL_AT}: "
+        f"{len(rerouted)} requests re-routed once, {rule['equal']} of {rule['requests']} equal")
+    return out
 
 
 def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> dict:
@@ -2155,7 +2645,8 @@ def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> di
         f"({rep['bf16_weight_bytes'] / 2**20:.1f}); pool {pool_bytes / 2**20:.2f} MiB "
         f"({rep['bf16_pool_bytes'] / 2**20:.2f}); greedy tokens matching bf16 "
         f"{100 * rep['greedy_tokens_matching_bf16']:.1f} %")
-    return {"model": model, "launches": launches, "in_path": in_path, "report": rep}
+    return {"model": model, "launches": launches, "in_path": in_path, "report": rep,
+            "results": dict(engine.results)}
 
 
 def pages_32_phase(torch, model, card: str, trace) -> dict:
@@ -2869,6 +3360,12 @@ def main() -> int:
         phase_done("quantized serve over pages of 32")
         prefix = prefix_phase(torch, card, serve, quant["model"])
         phase_done("prefix-cache serve")
+        overload = overload_phase(torch, card, serve)
+        phase_done("overload serve")
+        pairs = disaggregate_phase(torch, card, serve, quant)
+        phase_done("disaggregated pair")
+        fleet_phase(torch, card, serve, prefix)
+        phase_done("fleet")
         gen = generate_paged_phase(torch, quant.pop("model"), card)
         phase_done("generate_paged")
         generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
@@ -2923,17 +3420,20 @@ def main() -> int:
                         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
-                        # the launches of the speculative and prefix-cache
-                        # paths, each counted from 0 over its own serve
+                        # the launches of the speculative, prefix-cache,
+                        # overload, pair and fleet paths, each counted from
+                        # 0 over its own serve
                         "paths": {path: counts[name] for path, counts in PATH_LAUNCHES.items()
                                   if counts.get(name)},
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
                                                "delta_ms", "four_launch_ms", "composed_ms")
                            if k in rep}})
-    log("speculate and prefix checked launches:", json.dumps({
+    log("speculate, prefix, overload and pair checked launches:", json.dumps({
         "speculate": spec["in_path"], "speculate_draft": spec["draft_in_path"],
-        "prefix": prefix["in_path"], "prefix_int8": prefix["quant_in_path"]}))
+        "prefix": prefix["in_path"], "prefix_int8": prefix["quant_in_path"],
+        "overload": overload["in_path"],
+        **{label: rep["in_path"] for label, rep in pairs.items()}}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

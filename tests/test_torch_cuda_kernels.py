@@ -1560,3 +1560,97 @@ def test_speculative_engine_follows_the_token_rule(cuda):
         dlogit = (kernel[row] - plain[row]).abs().max().item()
         print("divergence", r.uid, i, gap, dlogit)
         assert gap <= dlogit, (r.uid, i, gap, dlogit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_transfer_round_trip_is_bitwise(cuda, kv_dtype):
+    """The disaggregated pair's transport on one card: a held slot's pages
+    (and, quantized, their scales) gathered on the prefill engine and
+    scattered into the decode engine's pool arrive bitwise, the decode
+    slot's row and length installed, the free stacks popped by exactly
+    the live pages."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaConfig, LlamaForCausalLM, Request, ServingEngine, ServingPlugin,
+    )
+    from accelerate_tpu_torch.serving import PagedKVTransport, pages_for
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=512)
+    model = LlamaForCausalLM(cfg, seed=0)
+    plugin = ServingPlugin(num_slots=4, page_size=16, pages_per_slot=8, num_pages=32,
+                           prefill_chunk=64, kv_dtype=kv_dtype)
+    gc = GenerationConfig(max_new_tokens=8)
+    src = ServingEngine(model, plugin, gc, hold_finished=True)
+    dst = ServingEngine(model, plugin, gc)
+    t = PagedKVTransport(src, dst)
+    prompt = tuple(range(3, 3 + 57))
+    src.add_request(Request(uid=0, prompt=prompt, max_new_tokens=1))
+    while not src.held:
+        src.step()
+    slot = src.held[0]
+    n = int(pages_for(len(prompt), 16))
+    dst_slot = t.transfer(slot, Request(uid=0, prompt=prompt, max_new_tokens=8),
+                          src.results[0][0])
+    torch.cuda.synchronize()
+    src_row = src.cache["block_tables"][slot, :n].long()
+    dst_row = dst.cache["block_tables"][dst_slot, :n].long()
+    for sl, dl in zip(src.cache["layers"], dst.cache["layers"]):
+        for key in sl:
+            a, b = sl[key][:, src_row], dl[key][:, dst_row]
+            if a.dtype == torch.float8_e4m3fn:
+                a, b = a.view(torch.uint8), b.view(torch.uint8)
+            assert torch.equal(a, b), key
+    assert int(dst.cache["seq_lens"][dst_slot]) == len(prompt)
+    assert int(dst.cache["free_top"]) == 32 - n and dst.sched.free_pages == 32 - n
+    assert t.bytes_moved == n * t.schema["page_bytes"]
+
+
+@pytest.mark.cuda
+def test_disaggregated_pair_follows_the_token_rule(cuda):
+    """A 2-layer model at the 600m widths served by a prefill -> decode
+    pair (#6 on the prefill engine, #4 on the decode engine, the pages
+    crossing by the transport) and by one fused engine: each request's
+    tokens equal the fused engine's, or first differ at a near-tie; the
+    page bytes equal ``transfer_accounting``; the resource contract holds
+    on both engines."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaConfig, LlamaForCausalLM, ServingEngine, ServingPlugin,
+        synthesize_trace,
+    )
+    from accelerate_tpu_torch.serving import (
+        DisaggregatedPair, transfer_accounting, verify_serving_invariants,
+    )
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                      num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                      max_position_embeddings=4096, attn_implementation="flash")
+    model = LlamaForCausalLM(cfg, seed=0)
+    plugin = ServingPlugin(num_slots=16, page_size=64, pages_per_slot=32, num_pages=256,
+                           prefill_chunk=512)
+    trace = synthesize_trace(0, 16, vocab_size=32000, mean_interarrival_steps=0.5,
+                             prompt_len_range=(64, 512), new_tokens_range=(32, 128))
+    gc = GenerationConfig(max_new_tokens=128)
+    fused = ServingEngine(model, plugin, gc).run(trace)
+    pair = DisaggregatedPair(model, plugin, gc)
+    pair.warmup()
+    tfa.reset_launch_counts()
+    got = pair.run(trace)
+    P, D = pair.prefill_engine, pair.decode_engine
+    assert tfa.paged_multitoken_attention.launches == P.metrics["prefill_steps"] * 2 > 0
+    assert tfa.paged_decode_attention.launches == D.metrics["decode_steps"] * 2 > 0
+    assert pair.report()["page_transfer_bytes"] == \
+        transfer_accounting(cfg, trace, 64)["page_transfer_bytes"]
+    assert verify_serving_invariants(P) == verify_serving_invariants(D) == []
+    for r in trace:
+        a, b = fused[r.uid], got[r.uid]
+        assert len(a) == len(b) == r.max_new_tokens
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        kernel, plain = _teacher_forced(model, r.prompt, a)
+        row = r.prompt_len - 1 + i
+        gap = (kernel[row, a[i]] - kernel[row, b[i]]).abs().item()
+        dlogit = (kernel[row] - plain[row]).abs().max().item()
+        print("divergence", r.uid, i, gap, dlogit)
+        assert gap <= dlogit, (r.uid, i, gap, dlogit)

@@ -351,8 +351,27 @@ def test_prefix_flush_fault_keeps_tokens_and_matches_jax(models):
 
 @pytest.mark.parametrize("kind", ["cancel", "deadline"])
 def test_overload_faults_raise_naming_a11d(models, kind):
-    eng = ServingEngine(models[2], ServingPlugin(**GEOMETRY), GenerationConfig(max_new_tokens=4),
-                        device="cpu")
-    with fault_plan(FaultPlan([FaultEvent(kind, at=2)])):
-        with pytest.raises(NotImplementedError, match="A11d"):
-            eng.run(synthesize_trace(0, 2, **TRACE))
+    """The ``cancel`` / ``deadline`` faults, once refused, fire at
+    ``serve_step``: the cancellation storm retires the oldest live request,
+    the deadline storm expires every live one and escalates the ladder —
+    the events, results and free stack are the JAX engine's under the same
+    plan, and the resource contract holds."""
+    jmodel, params, tmodel = models
+    with jfaults.fault_plan(jfaults.FaultPlan([jfaults.FaultEvent(kind, at=6)])):
+        jeng = JaxServingEngine(jmodel, params,
+                                JaxServingPlugin(**GEOMETRY, decode_kernel="native"),
+                                JaxGenerationConfig(max_new_tokens=16))
+        jres = jeng.run(jax_synthesize_trace(0, 6, **TRACE))
+    plan = FaultPlan([FaultEvent(kind, at=6)])
+    with fault_plan(plan):
+        eng = ServingEngine(tmodel, ServingPlugin(**GEOMETRY, decode_kernel="native"),
+                            GenerationConfig(max_new_tokens=16), device="cpu")
+        res = eng.run(synthesize_trace(0, 6, **TRACE))
+    assert plan.fired and res == jres
+    assert eng.sched.events == jeng.sched.events
+    assert any(ev[0] == "cancel" and ev[3] == kind for ev in eng.sched.events)
+    assert eng.ladder.stage == jeng.ladder.stage == ("normal" if kind == "cancel"
+                                                     else "despeculate")
+    np.testing.assert_array_equal(eng.cache["free_stack"].numpy(),
+                                  np.asarray(jeng.cache["free_stack"]))
+    assert verify_serving_invariants(eng) == []

@@ -376,14 +376,15 @@ def test_replay_prefix_fields_match_jax_and_record_the_twin(models):
 
 
 def test_engine_refuses_only_the_overload_knobs(models):
-    tmodel = models[2]
-    ServingEngine(tmodel, ServingPlugin(**PLUGIN, prefix_cache="on", speculate="ngram"),
-                  device="cpu")
-    for knob in (dict(max_queue=4), dict(kv_shed_watermark=0.5),
-                 dict(default_deadline_ticks=8)):
-        with pytest.raises(NotImplementedError, match="A11d"):
-            ServingEngine(tmodel, ServingPlugin(**PLUGIN, prefix_cache="on", **knob),
-                          device="cpu")
-    eng = ServingEngine(tmodel, ServingPlugin(**PLUGIN), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11d"):
-        eng.add_request(Request(uid=0, prompt=(1, 2), max_new_tokens=2, deadline_ticks=3))
+    """The engine refuses no knob now: the overload controls serve beside
+    the prefix cache — a shared-preamble trace under a bounded queue, a
+    watermark and per-request deadlines cancels and sheds slots holding
+    shared pages exactly as JAX's (hits, refcounts, index, free stack), and
+    the refcounted resource contract holds after every tick."""
+    trace_kw = {**_trace_kw(7, 12, new=(4, 10)), "mean_interarrival_steps": 0.5}
+    knobs = dict(max_queue=4, kv_shed_watermark=0.9, default_deadline_ticks=18)
+    jeng, teng = _serve_both(models, trace_kw, engine_kw=knobs)
+    _assert_same_prefix_serving(jeng, teng)
+    assert any(ev[0] == "cancel" for ev in teng.sched.events)
+    assert teng.sched.pages_reclaimed_on_cancel == jeng.sched.pages_reclaimed_on_cancel
+    assert teng.prefix.stats["hit_pages"] > 0

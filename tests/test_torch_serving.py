@@ -186,10 +186,21 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(models, monkeypatch):
     dict(kv_shed_watermark=0.5), dict(default_deadline_ticks=8), dict(max_queue=4),
 ])
 def test_later_slice_knobs_raise(models, knob):
-    """The overload knobs are ROADMAP item A11d (speculation and the prefix
-    cache are served now)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item A11d"):
-        ServingEngine(models[2], ServingPlugin(**GEOMETRY, **knob), device="cpu")
+    """The overload knobs, once refused, now serve: a loaded trace through
+    an engine arming one sheds, expires and serves exactly as the JAX
+    engine with the same knob (tokens, events, step metrics, free stack),
+    and the resource contract holds."""
+    from accelerate_tpu_torch.serving import verify_serving_invariants
+
+    jeng, jres, teng, tres = _serve_both(
+        models, "native", dict(GEOMETRY, **knob),
+        dict(seed=5, n_requests=12, mean_interarrival_steps=0.5, prompt_len_range=(4, 20),
+             new_tokens_range=(4, 16)))
+    _assert_same_serving(jeng, jres, teng, tres)
+    for name in ("requests_shed", "deadline_misses", "cancelled", "pages_reclaimed_on_cancel"):
+        assert getattr(teng.sched, name) == getattr(jeng.sched, name), name
+    assert teng.sched.requests_shed + teng.sched.deadline_misses > 0
+    assert verify_serving_invariants(teng) == []
 
 
 # int8 weights: a tiny model wide enough (hidden 128, intermediate 256) that
@@ -254,13 +265,20 @@ def test_generate_paged_matches_jax(qmodels):
                                   dict(default_deadline_ticks=8),
                                   dict(max_queue=2, speculate="ngram", prefix_cache="on")])
 def test_generate_paged_later_slice_knobs_raise(models, knob):
-    """A plugin arming an overload knob (ROADMAP item A11d) is refused
-    through ``generate_paged`` too; speculation and the prefix cache pass."""
-    plugin = ServingPlugin(num_slots=1, page_size=4, pages_per_slot=2, num_pages=2,
-                           prefill_chunk=16, **knob)
-    with pytest.raises(NotImplementedError, match="A11d"):
-        generate_paged(models[2], np.ones((1, 3), np.int32), GenerationConfig(max_new_tokens=2),
-                       serving_plugin=plugin)
+    """A plugin arming an overload knob, once refused, passes through
+    ``generate_paged`` to the engine: JAX's tokens, and the plain path's."""
+    jmodel, params, tmodel = models
+    plugin = dict(num_slots=1, page_size=4, pages_per_slot=2, num_pages=2, prefill_chunk=16,
+                  **knob)
+    batch = np.asarray([[5, 9, 3]], np.int32)
+    got = generate_paged(tmodel, batch, GenerationConfig(max_new_tokens=2),
+                         serving_plugin=ServingPlugin(**plugin))
+    want = jax_generate_paged(jmodel, params, jnp.asarray(batch),
+                              JaxGenerationConfig(max_new_tokens=2),
+                              serving_plugin=JaxServingPlugin(**plugin))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), generate(tmodel, batch, GenerationConfig(max_new_tokens=2)).numpy())
 
 
 def test_request_guards(models):
@@ -297,6 +315,27 @@ def _imported_modules(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+
+
+def test_serving_and_telemetry_export_every_jax_name():
+    """Name by name, the port's ``serving`` and ``telemetry`` export what
+    the JAX package's do.  The exceptions, each with its ROADMAP item:
+    ``LoraTrainer`` is exported but raises (A11e); the training timeline
+    (``telemetry/timeline.py``: ``TrainTimeline``) is A14."""
+    import accelerate_tpu.serving as jserving
+    import accelerate_tpu.telemetry as jtelemetry
+    import accelerate_tpu_torch.serving as tserving
+    import accelerate_tpu_torch.telemetry as ttelemetry
+
+    exceptions = {"TrainTimeline": "A14"}
+    for jmod, tmod in ((jserving, tserving), (jtelemetry, ttelemetry)):
+        for name in jmod.__all__:
+            if name in exceptions:
+                assert not hasattr(tmod, name), name
+                continue
+            assert name in tmod.__all__ and hasattr(tmod, name), name
+    with pytest.raises(NotImplementedError, match="A11e"):
+        tserving.LoraTrainer()
 
 
 def test_port_imports_no_jax():
