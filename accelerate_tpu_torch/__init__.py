@@ -28,9 +28,20 @@ pinned host memory on a side stream, LRU, refcount pinning), per-slot
 adapter routing through ``ServingEngine`` and ``generate_paged``, and the
 fused LoRA-query + paged-decode op ``fused_bgmv_paged_decode`` (kernels
 #8 / #9, on the decode kernels' split page loop in ``csrc/paged_decode.cu``).
+
+Its thirteenth slice is the resumable training loop: ``prepare`` of a
+``torch.utils.data.DataLoader`` (``data_loader.py``), schedules
+(``scheduler.py``), verified atomic checkpoints (``checkpointing.py``:
+``save_state`` sync and async, ``load_state``, ``maybe_resume``,
+``save_model``) on the native IO engine (``native/``) and safetensors
+(``utils/serialization.py``), the NaN guard, preemption and goodput
+(``resilience/``).
 """
 
 from .accelerator import Accelerator, TrainState
+from .checkpointing import CheckpointCorruptError
+from .data_loader import prepare_data_loader, skip_first_batches
+from .scheduler import AcceleratedScheduler
 from .generation import GenerationConfig, generate, generate_paged, sample_logits
 from .models import LlamaConfig, LlamaForCausalLM, make_llama_loss_fn
 from .ops.quantized_matmul import quantized_matmul
@@ -39,9 +50,12 @@ from .ops.flash_attention import fused_bgmv_paged_decode
 from .ops.lora import lora_apply
 from .serving import AdapterStore, Request, ServingEngine, replay, synthesize_trace
 from .utils.dataclasses import (
+    DataLoaderConfiguration,
     GradientAccumulationPlugin,
     GradSyncKwargs,
     LoraPlugin,
+    ProjectConfiguration,
+    ResiliencePlugin,
     ServingPlugin,
 )
 from .utils.quantization import (
@@ -55,17 +69,22 @@ from .utils.quantization import (
 
 __all__ = [
     "AcceleratedOptimizer",
+    "AcceleratedScheduler",
     "Accelerator",
     "AdapterStore",
+    "CheckpointCorruptError",
+    "DataLoaderConfiguration",
     "GenerationConfig",
     "GradSyncKwargs",
     "GradientAccumulationPlugin",
     "LlamaConfig",
     "LlamaForCausalLM",
     "LoraPlugin",
+    "ProjectConfiguration",
     "QuantizationConfig",
     "QuantizedTensor",
     "Request",
+    "ResiliencePlugin",
     "ServingEngine",
     "ServingPlugin",
     "TrainState",
@@ -76,11 +95,13 @@ __all__ = [
     "lora_apply",
     "make_llama_loss_fn",
     "make_optimizer",
+    "prepare_data_loader",
     "quantize",
     "quantize_model_",
     "quantize_params",
     "quantized_matmul",
     "replay",
     "sample_logits",
+    "skip_first_batches",
     "synthesize_trace",
 ]

@@ -1,27 +1,36 @@
-"""The Accelerator: train state and train step on one device (mirrors the
+"""The Accelerator: train state, train step and the training loop's data,
+schedule, checkpoint and resilience layers on one device (mirrors the
 single-device, non-offload path of ``accelerate_tpu/accelerator.py``).
 
 The training loop keeps the JAX package's shape::
 
     acc = Accelerator(mixed_precision="bf16",
-                      kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+                      kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")],
+                      project_config=ProjectConfiguration(
+                          project_dir=run_dir, automatic_checkpoint_naming=True),
+                      resilience_plugin=ResiliencePlugin(nan_guard=True,
+                                                         handle_preemption=True))
+    loader = acc.prepare(torch.utils.data.DataLoader(dataset, batch_size=10))
     state = acc.create_train_state(model, "lion-sr")
+    state = acc.maybe_resume(train_state=state) or state
     step = acc.prepare_train_step(make_llama_loss_fn(model, fused_vocab_chunks=4))
-    for batch in batches:
+    for batch in loader:
         state, metrics = step(state, batch)     # grads, clip, update
+        acc.save_state(train_state=state, async_save=True)
 
 The state's params are a name -> tensor dict in the order the JAX package
 flattens its param tree (the stochastic-rounding salts key on it).  Given a
 module, they are its own parameter tensors, so the module trains in place.
 PyTorch runs eagerly: where the JAX step is one jitted program that
 donates its input state, the port's step updates the params **in
-place**, which saves holding a second copy of the weights.
+place**, which saves holding a second copy of the weights; a checkpoint
+therefore snapshots them to host memory before the next step runs
+(``checkpointing.py``).
 
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item: FSDP/TP/parallelism configs and PowerSGD / hierarchical gradient
-compression (A13), cpu offload (A12), fp16 loss scaling and fp8 (A12), the
-NaN guard and the donation audits (A14), accumulation carried across calls
-(A7).
+item: FSDP/TP/parallelism configs, PowerSGD / hierarchical gradient
+compression, the peer snapshots, rank loss and stragglers (A13), cpu
+offload, fp16 loss scaling and fp8 (A12), the donation audits (A14).
 """
 
 from __future__ import annotations
@@ -29,17 +38,39 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import os
 from typing import Any, Callable, Optional, Union
 
 import torch
 from torch import nn
 
+from .data_loader import (
+    DataLoaderDispatcher,
+    DataLoaderShard,
+    prepare_data_loader,
+    skip_first_batches,
+)
+from .logging import get_logger
 from .ops.precision import Policy, get_policy
 from .ops.stochastic_rounding import GradientTransformation, flax_leaf_order
 from .optimizer import AcceleratedOptimizer, make_optimizer
+from .resilience import faults as _faults
+from .resilience import guard as _guard
+from .resilience.goodput import GoodputTracker
+from .resilience.retry import RetryPolicy
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin, GradSyncKwargs
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    GradSyncKwargs,
+    ProjectConfiguration,
+    ResiliencePlugin,
+    parse_flag_from_env,
+)
 from .utils.random import get_rng_key
+
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -52,6 +83,14 @@ class TrainState:
     rng: torch.Generator
     apply_fn: Optional[Callable] = None
     tx: Optional[GradientTransformation] = None
+    # NaN-guard skip counters ({nan_skips, consecutive_nan_skips}: int32 0-d
+    # tensors, resilience/guard.py), carried so they survive a resume;
+    # None unless ResiliencePlugin.nan_guard
+    guard_state: Optional[dict] = None
+    # accumulation mode "across_steps": the f32 gradient sum carried between
+    # calls and the microsteps since the last update
+    grad_accum: Optional[list] = None
+    accum_step: int = 0
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
@@ -74,18 +113,28 @@ def _not_ported(what: str, item: str):
 class Accelerator:
     """One device (``"cuda"`` unless ``cpu=True`` or ``device=`` says
     otherwise), mixed precision ``"no"`` or ``"bf16"``, gradient
-    accumulation, and the train step."""
+    accumulation, the train step, and the loop around it: prepared data
+    loaders and schedules, verified checkpoints, the NaN guard, preemption
+    and goodput.  The JAX package's constructor, plus ``device``."""
 
-    def __init__(self, mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
-                 cpu: bool = False, device=None, parallelism_config=None, fsdp_plugin=None,
+    def __init__(self, device_placement: bool = True, split_batches: bool = False,
+                 mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
+                 cpu: bool = False,
+                 dataloader_config: Optional[DataLoaderConfiguration] = None,
+                 parallelism_config=None, fsdp_plugin=None,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
-                 resilience_plugin=None, kwargs_handlers: Optional[list] = None):
+                 resilience_plugin: Optional[ResiliencePlugin] = None,
+                 rng_types: Optional[list] = None, project_dir: Optional[str] = None,
+                 project_config: Optional[ProjectConfiguration] = None,
+                 step_scheduler_with_optimizer: bool = True,
+                 kwargs_handlers: Optional[list] = None, device=None):
         if parallelism_config is not None:
             raise _not_ported("parallelism_config (FSDP/TP/CP over several GPUs)", "A13")
         if fsdp_plugin is not None:
             raise _not_ported("fsdp_plugin (sharding and cpu offload)", "A12/A13")
-        if resilience_plugin is not None:
-            raise _not_ported("resilience_plugin (NaN guard, preemption, snapshots)", "A14")
+        self.resilience_plugin = resilience_plugin or ResiliencePlugin()
+        if self.resilience_plugin.peer_snapshot_every > 0:
+            raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13")
         self.grad_sync_kwargs = GradSyncKwargs()
         for handler in kwargs_handlers or []:
             if not isinstance(handler, GradSyncKwargs):
@@ -100,14 +149,46 @@ class Accelerator:
                 "Pass gradient_accumulation_steps OR gradient_accumulation_plugin, not "
                 "conflicting both"
             )
-        if gradient_accumulation_plugin.mode != "in_step":
-            raise _not_ported("gradient accumulation mode 'across_steps' (the carried "
-                              "accumulator of the python loop)", "A7")
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device)
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.policy: Policy = get_policy(self.state.mixed_precision)
+        self.split_batches = split_batches
+        self.device_placement = device_placement
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(
+            split_batches=split_batches)
+        self.rng_types = rng_types
         self.step_count = 0
         self._in_accumulate = False
+
+        self._dataloaders: list = []
+        self._optimizers: list = []
+        self._schedulers: list = []
+        self._models: list = []
+        self._custom_objects: list = []
+        self._save_model_state_pre_hooks: dict = {}
+        self._load_model_state_pre_hooks: dict = {}
+        # in-flight async train-state write and its long-lived writer
+        # (checkpointing.py), and the pinned host buffers saves snapshot into
+        self._pending_checkpointer = None
+        self._async_checkpointer = None
+        self._checkpoint_buffers: list = []
+        self.last_restored_checkpoint: Optional[str] = None
+        # each save's timings and bytes by directory (checkpointing.py)
+        self.checkpoint_log: dict = {}
+        # the goodput tracker always exists (zeros when the run is clean)
+        self.goodput = GoodputTracker()
+        self._preemption = None
+        if self.resilience_plugin.handle_preemption:
+            self.install_preemption_handler()
+        if _faults.active_fault_plan() is None:
+            # a subprocess run's plan arrives as JSON in ACCELERATE_FAULT_PLAN
+            env_plan = _faults.FaultPlan.from_env()
+            if env_plan is not None:
+                _faults.install_fault_plan(env_plan)
 
     # -- introspection ---------------------------------------------------
 
@@ -139,24 +220,138 @@ class Accelerator:
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
 
+    @property
+    def project_dir(self):
+        return self.project_configuration.project_dir
+
+    def wait_for_everyone(self):
+        """One process: nothing to wait for."""
+
+    # -- prepare ---------------------------------------------------------
+
+    def prepare(self, *args, device_placement: Optional[list] = None):
+        """Lift user objects into their prepared equivalents, in order: data
+        loaders (:meth:`prepare_data_loader`), optimizers (a
+        :class:`GradientTransformation`), schedules (a callable marked
+        ``is_schedule = True``, :meth:`prepare_scheduler`) and modules
+        (recorded for the checkpoint hooks); anything else passes
+        through."""
+        if device_placement is None:
+            device_placement = [None] * len(args)
+        result = tuple(self._prepare_one(obj, dp) for obj, dp in zip(args, device_placement))
+        return result if len(result) > 1 else (result[0] if result else None)
+
+    def _prepare_one(self, obj, device_placement=None):
+        if isinstance(obj, (DataLoaderShard, DataLoaderDispatcher)):
+            return obj  # already prepared
+        if isinstance(obj, torch.utils.data.DataLoader):
+            return self.prepare_data_loader(obj, device_placement=device_placement)
+        if isinstance(obj, (AcceleratedOptimizer, GradientTransformation)):
+            return self.prepare_optimizer(obj)
+        if isinstance(obj, AcceleratedScheduler):
+            return obj
+        if isinstance(obj, nn.Module):
+            return self.prepare_model(obj)
+        if callable(obj) and not inspect.isclass(obj):
+            try:
+                n_args = len(inspect.signature(obj).parameters)
+            except (TypeError, ValueError):
+                n_args = None
+            if n_args == 1:
+                if getattr(obj, "is_schedule", False):
+                    return self.prepare_scheduler(obj)
+                logger.warning(
+                    "prepare() received a 1-argument callable %r that is not marked as a "
+                    "schedule; returning it unchanged. If it is a learning-rate schedule, "
+                    "pass it through accelerator.prepare_scheduler() or set "
+                    "`fn.is_schedule = True`.", getattr(obj, "__name__", obj),
+                )
+        return obj
+
+    def prepare_model(self, model, device_placement=None, evaluation_mode: bool = False):
+        """Record the module (the checkpoint hooks receive it) and return it
+        unchanged: its parameters become the train state's params in
+        :meth:`create_train_state`."""
+        self._models.append(model)
+        return model
+
+    def prepare_data_loader(self, data_loader, device_placement=None,
+                            slice_fn_for_dispatch=None):
+        """A :class:`~.data_loader.DataLoaderShard` (or dispatcher) over
+        ``data_loader`` that hands out batches on this accelerator's device,
+        signals this accelerator's gradient state, retries its staging
+        under the resilience plugin's budget and is checkpointed with the
+        accelerator."""
+        if isinstance(data_loader, (DataLoaderShard, DataLoaderDispatcher)):
+            return data_loader
+        put_on_device = device_placement if device_placement is not None else self.device_placement
+        dlc = self.dataloader_config
+        prepared = prepare_data_loader(
+            data_loader,
+            device=self.device,
+            split_batches=dlc.split_batches or self.split_batches,
+            put_on_device=put_on_device,
+            rng_types=self.rng_types,
+            dispatch_batches=dlc.dispatch_batches,
+            even_batches=dlc.even_batches,
+            slice_fn_for_dispatch=slice_fn_for_dispatch,
+            use_seedable_sampler=dlc.use_seedable_sampler,
+            data_seed=dlc.data_seed,
+            non_blocking=dlc.non_blocking,
+            use_stateful_dataloader=dlc.use_stateful_dataloader,
+            prefetch_size=dlc.prefetch_size,
+            transfer_retry_policy=self._transfer_retry_policy(),
+            on_transfer_retry=self.goodput.record_retry,
+            gradient_state=self.gradient_state,
+        )
+        self._dataloaders.append(prepared)
+        return prepared
+
+    def _transfer_retry_policy(self) -> RetryPolicy:
+        rp = self.resilience_plugin
+        return RetryPolicy(retries=rp.io_retries, backoff_s=rp.io_backoff_s)
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        """Wrap a schedule ``step -> lr``: the prepared train step writes
+        ``schedule(count)`` into the optimizer's ``hyperparams["lr"]``
+        before each update (``scheduler.py``), and the wrapper is
+        checkpointed with the accelerator."""
+        if isinstance(scheduler, AcceleratedScheduler):
+            return scheduler
+        wrapped = AcceleratedScheduler(
+            scheduler,
+            optimizer=self._optimizers[-1] if self._optimizers else None,
+            step_with_optimizer=self.step_scheduler_with_optimizer,
+            split_batches=self.split_batches,
+            gradient_state=self.gradient_state,
+            num_processes=self.num_processes,
+        )
+        self._schedulers.append(wrapped)
+        return wrapped
+
     # -- optimizer and train state ---------------------------------------
 
     def prepare_optimizer(self, optimizer: Union[str, GradientTransformation,
-                                                 AcceleratedOptimizer]) -> AcceleratedOptimizer:
+                                                 AcceleratedOptimizer],
+                          device_placement=None) -> AcceleratedOptimizer:
         """A recipe name (:func:`~.optimizer.make_optimizer`), a
         transformation, or an :class:`AcceleratedOptimizer`."""
         if isinstance(optimizer, AcceleratedOptimizer):
             return optimizer
         if isinstance(optimizer, str):
             optimizer = make_optimizer(optimizer)
-        return AcceleratedOptimizer(optimizer)
+        wrapped = AcceleratedOptimizer(optimizer)
+        self._optimizers.append(wrapped)
+        return wrapped
 
     def create_train_state(self, params: Union[nn.Module, dict], optimizer,
                            apply_fn: Optional[Callable] = None,
                            rng: Optional[torch.Generator] = None) -> TrainState:
         """The train state over ``params`` (a module — its own parameter
         tensors — or a name -> tensor dict), ordered as the JAX package
-        flattens its tree, with the optimizer state initialised on them."""
+        flattens its tree, with the optimizer state initialised on them,
+        the guard's counters under ``ResiliencePlugin(nan_guard=True)`` and
+        the carried accumulator under ``mode="across_steps"``."""
         if isinstance(params, nn.Module):
             params = {n: p.detach() for n, p in params.named_parameters()}
         params = {n: params[n] for n in flax_leaf_order(params)}
@@ -166,6 +361,8 @@ class Accelerator:
                 raise ValueError(f"param {name} is on {p.device}, the accelerator on "
                                  f"{self.device}")
         tx = self.prepare_optimizer(optimizer).tx
+        accum = (self.gradient_state.num_steps > 1
+                 and self.gradient_state.plugin.mode == "across_steps")
         return TrainState(
             step=0,
             params=params,
@@ -173,19 +370,34 @@ class Accelerator:
             rng=rng if rng is not None else get_rng_key(0, device=self.device),
             apply_fn=apply_fn,
             tx=tx,
+            guard_state=(_guard.init_guard_state(self.device)
+                         if self.resilience_plugin.nan_guard else None),
+            grad_accum=([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for p in params.values()] if accum else None),
         )
 
     # -- the train step --------------------------------------------------
+
+    def _lr_schedule(self, state: TrainState) -> Optional[Callable]:
+        """The schedule of the newest prepared scheduler bound to this
+        state's optimizer (or to none)."""
+        for sched in reversed(self._schedulers):
+            if sched.optimizer is None or sched.optimizer.tx is state.tx:
+                return sched.schedule
+        return None
 
     def prepare_train_step(self, loss_fn: Callable,
                            max_grad_norm: Optional[float] = None) -> Callable:
         """``step(state, batch) -> (new_state, metrics)`` for
         ``loss_fn(params, batch [, rng])``: gradients (f32, or bf16 with
-        ``GradSyncKwargs(grad_dtype="bf16")``), in-step accumulation over
-        ``gradient_accumulation_steps`` microbatches (summed in f32),
-        global-norm clipping in each gradient's own width, the optimizer
-        update in place.  ``metrics`` holds ``loss`` and ``grad_norm`` as
-        device tensors (no host sync)."""
+        ``GradSyncKwargs(grad_dtype="bf16")``), accumulation over
+        ``gradient_accumulation_steps`` (``in_step``: microbatches of the
+        batch, summed in f32; ``across_steps``: the f32 sum carried in the
+        state, an update every ``num_steps``-th call), global-norm clipping
+        in each gradient's own width, the optimizer update in place.
+        ``metrics`` holds ``loss`` and ``grad_norm`` as device tensors; with
+        the NaN guard also its three keys, and the step reads the
+        finiteness flag back once (without the guard it reads nothing)."""
         gsk = self.grad_sync_kwargs
         if gsk.compression or gsk.dcn_compression or gsk.hierarchical:
             raise _not_ported("gradient compression / hierarchical reduction", "A13")
@@ -195,8 +407,19 @@ class Accelerator:
         comm_dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, None: None}[gsk.comm_dtype]
         wants_rng = "rng" in inspect.signature(loss_fn).parameters
         accum_steps = self.gradient_state.num_steps
+        mode = self.gradient_state.plugin.mode
         policy = self.policy
         compute_width = gsk.grad_dtype is not None
+        nan_guard = bool(self.resilience_plugin.nan_guard)
+        guard_abort_after = self.resilience_plugin.max_consecutive_nan_skips if nan_guard else 0
+        if nan_guard and mode == "across_steps" and accum_steps > 1:
+            logger.warning(
+                "nan_guard with gradient accumulation mode='across_steps' only protects the "
+                "boundary update: a non-finite microbatch pollutes the carried accumulator "
+                "before the guard sees it"
+            )
+        # the guard's host reading of the step just run: (skipped, consecutive)
+        guard_read: dict = {}
 
         def compute_grads(params: dict, batch, rng):
             names = list(params)
@@ -220,19 +443,47 @@ class Accelerator:
 
         def apply_update(state: TrainState, grads: list, loss):
             gnorm = global_norm(grads)
+            metrics = {"loss": loss, "grad_norm": gnorm}
+            if nan_guard:
+                # one host read: the finiteness flag with the consecutive count
+                prev = (state.guard_state["consecutive_nan_skips"] if state.guard_state
+                        is not None else torch.zeros((), dtype=torch.int32, device=loss.device))
+                finite, consecutive = torch.stack(
+                    [_guard.step_finite(loss, gnorm).to(torch.int32), prev]).tolist()
+                finite = bool(finite)
+                guard_read.update(skipped=not finite, consecutive=0 if finite else consecutive + 1)
+                if state.guard_state is not None:
+                    new_guard = _guard.update_guard_counters(state.guard_state, finite)
+                    metrics = _guard.guard_metrics(metrics, finite, new_guard)
+                    state = state.replace(guard_state=new_guard)
+                else:
+                    metrics["nan_skipped"] = torch.tensor(not finite, device=loss.device)
+                if not finite:
+                    # skipped: params, the optimizer's tensors and its count
+                    # stay as they are
+                    return state.replace(step=state.step + 1), metrics
             if max_grad_norm is not None:
                 clip = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                 # in each grad's own width: an f32 scalar would promote a
                 # bf16 tree back to f32
                 grads = [g * clip.to(g.dtype) for g in grads]
+            schedule = self._lr_schedule(state)
+            if schedule is not None:
+                hp = getattr(state.opt_state, "hyperparams", None)
+                if hp is None or "lr" not in hp:
+                    raise ValueError(
+                        "a prepared schedule writes the optimizer's hyperparams['lr'], which "
+                        f"only the -sr recipes read; {type(state.opt_state).__name__} keeps "
+                        "the learning rate it was built with"
+                    )
+                hp["lr"].fill_(float(schedule(state.opt_state.count)))
             params = state.params
             leaves = list(params.values())
             new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves)
             with torch.no_grad():
                 for p, new in zip(leaves, new_leaves):
                     p.copy_(new)
-            return (state.replace(step=state.step + 1, params=params, opt_state=new_opt),
-                    {"loss": loss, "grad_norm": gnorm})
+            return state.replace(step=state.step + 1, params=params, opt_state=new_opt), metrics
 
         def microbatches(batch):
             def piece(x, i):
@@ -245,26 +496,75 @@ class Accelerator:
                 return x[i * n:(i + 1) * n]
             return [{k: piece(v, i) for k, v in batch.items()} for i in range(accum_steps)]
 
-        def step_fn(state: TrainState, batch):
-            if accum_steps == 1:
+        if accum_steps > 1 and mode == "across_steps":
+
+            def step_fn(state: TrainState, batch):
+                loss, grads = compute_grads(state.params, batch, state.rng)
+                acc = state.grad_accum
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+                metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+                if state.accum_step + 1 < accum_steps:
+                    metrics["synced"] = False
+                    return state.replace(accum_step=state.accum_step + 1), metrics
+                new_state, _ = apply_update(state, [a / accum_steps for a in acc], loss)
+                # as in JAX, the boundary update's guard metrics are not
+                # reported in this mode, and so not counted
+                guard_read.clear()
+                for a in acc:
+                    a.zero_()
+                metrics["synced"] = True
+                return new_state.replace(grad_accum=acc, accum_step=0), metrics
+
+        elif accum_steps > 1:
+
+            def step_fn(state: TrainState, batch):
+                acc, loss_sum = None, torch.zeros((), device=self.device)
+                for mb in microbatches(batch):
+                    loss, grads = compute_grads(state.params, mb, state.rng)
+                    # the sum runs in f32 whatever the gradients' width
+                    if acc is None:
+                        acc = [g.float() for g in grads]
+                    else:
+                        for a, g in zip(acc, grads):
+                            a.add_(g.float())
+                    loss_sum = loss_sum + loss
+                return apply_update(state, [a / accum_steps for a in acc], loss_sum / accum_steps)
+
+        else:
+
+            def step_fn(state: TrainState, batch):
                 loss, grads = compute_grads(state.params, batch, state.rng)
                 return apply_update(state, grads, loss)
-            acc, loss_sum = None, torch.zeros((), device=self.device)
-            for mb in microbatches(batch):
-                loss, grads = compute_grads(state.params, mb, state.rng)
-                # the sum runs in f32 whatever the gradients' width
-                if acc is None:
-                    acc = [g.float() for g in grads]
-                else:
-                    for a, g in zip(acc, grads):
-                        a.add_(g.float())
-                loss_sum = loss_sum + loss
-            return apply_update(state, [a / accum_steps for a in acc], loss_sum / accum_steps)
 
         def wrapped(state: TrainState, batch):
+            # fault-injection hook: one None check unless a plan is installed
+            for ev in _faults.fault_point("step"):
+                if ev.kind == "preempt":
+                    # a real signal through the installed handler, the path a
+                    # cloud preemption notice takes
+                    handler = self.install_preemption_handler()
+                    os.kill(os.getpid(), handler.signals[0])
+                elif ev.kind == "nan_grad":
+                    batch = _faults.poison_batch(batch)
+                elif ev.kind in ("straggler", "rank_loss"):
+                    raise _not_ported(f"the {ev.kind!r} fault (it needs ranks)", "A13")
             if not self._in_accumulate:
                 self.step_count += 1
-            return step_fn(state, batch)
+                self.goodput.record_step()
+                self.gradient_state._set_sync_gradients(
+                    mode != "across_steps" or self.step_count % accum_steps == 0)
+            guard_read.clear()
+            new_state, metrics = step_fn(state, batch)
+            if guard_read:
+                if guard_read["skipped"]:
+                    self.goodput.record_nan_skip()
+                _guard.check_abort(guard_read["consecutive"], guard_abort_after)
+            if self._preemption is not None and self._agreed_preemption():
+                # stop at the step boundary: the post-step state agrees with
+                # the data loader position and the step counters
+                self._preemption_exit(new_state)
+            return new_state, metrics
 
         return wrapped
 
@@ -279,11 +579,14 @@ class Accelerator:
 
     @contextlib.contextmanager
     def accumulate(self, *models):
-        """Accumulation bookkeeping (JAX ``accumulate``): with the ``in_step``
-        mode every batch syncs, so this only counts the step; a step run
-        inside the context leaves the count to it."""
+        """Accumulation bookkeeping (JAX ``accumulate``): counts the step
+        (a step run inside the context leaves the count to it) and sets
+        ``sync_gradients`` as the prepared step would."""
         self.step_count += 1
-        self.gradient_state._set_sync_gradients(True)
+        self.goodput.record_step()
+        mode = self.gradient_state.plugin.mode
+        self.gradient_state._set_sync_gradients(
+            mode != "across_steps" or self.step_count % self.gradient_state.num_steps == 0)
         self._in_accumulate = True
         try:
             yield
@@ -300,3 +603,171 @@ class Accelerator:
         if isinstance(grads, dict):
             return {k: g * clip for k, g in grads.items()}, gnorm
         return [g * clip for g in grads], gnorm
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """Gather evaluation outputs (one process: the data itself), dropping
+        the duplicate tail samples a padded last batch added: on the data
+        loader's last batch only the ``remainder`` first rows are kept."""
+        gs = self.gradient_state
+        if not (gs.end_of_dataloader and gs.remainder > 0):
+            return input_data
+
+        def drop(x):
+            return x[: gs.remainder] if isinstance(x, torch.Tensor) and x.dim() else x
+
+        try:
+            if isinstance(input_data, dict):
+                return type(input_data)((k, drop(v)) for k, v in input_data.items())
+            if isinstance(input_data, (list, tuple)) and input_data and all(
+                    isinstance(x, torch.Tensor) for x in input_data):
+                return type(input_data)(drop(x) for x in input_data)
+            return drop(input_data) if isinstance(input_data, torch.Tensor) \
+                else input_data[: gs.remainder]
+        except (TypeError, IndexError) as e:
+            logger.warning("gather_for_metrics could not drop the %d duplicate tail samples "
+                           "(%s); returning the full data.", gs.remainder, e)
+            return input_data
+
+    # -- checkpointing ---------------------------------------------------
+
+    def register_for_checkpointing(self, *objects):
+        """Track stateful objects (with ``state_dict`` / ``load_state_dict``)
+        for :meth:`save_state` / :meth:`load_state`."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(f"Objects {invalid} lack state_dict/load_state_dict")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable):
+        import uuid
+
+        key = uuid.uuid4().hex
+        self._save_model_state_pre_hooks[key] = hook
+        return key
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        import uuid
+
+        key = uuid.uuid4().hex
+        self._load_model_state_pre_hooks[key] = hook
+        return key
+
+    def save_state(self, output_dir: Optional[str] = None, train_state=None, **save_kwargs):
+        """Checkpoint everything (``checkpointing.save_accelerator_state``):
+        the train state, data loader positions, RNG streams, schedulers,
+        goodput and custom objects; automatic naming and retention under
+        ``ProjectConfiguration``; ``async_save=True`` returns once the
+        train state is snapshotted."""
+        from .checkpointing import save_accelerator_state
+
+        return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)
+
+    def load_state(self, input_dir: Optional[str] = None, train_state=None, **load_kwargs):
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, train_state=train_state, **load_kwargs)
+
+    def wait_for_checkpoint(self):
+        """Block until an in-flight ``save_state(async_save=True)`` write has
+        committed and is published."""
+        from .checkpointing import wait_for_pending_checkpoint
+
+        wait_for_pending_checkpoint(self)
+
+    def end_training(self):
+        """Flush a pending async save and release the writer thread."""
+        from .checkpointing import close_async_checkpointer
+
+        close_async_checkpointer(self)
+
+    def save_model(self, train_state_or_params, save_directory: str,
+                   max_shard_size: str = "10GB", safe_serialization: bool = True):
+        from .checkpointing import save_model
+
+        return save_model(self, train_state_or_params, save_directory, max_shard_size,
+                          safe_serialization)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches=num_batches)
+
+    # -- preemption / auto-resume -----------------------------------------
+
+    def install_preemption_handler(self, signals=None):
+        """Arm graceful-stop handling: the listed signals (default the
+        plugin's, ``SIGTERM``) set a flag, and the prepared train step exits
+        at the next step boundary through :meth:`_preemption_exit`
+        (emergency checkpoint + ``SystemExit(75)``).  Idempotent."""
+        if self._preemption is None:
+            from .resilience.preemption import PreemptionHandler
+
+            self._preemption = PreemptionHandler(
+                signals or self.resilience_plugin.preemption_signals).install()
+        return self._preemption
+
+    def uninstall_preemption_handler(self):
+        """Restore the signal handlers in place before
+        :meth:`install_preemption_handler`."""
+        if self._preemption is not None:
+            self._preemption.uninstall()
+            self._preemption = None
+
+    @property
+    def preemption_requested(self) -> bool:
+        return self._preemption is not None and self._preemption.requested
+
+    def _agreed_preemption(self) -> bool:
+        """One process: the local flag (the JAX package agrees it across
+        ranks, ROADMAP item A13)."""
+        return self._preemption.requested
+
+    def _preemption_exit(self, train_state=None):
+        """The graceful-stop tail: drain the in-flight async save, write an
+        emergency checkpoint of the boundary state through the verified
+        path, and exit with the resume code — which stays the resume code
+        when the drain or the save fails."""
+        rp = self.resilience_plugin
+        logger.warning("preemption requested: stopping at step boundary (step_count=%d)",
+                       self.step_count)
+        # counted before the emergency save, so the persisted counters
+        # include the event that wrote them
+        self.goodput.record_preemption()
+        try:
+            self.wait_for_checkpoint()
+            if rp.emergency_checkpoint and train_state is not None:
+                try:
+                    ckpt = self.save_state(train_state=train_state)
+                    logger.warning("emergency checkpoint written to %s", ckpt)
+                except ValueError as e:
+                    # no project_dir / output_dir: nothing to save into
+                    logger.warning("no emergency checkpoint written: %s", e)
+        except Exception as e:
+            logger.error(
+                "emergency checkpoint failed (%s: %s); exiting with the resume code "
+                "anyway — resume will fall back to the newest valid periodic checkpoint",
+                type(e).__name__, e,
+            )
+        raise SystemExit(rp.resume_exit_code)
+
+    @property
+    def resume_requested(self) -> bool:
+        """True when the process was launched to resume
+        (``ACCELERATE_AUTO_RESUME``): call :meth:`maybe_resume` before the
+        first step."""
+        return parse_flag_from_env("ACCELERATE_AUTO_RESUME")
+
+    def maybe_resume(self, train_state=None, **load_kwargs):
+        """Auto-resume: restore the newest *valid* checkpoint under the
+        project dir, or return None when none exists (a fresh start).
+        Restores RNG streams, data loader positions and step counters — and
+        the train state when a ``train_state`` template is given (returned
+        restored).  Counts the restart in :attr:`goodput`."""
+        from .checkpointing import list_checkpoints
+
+        if not list_checkpoints(self.project_dir or "."):
+            return None
+        restored = self.load_state(None, train_state=train_state, **load_kwargs)
+        self.goodput.record_restart()
+        logger.warning("resumed from checkpoint at step_count=%d (restart #%d)",
+                       self.step_count, self.goodput.restarts)
+        return restored

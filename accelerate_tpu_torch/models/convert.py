@@ -133,6 +133,39 @@ def torch_state_from_flax(params) -> dict:
     return state
 
 
+def flax_flat_from_torch(state) -> dict:
+    """The inverse of :func:`torch_state_from_flax`, flattened: the port's
+    parameters (a ``state_dict`` or name -> tensor dict of HF names) as the
+    JAX package's dot paths (``params.layers_0.self_attn.q_proj.kernel``)
+    in flax's flatten order, kernels transposed to ``[in, out]``, each
+    tensor on the CPU in its own dtype, contiguous.  ``save_model`` writes
+    these names and bytes, which are the JAX package's for the same
+    weights."""
+    flat = {}
+    for name, t in state.items():
+        path = hf_llama_key_map(name)
+        if path is None:
+            continue
+        t = t.detach().to("cpu")
+        if path.endswith(".kernel") and t.dim() == 2:
+            t = t.t()
+        flat[path] = t.contiguous()
+    return {k: flat[k] for k in sorted(flat, key=lambda p: tuple(p.split(".")))}
+
+
+def torch_state_from_flax_flat(flat) -> dict:
+    """:func:`flax_flat_from_torch`'s inverse: dot paths -> the port's names
+    and ``[out, in]`` layout, each tensor in its own dtype (a JAX
+    ``save_model`` file, read back as the port's ``state_dict``)."""
+    state = {}
+    for path, t in flat.items():
+        name = flax_to_hf_name(path if path.startswith("params.") else "params." + path)
+        if path.endswith(".kernel") and t.dim() == 2:
+            t = t.t().contiguous()
+        state[name] = t
+    return state
+
+
 @torch.no_grad()
 def load_converted_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     """Load a state from :func:`torch_state_from_flax` (quantized or not)

@@ -119,6 +119,58 @@ def make_optimizer(name: str, learning_rate: Optional[float] = None, *,
     return adamw_bf16_sr(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay, seed=seed)
 
 
+def flatten_opt_state(opt_state) -> tuple[list, dict]:
+    """An optimizer state (a NamedTuple of host ints, lists of tensors and
+    the hyperparameter dict) as ``(tensors, meta)``: its tensors in field
+    order (their flatten index is their place in the list) and ``meta``:
+    ``type`` (the NamedTuple's name), ``fields`` (the host ints, ``count``)
+    and ``hyperparams`` (the dict as it is, f32 0-d tensors and the hash
+    seed)."""
+    tensors, fields, hyper = [], {}, {}
+    for field, value in zip(type(opt_state)._fields, opt_state):
+        if isinstance(value, torch.Tensor):
+            tensors.append(value)
+        elif isinstance(value, (list, tuple)):
+            tensors.extend(value)
+        elif isinstance(value, dict):
+            hyper = dict(value)
+        else:
+            fields[field] = value
+    return tensors, {"type": type(opt_state).__name__, "fields": fields, "hyperparams": hyper}
+
+
+def unflatten_opt_state(template, tensors: list, fields: dict, hyperparams: dict):
+    """:func:`flatten_opt_state`'s inverse over ``template`` (a state of the
+    same recipe and params): each tensor is checked against the template's
+    leaf (dtype and element count), reshaped to it and moved to its device;
+    host ints come from ``fields``; hyperparameter tensors are rebuilt from
+    the values in ``hyperparams`` (numbers) in the template's dtype and
+    device."""
+    tmpl_tensors, meta = flatten_opt_state(template)
+    if len(tensors) != len(tmpl_tensors):
+        raise ValueError(f"optimizer state has {len(tensors)} tensors, the template "
+                         f"{len(tmpl_tensors)}")
+    for i, (t, ref) in enumerate(zip(tensors, tmpl_tensors)):
+        if t.dtype != ref.dtype or t.numel() != ref.numel():
+            raise ValueError(f"optimizer state tensor {i}: {t.dtype} {tuple(t.shape)} does not "
+                             f"match the template's {ref.dtype} {tuple(ref.shape)}")
+    it = iter(t.reshape(ref.shape).to(ref.device, non_blocking=True)
+              for t, ref in zip(tensors, tmpl_tensors))
+    values = []
+    for field, value in zip(type(template)._fields, template):
+        if isinstance(value, torch.Tensor):
+            values.append(next(it))
+        elif isinstance(value, (list, tuple)):
+            values.append(type(value)(next(it) for _ in value))
+        elif isinstance(value, dict):
+            values.append({k: (torch.tensor(float(hyperparams[k]), dtype=v.dtype, device=v.device)
+                               if isinstance(v, torch.Tensor) else hyperparams[k])
+                           for k, v in value.items()})
+        else:
+            values.append(type(value)(fields[field]))
+    return type(template)(*values)
+
+
 class AcceleratedOptimizer:
     """Wraps a :class:`GradientTransformation` (JAX ``AcceleratedOptimizer``).
     The update runs inside the prepared train step; ``step``/``zero_grad``
@@ -153,11 +205,27 @@ class AcceleratedOptimizer:
             "to zero. Remove optimizer.zero_grad() from the loop."
         )
 
-    def state_dict(self):
-        raise RuntimeError(
-            "Optimizer state lives in the TrainState (its opt_state field); checkpointing "
-            "is ROADMAP item A7."
-        )
+    def state_dict(self, opt_state) -> dict:
+        """The optimizer state of a train state (``state.opt_state``; the
+        state lives in the train state, not here) as a dict: ``type``,
+        ``fields`` (``count``), ``hyperparams`` (numbers) and ``tensors``
+        (flatten index -> tensor, the live tensors)."""
+        tensors, meta = flatten_opt_state(opt_state)
+        hyper = {k: (v.item() if isinstance(v, torch.Tensor) else v)
+                 for k, v in meta["hyperparams"].items()}
+        return {"type": meta["type"], "fields": meta["fields"], "hyperparams": hyper,
+                "tensors": {str(i): t for i, t in enumerate(tensors)}}
+
+    def load_state_dict(self, state_dict: dict, opt_state):
+        """The optimizer state ``state_dict`` describes, built over
+        ``opt_state`` (a state of the same recipe and params) and
+        returned."""
+        if state_dict["type"] != type(opt_state).__name__:
+            raise ValueError(f"optimizer state {state_dict['type']} does not match "
+                             f"{type(opt_state).__name__}")
+        tensors = [state_dict["tensors"][str(i)] for i in range(len(state_dict["tensors"]))]
+        return unflatten_opt_state(opt_state, tensors, state_dict["fields"],
+                                   state_dict["hyperparams"])
 
     def __repr__(self):
         return f"AcceleratedOptimizer(tx={self.tx}, learning_rate={self.learning_rate})"

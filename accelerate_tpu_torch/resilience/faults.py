@@ -10,11 +10,28 @@ at=4, site="serve_step")`` fires on the 4th engine tick, every time.
 ``FaultPlan.from_seed`` draws a random-but-reproducible plan from numpy's
 ``default_rng``, so a seed gives the JAX package's plan, spec for spec.
 
-The port's hook sites so far:
+The port's hook sites:
 
 ========================  =====================================================
 site                      kinds
 ========================  =====================================================
+``step``                  ``preempt`` (a real ``SIGTERM`` through the installed
+                          :class:`~.preemption.PreemptionHandler`) and
+                          ``nan_grad`` (the incoming batch is NaN-poisoned by
+                          :func:`poison_batch`, so the non-finite gradients
+                          flow through the real loss and backward into the
+                          NaN guard); ``straggler`` and ``rank_loss`` need
+                          ranks (ROADMAP item A13) and raise
+                          ``NotImplementedError`` there
+``transfer``              ``transfer`` — the data loader's host-to-device
+                          staging (and ``LayerPrefetcher``'s) fails, inside
+                          the bounded-retry wrapper
+``checkpoint_io``         ``transfer`` — a checkpoint write or read fails,
+                          inside its retry wrapper
+``post_save``             ``corrupt_ckpt`` — the just-published checkpoint has
+                          one file truncated or bit-flipped
+                          (:func:`corrupt_checkpoint`), which the verified
+                          load must catch
 ``serve_step``            ``preempt`` (drain the serving engine at a tick
                           boundary), ``prefix`` (flush the prefix index),
                           ``cancel`` (the oldest live request cancels) and
@@ -28,12 +45,10 @@ site                      kinds
                           staging fails, inside the bounded-retry wrapper
 ``adapter_memmap``        ``transfer`` — the cold-tier read fails, inside its
                           own retry wrapper
-``transfer``              ``transfer`` — ``LayerPrefetcher``'s staging fails
 ========================  =====================================================
 
 The plan keeps every kind of the JAX package, so a plan's spec crosses
-between the two; the training and checkpoint payloads (``poison_batch``,
-``corrupt_checkpoint``) come with ROADMAP item A7.
+between the two, and the payloads pick the same file and the same bytes.
 """
 
 from __future__ import annotations
@@ -43,9 +58,11 @@ import dataclasses
 import json
 import os
 from collections import defaultdict
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..logging import get_logger
 from .retry import TransientIOError
@@ -97,8 +114,8 @@ class InjectedTransferError(TransientIOError):
 
 class RankLostError(RuntimeError):
     """An injected ``rank_loss`` fault: this rank's training state is gone
-    (not retryable).  The port's training step raises none yet: the
-    recovery ladder it feeds is ROADMAP item A14."""
+    (not retryable).  The port's training step raises none: rank loss and
+    the recovery ladder it feeds need ranks, ROADMAP item A13."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,3 +306,64 @@ def maybe_fail_transfer(site: str = "transfer") -> None:
                 f"injected transient transfer failure at {site} "
                 f"(occurrence {_ACTIVE_PLAN.occurrences(site)})"
             )
+
+
+# ---------------------------------------------------------------------------
+# fault payloads
+# ---------------------------------------------------------------------------
+
+
+def poison_batch(batch):
+    """NaN-fill every floating leaf of ``batch`` (tensors and numpy arrays in
+    nested dicts, lists and tuples); integer leaves — token ids, masks —
+    pass through untouched.
+
+    This is how ``nan_grad`` faults enter the step: the poisoned batch flows
+    through the real loss and backward into the guard, so the skip is
+    tested against genuine non-finite gradients."""
+    if isinstance(batch, torch.Tensor):
+        return torch.full_like(batch, float("nan")) if batch.is_floating_point() else batch
+    if isinstance(batch, np.ndarray):
+        return np.full_like(batch, np.nan) if np.issubdtype(batch.dtype, np.inexact) else batch
+    if isinstance(batch, dict):
+        return type(batch)((k, poison_batch(v)) for k, v in batch.items())
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(poison_batch(v) for v in batch)
+    return batch
+
+
+def corrupt_checkpoint(ckpt_dir, mode: str = "truncate", seed: int = 0) -> str:
+    """Deterministically corrupt one data file of a written checkpoint —
+    the torn-write (``truncate``) / bit-rot (``bitflip``) simulation that
+    ``checkpointing.verify_checkpoint`` must catch.  Prefers a train-state
+    file; the choice and the flipped byte are drawn from
+    ``default_rng(seed)`` over the sorted candidates, as in the JAX
+    package.  Returns the corrupted file's path."""
+    from ..utils.constants import CHECKPOINT_MANIFEST_NAME, TRAIN_STATE_DIR
+
+    if mode not in CORRUPTION_MODES:
+        raise ValueError(f"unknown corruption mode {mode!r}; options: {CORRUPTION_MODES}")
+    root = Path(ckpt_dir)
+    files = sorted(
+        p for p in root.rglob("*")
+        if p.is_file() and p.name != CHECKPOINT_MANIFEST_NAME and p.stat().st_size > 0
+    )
+    if not files:
+        raise FileNotFoundError(f"no corruptible files under {root}")
+    shard_files = [p for p in files if TRAIN_STATE_DIR in p.parts]
+    candidates = shard_files or files
+    rng = np.random.default_rng(seed)
+    target = candidates[int(rng.integers(len(candidates)))]
+    size = target.stat().st_size
+    if mode == "truncate":
+        with open(target, "r+b") as f:
+            f.truncate(size // 2)
+    else:  # bitflip: one byte, in place (a checkpoint file may be gigabytes)
+        pos = int(rng.integers(size))
+        with open(target, "r+b") as f:
+            f.seek(pos)
+            byte = f.read(1)[0]
+            f.seek(pos)
+            f.write(bytes([byte ^ 0xFF]))
+    logger.warning("fault injection: corrupted %s (%s)", target, mode)
+    return str(target)

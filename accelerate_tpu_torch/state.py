@@ -49,16 +49,56 @@ class AcceleratorState(PartialState):
 
 
 class GradientState:
-    """Gradient-accumulation bookkeeping: the plugin, ``num_steps`` and
-    ``sync_gradients``."""
+    """Gradient-accumulation bookkeeping: the plugin, ``num_steps``,
+    ``sync_gradients``, and the data loaders' signals: the prepared loader
+    being iterated (``active_dataloader``) flips ``end_of_dataloader`` on
+    its last batch and carries ``remainder`` (the samples of the dataset's
+    last, padded batch), which ``gather_for_metrics`` reads.  Each
+    :class:`~..accelerator.Accelerator` owns one and hands it to the
+    loaders and schedulers it prepares."""
 
     def __init__(self, gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None):
         self.sync_gradients = True
         self.plugin = gradient_accumulation_plugin or GradientAccumulationPlugin()
+        self.active_dataloader = None
+        self.dataloader_references: list = [None]
 
     @property
     def num_steps(self) -> int:
         return self.plugin.num_steps
 
+    @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin.adjust_scheduler
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin.sync_with_dataloader
+
+    @property
+    def in_dataloader(self) -> bool:
+        return self.active_dataloader is not None
+
+    @property
+    def end_of_dataloader(self) -> bool:
+        if not self.in_dataloader:
+            return False
+        return self.active_dataloader.end_of_dataloader
+
+    @property
+    def remainder(self) -> int:
+        if not self.in_dataloader:
+            return -1
+        return self.active_dataloader.remainder
+
     def _set_sync_gradients(self, sync_gradients: bool):
         self.sync_gradients = sync_gradients
+
+    def _add_dataloader(self, dataloader):
+        self.active_dataloader = dataloader
+        self.dataloader_references.append(dataloader)
+
+    def _remove_dataloader(self, dataloader):
+        if dataloader in self.dataloader_references:
+            self.dataloader_references.remove(dataloader)
+        self.active_dataloader = self.dataloader_references[-1]

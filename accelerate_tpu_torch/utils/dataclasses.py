@@ -1,6 +1,7 @@
 """Plugin dataclasses of the port (mirrors ``accelerate_tpu/utils/
 dataclasses.py``: ``GradSyncKwargs`` :155, ``GradientAccumulationPlugin``
-:269, ``ServingPlugin`` :487, ``LoraPlugin`` :720)."""
+:269, ``ResiliencePlugin`` :400, ``ServingPlugin`` :487, ``LoraPlugin``
+:720, ``DataLoaderConfiguration`` :1008, ``ProjectConfiguration`` :1023)."""
 
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ class GradientAccumulationPlugin:
     """Gradient accumulation: ``in_step`` splits each batch into
     ``num_steps`` microbatches inside one train step and sums their
     gradients in f32.  ``across_steps`` (the sum carried between calls)
-    parses as in JAX; the Accelerator raises ``NotImplementedError`` for it."""
+    carries the f32 sum in the train state between calls and updates on
+    every ``num_steps``-th call, as in JAX."""
 
     num_steps: int = 1
     adjust_scheduler: bool = True
@@ -46,6 +48,124 @@ class GradientAccumulationPlugin:
             raise ValueError(f"invalid gradient accumulation mode {self.mode!r}")
         if self.num_steps < 1:
             raise ValueError("gradient_accumulation num_steps must be >= 1")
+
+
+def _str_to_bool(value: str) -> bool:
+    value = value.lower()
+    if value in ("y", "yes", "t", "true", "on", "1"):
+        return True
+    if value in ("n", "no", "f", "false", "off", "0"):
+        return False
+    raise ValueError(f"invalid truth value {value!r}")
+
+
+def parse_flag_from_env(key: str, default: bool = False) -> bool:
+    return _str_to_bool(os.environ.get(key, str(default)))
+
+
+@dataclass
+class ResiliencePlugin:
+    """Preemption-safe training knobs (``accelerate_tpu_torch/resilience/``):
+    the JAX package's fields, defaults and environment defaults.
+
+    ``ACCELERATE_RESILIENCE=1`` arms the NaN guard and preemption handling
+    by default; ``ACCELERATE_NAN_GUARD`` / ``ACCELERATE_PREEMPTION``
+    override each.  Checkpoint verification and bounded I/O retry are on
+    regardless.  ``preemption_check_every`` paces the cross-rank agreement
+    of a multi-process run and the peer snapshots need ranks: both are
+    ROADMAP item A13 (the Accelerator raises for ``peer_snapshot_every >
+    0``)."""
+
+    nan_guard: Optional[bool] = None        # skip a step whose loss or grad norm
+                                            # is non-finite; counters persist in
+                                            # TrainState.guard_state.  Default:
+                                            # env ACCELERATE_NAN_GUARD, else
+                                            # ACCELERATE_RESILIENCE
+    max_consecutive_nan_skips: int = 3      # NanGuardAbort after this many
+                                            # consecutive skips; 0 disables the
+                                            # abort only
+    handle_preemption: Optional[bool] = None  # install the SIGTERM-at-step-
+                                            # boundary handler at construction.
+                                            # Default: env ACCELERATE_PREEMPTION,
+                                            # else ACCELERATE_RESILIENCE
+    preemption_signals: tuple = ("SIGTERM",)
+    preemption_check_every: int = 1
+    emergency_checkpoint: bool = True       # checkpoint at the stop boundary
+    resume_exit_code: int = 75              # EX_TEMPFAIL: "re-run me"
+    verify_checkpoints: bool = True         # manifest on save, verify + valid
+                                            # fallback on load
+    io_retries: int = 3                     # bounded retry budget for
+                                            # checkpoint I/O + host transfers
+    io_backoff_s: float = 0.05              # first backoff; doubles per retry
+    peer_snapshot_every: int = 0            # A13
+    peer_snapshot_keep: int = 2
+
+    def __post_init__(self):
+        armed = parse_flag_from_env("ACCELERATE_RESILIENCE")
+        if self.nan_guard is None:
+            self.nan_guard = parse_flag_from_env("ACCELERATE_NAN_GUARD", default=armed)
+        if self.handle_preemption is None:
+            self.handle_preemption = parse_flag_from_env("ACCELERATE_PREEMPTION", default=armed)
+        if isinstance(self.preemption_signals, str):
+            self.preemption_signals = (self.preemption_signals,)
+        else:
+            self.preemption_signals = tuple(self.preemption_signals)
+        if self.max_consecutive_nan_skips < 0:
+            raise ValueError(
+                "max_consecutive_nan_skips must be >= 0 (0 disables the "
+                f"abort), got {self.max_consecutive_nan_skips}"
+            )
+        if self.io_retries < 0:
+            raise ValueError(f"io_retries must be >= 0, got {self.io_retries}")
+        if self.peer_snapshot_every < 0:
+            raise ValueError(
+                "peer_snapshot_every must be >= 0 (0 disables peer "
+                f"snapshots), got {self.peer_snapshot_every}"
+            )
+        if self.peer_snapshot_keep < 1:
+            raise ValueError(
+                f"peer_snapshot_keep must be >= 1, got {self.peer_snapshot_keep}"
+            )
+
+
+@dataclass
+class DataLoaderConfiguration:
+    """How ``Accelerator.prepare`` wraps a data loader (the JAX package's
+    fields and defaults).  ``prefetch_size >= 2`` stages batches through the
+    native ring on a producer thread; ``dispatch_batches`` moot on one
+    process but kept; ``use_stateful_dataloader`` is accepted as in JAX
+    (the prepared loaders are stateful either way)."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = False
+    data_seed: Optional[int] = None
+    non_blocking: bool = True
+    use_stateful_dataloader: bool = False
+    prefetch_size: int = 2
+
+
+@dataclass
+class ProjectConfiguration:
+    """The project and checkpoint directories: ``automatic_checkpoint_naming``
+    writes ``<project_dir>/checkpoints/checkpoint_<i>`` and ``total_limit``
+    keeps the newest ones (the JAX package's fields)."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        self.set_directories(self.project_dir)
 
 
 @dataclass

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
+Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -55,7 +55,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    device allocator and that each kernel launched once per layer of every
    decode / prefill step; serves the trace again on a fresh engine with
    every kernel launch held against its plain version on the engine's own
-   operands; then teacher-forces two of the served sequences through the
+   operands (every such checked rerun caps each request at
+   ``CHECKED_NEW`` = 64 new tokens, ``generate_paged``'s at 32: the
+   script's time limit); then teacher-forces two of the served sequences through the
    model with the kernels and with their plain versions; then does all of
    that again with int8 weights (``quantize_model_``) and int8 KV pages
    (#5, #7 and #11 launched once per layer and dense of every step, #12
@@ -160,10 +162,33 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR]
    step's own operands; checks that one step at batch 2 through the
    kernels and through their plain versions agrees (loss, grad norm and
    every leaf's gradient);
+6a. the resumable training loop (``train_resume_phase``): the same 600m
+   step through ``acc.prepare(DataLoader(...))`` over 40 token rows made
+   from ``--seed`` (seedable sampler, the native prefetch ring; the loss
+   times the batch's float ``weight`` of 1, a leaf for the NaN fault), with
+   the NaN guard and the preemption handler on; 6 steps twice with a
+   ``nan_grad`` fault at step 5 (the run-to-run check); then a run saving
+   after step 2, asynchronously after step 3 (step 4 runs at once,
+   updating the params in place under the write) and after step 4, a
+   ``FaultPlan`` corrupting that save (bitflip) and sending ``nan_grad``
+   and ``preempt`` at step 5: exit code 75 from the emergency checkpoint;
+   then ``maybe_resume`` in a fresh Accelerator over a model from another
+   init, step 6 and one more step with every #1-#3 launch held against
+   its plain version; then, the emergency checkpoint corrupted too, a
+   fresh ``load_state()`` must walk past both corrupt checkpoints to the
+   async one and find step 3's values there.  Checks the NaN step left
+   params, momentum and count bitwise, ``nan_skips`` 1 after the resume,
+   the batch stream and the final state equal to the straight run's
+   (bitwise where the two straight runs agree, else within their spread),
+   the goodput counters, #1-#3 16 launches a step through the loader, and
+   the native IO engine in use; prints the ``train_resume`` line (save
+   sync / async blocking / async total ms, bytes and GB/s, crc32, verify
+   and load ms, data wait, peak memory, the verdicts, the card);
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
-   prefix-cache, overload, pair (bf16, int8) and fleet serves), then
+   prefix-cache, overload, pair (bf16, int8) and fleet serves and, for
+   #1-#3, the ``train_resume`` runs), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
 
@@ -217,6 +242,13 @@ TRACE = dict(vocab_size=32000, mean_interarrival_steps=0.5,
              prompt_len_range=(64, 512), new_tokens_range=(32, 256))
 MAX_NEW = 256
 N_REQUESTS = 16
+# the depth of every checked rerun (each kernel launch held against its
+# plain version): each request's new tokens capped here, the timed serves
+# keeping the trace's 32-256; and generate_paged's checked rerun's new
+# tokens.  Cut so the script, whose serves are host-bound, fits its time
+# limit on a slow host
+CHECKED_NEW = 64
+GEN_CHECKED_NEW = 32
 # the 16 decode slots' positions of the paged decode cases: 0, page edges and
 # 2047, the block table's last token
 DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 2046, 2047]
@@ -1549,6 +1581,359 @@ def training_phase(torch, fa, card: str, device: str = "cuda") -> dict:
             "in_path_check_batch": in_path_small}
 
 
+RESUME = dict(steps=6, rows=40, sync_save=2, async_save=3, corrupt_save=4, fault_step=5,
+              total_limit=3, init_seed_resumed=1)
+
+
+def token_rows(torch, seed: int, vocab: int):
+    """A ``torch.utils.data.Dataset`` of ``RESUME["rows"]`` token rows of
+    ``TRAIN["seq"]`` made from ``seed`` with numpy; each item also carries
+    its row index and a float weight of 1 (the loss is multiplied by the
+    batch's mean weight, exactly 1, so the ``nan_grad`` fault has a float
+    leaf to poison)."""
+    tokens = np.random.default_rng(seed).integers(0, vocab, (RESUME["rows"], TRAIN["seq"]))
+
+    class TokenRows(torch.utils.data.Dataset):
+        def __len__(self):
+            return len(tokens)
+
+        def __getitem__(self, i):
+            t = torch.from_numpy(tokens[i])
+            return {"input_ids": t, "labels": t, "row": torch.tensor(i),
+                    "weight": torch.ones((), dtype=torch.float32)}
+
+    return TokenRows()
+
+
+def host_state(torch, state) -> dict:
+    """Device clones of a train state's params, lion-sr momentum and count."""
+    return {"params": {n: p.clone() for n, p in state.params.items()},
+            "mu": [m.clone() for m in state.opt_state.mu], "count": state.opt_state.count}
+
+
+def state_diff(torch, a: dict, b: dict) -> dict:
+    """Leaves that differ between two :func:`host_state` readings, with the
+    largest |difference| of each (f32), and whether the counts agree."""
+    diff = {}
+    for name in a["params"]:
+        x, y = a["params"][name], b["params"][name]
+        if not torch.equal(x, y):
+            diff[name] = (x.float() - y.float()).abs().max().item()
+    for i, (x, y) in enumerate(zip(a["mu"], b["mu"])):
+        if not torch.equal(x, y):
+            diff[f"mu.{i}"] = (x.float() - y.float()).abs().max().item()
+    return {"leaves": diff, "count_equal": a["count"] == b["count"],
+            "bitwise": not diff and a["count"] == b["count"]}
+
+
+def resume_run(torch, fa, seed: int, project: str, *, init_seed: int, plan, saves=False,
+               resume=False, check=False, device: str = "cuda") -> dict:
+    """One run of the loop the way a user drives it: a fresh Accelerator
+    with the NaN guard and the preemption handler, a prepared DataLoader
+    (seedable sampler, the native prefetch ring), the 600m model from
+    ``init_seed``, ``maybe_resume`` with ``resume``, and steps under
+    ``plan`` until step ``RESUME["steps"]`` or the preemption's exit.  With
+    ``saves``: ``save_state()`` after step 2, ``save_state(async_save=True)``
+    after step 3 and ``save_state()`` after step 4, and device clones of the
+    state after steps 3 and 4.  With ``check``, one more step with every
+    #1-#3 launch held against its plain version.  #1-#3 launch counts are
+    read over the run's own steps."""
+    from accelerate_tpu_torch import (
+        Accelerator, DataLoaderConfiguration, GradSyncKwargs, LlamaConfig, LlamaForCausalLM,
+        ProjectConfiguration, ResiliencePlugin, make_llama_loss_fn,
+    )
+    from accelerate_tpu_torch.resilience import fault_plan
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=init_seed)
+    acc = Accelerator(
+        mixed_precision="bf16", device=device,
+        kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")],
+        project_config=ProjectConfiguration(project_dir=project, automatic_checkpoint_naming=True,
+                                            total_limit=RESUME["total_limit"]),
+        resilience_plugin=ResiliencePlugin(nan_guard=True, handle_preemption=True),
+        dataloader_config=DataLoaderConfiguration(use_seedable_sampler=True, data_seed=seed))
+    out = {"rows": [], "losses": [], "exit_code": None, "saves": {}}
+    try:
+        loader = acc.prepare(torch.utils.data.DataLoader(
+            token_rows(torch, seed, cfg.vocab_size), batch_size=TRAIN["batch"], shuffle=True))
+        state = acc.create_train_state({n: p.detach() for n, p in model.named_parameters()},
+                                       TRAIN["optimizer"])
+        if resume:
+            sync(torch)
+            t0 = time.perf_counter()
+            state = acc.maybe_resume(train_state=state)
+            sync(torch)
+            out["load_ms"] = (time.perf_counter() - t0) * 1e3
+            out["restored_from"] = acc.last_restored_checkpoint
+            out["restored"] = host_state(torch, state)
+            out["restored_nan_skips"] = int(state.guard_state["nan_skips"])
+        base = make_llama_loss_fn(model, fused_vocab_chunks=TRAIN["ce_chunks"])
+
+        def loss_fn(params, batch):
+            return base(params, batch) * batch["weight"].mean()
+
+        step = acc.prepare_train_step(loss_fn)
+        sync(torch)
+        fa.reset_launch_counts()
+        executed, first_wait = 0, 0.0
+        t_loop = time.perf_counter()
+        with fault_plan(plan):
+            try:
+                while acc.step_count < RESUME["steps"]:
+                    for batch in loader:
+                        out["rows"].append(batch["row"])
+                        if saves and acc.step_count == RESUME["fault_step"] - 1:
+                            out["step4"] = host_state(torch, state)
+                        executed += 1
+                        state, m = step(state, batch)
+                        if executed == 1:
+                            # the pass's first batch starts the prefetch ring
+                            first_wait = loader.data_wait_s
+                        out["losses"].append(m["loss"])
+                        n = acc.step_count
+                        if saves and n in (RESUME["sync_save"], RESUME["async_save"],
+                                           RESUME["corrupt_save"]):
+                            if n == RESUME["async_save"]:
+                                out["step3"] = host_state(torch, state)
+                            sync(torch)
+                            path = acc.save_state(train_state=state,
+                                                  async_save=n == RESUME["async_save"])
+                            out["saves"][n] = path
+                        if acc.step_count >= RESUME["steps"]:
+                            break
+            except SystemExit as e:
+                out["exit_code"] = e.code
+        sync(torch)
+        out["loop_s"] = time.perf_counter() - t_loop
+        out["executed"] = executed
+        out["launches"] = {name: getattr(fa, name).launches for name in FLASH_REPLACES}
+        out["data_wait_ms_per_step"] = loader.data_wait_s / max(executed, 1) * 1e3
+        out["data_wait_first_ms"] = first_wait * 1e3
+        out["data_wait_ms_after_first"] = ((loader.data_wait_s - first_wait)
+                                           / max(executed - 1, 1) * 1e3)
+        out["h2d_issue_ms_per_step"] = loader._stager.h2d_s / max(executed, 1) * 1e3
+        out["losses"] = [float(x) for x in out["losses"]]
+        out["rows"] = [r.tolist() for r in out["rows"]]
+        out["goodput"] = acc.goodput.state_dict()
+        out["goodput_frac"] = acc.goodput.goodput_frac()
+        out["checkpoint_log"] = acc.checkpoint_log
+        if out["exit_code"] is None:
+            out["final"] = host_state(torch, state)
+            out["nan_skips"] = int(state.guard_state["nan_skips"])
+            if check:
+                batch = next(iter(loader))
+                _, out["in_path"] = checked_step(torch, fa, acc, loss_fn, state, batch,
+                                                 cfg.num_hidden_layers)
+        else:
+            out["params_after_exit"] = {n: p.clone() for n, p in state.params.items()}
+        acc.end_training()
+    finally:
+        acc.uninstall_preemption_handler()
+    return out
+
+
+def train_resume_phase(torch, fa, card: str, seed: int, step_ms: float, n_params: int,
+                       device: str = "cuda") -> dict:
+    """The resumable 600m training loop through a prepared DataLoader (the
+    module docstring's step 6a): the clean run twice (run-to-run check),
+    the saved run preempted at step 5, the resume in a fresh Accelerator
+    from another init, the fallback scan past two corrupt checkpoints."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.checkpointing import list_checkpoints, verify_checkpoint
+    from accelerate_tpu_torch.models.llama import LlamaConfig
+    from accelerate_tpu_torch.resilience import (
+        FaultEvent, FaultPlan, RESUME_EXIT_CODE, corrupt_checkpoint, goodput_accounting,
+    )
+
+    if not native.is_available():
+        raise AssertionError("the native IO engine did not build (g++): checkpoints would "
+                             "take the pure-Python path")
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    root = Path(tempfile.mkdtemp(prefix="train_resume-"))
+    try:
+        free = shutil.disk_usage(root).free
+        # bf16 params + lion-sr's bf16 momentum, two bytes each per param;
+        # at most total_limit checkpoints are on disk at once
+        ckpt_bytes = n_params * 4
+        need = RESUME["total_limit"] * ckpt_bytes + (1 << 30)
+        if free < need:
+            raise AssertionError(f"{root}: {free / 2**30:.1f} GiB free, the phase needs "
+                                 f"{need / 2**30:.1f} GiB for {RESUME['total_limit']} "
+                                 f"checkpoints of {ckpt_bytes / 2**30:.2f} GiB")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        nan_plan = lambda: FaultPlan([FaultEvent("nan_grad", at=RESUME["fault_step"])])  # noqa: E731
+        clean = resume_run(torch, fa, seed, str(root / "clean"), init_seed=seed, plan=nan_plan(),
+                           device=device)
+        again = resume_run(torch, fa, seed, str(root / "clean_again"), init_seed=seed,
+                           plan=nan_plan(), device=device)
+        run_to_run = state_diff(torch, clean["final"], again["final"])
+        del again
+
+        project = str(root / "run")
+        plan = FaultPlan([FaultEvent("corrupt_ckpt", at=3, mode="bitflip"),
+                          FaultEvent("nan_grad", at=RESUME["fault_step"]),
+                          FaultEvent("preempt", at=RESUME["fault_step"])], seed=seed)
+        saved = resume_run(torch, fa, seed, project, init_seed=seed, plan=plan, saves=True,
+                           device=device)
+        if saved["exit_code"] != RESUME_EXIT_CODE:
+            raise AssertionError(f"the preempted run exited with {saved['exit_code']}, "
+                                 f"not {RESUME_EXIT_CODE}")
+        ckpts = list_checkpoints(project)
+        valid = {Path(c).name: verify_checkpoint(c)[0] for c in ckpts}
+        # the nan_grad step left the params bitwise as step 4 left them
+        nan_step_params = all(torch.equal(saved["params_after_exit"][n], p)
+                              for n, p in saved["step4"]["params"].items())
+        del saved["params_after_exit"]
+
+        resumed = resume_run(torch, fa, seed, project, init_seed=RESUME["init_seed_resumed"],
+                             plan=None, resume=True, check=True, device=device)
+        emergency = ckpts[-1]
+        nan_step = state_diff(torch, saved.pop("step4"), resumed.pop("restored"))
+        final = state_diff(torch, clean.pop("final"), resumed.pop("final"))
+        stream_equal = saved["rows"] + resumed["rows"] == clean["rows"]
+
+        # the fallback scan: with the emergency checkpoint corrupted too, a
+        # fresh load walks past it and the plan's corrupted step-4 save to
+        # the async step-3 checkpoint, which must hold step 3's values
+        corrupt_checkpoint(emergency, mode="bitflip", seed=seed)
+        t0 = time.perf_counter()
+        verify_ok = verify_checkpoint(saved["saves"][RESUME["async_save"]])
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        params_file = Path(saved["saves"][RESUME["async_save"]]) / "train_state" / "params.safetensors"
+        t0 = time.perf_counter()
+        native.file_crc32(params_file)
+        crc_s = time.perf_counter() - t0
+        scan = fallback_scan(torch, seed, project, device)
+        async_holds = state_diff(torch, saved["step3"], scan["restored"])
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+        log_ = saved["checkpoint_log"]
+        by_step = {n: log_[path] for n, path in saved["saves"].items()}
+        sync_rec, async_rec = by_step[RESUME["sync_save"]], by_step[RESUME["async_save"]]
+        gp = resumed["goodput"]
+        expected_gp = {"steps": RESUME["steps"], "nan_skips": 1, "restarts": 1,
+                       "preemptions": 1, "steps_recomputed": 0, "time_lost_s": 0.0,
+                       "io_retries": 0, "transfer_retries": 0}
+        step_s = clean["loop_s"] / clean["executed"]
+        # CheckFreq's model at this run's settings: a checkpoint every step
+        # costing the async save's blocking time, one preemption in the
+        # run's six steps, the resume's load as the restart overhead
+        predicted = goodput_accounting(
+            step_s, 1, save_overhead_s=async_rec["blocking_s"],
+            preemption_rate_per_hour=3600.0 / (RESUME["steps"] * step_s),
+            restart_overhead_s=resumed["load_ms"] / 1e3)
+        layers = cfg.num_hidden_layers
+        launches = {name: saved["launches"][name] + resumed["launches"][name]
+                    for name in FLASH_REPLACES}
+        rep = {
+            "card": card, "params": n_params, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "steps": RESUME["steps"], "checkpoint_bytes": sync_rec["bytes"],
+            "save_sync_ms": sync_rec["blocking_s"] * 1e3,
+            "save_async_blocking_ms": async_rec["blocking_s"] * 1e3,
+            "save_async_total_ms": (async_rec["written_at"] - async_rec["started_at"]) * 1e3,
+            "write_gb_per_s": sync_rec["bytes"] / sync_rec["write_s"] / 1e9,
+            "manifest_crc32_ms": sync_rec["manifest_s"] * 1e3,
+            "crc32_ms_params_file": crc_s * 1e3,
+            "crc32_gb_per_s": params_file.stat().st_size / crc_s / 1e9,
+            "verify_ms": verify_ms, "load_ms": resumed["load_ms"],
+            "data_wait_ms_per_step": clean["data_wait_ms_per_step"],
+            "data_wait_first_ms": clean["data_wait_first_ms"],
+            "data_wait_ms_after_first": clean["data_wait_ms_after_first"],
+            "h2d_issue_ms_per_step": clean["h2d_issue_ms_per_step"],
+            "loader_step_ms": step_s * 1e3, "fixed_batch_step_ms": step_ms,
+            "max_memory_allocated_gib": peak / 2**30,
+            "clean_losses": clean["losses"], "resumed_losses": resumed["losses"],
+            "run_to_run_bitwise": run_to_run["bitwise"],
+            "run_to_run_leaves": run_to_run["leaves"],
+            "resume_bitwise": final["bitwise"], "resume_leaves": final["leaves"],
+            "nan_step_unchanged": nan_step_params and nan_step["bitwise"],
+            "nan_skips_after_resume": resumed["restored_nan_skips"],
+            "async_checkpoint_holds_step_3": async_holds["bitwise"],
+            "restored_from": Path(resumed["restored_from"]).name,
+            "fallback_restored": Path(scan["restored_from"]).name,
+            "fallback_explicit_corrupt_raises": scan["explicit_raises"],
+            "checkpoints_valid": valid, "stream_equal": stream_equal,
+            "goodput": gp, "goodput_frac": resumed["goodput_frac"],
+            "goodput_predicted": predicted["goodput_frac"],
+            "launches_per_step": {n: c / (saved["executed"] + resumed["executed"])
+                                  for n, c in launches.items()},
+            "in_path": resumed["in_path"],
+        }
+        log("train_resume", json.dumps(rep))
+        failures = []
+        if valid.get(Path(saved["saves"][RESUME["corrupt_save"]]).name, True):
+            failures.append("the step-4 checkpoint was not corrupted by the plan")
+        if Path(resumed["restored_from"]).name != Path(emergency).name:
+            failures.append(f"resumed from {resumed['restored_from']}, not the emergency "
+                            f"checkpoint {emergency}")
+        if Path(scan["restored_from"]).name != Path(saved["saves"][RESUME["async_save"]]).name:
+            failures.append(f"the fallback scan restored {scan['restored_from']}")
+        if not scan["explicit_raises"]:
+            failures.append("an explicit load of the corrupt checkpoint did not raise")
+        if not (verify_ok[0] and async_holds["bitwise"]):
+            failures.append(f"the async checkpoint does not hold step 3: {async_holds}")
+        if not rep["nan_step_unchanged"] or resumed["restored_nan_skips"] != 1:
+            failures.append(f"the NaN step changed the state: {nan_step}, "
+                            f"nan_skips {resumed['restored_nan_skips']}")
+        if not stream_equal:
+            failures.append("the batch stream differs from the clean run's")
+        if run_to_run["bitwise"] and not final["bitwise"]:
+            failures.append(f"the resume is not bitwise the clean run: {final}")
+        if not run_to_run["bitwise"]:
+            spread = max(run_to_run["leaves"].values(), default=0.0)
+            worst = max(final["leaves"].values(), default=0.0)
+            if worst > spread or not final["count_equal"]:
+                failures.append(f"the resume differs by {worst}, wider than the run-to-run "
+                                f"spread {spread}")
+        if gp != expected_gp:
+            failures.append(f"goodput counters {gp}, expected {expected_gp}")
+        for name, count in launches.items():
+            steps_run = saved["executed"] + resumed["executed"]
+            if count != steps_run * layers:
+                failures.append(f"{name} launched {count} times in {steps_run} steps")
+        if not all(math.isfinite(x) for x in clean["losses"][:RESUME["fault_step"] - 1]):
+            failures.append(f"clean losses not finite: {clean['losses']}")
+        if failures:
+            raise AssertionError("train_resume: " + "; ".join(failures))
+        return {"launches": launches, "report": rep}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def fallback_scan(torch, seed: int, project: str, device: str) -> dict:
+    """A fresh Accelerator's ``load_state()`` over ``project`` (the newest
+    checkpoints corrupt), and an explicit ``load_state`` of the newest,
+    which must raise."""
+    from accelerate_tpu_torch import (
+        Accelerator, LlamaConfig, LlamaForCausalLM, ProjectConfiguration, ResiliencePlugin,
+    )
+    from accelerate_tpu_torch.checkpointing import CheckpointCorruptError, list_checkpoints
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=RESUME["init_seed_resumed"])
+    acc = Accelerator(mixed_precision="bf16", device=device,
+                      project_config=ProjectConfiguration(project_dir=project,
+                                                          automatic_checkpoint_naming=True),
+                      resilience_plugin=ResiliencePlugin(nan_guard=True))
+    template = acc.create_train_state({n: p.detach() for n, p in model.named_parameters()},
+                                      TRAIN["optimizer"])
+    try:
+        acc.load_state(list_checkpoints(project)[-1], train_state=template)
+        explicit_raises = False
+    except CheckpointCorruptError:
+        explicit_raises = True
+    state = acc.load_state(train_state=template)
+    return {"restored": host_state(torch, state), "restored_from": acc.last_restored_checkpoint,
+            "explicit_raises": explicit_raises}
+
+
 @contextlib.contextmanager
 def routed_attention(llama_mod, decode, multitoken):
     """Route the model's paged attention through ``decode`` / ``multitoken``
@@ -1680,8 +2065,9 @@ def worst_readings(readings: dict, required) -> dict:
 def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
                   adapters=None, plugin=PLUGIN, required=None, draft_model=None,
                   invariants=False) -> dict:
-    """Serve ``trace`` on a fresh engine with every kernel launch held
-    against its plain version on the operands the engine gives it: the
+    """Serve ``trace`` (each request's new tokens capped at ``CHECKED_NEW``)
+    on a fresh engine with every kernel launch held against its plain
+    version on the operands the engine gives it: the
     allocator's block tables, bucket-padded prefill windows, the dead slots
     of each decode step, the dead lanes of each verify pass and, with
     ``adapters`` (a fresh store), each slot's adapter ids.  ``required``
@@ -1690,9 +2076,13 @@ def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
     (``verify_serving_invariants``: the page mirror, refcounts, the free
     stack) is checked after every tick.  Returns each kernel's worst
     readings."""
+    import dataclasses
+
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
     from accelerate_tpu_torch.serving import verify_serving_invariants
 
+    trace = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, CHECKED_NEW))
+             for r in trace]
     engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
                            adapters=adapters, draft_model=draft_model)
@@ -2721,9 +3111,10 @@ def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_
     """``generate_paged`` at batch 4, held to the steps its engine
     counted: with int8 weights and fp8 pages, #12 on every decode step, #11
     on every prefill chunk, #5 / #7 over the pages; with bf16 weights and
-    pages (``kv_dtype="bf16"``), #4 and #6.  Then the same call with every
-    launch held against its plain version, under ``torch.profiler``: as
-    many #12 device kernels as #12 calls."""
+    pages (``kv_dtype="bf16"``), #4 and #6.  Then the same call for its
+    first ``GEN_CHECKED_NEW`` tokens with every launch held against its
+    plain version, under ``torch.profiler``: as many #12 device kernels as
+    #12 calls, the tokens those of the first call."""
     import accelerate_tpu_torch.models.llama as llama_mod
     import accelerate_tpu_torch.serving as serving_mod
     from accelerate_tpu_torch import GenerationConfig, ServingPlugin, generate_paged
@@ -2770,8 +3161,8 @@ def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_
     readings = {}
     calls = qmm._WRAPPERS["quantized_matmul_wholef"].launches
     with wholef_kernels_seen(torch) as seen, checked_kernels(torch, llama_mod, fa, qmm, readings):
-        again = generate_paged(model, ids, gc, prompt_lengths=lens,
-                               serving_plugin=ServingPlugin(**plugin))
+        again = generate_paged(model, ids, GenerationConfig(max_new_tokens=GEN_CHECKED_NEW),
+                               prompt_lengths=lens, serving_plugin=ServingPlugin(**plugin))
     calls = qmm._WRAPPERS["quantized_matmul_wholef"].launches - calls
     if torch.cuda.is_available() and (seen["qmm_wholef"] != calls or seen["other_qmm"]):
         raise AssertionError(f"#12: {calls} wrapper calls ran {seen['qmm_wholef']} "
@@ -2783,7 +3174,9 @@ def generate_paged_phase(torch, model, card: str, kv_dtype: str = GEN_PAGED["kv_
     rep = {"card": card, "batch": b, "prompt_lens": [int(x) for x in lens], "max_new": new,
            "kv_dtype": plugin["kv_dtype"], "wall_s": wall, "tokens_per_s": b * new / wall,
            "decode_steps": decode_steps, "prefill_steps": prefill_steps, "launches": launches,
-           "checked_rerun_tokens_equal": bool(torch.equal(out, again)), "in_path": in_path,
+           "checked_rerun_new": GEN_CHECKED_NEW,
+           "checked_rerun_tokens_equal": bool(torch.equal(out[:, :GEN_CHECKED_NEW], again)),
+           "in_path": in_path,
            "wholef_device_kernels_per_call": seen["qmm_wholef"] / calls if calls else None}
     log("generate_paged", json.dumps(rep))
     return {"launches": launches, "in_path": in_path}
@@ -3278,6 +3671,8 @@ def main() -> int:
                              "#4 / #5 (where paged_attention.cu has them), #8 / #9, #12 and "
                              "#10 (with the select's three launches) are held to their plain "
                              "versions and timed beside the new ones (before_ms)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the train_resume phase's token rows and data order")
     args = parser.parse_args()
     import torch
 
@@ -3378,6 +3773,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = training_phase(torch, fa, card)
     phase_done("training")
+    resumed = train_resume_phase(torch, fa, card, args.seed, train["report"]["step_ms"],
+                                 train["report"]["params"])
+    PATH_LAUNCHES["train_resume"] = resumed["launches"]
+    phase_done("train_resume")
 
     # each kernel's launches on its main path, and its checked calls there
     quant_in_path = quant["in_path"]

@@ -1654,3 +1654,78 @@ def test_disaggregated_pair_follows_the_token_rule(cuda):
         dlogit = (kernel[row] - plain[row]).abs().max().item()
         print("divergence", r.uid, i, gap, dlogit)
         assert gap <= dlogit, (r.uid, i, gap, dlogit)
+
+
+@pytest.mark.cuda
+def test_checkpoint_save_resume_and_async_snapshot_on_the_card(cuda, tmp_path):
+    """Two layers at the 600m widths, lion-sr on bf16 params through a
+    prepared loader (flash #1-#3 on the card): the run twice first (the
+    run-to-run check), then a run with an async save after step 1 (step 2
+    updates the params in place while it writes) and a save after step 2,
+    and a resume in a fresh Accelerator from another init: the async
+    checkpoint holds step 1's values, and the resumed run ends where the
+    straight run does (bitwise where the two straight runs agree)."""
+    import numpy as np
+
+    from accelerate_tpu_torch import (
+        Accelerator, DataLoaderConfiguration, GradSyncKwargs, LlamaConfig, LlamaForCausalLM,
+        ProjectConfiguration, make_llama_loss_fn,
+    )
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                      num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                      dtype=torch.bfloat16, attn_implementation="flash")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 256))
+
+    class Rows(torch.utils.data.Dataset):
+        def __len__(self):
+            return len(tokens)
+
+        def __getitem__(self, i):
+            t = torch.from_numpy(tokens[i])
+            return {"input_ids": t, "labels": t}
+
+    def run(project, init_seed, save=False, resume=False):
+        model = LlamaForCausalLM(cfg, device=cuda, seed=init_seed)
+        acc = Accelerator(mixed_precision="bf16", device=cuda,
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")],
+                          project_config=ProjectConfiguration(
+                              project_dir=str(project), automatic_checkpoint_naming=True),
+                          dataloader_config=DataLoaderConfiguration(use_seedable_sampler=True))
+        dl = acc.prepare(torch.utils.data.DataLoader(Rows(), batch_size=2, shuffle=True))
+        state = acc.create_train_state({n: p.detach() for n, p in model.named_parameters()},
+                                       "lion-sr")
+        if resume:
+            state = acc.maybe_resume(train_state=state)
+        step = acc.prepare_train_step(make_llama_loss_fn(model, fused_vocab_chunks=4))
+        snaps = {}
+        for batch in dl:
+            state, _ = step(state, batch)
+            if save and acc.step_count == 1:
+                snaps[1] = [p.clone() for p in state.params.values()]
+                snaps["async"] = acc.save_state(train_state=state, async_save=True)
+            if save and acc.step_count == 2:
+                acc.save_state(train_state=state)
+                break
+        acc.end_training()
+        return acc, state, snaps
+
+    finals = []
+    for _ in range(2):
+        _, state, _ = run(tmp_path / "clean", 0)
+        finals.append([p.clone() for p in state.params.values()] + list(state.opt_state.mu))
+    run_to_run = max((a.float() - b.float()).abs().max().item()
+                     for a, b in zip(*finals))
+    acc, _, snaps = run(tmp_path / "saved", 0, save=True)
+    fresh = LlamaForCausalLM(cfg, device=cuda, seed=1)
+    template = acc.create_train_state({n: p.detach() for n, p in fresh.named_parameters()},
+                                      "lion-sr")
+    restored = acc.load_state(snaps["async"], train_state=template)
+    for a, b in zip(snaps[1], restored.params.values()):
+        assert torch.equal(a, b)
+    _, resumed, _ = run(tmp_path / "saved", 1, resume=True)
+    got = [p for p in resumed.params.values()] + list(resumed.opt_state.mu)
+    worst = max((a.float() - b.float()).abs().max().item() for a, b in zip(finals[0], got))
+    assert worst <= run_to_run, (worst, run_to_run)
+    assert resumed.opt_state.count == 4
+    assert tfa.flash_fwd.launches > 0 and tfa.flash_dq.launches > 0

@@ -32,8 +32,8 @@ from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
 from accelerate_tpu.state import GradientState as JaxGradientState
 from accelerate_tpu.utils import dataclasses as jdc
 from accelerate_tpu_torch import (
-    Accelerator, GradientAccumulationPlugin, GradSyncKwargs, make_llama_loss_fn,
-    make_optimizer,
+    Accelerator, GradientAccumulationPlugin, GradSyncKwargs, ResiliencePlugin,
+    make_llama_loss_fn, make_optimizer,
 )
 from accelerate_tpu_torch import state as tstate
 from accelerate_tpu_torch.models import llama as tl
@@ -333,9 +333,13 @@ def test_off_path_options_raise():
         Accelerator(cpu=True, parallelism_config=object())
     with pytest.raises(NotImplementedError, match="A12"):
         Accelerator(cpu=True, mixed_precision="fp16")
-    with pytest.raises(NotImplementedError, match="A7"):
-        Accelerator(cpu=True, gradient_accumulation_plugin=GradientAccumulationPlugin(
-            num_steps=2, mode="across_steps"))
+    # accumulation across calls (A7) is ported: the carried accumulator
+    carried = Accelerator(cpu=True, gradient_accumulation_plugin=GradientAccumulationPlugin(
+        num_steps=2, mode="across_steps"))
+    assert carried.gradient_state.plugin.mode == "across_steps"
+    # the peer snapshots need ranks
+    with pytest.raises(NotImplementedError, match="A13"):
+        Accelerator(cpu=True, resilience_plugin=ResiliencePlugin(peer_snapshot_every=1))
     # each accelerator keeps its own settings: a later construction
     # neither takes an earlier one's nor changes it
     first = Accelerator(cpu=True, mixed_precision="bf16", gradient_accumulation_steps=2)
