@@ -36,14 +36,64 @@ Its thirteenth slice is the resumable training loop: ``prepare`` of a
 ``save_model``) on the native IO engine (``native/``) and safetensors
 (``utils/serialization.py``), the NaN guard, preemption and goodput
 (``resilience/``).
+
+Its fourteenth slice is big-model inference: a checkpoint from disk onto
+the card even when it does not fit (``big_modeling.py``: meta-device init,
+placement across the card, pinned host memory and disk, streaming loads,
+``load_checkpoint_and_serve``; ``models.load_hf_llama``;
+``load_and_quantize_model``), the module hooks that run offloaded weights
+(``hooks.py``), fp8 weight storage (``layerwise_casting``), and the
+layer-streamed decode and beam search (``generate_streamed``,
+``beam_search``).
 """
 
+from . import hooks
 from .accelerator import Accelerator, TrainState
+from .big_modeling import (
+    abstract_init,
+    compute_module_sizes,
+    cpu_offload,
+    disk_offload,
+    dispatch_model,
+    get_max_memory,
+    infer_auto_device_map,
+    infer_auto_placement,
+    init_empty_weights,
+    init_on_device,
+    init_params_leafwise,
+    load_checkpoint_and_dispatch,
+    load_checkpoint_and_serve,
+    load_checkpoint_in_model,
+    offload_state_dict,
+    offload_store_params,
+    offloaded_apply,
+    serve_model,
+)
 from .checkpointing import CheckpointCorruptError
 from .data_loader import prepare_data_loader, skip_first_batches
 from .scheduler import AcceleratedScheduler
-from .generation import GenerationConfig, generate, generate_paged, sample_logits
-from .models import LlamaConfig, LlamaForCausalLM, make_llama_loss_fn
+from .generation import (
+    GenerationConfig,
+    beam_search,
+    generate,
+    generate_paged,
+    generate_streamed,
+    place_params_host,
+    sample_logits,
+)
+from .hooks import (
+    AlignDevicesHook,
+    CpuOffloadHook,
+    LayerwiseCastingHook,
+    ModelHook,
+    SequentialHook,
+    add_hook_to_module,
+    attach_align_device_hook,
+    remove_hook_from_module,
+)
+from .models import LlamaConfig, LlamaForCausalLM, load_hf_llama, make_llama_loss_fn
+from .ops.precision import layerwise_casting
+from .ops.streaming import LayerPrefetcher, StreamStats
 from .ops.quantized_matmul import quantized_matmul
 from .optimizer import AcceleratedOptimizer, make_optimizer
 from .ops.flash_attention import fused_bgmv_paged_decode
@@ -62,9 +112,11 @@ from .utils.quantization import (
     QuantizationConfig,
     QuantizedTensor,
     dequantize,
+    load_and_quantize_model,
     quantize,
     quantize_model_,
     quantize_params,
+    quantized_apply,
 )
 
 __all__ = [
@@ -72,36 +124,72 @@ __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
     "AdapterStore",
+    "AlignDevicesHook",
     "CheckpointCorruptError",
+    "CpuOffloadHook",
     "DataLoaderConfiguration",
     "GenerationConfig",
     "GradSyncKwargs",
     "GradientAccumulationPlugin",
+    "LayerPrefetcher",
+    "LayerwiseCastingHook",
     "LlamaConfig",
     "LlamaForCausalLM",
     "LoraPlugin",
+    "ModelHook",
     "ProjectConfiguration",
     "QuantizationConfig",
     "QuantizedTensor",
     "Request",
     "ResiliencePlugin",
+    "SequentialHook",
     "ServingEngine",
     "ServingPlugin",
+    "StreamStats",
     "TrainState",
+    "abstract_init",
+    "add_hook_to_module",
+    "attach_align_device_hook",
+    "beam_search",
+    "compute_module_sizes",
+    "cpu_offload",
     "dequantize",
+    "disk_offload",
+    "dispatch_model",
     "fused_bgmv_paged_decode",
     "generate",
     "generate_paged",
+    "generate_streamed",
+    "get_max_memory",
+    "hooks",
+    "infer_auto_device_map",
+    "infer_auto_placement",
+    "init_empty_weights",
+    "init_on_device",
+    "init_params_leafwise",
+    "layerwise_casting",
+    "load_and_quantize_model",
+    "load_checkpoint_and_dispatch",
+    "load_checkpoint_and_serve",
+    "load_checkpoint_in_model",
+    "load_hf_llama",
     "lora_apply",
     "make_llama_loss_fn",
     "make_optimizer",
+    "offload_state_dict",
+    "offload_store_params",
+    "offloaded_apply",
+    "place_params_host",
     "prepare_data_loader",
     "quantize",
     "quantize_model_",
     "quantize_params",
+    "quantized_apply",
     "quantized_matmul",
+    "remove_hook_from_module",
     "replay",
     "sample_logits",
+    "serve_model",
     "skip_first_batches",
     "synthesize_trace",
 ]

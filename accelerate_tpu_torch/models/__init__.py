@@ -1,7 +1,7 @@
 """The port's models: the Llama family, for serving and training."""
 
 from .convert import load_converted_state, lora_tree_from_flax, torch_state_from_flax
-from .hf_interop import hf_llama_key_map, hf_llama_tensor_map
+from .hf_interop import hf_llama_key_map, hf_llama_tensor_map, load_hf_llama
 from .llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -28,6 +28,7 @@ __all__ = [
     "init_cache",
     "init_paged_cache",
     "load_converted_state",
+    "load_hf_llama",
     "lora_tree_from_flax",
     "make_llama_loss_fn",
     "paged_write_kv_quantized",

@@ -5,8 +5,10 @@ tensor maps of ``accelerate_tpu/models/hf_interop.py``: ``hf_llama_key_map``
 The port's :class:`~accelerate_tpu_torch.models.llama.LlamaForCausalLM`
 uses the HF names themselves, so a HF checkpoint's tensors load as they
 are; these maps relate those names to the JAX package's param paths, which
-is what :mod:`.convert` needs to carry a JAX param tree across.  Loading
-checkpoint files (``load_hf_llama``) is not ported.
+is what :mod:`.convert` needs to carry a JAX param tree across.
+:func:`load_hf_llama` (JAX :79) streams a HF-format checkpoint file, index
+or directory into the port's model.  The Mixtral, BERT and T5 loaders wait
+for their models (ROADMAP A13 / A14).
 """
 
 from __future__ import annotations
@@ -53,3 +55,43 @@ def hf_llama_tensor_map(our_key: str, arr: np.ndarray) -> np.ndarray:
     if our_key.endswith("/kernel") and arr.ndim == 2:
         return arr.T
     return arr
+
+
+def load_hf_llama(model, checkpoint, *, dtype=None, strict: bool = True, **kwargs):
+    """Stream a HF-format Llama checkpoint (a safetensors file, an index of
+    shards, or a directory) into ``model`` (built under
+    ``big_modeling.init_empty_weights``), cast to ``dtype`` and tiered to
+    pinned host memory or disk when over the card's budget: a thin wrapper
+    over ``big_modeling.load_checkpoint_and_dispatch`` (its keyword
+    arguments: ``device_map``, ``max_memory``, ``offload_folder``,
+    ``device``, ``stats``).  The port's parameters carry HF's names and
+    ``[out, in]`` layout, so tensors load as they are; rotary ``inv_freq``
+    buffers are skipped, and so is a stored ``lm_head.weight`` when the
+    model ties its head to the embedding.  Returns ``(model, store or
+    None)``."""
+    from ..big_modeling import load_checkpoint_and_dispatch
+
+    if getattr(model.config, "scan_layers", False):
+        raise ValueError(
+            "load_hf_llama needs the unrolled layer stack (HF names map to "
+            "model.layers.{i}); the scanned stack is ROADMAP item A12")
+    tied = getattr(model.config, "tie_word_embeddings", False)
+
+    def key_map(name):
+        if _SKIP.search(name) or (tied and name == "lm_head.weight"):
+            return None
+        return name
+
+    try:
+        return load_checkpoint_and_dispatch(model, checkpoint, dtype=dtype, strict=strict,
+                                            key_map=key_map, **kwargs)
+    except ValueError as e:
+        if "missing" in str(e) and "lm_head" in str(e):
+            raise ValueError(
+                "This checkpoint stores no lm_head.weight — it was saved with "
+                "tied word embeddings (tie_word_embeddings=True, e.g. "
+                "TinyLlama/Gemma-style exports). Build the model with "
+                "tie_word_embeddings=True so the head reuses embed_tokens, or "
+                "pass strict=False to leave lm_head as it is."
+            ) from e
+        raise

@@ -64,6 +64,7 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
     attn_implementation: str = "native"  # native | flash
     remat: bool = False
     scan_layers: bool = False
@@ -608,7 +609,12 @@ class _LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         cfg = config
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
+        # from an empty table: _init_weights draws every parameter, so the
+        # layer's own normal_ init is skipped (on meta it would import
+        # torch's meta kernels, seconds per process)
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size,
+            _weight=torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype))
         self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
 
@@ -641,6 +647,10 @@ class LlamaForCausalLM(nn.Module):
         with torch.device(dev):
             self.model = _LlamaModel(config)
             self.lm_head = LMHead(config.hidden_size, config.vocab_size, config.dtype)
+        if config.tie_word_embeddings:
+            # one [V, H] parameter: the head contracts hidden against the
+            # embedding table (JAX :899-903)
+            self.lm_head.weight = self.model.embed_tokens.weight
         cos, sin = rope_frequencies(config.head_dim, config.max_position_embeddings,
                                     config.rope_theta)
         self.register_buffer("rope_cos", torch.from_numpy(cos).to(dev), persistent=False)
@@ -648,7 +658,8 @@ class LlamaForCausalLM(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, (QuantizableDense, LMHead)):
                 mod.lora_key = name
-        self._init_weights(seed)
+        if self.device.type != "meta":       # big_modeling.init_empty_weights: no init
+            self._init_weights(seed)
 
     @property
     def device(self) -> torch.device:
@@ -785,9 +796,9 @@ def count_params(params) -> int:
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
     """Training FLOPs per token, ``6 N + 12 L H D T`` (the PaLM appendix
-    formula; JAX ``flops_per_token``, untied head)."""
+    formula; JAX ``flops_per_token``)."""
     n_params = (
-        cfg.vocab_size * cfg.hidden_size * 2
+        cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_word_embeddings else 2)
         + cfg.num_hidden_layers * (
             cfg.hidden_size * cfg.head_dim * (cfg.num_attention_heads + 2 * cfg.num_key_value_heads)
             + cfg.num_attention_heads * cfg.head_dim * cfg.hidden_size

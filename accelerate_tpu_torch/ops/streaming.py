@@ -8,16 +8,32 @@ On the card an upload is a copy from pinned host memory with
 copy runs while the compute stream works, an event marks its end, and
 :meth:`StagedTree.wait` makes the compute stream (not the host) wait on
 that event before the tree is read.  On the CPU a "staged" tree is the
-host tree itself.  The chunked optimizer offload and ``generate_streamed``
-of the JAX module are ROADMAP items A12 / A9.
+host tree itself.  ``generation.generate_streamed`` streams a model's
+layers through the prefetcher.  The chunked optimizer offload of the JAX
+module is ROADMAP item A12.
+
+A tensor in host memory that is not page-locked (an ``OffloadStore``
+memory map: the disk tier) goes through :class:`PinnedStaging` first: its
+bytes land in a reusable page-locked slot, from which the card's copy is
+asynchronous; ``generate_streamed`` and ``hooks.AlignDevicesHook`` share
+it.  The streamed decode fills the slot by a (multi-threaded) copy through
+the memory map: once faulted in, the map's pages are a memory copy away,
+where a ``pread`` would re-read the file every forward
+(``chip_smoke.py`` times both, the streamed case's ``staging_gb_s``).  The
+hook's ``io_buffer`` keeps JAX's meaning: the native engine's parallel
+``pread`` of the file (:func:`file_span`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Callable, Optional
+import warnings
+import weakref
+from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..resilience.faults import maybe_fail_transfer
@@ -183,6 +199,118 @@ def stage_tree(host_tree, device) -> StagedTree:
 
 
 # ---------------------------------------------------------------------------
+# Staging from pageable and file-backed host memory
+# ---------------------------------------------------------------------------
+
+# data_ptr -> (weak reference to the memory map, file path, bytes) of every
+# live tensor that ``big_modeling`` made over a whole ``.dat`` file
+_FILE_BACKED: dict[int, tuple] = {}
+
+
+def register_file_backed(t: torch.Tensor, mapping: np.ndarray, path) -> torch.Tensor:
+    """Record that ``t``'s bytes are the whole of file ``path``, as mapped
+    by ``mapping`` (read-only by contract): :func:`file_span` then knows it
+    for the disk tier, which ``generate_streamed`` streams and
+    :class:`PinnedStaging` may read from the file; returns ``t``.  The
+    entry lapses with the map."""
+    for ptr in [p for p, (ref, _, _) in _FILE_BACKED.items() if ref() is None]:
+        del _FILE_BACKED[ptr]
+    _FILE_BACKED[t.data_ptr()] = (weakref.ref(mapping), str(path), t.numel() * t.element_size())
+    return t
+
+
+def file_span(x) -> Optional[tuple[str, int]]:
+    """``(path, offset)`` where a host tensor's or array's bytes lie as
+    they are in a file (a registered tensor, or a read-only or shared
+    ``np.memmap`` over the rest of its file), else None."""
+    if isinstance(x, np.memmap):
+        if x.filename is None or x.mode == "c" or not x.flags.c_contiguous:
+            return None
+        if x.offset + x.nbytes != os.path.getsize(x.filename):
+            return None
+        return x.filename, x.offset
+    if isinstance(x, torch.Tensor) and x.device.type == "cpu" and x.is_contiguous():
+        entry = _FILE_BACKED.get(x.data_ptr())
+        if entry is not None and entry[0]() is not None \
+                and entry[2] == x.numel() * x.element_size():
+            return entry[1], 0
+    return None
+
+
+def _torch_dtype(x) -> torch.dtype:
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(x).dtype)).dtype
+
+
+class PinnedStaging:
+    """Reusable host slots that sources in pageable memory are copied into
+    before their upload: a copy to the card from pageable memory is
+    synchronous and ends any overlap.  Each slot is one page-locked buffer
+    (``pin=False``: a plain one, on a host without a card) grown to the
+    largest set of tensors staged in it.  A source is copied in; with
+    ``read_files``, a file-backed one (:func:`file_span`) is read from its
+    file with the native engine's parallel ``pread`` instead.  A slot is
+    reused only once the event given with :meth:`release` has completed,
+    i.e. the copy that read it has ended."""
+
+    def __init__(self, slots: int, pin: bool = True, read_files: bool = False):
+        self.pin = pin
+        self.read_files = read_files
+        self.buffers: list = [None] * slots
+        self.events: list = [None] * slots
+        self.next = 0
+
+    def stage(self, sources: Mapping[str, Any],
+              like: Optional[Mapping[str, torch.Tensor]] = None) -> tuple[dict, int]:
+        """The bytes of each source (a host tensor or a numpy array) in the
+        next slot, as a tensor of ``like[name]``'s dtype and shape (default:
+        the source's own), by name; and the slot's index."""
+        from .. import native
+
+        slot = self.next
+        self.next = (slot + 1) % len(self.buffers)
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+            self.events[slot] = None
+        specs = []
+        for name, x in sources.items():
+            ref = like[name] if like is not None and name in like else x
+            dtype = _torch_dtype(ref)
+            n = int(np.prod(ref.shape, dtype=np.int64)) * dtype.itemsize
+            if n != (x.numel() * x.element_size() if isinstance(x, torch.Tensor) else x.nbytes):
+                raise ValueError(f"{name}: {tuple(x.shape)} {getattr(x, 'dtype', '')} does not "
+                                 f"hold the bytes of {tuple(ref.shape)} {dtype}")
+            specs.append((name, x, dtype, tuple(ref.shape), n))
+        spans = [-(-n // 256) * 256 for *_, n in specs]
+        buf = self.buffers[slot]
+        if buf is None or buf.numel() < sum(spans):
+            self.buffers[slot] = None
+            buf = self.buffers[slot] = torch.empty(sum(spans), dtype=torch.uint8,
+                                                   pin_memory=self.pin)
+        out, off = {}, 0
+        for (name, x, dtype, shape, n), span in zip(specs, spans):
+            raw = buf[off:off + n]
+            where = file_span(x) if (self.read_files and n) else None
+            if where is not None:
+                native.read_file(where[0], nbytes=n, offset=where[1], out=raw.numpy())
+            elif n:
+                if not isinstance(x, torch.Tensor):
+                    with warnings.catch_warnings():     # a read-only map: only read here
+                        warnings.simplefilter("ignore", UserWarning)
+                        x = torch.from_numpy(np.ascontiguousarray(x))
+                raw.copy_(x.detach().contiguous().reshape(-1).view(torch.uint8))
+            out[name] = raw.view(dtype).view(shape)
+            off += span
+        return out, slot
+
+    def release(self, slot: int, event) -> None:
+        """``event`` (None: nothing in flight) marks the end of the copies
+        that read slot ``slot``."""
+        self.events[slot] = event
+
+
+# ---------------------------------------------------------------------------
 # The layer prefetcher
 # ---------------------------------------------------------------------------
 
@@ -195,18 +323,21 @@ class LayerPrefetcher:
     return at once — a :class:`StagedTree` from :func:`stage_tree`, or a
     plain tree.  ``get(i)`` first issues the prefetch of the next ``depth``
     layers, then resolves layer ``i``: for a staged tree, the current
-    stream waits on its copy.  ``depth=0`` keeps the slots but no sequential
+    stream waits on its copy.  With ``wrap=True`` the lookahead wraps past
+    the last layer (layer 0's weights for the next token stream in under
+    the head and the sampling).  ``depth=0`` keeps the slots but no sequential
     lookahead: the caller prefetches explicitly (:meth:`prefetch`), as the
     adapter pool does for the scheduler's waiting queue.  ``enabled=False``
     degrades to a fetch per ``get`` whose copy the host waits for.
 
     A resolved tree's pinned source stays referenced until its copy has
-    ended.  ``retry_policy`` bounds re-attempts of a failing ``fetch``
+    ended (not its device tree: that lives as long as the caller holds
+    it).  ``retry_policy`` bounds re-attempts of a failing ``fetch``
     (None: fail on the first error).
     """
 
     def __init__(self, fetch: Callable[[int], Any], n_layers: int, *,
-                 depth: int = 1, enabled: bool = True,
+                 depth: int = 1, wrap: bool = False, enabled: bool = True,
                  stats: Optional[StreamStats] = None,
                  retry_policy: Optional[RetryPolicy] = DEFAULT_POLICY):
         if n_layers < 1:
@@ -216,6 +347,7 @@ class LayerPrefetcher:
         self.fetch = fetch
         self.n_layers = n_layers
         self.depth = depth
+        self.wrap = wrap
         self.enabled = enabled
         self.stats = stats
         self.retry_policy = retry_policy
@@ -252,7 +384,8 @@ class LayerPrefetcher:
             self.stats.fetch_wait_s += time.perf_counter() - t0
         self._in_flight = [s for s in self._in_flight if not s.done()]
         if not tree.done():
-            self._in_flight.append(tree)   # keeps its pinned source alive
+            # keeps its pinned source alive, not its device tree
+            self._in_flight.append(StagedTree(None, tree.event, tree.source, tree.device))
         return out
 
     def get(self, i: int):
@@ -268,8 +401,8 @@ class LayerPrefetcher:
         elif self.stats is not None:
             self.stats.prefetch_hits += 1
         for d in range(1, self.depth + 1):
-            j = i + d
-            if j < self.n_layers and j not in self._slots:
+            j = (i + d) % self.n_layers if self.wrap else i + d
+            if j < self.n_layers and j != i and j not in self._slots:
                 self._slots[j] = self._issue(j)
         return self._resolve(tree, block=False)
 

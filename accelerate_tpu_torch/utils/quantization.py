@@ -20,16 +20,19 @@ A quantized dense weight is held in the JAX kernel orientation ``[in,
 out]`` = ``[H, F]``, the transpose of a torch ``Linear`` weight:
 :func:`quantize_params` and :func:`quantize_model_` quantize ``weight.T``.
 
-``quantize`` runs on the tensor's own device.  ``load_and_quantize_model``
-and ``quantized_apply`` are not ported (ROADMAP A9): the port has no
-streaming checkpoint loader or apply-function wrapper to feed.
+``quantize`` runs on the tensor's own device.
+:func:`load_and_quantize_model` (JAX :331) streams a checkpoint into a
+model and quantizes each weight it takes on the card as it arrives;
+:func:`quantized_apply` (JAX :286) runs a quantized model, or a function
+of a quantized name -> tensor mapping, on dense weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
-from typing import Any
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -255,3 +258,68 @@ def quantized_nbytes(params) -> int:
         else:
             total += np.asarray(v).nbytes
     return total
+
+
+@contextlib.contextmanager
+def _dequantized(model: torch.nn.Module, dtype=None):
+    """Every quantized ``QuantizableDense`` of ``model`` holding a dense
+    weight (``[out, in]``, in ``dtype`` or its compute dtype) while the
+    block runs; its codes and scales again after."""
+    from ..models.layers import QuantizableDense
+
+    saved = []
+    for module in model.modules():
+        if isinstance(module, QuantizableDense) and module._qmeta is not None:
+            qt = module.quantized
+            saved.append((module, module._qmeta))
+            module.weight = torch.nn.Parameter(dequantize(qt, dtype or module.dtype).t(),
+                                               requires_grad=False)
+            module._qmeta = None
+    try:
+        yield model
+    finally:
+        for module, qmeta in saved:
+            module.weight = None
+            module._qmeta = qmeta
+
+
+def quantized_apply(apply_fn: Callable, dtype=None) -> Callable:
+    """Run on dequantized weights (JAX :286): for a module, the returned
+    callable runs it with each quantized layer's weight expanded to
+    ``dtype`` (default: the layer's compute dtype) for that one forward;
+    for ``apply_fn(params, *args)`` over a name -> tensor mapping, every
+    :class:`QuantizedTensor` of ``params`` is dequantized first."""
+    if isinstance(apply_fn, torch.nn.Module):
+        model = apply_fn
+
+        def run(*args, **kwargs):
+            with _dequantized(model, dtype):
+                return model(*args, **kwargs)
+
+        return run
+
+    def wrapped(params, *args, **kwargs):
+        return apply_fn(dequantize_tree(params, dtype), *args, **kwargs)
+
+    return wrapped
+
+
+def load_and_quantize_model(model: torch.nn.Module, checkpoint, config: QuantizationConfig, *,
+                            device=None, stats: Optional[dict] = None) -> torch.nn.Module:
+    """Stream ``checkpoint`` into ``model`` (built under
+    ``big_modeling.init_empty_weights``, or not) and quantize each weight
+    ``config.should_quantize`` takes as it arrives (JAX :331, reference
+    utils/bnb.py): the weight is cast on the host, copied to the card and
+    quantized there into its ``QuantizableDense``'s codes and scales
+    (``[in, out]``, as :func:`quantize_model_` does), so the card never
+    holds more than the int8 model and one full-precision weight with its
+    quantizer temporaries.  The other tensors land on the card in the
+    model's dtypes.  Codes and scales are :func:`quantize_model_`'s,
+    bitwise, for the same weights.  ``checkpoint`` and ``stats`` as
+    ``big_modeling.load_checkpoint_in_model``'s (``stats`` also receives
+    ``quantize_s``).  Returns ``model``."""
+    from ..big_modeling import _stream_into
+
+    model, _ = _stream_into(model, checkpoint, device=device, quantization_config=config,
+                            stats=stats)
+    return model

@@ -108,6 +108,29 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    the token rule), and a ``replica_kill`` at fleet tick 40: the drained
    requests re-route exactly once, the survivors meet the token rule, the
    fault-free placements repeat;
+5a'''. big-model inference from a checkpoint (``big_model_phase``): the
+   bf16 serve's weights written as 3 HF safetensors shards and an index;
+   ``load_checkpoint_and_serve`` into a model built under
+   ``init_empty_weights`` (the weights bitwise, the 16 requests capped at
+   ``CHECKED_NEW`` served to the in-process serve's tokens bitwise, #4 / #6
+   once per layer of every step, a checked rerun of 4 requests); then
+   ``load_and_quantize_model`` (codes and scales bitwise
+   ``quantize_model_``'s from the same bf16 weights, its peak device memory
+   under the int8 model + 7x the largest bf16 weight) served from int8
+   pages (#5 / #7 / #11, the token rule against the in-process int8 serve,
+   a checked rerun); both tiered by ``infer_auto_placement`` over 40 % of
+   their bytes on the card and 6 layers of pinned host memory, the rest
+   on disk, and decoded by ``generate_streamed`` at B 4, T 128, 32 new
+   tokens: logits bitwise with prefetch on and off, tokens bitwise with
+   the disk tier swapped for pinned copies and with ``generate`` on the
+   resident model, peak device memory under two layers in flight + the
+   KV cache + the captured logits + 64 MiB, the int8 one through #11 at
+   prefill and #12 at decode, held to plain; the compute stream's waits
+   on staged layers timed by CUDA events beside a bare pinned copy of one
+   layer; then ``beam_search`` (4 beams, B 2, 32 new tokens) on the bf16
+   and int8 models: one beam equal to greedy, the best beam's
+   log-probability a token at least greedy's, the int8 one's #11 / #12
+   held to plain;
 5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
@@ -187,7 +210,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
-   prefix-cache, overload, pair (bf16, int8) and fleet serves and, for
+   prefix-cache, overload, pair (bf16, int8) and fleet serves, the loaded
+   serves (``big_model_serve``, ``big_model_serve_int8``), the int8
+   streamed decode (``streamed``) and beam search (``beam``) and, for
    #1-#3, the ``train_resume`` runs), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
@@ -2975,6 +3000,637 @@ def fleet_phase(torch, card: str, bf16: dict, prefix: dict) -> dict:
     return out
 
 
+# -- big-model inference: checkpoint -> card, tiers, streamed decode, beams ---
+
+# the phase writes the bf16 serve's weights as HF shards, serves them loaded
+# (bf16, then int8 on load), tiers them by a card budget of CARD_SHARE of
+# the bf16 bytes and a host budget of CPU_LAYERS layers (the rest to disk),
+# streams B x T prompts for NEW tokens, and beam-searches BEAM_B prompts
+BIG = dict(shards=3, check_requests=4, batch=4, prompt=128, new=32, card_share=0.4,
+           cpu_layers=6, beams=4, beam_batch=2, beam_new=32, copies=10)
+# the streamed decode's peak device memory, above what the card held before
+# it, must stay under: the embedding / norm / head it moves on +
+# (prefetch_depth + 1) streamed layers + the KV cache + the f32 logits it
+# captures + ACT_SLACK for the activations of a forward (a prefill at B x T
+# holds ~2 MB a token before the head)
+ACT_SLACK = 64 * 2**20
+# a beam's length-normalised log-probability against greedy's, teacher-
+# forced through one forward over prompt + tokens (other shapes than the
+# decode's: bf16 roundings), nats a token
+BEAM_SCORE_TOL = 1e-2
+
+
+def write_hf_checkpoint(torch, model, folder: Path, shards: int) -> dict:
+    """``model``'s state as HF safetensors: ``shards`` files of contiguous
+    tensors, about equal in bytes, and ``model.safetensors.index.json``."""
+    from accelerate_tpu_torch.utils.serialization import save_safetensors
+
+    folder.mkdir(parents=True)
+    t0 = time.perf_counter()
+    state = {k: v.detach().to("cpu") for k, v in model.state_dict().items()}
+    d2h_s = time.perf_counter() - t0
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    groups, acc = [[]], 0
+    for name, t in state.items():
+        if acc >= total * len(groups) / shards and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(name)
+        acc += t.numel() * t.element_size()
+    weight_map = {}
+    t0 = time.perf_counter()
+    for i, names in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        save_safetensors(folder / fname, {k: state[k] for k in names})
+        weight_map.update({k: fname for k in names})
+    (folder / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    write_s = time.perf_counter() - t0
+    return {"bytes": total, "files": len(groups), "d2h_ms": 1e3 * d2h_s,
+            "write_ms": 1e3 * write_s, "write_gb_s": total / write_s / 1e9}
+
+
+def settled_allocated(torch) -> int:
+    """Device bytes allocated once earlier phases' garbage is collected:
+    the baseline of a peak that frees nothing of its own while measured."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def empty_llama(torch):
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, init_empty_weights
+
+    with init_empty_weights():
+        return LlamaForCausalLM(LlamaConfig(**MODEL, dtype=torch.bfloat16))
+
+
+def held_equal(torch, got: dict, want: dict, label: str) -> None:
+    """Every tensor of ``got`` bitwise ``want``'s, the same names."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: names differ: {sorted(set(got) ^ set(want))[:4]}")
+    for k, v in got.items():
+        if not torch.equal(v, want[k].to(v.device)):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def stall_recorder(torch, streaming):
+    """Patch ``StagedTree.wait`` so each wait of the compute stream on a
+    staged layer is bracketed by two CUDA events; returns the list of
+    event pairs and the undo."""
+    pairs, orig = [], streaming.StagedTree.wait
+
+    def wait(self):
+        if self.event is None:
+            return orig(self)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(self)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    streaming.StagedTree.wait = wait
+    return pairs, lambda: setattr(streaming.StagedTree, "wait", orig)
+
+
+def bare_h2d_gb_s(torch, layer_tensors: dict, copies: int) -> float:
+    """One pinned layer copied to the card ``copies`` times, CUDA events."""
+    src = {k: t if t.is_pinned() else t.pin_memory() for k, t in layer_tensors.items()}
+    dst = {k: torch.empty_like(t, device="cuda") for k, t in src.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in src.values())
+    for k in src:
+        dst[k].copy_(src[k], non_blocking=True)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(copies):
+        for k in src:
+            dst[k].copy_(src[k], non_blocking=True)
+    b.record()
+    torch.cuda.synchronize()
+    return nbytes * copies / (a.elapsed_time(b) / 1e3) / 1e9
+
+
+def streamed_case(torch, label, tiered, resident, ids, placement, store, budget) -> dict:
+    """``generate_streamed`` on ``tiered`` (layers on the card, pinned
+    host and disk by ``placement``) with prefetch on (timed, stats, stall
+    events, peak memory, launch counts) and off, the disk tier swapped for
+    pinned copies, and ``generate`` on ``resident``: tokens all equal,
+    logits on / off bitwise."""
+    from accelerate_tpu_torch import GenerationConfig, generate, generate_streamed
+    from accelerate_tpu_torch.big_modeling import _named_tensors, compute_module_sizes
+    from accelerate_tpu_torch.ops import streaming
+    from accelerate_tpu_torch.ops.streaming import StreamStats, file_span, predicted_overlap
+
+    b, new = ids.shape[0], BIG["new"]
+    gc = GenerationConfig(max_new_tokens=new)
+    layers = tiered.config.num_hidden_layers
+    tensors = _named_tensors(tiered)
+    sizes = compute_module_sizes(tiered)
+    off_card = [i for i in range(layers) if placement.get(f"model.layers.{i}", 0) != 0]
+    streamed_bytes = sum(sizes[f"model.layers.{i}"] for i in off_card)
+    layer_bytes = max(sizes[f"model.layers.{i}"] for i in range(layers))
+
+    def timed(fn):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch)
+        return out, time.perf_counter() - t0
+
+    generate_streamed(tiered, ids, GenerationConfig(max_new_tokens=2))     # warm-up
+    want, resident_s = timed(lambda: generate(resident, ids, gc))
+    pairs, undo = stall_recorder(torch, streaming)
+    stats, on_logits = StreamStats(), []
+    base = settled_allocated(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        on, on_s = timed(lambda: generate_streamed(tiered, ids, gc, stream_stats=stats,
+                                                   capture_logits=on_logits))
+    finally:
+        undo()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    stall_s = sum(a.elapsed_time(b_) for a, b_ in pairs) / 1e3
+    # each off-card layer once a forward, and layer 0 once more: the
+    # lookahead wraps past the last forward's last layer
+    want_h2d = new * streamed_bytes + (sizes["model.layers.0"] if 0 in off_card else 0)
+    if stats.h2d_bytes != want_h2d:
+        raise AssertionError(f"{label}: {stats.h2d_bytes} bytes streamed, the off-card "
+                             f"layers hold {want_h2d}")
+    off_logits = []
+    off, off_s = timed(lambda: generate_streamed(tiered, ids, gc, prefetch=False,
+                                                 capture_logits=off_logits))
+    for i, (x, y) in enumerate(zip(on_logits, off_logits)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: forward {i}'s logits differ with prefetch on / off")
+    pinned = {k: tensors[k].clone().pin_memory() for k in store.keys()}
+    pinned_tokens = generate_streamed(tiered, ids, gc, params=pinned)
+    for name, got in (("prefetch off", off), ("disk as pinned", pinned_tokens),
+                      ("generate", want)):
+        if not torch.equal(on, got):
+            raise AssertionError(f"{label}: streamed tokens differ from {name}'s")
+    moved = sum(tensors[k].numel() * tensors[k].element_size()
+                for k in ("model.embed_tokens.weight", "model.norm.weight", "lm_head.weight")
+                if tensors[k].device.type != "cuda")
+    cfg = tiered.config
+    kv = layers * 2 * b * (ids.shape[1] + new) * cfg.num_key_value_heads * cfg.head_dim * 2 \
+        + layers * b * (ids.shape[1] + new) * 4
+    captured = sum(t.numel() * t.element_size() for t in on_logits)
+    mem_bound = moved + 2 * layer_bytes + kv + captured + ACT_SLACK
+    if peak > mem_bound:
+        raise AssertionError(f"{label}: streamed peak {peak} B above its bound {mem_bound} B")
+    copy_layer = {k[len(f"model.layers.{off_card[0]}."):]: t for k, t in tensors.items()
+                  if k.startswith(f"model.layers.{off_card[0]}.")}
+    gb_s = bare_h2d_gb_s(torch, copy_layer, BIG["copies"])
+    staging_gb_s = staging_probe(torch, {k: t for k, t in tensors.items()
+                                         if k.startswith("model.layers.")
+                                         and file_span(t) is not None})
+    per_forward = stats.h2d_bytes / new
+    serial_s = per_forward / (gb_s * 1e9)
+    compute_s = resident_s / new
+    stall_per_forward = stall_s / new
+    return {
+        "label": label, "batch": b, "prompt": ids.shape[1], "new": new,
+        "placement_layers": {t: sum(1 for i in range(layers)
+                                    if placement.get(f"model.layers.{i}", 0) == t)
+                             for t in (0, "cpu", "disk")},
+        "budget": budget, "store_tensors": len(store.keys()),
+        "tokens_per_s": {"prefetch": b * new / on_s, "serial": b * new / off_s,
+                         "resident_generate": b * new / resident_s},
+        "h2d_bytes_per_forward": per_forward, "streamed_layer_bytes": streamed_bytes,
+        "layer_bytes_x_layers": layer_bytes * layers,
+        "bare_pinned_h2d_gb_s": gb_s, "achieved_h2d_gb_s": stats.h2d_bytes / on_s / 1e9,
+        "staging_gb_s": staging_gb_s,
+        "fetches": stats.fetches, "prefetch_hits": stats.prefetch_hits,
+        "fetch_wait_s_host": stats.fetch_wait_s,
+        "device_stall_ms_per_forward": 1e3 * stall_per_forward,
+        "serial_transfer_ms_per_forward": 1e3 * serial_s,
+        "resident_ms_per_forward": 1e3 * compute_s,
+        "overlap_frac": 1.0 - stall_per_forward / serial_s if serial_s else None,
+        "predicted_overlap": predicted_overlap(serial_s, compute_s),
+        "peak_bytes": peak, "peak_bound_bytes": mem_bound,
+        "peak_bound_terms": {"moved_resident": moved, "layers_in_flight": 2 * layer_bytes,
+                             "kv": kv, "captured_logits": captured, "slack": ACT_SLACK},
+        "launches": launches, "bitwise": {"prefetch_off": True, "disk_as_pinned": True,
+                                          "generate": True},
+    }
+
+
+def staging_probe(torch, disk: dict) -> dict:
+    """GB/s of filling a pinned slot with every disk-tier layer tensor (what
+    one forward stages), warm, by the two routes of ``PinnedStaging``: the
+    copy through the memory maps (the streamed decode's) and the native
+    engine's parallel ``pread`` of the files (``AlignDevicesHook``'s)."""
+    from accelerate_tpu_torch.ops.streaming import PinnedStaging
+
+    total = sum(t.numel() * t.element_size() for t in disk.values())
+    out = {"bytes": total}
+    for route, read_files in (("copy_through_map", False), ("pread", True)):
+        staging = PinnedStaging(1, pin=True, read_files=read_files)
+        staging.stage(disk)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            staging.stage(disk)
+        out[route] = 3 * total / (time.perf_counter() - t0) / 1e9
+    return out
+
+
+def beam_case(torch, label, model, ids) -> dict:
+    """``beam_search`` with 4 beams (timed, launches counted), 1 beam
+    against ``generate``, and the best beams' length-normalised
+    log-probabilities against greedy's."""
+    from accelerate_tpu_torch import GenerationConfig, beam_search, generate
+
+    gc = GenerationConfig(max_new_tokens=BIG["beam_new"])
+    greedy = generate(model, ids, gc)
+    if not torch.equal(beam_search(model, ids, gc, num_beams=1), greedy):
+        raise AssertionError(f"beam {label}: one beam differs from greedy")
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    beams = beam_search(model, ids, gc, num_beams=BIG["beams"])
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    def score(tokens):
+        seq = torch.cat([ids.long(), tokens.long()], dim=1)
+        logp = torch.log_softmax(model(seq).float(), dim=-1)[:, ids.shape[1] - 1:-1]
+        return (logp.gather(-1, tokens.long()[..., None])[..., 0].sum(-1)
+                / tokens.shape[1]).tolist()
+
+    beam_score, greedy_score = score(beams), score(greedy)
+    if any(bs < gs - BEAM_SCORE_TOL for bs, gs in zip(beam_score, greedy_score)):
+        raise AssertionError(f"beam {label}: best beam {beam_score} below greedy {greedy_score}")
+    return {"label": label, "batch": ids.shape[0], "beams": BIG["beams"],
+            "new": BIG["beam_new"], "tokens_per_s": ids.shape[0] * BIG["beam_new"] / wall,
+            "beam_score_per_token": beam_score, "greedy_score_per_token": greedy_score,
+            "one_beam_equals_greedy": True, "launches": launches}
+
+
+def entry_points_case(torch, model, qref, folder: Path) -> dict:
+    """The big-model entry points the phase's main path does not call, on
+    the card at the 600m widths, each held to its resident or plain
+    version: ``get_max_memory()`` against ``mem_get_info``;
+    ``abstract_init`` + ``init_params_leafwise`` (two layers, layer 1 in
+    pinned host memory, the card's generator) decoded by
+    ``generate_streamed``, the tokens ``generate``'s on a resident copy;
+    then one decoder layer, whose resident forward on a [B, T, H] input
+    every other forward must equal bitwise: ``cpu_offload`` and
+    ``disk_offload`` with ``offloaded_apply``, ``AlignDevicesHook`` over
+    ``OffloadStore`` memory maps (read into its pinned slot) on a meta
+    shell, ``offload=False`` over pinned weights, ``CpuOffloadHook``,
+    ``offload_state_dict`` + ``offload_store_params`` through
+    ``offloaded_apply``;
+    ``layerwise_casting`` (fp8 storage) against the layer on its weights
+    rounded through fp8; ``quantized_apply`` on the int8 model's layer
+    against the layer on its dequantized weights."""
+    import copy
+
+    from accelerate_tpu_torch import (
+        AlignDevicesHook, CpuOffloadHook, GenerationConfig, LlamaConfig, LlamaForCausalLM,
+        abstract_init, add_hook_to_module, attach_align_device_hook, cpu_offload,
+        disk_offload, generate, generate_streamed, get_max_memory, init_empty_weights,
+        init_params_leafwise, layerwise_casting, offload_state_dict, offload_store_params,
+        offloaded_apply, quantized_apply,
+    )
+    from accelerate_tpu_torch.big_modeling import OffloadStore, _named_tensors
+    from accelerate_tpu_torch.ops.streaming import file_span
+    from accelerate_tpu_torch.models.layers import QuantizableDense
+    from accelerate_tpu_torch.models.llama import LlamaBlock
+    from accelerate_tpu_torch.utils.quantization import dequantize
+
+    out = {}
+    free, total = torch.cuda.mem_get_info(0)
+    budget = get_max_memory()
+    if set(budget) != set(range(torch.cuda.device_count())) | {"cpu"} or budget["cpu"] <= 0 \
+            or abs(budget[0] - 0.9 * free) > 0.01 * total:
+        raise AssertionError(f"get_max_memory() {budget} against free {free} of {total}")
+    out["get_max_memory"] = {"card": budget[0], "cpu": budget["cpu"], "free": free}
+
+    cfg2 = LlamaConfig(**{**MODEL, "num_hidden_layers": 2}, dtype=torch.bfloat16)
+    built = abstract_init(LlamaForCausalLM, cfg2)
+    if any(p.device.type != "meta" for p in built.parameters()):
+        raise AssertionError("abstract_init: a parameter off meta")
+    init_params_leafwise(built, placement={"model.layers.1": "cpu"})
+    for name, t in _named_tensors(built).items():
+        host = name.startswith("model.layers.1.")
+        if (t.device.type == "cpu") != host or (host and not t.is_pinned()) \
+                or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"init_params_leafwise: {name} on {t.device}")
+    std = float(built.model.layers[0].mlp.up_proj.weight.float().std())
+    if abs(std - 0.02) > 0.002:
+        raise AssertionError(f"init_params_leafwise: std {std}, want 0.02")
+    resident = LlamaForCausalLM(cfg2)
+    resident.load_state_dict({k: v.cuda() for k, v in built.state_dict().items()})
+    ids = torch.from_numpy(np.random.default_rng(3).integers(1, MODEL["vocab_size"],
+                                                             (2, 32))).cuda()
+    gc = GenerationConfig(max_new_tokens=8)
+    if not torch.equal(generate_streamed(built, ids, gc), generate(resident, ids, gc)):
+        raise AssertionError("init_params_leafwise: streamed tokens differ from generate's")
+    out["init_params_leafwise"] = {"layers": 2, "pinned_layer": 1, "std": std,
+                                   "streamed_equals_generate": True}
+    del built, resident
+
+    block = model.model.layers[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(BIG["batch"], BIG["prompt"], MODEL["hidden_size"], generator=g,
+                    device="cuda").to(torch.bfloat16)
+    positions = torch.arange(BIG["prompt"], device="cuda").expand(BIG["batch"], -1)
+    args = (x, positions, model.rope_cos, model.rope_sin)
+    ref = block(*args)
+    state = {k: v.detach() for k, v in _named_tensors(block).items()}
+    checks = {}
+
+    def same(label, got):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: the layer's output differs from its resident one")
+        checks[label] = True
+
+    placed, run = cpu_offload(dict(state), apply_fn=block, execution_device="cuda")
+    if not all(t.device.type == "cpu" and t.is_pinned() for t in placed.values()):
+        raise AssertionError("cpu_offload: a tensor not in pinned host memory")
+    same("cpu_offload + offloaded_apply", run(placed, *args))
+    on_disk, run = disk_offload(dict(state), folder / "layer", apply_fn=block,
+                                execution_device="cuda")
+    same("disk_offload + offloaded_apply", run(on_disk, *args))
+    mapped = offload_store_params(offload_state_dict(folder / "state", state))
+    if not all(file_span(t) is not None for t in mapped.values()):
+        raise AssertionError("offload_store_params: a tensor not over its file")
+    same("offload_state_dict + offload_store_params", offloaded_apply(block, "cuda")(mapped, *args))
+    store = OffloadStore(folder / "layer")
+    with init_empty_weights():
+        shell = LlamaBlock(model.config)
+    hook = AlignDevicesHook("cuda", weights_map={k: store.load(k) for k in state})
+    add_hook_to_module(shell, hook)
+    same("AlignDevicesHook over memory maps", shell(*args))
+    same("AlignDevicesHook over memory maps, again", shell(*args))
+    if not (hook._staging.buffers[0].is_pinned()
+            and all(p.device.type == "meta" for p in shell.parameters())):
+        raise AssertionError("AlignDevicesHook: no pinned slot, or the copies were kept")
+    with init_empty_weights():
+        shell = LlamaBlock(model.config)
+    attach_align_device_hook(shell, "cuda", offload=False, weights_map=placed)
+    same("AlignDevicesHook, offload=False", shell(*args))
+    if any(p.device.type != "cuda" for p in shell.parameters()):
+        raise AssertionError("AlignDevicesHook(offload=False): weights not kept on the card")
+    same("AlignDevicesHook, offload=False, again", shell(*args))
+    kept = add_hook_to_module(copy.deepcopy(block), CpuOffloadHook("cuda"))
+    if not all(p.device.type == "cpu" and p.is_pinned() for p in kept.parameters()):
+        raise AssertionError("CpuOffloadHook: weights not in pinned host memory")
+    same("CpuOffloadHook", kept(*args))
+
+    cast, _ = layerwise_casting(copy.deepcopy(block))
+    stored = {k: t for k, t in _named_tensors(cast).items() if t.dtype == torch.float8_e4m3fn}
+    if len(stored) != 7:
+        raise AssertionError(f"layerwise_casting stored {len(stored)} fp8 weights, want 7")
+    rounded = {k: v.to(torch.float8_e4m3fn).to(torch.bfloat16) if k in stored else v
+               for k, v in state.items()}
+    want = torch.func.functional_call(block, rounded, args)
+    got = cast(*args)
+    if not torch.equal(got, want) or torch.equal(got, ref):
+        raise AssertionError("layerwise_casting: not the layer on its fp8-rounded weights")
+    if any(t.dtype != torch.float8_e4m3fn for k, t in _named_tensors(cast).items()
+           if k in stored):
+        raise AssertionError("layerwise_casting: weights not stored again after the call")
+    checks["layerwise_casting (fp8)"] = True
+
+    qblock = qref.model.layers[0]
+    dense = {f"{name}.weight": dequantize(mod.quantized, torch.bfloat16).t()
+             for name, mod in qblock.named_modules()
+             if isinstance(mod, QuantizableDense) and mod.quantized is not None}
+    others = {k: v for k, v in _named_tensors(qblock).items() if k.endswith("layernorm.weight")}
+    want = torch.func.functional_call(block, {**dense, **others}, args)
+    if not torch.equal(quantized_apply(qblock)(*args), want):
+        raise AssertionError("quantized_apply: not the layer on its dequantized weights")
+    if any(mod.quantized is None for mod in qblock.modules() if isinstance(mod, QuantizableDense)):
+        raise AssertionError("quantized_apply: the int8 layer was not restored")
+    checks["quantized_apply"] = True
+    out["layer_bitwise"] = checks
+    return out
+
+
+def big_model_phase(torch, card: str, bf16: dict, quant: dict) -> dict:
+    """Big-model inference from a checkpoint (module docstring, 5a'''):
+    the bf16 serve's weights written as HF shards; ``load_checkpoint_and_serve``
+    into a meta model (the weights bitwise, the tokens of the same weights'
+    in-process serve bitwise, #4 / #6 held to plain); ``load_and_quantize_model``
+    (codes and scales ``quantize_model_``'s bitwise, its peak device memory
+    under the int8 model + the largest bf16 weight with its quantizer's
+    three f32 temporaries) served from int8 pages (#5 / #7 / #11, the token
+    rule against the in-process int8 serve); both models tiered over the
+    card, pinned host and disk and decoded by ``generate_streamed``
+    (:func:`streamed_case`; the int8 one through #11 / #12, held to
+    plain); ``beam_search`` on both (:func:`beam_case`; #11 / #12 held to
+    plain)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import (
+        GenerationConfig, QuantizationConfig, ServingPlugin, compute_module_sizes,
+        dispatch_model, infer_auto_placement, load_and_quantize_model, load_checkpoint_and_serve,
+        load_hf_llama,
+    )
+    from accelerate_tpu_torch.big_modeling import _lookup_placement, _named_tensors
+    from accelerate_tpu_torch.models.layers import QuantizableDense
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.ops.streaming import file_span
+    from accelerate_tpu_torch.utils.quantization import quantized_nbytes
+
+    model, qref = bf16["model"], quant["model"]
+    layers = model.config.num_hidden_layers
+    trace = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, CHECKED_NEW))
+             for r in bf16["trace"]]
+    check_trace = trace[:BIG["check_requests"]]
+    folder = Path(tempfile.mkdtemp(prefix="big_model_"))
+    out = {"card": card}
+    try:
+        ckpt = folder / "hf"
+        out["checkpoint"] = write_hf_checkpoint(torch, model, ckpt, BIG["shards"])
+        log("big_model checkpoint", json.dumps(out["checkpoint"]))
+
+        # the bf16 checkpoint served from a meta model (the first meta build
+        # of a process pays torch's one-time import of its meta kernels)
+        t0 = time.perf_counter()
+        empty = empty_llama(torch)
+        meta_s = time.perf_counter() - t0
+        base = settled_allocated(torch)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        engine = load_checkpoint_and_serve(
+            empty, ckpt, serving_plugin=ServingPlugin(**PLUGIN),
+            generation_config=GenerationConfig(max_new_tokens=MAX_NEW), stats=stats)
+        sync(torch)
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        loaded = engine.model
+        t0 = time.perf_counter()
+        held_equal(torch, loaded.state_dict(), model.state_dict(), "loaded bf16 weights")
+        sync(torch)
+        verify_s = time.perf_counter() - t0
+        engine.warmup()
+        engine, report, launches, _ = serve_once(torch, loaded, trace, engine=engine)
+        m = engine.metrics
+        expect_launches(launches, {"paged_decode_attention": m["decode_steps"] * layers,
+                                   "paged_multitoken_attention": m["prefill_steps"] * layers})
+        PATH_LAUNCHES["big_model_serve"] = launches
+        ref_engine, ref_report, _, _ = serve_once(torch, model, trace)
+        if dict(engine.results) != dict(ref_engine.results):
+            raise AssertionError("loaded serve: tokens differ from the in-process serve's")
+        del engine, ref_engine
+        in_path = in_path_check(torch, loaded, llama_mod, fa, qmm, check_trace)
+        out["serve"] = {
+            "meta_build_ms": 1e3 * meta_s, "load_ms": 1e3 * load_s,
+            "read_ms": 1e3 * stats["read_s"], "h2d_ms": 1e3 * stats["h2d_s"],
+            "plan_and_engine_ms": 1e3 * (load_s - stats["read_s"] - stats["h2d_s"]),
+            "verify_ms": 1e3 * verify_s,
+            "bytes": stats["bytes"], "load_gb_s": stats["bytes"] / load_s / 1e9,
+            "read_gb_s": stats["bytes"] / stats["read_s"] / 1e9,
+            "h2d_gb_s": stats["bytes"] / stats["h2d_s"] / 1e9, "peak_bytes": peak,
+            "requests": len(trace), "tokens_bitwise_in_process": True,
+            "tokens_per_sec": report["tokens_per_sec"],
+            "in_process_tokens_per_sec": ref_report["tokens_per_sec"],
+            "launches": launches, "in_path": in_path}
+        log("big_model serve", json.dumps(out["serve"]))
+
+        # int8 on load, served from int8 pages
+        base = settled_allocated(torch)
+        torch.cuda.reset_peak_memory_stats()
+        qstats = {}
+        empty = empty_llama(torch)
+        t0 = time.perf_counter()
+        qloaded = load_and_quantize_model(empty, ckpt, QuantizationConfig(load_in_8bit=True),
+                                          stats=qstats)
+        sync(torch)
+        qload_s = time.perf_counter() - t0
+        qpeak = torch.cuda.max_memory_allocated() - base
+        held_equal(torch, qloaded.state_dict(), qref.state_dict(), "int8 codes and scales")
+        int8_bytes = quantized_nbytes(qloaded)
+        largest = max(mod.in_features * mod.out_features * 2 for mod in qloaded.modules()
+                      if isinstance(mod, QuantizableDense) and mod.quantized is not None)
+        qbound = int8_bytes + 7 * largest      # the bf16 weight + three f32 temporaries
+        if qpeak > qbound:
+            raise AssertionError(f"int8 load: peak {qpeak} B above {qbound} B")
+        qengine, qreport, qlaunches, _ = serve_once(torch, qloaded, trace, QUANT_KV)
+        m = qengine.metrics
+        expect_launches(qlaunches, {
+            "paged_decode_attention_quant": m["decode_steps"] * layers,
+            "paged_multitoken_attention_quant": m["prefill_steps"] * layers,
+            "quantized_matmul_tiled": 7 * layers * (m["decode_steps"] + m["prefill_steps"])})
+        PATH_LAUNCHES["big_model_serve_int8"] = qlaunches
+        qref_engine, _, _, _ = serve_once(torch, qref, trace, QUANT_KV)
+        rule = token_rule(torch, qref, llama_mod, fa, qmm, trace, qref_engine.results,
+                          qengine.results, kv_dtype=QUANT_KV, label="big_model int8")
+        del qengine, qref_engine
+        q_in_path = in_path_check(torch, qloaded, llama_mod, fa, qmm, check_trace,
+                                  kv_dtype=QUANT_KV)
+        out["serve_int8"] = {
+            "load_ms": 1e3 * qload_s, "read_ms": 1e3 * qstats["read_s"],
+            "h2d_ms": 1e3 * qstats["h2d_s"], "quantize_ms": 1e3 * qstats["quantize_s"],
+            "peak_bytes": qpeak, "peak_bound_bytes": qbound, "int8_model_bytes": int8_bytes,
+            "largest_bf16_weight_bytes": largest, "codes_bitwise_quantize_model_": True,
+            "tokens_per_sec": qreport["tokens_per_sec"], "token_rule": rule,
+            "launches": qlaunches, "in_path": q_in_path}
+        log("big_model serve_int8", json.dumps(out["serve_int8"]))
+
+        # tiered: card, pinned host, disk; the layer-streamed decode
+        rng = np.random.default_rng(7)
+        ids = torch.from_numpy(rng.integers(1, MODEL["vocab_size"], (BIG["batch"],
+                                                                     BIG["prompt"]))).cuda()
+        sizes = compute_module_sizes(model)
+        budget = {0: int(BIG["card_share"] * sizes[""]),
+                  "cpu": BIG["cpu_layers"] * sizes["model.layers.0"]}
+        placement = infer_auto_placement(empty_llama(torch), max_memory=budget)
+        tiers = {placement.get(f"model.layers.{i}") for i in range(layers)}
+        if not {"cpu", "disk"} <= tiers:
+            raise AssertionError(f"placement puts no layer on cpu and disk: {placement}")
+        # the user's call: load_hf_llama plans the same tiers from max_memory
+        tiered, store = load_hf_llama(empty_llama(torch), ckpt, max_memory=budget,
+                                      offload_folder=str(folder / "offload"))
+        for name, t in _named_tensors(tiered).items():
+            tier = _lookup_placement(name, placement)
+            where = "disk" if file_span(t) is not None else \
+                "cpu" if t.device.type == "cpu" and t.is_pinned() else \
+                0 if t.device.type == "cuda" else t.device.type
+            if where != tier:
+                raise AssertionError(f"load_hf_llama put {name} on {where}, the plan {tier}")
+        out["streamed"] = streamed_case(torch, "bf16", tiered, model, ids, placement, store,
+                                        budget)
+        log("big_model streamed bf16", json.dumps(out["streamed"]))
+        del tiered, store
+        qsizes = compute_module_sizes(qloaded)
+        qbudget = {0: int(BIG["card_share"] * qsizes[""]),
+                   "cpu": BIG["cpu_layers"] * qsizes["model.layers.0"]}
+        qplacement = infer_auto_placement(qloaded, max_memory=qbudget)
+        qloaded, qstore = dispatch_model(qloaded, qplacement,
+                                         offload_folder=str(folder / "qoffload"))
+        out["streamed_int8"] = streamed_case(torch, "int8", qloaded, qref, ids, qplacement,
+                                             qstore, qbudget)
+        PATH_LAUNCHES["streamed"] = out["streamed_int8"]["launches"]
+        expect_launches(PATH_LAUNCHES["streamed"], {
+            "quantized_matmul_tiled": 7 * layers, "quantized_matmul_wholef":
+            7 * layers * (BIG["new"] - 1)})
+        from accelerate_tpu_torch import generate_streamed
+
+        readings = {}
+        with checked_kernels(torch, llama_mod, fa, qmm, readings):
+            generate_streamed(qloaded, ids, GenerationConfig(max_new_tokens=BIG["new"]))
+        out["streamed_int8"]["in_path"] = worst_readings(
+            readings, ["quantized_matmul_tiled", "quantized_matmul_wholef"])
+        log("big_model streamed int8", json.dumps(out["streamed_int8"]))
+        del qloaded, qstore
+
+        # beam search on the resident bf16 and int8 models
+        b_ids = ids[:BIG["beam_batch"]]
+        out["beam"] = beam_case(torch, "bf16", model, b_ids)
+        out["beam_int8"] = beam_case(torch, "int8", qref, b_ids)
+        PATH_LAUNCHES["beam"] = out["beam_int8"]["launches"]
+        expect_launches(PATH_LAUNCHES["beam"], {
+            "quantized_matmul_tiled": 7 * layers,
+            "quantized_matmul_wholef": 7 * layers * (BIG["beam_new"] - 1)})
+        readings = {}
+        from accelerate_tpu_torch import beam_search
+
+        with checked_kernels(torch, llama_mod, fa, qmm, readings):
+            beam_search(qref, b_ids, GenerationConfig(max_new_tokens=BIG["beam_new"]),
+                        num_beams=BIG["beams"])
+        out["beam_int8"]["in_path"] = worst_readings(
+            readings, ["quantized_matmul_tiled", "quantized_matmul_wholef"])
+        log("big_model beam", json.dumps({"bf16": out["beam"], "int8": out["beam_int8"]}))
+
+        t0 = time.perf_counter()
+        out["entry_points"] = entry_points_case(torch, model, qref, folder)
+        out["entry_points"]["seconds"] = time.perf_counter() - t0
+        log("big_model entry points", json.dumps(out["entry_points"]))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+        torch.cuda.empty_cache()
+    s, q, st, sq = out["serve"], out["serve_int8"], out["streamed"], out["streamed_int8"]
+    log(f"big_model on {card}: checkpoint {out['checkpoint']['bytes'] / 1e9:.3f} GB written at "
+        f"{out['checkpoint']['write_gb_s']:.2f} GB/s; meta build {s['meta_build_ms']:.0f} ms, "
+        f"bf16 load {s['load_ms']:.0f} ms (read {s['read_ms']:.0f}, H2D {s['h2d_ms']:.0f}, "
+        f"plan + engine {s['plan_and_engine_ms']:.0f}; verify {s['verify_ms']:.0f}), "
+        f"{s['load_gb_s']:.2f} GB/s; int8 load {q['load_ms']:.0f} ms, peak "
+        f"{q['peak_bytes'] / 2**20:.1f} MiB (bound {q['peak_bound_bytes'] / 2**20:.1f}); "
+        f"streamed bf16 {st['tokens_per_s']['prefetch']:.1f} / serial "
+        f"{st['tokens_per_s']['serial']:.1f} / resident {st['tokens_per_s']['resident_generate']:.1f}"
+        f" tokens/s, overlap {st['overlap_frac']:.3f} (predicted {st['predicted_overlap']:.3f}),"
+        f" H2D {st['achieved_h2d_gb_s']:.2f} GB/s (bare {st['bare_pinned_h2d_gb_s']:.2f}), "
+        f"staging the disk tier {st['staging_gb_s']['copy_through_map']:.2f} GB/s through the "
+        f"maps, {st['staging_gb_s']['pread']:.2f} by pread; "
+        f"int8 {sq['tokens_per_s']['prefetch']:.1f} tokens/s; beams "
+        f"{out['beam']['tokens_per_s']:.1f} / {out['beam_int8']['tokens_per_s']:.1f} tokens/s")
+    return out
+
+
 def quant_engine_phase(torch, card: str, bf16: dict, device: str = "cuda") -> dict:
     """The 600m model with int8 weights serving the same trace from int8
     pages: launches, pool bytes, a checked second serve, the teacher-forced
@@ -3761,6 +4417,8 @@ def main() -> int:
         phase_done("disaggregated pair")
         fleet_phase(torch, card, serve, prefix)
         phase_done("fleet")
+        big_model_phase(torch, card, serve, quant)
+        phase_done("big_model")
         gen = generate_paged_phase(torch, quant.pop("model"), card)
         phase_done("generate_paged")
         generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
@@ -3820,8 +4478,8 @@ def main() -> int:
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
                         # the launches of the speculative, prefix-cache,
-                        # overload, pair and fleet paths, each counted from
-                        # 0 over its own serve
+                        # overload, pair, fleet and big-model paths, each
+                        # counted from 0 over its own run
                         "paths": {path: counts[name] for path, counts in PATH_LAUNCHES.items()
                                   if counts.get(name)},
                         "card": card, "shape": rep["shape"],

@@ -47,6 +47,13 @@ call, on two streams at once and replayed from a CUDA graph, as is #11;
 #8 / #9 are held to the paged limits against
 ``fused_bgmv_paged_decode_plain`` and against the composed route (#10, rope,
 #4 / #5), which rounds the delta and q to bf16 on the way.
+The big-model paths run the kernels on new callers: the layer-streamed
+decode of an int8 model tiered over the card, pinned host memory and disk
+(#11 at prefill, #12 at decode, each launch held to its plain version, the
+tokens ``generate``'s bitwise), its peak device memory (two layers in
+flight, not all), beam search with one beam (greedy's tokens), and an
+engine from ``load_checkpoint_and_serve`` (the in-process engine's tokens,
+bitwise).
 """
 
 import pytest
@@ -1729,3 +1736,230 @@ def test_checkpoint_save_resume_and_async_snapshot_on_the_card(cuda, tmp_path):
     assert worst <= run_to_run, (worst, run_to_run)
     assert resumed.opt_state.count == 4
     assert tfa.flash_fwd.launches > 0 and tfa.flash_dq.launches > 0
+
+
+# -- big-model inference ------------------------------------------------------
+
+
+def _wide_config(layers: int, dtype=torch.bfloat16):
+    from accelerate_tpu_torch import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                       num_hidden_layers=layers, num_attention_heads=16, num_key_value_heads=8,
+                       max_position_embeddings=512, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_streamed_int8_decode_through_the_w8a16_kernels(cuda, tmp_path):
+    """Three int8 layers at the 600m widths, one on the card, one in pinned
+    host memory, one on disk: the streamed decode launches #11 at prefill
+    (m = B * T) and #12 at decode (m = B), every launch of a rerun held to
+    its plain version on the same operands; tokens equal ``generate`` on
+    the resident model, bitwise, with prefetch on and off."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaForCausalLM, QuantizationConfig, StreamStats, dispatch_model,
+        generate, generate_streamed, quantize_model_,
+    )
+
+    model = quantize_model_(LlamaForCausalLM(_wide_config(3), seed=0),
+                            QuantizationConfig(load_in_8bit=True))
+    ids = torch.randint(1, 32000, (4, 32), generator=torch.Generator().manual_seed(0))
+    gc = GenerationConfig(max_new_tokens=6)
+    want = generate(model, ids.to(cuda), gc)
+    dispatch_model(model, {"model.layers.1": "cpu", "model.layers.2": "disk"},
+                   offload_folder=str(tmp_path))
+    assert model.model.layers[1].mlp.up_proj.qcodes.is_pinned()
+    tqm.reset_launch_counts()
+    stats = StreamStats()
+    on = generate_streamed(model, ids, gc, stream_stats=stats)
+    layers, dense = 3, 7
+    # layers 1 and 2 cross once a forward; layer 0 stays on the card
+    streamed = sum(t.numel() * t.element_size() for k, t in model.state_dict().items()
+                   if k.startswith(("model.layers.1.", "model.layers.2.")))
+    assert stats.h2d_bytes == gc.max_new_tokens * streamed
+    assert tqm.quantized_matmul_tiled.launches == dense * layers
+    assert tqm.quantized_matmul_wholef.launches == dense * layers * (gc.max_new_tokens - 1)
+    assert torch.equal(on, want)
+    assert torch.equal(generate_streamed(model, ids, gc, prefetch=False), want)
+    real = (tqm.quantized_matmul_tiled, tqm.quantized_matmul_wholef)
+    held = []
+
+    def checked(kernel, plain):
+        def call(x, codes, scales, *, qblock, out_dtype=None):
+            out = kernel(x, codes, scales, qblock=qblock, out_dtype=out_dtype)
+            ref = plain(x, codes, scales, qblock=qblock, out_dtype=torch.float32)
+            _assert_rows_close(out[:, None], ref[:, None])
+            held.append(kernel.__name__)
+            return out
+        return call
+
+    tqm.quantized_matmul_tiled = checked(real[0], tqm.quantized_matmul_plain)
+    tqm.quantized_matmul_wholef = checked(real[1], tqm.quantized_matmul_wholef_plain)
+    try:
+        generate_streamed(model, ids, gc)
+    finally:
+        tqm.quantized_matmul_tiled, tqm.quantized_matmul_wholef = real
+    assert held.count("quantized_matmul_tiled") == dense * layers
+    assert held.count("quantized_matmul_wholef") == dense * layers * (gc.max_new_tokens - 1)
+
+
+@pytest.mark.cuda
+def test_streamed_decode_peak_memory_holds_two_layers(cuda):
+    """Six bf16 layers in pinned host memory: the decode's peak device
+    memory stays under the embedding, norm and head + (prefetch_depth + 1)
+    layers + the KV cache + the f32 logits it captures + 64 MiB, where six
+    resident layers would not fit under it; tokens equal ``generate``."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaForCausalLM, generate, generate_streamed, place_params_host,
+    )
+    from accelerate_tpu_torch.big_modeling import compute_module_sizes
+
+    model = LlamaForCausalLM(_wide_config(6), seed=0)
+    ids = torch.randint(1, 32000, (4, 64), generator=torch.Generator().manual_seed(1))
+    gc = GenerationConfig(max_new_tokens=8)
+    want = generate(model, ids.to(cuda), gc)
+    sizes = compute_module_sizes(model)
+    place_params_host(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits = []
+    got = generate_streamed(model, ids, gc, capture_logits=logits)
+    peak = torch.cuda.max_memory_allocated() - base
+    cfg = model.config
+    kv = cfg.num_hidden_layers * 2 * 4 * (64 + 8) * cfg.num_key_value_heads * cfg.head_dim * 2
+    captured = sum(t.numel() * t.element_size() for t in logits)
+    tier = sizes["model.embed_tokens"] + sizes["model.norm"] + sizes["lm_head"]
+    bound = tier + 2 * sizes["model.layers.0"] + kv + captured + 64 * 2**20
+    assert torch.equal(got, want)
+    assert peak <= bound, (peak, bound)
+    assert tier + 6 * sizes["model.layers.0"] > bound
+
+
+@pytest.mark.cuda
+def test_beam_search_k1_equals_greedy_on_the_card(cuda):
+    from accelerate_tpu_torch import GenerationConfig, LlamaForCausalLM, beam_search, generate
+
+    model = LlamaForCausalLM(_wide_config(2), seed=0)
+    ids = torch.randint(1, 32000, (2, 48), generator=torch.Generator().manual_seed(2))
+    lens = torch.tensor([48, 30])
+    gc = GenerationConfig(max_new_tokens=12)
+    greedy = generate(model, ids, gc, prompt_lengths=lens)
+    assert torch.equal(beam_search(model, ids, gc, num_beams=1, prompt_lengths=lens), greedy)
+    out = beam_search(model, ids, gc, num_beams=4, prompt_lengths=lens)
+    assert out.shape == (2, 12) and out.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_load_checkpoint_and_serve_equals_the_in_process_engine(cuda, tmp_path):
+    """Two layers at the 600m widths written as three HF shards and an
+    index, loaded into a meta model by ``load_checkpoint_and_serve``: the
+    loaded weights are the in-process ones bitwise, and the engine serves
+    their tokens bitwise through #4 / #6."""
+    import json
+
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaForCausalLM, ServingEngine, ServingPlugin, init_empty_weights,
+        load_checkpoint_and_serve, synthesize_trace,
+    )
+    from accelerate_tpu_torch.utils.serialization import save_safetensors
+
+    cfg = _wide_config(2)
+    model = LlamaForCausalLM(cfg, seed=0)
+    state = model.state_dict()
+    names, weight_map = list(state), {}
+    for i in range(3):
+        fname = f"model-{i + 1:05d}-of-00003.safetensors"
+        save_safetensors(tmp_path / fname, {k: state[k] for k in names[i::3]})
+        weight_map.update({k: fname for k in names[i::3]})
+    (tmp_path / "model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+    with init_empty_weights():
+        empty = LlamaForCausalLM(cfg)
+    plugin = ServingPlugin(num_slots=4, page_size=64, pages_per_slot=8, num_pages=32,
+                           prefill_chunk=256)
+    gc = GenerationConfig(max_new_tokens=24)
+    engine = load_checkpoint_and_serve(empty, tmp_path, serving_plugin=plugin,
+                                       generation_config=gc)
+    for k, v in engine.model.state_dict().items():
+        assert torch.equal(v, state[k]), k
+    trace = synthesize_trace(0, 6, vocab_size=32000, prompt_len_range=(32, 200),
+                             new_tokens_range=(8, 24))
+    tfa.reset_launch_counts()
+    got = engine.run(trace)
+    assert tfa.paged_decode_attention.launches > 0
+    assert tfa.paged_multitoken_attention.launches > 0
+    ref = ServingEngine(model, plugin, gc).run(trace)
+    assert got == ref
+
+
+@pytest.mark.cuda
+def test_offload_entry_points_on_the_card(cuda, tmp_path):
+    """The big-model entry points off the serve and stream paths, on the
+    card at the 600m widths: ``get_max_memory()`` is 0.9 of the free
+    memory; ``init_params_leafwise`` draws on the card's generator and pins
+    its host layer; ``load_hf_llama`` with ``max_memory`` tiers a file
+    over the card, pinned memory and disk, and its streamed tokens are
+    ``generate``'s; one layer run through ``AlignDevicesHook`` over
+    ``OffloadStore`` memory maps (read into a pinned slot), ``CpuOffloadHook``
+    and ``disk_offload`` + ``offloaded_apply`` gives its resident output
+    bitwise."""
+    import copy
+
+    from accelerate_tpu_torch import (
+        AlignDevicesHook, CpuOffloadHook, GenerationConfig, LlamaForCausalLM, abstract_init,
+        add_hook_to_module, disk_offload, generate, generate_streamed, get_max_memory,
+        init_empty_weights, init_params_leafwise, load_hf_llama,
+    )
+    from accelerate_tpu_torch.big_modeling import OffloadStore, compute_module_sizes
+    from accelerate_tpu_torch.models.llama import LlamaBlock
+    from accelerate_tpu_torch.ops.streaming import file_span
+    from accelerate_tpu_torch.utils.serialization import save_safetensors
+
+    free, total = torch.cuda.mem_get_info(0)
+    budget = get_max_memory()
+    assert abs(budget[0] - 0.9 * free) <= 0.01 * total and budget["cpu"] > 0
+
+    cfg = _wide_config(3)
+    built = abstract_init(LlamaForCausalLM, cfg)
+    init_params_leafwise(built, placement={"model.layers.1": "cpu"})
+    assert built.model.layers[1].mlp.up_proj.weight.is_pinned()
+    assert built.model.layers[0].mlp.up_proj.weight.device.type == "cuda"
+    assert abs(float(built.model.layers[0].mlp.up_proj.weight.float().std()) - 0.02) < 0.002
+
+    model = LlamaForCausalLM(cfg, seed=0)
+    save_safetensors(tmp_path / "model.safetensors", model.state_dict())
+    sizes = compute_module_sizes(model)
+    with init_empty_weights():
+        empty = LlamaForCausalLM(cfg)
+    tiered, store = load_hf_llama(
+        empty, tmp_path / "model.safetensors", offload_folder=str(tmp_path / "off"),
+        max_memory={0: sizes[""] - 2 * sizes["model.layers.0"] - sizes["lm_head"],
+                    "cpu": sizes["model.layers.0"]})
+    layers = tiered.model.layers
+    assert layers[0].mlp.up_proj.weight.device.type == "cuda"
+    assert layers[1].mlp.up_proj.weight.is_pinned()
+    assert file_span(layers[2].mlp.up_proj.weight) is not None
+    ids = torch.randint(1, 32000, (2, 32), generator=torch.Generator().manual_seed(4))
+    gc = GenerationConfig(max_new_tokens=6)
+    assert torch.equal(generate_streamed(tiered, ids, gc), generate(model, ids.to(cuda), gc))
+
+    block = model.model.layers[0]
+    x = torch.randn(2, 64, 1536, device=cuda).to(torch.bfloat16)
+    args = (x, torch.arange(64, device=cuda).expand(2, -1), model.rope_cos, model.rope_sin)
+    with torch.inference_mode():
+        ref = block(*args)
+        state = {k: v.detach() for k, v in block.state_dict().items()}
+        placed, run = disk_offload(dict(state), tmp_path / "layer", apply_fn=block,
+                                   execution_device="cuda")
+        assert torch.equal(run(placed, *args), ref)
+        with init_empty_weights():
+            shell = LlamaBlock(cfg)
+        hook = AlignDevicesHook("cuda", weights_map={
+            k: OffloadStore(tmp_path / "layer").load(k) for k in state})
+        add_hook_to_module(shell, hook)
+        assert torch.equal(shell(*args), ref) and torch.equal(shell(*args), ref)
+        assert hook._staging.buffers[0].is_pinned()
+        assert all(p.device.type == "meta" for p in shell.parameters())
+        kept = add_hook_to_module(copy.deepcopy(block), CpuOffloadHook("cuda"))
+        assert all(p.is_pinned() for p in kept.parameters())
+        assert torch.equal(kept(*args), ref)

@@ -220,3 +220,110 @@ def test_int8_forward_at_48_rows_per_dense_departs_by_bf16_input_roundings_only(
                 first_flip = i
                 np.testing.assert_allclose(tx, jx, rtol=0, atol=1e-5 * np.abs(jx).max())
     np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -8 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("cfg_kw", [INT8, NF4])
+def test_load_and_quantize_model_codes_equal_jax(tiny_params, tmp_path, cfg_kw):
+    """A checkpoint streamed into a ``meta`` model and quantized as it
+    arrives: the same leaves quantize as in JAX's ``load_and_quantize_model``
+    (over its own save of the same weights), to the same codes and scales,
+    bitwise; and to ``quantize_model_``'s on the in-process model."""
+    from accelerate_tpu.checkpointing import save_model as j_save_model
+    from accelerate_tpu_torch.big_modeling import abstract_init
+    from accelerate_tpu_torch.utils.serialization import save_safetensors
+
+    j_save_model(None, tiny_params, str(tmp_path / "jax"))
+    abstract = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), tiny_params)
+    jqp = jq.load_and_quantize_model(abstract, str(tmp_path / "jax"),
+                                     jq.QuantizationConfig(**cfg_kw))
+    carried = torch_state_from_flax(jax.tree.map(np.asarray, jqp))
+    state = torch_state_from_flax(tiny_params)
+    save_safetensors(tmp_path / "model.safetensors", state)
+    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, hidden_size=128, intermediate_size=256)
+    model = abstract_init(tl.LlamaForCausalLM, cfg, device="cpu")
+    stats = {}
+    tq.load_and_quantize_model(model, tmp_path / "model.safetensors",
+                               tq.QuantizationConfig(**cfg_kw), device="cpu", stats=stats)
+    ref = tq.quantize_model_(load_converted_state(tl.LlamaForCausalLM(cfg, device="cpu"), state),
+                             tq.QuantizationConfig(**cfg_kw))
+    quantized = {k for k, v in carried.items() if tq.is_quantized(v)}
+    assert len(quantized) == 2 * 7
+    for name in quantized:
+        layer = model.get_submodule(name.rsplit(".", 1)[0])
+        got, want = layer.quantized, carried[name]
+        assert got is not None and layer.weight is None, name
+        assert (got.shape, got.layout, got.scheme) == (want.shape, want.layout, want.scheme), name
+        assert torch.equal(got.data, want.data) and torch.equal(got.scale, want.scale), name
+        other = ref.get_submodule(name.rsplit(".", 1)[0]).quantized
+        assert torch.equal(got.data, other.data) and torch.equal(got.scale, other.scale), name
+    for name, t in model.state_dict().items():          # the rest as it was stored
+        if name in state:
+            assert torch.equal(t, state[name]), name
+    assert all(t.device.type == "cpu" for t in model.state_dict().values())
+    assert stats["tensors"] == len(state) and stats["quantize_s"] > 0
+
+
+def test_quantized_apply_equals_jax(tiny_params):
+    """The int8 model run on dequantized f32 weights gives JAX's
+    ``quantized_apply`` logits; the layers hold their codes again after."""
+    jcfg = jl.LlamaConfig.tiny(dtype=jnp.float32, hidden_size=128, intermediate_size=256)
+    jqp = jq.quantize_params(tiny_params, jq.QuantizationConfig(**INT8))
+    ids = np.asarray([[3, 17, 99, 4, 250, 7, 12, 63]], np.int32)
+    want = np.asarray(jq.quantized_apply(jl.LlamaForCausalLM(jcfg).apply, jnp.float32)(
+        jqp, jnp.asarray(ids)))
+    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, hidden_size=128, intermediate_size=256)
+    model = load_converted_state(tl.LlamaForCausalLM(cfg, device="cpu"),
+                                 torch_state_from_flax(jax.tree.map(np.asarray, jqp)))
+    with torch.no_grad():
+        got = tq.quantized_apply(model, torch.float32)(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    layer = model.model.layers[0].mlp.gate_proj
+    assert layer.weight is None and layer.quantized is not None
+    # the mapping form: QuantizedTensor leaves dequantized before the call
+    qt = tq.quantize(torch.ones(4, 128), tq.QuantizationConfig(**INT8, min_size=1))
+    out = tq.quantized_apply(lambda p, x: x @ p["w"], torch.float32)({"w": qt}, torch.ones(2, 4))
+    assert torch.equal(out, torch.full((2, 128), 4.0))
+
+
+def test_layerwise_casting_fp8_bits_equal_jax(tiny_params):
+    """Matching weights stored as e4m3 with JAX's bits (norms and the
+    embedding kept); the model upcasts them in-call through its hooks and
+    gives JAX's logits."""
+    from accelerate_tpu.ops.precision import layerwise_casting as j_layerwise_casting
+    from accelerate_tpu_torch.ops.precision import layerwise_casting
+
+    j_cast, j_wrap = j_layerwise_casting(tiny_params, jnp.float8_e4m3fn, jnp.float32)
+    carried = torch_state_from_flax(jax.tree.map(lambda x: np.asarray(x, np.float32), j_cast))
+    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, hidden_size=128, intermediate_size=256)
+    model = tl.LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(torch_state_from_flax(tiny_params))
+    layerwise_casting(model, torch.float8_e4m3fn, torch.float32)
+    from accelerate_tpu_torch.models.hf_interop import hf_llama_key_map
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(j_cast)
+    by_path = {".".join(str(k.key) for k in p): np.asarray(leaf) for p, leaf in flat}
+    stored = 0
+    for name, t in model.state_dict().items():
+        path = hf_llama_key_map(name)
+        leaf = by_path[path]
+        if leaf.dtype == jnp.float8_e4m3fn:
+            stored += 1
+            got = t.view(torch.uint8).numpy()
+            np.testing.assert_array_equal(got.T if path.endswith(".kernel") else got,
+                                          leaf.view(np.uint8))
+        else:
+            assert t.dtype == torch.float32 and torch.equal(t, carried[name]), name
+    assert stored == 2 * 7 + 1            # every dense and the head
+    ids = np.asarray([[3, 17, 99, 4, 250, 7, 12, 63]], np.int32)
+    jmodel = jl.LlamaForCausalLM(jl.LlamaConfig.tiny(dtype=jnp.float32, hidden_size=128,
+                                                     intermediate_size=256))
+    want = np.asarray(j_wrap(jmodel.apply)(j_cast, jnp.asarray(ids)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert model.lm_head.weight.dtype == torch.float8_e4m3fn
+    # the mapping form
+    cast, wrap = layerwise_casting({"w": torch.ones(2, 2), "norm": torch.ones(2)})
+    assert cast["w"].dtype == torch.float8_e4m3fn and cast["norm"].dtype == torch.float32
+    assert wrap(lambda p: p["w"].dtype)(cast) == torch.bfloat16
+
