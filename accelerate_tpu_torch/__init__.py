@@ -45,6 +45,13 @@ placement across the card, pinned host memory and disk, streaming loads,
 (``hooks.py``), fp8 weight storage (``layerwise_casting``), and the
 layer-streamed decode and beam search (``generate_streamed``,
 ``beam_search``).
+Its fifteenth slice is the memory and precision recipes of training:
+activation recomputation and the scanned layer stack with boundaries
+offloaded to the host (``LlamaConfig.remat`` / ``scan_layers``), the
+int8-state ``-sr8`` optimizers (``ops/int8_state.py``), fp16 loss scaling
+with f16 instances of the flash kernels, fp8 matmuls with delayed scaling
+(``ops/fp8.py``, ``torch._scaled_mm`` on the card), and the ZeRO-offload
+host update (``FullyShardedDataParallelPlugin(cpu_offload=True)``).
 """
 
 from . import hooks
@@ -101,6 +108,8 @@ from .ops.lora import lora_apply
 from .serving import AdapterStore, Request, ServingEngine, replay, synthesize_trace
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradSyncKwargs,
     LoraPlugin,
@@ -128,6 +137,8 @@ __all__ = [
     "CheckpointCorruptError",
     "CpuOffloadHook",
     "DataLoaderConfiguration",
+    "FP8RecipeKwargs",
+    "FullyShardedDataParallelPlugin",
     "GenerationConfig",
     "GradSyncKwargs",
     "GradientAccumulationPlugin",

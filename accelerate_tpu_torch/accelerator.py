@@ -27,10 +27,32 @@ place**, which saves holding a second copy of the weights; a checkpoint
 therefore snapshots them to host memory before the next step runs
 (``checkpointing.py``).
 
+The memory and precision recipes (JAX :770-1330):
+
+- ``mixed_precision="fp16"``: the f32 loss scaled by a
+  :class:`~.ops.precision.DynamicLossScale` carried in the state, the
+  gradients unscaled in f32, a step with a non-finite gradient skipped
+  (params and optimizer state bitwise unchanged) as the scale backs off;
+  the host reads the finiteness flag once a step, as the NaN guard does.
+- ``mixed_precision="fp8"``: the step runs under ``fp8_autocast`` with the
+  delayed-scaling metas of ``TrainState.fp8_state`` (``ops/fp8.py``),
+  rolled after each update.
+- ``FullyShardedDataParallelPlugin(cpu_offload=True)`` (ZeRO-offload): the
+  optimizer state and, with ``offload_params``, the stored params live in
+  pinned host memory; each step fetches the compute-width params into the
+  model's device tensors, stages the gradients device-to-host on a side
+  stream and runs the optimizer update on the host in torch CPU ops; with
+  ``host_update_chunk_gib`` the update runs over leaf groups
+  (``ops/streaming.chunk_groups``, group-relative SR salts as in JAX), and
+  with ``host_update_pipeline`` every group's copy is queued at once so
+  group k + 1's gradients cross while group k updates.  Global-norm
+  clipping then takes the norm on the host.  ``offload_log`` holds the last
+  step's bytes and host times.
+
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item: FSDP/TP/parallelism configs, PowerSGD / hierarchical gradient
-compression, the peer snapshots, rank loss and stragglers (A13), cpu
-offload, fp16 loss scaling and fp8 (A12), the donation audits (A14).
+item: TP/parallelism configs and the collective-matmul ring, PowerSGD /
+hierarchical gradient compression, the peer snapshots, rank loss and
+stragglers (A13), the donation audits (A14).
 """
 
 from __future__ import annotations
@@ -39,6 +61,7 @@ import contextlib
 import dataclasses
 import inspect
 import os
+import time
 from typing import Any, Callable, Optional, Union
 
 import torch
@@ -51,7 +74,9 @@ from .data_loader import (
     skip_first_batches,
 )
 from .logging import get_logger
-from .ops.precision import Policy, get_policy
+from .ops import fp8 as _fp8
+from .ops import streaming as _streaming
+from .ops.precision import DynamicLossScale, Policy, all_finite, fp8_autocast, get_policy
 from .ops.stochastic_rounding import GradientTransformation, flax_leaf_order
 from .optimizer import AcceleratedOptimizer, make_optimizer
 from .resilience import faults as _faults
@@ -62,6 +87,8 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradSyncKwargs,
     ProjectConfiguration,
@@ -91,6 +118,10 @@ class TrainState:
     # calls and the microsteps since the last update
     grad_accum: Optional[list] = None
     accum_step: int = 0
+    # fp16: the dynamic loss scale (ops/precision.DynamicLossScale)
+    loss_scale: Optional[DynamicLossScale] = None
+    # fp8 delayed scaling: {module name: Fp8Meta} (ops/fp8.py)
+    fp8_state: Optional[dict] = None
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
@@ -112,10 +143,11 @@ def _not_ported(what: str, item: str):
 
 class Accelerator:
     """One device (``"cuda"`` unless ``cpu=True`` or ``device=`` says
-    otherwise), mixed precision ``"no"`` or ``"bf16"``, gradient
-    accumulation, the train step, and the loop around it: prepared data
-    loaders and schedules, verified checkpoints, the NaN guard, preemption
-    and goodput.  The JAX package's constructor, plus ``device``."""
+    otherwise), mixed precision ``"no"``, ``"bf16"``, ``"fp16"`` or
+    ``"fp8"``, ZeRO-offload (``fsdp_plugin``), gradient accumulation, the
+    train step, and the loop around it: prepared data loaders and
+    schedules, verified checkpoints, the NaN guard, preemption and
+    goodput.  The JAX package's constructor, plus ``device``."""
 
     def __init__(self, device_placement: bool = True, split_batches: bool = False,
                  mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
@@ -130,16 +162,27 @@ class Accelerator:
                  kwargs_handlers: Optional[list] = None, device=None):
         if parallelism_config is not None:
             raise _not_ported("parallelism_config (FSDP/TP/CP over several GPUs)", "A13")
-        if fsdp_plugin is not None:
-            raise _not_ported("fsdp_plugin (sharding and cpu offload)", "A12/A13")
+        if fsdp_plugin is not None and not isinstance(fsdp_plugin,
+                                                      FullyShardedDataParallelPlugin):
+            raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallelPlugin, got "
+                            f"{type(fsdp_plugin).__name__}")
+        if fsdp_plugin is not None and fsdp_plugin.sharding_strategy is not None:
+            raise _not_ported("sharding_strategy (a layout over several GPUs)", "A13")
+        if fsdp_plugin is not None and fsdp_plugin.collective_matmul != "off":
+            raise _not_ported("collective_matmul (a tensor-parallel mesh)", "A13")
+        self.fsdp_plugin = fsdp_plugin
         self.resilience_plugin = resilience_plugin or ResiliencePlugin()
         if self.resilience_plugin.peer_snapshot_every > 0:
             raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13")
         self.grad_sync_kwargs = GradSyncKwargs()
+        self.fp8_recipe: Optional[FP8RecipeKwargs] = None
         for handler in kwargs_handlers or []:
-            if not isinstance(handler, GradSyncKwargs):
+            if isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe = handler
+            elif isinstance(handler, GradSyncKwargs):
+                self.grad_sync_kwargs = handler
+            else:
                 raise _not_ported(f"kwargs handler {type(handler).__name__}", "A14")
-            self.grad_sync_kwargs = handler
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps)
@@ -163,6 +206,9 @@ class Accelerator:
         self.rng_types = rng_types
         self.step_count = 0
         self._in_accumulate = False
+        # the offloaded step's last bytes and times (see the module doc)
+        self.offload_log: dict = {}
+        self._offload_buffers: dict = {}
 
         self._dataloaders: list = []
         self._optimizers: list = []
@@ -334,15 +380,41 @@ class Accelerator:
     def prepare_optimizer(self, optimizer: Union[str, GradientTransformation,
                                                  AcceleratedOptimizer],
                           device_placement=None) -> AcceleratedOptimizer:
-        """A recipe name (:func:`~.optimizer.make_optimizer`), a
+        """A recipe name (:func:`~.optimizer.make_optimizer`; the -sr8
+        recipes at the plugin's ``int8_state_block_size``), a
         transformation, or an :class:`AcceleratedOptimizer`."""
         if isinstance(optimizer, AcceleratedOptimizer):
             return optimizer
         if isinstance(optimizer, str):
-            optimizer = make_optimizer(optimizer)
+            # the -sr8 recipes take their scale granularity from the plugin
+            block = (self.fsdp_plugin.int8_state_block_size
+                     if self.fsdp_plugin is not None and optimizer.endswith("-sr8") else None)
+            optimizer = make_optimizer(optimizer, block_size=block)
         wrapped = AcceleratedOptimizer(optimizer)
         self._optimizers.append(wrapped)
         return wrapped
+
+    def _offload_flags(self) -> tuple[bool, bool]:
+        """(offload the optimizer state, offload the stored params) from the
+        plugin (JAX :770)."""
+        p = self.fsdp_plugin
+        if p is None:
+            return False, False
+        return bool(p.cpu_offload), bool(p.cpu_offload and p.offload_params)
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t``, page-locked when the accelerator is on the
+        card (the CPU accelerator's host is its device: ``t`` itself)."""
+        if self.device.type != "cuda":
+            return t
+        return t.detach().to("cpu").pin_memory()
+
+    def device_params(self, params: dict) -> dict:
+        """Device copies of (possibly host-offloaded) params, for uses off
+        the train step (JAX :747); resident params come back as they
+        are."""
+        return {n: p if p.device.type == self.device.type else p.to(self.device)
+                for n, p in params.items()}
 
     def create_train_state(self, params: Union[nn.Module, dict], optimizer,
                            apply_fn: Optional[Callable] = None,
@@ -350,8 +422,12 @@ class Accelerator:
         """The train state over ``params`` (a module — its own parameter
         tensors — or a name -> tensor dict), ordered as the JAX package
         flattens its tree, with the optimizer state initialised on them,
-        the guard's counters under ``ResiliencePlugin(nan_guard=True)`` and
-        the carried accumulator under ``mode="across_steps"``."""
+        the guard's counters under ``ResiliencePlugin(nan_guard=True)``, the
+        carried accumulator under ``mode="across_steps"``, the loss scale
+        under fp16 and the delayed-scaling metas under fp8.  Under
+        ``cpu_offload`` the optimizer state (and with ``offload_params`` the
+        stored params) are page-locked host copies; the module's device
+        tensors then hold the compute copy each step fetches."""
         if isinstance(params, nn.Module):
             params = {n: p.detach() for n, p in params.named_parameters()}
         params = {n: params[n] for n in flax_leaf_order(params)}
@@ -363,17 +439,40 @@ class Accelerator:
         tx = self.prepare_optimizer(optimizer).tx
         accum = (self.gradient_state.num_steps > 1
                  and self.gradient_state.plugin.mode == "across_steps")
+        offload_opt, offload_params = self._offload_flags()
+        fp8_state = None
+        if self.mixed_precision == "fp8" and _fp8.fp8_delayed_enabled():
+            recipe = self.fp8_recipe
+            fp8_state = _fp8.init_fp8_state(
+                params, history_len=recipe.amax_history_len if recipe else None,
+                margin=recipe.margin if recipe else None)
+        if offload_opt:
+            # the stored params' compute copies: the given device tensors
+            self._offload_buffers = {"compute": dict(params), "grads": {}, "params": [],
+                                     "fetch": {}}
+            host_params = {n: self._to_host(p) for n, p in params.items()}
+            opt_state = tx.init(list(host_params.values()))
+            opt_state = type(opt_state)(*[
+                [self._to_host(t) for t in v] if isinstance(v, list) else v
+                for v in opt_state])
+            if offload_params:
+                params = host_params
+        else:
+            opt_state = tx.init(list(params.values()))
         return TrainState(
             step=0,
             params=params,
-            opt_state=tx.init(list(params.values())),
+            opt_state=opt_state,
             rng=rng if rng is not None else get_rng_key(0, device=self.device),
             apply_fn=apply_fn,
             tx=tx,
             guard_state=(_guard.init_guard_state(self.device)
                          if self.resilience_plugin.nan_guard else None),
-            grad_accum=([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grad_accum=([torch.zeros(p.shape, dtype=torch.float32, device=dev)
                          for p in params.values()] if accum else None),
+            loss_scale=(DynamicLossScale(device=dev) if self.policy.needs_loss_scaling
+                        else None),
+            fp8_state=fp8_state,
         )
 
     # -- the train step --------------------------------------------------
@@ -394,22 +493,30 @@ class Accelerator:
         ``gradient_accumulation_steps`` (``in_step``: microbatches of the
         batch, summed in f32; ``across_steps``: the f32 sum carried in the
         state, an update every ``num_steps``-th call), global-norm clipping
-        in each gradient's own width, the optimizer update in place.
-        ``metrics`` holds ``loss`` and ``grad_norm`` as device tensors; with
-        the NaN guard also its three keys, and the step reads the
-        finiteness flag back once (without the guard it reads nothing)."""
+        in each gradient's own width, the optimizer update in place — on
+        the host under ``cpu_offload``.  ``metrics`` holds ``loss`` and
+        ``grad_norm`` as tensors; under fp16 also ``grads_finite`` and
+        ``loss_scale``; with the NaN guard its three keys.  A step reads
+        one finiteness flag back when the guard or fp16 is on, none
+        otherwise (the offloaded step waits on its copies besides)."""
         gsk = self.grad_sync_kwargs
         if gsk.compression or gsk.dcn_compression or gsk.hierarchical:
             raise _not_ported("gradient compression / hierarchical reduction", "A13")
         if gsk.grad_dtype not in (None, "bf16"):
             raise ValueError(f"GradSyncKwargs.grad_dtype supports only 'bf16', got "
                              f"{gsk.grad_dtype!r}")
+        policy = self.policy
+        if gsk.grad_dtype is not None and policy.needs_loss_scaling:
+            raise ValueError(
+                "GradSyncKwargs.grad_dtype supports only 'bf16' without loss scaling (fp16 "
+                f"grads must be unscaled in fp32); got grad_dtype={gsk.grad_dtype!r} with "
+                f"mixed_precision={self.mixed_precision!r}")
         comm_dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, None: None}[gsk.comm_dtype]
         wants_rng = "rng" in inspect.signature(loss_fn).parameters
         accum_steps = self.gradient_state.num_steps
         mode = self.gradient_state.plugin.mode
-        policy = self.policy
         compute_width = gsk.grad_dtype is not None
+        use_fp8 = self.mixed_precision == "fp8"
         nan_guard = bool(self.resilience_plugin.nan_guard)
         guard_abort_after = self.resilience_plugin.max_consecutive_nan_skips if nan_guard else 0
         if nan_guard and mode == "across_steps" and accum_steps > 1:
@@ -418,10 +525,53 @@ class Accelerator:
                 "boundary update: a non-finite microbatch pollutes the carried accumulator "
                 "before the guard sees it"
             )
+        offload_opt, offload_params = self._offload_flags()
+        plugin = self.fsdp_plugin
+        chunk_bytes = (int(plugin.host_update_chunk_gib * 2**30)
+                       if offload_opt and plugin.host_update_chunk_gib else None)
+        pipeline = bool(chunk_bytes is not None and plugin.host_update_pipeline)
+        if chunk_bytes is not None:
+            logger.warning(
+                "host_update_chunk_gib=%s splits the optimizer update into per-leaf-group "
+                "host updates: the recipe must be per-leaf independent (the named recipes "
+                "are); pass max_grad_norm to prepare_train_step for global clipping",
+                plugin.host_update_chunk_gib)
+        # clipping under offload takes the norm on the host, after every
+        # gradient has crossed (JAX :1148-1160)
+        gnorm_on_host = offload_opt and max_grad_norm is not None
         # the guard's host reading of the step just run: (skipped, consecutive)
         guard_read: dict = {}
 
-        def compute_grads(params: dict, batch, rng):
+        def fetch_params(state: TrainState) -> dict:
+            """The params the forward reads: the stored ones, or under
+            ``offload_params`` their compute-width copies fetched into the
+            device buffers (cast on the host first where the widths differ:
+            only the compute copy crosses)."""
+            if offload_opt:
+                self.offload_log = {"h2d_bytes": 0}
+            if not offload_params:
+                return state.params
+            buf = self._offload_buffers
+            compute, staging = buf["compute"], buf["fetch"]
+            h2d = 0
+            for name, hp in state.params.items():
+                want = policy.compute_dtype if hp.is_floating_point() else hp.dtype
+                dst = compute[name]
+                if dst.dtype != want:
+                    dst = compute[name] = torch.empty(hp.shape, dtype=want, device=self.device)
+                src = hp
+                if hp.dtype != want:
+                    src = staging.get(name)
+                    if src is None:
+                        src = staging[name] = self._to_host(torch.empty(hp.shape, dtype=want))
+                    src.copy_(hp)
+                if dst is not src:
+                    dst.copy_(src, non_blocking=True)
+                h2d += dst.numel() * dst.element_size()
+            self.offload_log["h2d_bytes"] = h2d
+            return compute
+
+        def compute_grads(state: TrainState, params: dict, batch, rng):
             names = list(params)
             if compute_width:
                 # differentiate with respect to the compute-width copy: every
@@ -432,25 +582,61 @@ class Accelerator:
             else:
                 leaves = [p.detach().requires_grad_() for p in params.values()]
                 p_in = policy.cast_to_compute(dict(zip(names, leaves)))
-            loss = (loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)).float()
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with contextlib.ExitStack() as regions:
+                if use_fp8:
+                    regions.enter_context(fp8_autocast())
+                    regions.enter_context(_fp8.merge_fp8_collection(state.fp8_state))
+                loss = (loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)).float()
+            # the scalar loss lives in f32, so scaling it by 2^16 cannot overflow
+            scaled = state.loss_scale.scale_loss(loss) if state.loss_scale is not None else loss
+            grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
             if comm_dtype is not None:
                 grads = [g.to(comm_dtype) for g in grads]
-            if not compute_width:
+            if not compute_width and (not offload_opt or state.loss_scale is not None):
+                # f32 on the card; the offloaded step sends the compute width
+                # and widens on the host (fp16 must unscale in f32 first)
                 grads = [g.float() for g in grads]
             return loss.detach(), grads
 
+        def read_finite(state: TrainState, flags: list) -> tuple[bool, int]:
+            """One host read: the step's device finiteness flags and the
+            guard's consecutive count."""
+            prev = (state.guard_state["consecutive_nan_skips"] if state.guard_state is not None
+                    else torch.zeros((), dtype=torch.int32, device=flags[0].device))
+            finite, consecutive = torch.stack(
+                [torch.stack([f.to(prev.device) for f in flags]).all().to(torch.int32),
+                 prev]).tolist()
+            return bool(finite), consecutive
+
         def apply_update(state: TrainState, grads: list, loss):
-            gnorm = global_norm(grads)
-            metrics = {"loss": loss, "grad_norm": gnorm}
+            loss_scale = state.loss_scale
+            flags = []
+            metrics = {"loss": loss}
+            if loss_scale is not None:
+                grads = loss_scale.unscale(grads)
+                grads_finite = all_finite(grads)
+                new_scale = loss_scale.update(grads_finite)
+                flags.append(grads_finite)
+                metrics.update(grads_finite=grads_finite, loss_scale=new_scale.scale)
+                state = state.replace(loss_scale=new_scale)
+            gnorm = None
+            if not gnorm_on_host:
+                gnorm = global_norm(grads)
+                if nan_guard:
+                    flags.append(_guard.step_finite(loss, gnorm))
+            elif nan_guard:
+                flags.append(torch.isfinite(loss))
+            finite, consecutive = read_finite(state, flags) if flags else (True, 0)
+            staged = None
+            if offload_opt:
+                staged = self._stage_grads(state, grads, chunk_bytes, pipeline, gnorm_on_host)
+                if gnorm_on_host:
+                    gnorm = staged["gnorm"]
+                    if nan_guard and not bool(torch.isfinite(gnorm)):
+                        finite = False
+            metrics["grad_norm"] = gnorm
             if nan_guard:
-                # one host read: the finiteness flag with the consecutive count
-                prev = (state.guard_state["consecutive_nan_skips"] if state.guard_state
-                        is not None else torch.zeros((), dtype=torch.int32, device=loss.device))
-                finite, consecutive = torch.stack(
-                    [_guard.step_finite(loss, gnorm).to(torch.int32), prev]).tolist()
-                finite = bool(finite)
                 guard_read.update(skipped=not finite, consecutive=0 if finite else consecutive + 1)
                 if state.guard_state is not None:
                     new_guard = _guard.update_guard_counters(state.guard_state, finite)
@@ -458,32 +644,38 @@ class Accelerator:
                     state = state.replace(guard_state=new_guard)
                 else:
                     metrics["nan_skipped"] = torch.tensor(not finite, device=loss.device)
-                if not finite:
-                    # skipped: params, the optimizer's tensors and its count
-                    # stay as they are
-                    return state.replace(step=state.step + 1), metrics
-            if max_grad_norm is not None:
-                clip = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-                # in each grad's own width: an f32 scalar would promote a
-                # bf16 tree back to f32
-                grads = [g * clip.to(g.dtype) for g in grads]
-            schedule = self._lr_schedule(state)
-            if schedule is not None:
-                hp = getattr(state.opt_state, "hyperparams", None)
-                if hp is None or "lr" not in hp:
-                    raise ValueError(
-                        "a prepared schedule writes the optimizer's hyperparams['lr'], which "
-                        f"only the -sr recipes read; {type(state.opt_state).__name__} keeps "
-                        "the learning rate it was built with"
-                    )
-                hp["lr"].fill_(float(schedule(state.opt_state.count)))
-            params = state.params
-            leaves = list(params.values())
-            new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves)
-            with torch.no_grad():
-                for p, new in zip(leaves, new_leaves):
-                    p.copy_(new)
-            return state.replace(step=state.step + 1, params=params, opt_state=new_opt), metrics
+            if finite:
+                schedule = self._lr_schedule(state)
+                if schedule is not None:
+                    hp = getattr(state.opt_state, "hyperparams", None)
+                    if hp is None or "lr" not in hp:
+                        raise ValueError(
+                            "a prepared schedule writes the optimizer's hyperparams['lr'], "
+                            "which only the -sr recipes read; "
+                            f"{type(state.opt_state).__name__} keeps the learning rate it "
+                            "was built with")
+                    hp["lr"].fill_(float(schedule(state.opt_state.count)))
+                if offload_opt:
+                    new_opt = self._host_update(state, staged, max_grad_norm)
+                else:
+                    if max_grad_norm is not None:
+                        clip = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+                        # in each grad's own width: an f32 scalar would
+                        # promote a bf16 tree back to f32
+                        grads = [g * clip.to(g.dtype) for g in grads]
+                    leaves = list(state.params.values())
+                    new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves)
+                    with torch.no_grad():
+                        for p, new in zip(leaves, new_leaves):
+                            p.copy_(new)
+                state = state.replace(opt_state=new_opt)
+            # skipped: params, the optimizer's tensors and its count stay as
+            # they are.  The fp8 histories tick either way, on the weights
+            # the next step reads (JAX :1381-1389)
+            if state.fp8_state is not None:
+                state = state.replace(fp8_state=_fp8.update_fp8_state(state.fp8_state,
+                                                                      state.params))
+            return state.replace(step=state.step + 1), metrics
 
         def microbatches(batch):
             def piece(x, i):
@@ -499,7 +691,7 @@ class Accelerator:
         if accum_steps > 1 and mode == "across_steps":
 
             def step_fn(state: TrainState, batch):
-                loss, grads = compute_grads(state.params, batch, state.rng)
+                loss, grads = compute_grads(state, fetch_params(state), batch, state.rng)
                 acc = state.grad_accum
                 for a, g in zip(acc, grads):
                     a.add_(g)
@@ -520,8 +712,9 @@ class Accelerator:
 
             def step_fn(state: TrainState, batch):
                 acc, loss_sum = None, torch.zeros((), device=self.device)
+                params = fetch_params(state)
                 for mb in microbatches(batch):
-                    loss, grads = compute_grads(state.params, mb, state.rng)
+                    loss, grads = compute_grads(state, params, mb, state.rng)
                     # the sum runs in f32 whatever the gradients' width
                     if acc is None:
                         acc = [g.float() for g in grads]
@@ -534,7 +727,7 @@ class Accelerator:
         else:
 
             def step_fn(state: TrainState, batch):
-                loss, grads = compute_grads(state.params, batch, state.rng)
+                loss, grads = compute_grads(state, fetch_params(state), batch, state.rng)
                 return apply_update(state, grads, loss)
 
         def wrapped(state: TrainState, batch):
@@ -567,6 +760,122 @@ class Accelerator:
             return new_state, metrics
 
         return wrapped
+
+    # -- the offloaded update --------------------------------------------
+
+    def _stage_grads(self, state: TrainState, grads: list, chunk_bytes: Optional[int],
+                     pipeline: bool, norm_on_host: bool) -> dict:
+        """Queue the gradients' device-to-host copies into reused pinned
+        buffers (``ops/streaming.stage_put``): all at once, one stage per
+        group (pipelined: every group queued now, so group k + 1 crosses
+        while group k updates; serial: each group queued when its update
+        starts, by :meth:`_host_update`).  With ``norm_on_host`` every
+        gradient is on the host before the global norm is taken there."""
+        buf = self._offload_buffers
+        n = len(grads)
+        groups = (_streaming.chunk_groups(state.params, chunk_bytes) if chunk_bytes
+                  else [list(range(n))])
+        cuda = grads[0].device.type == "cuda"
+        log = self.offload_log
+        log.update(d2h_bytes=sum(g.numel() * g.element_size() for g in grads), groups=len(groups),
+                   pipeline=pipeline, host_wait_ms=0.0, host_update_ms=0.0)
+        if cuda:
+            # the backward's end: the host's wait on it is compute, not copy
+            done = torch.cuda.Event()
+            done.record()
+            t0 = time.perf_counter()
+            done.synchronize()
+            log["backward_wait_ms"] = (time.perf_counter() - t0) * 1e3
+        bulk = norm_on_host or len(groups) == 1
+        staged = {"groups": groups, "stages": [None] * len(groups), "grads": grads}
+        if bulk:
+            whole = _streaming.stage_put(grads, buf["grads"].setdefault("all", []))
+            staged["whole"] = whole
+        elif pipeline:
+            for gi, idxs in enumerate(groups):
+                staged["stages"][gi] = _streaming.stage_put(
+                    [grads[i] for i in idxs], buf["grads"].setdefault(gi, []))
+        if norm_on_host:
+            t0 = time.perf_counter()
+            host = whole.wait_host()
+            log["host_wait_ms"] += (time.perf_counter() - t0) * 1e3
+            staged["gnorm"] = global_norm([g.float() for g in host])
+        return staged
+
+    def _host_update(self, state: TrainState, staged: dict, max_grad_norm: Optional[float]):
+        """The optimizer update on the host, group by group over the staged
+        gradients (widened to f32 there): each group's slice of the
+        optimizer state (``slice_congruent``), its own leaf indices from 0
+        (the SR salts of JAX's chunked update), the new weights and state
+        written into the host tensors in place (the page-locked buffers
+        stay), then the compute copies' or the card's params refreshed.
+        Returns the merged optimizer state."""
+        buf, log = self._offload_buffers, self.offload_log
+        _, offload_params = self._offload_flags()
+        names = list(state.params)
+        n = len(names)
+        groups = staged["groups"]
+        if offload_params:
+            host_p = list(state.params.values())
+        else:
+            host_p = _streaming.stage_put(list(state.params.values()),
+                                          buf["params"]).wait_host()
+            log["d2h_bytes"] += sum(p.numel() * p.element_size() for p in host_p)
+        clip = None
+        if max_grad_norm is not None:
+            clip = torch.clamp(max_grad_norm / (staged["gnorm"] + 1e-6), max=1.0)
+        whole = staged.get("whole")
+        self_widening = isinstance(getattr(state.opt_state, "hyperparams", None), dict)
+        outs = []
+        for gi, idxs in enumerate(groups):
+            t0 = time.perf_counter()
+            if whole is not None:
+                host_g = whole.wait_host()
+                g = [host_g[i] for i in idxs]
+            else:
+                if staged["stages"][gi] is None:
+                    staged["stages"][gi] = _streaming.stage_put(
+                        [staged["grads"][i] for i in idxs], buf["grads"].setdefault(gi, []))
+                g = staged["stages"][gi].wait_host()
+            t1 = time.perf_counter()
+            # the -sr / -sr8 recipes (states with hyperparameters) widen each
+            # gradient themselves, slice by slice; the others take f32
+            g32 = g if clip is None and self_widening else [x.float() for x in g]
+            if clip is not None:
+                g32 = [x * clip for x in g32]
+            sub = _streaming.slice_congruent(state.opt_state, n, idxs)
+            p_sub = [host_p[i] for i in idxs]
+            new_p, new_sub = state.tx.update(g32, sub, p_sub)
+            with torch.no_grad():
+                for p, x in zip(p_sub, new_p):
+                    p.copy_(x)
+            outs.append(new_sub)
+            log["host_wait_ms"] += (t1 - t0) * 1e3
+            log["host_update_ms"] += (time.perf_counter() - t1) * 1e3
+        stages = [whole] if whole is not None else staged["stages"]
+        log["d2h_ms"] = sum(st.copy_ms() for st in stages)
+        if log["d2h_ms"] > 0:
+            # the share of the copy time the host did not spend waiting
+            log["d2h_hidden"] = max(0.0, 1.0 - log["host_wait_ms"] / log["d2h_ms"])
+        merged = _streaming.merge_congruent(state.opt_state, outs, n, groups)
+        # the new state's values into the old (page-locked) tensors
+        fields = []
+        with torch.no_grad():
+            for old, new in zip(state.opt_state, merged):
+                if isinstance(old, list) and len(old) == n:
+                    for o, x in zip(old, new):
+                        o.copy_(x)
+                    fields.append(old)
+                else:
+                    fields.append(new)
+        if not offload_params:
+            with torch.no_grad():
+                for p, h in zip(state.params.values(), host_p):
+                    if p is not h:
+                        p.copy_(h, non_blocking=True)
+            log["h2d_bytes"] = log.get("h2d_bytes", 0) + sum(
+                p.numel() * p.element_size() for p in host_p)
+        return type(state.opt_state)(*fields)
 
     # -- the reference's loop surface -----------------------------------
 

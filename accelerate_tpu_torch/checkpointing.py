@@ -24,7 +24,8 @@ one tensor per leaf — ``params.safetensors`` (params by name),
 ``opt_state.safetensors`` (the optimizer state's tensors by flatten index,
 its ``count`` and hyperparameters in the header's metadata) and
 ``state.safetensors`` (``step``, the ``TrainState.rng`` generator's state,
-``guard_state`` and the carried accumulator).  The port's step updates the
+``guard_state``, the carried accumulator, the fp16 loss scale and the fp8
+metas).  The port's step updates the
 params in place, so a save first **snapshots** every leaf: a copy to
 pinned host memory issued on the current stream, ordered before the next
 step's update.  ``async_save=True`` returns after issuing that copy; a
@@ -506,6 +507,12 @@ class _TrainStateSnapshot:
             extra.update({f"guard_state.{k}": v for k, v in train_state.guard_state.items()})
         if train_state.grad_accum is not None:
             extra.update({f"grad_accum.{i}": g for i, g in enumerate(train_state.grad_accum)})
+        if train_state.loss_scale is not None:
+            extra.update({"loss_scale.scale": train_state.loss_scale.scale,
+                          "loss_scale.counter": train_state.loss_scale.counter})
+        for name, meta in (train_state.fp8_state or {}).items():
+            extra.update({f"fp8_state.{name}.amax_history": meta.amax_history,
+                          f"fp8_state.{name}.scale": meta.scale})
         live = [*params.values(), *opt_tensors, *hyper_tensors.values(), *extra.values()]
         host = _snapshot(live, buffers)
         self.event = None
@@ -582,6 +589,22 @@ def _read_train_state(in_dir: Path, template):
     if accum is not None:
         accum = [_restore_leaf(g, extra[f"grad_accum.{i}"], f"grad_accum.{i}").to(g.device)
                  for i, g in enumerate(accum)]
+    loss_scale = template.loss_scale
+    if loss_scale is not None:
+        loss_scale = type(loss_scale)(
+            _restore_leaf(loss_scale.scale, extra["loss_scale.scale"], "loss_scale.scale")
+            .to(loss_scale.scale.device),
+            loss_scale.growth_factor, loss_scale.backoff_factor, loss_scale.growth_interval,
+            _restore_leaf(loss_scale.counter, extra["loss_scale.counter"], "loss_scale.counter")
+            .to(loss_scale.counter.device))
+    fp8_state = template.fp8_state
+    if fp8_state is not None:
+        fp8_state = {name: type(meta)(
+            _restore_leaf(meta.amax_history, extra[f"fp8_state.{name}.amax_history"],
+                          f"fp8_state.{name}.amax_history").to(meta.amax_history.device),
+            _restore_leaf(meta.scale, extra[f"fp8_state.{name}.scale"],
+                          f"fp8_state.{name}.scale").to(meta.scale.device))
+            for name, meta in fp8_state.items()}
     # every check passed: only now overwrite the template's params in place
     with torch.no_grad():
         for name, p in template.params.items():
@@ -590,7 +613,8 @@ def _read_train_state(in_dir: Path, template):
         template.rng.set_state(extra["rng"])
     return template.replace(step=int(extra["step"]), params=template.params,
                             opt_state=opt_state, guard_state=guard, grad_accum=accum,
-                            accum_step=int(extra["accum_step"]))
+                            accum_step=int(extra["accum_step"]), loss_scale=loss_scale,
+                            fp8_state=fp8_state)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,12 @@
 //   flash_attention_dkv_bf16  replaces _dkv_kernel (launched by _flash_bwd):
 //       dk = ds^T q and dv = p^T g, summed over each kv head's GQA group.
 //
+// Each has an f16 instance (flash_attention_{fwd,dq,dkv}_f16, the Pallas
+// kernels' other float dtype): every kernel and launcher is a template over
+// F16, which picks the products' operand type (wgmma .f16 / .bf16), the
+// TMA maps' element type and the rounding of p, ds and the outputs; the
+// bf16 instances are the code they were.
+//
 // Semantics (kept from the Pallas bodies):
 //   * q / g / out [B, T, H, D], k / v [B, S, Hkv, D] row-major (the JAX
 //     public layout, read in place: no transposes); lse / delta [B, H, T]
@@ -146,9 +152,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -156,28 +165,32 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-using hopper::pack_bf16;
+// the element type of q / k / v / g and the outputs: bf16, or f16 when F16
+template <bool F16>
+using Elem = typename std::conditional<F16, __half, __nv_bfloat16>::type;
+
+using hopper::pack2;
 
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
-    const bf16* q;
-    const bf16* k;
-    const bf16* v;
+    const void* q;      // bf16 or f16 (the instance's Elem), as are g and the outputs
+    const void* k;
+    const void* v;
     const int* seg_q;
     const int* seg_kv;
     const int* pos_q;
     const int* pos_kv;
-    const bf16* g;
+    const void* g;
     const float* lse_in;
     const float* delta;
-    bf16* out;
+    void* out;
     float* lse_out;
-    bf16* dq;
-    bf16* dk;
-    bf16* dv;
+    void* dq;
+    void* dk;
+    void* dv;
     int B, T, S, H, Hkv, causal;
     float sm_scale;
 };
@@ -222,7 +235,7 @@ struct FwdPlan {
     static constexpr size_t kBytes = (size_t)kBar + 8 * (1 + 4 * FWD_STAGES) + 1024;
 };
 
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -344,7 +357,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-            hopper::wgmma_m64n128k16_ss(
+            hopper::wgmma_m64n128k16_ss<F16>(
                 sc, hopper::sw128_desc(qa + (kk >> 2) * FWD_BM * 128 + (kk & 3) * 32),
                 hopper::sw128_desc(ks + (kk >> 2) * FWD_BN * 128 + (kk & 3) * 32), kk > 0);
         }
@@ -410,8 +423,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             }
             // k-step jb / 2 of P V: a0 / a1 from the even 8-column block,
             // a2 / a3 from the odd one
-            pf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(pv[0], pv[1]);
-            pf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+            pf[jb >> 1][(jb & 1) * 2 + 0] = pack2<F16>(pv[0], pv[1]);
+            pf[jb >> 1][(jb & 1) * 2 + 1] = pack2<F16>(pv[2], pv[3]);
         }
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + rs[hh];
@@ -429,9 +442,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             for (int c = 0; c < L::kChunks; ++c) {
                 const uint64_t desc = hopper::sw128_desc(vs + c * FWD_BN * 128 + kk * 2048);
                 if (D - 64 * c >= 64) {
-                    hopper::wgmma_m64n64k16_rs<1>(acc[c], pf[kk], desc);
+                    hopper::wgmma_m64n64k16_rs<1, F16>(acc[c], pf[kk], desc);
                 } else {
-                    hopper::wgmma_m64n32k16_rs<1>(acc[c], pf[kk], desc);
+                    hopper::wgmma_m64n32k16_rs<1, F16>(acc[c], pf[kk], desc);
                 }
             }
         }
@@ -453,14 +466,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const float lt = quad_sum(l_run[hh]);
         const float safe_l = lt == 0.f ? 1.f : lt;
         if (row[hh] >= p.T) continue;
-        bf16* orow = p.out + (((size_t)b * p.T + row[hh]) * p.H + h) * D;
+        Elem<F16>* orow = static_cast<Elem<F16>*>(p.out) + (((size_t)b * p.T + row[hh]) * p.H + h) * D;
 #pragma unroll
         for (int c = 0; c < L::kChunks; ++c) {
 #pragma unroll
             for (int jb = 0; jb < 8; ++jb) {
                 if (64 * c + 8 * jb >= D) continue;
                 *reinterpret_cast<uint32_t*>(orow + 64 * c + 8 * jb + 2 * t4) =
-                    pack_bf16(acc[c][4 * jb + 2 * hh] / safe_l, acc[c][4 * jb + 2 * hh + 1] / safe_l);
+                    pack2<F16>(acc[c][4 * jb + 2 * hh] / safe_l, acc[c][4 * jb + 2 * hh + 1] / safe_l);
             }
         }
         // lse in natural units; a row that every key masks has m at the
@@ -510,7 +523,7 @@ struct DqPlan {
     static constexpr size_t kBytes = (size_t)kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -638,7 +651,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-            hopper::wgmma_ss<BK>(sc, hopper::sw128_desc(qa + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+            hopper::wgmma_ss<BK, F16>(sc, hopper::sw128_desc(qa + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
                                  hopper::sw128_desc(ks + (kk >> 2) * BK * 128 + (kk & 3) * 32),
                                  kk > 0);
         }
@@ -647,7 +660,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-            hopper::wgmma_ss<BK>(dp, hopper::sw128_desc(ga + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
+            hopper::wgmma_ss<BK, F16>(dp, hopper::sw128_desc(ga + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
                                  hopper::sw128_desc(vs + (kk >> 2) * BK * 128 + (kk & 3) * 32),
                                  kk > 0);
         }
@@ -701,15 +714,15 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
             for (int e = 0; e < 4; ++e)
                 ds[e] = sc[4 * jb + e] * fmaf(dp[4 * jb + e], p.sm_scale, -dsc[e >> 1]);
-            dsf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-            dsf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+            dsf[jb >> 1][(jb & 1) * 2 + 0] = pack2<F16>(ds[0], ds[1]);
+            dsf[jb >> 1][(jb & 1) * 2 + 1] = pack2<F16>(ds[2], ds[3]);
         }
 
         // dQ += dS K, one wgmma of all D head-dim columns per 16 keys
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-            hopper::wgmma_rs_mn<D>(acc, dsf[kk], hopper::sw128_desc(ks + kk * 2048, BK * 128));
+            hopper::wgmma_rs_mn<D, F16>(acc, dsf[kk], hopper::sw128_desc(ks + kk * 2048, BK * 128));
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
 #pragma unroll
@@ -722,11 +735,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
         if (!row_in[hh]) continue;
-        bf16* drow = p.dq + (((size_t)b * p.T + row[hh]) * p.H + h) * D + 2 * t4;
+        Elem<F16>* drow = static_cast<Elem<F16>*>(p.dq) + (((size_t)b * p.T + row[hh]) * p.H + h) * D + 2 * t4;
 #pragma unroll
         for (int jb = 0; jb < D / 8; ++jb)
             *reinterpret_cast<uint32_t*>(drow + 8 * jb) =
-                pack_bf16(acc[4 * jb + 2 * hh], acc[4 * jb + 2 * hh + 1]);
+                pack2<F16>(acc[4 * jb + 2 * hh], acc[4 * jb + 2 * hh + 1]);
     }
 }
 
@@ -748,7 +761,7 @@ struct DkvPlan {
     static constexpr size_t kBytes = (size_t)kRows + 2 * 2 * 2 * BQ * 4 + 1024;
 };
 
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_g,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -912,7 +925,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < KSTEPS; ++kk) {
-                hopper::wgmma_ss<BQ>(
+                hopper::wgmma_ss<BQ, F16>(
                     sc, hopper::sw128_desc(ka + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
                     hopper::sw128_desc(qs + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
             }
@@ -921,7 +934,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < KSTEPS; ++kk) {
-                hopper::wgmma_ss<BQ>(
+                hopper::wgmma_ss<BQ, F16>(
                     dp, hopper::sw128_desc(va + (kk >> 2) * BWD_CHUNK + (kk & 3) * 32),
                     hopper::sw128_desc(gs + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
             }
@@ -988,10 +1001,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                 for (int e = 0; e < 4; ++e)
                     ds[e] = sc[4 * jb + e] * (dp[4 * jb + e] - ((e & 1) ? dl.y : dl.x)) *
                             p.sm_scale;
-                pf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(sc[4 * jb + 0], sc[4 * jb + 1]);
-                pf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(sc[4 * jb + 2], sc[4 * jb + 3]);
-                dsf[jb >> 1][(jb & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-                dsf[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+                pf[jb >> 1][(jb & 1) * 2 + 0] = pack2<F16>(sc[4 * jb + 0], sc[4 * jb + 1]);
+                pf[jb >> 1][(jb & 1) * 2 + 1] = pack2<F16>(sc[4 * jb + 2], sc[4 * jb + 3]);
+                dsf[jb >> 1][(jb & 1) * 2 + 0] = pack2<F16>(ds[0], ds[1]);
+                dsf[jb >> 1][(jb & 1) * 2 + 1] = pack2<F16>(ds[2], ds[3]);
             }
 
             // dV += P^T dO and dK += dS^T Q, one wgmma of all D head-dim
@@ -999,8 +1012,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BQ / 16; ++kk) {
-                hopper::wgmma_rs_mn<D>(dv, pf[kk], hopper::sw128_desc(gs + kk * 2048, BQ * 128));
-                hopper::wgmma_rs_mn<D>(dk, dsf[kk], hopper::sw128_desc(qs + kk * 2048, BQ * 128));
+                hopper::wgmma_rs_mn<D, F16>(dv, pf[kk], hopper::sw128_desc(gs + kk * 2048, BQ * 128));
+                hopper::wgmma_rs_mn<D, F16>(dk, dsf[kk], hopper::sw128_desc(qs + kk * 2048, BQ * 128));
             }
             hopper::wgmma_commit();
             pending = st;
@@ -1016,10 +1029,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const size_t off = (((size_t)b * p.S + key[hh]) * p.Hkv + hk) * D + 2 * t4;
 #pragma unroll
         for (int jb = 0; jb < D / 8; ++jb) {
-            *reinterpret_cast<uint32_t*>(p.dk + off + 8 * jb) =
-                pack_bf16(dk[4 * jb + 2 * hh], dk[4 * jb + 2 * hh + 1]);
-            *reinterpret_cast<uint32_t*>(p.dv + off + 8 * jb) =
-                pack_bf16(dv[4 * jb + 2 * hh], dv[4 * jb + 2 * hh + 1]);
+            *reinterpret_cast<uint32_t*>(static_cast<Elem<F16>*>(p.dk) + off + 8 * jb) =
+                pack2<F16>(dk[4 * jb + 2 * hh], dk[4 * jb + 2 * hh + 1]);
+            *reinterpret_cast<uint32_t*>(static_cast<Elem<F16>*>(p.dv) + off + 8 * jb) =
+                pack2<F16>(dv[4 * jb + 2 * hh], dv[4 * jb + 2 * hh + 1]);
         }
     }
 }
@@ -1031,13 +1044,13 @@ enum Kind { kFwd, kDq, kDkv };
 // #1: the tensor maps of q [B, T, H, D] and k / v [B, S, Hkv, D] as 4-D
 // (D, heads, sequence, batch) maps in 64-column boxes of FWD_BM (q) or
 // FWD_BN (k, v) rows, 128-byte swizzle
-template <int D>
+template <int D, bool F16>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
     using L = FwdPlan<D>;
     const dim3 grid((p.T + FWD_BM - 1) / FWD_BM, p.B * p.H);
     if (grid.y > 65535) return cudaErrorInvalidConfiguration;
     CUtensorMap tm_q, tm_k, tm_v;
-    const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+    const cuuint64_t row = (cuuint64_t)D * sizeof(Elem<F16>);
     const cuuint64_t q_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.H, (cuuint64_t)p.T, (cuuint64_t)p.B};
     const cuuint64_t q_strides[3] = {row, row * p.H, row * p.H * p.T};
     const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)p.Hkv, (cuuint64_t)p.S,
@@ -1045,7 +1058,8 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
     const cuuint64_t kv_strides[3] = {row, row * p.Hkv, row * p.Hkv * p.S};
     const cuuint32_t q_box[4] = {64, 1, FWD_BM, 1};
     const cuuint32_t kv_box[4] = {64, 1, FWD_BN, 1};
-    const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const CUtensorMapDataType type =
+        F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     if (!hopper::tensor_map_nd(&tm_q, type, 4, p.q, q_dims, q_strides, q_box,
                                CU_TENSOR_MAP_SWIZZLE_128B) ||
         !hopper::tensor_map_nd(&tm_k, type, 4, p.k, kv_dims, kv_strides, kv_box,
@@ -1053,7 +1067,7 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
         !hopper::tensor_map_nd(&tm_v, type, 4, p.v, kv_dims, kv_strides, kv_box,
                                CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorNotSupported;
-    auto kernel = flash_fwd_kernel<D>;
+    auto kernel = flash_fwd_kernel<D, F16>;
     // once per device: raise the shared-memory limit, and check that the
     // kernel was given the registers its warpgroups trade (setmaxnreg waits
     // for registers the block does not have, so it would never return;
@@ -1077,31 +1091,33 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// a [B, L, heads, D] bf16 tensor as a 4-D map (D, heads, L, B) in 64-column
-// boxes of `rows` rows, 128-byte swizzle
-template <int D>
+// a [B, L, heads, D] bf16 (f16) tensor as a 4-D map (D, heads, L, B) in
+// 64-column boxes of `rows` rows, 128-byte swizzle
+template <int D, bool F16>
 bool head_map(CUtensorMap* map, const void* base, int B, int L, int heads, int rows) {
-    const cuuint64_t row = (cuuint64_t)D * sizeof(bf16);
+    const cuuint64_t row = (cuuint64_t)D * sizeof(Elem<F16>);
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
     const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
     const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-    return hopper::tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
-                                 box, CU_TENSOR_MAP_SWIZZLE_128B);
+    return hopper::tensor_map_nd(map,
+                                 F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // #2
-template <int D>
+template <int D, bool F16>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
     using L = DqPlan<D>;
     const dim3 grid((p.T + 2 * BWD_ROWS - 1) / (2 * BWD_ROWS), p.B * p.H);
     if (grid.y > 65535) return cudaErrorInvalidConfiguration;
     CUtensorMap tm_q, tm_g, tm_k, tm_v;
-    if (!head_map<D>(&tm_q, p.q, p.B, p.T, p.H, BWD_ROWS) ||
-        !head_map<D>(&tm_g, p.g, p.B, p.T, p.H, BWD_ROWS) ||
-        !head_map<D>(&tm_k, p.k, p.B, p.S, p.Hkv, L::kBK) ||
-        !head_map<D>(&tm_v, p.v, p.B, p.S, p.Hkv, L::kBK))
+    if (!head_map<D, F16>(&tm_q, p.q, p.B, p.T, p.H, BWD_ROWS) ||
+        !head_map<D, F16>(&tm_g, p.g, p.B, p.T, p.H, BWD_ROWS) ||
+        !head_map<D, F16>(&tm_k, p.k, p.B, p.S, p.Hkv, L::kBK) ||
+        !head_map<D, F16>(&tm_v, p.v, p.B, p.S, p.Hkv, L::kBK))
         return cudaErrorNotSupported;
-    auto kernel = flash_dq_kernel<D>;
+    auto kernel = flash_dq_kernel<D, F16>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (err != cudaSuccess) return err;
@@ -1110,18 +1126,18 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
 }
 
 // #3
-template <int D>
+template <int D, bool F16>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
     using L = DkvPlan<D>;
     const dim3 grid((p.S + 2 * BWD_ROWS - 1) / (2 * BWD_ROWS), p.B * p.Hkv);
     if (grid.y > 65535) return cudaErrorInvalidConfiguration;
     CUtensorMap tm_q, tm_g, tm_k, tm_v;
-    if (!head_map<D>(&tm_q, p.q, p.B, p.T, p.H, L::BQ) ||
-        !head_map<D>(&tm_g, p.g, p.B, p.T, p.H, L::BQ) ||
-        !head_map<D>(&tm_k, p.k, p.B, p.S, p.Hkv, BWD_ROWS) ||
-        !head_map<D>(&tm_v, p.v, p.B, p.S, p.Hkv, BWD_ROWS))
+    if (!head_map<D, F16>(&tm_q, p.q, p.B, p.T, p.H, L::BQ) ||
+        !head_map<D, F16>(&tm_g, p.g, p.B, p.T, p.H, L::BQ) ||
+        !head_map<D, F16>(&tm_k, p.k, p.B, p.S, p.Hkv, BWD_ROWS) ||
+        !head_map<D, F16>(&tm_v, p.v, p.B, p.S, p.Hkv, BWD_ROWS))
         return cudaErrorNotSupported;
-    auto kernel = flash_dkv_kernel<D>;
+    auto kernel = flash_dkv_kernel<D, F16>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (err != cudaSuccess) return err;
@@ -1129,14 +1145,14 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool F16>
 cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
-    if (kind == kFwd) return launch_fwd<D>(p, stream);
-    if (kind == kDq) return launch_dq<D>(p, stream);
-    return launch_dkv<D>(p, stream);
+    if (kind == kFwd) return launch_fwd<D, F16>(p, stream);
+    if (kind == kDq) return launch_dq<D, F16>(p, stream);
+    return launch_dkv<D, F16>(p, stream);
 }
 
-int run(int device, Kind kind, const Params& p, int D, void* stream) {
+int run(int device, Kind kind, const Params& p, int D, bool f16, void* stream) {
     if (p.B <= 0 || p.T <= 0 || p.S <= 0 || p.Hkv <= 0 || p.H % p.Hkv != 0)
         return (int)cudaErrorInvalidValue;
     if ((p.seg_q == nullptr) != (p.seg_kv == nullptr) ||
@@ -1150,9 +1166,11 @@ int run(int device, Kind kind, const Params& p, int D, void* stream) {
     if (err != cudaSuccess) return (int)err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 64: err = launch<64>(kind, p, st); break;
-        case 96: err = launch<96>(kind, p, st); break;
-        case 128: err = launch<128>(kind, p, st); break;
+        case 64: err = f16 ? launch<64, true>(kind, p, st) : launch<64, false>(kind, p, st); break;
+        case 96: err = f16 ? launch<96, true>(kind, p, st) : launch<96, false>(kind, p, st); break;
+        case 128:
+            err = f16 ? launch<128, true>(kind, p, st) : launch<128, false>(kind, p, st);
+            break;
         default: err = cudaErrorInvalidValue;
     }
     if (prev != device) {
@@ -1166,9 +1184,9 @@ Params base(const void* q, const void* k, const void* v, const void* seg_q,
             const void* seg_kv, const void* pos_q, const void* pos_kv, int B, int T, int S,
             int H, int Hkv, int causal, float sm_scale) {
     Params p = {};
-    p.q = static_cast<const bf16*>(q);
-    p.k = static_cast<const bf16*>(k);
-    p.v = static_cast<const bf16*>(v);
+    p.q = q;
+    p.k = k;
+    p.v = v;
     p.seg_q = static_cast<const int*>(seg_q);
     p.seg_kv = static_cast<const int*>(seg_kv);
     p.pos_q = static_cast<const int*>(pos_q);
@@ -1183,45 +1201,56 @@ Params base(const void* q, const void* k, const void* v, const void* seg_q,
 
 extern "C" {
 
-// out [B, T, H, D] bf16, lse [B, H, T] f32
-int flash_attention_fwd_bf16(int device, const void* q, const void* k, const void* v,
-                             const void* seg_q, const void* seg_kv, const void* pos_q,
-                             const void* pos_kv, void* out, void* lse, int B, int T, int S,
-                             int H, int Hkv, int D, int causal, float sm_scale, void* stream) {
-    Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal, sm_scale);
-    p.out = static_cast<bf16*>(out);
-    p.lse_out = static_cast<float*>(lse);
-    return run(device, kFwd, p, D, stream);
-}
+// The bf16 entry points, and their f16 instances (``_f16``: the same
+// kernels over f16 operands, p and ds rounded to f16 before their products).
+#define FLASH_ENTRY_POINTS(SUFFIX, IS_F16)                                                       \
+    /* out [B, T, H, D], lse [B, H, T] f32 */                                                    \
+    int flash_attention_fwd_##SUFFIX(int device, const void* q, const void* k, const void* v,    \
+                                     const void* seg_q, const void* seg_kv, const void* pos_q,   \
+                                     const void* pos_kv, void* out, void* lse, int B, int T,     \
+                                     int S, int H, int Hkv, int D, int causal, float sm_scale,   \
+                                     void* stream) {                                             \
+        Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal,         \
+                        sm_scale);                                                               \
+        p.out = out;                                                                             \
+        p.lse_out = static_cast<float*>(lse);                                                    \
+        return run(device, kFwd, p, D, IS_F16, stream);                                          \
+    }                                                                                            \
+    /* g / dq [B, T, H, D]; lse, delta [B, H, T] f32 */                                          \
+    int flash_attention_dq_##SUFFIX(int device, const void* q, const void* k, const void* v,     \
+                                    const void* seg_q, const void* seg_kv, const void* pos_q,    \
+                                    const void* pos_kv, const void* g, const void* lse,          \
+                                    const void* delta, void* dq, int B, int T, int S, int H,     \
+                                    int Hkv, int D, int causal, float sm_scale, void* stream) {  \
+        Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal,         \
+                        sm_scale);                                                               \
+        p.g = g;                                                                                 \
+        p.lse_in = static_cast<const float*>(lse);                                               \
+        p.delta = static_cast<const float*>(delta);                                              \
+        p.dq = dq;                                                                               \
+        return run(device, kDq, p, D, IS_F16, stream);                                           \
+    }                                                                                            \
+    /* dk / dv [B, S, Hkv, D] */                                                                 \
+    int flash_attention_dkv_##SUFFIX(int device, const void* q, const void* k, const void* v,    \
+                                     const void* seg_q, const void* seg_kv, const void* pos_q,   \
+                                     const void* pos_kv, const void* g, const void* lse,         \
+                                     const void* delta, void* dk, void* dv, int B, int T, int S, \
+                                     int H, int Hkv, int D, int causal, float sm_scale,          \
+                                     void* stream) {                                             \
+        Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal,         \
+                        sm_scale);                                                               \
+        p.g = g;                                                                                 \
+        p.lse_in = static_cast<const float*>(lse);                                               \
+        p.delta = static_cast<const float*>(delta);                                              \
+        p.dk = dk;                                                                               \
+        p.dv = dv;                                                                               \
+        return run(device, kDkv, p, D, IS_F16, stream);                                          \
+    }
 
-// g / dq [B, T, H, D] bf16; lse, delta [B, H, T] f32
-int flash_attention_dq_bf16(int device, const void* q, const void* k, const void* v,
-                            const void* seg_q, const void* seg_kv, const void* pos_q,
-                            const void* pos_kv, const void* g, const void* lse,
-                            const void* delta, void* dq, int B, int T, int S, int H, int Hkv,
-                            int D, int causal, float sm_scale, void* stream) {
-    Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal, sm_scale);
-    p.g = static_cast<const bf16*>(g);
-    p.lse_in = static_cast<const float*>(lse);
-    p.delta = static_cast<const float*>(delta);
-    p.dq = static_cast<bf16*>(dq);
-    return run(device, kDq, p, D, stream);
-}
+FLASH_ENTRY_POINTS(bf16, false)
+FLASH_ENTRY_POINTS(f16, true)
 
-// dk / dv [B, S, Hkv, D] bf16
-int flash_attention_dkv_bf16(int device, const void* q, const void* k, const void* v,
-                             const void* seg_q, const void* seg_kv, const void* pos_q,
-                             const void* pos_kv, const void* g, const void* lse,
-                             const void* delta, void* dk, void* dv, int B, int T, int S,
-                             int H, int Hkv, int D, int causal, float sm_scale, void* stream) {
-    Params p = base(q, k, v, seg_q, seg_kv, pos_q, pos_kv, B, T, S, H, Hkv, causal, sm_scale);
-    p.g = static_cast<const bf16*>(g);
-    p.lse_in = static_cast<const float*>(lse);
-    p.delta = static_cast<const float*>(delta);
-    p.dk = static_cast<bf16*>(dk);
-    p.dv = static_cast<bf16*>(dv);
-    return run(device, kDkv, p, D, stream);
-}
+#undef FLASH_ENTRY_POINTS
 
 const char* flash_attention_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -4,7 +4,9 @@
 // read), register reallocation between warpgroups, thread-block cluster
 // barriers and distributed shared-memory loads, the wgmma shared-memory
 // descriptor of a 128-byte-swizzled bf16 tile, and the warpgroup
-// matrix-multiply instructions the kernels issue.
+// matrix-multiply instructions the kernels issue.  Each product takes bf16
+// operands, or f16 ones with its ``F16`` template argument (the same
+// 2-byte tile layout; ``pack2<F16>`` rounds a register A fragment to it).
 //
 // Shared-memory tiles (sw128_offset): a bf16 tile is kept in chunks of 64
 // columns; each chunk is rows of 128 bytes, 1024-byte aligned, and the
@@ -37,6 +39,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,6 +129,21 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t chunk_byt
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats rounded to the products' element type (f16 or bf16), packed
+template <bool F16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    if constexpr (F16) {
+        return pack_f16(lo, hi);
+    } else {
+        return pack_bf16(lo, hi);
+    }
 }
 
 // -- mbarriers and TMA -------------------------------------------------------
@@ -265,179 +283,230 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t rank) {
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A from registers, B from shared
 // memory through `desc_b`; TRANS_B 0 for a K-major B, 1 for an MN-major B
-template <int TRANS_B>
+#define HOPPER_WGMMA_M64N64K16_RS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %38, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1))
+template <int TRANS_B, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %38, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N64K16_RS("f16");
+    } else {
+        HOPPER_WGMMA_M64N64K16_RS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N64K16_RS
 
 // d[64 x 96] += A[64 x 16] . B[16 x 96], as above (an MN-major B spans two
 // chunks: its descriptor carries the chunk distance)
-template <int TRANS_B>
+#define HOPPER_WGMMA_M64N96K16_RS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %54, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, " \
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), \
+          HOPPER_ACC8(32), HOPPER_ACC8(40) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1))
+template <int TRANS_B, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n96k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %54, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-          HOPPER_ACC8(32), HOPPER_ACC8(40)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N96K16_RS("f16");
+    } else {
+        HOPPER_WGMMA_M64N96K16_RS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N96K16_RS
 
 // d[64 x 32] += A[64 x 16] . B[16 x 32], as above
-template <int TRANS_B>
+#define HOPPER_WGMMA_M64N32K16_RS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %22, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %21;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1))
+template <int TRANS_B, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %22, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %21;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N32K16_RS("f16");
+    } else {
+        HOPPER_WGMMA_M64N32K16_RS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N32K16_RS
 
 // d[64 x 16] += A[64 x 16] . B[16 x 16], as above
-template <int TRANS_B>
+#define HOPPER_WGMMA_M64N16K16_RS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %14, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, " \
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %13;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1))
+template <int TRANS_B, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %14, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %13;\n"
-        "}\n"
-        : HOPPER_ACC8(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N16K16_RS("f16");
+    } else {
+        HOPPER_WGMMA_M64N16K16_RS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N16K16_RS
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128], as above
-template <int TRANS_B>
+#define HOPPER_WGMMA_M64N128K16_RS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %70, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), \
+          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1))
+template <int TRANS_B, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %70, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N128K16_RS("f16");
+    } else {
+        HOPPER_WGMMA_M64N128K16_RS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N128K16_RS
 
 // d[64 x 128] = A[64 x 16] . B[16 x 128] (+ d if `accumulate`): A and B
 // both K-major tiles in shared memory, through `desc_a` and `desc_b`
+#define HOPPER_WGMMA_M64N128K16_SS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %66, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+        "%64, %65, p, 1, 1, 0, 0;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), \
+          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56) \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                                     int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-          HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N128K16_SS("f16");
+    } else {
+        HOPPER_WGMMA_M64N128K16_SS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N128K16_SS
 
 // d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d if `accumulate`), as above
+#define HOPPER_WGMMA_M64N64K16_SS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %34, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+        "%32, %33, p, 1, 1, 0, 0;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24) \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                                    int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N64K16_SS("f16");
+    } else {
+        HOPPER_WGMMA_M64N64K16_SS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N64K16_SS
 
 // d[64 x 32] = A[64 x 16] . B[16 x 32] (+ d if `accumulate`), as above
+#define HOPPER_WGMMA_M64N32K16_SS(AB) asm volatile( \
+        "{\n" \
+        ".reg .pred p;\n" \
+        "setp.ne.b32 p, %18, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " " \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+        "%16, %17, p, 1, 1, 0, 0;\n" \
+        "}\n" \
+        : HOPPER_ACC8(0), HOPPER_ACC8(8) \
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                                    int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : HOPPER_ACC8(0), HOPPER_ACC8(8)
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    if constexpr (F16) {
+        HOPPER_WGMMA_M64N32K16_SS("f16");
+    } else {
+        HOPPER_WGMMA_M64N32K16_SS("bf16");
+    }
 }
+#undef HOPPER_WGMMA_M64N32K16_SS
 
 // the m64nNk16 product for N in {32, 64, 128}, A and B K-major in shared
 // memory
-template <int N>
+template <int N, bool F16 = false>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
     static_assert(N == 32 || N == 64 || N == 128, "N 32, 64 or 128");
     if constexpr (N == 32) {
-        wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+        wgmma_m64n32k16_ss<F16>(d, desc_a, desc_b, accumulate);
     } else if constexpr (N == 64) {
-        wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+        wgmma_m64n64k16_ss<F16>(d, desc_a, desc_b, accumulate);
     } else {
-        wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+        wgmma_m64n128k16_ss<F16>(d, desc_a, desc_b, accumulate);
     }
 }
 
 // the m64nNk16 product for N in {16, 64, 128}, B K-major
-template <int N>
+template <int N, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
     static_assert(N == 16 || N == 64 || N == 128, "N 16, 64 or 128");
     if constexpr (N == 16) {
-        wgmma_m64n16k16_rs<0>(d, a, desc_b);
+        wgmma_m64n16k16_rs<0, F16>(d, a, desc_b);
     } else if constexpr (N == 64) {
-        wgmma_m64n64k16_rs<0>(d, a, desc_b);
+        wgmma_m64n64k16_rs<0, F16>(d, a, desc_b);
     } else {
-        wgmma_m64n128k16_rs<0>(d, a, desc_b);
+        wgmma_m64n128k16_rs<0, F16>(d, a, desc_b);
     }
 }
 
 // d[64 x N] += A[64 x 16] . B[16 x N] for N in {64, 96, 128}, B MN-major
 // (its descriptor carries the chunk distance)
-template <int N>
+template <int N, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_mn(float* d, const uint32_t* a, uint64_t desc_b) {
     static_assert(N == 64 || N == 96 || N == 128, "N 64, 96 or 128");
     if constexpr (N == 64) {
-        wgmma_m64n64k16_rs<1>(d, a, desc_b);
+        wgmma_m64n64k16_rs<1, F16>(d, a, desc_b);
     } else if constexpr (N == 96) {
-        wgmma_m64n96k16_rs<1>(d, a, desc_b);
+        wgmma_m64n96k16_rs<1, F16>(d, a, desc_b);
     } else {
-        wgmma_m64n128k16_rs<1>(d, a, desc_b);
+        wgmma_m64n128k16_rs<1, F16>(d, a, desc_b);
     }
 }
 

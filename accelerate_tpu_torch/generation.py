@@ -339,6 +339,9 @@ def generate_streamed(model, input_ids, generation_config: Optional[GenerationCo
 
     gc = generation_config or GenerationConfig()
     cfg = model.config
+    if getattr(cfg, "scan_layers", False):
+        raise ValueError("generate_streamed streams per-layer weights: build the model with "
+                         "scan_layers=False and unstack_layer_params(params)")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:   # compare with tensors' own devices
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -14,6 +14,8 @@ from .llama import (
     make_llama_loss_fn,
     paged_write_kv_quantized,
     resolve_kv_dtype,
+    stack_layer_params,
+    unstack_layer_params,
 )
 
 __all__ = [
@@ -33,5 +35,7 @@ __all__ = [
     "make_llama_loss_fn",
     "paged_write_kv_quantized",
     "resolve_kv_dtype",
+    "stack_layer_params",
     "torch_state_from_flax",
+    "unstack_layer_params",
 ]

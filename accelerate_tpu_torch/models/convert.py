@@ -1,4 +1,6 @@
-"""Carry a JAX Llama param tree into the port's parameters.
+"""Carry a JAX Llama param tree into the port's parameters (an unrolled
+tree, or a ``scan_layers`` one: ``layers_scan/block`` stacked on a leading
+layer axis).
 
 This is how the parity tests run both frameworks on the same weights: the
 JAX package's tree (nested dicts of numpy arrays, ``params/layers_{i}/
@@ -44,6 +46,13 @@ _FLAX_TO_HF: list[tuple[str, str]] = [
      r"model.layers.\1.\2.weight"),
     (r"^params\.norm\.scale$", r"model.norm.weight"),
     (r"^params\.lm_head\.kernel$", r"lm_head.weight"),
+    # a scan_layers tree: layers_scan/block (block_{j}) stacked on a leading axis
+    (r"^params\.layers_scan\.(block(?:_\d+)?)\.self_attn\.(q|k|v|o)_proj\.kernel$",
+     r"model.layers_scan.\1.self_attn.\2_proj.weight"),
+    (r"^params\.layers_scan\.(block(?:_\d+)?)\.mlp\.(gate|up|down)_proj\.kernel$",
+     r"model.layers_scan.\1.mlp.\2_proj.weight"),
+    (r"^params\.layers_scan\.(block(?:_\d+)?)\.(input_layernorm|post_attention_layernorm)"
+     r"\.scale$", r"model.layers_scan.\1.\2.weight"),
 ]
 
 
@@ -147,8 +156,8 @@ def flax_flat_from_torch(state) -> dict:
         if path is None:
             continue
         t = t.detach().to("cpu")
-        if path.endswith(".kernel") and t.dim() == 2:
-            t = t.t()
+        if path.endswith(".kernel") and t.dim() in (2, 3):
+            t = t.transpose(-1, -2)
         flat[path] = t.contiguous()
     return {k: flat[k] for k in sorted(flat, key=lambda p: tuple(p.split(".")))}
 
@@ -160,8 +169,8 @@ def torch_state_from_flax_flat(flat) -> dict:
     state = {}
     for path, t in flat.items():
         name = flax_to_hf_name(path if path.startswith("params.") else "params." + path)
-        if path.endswith(".kernel") and t.dim() == 2:
-            t = t.t().contiguous()
+        if path.endswith(".kernel") and t.dim() in (2, 3):
+            t = t.transpose(-1, -2).contiguous()
         state[name] = t
     return state
 

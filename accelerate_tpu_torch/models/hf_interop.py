@@ -31,6 +31,14 @@ _LLAMA_RULES: list[tuple[str, str]] = [
      r"params.layers_\1.post_attention_layernorm.scale"),
     (r"^model\.norm\.weight$", r"params.norm.scale"),
     (r"^lm_head\.weight$", r"params.lm_head.kernel"),
+    # the scanned stack (LlamaConfig.scan_layers): weights stacked on a
+    # leading layer axis
+    (r"^model\.layers_scan\.(block(?:_\d+)?)\.self_attn\.(q|k|v|o)_proj\.weight$",
+     r"params.layers_scan.\1.self_attn.\2_proj.kernel"),
+    (r"^model\.layers_scan\.(block(?:_\d+)?)\.mlp\.(gate|up|down)_proj\.weight$",
+     r"params.layers_scan.\1.mlp.\2_proj.kernel"),
+    (r"^model\.layers_scan\.(block(?:_\d+)?)\.(input_layernorm|post_attention_layernorm)"
+     r"\.weight$", r"params.layers_scan.\1.\2.scale"),
 ]
 
 # HF buffers with no parameter (recomputed from the config)
@@ -50,10 +58,11 @@ def hf_llama_key_map(name: str) -> Optional[str]:
 
 def hf_llama_tensor_map(our_key: str, arr: np.ndarray) -> np.ndarray:
     """torch ``Linear.weight`` is ``[out, in]``; flax kernels are ``[in,
-    out]``.  Embeddings and norm scales pass through.  The map is its own
+    out]`` (a scanned stack's ``[L, in, out]``: the last two axes swap).
+    Embeddings and norm scales pass through.  The map is its own
     inverse."""
-    if our_key.endswith("/kernel") and arr.ndim == 2:
-        return arr.T
+    if our_key.endswith("/kernel") and arr.ndim in (2, 3):
+        return np.swapaxes(arr, -1, -2)
     return arr
 
 
@@ -74,7 +83,8 @@ def load_hf_llama(model, checkpoint, *, dtype=None, strict: bool = True, **kwarg
     if getattr(model.config, "scan_layers", False):
         raise ValueError(
             "load_hf_llama needs the unrolled layer stack (HF names map to "
-            "model.layers.{i}); the scanned stack is ROADMAP item A12")
+            "model.layers.{i}); load with scan_layers=False, then convert via "
+            "stack_layer_params(params, scan_block_size)")
     tied = getattr(model.config, "tie_word_embeddings", False)
 
     def key_map(name):

@@ -20,8 +20,15 @@ LoRA (JAX :118-127): given per-row ``adapter_ids`` and the adapter pool
 whose ``lora_key`` names a pool entry adds
 :func:`~accelerate_tpu_torch.ops.lora.lora_apply` after its base product,
 on the bf16 and the int8 route alike.  ``lora_key`` is the layer's module
-name, set by the model that owns it.  The fp8 and collective-matmul routes
-belong to later slices.
+name, set by the model that owns it.
+
+fp8 (JAX :78-95): inside ``ops.precision.fp8_autocast`` (the train step
+under ``mixed_precision="fp8"``) a full-precision layer multiplies in fp8:
+with the delayed-scaling meta its module name keys
+(``ops.fp8.merge_fp8_collection``), :func:`~..ops.fp8.fp8_delayed_dot`
+(e4m3 forward, e5m2 backward); without, the stateless
+:func:`~..ops.precision.fp8_current_scaled_dot`.  The collective-matmul
+route is multi-GPU (ROADMAP item A13).
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fp8 import fp8_delayed_dot, fp8_meta
 from ..ops.lora import lora_apply
+from ..ops.precision import fp8_current_scaled_dot, fp8_enabled
 from ..ops.quantized_matmul import quantized_matmul
 from ..utils.quantization import QuantizedTensor
 
@@ -77,6 +86,13 @@ class QuantizableDense(nn.Module):
         qt = self.quantized
         if qt is not None:
             y = quantized_matmul(x.to(self.dtype), qt, out_dtype=self.dtype)
+        elif fp8_enabled():
+            x_c, w_c = x.to(self.weight.dtype), self.weight.t()
+            meta = fp8_meta(self.lora_key)
+            if meta is not None:
+                y = fp8_delayed_dot(x_c, w_c, meta, preferred_element_type=x_c.dtype)
+            else:
+                y = fp8_current_scaled_dot(x_c, w_c, preferred_element_type=x_c.dtype)
         else:
             y = F.linear(x.to(self.weight.dtype), self.weight)
         entry = lora.get(self.lora_key) if (adapter_ids is not None and lora) else None

@@ -29,13 +29,36 @@ adapter_ids=, lora=)`` threads per-row pool-slot ids and the adapter pool
 dense and the head; the targeted ones add their adapter delta
 (``ops/lora.py``).
 
-Scan, remat, fp8 compute and the collective-matmul routes are not ported.
+Memory recipes (JAX :35-101, :634-666, :786-868):
+
+- ``remat=True`` recomputes each decoder layer in the backward
+  (``torch.utils.checkpoint``, non-reentrant).  ``remat_policy="full"``
+  saves nothing inside a layer; ``"dots"`` saves the cuBLAS products
+  (``aten.mm`` / ``addmm`` outputs: JAX's
+  ``dots_with_no_batch_dims_saveable``) and recomputes the rest, flash
+  attention #1 included; ``"offload"`` keeps only each layer's (or scan
+  iteration's) input boundary, its head slice of
+  ``boundary_offload_fraction`` of the sequence copied to page-locked host
+  memory on a side stream and fetched back for the backward
+  (:class:`_BoundaryOffload`; ``boundary_stats`` counts the bytes).
+- ``scan_layers=True`` holds the layer weights stacked on a leading axis
+  under ``model.layers_scan.block`` (``block_{j}`` with ``scan_block_size``
+  j > 1: global layer i is iteration i // j, slot i % j) and runs one
+  layer module's forward over each slice (``torch.func.functional_call``);
+  :func:`stack_layer_params` / :func:`unstack_layer_params` convert a
+  state between the layouts.  The cached paths (``generate``, the serving
+  engine) run a scanned model layer by layer the same way.
+
+fp8 compute runs in the dense layers (``models/layers.py``) and the head;
+the collective-matmul routes are multi-GPU (ROADMAP item A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import re
 from typing import Optional
 
 import numpy as np
@@ -48,8 +71,10 @@ from ..ops.flash_attention import (
     paged_decode_attention,
     paged_multitoken_attention,
 )
-from ..utils.device import resolve_device
+from ..ops.fp8 import fp8_delayed_dot, fp8_meta
 from ..ops.lora import lora_apply
+from ..ops.precision import fp8_current_scaled_dot, fp8_enabled
+from ..utils.device import resolve_device
 from .layers import QuantizableDense
 
 
@@ -67,7 +92,16 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     attn_implementation: str = "native"  # native | flash
     remat: bool = False
+    # with remat: "full" recomputes everything, "dots" saves the matmul
+    # outputs, "offload" keeps only the layer boundaries, on the host
+    remat_policy: str = "full"
+    # the layer stack's weights stacked on a leading axis, one layer module
+    # run over each slice; scan_block_size layers per iteration
     scan_layers: bool = False
+    scan_block_size: int = 1
+    # share of each offloaded boundary (its head along the sequence) that
+    # goes to pinned host memory; the tail stays on the card
+    boundary_offload_fraction: float = 1.0
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -77,13 +111,21 @@ class LlamaConfig:
                 f"{self.attn_implementation!r} (ring/ulysses are ROADMAP "
                 "item A13, slice 6)"
             )
-        for knob in ("remat", "scan_layers"):
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"LlamaConfig.{knob}=True is not ported yet (ROADMAP item "
-                    "A12, slice 5: activation checkpointing and the scanned "
-                    "layer stack)"
-                )
+        if self.remat_policy not in ("full", "dots", "offload"):
+            raise ValueError(
+                f"remat_policy must be 'full', 'dots' or 'offload', got {self.remat_policy!r}")
+        if not 0.0 < self.boundary_offload_fraction <= 1.0:
+            raise ValueError(
+                f"boundary_offload_fraction={self.boundary_offload_fraction} must be in (0, 1] "
+                "(1.0 = all boundaries pinned-host; smaller keeps the tail slice of each "
+                "boundary in device memory)")
+        if self.scan_block_size != 1:
+            if not self.scan_layers:
+                raise ValueError("scan_block_size > 1 requires scan_layers=True "
+                                 "(the unrolled stack never consults it)")
+            if self.scan_block_size < 1 or self.num_hidden_layers % self.scan_block_size:
+                raise ValueError(f"scan_block_size={self.scan_block_size} must divide "
+                                 f"num_hidden_layers={self.num_hidden_layers}")
 
     @property
     def head_dim(self) -> int:
@@ -594,7 +636,17 @@ class LMHead(nn.Module):
 
     def forward(self, x, adapter_ids=None, lora=None):
         x2 = x.reshape(-1, x.shape[-1]).to(self.weight.dtype)
-        if x2.device.type == "cuda" and self.weight.dtype != torch.float32:
+        if fp8_enabled():
+            # f32 logits from e4m3 operands: delayed weight scale with a
+            # meta, current scaling without (JAX :707-726)
+            meta = fp8_meta(self.lora_key)
+            if meta is not None:
+                y = fp8_delayed_dot(x2, self.weight.t(), meta,
+                                    preferred_element_type=torch.float32)
+            else:
+                y = fp8_current_scaled_dot(x2, self.weight.t(),
+                                           preferred_element_type=torch.float32)
+        elif x2.device.type == "cuda" and self.weight.dtype != torch.float32:
             y = torch.mm(x2, self.weight.t(), out_dtype=torch.float32)
         else:
             y = x2.float() @ self.weight.float().t()
@@ -603,6 +655,16 @@ class LMHead(nn.Module):
         if entry is not None:
             y = lora_apply(x, y, entry["a"], entry["b"], adapter_ids)
         return y
+
+
+def _stacked_block(cfg: LlamaConfig, n_iter: int) -> LlamaBlock:
+    """A :class:`LlamaBlock` whose every parameter has a leading axis of
+    ``n_iter`` (one slice per scan iteration)."""
+    block = LlamaBlock(cfg)
+    for mod in block.modules():
+        for name, p in list(mod._parameters.items()):
+            setattr(mod, name, nn.Parameter(torch.empty(n_iter, *p.shape, dtype=p.dtype)))
+    return block
 
 
 class _LlamaModel(nn.Module):
@@ -615,8 +677,160 @@ class _LlamaModel(nn.Module):
         self.embed_tokens = nn.Embedding(
             cfg.vocab_size, cfg.hidden_size,
             _weight=torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype))
-        self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.num_hidden_layers))
+        if cfg.scan_layers:
+            bs = cfg.scan_block_size
+            n_iter = cfg.num_hidden_layers // bs
+            self.layers_scan = nn.Module()
+            for j in range(bs):
+                self.layers_scan.add_module("block" if bs == 1 else f"block_{j}",
+                                            _stacked_block(cfg, n_iter))
+        else:
+            self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
+
+    def layer_calls(self) -> list:
+        """One callable per layer, in order, each taking a layer's forward
+        arguments: the layer modules, or for a scanned stack its block
+        module run on the layer's slice of the stacked weights (the slices
+        formed once per call, so the backward stacks their gradients
+        once)."""
+        if not hasattr(self, "layers_scan"):
+            return list(self.layers)
+        blocks = list(self.layers_scan.children())
+        stacks = []
+        for blk in blocks:
+            names = [n for n, _ in blk.named_parameters()]
+            stacks.append((blk, names, [_get_path(blk, n).unbind(0) for n in names]))
+        calls = []
+        for it in range(len(stacks[0][2][0])):
+            for blk, names, slices in stacks:
+                calls.append(_ScanSlice(blk, names, [sl[it] for sl in slices]))
+        return calls
+
+
+def _get_path(module: nn.Module, name: str):
+    for part in name.split("."):
+        module = getattr(module, part)
+    return module
+
+
+class _ScanSlice:
+    """A scanned block's forward on one iteration's slice of its stacked
+    weights (``torch.func.functional_call``)."""
+
+    def __init__(self, block: nn.Module, names: list, tensors: list):
+        self.block, self.names, self.tensors = block, names, tensors
+
+    def params(self) -> list:
+        return self.tensors
+
+    def with_params(self, tensors) -> "_ScanSlice":
+        return _ScanSlice(self.block, self.names, list(tensors))
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self.block, dict(zip(self.names, self.tensors)),
+                                          args, kwargs)
+
+
+def _layer_params(layer) -> tuple[list, list]:
+    """(names, tensors) of one layer call's weights, as its forward reads
+    them (a module's through attribute access, so a surrounding
+    ``functional_call`` shows its tensors)."""
+    if isinstance(layer, _ScanSlice):
+        return layer.names, layer.params()
+    names = [n for n, _ in layer.named_parameters()]
+    return names, [_get_path(layer, n) for n in names]
+
+
+def _rebind(layer, names, tensors):
+    """``layer`` run with ``tensors`` as its weights."""
+    if isinstance(layer, _ScanSlice):
+        return layer.with_params(tensors)
+    return _ScanSlice(layer, names, list(tensors))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: save the matmul outputs (no batch dims),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def boundary_offload_rows(t: int, fraction: float) -> int:
+    """The head rows of a length-``t`` boundary that go to the host (JAX
+    ``_ScanBody`` :649-656): a fraction below 1 is aligned down to 1024
+    rows (8 for ``t < 4096``), at least one alignment, at most ``t``."""
+    if fraction >= 1.0:
+        return t
+    align = 1024 if t >= 4096 else 8
+    return min(t, max(align, (int(t * fraction) // align) * align))
+
+
+class _BoundaryOffload(torch.autograd.Function):
+    """One layer (or scan iteration) whose only saved value is its input
+    boundary ``x`` ``[B, T, H]``: the head ``n_host`` rows copied to
+    page-locked host memory on a side stream (the tail kept on the card),
+    the forward run without a graph; the backward fetches the head back,
+    reruns the forward with a graph and returns the gradients of ``x`` and
+    of the weights."""
+
+    @staticmethod
+    def forward(ctx, body, n_host, stats, x, *weights):
+        with torch.no_grad():
+            out = body(x, weights)
+        head = x[:, :n_host]
+        if x.device.type == "cuda":
+            host = torch.empty(head.shape, dtype=head.dtype, pin_memory=True)
+            side = _offload_stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):
+                host.copy_(head, non_blocking=True)
+                x.record_stream(side)
+                event = torch.cuda.Event()
+                event.record(side)
+            ctx.event = event
+        else:
+            host = head.clone()
+            ctx.event = None
+        stats["d2h_bytes"] += host.numel() * host.element_size()
+        ctx.host, ctx.body, ctx.stats = host, body, stats
+        tail = x[:, n_host:].clone()
+        ctx.save_for_backward(tail, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tail, *weights = ctx.saved_tensors
+        if ctx.event is not None:
+            torch.cuda.current_stream(tail.device).wait_event(ctx.event)
+            head = ctx.host.to(tail.device, non_blocking=True)
+        else:
+            head = ctx.host
+        ctx.stats["h2d_bytes"] += head.numel() * head.element_size()
+        x = (torch.cat([head, tail], dim=1) if tail.shape[1] else head).detach().requires_grad_()
+        ws = [w.detach().requires_grad_(w.requires_grad) for w in weights]
+        with torch.enable_grad():
+            out = ctx.body(x, ws)
+        wanted = [x] + [w for w in ws if w.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        gx = next(grads)
+        return (None, None, None, gx, *[next(grads) if w.requires_grad else None for w in ws])
+
+
+_OFFLOAD_STREAMS: dict = {}
+
+
+def _offload_stream(device: torch.device):
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _OFFLOAD_STREAMS:
+        _OFFLOAD_STREAMS[key] = torch.cuda.Stream(device=key)
+    return _OFFLOAD_STREAMS[key]
 
 
 class LlamaForCausalLM(nn.Module):
@@ -658,6 +872,8 @@ class LlamaForCausalLM(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, (QuantizableDense, LMHead)):
                 mod.lora_key = name
+        # bytes the "offload" remat policy moved across the boundary
+        self.boundary_stats = {"d2h_bytes": 0, "h2d_bytes": 0}
         if self.device.type != "meta":       # big_modeling.init_empty_weights: no init
             self._init_weights(seed)
 
@@ -683,10 +899,55 @@ class LlamaForCausalLM(nn.Module):
             if name.endswith("layernorm.weight") or name == "model.norm.weight":
                 p.fill_(1.0)
                 continue
-            std = 1.0 if "embed_tokens" in name else 1.0 / math.sqrt(p.shape[1])
+            std = 1.0 if "embed_tokens" in name else 1.0 / math.sqrt(p.shape[-1])
             if name.endswith(("o_proj.weight", "down_proj.weight")):
                 std *= residual_scale
             p.copy_(torch.randn(p.shape, generator=gen, device=self.device) * std)
+
+    def _remat_stack(self, layers: list, x, positions, kw: dict):
+        """The uncached layer stack under ``remat``: each layer
+        checkpointed (``full``: nothing saved inside it; ``dots``: the
+        matmul outputs saved), or under ``offload`` each layer (scan
+        iteration) a :class:`_BoundaryOffload` whose boundary goes to the
+        host, the blocks of a multi-block iteration each recomputed alone
+        within it."""
+        from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+        cfg = self.config
+        args = (positions, self.rope_cos, self.rope_sin)
+        if cfg.remat_policy in ("full", "dots"):
+            extra = ({} if cfg.remat_policy == "full" else {"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)})
+            for layer in layers:
+                # the weights go in as inputs: the recompute runs at the
+                # backward, after a surrounding functional_call has put the
+                # module's own tensors back
+                names, weights = _layer_params(layer)
+
+                def call(h, *ws, layer=layer, names=names):
+                    return _rebind(layer, names, ws)(h, *args, **kw)
+
+                x = checkpoint(call, x, *weights, use_reentrant=False, **extra)
+            return x
+        bs = cfg.scan_block_size if cfg.scan_layers else 1
+        n_host = boundary_offload_rows(x.shape[1], cfg.boundary_offload_fraction)
+        for start in range(0, len(layers), bs):
+            group = layers[start:start + bs]
+            named = [_layer_params(layer) for layer in group]
+
+            def body(h, weights, group=group, named=named):
+                it = iter(weights)
+                for layer, (names, _) in zip(group, named):
+                    call = _rebind(layer, names, [next(it) for _ in names])
+                    if len(group) > 1:
+                        h = checkpoint(call, h, *args, use_reentrant=False, **kw)
+                    else:
+                        h = call(h, *args, **kw)
+                return h
+
+            x = _BoundaryOffload.apply(body, n_host, self.boundary_stats, x,
+                                       *[w for _, ws in named for w in ws])
+        return x
 
     def forward(self, input_ids, positions=None, segment_ids=None, output_hidden: bool = False,
                 cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None,
@@ -707,9 +968,21 @@ class LlamaForCausalLM(nn.Module):
             paged_write = _paged_write_plan(cache[0]["block_tables"], positions,
                                             cache[0]["k_pages"].shape[2], cache_write_mask,
                                             quantized="k_scales" in cache[0])
+        cfg = self.config
+        if adapter_ids is not None and cfg.scan_layers:
+            raise ValueError(
+                "adapter_ids (multi-tenant LoRA) has no scan_layers path: the adapters key "
+                "the per-layer module names; convert with unstack_layer_params and "
+                "scan_layers=False")
         x = self.model.embed_tokens(input_ids)
         new_cache = [] if cache is not None else None
-        for i, layer in enumerate(self.model.layers):
+        layers = self.model.layer_calls()
+        if cache is None and cfg.remat and torch.is_grad_enabled():
+            x = self._remat_stack(layers, x, positions, dict(
+                attn_implementation=attn_implementation, segment_ids=segment_ids,
+                adapter_ids=adapter_ids, lora=lora))
+            layers = []
+        for i, layer in enumerate(layers):
             if cache is not None:
                 x, layer_cache = layer(x, positions, self.rope_cos, self.rope_sin,
                                        cache[i], cache_write_mask, paged_write,
@@ -786,6 +1059,59 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
         )
 
     return fused_loss_fn
+
+
+_LAYER_NAME = re.compile(r"model\.layers\.(\d+)\.(.+)")
+_SCAN_NAME = re.compile(r"model\.layers_scan\.block(?:_(\d+))?\.(.+)")
+
+
+def stack_layer_params(params: dict, scan_block_size: int = 1) -> dict:
+    """A state over the unrolled layers (``model.layers.{i}.<name>``) in
+    the ``scan_layers=True`` layout (JAX :979): ``model.layers_scan.block.
+    <name>`` stacked on a leading axis of L, or with ``scan_block_size`` bs
+    > 1 ``model.layers_scan.block_{j}.<name>`` over L / bs iterations
+    (global layer i at iteration i // bs, slot i % bs).  Other names pass
+    through; a state without layers comes back as it is."""
+    layers: dict = {}
+    out = {}
+    for name, t in params.items():
+        m = _LAYER_NAME.fullmatch(name)
+        if m:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = t
+        else:
+            out[name] = t
+    if not layers:
+        return dict(params)
+    n = len(layers)
+    bs = scan_block_size
+    if n % bs:
+        raise ValueError(f"{n} layers not divisible by scan_block_size={bs}")
+    for j in range(bs):
+        prefix = "model.layers_scan.block" + ("" if bs == 1 else f"_{j}")
+        for key in layers[0]:
+            out[f"{prefix}.{key}"] = torch.stack([layers[i][key] for i in range(j, n, bs)])
+    return out
+
+
+def unstack_layer_params(params: dict) -> dict:
+    """Inverse of :func:`stack_layer_params` (JAX :1017), the block size
+    read from the stacked names."""
+    stacked: dict = {}
+    out = {}
+    for name, t in params.items():
+        m = _SCAN_NAME.fullmatch(name)
+        if m:
+            stacked.setdefault(int(m.group(1) or 0), {})[m.group(2)] = t
+        else:
+            out[name] = t
+    if not stacked:
+        return dict(params)
+    bs = len(stacked)
+    for j, block in stacked.items():
+        for key, t in block.items():
+            for it in range(t.shape[0]):
+                out[f"model.layers.{it * bs + j}.{key}"] = t[it]
+    return out
 
 
 def count_params(params) -> int:

@@ -674,11 +674,15 @@ fused_bgmv_paged_decode_quant.launches = 0
 _FLASH_HEAD = [_I] + [_P] * 7
 _FLASH_TAIL = [_I] * 7 + [ctypes.c_float, _P]
 _FLASH_SIGNATURES = {
-    "flash_attention_fwd_bf16": (_FLASH_HEAD + [_P] * 2 + _FLASH_TAIL, _I),   # out, lse
-    "flash_attention_dq_bf16": (_FLASH_HEAD + [_P] * 4 + _FLASH_TAIL, _I),    # g, lse, delta, dq
-    "flash_attention_dkv_bf16": (_FLASH_HEAD + [_P] * 5 + _FLASH_TAIL, _I),   # g, lse, delta, dk, dv
+    **{f"flash_attention_{kind}_{suffix}": (_FLASH_HEAD + [_P] * n + _FLASH_TAIL, _I)
+       for suffix in ("bf16", "f16")
+       for kind, n in (("fwd", 2),     # out, lse
+                       ("dq", 4),      # g, lse, delta, dq
+                       ("dkv", 5))},   # g, lse, delta, dk, dv
     "flash_attention_error_string": ([_I], ctypes.c_char_p),
 }
+# the kernels' element types and their instances' suffixes
+_FLASH_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -777,12 +781,17 @@ def flash_dkv_plain(q, k, v, g, lse, delta, seg_q=None, seg_kv=None, pos_q=None,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_flash_operands(name, tensors: dict, ints: dict, f32s: dict):
-    """The flash kernels take bf16 q/k/v/g, int32 segment ids and
-    positions, f32 lse/delta; all contiguous on one CUDA device, 16-byte
-    aligned, at a head dim they were built for."""
+def _check_flash_operands(name, tensors: dict, ints: dict, f32s: dict) -> str:
+    """The flash kernels take bf16 or f16 q/k/v/g (all of q's dtype),
+    int32 segment ids and positions, f32 lse/delta; all contiguous on one
+    CUDA device, 16-byte aligned, at a head dim they were built for.
+    Returns the instance's suffix (``"bf16"`` / ``"f16"``)."""
     dev = tensors["q"].device
-    for group, dtype in ((tensors, torch.bfloat16), (ints, torch.int32),
+    suffix = _FLASH_DTYPES.get(tensors["q"].dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: q must be torch.bfloat16 or torch.float16 for the CUDA "
+                        f"kernel, got {tensors['q'].dtype}")
+    for group, dtype in ((tensors, tensors["q"].dtype), (ints, torch.int32),
                          (f32s, torch.float32)):
         for label, t in group.items():
             if t is None:
@@ -811,6 +820,7 @@ def _check_flash_operands(name, tensors: dict, ints: dict, f32s: dict):
                              f"expected {want[label]} for q {tuple(q.shape)}")
     if h % hkv:
         raise ValueError(f"{name}: num q heads {h} not divisible by kv heads {hkv}")
+    return suffix
 
 
 def _ptr(t) -> Optional[int]:
@@ -849,20 +859,20 @@ def _flash_route(name, q):
 def flash_fwd(q, k, v, seg_q=None, seg_kv=None, pos_q=None, pos_kv=None, *,
               causal: bool = True, sm_scale: float):
     """Kernel #1 (JAX ``_attn_kernel``): ``(out [B, T, H, D], lse [B, H, T]
-    f32)``.  CUDA tensors launch ``flash_attention_fwd_bf16``
-    (``csrc/flash_attention.cu``: ``wgmma`` products on tiles that TMA
-    brings in from a producer warpgroup); CPU tensors run
-    :func:`flash_fwd_plain`."""
+    f32)``.  CUDA tensors launch ``flash_attention_fwd_bf16`` or, for f16
+    operands, ``flash_attention_fwd_f16`` (``csrc/flash_attention.cu``:
+    ``wgmma`` products on tiles that TMA brings in from a producer
+    warpgroup); CPU tensors run :func:`flash_fwd_plain`."""
     if not _flash_route("flash_fwd", q):
         return flash_fwd_plain(q, k, v, seg_q, seg_kv, pos_q, pos_kv,
                                causal=causal, sm_scale=sm_scale)
-    _check_flash_operands("flash_fwd", {"q": q, "k": k, "v": v},
-                          {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
-                           "pos_kv": pos_kv}, {})
+    suffix = _check_flash_operands("flash_fwd", {"q": q, "k": k, "v": v},
+                                   {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
+                                    "pos_kv": pos_kv}, {})
     b, t, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-    _launch_flash("flash_fwd", "flash_attention_fwd_bf16", q, k, v, seg_q, seg_kv, pos_q,
+    _launch_flash("flash_fwd", f"flash_attention_fwd_{suffix}", q, k, v, seg_q, seg_kv, pos_q,
                   pos_kv, [out, lse], causal, sm_scale)
     return out, lse
 
@@ -873,16 +883,16 @@ flash_fwd.launches = 0
 def flash_dq(q, k, v, g, lse, delta, seg_q=None, seg_kv=None, pos_q=None, pos_kv=None,
              *, causal: bool = True, sm_scale: float):
     """Kernel #2 (JAX ``_dq_kernel``): dq ``[B, T, H, D]``.  CUDA tensors
-    launch ``flash_attention_dq_bf16``; CPU tensors run
-    :func:`flash_dq_plain`."""
+    launch ``flash_attention_dq_bf16`` (``_f16`` for f16 operands); CPU
+    tensors run :func:`flash_dq_plain`."""
     if not _flash_route("flash_dq", q):
         return flash_dq_plain(q, k, v, g, lse, delta, seg_q, seg_kv, pos_q, pos_kv,
                               causal=causal, sm_scale=sm_scale)
-    _check_flash_operands("flash_dq", {"q": q, "k": k, "v": v, "g": g},
-                          {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
-                           "pos_kv": pos_kv}, {"lse": lse, "delta": delta})
+    suffix = _check_flash_operands("flash_dq", {"q": q, "k": k, "v": v, "g": g},
+                                   {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
+                                    "pos_kv": pos_kv}, {"lse": lse, "delta": delta})
     dq = torch.empty_like(q)
-    _launch_flash("flash_dq", "flash_attention_dq_bf16", q, k, v, seg_q, seg_kv, pos_q,
+    _launch_flash("flash_dq", f"flash_attention_dq_{suffix}", q, k, v, seg_q, seg_kv, pos_q,
                   pos_kv, [g, lse, delta, dq], causal, sm_scale)
     return dq
 
@@ -894,17 +904,17 @@ def flash_dkv(q, k, v, g, lse, delta, seg_q=None, seg_kv=None, pos_q=None, pos_k
               *, causal: bool = True, sm_scale: float):
     """Kernel #3 (JAX ``_dkv_kernel``): ``(dk, dv)`` ``[B, S, Hkv, D]``,
     each GQA group's q heads summed in the kernel, deterministic.  CUDA
-    tensors launch ``flash_attention_dkv_bf16``; CPU tensors run
-    :func:`flash_dkv_plain`."""
+    tensors launch ``flash_attention_dkv_bf16`` (``_f16`` for f16
+    operands); CPU tensors run :func:`flash_dkv_plain`."""
     if not _flash_route("flash_dkv", q):
         return flash_dkv_plain(q, k, v, g, lse, delta, seg_q, seg_kv, pos_q, pos_kv,
                                causal=causal, sm_scale=sm_scale)
-    _check_flash_operands("flash_dkv", {"q": q, "k": k, "v": v, "g": g},
-                          {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
-                           "pos_kv": pos_kv}, {"lse": lse, "delta": delta})
+    suffix = _check_flash_operands("flash_dkv", {"q": q, "k": k, "v": v, "g": g},
+                                   {"seg_q": seg_q, "seg_kv": seg_kv, "pos_q": pos_q,
+                                    "pos_kv": pos_kv}, {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_flash("flash_dkv", "flash_attention_dkv_bf16", q, k, v, seg_q, seg_kv, pos_q, pos_kv,
-                  [g, lse, delta, dk, dv], causal, sm_scale)
+    _launch_flash("flash_dkv", f"flash_attention_dkv_{suffix}", q, k, v, seg_q, seg_kv, pos_q,
+                  pos_kv, [g, lse, delta, dk, dv], causal, sm_scale)
     return dk, dv
 
 
@@ -1015,8 +1025,8 @@ def flash_attention(q, k, v, *, causal: bool = True, segment_ids=None,
     the JAX signature but must be None: the CUDA kernels use their own
     tiles (``csrc/flash_attention.cu``).
 
-    CUDA tensors run kernels #1-#3 (bf16, head dims 64/96/128, else
-    raises); CPU tensors their plain versions."""
+    CUDA tensors run kernels #1-#3 (bf16 or f16, head dims 64/96/128,
+    else raises); CPU tensors their plain versions."""
     return _flash_call(q, k, v, causal=causal, segment_ids=segment_ids,
                        kv_segment_ids=kv_segment_ids, positions=positions,
                        kv_positions=kv_positions, sm_scale=sm_scale, block_q=block_q,

@@ -66,6 +66,20 @@ def sr_noise_bits(x: torch.Tensor, salt: int, entropy: Optional[torch.Tensor] = 
     return h & 0xFFFF
 
 
+def stochastic_round_to_bf16(x: torch.Tensor, generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+    """Round f32 ``x`` to bf16 up or down with probability given by its
+    position between the two neighbours, unbiased (JAX
+    ``stochastic_round_to_bf16`` :28): add 16 uniform noise bits to the
+    low half of the f32 pattern, then truncate it.  JAX draws the bits from
+    ``jax.random``; the port from ``generator`` (its device's default when
+    None), so the two agree in distribution, not bit for bit."""
+    noise = torch.randint(0, 1 << 16, x.shape, generator=generator, dtype=torch.int32,
+                          device=x.device)
+    bumped = (_bits(x) + noise) & _i32(0xFFFF0000)
+    return bumped.view(torch.float32).to(torch.bfloat16)
+
+
 def stochastic_round_to_bf16_hashed(x: torch.Tensor, salt: int,
                                     entropy: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Round f32 ``x`` to bf16 up or down with probability given by its

@@ -1,7 +1,9 @@
-"""Host-to-device streaming: byte accounting and the layer prefetcher
-(mirrors the part of ``accelerate_tpu/ops/streaming.py`` the adapter pool
-needs: ``tree_bytes`` :64, ``HOST_BYTES_PER_PARAM`` :81, ``StreamStats``
-:92, ``predicted_overlap`` :148, ``LayerPrefetcher`` :304).
+"""Host-to-device streaming: byte accounting, the layer prefetcher and the
+chunked optimizer offload's pieces (mirrors ``accelerate_tpu/ops/streaming.py``:
+``tree_bytes`` :64, ``HOST_BYTES_PER_PARAM`` :81, ``StreamStats`` :92,
+``predicted_overlap`` :148, ``offload_transfer_accounting`` :156,
+``chunk_groups`` :208, ``slice_congruent`` :244, ``merge_congruent`` :261,
+``stage_put`` :284, ``LayerPrefetcher`` :304).
 
 On the card an upload is a copy from pinned host memory with
 ``non_blocking=True`` on a side CUDA stream (:func:`stage_tree`): the
@@ -9,8 +11,13 @@ copy runs while the compute stream works, an event marks its end, and
 :meth:`StagedTree.wait` makes the compute stream (not the host) wait on
 that event before the tree is read.  On the CPU a "staged" tree is the
 host tree itself.  ``generation.generate_streamed`` streams a model's
-layers through the prefetcher.  The chunked optimizer offload of the JAX
-module is ROADMAP item A12.
+layers through the prefetcher.  The ZeRO-offload train step
+(``Accelerator`` with ``FullyShardedDataParallelPlugin(cpu_offload=True)``)
+splits its host update into :func:`chunk_groups`, slices and merges the
+optimizer state over them (:func:`slice_congruent`,
+:func:`merge_congruent`) and stages each chunk's gradients device-to-host
+with :func:`stage_put`; :func:`offload_transfer_accounting` predicts its
+bytes.
 
 A tensor in host memory that is not page-locked (an ``OffloadStore``
 memory map: the disk tier) goes through :class:`PinnedStaging` first: its
@@ -151,12 +158,25 @@ class StagedTree:
     event: Optional[torch.cuda.Event] = None
     source: Any = None
     device: Optional[torch.device] = None
+    start: Optional[torch.cuda.Event] = None   # a timed stage's start (stage_put)
+
+    def copy_ms(self) -> float:
+        """The stage's copy time on its stream (a timed stage whose copy
+        has ended; 0 for one on the CPU)."""
+        return self.start.elapsed_time(self.event) if self.start is not None else 0.0
 
     def wait(self) -> Any:
         """Make the current stream wait on the copy (the host does not
         wait) and return the device tree."""
         if self.event is not None:
             torch.cuda.current_stream(self.device).wait_event(self.event)
+        return self.tree
+
+    def wait_host(self) -> Any:
+        """Block the host until the copy has ended (a device-to-host stage
+        read by host code) and return the tree."""
+        if self.event is not None:
+            self.event.synchronize()
         return self.tree
 
     def done(self) -> bool:
@@ -196,6 +216,135 @@ def stage_tree(host_tree, device) -> StagedTree:
         event = torch.cuda.Event()
         event.record(side)
     return StagedTree(dest, event, source, device)
+
+
+# ---------------------------------------------------------------------------
+# The chunked optimizer offload
+# ---------------------------------------------------------------------------
+
+
+def offload_transfer_accounting(n_params: int, *, optimizer: str = "lion-sr",
+                                grad_bytes_per_param: int = 2, fetch_bytes_per_param: int = 2,
+                                offload_params: bool = True, host_rate_gibs: float = 1.61,
+                                pcie_rate_gibs: float = 8.0) -> dict:
+    """The offloaded update's predicted bytes and overlap a step (JAX
+    :156): ``d2h_bytes`` the gradients at their width, ``h2d_bytes`` the
+    compute-width param fetch (0 when the params stay on the card), the
+    host update's bytes from the recipe's row of
+    :data:`HOST_BYTES_PER_PARAM`; times from the given host and PCIe
+    rates (JAX's defaults; the port's chip run reports its own), and the
+    share of the transfer a perfect pipeline hides under the host update.
+    Recorded as the predicted side of the ``offload_transfer.overlap_frac``
+    twin."""
+    d2h = n_params * grad_bytes_per_param
+    h2d = n_params * fetch_bytes_per_param if offload_params else 0
+    host_b = n_params * HOST_BYTES_PER_PARAM.get(optimizer, 16.0)
+    transfer_s = (d2h + h2d) / (pcie_rate_gibs * 2**30)
+    host_s = host_b / (host_rate_gibs * 2**30)
+    from ..telemetry import twin_registry
+
+    twin_registry().record_predicted(
+        "offload_transfer.overlap_frac", predicted_overlap(transfer_s, host_s),
+        source="ops/streaming.offload_transfer_accounting")
+    return {
+        "h2d_bytes": int(h2d),
+        "d2h_bytes": int(d2h),
+        "host_update_bytes": int(host_b),
+        "transfer_s_pred": round(transfer_s, 3),
+        "host_update_s_pred": round(host_s, 3),
+        "overlap_frac": round(predicted_overlap(transfer_s, host_s), 4),
+        "kind": "predicted",
+    }
+
+
+def chunk_groups(params, chunk_bytes: int, itemsize: int = 4) -> list[list[int]]:
+    """Partition the leaf indices of ``params`` (a list, or a mapping in
+    the train state's order: JAX's flatten order) into contiguous groups
+    whose ``itemsize``-wide footprint stays under ``chunk_bytes`` (an
+    oversized leaf is a group of its own), as JAX :208.  The boundaries are
+    a numerics contract: the -sr / -sr8 recipes salt by the group-relative
+    leaf index, so every schedule over the same groups is bitwise the
+    same."""
+    leaves = list(params.values()) if isinstance(params, Mapping) else list(params)
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    size = 0
+    for i, leaf in enumerate(leaves):
+        n = (int(np.prod(tuple(leaf.shape))) if hasattr(leaf, "shape") else 1) * itemsize
+        if cur and size + n > chunk_bytes:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += n
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def slice_congruent(state, n_leaves: int, idxs: list[int]):
+    """``state`` (an optimizer state NamedTuple, or a list of leaves) with
+    every params-congruent field — a list of ``n_leaves`` tensors: the
+    moments, their scales — replaced by its ``idxs`` elements; counts and
+    hyperparameters pass whole (JAX :244)."""
+    if isinstance(state, (list, tuple)) and not hasattr(state, "_fields"):
+        return [state[i] for i in idxs]
+    return type(state)(*[[v[i] for i in idxs] if isinstance(v, list) and len(v) == n_leaves
+                         else v for v in state])
+
+
+def merge_congruent(template, group_outs: list, n_leaves: int, groups: list[list[int]]):
+    """Inverse of :func:`slice_congruent` over all groups (JAX :261):
+    each congruent field rebuilt from the groups' outputs, every other
+    field (a count every group advanced alike) from group 0."""
+    def merged(outs):
+        leaves: list = [None] * n_leaves
+        for idxs, out in zip(groups, outs):
+            for j, i in enumerate(idxs):
+                leaves[i] = out[j]
+        return leaves
+
+    if isinstance(template, (list, tuple)) and not hasattr(template, "_fields"):
+        return merged(group_outs)
+    fields = []
+    for k, v in enumerate(template):
+        if isinstance(v, list) and len(v) == n_leaves:
+            fields.append(merged([out[k] for out in group_outs]))
+        else:
+            fields.append(group_outs[0][k])
+    return type(template)(*fields)
+
+
+def stage_put(tensors: list, buffers: list, device=None) -> StagedTree:
+    """One device-to-host stage (JAX :284): copy each of ``tensors`` into
+    the page-locked buffer at its place in ``buffers`` (allocated at the
+    first call, reused while shape and dtype agree) with ``non_blocking``
+    on the side stream, after the work the current stream has queued.  The
+    returned tree holds the host buffers; ``wait_host()`` blocks the host
+    until the copies are done, ``copy_ms()`` then gives their time.  CPU tensors are already on the host: they
+    come back as they are."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return StagedTree(list(tensors))
+    dev = tensors[0].device
+    side = _side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    out = []
+    with torch.cuda.stream(side):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(side)
+        for i, t in enumerate(tensors):
+            buf = buffers[i] if i < len(buffers) else None
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                if i < len(buffers):
+                    buffers[i] = buf
+                else:
+                    buffers.append(buf)
+            buf.copy_(t, non_blocking=True)
+            t.record_stream(side)
+            out.append(buf)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(side)
+    return StagedTree(out, event, device=dev, start=start)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .ops.int8_state import DEFAULT_BLOCK_SIZE, adamw_int8_sr, lion_int8_sr
 from .ops.stochastic_rounding import GradientTransformation, adamw_bf16_sr, lion_bf16_sr
 
 OPTIMIZER_RECIPES: dict[str, str] = {
@@ -93,22 +94,28 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float =
 
 
 def make_optimizer(name: str, learning_rate: Optional[float] = None, *,
-                   weight_decay: float = 0.0, seed: int = 0) -> GradientTransformation:
+                   weight_decay: float = 0.0, block_size: Optional[int] = None,
+                   seed: int = 0) -> GradientTransformation:
     """A named recipe at its benchmarked hyperparameters (JAX
     ``make_optimizer``): ``learning_rate`` defaults to 1e-4 for the lion
     family and 3e-4 for the adam family; ``weight_decay`` is passed to every
-    recipe; ``seed`` keys the -sr recipes' deterministic rounding."""
+    recipe; ``block_size`` (the -sr8 recipes only, default 128) is the
+    per-block scale granularity of the int8 state; ``seed`` keys the -sr /
+    -sr8 recipes' deterministic rounding."""
     if name not in OPTIMIZER_RECIPES:
         raise ValueError(
             f"unknown optimizer recipe {name!r}; options: {sorted(OPTIMIZER_RECIPES)}"
         )
-    if name.endswith("-sr8"):
-        raise NotImplementedError(
-            f"{name!r} keeps int8 optimizer state (ops/int8_state.py), ROADMAP item A12 "
-            "(slice 5)"
-        )
+    if block_size is not None:
+        if not name.endswith("-sr8"):
+            raise ValueError(
+                f"block_size only applies to the -sr8 int8-state recipes, got {name!r}"
+            )
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
     lion_family = reference_recipe(name) == "lion"
     lr = learning_rate if learning_rate is not None else (1e-4 if lion_family else 3e-4)
+    block = DEFAULT_BLOCK_SIZE if block_size is None else block_size
     if name == "lion":
         return lion(lr, b1=0.9, b2=0.99, weight_decay=weight_decay, mu_dtype=torch.bfloat16)
     if name == "adamw":
@@ -116,7 +123,14 @@ def make_optimizer(name: str, learning_rate: Optional[float] = None, *,
                      mu_dtype=torch.bfloat16)
     if name == "lion-sr":
         return lion_bf16_sr(lr, b1=0.9, b2=0.99, weight_decay=weight_decay, seed=seed)
-    return adamw_bf16_sr(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay, seed=seed)
+    if name == "adamw-sr":
+        return adamw_bf16_sr(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+                             seed=seed)
+    if name == "lion-sr8":
+        return lion_int8_sr(lr, b1=0.9, b2=0.99, weight_decay=weight_decay, seed=seed,
+                            block_size=block)
+    return adamw_int8_sr(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+                         seed=seed, block_size=block)
 
 
 def flatten_opt_state(opt_state) -> tuple[list, dict]:
@@ -154,8 +168,13 @@ def unflatten_opt_state(template, tensors: list, fields: dict, hyperparams: dict
         if t.dtype != ref.dtype or t.numel() != ref.numel():
             raise ValueError(f"optimizer state tensor {i}: {t.dtype} {tuple(t.shape)} does not "
                              f"match the template's {ref.dtype} {tuple(ref.shape)}")
-    it = iter(t.reshape(ref.shape).to(ref.device, non_blocking=True)
-              for t, ref in zip(tensors, tmpl_tensors))
+    def place(t, ref):
+        t = t.reshape(ref.shape)
+        if ref.device.type == "cpu" and ref.is_pinned() and not t.is_pinned():
+            return t.pin_memory()   # an offloaded state stays page-locked
+        return t.to(ref.device, non_blocking=True)
+
+    it = iter(place(t, ref) for t, ref in zip(tensors, tmpl_tensors))
     values = []
     for field, value in zip(type(template)._fields, template):
         if isinstance(value, torch.Tensor):

@@ -13,9 +13,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .ops.precision import get_policy
-from .utils.dataclasses import GradientAccumulationPlugin
+from .logging import get_logger
+from .ops.precision import fp8_hardware_supported, get_policy
+from .utils.dataclasses import GradientAccumulationPlugin, parse_flag_from_env
 from .utils.device import resolve_device
+
+logger = get_logger(__name__)
 
 MIXED_PRECISION_TYPES = ("no", "fp16", "bf16", "fp8")
 
@@ -34,8 +37,11 @@ class PartialState:
 
 
 class AcceleratorState(PartialState):
-    """:class:`PartialState` plus the mixed-precision mode, ``"no"`` or
-    ``"bf16"`` (``fp16`` and ``fp8`` raise ``NotImplementedError``)."""
+    """:class:`PartialState` plus the mixed-precision mode: ``"no"``,
+    ``"bf16"``, ``"fp16"`` or ``"fp8"``.  fp8 on a device without fp8
+    tensor cores (before sm_89, or the CPU) warns and proceeds, or with
+    ``ACCELERATE_FP8_FALLBACK_BF16`` set falls back to bf16 (JAX
+    :356-372)."""
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None):
         mp = (mixed_precision or "no").lower()
@@ -43,8 +49,20 @@ class AcceleratorState(PartialState):
             raise ValueError(
                 f"mixed_precision must be one of {list(MIXED_PRECISION_TYPES)}, got {mp!r}"
             )
-        get_policy(mp)  # fp16 / fp8 raise here
         super().__init__(cpu=cpu, device=device)
+        if mp == "fp8" and not (self.device.type == "cuda" and fp8_hardware_supported()):
+            if parse_flag_from_env("ACCELERATE_FP8_FALLBACK_BF16"):
+                logger.warning(
+                    "mixed_precision='fp8' requested but this device has no fp8 matmul "
+                    "units; falling back to bf16 (ACCELERATE_FP8_FALLBACK_BF16 is set).")
+                mp = "bf16"
+            else:
+                logger.warning(
+                    "mixed_precision='fp8' requested but this device has no fp8 matmul "
+                    "units: the quantize / descale work is pure overhead. Training proceeds "
+                    "in fp8 as requested; set ACCELERATE_FP8_FALLBACK_BF16=true to fall back "
+                    "to bf16 on such hardware.")
+        get_policy(mp)
         self.mixed_precision = mp
 
 

@@ -1,7 +1,8 @@
 """Plugin dataclasses of the port (mirrors ``accelerate_tpu/utils/
 dataclasses.py``: ``GradSyncKwargs`` :155, ``GradientAccumulationPlugin``
-:269, ``ResiliencePlugin`` :400, ``ServingPlugin`` :487, ``LoraPlugin``
-:720, ``DataLoaderConfiguration`` :1008, ``ProjectConfiguration`` :1023)."""
+:269, ``FullyShardedDataParallelPlugin`` :292, ``ResiliencePlugin`` :400,
+``ServingPlugin`` :487, ``LoraPlugin`` :720, ``FP8RecipeKwargs`` :970,
+``DataLoaderConfiguration`` :1008, ``ProjectConfiguration`` :1023)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,97 @@ class GradientAccumulationPlugin:
             raise ValueError(f"invalid gradient accumulation mode {self.mode!r}")
         if self.num_steps < 1:
             raise ValueError("gradient_accumulation num_steps must be >= 1")
+
+
+@dataclass
+class FullyShardedDataParallelPlugin:
+    """The ZeRO-offload and int8-state knobs of the JAX plugin (JAX :292;
+    reference FSDP plugin / DeepSpeed ``offload_optimizer``):
+
+    - ``cpu_offload``: the optimizer state lives in pinned host memory, the
+      gradients stream device-to-host and the update runs on the host
+      (env default ``FSDP_OFFLOAD_PARAMS``);
+    - ``offload_params``: the stored params live there too and each step
+      fetches the compute-width copy (default: follows ``cpu_offload``);
+    - ``host_update_chunk_gib``: split the host update into leaf groups of
+      at most this many GiB of f32 params (``ops/streaming.chunk_groups``),
+      None for one update over every leaf;
+    - ``host_update_pipeline``: with chunks, stage chunk k+1's gradients
+      device-to-host while chunk k updates (default True, env
+      ``ACCELERATE_HOST_UPDATE_PIPELINE``); bitwise the serial schedule;
+    - ``int8_state_block_size``: the -sr8 recipes' scale granularity
+      (default 128, env ``ACCELERATE_INT8_STATE_BLOCK``), read by
+      ``Accelerator.prepare_optimizer``.
+
+    ``sharding_strategy`` lays parameters and state out over several
+    ranks and ``collective_matmul`` other than ``"off"`` needs a tensor-
+    parallel mesh: the Accelerator raises for either (A13).  Activation
+    checkpointing is ``LlamaConfig.remat``."""
+
+    sharding_strategy: Optional[str] = None
+    cpu_offload: Optional[bool] = None
+    offload_params: Optional[bool] = None
+    host_update_chunk_gib: Optional[float] = None
+    host_update_pipeline: Optional[bool] = None
+    int8_state_block_size: Optional[int] = None
+    collective_matmul: Optional[str] = None
+
+    def __post_init__(self):
+        # the environment supplies defaults only: an explicit argument wins
+        env = os.environ
+        if self.cpu_offload is None:
+            self.cpu_offload = parse_flag_from_env("FSDP_OFFLOAD_PARAMS")
+        if self.offload_params is None:
+            self.offload_params = self.cpu_offload
+        if self.host_update_pipeline is None:
+            self.host_update_pipeline = parse_flag_from_env("ACCELERATE_HOST_UPDATE_PIPELINE",
+                                                            default=True)
+        if self.int8_state_block_size is None:
+            self.int8_state_block_size = int(env.get("ACCELERATE_INT8_STATE_BLOCK", 128))
+        if self.int8_state_block_size < 1:
+            raise ValueError(
+                f"int8_state_block_size must be >= 1, got {self.int8_state_block_size}")
+        if self.collective_matmul is None:
+            self.collective_matmul = env.get("ACCELERATE_COLLECTIVE_MATMUL", "off")
+        mode = _COLLECTIVE_MATMUL_MODES.get(str(self.collective_matmul).strip().lower())
+        if mode is None:
+            raise ValueError(f"collective_matmul mode {self.collective_matmul!r} not one of "
+                             f"{sorted(_COLLECTIVE_MATMUL_MODES)}")
+        self.collective_matmul = mode
+
+
+# the JAX package's collective-matmul mode names and their canonical forms
+_COLLECTIVE_MATMUL_MODES = {"off": "off", "false": "off", "0": "off", "none": "off", "": "off",
+                            "on": "ring", "ring": "ring", "true": "ring", "1": "ring",
+                            "uni": "ring", "bidir": "bidir", "bidirectional": "bidir"}
+
+
+@dataclass
+class FP8RecipeKwargs:
+    """The fp8 recipe (JAX :970; reference TE ``DelayedScaling``): the
+    amax history length (env ``ACCELERATE_FP8_AMAX_HISTORY_LEN``, default
+    16) and the scale margin (env ``ACCELERATE_FP8_MARGIN``, default 0) of
+    the delayed scaling the train state carries (``ops/fp8.py``).  The
+    operands are always the hybrid pairing, e4m3 forward and e5m2
+    backward, on every dense layer."""
+
+    amax_history_len: Optional[int] = None
+    amax_compute_algo: str = "max"
+    margin: Optional[int] = None
+
+    def __post_init__(self):
+        env = os.environ
+        if self.amax_history_len is None:
+            self.amax_history_len = int(env.get("ACCELERATE_FP8_AMAX_HISTORY_LEN", 16))
+        if self.margin is None:
+            self.margin = int(env.get("ACCELERATE_FP8_MARGIN", 0))
+        if self.amax_history_len < 1:
+            raise ValueError(f"amax_history_len must be >= 1, got {self.amax_history_len}")
+        if self.margin < 0:
+            raise ValueError(f"margin must be >= 0, got {self.margin}")
+        if self.amax_compute_algo != "max":
+            raise ValueError("amax_compute_algo: only 'max' is implemented "
+                             f"(got {self.amax_compute_algo!r})")
 
 
 def _str_to_bool(value: str) -> bool:

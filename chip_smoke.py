@@ -56,7 +56,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    decode / prefill step; serves the trace again on a fresh engine with
    every kernel launch held against its plain version on the engine's own
    operands (every such checked rerun caps each request at
-   ``CHECKED_NEW`` = 64 new tokens, ``generate_paged``'s at 32: the
+   ``CHECKED_NEW`` = 64 new tokens, ``generate_paged``'s at 16: the
    script's time limit); then teacher-forces two of the served sequences through the
    model with the kernels and with their plain versions; then does all of
    that again with int8 weights (``quantize_model_``) and int8 KV pages
@@ -84,7 +84,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    trace with both features off, then on (hit rate beside its prediction,
    shared pages, forks, skipped prefill, TTFT off and on, tokens under the
    token rule), a checked rerun with the resource contract after every
-   tick, then the int8 model from int8 pages on its first 8 requests the
+   tick, then the int8 model from int8 pages on its first 4 requests the
    same way (#7 at [16, 5], #11 at m 80);
 5a''. overload, disaggregation and the fleet: 32 requests of the bench
    trace through the speculative bf16 engine with a bounded queue, a
@@ -98,7 +98,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    version with the resource contract after every tick; then
    ``bench.py --serve --disaggregate``'s prefill -> decode pair over the
    bf16 trace (#6 prefill, #4 decode) and over int8 weights and pages on
-   8 requests (#7 / #11, #5 / #11): page bytes equal to
+   4 requests (#7 / #11, #5 / #11): page bytes equal to
    ``transfer_accounting``, each slot's gather and scatter (CUDA events)
    beside its bound, tokens/s beside the fused serve's, tokens under the
    token rule, a checked rerun with the contract on both engines after
@@ -131,7 +131,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    and int8 models: one beam equal to greedy, the best beam's
    log-probability a token at least greedy's, the int8 one's #11 / #12
    held to plain;
-5b. decodes 4 prompts of 128-256 tokens, 64 new tokens each, through
+5b. decodes 4 prompts of 128-256 tokens, 32 new tokens each, through
    ``generate_paged`` with int8 weights and fp8 pages (#12 on every decode
    step, #11 on every prefill chunk, #5 / #7 over fp8 pages), then again
    with every launch of the four held against its plain version, under
@@ -207,13 +207,43 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    the native IO engine in use; prints the ``train_resume`` line (save
    sync / async blocking / async total ms, bytes and GB/s, crc32, verify
    and load ms, data wait, peak memory, the verdicts, the card);
+6b. the memory and precision recipes (``memory_recipes_phase``): bench.py's
+   1.34B config (``_1b_config``: hidden 2048, 24 layers, 16 heads of 128,
+   flash, bf16) at batch 3 x 2048, fused CE over 4 vocab chunks,
+   ``lion-sr8`` at block 128, from one seeded state with remat off,
+   ``full`` and ``dots`` (2 warm and 3 timed steps each: step ms, MFU,
+   peak memory, the memory the forward leaves for the backward; #1 48
+   launches a step under remat, 24 off; params, int8 codes and scales
+   after 2 steps bitwise across the three), then the scanned stack with
+   ``remat_policy="offload"`` and half of each boundary on the host (the
+   first loss bitwise the unrolled run's, the second within 1e-3, the
+   boundary bytes a step as predicted, the timed steps' own peak below
+   ``full``'s; for both, what was live at one step's peak by the source
+   line that allocated it); the 600m step under fp16 (an f16 model over f32
+   masters: losses finite and falling, the loss-scale sequence, an
+   injected overflow leaving params and optimizer state bitwise, the
+   scale halved; #1-#3's f16 instances held to their plain versions at
+   batch 2 and 10 at f16's limits (``KERNEL_TOL_F16``, half an f16 step),
+   #2 / #3 21 launches bitwise, timed beside the bf16
+   instances and SDPA's f16 call); under fp8 delayed scaling beside bf16
+   over the same batches (losses within 5 %, tokens/s, 3 fp8 products a
+   dense a step; each ``torch._scaled_mm`` product at the four dense
+   shapes held to its plain version, forward e4m3 x e4m3, backward e5m2 x
+   e4m3, timed beside ``F.linear``); and under ZeRO-offload with
+   ``lion-sr8`` (resident, then the monolithic, chunked serial and chunked
+   pipelined host updates at 0.25 GiB, 2 steps each: the monolithic equal
+   to resident and pipelined to serial bitwise, params, codes and scales;
+   the device-to-host and host-to-device bytes a step equal to
+   ``offload_transfer_accounting``; step and host-update ms and the share
+   of the copy hidden under the update);
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
    prefix-cache, overload, pair (bf16, int8) and fleet serves, the loaded
    serves (``big_model_serve``, ``big_model_serve_int8``), the int8
    streamed decode (``streamed``) and beam search (``beam``) and, for
-   #1-#3, the ``train_resume`` runs), then
+   #1-#3, the ``train_resume`` runs and the ``memory_*`` runs of step 6b;
+   #1-#3's ``cases`` and ``f16`` hold their f16 instances), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
 
@@ -256,6 +286,13 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
 # and half a step of the sum (``lora_plain``)
 KERNEL_TOL = 2e-2
 ROW_SCALE_FLOOR = 1e-3
+# #1-#3's f16 instances: an f16 step is 2^-3 of a bf16 step, so the limit is
+# KERNEL_TOL / 8 and the slack half an f16 step.  The floored rows' limit
+# (KERNEL_TOL * ROW_SCALE_FLOOR of the tensor's scale) stays as it is: it
+# holds rows that cancel to ~0 (a causal first row's dq), whose error is
+# the f32 sums' order on terms of O(1), the same in either type
+KERNEL_TOL_F16 = KERNEL_TOL / 8
+ROW_SCALE_FLOOR_F16 = ROW_SCALE_FLOOR * 8
 
 # the 600m serving model and its engine geometry
 MODEL = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
@@ -273,7 +310,7 @@ N_REQUESTS = 16
 # tokens.  Cut so the script, whose serves are host-bound, fits its time
 # limit on a slow host
 CHECKED_NEW = 64
-GEN_CHECKED_NEW = 32
+GEN_CHECKED_NEW = 16
 # the 16 decode slots' positions of the paged decode cases: 0, page edges and
 # 2047, the block table's last token
 DEC_POS = [0, 1, 63, 64, 65, 127, 128, 300, 511, 777, 1023, 1024, 1500, 2000, 2046, 2047]
@@ -287,7 +324,7 @@ QUANT_KV = "int8"
 PAGES_32 = dict(PLUGIN, page_size=32, pages_per_slot=2 * PLUGIN["pages_per_slot"],
                 num_pages=2 * PLUGIN["num_pages"], decode_kernel="auto")
 PAGES_32_REQUESTS = 8
-GEN_PAGED = dict(batch=4, prompt_len_range=(128, 256), max_new=64, kv_dtype="fp8")
+GEN_PAGED = dict(batch=4, prompt_len_range=(128, 256), max_new=32, kv_dtype="fp8")
 GEN_T = 250           # the prefill window of kernel #7's case at generate_paged's geometry
 # #4 / #5 at generate_paged's geometry: 4 slots over pages of 16 mid-decode,
 # on both sides of the 256-token chunk edge (255 ends the first chunk, 256
@@ -332,7 +369,7 @@ DRAFT_REQUESTS, DRAFT_NEW, DRAFT_LAYERS = 4, 32, 2
 # features off, then with the prefix cache and speculation on; the int8
 # model from int8 pages on the trace's first PREFIX_QUANT_REQUESTS requests
 PREFIX_SHARE = 0.5
-PREFIX_QUANT_REQUESTS = 8
+PREFIX_QUANT_REQUESTS = 4
 # each new path's kernel-wrapper launches, counts zeroed just before it
 PATH_LAUNCHES: dict = {}
 # overload: 32 requests of the bench trace through the speculative bf16
@@ -346,7 +383,7 @@ STORM = dict(seed=45, n_steps=320, p_cancel=0.012, p_deadline=0.004)
 LADDER_TICKS = (24, 48, 72)
 # the disaggregated pair: the bf16 trace, and its first PAIR_INT8_REQUESTS
 # requests with int8 weights and int8 pages
-PAIR_INT8_REQUESTS = 8
+PAIR_INT8_REQUESTS = 4
 # the fleet: two fused bf16 engines over one model, the prefix-share trace,
 # a replica_kill at fleet tick FLEET_KILL_AT
 FLEET_REPLICAS, FLEET_KILL_AT = 2, 40
@@ -744,9 +781,19 @@ def half_ulp_bf16(torch, ref):
                        torch.zeros_like(mag))
 
 
-def held_to_plain(torch, name, out, ref, slack=None) -> dict:
+def half_ulp_f16(torch, ref):
+    """Half an f16 step at each |ref| (f16's subnormal step below 2^-14)."""
+    mag = ref.float().abs()
+    _, exp = torch.frexp(mag)
+    return torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), (exp - 12).clamp(min=-25)),
+                       torch.zeros_like(mag))
+
+
+def held_to_plain(torch, name, out, ref, slack=None, tol=KERNEL_TOL,
+                  row_floor=ROW_SCALE_FLOOR) -> dict:
     """A kernel's ``out`` against ``ref``, its plain version in f32 on the
-    same bf16 operands, row by row (see ``KERNEL_TOL``).  With ``slack``
+    same bf16 operands, row by row (see ``KERNEL_TOL``; an f16 instance
+    passes ``KERNEL_TOL_F16`` and ``ROW_SCALE_FLOOR_F16``).  With ``slack``
     (a tensor like ``ref``) each element may also be off by that much: the
     roundings of a bf16 output that leaves O(1) (at |ref| >= 8 half a bf16
     step is above KERNEL_TOL).  Returns the readings; raises if a row fails
@@ -757,8 +804,8 @@ def held_to_plain(torch, name, out, ref, slack=None) -> dict:
         err = (err - slack).clamp(min=0)
     diff = err.reshape(-1, width).amax(dim=1)
     scale = ref.float().reshape(-1, width).abs().amax(dim=1)
-    floor = ROW_SCALE_FLOOR * scale.max().clamp(max=1.0).item()
-    ratio = diff / (KERNEL_TOL * scale.clamp(min=max(floor, 1e-30), max=1.0))
+    floor = row_floor * scale.max().clamp(max=1.0).item()
+    ratio = diff / (tol * scale.clamp(min=max(floor, 1e-30), max=1.0))
     worst = int(ratio.argmax())
     rep = {"max_abs_err": (out.float() - ref.float()).abs().max().item(),
            "err_over_limit": ratio.max().item(),
@@ -766,7 +813,7 @@ def held_to_plain(torch, name, out, ref, slack=None) -> dict:
            "min_row_ref_max": scale.min().item(), "tensor_ref_max": scale.max().item(),
            "err_over_tensor_max": (diff.max() / scale.max().clamp(min=1e-30)).item()}
     if not (bool(torch.isfinite(out).all()) and rep["err_over_limit"] <= 1.0
-            and rep["err_over_tensor_max"] <= KERNEL_TOL):
+            and rep["err_over_tensor_max"] <= tol):
         raise AssertionError(f"{name}: output off its plain version: {rep}")
     return rep
 
@@ -1221,14 +1268,17 @@ def kernel_sass(lib: Path, ptxas: str) -> dict:
     return out
 
 
-def flash_inputs(torch, *, b, t, seg=False, pos=False, lse_grad=False, seed=0, device="cuda"):
-    """Random bf16 q/k/v/g at the 600m attention geometry, an f32 gradient
-    for the logsumexp (zero unless ``lse_grad``), and the mask options."""
+def flash_inputs(torch, *, b, t, seg=False, pos=False, lse_grad=False, seed=0, device="cuda",
+                 dtype=None):
+    """Random bf16 (or ``dtype``) q/k/v/g at the 600m attention geometry,
+    an f32 gradient for the logsumexp (zero unless ``lse_grad``), and the
+    mask options."""
     h, hkv, d = FLASH_HEADS["h"], FLASH_HEADS["hkv"], FLASH_HEADS["d"]
+    dt = dtype or torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(seed)
     rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
-    q, g = rand(b, t, h, d).bfloat16(), rand(b, t, h, d).bfloat16()
-    k, v = rand(b, t, hkv, d).bfloat16(), rand(b, t, hkv, d).bfloat16()
+    q, g = rand(b, t, h, d).to(dt), rand(b, t, h, d).to(dt)
+    k, v = rand(b, t, hkv, d).to(dt), rand(b, t, hkv, d).to(dt)
     g_lse = rand(b, t, h) if lse_grad else torch.zeros(b, t, h, device=device)
     kw = {}
     if seg:   # four packed segments per row
@@ -2473,7 +2523,7 @@ def prefix_phase(torch, card: str, bf16: dict, quant_model) -> dict:
     forks, skipped prefill, TTFT off and on.  A checked rerun holds every
     launch against its plain version and checks the page mirror, refcounts
     and free stack after every tick.  Then the int8 model from int8 pages
-    on the first 8 requests the same way (#7 at [16, 5], #11 at m 80)."""
+    on the first 4 requests the same way (#7 at [16, 5], #11 at m 80)."""
     import accelerate_tpu_torch.models.llama as llama_mod
     from accelerate_tpu_torch import synthesize_trace
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -2501,7 +2551,7 @@ def prefix_phase(torch, card: str, bf16: dict, quant_model) -> dict:
            "launches": launches, "ticks": ticks, "token_rule": rule}
     if not report["prefill_tokens_skipped"]:
         # every admission raced its preamble's first prefill: serve the
-        # trace's first 8 requests again on the same engine, whose index
+        # trace's first PREFIX_QUANT_REQUESTS again on the same engine, whose index
         # now holds the preambles, so prefill starts from adopted pages
         import dataclasses
 
@@ -2831,7 +2881,7 @@ def disaggregate_phase(torch, card: str, bf16: dict, quant: dict) -> dict:
     """``bench.py --serve --disaggregate``'s pair (``bench.py:587-609``),
     twice: the bf16 600m over the 16-request trace (#6 on the prefill
     engine, #4 on the decode engine), and the int8-weight model over int8
-    pages on its first 8 requests (#7 / #11 prefill, #5 / #11 decode).
+    pages on its first 4 requests (#7 / #11 prefill, #5 / #11 decode).
     Each: transfers, pages and bytes against ``transfer_accounting`` (equal),
     each slot's gather and scatter (CUDA events) against its bound, tokens/s
     beside the fused serve's, tokens under the token rule against the fused
@@ -4318,6 +4368,587 @@ def fused_op_phase(torch, F, fa, model, trace) -> dict:
     return reports
 
 
+# -- phase memory_recipes: remat and the scanned stack, fp16, fp8, offload ----
+
+# bench.py's _1b_config (1.34 B parameters at 24 layers, sized for a
+# resident train state with remat)
+MEM_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+              num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16,
+              max_position_embeddings=2048)
+MEM = dict(batch=3, seq=2048, warmup=2, timed=3, ce_chunks=4, optimizer="lion-sr8",
+           boundary_fraction=0.5, scan_loss_rtol=1e-3)
+MEM_FP16 = dict(warmup=2, timed=3, optimizer="lion")
+MEM_FP8 = dict(warmup=2, timed=5, loss_rtol=0.05, optimizer="lion-sr")
+MEM_OFFLOAD = dict(steps=2, chunk_gib=0.25, optimizer="lion-sr8")
+# the 600m model's dense shapes (in, out), as fp8 products at the step's rows
+FP8_SHAPES = {"q_proj / o_proj": (1536, 1536), "k_proj / v_proj": (1536, 768),
+              "gate_proj / up_proj": (1536, 4096), "down_proj": (4096, 1536)}
+FP8_MM_RTOL = 1e-3
+F16_CASES = [dict(name="f16_causal", t=2048), dict(name="f16_segments", t=2048, seg=True),
+             dict(name="f16_positions", t=2048, pos=True),
+             dict(name="f16_t_not_tile_multiple", t=2000)]
+
+
+def mem_batch(torch, vocab: int, batch: int, seed: int = 0) -> dict:
+    tokens = np.random.default_rng(seed).integers(0, vocab, (batch, MEM["seq"]))
+    ids = torch.from_numpy(tokens).cuda()
+    return {"input_ids": ids, "labels": ids}
+
+
+def flash_counts(fa) -> dict:
+    return {n: getattr(fa, n).launches for n in FLASH_REPLACES}
+
+
+def peak_sites(torch, fn, top: int = 6) -> dict:
+    """Run ``fn`` (one train step) under the allocator's history: the
+    step's own peak above what was live before it, and what was live at
+    that moment by the port's source line that allocated it (GiB; a block
+    allocated under no frame of the port, a gradient of autograd's engine
+    for one, counts as ``autograd``)."""
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        fn()
+        sync(torch)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, cur, peak, at_peak = {}, 0, 0, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+            cur -= ev["size"]
+    sites: dict = {}
+    for ev in at_peak.values():
+        frame = next((f for f in ev.get("frames", [])
+                      if "accelerate_tpu_torch" in f["filename"]), None)
+        where = (f"{Path(frame['filename']).name}:{frame['line']} {frame['name']}"
+                 if frame else "autograd")
+        sites[where] = sites.get(where, 0) + ev["size"]
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+    return {"peak_gib": peak / 2**30, "sites_gib": {w: n / 2**30 for w, n in ranked}}
+
+
+def held_loss_fn(torch, loss_fn, held: list):
+    """``loss_fn`` that records the device memory its forward left
+    allocated (the activations the backward will read)."""
+    def fn(params, batch):
+        base = torch.cuda.memory_allocated()
+        loss = loss_fn(params, batch)
+        held.append(torch.cuda.memory_allocated() - base)
+        return loss
+    return fn
+
+
+def opt_tensors(state) -> list:
+    """The optimizer state's tensors (codes, scales, moments) in field
+    order."""
+    return [t for field in state.opt_state if isinstance(field, list) for t in field]
+
+
+def all_equal(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+                                    for x, y in zip(a, b))
+
+
+def remat_1b_case(torch, fa, card: str) -> dict:
+    """(a) the 1.34B step under remat off / full / dots and the scanned
+    stack with offloaded boundaries, every run from one seeded state."""
+    import dataclasses
+
+    from accelerate_tpu_torch import (
+        Accelerator, GradSyncKwargs, LlamaConfig, LlamaForCausalLM, make_llama_loss_fn,
+    )
+    from accelerate_tpu_torch.models.llama import (
+        boundary_offload_rows, count_params, flops_per_token, stack_layer_params,
+    )
+
+    cfg0 = LlamaConfig(**MEM_1B, attn_implementation="flash", dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg0, device="cuda", seed=0)
+    start = {n: p.detach().to(torch.bfloat16).clone() for n, p in model.named_parameters()}
+    n_params = count_params(start)
+    layers, b, t = cfg0.num_hidden_layers, MEM["batch"], MEM["seq"]
+    batch = mem_batch(torch, cfg0.vocab_size, b)
+    fpt = flops_per_token(cfg0, t)
+    held: list = []
+    loss_fn = held_loss_fn(torch, make_llama_loss_fn(model, fused_vocab_chunks=MEM["ce_chunks"]),
+                           held)
+    runs, ref = {}, None
+    for policy in (None, "full", "dots"):
+        label = policy or "off"
+        model.config = dataclasses.replace(cfg0, remat=policy is not None,
+                                           remat_policy=policy or "full")
+        acc = Accelerator(mixed_precision="bf16", device="cuda",
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+        state = acc.create_train_state({n: x.clone() for n, x in start.items()},
+                                       MEM["optimizer"])
+        step = acc.prepare_train_step(loss_fn)
+        losses = []
+        for _ in range(MEM["warmup"]):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        snap = [p.clone() for p in state.params.values()] + [x.clone() for x in opt_tensors(state)]
+        if ref is None:
+            ref = snap
+        elif not all_equal(torch, snap, ref):
+            raise AssertionError(f"remat {label}: params, codes or scales after "
+                                 f"{MEM['warmup']} steps differ from remat off's")
+        del snap
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        held.clear()
+        t0 = time.perf_counter()
+        for _ in range(MEM["timed"]):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        sync(torch)
+        step_s = (time.perf_counter() - t0) / MEM["timed"]
+        counts = flash_counts(fa)
+        losses = [float(x) for x in losses]
+        want = {"flash_fwd": (2 if policy else 1) * layers, "flash_dq": layers,
+                "flash_dkv": layers}
+        per_step = {n: c / MEM["timed"] for n, c in counts.items()}
+        if per_step != want:
+            raise AssertionError(f"remat {label}: #1-#3 launches a step {per_step}, want {want}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"remat {label}: losses not finite and falling: {losses}")
+        PATH_LAUNCHES[f"memory_1b_remat_{label}"] = counts
+        runs[label] = {"step_ms": step_s * 1e3, "tokens_per_s": b * t / step_s,
+                       "mfu_vs_989_tflops": fpt * b * t / step_s / BF16_FLOPS_PER_S,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       # the step's own peak above what was live before it
+                       "step_peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                       "forward_held_gib": max(held) / 2**30, "launches_per_step": per_step,
+                       "losses": losses}
+        if policy == "full":
+            runs[label]["peak_sites"] = peak_sites(torch, lambda: step(state, batch))
+        log("memory_recipes remat", label, json.dumps(runs[label]))
+        del state, step, acc, m
+        torch.cuda.empty_cache()
+    # the scanned stack, its boundaries' head half on the host, alone on the
+    # card with its weights
+    sparams = stack_layer_params({n: x.clone() for n, x in start.items()})
+    del ref, model, start, loss_fn
+    torch.cuda.empty_cache()
+    scfg = dataclasses.replace(cfg0, scan_layers=True, remat=True, remat_policy="offload",
+                               boundary_offload_fraction=MEM["boundary_fraction"])
+    smodel = LlamaForCausalLM(scfg, device="cuda", seed=0)
+    acc = Accelerator(mixed_precision="bf16", device="cuda",
+                      kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+    state = acc.create_train_state(sparams, MEM["optimizer"])
+    step = acc.prepare_train_step(held_loss_fn(
+        torch, make_llama_loss_fn(smodel, fused_vocab_chunks=MEM["ce_chunks"]), held))
+    losses = []
+    for _ in range(MEM["warmup"]):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    # timed as the unrolled runs are: after the warm steps, its own peak
+    # above what was live before the timed steps
+    held.clear()
+    fa.reset_launch_counts()
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    smodel.boundary_stats.update(d2h_bytes=0, h2d_bytes=0)
+    t0 = time.perf_counter()
+    for _ in range(MEM["timed"]):
+        state, m = step(state, batch)
+    sync(torch)
+    step_s = (time.perf_counter() - t0) / MEM["timed"]
+    counts = flash_counts(fa)
+    PATH_LAUNCHES["memory_scan_offload"] = counts
+    rows = boundary_offload_rows(t, MEM["boundary_fraction"])
+    predicted = layers * b * rows * cfg0.hidden_size * 2
+    full = runs["full"]
+    scan = {"step_ms": step_s * 1e3, "losses": losses,
+            "d2h_bytes_per_step": smodel.boundary_stats["d2h_bytes"] / MEM["timed"],
+            "h2d_bytes_per_step": smodel.boundary_stats["h2d_bytes"] / MEM["timed"],
+            "d2h_bytes_predicted": predicted, "host_rows": rows,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "forward_held_gib": max(held) / 2**30,
+            "launches_per_step": {n: c / MEM["timed"] for n, c in counts.items()},
+            "peak_sites": peak_sites(torch, lambda: step(state, batch))}
+    log("memory_recipes scan_offload", json.dumps(scan))
+    if losses[0] != full["losses"][0]:
+        raise AssertionError(f"scan + offload: first loss {losses[0]} != the unrolled full "
+                             f"run's {full['losses'][0]}")
+    if abs(losses[1] - full["losses"][1]) > MEM["scan_loss_rtol"] * abs(full["losses"][1]):
+        raise AssertionError(f"scan + offload: second loss {losses[1]} off the unrolled "
+                             f"run's {full['losses'][1]}")
+    if scan["d2h_bytes_per_step"] != predicted or scan["h2d_bytes_per_step"] != predicted:
+        raise AssertionError(f"scan + offload: boundary bytes {scan} != predicted {predicted}")
+    if not scan["step_peak_gib"] < full["step_peak_gib"]:
+        raise AssertionError(f"scan + offload: the step's peak {scan['step_peak_gib']} GiB is "
+                             f"not below full remat's {full['step_peak_gib']}")
+    del state, step, acc, smodel, sparams
+    torch.cuda.empty_cache()
+    return {"card": card, "params": n_params, "batch": b, "seq": t, "runs": runs,
+            "scan_offload": scan}
+
+
+def flash_f16_checks(torch, F, fa) -> dict:
+    """#1-#3's f16 instances against their plain versions at batch 2
+    (causal, segments, positions, T not a multiple of the tile) and at
+    batch 10, #2 / #3 repeated 21 times bitwise; each timed beside its
+    bf16 instance and SDPA's f16 call (a yardstick)."""
+    d = FLASH_HEADS["d"]
+    readings = {name: [] for name in FLASH_REPLACES}
+    for i, case in enumerate(F16_CASES):
+        q, k, v, g, g_lse, kw = flash_inputs(torch, b=CHECK_BATCH, t=case["t"],
+                                             seg=case.get("seg", False),
+                                             pos=case.get("pos", False), seed=300 + i,
+                                             dtype=torch.float16)
+        got = flash_fwd_bwd(torch, fa.flash_attention, q, k, v, g, g_lse, True, kw)
+        sync(torch)
+        want = flash_fwd_bwd(torch, fa.flash_attention_plain, q, k, v, g, g_lse, True, kw)
+        rep = {}
+        for label, x, ref in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            if x.dtype != ref.dtype:
+                raise AssertionError(f"flash {case['name']} {label}: {x.dtype} != {ref.dtype}")
+            if label == "lse":
+                x, ref = x[..., None], ref[..., None]
+            rep[label] = held_to_plain(torch, f"flash {case['name']} {label}", x, ref,
+                                       slack=half_ulp_f16(torch, ref)
+                                       if label in ("dq", "dk", "dv") else None,
+                                       tol=KERNEL_TOL_F16, row_floor=ROW_SCALE_FLOOR_F16)
+        log("kernel flash", case["name"], json.dumps(rep))
+        for name, labels in (("flash_fwd", ("out", "lse")), ("flash_dq", ("dq",)),
+                             ("flash_dkv", ("dk", "dv"))):
+            readings[name] += [dict(rep[lb], case=case["name"], tensor=lb) for lb in labels]
+        del got, want
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    ops = {}
+    for dtype in (torch.float16, torch.bfloat16):
+        q, k, v, g, _, _ = flash_inputs(torch, b=b, t=seq, seed=7, dtype=dtype)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        ops[dtype] = (q, k, v, g, out, lse, delta)
+    q, k, v, g, out, lse, delta = ops[torch.float16]
+    dq = fa.flash_dq(q, k, v, g, lse, delta, **kw)
+    dkv = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
+    for name, first in (("flash_dq", (dq,)), ("flash_dkv", dkv)):
+        fn = getattr(fa, name)
+        runs = [fn(q, k, v, g, lse, delta, **kw) for _ in range(REPEATS)]
+        sync(torch)
+        for i, run in enumerate(runs):
+            run = run if isinstance(run, tuple) else (run,)
+            if not all(torch.equal(x, y) for x, y in zip(first, run)):
+                raise AssertionError(f"{name} f16: launch {i + 2} of {REPEATS + 1} differs "
+                                     "from the first on the same operands")
+        del runs
+    for name, got, plain, labels in (
+        ("flash_fwd", (out, lse), lambda: fa.flash_fwd_plain(q, k, v, **kw), ("out", "lse")),
+        ("flash_dq", (dq,), lambda: (fa.flash_dq_plain(q, k, v, g, lse, delta, **kw),), ("dq",)),
+        ("flash_dkv", dkv, lambda: fa.flash_dkv_plain(q, k, v, g, lse, delta, **kw),
+         ("dk", "dv")),
+    ):
+        for label, x, ref in zip(labels, got, plain()):
+            if label == "lse":
+                x, ref = x[..., None], ref[..., None]
+            r = held_to_plain(torch, f"flash f16 B {b} {label}", x, ref,
+                              slack=half_ulp_f16(torch, ref) if label in ("dq", "dk", "dv")
+                              else None, tol=KERNEL_TOL_F16, row_floor=ROW_SCALE_FLOOR_F16)
+            readings[name].append(dict(r, case=f"f16_causal_b{b}", tensor=label))
+    del dq, dkv
+    ms = {}
+    for dtype, tag in ((torch.float16, "f16"), (torch.bfloat16, "bf16")):
+        q, k, v, g, out, lse, delta = ops[dtype]
+        ms[tag] = {"flash_fwd": time_ms(torch, lambda i: fa.flash_fwd(q, k, v, **kw)),
+                   "flash_dq": time_ms(torch, lambda i: fa.flash_dq(q, k, v, g, lse, delta, **kw)),
+                   "flash_dkv": time_ms(torch, lambda i: fa.flash_dkv(q, k, v, g, lse, delta,
+                                                                      **kw))}
+    q, k, v, g = ops[torch.float16][:4]
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    gs = g.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        sdpa_fwd = time_ms(torch, lambda i: sdpa())
+    out_s = sdpa()
+    sdpa_bwd = time_ms(torch, lambda i: torch.autograd.grad(out_s, (qs, ks, vs), gs,
+                                                           retain_graph=True))
+    del out_s, ops
+    pairs = b * FLASH_HEADS["h"] * seq * (seq + 1) // 2
+    bounds = flash_bound(b, seq, pairs)
+    reports = {}
+    for name in FLASH_REPLACES:
+        worst = max(readings[name], key=lambda r: r["err_over_limit"])
+        reports[name] = {"max_abs_err": max(r["max_abs_err"] for r in readings[name]),
+                         "err_over_limit": worst["err_over_limit"], "worst": worst,
+                         "ms": ms["f16"][name], "bf16_ms": ms["bf16"][name],
+                         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                         "library_ms": sdpa_fwd if name == "flash_fwd" else sdpa_bwd,
+                         "cases": [c["name"] for c in F16_CASES] + [f"f16_causal_b{b}"]}
+        log("kernel", name, "f16", json.dumps(reports[name]))
+    torch.cuda.empty_cache()
+    return reports
+
+
+def fp16_case(torch, F, fa, card: str) -> dict:
+    """(b) the 600m step under fp16: f16 model, f32 masters, dynamic loss
+    scaling; an injected overflow; #1-#3's f16 instances."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, LlamaForCausalLM, make_llama_loss_fn
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.float16)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    params = {n: p.detach().float() for n, p in model.named_parameters()}
+    acc = Accelerator(mixed_precision="fp16", device="cuda")
+    state = acc.create_train_state(params, MEM_FP16["optimizer"])
+    base = make_llama_loss_fn(model, fused_vocab_chunks=TRAIN["ce_chunks"])
+    step = acc.prepare_train_step(lambda p, batch: base(p, batch) * batch["k"])
+    batch = {**token_batch(torch, cfg.vocab_size, TRAIN["batch"]),
+             "k": torch.ones((), device="cuda")}
+    losses, scales, finite = [], [], []
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(MEM_FP16["warmup"] + MEM_FP16["timed"]):
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        scales.append(float(m["loss_scale"]))
+        finite.append(bool(m["grads_finite"]))
+    counts = flash_counts(fa)
+    PATH_LAUNCHES["memory_fp16"] = counts
+    steps = MEM_FP16["warmup"] + MEM_FP16["timed"]
+    layers = cfg.num_hidden_layers
+    if counts != {n: steps * layers for n in FLASH_REPLACES}:
+        raise AssertionError(f"fp16: #1-#3 (f16) launched {counts} in {steps} steps")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] \
+            or not any(finite):
+        raise AssertionError(f"fp16: losses {losses} (finite steps {finite}) not finite and "
+                             "falling")
+    before = ([p.clone() for p in state.params.values()], [x.clone() for x in opt_tensors(state)],
+              state.opt_state.count, float(state.loss_scale.scale))
+    state, m = step(state, {**batch, "k": torch.full((), float("inf"), device="cuda")})
+    if bool(m["grads_finite"]) or float(m["loss_scale"]) != before[3] / 2:
+        raise AssertionError(f"fp16: the injected overflow was not caught: {m}")
+    if not (all_equal(torch, list(state.params.values()), before[0])
+            and all_equal(torch, opt_tensors(state), before[1])
+            and state.opt_state.count == before[2]):
+        raise AssertionError("fp16: the overflowed step changed params or optimizer state")
+    rep = {"card": card, "optimizer": MEM_FP16["optimizer"], "losses": losses,
+           "loss_scale": scales, "grads_finite": finite,
+           "step_ms": 1e3 * sum(times[MEM_FP16["warmup"]:]) / MEM_FP16["timed"],
+           "overflow_step": {"grads_finite": False, "scale_after": float(m["loss_scale"]),
+                             "state_bitwise_unchanged": True},
+           "launches_per_step": {n: c / steps for n, c in counts.items()}}
+    log("memory_recipes fp16", json.dumps(rep))
+    del state, step, acc, params, model, before
+    torch.cuda.empty_cache()
+    rep["kernels_f16"] = flash_f16_checks(torch, F, fa)
+    return rep
+
+
+def fp8_gemm_checks(torch, F) -> dict:
+    """Each fp8 product of the dense layers at the 600m shapes and the
+    step's rows, ``torch._scaled_mm`` against its plain version on the same
+    codes: forward e4m3 x e4m3, backward dx and dw e5m2 x e4m3."""
+    from accelerate_tpu_torch.ops import precision as prec
+
+    m_rows = TRAIN["batch"] * TRAIN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for label, (k_in, n_out) in FP8_SHAPES.items():
+        x = torch.randn(m_rows, k_in, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(n_out, k_in, generator=gen, device="cuda") / k_in ** 0.5).bfloat16()
+        g = torch.randn(m_rows, n_out, generator=gen, device="cuda").bfloat16()
+        xs = prec._over(prec.E4M3_MAX, x.float().abs().amax())
+        ws = prec._over(prec.E4M3_MAX, w.float().abs().amax())
+        gs = prec._over(prec.E5M2_MAX, g.float().abs().amax())
+        qx = prec.saturate_cast(x, xs, prec.E4M3_MAX, torch.float8_e4m3fn)
+        qw = prec.saturate_cast(w.t(), ws, prec.E4M3_MAX, torch.float8_e4m3fn)
+        qg = prec.saturate_cast(g, gs, prec.E5M2_MAX, torch.float8_e5m2)
+        products = {"fwd_e4m3_e4m3": (qx, qw, xs * ws), "dx_e5m2_e4m3": (qg, qw.t(), gs * ws),
+                    "dw_e5m2_e4m3": (qg.t(), qx, xs * gs)}
+        rep = {}
+        for name, (a, bm, descale) in products.items():
+            # held in f32, each row to FP8_MM_RTOL of its largest |value|:
+            # the fp8 tensor cores accumulate at less than f32's width
+            # between cuBLASLt's promotions to f32; the plain version's f32
+            # sums would part from another f32 order by far less
+            got = prec.fp8_mm(a, bm, descale, torch.float32)
+            ref = prec.fp8_mm_plain(a, bm, descale, torch.float32)
+            row_err = (got - ref).abs().amax(dim=1)
+            row_ref = ref.abs().amax(dim=1).clamp(min=1e-30)
+            worst = (row_err / row_ref).max().item()
+            if not (bool(torch.isfinite(got).all()) and worst <= FP8_MM_RTOL):
+                raise AssertionError(f"fp8 {label} {name}: off its plain version by {worst} of "
+                                     "a row's largest value")
+            mm, nn = got.shape
+            kk = a.shape[1]
+            rep[name] = {"shape": [mm, kk, nn], "max_abs_err": (got - ref).abs().max().item(),
+                         "err_over_row_max": worst,
+                         "ms": time_ms(torch, lambda i: prec.fp8_mm(a, bm, descale,
+                                                                    torch.bfloat16)),
+                         "plain_ms": time_ms(torch, lambda i: prec.fp8_mm_plain(
+                             a, bm, descale, torch.bfloat16), iters=3, warmup=1),
+                         "bound_ms": bound(mm * kk + kk * nn + 2 * mm * nn, 2 * mm * kk * nn)[0]}
+        rep["bf16_linear_ms"] = time_ms(torch, lambda i: F.linear(x, w))
+        out[label] = rep
+        del x, w, g, qx, qw, qg
+    log("memory_recipes fp8 products", json.dumps(out))
+    return out
+
+
+def fp8_case(torch, F, fa, card: str) -> dict:
+    """(c) the 600m step under fp8 delayed scaling beside bf16 over the
+    same batches, then the fp8 products at the dense shapes."""
+    from accelerate_tpu_torch import (
+        Accelerator, GradSyncKwargs, LlamaConfig, LlamaForCausalLM, make_llama_loss_fn,
+    )
+    from accelerate_tpu_torch.ops import precision as prec
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    start = {n: p.detach().to(torch.bfloat16).clone() for n, p in model.named_parameters()}
+    loss_fn = make_llama_loss_fn(model, fused_vocab_chunks=TRAIN["ce_chunks"])
+    batch = token_batch(torch, cfg.vocab_size, TRAIN["batch"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    runs = {}
+    for mp in ("bf16", "fp8"):
+        acc = Accelerator(mixed_precision=mp, device="cuda",
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+        if acc.mixed_precision != mp:
+            raise AssertionError(f"mixed_precision {mp!r} resolved to {acc.mixed_precision!r}")
+        state = acc.create_train_state({n: x.clone() for n, x in start.items()},
+                                       MEM_FP8["optimizer"])
+        if mp == "fp8" and not state.fp8_state:
+            raise AssertionError("fp8: no delayed-scaling metas in the train state")
+        step = acc.prepare_train_step(loss_fn)
+        losses = []
+        for _ in range(MEM_FP8["warmup"]):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        sync(torch)
+        fa.reset_launch_counts()
+        prec.fp8_mm.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(MEM_FP8["timed"]):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        sync(torch)
+        step_s = (time.perf_counter() - t0) / MEM_FP8["timed"]
+        counts = flash_counts(fa)
+        PATH_LAUNCHES[f"memory_{mp}_600m" if mp == "bf16" else "memory_fp8"] = counts
+        runs[mp] = {"losses": [float(x) for x in losses], "step_ms": step_s * 1e3,
+                    "tokens_per_s": tokens / step_s,
+                    "fp8_products_per_step": prec.fp8_mm.launches / MEM_FP8["timed"],
+                    "launches_per_step": {n: c / MEM_FP8["timed"] for n, c in counts.items()}}
+        if mp == "fp8":
+            runs[mp]["metas"] = len(state.fp8_state)
+        log("memory_recipes", mp, json.dumps(runs[mp]))
+        del state, step, acc, m
+        torch.cuda.empty_cache()
+    bf16, fp8 = runs["bf16"]["losses"], runs["fp8"]["losses"]
+    if not all(math.isfinite(x) for x in fp8) or any(
+            abs(a - b) > MEM_FP8["loss_rtol"] * abs(b) for a, b in zip(fp8, bf16)):
+        raise AssertionError(f"fp8 losses {fp8} off bf16's {bf16}")
+    if runs["fp8"]["fp8_products_per_step"] != 3 * 7 * cfg.num_hidden_layers:
+        raise AssertionError(f"fp8: {runs['fp8']['fp8_products_per_step']} fp8 products a "
+                             "step, want 3 for each of the 7 denses of every layer")
+    del model, start
+    torch.cuda.empty_cache()
+    return {"card": card, "runs": runs, "products": fp8_gemm_checks(torch, F)}
+
+
+def offload_case(torch, fa, card: str) -> dict:
+    """(d) the 600m step under ZeRO-offload with lion-sr8: resident, then
+    the monolithic, chunked serial and chunked pipelined host updates, 2
+    steps each from one state."""
+    from accelerate_tpu_torch import (
+        Accelerator, GradSyncKwargs, LlamaConfig, LlamaForCausalLM, make_llama_loss_fn,
+    )
+    from accelerate_tpu_torch.models.llama import count_params
+    from accelerate_tpu_torch.ops.streaming import offload_transfer_accounting
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    start = {n: p.detach().to(torch.bfloat16).clone() for n, p in model.named_parameters()}
+    n_params = count_params(start)
+    loss_fn = make_llama_loss_fn(model, fused_vocab_chunks=TRAIN["ce_chunks"])
+    batch = token_batch(torch, cfg.vocab_size, TRAIN["batch"])
+    predicted = offload_transfer_accounting(n_params, optimizer=MEM_OFFLOAD["optimizer"])
+    runs, snaps = {}, {}
+    for label, chunk, pipeline in (("resident", None, None), ("monolithic", None, False),
+                                   ("chunked_serial", MEM_OFFLOAD["chunk_gib"], False),
+                                   ("chunked_pipelined", MEM_OFFLOAD["chunk_gib"], True)):
+        plugin = None if label == "resident" else FullyShardedDataParallelPlugin(
+            cpu_offload=True, offload_params=True, host_update_chunk_gib=chunk,
+            host_update_pipeline=pipeline)
+        acc = Accelerator(mixed_precision="bf16", device="cuda", fsdp_plugin=plugin,
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+        t0 = time.perf_counter()
+        state = acc.create_train_state({n: x.clone() for n, x in start.items()},
+                                       MEM_OFFLOAD["optimizer"])
+        setup_s = time.perf_counter() - t0
+        step = acc.prepare_train_step(loss_fn)
+        fa.reset_launch_counts()
+        rep = {"setup_s": setup_s, "steps": []}
+        for _ in range(MEM_OFFLOAD["steps"]):
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            rep["steps"].append({"step_ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                                 **{k: v for k, v in acc.offload_log.items()}})
+            if plugin is not None and (acc.offload_log["d2h_bytes"] != predicted["d2h_bytes"]
+                                       or acc.offload_log["h2d_bytes"] != predicted["h2d_bytes"]):
+                raise AssertionError(f"offload {label}: bytes {acc.offload_log} != predicted "
+                                     f"{predicted}")
+        PATH_LAUNCHES[f"memory_offload_{label}"] = flash_counts(fa)
+        snaps[label] = [p.detach().to("cpu", copy=True) for p in state.params.values()] + \
+            [x.detach().to("cpu", copy=True) for x in opt_tensors(state)]
+        runs[label] = rep
+        log("memory_recipes offload", label, json.dumps(rep))
+        del state, step, acc
+        torch.cuda.empty_cache()
+    if not all_equal(torch, snaps["monolithic"], snaps["resident"]):
+        raise AssertionError("offload: the monolithic host update differs from the resident "
+                             "one (params, codes or scales)")
+    if not all_equal(torch, snaps["chunked_pipelined"], snaps["chunked_serial"]):
+        raise AssertionError("offload: the pipelined chunked update differs from the serial "
+                             "one")
+    del snaps, model, start
+    torch.cuda.empty_cache()
+    return {"card": card, "params": n_params, "predicted": predicted, "runs": runs,
+            "threads": torch.get_num_threads()}
+
+
+def memory_recipes_phase(torch, F, fa, card: str) -> dict:
+    """The memory and precision recipes (the module docstring's step 6b)."""
+    t0 = time.perf_counter()
+    out = {"remat_1b": remat_1b_case(torch, fa, card)}
+    out["fp16"] = fp16_case(torch, F, fa, card)
+    out["fp8"] = fp8_case(torch, F, fa, card)
+    out["offload"] = offload_case(torch, fa, card)
+    out["seconds"] = time.perf_counter() - t0
+    summary = {
+        "card": card,
+        "remat_1b": {k: {kk: v[kk] for kk in ("step_ms", "mfu_vs_989_tflops", "peak_gib",
+                                              "step_peak_gib", "forward_held_gib")}
+                     for k, v in out["remat_1b"]["runs"].items()},
+        "scan_offload": {k: out["remat_1b"]["scan_offload"][k] for k in (
+            "step_ms", "peak_gib", "step_peak_gib", "forward_held_gib", "d2h_bytes_per_step")},
+        "fp16_losses": out["fp16"]["losses"], "fp16_loss_scale": out["fp16"]["loss_scale"],
+        "fp8_vs_bf16_tokens_per_s": [out["fp8"]["runs"]["fp8"]["tokens_per_s"],
+                                     out["fp8"]["runs"]["bf16"]["tokens_per_s"]],
+        "offload_step_ms": {k: [s["step_ms"] for s in v["steps"]]
+                            for k, v in out["offload"]["runs"].items()},
+        "seconds": out["seconds"]}
+    log("memory_recipes", json.dumps(summary))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
@@ -4435,6 +5066,17 @@ def main() -> int:
                                  train["report"]["params"])
     PATH_LAUNCHES["train_resume"] = resumed["launches"]
     phase_done("train_resume")
+    memory = memory_recipes_phase(torch, F, fa, card)
+    for name, rep in memory["fp16"]["kernels_f16"].items():
+        # the f16 instances' cases and times beside the bf16 instances'
+        kernels[name]["cases"] = kernels[name]["cases"] + rep["cases"]
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], rep["max_abs_err"])
+        kernels[name]["err_over_limit"] = max(kernels[name]["err_over_limit"],
+                                              rep["err_over_limit"])
+        kernels[name]["f16"] = {k: rep[k] for k in ("ms", "bf16_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "max_abs_err",
+                                                    "err_over_limit")}
+    phase_done("memory_recipes")
 
     # each kernel's launches on its main path, and its checked calls there
     quant_in_path = quant["in_path"]
@@ -4484,7 +5126,8 @@ def main() -> int:
                                   if counts.get(name)},
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
-                                               "delta_ms", "four_launch_ms", "composed_ms")
+                                               "delta_ms", "four_launch_ms", "composed_ms",
+                                               "f16")
                            if k in rep}})
     log("speculate, prefix, overload and pair checked launches:", json.dumps({
         "speculate": spec["in_path"], "speculate_draft": spec["draft_in_path"],

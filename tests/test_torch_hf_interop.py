@@ -96,5 +96,5 @@ def test_load_hf_llama_scan_layers_guard(tmp_path):
         class config:
             scan_layers = True
 
-    with pytest.raises(ValueError, match="A12"):
+    with pytest.raises(ValueError, match="stack_layer_params"):
         load_hf_llama(Scanned(), tmp_path / "unused.safetensors")
