@@ -52,6 +52,13 @@ int8-state ``-sr8`` optimizers (``ops/int8_state.py``), fp16 loss scaling
 with f16 instances of the flash kernels, fp8 matmuls with delayed scaling
 (``ops/fp8.py``, ``torch._scaled_mm`` on the card), and the ZeRO-offload
 host update (``FullyShardedDataParallelPlugin(cpu_offload=True)``).
+Its sixteenth slice is multi-tenant LoRA fine-tuning
+(``serving.LoraTrainer``: one batched step over a mixed-tenant batch, each
+tenant's weights and int8 optimizer state parked in host memory) and the
+``Accelerator``'s one-card surface: the eval step, ``has_aux`` steps,
+triggers, trackers (``tracking.py``), the profiler (``utils/profiler.py``
+on ``torch.profiler``), the training timeline (``telemetry/timeline.py``),
+``utils/memory.py``, and the examples' BERT and ResNet (``models/``).
 """
 
 from . import hooks
@@ -117,6 +124,7 @@ from .utils.dataclasses import (
     ResiliencePlugin,
     ServingPlugin,
 )
+from .utils.memory import find_executable_batch_size
 from .utils.quantization import (
     QuantizationConfig,
     QuantizedTensor,
@@ -167,6 +175,7 @@ __all__ = [
     "dequantize",
     "disk_offload",
     "dispatch_model",
+    "find_executable_batch_size",
     "fused_bgmv_paged_decode",
     "generate",
     "generate_paged",

@@ -49,10 +49,23 @@ The memory and precision recipes (JAX :770-1330):
   clipping then takes the norm on the host.  ``offload_log`` holds the last
   step's bytes and host times.
 
+The one-process surface of the JAX class (JAX :418-506, :1968-2240,
+:2475-2521): ``prepare_eval_step``, ``has_aux`` steps, ``autocast``,
+triggers, the process helpers, trackers (``tracking.py``: ``log_with=``,
+``init_trackers`` / ``log``), ``profile`` (``utils/profiler.py`` on
+``torch.profiler``) and, under ``TelemetryPlugin``, the training timeline
+(``step_dispatch`` / ``guard_sync`` phases, the loader's ``data_wait`` /
+``h2d_staging``, ``train_timeline.json`` at ``end_training``) and the
+train step's SLO monitor.
+
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item: TP/parallelism configs and the collective-matmul ring, PowerSGD /
-hierarchical gradient compression, the peer snapshots, rank loss and
-stragglers (A13), the donation audits (A14).
+item A13: TP/parallelism configs, the mesh and the collective-matmul ring,
+PowerSGD / hierarchical gradient compression, the collectives
+(``gather``, ``reduce``, ``pad_across_processes``,
+``split_between_processes``), the peer snapshots and ``recover``, rank
+loss and stragglers, context-parallel buffers and uneven inputs.  The
+donation audit and compile counter (``audit_step``, ``compile_events``)
+have no eager meaning and are not ported.
 """
 
 from __future__ import annotations
@@ -86,13 +99,17 @@ from .resilience.retry import RetryPolicy
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradSyncKwargs,
+    InitProcessGroupKwargs,
+    ProfileKwargs,
     ProjectConfiguration,
     ResiliencePlugin,
+    TelemetryPlugin,
     parse_flag_from_env,
 )
 from .utils.random import get_rng_key
@@ -137,6 +154,25 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(torch.stack(norms).square().sum())
 
 
+def _copy_state(state: TrainState) -> TrainState:
+    """A train state whose tensors are copies of ``state``'s, for a step
+    that must leave its input as it was (``donate_state=False``)."""
+    def copy(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def copy_tree(tree):
+        return torch.utils._pytree.tree_map(copy, tree)
+
+    opt = state.opt_state
+    if hasattr(opt, "_fields"):
+        opt = type(opt)(*[copy_tree(v) for v in opt])
+    else:
+        opt = copy_tree(opt)
+    return state.replace(
+        params={n: copy(p) for n, p in state.params.items()}, opt_state=opt,
+        guard_state=copy_tree(state.guard_state), grad_accum=copy_tree(state.grad_accum))
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
@@ -145,9 +181,10 @@ class Accelerator:
     """One device (``"cuda"`` unless ``cpu=True`` or ``device=`` says
     otherwise), mixed precision ``"no"``, ``"bf16"``, ``"fp16"`` or
     ``"fp8"``, ZeRO-offload (``fsdp_plugin``), gradient accumulation, the
-    train step, and the loop around it: prepared data loaders and
-    schedules, verified checkpoints, the NaN guard, preemption and
-    goodput.  The JAX package's constructor, plus ``device``."""
+    train and eval steps, and the loop around them: prepared data loaders
+    and schedules, verified checkpoints, the NaN guard, preemption,
+    goodput, trackers, the profiler and the training timeline.  The JAX
+    package's constructor, plus ``device``."""
 
     def __init__(self, device_placement: bool = True, split_batches: bool = False,
                  mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
@@ -156,7 +193,10 @@ class Accelerator:
                  parallelism_config=None, fsdp_plugin=None,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  resilience_plugin: Optional[ResiliencePlugin] = None,
-                 rng_types: Optional[list] = None, project_dir: Optional[str] = None,
+                 telemetry_plugin: Optional[TelemetryPlugin] = None,
+                 rng_types: Optional[list] = None,
+                 log_with: Optional[Union[str, list]] = None,
+                 project_dir: Optional[str] = None,
                  project_config: Optional[ProjectConfiguration] = None,
                  step_scheduler_with_optimizer: bool = True,
                  kwargs_handlers: Optional[list] = None, device=None):
@@ -176,13 +216,25 @@ class Accelerator:
             raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13")
         self.grad_sync_kwargs = GradSyncKwargs()
         self.fp8_recipe: Optional[FP8RecipeKwargs] = None
+        self.autocast_handler = AutocastKwargs()
+        self.profile_kwargs = ProfileKwargs()
+        # stored: one process drives the card, so no group is initialised
+        self.init_process_group_kwargs: Optional[InitProcessGroupKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, FP8RecipeKwargs):
                 self.fp8_recipe = handler
             elif isinstance(handler, GradSyncKwargs):
                 self.grad_sync_kwargs = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
+            elif isinstance(handler, ProfileKwargs):
+                self.profile_kwargs = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                if (handler.num_processes or 1) > 1 or (handler.process_id or 0) > 0:
+                    raise _not_ported("a process group of several processes", "A13")
+                self.init_process_group_kwargs = handler
             else:
-                raise _not_ported(f"kwargs handler {type(handler).__name__}", "A14")
+                raise TypeError(f"unknown kwargs handler {type(handler).__name__}")
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps)
@@ -227,6 +279,25 @@ class Accelerator:
         self.checkpoint_log: dict = {}
         # the goodput tracker always exists (zeros when the run is clean)
         self.goodput = GoodputTracker()
+        self.flag_tensor: Optional[torch.Tensor] = None
+        self.trackers: list = []
+        self.log_with = (list(log_with) if isinstance(log_with, (list, tuple))
+                         else ([log_with] if log_with else []))
+        # the training timeline and the step's SLO monitor: host-side, armed
+        # only by the plugin, so the step wrapper pays one attribute check
+        # when they are off
+        self.telemetry_plugin = telemetry_plugin or TelemetryPlugin()
+        self.timeline = None
+        self.slo_monitor = None
+        if self.telemetry_plugin.timeline:
+            from .telemetry import TrainTimeline
+
+            self.timeline = TrainTimeline(capacity=self.telemetry_plugin.ring_capacity)
+        if self.telemetry_plugin.slo is not None:
+            from .telemetry import SLOMonitor
+
+            self.slo_monitor = SLOMonitor(self.telemetry_plugin.slo)
+        self._slo_prev_step_t = None
         self._preemption = None
         if self.resilience_plugin.handle_preemption:
             self.install_preemption_handler()
@@ -270,8 +341,98 @@ class Accelerator:
     def project_dir(self):
         return self.project_configuration.project_dir
 
+    @property
+    def distributed_type(self):
+        return self.state.distributed_type
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
+    def mesh(self):
+        raise _not_ported("the device mesh (a layout over several GPUs)", "A13")
+
+    @property
+    def parallelism_config(self):
+        raise _not_ported("parallelism_config (FSDP/TP/CP over several GPUs)", "A13")
+
+    def on_main_process(self, function=None):
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function=None):
+        return self.state.on_local_main_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.on_process(function, process_index=process_index)
+
+    def on_last_process(self, function):
+        return self.state.on_last_process(function)
+
     def wait_for_everyone(self):
         """One process: nothing to wait for."""
+
+    def print(self, *args, **kwargs):
+        """``print`` on the main process."""
+        self.state.print(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.local_main_process_first():
+            yield
+
+    # -- collectives and the multi-GPU surface (ROADMAP item A13) ----------
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        raise _not_ported("split_between_processes (a world of several processes)", "A13")
+
+    def gather(self, tensor):
+        raise _not_ported("gather (a collective across GPUs)", "A13")
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        raise _not_ported("reduce (a collective across GPUs)", "A13")
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        raise _not_ported("pad_across_processes (a collective across GPUs)", "A13")
+
+    @property
+    def dcn_sync(self):
+        raise _not_ported("the hierarchical gradient reduction", "A13")
+
+    def dcn_sync_accounting(self, params, step_compute_s: Optional[float] = None) -> dict:
+        raise _not_ported("the hierarchical gradient reduction's accounting", "A13")
+
+    def recover(self, *args, **kwargs):
+        raise _not_ported("recover (the rank-loss recovery ladder)", "A13")
+
+    @property
+    def peer_snapshotter(self):
+        raise _not_ported("peer snapshots (buddy ranks)", "A13")
+
+    def maybe_context_parallel(self, buffers=None, buffer_seq_dims=None,
+                               no_restore_buffers=None):
+        raise _not_ported("maybe_context_parallel (context parallelism)", "A13")
+
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        raise _not_ported("join_uneven_inputs (uneven inputs across processes)", "A13")
 
     # -- prepare ---------------------------------------------------------
 
@@ -350,6 +511,9 @@ class Accelerator:
             on_transfer_retry=self.goodput.record_retry,
             gradient_state=self.gradient_state,
         )
+        if self.timeline is not None:
+            # the loader's data_wait / h2d_staging phases (data_loader.py)
+            prepared._timeline = self.timeline
         self._dataloaders.append(prepared)
         return prepared
 
@@ -485,8 +649,8 @@ class Accelerator:
                 return sched.schedule
         return None
 
-    def prepare_train_step(self, loss_fn: Callable,
-                           max_grad_norm: Optional[float] = None) -> Callable:
+    def prepare_train_step(self, loss_fn: Callable, max_grad_norm: Optional[float] = None,
+                           has_aux: bool = False, donate_state: bool = True) -> Callable:
         """``step(state, batch) -> (new_state, metrics)`` for
         ``loss_fn(params, batch [, rng])``: gradients (f32, or bf16 with
         ``GradSyncKwargs(grad_dtype="bf16")``), accumulation over
@@ -502,6 +666,9 @@ class Accelerator:
         gsk = self.grad_sync_kwargs
         if gsk.compression or gsk.dcn_compression or gsk.hierarchical:
             raise _not_ported("gradient compression / hierarchical reduction", "A13")
+        if not donate_state and self._offload_flags()[0]:
+            raise ValueError("donate_state=False under cpu_offload: the offloaded state lives "
+                             "in reused page-locked buffers, updated in place")
         if gsk.grad_dtype not in (None, "bf16"):
             raise ValueError(f"GradSyncKwargs.grad_dtype supports only 'bf16', got "
                              f"{gsk.grad_dtype!r}")
@@ -586,7 +753,9 @@ class Accelerator:
                 if use_fp8:
                     regions.enter_context(fp8_autocast())
                     regions.enter_context(_fp8.merge_fp8_collection(state.fp8_state))
-                loss = (loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)).float()
+                out = loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)
+            loss, aux = out if has_aux else (out, None)
+            loss = loss.float()
             # the scalar loss lives in f32, so scaling it by 2^16 cannot overflow
             scaled = state.loss_scale.scale_loss(loss) if state.loss_scale is not None else loss
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
@@ -597,7 +766,10 @@ class Accelerator:
                 # f32 on the card; the offloaded step sends the compute width
                 # and widens on the host (fp16 must unscale in f32 first)
                 grads = [g.float() for g in grads]
-            return loss.detach(), grads
+            if aux is not None:
+                aux = torch.utils._pytree.tree_map(
+                    lambda x: x.detach() if isinstance(x, torch.Tensor) else x, aux)
+            return loss.detach(), grads, aux
 
         def read_finite(state: TrainState, flags: list) -> tuple[bool, int]:
             """One host read: the step's device finiteness flags and the
@@ -627,7 +799,11 @@ class Accelerator:
                     flags.append(_guard.step_finite(loss, gnorm))
             elif nan_guard:
                 flags.append(torch.isfinite(loss))
-            finite, consecutive = read_finite(state, flags) if flags else (True, 0)
+            if flags and nan_guard and self.timeline is not None:
+                with self.timeline.phase("guard_sync", step=self.step_count):
+                    finite, consecutive = read_finite(state, flags)
+            else:
+                finite, consecutive = read_finite(state, flags) if flags else (True, 0)
             staged = None
             if offload_opt:
                 staged = self._stage_grads(state, grads, chunk_bytes, pipeline, gnorm_on_host)
@@ -691,11 +867,13 @@ class Accelerator:
         if accum_steps > 1 and mode == "across_steps":
 
             def step_fn(state: TrainState, batch):
-                loss, grads = compute_grads(state, fetch_params(state), batch, state.rng)
+                loss, grads, aux = compute_grads(state, fetch_params(state), batch, state.rng)
                 acc = state.grad_accum
                 for a, g in zip(acc, grads):
                     a.add_(g)
                 metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+                if has_aux:
+                    metrics["aux"] = aux
                 if state.accum_step + 1 < accum_steps:
                     metrics["synced"] = False
                     return state.replace(accum_step=state.accum_step + 1), metrics
@@ -714,7 +892,7 @@ class Accelerator:
                 acc, loss_sum = None, torch.zeros((), device=self.device)
                 params = fetch_params(state)
                 for mb in microbatches(batch):
-                    loss, grads = compute_grads(state, params, mb, state.rng)
+                    loss, grads, aux = compute_grads(state, params, mb, state.rng)
                     # the sum runs in f32 whatever the gradients' width
                     if acc is None:
                         acc = [g.float() for g in grads]
@@ -722,13 +900,20 @@ class Accelerator:
                         for a, g in zip(acc, grads):
                             a.add_(g.float())
                     loss_sum = loss_sum + loss
-                return apply_update(state, [a / accum_steps for a in acc], loss_sum / accum_steps)
+                new_state, metrics = apply_update(state, [a / accum_steps for a in acc],
+                                                  loss_sum / accum_steps)
+                if has_aux:
+                    metrics["aux"] = aux   # the last microbatch's
+                return new_state, metrics
 
         else:
 
             def step_fn(state: TrainState, batch):
-                loss, grads = compute_grads(state, fetch_params(state), batch, state.rng)
-                return apply_update(state, grads, loss)
+                loss, grads, aux = compute_grads(state, fetch_params(state), batch, state.rng)
+                new_state, metrics = apply_update(state, grads, loss)
+                if has_aux:
+                    metrics["aux"] = aux
+                return new_state, metrics
 
         def wrapped(state: TrainState, batch):
             # fault-injection hook: one None check unless a plan is installed
@@ -748,7 +933,23 @@ class Accelerator:
                 self.gradient_state._set_sync_gradients(
                     mode != "across_steps" or self.step_count % accum_steps == 0)
             guard_read.clear()
-            new_state, metrics = step_fn(state, batch)
+            if not donate_state:
+                state = _copy_state(state)
+            timeline = self.timeline
+            if timeline is not None:
+                # host time issuing the step (launches are asynchronous)
+                with timeline.phase("step_dispatch", step=self.step_count):
+                    new_state, metrics = step_fn(state, batch)
+            else:
+                new_state, metrics = step_fn(state, batch)
+            if self.slo_monitor is not None:
+                # step_time_s is the cadence between wrapped calls (the first
+                # call starts it), which needs no device sync
+                now = time.perf_counter()
+                prev, self._slo_prev_step_t = self._slo_prev_step_t, now
+                if prev is not None:
+                    self.slo_monitor.observe("step_time_s", now - prev)
+                self.slo_monitor.observe("goodput_frac", self.goodput.goodput_frac())
             if guard_read:
                 if guard_read["skipped"]:
                     self.goodput.record_nan_skip()
@@ -760,6 +961,27 @@ class Accelerator:
             return new_state, metrics
 
         return wrapped
+
+    def reset_step_cadence(self) -> None:
+        """Re-anchor the SLO monitor's ``step_time_s`` cadence after a pause
+        that is not a step (an eval loop, a stall): the next step starts a
+        fresh gap instead of being observed as one long step."""
+        self._slo_prev_step_t = None
+
+    def prepare_eval_step(self, eval_fn: Callable) -> Callable:
+        """``step(params, batch) -> eval_fn(params, batch)`` with the
+        policy's compute cast applied to the params (JAX :1968), under
+        ``fp8_autocast`` when ``mixed_precision="fp8"``, with no autograd
+        graph; host-offloaded params are fetched to the device first."""
+        policy = self.policy
+        use_fp8 = self.mixed_precision == "fp8"
+
+        def step(params, batch):
+            params = policy.cast_to_compute(self.device_params(params))
+            with torch.no_grad(), (fp8_autocast() if use_fp8 else contextlib.nullcontext()):
+                return eval_fn(params, batch)
+
+        return step
 
     # -- the offloaded update --------------------------------------------
 
@@ -913,6 +1135,151 @@ class Accelerator:
             return {k: g * clip for k, g in grads.items()}, gnorm
         return [g * clip for g in grads], gnorm
 
+    def clip_grad_value_(self, grads, clip_value: float):
+        """Each gradient clamped to ``[-clip_value, clip_value]`` (a list or
+        dict, returned; JAX :2041)."""
+        if isinstance(grads, dict):
+            return {k: g.clamp(-clip_value, clip_value) for k, g in grads.items()}
+        return [g.clamp(-clip_value, clip_value) for g in grads]
+
+    def unscale_gradients(self, optimizer=None):
+        """The prepared step unscales fp16 gradients itself: nothing to do
+        (JAX :2094)."""
+        return None
+
+    def no_sync(self, model=None):
+        """One process reduces nothing: an inert context (JAX :2027)."""
+        return contextlib.nullcontext()
+
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
+        """The module inside ``torch.compile``'s and the data-parallel
+        wrappers (``_orig_mod`` / ``module``); the port wraps no module
+        itself, so a prepared model comes back as it is (JAX :2086)."""
+        while True:
+            inner = getattr(model, "_orig_mod", None)
+            if inner is None and isinstance(model, (nn.DataParallel,
+                                                    nn.parallel.DistributedDataParallel)):
+                inner = model.module
+            if inner is None:
+                return model
+            model = inner
+
+    # -- the NaN trigger (JAX :2099) ---------------------------------------
+
+    def set_trigger(self):
+        """Raise the flag :meth:`check_trigger` reads (one process: no
+        reduction across ranks)."""
+        self.flag_tensor = torch.ones((), dtype=torch.int32)
+
+    def check_trigger(self) -> bool:
+        """True once after :meth:`set_trigger`, which it resets."""
+        if self.flag_tensor is not None and int(self.flag_tensor) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
+
+    # -- contexts ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastKwargs] = None):
+        """The compute-dtype context (JAX :2113).  The prepared train and
+        eval steps apply the policy themselves, so nothing changes inside
+        them: a step's outputs are bitwise the same inside and outside."""
+        yield
+
+    @contextlib.contextmanager
+    def profile(self, profile_handler: Optional[ProfileKwargs] = None):
+        """A step-scheduled ``torch.profiler`` window (JAX :2185): yields a
+        :class:`~.utils.profiler.CUDAProfiler`; call ``profiler.step()``
+        once a training step and the ``active`` steps of each wait /
+        warmup / active cycle are traced (without ``step()``, the whole
+        block)::
+
+            with acc.profile(ProfileKwargs(wait=1, warmup=1, active=2,
+                                           output_trace_dir=d)) as p:
+                for batch in loader:
+                    state, metrics = step(state, batch)
+                    p.step()
+        """
+        from .utils.profiler import CUDAProfiler
+
+        profiler = CUDAProfiler(profile_handler or self.profile_kwargs)
+        profiler._enter()
+        try:
+            yield profiler
+        finally:
+            profiler._exit()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def free_memory(self, *objects):
+        """Drop the accelerator's references to what it prepared, collect
+        and give the card's cached blocks back (JAX :2213).  Returns
+        ``objects``."""
+        import gc
+
+        self._dataloaders = []
+        self._optimizers = []
+        self._schedulers = []
+        self._models = []
+        self.step_count = 0
+        self._offload_buffers = {}
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def init_params(self, module: nn.Module, rng=None, *sample_args, **sample_kwargs) -> dict:
+        """The module's parameters on this accelerator's device, as the
+        name -> tensor dict :meth:`create_train_state` takes (JAX :717).  A
+        module built under ``big_modeling.init_empty_weights`` (on
+        ``meta``) is materialised one tensor at a time straight onto the
+        device (``init_params_leafwise``: normal(0, 0.02) matrices, ones
+        for norm scales, zeros elsewhere); a built one is moved there.
+        ``rng`` and the sample inputs are accepted for the JAX signature:
+        a torch module knows its shapes."""
+        if any(p.device.type == "meta" for p in module.parameters()):
+            from .big_modeling import init_params_leafwise
+
+            init_params_leafwise(module, device=self.device)
+        else:
+            module.to(self.device)
+        return {n: p.detach() for n, p in module.named_parameters()}
+
+    # -- trackers (JAX :2475-2495; backends in tracking.py) ---------------
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None,
+                      init_kwargs: Optional[dict] = None):
+        """Build the trackers named by ``log_with`` under the project's
+        logging directory, storing ``config`` in each."""
+        from . import tracking
+
+        init_kwargs = init_kwargs or {}
+        self.trackers = []
+        for name in self.log_with:
+            tracker = tracking.resolve_tracker(name, project_name,
+                                               self.project_configuration.logging_dir,
+                                               **init_kwargs.get(str(name), {}))
+            if tracker is not None:
+                self.trackers.append(tracker)
+        if config is not None:
+            for tracker in self.trackers:
+                tracker.store_init_configuration(config)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"Tracker {name} not initialized")
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        log_kwargs = log_kwargs or {}
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
+
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """Gather evaluation outputs (one process: the data itself), dropping
         the duplicate tail samples a padded last batch added: on the data
@@ -985,10 +1352,25 @@ class Accelerator:
         wait_for_pending_checkpoint(self)
 
     def end_training(self):
-        """Flush a pending async save and release the writer thread."""
+        """Flush a pending async save and release the writer thread; write
+        the timeline's Chrome trace to ``<export_dir>/train_timeline.json``
+        when the plugin names a directory; finish the trackers."""
         from .checkpointing import close_async_checkpointer
 
-        close_async_checkpointer(self)
+        try:
+            close_async_checkpointer(self)
+        finally:
+            # a failed flush must not also drop the trackers' metrics
+            export_dir = self.telemetry_plugin.export_dir
+            if self.timeline is not None and export_dir and self.is_main_process:
+                try:
+                    os.makedirs(export_dir, exist_ok=True)
+                    self.timeline.write_chrome_trace(
+                        os.path.join(export_dir, "train_timeline.json"))
+                except OSError as e:
+                    logger.warning("timeline export to %s failed: %s", export_dir, e)
+            for tracker in self.trackers:
+                tracker.finish()
 
     def save_model(self, train_state_or_params, save_directory: str,
                    max_shard_size: str = "10GB", safe_serialization: bool = True):

@@ -36,6 +36,7 @@ at the next save or load, ``wait_for_checkpoint``, or interpreter exit.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import pickle
@@ -347,8 +348,15 @@ def wait_for_pending_checkpoint(accelerator) -> None:
         return
     # clear first: a failed write surfaces once, not at every later save
     accelerator._pending_checkpointer = None
+    # the drain is the timeline's checkpoint_drain phase, and a pause that
+    # is not a step: the SLO step cadence starts afresh after it
+    timeline = getattr(accelerator, "timeline", None)
+    if getattr(accelerator, "_slo_prev_step_t", None) is not None:
+        accelerator._slo_prev_step_t = None
     try:
-        ckptr.wait_until_finished()
+        with (timeline.phase("checkpoint_drain") if timeline is not None
+              else contextlib.nullcontext()):
+            ckptr.wait_until_finished()
     except BaseException:
         # a failed write poisons the checkpointer: release its thread; the
         # .tmp stays for post-mortem and the next save sweeps it

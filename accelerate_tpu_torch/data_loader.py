@@ -28,6 +28,8 @@ item A13.
 
 from __future__ import annotations
 
+import contextlib
+
 import math
 import queue
 import threading
@@ -575,13 +577,16 @@ class DataLoaderShard(DataLoaderStateMixin):
         self._on_transfer_retry = on_transfer_retry
         self._stager = _Stager(self.device, _non_blocking) if self.put_on_device else None
         self.data_wait_s = 0.0
+        # the Accelerator's TrainTimeline (data_wait / h2d_staging), when armed
+        self._timeline = None
 
     # -- device placement ---------------------------------------------------
 
     def _device_put_batch(self, batch):
         """Stage ``batch`` toward the device under the bounded retry (the
         ``transfer`` fault fires inside each attempt); returns what
-        :meth:`_ready` turns into the batch on the device."""
+        :meth:`_ready` turns into the batch on the device.  The timeline's
+        ``h2d_staging`` phase when one is attached."""
         batch = _to_tensors(batch)
         if not self.put_on_device:
             return batch, None
@@ -590,8 +595,9 @@ class DataLoaderShard(DataLoaderStateMixin):
             maybe_fail_transfer("transfer")
             return self._stager.stage(batch)
 
-        return with_retries(_send, site="dataloader-h2d", policy=self._retry_policy,
-                            on_retry=self._on_transfer_retry)
+        with _phase(self._timeline, "h2d_staging"):
+            return with_retries(_send, site="dataloader-h2d", policy=self._retry_policy,
+                                on_retry=self._on_transfer_retry)
 
     def _ready(self, staged):
         if self._stager is None:
@@ -600,11 +606,13 @@ class DataLoaderShard(DataLoaderStateMixin):
 
     def _timed(self, it):
         """Yield from ``it``, adding the seconds each ``next`` blocks to
-        ``data_wait_s``."""
+        ``data_wait_s`` (and to the timeline's ``data_wait`` phase when one
+        is attached)."""
         while True:
             t0 = time.perf_counter()
             try:
-                item = next(it)
+                with _phase(self._timeline, "data_wait"):
+                    item = next(it)
             except StopIteration:
                 return
             finally:
@@ -652,6 +660,11 @@ class DataLoaderShard(DataLoaderStateMixin):
         return bs
 
 
+def _phase(timeline, name: str):
+    """``timeline.phase(name)``, or a null context without a timeline."""
+    return timeline.phase(name) if timeline is not None else contextlib.nullcontext()
+
+
 def _slice_tensors(batch, sl: slice):
     return pytree.tree_map(lambda x: x[sl] if isinstance(x, torch.Tensor) else x, batch)
 
@@ -697,6 +710,8 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         self._on_transfer_retry = on_transfer_retry
         self._stager = _Stager(self.device, _non_blocking) if self.device is not None else None
         self.data_wait_s = 0.0
+        # the Accelerator's TrainTimeline (data_wait / h2d_staging), when armed
+        self._timeline = None
 
     def _prepare_local(self, batch):
         batch = _to_tensors(batch)
@@ -723,13 +738,16 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
             while True:
                 t0 = time.perf_counter()
                 try:
-                    batch = next(main_iterator)
+                    with _phase(self._timeline, "data_wait"):
+                        batch = next(main_iterator)
                 except StopIteration:
                     completed = True
                     return
                 finally:
                     self.data_wait_s += time.perf_counter() - t0
-                yield self._prepare_local(batch)
+                with _phase(self._timeline, "h2d_staging"):
+                    staged = self._prepare_local(batch)
+                yield staged
 
         try:
             for staged in _lookahead(source(), self.skip_batches, self):

@@ -1,7 +1,21 @@
-"""The port's models: the Llama family, for serving and training."""
+"""The port's models: the Llama family, for serving and training; BERT and
+ResNet, the models of the examples."""
 
-from .convert import load_converted_state, lora_tree_from_flax, torch_state_from_flax
-from .hf_interop import hf_llama_key_map, hf_llama_tensor_map, load_hf_llama
+from .bert import BertConfig, BertForSequenceClassification, make_bert_loss_fn
+from .convert import (
+    load_converted_state,
+    lora_tree_from_flax,
+    torch_state_from_flax,
+    torch_state_from_flax_bert,
+    torch_state_from_flax_resnet,
+)
+from .hf_interop import (
+    hf_bert_key_map,
+    hf_llama_key_map,
+    hf_llama_tensor_map,
+    load_hf_bert,
+    load_hf_llama,
+)
 from .llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -17,8 +31,19 @@ from .llama import (
     stack_layer_params,
     unstack_layer_params,
 )
+from .resnet import ResNet, ResNetConfig, make_resnet_loss_fn
 
 __all__ = [
+    "BertConfig",
+    "BertForSequenceClassification",
+    "ResNet",
+    "ResNetConfig",
+    "hf_bert_key_map",
+    "load_hf_bert",
+    "make_bert_loss_fn",
+    "make_resnet_loss_fn",
+    "torch_state_from_flax_bert",
+    "torch_state_from_flax_resnet",
     "LlamaConfig",
     "LlamaForCausalLM",
     "causal_lm_loss",

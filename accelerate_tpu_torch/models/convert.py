@@ -23,6 +23,10 @@ LoRA: a JAX adapter tree (``init_adapter_params``: ``{layers_0: {self_attn:
 "b"}}`` through :func:`lora_tree_from_flax`: flax module paths map to the
 port's module names through :func:`flax_to_hf_name`, and the factors keep
 JAX's ``[in, out]`` orientation and their dtype (bf16 exactly).
+
+BERT and ResNet: :func:`torch_state_from_flax_bert` and
+:func:`torch_state_from_flax_resnet` (the running averages of
+``batch_stats`` included) carry the JAX examples' models across.
 """
 
 from __future__ import annotations
@@ -195,3 +199,85 @@ def load_converted_state(model: torch.nn.Module, state: dict) -> torch.nn.Module
         raise KeyError(f"state does not match the model: missing {missing}, "
                        f"unexpected {unexpected}")
     return model
+
+
+# -- BERT and ResNet (``models/bert.py``, ``models/resnet.py``) ---------------
+
+_FLAX_TO_PORT_BERT: list[tuple[str, str]] = [
+    (r"^(word_embeddings|position_embeddings|token_type_embeddings)\.embedding$", r"\1.weight"),
+    (r"^(embeddings_norm)\.scale$", r"\1.weight"),
+    (r"^(embeddings_norm)\.bias$", r"\1.bias"),
+    (r"^layer_(\d+)\.attention\.(query|key|value|dense)\.kernel$",
+     r"layers.\1.attention.\2.weight"),
+    (r"^layer_(\d+)\.attention\.(query|key|value|dense)\.bias$", r"layers.\1.attention.\2.bias"),
+    (r"^layer_(\d+)\.(attention_norm|output_norm)\.scale$", r"layers.\1.\2.weight"),
+    (r"^layer_(\d+)\.(attention_norm|output_norm)\.bias$", r"layers.\1.\2.bias"),
+    (r"^layer_(\d+)\.(intermediate|output)\.kernel$", r"layers.\1.\2.weight"),
+    (r"^layer_(\d+)\.(intermediate|output)\.bias$", r"layers.\1.\2.bias"),
+    (r"^(pooler|classifier)\.kernel$", r"\1.weight"),
+    (r"^(pooler|classifier)\.bias$", r"\1.bias"),
+]
+
+
+def bert_port_name(path: str) -> str:
+    """A flax BERT param path (``layer_0.attention.query.kernel``, no
+    ``params.``) -> the port's parameter name."""
+    for pattern, template in _FLAX_TO_PORT_BERT:
+        if re.match(pattern, path):
+            return re.sub(pattern, template, path)
+    raise KeyError(f"no port parameter for JAX BERT param {path!r}")
+
+
+def torch_state_from_flax_bert(params) -> dict:
+    """A ``state_dict`` (f32 CPU tensors) for the port's
+    ``BertForSequenceClassification`` from a JAX BERT param tree: dense
+    kernels ``[in, out]`` transposed to ``[out, in]``, embeddings and norms
+    as they are.  A tree without a token-type table (a JAX model applied
+    without ``token_type_ids`` has none) leaves the port's out."""
+    params = params.get("params", params)
+    state = {}
+    for path, leaf in _flatten(params):
+        dotted = ".".join(path)
+        arr = np.asarray(leaf, dtype=np.float32)
+        if dotted.endswith(".kernel"):
+            arr = arr.T
+        state[bert_port_name(dotted)] = torch.tensor(np.ascontiguousarray(arr))
+    return state
+
+
+def resnet_port_name(path: str) -> str:
+    """A flax ResNet param or batch-stat path (``stage1_block0.bn1.scale``,
+    ``stem_bn.mean``) -> the port's name (``blocks.stage1_block0.bn1.weight``,
+    ``stem_bn.mean``)."""
+    *module, leaf = path.split(".")
+    leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    if module and module[0].startswith("stage"):
+        module = ["blocks"] + module
+    return ".".join(module + [leaf])
+
+
+def torch_state_from_flax_resnet(variables) -> dict:
+    """A ``state_dict`` (f32 CPU tensors) for the port's ``ResNet`` from
+    JAX ResNet variables (``{"params", "batch_stats"}``): conv kernels
+    ``[kh, kw, in, out]`` to ``[out, in, kh, kw]``, the classifier's to
+    ``[out, in]``, batch-norm scales and biases, and the running averages
+    into the ``mean`` / ``var`` buffers."""
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            arr = np.asarray(leaf, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            state[resnet_port_name(".".join(path))] = torch.tensor(np.ascontiguousarray(arr))
+    return state
+
+
+def resnet_batch_stats_from_flax(batch_stats) -> dict:
+    """JAX ``batch_stats`` -> the port's ``{module name: {"mean", "var"}}``
+    (what ``make_resnet_loss_fn``'s aux holds)."""
+    out: dict = {}
+    for path, leaf in _flatten(batch_stats):
+        name = resnet_port_name(".".join(path))
+        module, stat = name.rsplit(".", 1)
+        out.setdefault(module, {})[stat] = torch.tensor(np.asarray(leaf, dtype=np.float32))
+    return out

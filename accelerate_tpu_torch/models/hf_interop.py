@@ -7,8 +7,9 @@ uses the HF names themselves, so a HF checkpoint's tensors load as they
 are; these maps relate those names to the JAX package's param paths, which
 is what :mod:`.convert` needs to carry a JAX param tree across.
 :func:`load_hf_llama` (JAX :79) streams a HF-format checkpoint file, index
-or directory into the port's model.  The Mixtral, BERT and T5 loaders wait
-for their models (ROADMAP A13 / A14).
+or directory into the port's model; :func:`load_hf_bert` (JAX :272) a HF
+BERT sequence classifier into ``models/bert.py``'s.  The Mixtral and T5
+loaders wait for their models (ROADMAP A13 / A14).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import re
 from typing import Optional
 
 import numpy as np
+import torch
 
 # (hf-name regex) -> JAX dot-path template.  Group refs use \1-style.
 _LLAMA_RULES: list[tuple[str, str]] = [
@@ -105,3 +107,101 @@ def load_hf_llama(model, checkpoint, *, dtype=None, strict: bool = True, **kwarg
                 "pass strict=False to leave lm_head as it is."
             ) from e
         raise
+
+
+# -- BERT (encoder classifier; JAX :199-290) ------------------------------------
+_BERT_RULES: list[tuple[str, str]] = [
+    (r"^bert\.embeddings\.word_embeddings\.weight$", r"params.word_embeddings.embedding"),
+    (r"^bert\.embeddings\.position_embeddings\.weight$", r"params.position_embeddings.embedding"),
+    (r"^bert\.embeddings\.LayerNorm\.weight$", r"params.embeddings_norm.scale"),
+    (r"^bert\.embeddings\.LayerNorm\.bias$", r"params.embeddings_norm.bias"),
+    (r"^bert\.encoder\.layer\.(\d+)\.attention\.self\.(query|key|value)\.(weight|bias)$",
+     r"params.layer_\1.attention.\2.\3"),
+    (r"^bert\.encoder\.layer\.(\d+)\.attention\.output\.dense\.(weight|bias)$",
+     r"params.layer_\1.attention.dense.\2"),
+    (r"^bert\.encoder\.layer\.(\d+)\.attention\.output\.LayerNorm\.weight$",
+     r"params.layer_\1.attention_norm.scale"),
+    (r"^bert\.encoder\.layer\.(\d+)\.attention\.output\.LayerNorm\.bias$",
+     r"params.layer_\1.attention_norm.bias"),
+    (r"^bert\.encoder\.layer\.(\d+)\.intermediate\.dense\.(weight|bias)$",
+     r"params.layer_\1.intermediate.\2"),
+    (r"^bert\.encoder\.layer\.(\d+)\.output\.dense\.(weight|bias)$",
+     r"params.layer_\1.output.\2"),
+    (r"^bert\.encoder\.layer\.(\d+)\.output\.LayerNorm\.weight$",
+     r"params.layer_\1.output_norm.scale"),
+    (r"^bert\.encoder\.layer\.(\d+)\.output\.LayerNorm\.bias$",
+     r"params.layer_\1.output_norm.bias"),
+    (r"^bert\.pooler\.dense\.(weight|bias)$", r"params.pooler.\1"),
+    (r"^classifier\.(weight|bias)$", r"params.classifier.\1"),
+]
+
+# buffers with no parameter (position_ids in older transformers exports)
+_BERT_SKIP = re.compile(r"^bert\.embeddings\.(position_ids|token_type_ids)$")
+_HF_TOKEN_TYPES = "bert.embeddings.token_type_embeddings.weight"
+_HF_POSITIONS = "bert.embeddings.position_embeddings.weight"
+
+
+def hf_bert_key_map(name: str) -> Optional[str]:
+    """HF BERT ``state_dict`` name -> the JAX package's param path (JAX
+    :234; a dense ``.weight`` becomes ``.kernel``), None for skipped
+    buffers and the token-type table (folded, see :func:`load_hf_bert`);
+    unknown names pass through."""
+    if _BERT_SKIP.match(name) or name == _HF_TOKEN_TYPES:
+        return None
+    for pattern, template in _BERT_RULES:
+        if re.match(pattern, name):
+            out = re.sub(pattern, template, name)
+            if out.endswith(".weight"):
+                out = out[: -len(".weight")] + ".kernel"
+            return out
+    return name
+
+
+def _fold_bert_token_types(checkpoint):
+    """HF adds ``token_type_embeddings[type]`` at every position: type 0
+    folds exactly into the position table (JAX :251), and the table
+    becomes ``type - type[0]``, so a forward without ``token_type_ids`` is
+    HF's with type 0, and one with them is HF's too."""
+    from ..big_modeling import _iter_checkpoint_tensors
+
+    pos = typ = None
+    for name, tensor in _iter_checkpoint_tensors(checkpoint):
+        if name == _HF_POSITIONS:
+            pos = torch.as_tensor(tensor).float()
+        elif name == _HF_TOKEN_TYPES:
+            typ = torch.as_tensor(tensor).float()
+        else:
+            yield name, tensor
+        if pos is not None and typ is not None:
+            yield _HF_POSITIONS, pos + typ[0][None, :]
+            yield _HF_TOKEN_TYPES, typ - typ[0][None, :]
+            pos = typ = None
+    if pos is not None:
+        yield _HF_POSITIONS, pos
+
+
+def _bert_port_key(name: str) -> Optional[str]:
+    """HF BERT name -> the port's parameter name."""
+    from .convert import bert_port_name
+
+    if _BERT_SKIP.match(name):
+        return None
+    if name == _HF_TOKEN_TYPES:
+        return "token_type_embeddings.weight"
+    path = hf_bert_key_map(name)
+    if path is None or not path.startswith("params."):
+        return name
+    return bert_port_name(path[len("params."):])
+
+
+def load_hf_bert(model, checkpoint, *, dtype=None, strict: bool = True, **kwargs):
+    """Stream a HF-format BERT sequence-classification checkpoint into the
+    port's ``BertForSequenceClassification`` (JAX :272): the token types
+    folded as :func:`_fold_bert_token_types` says, HF's ``[out, in]``
+    dense weights as they are, through
+    ``big_modeling.load_checkpoint_and_dispatch`` (its keyword arguments).
+    Returns ``(model, store or None)``."""
+    from ..big_modeling import load_checkpoint_and_dispatch
+
+    return load_checkpoint_and_dispatch(model, _fold_bert_token_types(checkpoint), dtype=dtype,
+                                        strict=strict, key_map=_bert_port_key, **kwargs)

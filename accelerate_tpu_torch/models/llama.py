@@ -616,16 +616,37 @@ class LlamaBlock(nn.Module):
         return (out, new_cache) if cache is not None else out
 
 
+class _F32Logits(torch.autograd.Function):
+    """``x @ w.T`` in f32 from bf16 operands (one cuBLAS GEMM writing f32),
+    with the backward ``torch.mm(..., out_dtype=)`` lacks: the f32
+    cotangent against the operands widened to f32, each gradient rounded
+    once to its operand's dtype, as JAX differentiates a dot with
+    ``preferred_element_type=float32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = (g @ w.float()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = (g.t() @ x.float()).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 class LMHead(nn.Module):
     """Vocab projection with bf16 operands and **f32 logits**.
 
     On the card the product is one cuBLAS GEMM that takes bf16 operands,
     accumulates in f32 and writes f32 (``torch.mm(..., out_dtype=
-    torch.float32)``), so the logits are never rounded to bf16 — the JAX
-    head's ``preferred_element_type=float32``.  On the CPU the operands are
-    widened to f32 first (bf16 values are exact in f32), which computes the
-    same sums.  With ``lm_head`` a LoRA target, the f32 logits take the
-    adapter delta (JAX :731-737)."""
+    torch.float32)``), so the logits are never rounded to bf16 (the JAX
+    head's ``preferred_element_type=float32``); it runs through
+    :class:`_F32Logits`, which adds the backward (LoRA fine-tuning).  On
+    the CPU the operands are widened to f32 first (bf16 values are exact
+    in f32), which computes the same sums.  With ``lm_head`` a LoRA
+    target, the f32 logits take the adapter delta (JAX :731-737)."""
 
     def __init__(self, hidden: int, vocab_size: int, dtype: torch.dtype):
         super().__init__()
@@ -647,7 +668,7 @@ class LMHead(nn.Module):
                 y = fp8_current_scaled_dot(x2, self.weight.t(),
                                            preferred_element_type=torch.float32)
         elif x2.device.type == "cuda" and self.weight.dtype != torch.float32:
-            y = torch.mm(x2, self.weight.t(), out_dtype=torch.float32)
+            y = _F32Logits.apply(x2, self.weight)
         else:
             y = x2.float() @ self.weight.float().t()
         y = y.reshape(*x.shape[:-1], -1)

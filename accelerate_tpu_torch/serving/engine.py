@@ -88,7 +88,7 @@ from ..models.llama import init_paged_cache
 from ..ops.lora import lora_kernel
 from ..resilience import faults as _faults
 from ..telemetry import RequestTracer
-from ..utils.dataclasses import ServingPlugin
+from ..utils.dataclasses import ServingPlugin, TelemetryPlugin
 from ..utils.device import resolve_device
 from .overload import DegradationLadder
 from .paged_cache import allocate, pages_for, push_pages, release
@@ -115,6 +115,9 @@ class ServingEngine:
     own weights, on the engine's device) drafts for
     ``ServingPlugin(speculate="draft")``.  ``hold_finished=True`` makes a
     prefill-role engine of a :class:`~.transfer.DisaggregatedPair`.
+    ``telemetry`` (a :class:`~..utils.dataclasses.TelemetryPlugin`, by
+    default from the ``ACCELERATE_TELEMETRY*`` environment) arms request
+    spans at construction when its ``trace_requests`` is set.
     ``run(trace)`` replays a list of :class:`~.scheduler.Request` with
     virtual-time arrivals.
     """
@@ -122,7 +125,7 @@ class ServingEngine:
     def __init__(self, model, plugin: Optional[ServingPlugin] = None,
                  generation_config: Optional[GenerationConfig] = None, *,
                  seed: int = 0, device=None, adapters=None, draft_model=None,
-                 hold_finished: bool = False):
+                 hold_finished: bool = False, telemetry: Optional[TelemetryPlugin] = None):
         self.device = resolve_device(device)
         for label, mod in (("model", model), ("draft model", draft_model)):
             if mod is not None and not self._on_engine_device(mod.device):
@@ -176,7 +179,12 @@ class ServingEngine:
         self._pending_cancels: list[int] = []
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
+        # request spans armed from the start when the telemetry plugin (or
+        # ACCELERATE_TELEMETRY_TRACE_REQUESTS) asks for them
+        self.telemetry = telemetry or TelemetryPlugin()
         self.trace: Optional[RequestTracer] = None
+        if self.telemetry.trace_requests:
+            self.enable_tracing()
         self.warmed_up = False
         self.steps = 0
         self.interrupted = False
@@ -224,7 +232,8 @@ class ServingEngine:
         the default is the host's ``perf_counter``.  Host-side only: no
         token changes."""
         if self.trace is None or clock is not None or capacity is not None:
-            self.trace = RequestTracer(capacity=capacity or 4096, clock=clock)
+            self.trace = RequestTracer(capacity=capacity or self.telemetry.ring_capacity,
+                                       clock=clock)
         return self.trace
 
     def disable_tracing(self) -> None:

@@ -11,29 +11,103 @@ device here, and multi-GPU worlds are ROADMAP item A13.)
 
 from __future__ import annotations
 
-from typing import Optional
+import builtins
+from contextlib import contextmanager
+from functools import partial
+from typing import Callable, Optional
 
 from .logging import get_logger
 from .ops.precision import fp8_hardware_supported, get_policy
-from .utils.dataclasses import GradientAccumulationPlugin, parse_flag_from_env
+from .utils.dataclasses import DistributedType, GradientAccumulationPlugin, parse_flag_from_env
 from .utils.device import resolve_device
 
 logger = get_logger(__name__)
+
+# set once an AcceleratorState has been built in this process (is_initialized)
+_accelerator_state_built = False
 
 MIXED_PRECISION_TYPES = ("no", "fp16", "bf16", "fp8")
 
 
 class PartialState:
     """The process and its device: ``device`` (``"cuda"`` unless the caller
-    passes ``cpu=True`` or a device), one process, index 0."""
+    passes ``cpu=True`` or a device), one process, index 0, and the JAX
+    package's process helpers (JAX :174-293) with their one-process
+    meaning: every ``on_*`` decorator of process 0 runs its function, the
+    barriers return at once, ``print`` prints."""
 
     num_processes = 1
     process_index = 0
+    local_process_index = 0
     is_main_process = True
-    distributed_type = "NO"
+    is_local_main_process = True
+    is_last_process = True
+    use_distributed = False
+    distributed_type = DistributedType.NO
 
     def __init__(self, cpu: bool = False, device=None):
         self.device = resolve_device("cpu" if cpu else device)
+
+    def wait_for_everyone(self):
+        """One process: nothing to wait for."""
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the block first (one process: it runs)."""
+        yield from self._goes_first(self.is_main_process)
+
+    @contextmanager
+    def local_main_process_first(self):
+        yield from self._goes_first(self.is_local_main_process)
+
+    def _goes_first(self, is_main: bool):
+        if not is_main:
+            self.wait_for_everyone()
+        yield
+        if is_main:
+            self.wait_for_everyone()
+
+    def on_main_process(self, function: Optional[Callable] = None):
+        if function is None:
+            return partial(self.on_main_process)
+
+        def _inner(*args, **kwargs):
+            if self.is_main_process:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def on_local_main_process(self, function: Optional[Callable] = None):
+        if function is None:
+            return partial(self.on_local_main_process)
+
+        def _inner(*args, **kwargs):
+            if self.is_local_main_process:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def on_last_process(self, function: Callable):
+        def _inner(*args, **kwargs):
+            if self.is_last_process:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def on_process(self, function: Optional[Callable] = None, process_index: Optional[int] = None):
+        if function is None:
+            return partial(self.on_process, process_index=process_index)
+
+        def _inner(*args, **kwargs):
+            if self.process_index == process_index:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def print(self, *args, **kwargs):
+        """Print on the main process."""
+        if self.is_main_process:
+            builtins.print(*args, **kwargs)
 
 
 class AcceleratorState(PartialState):
@@ -64,6 +138,8 @@ class AcceleratorState(PartialState):
                     "to bf16 on such hardware.")
         get_policy(mp)
         self.mixed_precision = mp
+        global _accelerator_state_built
+        _accelerator_state_built = True
 
 
 class GradientState:
@@ -120,3 +196,9 @@ class GradientState:
         if dataloader in self.dataloader_references:
             self.dataloader_references.remove(dataloader)
         self.active_dataloader = self.dataloader_references[-1]
+
+
+def is_initialized() -> bool:
+    """True once an :class:`AcceleratorState` has been built in this
+    process (an ``Accelerator`` exists or existed; JAX :519)."""
+    return _accelerator_state_built

@@ -1,12 +1,13 @@
 """Telemetry of the port (mirrors ``accelerate_tpu/telemetry/``): the twin
-registry (:mod:`.twins`), request trace spans (:mod:`.spans`) and the SLO
-monitors (:mod:`.slo`: P² streaming quantiles against warn / trip
-thresholds, Prometheus text), all host-side and invisible to tokens.  The
-training timeline (``timeline.py``) is ROADMAP item A14.
+registry (:mod:`.twins`), request trace spans (:mod:`.spans`), the
+training timeline (:mod:`.timeline`) and the SLO monitors (:mod:`.slo`: P²
+streaming quantiles against warn / trip thresholds, Prometheus text), all
+host-side and invisible to tokens and loss.
 """
 
 from .slo import SLOMonitor, SLOStatus, StreamingQuantile, prometheus_text
 from .spans import RequestTracer, SpanRecorder, VirtualClock, validate_chrome_trace
+from .timeline import TrainTimeline
 from .twins import STANDARD_TWINS, Twin, TwinRegistry, twin_registry
 
 __all__ = [
@@ -16,6 +17,7 @@ __all__ = [
     "SLOStatus",
     "SpanRecorder",
     "StreamingQuantile",
+    "TrainTimeline",
     "Twin",
     "TwinRegistry",
     "VirtualClock",

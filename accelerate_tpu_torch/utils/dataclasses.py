@@ -2,13 +2,129 @@
 dataclasses.py``: ``GradSyncKwargs`` :155, ``GradientAccumulationPlugin``
 :269, ``FullyShardedDataParallelPlugin`` :292, ``ResiliencePlugin`` :400,
 ``ServingPlugin`` :487, ``LoraPlugin`` :720, ``FP8RecipeKwargs`` :970,
-``DataLoaderConfiguration`` :1008, ``ProjectConfiguration`` :1023)."""
+``DataLoaderConfiguration`` :1008, ``ProjectConfiguration`` :1023,
+``DistributedType`` :50, ``LoggerType`` :106, ``AutocastKwargs`` :147,
+``InitProcessGroupKwargs`` :201, ``ProfileKwargs`` :212,
+``TelemetryPlugin`` :855)."""
 
 from __future__ import annotations
 
+import enum
 import os
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Callable, Optional
+
+
+class BaseEnum(str, enum.Enum):
+    """A string enum whose members print as their value."""
+
+    def __str__(self):
+        return self.value
+
+    @classmethod
+    def list(cls):
+        return list(map(str, cls))
+
+
+class DistributedType(BaseEnum):
+    """The process / device topology of the run (JAX :50).  The port drives
+    one card from one process: ``NO``.  Worlds of several cards are ROADMAP
+    item A13."""
+
+    NO = "NO"
+    MULTI_DEVICE = "MULTI_DEVICE"
+    MULTI_HOST = "MULTI_HOST"
+
+
+class LoggerType(BaseEnum):
+    """The experiment trackers ``tracking.py`` knows by name (JAX :106)."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    COMETML = "comet_ml"
+    MLFLOW = "mlflow"
+    AIM = "aim"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    SWANLAB = "swanlab"
+    TRACKIO = "trackio"
+
+
+@dataclass
+class AutocastKwargs:
+    """Compute-dtype context knobs (JAX :147).  The prepared train and eval
+    steps apply the accelerator's policy themselves, so
+    ``Accelerator.autocast`` changes nothing inside them, and neither knob
+    can be turned off: ``enabled=False`` or ``cache_enabled=False`` raises
+    (choose ``mixed_precision="no"`` for f32 compute)."""
+
+    enabled: bool = True
+    cache_enabled: bool = True
+
+    def __post_init__(self):
+        if not (self.enabled and self.cache_enabled):
+            raise ValueError(
+                "AutocastKwargs: the prepared steps apply the mixed-precision policy "
+                "themselves, so autocast cannot be disabled (enabled / cache_enabled "
+                "must stay True); pass mixed_precision='no' for f32 compute")
+
+
+@dataclass
+class InitProcessGroupKwargs:
+    """Process-group knobs (JAX :201), stored by the ``Accelerator``.  One
+    process drives one card, so nothing is initialised; ``num_processes >
+    1`` or ``process_id > 0`` raises (a world of several processes is
+    ROADMAP item A13)."""
+
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    timeout: timedelta = field(default_factory=lambda: timedelta(seconds=1800))
+    initialization_timeout: Optional[int] = None
+
+
+@dataclass
+class ProfileKwargs:
+    """A step-scheduled ``torch.profiler`` window (JAX :212; engine
+    ``utils/profiler.py``).  ``wait`` / ``warmup`` / ``active`` are the
+    steps of one cycle, counted by ``profiler.step()``: each cycle traces
+    steps ``[wait + warmup, wait + warmup + active)``; ``repeat`` bounds
+    the cycles (0: until the block ends; cycle ``i > 0`` writes under
+    ``cycle_<i>/``).  With no schedule (``wait``, ``warmup`` and
+    ``repeat`` 0, ``active`` None) the whole ``with`` block is one window,
+    ``step()`` or not.  ``profile_memory``: the card's allocator counters
+    at the window's edges in ``profiler.summary['memory']``;
+    ``with_flops``: the FLOPs ``torch.profiler`` counts in the window, in
+    ``summary['flops']``.  ``on_trace_ready(trace_dir)`` runs at the end
+    of each cycle that wrote a trace.  ``create_perfetto_link=True``
+    raises: ``torch.profiler`` serves no Perfetto link (open
+    ``trace.json`` in the Perfetto UI instead)."""
+
+    wait: int = 0
+    warmup: int = 0
+    active: Optional[int] = None
+    repeat: int = 0
+    output_trace_dir: Optional[str] = None
+    with_flops: bool = False
+    profile_memory: bool = False
+    create_perfetto_link: bool = False
+    on_trace_ready: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.create_perfetto_link:
+            raise ValueError(
+                "ProfileKwargs.create_perfetto_link: torch.profiler serves no Perfetto "
+                "link; open the window's trace.json in the Perfetto UI instead")
+        if self.active is not None and self.active < 1:
+            raise ValueError(
+                f"ProfileKwargs.active must be >= 1 when set (got {self.active}); "
+                "leave it at None for a single continuous trace window"
+            )
+
+    def has_schedule(self) -> bool:
+        return bool(self.wait or self.warmup or self.repeat or self.active is not None)
 
 
 @dataclass
@@ -458,8 +574,7 @@ class LoraPlugin:
     from host memory, and every row routes through its adapter by id.
     ``kernel``: ``"auto"`` (kernel #10 at T = 1, the gathered product
     otherwise), ``"native"`` or ``"bgmv"``.  ``optimizer`` names the
-    per-adapter fine-tuning recipe of ``LoraTrainer``, which is ROADMAP
-    item A11e."""
+    per-adapter fine-tuning recipe of ``LoraTrainer``."""
 
     rank: Optional[int] = None               # env ACCELERATE_LORA_RANK, default 8
     alpha: Optional[float] = None            # folded into stored B as alpha / rank
@@ -513,3 +628,43 @@ class LoraPlugin:
             )
         if not self.targets:
             raise ValueError("LoraPlugin.targets must name at least one module")
+
+
+@dataclass
+class TelemetryPlugin:
+    """Telemetry knobs (JAX :855), each defaulting from its
+    ``ACCELERATE_TELEMETRY*`` environment variable (explicit arguments
+    win): ``enabled`` (the master switch), ``trace_requests`` (request
+    spans on the serving engine), ``timeline`` (the training timeline on
+    the ``Accelerator``), ``ring_capacity`` (span ring size, default 4096),
+    ``slo`` (``SLOMonitor`` thresholds for the train step, or None) and
+    ``export_dir`` (where ``end_training`` writes ``train_timeline.json``).
+    All host-side: the loss is bitwise the same with telemetry on."""
+
+    enabled: Optional[bool] = None
+    trace_requests: Optional[bool] = None
+    timeline: Optional[bool] = None
+    ring_capacity: Optional[int] = None
+    slo: Optional[dict] = None
+    export_dir: Optional[str] = None
+
+    def __post_init__(self):
+        env = os.environ
+        if self.enabled is None:
+            self.enabled = parse_flag_from_env("ACCELERATE_TELEMETRY")
+        if self.trace_requests is None:
+            self.trace_requests = parse_flag_from_env(
+                "ACCELERATE_TELEMETRY_TRACE_REQUESTS", default=self.enabled)
+        if self.timeline is None:
+            self.timeline = parse_flag_from_env("ACCELERATE_TELEMETRY_TIMELINE",
+                                                default=self.enabled)
+        if self.ring_capacity is None:
+            self.ring_capacity = int(env.get("ACCELERATE_TELEMETRY_RING", 4096))
+        if self.ring_capacity < 1:
+            raise ValueError(
+                f"TelemetryPlugin.ring_capacity must be >= 1, got {self.ring_capacity}")
+        if self.export_dir is None:
+            self.export_dir = env.get("ACCELERATE_TELEMETRY_DIR") or None
+        if self.slo is not None and not isinstance(self.slo, dict):
+            raise ValueError(
+                f"TelemetryPlugin.slo must be a thresholds dict, got {type(self.slo).__name__}")

@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N]
+Run from the root of a checkout:
+python3 chip_smoke.py [--before DIR] [--seed N] [--only PHASE[,PHASE]]
+
+The bare call runs every phase below; ``--only`` runs the named ones
+(``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
+``train_resume``: 6a; ``memory_recipes``: 6b; ``lora_train``: 6c;
+``examples``: 6d) and prints the kernels line for the kernels they reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -236,14 +242,41 @@ Run from the root of a checkout:  python3 chip_smoke.py [--before DIR] [--seed N
    the device-to-host and host-to-device bytes a step equal to
    ``offload_transfer_accounting``; step and host-update ms and the share
    of the copy hidden under the update);
+6c. multi-tenant LoRA fine-tuning (``lora_train_phase``): ``LoraTrainer``
+   on the 600m model at full width and depth, the base frozen, 8 tenants'
+   rank-16 q_proj / v_proj adapters (``lion-sr8``, a pool of 4), a batch of
+   8 x 1024 seeded tokens with tenant ids [1, 2, 3, 4, 0, 1, 2, 3] (one
+   base row; tenants 5-8 take no rows), 5 steps: #1-#3 16 launches each a
+   step, losses finite and the last two's mean below the first, step 1's
+   batched loss within 1e-2 of ``sequential_loss`` (and again at the
+   trained adapters, where each tenant's slice of the batched gradients is
+   held to ``sequential_grads``, a backward over its rows alone, and two
+   faulty schedules, rows dropped and tenants swapped, must fail that
+   limit), tenants 5-8's weights and state bitwise unchanged,
+   the verified save and a load into a fresh trainer bitwise on every leaf
+   with the next step's loss bitwise equal in both, a truncated shard
+   refused, one more step with every #1-#3 launch held to its plain
+   version; prints step ms, tokens/s, the host unpark / park ms a step and
+   ``host_state_report()`` beside ``adapter_state_accounting``;
+6d. the examples (``examples_phase``): ``BertConfig.base()`` under bf16
+   at batch 32 x 128 through a prepared loader, ``adamw``, 5 steps with a
+   JSONL tracker logged each step, ``ProfileKwargs(wait=1, warmup=1,
+   active=2)`` (steps 2 and 3 traced, the trace file written) and the
+   training timeline on, then ``prepare_eval_step`` +
+   ``gather_for_metrics`` over 2 batches; the same 5 steps with the
+   timeline off give bitwise the same losses, ``step_dispatch`` counted
+   once a step; then ``ResNetConfig.resnet50()`` at 224^2 x 3, batch 32, 3
+   steps with ``has_aux``, the batch statistics folded back each step;
+   prints step ms and peak memory (``get_device_memory_stats``);
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
    prefix-cache, overload, pair (bf16, int8) and fleet serves, the loaded
    serves (``big_model_serve``, ``big_model_serve_int8``), the int8
    streamed decode (``streamed``) and beam search (``beam``) and, for
-   #1-#3, the ``train_resume`` runs and the ``memory_*`` runs of step 6b;
-   #1-#3's ``cases`` and ``f16`` hold their f16 instances), then
+   #1-#3, the ``train_resume`` runs, the ``memory_*`` runs of step 6b and
+   the ``lora_train`` steps of step 6c; #1-#3's ``cases`` and ``f16`` hold
+   their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
 
@@ -1504,6 +1537,22 @@ def checked_flash_kernels(torch, fa, readings: dict):
             setattr(fa, n, f)
 
 
+def worst_of(readings: dict, per_step: dict) -> dict:
+    """Each kernel's worst reading over its checked calls, and the calls'
+    count checked against ``per_step``."""
+    rep = {}
+    for name, calls in readings.items():
+        n = len(calls) // (2 if name in ("flash_fwd", "flash_dkv") else 1)
+        if n != per_step[name]:
+            raise AssertionError(f"{name}: {n} checked launches, expected {per_step[name]}")
+        worst = max(calls, key=lambda r: r["err_over_limit"])
+        rep[name] = {"calls": n, "max_abs_err": max(r["max_abs_err"] for r in calls),
+                     "err_over_tensor_max": max(r["err_over_tensor_max"] for r in calls),
+                     **{k: worst[k] for k in ("err_over_limit", "worst_row_err",
+                                              "worst_row_ref_max", "tensor_ref_max")}}
+    return rep
+
+
 def checked_step(torch, fa, acc, loss_fn, state, batch, layers: int):
     """One train step with every launch of #1-#3 held against its plain
     version on the step's own operands.  Returns the new state and each
@@ -1511,17 +1560,7 @@ def checked_step(torch, fa, acc, loss_fn, state, batch, layers: int):
     readings = {n: [] for n in FLASH_REPLACES}
     with checked_flash_kernels(torch, fa, readings):
         state, _ = acc.prepare_train_step(loss_fn)(state, batch)
-    rep = {}
-    for name, calls in readings.items():
-        per_step = len(calls) // (2 if name in ("flash_fwd", "flash_dkv") else 1)
-        if per_step != layers:
-            raise AssertionError(f"{name}: {per_step} checked launches in one step")
-        worst = max(calls, key=lambda r: r["err_over_limit"])
-        rep[name] = {"calls": per_step, "max_abs_err": max(r["max_abs_err"] for r in calls),
-                     "err_over_tensor_max": max(r["err_over_tensor_max"] for r in calls),
-                     **{k: worst[k] for k in ("err_over_limit", "worst_row_err",
-                                              "worst_row_ref_max", "tensor_ref_max")}}
-    return state, rep
+    return state, worst_of(readings, {n: layers for n in FLASH_REPLACES})
 
 
 def train_setup(torch, seed: int = 0, device: str = "cuda"):
@@ -4949,6 +4988,400 @@ def memory_recipes_phase(torch, F, fa, card: str) -> dict:
     return out
 
 
+# -- multi-tenant LoRA fine-tuning (LoraTrainer) ------------------------------
+
+# the 600m base frozen, 8 tenants' rank-16 q / v adapters over a pool of 4,
+# a batch of 8 rows x 1024 tokens: one base row, tenants 1-4 in the rest,
+# tenants 5-8 take no rows.  lion-sr8 at lr 1e-3: at the recipe's default
+# 1e-4 a fresh adapter's delta stays under a bf16 step of the q / v outputs
+# for the 5 steps, so the bf16 sums round it away and the loss cannot fall
+LORA_TRAIN = dict(batch=8, seq=1024, steps=5, tenants=8, rank=16, pool_slots=4, lr=1e-3,
+                  ids=[1, 2, 3, 4, 0, 1, 2, 3], loss_rtol=1e-2, grad_rtol=5e-2)
+
+
+def grad_rel_err(grads: dict, ref: dict) -> float:
+    """The worst ``|g - ref| / |ref|`` (Frobenius norms) over the tenants
+    and leaves of two ``{tenant: {module: {"a", "b"}}}`` gradient trees."""
+    return max(float((grads[t][n][f] - ref[t][n][f]).norm() / ref[t][n][f].norm())
+               for t in ref for n in ref[t] for f in ("a", "b"))
+
+
+def profiled_step(torch, step, top: int = 8) -> dict:
+    """One call of ``step`` under ``torch.profiler`` (CPU and CUDA
+    activity), ended by a device sync: its wall ms under the profiler, the
+    device ms its kernels took and their share of the wall, the number of
+    device kernels, and the ``top`` device items by self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        sync(torch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    items = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages() if dev_us(e) > 0]
+    device_ms = sum(ms for _, ms, _ in items)
+    items.sort(key=lambda x: -x[1])
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy": device_ms / wall_ms if wall_ms else 0.0,
+            "kernels": sum(n for _, _, n in items),
+            "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in items[:top]]}
+
+
+def lora_train_phase(torch, fa, card: str, device: str = "cuda") -> dict:
+    """``LoraTrainer`` on the 600m model at full width and depth (module
+    docstring, step 6c)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, LoraPlugin
+    from accelerate_tpu_torch.checkpointing import CheckpointCorruptError
+    from accelerate_tpu_torch.ops.lora import adapter_state_accounting
+    from accelerate_tpu_torch.serving import LoraTrainer
+    from accelerate_tpu_torch.serving.adapters import _state_tensors
+
+    lt = LORA_TRAIN
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    plugin = LoraPlugin(rank=lt["rank"], pool_slots=lt["pool_slots"],
+                        targets=LORA["targets"], kernel=LORA["kernel"])
+    trainer = LoraTrainer(model, plugin, learning_rate=lt["lr"])
+    tenants = list(range(1, lt["tenants"] + 1))
+    for t in tenants:
+        trainer.add_adapter(t)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (lt["batch"], lt["seq"]))
+    ids_t = torch.from_numpy(tokens).to(device)
+    batch = {"input_ids": ids_t, "labels": ids_t}
+    ids = lt["ids"]
+    idle = [t for t in tenants if t not in ids]
+
+    def leaves(tr, t):
+        return list(tr._flat(tr.adapters[t])) + list(_state_tensors(tr.opt_states[t]))
+
+    idle_before = {t: [x.clone() for x in leaves(trainer, t)] for t in idle}
+    seq_loss_1 = trainer.sequential_loss(batch, ids)
+    layers = cfg.num_hidden_layers
+    sync(torch)
+    fa.reset_launch_counts()
+    losses, step_ms, park, unpark = [], [], [], []
+    for _ in range(lt["steps"]):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(batch, ids))
+        sync(torch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        park.append(trainer.step_log["park_ms"])
+        unpark.append(trainer.step_log["unpark_ms"])
+    launches = flash_counts(fa)
+    moved = dict(trainer.step_log)
+    for name, count in launches.items():
+        if count != lt["steps"] * layers:
+            raise AssertionError(f"lora_train: {name} launched {count} times in {lt['steps']} "
+                                 f"steps, expected {layers} per step")
+    if not (all(math.isfinite(x) for x in losses)
+            and (losses[-1] + losses[-2]) / 2 < losses[0]):
+        raise AssertionError(f"lora_train losses not finite and falling: {losses}")
+    if abs(losses[0] - seq_loss_1) > lt["loss_rtol"] * abs(seq_loss_1):
+        raise AssertionError(f"lora_train: step 1's batched loss {losses[0]} against the "
+                             f"sequential schedule's {seq_loss_1}")
+    for t in idle:
+        if not all_equal(torch, idle_before[t], leaves(trainer, t)):
+            raise AssertionError(f"lora_train: tenant {t} took no rows but its weights or "
+                                 "optimizer state moved")
+    # at trained adapters (step 1's b factors are zeros, so its loss pin
+    # cannot see the routing): each tenant's slice of the batched gradients
+    # against a backward over its rows alone, and the same comparison
+    # against two faulty schedules, which must fail it: tenants 1-3's
+    # second rows dropped (a gathered-index backward that loses rows
+    # sharing a slot) and tenants' gradients swapped (a mis-routed pool)
+    loss_now, grads = trainer.tenant_grads(batch, ids)
+    seq_now = trainer.sequential_loss(batch, ids)
+    if abs(loss_now - seq_now) > lt["loss_rtol"] * abs(seq_now):
+        raise AssertionError(f"lora_train: trained batched loss {loss_now} against the "
+                             f"sequential schedule's {seq_now}")
+    seq_grads = trainer.sequential_grads(batch, ids)
+    first_rows = [t if t not in ids[:i] else 0 for i, t in enumerate(ids)]
+    routed = sorted(seq_grads)
+    grad_check = {
+        "tenants": grad_rel_err(grads, seq_grads),
+        "rows_dropped": grad_rel_err(grads, trainer.sequential_grads(batch, first_rows)),
+        "tenants_swapped": grad_rel_err(grads, {t: seq_grads[u] for t, u in
+                                                zip(routed, routed[1:] + routed[:1])}),
+        "limit": lt["grad_rtol"]}
+    log("lora_train_grad_check", json.dumps(grad_check))
+    if grad_check["tenants"] > lt["grad_rtol"]:
+        raise AssertionError(f"lora_train: tenant gradients off the sequential schedule's "
+                             f"by {grad_check['tenants']} > {lt['grad_rtol']}")
+    if min(grad_check["rows_dropped"], grad_check["tenants_swapped"]) <= lt["grad_rtol"]:
+        raise AssertionError(f"lora_train: the gradient gate does not see a faulty "
+                             f"schedule: {grad_check}")
+    del grads, seq_grads
+
+    # the verified checkpoint: bitwise round trip, bitwise continuation, a
+    # torn shard refused
+    root = Path(tempfile.mkdtemp(prefix="lora_train_"))
+    try:
+        t0 = time.perf_counter()
+        trainer.save(str(root / "ck"))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        restored = LoraTrainer(model, plugin, learning_rate=lt["lr"])
+        t0 = time.perf_counter()
+        if restored.load(str(root / "ck")) != tenants:
+            raise AssertionError("lora_train: the restore missed tenants")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        for t in tenants:
+            if not all_equal(torch, leaves(trainer, t), leaves(restored, t)) or \
+                    trainer.opt_states[t].count != restored.opt_states[t].count:
+                raise AssertionError(f"lora_train: tenant {t} not bitwise after save / load")
+        next_a, next_b = trainer.step(batch, ids), restored.step(batch, ids)
+        if next_a != next_b:
+            raise AssertionError(f"lora_train: the restored trainer's next loss {next_b} is "
+                                 f"not the saved one's {next_a}")
+        shard = sorted((root / "ck").glob("adapter_*.npz"))[0]
+        shard.write_bytes(shard.read_bytes()[:-16])
+        try:
+            LoraTrainer(model, plugin, learning_rate=lt["lr"]).load(str(root / "ck"))
+        except CheckpointCorruptError:
+            pass
+        else:
+            raise AssertionError("lora_train: a truncated shard loaded")
+        ck_bytes = sum(f.stat().st_size for f in (root / "ck").iterdir())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del restored
+
+    # one step with every #1-#3 launch held to its plain version
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        trainer.step(batch, ids)
+    in_path = worst_of(readings, {n: layers for n in FLASH_REPLACES})
+    log("lora_train_in_path", json.dumps(in_path))
+    breakdown = profiled_step(torch, lambda: trainer.step(batch, ids))
+    log("lora_train_profile", json.dumps(breakdown))
+
+    report = trainer.host_state_report()
+    predicted = adapter_state_accounting(trainer.spec, lt["rank"], lt["tenants"],
+                                         optimizer=plugin.optimizer)
+    steady = step_ms[1:]
+    tokens_per_step = lt["batch"] * lt["seq"]
+    rep = {"card": card, "batch": lt["batch"], "seq": lt["seq"], "tenants": lt["tenants"],
+           "ids": ids, "rank": lt["rank"], "pool_slots": lt["pool_slots"],
+           "optimizer": plugin.optimizer, "lr": lt["lr"], "losses": losses, "sequential_loss_step1": seq_loss_1,
+           "grad_check": grad_check,
+           "step_ms": step_ms, "step_ms_median_steps_2_5": float(np.median(steady)),
+           "tokens_per_s": tokens_per_step / (float(np.median(steady)) / 1e3),
+           "unpark_ms": unpark, "park_ms": park, "h2d_bytes_per_step": moved["h2d_bytes"],
+           "d2h_bytes_per_step": moved["d2h_bytes"], "launches_per_step": {
+               n: c / lt["steps"] for n, c in launches.items()},
+           "save_ms": save_ms, "load_ms": load_ms, "checkpoint_bytes": ck_bytes,
+           "host_state_report": report, "adapter_state_accounting": predicted,
+           "profile": {k: breakdown[k] for k in ("wall_ms", "device_ms", "device_busy",
+                                                  "kernels")}}
+    log("lora_train", json.dumps(rep))
+    log(f"lora_train on {card}: {rep['step_ms_median_steps_2_5']:.1f} ms/step, "
+        f"{rep['tokens_per_s']:.0f} tokens/s, host unpark {np.median(unpark):.2f} ms + park "
+        f"{np.median(park):.2f} ms a step; host state {report['weight_bytes']} weight + "
+        f"{report['state_bytes']} state bytes (predicted "
+        f"{predicted['weight_bytes_per_adapter'] * lt['tenants']} + "
+        f"{predicted['state_bytes_per_adapter'] * lt['tenants']})")
+    del trainer, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "in_path": in_path, "report": rep}
+
+
+# -- the examples' models and the Accelerator's one-card surface -------------
+
+EXAMPLES = dict(bert_batch=32, bert_seq=128, bert_steps=5, eval_batches=2,
+                resnet_batch=32, resnet_hw=224, resnet_steps=3,
+                profile=dict(wait=1, warmup=1, active=2))
+
+
+class _BertRows:
+    """``n`` seeded rows of token ids, a padding mask (a tail of 0..31
+    padded tokens a row) and a label, as ``nlp_example``'s tokenized
+    pairs."""
+
+    def __init__(self, torch, n: int, vocab: int, seq: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.ids = torch.from_numpy(rng.integers(0, vocab, (n, seq)))
+        pad = rng.integers(0, 32, (n,))
+        self.mask = torch.from_numpy((np.arange(seq)[None, :] < seq - pad[:, None]).astype(
+            np.int64))
+        self.labels = torch.from_numpy(rng.integers(0, 2, (n,)))
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i], "attention_mask": self.mask[i],
+                "labels": self.labels[i]}
+
+
+def bert_run(torch, timeline: bool, project: Path, card: str, profile: bool,
+             device: str = "cuda") -> dict:
+    """nlp_example's loop on BertConfig.base() under bf16: a prepared
+    loader, ``adamw``, trackers (JSONL) logged each step, the timeline on
+    or off, optionally a profiled window; then the eval step with
+    ``gather_for_metrics``."""
+    from accelerate_tpu_torch import Accelerator, ProjectConfiguration
+    from accelerate_tpu_torch.models import (
+        BertConfig, BertForSequenceClassification, make_bert_loss_fn,
+    )
+    from accelerate_tpu_torch.utils.dataclasses import ProfileKwargs, TelemetryPlugin
+    from accelerate_tpu_torch.utils.memory import get_device_memory_stats
+
+    ex = EXAMPLES
+    cfg = BertConfig.base()
+    acc = Accelerator(mixed_precision="bf16", log_with="jsonl", device=device,
+                      project_config=ProjectConfiguration(project_dir=str(project)),
+                      telemetry_plugin=TelemetryPlugin(timeline=timeline))
+    model = BertForSequenceClassification(cfg, device=device, seed=0)
+    rows = ex["bert_batch"] * ex["bert_steps"]
+    loader = acc.prepare(torch.utils.data.DataLoader(
+        _BertRows(torch, rows, cfg.vocab_size, ex["bert_seq"], seed=1),
+        batch_size=ex["bert_batch"]))
+    state = acc.create_train_state(model, "adamw")
+    step = acc.prepare_train_step(make_bert_loss_fn(model), max_grad_norm=1.0)
+    acc.init_trackers("bert", config={"batch": ex["bert_batch"], "seq": ex["bert_seq"]})
+    handler = ProfileKwargs(output_trace_dir=str(project / "profile"), **ex["profile"])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    with (acc.profile(handler) if profile else contextlib.nullcontext()) as prof:
+        for batch in loader:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = metrics["loss"].item()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            acc.log({"loss": loss}, step=len(losses))
+            if prof is not None:
+                prof.step()
+    peak = get_device_memory_stats(device)["peak_bytes_in_use"]
+    acc.reset_step_cadence()
+    eval_step = acc.prepare_eval_step(
+        lambda params, b: torch.func.functional_call(
+            model, params, (b["input_ids"],), {"attention_mask": b["attention_mask"]}))
+    eval_loader = acc.prepare(torch.utils.data.DataLoader(
+        _BertRows(torch, ex["bert_batch"] * ex["eval_batches"], cfg.vocab_size,
+                  ex["bert_seq"], seed=2), batch_size=ex["bert_batch"]))
+    preds, refs = [], []
+    for batch in eval_loader:
+        logits = eval_step(state.params, batch)
+        p, r = acc.gather_for_metrics((logits.argmax(-1), batch["labels"]))
+        preds.append(p)
+        refs.append(r)
+    preds, refs = torch.cat(preds), torch.cat(refs)
+    acc.end_training()
+    out = {"losses": losses, "step_ms": step_ms, "peak_bytes": peak,
+           "eval_rows": int(preds.numel()), "eval_accuracy": (preds == refs).float().mean().item(),
+           "summary": acc.timeline.summary() if timeline else None,
+           "profile": prof.summary if prof is not None else None}
+    del state, model, acc
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase(torch, card: str, device: str = "cuda") -> dict:
+    """The JAX examples' models through the one-card surface (module
+    docstring, step 6d)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import ResNet, ResNetConfig, make_resnet_loss_fn
+    from accelerate_tpu_torch.utils.memory import get_device_memory_stats
+
+    ex = EXAMPLES
+    root = Path(tempfile.mkdtemp(prefix="examples_"))
+    try:
+        on = bert_run(torch, True, root / "on", card, profile=True, device=device)
+        off = bert_run(torch, False, root / "off", card, profile=False, device=device)
+        if not all(math.isfinite(x) for x in on["losses"]):
+            raise AssertionError(f"bert losses not finite: {on['losses']}")
+        if on["losses"] != off["losses"]:
+            raise AssertionError(f"bert: the loss with the timeline on {on['losses']} is not "
+                                 f"bitwise the loss with it off {off['losses']}")
+        s = on["summary"]
+        if s["step_dispatch"]["count"] != ex["bert_steps"]:
+            raise AssertionError(f"bert: step_dispatch counted {s['step_dispatch']['count']} "
+                                 f"times in {ex['bert_steps']} steps")
+        if on["eval_rows"] != ex["bert_batch"] * ex["eval_batches"]:
+            raise AssertionError(f"bert eval gathered {on['eval_rows']} rows")
+        metrics = [json.loads(l) for l in (root / "on" / "bert" / "metrics.jsonl")
+                   .read_text().splitlines()]
+        if [m["loss"] for m in metrics] != on["losses"]:
+            raise AssertionError("bert: the JSONL tracker's losses are not the steps'")
+        p = on["profile"]
+        want = list(range(ex["profile"]["wait"] + ex["profile"]["warmup"],
+                          ex["profile"]["wait"] + ex["profile"]["warmup"]
+                          + ex["profile"]["active"]))
+        trace = root / "on" / "profile" / "trace.json"
+        if p["traced_steps"] != want or not trace.exists():
+            raise AssertionError(f"bert profile: traced {p['traced_steps']}, trace "
+                                 f"{trace.exists()}")
+        kernels = sum(1 for e in json.loads(trace.read_text())["traceEvents"]
+                      if e.get("cat") == "kernel")
+        bert = {k: on[k] for k in ("losses", "step_ms", "peak_bytes", "eval_rows",
+                                   "eval_accuracy", "summary")}
+        bert.update(profiled_steps=p["traced_steps"], trace_kernel_events=kernels,
+                    trace_bytes=trace.stat().st_size)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("examples_bert", json.dumps(bert))
+
+    # cv_example: ResNet-50's stages at 224^2, batch-norm statistics out as the
+    # step's aux and folded back
+    cfg = ResNetConfig.resnet50()
+    model = ResNet(cfg, device=device, seed=0)
+    acc = Accelerator(mixed_precision="bf16", device=device)
+    state = acc.create_train_state(model, "adamw")
+    step = acc.prepare_train_step(make_resnet_loss_fn(model), has_aux=True)
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.standard_normal(
+        (ex["resnet_batch"], ex["resnet_hw"], ex["resnet_hw"], 3)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, (ex["resnet_batch"],))).to(device)
+    mean0 = model.stem_bn.mean.clone()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(ex["resnet_steps"]):
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"image": images, "label": labels})
+        model.load_batch_stats(metrics["aux"])
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = get_device_memory_stats(device)["peak_bytes_in_use"]
+    n_stats = len(metrics["aux"])
+    if not (all(math.isfinite(x) for x in losses)
+            and all(torch.isfinite(s[k]).all() for s in metrics["aux"].values()
+                    for k in ("mean", "var"))
+            and not torch.equal(model.stem_bn.mean, mean0)):
+        raise AssertionError(f"resnet: losses or batch statistics not finite, or not folded: "
+                             f"{losses}")
+    resnet = {"losses": losses, "step_ms": step_ms, "peak_bytes": peak,
+              "batch_norms": n_stats, "batch": ex["resnet_batch"], "hw": ex["resnet_hw"]}
+    log("examples_resnet", json.dumps(resnet))
+    log(f"examples on {card}: bert-base {np.median(bert['step_ms'][1:]):.1f} ms/step at "
+        f"{ex['bert_batch']}x{ex['bert_seq']}, peak {bert['peak_bytes'] / 2**30:.2f} GiB; "
+        f"resnet50 {np.median(step_ms[1:]):.1f} ms/step at {ex['resnet_batch']}x"
+        f"{ex['resnet_hw']}^2, peak {peak / 2**30:.2f} GiB")
+    del state, model, acc, images
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"bert": bert, "resnet": resnet}
+
+
+# the phases --only selects, in the order the bare call runs them
+PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
+          "examples")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--before", type=Path, default=None, metavar="DIR",
@@ -4960,7 +5393,18 @@ def main() -> int:
                              "versions and timed beside the new ones (before_ms)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the train_resume phase's token rows and data order")
+    parser.add_argument("--only", type=lambda v: [x.strip() for x in v.split(",") if x.strip()],
+                        default=None, metavar="PHASE[,PHASE]",
+                        help="run only these phases (the bare call runs them all), of: "
+                             + ", ".join(PHASES) + "; train_resume brings training with it. "
+                             "The kernels line then lists the kernels the run reached")
     args = parser.parse_args()
+    only = set(args.only) if args.only is not None else set(PHASES)
+    unknown = only - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}; phases: {', '.join(PHASES)}")
+    if "train_resume" in only:
+        only.add("training")
     import torch
 
     if not torch.cuda.is_available():
@@ -5023,84 +5467,120 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
 
-    kernels = kernel_phases(torch, F, fa)
-    phase_done("paged kernels #4-#7")
-    kernels.update(qmm_kernel_phases(torch, F))
-    phase_done("W8A16 kernels #11, #12")
-    kernels.update(flash_kernel_phases(torch, F, fa))
-    phase_done("flash kernels #1-#3")
-    kernels.update(lora_kernel_phases(torch))
-    phase_done("LoRA kernel #10")
-    with torch.inference_mode():
-        serve = engine_phase(torch, card)
-        phase_done("bf16 serve")
-        spec = speculate_phase(torch, card, serve)
-        phase_done("speculative serve")
-        quant = quant_engine_phase(torch, card, serve)
-        phase_done("quantized serve")
-        pages_32_phase(torch, quant["model"], card, serve["trace"])
-        phase_done("quantized serve over pages of 32")
-        prefix = prefix_phase(torch, card, serve, quant["model"])
-        phase_done("prefix-cache serve")
-        overload = overload_phase(torch, card, serve)
-        phase_done("overload serve")
-        pairs = disaggregate_phase(torch, card, serve, quant)
-        phase_done("disaggregated pair")
-        fleet_phase(torch, card, serve, prefix)
-        phase_done("fleet")
-        big_model_phase(torch, card, serve, quant)
-        phase_done("big_model")
-        gen = generate_paged_phase(torch, quant.pop("model"), card)
-        phase_done("generate_paged")
-        generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
-        phase_done("generate_paged over bf16 pages")
-        lora = lora_engine_phase(torch, card, serve)
-        phase_done("LoRA serve")
-        kernels.update(fused_op_phase(torch, F, fa, serve.pop("model"), lora["trace"]))
-        phase_done("fused LoRA decode #8, #9")
-    del lora["store"]
-    torch.cuda.empty_cache()
-    train = training_phase(torch, fa, card)
-    phase_done("training")
-    resumed = train_resume_phase(torch, fa, card, args.seed, train["report"]["step_ms"],
-                                 train["report"]["params"])
-    PATH_LAUNCHES["train_resume"] = resumed["launches"]
-    phase_done("train_resume")
-    memory = memory_recipes_phase(torch, F, fa, card)
-    for name, rep in memory["fp16"]["kernels_f16"].items():
-        # the f16 instances' cases and times beside the bf16 instances'
-        kernels[name]["cases"] = kernels[name]["cases"] + rep["cases"]
-        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], rep["max_abs_err"])
-        kernels[name]["err_over_limit"] = max(kernels[name]["err_over_limit"],
-                                              rep["err_over_limit"])
-        kernels[name]["f16"] = {k: rep[k] for k in ("ms", "bf16_ms", "bound_ms", "bound_by",
-                                                    "library_ms", "max_abs_err",
-                                                    "err_over_limit")}
-    phase_done("memory_recipes")
+    kernels, serve, quant, gen, lora, train = {}, None, None, None, None, None
+    if "kernels" in only:
+        kernels = kernel_phases(torch, F, fa)
+        phase_done("paged kernels #4-#7")
+        kernels.update(qmm_kernel_phases(torch, F))
+        phase_done("W8A16 kernels #11, #12")
+        kernels.update(flash_kernel_phases(torch, F, fa))
+        phase_done("flash kernels #1-#3")
+        kernels.update(lora_kernel_phases(torch))
+        phase_done("LoRA kernel #10")
+    if "serving" in only:
+        with torch.inference_mode():
+            serve = engine_phase(torch, card)
+            phase_done("bf16 serve")
+            spec = speculate_phase(torch, card, serve)
+            phase_done("speculative serve")
+            quant = quant_engine_phase(torch, card, serve)
+            phase_done("quantized serve")
+            pages_32_phase(torch, quant["model"], card, serve["trace"])
+            phase_done("quantized serve over pages of 32")
+            prefix = prefix_phase(torch, card, serve, quant["model"])
+            phase_done("prefix-cache serve")
+            overload = overload_phase(torch, card, serve)
+            phase_done("overload serve")
+            pairs = disaggregate_phase(torch, card, serve, quant)
+            phase_done("disaggregated pair")
+            fleet_phase(torch, card, serve, prefix)
+            phase_done("fleet")
+            big_model_phase(torch, card, serve, quant)
+            phase_done("big_model")
+            gen = generate_paged_phase(torch, quant.pop("model"), card)
+            phase_done("generate_paged")
+            generate_paged_phase(torch, serve["model"], card, kv_dtype="bf16")
+            phase_done("generate_paged over bf16 pages")
+            lora = lora_engine_phase(torch, card, serve)
+            phase_done("LoRA serve")
+            kernels.update(fused_op_phase(torch, F, fa, serve.pop("model"), lora["trace"]))
+            phase_done("fused LoRA decode #8, #9")
+        del lora["store"]
+        torch.cuda.empty_cache()
+        log("speculate, prefix, overload and pair checked launches:", json.dumps({
+            "speculate": spec["in_path"], "speculate_draft": spec["draft_in_path"],
+            "prefix": prefix["in_path"], "prefix_int8": prefix["quant_in_path"],
+            "overload": overload["in_path"],
+            **{label: rep["in_path"] for label, rep in pairs.items()}}))
+    if "training" in only:
+        train = training_phase(torch, fa, card)
+        phase_done("training")
+    if "train_resume" in only:
+        resumed = train_resume_phase(torch, fa, card, args.seed, train["report"]["step_ms"],
+                                     train["report"]["params"])
+        PATH_LAUNCHES["train_resume"] = resumed["launches"]
+        phase_done("train_resume")
+    if "memory_recipes" in only:
+        memory = memory_recipes_phase(torch, F, fa, card)
+        for name, rep in memory["fp16"]["kernels_f16"].items():
+            if name not in kernels:
+                continue
+            # the f16 instances' cases and times beside the bf16 instances'
+            kernels[name]["cases"] = kernels[name]["cases"] + rep["cases"]
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], rep["max_abs_err"])
+            kernels[name]["err_over_limit"] = max(kernels[name]["err_over_limit"],
+                                                  rep["err_over_limit"])
+            kernels[name]["f16"] = {k: rep[k] for k in ("ms", "bf16_ms", "bound_ms", "bound_by",
+                                                        "library_ms", "max_abs_err",
+                                                        "err_over_limit")}
+        phase_done("memory_recipes")
+    if "lora_train" in only:
+        lora_train = lora_train_phase(torch, fa, card)
+        PATH_LAUNCHES["lora_train"] = lora_train["launches"]
+        for name, rep in lora_train["in_path"].items():
+            if name not in kernels:
+                continue
+            # held at the LoRA step's shape on its own operands
+            case = f"lora_train_b{LORA_TRAIN['batch']}_t{LORA_TRAIN['seq']}"
+            kernels[name]["cases"] = kernels[name]["cases"] + [case]
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], rep["max_abs_err"])
+            kernels[name]["err_over_limit"] = max(kernels[name]["err_over_limit"],
+                                                  rep["err_over_limit"])
+            kernels[name]["lora_train_in_path"] = rep
+        phase_done("lora_train")
+    if "examples" in only:
+        examples_phase(torch, card)
+        phase_done("examples")
 
     # each kernel's launches on its main path, and its checked calls there
-    quant_in_path = quant["in_path"]
-    main_path = {
-        **{name: (train["launches"][name], train["in_path"][name]) for name in FLASH_REPLACES},
-        "paged_decode_attention": (serve["decode"], serve["in_path"]["paged_decode_attention"]),
-        "paged_multitoken_attention": (serve["prefill"],
-                                       serve["in_path"]["paged_multitoken_attention"]),
-        "paged_decode_attention_quant": (quant["launches"]["paged_decode_attention_quant"],
-                                         quant_in_path["paged_decode_attention"]),
-        "paged_multitoken_attention_quant": (
-            quant["launches"]["paged_multitoken_attention_quant"],
-            quant_in_path["paged_multitoken_attention"]),
-        "quantized_matmul_tiled": (quant["launches"]["quantized_matmul_tiled"],
-                                   quant_in_path["quantized_matmul_tiled"]),
-        "quantized_matmul_wholef": (gen["launches"]["quantized_matmul_wholef"],
-                                    gen["in_path"]["quantized_matmul_wholef"]),
-        "bgmv_apply": (lora["launches"]["bgmv_apply"], lora["in_path"]["bgmv_apply"]),
-        # no engine calls #8 / #9: their launches are the op phase's
-        "fused_bgmv_paged_decode": (kernels["fused_bgmv_paged_decode"]["launches"],
-                                    kernels["fused_bgmv_paged_decode"]["in_path"]),
-        "fused_bgmv_paged_decode_quant": (kernels["fused_bgmv_paged_decode_quant"]["launches"],
-                                          kernels["fused_bgmv_paged_decode_quant"]["in_path"]),
-    }
+    main_path = {}
+    if train is not None:
+        main_path.update({name: (train["launches"][name], train["in_path"][name])
+                          for name in FLASH_REPLACES})
+    if serve is not None:
+        quant_in_path = quant["in_path"]
+        main_path.update({
+            "paged_decode_attention": (serve["decode"],
+                                       serve["in_path"]["paged_decode_attention"]),
+            "paged_multitoken_attention": (serve["prefill"],
+                                           serve["in_path"]["paged_multitoken_attention"]),
+            "paged_decode_attention_quant": (quant["launches"]["paged_decode_attention_quant"],
+                                             quant_in_path["paged_decode_attention"]),
+            "paged_multitoken_attention_quant": (
+                quant["launches"]["paged_multitoken_attention_quant"],
+                quant_in_path["paged_multitoken_attention"]),
+            "quantized_matmul_tiled": (quant["launches"]["quantized_matmul_tiled"],
+                                       quant_in_path["quantized_matmul_tiled"]),
+            "quantized_matmul_wholef": (gen["launches"]["quantized_matmul_wholef"],
+                                        gen["in_path"]["quantized_matmul_wholef"]),
+            "bgmv_apply": (lora["launches"]["bgmv_apply"], lora["in_path"]["bgmv_apply"]),
+            # no engine calls #8 / #9: their launches are the op phase's
+            "fused_bgmv_paged_decode": (kernels["fused_bgmv_paged_decode"]["launches"],
+                                        kernels["fused_bgmv_paged_decode"]["in_path"]),
+            "fused_bgmv_paged_decode_quant": (
+                kernels["fused_bgmv_paged_decode_quant"]["launches"],
+                kernels["fused_bgmv_paged_decode_quant"]["in_path"]),
+        })
     sources = {"flash": "accelerate_tpu_torch/csrc/flash_attention.cu",
                "paged_multitoken_attention": "accelerate_tpu_torch/csrc/paged_prefill.cu",
                "paged_decode_attention": "accelerate_tpu_torch/csrc/paged_decode.cu",
@@ -5109,6 +5589,8 @@ def main() -> int:
                "bgmv_apply": "accelerate_tpu_torch/csrc/lora.cu"}
     entries = []
     for name, (count, in_path) in main_path.items():
+        if name not in kernels:
+            continue
         rep = kernels[name]
         source = sources[next(k for k in sources if name.startswith(k))]
         entries.append({"name": name, "route": "cuda", "source": source,
@@ -5119,21 +5601,17 @@ def main() -> int:
                         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
                         "err_over_limit": rep["err_over_limit"], "in_path": in_path,
-                        # the launches of the speculative, prefix-cache,
-                        # overload, pair, fleet and big-model paths, each
-                        # counted from 0 over its own run
+                        # the launches of the later paths, each counted from
+                        # 0 over its own run
                         "paths": {path: counts[name] for path, counts in PATH_LAUNCHES.items()
                                   if counts.get(name)},
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
                                                "delta_ms", "four_launch_ms", "composed_ms",
-                                               "f16")
+                                               "f16", "lora_train_in_path")
                            if k in rep}})
-    log("speculate, prefix, overload and pair checked launches:", json.dumps({
-        "speculate": spec["in_path"], "speculate_draft": spec["draft_in_path"],
-        "prefix": prefix["in_path"], "prefix_int8": prefix["quant_in_path"],
-        "overload": overload["in_path"],
-        **{label: rep["in_path"] for label, rep in pairs.items()}}))
+    if len(entries) != 12 and args.only is None:
+        raise AssertionError(f"the kernels line holds {len(entries)} kernels, not 12")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

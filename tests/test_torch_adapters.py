@@ -190,8 +190,17 @@ def test_predicted_hit_rate_and_pool_accounting_match_jax(models):
     assert adapter_pool_accounting(tstore.spec, rank=4, pool_slots=8)["hbm_frac"][
         "h100_80GB"] == round(adapter_pool_accounting(tstore.spec, rank=4, pool_slots=8)[
             "pool_bytes"] / (80 * 2**30), 8)
-    with pytest.raises(NotImplementedError, match="A11"):
-        LoraTrainer(models[2], None)
+    # LoraTrainer trains (held to JAX's in tests/test_torch_lora_trainer.py):
+    # a base-row + tenant step moves the tenant's adapter, on a fresh model
+    # (the trainer freezes its base)
+    trainer = LoraTrainer(LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32), device="cpu"),
+                          LoraPlugin(rank=4, pool_slots=2))
+    trainer.add_adapter(1)
+    before = [t.clone() for t in trainer._flat(trainer.adapters[1])]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, 255, (2, 8)))
+    loss = trainer.step({"input_ids": toks, "labels": toks}, [1, 0])
+    assert np.isfinite(loss)
+    assert any(not torch.equal(a, b) for a, b in zip(before, trainer._flat(trainer.adapters[1])))
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ tokens ``generate``'s bitwise), its peak device memory (two layers in
 flight, not all), beam search with one beam (greedy's tokens), and an
 engine from ``load_checkpoint_and_serve`` (the in-process engine's tokens,
 bitwise).
+#1-#3 also at LoraTrainer's step (T 1024), and a 2-layer LoraTrainer at
+the 600m widths whose batched loss equals its sequential schedule.
 The memory and precision recipes: #1-#3's f16 instances against their
 plain versions (f16's limits: 2e-2 / 8, half an f16 step) and bitwise over
 repeats; the -sr8 update in slices on the card bitwise the one-piece one; each fp8
@@ -341,6 +343,7 @@ def _flash_fwd_bwd(fn, q, k, v, g, g_lse, causal, kw):
     (1, 192, None, 4, 2, 96, True, True, False),       # packed segments
     (1, 192, None, 4, 2, 96, True, False, True),       # explicit (shuffled) positions
     (2, 2048, None, 16, 8, 96, True, False, False),    # the 600m training shape at batch 2
+    (2, 1024, None, 16, 8, 96, True, False, False),    # LoraTrainer's 600m step at batch 2
     (2, 129, None, 16, 8, 96, True, False, False),     # one row past the forward's 128-row tile
     (1, 2047, None, 16, 8, 96, True, False, False),    # one short of the last 128-key tile
     (2, 320, None, 8, 4, 64, False, False, False),     # D 64, non-causal, a partial key tile
@@ -1450,6 +1453,52 @@ def test_multitoken_kernel_from_a_page_boundary_over_aliased_pages(cuda, kv_dtyp
     ref = tfa.paged_multitoken_attention_plain(q.float(), kp if kw else kp.float(),
                                                vp if kw else vp.float(), bt, pos, **kw)
     _assert_rows_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_lora_trainer_step_matches_sequential_on_the_card(cuda):
+    """A 2-layer LoraTrainer at the 600m widths on the card: #1-#3 launch
+    once a layer a step, the batched loss equals the per-tenant sequential
+    schedule (JAX's 1e-2 pin) before and after two steps and so do the
+    tenants' gradients after three, a tenant with no
+    rows keeps its weights bitwise, and the tenants' state stays in host
+    memory."""
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, LoraPlugin
+    from accelerate_tpu_torch.serving import LoraTrainer
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                      num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                      max_position_embeddings=4096, attn_implementation="flash")
+    trainer = LoraTrainer(LlamaForCausalLM(cfg, device=cuda, seed=0),
+                          LoraPlugin(rank=16, pool_slots=4), learning_rate=1e-3)
+    for t in range(1, 6):
+        trainer.add_adapter(t)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen, device=cuda)
+    batch, ids = {"input_ids": toks, "labels": toks}, [1, 0, 2, 1]
+    idle = [x.clone() for x in trainer._flat(trainer.adapters[5])]
+    for _ in range(3):
+        seq = trainer.sequential_loss(batch, ids)
+        tfa.reset_launch_counts()
+        loss = trainer.step(batch, ids)
+        assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (
+            2, 2, 2)
+        assert abs(loss - seq) <= 1e-2 * abs(seq)
+    # at trained adapters each tenant's slice of the batched gradients
+    # equals a backward over its rows alone (tenant 1 shares its slot
+    # between two rows)
+    _, grads = trainer.tenant_grads(batch, ids)
+    seq_grads = trainer.sequential_grads(batch, ids)
+    assert sorted(seq_grads) == [1, 2]
+    for t, tree in seq_grads.items():
+        for name, fac in tree.items():
+            for f, ref in fac.items():
+                err = float((grads[t][name][f] - ref).norm() / ref.norm())
+                assert err <= 5e-2, (t, name, f, err)
+    assert all(torch.equal(a, b) for a, b in zip(idle, trainer._flat(trainer.adapters[5])))
+    assert all(x.device.type == "cpu" and x.is_pinned()
+               for x in trainer._flat(trainer.adapters[1]))
+    assert trainer.step_log["h2d_bytes"] > 0 and trainer.step_log["d2h_bytes"] > 0
 
 
 @pytest.mark.cuda

@@ -53,6 +53,7 @@ from accelerate_tpu_torch.resilience import (
 )
 from accelerate_tpu_torch.resilience.retry import RetryPolicy
 from accelerate_tpu_torch.serving import verify_serving_invariants
+from accelerate_tpu_torch.utils.dataclasses import TelemetryPlugin
 from accelerate_tpu_torch.telemetry import (
     STANDARD_TWINS,
     RequestTracer,
@@ -250,6 +251,35 @@ def test_request_tracer_over_the_same_event_log_equals_jax(models):
 # ---------------------------------------------------------------------------
 # the engine's tracing hooks and fault sites
 # ---------------------------------------------------------------------------
+
+
+def test_engine_arms_tracing_from_the_telemetry_plugin(models, monkeypatch):
+    """``TelemetryPlugin.trace_requests`` (and its environment variable)
+    arms the engine's request spans at construction with the plugin's ring
+    size, as JAX's engine does; an explicit plugin wins over the
+    environment."""
+    from accelerate_tpu.utils.dataclasses import TelemetryPlugin as JaxTelemetryPlugin
+
+    jmodel, params, tmodel = models
+    monkeypatch.setenv("ACCELERATE_TELEMETRY_TRACE_REQUESTS", "1")
+    monkeypatch.setenv("ACCELERATE_TELEMETRY_RING", "64")
+    engines = []
+    for telemetry, jtelemetry in ((None, None), (TelemetryPlugin(trace_requests=False),
+                                                 JaxTelemetryPlugin(trace_requests=False))):
+        jeng = JaxServingEngine(jmodel, params, JaxServingPlugin(**GEOMETRY,
+                                                                 decode_kernel="native"),
+                                JaxGenerationConfig(max_new_tokens=8), telemetry=jtelemetry)
+        teng = ServingEngine(tmodel, ServingPlugin(**GEOMETRY), GenerationConfig(max_new_tokens=8),
+                             device="cpu", telemetry=telemetry)
+        engines.append((teng, jeng))
+    (armed, jarmed), (off, joff) = engines
+    assert armed.trace is not None and jarmed.trace is not None
+    assert armed.trace.recorder.capacity == jarmed.trace.recorder.capacity == 64
+    assert off.trace is None and joff.trace is None
+    assert armed.enable_tracing() is armed.trace
+    trace = synthesize_trace(2, 4, **TRACE)
+    assert armed.run(trace) == off.run(synthesize_trace(2, 4, **TRACE))
+    assert armed.trace.recorder.events()
 
 
 @pytest.mark.parametrize("spec", [{}, dict(speculate="ngram", prefix_cache="on")])

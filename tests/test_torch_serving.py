@@ -319,23 +319,24 @@ def _imported_modules(path: Path):
 
 def test_serving_and_telemetry_export_every_jax_name():
     """Name by name, the port's ``serving`` and ``telemetry`` export what
-    the JAX package's do.  The exceptions, each with its ROADMAP item:
-    ``LoraTrainer`` is exported but raises (A11e); the training timeline
-    (``telemetry/timeline.py``: ``TrainTimeline``) is A14."""
+    the JAX package's do, with no exception: ``LoraTrainer`` and
+    ``TrainTimeline`` included, and both work."""
     import accelerate_tpu.serving as jserving
     import accelerate_tpu.telemetry as jtelemetry
     import accelerate_tpu_torch.serving as tserving
     import accelerate_tpu_torch.telemetry as ttelemetry
 
-    exceptions = {"TrainTimeline": "A14"}
     for jmod, tmod in ((jserving, tserving), (jtelemetry, ttelemetry)):
         for name in jmod.__all__:
-            if name in exceptions:
-                assert not hasattr(tmod, name), name
-                continue
             assert name in tmod.__all__ and hasattr(tmod, name), name
-    with pytest.raises(NotImplementedError, match="A11e"):
-        tserving.LoraTrainer()
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32), device="cpu")
+    trainer = tserving.LoraTrainer(model)
+    trainer.add_adapter(1)
+    assert trainer.host_state_report()["n_adapters"] == 1
+    timeline = ttelemetry.TrainTimeline()
+    with timeline.phase("step_dispatch"):
+        pass
+    assert timeline.summary()["step_dispatch"]["count"] == 1
 
 
 def test_port_imports_no_jax():
