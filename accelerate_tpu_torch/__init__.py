@@ -59,6 +59,13 @@ tenant's weights and int8 optimizer state parked in host memory) and the
 triggers, trackers (``tracking.py``), the profiler (``utils/profiler.py``
 on ``torch.profiler``), the training timeline (``telemetry/timeline.py``),
 ``utils/memory.py``, and the examples' BERT and ResNet (``models/``).
+Its seventeenth slice is data and context parallelism over
+``torch.distributed``: the world of processes (``state.py``), the mesh
+collectives (``parallel/collectives.py``) and the process collectives
+(``ops/operations.py``), ``ParallelismConfig`` -> ``DeviceMesh``, the FSDP
+sharding plan and the sharded train step (``parallel/sharding.py``,
+``parallel/fsdp.py``), zigzag ring attention through the flash kernels
+(``parallel/context_parallel.py``) and ``LocalSGD``.
 """
 
 from . import hooks
@@ -95,6 +102,8 @@ from .generation import (
     place_params_host,
     sample_logits,
 )
+from .local_sgd import LocalSGD
+from .parallelism_config import ParallelismConfig
 from .hooks import (
     AlignDevicesHook,
     CpuOffloadHook,
@@ -152,10 +161,12 @@ __all__ = [
     "GradientAccumulationPlugin",
     "LayerPrefetcher",
     "LayerwiseCastingHook",
+    "LocalSGD",
     "LlamaConfig",
     "LlamaForCausalLM",
     "LoraPlugin",
     "ModelHook",
+    "ParallelismConfig",
     "ProjectConfiguration",
     "QuantizationConfig",
     "QuantizedTensor",

@@ -58,14 +58,26 @@ triggers, the process helpers, trackers (``tracking.py``: ``log_with=``,
 ``h2d_staging``, ``train_timeline.json`` at ``end_training``) and the
 train step's SLO monitor.
 
+Data and context parallelism over a ``torch.distributed`` world (JAX
+:418-506, :2046-2184; ``state.py`` initialises the world): a
+``ParallelismConfig`` (``dp_replicate`` x ``dp_shard`` x ``cp``) builds the
+``DeviceMesh`` at construction, the train state is laid out by the FSDP
+sharding plan (``parallel/sharding.py``) and the step runs its collectives
+(``parallel/fsdp.py``): full parameters gathered for the forward, the
+gradients reduce-scattered or all-reduced, the update on each rank's
+range, the loss the global token mean.  The collectives façade
+(``gather``, ``gather_for_metrics``, ``reduce``, ``pad_across_processes``,
+``split_between_processes``) runs over the world, ``check_trigger`` sums
+the flag across it, and ``maybe_context_parallel`` hands each rank its
+zigzag shard of the step's buffers.
+
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item A13: TP/parallelism configs, the mesh and the collective-matmul ring,
-PowerSGD / hierarchical gradient compression, the collectives
-(``gather``, ``reduce``, ``pad_across_processes``,
-``split_between_processes``), the peer snapshots and ``recover``, rank
-loss and stragglers, context-parallel buffers and uneven inputs.  The
-donation audit and compile counter (``audit_step``, ``compile_events``)
-have no eager meaning and are not ported.
+item (A13a-A13h): tp / sp / ep / pp axes and the collective-matmul ring,
+PowerSGD / hierarchical gradient compression, the peer snapshots and
+``recover``, rank loss and stragglers; ``cpu_offload``, fp8 delayed
+scaling and checkpoints under a plan of several ranks.  The donation
+audit and compile counter (``audit_step``, ``compile_events``) have no
+eager meaning and are not ported.
 """
 
 from __future__ import annotations
@@ -88,10 +100,12 @@ from .data_loader import (
 )
 from .logging import get_logger
 from .ops import fp8 as _fp8
+from .ops import operations as _ops
 from .ops import streaming as _streaming
 from .ops.precision import DynamicLossScale, Policy, all_finite, fp8_autocast, get_policy
 from .ops.stochastic_rounding import GradientTransformation, flax_leaf_order
 from .optimizer import AcceleratedOptimizer, make_optimizer
+from .parallelism_config import ParallelismConfig
 from .resilience import faults as _faults
 from .resilience import guard as _guard
 from .resilience.goodput import GoodputTracker
@@ -178,13 +192,15 @@ def _not_ported(what: str, item: str):
 
 
 class Accelerator:
-    """One device (``"cuda"`` unless ``cpu=True`` or ``device=`` says
-    otherwise), mixed precision ``"no"``, ``"bf16"``, ``"fp16"`` or
-    ``"fp8"``, ZeRO-offload (``fsdp_plugin``), gradient accumulation, the
-    train and eval steps, and the loop around them: prepared data loaders
-    and schedules, verified checkpoints, the NaN guard, preemption,
-    goodput, trackers, the profiler and the training timeline.  The JAX
-    package's constructor, plus ``device``."""
+    """One device per process (``"cuda"`` unless ``cpu=True`` or
+    ``device=`` says otherwise) in a world of one or several processes,
+    mixed precision ``"no"``, ``"bf16"``, ``"fp16"`` or ``"fp8"``, the
+    sharding plan of a ``parallelism_config`` or ZeRO-offload
+    (``fsdp_plugin``), gradient accumulation, the train and eval steps,
+    and the loop around them: prepared data loaders and schedules,
+    verified checkpoints, the NaN guard, preemption, goodput, trackers,
+    the profiler and the training timeline.  The JAX package's
+    constructor, plus ``device``."""
 
     def __init__(self, device_placement: bool = True, split_batches: bool = False,
                  mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
@@ -201,24 +217,27 @@ class Accelerator:
                  step_scheduler_with_optimizer: bool = True,
                  kwargs_handlers: Optional[list] = None, device=None):
         if parallelism_config is not None:
-            raise _not_ported("parallelism_config (FSDP/TP/CP over several GPUs)", "A13")
+            if not isinstance(parallelism_config, ParallelismConfig):
+                raise TypeError(f"parallelism_config must be a ParallelismConfig, got "
+                                f"{type(parallelism_config).__name__}")
+            for axis, item in (("tp", "A13a"), ("sp", "A13b"), ("pp", "A13c"),
+                               ("ep", "A13d")):
+                if getattr(parallelism_config, f"{axis}_size") > 1:
+                    raise _not_ported(f"a {axis} axis of more than one rank", item)
         if fsdp_plugin is not None and not isinstance(fsdp_plugin,
                                                       FullyShardedDataParallelPlugin):
             raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallelPlugin, got "
                             f"{type(fsdp_plugin).__name__}")
-        if fsdp_plugin is not None and fsdp_plugin.sharding_strategy is not None:
-            raise _not_ported("sharding_strategy (a layout over several GPUs)", "A13")
         if fsdp_plugin is not None and fsdp_plugin.collective_matmul != "off":
-            raise _not_ported("collective_matmul (a tensor-parallel mesh)", "A13")
+            raise _not_ported("collective_matmul (a tensor-parallel mesh)", "A13a")
         self.fsdp_plugin = fsdp_plugin
         self.resilience_plugin = resilience_plugin or ResiliencePlugin()
         if self.resilience_plugin.peer_snapshot_every > 0:
-            raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13")
+            raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13f")
         self.grad_sync_kwargs = GradSyncKwargs()
         self.fp8_recipe: Optional[FP8RecipeKwargs] = None
         self.autocast_handler = AutocastKwargs()
         self.profile_kwargs = ProfileKwargs()
-        # stored: one process drives the card, so no group is initialised
         self.init_process_group_kwargs: Optional[InitProcessGroupKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, FP8RecipeKwargs):
@@ -230,8 +249,6 @@ class Accelerator:
             elif isinstance(handler, ProfileKwargs):
                 self.profile_kwargs = handler
             elif isinstance(handler, InitProcessGroupKwargs):
-                if (handler.num_processes or 1) > 1 or (handler.process_id or 0) > 0:
-                    raise _not_ported("a process group of several processes", "A13")
                 self.init_process_group_kwargs = handler
             else:
                 raise TypeError(f"unknown kwargs handler {type(handler).__name__}")
@@ -247,7 +264,15 @@ class Accelerator:
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
+                                      parallelism_config=parallelism_config,
+                                      init_process_group_kwargs=self.init_process_group_kwargs)
+        # a world (a config, or several processes) has its mesh from the
+        # start: every rank builds it here, together
+        self._parallel = (self.state.parallelism_config is not None
+                          or self.state.num_processes > 1)
+        if self._parallel:
+            self.state.mesh
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.policy: Policy = get_policy(self.state.mixed_precision)
         self.split_batches = split_batches
@@ -261,6 +286,9 @@ class Accelerator:
         # the offloaded step's last bytes and times (see the module doc)
         self.offload_log: dict = {}
         self._offload_buffers: dict = {}
+        # the sharding plan of the newest train state made in a world
+        # (parallel/fsdp.py), None outside one
+        self._dp_plan = None
 
         self._dataloaders: list = []
         self._optimizers: list = []
@@ -363,11 +391,16 @@ class Accelerator:
 
     @property
     def mesh(self):
-        raise _not_ported("the device mesh (a layout over several GPUs)", "A13")
+        """The ``DeviceMesh`` over the world's ranks (JAX :438): the
+        parallelism config's, or pure data parallelism over every rank."""
+        return self.state.mesh
 
     @property
-    def parallelism_config(self):
-        raise _not_ported("parallelism_config (FSDP/TP/CP over several GPUs)", "A13")
+    def parallelism_config(self) -> ParallelismConfig:
+        """The parallelism config (a default one over every rank once the
+        mesh exists, JAX :442)."""
+        self.state.mesh
+        return self.state.parallelism_config
 
     def on_main_process(self, function=None):
         return self.state.on_main_process(function)
@@ -382,7 +415,8 @@ class Accelerator:
         return self.state.on_last_process(function)
 
     def wait_for_everyone(self):
-        """One process: nothing to wait for."""
+        """A barrier over the world's processes."""
+        self.state.wait_for_everyone()
 
     def print(self, *args, **kwargs):
         """``print`` on the main process."""
@@ -398,41 +432,87 @@ class Accelerator:
         with self.state.local_main_process_first():
             yield
 
-    # -- collectives and the multi-GPU surface (ROADMAP item A13) ----------
+    # -- the collectives façade (JAX :510, :2046-2084) ----------------------
 
     def split_between_processes(self, inputs, apply_padding: bool = False):
-        raise _not_ported("split_between_processes (a world of several processes)", "A13")
+        """A context yielding this process's share of ``inputs`` (JAX :510)."""
+        return self.state.split_between_processes(inputs, apply_padding=apply_padding)
 
     def gather(self, tensor):
-        raise _not_ported("gather (a collective across GPUs)", "A13")
+        return _ops.gather(tensor)
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
-        raise _not_ported("reduce (a collective across GPUs)", "A13")
+        return _ops.reduce(tensor, reduction=reduction, scale=scale)
 
     def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
                              pad_first: bool = False):
-        raise _not_ported("pad_across_processes (a collective across GPUs)", "A13")
+        return _ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                         pad_first=pad_first)
 
     @property
     def dcn_sync(self):
-        raise _not_ported("the hierarchical gradient reduction", "A13")
+        raise _not_ported("the hierarchical gradient reduction", "A13e")
 
     def dcn_sync_accounting(self, params, step_compute_s: Optional[float] = None) -> dict:
-        raise _not_ported("the hierarchical gradient reduction's accounting", "A13")
+        raise _not_ported("the hierarchical gradient reduction's accounting", "A13e")
 
     def recover(self, *args, **kwargs):
-        raise _not_ported("recover (the rank-loss recovery ladder)", "A13")
+        raise _not_ported("recover (the rank-loss recovery ladder)", "A13f")
 
     @property
     def peer_snapshotter(self):
-        raise _not_ported("peer snapshots (buddy ranks)", "A13")
+        raise _not_ported("peer snapshots (buddy ranks)", "A13f")
 
+    @contextlib.contextmanager
     def maybe_context_parallel(self, buffers=None, buffer_seq_dims=None,
                                no_restore_buffers=None):
-        raise _not_ported("maybe_context_parallel (context parallelism)", "A13")
+        """Each step buffer as this rank's cp shard (JAX :2131): reordered
+        along its sequence dim into the zigzag layout
+        (``parallel/context_parallel.py``) and cut to the rank's
+        contiguous part, on the accelerator's device.  Yields the list;
+        at ``cp_size <= 1`` the buffers as they are.  Labels must be
+        pre-shifted before (``shift_labels``, ``-100`` past the end): after
+        the reorder the next position is no longer the next index.
+        ``no_restore_buffers`` is accepted for the signature: nothing is
+        mutated, so nothing is restored::
 
+            shift = torch.roll(ids, -1, 1); shift[:, -1] = -100
+            with acc.maybe_context_parallel([ids, shift], [1, 1]) as (ids_cp, shift_cp):
+                state, m = step(state, {"input_ids": ids_cp, "shift_labels": shift_cp})
+        """
+        if buffers is None:
+            yield []
+            return
+        pcfg = self.state.parallelism_config
+        if pcfg is None or pcfg.cp_size <= 1:
+            yield list(buffers)
+            return
+        from .parallel import collectives
+        from .parallel.context_parallel import zigzag_shard
+
+        cp = pcfg.cp_size
+        seq_dims = buffer_seq_dims or [1] * len(buffers)
+        if len(seq_dims) != len(buffers):
+            raise ValueError("buffer_seq_dims must match buffers in length")
+        rank = collectives.axis_index("cp", self.mesh)
+        out = []
+        for buf, dim in zip(buffers, seq_dims):
+            t = torch.as_tensor(buf)
+            local = torch.chunk(zigzag_shard(t, cp, axis=dim), cp, dim=dim)[rank]
+            out.append(local.contiguous().to(self.device))
+        yield out
+
+    @contextlib.contextmanager
     def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
-        raise _not_ported("join_uneven_inputs (uneven inputs across processes)", "A13")
+        """The prepared loaders even the batches out up front (``even_batches``),
+        so nothing needs joining; ``even_batches=False`` warns (JAX
+        :2120)."""
+        if even_batches is False:
+            import warnings
+
+            warnings.warn("join_uneven_inputs cannot retrofit uneven batches; use "
+                          "even_batches=True")
+        yield
 
     # -- prepare ---------------------------------------------------------
 
@@ -510,6 +590,7 @@ class Accelerator:
             transfer_retry_policy=self._transfer_retry_policy(),
             on_transfer_retry=self.goodput.record_retry,
             gradient_state=self.gradient_state,
+            parallelism_config=self.state.parallelism_config,
         )
         if self.timeline is not None:
             # the loader's data_wait / h2d_staging phases (data_loader.py)
@@ -574,9 +655,14 @@ class Accelerator:
         return t.detach().to("cpu").pin_memory()
 
     def device_params(self, params: dict) -> dict:
-        """Device copies of (possibly host-offloaded) params, for uses off
-        the train step (JAX :747); resident params come back as they
-        are."""
+        """Whole device copies of (possibly host-offloaded or sharded)
+        params, for uses off the train step (JAX :747); resident params
+        come back as they are.  A sharded train state's params are
+        gathered (every rank must call this together)."""
+        plan = self._dp_plan
+        if plan is not None and params.keys() == plan.layouts.keys() and any(
+                tuple(p.shape) != plan.layouts[n].shape for n, p in params.items()):
+            params = plan.gather_params(params)
         return {n: p if p.device.type == self.device.type else p.to(self.device)
                 for n, p in params.items()}
 
@@ -585,15 +671,19 @@ class Accelerator:
                            rng: Optional[torch.Generator] = None) -> TrainState:
         """The train state over ``params`` (a module — its own parameter
         tensors — or a name -> tensor dict), ordered as the JAX package
-        flattens its tree, with the optimizer state initialised on them,
+        flattens its tree, with the optimizer state initialised on them (in
+        a world, each rank's shards under the sharding plan:
+        ``parallel/fsdp.py``; a module's full copies of the sharded leaves
+        are released),
         the guard's counters under ``ResiliencePlugin(nan_guard=True)``, the
         carried accumulator under ``mode="across_steps"``, the loss scale
         under fp16 and the delayed-scaling metas under fp8.  Under
         ``cpu_offload`` the optimizer state (and with ``offload_params`` the
         stored params) are page-locked host copies; the module's device
         tensors then hold the compute copy each step fetches."""
-        if isinstance(params, nn.Module):
-            params = {n: p.detach() for n, p in params.named_parameters()}
+        module = params if isinstance(params, nn.Module) else None
+        if module is not None:
+            params = {n: p.detach() for n, p in module.named_parameters()}
         params = {n: params[n] for n in flax_leaf_order(params)}
         dev = self.device
         for name, p in params.items():
@@ -604,6 +694,23 @@ class Accelerator:
         accum = (self.gradient_state.num_steps > 1
                  and self.gradient_state.plugin.mode == "across_steps")
         offload_opt, offload_params = self._offload_flags()
+        plan = None
+        if self._parallel:
+            from .parallel.fsdp import DataParallelPlan, parallel_align
+
+            if offload_opt:
+                raise _not_ported("cpu_offload under a parallelism config", "A13h")
+            plan = DataParallelPlan(self.mesh, self.state.parallelism_config, self.fsdp_plugin,
+                                    params, align=parallel_align(self.fsdp_plugin))
+            if self.mixed_precision == "fp8" and plan.world > 1:
+                raise _not_ported("fp8 delayed scaling across several ranks", "A13h")
+            stored = plan.shard_params(params)
+            if module is not None:
+                for name, p in module.named_parameters():
+                    if stored.get(name) is not None and stored[name] is not params[name]:
+                        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            params = stored
+        self._dp_plan = plan
         fp8_state = None
         if self.mixed_precision == "fp8" and _fp8.fp8_delayed_enabled():
             recipe = self.fp8_recipe
@@ -622,7 +729,8 @@ class Accelerator:
             if offload_params:
                 params = host_params
         else:
-            opt_state = tx.init(list(params.values()))
+            opt_state = tx.init(plan.opt_params(params) if plan is not None
+                                else list(params.values()))
         return TrainState(
             step=0,
             params=params,
@@ -632,8 +740,9 @@ class Accelerator:
             tx=tx,
             guard_state=(_guard.init_guard_state(self.device)
                          if self.resilience_plugin.nan_guard else None),
-            grad_accum=([torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                         for p in params.values()] if accum else None),
+            grad_accum=([torch.zeros(plan.layouts[n].shape if plan is not None else p.shape,
+                                     dtype=torch.float32, device=dev)
+                         for n, p in params.items()] if accum else None),
             loss_scale=(DynamicLossScale(device=dev) if self.policy.needs_loss_scaling
                         else None),
             fp8_state=fp8_state,
@@ -662,10 +771,13 @@ class Accelerator:
         ``grad_norm`` as tensors; under fp16 also ``grads_finite`` and
         ``loss_scale``; with the NaN guard its three keys.  A step reads
         one finiteness flag back when the guard or fp16 is on, none
-        otherwise (the offloaded step waits on its copies besides)."""
+        otherwise (the offloaded step waits on its copies besides).  In a
+        world the step runs the sharding plan's collectives
+        (``parallel/fsdp.py``) and ``loss`` is the global token mean: each
+        rank's loss weighted by its share of the valid tokens, summed."""
         gsk = self.grad_sync_kwargs
         if gsk.compression or gsk.dcn_compression or gsk.hierarchical:
-            raise _not_ported("gradient compression / hierarchical reduction", "A13")
+            raise _not_ported("gradient compression / hierarchical reduction", "A13e")
         if not donate_state and self._offload_flags()[0]:
             raise ValueError("donate_state=False under cpu_offload: the offloaded state lives "
                              "in reused page-locked buffers, updated in place")
@@ -710,10 +822,13 @@ class Accelerator:
         guard_read: dict = {}
 
         def fetch_params(state: TrainState) -> dict:
-            """The params the forward reads: the stored ones, or under
-            ``offload_params`` their compute-width copies fetched into the
-            device buffers (cast on the host first where the widths differ:
-            only the compute copy crosses)."""
+            """The params the forward reads: the stored ones (gathered
+            whole under a sharding plan), or under ``offload_params`` their
+            compute-width copies fetched into the device buffers (cast on
+            the host first where the widths differ: only the compute copy
+            crosses)."""
+            if self._dp_plan is not None:
+                return self._dp_plan.gather_params(state.params)
             if offload_opt:
                 self.offload_log = {"h2d_bytes": 0}
             if not offload_params:
@@ -756,6 +871,9 @@ class Accelerator:
                 out = loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
+            weight = self._dp_plan.token_weight(batch) if self._dp_plan is not None else None
+            if weight is not None:
+                loss = loss * weight
             # the scalar loss lives in f32, so scaling it by 2^16 cannot overflow
             scaled = state.loss_scale.scale_loss(loss) if state.loss_scale is not None else loss
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
@@ -782,19 +900,26 @@ class Accelerator:
             return bool(finite), consecutive
 
         def apply_update(state: TrainState, grads: list, loss):
+            plan = self._dp_plan
+            if plan is not None:
+                grads = plan.reduce_grads(grads)
+                loss = plan.psum(loss)
             loss_scale = state.loss_scale
             flags = []
             metrics = {"loss": loss}
             if loss_scale is not None:
                 grads = loss_scale.unscale(grads)
                 grads_finite = all_finite(grads)
+                if plan is not None:
+                    grads_finite = plan.all_finite(grads_finite)
                 new_scale = loss_scale.update(grads_finite)
                 flags.append(grads_finite)
                 metrics.update(grads_finite=grads_finite, loss_scale=new_scale.scale)
                 state = state.replace(loss_scale=new_scale)
             gnorm = None
             if not gnorm_on_host:
-                gnorm = global_norm(grads)
+                gnorm = (plan.global_norm(grads, global_norm) if plan is not None
+                         else global_norm(grads))
                 if nan_guard:
                     flags.append(_guard.step_finite(loss, gnorm))
             elif nan_guard:
@@ -839,11 +964,21 @@ class Accelerator:
                         # in each grad's own width: an f32 scalar would
                         # promote a bf16 tree back to f32
                         grads = [g * clip.to(g.dtype) for g in grads]
-                    leaves = list(state.params.values())
-                    new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves)
-                    with torch.no_grad():
-                        for p, new in zip(leaves, new_leaves):
-                            p.copy_(new)
+                    if plan is not None:
+                        leaves = plan.opt_params(state.params)
+                        # a range's -sr salts take its whole leaf's size
+                        kw = ({"numels": plan.numels} if plan.any_sharded
+                              and "numels" in inspect.signature(state.tx.update).parameters
+                              else {})
+                        new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves,
+                                                              **kw)
+                        plan.write_back(state.params, new_leaves)
+                    else:
+                        leaves = list(state.params.values())
+                        new_leaves, new_opt = state.tx.update(grads, state.opt_state, leaves)
+                        with torch.no_grad():
+                            for p, new in zip(leaves, new_leaves):
+                                p.copy_(new)
                 state = state.replace(opt_state=new_opt)
             # skipped: params, the optimizer's tensors and its count stay as
             # they are.  The fp8 histories tick either way, on the weights
@@ -926,7 +1061,7 @@ class Accelerator:
                 elif ev.kind == "nan_grad":
                     batch = _faults.poison_batch(batch)
                 elif ev.kind in ("straggler", "rank_loss"):
-                    raise _not_ported(f"the {ev.kind!r} fault (it needs ranks)", "A13")
+                    raise _not_ported(f"the {ev.kind!r} fault (rank loss and stragglers)", "A13f")
             if not self._in_accumulate:
                 self.step_count += 1
                 self.goodput.record_step()
@@ -1167,13 +1302,16 @@ class Accelerator:
     # -- the NaN trigger (JAX :2099) ---------------------------------------
 
     def set_trigger(self):
-        """Raise the flag :meth:`check_trigger` reads (one process: no
-        reduction across ranks)."""
-        self.flag_tensor = torch.ones((), dtype=torch.int32)
+        """Raise the flag :meth:`check_trigger` reads."""
+        self.flag_tensor = torch.ones((), dtype=torch.int32, device=self.device)
 
     def check_trigger(self) -> bool:
-        """True once after :meth:`set_trigger`, which it resets."""
-        if self.flag_tensor is not None and int(self.flag_tensor) >= 1:
+        """True on every process once any process called
+        :meth:`set_trigger` (the flags summed across the world), which it
+        resets."""
+        flag = (self.flag_tensor if self.flag_tensor is not None
+                else torch.zeros((), dtype=torch.int32, device=self.device))
+        if int(_ops.reduce(flag, reduction="sum")) >= 1:
             self.flag_tensor = None
             return True
         return False
@@ -1281,28 +1419,29 @@ class Accelerator:
             tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
-        """Gather evaluation outputs (one process: the data itself), dropping
-        the duplicate tail samples a padded last batch added: on the data
+        """Gather evaluation outputs across processes (JAX :2049): tensor
+        trees with :meth:`gather`, anything else (or with
+        ``use_gather_object``) with ``gather_object``; then drop the
+        duplicate tail samples a padded last batch added: on the data
         loader's last batch only the ``remainder`` first rows are kept."""
         gs = self.gradient_state
+        leaves = _ops._leaves(input_data)
+        tensors = not use_gather_object and all(_ops.is_array_like(x) for x in leaves)
+        data = _ops.gather(input_data) if tensors else _ops.gather_object(input_data)
         if not (gs.end_of_dataloader and gs.remainder > 0):
-            return input_data
+            return data
 
         def drop(x):
-            return x[: gs.remainder] if isinstance(x, torch.Tensor) and x.dim() else x
+            return x[: gs.remainder] if x.ndim else x
 
         try:
-            if isinstance(input_data, dict):
-                return type(input_data)((k, drop(v)) for k, v in input_data.items())
-            if isinstance(input_data, (list, tuple)) and input_data and all(
-                    isinstance(x, torch.Tensor) for x in input_data):
-                return type(input_data)(drop(x) for x in input_data)
-            return drop(input_data) if isinstance(input_data, torch.Tensor) \
-                else input_data[: gs.remainder]
+            if tensors:
+                return _ops.recursively_apply(drop, data)
+            return data[: gs.remainder]
         except (TypeError, IndexError) as e:
             logger.warning("gather_for_metrics could not drop the %d duplicate tail samples "
                            "(%s); returning the full data.", gs.remainder, e)
-            return input_data
+            return data
 
     # -- checkpointing ---------------------------------------------------
 
@@ -1336,6 +1475,9 @@ class Accelerator:
         ``ProjectConfiguration``; ``async_save=True`` returns once the
         train state is snapshotted."""
         from .checkpointing import save_accelerator_state
+
+        if train_state is not None and self._dp_plan is not None and self._dp_plan.world > 1:
+            raise _not_ported("checkpoints of a train state across several ranks", "A13h")
 
         return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)
 
@@ -1408,8 +1550,8 @@ class Accelerator:
         return self._preemption is not None and self._preemption.requested
 
     def _agreed_preemption(self) -> bool:
-        """One process: the local flag (the JAX package agrees it across
-        ranks, ROADMAP item A13)."""
+        """The local flag (the JAX package agrees it across ranks: ROADMAP
+        item A13f)."""
         return self._preemption.requested
 
     def _preemption_exit(self, train_state=None):

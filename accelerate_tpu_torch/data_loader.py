@@ -1,5 +1,4 @@
-"""Data pipeline on one device (mirrors the single-process surface of
-``accelerate_tpu/data_loader.py``).
+"""Data pipeline (mirrors ``accelerate_tpu/data_loader.py``).
 
 The same sampler and sharding semantics as the JAX package —
 ``BatchSamplerShard`` (:244) index-level stride/split modes with
@@ -21,9 +20,15 @@ the step runs.  The staging runs under the bounded retry of
 ``resilience/retry.py`` with the ``transfer`` fault site inside each
 attempt.
 
-The mesh helpers (``batch_rows_by_device``, ``process_local_rows``,
-``shard_global_batch``) and the multi-process feed need ranks: ROADMAP
-item A13.
+In a world of several processes each process reads its own share:
+``BatchSamplerShard`` / ``IterableDatasetShard`` shard the index stream by
+the process group's rank, and the dispatcher has process 0 read each batch
+and broadcast it for every process to slice.  Under a parallelism config
+the processes of one data-parallel group (cp peers) read identical batches
+(the JAX package's rank remap, ``process_index // non_data_parallel_size``).
+The mesh helpers map a batch spec to row blocks by rank
+(``batch_rows_by_rank``, ``process_local_rows``, ``shard_global_batch``):
+one process drives one card, so a device of the JAX mesh is a rank.
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import native
+from .ops.operations import (
+    broadcast_object_list,
+    find_batch_size,
+    recursively_apply,
+    slice_tensors,
+)
 from .resilience.faults import maybe_fail_transfer
 from .resilience.retry import DEFAULT_POLICY, with_retries
 from .state import GradientState
@@ -448,6 +459,73 @@ class IterableDatasetShard:
 
 
 
+# ---------------------------------------------------------------------------
+# the rows of a global batch each rank feeds
+# ---------------------------------------------------------------------------
+
+
+def _layout(mesh) -> tuple[tuple, tuple]:
+    """``(names, shape)`` of a ``DeviceMesh`` or of a layout."""
+    if isinstance(mesh, tuple):
+        return tuple(mesh[0]), tuple(mesh[1])
+    return tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape)
+
+
+def batch_rows_by_rank(mesh, spec, shape) -> dict:
+    """``{rank: (start, stop)}``, the rows of the global batch dimension each
+    rank owns under ``spec`` (JAX ``batch_rows_by_device`` :435, a rank for
+    a device): dim 0's entry names the mesh axes the rows split over, in
+    blocks ranked row-major over those axes; ranks that differ only in
+    other axes own the same block.  ``mesh`` is a ``DeviceMesh`` or a
+    ``(names, shape)`` layout; rank r sits at the row-major position r of
+    the mesh shape."""
+    names, mesh_shape = _layout(mesh)
+    entry = spec[0] if len(spec) else None
+    axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+    sizes = dict(zip(names, mesh_shape))
+    blocks = int(np.prod([sizes[a] for a in axes])) if axes else 1
+    rows = shape[0]
+    if rows % blocks:
+        raise ValueError(f"global batch dim {rows} not divisible by the {blocks} row blocks "
+                         f"of spec {tuple(spec)}")
+    per = rows // blocks
+    out = {}
+    for rank in range(int(np.prod(mesh_shape))):
+        coords = dict(zip(names, np.unravel_index(rank, mesh_shape)))
+        block = 0
+        for a in axes:
+            block = block * sizes[a] + int(coords[a])
+        out[rank] = (block * per, (block + 1) * per)
+    return out
+
+
+def process_local_rows(mesh, spec, shape, process_index: Optional[int] = None) -> slice:
+    """The ``[start, stop)`` rows of the global batch that
+    ``process_index`` (this process's rank by default) feeds under
+    ``(mesh, spec)`` (JAX :471)."""
+    from .state import world
+
+    pid = world()[1] if process_index is None else process_index
+    rows = batch_rows_by_rank(mesh, spec, shape)
+    if pid not in rows:
+        raise ValueError(f"process {pid} owns no position of the mesh {_layout(mesh)}")
+    return slice(*rows[pid])
+
+
+def shard_global_batch(batch, mesh, spec):
+    """This process's rows of a global batch every process holds (JAX
+    :493): each tensor leaf sliced to :func:`process_local_rows` of its
+    shape; ``spec`` may be a callable of the leaf.  One process owns the
+    whole batch, so a stream consumed this way is the same at any process
+    count."""
+
+    def _take(x):
+        rows = process_local_rows(mesh, spec(x) if callable(spec) else spec, tuple(x.shape))
+        return x[rows.start:rows.stop]
+
+    return recursively_apply(_take, batch, error_on_other_type=True)
+
+
 class DataLoaderStateMixin:
     """end-of-dataloader / remainder signalling into ``GradientState``."""
 
@@ -559,10 +637,14 @@ class DataLoaderShard(DataLoaderStateMixin):
         transfer_retry_policy=None,
         on_transfer_retry=None,
         gradient_state: Optional[GradientState] = None,
+        _num_processes: int = 1,
+        _split_batches: bool = False,
     ):
         self.inner = inner
         self.device = torch.device(device) if device is not None else None
         self.even_batches = even_batches
+        # the global batch across processes: what the remainder counts in
+        self._num_processes = 1 if _split_batches else _num_processes
         self.rng_types = rng_types
         self.synchronized_generator = synchronized_generator
         self.skip_batches = skip_batches
@@ -652,12 +734,14 @@ class DataLoaderShard(DataLoaderStateMixin):
 
     @property
     def total_batch_size(self):
-        if self._loader_batch_size is not None:
-            return self._loader_batch_size
-        bs = getattr(self.inner, "batch_size", None)
+        """The global batch: the loader's batch times the processes (the
+        loader's batch itself under ``split_batches``)."""
+        bs = self._loader_batch_size
+        if bs is None:
+            bs = getattr(self.inner, "batch_size", None)
         if bs is None:
             bs = getattr(getattr(self.inner, "batch_sampler", None), "batch_size", None)
-        return bs
+        return bs * self._num_processes if bs is not None else None
 
 
 def _phase(timeline, name: str):
@@ -666,22 +750,24 @@ def _phase(timeline, name: str):
 
 
 def _slice_tensors(batch, sl: slice):
-    return pytree.tree_map(lambda x: x[sl] if isinstance(x, torch.Tensor) else x, batch)
+    return slice_tensors(batch, sl)
 
 
 def _find_batch_size(batch) -> int:
-    for x in pytree.tree_leaves(batch):
-        if isinstance(x, torch.Tensor) and x.dim():
-            return x.shape[0]
-    raise ValueError("cannot find the batch size of a batch without tensors")
+    size = find_batch_size(batch)
+    if size is None:
+        raise ValueError("cannot find the batch size of a batch without tensors")
+    return size
 
 
 class DataLoaderDispatcher(DataLoaderStateMixin):
     """Process 0 reads the data and every process slices its share (JAX
-    ``DataLoaderDispatcher`` :785): for iterable sources.  One process
-    here, so process 0's share is the whole batch (``slice_fn`` gets
-    ``slice(0, batch size)``); the lookahead, placement and resume are
-    :class:`DataLoaderShard`'s."""
+    ``DataLoaderDispatcher`` :785): for iterable sources.  In a world of
+    several processes, process 0 reads one global batch (``split_batches``)
+    or one batch per process, concatenated, and broadcasts it with the end
+    flag; process k slices rows ``[k * n / P, (k + 1) * n / P)``
+    (``slice_fn``).  One process slices the whole batch.  The lookahead,
+    placement and resume are :class:`DataLoaderShard`'s."""
 
     def __init__(
         self,
@@ -695,9 +781,13 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         on_transfer_retry=None,
         _non_blocking: bool = True,
         gradient_state: Optional[GradientState] = None,
+        num_processes: int = 1,
+        process_index: int = 0,
     ):
         self.inner = inner
         self.split_batches = split_batches
+        self.num_processes = num_processes
+        self.process_index = process_index
         self.device = torch.device(device) if device is not None else None
         self.skip_batches = skip_batches
         self.slice_fn = slice_fn or _slice_tensors
@@ -713,9 +803,31 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         # the Accelerator's TrainTimeline (data_wait / h2d_staging), when armed
         self._timeline = None
 
+    def _read(self, iterator):
+        """The next batch to slice, or None at the end: process 0 reads
+        and, in a world of several processes, broadcasts."""
+        if self.num_processes == 1:
+            return next(iterator, None)
+        payload = [None]
+        if self.process_index == 0:
+            if self.split_batches:
+                payload = [next(iterator, None)]
+            else:
+                parts = [next(iterator, None) for _ in range(self.num_processes)]
+                if all(p is not None for p in parts):
+                    parts = [_to_tensors(p) for p in parts]
+                    payload = [pytree.tree_map(lambda *xs: torch.cat(xs)
+                                               if isinstance(xs[0], torch.Tensor) else xs[0],
+                                               *parts)]
+        broadcast_object_list(payload, from_process=0)
+        return payload[0]
+
     def _prepare_local(self, batch):
         batch = _to_tensors(batch)
-        local = self.slice_fn(batch, slice(0, _find_batch_size(batch)))
+        whole = _find_batch_size(batch)
+        per = whole // self.num_processes
+        local = self.slice_fn(batch, slice(self.process_index * per,
+                                           (self.process_index + 1) * per))
 
         def _place():
             maybe_fail_transfer("transfer")
@@ -730,7 +842,7 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         self.begin()
         _set_epoch(self.inner, self.iteration)
         self._batches_yielded = self.skip_batches
-        main_iterator = iter(self.inner)
+        main_iterator = iter(self.inner) if self.process_index == 0 else None
         completed = False
 
         def source():
@@ -739,12 +851,12 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
                 t0 = time.perf_counter()
                 try:
                     with _phase(self._timeline, "data_wait"):
-                        batch = next(main_iterator)
-                except StopIteration:
-                    completed = True
-                    return
+                        batch = self._read(main_iterator)
                 finally:
                     self.data_wait_s += time.perf_counter() - t0
+                if batch is None:
+                    completed = True
+                    return
                 with _phase(self._timeline, "h2d_staging"):
                     staged = self._prepare_local(batch)
                 yield staged
@@ -765,14 +877,17 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
 
     @property
     def total_batch_size(self):
-        return self._loader_batch_size or getattr(self.inner, "batch_size", None)
+        bs = self._loader_batch_size or getattr(self.inner, "batch_size", None)
+        if bs is None:
+            return None
+        return bs if self.split_batches else bs * self.num_processes
 
 
 def prepare_data_loader(
     dataloader,
     device=None,
-    num_processes: int = 1,
-    process_index: int = 0,
+    num_processes: Optional[int] = None,
+    process_index: Optional[int] = None,
     split_batches: bool = False,
     put_on_device: bool = True,
     rng_types: Optional[list] = None,
@@ -787,14 +902,28 @@ def prepare_data_loader(
     transfer_retry_policy=None,
     on_transfer_retry=None,
     gradient_state: Optional[GradientState] = None,
+    parallelism_config=None,
 ):
     """Re-wrap a data loader (a ``torch.utils.data.DataLoader`` or any batch
     iterable) for sampler-level sharding and device placement (JAX
     ``prepare_data_loader`` :961).  ``num_processes`` / ``process_index``
-    shard the sampler's index batches (``BatchSamplerShard``); the port
-    feeds one device from one process, and the mesh arguments of the JAX
-    function are ROADMAP item A13.  ``device=None`` leaves batches on the
+    (the process group's size and rank by default) shard the sampler's
+    index batches (``BatchSamplerShard``), an iterable dataset's items
+    (``IterableDatasetShard``) or the dispatcher's broadcast batches; under
+    a ``parallelism_config`` with non-data-parallel axes the ranks of one
+    data-parallel group read the same batches (``process_index //
+    non_data_parallel_size``).  ``device=None`` leaves batches on the
     host."""
+    from .state import world
+
+    size, rank = world()
+    num_processes = size if num_processes is None else num_processes
+    process_index = rank if process_index is None else process_index
+    if parallelism_config is not None and parallelism_config.non_data_parallel_size > 1:
+        non_dp = parallelism_config.non_data_parallel_size
+        if num_processes % non_dp == 0 and non_dp <= num_processes:
+            process_index = process_index // non_dp
+            num_processes = num_processes // non_dp
     if dispatch_batches is None:
         dispatch_batches = (_is_torch_loader(dataloader)
                             and not hasattr(dataloader.dataset, "__getitem__")
@@ -806,6 +935,7 @@ def prepare_data_loader(
             _loader_batch_size=getattr(dataloader, "batch_size", None),
             transfer_retry_policy=transfer_retry_policy, on_transfer_retry=on_transfer_retry,
             _non_blocking=non_blocking, gradient_state=gradient_state,
+            num_processes=num_processes, process_index=process_index,
         )
 
     inner = dataloader
@@ -855,6 +985,8 @@ def prepare_data_loader(
         transfer_retry_policy=transfer_retry_policy,
         on_transfer_retry=on_transfer_retry,
         gradient_state=gradient_state,
+        _num_processes=num_processes,
+        _split_batches=split_batches,
     )
 
 

@@ -3,9 +3,9 @@
 
 The same call contract as the JAX package's logger —
 ``logger.info(msg, main_process_only=True)`` / ``in_order=True`` — over a
-stdlib logger.  The port drives one process and one device (multi-GPU
-worlds are ROADMAP item A13), so this process is rank 0 of a world of one:
-every record it is asked for is emitted once, at once.
+stdlib logger, in the process group's world: ``main_process_only`` emits on
+rank 0 alone, ``in_order`` on every rank in turn between barriers, and
+otherwise every rank emits at once (a world of one process emits once).
 """
 
 from __future__ import annotations
@@ -16,12 +16,32 @@ import os
 _LEVEL_ENV = "ACCELERATE_LOG_LEVEL"
 
 
+def _emission_turns(main_process_only: bool, in_order: bool):
+    """Yield once per moment this process emits the record (JAX :23)."""
+    import torch.distributed as dist
+
+    from .state import world as process_world
+
+    world, rank = process_world()
+    if main_process_only:
+        if rank == 0:
+            yield
+        return
+    if not in_order or world == 1:
+        yield
+        return
+    for turn in range(world):
+        if turn == rank:
+            yield
+        dist.barrier()
+
+
 class MultiProcessAdapter:
     """Process-aware façade over a stdlib logger.
 
     The standard level methods (``debug``/``info``/.../``critical``) take
     the JAX package's two extra keywords, ``main_process_only`` (default
-    True) and ``in_order``; in a world of one process both emit once.
+    True) and ``in_order``.
     ``warning_once`` deduplicates by message content per adapter instance.
     """
 
@@ -39,13 +59,14 @@ class MultiProcessAdapter:
         env_level = os.environ.get(_LEVEL_ENV)
         if env_level is not None and env_level.lstrip("-").isdigit() and int(env_level) >= 0:
             self.logger.setLevel(int(env_level))
-        kwargs.pop("main_process_only", None)
-        kwargs.pop("in_order", None)
+        main_process_only = kwargs.pop("main_process_only", True)
+        in_order = kwargs.pop("in_order", False)
         kwargs.setdefault("stacklevel", 3)
         if not self.logger.isEnabledFor(level):
             return
-        out_msg, out_kwargs = self.process(msg, dict(kwargs))
-        self.logger.log(level, out_msg, *args, **out_kwargs)
+        for _ in _emission_turns(main_process_only, in_order):
+            out_msg, out_kwargs = self.process(msg, dict(kwargs))
+            self.logger.log(level, out_msg, *args, **out_kwargs)
 
     def debug(self, msg, *args, **kwargs):
         self.log(logging.DEBUG, msg, *args, **kwargs)

@@ -90,7 +90,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    attn_implementation: str = "native"  # native | flash
+    attn_implementation: str = "native"  # native | flash | ring
     remat: bool = False
     # with remat: "full" recomputes everything, "dots" saves the matmul
     # outputs, "offload" keeps only the layer boundaries, on the host
@@ -105,11 +105,11 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.attn_implementation not in ("native", "flash"):
+        if self.attn_implementation not in ("native", "flash", "ring"):
             raise ValueError(
-                f"attn_implementation must be 'native' or 'flash', got "
-                f"{self.attn_implementation!r} (ring/ulysses are ROADMAP "
-                "item A13, slice 6)"
+                f"attn_implementation must be 'native', 'flash' or 'ring', got "
+                f"{self.attn_implementation!r} (ulysses sequence parallelism is ROADMAP "
+                "item A13b)"
             )
         if self.remat_policy not in ("full", "dots", "offload"):
             raise ValueError(
@@ -225,10 +225,13 @@ def get_attention_impl(name: str):
         return native_attention
     if name == "flash":
         return flash_attention
-    if name in ("ring", "ulysses"):
+    if name == "ring":
+        from ..parallel.context_parallel import ring_attention
+
+        return ring_attention
+    if name == "ulysses":
         raise NotImplementedError(
-            f"{name!r} attention is context / sequence parallelism, ROADMAP "
-            "item A13 (slice 6)"
+            "'ulysses' attention is sequence parallelism, ROADMAP item A13b"
         )
     raise ValueError(f"unknown attention implementation {name!r}")
 
@@ -974,6 +977,13 @@ class LlamaForCausalLM(nn.Module):
                 cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None,
                 adapter_ids=None, lora: Optional[dict] = None):
         b, t = input_ids.shape
+        if positions is None and cache is None and (
+                (attn_implementation or self.config.attn_implementation) == "ring"):
+            # this rank's shard of the ring's layout: rotary embeddings at
+            # the tokens' global positions, as the ring's causal mask
+            from ..parallel.context_parallel import ring_shard_positions
+
+            positions = ring_shard_positions(t, input_ids.device).expand(b, t)
         if positions is None:
             base = torch.arange(t, device=input_ids.device)
             if cache is not None:

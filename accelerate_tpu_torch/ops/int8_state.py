@@ -261,7 +261,7 @@ def lion_int8_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
             hyperparams={**_hyper(params, seed, lr=learning_rate, b1=b1, b2=b2,
                                   wd=weight_decay), **int8_state_consts(seed)})
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, numels=None):
         if params is None:
             raise ValueError("lion_int8_sr is a weight update: pass params")
         hp = state.hyperparams
@@ -269,7 +269,7 @@ def lion_int8_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
         base = _base_salt(count, hp["seed"])
         new_p, new_m, new_s = [], [], []
         for i, (g, p, mc, ms) in enumerate(zip(grads, params, state.mu, state.mu_scale)):
-            salt = _leaf_salt(base, i, p.numel())
+            salt = _leaf_salt(base, i, p.numel() if numels is None else numels[i])
 
             def leaf(g, p, mc, ms):
                 g32, p32 = g.float(), p.float()
@@ -315,7 +315,7 @@ def adamw_int8_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99
             hyperparams={**_hyper(params, seed, lr=learning_rate, b1=b1, b2=b2, eps=eps,
                                   wd=weight_decay), **int8_state_consts(seed)})
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, numels=None):
         if params is None:
             raise ValueError("adamw_int8_sr is a weight update: pass params")
         hp = state.hyperparams
@@ -326,7 +326,7 @@ def adamw_int8_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99
         new_p, new_m, new_ms, new_v, new_vs = [], [], [], [], []
         for i, (g, p, mc, ms, vc, vs) in enumerate(zip(grads, params, state.mu, state.mu_scale,
                                                        state.nu, state.nu_scale)):
-            salt = _leaf_salt(base, i, p.numel())
+            salt = _leaf_salt(base, i, p.numel() if numels is None else numels[i])
 
             def leaf(g, p, mc, ms, vc, vs):
                 g32, p32 = g.float(), p.float()

@@ -112,7 +112,10 @@ class GradientTransformation(NamedTuple):
     ``optax.apply_updates`` to add, ``update`` returns the new leaves
     themselves, which the caller copies into the params: the stock recipes
     in the params' dtypes (what ``apply_updates`` gives), the -sr recipes
-    as their stochastically rounded bf16 weights."""
+    as their stochastically rounded bf16 weights.  The -sr / -sr8
+    recipes' ``update`` also takes ``numels``, each leaf's whole size where
+    ``params`` holds ranges of the leaves (a sharded train state): the
+    salts key on it, so a range updates as its whole leaf would."""
 
     init: object
     update: object
@@ -154,7 +157,7 @@ def lion_bf16_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
                            hyperparams=_hyper(params, seed, lr=learning_rate, b1=b1, b2=b2,
                                               wd=weight_decay))
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, numels=None):
         if params is None:
             raise ValueError("lion_bf16_sr is a weight update: pass params")
         hp = state.hyperparams
@@ -166,8 +169,8 @@ def lion_bf16_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
             direction = torch.sign(hp["b1"] * m32 + hp["1-b1"] * g32)
             # with no decay the term is +-0, which leaves every bit as it is
             step = hp["lr"] * (direction + hp["wd"] * p32 if weight_decay else direction)
-            new_p.append(stochastic_round_to_bf16_hashed(
-                p32 - step, _leaf_salt(base, i, p.numel()), entropy=g32))
+            salt = _leaf_salt(base, i, p.numel() if numels is None else numels[i])
+            new_p.append(stochastic_round_to_bf16_hashed(p32 - step, salt, entropy=g32))
             new_m.append((hp["b2"] * m32 + hp["1-b2"] * g32).to(torch.bfloat16))
         return new_p, LionSRState(count, new_m, hp)
 
@@ -199,7 +202,7 @@ def adamw_bf16_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99
                             hyperparams=_hyper(params, seed, lr=learning_rate, b1=b1, b2=b2,
                                                eps=eps, wd=weight_decay))
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, numels=None):
         if params is None:
             raise ValueError("adamw_bf16_sr is a weight update: pass params")
         hp = state.hyperparams
@@ -215,7 +218,7 @@ def adamw_bf16_sr(learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.99
             p32 = p.float()
             step = hp["lr"] * ((m32 / bc1) / (torch.sqrt(v32 / bc2) + hp["eps"])
                                + hp["wd"] * p32)
-            salt = _leaf_salt(base, i, p.numel())
+            salt = _leaf_salt(base, i, p.numel() if numels is None else numels[i])
             new_p.append(stochastic_round_to_bf16_hashed(p32 - step, salt, entropy=g32))
             new_m.append(m32.to(torch.bfloat16))
             new_v.append(stochastic_round_to_bf16_hashed(v32, salt ^ _HASH["nu_salt"],

@@ -1,0 +1,222 @@
+"""The train step's data parallelism under a sharding plan: where the JAX
+step lets GSPMD insert the collectives its shardings imply, the port runs
+them by hand on plain local tensors.
+
+- At rest each rank holds its shard of every sharded parameter and of its
+  optimizer state (:class:`~.sharding.LeafLayout`: padded ranges of the
+  row-major flatten), the whole of the others.
+- :meth:`DataParallelPlan.gather_params`: the full parameters for the
+  forward (``all_gather_into_tensor`` over the parameter's axes), the
+  whole tree at once.
+- :meth:`DataParallelPlan.reduce_grads`: each gradient summed over the
+  data-parallel ranks (``dp_replicate`` x ``dp_shard`` x ``cp``):
+  reduce-scattered over its optimizer axes and all-reduced over the rest,
+  or all-reduced whole where the state is not sharded.
+- the update runs on each rank's optimizer range, the -sr / -sr8 salts
+  taking the whole leaf's size (:meth:`DataParallelPlan.numels`); a
+  parameter whose state is split finer than itself (the joint cp entry,
+  ZeRO-2's replicated parameters) is gathered back over the extra axes
+  (:meth:`DataParallelPlan.write_back`).
+- the global norm and the fp16 finiteness flag are reduced across ranks.
+
+A dimension of one rank runs no collective, so in a world of one process
+every step is the single-process step's, bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..parallelism_config import ParallelismConfig
+from . import collectives
+from .sharding import LeafLayout, leaf_layouts
+
+
+def _size(axes, mesh) -> int:
+    return collectives.axis_size(axes, mesh) if axes else 1
+
+
+class DataParallelPlan:
+    """The layouts of one train state's leaves over ``mesh`` and the
+    collectives of its step."""
+
+    def __init__(self, mesh, parallelism_config: ParallelismConfig, fsdp_plugin, params: dict,
+                 align: int = 1):
+        self.mesh = mesh
+        self.layouts: dict[str, LeafLayout] = leaf_layouts(params, mesh, parallelism_config,
+                                                           fsdp_plugin, align)
+        # the ranks whose gradients sum: every data-parallel axis and cp
+        self.dp_axes = tuple(a for a in parallelism_config.dp_cp_dim_names
+                             if collectives.axis_size(a, mesh) > 1)
+        self.world = _size(self.dp_axes, mesh)
+
+    @property
+    def any_sharded(self) -> bool:
+        return any(lay.sharded for lay in self.layouts.values())
+
+    @property
+    def numels(self) -> list:
+        return [lay.numel for lay in self.layouts.values()]
+
+    # -- the coordinates of this rank ------------------------------------------
+
+    def _coord(self, axes) -> int:
+        return collectives.axis_index(axes, self.mesh) if axes else 0
+
+    def _group(self, axes):
+        return collectives.group(axes, self.mesh) if axes else None
+
+    def _extra_axes(self, lay: LeafLayout) -> tuple:
+        return lay.opt_axes[len(lay.param_axes):]
+
+    # -- the layout at rest --------------------------------------------------------
+
+    def _flat_range(self, t: torch.Tensor, start: int, length: int) -> torch.Tensor:
+        """``t``'s flatten from ``start``, ``length`` elements, zero-padded
+        past its end (a new tensor)."""
+        flat = t.reshape(-1)
+        out = torch.zeros(length, dtype=t.dtype, device=t.device)
+        stop = min(start + length, flat.numel())
+        if stop > start:
+            out[:stop - start] = flat[start:stop]
+        return out
+
+    def shard_params(self, params: dict) -> dict:
+        """Each rank's parameters at rest: its range of each sharded
+        parameter, the others as they are."""
+        out = {}
+        for name, p in params.items():
+            lay = self.layouts[name]
+            if lay.param_ways > 1:
+                span = lay.chunk * lay.extra
+                out[name] = self._flat_range(p.detach(), self._coord(lay.param_axes) * span, span)
+            else:
+                out[name] = p
+        return out
+
+    def opt_params(self, params: dict) -> list:
+        """The parameter ranges the optimizer updates, in leaf order: views
+        into the stored shards where the state splits as the parameter
+        does or finer, padded copies of a whole parameter's range
+        (ZeRO-2)."""
+        leaves = []
+        for name, p in params.items():
+            lay = self.layouts[name]
+            if not lay.sharded:
+                leaves.append(p)
+            elif lay.param_ways > 1:
+                k = self._coord(self._extra_axes(lay))
+                leaves.append(p[k * lay.chunk:(k + 1) * lay.chunk])
+            else:
+                leaves.append(self._flat_range(p, self._coord(lay.opt_axes) * lay.chunk,
+                                               lay.chunk))
+        return leaves
+
+    # -- the step's collectives --------------------------------------------------
+
+    def gather_params(self, params: dict) -> dict:
+        """The full parameters (the stored tensors where whole)."""
+        full = {}
+        for name, p in params.items():
+            lay = self.layouts[name]
+            if lay.param_ways > 1:
+                flat = collectives.gather_flat(p, self._group(lay.param_axes))
+                full[name] = flat[:lay.numel].view(lay.shape)
+            else:
+                full[name] = p
+        return full
+
+    def reduce_grads(self, grads: list) -> list:
+        """Each gradient summed over the data-parallel ranks, as this rank's
+        optimizer range (or whole)."""
+        import torch.distributed as dist
+
+        out = []
+        for g, lay in zip(grads, self.layouts.values()):
+            rest = tuple(a for a in self.dp_axes if a not in lay.opt_axes)
+            if lay.sharded:
+                flat = self._flat_range(g, 0, lay.chunk * lay.opt_ways)
+                g = torch.empty(lay.chunk, dtype=flat.dtype, device=flat.device)
+                dist.reduce_scatter_tensor(g, flat, group=self._group(lay.opt_axes))
+            if _size(rest, self.mesh) > 1:
+                g = g.contiguous()
+                dist.all_reduce(g, group=self._group(rest))
+            out.append(g)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data-parallel ranks (``x`` in a world of
+        one)."""
+        if self.world == 1:
+            return x
+        return collectives.psum(x, self.dp_axes, self.mesh)
+
+    def all_finite(self, flag: torch.Tensor) -> torch.Tensor:
+        """A finiteness flag true on every rank or on none."""
+        if self.world == 1:
+            return flag
+        return collectives.pmin(flag.to(torch.int32), self.dp_axes, self.mesh).bool()
+
+    def global_norm(self, grads: list, local_norm) -> torch.Tensor:
+        """``sqrt(sum ||g||^2)`` over the whole reduced gradients: the
+        sharded ranges' squares summed over their optimizer axes.
+        ``local_norm`` is the single-process norm, used as it is when no
+        leaf is sharded."""
+        if not self.any_sharded:
+            return local_norm(grads)
+        groups: dict = {}
+        for g, lay in zip(grads, self.layouts.values()):
+            sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+            groups.setdefault(lay.opt_axes if lay.sharded else (), []).append(sq)
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for axes, squares in groups.items():
+            part = torch.stack(squares).sum()
+            total = total + (collectives.psum(part, axes, self.mesh) if axes else part)
+        return torch.sqrt(total)
+
+    def write_back(self, params: dict, new_leaves: list) -> None:
+        """The update's new ranges into the stored parameters, gathered over
+        the axes the state splits finer than the parameter."""
+        with torch.no_grad():
+            for (name, p), new in zip(params.items(), new_leaves):
+                lay = self.layouts[name]
+                if not lay.sharded:
+                    p.copy_(new)
+                    continue
+                extra = self._extra_axes(lay)
+                if lay.param_ways > 1:
+                    k = self._coord(extra)
+                    p[k * lay.chunk:(k + 1) * lay.chunk].copy_(new)
+                    if extra:
+                        p.copy_(collectives.gather_flat(p[k * lay.chunk:(k + 1) * lay.chunk],
+                                                        self._group(extra)))
+                else:
+                    flat = collectives.gather_flat(new, self._group(lay.opt_axes))
+                    p.copy_(flat[:lay.numel].view(lay.shape))
+
+    def token_weight(self, batch):
+        """This rank's share of the global token mean: its valid-token
+        count over the world's (labels ``!= -100``: ``shift_labels``, or
+        ``labels`` past the first position), or ``1 / world`` for a batch
+        without labels.  None in a world of one."""
+        if self.world == 1:
+            return None
+        labels = None
+        if isinstance(batch, dict):
+            if "shift_labels" in batch:
+                labels = batch["shift_labels"]
+            elif "labels" in batch:
+                labels = batch["labels"][..., 1:]
+        if labels is None:
+            return 1.0 / self.world
+        count = (labels != -100).sum().to(torch.float32)
+        total = collectives.psum(count, self.dp_axes, self.mesh)
+        return count / torch.clamp(total, min=1.0)
+
+
+def parallel_align(fsdp_plugin) -> int:
+    """The range alignment: the -sr8 recipes' scale block (the plugin's, or
+    their default), so no block straddles two ranks."""
+    from ..ops.int8_state import DEFAULT_BLOCK_SIZE
+
+    return fsdp_plugin.int8_state_block_size if fsdp_plugin is not None else DEFAULT_BLOCK_SIZE

@@ -1,0 +1,352 @@
+"""The parameter-sharding plan: FSDP / ZeRO / HSDP as a spec per leaf
+(mirrors ``accelerate_tpu/parallel/sharding.py``).
+
+The plan is the JAX package's, decision for decision: which mesh axes
+shard the parameters under a strategy (:func:`param_fsdp_axes`, cp
+excluded), which dimension of each leaf they split (:func:`_spec_for_leaf`:
+the largest free dimension the shard count divides, never below the tile,
+nothing under ``min_weight_size``), and the optimizer state's plan, whose
+mirrors of a parameter take the joint ``(dp_shard, cp)`` entry
+(:func:`make_opt_state_sharding_plan`).  Leaves are keyed by the port's
+parameter names and decided on the JAX package's layout of each leaf: a
+JAX kernel is ``[in, out]`` where the port's weight is ``[out, in]`` (a
+scanned stack's ``[L, in, out]`` against ``[L, out, in]``), so the rule
+runs on the JAX shape and the spec comes back with its last two entries
+swapped (``models/hf_interop.py:hf_llama_tensor_map``).  Names the Llama
+key map does not know (a user's own tree) keep their layout.
+
+The train step lays each sharded leaf out as equal contiguous ranges of
+its row-major flatten (:class:`LeafLayout`): the -sr8 scale blocks run
+over that flatten and the stochastic-rounding salts take the whole leaf's
+size, so a rank's range updates bitwise as the whole leaf would.  The plan
+says how many ways a leaf splits and over which axes; a range holds the
+elements of one shard (a leaf the plan splits on its first dimension gets
+exactly that shard).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import re
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from ..models.hf_interop import hf_llama_key_map
+from ..parallelism_config import ParallelismConfig, PartitionSpec
+from ..utils.dataclasses import FullyShardedDataParallelPlugin, ShardingStrategy
+from .collectives import mesh_sizes
+
+logger = logging.getLogger(__name__)
+
+
+def path_str(name: str) -> str:
+    """The JAX param path of a port parameter name, ``/``-joined
+    (``model.layers.0.self_attn.q_proj.weight`` ->
+    ``layers_0/self_attn/q_proj/kernel``); other names with ``.`` as
+    ``/``."""
+    path = hf_llama_key_map(name) or name
+    if path.startswith("params."):
+        path = path[len("params."):]
+    return path.replace(".", "/")
+
+
+def _transposed(path: str, ndim: int) -> bool:
+    """Whether the port's layout of the leaf is the JAX one with the last
+    two axes swapped (a dense kernel)."""
+    return path.endswith("/kernel") and ndim in (2, 3)
+
+
+def _swap(seq, path: str):
+    seq = list(seq)
+    if _transposed(path, len(seq)):
+        seq[-1], seq[-2] = seq[-2], seq[-1]
+    return seq
+
+
+def _axis_size(sizes: dict, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    return size
+
+
+def _spec_for_leaf(path: str, shape: tuple, sizes: dict, fsdp_axes: tuple,
+                   min_weight_size: int, tp_rules: Sequence) -> list:
+    """The JAX rule on the JAX layout's ``shape``: tp rules first, then the
+    largest free dimension the fsdp shard count divides whose shard keeps
+    a tile (128 on the last dimension, 8 elsewhere), for leaves of at least
+    ``min_weight_size`` elements."""
+    ndim = len(shape)
+    spec: list = [None] * ndim
+    offset = 1 if "layers_scan" in path else 0
+    for pattern, rule_spec in tp_rules:
+        if re.search(pattern, path):
+            for d, entry in enumerate(rule_spec):
+                d += offset
+                if d >= ndim or entry is None:
+                    continue
+                size = _axis_size(sizes, entry)
+                if size > 1 and shape[d] % size == 0:
+                    spec[d] = entry
+                elif size > 1:
+                    logger.warning(
+                        "TP rule %r wants to shard dim %d of %s %s but %d %% %d != 0; replicating",
+                        pattern, d, path, shape, shape[d], size,
+                    )
+            break
+    fsdp_size = _axis_size(sizes, fsdp_axes)
+    if fsdp_size > 1 and math.prod(shape) >= min_weight_size:
+        def _tile_ok(d: int) -> bool:
+            return shape[d] // fsdp_size >= (128 if d == ndim - 1 else 8)
+
+        candidates = sorted(
+            (d for d in range(ndim)
+             if spec[d] is None and shape[d] % fsdp_size == 0 and _tile_ok(d)),
+            key=lambda d: shape[d], reverse=True)
+        if candidates:
+            spec[candidates[0]] = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+    return spec
+
+
+def resolve_sharding_strategy(fsdp_plugin: Optional[FullyShardedDataParallelPlugin],
+                              parallelism_config: Optional[ParallelismConfig]) -> ShardingStrategy:
+    """An explicit plugin's strategy; else FULL_SHARD when ``dp_shard`` is
+    non-trivial, NO_SHARD otherwise."""
+    if fsdp_plugin is not None:
+        return fsdp_plugin.sharding_strategy
+    cfg = parallelism_config or ParallelismConfig()
+    return ShardingStrategy.FULL_SHARD if cfg.dp_shard_size > 1 else ShardingStrategy.NO_SHARD
+
+
+def param_fsdp_axes(mesh, cfg: ParallelismConfig, strategy: ShardingStrategy) -> tuple:
+    """The mesh axes parameters shard over under ``strategy``: the fsdp
+    axes under FULL / HYBRID shard, cp excluded (the JAX ring keeps
+    parameters cp-replicated; the optimizer state takes the joint axes);
+    none under NO_SHARD / SHARD_GRAD_OP.  ``mesh`` is a ``DeviceMesh`` or
+    a ``(names, shape)`` layout."""
+    if strategy not in (ShardingStrategy.FULL_SHARD, ShardingStrategy.HYBRID_SHARD):
+        return ()
+    sizes = mesh_sizes(mesh)
+    fsdp_axes = cfg.fsdp_dim_names or (("dp_shard",) if sizes.get("dp_shard", 1) > 1 else ())
+    return tuple(a for a in fsdp_axes if a != "cp" and sizes.get(a, 1) > 1)
+
+
+def _shape(leaf) -> tuple:
+    if isinstance(leaf, (tuple, list)):
+        return tuple(int(x) for x in leaf)
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+
+
+def make_sharding_plan(params: dict, mesh, parallelism_config: Optional[ParallelismConfig] = None,
+                       fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+                       tp_rules: Optional[Sequence] = None) -> dict:
+    """``{name: PartitionSpec}`` in the port's layout for a name -> leaf
+    dict (tensors, ``meta`` tensors or shapes: nothing is read but
+    shapes)."""
+    cfg = parallelism_config or ParallelismConfig()
+    sizes = mesh_sizes(mesh)
+    tp_rules = list(tp_rules or [])
+    strategy = resolve_sharding_strategy(fsdp_plugin, cfg)
+    min_size = fsdp_plugin.min_weight_size if fsdp_plugin is not None else 2**12
+    fsdp_axes = tuple(param_fsdp_axes(mesh, cfg, strategy))
+    plan = {}
+    for name, leaf in params.items():
+        shape = _shape(leaf)
+        if not shape:
+            plan[name] = PartitionSpec()
+            continue
+        path = path_str(name)
+        spec = _spec_for_leaf(path, tuple(_swap(shape, path)), sizes, fsdp_axes, min_size,
+                              tp_rules)
+        plan[name] = PartitionSpec(*_swap(spec, path))
+    return plan
+
+
+def _opt_axes(cfg: ParallelismConfig, sizes: dict, plugin) -> tuple:
+    shard_opt = plugin is None or plugin.sharding_strategy != ShardingStrategy.NO_SHARD
+    if not shard_opt:
+        return ()
+    return cfg.fsdp_dim_names or (("dp_shard",) if sizes.get("dp_shard", 1) > 1 else ())
+
+
+def _mirror_spec(path: str, jax_shape: tuple, jax_param_spec: list, sizes: dict,
+                 fsdp_axes: tuple, min_size: int) -> list:
+    """The JAX optimizer-state rule for a leaf mirroring a parameter, on
+    the JAX layout: the parameter's spec with its fsdp entry upgraded to
+    the joint axes where they divide, or, for an unsharded parameter, the
+    leaf rule over the joint axes."""
+    param_axes = tuple(a for a in fsdp_axes if a != "cp")
+    param_entry = (param_axes if len(param_axes) > 1 else param_axes[0]) if param_axes else None
+    joint_entry = (tuple(fsdp_axes) if len(fsdp_axes) > 1 else fsdp_axes[0]) if fsdp_axes else None
+    joint_size = _axis_size(sizes, fsdp_axes)
+    if jax_param_spec and any(s is not None for s in jax_param_spec):
+        spec = list(jax_param_spec)
+        if joint_entry is not None and joint_entry != param_entry:
+            for d, entry in enumerate(spec):
+                if entry == param_entry and jax_shape[d] % joint_size == 0:
+                    spec[d] = joint_entry
+        return spec
+    return _spec_for_leaf(path, jax_shape, sizes, fsdp_axes, min_size, [])
+
+
+def make_opt_state_sharding_plan(opt_state_shapes: dict, params_plan: dict, mesh,
+                                 parallelism_config: Optional[ParallelismConfig] = None,
+                                 fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None
+                                 ) -> dict:
+    """The optimizer state's plan (the ZeRO-1/2 axis): ``opt_state_shapes``
+    maps ``"<field>/<param name>"`` (a leaf of a per-parameter field, as
+    :func:`opt_state_shapes` names them) or ``"<field>"`` to a shape.  A
+    leaf of a parameter's shape mirrors it (JAX: the parameter's path is a
+    suffix and its spec fits); others take the leaf rule over the state
+    axes; 0-d leaves replicate."""
+    cfg = parallelism_config or ParallelismConfig()
+    sizes = mesh_sizes(mesh)
+    min_size = fsdp_plugin.min_weight_size if fsdp_plugin is not None else 2**12
+    fsdp_axes = tuple(_opt_axes(cfg, sizes, fsdp_plugin))
+    plan = {}
+    for key, leaf in opt_state_shapes.items():
+        shape = _shape(leaf)
+        name = key.split("/", 1)[1] if "/" in key else None
+        if not shape:
+            plan[key] = PartitionSpec()
+        elif name in params_plan and len(params_plan[name]) <= len(shape):
+            path = path_str(name)
+            spec = _mirror_spec(path, tuple(_swap(shape, path)), _swap(params_plan[name], path),
+                                sizes, fsdp_axes, min_size)
+            plan[key] = PartitionSpec(*_swap(spec, path))
+        else:
+            plan[key] = PartitionSpec(*_spec_for_leaf(key, shape, sizes, fsdp_axes, min_size, []))
+    return plan
+
+
+def opt_state_shapes(opt_state, names: Sequence[str]) -> dict:
+    """``{"<field>/<name>": shape}`` of a NamedTuple optimizer state whose
+    list fields hold one tensor per parameter (``names`` in the state's
+    order), and ``{"<field>": ()}`` of its counters; its hyperparameters
+    are not state the plan lays out."""
+    out = {}
+    for field, value in zip(opt_state._fields, opt_state):
+        if isinstance(value, list) and len(value) == len(names):
+            out.update({f"{field}/{n}": tuple(t.shape) for n, t in zip(names, value)})
+        elif not isinstance(value, dict):
+            out[field] = tuple(getattr(value, "shape", ()))
+    return out
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec splits over, in order (one entry at most is
+    set by the FSDP rule)."""
+    axes: list = []
+    for entry in spec:
+        if entry is None:
+            continue
+        axes.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(axes)
+
+
+def plan_bytes_per_device(shapes_and_dtypes: dict, plan: dict, mesh) -> int:
+    """Bytes one rank holds of a ``{name: (shape, dtype)}`` tree (or of
+    tensors) under ``plan``: each leaf's bytes over its spec's shard count,
+    rounded up."""
+    import torch
+
+    sizes = mesh_sizes(mesh)
+    total = 0
+    for name, leaf in shapes_and_dtypes.items():
+        shape, dtype = (leaf if isinstance(leaf, tuple) else (tuple(leaf.shape), leaf.dtype))
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        div = 1
+        for entry in plan[name]:
+            if entry is not None:
+                div *= _axis_size(sizes, entry)
+        total += -(-n // div)
+    return total
+
+
+# The Megatron column / row layout of a transformer block, on the JAX
+# layout's paths and dimensions (the JAX package's table, as data; a tp
+# axis of more than one rank is ROADMAP item A13a, with the collective
+# matmul)
+TRANSFORMER_TP_RULES: list = [
+    (r"(embed_tokens|embedding|wte|word_embeddings)/embedding$", PartitionSpec("tp", None)),
+    (r"(q_proj|k_proj|v_proj|query|key|value|wq|wk|wv|in_proj|qkv)/kernel$", PartitionSpec(None, "tp")),
+    (r"(o_proj|out_proj|wo|dense(?!_4h)|attn_out)/kernel$", PartitionSpec("tp", None)),
+    (r"(gate_proj|up_proj|wi|wi_gate|wi_up|w1|w3|fc1|dense_h_to_4h|c_fc)/kernel$", PartitionSpec(None, "tp")),
+    (r"(down_proj|wo_mlp|w2|fc2|dense_4h_to_h|c_proj)/kernel$", PartitionSpec("tp", None)),
+    (r"(lm_head|output|score)/kernel$", PartitionSpec(None, "tp")),
+]
+
+
+def get_tp_rules(plan: str = "auto"):
+    if plan in ("auto", "transformer"):
+        return TRANSFORMER_TP_RULES
+    if plan in ("none", None):
+        return []
+    if plan in ("moe", "mixtral"):
+        raise NotImplementedError("the MoE tp rules come with expert parallelism "
+                                  "(ROADMAP item A13d)")
+    raise ValueError(f"unknown tp plan {plan!r}")
+
+
+# ---------------------------------------------------------------------------
+# the train step's layout of a leaf
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LeafLayout:
+    """How one leaf lies across the ranks in the train step.  The
+    parameter is split over ``param_axes`` (empty: whole on every rank) and
+    its optimizer state over ``opt_axes``, which extend ``param_axes`` (the
+    joint cp entry, or ZeRO-2's dp_shard).  Both split the row-major
+    flatten in ranges of ``chunk`` elements per optimizer shard (a multiple
+    of ``align``, the -sr8 scale block), zero-padded past ``numel``; a
+    parameter shard spans ``extra`` consecutive optimizer ranges."""
+
+    shape: tuple
+    numel: int
+    param_axes: tuple
+    opt_axes: tuple
+    param_ways: int
+    opt_ways: int
+    chunk: int
+
+    @property
+    def extra(self) -> int:
+        return self.opt_ways // self.param_ways
+
+    @property
+    def sharded(self) -> bool:
+        return self.opt_ways > 1
+
+
+def leaf_layouts(params: dict, mesh, parallelism_config: ParallelismConfig,
+                 fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+                 align: int = 1) -> dict:
+    """``{name: LeafLayout}`` from the parameter plan and the optimizer
+    state's plan for a mirror of each parameter."""
+    sizes = mesh_sizes(mesh)
+    plan = make_sharding_plan(params, mesh, parallelism_config, fsdp_plugin)
+    mirrors = {f"mu/{n}": _shape(p) for n, p in params.items()}
+    opt_plan = make_opt_state_sharding_plan(mirrors, plan, mesh, parallelism_config,
+                                            fsdp_plugin)
+    out = {}
+    for name, leaf in params.items():
+        shape = _shape(leaf)
+        p_axes = spec_axes(plan[name])
+        o_axes = spec_axes(opt_plan[f"mu/{name}"]) if shape else ()
+        if o_axes[:len(p_axes)] != p_axes:
+            raise ValueError(f"{name}: optimizer axes {o_axes} do not extend the parameter's "
+                             f"{p_axes}")
+        numel = math.prod(shape)
+        o_ways = _axis_size(sizes, o_axes) if o_axes else 1
+        chunk = -(-numel // (o_ways * align)) * align if o_ways > 1 else numel
+        out[name] = LeafLayout(shape=shape, numel=numel, param_axes=p_axes, opt_axes=o_axes,
+                               param_ways=_axis_size(sizes, p_axes) if p_axes else 1,
+                               opt_ways=o_ways, chunk=chunk)
+    return out

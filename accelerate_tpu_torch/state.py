@@ -1,24 +1,47 @@
-"""Process, precision and accumulation state (mirrors the single-device
-parts of ``accelerate_tpu/state.py``: ``PartialState`` :100,
-``AcceleratorState`` :308, ``GradientState`` :433).
+"""Process, precision and accumulation state (mirrors
+``accelerate_tpu/state.py``: ``PartialState`` :100, ``AcceleratorState``
+:308, ``GradientState`` :433).
+
+One process drives one card.  A world of several processes is a
+``torch.distributed`` process group, initialised the way the JAX package
+initialises ``jax.distributed`` (JAX :47-97): from an
+``InitProcessGroupKwargs`` (``coordinator_address``, ``num_processes``,
+``process_id``, ``timeout``), else from the JAX package's environment
+contract (``ACCELERATE_COORDINATOR_ADDRESS`` / ``ACCELERATE_NUM_PROCESSES``
+/ ``ACCELERATE_PROCESS_ID``), else from torchrun's (``RANK`` /
+``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``).  A
+group the caller already initialised is adopted as it is.  The backend is
+NCCL on the card and gloo for ``cpu=True``; a failed initialisation
+raises.  A world of several processes is ``DistributedType.MULTI_HOST``
+(the JAX package's name for a multi-process world); one process stays
+``NO``.
 
 Plain objects, each owned by the :class:`~..accelerator.Accelerator` that
-made it: two accelerators in one process keep their own device, mixed
-precision and accumulation steps.  (The JAX package's are process-wide
-singletons, because its process belongs to a mesh; one process drives one
-device here, and multi-GPU worlds are ROADMAP item A13.)
+made it (the JAX package's are process-wide singletons); the process group
+and the newest mesh are the process's (:func:`ambient_mesh`).
 """
 
 from __future__ import annotations
 
 import builtins
+import math
+import os
 from contextlib import contextmanager
+from datetime import timedelta
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
+import torch
+
 from .logging import get_logger
 from .ops.precision import fp8_hardware_supported, get_policy
-from .utils.dataclasses import DistributedType, GradientAccumulationPlugin, parse_flag_from_env
+from .utils.dataclasses import (
+    DistributedType,
+    GradientAccumulationPlugin,
+    InitProcessGroupKwargs,
+    parse_flag_from_env,
+)
 from .utils.device import resolve_device
 
 logger = get_logger(__name__)
@@ -28,32 +51,151 @@ _accelerator_state_built = False
 
 MIXED_PRECISION_TYPES = ("no", "fp16", "bf16", "fp8")
 
+# the mesh and parallelism config of the newest AcceleratorState that built
+# one: what the config-name entry points (models.llama's "ring"
+# attention, parallel.collectives without a mesh) run on
+_AMBIENT: dict = {"mesh": None, "config": None}
+
+
+def ambient_mesh():
+    """``(mesh, parallelism_config)`` of the newest accelerator state that
+    built a mesh in this process, ``(None, None)`` before one."""
+    return _AMBIENT["mesh"], _AMBIENT["config"]
+
+
+def world() -> tuple[int, int]:
+    """``(num_processes, process_index)`` of the process group, ``(1, 0)``
+    without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _init_method(address: str) -> str:
+    """A coordinator address as an init method: ``host:port`` becomes
+    ``tcp://host:port``; ``tcp://``, ``file://`` and ``env://`` pass."""
+    return address if "://" in address else f"tcp://{address}"
+
+
+def _world_request(kwargs: Optional[InitProcessGroupKwargs]):
+    """``(init_method, world_size, rank)`` the caller asks for, or None for
+    one process: the kwargs first, then the JAX package's environment
+    contract, then torchrun's."""
+    env = os.environ
+    if kwargs is not None and (kwargs.coordinator_address or (kwargs.num_processes or 1) > 1):
+        if not kwargs.coordinator_address:
+            raise ValueError(
+                f"InitProcessGroupKwargs(num_processes={kwargs.num_processes}) needs a "
+                "coordinator_address (host:port, or a file:// init method)")
+        world = kwargs.num_processes or int(env.get("ACCELERATE_NUM_PROCESSES", "1"))
+        rank = (kwargs.process_id if kwargs.process_id is not None
+                else int(env.get("ACCELERATE_PROCESS_ID", "0")))
+        return _init_method(kwargs.coordinator_address), world, rank
+    if env.get("ACCELERATE_COORDINATOR_ADDRESS"):
+        world = int(env.get("ACCELERATE_NUM_PROCESSES", "1"))
+        rank = int(env.get("ACCELERATE_PROCESS_ID", "-1"))
+        if world > 1 and rank < 0:
+            raise ValueError("ACCELERATE_COORDINATOR_ADDRESS with several processes needs "
+                             "ACCELERATE_PROCESS_ID")
+        return _init_method(env["ACCELERATE_COORDINATOR_ADDRESS"]), world, max(rank, 0)
+    if env.get("WORLD_SIZE") and env.get("RANK") and env.get("MASTER_ADDR"):
+        return "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+    return None
+
+
+def _timeout(kwargs: Optional[InitProcessGroupKwargs]) -> Optional[timedelta]:
+    if kwargs is None:
+        return None
+    if kwargs.initialization_timeout:
+        return timedelta(seconds=kwargs.initialization_timeout)
+    return kwargs.timeout
+
+
+def _init_world(kwargs, backend: str, world_of_one: bool) -> None:
+    """Initialise the process group the caller asks for (see the module
+    doc); with ``world_of_one`` and no request, a group of this one
+    process over an in-memory store, so a parallelism config has a mesh."""
+    import torch.distributed as dist
+
+    request = _world_request(kwargs)
+    if dist.is_initialized():
+        if request is not None and request[1] != dist.get_world_size():
+            raise ValueError(f"a world of {request[1]} processes was asked for inside a "
+                             f"process group of {dist.get_world_size()}")
+        return
+    timeout = _timeout(kwargs)
+    extra = {"timeout": timeout} if timeout is not None else {}
+    if request is not None and request[1] > 1:
+        method, world, rank = request
+        if not 0 <= rank < world:
+            raise ValueError(f"process rank {rank} outside a world of {world}")
+        dist.init_process_group(backend, init_method=method, world_size=world, rank=rank,
+                                **extra)
+    elif world_of_one or request is not None:
+        dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0, **extra)
+
 
 class PartialState:
-    """The process and its device: ``device`` (``"cuda"`` unless the caller
-    passes ``cpu=True`` or a device), one process, index 0, and the JAX
-    package's process helpers (JAX :174-293) with their one-process
-    meaning: every ``on_*`` decorator of process 0 runs its function, the
-    barriers return at once, ``print`` prints."""
+    """The process, its device and its world: ``device`` (``"cuda"`` unless
+    the caller passes ``cpu=True`` or a device; in a world of several
+    processes on the card, ``cuda:<local rank>``), ``num_processes``,
+    ``process_index``, ``local_process_index``, and the JAX package's
+    process helpers (JAX :174-306): the ``on_*`` decorators, the barrier
+    ``wait_for_everyone``, ``main_process_first``,
+    ``split_between_processes``, ``print`` on the main process and
+    ``destroy_process_group``.  ``world_of_one=True`` makes a group of this
+    one process when no world is asked for (an accelerator with a
+    parallelism config needs a mesh)."""
 
-    num_processes = 1
-    process_index = 0
-    local_process_index = 0
-    is_main_process = True
-    is_local_main_process = True
-    is_last_process = True
-    use_distributed = False
-    distributed_type = DistributedType.NO
+    def __init__(self, cpu: bool = False, device=None,
+                 init_process_group_kwargs: Optional[InitProcessGroupKwargs] = None,
+                 world_of_one: bool = False):
+        import torch.distributed as dist
 
-    def __init__(self, cpu: bool = False, device=None):
-        self.device = resolve_device("cpu" if cpu else device)
+        dev = resolve_device("cpu" if cpu else device)
+        self.debug = parse_flag_from_env("ACCELERATE_DEBUG_MODE")
+        self.backend = "gloo" if dev.type == "cpu" else "nccl"
+        _init_world(init_process_group_kwargs, self.backend, world_of_one)
+        self.num_processes, self.process_index = world()
+        if dist.is_initialized():
+            self.backend = dist.get_backend()
+        self.local_process_index = int(os.environ.get("LOCAL_RANK", self.process_index))
+        if dev.type == "cuda" and dev.index is None and self.num_processes > 1:
+            dev = torch.device("cuda", self.local_process_index % torch.cuda.device_count())
+        if dev.type == "cuda" and self.num_processes > 1:
+            torch.cuda.set_device(dev)
+        self.device = dev
+        self.distributed_type = (DistributedType.MULTI_HOST if self.num_processes > 1
+                                 else DistributedType.NO)
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.distributed_type != DistributedType.NO
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
 
     def wait_for_everyone(self):
-        """One process: nothing to wait for."""
+        """A barrier over the process group (one process: returns)."""
+        if self.num_processes > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     @contextmanager
     def main_process_first(self):
-        """The main process runs the block first (one process: it runs)."""
+        """The main process runs the block first, the others wait."""
         yield from self._goes_first(self.is_main_process)
 
     @contextmanager
@@ -66,6 +208,45 @@ class PartialState:
         yield
         if is_main:
             self.wait_for_everyone()
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """Split a list, tuple, dict of equal-length values, tensor or array
+        evenly across processes (JAX :215): ``ceil(len / n)`` items each,
+        the last processes short; ``apply_padding`` repeats the last item
+        so every process gets the same count."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        length = len(inputs)
+        if isinstance(inputs, dict):
+            lengths = {len(v) for v in inputs.values()}
+            if len(lengths) != 1:
+                raise ValueError("All dict values must have the same length to split "
+                                 "between processes")
+            length = lengths.pop()
+        per = math.ceil(length / self.num_processes)
+        start = self.process_index * per
+        end = start + per
+
+        def _split(obj):
+            if isinstance(obj, (list, tuple, np.ndarray, torch.Tensor)):
+                sliced = obj[start:end]
+                if apply_padding and len(sliced) < per and len(obj) > 0:
+                    pad = [obj[-1]] * (per - len(sliced))
+                    if isinstance(obj, torch.Tensor):
+                        sliced = torch.cat([sliced, torch.stack(pad)], dim=0)
+                    elif isinstance(obj, np.ndarray):
+                        sliced = np.concatenate([sliced, np.stack(pad)], axis=0)
+                    else:
+                        sliced = list(sliced) + pad
+                return sliced
+            return obj
+
+        if isinstance(inputs, dict):
+            yield {k: _split(v) for k, v in inputs.items()}
+        else:
+            yield _split(inputs)
 
     def on_main_process(self, function: Optional[Callable] = None):
         if function is None:
@@ -109,21 +290,44 @@ class PartialState:
         if self.is_main_process:
             builtins.print(*args, **kwargs)
 
+    def destroy_process_group(self):
+        """Tear the process group down (JAX :295), after a barrier so no
+        process leaves while another still talks to it."""
+        import torch.distributed as dist
+
+        from .parallel import collectives
+
+        if dist.is_initialized():
+            self.wait_for_everyone()
+            dist.destroy_process_group()
+        _AMBIENT.update(mesh=None, config=None)
+        collectives._GROUPS.clear()
+
 
 class AcceleratorState(PartialState):
-    """:class:`PartialState` plus the mixed-precision mode: ``"no"``,
-    ``"bf16"``, ``"fp16"`` or ``"fp8"``.  fp8 on a device without fp8
-    tensor cores (before sm_89, or the CPU) warns and proceeds, or with
-    ``ACCELERATE_FP8_FALLBACK_BF16`` set falls back to bf16 (JAX
-    :356-372)."""
+    """:class:`PartialState` plus the mixed-precision mode (``"no"``,
+    ``"bf16"``, ``"fp16"`` or ``"fp8"``; fp8 on a device without fp8
+    tensor cores warns and proceeds, or with ``ACCELERATE_FP8_FALLBACK_BF16``
+    falls back to bf16, JAX :356-372) and the parallelism config with its
+    mesh (JAX :417): validated against the world's size at construction;
+    ``PARALLELISM_CONFIG_*`` in the environment supplies one when none is
+    given."""
 
-    def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None):
+    def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None,
+                 parallelism_config=None,
+                 init_process_group_kwargs: Optional[InitProcessGroupKwargs] = None):
+        from .parallelism_config import ParallelismConfig
+
         mp = (mixed_precision or "no").lower()
         if mp not in MIXED_PRECISION_TYPES:
             raise ValueError(
                 f"mixed_precision must be one of {list(MIXED_PRECISION_TYPES)}, got {mp!r}"
             )
-        super().__init__(cpu=cpu, device=device)
+        if parallelism_config is None and os.environ.get("PARALLELISM_CONFIG_DP_SHARD_SIZE"):
+            parallelism_config = ParallelismConfig.from_env()
+        super().__init__(cpu=cpu, device=device,
+                         init_process_group_kwargs=init_process_group_kwargs,
+                         world_of_one=parallelism_config is not None)
         if mp == "fp8" and not (self.device.type == "cuda" and fp8_hardware_supported()):
             if parse_flag_from_env("ACCELERATE_FP8_FALLBACK_BF16"):
                 logger.warning(
@@ -138,8 +342,31 @@ class AcceleratorState(PartialState):
                     "to bf16 on such hardware.")
         get_policy(mp)
         self.mixed_precision = mp
+        if parallelism_config is not None:
+            parallelism_config._validate(self.num_processes)
+        self.parallelism_config = parallelism_config
+        self._mesh = None
         global _accelerator_state_built
         _accelerator_state_built = True
+
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` over the world's ranks, built on first use
+        (every rank must reach it together): the parallelism config's, or
+        pure data parallelism over every rank (JAX :417)."""
+        if self._mesh is None:
+            from .parallelism_config import ParallelismConfig
+
+            if self.parallelism_config is None:
+                self.parallelism_config = ParallelismConfig(dp_shard_size=self.num_processes)
+            import torch.distributed as dist
+
+            if not dist.is_initialized():
+                _init_world(None, self.backend, world_of_one=True)
+            self._mesh = self.parallelism_config.build_device_mesh(
+                "cuda" if self.device.type == "cuda" else "cpu")
+            _AMBIENT.update(mesh=self._mesh, config=self.parallelism_config)
+        return self._mesh
 
 
 class GradientState:

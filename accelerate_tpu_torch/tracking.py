@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Optional, Union
 
 from .logging import get_logger
-from .state import PartialState
+from .state import world
 from .utils import imports
 from .utils.dataclasses import LoggerType  # noqa: F401  (the names trackers go by)
 
@@ -42,12 +42,12 @@ def _flatten(d: dict, sep: str = ".", _prefix: str = "") -> dict:
 
 
 def on_main_process(function):
-    """Run only on the main process when the tracker asks for it (one
-    process drives the card: always)."""
+    """Run only on the main process (rank 0 of the process group, or the
+    one process) when the tracker asks for it."""
 
     @functools.wraps(function)
     def execute_on_main_process(self, *args, **kwargs):
-        if getattr(self, "main_process_only", False) and not PartialState.is_main_process:
+        if getattr(self, "main_process_only", False) and world()[1] != 0:
             return None
         return function(self, *args, **kwargs)
 

@@ -28,13 +28,30 @@ class BaseEnum(str, enum.Enum):
 
 
 class DistributedType(BaseEnum):
-    """The process / device topology of the run (JAX :50).  The port drives
-    one card from one process: ``NO``.  Worlds of several cards are ROADMAP
-    item A13."""
+    """The process / device topology of the run (JAX :50).  One process
+    drives one card: a world of one process is ``NO``, a world of several
+    ``MULTI_HOST`` (the JAX package's name for a multi-process world)."""
 
     NO = "NO"
     MULTI_DEVICE = "MULTI_DEVICE"
     MULTI_HOST = "MULTI_HOST"
+
+
+class ShardingStrategy(BaseEnum):
+    """How parameters and optimizer state are laid out across ``dp_shard``
+    (JAX :72): NO_SHARD (DDP), SHARD_GRAD_OP (ZeRO-2: the optimizer state
+    only), FULL_SHARD (ZeRO-3), HYBRID_SHARD (shard within a replica,
+    replicate across ``dp_replicate``)."""
+
+    NO_SHARD = "NO_SHARD"
+    SHARD_GRAD_OP = "SHARD_GRAD_OP"
+    FULL_SHARD = "FULL_SHARD"
+    HYBRID_SHARD = "HYBRID_SHARD"
+
+
+class DistributedOperationException(Exception):
+    """A collective whose operands disagree across processes (JAX :66),
+    raised under ``ACCELERATE_DEBUG_MODE`` instead of a hang."""
 
 
 class LoggerType(BaseEnum):
@@ -73,10 +90,11 @@ class AutocastKwargs:
 
 @dataclass
 class InitProcessGroupKwargs:
-    """Process-group knobs (JAX :201), stored by the ``Accelerator``.  One
-    process drives one card, so nothing is initialised; ``num_processes >
-    1`` or ``process_id > 0`` raises (a world of several processes is
-    ROADMAP item A13)."""
+    """Process-group knobs (JAX :201): ``coordinator_address`` (``host:port``
+    or a ``file://`` / ``tcp://`` init method), the world's size and this
+    process's rank, and the timeout.  ``state.PartialState`` initialises the
+    ``torch.distributed`` group from them; several processes without an
+    address raise."""
 
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
@@ -187,12 +205,18 @@ class FullyShardedDataParallelPlugin:
       (default 128, env ``ACCELERATE_INT8_STATE_BLOCK``), read by
       ``Accelerator.prepare_optimizer``.
 
-    ``sharding_strategy`` lays parameters and state out over several
-    ranks and ``collective_matmul`` other than ``"off"`` needs a tensor-
-    parallel mesh: the Accelerator raises for either (A13).  Activation
+    - ``sharding_strategy``: how the parameters and optimizer state lie
+      across the data-parallel ranks (:class:`ShardingStrategy`; default
+      env ``FSDP_SHARDING_STRATEGY`` or FULL_SHARD), read under a
+      parallelism config (``parallel/sharding.py``);
+    - ``min_weight_size``: leaves of fewer elements stay replicated.
+
+    ``collective_matmul`` other than ``"off"`` needs a tensor-parallel
+    mesh: the Accelerator raises for it (ROADMAP A13).  Activation
     checkpointing is ``LlamaConfig.remat``."""
 
-    sharding_strategy: Optional[str] = None
+    sharding_strategy: Optional[ShardingStrategy] = None
+    min_weight_size: int = 2**12
     cpu_offload: Optional[bool] = None
     offload_params: Optional[bool] = None
     host_update_chunk_gib: Optional[float] = None
@@ -203,6 +227,11 @@ class FullyShardedDataParallelPlugin:
     def __post_init__(self):
         # the environment supplies defaults only: an explicit argument wins
         env = os.environ
+        if self.sharding_strategy is None:
+            self.sharding_strategy = ShardingStrategy(env.get("FSDP_SHARDING_STRATEGY",
+                                                              "FULL_SHARD"))
+        elif isinstance(self.sharding_strategy, str):
+            self.sharding_strategy = ShardingStrategy(self.sharding_strategy)
         if self.cpu_offload is None:
             self.cpu_offload = parse_flag_from_env("FSDP_OFFLOAD_PARAMS")
         if self.offload_params is None:

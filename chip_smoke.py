@@ -7,7 +7,8 @@ python3 chip_smoke.py [--before DIR] [--seed N] [--only PHASE[,PHASE]]
 The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
 ``train_resume``: 6a; ``memory_recipes``: 6b; ``lora_train``: 6c;
-``examples``: 6d) and prints the kernels line for the kernels they reached.
+``examples``: 6d; ``parallel``: 6e) and prints the kernels line for the
+kernels they reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -55,8 +56,10 @@ The bare call runs every phase below; ``--only`` runs the named ones
    ``--before DIR`` the #2 and #3 of DIR's ``flash_attention.cu`` (built
    from DIR with its headers) are held to their plain versions at batch 10
    and timed beside the new ones (``before_ms``);
-5. serves a 16-request trace on the 600m Llama (random weights from seed
-   0) through ``ServingEngine`` under ``torch.inference_mode()``, checks
+5. serves a 16-request trace (prompts 64-512, 32-128 new tokens: the
+   bench trace's 32-256 cut to 128, the overload storm's trace excepted,
+   so the script fits its time limit) on the 600m Llama (random weights
+   from seed 0) through ``ServingEngine`` under ``torch.inference_mode()``, checks
    that every request finishes, that the host page mirror agrees with the
    device allocator and that each kernel launched once per layer of every
    decode / prefill step; serves the trace again on a fresh engine with
@@ -237,7 +240,7 @@ The bare call runs every phase below; ``--only`` runs the named ones
    shapes held to its plain version, forward e4m3 x e4m3, backward e5m2 x
    e4m3, timed beside ``F.linear``); and under ZeRO-offload with
    ``lion-sr8`` (resident, then the monolithic, chunked serial and chunked
-   pipelined host updates at 0.25 GiB, 2 steps each: the monolithic equal
+   pipelined host updates at 0.25 GiB, 1 step each: the monolithic equal
    to resident and pipelined to serial bitwise, params, codes and scales;
    the device-to-host and host-to-device bytes a step equal to
    ``offload_transfer_accounting``; step and host-update ms and the share
@@ -268,14 +271,31 @@ The bare call runs every phase below; ``--only`` runs the named ones
    once a step; then ``ResNetConfig.resnet50()`` at 224^2 x 3, batch 32, 3
    steps with ``has_aux``, the batch statistics folded back each step;
    prints step ms and peak memory (``get_device_memory_stats``);
+6e. data and context parallelism (``parallel_phase``): (a) a world of one
+   process over NCCL (``init_process_group`` with a ``file://`` rendezvous),
+   the 600m model at full width and depth in bf16 with lion-sr, 4 steps
+   at 4 x 2048 through prepared loaders under ``ParallelismConfig()`` and
+   ``FULL_SHARD``, held bitwise (params, momentum, count, losses) to the
+   same 4 steps of the single-process step from one copy of the state
+   (each side's median step ms after its first);
+   ``gather`` / ``reduce`` / ``broadcast`` / ``pad_across_processes`` /
+   ``gather_for_metrics`` identities on the card; the group destroyed.
+   (b) a virtual zigzag ring of cp 4 in one process at the 600m attention
+   width (B 1, T 8192, 16 q / 8 kv heads, D 96, bf16, causal; also 3
+   packed segments): 16 launches each of #1 / #2 / #3 per pass (positions
+   and an lse cotangent), out / dq / dk / dv held to the same ring on the
+   plain versions (``held_to_plain``) and to one unsharded causal call of
+   #1-#3 (within one bf16 rounding of |ref|); prints the ring's fwd + bwd
+   ms beside the unsharded call's and the ring's peak memory;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
    prefix-cache, overload, pair (bf16, int8) and fleet serves, the loaded
    serves (``big_model_serve``, ``big_model_serve_int8``), the int8
    streamed decode (``streamed``) and beam search (``beam``) and, for
-   #1-#3, the ``train_resume`` runs, the ``memory_*`` runs of step 6b and
-   the ``lora_train`` steps of step 6c; #1-#3's ``cases`` and ``f16`` hold
+   #1-#3, the ``train_resume`` runs, the ``memory_*`` runs of step 6b,
+   the ``lora_train`` steps of step 6c and the ``parallel`` ring pass of
+   step 6e; #1-#3's ``cases`` and ``f16`` hold
    their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
@@ -333,9 +353,14 @@ MODEL = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
              max_position_embeddings=4096, attn_implementation="flash")
 PLUGIN = dict(num_slots=16, page_size=64, pages_per_slot=32, num_pages=256,
               prefill_chunk=512)
+# bench.py --serve's trace with each request's new tokens cut from 32-256
+# to 32-128: the serves are host-bound, and the script must fit its time
+# limit on a slow host.  The overload storm keeps 32-256 (OVERLOAD_NEW):
+# its cancel and deadline events fire up to serve step 276
 TRACE = dict(vocab_size=32000, mean_interarrival_steps=0.5,
-             prompt_len_range=(64, 512), new_tokens_range=(32, 256))
-MAX_NEW = 256
+             prompt_len_range=(64, 512), new_tokens_range=(32, 128))
+MAX_NEW = 128
+OVERLOAD_NEW = (32, 256)
 N_REQUESTS = 16
 # the depth of every checked rerun (each kernel launch held against its
 # plain version): each request's new tokens capped here, the timed serves
@@ -2671,11 +2696,12 @@ def overload_phase(torch, card: str, bf16: dict) -> dict:
 
     model = bf16["model"]
     layers = model.config.num_hidden_layers
-    trace = synthesize_trace(0, OVERLOAD_REQUESTS, **TRACE)
+    trace = synthesize_trace(0, OVERLOAD_REQUESTS,
+                             **dict(TRACE, new_tokens_range=OVERLOAD_NEW))
     plugin = ServingPlugin(**PLUGIN, **SPEC, **OVERLOAD)
 
     def new_engine():
-        return ServingEngine(model, plugin, GenerationConfig(max_new_tokens=MAX_NEW),
+        return ServingEngine(model, plugin, GenerationConfig(max_new_tokens=OVERLOAD_NEW[1]),
                              device=model.device)
 
     def storm():
@@ -4418,7 +4444,8 @@ MEM = dict(batch=3, seq=2048, warmup=2, timed=3, ce_chunks=4, optimizer="lion-sr
            boundary_fraction=0.5, scan_loss_rtol=1e-3)
 MEM_FP16 = dict(warmup=2, timed=3, optimizer="lion")
 MEM_FP8 = dict(warmup=2, timed=5, loss_rtol=0.05, optimizer="lion-sr")
-MEM_OFFLOAD = dict(steps=2, chunk_gib=0.25, optimizer="lion-sr8")
+# one step a configuration: the offloaded host updates take 8-17 s a step
+MEM_OFFLOAD = dict(steps=1, chunk_gib=0.25, optimizer="lion-sr8")
 # the 600m model's dense shapes (in, out), as fp8 products at the step's rows
 FP8_SHAPES = {"q_proj / o_proj": (1536, 1536), "k_proj / v_proj": (1536, 768),
               "gate_proj / up_proj": (1536, 4096), "down_proj": (4096, 1536)}
@@ -4901,8 +4928,8 @@ def fp8_case(torch, F, fa, card: str) -> dict:
 
 def offload_case(torch, fa, card: str) -> dict:
     """(d) the 600m step under ZeRO-offload with lion-sr8: resident, then
-    the monolithic, chunked serial and chunked pipelined host updates, 2
-    steps each from one state."""
+    the monolithic, chunked serial and chunked pipelined host updates,
+    ``MEM_OFFLOAD["steps"]`` steps each from one state."""
     from accelerate_tpu_torch import (
         Accelerator, GradSyncKwargs, LlamaConfig, LlamaForCausalLM, make_llama_loss_fn,
     )
@@ -5377,9 +5404,193 @@ def examples_phase(torch, card: str, device: str = "cuda") -> dict:
     return {"bert": bert, "resnet": resnet}
 
 
+# data and context parallelism (step 6e): the world of one's steps at the
+# 600m model, and the virtual cp ring at its attention width
+PARALLEL = dict(batch=4, seq=2048, steps=4, cp=4, ring_t=8192, segments=(3000, 3500, 1692),
+                timed=5)
+
+
+def parallel_steps(torch, acc, loss_fn, params, optimizer: str):
+    """``PARALLEL["steps"]`` steps through ``acc``'s prepared loader over
+    seeded 600m token rows: the state, each step's loss and each step's
+    ms (host clock, ended by a device sync)."""
+    rows = torch.from_numpy(np.random.default_rng(17).integers(
+        0, MODEL["vocab_size"], (PARALLEL["batch"] * PARALLEL["steps"], PARALLEL["seq"])))
+    loader = acc.prepare(torch.utils.data.DataLoader(
+        torch.utils.data.TensorDataset(rows), batch_size=PARALLEL["batch"],
+        collate_fn=lambda b: {"input_ids": torch.stack([r[0] for r in b]),
+                              "labels": torch.stack([r[0] for r in b])}))
+    state = acc.create_train_state(params, optimizer)
+    step = acc.prepare_train_step(loss_fn)
+    losses, step_ms = [], []
+    for batch in loader:
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync(torch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].detach())
+    return state, losses, step_ms
+
+
+def world_of_one(torch, card: str) -> dict:
+    """(a): the 600m steps under a parallelism config in an NCCL world of
+    one, bitwise the single-process steps; the façade's identities."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.ops import operations as ops
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils.dataclasses import (
+        FullyShardedDataParallelPlugin, GradSyncKwargs, ShardingStrategy,
+    )
+
+    with tempfile.TemporaryDirectory() as rendezvous:
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store",
+                                world_size=1, rank=0)
+        try:
+            cfg, model, params, single, loss_fn = train_setup(torch, seed=3)
+            first = {n: p.clone() for n, p in params.items()}
+            s_state, s_losses, single_ms = parallel_steps(torch, single, loss_fn, params,
+                                                          TRAIN["optimizer"])
+            acc = Accelerator(mixed_precision="bf16", parallelism_config=ParallelismConfig(),
+                              fsdp_plugin=FullyShardedDataParallelPlugin(
+                                  sharding_strategy=ShardingStrategy.FULL_SHARD),
+                              kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+            reset_counts()
+            p_state, p_losses, parallel_ms = parallel_steps(torch, acc, loss_fn, first,
+                                                            TRAIN["optimizer"])
+            launches = launch_counts()
+            same = {
+                "params": all(torch.equal(p_state.params[n], s_state.params[n])
+                              for n in s_state.params),
+                "momentum": all(torch.equal(a, b) for a, b in zip(p_state.opt_state.mu,
+                                                                   s_state.opt_state.mu)),
+                "count": p_state.opt_state.count == s_state.opt_state.count,
+                "loss": all(torch.equal(a, b) for a, b in zip(p_losses, s_losses)),
+            }
+            x = torch.randn(8, 4, device="cuda")
+            identities = {
+                "gather": torch.equal(acc.gather(x), x),
+                "reduce": torch.equal(acc.reduce(x), x),
+                "broadcast": torch.equal(ops.broadcast(x), x),
+                "pad_across_processes": torch.equal(acc.pad_across_processes(x), x),
+                "gather_for_metrics": torch.equal(acc.gather_for_metrics(x), x),
+            }
+            rep = {"world": dist.get_world_size(), "backend": dist.get_backend(),
+                   "mesh": {n: int(s) for n, s in zip(acc.mesh.mesh_dim_names,
+                                                       acc.mesh.mesh.shape)},
+                   "bitwise": same, "identities": identities,
+                   "losses": [float(v) for v in p_losses],
+                   "distributed_type": str(acc.distributed_type),
+                   # step 1 of the first run warms the card up for both
+                   "single_step_ms": single_ms, "parallel_step_ms": parallel_ms,
+                   "median_ms_after_first": [float(np.median(single_ms[1:])),
+                                             float(np.median(parallel_ms[1:]))],
+                   "flash_launches": {k: launches[k] for k in FLASH_REPLACES}, "card": card}
+            log("parallel (a) world of one:", json.dumps(rep))
+            if not (all(same.values()) and all(identities.values())
+                    and all(math.isfinite(v) for v in rep["losses"])):
+                raise AssertionError(f"world of one off the single-process step: {rep}")
+        finally:
+            acc = model = params = first = s_state = p_state = single = None
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def ring_case(torch, tcp, q, k, v, g, seg, plain: bool) -> list:
+    """One pass of the virtual ring: out, dq, dk, dv (in the ring's zigzag
+    layout) of ``sum(out * g)``."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = tcp.virtual_ring_attention(q, k, v, PARALLEL["cp"], causal=True, segment_ids=seg,
+                                     plain=plain)
+    out.backward(g)
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def virtual_ring(torch, fa, card: str) -> dict:
+    """(b): the cp 4 ring at the 600m attention width, the kernels against
+    the plain ring and the unsharded kernels; times, launches, peak
+    memory."""
+    from accelerate_tpu_torch.parallel import context_parallel as tcp
+
+    cp, t = PARALLEL["cp"], PARALLEL["ring_t"]
+    q, k, v, g, _, _ = flash_inputs(torch, b=1, t=t, seed=23)
+    cuts = torch.tensor(np.cumsum(PARALLEL["segments"])[:-1], device="cuda")
+    packed = (torch.arange(t, device="cuda")[None, :, None] >= cuts[None, None]).sum(-1).int()
+    zig = [tcp.zigzag_shard(x, cp) for x in (q, k, v, g)]
+    out = {"card": card, "shape": {"b": 1, "t": t, "cp": cp, "h": FLASH_HEADS["h"],
+                                   "hkv": FLASH_HEADS["hkv"], "d": FLASH_HEADS["d"]}}
+    for label, seg in (("causal", None), ("packed", packed)):
+        seg_z = tcp.zigzag_shard(seg, cp) if seg is not None else None
+        reset_counts()
+        got = ring_case(torch, tcp, *zig, seg_z, plain=False)
+        sync(torch)
+        counts = {n: getattr(fa, n).launches for n in FLASH_REPLACES}
+        if any(c != cp * cp for c in counts.values()):
+            raise AssertionError(f"ring {label}: launches {counts}, want {cp * cp} each")
+        plain = [tcp.zigzag_unshard(x, cp) for x in ring_case(torch, tcp, *zig, seg_z, plain=True)]
+        got = [tcp.zigzag_unshard(x, cp) for x in got]
+        # one unsharded call of #1-#3, causal by index
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        whole = fa.flash_attention(qq, kk, vv, causal=True,
+                                   **({"segment_ids": seg} if seg is not None else {}))
+        whole.backward(g)
+        ref = [whole.detach(), qq.grad, kk.grad, vv.grad]
+        rep = {"launches": counts}
+        for name, a, b, r in zip(("out", "dq", "dk", "dv"), got, plain, ref):
+            rep[f"{name}_vs_plain"] = held_to_plain(torch, f"ring {label} {name}", a, b,
+                                                    slack=half_ulp_bf16(torch, b))
+            # each block's out is rounded to bf16 before the f32 combine:
+            # one bf16 step of |ref| beside the kernels' own tolerance
+            err = (a.float() - r.float()).abs()
+            limit = 2 * half_ulp_bf16(torch, r) + KERNEL_TOL * r.float().abs().amax()
+            rep[f"{name}_vs_unsharded"] = {
+                "max_abs_err": err.max().item(),
+                "err_over_limit": (err / limit.clamp(min=1e-30)).max().item()}
+            if not (rep[f"{name}_vs_unsharded"]["err_over_limit"] <= 1.0
+                    and bool(torch.isfinite(a).all())):
+                raise AssertionError(f"ring {label} {name} off the unsharded kernels: {rep}")
+        out[label] = rep
+        del got, plain, ref, whole
+
+    def ring_pass(i):
+        ring_case(torch, tcp, *zig, None, plain=False)
+
+    def whole_pass(i):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        fa.flash_attention(qq, kk, vv, causal=True).backward(g)
+
+    sync(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["ring_ms"] = time_ms(torch, ring_pass, iters=PARALLEL["timed"], warmup=1)
+    out["ring_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    out["unsharded_ms"] = time_ms(torch, whole_pass, iters=PARALLEL["timed"], warmup=1)
+    out["unsharded_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["ring_over_unsharded"] = out["ring_ms"] / out["unsharded_ms"]
+    # where a pass's time goes: the kernels, the combine's eager ops, the host
+    out["ring_profile"] = profiled_step(torch, lambda: ring_pass(0), top=10)
+    out["unsharded_profile"] = profiled_step(torch, lambda: whole_pass(0), top=4)
+    log("parallel (b) virtual ring:", json.dumps(out))
+    return out
+
+
+def parallel_phase(torch, fa, card: str) -> dict:
+    """Step 6e: (a) then (b); returns both and one ring pass's launches."""
+    one = world_of_one(torch, card)
+    ring = virtual_ring(torch, fa, card)
+    return {"world_of_one": one, "ring": ring, "launches": ring["causal"]["launches"]}
+
+
 # the phases --only selects, in the order the bare call runs them
 PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
-          "examples")
+          "examples", "parallel")
+
 
 
 def main() -> int:
@@ -5551,6 +5762,10 @@ def main() -> int:
     if "examples" in only:
         examples_phase(torch, card)
         phase_done("examples")
+    if "parallel" in only:
+        parallel = parallel_phase(torch, fa, card)
+        PATH_LAUNCHES["parallel"] = parallel["launches"]
+        phase_done("parallel")
 
     # each kernel's launches on its main path, and its checked calls there
     main_path = {}

@@ -81,12 +81,39 @@ A13_CALLS = {
     "mesh": lambda a: a.mesh,
     "parallelism_config": lambda a: a.parallelism_config,
 }
+# ported since: the collectives façade and the data / context parallel
+# surface, each held here to its one-process meaning (tests/
+# test_torch_operations.py and test_torch_data_parallel.py hold them on
+# gangs of processes)
+PORTED = {"gather", "reduce", "pad_across_processes", "split_between_processes",
+          "maybe_context_parallel", "join_uneven_inputs", "mesh", "parallelism_config"}
 
 
 @pytest.mark.parametrize("name", sorted(A13_CALLS))
 def test_multi_gpu_surface_raises_naming_a13(name):
-    with pytest.raises(NotImplementedError, match="A13"):
-        A13_CALLS[name](Accelerator(cpu=True))
+    acc = Accelerator(cpu=True)
+    if name not in PORTED:
+        with pytest.raises(NotImplementedError, match="A13"):
+            A13_CALLS[name](acc)
+        return
+    out = A13_CALLS[name](acc)
+    if name in ("gather", "reduce", "pad_across_processes"):
+        assert torch.equal(out, torch.ones(2))
+    elif name == "split_between_processes":
+        with out as value:
+            assert value == [1, 2]
+    elif name == "maybe_context_parallel":
+        with out as value:
+            assert len(value) == 1 and torch.equal(value[0], torch.ones(2))
+    elif name == "join_uneven_inputs":
+        with out as value:
+            assert value is None
+    elif name == "mesh":
+        # a world of one process: every axis of the JAX package's mesh, size 1
+        assert dict(zip(out.mesh_dim_names, out.mesh.shape)) == {
+            a: 1 for a in ("dcn", "dp_replicate", "pp", "dp_shard", "cp", "sp", "tp", "ep")}
+    else:
+        assert out.total_size == 1 and out.dp_shard_size == 1
 
 
 def test_process_helpers_one_process_meaning():
@@ -134,7 +161,9 @@ def test_kwargs_handlers_are_stored():
             AutocastKwargs(**bad)
     with pytest.raises(ValueError, match="Perfetto"):
         ProfileKwargs(create_perfetto_link=True)
-    with pytest.raises(NotImplementedError, match="A13"):
+    # several processes need a rendezvous: no address raises, nothing
+    # drops to one process
+    with pytest.raises(ValueError, match="coordinator_address"):
         Accelerator(cpu=True, kwargs_handlers=[InitProcessGroupKwargs(num_processes=2)])
 
 

@@ -2273,3 +2273,46 @@ def test_f16_limits_catch_p_and_ds_rounded_to_bf16(cuda, tmp_path, monkeypatch):
     monkeypatch.setitem(_build._LIBS, "flash_attention", None)
     variant = worst()
     assert real <= 1.0 < variant, (real, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_virtual_ring_on_the_kernels(cuda, packed):
+    """Context parallelism's ring (cp 4, T 1024, the 600m heads, bf16,
+    causal; packed: 3 segments) run rank by rank in one process: 16 launches
+    each of #1 / #2 / #3 per pass, with positions and an lse cotangent; out
+    / dq / dk / dv held to the same ring on the plain versions, and to one
+    unsharded causal call of #1-#3 within one bf16 rounding of |ref| beside
+    the row limits (each block's out is rounded to bf16 before the f32
+    combine)."""
+    from accelerate_tpu_torch.parallel import context_parallel as tcp
+
+    cp, t = 4, 1024
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q, g = (torch.randn(1, t, H, 96, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, t, HKV, 96, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    seg = None
+    if packed:
+        seg = (torch.arange(t, device=cuda)[None, :, None]
+               >= torch.tensor([300, 700], device=cuda)[None, None]).sum(-1).int()
+
+    def ring(plain):
+        zq, zk, zv = (tcp.zigzag_shard(x, cp).requires_grad_() for x in (q, k, v))
+        out = tcp.virtual_ring_attention(zq, zk, zv, cp, causal=True, plain=plain,
+                                         segment_ids=tcp.zigzag_shard(seg, cp)
+                                         if seg is not None else None)
+        out.backward(tcp.zigzag_shard(g, cp))
+        return [tcp.zigzag_unshard(x, cp) for x in (out.detach(), zq.grad, zk.grad, zv.grad)]
+
+    tfa.reset_launch_counts()
+    got = ring(plain=False)
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (16,) * 3
+    plain = ring(plain=True)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    whole = tfa.flash_attention(qq, kk, vv, causal=True,
+                                **({"segment_ids": seg} if seg is not None else {}))
+    whole.backward(g)
+    for a, b, r in zip(got, plain, (whole.detach(), qq.grad, kk.grad, vv.grad)):
+        _assert_rows_close(a, b, rounding_slack=True)
+        err = (a.float() - r.float()).abs()
+        assert (err <= 2 * _half_ulp_bf16(r) + TOL * r.float().abs().amax()).all()

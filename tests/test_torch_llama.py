@@ -189,8 +189,10 @@ def test_later_slice_options_raise():
     assert quant["layers"][0]["k_scales"].shape == (cfg.num_key_value_heads, 4)
     with pytest.raises(ValueError, match="kv_dtype"):
         tl.init_paged_cache(cfg, 4, 4, 1, 4, kv_dtype="int4", device="cpu")
+    # ring attention (context parallelism) is ported; Ulysses is not
+    assert tl.LlamaConfig.tiny(attn_implementation="ring").attn_implementation == "ring"
     with pytest.raises(ValueError, match="ROADMAP"):
-        tl.LlamaConfig.tiny(attn_implementation="ring")
+        tl.LlamaConfig.tiny(attn_implementation="ulysses")
     # the scanned stack is ported: it builds
     assert tl.LlamaConfig.tiny(scan_layers=True).scan_layers
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -329,15 +329,19 @@ def test_off_path_options_raise():
         AcceleratedOptimizer(object())
     with pytest.raises(RuntimeError, match="train step"):
         AcceleratedOptimizer(make_optimizer("adamw")).step()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="ParallelismConfig"):
         Accelerator(cpu=True, parallelism_config=object())
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
 
     with pytest.raises(NotImplementedError, match="A13"):
         Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(collective_matmul="on"))
+    # data and context parallelism are ported; a tp axis is the
+    # collective-matmul slice's
     with pytest.raises(NotImplementedError, match="A13"):
-        Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(
-            sharding_strategy="SHARD_GRAD_OP"))
+        Accelerator(cpu=True, parallelism_config=ParallelismConfig(tp_size=2))
+    assert FullyShardedDataParallelPlugin(
+        sharding_strategy="SHARD_GRAD_OP").sharding_strategy == "SHARD_GRAD_OP"
     fp16 = Accelerator(cpu=True, mixed_precision="fp16")
     assert fp16.policy.needs_loss_scaling
     assert fp16.create_train_state({"w": torch.zeros(3)}, "adamw").loss_scale is not None
@@ -363,5 +367,9 @@ def test_off_path_options_raise():
     with pytest.raises(RuntimeError, match="prepared train step"):
         acc.backward()
     assert tl.LlamaConfig.tiny(remat=True, remat_policy="dots", scan_layers=True).remat
+    # the ring is ported (parallel/context_parallel.py); Ulysses is not
+    from accelerate_tpu_torch.parallel.context_parallel import ring_attention
+
+    assert tl.get_attention_impl("ring") is ring_attention
     with pytest.raises(NotImplementedError, match="A13"):
-        tl.get_attention_impl("ring")
+        tl.get_attention_impl("ulysses")
