@@ -66,6 +66,14 @@ collectives (``parallel/collectives.py``) and the process collectives
 sharding plan and the sharded train step (``parallel/sharding.py``,
 ``parallel/fsdp.py``), zigzag ring attention through the flash kernels
 (``parallel/context_parallel.py``) and ``LocalSGD``.
+Its eighteenth slice is tensor and sequence parallelism: the Llama's
+Megatron column / row split on each rank's weight slices with the
+vocab-parallel embedding and fused CE (``models/llama.py``,
+``models/layers.py``, ``ops/fused_xent.py``), the ring collective matmul
+(``ops/collective_matmul.py``), Ulysses attention with its
+collective-matmul boundary (``parallel/sequence_parallel.py``), the
+differentiable collectives and the in-process virtual world the card runs
+them in (``parallel/collectives.py``, ``parallel/virtual.py``).
 """
 
 from . import hooks
@@ -123,6 +131,7 @@ from .ops.flash_attention import fused_bgmv_paged_decode
 from .ops.lora import lora_apply
 from .serving import AdapterStore, Request, ServingEngine, replay, synthesize_trace
 from .utils.dataclasses import (
+    ContextParallelConfig,
     DataLoaderConfiguration,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
@@ -131,7 +140,9 @@ from .utils.dataclasses import (
     LoraPlugin,
     ProjectConfiguration,
     ResiliencePlugin,
+    SequenceParallelConfig,
     ServingPlugin,
+    TensorParallelConfig,
 )
 from .utils.memory import find_executable_batch_size
 from .utils.quantization import (
@@ -152,6 +163,7 @@ __all__ = [
     "AdapterStore",
     "AlignDevicesHook",
     "CheckpointCorruptError",
+    "ContextParallelConfig",
     "CpuOffloadHook",
     "DataLoaderConfiguration",
     "FP8RecipeKwargs",
@@ -172,10 +184,12 @@ __all__ = [
     "QuantizedTensor",
     "Request",
     "ResiliencePlugin",
+    "SequenceParallelConfig",
     "SequentialHook",
     "ServingEngine",
     "ServingPlugin",
     "StreamStats",
+    "TensorParallelConfig",
     "TrainState",
     "abstract_init",
     "add_hook_to_module",

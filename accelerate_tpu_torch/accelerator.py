@@ -84,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import inspect
 import os
 import time
@@ -207,6 +208,7 @@ class Accelerator:
                  cpu: bool = False,
                  dataloader_config: Optional[DataLoaderConfiguration] = None,
                  parallelism_config=None, fsdp_plugin=None,
+                 tp_config=None, cp_config=None, sp_config=None,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  resilience_plugin: Optional[ResiliencePlugin] = None,
                  telemetry_plugin: Optional[TelemetryPlugin] = None,
@@ -220,17 +222,26 @@ class Accelerator:
             if not isinstance(parallelism_config, ParallelismConfig):
                 raise TypeError(f"parallelism_config must be a ParallelismConfig, got "
                                 f"{type(parallelism_config).__name__}")
-            for axis, item in (("tp", "A13a"), ("sp", "A13b"), ("pp", "A13c"),
-                               ("ep", "A13d")):
+            for axis, item in (("pp", "A13c"), ("ep", "A13d")):
                 if getattr(parallelism_config, f"{axis}_size") > 1:
                     raise _not_ported(f"a {axis} axis of more than one rank", item)
         if fsdp_plugin is not None and not isinstance(fsdp_plugin,
                                                       FullyShardedDataParallelPlugin):
             raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallelPlugin, got "
                             f"{type(fsdp_plugin).__name__}")
-        if fsdp_plugin is not None and fsdp_plugin.collective_matmul != "off":
-            raise _not_ported("collective_matmul (a tensor-parallel mesh)", "A13a")
         self.fsdp_plugin = fsdp_plugin
+        # the ring collective matmul's mode (ops/collective_matmul.py), read
+        # by every forward: the plugin's knob, or none, which clears a mode an
+        # earlier Accelerator installed back to the env default (JAX :326-334)
+        from .ops.collective_matmul import set_collective_matmul
+
+        set_collective_matmul(fsdp_plugin.collective_matmul if fsdp_plugin is not None
+                              else None)
+        # tp_config.plan picks the plan's rule table (JAX :735); the configs
+        # are kept as JAX keeps them (:336-338)
+        self.tp_config = tp_config
+        self.cp_config = cp_config
+        self.sp_config = sp_config
         self.resilience_plugin = resilience_plugin or ResiliencePlugin()
         if self.resilience_plugin.peer_snapshot_every > 0:
             raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13f")
@@ -595,6 +606,13 @@ class Accelerator:
         if self.timeline is not None:
             # the loader's data_wait / h2d_staging phases (data_loader.py)
             prepared._timeline = self.timeline
+        pcfg = self.state.parallelism_config
+        if pcfg is not None and pcfg.sp_size > 1 and isinstance(prepared, DataLoaderShard):
+            # the batch spec's sequence split over sp (JAX :663-672): each
+            # rank its contiguous slice, labels shifted first
+            from .parallel.sequence_parallel import shard_batch_along_sequence
+
+            prepared._batch_fn = functools.partial(shard_batch_along_sequence, mesh=self.mesh)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -661,8 +679,8 @@ class Accelerator:
         gathered (every rank must call this together)."""
         plan = self._dp_plan
         if plan is not None and params.keys() == plan.layouts.keys() and any(
-                tuple(p.shape) != plan.layouts[n].shape for n, p in params.items()):
-            params = plan.gather_params(params)
+                tuple(p.shape) != plan.layouts[n].whole_shape for n, p in params.items()):
+            params = plan.whole_params(params)
         return {n: p if p.device.type == self.device.type else p.to(self.device)
                 for n, p in params.items()}
 
@@ -700,9 +718,13 @@ class Accelerator:
 
             if offload_opt:
                 raise _not_ported("cpu_offload under a parallelism config", "A13h")
-            plan = DataParallelPlan(self.mesh, self.state.parallelism_config, self.fsdp_plugin,
-                                    params, align=parallel_align(self.fsdp_plugin))
-            if self.mixed_precision == "fp8" and plan.world > 1:
+            from .parallel.sharding import tp_rules_for
+
+            pcfg = self.state.parallelism_config
+            plan = DataParallelPlan(self.mesh, pcfg, self.fsdp_plugin, params,
+                                    align=parallel_align(self.fsdp_plugin),
+                                    tp_rules=tp_rules_for(pcfg, self.tp_config))
+            if self.mixed_precision == "fp8" and (plan.world > 1 or plan.tp > 1):
                 raise _not_ported("fp8 delayed scaling across several ranks", "A13h")
             stored = plan.shard_params(params)
             if module is not None:
@@ -1476,7 +1498,8 @@ class Accelerator:
         train state is snapshotted."""
         from .checkpointing import save_accelerator_state
 
-        if train_state is not None and self._dp_plan is not None and self._dp_plan.world > 1:
+        if train_state is not None and self._dp_plan is not None and (
+                self._dp_plan.world > 1 or self._dp_plan.tp > 1):
             raise _not_ported("checkpoints of a train state across several ranks", "A13h")
 
         return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)

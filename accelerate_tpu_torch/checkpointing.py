@@ -831,10 +831,14 @@ def save_model(accelerator, train_state_or_params, save_directory: str,
     under the JAX package's flattened flax names (``params.layers_0.
     self_attn.q_proj.kernel``, kernels ``[in, out]``), so the files are the
     JAX package's ``save_model`` files for the same weights, byte for byte.
-    ``accelerator`` may be None."""
+    ``accelerator`` may be None; a train state sharded by its plan is
+    gathered into whole leaves first (every rank calls this together)."""
     from .models.convert import flax_flat_from_torch
 
-    flat = flax_flat_from_torch(_named_params(train_state_or_params))
+    params = _named_params(train_state_or_params)
+    if accelerator is not None and getattr(accelerator, "_dp_plan", None) is not None:
+        params = accelerator.device_params(params)
+    flat = flax_flat_from_torch(params)
     save_dir = Path(save_directory)
     save_dir.mkdir(parents=True, exist_ok=True)
     limit = parse_size(max_shard_size)

@@ -661,6 +661,9 @@ class DataLoaderShard(DataLoaderStateMixin):
         self.data_wait_s = 0.0
         # the Accelerator's TrainTimeline (data_wait / h2d_staging), when armed
         self._timeline = None
+        # a host transform of each batch before it is staged (the Accelerator
+        # sets this rank's sequence slice under sp)
+        self._batch_fn = None
 
     # -- device placement ---------------------------------------------------
 
@@ -670,6 +673,8 @@ class DataLoaderShard(DataLoaderStateMixin):
         :meth:`_ready` turns into the batch on the device.  The timeline's
         ``h2d_staging`` phase when one is attached."""
         batch = _to_tensors(batch)
+        if self._batch_fn is not None:
+            batch = self._batch_fn(batch)
         if not self.put_on_device:
             return batch, None
 
@@ -802,6 +807,9 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         self.data_wait_s = 0.0
         # the Accelerator's TrainTimeline (data_wait / h2d_staging), when armed
         self._timeline = None
+        # a host transform of each batch before it is staged (the Accelerator
+        # sets this rank's sequence slice under sp)
+        self._batch_fn = None
 
     def _read(self, iterator):
         """The next batch to slice, or None at the end: process 0 reads

@@ -27,12 +27,28 @@ under ``mixed_precision="fp8"``) a full-precision layer multiplies in fp8:
 with the delayed-scaling meta its module name keys
 (``ops.fp8.merge_fp8_collection``), :func:`~..ops.fp8.fp8_delayed_dot`
 (e4m3 forward, e5m2 backward); without, the stateless
-:func:`~..ops.precision.fp8_current_scaled_dot`.  The collective-matmul
-route is multi-GPU (ROADMAP item A13).
+:func:`~..ops.precision.fp8_current_scaled_dot`.
+
+Tensor parallelism (JAX :63-64, :84-113): ``tp_mode`` (``None`` |
+``"column"`` | ``"row"``) is the layer's Megatron role, set by the owning
+model.  Given a :class:`DenseRoute` (the axis JAX passes as ``tp_axis``,
+chosen per call: ``sp`` at the Ulysses boundary, else ``tp``) the layer
+multiplies by its shard of the weight: the stored tensor when
+the plan sharded it over the axis (``[out/p, in]`` for a column dense,
+``[out, in/p]`` for a row dense), else this rank's slice of the whole one
+(the Ulysses boundary rings over ``sp``, whose ranks hold whole weights).
+Mode ``off``: a column dense's output is feature-sharded, a row dense's
+partial sums meet in a ``psum`` over the axis.  Modes ``ring`` /
+``bidir``: the activations between denses are sequence-sharded over the
+axis, a column dense runs the ring all-gather -> matmul and a row dense
+the ring matmul -> reduce-scatter (``ops/collective_matmul.py``).  A
+quantized, LoRA or fp8 dense under a route raises (fp8 x tp is ROADMAP
+item A13h; JAX's ring takes fake-quantized e4m3 operands).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -44,6 +60,45 @@ from ..ops.lora import lora_apply
 from ..ops.precision import fp8_current_scaled_dot, fp8_enabled
 from ..ops.quantized_matmul import quantized_matmul
 from ..utils.quantization import QuantizedTensor
+
+
+@dataclass(frozen=True)
+class DenseRoute:
+    """How a tensor-parallel forward runs its denses: over ``axis`` of
+    ``mesh``, in collective-matmul ``mode`` (``off``: activations
+    replicated over the axis; ``ring`` / ``bidir``: sequence-sharded)."""
+
+    mesh: object
+    axis: str
+    mode: str
+
+
+def tp_linear(x, weight, kind: str, route: DenseRoute, in_features: int, out_features: int,
+              out_dtype: Optional[torch.dtype] = None):
+    """This rank's product of a ``kind`` ("column" / "row") dense whose
+    whole weight is ``[out_features, in_features]`` under ``route``;
+    ``weight`` is the rank's shard or the whole tensor (sliced here)."""
+    from ..ops.collective_matmul import dense_collective_matmul, linear, make_collective_dense
+    from ..parallel import collectives as C
+
+    p = C.axis_size(route.axis, route.mesh)
+    i = C.axis_index(route.axis, route.mesh)
+    if kind == "column" and weight.shape[0] == out_features:
+        n = out_features // p
+        weight = weight[i * n:(i + 1) * n]
+    elif kind == "row" and weight.shape[1] == in_features:
+        k = in_features // p
+        weight = weight[:, i * k:(i + 1) * k]
+    if route.mode == "off":
+        y = linear(x, weight, out_dtype)
+        return C.psum(y, route.axis, route.mesh) if kind == "row" else y
+    y = dense_collective_matmul(x, weight, kind, axis_name=route.axis, out_dtype=out_dtype)
+    if y is None:
+        # the model lays activations out for the ring only where they fit
+        # it; the monolithic body keeps that layout
+        y = make_collective_dense(route.mesh, route.axis, kind, "monolithic",
+                                  out_dtype)(x, weight)
+    return y
 
 
 class QuantizableDense(nn.Module):
@@ -59,6 +114,7 @@ class QuantizableDense(nn.Module):
         self.weight: Optional[nn.Parameter] = nn.Parameter(
             torch.empty(out_features, in_features, dtype=dtype))
         self._qmeta: Optional[tuple] = None   # (shape, dtype, scheme, block_size, layout)
+        self.tp_mode: Optional[str] = None    # None | "column" | "row", set by the owning model
 
     def set_quantized(self, qt: QuantizedTensor) -> None:
         """Hold ``qt`` (``[in, out]``) in place of the weight, which is
@@ -81,9 +137,16 @@ class QuantizableDense(nn.Module):
             return None
         return QuantizedTensor(self.qcodes, self.qscales, *self._qmeta)
 
-    def forward(self, x: torch.Tensor, adapter_ids=None, lora: Optional[dict] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, adapter_ids=None, lora: Optional[dict] = None,
+                route: Optional[DenseRoute] = None) -> torch.Tensor:
         qt = self.quantized
+        if route is not None and self.tp_mode is not None:
+            if qt is not None or (adapter_ids is not None and lora) or fp8_enabled():
+                raise NotImplementedError(
+                    "a quantized, LoRA or fp8 dense under tensor / sequence parallelism is not "
+                    "ported yet (ROADMAP item A13h)")
+            return tp_linear(x.to(self.weight.dtype), self.weight, self.tp_mode, route,
+                             self.in_features, self.out_features)
         if qt is not None:
             y = quantized_matmul(x.to(self.dtype), qt, out_dtype=self.dtype)
         elif fp8_enabled():

@@ -49,8 +49,43 @@ Memory recipes (JAX :35-101, :634-666, :786-868):
   state between the layouts.  The cached paths (``generate``, the serving
   engine) run a scanned model layer by layer the same way.
 
-fp8 compute runs in the dense layers (``models/layers.py``) and the head;
-the collective-matmul routes are multi-GPU (ROADMAP item A13).
+fp8 compute runs in the dense layers (``models/layers.py``) and the head.
+
+Tensor and sequence parallelism (JAX :462-474, :602-607, :738-757): under
+an accelerator's mesh with ``tp > 1`` whose train state holds the plan's
+tp shards (``parallel/sharding.py``'s ``TRANSFORMER_TP_RULES``), each
+rank's forward runs on its shards, the Megatron split made explicit
+(:class:`ParallelForward`):
+
+- the embedding is vocab-parallel: ids outside the rank's rows read
+  zeros, the lookups meet in a ``psum`` over ``tp``;
+- attention runs on the rank's heads (H/tp q heads and the kv heads they
+  read) behind column-parallel q / k / v, MLP on its I/tp features behind
+  column-parallel gate / up, each closed by a row-parallel o_proj /
+  down_proj whose partial sums meet in a ``psum``; the replicated input
+  enters through ``pbroadcast`` (its gradient summed over ``tp``);
+- collective-matmul modes ``ring`` / ``bidir`` (where the local sequence
+  splits over ``tp``): the activations between the denses are
+  sequence-sharded over ``tp``; the column denses gather the sequence
+  inside their ring product and the row denses reduce-scatter it
+  (``ops/collective_matmul.py``), the embedding reduce-scatters, and the
+  norms' replicated weights take ``pbroadcast``;
+- the head is column-parallel over the vocabulary (the ring gathers the
+  sequence inside its product); logits come back whole
+  (``all_gather_invariant``), the hidden states of ``output_hidden`` as
+  the input of the vocab-parallel loss (``ops/fused_xent.py``: their
+  gradient is summed over ``tp``).
+
+Head counts ``tp`` does not divide (JAX's plan shards q / k / v wherever
+their features divide, GSPMD re-lays the half heads): the rank gathers
+the q / k / v features over ``tp``, attends over the heads its o_proj
+rows read (kv repeated to q width) and keeps its features.
+``attn_implementation="ulysses"`` is Ulysses sequence parallelism over
+``sp`` (``parallel/sequence_parallel.py``): each rank holds a contiguous
+slice of the sequence, and its rotary embeddings take the tokens' global
+positions.  With the collective matmul on and ``tp`` trivial, q / k / v
+ring over ``sp`` and o_proj ring-scatters back, so the all_to_alls leave
+the forward (``ulysses_sp_boundary``).
 """
 
 from __future__ import annotations
@@ -74,8 +109,9 @@ from ..ops.flash_attention import (
 from ..ops.fp8 import fp8_delayed_dot, fp8_meta
 from ..ops.lora import lora_apply
 from ..ops.precision import fp8_current_scaled_dot, fp8_enabled
+from ..parallel import collectives as C
 from ..utils.device import resolve_device
-from .layers import QuantizableDense
+from .layers import DenseRoute, QuantizableDense, tp_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +126,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    attn_implementation: str = "native"  # native | flash | ring
+    attn_implementation: str = "native"  # native | flash | ring | ulysses
     remat: bool = False
     # with remat: "full" recomputes everything, "dots" saves the matmul
     # outputs, "offload" keeps only the layer boundaries, on the host
@@ -105,12 +141,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.attn_implementation not in ("native", "flash", "ring"):
+        if self.attn_implementation not in ("native", "flash", "ring", "ulysses"):
             raise ValueError(
-                f"attn_implementation must be 'native', 'flash' or 'ring', got "
-                f"{self.attn_implementation!r} (ulysses sequence parallelism is ROADMAP "
-                "item A13b)"
-            )
+                f"attn_implementation must be 'native', 'flash', 'ring' or 'ulysses', got "
+                f"{self.attn_implementation!r}")
         if self.remat_policy not in ("full", "dots", "offload"):
             raise ValueError(
                 f"remat_policy must be 'full', 'dots' or 'offload', got {self.remat_policy!r}")
@@ -173,10 +207,15 @@ class RMSNorm(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(hidden, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, par: Optional["ParallelForward"] = None) -> torch.Tensor:
         x32 = x.float()
         normed = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (normed * self.weight).to(self.dtype)
+        weight = self.weight
+        if par is not None and par.seq_sharded:
+            # each tp rank normalises its own tokens: the replicated
+            # weight's gradient is the sum of the ranks'
+            weight = C.pbroadcast(weight, "tp", par.mesh)
+        return (normed * weight).to(self.dtype)
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float) -> tuple[np.ndarray, np.ndarray]:
@@ -230,9 +269,9 @@ def get_attention_impl(name: str):
 
         return ring_attention
     if name == "ulysses":
-        raise NotImplementedError(
-            "'ulysses' attention is sequence parallelism, ROADMAP item A13b"
-        )
+        from ..parallel.sequence_parallel import ulysses_attention
+
+        return ulysses_attention
     raise ValueError(f"unknown attention implementation {name!r}")
 
 
@@ -500,6 +539,43 @@ def _paged_write_plan(block_tables, positions, page_size, cache_write_mask, quan
     return _PagedWrite(page_ids, offsets, lanes, quant)
 
 
+@dataclasses.dataclass(frozen=True)
+class ParallelForward:
+    """How one uncached forward lies over the ambient mesh: ``tp`` ranks
+    holding weight shards (1 when the weights are whole) and this rank's
+    place among them, ``sp`` ranks of a contiguous sequence split, the
+    collective-matmul ``mode`` of the tp layout (``off``: activations
+    replicated over ``tp``) and whether the Ulysses boundary rings over
+    ``sp`` (``sp_mode``, else ``off``)."""
+
+    mesh: object
+    tp: int
+    tp_rank: int
+    sp: int
+    sp_rank: int
+    mode: str
+    sp_mode: str
+
+    @property
+    def seq_sharded(self) -> bool:
+        """The activations between denses are sequence-sharded over tp."""
+        return self.tp > 1 and self.mode != "off"
+
+    @property
+    def sp_boundary(self) -> bool:
+        return self.sp_mode != "off"
+
+    def tp_route(self) -> Optional[DenseRoute]:
+        return DenseRoute(self.mesh, "tp", self.mode) if self.tp > 1 else None
+
+    def tp_input(self, x):
+        """A replicated activation read by the column denses of every tp
+        rank (mode off): its gradient is summed over ``tp``."""
+        if self.tp > 1 and self.mode == "off":
+            return C.pbroadcast(x, "tp", self.mesh)
+        return x
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -513,9 +589,12 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
                 paged_write: Optional[_PagedWrite] = None, attn_implementation=None,
-                segment_ids=None, adapter_ids=None, lora=None):
+                segment_ids=None, adapter_ids=None, lora=None,
+                par: Optional[ParallelForward] = None):
         cfg = self.config
         impl = attn_implementation or cfg.attn_implementation
+        if par is not None and cache is None:
+            return self._parallel_forward(x, positions, cos, sin, impl, segment_ids, par)
         b, t = x.shape[:2]
         q = self.q_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_attention_heads, cfg.head_dim)
         k = self.k_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
@@ -581,6 +660,57 @@ class LlamaAttention(nn.Module):
         out = get_attention_impl(impl)(q, k, v, causal=True, segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora)
 
+    def _parallel_forward(self, x, positions, cos, sin, impl, segment_ids,
+                          par: ParallelForward):
+        """One rank's attention under tp and / or sp (see the module doc):
+        the column q / k / v on this rank's shards (rings over ``sp`` at
+        the Ulysses boundary), rotary embeddings at the global positions,
+        attention over the rank's heads, the row o_proj."""
+        cfg = self.config
+        d = cfg.head_dim
+        if par.sp_boundary:
+            route = DenseRoute(par.mesh, "sp", par.sp_mode)
+            x_in = x
+            # q / k / v come back over the whole sequence, head-sharded
+            positions = C.all_gather(positions.contiguous(), "sp", axis=1, mesh=par.mesh)
+            if segment_ids is not None:
+                segment_ids = C.all_gather(segment_ids.contiguous(), "sp", axis=1,
+                                           mesh=par.mesh)
+        else:
+            route = par.tp_route()
+            x_in = par.tp_input(x)
+        q = self.q_proj(x_in, route=route)
+        k = self.k_proj(x_in, route=route)
+        v = self.v_proj(x_in, route=route)
+        b, t = q.shape[:2]
+        attend = get_attention_impl(impl)
+        kw = {"heads_sharded": True} if par.sp_boundary else {}
+        qf, kvf = q.shape[-1], k.shape[-1]
+        h, hkv, p = cfg.num_attention_heads, cfg.num_key_value_heads, par.tp
+        if route is not None and route.axis == "tp" and (h % p or hkv % p):
+            # heads split by the features: gather them, attend over the
+            # heads this rank's o_proj rows read, keep its features
+            i = par.tp_rank
+            qa, ka, va = (C.all_gather(z.contiguous(), "tp", axis=2, mesh=par.mesh)
+                          for z in (q, k, v))
+            h0, h1 = i * qf // d, -(-(i + 1) * qf // d)
+            rep = h // hkv
+            q = qa.reshape(b, t, h, d)[:, :, h0:h1]
+            k = ka.reshape(b, t, hkv, d).repeat_interleave(rep, dim=2)[:, :, h0:h1]
+            v = va.reshape(b, t, hkv, d).repeat_interleave(rep, dim=2)[:, :, h0:h1]
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            out = attend(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                         segment_ids=segment_ids, **kw).reshape(b, t, -1)
+            start = i * qf - h0 * d
+            out = out[..., start:start + qf]
+        else:
+            q = apply_rope(q.reshape(b, t, qf // d, d), cos, sin, positions)
+            k = apply_rope(k.reshape(b, t, kvf // d, d), cos, sin, positions)
+            v = v.reshape(b, t, kvf // d, d)
+            out = attend(q, k, v, causal=True, segment_ids=segment_ids, **kw).reshape(b, t, -1)
+        return self.o_proj(out, route=route)
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig):
@@ -590,7 +720,13 @@ class LlamaMLP(nn.Module):
         self.up_proj = QuantizableDense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
         self.down_proj = QuantizableDense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
 
-    def forward(self, x, adapter_ids=None, lora=None):
+    def forward(self, x, adapter_ids=None, lora=None, par: Optional[ParallelForward] = None):
+        if par is not None and par.tp > 1:
+            route = par.tp_route()
+            x_in = par.tp_input(x)
+            gate = self.gate_proj(x_in, route=route)
+            up = self.up_proj(x_in, route=route)
+            return self.down_proj(torch.nn.functional.silu(gate) * up, route=route)
         gate = self.gate_proj(x, adapter_ids, lora)
         up = self.up_proj(x, adapter_ids, lora)
         return self.down_proj(torch.nn.functional.silu(gate) * up, adapter_ids, lora)
@@ -607,15 +743,15 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, cos, sin, cache=None, cache_write_mask=None,
                 paged_write=None, attn_implementation=None, segment_ids=None,
-                adapter_ids=None, lora=None):
-        attn = self.self_attn(self.input_layernorm(x), positions, cos, sin, cache,
+                adapter_ids=None, lora=None, par: Optional[ParallelForward] = None):
+        attn = self.self_attn(self.input_layernorm(x, par), positions, cos, sin, cache,
                               cache_write_mask, paged_write, attn_implementation,
-                              segment_ids, adapter_ids, lora)
+                              segment_ids, adapter_ids, lora, par)
         new_cache = None
         if cache is not None:
             attn, new_cache = attn
         h = x + attn
-        out = h + self.mlp(self.post_attention_layernorm(h), adapter_ids, lora)
+        out = h + self.mlp(self.post_attention_layernorm(h, par), adapter_ids, lora, par)
         return (out, new_cache) if cache is not None else out
 
 
@@ -896,6 +1032,11 @@ class LlamaForCausalLM(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, (QuantizableDense, LMHead)):
                 mod.lora_key = name
+            if isinstance(mod, QuantizableDense):
+                # the Megatron roles (JAX :476-477, :605-607)
+                role = name.rsplit(".", 1)[-1]
+                mod.tp_mode = ("column" if role in ("q_proj", "k_proj", "v_proj", "gate_proj",
+                                                    "up_proj") else "row")
         # bytes the "offload" remat policy moved across the boundary
         self.boundary_stats = {"d2h_bytes": 0, "h2d_bytes": 0}
         if self.device.type != "meta":       # big_modeling.init_empty_weights: no init
@@ -973,12 +1114,124 @@ class LlamaForCausalLM(nn.Module):
                                        *[w for _, ws in named for w in ws])
         return x
 
+    def _tp_sharded(self) -> bool:
+        """Whether the layers hold tp shards (the train state's under a tp
+        plan) rather than whole weights."""
+        cfg = self.config
+        scan = hasattr(self.model, "layers_scan")
+        block = next(iter(self.model.layers_scan.children())) if scan else self.model.layers[0]
+        weight = block.self_attn.q_proj.weight
+        if weight is None:      # quantized: whole codes, never a tp slice
+            return False
+        return weight.shape[1 if scan else 0] != cfg.num_attention_heads * cfg.head_dim
+
+    def parallel_forward(self, t_local: int, impl: str) -> Optional[ParallelForward]:
+        """How an uncached forward of ``t_local`` tokens a rank lies over the
+        newest accelerator state's mesh, or None outside tp / sp."""
+        from ..ops.collective_matmul import collective_matmul_mode, ulysses_sp_boundary
+        from ..state import ambient_mesh
+
+        mesh = ambient_mesh()[0]
+        if mesh is None:
+            return None
+        sizes = C.mesh_sizes(mesh)
+        tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+        if tp > 1 and not self._tp_sharded():
+            tp = 1      # whole weights: every rank computes the whole forward
+        if tp == 1 and sp == 1:
+            return None
+        cfg = self.config
+        if sp > 1 and impl != "ulysses":
+            raise ValueError(f"an sp axis of {sp} ranks needs attn_implementation='ulysses', "
+                             f"got {impl!r}")
+        if tp > 1 and hasattr(self.model, "layers_scan"):
+            raise NotImplementedError("scan_layers under tensor parallelism is not ported yet "
+                                      "(ROADMAP item A13h)")
+        mode = collective_matmul_mode()
+        if tp == 1 or t_local % tp or t_local < tp:
+            mode = "off"
+        sp_mode = "off"
+        if (impl == "ulysses" and sp > 1
+                and ulysses_sp_boundary(cfg.num_attention_heads, cfg.num_key_value_heads,
+                                        t_local * sp)):
+            sp_mode = collective_matmul_mode()
+        return ParallelForward(mesh=mesh, tp=tp,
+                               tp_rank=C.axis_index("tp", mesh) if tp > 1 else 0, sp=sp,
+                               sp_rank=C.axis_index("sp", mesh) if sp > 1 else 0, mode=mode,
+                               sp_mode=sp_mode)
+
+    def _embed(self, input_ids, par: Optional[ParallelForward]):
+        """The token embeddings; under tp vocab-parallel (a shard of the
+        table's rows) or, replicated, sliced to the rank's tokens in the
+        sequence-sharded layout."""
+        emb = self.model.embed_tokens
+        if par is None or par.tp == 1:
+            return emb(input_ids)
+        w = emb.weight
+        if w.shape[0] != self.config.vocab_size:
+            rows = w.shape[0]
+            local = input_ids - par.tp_rank * rows
+            valid = (local >= 0) & (local < rows)
+            e = torch.nn.functional.embedding(local.clamp(0, rows - 1), w)
+            e = e * valid[..., None].to(e.dtype)
+            if par.seq_sharded:
+                return C.reduce_scatter(e, "tp", axis=1, mesh=par.mesh)
+            return C.psum(e, "tp", mesh=par.mesh)
+        if par.seq_sharded:
+            e = torch.nn.functional.embedding(input_ids, C.pbroadcast(w, "tp", par.mesh))
+            return torch.chunk(e, par.tp, dim=1)[par.tp_rank]
+        return emb(input_ids)
+
+    def _head_sharded(self) -> bool:
+        return self.lm_head.weight.shape[0] != self.config.vocab_size
+
+    def _hidden_out(self, x, par: Optional[ParallelForward]):
+        """The final-norm states under tp, whole over the rank's sequence:
+        with a vocab-sharded head, the input of a rank-local loss (their
+        gradient summed over ``tp``); with a whole head, one every rank
+        reads alike."""
+        if par is None or par.tp == 1:
+            return x
+        if par.seq_sharded:
+            gather = C.all_gather if self._head_sharded() else C.all_gather_invariant
+            return gather(x.contiguous(), "tp", axis=1, mesh=par.mesh)
+        return C.pbroadcast(x, "tp", par.mesh) if self._head_sharded() else x
+
+    def _logits(self, x, par: Optional[ParallelForward], adapter_ids, lora):
+        """f32 logits ``[B, T, V]``; under tp the head is column-parallel
+        over the vocabulary (the ring gathers the sequence inside its
+        product, JAX :738-757) and the shards are gathered whole."""
+        if par is None or par.tp == 1:
+            return self.lm_head(x, adapter_ids, lora)
+        if not self._head_sharded():
+            return self.lm_head(self._hidden_out(x, par), adapter_ids, lora)
+        if (adapter_ids is not None and lora) or fp8_enabled():
+            raise NotImplementedError("a LoRA or fp8 head under tensor parallelism is not "
+                                      "ported yet (ROADMAP item A13h)")
+        cfg = self.config
+        logits = tp_linear(par.tp_input(x), self.lm_head.weight, "column", par.tp_route(),
+                           cfg.hidden_size, cfg.vocab_size, out_dtype=torch.float32)
+        return C.all_gather_invariant(logits.contiguous(), "tp", axis=logits.dim() - 1,
+                                      mesh=par.mesh)
+
     def forward(self, input_ids, positions=None, segment_ids=None, output_hidden: bool = False,
                 cache=None, cache_write_mask=None, attn_implementation: Optional[str] = None,
                 adapter_ids=None, lora: Optional[dict] = None):
         b, t = input_ids.shape
-        if positions is None and cache is None and (
-                (attn_implementation or self.config.attn_implementation) == "ring"):
+        impl = attn_implementation or self.config.attn_implementation
+        par = None
+        if cache is None:
+            par = self.parallel_forward(t, impl)
+        elif self._tp_sharded():
+            raise NotImplementedError("cached decoding on tensor-parallel shards is not ported "
+                                      "yet (ROADMAP item A13h)")
+        if positions is None and par is not None and par.sp > 1:
+            # this rank's contiguous slice: rotary embeddings at the tokens'
+            # global positions
+            from ..parallel.sequence_parallel import shard_positions
+
+            positions = shard_positions(t, par.sp_rank, input_ids.device).expand(b, t)
+        if positions is None and cache is None and impl == "ring":
             # this rank's shard of the ring's layout: rotary embeddings at
             # the tokens' global positions, as the ring's causal mask
             from ..parallel.context_parallel import ring_shard_positions
@@ -1005,13 +1258,13 @@ class LlamaForCausalLM(nn.Module):
                 "adapter_ids (multi-tenant LoRA) has no scan_layers path: the adapters key "
                 "the per-layer module names; convert with unstack_layer_params and "
                 "scan_layers=False")
-        x = self.model.embed_tokens(input_ids)
+        x = self._embed(input_ids, par)
         new_cache = [] if cache is not None else None
         layers = self.model.layer_calls()
         if cache is None and cfg.remat and torch.is_grad_enabled():
             x = self._remat_stack(layers, x, positions, dict(
                 attn_implementation=attn_implementation, segment_ids=segment_ids,
-                adapter_ids=adapter_ids, lora=lora))
+                adapter_ids=adapter_ids, lora=lora, par=par))
             layers = []
         for i, layer in enumerate(layers):
             if cache is not None:
@@ -1022,12 +1275,13 @@ class LlamaForCausalLM(nn.Module):
             else:
                 x = layer(x, positions, self.rope_cos, self.rope_sin,
                           attn_implementation=attn_implementation, segment_ids=segment_ids,
-                          adapter_ids=adapter_ids, lora=lora)
-        x = self.model.norm(x)
+                          adapter_ids=adapter_ids, lora=lora, par=par)
+        x = self.model.norm(x, par)
         if output_hidden:
-            return (x, new_cache) if cache is not None else x
-        logits = self.lm_head(x, adapter_ids, lora)
-        return (logits, new_cache) if cache is not None else logits
+            return (x, new_cache) if cache is not None else self._hidden_out(x, par)
+        if cache is not None:
+            return self.lm_head(x, adapter_ids, lora), new_cache
+        return self._logits(x, par, adapter_ids, lora)
 
 
 def causal_lm_loss(logits, labels, ignore_index: int = -100, shifted: bool = False):
@@ -1056,6 +1310,19 @@ def _apply(model, params, input_ids, **kwargs):
     return torch.func.functional_call(model, params, (input_ids,), kwargs)
 
 
+def _check_sp_labels(batch) -> None:
+    """Under ``sp`` a rank's last token's target lives on the next rank:
+    the labels must come pre-shifted."""
+    from ..state import ambient_mesh
+
+    mesh = ambient_mesh()[0]
+    if (mesh is not None and C.mesh_sizes(mesh).get("sp", 1) > 1 and isinstance(batch, dict)
+            and "shift_labels" not in batch):
+        raise ValueError("under sp the batch needs shift_labels (next-token targets shifted "
+                         "before the sequence was split: shard_batch_along_sequence, or a "
+                         "loader prepared by the Accelerator)")
+
+
 def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int] = None):
     """``loss_fn(params, batch)`` for ``Accelerator.prepare_train_step``
     (JAX ``make_llama_loss_fn``).  ``batch`` holds ``input_ids`` and
@@ -1063,9 +1330,15 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
     ``segment_ids``.  With ``fused_vocab_chunks``, the head moves inside
     the chunked fused linear + CE (``ops/fused_xent.py``), so the ``[B, T,
     V]`` logits never exist; the port's head weight is ``[V, H]``, the
-    ``vocab_major`` layout."""
+    ``vocab_major`` layout.  With the head's rows sharded over ``tp``, the
+    vocab-parallel form (``vocab_parallel_causal_lm_loss``), each rank
+    walking ``ceil(fused_vocab_chunks / tp)`` chunks of its shard.  Under
+    ``sp`` each rank holds a slice of the sequence, so the batch must
+    carry ``shift_labels`` (``parallel.sequence_parallel.
+    shard_batch_along_sequence`` and the prepared loader make them)."""
     if fused_vocab_chunks is None:
         def loss_fn(params, batch):
+            _check_sp_labels(batch)
             logits = _apply(model, params, batch["input_ids"],
                             segment_ids=batch.get("segment_ids"))
             if "shift_labels" in batch:
@@ -1079,11 +1352,22 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
     cfg = model.config
 
     def fused_loss_fn(params, batch):
+        _check_sp_labels(batch)
         hidden = _apply(model, params, batch["input_ids"],
                         segment_ids=batch.get("segment_ids"), output_hidden=True)
         head = (params if params is not None else dict(model.named_parameters()))
         weight = head["lm_head.weight"].to(cfg.dtype)  # [V, H]
         shifted = "shift_labels" in batch
+        if weight.shape[0] != cfg.vocab_size:
+            from ..ops.fused_xent import vocab_parallel_causal_lm_loss
+            from ..state import ambient_mesh
+
+            mesh = ambient_mesh()[0]
+            tp = C.axis_size("tp", mesh)
+            return vocab_parallel_causal_lm_loss(
+                hidden, weight, batch["shift_labels"] if shifted else batch["labels"],
+                offset=C.axis_index("tp", mesh) * weight.shape[0],
+                num_chunks=-(-fused_vocab_chunks // tp), shifted=shifted, mesh=mesh)
         return fused_causal_lm_loss(
             hidden, weight, batch["shift_labels"] if shifted else batch["labels"],
             vocab_major=True, num_chunks=fused_vocab_chunks, shifted=shifted,

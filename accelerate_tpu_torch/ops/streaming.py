@@ -91,15 +91,17 @@ HOST_BYTES_PER_PARAM: dict[str, float] = {
 
 @dataclasses.dataclass
 class StreamStats:
-    """Overlap accounting for one streaming run (JAX's fields, less the
-    collective-matmul plane's ``ici_bytes`` / ``tp_overlap_frac``: ROADMAP
-    item A13).
+    """Overlap accounting for one streaming run (JAX's fields).
 
     ``h2d_bytes``/``d2h_bytes`` are exact (summed from leaf bytes);
     ``fetch_wait_s`` is the host time spent waiting on an in-flight
     transfer — on the card the compute stream waits on the copy's event and
     the host does not, so it stays near 0 there; ``prefetch_hits`` counts
-    fetches that were already in flight when requested."""
+    fetches that were already in flight when requested.  ``ici_bytes`` /
+    ``tp_overlap_frac`` carry a ring collective matmul's bytes permuted a
+    step and its predicted hidden share
+    (``ops/collective_matmul.tp_comm_accounting``); they join the report
+    only when set."""
 
     h2d_bytes: int = 0
     d2h_bytes: int = 0
@@ -107,6 +109,8 @@ class StreamStats:
     prefetch_hits: int = 0
     fetch_wait_s: float = 0.0
     wall_s: float = 0.0
+    ici_bytes: int = 0
+    tp_overlap_frac: Optional[float] = None
     transfer_retries: int = 0
 
     def overlap_report(self, serial_transfer_s: Optional[float] = None) -> dict:
@@ -124,6 +128,10 @@ class StreamStats:
             rep["overlap_frac"] = round(
                 max(0.0, 1.0 - self.fetch_wait_s / serial_transfer_s), 4
             )
+        if self.ici_bytes:
+            rep["ici_bytes"] = int(self.ici_bytes)
+        if self.tp_overlap_frac is not None:
+            rep["tp_overlap_frac"] = round(self.tp_overlap_frac, 4)
         if self.transfer_retries:
             rep["transfer_retries"] = self.transfer_retries
         return rep

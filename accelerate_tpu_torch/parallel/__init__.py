@@ -1,3 +1,4 @@
-"""Data and context parallelism over ``torch.distributed`` (mirrors
-``accelerate_tpu/parallel/``): the mesh collectives, the FSDP sharding
-plan and ring attention."""
+"""Parallelism over ``torch.distributed`` (mirrors
+``accelerate_tpu/parallel/``): the mesh collectives, the FSDP and tp
+sharding plan and the sharded step, ring attention, Ulysses attention,
+and the in-process virtual world that runs a gang's ranks on one card."""

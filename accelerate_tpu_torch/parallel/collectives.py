@@ -18,6 +18,24 @@ ported: every function here is "manual" over the axes it names.
 
 A dimension of size 1 needs no communication: the functions return their
 JAX results (copies of the input) without calling ``torch.distributed``.
+
+Gradients (the tensor- and sequence-parallel layers differentiate through
+them): given a tensor that requires one, ``ppermute`` / ``ring_permute``
+permute the gradient back, ``all_to_all`` runs the inverse exchange,
+``all_gather`` and ``reduce_scatter`` are each other's backward, and
+``psum``'s backward is the identity.  ``psum`` and :func:`pbroadcast`
+(the identity, whose backward is the psum) are Megatron's "g" / "f" pair
+around a tensor-parallel region: every rank of ``tp`` computes the same
+loss, so a value summed into all ranks passes its gradient through, and a
+value all ranks read sums the gradients its readers give it.
+:func:`all_gather_invariant` gathers a value every rank then reads whole;
+its backward keeps this rank's slice.  :func:`ring_permute_start` issues
+a ring hop and returns before waiting on it (the collective matmul's
+hop rides under the product of the chunk it already holds).
+
+A :class:`~.virtual.VirtualMesh` runs every rank of a world in one
+process (one thread a rank, in turn); each function here then exchanges
+the ranks' tensors in memory with the same forward and backward.
 """
 
 from __future__ import annotations
@@ -84,6 +102,8 @@ def group(axis_names: AxisNames, mesh=None):
     names = _names(axis_names)
     if axis_size(names, mesh) == 1:
         return None
+    if _virtual(mesh):
+        return mesh
     if len(names) == 1:
         return mesh.get_group(names[0])
     ranks = np.asarray(mesh.mesh.tolist())
@@ -96,6 +116,14 @@ def group(axis_names: AxisNames, mesh=None):
     return _GROUPS[key]
 
 
+def _virtual(mesh) -> bool:
+    return getattr(mesh, "is_virtual", False)
+
+
+def _wants_grad(x) -> bool:
+    return torch.is_grad_enabled() and isinstance(x, torch.Tensor) and x.requires_grad
+
+
 def _all_reduce(x, axis_names, op_name: str, mesh):
     import torch.distributed as dist
 
@@ -106,9 +134,51 @@ def _all_reduce(x, axis_names, op_name: str, mesh):
     return out
 
 
+class _Psum(torch.autograd.Function):
+    """The sum over the dimension; the gradient passes through (g)."""
+
+    @staticmethod
+    def forward(ctx, x, names, mesh):
+        return _all_reduce(x, names, "SUM", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Pbroadcast(torch.autograd.Function):
+    """The identity; the gradient summed over the dimension (f)."""
+
+    @staticmethod
+    def forward(ctx, x, names, mesh):
+        ctx.names, ctx.mesh = names, mesh
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.names, "SUM", ctx.mesh), None, None
+
+
 def psum(x, axis_names: AxisNames, mesh=None):
-    """The sum over the dimension (an all-reduce)."""
+    """The sum over the dimension (an all-reduce); differentiable, with the
+    identity for backward."""
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        return mesh.collective("psum", x, _names(axis_names))
+    if _wants_grad(x):
+        return _Psum.apply(x, _names(axis_names), mesh)
     return _all_reduce(x, axis_names, "SUM", mesh)
+
+
+def pbroadcast(x, axis_names: AxisNames, mesh=None):
+    """``x`` itself, read by every rank of the dimension: its gradient is
+    summed over them (Megatron's "f", psum's partner)."""
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        return mesh.collective("pbroadcast", x, _names(axis_names))
+    if _wants_grad(x) and axis_size(axis_names, mesh) > 1:
+        return _Pbroadcast.apply(x, _names(axis_names), mesh)
+    return x
 
 
 def pmean(x, axis_names: AxisNames, mesh=None):
@@ -116,10 +186,16 @@ def pmean(x, axis_names: AxisNames, mesh=None):
 
 
 def pmax(x, axis_names: AxisNames, mesh=None):
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        return mesh.collective("pmax", x, _names(axis_names))
     return _all_reduce(x, axis_names, "MAX", mesh)
 
 
 def pmin(x, axis_names: AxisNames, mesh=None):
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        return mesh.collective("pmin", x, _names(axis_names))
     return _all_reduce(x, axis_names, "MIN", mesh)
 
 
@@ -136,26 +212,22 @@ def gather_flat(x: torch.Tensor, g) -> torch.Tensor:
     return out
 
 
-def all_gather(x, axis_names: AxisNames, axis: int = 0, tiled: bool = True, mesh=None):
-    """Every rank's ``x`` along ``axis``: concatenated (``tiled``) or
-    stacked on a new dimension at ``axis``."""
-    n = axis_size(axis_names, mesh)
-    flat = gather_flat(x, group(axis_names, mesh))
+def _all_gather(x, names, axis: int, tiled: bool, mesh):
+    n = axis_size(names, mesh)
+    flat = gather_flat(x, group(names, mesh))
     parts = flat.reshape(n, *x.shape)
     if not tiled:
         return parts.movedim(0, axis).contiguous() if axis else parts.clone()
     return torch.cat(list(parts), dim=axis)
 
 
-def reduce_scatter(x, axis_names: AxisNames, axis: int = 0, mesh=None):
-    """The sum over the dimension, scattered in equal tiles along ``axis``:
-    rank i keeps tile i (JAX ``psum_scatter(tiled=True)``)."""
+def _reduce_scatter(x, names, axis: int, mesh):
     import torch.distributed as dist
 
-    n = axis_size(axis_names, mesh)
+    n = axis_size(names, mesh)
     if x.shape[axis] % n:
         raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} not divisible by {n}")
-    g = group(axis_names, mesh)
+    g = group(names, mesh)
     if g is None:
         return x.clone()
     moved = x.movedim(axis, 0).contiguous()
@@ -164,18 +236,96 @@ def reduce_scatter(x, axis_names: AxisNames, axis: int = 0, mesh=None):
     return out.movedim(0, axis).contiguous()
 
 
-def ppermute(x, axis_name: str, perm: Sequence[tuple[int, int]], mesh=None):
-    """Point-to-point permutation along one dimension: the rank at
-    coordinate ``src`` sends ``x`` to ``dst`` for each ``(src, dst)``; a
-    rank no pair sends to gets zeros."""
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` along ``axis`` (tiled or stacked); the backward
+    reduce-scatters the gradient back to its owners."""
+
+    @staticmethod
+    def forward(ctx, x, names, axis, tiled, mesh):
+        ctx.names, ctx.axis, ctx.tiled, ctx.mesh = names, axis, tiled, mesh
+        return _all_gather(x, names, axis, tiled, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        summed = _reduce_scatter(g, ctx.names, ctx.axis, ctx.mesh)
+        return (summed if ctx.tiled else summed.squeeze(ctx.axis)), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum, scattered in tiles along ``axis``; the backward all-gathers
+    the tiles' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, names, axis, mesh):
+        ctx.names, ctx.axis, ctx.mesh = names, axis, mesh
+        return _reduce_scatter(x, names, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.names, ctx.axis, True, ctx.mesh), None, None, None
+
+
+class _AllGatherInvariant(torch.autograd.Function):
+    """Every rank's ``x`` along ``axis``, read whole by every rank; the
+    backward keeps this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, names, axis, mesh):
+        ctx.names, ctx.axis, ctx.mesh, ctx.size = names, axis, mesh, x.shape[axis]
+        return _all_gather(x, names, axis, True, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = axis_index(ctx.names, ctx.mesh)
+        return g.narrow(ctx.axis, i * ctx.size, ctx.size).contiguous(), None, None, None
+
+
+def all_gather(x, axis_names: AxisNames, axis: int = 0, tiled: bool = True, mesh=None):
+    """Every rank's ``x`` along ``axis``: concatenated (``tiled``) or
+    stacked on a new dimension at ``axis``; the backward reduce-scatters."""
+    mesh = _mesh(mesh)
+    names = _names(axis_names)
+    if _virtual(mesh):
+        return mesh.collective("all_gather", x, names, axis=axis, tiled=tiled)
+    if _wants_grad(x):
+        return _AllGather.apply(x.contiguous(), names, axis, tiled, mesh)
+    return _all_gather(x, names, axis, tiled, mesh)
+
+
+def all_gather_invariant(x, axis_names: AxisNames, axis: int = 0, mesh=None):
+    """Every rank's ``x`` concatenated along ``axis``, a value every rank
+    then reads whole (the vocab-sharded logits gathered for a loss every
+    rank computes alike): the backward keeps this rank's slice."""
+    mesh = _mesh(mesh)
+    names = _names(axis_names)
+    if _virtual(mesh):
+        return mesh.collective("all_gather_invariant", x, names, axis=axis)
+    if _wants_grad(x):
+        return _AllGatherInvariant.apply(x.contiguous(), names, axis, mesh)
+    return _all_gather(x, names, axis, True, mesh)
+
+
+def reduce_scatter(x, axis_names: AxisNames, axis: int = 0, mesh=None):
+    """The sum over the dimension, scattered in equal tiles along ``axis``:
+    rank i keeps tile i (JAX ``psum_scatter(tiled=True)``); the backward
+    all-gathers."""
+    mesh = _mesh(mesh)
+    names = _names(axis_names)
+    if _virtual(mesh):
+        return mesh.collective("reduce_scatter", x, names, axis=axis)
+    if _wants_grad(x):
+        return _ReduceScatter.apply(x, names, axis, mesh)
+    return _reduce_scatter(x, names, axis, mesh)
+
+
+def _ppermute_ops(x, axis_name, perm, mesh):
+    """Issue the sends and receives of a permutation: ``(out, works,
+    local)`` (``local``: this rank's own shard where it maps to itself)."""
     import torch.distributed as dist
 
-    mesh = _mesh(mesh)
     me = axis_index(axis_name, mesh)
     g = group(axis_name, mesh)
-    x = x.contiguous()
-    if g is None:
-        return x.clone() if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
     out = torch.zeros_like(x)
     ops, local = [], None
     for src, dst in perm:
@@ -185,27 +335,96 @@ def ppermute(x, axis_name: str, perm: Sequence[tuple[int, int]], mesh=None):
             ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(g, dst), g))
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(g, src), g))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return out, works, local
+
+
+def _ppermute(x, axis_name, perm, mesh):
+    x = x.contiguous()
+    if group(axis_name, mesh) is None:
+        return x.clone() if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
+    out, works, local = _ppermute_ops(x, axis_name, perm, mesh)
+    for work in works:
+        work.wait()
     if local is not None:
         out.copy_(local)
     return out
+
+
+def _inverse(perm):
+    return [(d, s) for s, d in perm]
+
+
+class _Ppermute(torch.autograd.Function):
+    """A permutation along one dimension; the backward permutes back.  With
+    a ``pending`` list the forward returns before waiting on the
+    exchange and leaves its waits there (:func:`ring_permute_start`)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, perm, mesh, pending):
+        ctx.axis_name, ctx.perm, ctx.mesh = axis_name, perm, mesh
+        if pending is None:
+            return _ppermute(x, axis_name, perm, mesh)
+        out, works, local = _ppermute_ops(x.contiguous(), axis_name, perm, mesh)
+        if local is not None:
+            out.copy_(local)
+        pending.extend(works)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.axis_name, _inverse(ctx.perm), ctx.mesh), None, None, None, None
+
+
+def ppermute(x, axis_name: str, perm: Sequence[tuple[int, int]], mesh=None):
+    """Point-to-point permutation along one dimension: the rank at
+    coordinate ``src`` sends ``x`` to ``dst`` for each ``(src, dst)``; a
+    rank no pair sends to gets zeros.  The backward permutes back."""
+    mesh = _mesh(mesh)
+    perm = [tuple(p) for p in perm]
+    if _virtual(mesh):
+        return mesh.collective("ppermute", x, _names(axis_name), perm=perm)
+    if _wants_grad(x) and group(axis_name, mesh) is not None:
+        return _Ppermute.apply(x.contiguous(), axis_name, perm, mesh, None)
+    return _ppermute(x, axis_name, perm, mesh)
+
+
+def _ring_perm(n: int, shift: int) -> list:
+    return [(i, (i + shift) % n) for i in range(n)]
 
 
 def ring_permute(x, axis_name: str, shift: int = 1, mesh=None):
     """Rotate shards around the ring by ``shift``: coordinate i's shard
     lands on ``(i + shift) % n``."""
     n = axis_size(axis_name, mesh)
-    return ppermute(x, axis_name, [(i, (i + shift) % n) for i in range(n)], mesh)
+    return ppermute(x, axis_name, _ring_perm(n, shift), mesh)
 
 
-def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, tiled: bool = True,
-               mesh=None):
-    """Split ``x`` into n chunks along ``split_axis``, send chunk j to
-    coordinate j, and concatenate the chunks received along
-    ``concat_axis`` in coordinate order (``tiled``; else stacked on a new
-    ``concat_axis``)."""
+def ring_permute_start(x, axis_name: str, shift: int = 1, mesh=None):
+    """:func:`ring_permute` issued but not waited on: ``(out, wait)``, where
+    ``out`` holds the neighbour's shard once ``wait()`` has returned.
+    Work launched in between overlaps the exchange (on NCCL ``wait`` only
+    orders the current stream after it)."""
+    mesh = _mesh(mesh)
+    if _virtual(mesh) or group(axis_name, mesh) is None:
+        out = ring_permute(x, axis_name, shift, mesh)
+        return out, lambda: None
+    perm = _ring_perm(axis_size(axis_name, mesh), shift)
+    pending: list = []
+    if _wants_grad(x):
+        out = _Ppermute.apply(x.contiguous(), axis_name, perm, mesh, pending)
+    else:
+        out, pending, _ = _ppermute_ops(x.contiguous(), axis_name, perm, mesh)
+
+    def wait():
+        for work in pending:
+            work.wait()
+        pending.clear()
+
+    return out, wait
+
+
+def _all_to_all(x, axis_name, split_axis: int, concat_axis: int, tiled: bool, mesh):
     import torch.distributed as dist
 
     n = axis_size(axis_name, mesh)
@@ -221,6 +440,38 @@ def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, tiled: bool
     if tiled:
         return torch.cat(received, dim=concat_axis)
     return torch.stack(received, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled exchange; the backward runs the inverse one."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis, mesh):
+        ctx.args = (axis_name, concat_axis, split_axis, mesh)
+        return _all_to_all(x, axis_name, split_axis, concat_axis, True, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis, mesh = ctx.args
+        return _all_to_all(g, axis_name, split_axis, concat_axis, True, mesh), None, None, None, \
+            None
+
+
+def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, tiled: bool = True,
+               mesh=None):
+    """Split ``x`` into n chunks along ``split_axis``, send chunk j to
+    coordinate j, and concatenate the chunks received along
+    ``concat_axis`` in coordinate order (``tiled``; else stacked on a new
+    ``concat_axis``).  Tiled, the backward runs the inverse exchange."""
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        if not tiled:
+            raise ValueError("a virtual mesh exchanges tiled all_to_alls only")
+        return mesh.collective("all_to_all", x, _names(axis_name), split_axis=split_axis,
+                               concat_axis=concat_axis)
+    if tiled and _wants_grad(x):
+        return _AllToAll.apply(x, axis_name, split_axis, concat_axis, mesh)
+    return _all_to_all(x, axis_name, split_axis, concat_axis, tiled, mesh)
 
 
 def broadcast_from(x, axis_name: str, src: int = 0, mesh=None):

@@ -159,37 +159,6 @@ def virtual_ring_attention(q, k, v, cp: int, *, causal: bool = True,
     return torch.cat(outs, dim=1)
 
 
-class _AllGather(torch.autograd.Function):
-    """Every cp rank's tensor, stacked ``[cp, ...]``; the backward
-    reduce-scatters the gradients back to their owners."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis_name):
-        ctx.mesh, ctx.axis_name = mesh, axis_name
-        return collectives.all_gather(x, axis_name, axis=0, tiled=False, mesh=mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        summed = collectives.reduce_scatter(g, ctx.axis_name, axis=0, mesh=ctx.mesh)
-        return summed[0], None, None
-
-
-class _Pass(torch.autograd.Function):
-    """``x`` passed one step around the ring (coordinate i to i + 1); the
-    backward passes the gradient back (i + 1 to i)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis_name):
-        ctx.mesh, ctx.axis_name = mesh, axis_name
-        return collectives.ring_permute(x, axis_name, 1, mesh=mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return collectives.ring_permute(g.contiguous(), ctx.axis_name, -1, mesh=ctx.mesh), \
-            None, None
-
-
 def ring_attention_sharded(q, k, v, seg=None, *, mesh=None, axis_name: str = "cp",
                            causal: bool = True, sm_scale: Optional[float] = None,
                            rotate_method: str = "alltoall", zigzag: bool = True):
@@ -206,8 +175,11 @@ def ring_attention_sharded(q, k, v, seg=None, *, mesh=None, axis_name: str = "cp
         return ring_attention_rank(q, lambda s: (k, v, seg), 0, 1, causal=causal,
                                    sm_scale=sm_scale, zigzag=zigzag, seg=seg)
     if rotate_method == "allgather":
-        k_all = _AllGather.apply(k.contiguous(), mesh, axis_name)
-        v_all = _AllGather.apply(v.contiguous(), mesh, axis_name)
+        # differentiable: the backward reduce-scatters the gradients back
+        k_all = collectives.all_gather(k.contiguous(), axis_name, axis=0, tiled=False,
+                                       mesh=mesh)
+        v_all = collectives.all_gather(v.contiguous(), axis_name, axis=0, tiled=False,
+                                       mesh=mesh)
         seg_all = (collectives.all_gather(seg.contiguous(), axis_name, axis=0, tiled=False,
                                           mesh=mesh) if seg is not None else None)
 
@@ -219,8 +191,9 @@ def ring_attention_sharded(q, k, v, seg=None, *, mesh=None, axis_name: str = "cp
 
         def kv_of(s):
             if s:
-                cur["k"] = _Pass.apply(cur["k"], mesh, axis_name)
-                cur["v"] = _Pass.apply(cur["v"], mesh, axis_name)
+                # differentiable: the backward passes the gradients back
+                cur["k"] = collectives.ring_permute(cur["k"], axis_name, 1, mesh=mesh)
+                cur["v"] = collectives.ring_permute(cur["v"], axis_name, 1, mesh=mesh)
                 if cur["seg"] is not None:
                     cur["seg"] = collectives.ring_permute(cur["seg"].contiguous(), axis_name, 1,
                                                           mesh=mesh)

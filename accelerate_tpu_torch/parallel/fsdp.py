@@ -19,6 +19,18 @@ them by hand on plain local tensors.
   (:meth:`DataParallelPlan.write_back`).
 - the global norm and the fp16 finiteness flag are reduced across ranks.
 
+Under ``tp`` the plan's tp split is real (``sharding.tp_shard``): a rank
+stores its slice of each tp leaf and the data-parallel ranges lie over
+that slice; :meth:`gather_params` gathers over the data-parallel axes
+only, so the forward runs on the slices (``models/llama.py``'s
+``ParallelForward``).  The slices' gradients are summed over the
+data-parallel axes and ``sp`` (whose ranks hold the sequence's slices),
+not over ``tp``; the global norm sums a tp slice's squares over ``tp``
+once and a replicated leaf's once.  A ``relay`` leaf (a slice that is not
+whole -sr8 blocks) is updated on ranges of the whole leaf's flatten: its
+gradient is gathered over ``tp`` before the update and the new values
+after.  :meth:`whole_params` gathers whole leaves.
+
 A dimension of one rank runs no collective, so in a world of one process
 every step is the single-process step's, bit for bit.
 """
@@ -29,7 +41,7 @@ import torch
 
 from ..parallelism_config import ParallelismConfig
 from . import collectives
-from .sharding import LeafLayout, leaf_layouts
+from .sharding import LeafLayout, leaf_layouts, tp_shard
 
 
 def _size(axes, mesh) -> int:
@@ -41,22 +53,26 @@ class DataParallelPlan:
     collectives of its step."""
 
     def __init__(self, mesh, parallelism_config: ParallelismConfig, fsdp_plugin, params: dict,
-                 align: int = 1):
+                 align: int = 1, tp_rules=None):
         self.mesh = mesh
         self.layouts: dict[str, LeafLayout] = leaf_layouts(params, mesh, parallelism_config,
-                                                           fsdp_plugin, align)
-        # the ranks whose gradients sum: every data-parallel axis and cp
-        self.dp_axes = tuple(a for a in parallelism_config.dp_cp_dim_names
-                             if collectives.axis_size(a, mesh) > 1)
+                                                           fsdp_plugin, align, tp_rules)
+        # the ranks whose gradients sum: every data-parallel axis, cp and sp
+        names = parallelism_config.dp_cp_dim_names + ("sp",)
+        self.dp_axes = tuple(a for a in names if collectives.axis_size(a, mesh) > 1)
         self.world = _size(self.dp_axes, mesh)
+        self.tp = collectives.axis_size("tp", mesh)
+        # every rank of the step: where a flag must agree
+        self.all_axes = self.dp_axes + (("tp",) if self.tp > 1 else ())
 
     @property
     def any_sharded(self) -> bool:
-        return any(lay.sharded for lay in self.layouts.values())
+        return any(lay.sharded or lay.tp_dim is not None for lay in self.layouts.values())
 
     @property
     def numels(self) -> list:
-        return [lay.numel for lay in self.layouts.values()]
+        """Each leaf's whole size (the -sr salts key on it)."""
+        return [lay.whole_numel for lay in self.layouts.values()]
 
     # -- the coordinates of this rank ------------------------------------------
 
@@ -81,17 +97,31 @@ class DataParallelPlan:
             out[:stop - start] = flat[start:stop]
         return out
 
+    def _tp_slice(self, t: torch.Tensor, lay: LeafLayout) -> torch.Tensor:
+        if lay.tp_dim is None:
+            return t
+        return tp_shard(t, lay.tp_dim, lay.tp_ways, self._coord(("tp",)))
+
+    def _tp_whole(self, t: torch.Tensor, lay: LeafLayout) -> torch.Tensor:
+        """The whole leaf from every tp rank's slice ``t``."""
+        if lay.tp_dim is None:
+            return t
+        return collectives.all_gather(t.detach().contiguous(), "tp", axis=lay.tp_dim,
+                                      mesh=self.mesh)
+
     def shard_params(self, params: dict) -> dict:
-        """Each rank's parameters at rest: its range of each sharded
-        parameter, the others as they are."""
+        """Each rank's parameters at rest: its tp slice, and its range of
+        each data-parallel-sharded parameter, the others as they are."""
         out = {}
         for name, p in params.items():
             lay = self.layouts[name]
+            local = self._tp_slice(p.detach(), lay) if lay.tp_dim is not None else p
             if lay.param_ways > 1:
                 span = lay.chunk * lay.extra
-                out[name] = self._flat_range(p.detach(), self._coord(lay.param_axes) * span, span)
+                out[name] = self._flat_range(local.detach(), self._coord(lay.param_axes) * span,
+                                             span)
             else:
-                out[name] = p
+                out[name] = local
         return out
 
     def opt_params(self, params: dict) -> list:
@@ -102,7 +132,11 @@ class DataParallelPlan:
         leaves = []
         for name, p in params.items():
             lay = self.layouts[name]
-            if not lay.sharded:
+            if lay.relay:
+                whole = self._tp_whole(p, lay)
+                leaves.append(self._flat_range(whole, self._coord(lay.opt_axes) * lay.chunk,
+                                               lay.chunk))
+            elif not lay.sharded:
                 leaves.append(p)
             elif lay.param_ways > 1:
                 k = self._coord(self._extra_axes(lay))
@@ -115,7 +149,9 @@ class DataParallelPlan:
     # -- the step's collectives --------------------------------------------------
 
     def gather_params(self, params: dict) -> dict:
-        """The full parameters (the stored tensors where whole)."""
+        """The parameters the forward reads: gathered over the
+        data-parallel axes (the stored tensors where whole), a tp leaf as
+        this rank's slice."""
         full = {}
         for name, p in params.items():
             lay = self.layouts[name]
@@ -126,6 +162,12 @@ class DataParallelPlan:
                 full[name] = p
         return full
 
+    def whole_params(self, params: dict) -> dict:
+        """Whole leaves (:meth:`gather_params`, then the tp slices
+        gathered); every rank must call this together."""
+        return {name: self._tp_whole(p, self.layouts[name])
+                for name, p in self.gather_params(params).items()}
+
     def reduce_grads(self, grads: list) -> list:
         """Each gradient summed over the data-parallel ranks, as this rank's
         optimizer range (or whole)."""
@@ -133,6 +175,14 @@ class DataParallelPlan:
 
         out = []
         for g, lay in zip(grads, self.layouts.values()):
+            if lay.relay:
+                if self.world > 1:
+                    g = g.contiguous()
+                    dist.all_reduce(g, group=self._group(self.dp_axes))
+                whole = self._tp_whole(g, lay)
+                out.append(self._flat_range(whole, self._coord(lay.opt_axes) * lay.chunk,
+                                            lay.chunk))
+                continue
             rest = tuple(a for a in self.dp_axes if a not in lay.opt_axes)
             if lay.sharded:
                 flat = self._flat_range(g, 0, lay.chunk * lay.opt_ways)
@@ -153,9 +203,9 @@ class DataParallelPlan:
 
     def all_finite(self, flag: torch.Tensor) -> torch.Tensor:
         """A finiteness flag true on every rank or on none."""
-        if self.world == 1:
+        if not self.all_axes:
             return flag
-        return collectives.pmin(flag.to(torch.int32), self.dp_axes, self.mesh).bool()
+        return collectives.pmin(flag.to(torch.int32), self.all_axes, self.mesh).bool()
 
     def global_norm(self, grads: list, local_norm) -> torch.Tensor:
         """``sqrt(sum ||g||^2)`` over the whole reduced gradients: the
@@ -167,7 +217,10 @@ class DataParallelPlan:
         groups: dict = {}
         for g, lay in zip(grads, self.layouts.values()):
             sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
-            groups.setdefault(lay.opt_axes if lay.sharded else (), []).append(sq)
+            axes = lay.opt_axes if lay.sharded else ()
+            if lay.tp_dim is not None and "tp" not in axes:
+                axes = axes + ("tp",)
+            groups.setdefault(axes, []).append(sq)
         total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         for axes, squares in groups.items():
             part = torch.stack(squares).sum()
@@ -180,6 +233,11 @@ class DataParallelPlan:
         with torch.no_grad():
             for (name, p), new in zip(params.items(), new_leaves):
                 lay = self.layouts[name]
+                if lay.relay:
+                    flat = collectives.gather_flat(new, self._group(lay.opt_axes))
+                    whole = flat[:lay.whole_numel].view(lay.whole_shape)
+                    p.copy_(self._tp_slice(whole, lay))
+                    continue
                 if not lay.sharded:
                     p.copy_(new)
                     continue

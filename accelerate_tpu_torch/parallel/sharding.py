@@ -22,6 +22,17 @@ size, so a rank's range updates bitwise as the whole leaf would.  The plan
 says how many ways a leaf splits and over which axes; a range holds the
 elements of one shard (a leaf the plan splits on its first dimension gets
 exactly that shard).
+
+Under ``tp > 1`` the plan applies the Megatron rules
+(``TRANSFORMER_TP_RULES``, JAX ``_params_plan``): q / k / v, gate / up,
+the embedding and ``lm_head`` split on their port dimension 0, o_proj and
+down_proj on dimension 1.  The tp split is a real one: a rank holds its
+slice of the leaf as a tensor (:func:`tp_shard`), the forward runs on it,
+and the data-parallel ranges above lie over that slice's flatten.  A tp
+slice whose -sr8 blocks are not whole blocks of the leaf's flatten (a
+dimension-1 slice narrower than a block, or a slice of fewer elements)
+is updated as ranges of the whole leaf's flatten over ``tp`` instead
+(``LeafLayout.relay``), so every update stays bitwise the whole leaf's.
 """
 
 from __future__ import annotations
@@ -282,6 +293,35 @@ TRANSFORMER_TP_RULES: list = [
 ]
 
 
+def tp_rules_for(parallelism_config: Optional[ParallelismConfig], tp_config=None) -> list:
+    """The rule table a train state's plan applies (JAX ``_params_plan``):
+    the ``tp_config``'s plan, else the transformer table under ``tp > 1``,
+    else none."""
+    if tp_config is not None:
+        return list(get_tp_rules(tp_config.plan))
+    if parallelism_config is not None and parallelism_config.tp_size > 1:
+        return list(get_tp_rules("auto"))
+    return []
+
+
+def tp_split_dim(spec) -> Optional[int]:
+    """The dimension a spec splits over ``tp``, or None."""
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if "tp" in axes:
+            return d
+    return None
+
+
+def tp_shard(t, dim: Optional[int], ways: int, index: int):
+    """Rank ``index``'s slice of ``t`` along ``dim`` over ``ways`` ranks (a
+    new tensor; ``t`` itself without a split)."""
+    if dim is None or ways == 1:
+        return t
+    size = t.shape[dim] // ways
+    return t.narrow(dim, index * size, size).contiguous()
+
+
 def get_tp_rules(plan: str = "auto"):
     if plan in ("auto", "transformer"):
         return TRANSFORMER_TP_RULES
@@ -315,6 +355,14 @@ class LeafLayout:
     param_ways: int
     opt_ways: int
     chunk: int
+    # the tp split: the leaf's whole shape, the port dimension split over
+    # tp (None: whole on every tp rank) and its ways; ``shape`` / ``numel``
+    # are then the rank's slice's.  ``relay``: the optimizer's ranges lie
+    # over the whole leaf's flatten, over tp (``opt_axes == ("tp",)``)
+    whole_shape: tuple = ()
+    tp_dim: Optional[int] = None
+    tp_ways: int = 1
+    relay: bool = False
 
     @property
     def extra(self) -> int:
@@ -324,29 +372,59 @@ class LeafLayout:
     def sharded(self) -> bool:
         return self.opt_ways > 1
 
+    @property
+    def whole_numel(self) -> int:
+        return math.prod(self.whole_shape)
+
+
+def _blocks_whole(shape: tuple, dim: int, ways: int, align: int) -> bool:
+    """Whether a rank's tp slice along ``dim`` is made of whole ``align``
+    blocks of the leaf's row-major flatten."""
+    local = list(shape)
+    local[dim] //= ways
+    if dim == 0:
+        return math.prod(local) % align == 0
+    return math.prod(local[dim:]) % align == 0
+
 
 def leaf_layouts(params: dict, mesh, parallelism_config: ParallelismConfig,
                  fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
-                 align: int = 1) -> dict:
-    """``{name: LeafLayout}`` from the parameter plan and the optimizer
-    state's plan for a mirror of each parameter."""
+                 align: int = 1, tp_rules: Optional[Sequence] = None) -> dict:
+    """``{name: LeafLayout}`` from the parameter plan (with ``tp_rules``)
+    and the optimizer state's plan for a mirror of each parameter."""
     sizes = mesh_sizes(mesh)
-    plan = make_sharding_plan(params, mesh, parallelism_config, fsdp_plugin)
+    plan = make_sharding_plan(params, mesh, parallelism_config, fsdp_plugin, tp_rules)
     mirrors = {f"mu/{n}": _shape(p) for n, p in params.items()}
     opt_plan = make_opt_state_sharding_plan(mirrors, plan, mesh, parallelism_config,
                                             fsdp_plugin)
     out = {}
     for name, leaf in params.items():
-        shape = _shape(leaf)
-        p_axes = spec_axes(plan[name])
-        o_axes = spec_axes(opt_plan[f"mu/{name}"]) if shape else ()
+        whole = _shape(leaf)
+        tp_dim = tp_split_dim(plan[name]) if whole else None
+        tp_ways = sizes.get("tp", 1) if tp_dim is not None else 1
+        shape = list(whole)
+        if tp_dim is not None:
+            shape[tp_dim] //= tp_ways
+        shape = tuple(shape)
+        p_axes = tuple(a for a in spec_axes(plan[name]) if a != "tp")
+        o_axes = tuple(a for a in spec_axes(opt_plan[f"mu/{name}"]) if a != "tp") if whole else ()
         if o_axes[:len(p_axes)] != p_axes:
             raise ValueError(f"{name}: optimizer axes {o_axes} do not extend the parameter's "
                              f"{p_axes}")
-        numel = math.prod(shape)
-        o_ways = _axis_size(sizes, o_axes) if o_axes else 1
+        relay = tp_dim is not None and not _blocks_whole(whole, tp_dim, tp_ways, align)
+        if relay:
+            # the slice is not whole blocks: the update runs on ranges of
+            # the whole leaf's flatten over tp, the slice stays whole over dp
+            p_axes, o_axes = (), ("tp",)
+            numel = math.prod(whole)
+            o_ways = tp_ways
+        else:
+            numel = math.prod(shape)
+            o_ways = _axis_size(sizes, o_axes) if o_axes else 1
         chunk = -(-numel // (o_ways * align)) * align if o_ways > 1 else numel
-        out[name] = LeafLayout(shape=shape, numel=numel, param_axes=p_axes, opt_axes=o_axes,
+        out[name] = LeafLayout(shape=shape, numel=math.prod(shape), param_axes=p_axes,
+                               opt_axes=o_axes,
                                param_ways=_axis_size(sizes, p_axes) if p_axes else 1,
-                               opt_ways=o_ways, chunk=chunk)
+                               opt_ways=o_ways, chunk=chunk, whole_shape=whole, tp_dim=tp_dim,
+                               tp_ways=tp_ways, relay=relay)
     return out

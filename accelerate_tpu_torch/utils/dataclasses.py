@@ -260,6 +260,44 @@ _COLLECTIVE_MATMUL_MODES = {"off": "off", "false": "off", "0": "off", "none": "o
 
 
 @dataclass
+class TensorParallelConfig:
+    """Tensor parallelism's knobs (JAX :918): ``plan`` names the rule table
+    the sharding plan applies (``parallel/sharding.get_tp_rules``:
+    ``"auto"`` / ``"transformer"``, ``"none"``); ``async_matmul`` is
+    carried for the signature (the ring collective matmul is the
+    ``FullyShardedDataParallelPlugin.collective_matmul`` knob)."""
+
+    tp_size: int = 1
+    plan: str = "auto"
+    async_matmul: bool = True
+
+
+@dataclass
+class ContextParallelConfig:
+    """Ring attention's knobs (JAX :932): ``rotate_method`` ``"allgather"``
+    gathers every rank's K / V once, ``"alltoall"`` passes them around the
+    ring; ``load_balance`` is the zigzag layout."""
+
+    cp_size: int = 1
+    rotate_method: str = "allgather"
+    load_balance: bool = True
+
+    def __post_init__(self):
+        if self.rotate_method not in ("allgather", "alltoall"):
+            raise ValueError(f"invalid cp rotate method {self.rotate_method!r}")
+
+
+@dataclass
+class SequenceParallelConfig:
+    """Ulysses attention's knobs (JAX :949): two all_to_alls swap the
+    sequence split for a head split around attention."""
+
+    sp_size: int = 1
+    seq_length: Optional[int] = None
+    attn_implementation: str = "native"
+
+
+@dataclass
 class FP8RecipeKwargs:
     """The fp8 recipe (JAX :970; reference TE ``DelayedScaling``): the
     amax history length (env ``ACCELERATE_FP8_AMAX_HISTORY_LEN``, default

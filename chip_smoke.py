@@ -286,7 +286,24 @@ kernels they reached.
    and an lse cotangent), out / dq / dk / dv held to the same ring on the
    plain versions (``held_to_plain``) and to one unsharded causal call of
    #1-#3 (within one bf16 rounding of |ref|); prints the ring's fwd + bwd
-   ms beside the unsharded call's and the ring's peak memory;
+   ms beside the unsharded call's and the ring's peak memory.
+   (c) Ulysses over a virtual sp 4 world in one process
+   (``parallel/virtual.VirtualMesh``: each rank a thread, in turn, the
+   all_to_alls in-memory re-layouts of the ranks' tensors) on (b)'s inputs
+   and packed segments: each rank's ``make_ulysses_attention`` runs #1-#3
+   over its 4 q / 2 kv heads at the full T, causal by index: 4 launches
+   each a pass, held to the same world on the plain versions and to one
+   unsharded call; fwd + bwd ms beside the unsharded call's and (b)'s
+   ring, peak memory.
+   (d) tensor parallelism over a virtual tp 4 world: the 600m model's
+   forward + backward at 4 x 2048 through each rank's own module replica
+   on its tp slices (the same per-rank code as the CPU gangs: vocab-
+   parallel embedding and fused CE, column / row denses, #1-#3 at 4 q / 2
+   kv heads), collective-matmul modes off and ring: 64 launches each of
+   #1-#3 a step; the loss, the grad norm and every re-assembled leaf
+   gradient held to the unsharded step's on the same weights and batch
+   (loss 1e-3, norm 2 %, each leaf 5 %), ring to off the same way; step
+   ms beside the unsharded step's, one profiled step's top items;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
@@ -5580,11 +5597,228 @@ def virtual_ring(torch, fa, card: str) -> dict:
     return out
 
 
+def _layout(**sizes) -> tuple:
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER
+
+    return MESH_AXIS_ORDER, tuple(sizes.get(a, 1) for a in MESH_AXIS_ORDER)
+
+
+def ulysses_pass(torch, attn, mesh, q, k, v, g, seg) -> list:
+    """One fwd + bwd of Ulysses over ``mesh``'s sp ranks, each rank its
+    contiguous slice of ``q`` / ``k`` / ``v`` / ``seg``: out, dq, dk, dv
+    whole."""
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    sp = PARALLEL["cp"]
+    qs, ks, vs = ([c.contiguous().requires_grad_() for c in x.detach().chunk(sp, dim=1)]
+                  for x in (q, k, v))
+    segs = seg.chunk(sp, dim=1) if seg is not None else [None] * sp
+    outs = mesh.run(lambda r: attn(qs[r], ks[r], vs[r], causal=True,
+                                   segment_ids=None if segs[r] is None
+                                   else segs[r].contiguous()),
+                    ParallelismConfig(sp_size=sp))
+    torch.autograd.backward(outs, [c.contiguous() for c in g.chunk(sp, dim=1)])
+    return [torch.cat(outs, dim=1).detach()] + [torch.cat([x.grad for x in xs], dim=1)
+                                                for xs in (qs, ks, vs)]
+
+
+def virtual_ulysses(torch, fa, card: str, ring: dict, device: str = "cuda") -> dict:
+    """(c): Ulysses over a virtual sp 4 world at (b)'s shapes, the kernels
+    against the plain versions and the unsharded call; times, launches,
+    peak memory."""
+    from accelerate_tpu_torch.parallel.sequence_parallel import make_ulysses_attention
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+
+    sp, t = PARALLEL["cp"], PARALLEL["ring_t"]
+    mesh = VirtualMesh(*_layout(sp=sp))
+    attn = make_ulysses_attention(mesh)
+    attn_plain = make_ulysses_attention(mesh, inner_attn=fa.flash_attention_plain)
+    q, k, v, g, _, _ = flash_inputs(torch, b=1, t=t, seed=23, device=device)
+    cuts = torch.tensor(np.cumsum(PARALLEL["segments"])[:-1], device=device)
+    packed = (torch.arange(t, device=device)[None, :, None] >= cuts[None, None]).sum(-1).int()
+    out = {"card": card, "shape": {"b": 1, "t": t, "sp": sp, "h": FLASH_HEADS["h"],
+                                   "hkv": FLASH_HEADS["hkv"], "d": FLASH_HEADS["d"],
+                                   "rank_heads": [FLASH_HEADS["h"] // sp,
+                                                  FLASH_HEADS["hkv"] // sp]}}
+    for label, seg in (("causal", None), ("packed", packed)):
+        reset_counts()
+        got = ulysses_pass(torch, attn, mesh, q, k, v, g, seg)
+        sync(torch)
+        counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+        if any(c != sp for c in counts.values()):
+            raise AssertionError(f"ulysses {label}: launches {counts}, want {sp} each")
+        plain = ulysses_pass(torch, attn_plain, mesh, q, k, v, g, seg)
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        whole = fa.flash_attention(qq, kk, vv, causal=True,
+                                   **({"segment_ids": seg} if seg is not None else {}))
+        whole.backward(g)
+        ref = [whole.detach(), qq.grad, kk.grad, vv.grad]
+        rep = {"launches": counts, "all_to_all_calls": mesh.calls.get("all_to_all", 0)}
+        for name, a, b, r in zip(("out", "dq", "dk", "dv"), got, plain, ref):
+            rep[f"{name}_vs_plain"] = held_to_plain(torch, f"ulysses {label} {name}", a, b,
+                                                    slack=half_ulp_bf16(torch, b))
+            err = (a.float() - r.float()).abs()
+            limit = 2 * half_ulp_bf16(torch, r) + KERNEL_TOL * r.float().abs().amax()
+            rep[f"{name}_vs_unsharded"] = {
+                "max_abs_err": err.max().item(), "bitwise": bool(torch.equal(a, r)),
+                "err_over_limit": (err / limit.clamp(min=1e-30)).max().item()}
+            if not (rep[f"{name}_vs_unsharded"]["err_over_limit"] <= 1.0
+                    and bool(torch.isfinite(a).all())):
+                raise AssertionError(f"ulysses {label} {name} off the unsharded call: {rep}")
+        out[label] = rep
+        del got, plain, ref, whole
+
+    def uly(i):
+        ulysses_pass(torch, attn, mesh, q, k, v, g, None)
+
+    def whole_pass(i):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        fa.flash_attention(qq, kk, vv, causal=True).backward(g)
+
+    sync(torch)
+    cuda = device == "cuda"
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out["ulysses_ms"] = time_ms(torch, uly, iters=PARALLEL["timed"], warmup=1)
+    out["ulysses_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out["unsharded_ms"] = time_ms(torch, whole_pass, iters=PARALLEL["timed"], warmup=1)
+    out["unsharded_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda else 0
+    out["ring_ms"] = ring["ring_ms"]
+    out["ulysses_over_unsharded"] = out["ulysses_ms"] / out["unsharded_ms"]
+    out["ring_over_ulysses"] = ring["ring_ms"] / out["ulysses_ms"]
+    out["ulysses_profile"] = profiled_step(torch, lambda: uly(0), top=8)
+    log("parallel (c) virtual ulysses:", json.dumps(out))
+    return out
+
+
+TP = dict(tp=4, batch=4, seq=2048, timed=3, modes=("off", "ring"))
+
+
+def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(d): the 600m model's fwd + bwd over a virtual tp 4 world, modes off
+    and ring, against the unsharded fwd + bwd on the same weights and
+    batch; launches, times, one profiled step a mode."""
+    from accelerate_tpu_torch.accelerator import global_norm
+    from accelerate_tpu_torch.ops.collective_matmul import collective_matmul
+    from accelerate_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, make_sharding_plan, tp_shard, tp_split_dim,
+    )
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh, module_replica
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.models.llama import make_llama_loss_fn
+
+    tp = TP["tp"]
+    cfg, model, params, _, loss_fn = train_setup(torch, seed=5, device=device)
+    names = list(params)
+    batch = token_batch(torch, cfg.vocab_size, TP["batch"], device)
+    layout = _layout(tp=tp)
+    plan = make_sharding_plan(params, layout, ParallelismConfig(tp_size=tp), None,
+                              TRANSFORMER_TP_RULES)
+    dims = {n: tp_split_dim(plan[n]) for n in names}
+    shards = [{n: tp_shard(params[n], dims[n], tp, r).detach().requires_grad_()
+               for n in names} for r in range(tp)]
+    replicas = [module_replica(model) for _ in range(tp)]
+    rank_loss = [make_llama_loss_fn(m, fused_vocab_chunks=TRAIN["ce_chunks"]) for m in replicas]
+    mesh = VirtualMesh(*layout)
+
+    def unsharded():
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss = loss_fn(leaves, batch).float()
+        return loss, list(torch.autograd.grad(loss, list(leaves.values())))
+
+    def sharded(mode):
+        with collective_matmul(mode):
+            losses = mesh.run(lambda r: rank_loss[r](shards[r], batch).float(),
+                              ParallelismConfig(tp_size=tp))
+        leaves = [s[n] for s in shards for n in names]
+        flat = torch.autograd.grad(losses, leaves)
+        by_rank = [flat[r * len(names):(r + 1) * len(names)] for r in range(tp)]
+        grads = [torch.cat([by_rank[r][i] for r in range(tp)], dim=dims[n])
+                 if dims[n] is not None else by_rank[0][i] for i, n in enumerate(names)]
+        return losses[0], grads, losses
+
+    def compare(label, got, ref):
+        loss, grads = got[0], got[1]
+        rl, rg = ref
+        gn, rgn = global_norm(grads).item(), global_norm(rg).item()
+        leaf = {n: ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+                for n, a, b in zip(names, grads, rg)}
+        worst = max(leaf, key=leaf.get)
+        rep = {"loss": loss.item(), "ref_loss": rl.item(),
+               "loss_rel": abs(loss.item() - rl.item()) / abs(rl.item()),
+               "grad_norm": gn, "ref_grad_norm": rgn, "grad_norm_rel": abs(gn - rgn) / rgn,
+               "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
+               "median_leaf_rel_err": float(np.median(list(leaf.values())))}
+        if (rep["loss_rel"] > LOSS_RTOL or rep["grad_norm_rel"] > GNORM_RTOL
+                or rep["worst_leaf_rel_err"] > LEAF_RTOL or not math.isfinite(rep["loss"])):
+            raise AssertionError(f"tp {label}: off the reference step: {rep}")
+        return rep
+
+    ref = unsharded()
+    out = {"card": card, "shape": {"tp": tp, "batch": TP["batch"], "seq": TP["seq"],
+                                   "rank_heads": [cfg.num_attention_heads // tp,
+                                                  cfg.num_key_value_heads // tp],
+                                   "rank_intermediate": cfg.intermediate_size // tp,
+                                   "rank_vocab": cfg.vocab_size // tp}}
+    got = {}
+    for mode in TP["modes"]:
+        reset_counts()
+        got[mode] = sharded(mode)
+        sync(torch)
+        counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+        want = tp * cfg.num_hidden_layers
+        if any(c != want for c in counts.values()):
+            raise AssertionError(f"tp {mode}: launches {counts}, want {want} each")
+        rep = compare(mode, got[mode], ref)
+        rep["launches"] = counts
+        rep["collectives"] = dict(mesh.calls)
+        rep["ranks_loss_spread"] = max(abs(x.item() - got[mode][2][0].item())
+                                       for x in got[mode][2])
+        if mesh.calls.get("pmax") != 1:
+            raise AssertionError(f"tp {mode}: the vocab-parallel loss did not run: {mesh.calls}")
+        out[mode] = rep
+    out["ring_vs_off"] = compare("ring vs off", got["ring"], got["off"][:2])
+    del got
+    ms = {"unsharded": [], **{m: [] for m in TP["modes"]}}
+    for _ in range(TP["timed"]):
+        for label in ("unsharded",) + TP["modes"]:
+            sync(torch)
+            t0 = time.perf_counter()
+            res = unsharded() if label == "unsharded" else sharded(label)
+            sync(torch)
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            del res
+    out["step_ms"] = ms
+    out["median_ms"] = {k: float(np.median(v[1:] if len(v) > 1 else v)) for k, v in ms.items()}
+    for mode in TP["modes"]:
+        out[f"{mode}_over_unsharded"] = out["median_ms"][mode] / out["median_ms"]["unsharded"]
+        out[f"{mode}_profile"] = profiled_step(torch, lambda mode=mode: sharded(mode), top=10)
+    out["unsharded_profile"] = profiled_step(torch, unsharded, top=6)
+    sync(torch)
+    if device == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("parallel (d) virtual tp:", json.dumps(out))
+    del shards, replicas, params, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def parallel_phase(torch, fa, card: str) -> dict:
-    """Step 6e: (a) then (b); returns both and one ring pass's launches."""
+    """Step 6e: (a), (b), (c) and (d); returns each and the launches of
+    one ring pass, one Ulysses pass and one tp step in each mode."""
     one = world_of_one(torch, card)
     ring = virtual_ring(torch, fa, card)
-    return {"world_of_one": one, "ring": ring, "launches": ring["causal"]["launches"]}
+    uly = virtual_ulysses(torch, fa, card, ring)
+    tp = virtual_tp(torch, fa, card)
+    return {"world_of_one": one, "ring": ring, "ulysses": uly, "tp": tp,
+            "launches": ring["causal"]["launches"],
+            "ulysses_launches": uly["causal"]["launches"],
+            "tp_launches": {n: sum(tp[m]["launches"][n] for m in TP["modes"])
+                            for n in FLASH_REPLACES}}
 
 
 # the phases --only selects, in the order the bare call runs them
@@ -5765,6 +5999,8 @@ def main() -> int:
     if "parallel" in only:
         parallel = parallel_phase(torch, fa, card)
         PATH_LAUNCHES["parallel"] = parallel["launches"]
+        PATH_LAUNCHES["parallel_ulysses"] = parallel["ulysses_launches"]
+        PATH_LAUNCHES["parallel_tp"] = parallel["tp_launches"]
         phase_done("parallel")
 
     # each kernel's launches on its main path, and its checked calls there

@@ -2316,3 +2316,123 @@ def test_virtual_ring_on_the_kernels(cuda, packed):
         _assert_rows_close(a, b, rounding_slack=True)
         err = (a.float() - r.float()).abs()
         assert (err <= 2 * _half_ulp_bf16(r) + TOL * r.float().abs().amax()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_virtual_ulysses_on_the_kernels(cuda, packed):
+    """Ulysses over a virtual sp 4 world (each rank a thread of one
+    process, the all_to_alls in-memory re-layouts) at T 1024 and the 600m
+    heads, bf16, causal (packed: 3 segments): 4 launches each of #1 / #2 /
+    #3 a pass, each rank's 4 q / 2 kv heads over the whole sequence; out /
+    dq / dk / dv held to the same world on the plain versions and to one
+    unsharded call of #1-#3 (the same per-head work: within one bf16
+    rounding of |ref| beside the row limits)."""
+    from accelerate_tpu_torch.parallel.sequence_parallel import make_ulysses_attention
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+
+    sp, t = 4, 1024
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(sp if a == "sp" else 1 for a in MESH_AXIS_ORDER))
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    q, g = (torch.randn(1, t, H, 96, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, t, HKV, 96, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    seg = None
+    if packed:
+        seg = (torch.arange(t, device=cuda)[None, :, None]
+               >= torch.tensor([300, 700], device=cuda)[None, None]).sum(-1).int()
+
+    def world(inner):
+        attn = make_ulysses_attention(mesh, inner_attn=inner)
+        qs, ks, vs = ([c.contiguous().requires_grad_() for c in x.chunk(sp, dim=1)]
+                      for x in (q, k, v))
+        segs = seg.chunk(sp, dim=1) if seg is not None else [None] * sp
+        outs = mesh.run(lambda r: attn(qs[r], ks[r], vs[r], causal=True,
+                                       segment_ids=None if segs[r] is None
+                                       else segs[r].contiguous()),
+                        ParallelismConfig(sp_size=sp))
+        torch.autograd.backward(outs, [c.contiguous() for c in g.chunk(sp, dim=1)])
+        return [torch.cat(outs, 1).detach()] + [torch.cat([x.grad for x in xs], 1)
+                                                for xs in (qs, ks, vs)]
+
+    tfa.reset_launch_counts()
+    got = world(None)
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (sp,) * 3
+    plain = world(tfa.flash_attention_plain)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    whole = tfa.flash_attention(qq, kk, vv, causal=True,
+                                **({"segment_ids": seg} if seg is not None else {}))
+    whole.backward(g)
+    for a, b, r in zip(got, plain, (whole.detach(), qq.grad, kk.grad, vv.grad)):
+        _assert_rows_close(a, b, rounding_slack=True)
+        err = (a.float() - r.float()).abs()
+        assert (err <= 2 * _half_ulp_bf16(r) + TOL * r.float().abs().amax()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["off", "ring"])
+def test_virtual_tp_block_on_the_kernels(cuda, mode):
+    """Two layers at the 600m widths (hidden 1536, 16 q / 8 kv heads of
+    96, intermediate 4096, vocab 32000), bf16, B 2 x T 256, over a virtual
+    tp 4 world: each rank's forward on its slices (#1 at 4 q / 2 kv heads,
+    the vocab-parallel fused CE), one backward over the ranks' losses: 8
+    launches each of #1-#3; the loss, the grad norm and every re-assembled
+    leaf gradient within the batch-2 rule (loss 1e-3, norm 2 %, each leaf
+    5 %) of the unsharded step on the kernels and of the unsharded step on
+    the plain attention (``native``)."""
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.ops.collective_matmul import collective_matmul
+    from accelerate_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, make_sharding_plan, tp_shard, tp_split_dim,
+    )
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh, module_replica
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+
+    tp = 4
+    cfg = tl.LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=7)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(8))
+    batch = {"input_ids": ids, "labels": ids}
+
+    def unsharded(impl):
+        import dataclasses
+
+        m = tl.LlamaForCausalLM(dataclasses.replace(cfg, attn_implementation=impl),
+                                device="meta")
+        m.rope_cos, m.rope_sin = model.rope_cos, model.rope_sin
+        leaves = {n: p.clone().requires_grad_() for n, p in params.items()}
+        loss = tl.make_llama_loss_fn(m, fused_vocab_chunks=4)(leaves, batch).float()
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    layout = tuple(tp if a == "tp" else 1 for a in MESH_AXIS_ORDER)
+    plan = make_sharding_plan(params, (MESH_AXIS_ORDER, layout), ParallelismConfig(tp_size=tp),
+                              None, TRANSFORMER_TP_RULES)
+    names = list(params)
+    dims = {n: tp_split_dim(plan[n]) for n in names}
+    shards = [{n: tp_shard(params[n], dims[n], tp, r).clone().requires_grad_() for n in names}
+              for r in range(tp)]
+    replicas = [module_replica(model) for _ in range(tp)]
+    mesh = VirtualMesh(MESH_AXIS_ORDER, layout)
+    tfa.reset_launch_counts()
+    with collective_matmul(mode):
+        losses = mesh.run(lambda r: tl.make_llama_loss_fn(replicas[r], fused_vocab_chunks=4)(
+            shards[r], batch).float(), ParallelismConfig(tp_size=tp))
+    flat = torch.autograd.grad(losses, [s[n] for s in shards for n in names])
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (8,) * 3
+    per_rank = [flat[r * len(names):(r + 1) * len(names)] for r in range(tp)]
+    grads = [torch.cat([per_rank[r][i] for r in range(tp)], dim=dims[n])
+             if dims[n] is not None else per_rank[0][i] for i, n in enumerate(names)]
+
+    def norm(gs):
+        return torch.sqrt(sum(g.float().square().sum() for g in gs)).item()
+
+    for ref_loss, ref_grads in (unsharded("flash"), unsharded("native")):
+        assert abs(losses[0].item() - ref_loss.item()) <= 1e-3 * abs(ref_loss.item())
+        assert abs(norm(grads) - norm(ref_grads)) <= 2e-2 * norm(ref_grads)
+        for n, a, b in zip(names, grads, ref_grads):
+            rel = (a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)
+            assert rel <= 5e-2, (n, rel.item())

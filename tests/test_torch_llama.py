@@ -189,11 +189,16 @@ def test_later_slice_options_raise():
     assert quant["layers"][0]["k_scales"].shape == (cfg.num_key_value_heads, 4)
     with pytest.raises(ValueError, match="kv_dtype"):
         tl.init_paged_cache(cfg, 4, 4, 1, 4, kv_dtype="int4", device="cpu")
-    # ring attention (context parallelism) is ported; Ulysses is not
+    # ring attention (context parallelism) and Ulysses (sequence
+    # parallelism) are ported; an unknown implementation raises
     assert tl.LlamaConfig.tiny(attn_implementation="ring").attn_implementation == "ring"
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tl.LlamaConfig.tiny(attn_implementation="ulysses")
+    assert tl.LlamaConfig.tiny(attn_implementation="ulysses").attn_implementation == "ulysses"
+    with pytest.raises(ValueError, match="attn_implementation"):
+        tl.LlamaConfig.tiny(attn_implementation="sideways")
     # the scanned stack is ported: it builds
     assert tl.LlamaConfig.tiny(scan_layers=True).scan_layers
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.get_attention_impl("ulysses")
+    from accelerate_tpu_torch.parallel.sequence_parallel import ulysses_attention
+
+    assert tl.get_attention_impl("ulysses") is ulysses_attention
+    with pytest.raises(ValueError, match="unknown attention"):
+        tl.get_attention_impl("sideways")

@@ -334,12 +334,18 @@ def test_off_path_options_raise():
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(collective_matmul="on"))
-    # data and context parallelism are ported; a tp axis is the
-    # collective-matmul slice's
-    with pytest.raises(NotImplementedError, match="A13"):
-        Accelerator(cpu=True, parallelism_config=ParallelismConfig(tp_size=2))
+    from accelerate_tpu_torch.ops.collective_matmul import collective_matmul_mode
+
+    # the collective matmul is ported: the plugin installs its mode, a
+    # plugin-less Accelerator clears it
+    Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(collective_matmul="on"))
+    assert collective_matmul_mode() == "ring"
+    Accelerator(cpu=True)
+    assert collective_matmul_mode() == "off"
+    # data, context, tensor and sequence parallelism are ported; a pp axis is
+    # the pipeline slice's
+    with pytest.raises(NotImplementedError, match="A13c"):
+        Accelerator(cpu=True, parallelism_config=ParallelismConfig(pp_size=2))
     assert FullyShardedDataParallelPlugin(
         sharding_strategy="SHARD_GRAD_OP").sharding_strategy == "SHARD_GRAD_OP"
     fp16 = Accelerator(cpu=True, mixed_precision="fp16")
@@ -367,9 +373,10 @@ def test_off_path_options_raise():
     with pytest.raises(RuntimeError, match="prepared train step"):
         acc.backward()
     assert tl.LlamaConfig.tiny(remat=True, remat_policy="dots", scan_layers=True).remat
-    # the ring is ported (parallel/context_parallel.py); Ulysses is not
+    # the ring (parallel/context_parallel.py) and Ulysses
+    # (parallel/sequence_parallel.py) are ported
     from accelerate_tpu_torch.parallel.context_parallel import ring_attention
+    from accelerate_tpu_torch.parallel.sequence_parallel import ulysses_attention
 
     assert tl.get_attention_impl("ring") is ring_attention
-    with pytest.raises(NotImplementedError, match="A13"):
-        tl.get_attention_impl("ulysses")
+    assert tl.get_attention_impl("ulysses") is ulysses_attention
