@@ -74,6 +74,12 @@ vocab-parallel embedding and fused CE (``models/llama.py``,
 collective-matmul boundary (``parallel/sequence_parallel.py``), the
 differentiable collectives and the in-process virtual world the card runs
 them in (``parallel/collectives.py``, ``parallel/virtual.py``).
+Its nineteenth slice is pipeline and expert parallelism: the GPipe
+schedule over a ``pp`` axis (``parallel/pipeline_parallel.py``:
+``prepare_pipeline``, ``PipelinedModel``), capacity top-k routing, the
+dense dispatch and the ep split (``parallel/expert_parallel.py``), the
+Mixtral MoE family with its HF loader (``models/mixtral.py``,
+``models.load_hf_mixtral``) and ``utils/other.py``.
 """
 
 from . import hooks
@@ -122,7 +128,17 @@ from .hooks import (
     attach_align_device_hook,
     remove_hook_from_module,
 )
-from .models import LlamaConfig, LlamaForCausalLM, load_hf_llama, make_llama_loss_fn
+from .models import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    MixtralConfig,
+    MixtralForCausalLM,
+    load_hf_llama,
+    load_hf_mixtral,
+    make_llama_loss_fn,
+    make_mixtral_loss_fn,
+)
+from .parallel.pipeline_parallel import PipelinedModel, prepare_pipeline
 from .ops.precision import layerwise_casting
 from .ops.streaming import LayerPrefetcher, StreamStats
 from .ops.quantized_matmul import quantized_matmul
@@ -177,8 +193,11 @@ __all__ = [
     "LlamaConfig",
     "LlamaForCausalLM",
     "LoraPlugin",
+    "MixtralConfig",
+    "MixtralForCausalLM",
     "ModelHook",
     "ParallelismConfig",
+    "PipelinedModel",
     "ProjectConfiguration",
     "QuantizationConfig",
     "QuantizedTensor",
@@ -218,14 +237,17 @@ __all__ = [
     "load_checkpoint_and_serve",
     "load_checkpoint_in_model",
     "load_hf_llama",
+    "load_hf_mixtral",
     "lora_apply",
     "make_llama_loss_fn",
+    "make_mixtral_loss_fn",
     "make_optimizer",
     "offload_state_dict",
     "offload_store_params",
     "offloaded_apply",
     "place_params_host",
     "prepare_data_loader",
+    "prepare_pipeline",
     "quantize",
     "quantize_model_",
     "quantize_params",

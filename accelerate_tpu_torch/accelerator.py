@@ -71,11 +71,21 @@ range, the loss the global token mean.  The collectives façade
 the flag across it, and ``maybe_context_parallel`` hands each rank its
 zigzag shard of the step's buffers.
 
+Tensor and sequence parallelism (``tp`` / ``sp``, the collective-matmul
+ring) lay the Llama's weights out in Megatron slices; under ``ep`` the MoE
+table splits each Mixtral expert leaf's experts over the ep ranks, which
+read the same batch (``non_data_parallel_size`` counts ep), route alike,
+run their own experts and sum their partial outputs (``models/
+mixtral.py``); a ``pp`` axis builds its world, and
+``parallel.pipeline_parallel.prepare_pipeline`` runs a model as a GPipe
+pipeline over it (``unwrap_model`` gives the model back, the
+pipeline's trained tensors copied into it).
+
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item (A13a-A13h): tp / sp / ep / pp axes and the collective-matmul ring,
-PowerSGD / hierarchical gradient compression, the peer snapshots and
-``recover``, rank loss and stragglers; ``cpu_offload``, fp8 delayed
-scaling and checkpoints under a plan of several ranks.  The donation
+item: PowerSGD / hierarchical gradient compression (A13e), the peer
+snapshots and ``recover``, rank loss and stragglers (A13f); ``cpu_offload``,
+fp8 delayed scaling and checkpoints under a plan of several ranks, Mixtral
+under tp and pp composed with tp / cp / sp (A13h).  The donation
 audit and compile counter (``audit_step``, ``compile_events``) have no
 eager meaning and are not ported.
 """
@@ -222,9 +232,9 @@ class Accelerator:
             if not isinstance(parallelism_config, ParallelismConfig):
                 raise TypeError(f"parallelism_config must be a ParallelismConfig, got "
                                 f"{type(parallelism_config).__name__}")
-            for axis, item in (("pp", "A13c"), ("ep", "A13d")):
-                if getattr(parallelism_config, f"{axis}_size") > 1:
-                    raise _not_ported(f"a {axis} axis of more than one rank", item)
+            pc = parallelism_config
+            if pc.pp_size > 1 and max(pc.tp_size, pc.cp_size, pc.sp_size) > 1:
+                raise _not_ported("pipeline parallelism composed with tp / cp / sp", "A13h")
         if fsdp_plugin is not None and not isinstance(fsdp_plugin,
                                                       FullyShardedDataParallelPlugin):
             raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallelPlugin, got "
@@ -724,7 +734,8 @@ class Accelerator:
             plan = DataParallelPlan(self.mesh, pcfg, self.fsdp_plugin, params,
                                     align=parallel_align(self.fsdp_plugin),
                                     tp_rules=tp_rules_for(pcfg, self.tp_config))
-            if self.mixed_precision == "fp8" and (plan.world > 1 or plan.tp > 1):
+            if self.mixed_precision == "fp8" and (plan.world > 1 or plan.tp > 1
+                                                  or plan.ep > 1):
                 raise _not_ported("fp8 delayed scaling across several ranks", "A13h")
             stored = plan.shard_params(params)
             if module is not None:
@@ -1309,9 +1320,15 @@ class Accelerator:
         return contextlib.nullcontext()
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
-        """The module inside ``torch.compile``'s and the data-parallel
-        wrappers (``_orig_mod`` / ``module``); the port wraps no module
-        itself, so a prepared model comes back as it is (JAX :2086)."""
+        """The module inside a pipeline's :class:`~.parallel.pipeline_parallel.
+        PipelinedModel`, holding the pipeline's trained tensors (``utils.
+        other.extract_model_from_parallel``: every rank calls it), and
+        inside ``torch.compile``'s and the data-parallel wrappers
+        (``_orig_mod`` / ``module``); the port wraps no module itself
+        otherwise, so a prepared model comes back as it is (JAX :2086)."""
+        from .utils.other import extract_model_from_parallel
+
+        model = extract_model_from_parallel(model, keep_fp32_wrapper)
         while True:
             inner = getattr(model, "_orig_mod", None)
             if inner is None and isinstance(model, (nn.DataParallel,
@@ -1499,7 +1516,7 @@ class Accelerator:
         from .checkpointing import save_accelerator_state
 
         if train_state is not None and self._dp_plan is not None and (
-                self._dp_plan.world > 1 or self._dp_plan.tp > 1):
+                self._dp_plan.world > 1 or self._dp_plan.tp > 1 or self._dp_plan.ep > 1):
             raise _not_ported("checkpoints of a train state across several ranks", "A13h")
 
         return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)

@@ -1,5 +1,5 @@
-"""The port's models: the Llama family, for serving and training; BERT and
-ResNet, the models of the examples."""
+"""The port's models: the Llama family, for serving and training; the
+Mixtral MoE family; BERT and ResNet, the models of the examples."""
 
 from .bert import BertConfig, BertForSequenceClassification, make_bert_loss_fn
 from .convert import (
@@ -13,8 +13,10 @@ from .hf_interop import (
     hf_bert_key_map,
     hf_llama_key_map,
     hf_llama_tensor_map,
+    hf_mixtral_key_map,
     load_hf_bert,
     load_hf_llama,
+    load_hf_mixtral,
 )
 from .llama import (
     LlamaConfig,
@@ -31,6 +33,12 @@ from .llama import (
     stack_layer_params,
     unstack_layer_params,
 )
+from .mixtral import (
+    MixtralConfig,
+    MixtralForCausalLM,
+    count_active_params,
+    make_mixtral_loss_fn,
+)
 from .resnet import ResNet, ResNetConfig, make_resnet_loss_fn
 
 __all__ = [
@@ -46,6 +54,12 @@ __all__ = [
     "torch_state_from_flax_resnet",
     "LlamaConfig",
     "LlamaForCausalLM",
+    "MixtralConfig",
+    "MixtralForCausalLM",
+    "count_active_params",
+    "hf_mixtral_key_map",
+    "load_hf_mixtral",
+    "make_mixtral_loss_fn",
     "causal_lm_loss",
     "count_params",
     "dequantize_kv_pages",

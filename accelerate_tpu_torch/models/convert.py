@@ -1,6 +1,7 @@
-"""Carry a JAX Llama param tree into the port's parameters (an unrolled
-tree, or a ``scan_layers`` one: ``layers_scan/block`` stacked on a leading
-layer axis).
+"""Carry a JAX Llama or Mixtral param tree into the port's parameters (an
+unrolled tree, or a ``scan_layers`` one: ``layers_scan/block`` stacked on
+a leading layer axis; a Mixtral's router ``[D, E]`` kernel transposed to
+``[E, D]``, its stacked experts as they are).
 
 This is how the parity tests run both frameworks on the same weights: the
 JAX package's tree (nested dicts of numpy arrays, ``params/layers_{i}/
@@ -57,6 +58,16 @@ _FLAX_TO_HF: list[tuple[str, str]] = [
      r"model.layers_scan.\1.mlp.\2_proj.weight"),
     (r"^params\.layers_scan\.(block(?:_\d+)?)\.(input_layernorm|post_attention_layernorm)"
      r"\.scale$", r"model.layers_scan.\1.\2.weight"),
+    # a Mixtral tree: the router's [D, E] kernel, the stacked experts as
+    # they are
+    (r"^params\.layers_(\d+)\.block_sparse_moe\.router\.kernel$",
+     r"model.layers.\1.block_sparse_moe.gate.weight"),
+    (r"^params\.layers_(\d+)\.block_sparse_moe\.experts\.(gate_proj|up_proj|down_proj)$",
+     r"model.layers.\1.block_sparse_moe.experts.\2"),
+    (r"^params\.layers_scan\.(block(?:_\d+)?)\.block_sparse_moe\.router\.kernel$",
+     r"model.layers_scan.\1.block_sparse_moe.gate.weight"),
+    (r"^params\.layers_scan\.(block(?:_\d+)?)\.block_sparse_moe\.experts\."
+     r"(gate_proj|up_proj|down_proj)$", r"model.layers_scan.\1.block_sparse_moe.experts.\2"),
 ]
 
 

@@ -7,9 +7,16 @@ uses the HF names themselves, so a HF checkpoint's tensors load as they
 are; these maps relate those names to the JAX package's param paths, which
 is what :mod:`.convert` needs to carry a JAX param tree across.
 :func:`load_hf_llama` (JAX :79) streams a HF-format checkpoint file, index
-or directory into the port's model; :func:`load_hf_bert` (JAX :272) a HF
-BERT sequence classifier into ``models/bert.py``'s.  The Mixtral and T5
-loaders wait for their models (ROADMAP A13 / A14).
+or directory into the port's model; :func:`load_hf_mixtral` (JAX :173) a
+HF Mixtral checkpoint, its per-expert tensors stacked as they stream
+(:func:`_stack_expert_stream`); :func:`load_hf_bert` (JAX :272) a HF BERT
+sequence classifier into ``models/bert.py``'s.  The T5 loader waits for
+its model (ROADMAP A14).
+
+The port's Mixtral keeps HF's router name (``block_sparse_moe.gate.weight``
+``[E, D]``, the JAX ``router/kernel`` transposed) and the JAX package's
+stacked experts (``block_sparse_moe.experts.{gate,up,down}_proj``, JAX
+layout); :func:`hf_llama_key_map` knows both.
 """
 
 from __future__ import annotations
@@ -43,6 +50,25 @@ _LLAMA_RULES: list[tuple[str, str]] = [
      r"\.weight$", r"params.layers_scan.\1.\2.scale"),
 ]
 
+# the port's Mixtral parameters (models/mixtral.py), unrolled and scanned
+_MIXTRAL_RULES: list[tuple[str, str]] = [
+    (r"^model\.layers\.(\d+)\.block_sparse_moe\.gate\.weight$",
+     r"params.layers_\1.block_sparse_moe.router.kernel"),
+    (r"^model\.layers\.(\d+)\.block_sparse_moe\.experts\.(gate_proj|up_proj|down_proj)$",
+     r"params.layers_\1.block_sparse_moe.experts.\2"),
+    (r"^model\.layers_scan\.(block(?:_\d+)?)\.block_sparse_moe\.gate\.weight$",
+     r"params.layers_scan.\1.block_sparse_moe.router.kernel"),
+    (r"^model\.layers_scan\.(block(?:_\d+)?)\.block_sparse_moe\.experts\."
+     r"(gate_proj|up_proj|down_proj)$", r"params.layers_scan.\1.block_sparse_moe.experts.\2"),
+]
+
+# HF Mixtral's per-expert tensors, stacked by the loader (JAX :34-41)
+_MIXTRAL_EXPERT_RE = re.compile(
+    r"^model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)\.w([123])\.weight$")
+_MIXTRAL_STACKED_RE = re.compile(
+    r"^model\.layers\.(\d+)\.block_sparse_moe\.experts_stacked\.(\w+)$")
+_EXPERT_PROJ = {"1": "gate_proj", "2": "down_proj", "3": "up_proj"}
+
 # HF buffers with no parameter (recomputed from the config)
 _SKIP = re.compile(r"rotary_emb\.inv_freq$")
 
@@ -52,10 +78,19 @@ def hf_llama_key_map(name: str) -> Optional[str]:
     or None for buffers that are skipped.  Unknown names pass through."""
     if _SKIP.search(name):
         return None
-    for pattern, template in _LLAMA_RULES:
+    for pattern, template in _LLAMA_RULES + _MIXTRAL_RULES:
         if re.match(pattern, name):
             return re.sub(pattern, template, name)
     return name
+
+
+def hf_mixtral_key_map(name: str) -> Optional[str]:
+    """:func:`hf_llama_key_map` plus the synthetic ``experts_stacked``
+    names :func:`_stack_expert_stream` emits (JAX :124)."""
+    m = _MIXTRAL_STACKED_RE.match(name)
+    if m:
+        return f"params.layers_{m.group(1)}.block_sparse_moe.experts.{m.group(2)}"
+    return hf_llama_key_map(name)
 
 
 def hf_llama_tensor_map(our_key: str, arr: np.ndarray) -> np.ndarray:
@@ -107,6 +142,65 @@ def load_hf_llama(model, checkpoint, *, dtype=None, strict: bool = True, **kwarg
                 "pass strict=False to leave lm_head as it is."
             ) from e
         raise
+
+
+def _stack_expert_stream(checkpoint, num_experts: int):
+    """A HF Mixtral tensor stream with its per-expert ``w1`` / ``w2`` /
+    ``w3`` ``[out, in]`` tensors transposed and buffered per (layer,
+    projection); once all ``num_experts`` have arrived, one stacked ``[E,
+    in, out]`` tensor goes on under a synthetic ``experts_stacked`` name and
+    the buffer entry is freed (HF files are layer-ordered: at most about
+    one layer's projections are held).  Other tensors pass through.
+    Raises on groups still incomplete at the end (JAX :137)."""
+    from ..big_modeling import _iter_checkpoint_tensors
+
+    buf: dict = {}
+    for name, tensor in _iter_checkpoint_tensors(checkpoint):
+        m = _MIXTRAL_EXPERT_RE.match(name)
+        if not m:
+            yield name, tensor
+            continue
+        layer, eidx, w = m.group(1), int(m.group(2)), m.group(3)
+        key = (layer, _EXPERT_PROJ[w])
+        buf.setdefault(key, {})[eidx] = torch.as_tensor(tensor).t()
+        if len(buf[key]) == num_experts:
+            group = buf.pop(key)
+            yield (f"model.layers.{layer}.block_sparse_moe.experts_stacked.{key[1]}",
+                   torch.stack([group[i] for i in range(num_experts)]))
+    if buf:
+        raise ValueError(
+            "incomplete expert groups in checkpoint: "
+            + ", ".join(f"layer {layer} {proj}: have {sorted(g)} of {num_experts}"
+                        for (layer, proj), g in buf.items()))
+
+
+def _mixtral_port_key(name: str) -> Optional[str]:
+    """A HF Mixtral name (or a stacked one) -> the port's parameter name."""
+    if _SKIP.search(name):
+        return None
+    m = _MIXTRAL_STACKED_RE.match(name)
+    if m:
+        return f"model.layers.{m.group(1)}.block_sparse_moe.experts.{m.group(2)}"
+    return name
+
+
+def load_hf_mixtral(model, checkpoint, *, dtype=None, strict: bool = True, **kwargs):
+    """Stream a HF-format Mixtral checkpoint into the port's
+    ``MixtralForCausalLM`` in one pass (JAX :173): shared weights load as
+    the Llama's, the per-expert tensors stacked into ``[E, D, F]`` / ``[E,
+    F, D]`` by :func:`_stack_expert_stream`, so placement, the dtype cast
+    and ``strict`` apply to the experts as to every other weight.  Keyword
+    arguments as :func:`load_hf_llama`'s.  Returns ``(model, store or
+    None)``."""
+    from ..big_modeling import load_checkpoint_and_dispatch
+
+    if getattr(model.config, "scan_layers", False):
+        raise ValueError(
+            "load_hf_mixtral needs the unrolled layer stack; load with scan_layers=False, "
+            "then convert via stack_layer_params")
+    stream = _stack_expert_stream(checkpoint, model.config.num_local_experts)
+    return load_checkpoint_and_dispatch(model, stream, dtype=dtype, strict=strict,
+                                        key_map=_mixtral_port_key, **kwargs)
 
 
 # -- BERT (encoder classifier; JAX :199-290) ------------------------------------

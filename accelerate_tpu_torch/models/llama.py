@@ -817,18 +817,23 @@ class LMHead(nn.Module):
         return y
 
 
-def _stacked_block(cfg: LlamaConfig, n_iter: int) -> LlamaBlock:
-    """A :class:`LlamaBlock` whose every parameter has a leading axis of
+def _stacked_block(cfg: LlamaConfig, n_iter: int, block_cls=LlamaBlock) -> nn.Module:
+    """A ``block_cls`` layer whose every parameter has a leading axis of
     ``n_iter`` (one slice per scan iteration)."""
-    block = LlamaBlock(cfg)
+    block = block_cls(cfg)
     for mod in block.modules():
         for name, p in list(mod._parameters.items()):
-            setattr(mod, name, nn.Parameter(torch.empty(n_iter, *p.shape, dtype=p.dtype)))
+            if p is not None:
+                setattr(mod, name, nn.Parameter(torch.empty(n_iter, *p.shape, dtype=p.dtype)))
     return block
 
 
 class _LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig):
+    """The embedding, the layer stack of ``block_cls`` layers (JAX's
+    ``block_cls``, :762: the Mixtral block swaps the MLP) and the final
+    norm."""
+
+    def __init__(self, config: LlamaConfig, block_cls=LlamaBlock):
         super().__init__()
         cfg = config
         # from an empty table: _init_weights draws every parameter, so the
@@ -843,9 +848,9 @@ class _LlamaModel(nn.Module):
             self.layers_scan = nn.Module()
             for j in range(bs):
                 self.layers_scan.add_module("block" if bs == 1 else f"block_{j}",
-                                            _stacked_block(cfg, n_iter))
+                                            _stacked_block(cfg, n_iter, block_cls))
         else:
-            self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.num_hidden_layers))
+            self.layers = nn.ModuleList(block_cls(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
 
     def layer_calls(self) -> list:
@@ -1012,14 +1017,17 @@ class LlamaForCausalLM(nn.Module):
     with random weights from ``seed``; ``load_state_dict`` replaces them
     (``models/convert.py`` builds one from a JAX param tree).  Parameters
     are trainable; the serving engine and ``generate`` run under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``.  ``block_cls`` is the layer class
+    (subclasses swap it: ``models/mixtral.py``)."""
+
+    block_cls = LlamaBlock
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
         with torch.device(dev):
-            self.model = _LlamaModel(config)
+            self.model = _LlamaModel(config, type(self).block_cls)
             self.lm_head = LMHead(config.hidden_size, config.vocab_size, config.dtype)
         if config.tie_word_embeddings:
             # one [V, H] parameter: the head contracts hidden against the
@@ -1049,7 +1057,19 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
         """Linear weights ~ N(0, 1/fan_in), embeddings ~ N(0, 1), norm
-        scales 1 — drawn on the model's device from ``seed``.  The two
+        scales 1 — drawn on the model's device from ``seed``
+        (:meth:`_init_std`)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for name, p in self.named_parameters():
+            if name.endswith("layernorm.weight") or name == "model.norm.weight":
+                p.fill_(1.0)
+                continue
+            p.copy_(torch.randn(p.shape, generator=gen, device=self.device)
+                    * self._init_std(name, p))
+
+    def _init_std(self, name: str, p: torch.Tensor) -> float:
+        """The standard deviation of parameter ``name``'s draw: 1 for the
+        embedding, ``1 / sqrt(fan_in)`` for a linear weight.  The two
         projections that write into the residual stream (``o_proj``,
         ``down_proj``) are further scaled by ``1 / (2 * layers)``, so the
         stream stays dominated by its input.  A random bf16 model of 16
@@ -1058,16 +1078,10 @@ class LlamaForCausalLM(nn.Module):
         attention output grows into the logits until a kernel and its
         plain version no longer agree on the argmax at 98 % of
         positions."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        residual_scale = 1.0 / (2 * self.config.num_hidden_layers)
-        for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "model.norm.weight":
-                p.fill_(1.0)
-                continue
-            std = 1.0 if "embed_tokens" in name else 1.0 / math.sqrt(p.shape[-1])
-            if name.endswith(("o_proj.weight", "down_proj.weight")):
-                std *= residual_scale
-            p.copy_(torch.randn(p.shape, generator=gen, device=self.device) * std)
+        std = 1.0 if "embed_tokens" in name else 1.0 / math.sqrt(p.shape[-1])
+        if name.endswith(("o_proj.weight", "down_proj.weight")):
+            std *= 1.0 / (2 * self.config.num_hidden_layers)
+        return std
 
     def _remat_stack(self, layers: list, x, positions, kw: dict):
         """The uncached layer stack under ``remat``: each layer

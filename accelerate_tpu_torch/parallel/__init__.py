@@ -1,4 +1,5 @@
 """Parallelism over ``torch.distributed`` (mirrors
 ``accelerate_tpu/parallel/``): the mesh collectives, the FSDP and tp
 sharding plan and the sharded step, ring attention, Ulysses attention,
-and the in-process virtual world that runs a gang's ranks on one card."""
+the GPipe pipeline, MoE routing and the expert split, and the in-process
+virtual world that runs a gang's ranks on one card."""

@@ -31,6 +31,13 @@ whole -sr8 blocks) is updated on ranges of the whole leaf's flatten: its
 gradient is gathered over ``tp`` before the update and the new values
 after.  :meth:`whole_params` gathers whole leaves.
 
+Under ``ep`` an expert leaf is split the same way over ``ep`` (its
+dimension 0, ``LeafLayout.model_axis``): the rank holds its experts, their
+gradients are its own, summed over the data-parallel axes, and the global
+norm sums their squares over ``ep`` once; the replicated leaves'
+gradients are whole on every ep rank (``models/mixtral.py``: ``psum`` /
+``pbroadcast``) and are not summed over ``ep``.
+
 A dimension of one rank runs no collective, so in a world of one process
 every step is the single-process step's, bit for bit.
 """
@@ -62,8 +69,10 @@ class DataParallelPlan:
         self.dp_axes = tuple(a for a in names if collectives.axis_size(a, mesh) > 1)
         self.world = _size(self.dp_axes, mesh)
         self.tp = collectives.axis_size("tp", mesh)
+        self.ep = collectives.axis_size("ep", mesh)
         # every rank of the step: where a flag must agree
-        self.all_axes = self.dp_axes + (("tp",) if self.tp > 1 else ())
+        self.all_axes = self.dp_axes + tuple(a for a in ("tp", "ep")
+                                             if collectives.axis_size(a, mesh) > 1)
 
     @property
     def any_sharded(self) -> bool:
@@ -100,14 +109,14 @@ class DataParallelPlan:
     def _tp_slice(self, t: torch.Tensor, lay: LeafLayout) -> torch.Tensor:
         if lay.tp_dim is None:
             return t
-        return tp_shard(t, lay.tp_dim, lay.tp_ways, self._coord(("tp",)))
+        return tp_shard(t, lay.tp_dim, lay.tp_ways, self._coord((lay.model_axis,)))
 
     def _tp_whole(self, t: torch.Tensor, lay: LeafLayout) -> torch.Tensor:
-        """The whole leaf from every tp rank's slice ``t``."""
+        """The whole leaf from every model-axis rank's slice ``t``."""
         if lay.tp_dim is None:
             return t
-        return collectives.all_gather(t.detach().contiguous(), "tp", axis=lay.tp_dim,
-                                      mesh=self.mesh)
+        return collectives.all_gather(t.detach().contiguous(), lay.model_axis,
+                                      axis=lay.tp_dim, mesh=self.mesh)
 
     def shard_params(self, params: dict) -> dict:
         """Each rank's parameters at rest: its tp slice, and its range of
@@ -218,8 +227,8 @@ class DataParallelPlan:
         for g, lay in zip(grads, self.layouts.values()):
             sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
             axes = lay.opt_axes if lay.sharded else ()
-            if lay.tp_dim is not None and "tp" not in axes:
-                axes = axes + ("tp",)
+            if lay.tp_dim is not None and lay.model_axis not in axes:
+                axes = axes + (lay.model_axis,)
             groups.setdefault(axes, []).append(sq)
         total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         for axes, squares in groups.items():

@@ -33,6 +33,13 @@ slice whose -sr8 blocks are not whole blocks of the leaf's flatten (a
 dimension-1 slice narrower than a block, or a slice of fewer elements)
 is updated as ranges of the whole leaf's flatten over ``tp`` instead
 (``LeafLayout.relay``), so every update stays bitwise the whole leaf's.
+
+Under ``ep > 1`` the plan applies the MoE table (``expert_parallel.
+MOE_EP_RULES`` ahead of the transformer table): each stacked expert leaf
+splits its dimension 0 (the experts) over ``ep``, a real split as tp's
+(``LeafLayout.model_axis``): a rank holds ``E / ep`` whole experts, a
+contiguous range of the leaf's flatten, so the -sr / -sr8 blocks update
+in place under the whole leaf's salts.
 """
 
 from __future__ import annotations
@@ -295,22 +302,41 @@ TRANSFORMER_TP_RULES: list = [
 
 def tp_rules_for(parallelism_config: Optional[ParallelismConfig], tp_config=None) -> list:
     """The rule table a train state's plan applies (JAX ``_params_plan``):
-    the ``tp_config``'s plan, else the transformer table under ``tp > 1``,
-    else none."""
+    the ``tp_config``'s plan, else the MoE table under ``ep > 1`` (the
+    expert leaves split over ``ep``), else the transformer table under
+    ``tp > 1``, else none."""
     if tp_config is not None:
         return list(get_tp_rules(tp_config.plan))
+    if parallelism_config is not None and parallelism_config.ep_size > 1:
+        return list(get_tp_rules("moe"))
     if parallelism_config is not None and parallelism_config.tp_size > 1:
         return list(get_tp_rules("auto"))
     return []
 
 
-def tp_split_dim(spec) -> Optional[int]:
-    """The dimension a spec splits over ``tp``, or None."""
+# the model axes: a leaf split over one is held as a slice by each rank
+MODEL_AXES = ("tp", "ep")
+
+
+def tp_split_dim(spec, axis: str = "tp") -> Optional[int]:
+    """The dimension a spec splits over ``axis`` (``tp``), or None."""
     for d, entry in enumerate(spec):
         axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        if "tp" in axes:
+        if axis in axes:
             return d
     return None
+
+
+def model_split(spec, sizes: dict) -> tuple[Optional[str], Optional[int]]:
+    """``(axis, dimension)`` of the model axis (``tp`` or ``ep``, the
+    first of more than one rank) a spec splits a leaf over, or ``(None,
+    None)``.  A leaf split over both is not ported (ROADMAP A13h)."""
+    found = [(a, tp_split_dim(spec, a)) for a in MODEL_AXES
+             if sizes.get(a, 1) > 1 and tp_split_dim(spec, a) is not None]
+    if len(found) > 1:
+        raise NotImplementedError("a leaf split over both tp and ep is not ported yet "
+                                  "(ROADMAP item A13h)")
+    return found[0] if found else (None, None)
 
 
 def tp_shard(t, dim: Optional[int], ways: int, index: int):
@@ -328,8 +354,9 @@ def get_tp_rules(plan: str = "auto"):
     if plan in ("none", None):
         return []
     if plan in ("moe", "mixtral"):
-        raise NotImplementedError("the MoE tp rules come with expert parallelism "
-                                  "(ROADMAP item A13d)")
+        from .expert_parallel import get_moe_rules
+
+        return get_moe_rules()
     raise ValueError(f"unknown tp plan {plan!r}")
 
 
@@ -355,14 +382,16 @@ class LeafLayout:
     param_ways: int
     opt_ways: int
     chunk: int
-    # the tp split: the leaf's whole shape, the port dimension split over
-    # tp (None: whole on every tp rank) and its ways; ``shape`` / ``numel``
-    # are then the rank's slice's.  ``relay``: the optimizer's ranges lie
-    # over the whole leaf's flatten, over tp (``opt_axes == ("tp",)``)
+    # the model split: the leaf's whole shape, the port dimension split
+    # over ``model_axis`` (tp, or ep for an expert leaf; None: whole on
+    # every rank of it) and its ways; ``shape`` / ``numel`` are then the
+    # rank's slice's.  ``relay``: the optimizer's ranges lie over the whole
+    # leaf's flatten, over the model axis (``opt_axes == (model_axis,)``)
     whole_shape: tuple = ()
     tp_dim: Optional[int] = None
     tp_ways: int = 1
     relay: bool = False
+    model_axis: str = "tp"
 
     @property
     def extra(self) -> int:
@@ -400,22 +429,25 @@ def leaf_layouts(params: dict, mesh, parallelism_config: ParallelismConfig,
     out = {}
     for name, leaf in params.items():
         whole = _shape(leaf)
-        tp_dim = tp_split_dim(plan[name]) if whole else None
-        tp_ways = sizes.get("tp", 1) if tp_dim is not None else 1
+        axis, tp_dim = model_split(plan[name], sizes) if whole else (None, None)
+        axis = axis or "tp"
+        tp_ways = sizes.get(axis, 1) if tp_dim is not None else 1
         shape = list(whole)
         if tp_dim is not None:
             shape[tp_dim] //= tp_ways
         shape = tuple(shape)
-        p_axes = tuple(a for a in spec_axes(plan[name]) if a != "tp")
-        o_axes = tuple(a for a in spec_axes(opt_plan[f"mu/{name}"]) if a != "tp") if whole else ()
+        p_axes = tuple(a for a in spec_axes(plan[name]) if a not in MODEL_AXES)
+        o_axes = (tuple(a for a in spec_axes(opt_plan[f"mu/{name}"]) if a not in MODEL_AXES)
+                  if whole else ())
         if o_axes[:len(p_axes)] != p_axes:
             raise ValueError(f"{name}: optimizer axes {o_axes} do not extend the parameter's "
                              f"{p_axes}")
         relay = tp_dim is not None and not _blocks_whole(whole, tp_dim, tp_ways, align)
         if relay:
             # the slice is not whole blocks: the update runs on ranges of
-            # the whole leaf's flatten over tp, the slice stays whole over dp
-            p_axes, o_axes = (), ("tp",)
+            # the whole leaf's flatten over the model axis, the slice stays
+            # whole over dp
+            p_axes, o_axes = (), (axis,)
             numel = math.prod(whole)
             o_ways = tp_ways
         else:
@@ -426,5 +458,5 @@ def leaf_layouts(params: dict, mesh, parallelism_config: ParallelismConfig,
                                opt_axes=o_axes,
                                param_ways=_axis_size(sizes, p_axes) if p_axes else 1,
                                opt_ways=o_ways, chunk=chunk, whole_shape=whole, tp_dim=tp_dim,
-                               tp_ways=tp_ways, relay=relay)
+                               tp_ways=tp_ways, relay=relay, model_axis=axis)
     return out

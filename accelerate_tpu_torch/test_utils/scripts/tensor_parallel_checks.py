@@ -212,12 +212,14 @@ def _global_index(lay, coord: int, local_idx: torch.Tensor) -> torch.Tensor:
     return flat
 
 
-def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw) -> dict:
-    """Two updates of each recipe on bf16 tiny-Llama leaves laid out by
-    the tp plan (tp slices, their dp ranges, relay leaves) given the same
-    reduced gradients (dp coordinate 0 sends its tp slice of the whole
-    gradients, the others zeros), against the whole-leaf update here:
-    params and optimizer state, bitwise."""
+def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw,
+                            family: str = "llama") -> dict:
+    """Two updates of each recipe on bf16 tiny-Llama (``family="mixtral"``:
+    tiny-Mixtral) leaves laid out by the tp (ep) plan (model-axis slices,
+    their dp ranges, relay leaves) given the same reduced gradients (dp
+    coordinate 0 sends its slice of the whole gradients, the others
+    zeros), against the whole-leaf update here: params and optimizer
+    state, bitwise."""
     from ...models import llama as tl
     from ...ops.stochastic_rounding import flax_leaf_order
     from ...optimizer import make_optimizer
@@ -227,8 +229,14 @@ def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw) -> d
     from ...state import AcceleratorState
 
     mesh = AcceleratorState(cpu=True, parallelism_config=config).mesh
-    model = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(dtype=torch.bfloat16, **model_kw),
-                                device="cpu", seed=3)
+    if family == "mixtral":
+        from ...models import mixtral as tm
+
+        model = tm.MixtralForCausalLM(tm.MixtralConfig.tiny(dtype=torch.bfloat16, **model_kw),
+                                      device="cpu", seed=3)
+    else:
+        model = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(dtype=torch.bfloat16, **model_kw),
+                                    device="cpu", seed=3)
     named = dict(model.named_parameters())
     full = {n: named[n].detach().to(torch.bfloat16).clone() for n in flax_leaf_order(named)}
     rng = np.random.default_rng(7)
@@ -236,7 +244,6 @@ def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw) -> d
               for p in full.values()] for _ in range(2)]
     dp_axes = tuple(a for a in ("dp_shard",) if C.axis_size(a, mesh) > 1)
     dp0 = not dp_axes or C.axis_index(dp_axes, mesh) == 0
-    tpc = C.axis_index("tp", mesh)
     out = {}
     plan = None
     for recipe in recipes:
@@ -271,6 +278,7 @@ def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw) -> d
                     continue
                 flat = (C.gather_flat(a, C.group(lay.opt_axes, mesh)) if lay.sharded
                         else a.reshape(-1))
+                tpc = C.axis_index(lay.model_axis, mesh)
                 if b.numel() == lay.whole_numel:      # param-shaped: the slice's elements
                     idx = _global_index(lay, tpc, torch.arange(lay.numel))
                     same_state &= torch.equal(flat[:lay.numel], b[idx])
@@ -284,6 +292,8 @@ def _sharded_update_bitwise(rank, world, config, plugin, recipes, model_kw) -> d
     out["tp_dim1"] = sorted(n for n, lay in plan.layouts.items()
                             if lay.tp_dim == 1 and not lay.relay)
     out["tp_leaves"] = sorted(n for n, lay in plan.layouts.items() if lay.tp_dim is not None)
+    out["model_axes"] = sorted({lay.model_axis for lay in plan.layouts.values()
+                                if lay.tp_dim is not None})
     return out
 
 

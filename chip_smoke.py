@@ -7,8 +7,8 @@ python3 chip_smoke.py [--before DIR] [--seed N] [--only PHASE[,PHASE]]
 The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
 ``train_resume``: 6a; ``memory_recipes``: 6b; ``lora_train``: 6c;
-``examples``: 6d; ``parallel``: 6e) and prints the kernels line for the
-kernels they reached.
+``examples``: 6d; ``parallel``: 6e; ``moe``: 6f) and prints the kernels
+line for the kernels they reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -303,7 +303,29 @@ kernels they reached.
    #1-#3 a step; the loss, the grad norm and every re-assembled leaf
    gradient held to the unsharded step's on the same weights and batch
    (loss 1e-3, norm 2 %, each leaf 5 %), ring to off the same way; step
-   ms beside the unsharded step's, one profiled step's top items;
+   ms beside the unsharded step's, one profiled step's top items.
+   (e) pipeline parallelism over a virtual pp 4 world: the 600m model
+   (random weights from seed 0) through ``prepare_pipeline`` at 8 x 2048
+   in 8 microbatches of one row, 4 layers a stage: 128 launches each of
+   #1-#3 a step (no work on bubble ticks), every launch held to its plain
+   version, the logits against the unsharded model's (2e-2 of its
+   largest), the loss, the grad norm and every re-assembled leaf gradient
+   under the batch-2 rule of the unsharded fwd + bwd; ms and peak memory
+   beside the unsharded step's, one profiled step;
+6f. the Mixtral MoE family (``moe_phase``) at Mixtral 8x7B's widths
+   (vocab 32000, hidden 4096, intermediate 14336, 32 q / 8 kv heads of
+   128, 8 experts, top 2, capacity factor 1.25), depth cut to 2 layers,
+   B 4 x T 1024: the routing of each layer (capacity, dropped share, aux
+   and z losses); (f2) the fwd + bwd over a virtual ep 4 world (2 experts
+   a rank, the partial outputs summed over ep) against the unsharded fwd +
+   bwd: every layer's dispatch masks against the unsharded forward's
+   (the first must be bitwise equal), 8 launches each of #1-#3 held to
+   their plain versions, the batch-2 rule, each rank's lion-sr update of
+   its expert slices bitwise the whole leaf's; (f1) the Accelerator's
+   train step with the 600m recipe (bf16, bf16 gradients, lion-sr): 2
+   launches each of #1-#3 a step held to their plain versions, step ms,
+   tokens/s, MFU on ``count_active_params`` plus attention, peak memory,
+   one profiled step;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
@@ -311,8 +333,9 @@ kernels they reached.
    serves (``big_model_serve``, ``big_model_serve_int8``), the int8
    streamed decode (``streamed``) and beam search (``beam``) and, for
    #1-#3, the ``train_resume`` runs, the ``memory_*`` runs of step 6b,
-   the ``lora_train`` steps of step 6c and the ``parallel`` ring pass of
-   step 6e; #1-#3's ``cases`` and ``f16`` hold
+   the ``lora_train`` steps of step 6c, the ``parallel`` ring pass,
+   Ulysses pass, tp steps and pipelined step of step 6e and the ``moe``
+   step and ep pass of step 6f; #1-#3's ``cases`` and ``f16`` hold
    their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
@@ -5067,7 +5090,10 @@ def profiled_step(torch, step, top: int = 8) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    items = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages() if dev_us(e) > 0]
+    # the device's own events (kernels, copies, sets): an operator's entry
+    # carries the time of the kernels it launched as well, counted once here
+    items = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+             if dev_us(e) > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")]
     device_ms = sum(ms for _, ms, _ in items)
     items.sort(key=lambda x: -x[1])
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -5701,7 +5727,6 @@ def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
     """(d): the 600m model's fwd + bwd over a virtual tp 4 world, modes off
     and ring, against the unsharded fwd + bwd on the same weights and
     batch; launches, times, one profiled step a mode."""
-    from accelerate_tpu_torch.accelerator import global_norm
     from accelerate_tpu_torch.ops.collective_matmul import collective_matmul
     from accelerate_tpu_torch.parallel.sharding import (
         TRANSFORMER_TP_RULES, make_sharding_plan, tp_shard, tp_split_dim,
@@ -5740,23 +5765,6 @@ def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
                  if dims[n] is not None else by_rank[0][i] for i, n in enumerate(names)]
         return losses[0], grads, losses
 
-    def compare(label, got, ref):
-        loss, grads = got[0], got[1]
-        rl, rg = ref
-        gn, rgn = global_norm(grads).item(), global_norm(rg).item()
-        leaf = {n: ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
-                for n, a, b in zip(names, grads, rg)}
-        worst = max(leaf, key=leaf.get)
-        rep = {"loss": loss.item(), "ref_loss": rl.item(),
-               "loss_rel": abs(loss.item() - rl.item()) / abs(rl.item()),
-               "grad_norm": gn, "ref_grad_norm": rgn, "grad_norm_rel": abs(gn - rgn) / rgn,
-               "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
-               "median_leaf_rel_err": float(np.median(list(leaf.values())))}
-        if (rep["loss_rel"] > LOSS_RTOL or rep["grad_norm_rel"] > GNORM_RTOL
-                or rep["worst_leaf_rel_err"] > LEAF_RTOL or not math.isfinite(rep["loss"])):
-            raise AssertionError(f"tp {label}: off the reference step: {rep}")
-        return rep
-
     ref = unsharded()
     out = {"card": card, "shape": {"tp": tp, "batch": TP["batch"], "seq": TP["seq"],
                                    "rank_heads": [cfg.num_attention_heads // tp,
@@ -5772,7 +5780,7 @@ def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
         want = tp * cfg.num_hidden_layers
         if any(c != want for c in counts.values()):
             raise AssertionError(f"tp {mode}: launches {counts}, want {want} each")
-        rep = compare(mode, got[mode], ref)
+        rep = grads_against(torch, f"tp {mode}", names, got[mode][:2], ref)
         rep["launches"] = counts
         rep["collectives"] = dict(mesh.calls)
         rep["ranks_loss_spread"] = max(abs(x.item() - got[mode][2][0].item())
@@ -5780,7 +5788,8 @@ def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
         if mesh.calls.get("pmax") != 1:
             raise AssertionError(f"tp {mode}: the vocab-parallel loss did not run: {mesh.calls}")
         out[mode] = rep
-    out["ring_vs_off"] = compare("ring vs off", got["ring"], got["off"][:2])
+    out["ring_vs_off"] = grads_against(torch, "tp ring vs off", names, got["ring"][:2],
+                                       got["off"][:2])
     del got
     ms = {"unsharded": [], **{m: [] for m in TP["modes"]}}
     for _ in range(TP["timed"]):
@@ -5807,23 +5816,418 @@ def virtual_tp(torch, fa, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# (e) pipeline parallelism: the 600m model at full width and depth as a
+# GPipe pipeline over a virtual pp 4 world, 4 layers a stage
+PIPE = dict(pp=4, batch=8, seq=2048, microbatches=8, timed=3)
+
+
+def grads_against(torch, label, names, got, ref, rtol=None) -> dict:
+    """Loss, grad norm and every leaf of ``got`` = (loss, grads) against
+    ``ref`` under the batch-2 rule (loss ``LOSS_RTOL``, norm ``GNORM_RTOL``,
+    each leaf ``LEAF_RTOL``); raises when off it."""
+    from accelerate_tpu_torch.accelerator import global_norm
+
+    (loss, grads), (rl, rg) = got, ref
+    gn, rgn = global_norm(list(grads)).item(), global_norm(list(rg)).item()
+    leaf = {n: ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+            for n, a, b in zip(names, grads, rg)}
+    worst = max(leaf, key=leaf.get)
+    rep = {"loss": loss.item(), "ref_loss": rl.item(),
+           "loss_rel": abs(loss.item() - rl.item()) / abs(rl.item()),
+           "grad_norm": gn, "ref_grad_norm": rgn, "grad_norm_rel": abs(gn - rgn) / rgn,
+           "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
+           "median_leaf_rel_err": float(np.median(list(leaf.values())))}
+    if (rep["loss_rel"] > LOSS_RTOL or rep["grad_norm_rel"] > GNORM_RTOL
+            or rep["worst_leaf_rel_err"] > LEAF_RTOL or not math.isfinite(rep["loss"])):
+        raise AssertionError(f"{label}: off the reference step: {rep}")
+    return rep
+
+
+def virtual_pp(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(e): the 600m model's fwd + bwd at 8 x 2048 through
+    ``prepare_pipeline`` over a virtual pp 4 world (8 microbatches of one
+    row), against the unsharded fwd + bwd on the same weights and batch:
+    launches, every launch held to its plain version, logits, loss, grad
+    norm and every leaf, ms and peak memory."""
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, causal_lm_loss
+    from accelerate_tpu_torch.parallel.pipeline_parallel import prepare_pipeline
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    pp, mbs = PIPE["pp"], PIPE["microbatches"]
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    names = [n for n, _ in model.named_parameters()]
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PIPE["batch"], PIPE["seq"]))).to(device)
+    mesh = VirtualMesh(*_layout(pp=pp))
+    pcfg = ParallelismConfig(pp_size=pp)
+    pipes = mesh.run(lambda r: prepare_pipeline(model, num_microbatches=mbs), pcfg)
+    per = cfg.num_hidden_layers // pp
+
+    def unsharded():
+        leaves = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
+        logits = torch.func.functional_call(model, leaves, (ids,))
+        loss = causal_lm_loss(logits, ids)
+        return loss, torch.autograd.grad(loss, list(leaves.values())), logits.detach()
+
+    def piped():
+        def rank(r):
+            pm = pipes[r]
+            st = {k: v.detach().requires_grad_() for k, v in pm.stacked.items()}
+            rest = {k: v.detach().requires_grad_() for k, v in pm.rest.items()}
+            logits = pm(ids, st, rest)
+            return causal_lm_loss(logits, ids), logits.detach(), st, rest
+
+        outs = mesh.run(rank, pcfg)
+        leaves = [t for o in outs for t in list(o[2].values()) + list(o[3].values())]
+        flat = iter(torch.autograd.grad([o[0] for o in outs], leaves))
+        by_rank = [({k: next(flat) for k in o[2]}, {k: next(flat) for k in o[3]}) for o in outs]
+        grads = {}
+        for r, (st, _) in enumerate(by_rank):
+            for k, g in st.items():
+                for i in range(per):
+                    grads[f"model.layers.{r * per + i}.{k}"] = g[i]
+        grads.update(by_rank[0][1])
+        spread = max((a - b).abs().max().item() for _, rest in by_rank[1:]
+                     for a, b in zip(rest.values(), by_rank[0][1].values()))
+        return (outs[0][0].detach(), [grads[n] for n in names], outs[0][1],
+                [o[0].item() for o in outs], spread)
+
+    ref = unsharded()
+    reset_counts()
+    got = piped()
+    sync(torch)
+    counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+    want = cfg.num_hidden_layers * mbs
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"pp: launches {counts}, want {want} each")
+    rep = {"card": card, "shape": {"pp": pp, "batch": PIPE["batch"], "seq": PIPE["seq"],
+                                   "microbatches": mbs, "layers_per_stage": per},
+           "launches": counts, "collectives": dict(mesh.calls),
+           "vs_unsharded": grads_against(torch, "pp", names, got[:2], ref[:2])}
+    err = (got[2] - ref[2]).abs().max().item()
+    ref_max = ref[2].abs().max().item()
+    rep["logits"] = {"max_abs_err": err, "ref_max": ref_max, "err_over_ref_max": err / ref_max}
+    if not err <= KERNEL_TOL * ref_max:
+        raise AssertionError(f"pp: logits off the unsharded model's: {rep['logits']}")
+    rep["stage_losses_spread"] = max(got[3]) - min(got[3])
+    rep["rest_grads_spread"] = got[4]
+    del got
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        piped()
+    rep["in_path"] = worst_of(readings, {n: want for n in FLASH_REPLACES})
+    ms, peak = {"unsharded": [], "pipelined": []}, {}
+    for _ in range(PIPE["timed"]):
+        for label, fn in (("unsharded", unsharded), ("pipelined", piped)):
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = fn()
+            sync(torch)
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            peak[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            del res
+    rep["step_ms"] = ms
+    rep["median_ms"] = {k: float(np.median(v[1:] if len(v) > 1 else v)) for k, v in ms.items()}
+    rep["pipelined_over_unsharded"] = rep["median_ms"]["pipelined"] / rep["median_ms"]["unsharded"]
+    rep["peak_gib_above_weights"] = peak
+    rep["bubble_share"] = (pp - 1) / (mbs + pp - 1)
+    rep["pipelined_profile"] = profiled_step(torch, piped, top=8)
+    log("parallel (e) virtual pp:", json.dumps(rep))
+    del pipes, model, ref
+    torch.cuda.empty_cache()
+    return rep
+
+
 def parallel_phase(torch, fa, card: str) -> dict:
-    """Step 6e: (a), (b), (c) and (d); returns each and the launches of
-    one ring pass, one Ulysses pass and one tp step in each mode."""
+    """Step 6e: (a), (b), (c), (d) and (e); returns each and the launches
+    of one ring pass, one Ulysses pass, one tp step in each mode and one
+    pipelined step."""
     one = world_of_one(torch, card)
     ring = virtual_ring(torch, fa, card)
     uly = virtual_ulysses(torch, fa, card, ring)
     tp = virtual_tp(torch, fa, card)
-    return {"world_of_one": one, "ring": ring, "ulysses": uly, "tp": tp,
+    pipe = virtual_pp(torch, fa, card)
+    return {"world_of_one": one, "ring": ring, "ulysses": uly, "tp": tp, "pp": pipe,
             "launches": ring["causal"]["launches"],
             "ulysses_launches": uly["causal"]["launches"],
             "tp_launches": {n: sum(tp[m]["launches"][n] for m in TP["modes"])
-                            for n in FLASH_REPLACES}}
+                            for n in FLASH_REPLACES},
+            "pp_launches": pipe["launches"]}
+
+
+# (f) the Mixtral MoE family: Mixtral 8x7B's published widths (vocab 32000,
+# hidden 4096, intermediate 14336, 32 q / 8 kv heads of 128, rope theta
+# 1e6, 8 experts, top 2, capacity factor 1.25), depth cut to 2 of 32
+# layers; the 600m step's recipe (bf16, bf16 gradients, lion-sr)
+MOE = dict(layers=2, batch=4, seq=1024, ep=4, warmup=1, timed=3, optimizer="lion-sr")
+
+
+def moe_setup(torch, device: str = "cuda"):
+    from accelerate_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+
+    cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=MOE["layers"],
+                                     attn_implementation="flash", dtype=torch.bfloat16)
+    model = MixtralForCausalLM(cfg, device=device, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE["batch"], MOE["seq"]))).to(device)
+    return cfg, model, {"input_ids": ids, "labels": ids}
+
+
+@contextlib.contextmanager
+def recorded_routing(mixtral_mod, calls: list):
+    """Record every routing the Mixtral layers compute (the dispatch mask
+    and the tokens' count)."""
+    saved = mixtral_mod.top_k_routing
+
+    def record(logits, *a, **k):
+        out = saved(logits, *a, **k)
+        calls.append({"dispatch": out.dispatch.detach(), "tokens": logits.shape[0]})
+        return out
+
+    mixtral_mod.top_k_routing = record
+    try:
+        yield
+    finally:
+        mixtral_mod.top_k_routing = saved
+
+
+def moe_phase(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(f): Mixtral at 8x7B's widths, 2 layers.  (f2) first, on the initial
+    weights: the fwd + bwd over a virtual ep 4 world (2 experts a rank,
+    each rank its module replica on its expert slices) against the
+    unsharded fwd + bwd, the first layer's dispatch masks against the
+    unsharded forward's bitwise, every launch held to its plain version,
+    the ranks' leaves laid out by the train state's plan under ep
+    (``DataParallelPlan``), its step on each rank's gradients (reduce,
+    global norm over ep, lion-sr update, write-back) bitwise the whole
+    tree's update; then (f1) the Accelerator's train step: launches, every launch
+    held to its plain version, router losses, dropped share, step ms,
+    tokens/s, MFU on the active parameters, peak memory."""
+    from accelerate_tpu_torch import Accelerator, GradSyncKwargs
+    from accelerate_tpu_torch.accelerator import global_norm
+    from accelerate_tpu_torch.models import mixtral as mixtral_mod
+    from accelerate_tpu_torch.models.mixtral import (
+        collect_router_losses, count_active_params, is_expert_leaf, make_mixtral_loss_fn,
+    )
+    from accelerate_tpu_torch.optimizer import make_optimizer
+    from accelerate_tpu_torch.parallel.fsdp import DataParallelPlan, parallel_align
+    from accelerate_tpu_torch.parallel.sharding import tp_rules_for
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh, module_replica
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    cfg, model, batch = moe_setup(torch, device)
+    ep, layers = MOE["ep"], cfg.num_hidden_layers
+    names = [n for n, _ in model.named_parameters()]
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    loss_fn = make_mixtral_loss_fn(model)
+    tokens = MOE["batch"] * MOE["seq"]
+    out = {"card": card, "shape": {"layers": layers, "batch": MOE["batch"], "seq": MOE["seq"],
+                                   "experts": cfg.num_local_experts,
+                                   "top_k": cfg.num_experts_per_tok,
+                                   "capacity_factor": cfg.capacity_factor,
+                                   "head_dim": cfg.head_dim},
+           "params": sum(p.numel() for p in params.values()),
+           "active_params": count_active_params(cfg)}
+
+    # the unsharded reference and its routing
+    routes: list = []
+    with recorded_routing(mixtral_mod, routes), collect_router_losses() as sown:
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss = loss_fn(leaves, batch)
+        ref = (loss.detach(), torch.autograd.grad(loss, list(leaves.values())))
+    del leaves, loss
+    capacity = routes[0]["dispatch"].shape[-1]
+    kept = [int(r["dispatch"].sum()) for r in routes]
+    out["routing"] = {"capacity": capacity,
+                      "dropped_share": [1 - k / (tokens * cfg.num_experts_per_tok)
+                                        for k in kept],
+                      "aux_loss": [x.item() for x in sown["router_aux_loss"]],
+                      "z_loss": [x.item() for x in sown["router_z_loss"]]}
+    if len(out["routing"]["aux_loss"]) != layers or not all(
+            math.isfinite(x) for x in out["routing"]["aux_loss"] + out["routing"]["z_loss"]):
+        raise AssertionError(f"moe: router losses not finite: {out['routing']}")
+    log("moe routing:", json.dumps({k: out[k] for k in ("shape", "params", "active_params",
+                                                         "routing")}))
+
+    # (f2) the virtual ep world, its leaves laid out by the train state's
+    # plan under ep (Accelerator.create_train_state's DataParallelPlan over
+    # the MoE rules: each rank its E / ep experts, the rest whole)
+    mesh = VirtualMesh(*_layout(ep=ep))
+    pcfg = ParallelismConfig(ep_size=ep)
+    plans = mesh.run(lambda r: DataParallelPlan(mesh, pcfg, None, params,
+                                                align=parallel_align(None),
+                                                tp_rules=tp_rules_for(pcfg)), pcfg)
+    shards = mesh.run(lambda r: plans[r].shard_params(params), pcfg)
+    split = [n for n in names if plans[0].layouts[n].tp_dim is not None]
+    if split != [n for n in names if is_expert_leaf(n)] or any(
+            plans[0].layouts[n].model_axis != "ep" or not torch.equal(
+                shards[r][n], params[n].chunk(ep, dim=0)[r])
+            for n in split for r in range(ep)):
+        raise AssertionError(f"moe ep: the plan does not split the expert leaves over ep: "
+                             f"{split}")
+    replicas = [module_replica(model) for _ in range(ep)]
+    rank_loss = [make_mixtral_loss_fn(m) for m in replicas]
+
+    def sharded(record=None):
+        leaves = [{n: t.detach().requires_grad_() for n, t in s.items()} for s in shards]
+        with recorded_routing(mixtral_mod, record if record is not None else []):
+            losses = mesh.run(lambda r: rank_loss[r](leaves[r], batch).float(), pcfg)
+        flat = torch.autograd.grad(losses, [t for lv in leaves for t in lv.values()])
+        by_rank = [flat[r * len(names):(r + 1) * len(names)] for r in range(ep)]
+        grads = [torch.cat([by_rank[r][i] for r in range(ep)]) if n in split
+                 else by_rank[0][i] for i, n in enumerate(names)]
+        return losses[0].detach(), grads, [x.item() for x in losses], by_rank
+
+    reset_counts()
+    ep_routes: list = []
+    got = sharded(ep_routes)
+    sync(torch)
+    counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+    if any(c != ep * layers for c in counts.values()):
+        raise AssertionError(f"moe ep: launches {counts}, want {ep * layers} each")
+    f2 = {"launches": counts, "collectives": dict(mesh.calls),
+          "vs_unsharded": grads_against(torch, "moe ep", names, got[:2], ref),
+          "ranks_loss_spread": max(got[2]) - min(got[2]),
+          "first_layer_dispatch_equal": bool(torch.equal(ep_routes[0]["dispatch"],
+                                                          routes[0]["dispatch"])),
+          # rank 0's routing of each layer against the unsharded forward's
+          "dispatch_equal_by_layer": [bool(torch.equal(ep_routes[i * ep]["dispatch"],
+                                                       routes[i]["dispatch"]))
+                                      for i in range(layers)]}
+    del ref
+    if not f2["first_layer_dispatch_equal"]:
+        raise AssertionError("moe ep: the first layer's dispatch differs from the unsharded "
+                             "forward's")
+    # the plan's step on each rank's gradients (reduce, the global norm
+    # over ep, the lion-sr update of the rank's leaves under the whole
+    # leaves' salts, the write-back) against the whole tree's update on
+    # the re-assembled gradients: the expert slices and rank 0's replicated
+    # leaves bitwise
+    tx = make_optimizer(MOE["optimizer"])
+    new_w, st_w = tx.update(got[1], tx.init(list(params.values())), list(params.values()))
+    by_rank = got[3]
+
+    def plan_step(r):
+        plan = plans[r]
+        grads = plan.reduce_grads(list(by_rank[r]))
+        gnorm = plan.global_norm(grads, global_norm)
+        stored = {n: t.clone() for n, t in shards[r].items()}
+        leaves = plan.opt_params(stored)
+        new, st = tx.update(grads, tx.init(leaves), leaves, numels=plan.numels)
+        plan.write_back(stored, new)
+        same = {}
+        for i, n in enumerate(names):
+            if n in split or r == 0:
+                want_p, want_m = new_w[i], st_w.mu[i]
+                if n in split:
+                    want_p, want_m = want_p.chunk(ep, 0)[r], want_m.chunk(ep, 0)[r]
+                same[n] = bool(torch.equal(stored[n], want_p) and torch.equal(st.mu[i], want_m))
+        return gnorm.item(), same
+
+    stepped = mesh.run(plan_step, pcfg)
+    whole_norm = global_norm(list(got[1])).item()
+    f2["plan_step"] = {
+        "grad_norm": [g for g, _ in stepped], "whole_grad_norm": whole_norm,
+        "grad_norm_rel": max(abs(g - whole_norm) for g, _ in stepped) / whole_norm,
+        "expert_update_bitwise": all(same[n] for _, same in stepped for n in split),
+        "replicated_update_bitwise_rank0": all(v for n, v in stepped[0][1].items()
+                                               if n not in split),
+        "replicated_grads_bitwise_across_ranks": all(
+            torch.equal(by_rank[r][i], by_rank[0][i])
+            for r in range(1, ep) for i, n in enumerate(names) if n not in split)}
+    del new_w, st_w, by_rank
+    f2["expert_sr_update_bitwise"] = f2["plan_step"]["expert_update_bitwise"]
+    if not (f2["plan_step"]["expert_update_bitwise"]
+            and f2["plan_step"]["replicated_update_bitwise_rank0"]
+            and f2["plan_step"]["grad_norm_rel"] <= GNORM_RTOL):
+        raise AssertionError(f"moe ep: the plan's step is not the whole tree's: "
+                             f"{f2['plan_step']}")
+    del got
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        sharded()
+    f2["in_path"] = worst_of(readings, {n: ep * layers for n in FLASH_REPLACES})
+
+    def unsharded():
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss = loss_fn(leaves, batch)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    ms = {"unsharded": [], "ep": []}
+    for _ in range(MOE["timed"]):
+        for label, fn in (("unsharded", unsharded), ("ep", sharded)):
+            sync(torch)
+            t0 = time.perf_counter()
+            res = fn()
+            sync(torch)
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+            del res
+    f2["fwd_bwd_ms"] = ms
+    f2["median_ms"] = {k: float(np.median(v[1:] if len(v) > 1 else v)) for k, v in ms.items()}
+    f2["ep_over_unsharded"] = f2["median_ms"]["ep"] / f2["median_ms"]["unsharded"]
+    f2["ep_profile"] = profiled_step(torch, sharded, top=8)
+    out["ep"] = f2
+    log("moe (f2) virtual ep:", json.dumps(f2))
+    del replicas, shards, plans
+    torch.cuda.empty_cache()
+
+    # (f1) the Accelerator's train step on one rank
+    acc = Accelerator(mixed_precision="bf16", device=device,
+                      kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+    state = acc.create_train_state(params, MOE["optimizer"])
+    step = acc.prepare_train_step(loss_fn)
+    reset_counts()
+    state, metrics = step(state, batch)
+    sync(torch)
+    counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+    if any(c != layers for c in counts.values()):
+        raise AssertionError(f"moe step: launches {counts}, want {layers} each")
+    f1 = {"launches": counts, "first_loss": metrics["loss"].item()}
+    state, f1["in_path"] = checked_step(torch, fa, acc, loss_fn, state, batch, layers)
+    for _ in range(MOE["warmup"]):
+        state, metrics = step(state, batch)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(MOE["timed"]):
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync(torch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe step: losses not finite: {losses}")
+    step_s = float(np.median(step_ms)) / 1e3
+    flops = (6 * out["active_params"]
+             + 12 * layers * cfg.num_attention_heads * cfg.head_dim * MOE["seq"])
+    f1.update(step_ms=step_ms, median_step_ms=step_s * 1e3, losses=losses,
+              tokens_per_s=tokens / step_s, flops_per_token=flops,
+              mfu_vs_989_tflops=flops * tokens / step_s / BF16_FLOPS_PER_S,
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+              ep_over_step_fwd_bwd=f2["median_ms"]["ep"] / f2["median_ms"]["unsharded"])
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    f1["profile"] = profiled_step(torch, one_step, top=10)
+    out["step"] = f1
+    log("moe (f1) step:", json.dumps(f1))
+    del state, step, params, model
+    torch.cuda.empty_cache()
+    out["launches"] = f1["launches"]
+    out["ep_launches"] = f2["launches"]
+    return out
 
 
 # the phases --only selects, in the order the bare call runs them
 PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
-          "examples", "parallel")
+          "examples", "parallel", "moe")
 
 
 
@@ -6001,7 +6405,13 @@ def main() -> int:
         PATH_LAUNCHES["parallel"] = parallel["launches"]
         PATH_LAUNCHES["parallel_ulysses"] = parallel["ulysses_launches"]
         PATH_LAUNCHES["parallel_tp"] = parallel["tp_launches"]
+        PATH_LAUNCHES["parallel_pp"] = parallel["pp_launches"]
         phase_done("parallel")
+    if "moe" in only:
+        moe = moe_phase(torch, fa, card)
+        PATH_LAUNCHES["moe"] = moe["launches"]
+        PATH_LAUNCHES["moe_ep"] = moe["ep_launches"]
+        phase_done("moe")
 
     # each kernel's launches on its main path, and its checked calls there
     main_path = {}

@@ -3,8 +3,10 @@ package's: ``prepare_eval_step`` (JAX ``tests/test_accelerator.py:458``),
 the triggers (:470), ``has_aux`` (ResNet's batch statistics), the
 gradient helpers, ``unwrap_model``, ``free_memory``, ``init_params``,
 ``no_sync``, ``autocast`` (bitwise), ``donate_state``, the kwargs handlers,
-the process helpers, the A13 raises, and a name-by-name comparison of the
-two classes.
+the process helpers, the A13 raises, the pp and ep worlds (a gloo gang of
+two CPU processes: ``prepare_pipeline`` unwrapped, the batch replicated
+over ep, the expert slices) and a name-by-name comparison of the two
+classes.
 
 Inputs are seeded numpy; f32 values at 1e-5, bf16 ones bitwise where both
 sides round the same products once.
@@ -367,3 +369,56 @@ def test_has_aux_resnet_batch_stats_match_jax():
                                        rtol=1e-5, atol=1e-6, err_msg=f"{name}.{k}")
     model.load_batch_stats(metrics["aux"])
     assert torch.equal(model.stem_bn.mean, metrics["aux"]["stem_bn"]["mean"])
+
+
+def test_pp_and_ep_worlds_build(tmp_path):
+    """``ParallelismConfig(pp_size=2)`` and ``(ep_size=2)`` build their
+    worlds on two processes: ``unwrap_model(prepare_pipeline(...))`` is the
+    model, a stage holds half the layers; under ep the prepared loader
+    gives both ranks the same batches (ep counts in
+    ``non_data_parallel_size``) and each rank half the experts."""
+    from accelerate_tpu_torch.test_utils.gang import run_gang
+
+    reps = run_gang("accelerate_tpu_torch.test_utils.scripts.pipeline_parallel_checks:"
+                    "surface_checks", 2, tmp_path, timeout=120)
+    for rep in reps:
+        assert rep["pp"] == {"sizes": {"pp": 2}, "unwrapped": True, "stage_layers": 1}
+        assert rep["ep"]["sizes"] == {"ep": 2} and rep["ep"]["non_data_parallel"] == 2
+        assert rep["ep"]["experts"] == (2, 64, 128)
+        assert len(rep["ep"]["batches"]) == 2
+    for a, b in zip(reps[0]["ep"]["batches"], reps[1]["ep"]["batches"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("axis", ["tp", "cp", "sp"])
+def test_pp_composed_with_a_split_names_a13h(axis):
+    """pp with tp / cp / sp raises naming A13h, before any world is built;
+    so does a pipeline over a mesh with such an axis."""
+    from accelerate_tpu_torch import ParallelismConfig, prepare_pipeline
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    with pytest.raises(NotImplementedError, match="A13h"):
+        Accelerator(cpu=True, parallelism_config=ParallelismConfig(
+            pp_size=2, **{f"{axis}_size": 2}))
+    layout = ParallelismConfig(pp_size=2, **{f"{axis}_size": 2}).mesh_layout(4)
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="meta")
+    with pytest.raises(NotImplementedError, match="A13h"):
+        prepare_pipeline(model, mesh=layout)
+
+
+@pytest.mark.parametrize("axis", ["tp", "sp"])
+def test_mixtral_under_a_split_names_a13h(axis):
+    """Mixtral under tp (or sp) raises naming A13h in each rank's forward
+    (the virtual world's ranks as threads)."""
+    from accelerate_tpu_torch import MixtralConfig, MixtralForCausalLM, ParallelismConfig
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh, module_replica
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER
+
+    model = MixtralForCausalLM(MixtralConfig.tiny(dtype=torch.float32), device="cpu")
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(2 if a == axis else 1 for a in MESH_AXIS_ORDER))
+    replicas = [module_replica(model) for _ in range(2)]
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="A13h"):
+        mesh.run(lambda r: torch.func.functional_call(replicas[r], params, (ids,)),
+                 ParallelismConfig(**{f"{axis}_size": 2}))

@@ -2427,12 +2427,183 @@ def test_virtual_tp_block_on_the_kernels(cuda, mode):
     grads = [torch.cat([per_rank[r][i] for r in range(tp)], dim=dims[n])
              if dims[n] is not None else per_rank[0][i] for i, n in enumerate(names)]
 
+    for ref_loss, ref_grads in (unsharded("flash"), unsharded("native")):
+        _batch2_rule(losses[0], grads, ref_loss, ref_grads, names)
+
+
+def _batch2_rule(loss, grads, ref_loss, ref_grads, names):
+    """Loss 1e-3, grad norm 2 %, each leaf 5 % of the reference step."""
     def norm(gs):
         return torch.sqrt(sum(g.float().square().sum() for g in gs)).item()
 
-    for ref_loss, ref_grads in (unsharded("flash"), unsharded("native")):
-        assert abs(losses[0].item() - ref_loss.item()) <= 1e-3 * abs(ref_loss.item())
-        assert abs(norm(grads) - norm(ref_grads)) <= 2e-2 * norm(ref_grads)
-        for n, a, b in zip(names, grads, ref_grads):
-            rel = (a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)
-            assert rel <= 5e-2, (n, rel.item())
+    assert abs(loss.item() - ref_loss.item()) <= 1e-3 * abs(ref_loss.item())
+    assert abs(norm(grads) - norm(ref_grads)) <= 2e-2 * norm(ref_grads)
+    for n, a, b in zip(names, grads, ref_grads):
+        rel = (a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)
+        assert rel <= 5e-2, (n, rel.item())
+
+
+@pytest.mark.cuda
+def test_virtual_pipeline_on_the_kernels(cuda):
+    """Four layers at the 600m widths (hidden 1536, 16 q / 8 kv heads of
+    96), bf16, B 4 x T 256 in 4 microbatches of one row, over a virtual pp
+    2 world: each layer runs #1 once per microbatch (the bubble runs
+    nothing): 16 launches each of #1-#3; the pipelined logits within 2e-2
+    of the largest of the unsharded model's on the kernels, the loss and
+    the re-assembled gradients within the batch-2 rule of the unsharded
+    step on the kernels and on the plain attention; a second pipelined
+    step bitwise the first."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.parallel.pipeline_parallel import prepare_pipeline
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+
+    pp, mbs = 2, 4
+    cfg = tl.LlamaConfig(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=4, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=7)
+    names = [n for n, _ in model.named_parameters()]
+    ids = torch.randint(0, cfg.vocab_size, (4, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(8))
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(pp if a == "pp" else 1 for a in MESH_AXIS_ORDER))
+    pcfg = ParallelismConfig(pp_size=pp)
+    pipes = mesh.run(lambda r: prepare_pipeline(model, num_microbatches=mbs), pcfg)
+
+    def piped():
+        def rank(r):
+            st = {k: v.detach().requires_grad_() for k, v in pipes[r].stacked.items()}
+            rest = {k: v.detach().requires_grad_() for k, v in pipes[r].rest.items()}
+            logits = pipes[r](ids, st, rest)
+            return tl.causal_lm_loss(logits, ids), logits.detach(), st, rest
+
+        outs = mesh.run(rank, pcfg)
+        flat = iter(torch.autograd.grad([o[0] for o in outs], [
+            t for o in outs for t in list(o[2].values()) + list(o[3].values())]))
+        grads = {}
+        for r, o in enumerate(outs):
+            for k in o[2]:
+                g = next(flat)
+                for i in range(g.shape[0]):
+                    grads[f"model.layers.{r * g.shape[0] + i}.{k}"] = g[i]
+            rest = {k: next(flat) for k in o[3]}
+            if r == 0:
+                grads.update(rest)
+        return outs[0][0], [grads[n] for n in names], outs[0][1]
+
+    def unsharded(impl):
+        m = tl.LlamaForCausalLM(dataclasses.replace(cfg, attn_implementation=impl),
+                                device="meta")
+        m.rope_cos, m.rope_sin = model.rope_cos, model.rope_sin
+        leaves = {n: p.detach().clone().requires_grad_() for n, p in model.named_parameters()}
+        logits = torch.func.functional_call(m, leaves, (ids,))
+        loss = tl.causal_lm_loss(logits, ids)
+        return loss, torch.autograd.grad(loss, list(leaves.values())), logits.detach()
+
+    tfa.reset_launch_counts()
+    loss, grads, logits = piped()
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (16,) * 3
+    again = piped()
+    assert torch.equal(again[2], logits) and all(torch.equal(a, b) for a, b in zip(again[1], grads))
+    for impl in ("flash", "native"):
+        ref_loss, ref_grads, ref_logits = unsharded(impl)
+        assert (logits - ref_logits).abs().max() <= TOL * ref_logits.abs().max()
+        _batch2_rule(loss, grads, ref_loss, ref_grads, names)
+
+
+@pytest.mark.cuda
+def test_virtual_mixtral_ep_on_the_kernels(cuda):
+    """A 2-layer Mixtral at head dim 128, GQA 4 (hidden 1024, 8 q / 2 kv
+    heads, 8 experts of intermediate 2048, top 2), bf16, B 2 x T 256:
+    #1-#3 at D 128 once a layer; over a virtual ep 4 world (2 experts a
+    rank) the loss and the re-assembled gradients within the batch-2 rule
+    of the unsharded step on the kernels and on the plain attention, the
+    first layer's dispatch bitwise the unsharded forward's, every launch
+    held to its plain version, and a second ep step bitwise the first."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import mixtral as tm
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh, module_replica
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+
+    ep = 4
+    cfg = tm.MixtralConfig(vocab_size=32000, hidden_size=1024, intermediate_size=2048,
+                           num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2,
+                           num_local_experts=8, attn_implementation="flash",
+                           dtype=torch.bfloat16)
+    assert cfg.head_dim == 128
+    model = tm.MixtralForCausalLM(cfg, device=cuda, seed=3)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    names = list(params)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    batch = {"input_ids": ids, "labels": ids}
+    routes: list = []
+    saved = tm.top_k_routing
+
+    def record(logits, *a, **k):
+        out = saved(logits, *a, **k)
+        routes.append(out.dispatch)
+        return out
+
+    def unsharded(impl):
+        m = tm.MixtralForCausalLM(dataclasses.replace(cfg, attn_implementation=impl),
+                                  device="meta")
+        m.rope_cos, m.rope_sin = model.rope_cos, model.rope_sin
+        leaves = {n: p.clone().requires_grad_() for n, p in params.items()}
+        loss = tm.make_mixtral_loss_fn(m)(leaves, batch)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(ep if a == "ep" else 1 for a in MESH_AXIS_ORDER))
+    replicas = [module_replica(model) for _ in range(ep)]
+
+    def sharded():
+        shards = [{n: (p.chunk(ep)[r] if tm.is_expert_leaf(n) else p).detach().requires_grad_()
+                   for n, p in params.items()} for r in range(ep)]
+        losses = mesh.run(lambda r: tm.make_mixtral_loss_fn(replicas[r])(shards[r], batch),
+                          ParallelismConfig(ep_size=ep))
+        flat = torch.autograd.grad(losses, [s[n] for s in shards for n in names])
+        per = [flat[r * len(names):(r + 1) * len(names)] for r in range(ep)]
+        return losses[0], [torch.cat([per[r][i] for r in range(ep)]) if tm.is_expert_leaf(n)
+                           else per[0][i] for i, n in enumerate(names)]
+
+    tm.top_k_routing = record
+    try:
+        ref = unsharded("flash")
+        first = routes[0]
+        routes.clear()
+        tfa.reset_launch_counts()
+        loss, grads = sharded()
+    finally:
+        tm.top_k_routing = saved
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (8,) * 3
+    assert torch.equal(routes[0], first)
+    again = sharded()
+    assert torch.equal(again[0], loss) and all(torch.equal(a, b) for a, b in zip(again[1], grads))
+    for ref_loss, ref_grads in (ref, unsharded("native")):
+        _batch2_rule(loss, grads, ref_loss, ref_grads, names)
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        plain = getattr(tfa, f"{kernel}_plain")
+        orig = getattr(tfa, kernel)
+        checked = []
+
+        def held(*a, kernel_fn=orig, plain_fn=plain, **k):
+            out = kernel_fn(*a, **k)
+            ref_out = plain_fn(*a, **k)
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            refs = ref_out if isinstance(ref_out, (tuple, list)) else (ref_out,)
+            for o, r in zip(outs, refs):
+                o, r = (o[..., None], r[..., None]) if o.dim() == 3 else (o, r)
+                err = (o.float() - r.float()).abs()
+                assert err.max() <= TOL * r.float().abs().max() + _half_ulp_bf16(r).max()
+            checked.append(1)
+            return out
+
+        setattr(tfa, kernel, held)
+        try:
+            sharded()
+        finally:
+            setattr(tfa, kernel, orig)
+        assert len(checked) == 8, kernel

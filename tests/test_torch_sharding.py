@@ -148,7 +148,7 @@ def test_cp_params_replicated_moments_joint_sharded():
 
 def test_strategies_and_tp_rules():
     """The strategies' parameter axes (NO_SHARD / SHARD_GRAD_OP replicate,
-    cp never), JAX's tp rule table as data, and a tp axis naming A13."""
+    cp never), JAX's tp and MoE rule tables as data."""
     from accelerate_tpu.utils.dataclasses import ShardingStrategy as JS
 
     cfg, jcfg = ParallelismConfig(cp_size=2, dp_shard_size=4), JConfig(cp_size=2,
@@ -163,5 +163,7 @@ def test_strategies_and_tp_rules():
     assert tsh.resolve_sharding_strategy(None, cfg) == jsh.resolve_sharding_strategy(None, jcfg)
     assert [(p, _norm(s)) for p, s in tsh.TRANSFORMER_TP_RULES] == [
         (p, _norm(s)) for p, s in jsh.TRANSFORMER_TP_RULES]
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsh.get_tp_rules("moe")
+    from accelerate_tpu.parallel.expert_parallel import get_moe_rules as j_get_moe_rules
+
+    assert [(p, _norm(s)) for p, s in tsh.get_tp_rules("moe")] == [
+        (p, _norm(s)) for p, s in j_get_moe_rules()]

@@ -342,10 +342,12 @@ def test_off_path_options_raise():
     assert collective_matmul_mode() == "ring"
     Accelerator(cpu=True)
     assert collective_matmul_mode() == "off"
-    # data, context, tensor and sequence parallelism are ported; a pp axis is
-    # the pipeline slice's
-    with pytest.raises(NotImplementedError, match="A13c"):
+    # data, context, tensor, sequence, pipeline and expert parallelism are
+    # ported (a pp axis of 2 needs a world of 2); pp composed with tp is not
+    with pytest.raises(ValueError, match="available devices"):
         Accelerator(cpu=True, parallelism_config=ParallelismConfig(pp_size=2))
+    with pytest.raises(NotImplementedError, match="A13h"):
+        Accelerator(cpu=True, parallelism_config=ParallelismConfig(pp_size=2, tp_size=2))
     assert FullyShardedDataParallelPlugin(
         sharding_strategy="SHARD_GRAD_OP").sharding_strategy == "SHARD_GRAD_OP"
     fp16 = Accelerator(cpu=True, mixed_precision="fp16")
