@@ -80,6 +80,13 @@ schedule over a ``pp`` axis (``parallel/pipeline_parallel.py``:
 dense dispatch and the ep split (``parallel/expert_parallel.py``), the
 Mixtral MoE family with its HF loader (``models/mixtral.py``,
 ``models.load_hf_mixtral``) and ``utils/other.py``.
+Its twentieth slice is multi-node data parallelism and the recovery
+ladder: the hierarchical gradient reduction over a ``dcn`` axis with the
+PowerSGD codec (``parallel/hierarchical.py``, ``parallel/powersgd.py``,
+``GradSyncKwargs``), buddy-rank host-RAM snapshots
+(``resilience/peer_ckpt.py``), ``Accelerator.recover``, the rank-loss
+and straggler faults, a preemption stop agreed across ranks and
+checkpoints of a replicated state across several processes.
 """
 
 from . import hooks

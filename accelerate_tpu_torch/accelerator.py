@@ -81,13 +81,26 @@ mixtral.py``); a ``pp`` axis builds its world, and
 pipeline over it (``unwrap_model`` gives the model back, the
 pipeline's trained tensors copied into it).
 
+Multi-node data parallelism (JAX :614-660, :1400-1600): on a mesh with a
+``dcn`` axis above 1 the replicated (NO_SHARD / SHARD_GRAD_OP) data-parallel
+step reduces its gradients hierarchically (``parallel/hierarchical.py``:
+reduce-scatter inside the node, an all-reduce of the slab across ``dcn``,
+optionally PowerSGD-compressed, an all-gather), and
+``GradSyncKwargs(compression="powersgd")`` runs the DDP PowerSGD step
+(``parallel/powersgd.py``), the codec's factors and residuals in
+``TrainState.comm_state``.  The recovery ladder (JAX :1797-1871,
+:2294-2466): ``ResiliencePlugin(peer_snapshot_every=N)`` arms buddy-rank
+host-RAM snapshots (``resilience/peer_ckpt.py``), the ``rank_loss`` and
+``straggler`` faults fire in the step, :meth:`Accelerator.recover` walks
+peer RAM, the verified disk checkpoint, then a fresh start, and a
+preemption stop is agreed across the ranks.
+
 Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item: PowerSGD / hierarchical gradient compression (A13e), the peer
-snapshots and ``recover``, rank loss and stragglers (A13f); ``cpu_offload``,
-fp8 delayed scaling and checkpoints under a plan of several ranks, Mixtral
-under tp and pp composed with tp / cp / sp (A13h).  The donation
-audit and compile counter (``audit_step``, ``compile_events``) have no
-eager meaning and are not ported.
+item: ``cpu_offload``, fp8 delayed scaling and checkpoints of a train
+state that is sharded or split over several ranks, Mixtral under tp and
+pp composed with tp / cp / sp (A13h).  The donation audit and compile
+counter (``audit_step``, ``compile_events``) have no eager meaning and are
+not ported.
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ import os
 import time
 from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -164,6 +178,10 @@ class TrainState:
     loss_scale: Optional[DynamicLossScale] = None
     # fp8 delayed scaling: {module name: Fp8Meta} (ops/fp8.py)
     fp8_state: Optional[dict] = None
+    # the gradient codec's (qs, errs), name -> tensor or None: the flat
+    # PowerSGD step's or the hierarchical step's DCN codec's; this rank's
+    # own residuals
+    comm_state: Optional[tuple] = None
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
@@ -253,8 +271,11 @@ class Accelerator:
         self.cp_config = cp_config
         self.sp_config = sp_config
         self.resilience_plugin = resilience_plugin or ResiliencePlugin()
-        if self.resilience_plugin.peer_snapshot_every > 0:
-            raise _not_ported("peer snapshots and the recovery ladder (ranks)", "A13f")
+        # armed by the prepared step at its first update under
+        # peer_snapshot_every > 0 (resilience/peer_ckpt.py)
+        self._peer_snapshotter = None
+        # how the newest prepared train step resolved the hierarchical sync
+        self._dcn_sync: Optional[dict] = None
         self.grad_sync_kwargs = GradSyncKwargs()
         self.fp8_recipe: Optional[FP8RecipeKwargs] = None
         self.autocast_handler = AutocastKwargs()
@@ -470,19 +491,102 @@ class Accelerator:
         return _ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
                                          pad_first=pad_first)
 
+    # -- multi-node data parallelism (JAX :614-660, :1898-1925) ------------
+
+    def _mesh_sizes(self) -> dict:
+        """``{axis: size}`` of the mesh; empty for one process without a
+        parallelism config (which has none)."""
+        if not self._parallel:
+            return {}
+        from .parallel.collectives import mesh_sizes
+
+        return mesh_sizes(self.mesh)
+
+    def _compression_axes(self) -> list:
+        """The mesh axes the gradient compression reduces over: the
+        data-parallel plane, the cross-node ``dcn`` axis included."""
+        sizes = self._mesh_sizes()
+        return [a for a in ("dcn", "dp_replicate", "dp_shard") if a in sizes]
+
+    def _dp_world(self) -> int:
+        sizes = self._mesh_sizes()
+        return int(np.prod([sizes[a] for a in self._compression_axes()]))
+
+    def _ici_size(self) -> int:
+        sizes = self._mesh_sizes()
+        return int(np.prod([sizes[a] for a in self._compression_axes() if a != "dcn"]))
+
+    def _ddp_shape(self) -> tuple[dict, bool, Any]:
+        """What keeps a config from the DDP shape the codecs need:
+        ``(the non-data-parallel axes above 1, whether the params shard,
+        the sharding strategy)``."""
+        if not self._parallel:
+            return {}, False, None
+        from .parallel.sharding import param_fsdp_axes, resolve_sharding_strategy
+
+        pc = self.parallelism_config
+        bad = {k: v for k, v in
+               {"tp": pc.tp_size, "pp": pc.pp_size, "cp": pc.cp_size,
+                "sp": pc.sp_size, "ep": pc.ep_size}.items() if v > 1}
+        strategy = resolve_sharding_strategy(self.fsdp_plugin, pc)
+        return bad, bool(param_fsdp_axes(self.mesh, pc, strategy)), strategy
+
+    def _resolve_hierarchical(self) -> tuple[bool, Optional[str]]:
+        """``(engage, incompatibility)`` of the hierarchical gradient sync:
+        engage when the mesh has a ``dcn`` axis above 1 and the config is
+        DDP-shaped (replicated params, pure data parallelism);
+        ``incompatibility`` names the blocker when the dcn axis exists but
+        the path cannot replace the flat reduction."""
+        gsk = self.grad_sync_kwargs
+        if gsk.hierarchical is False:
+            return False, None
+        if self._mesh_sizes().get("dcn", 1) <= 1:
+            if gsk.hierarchical:
+                return False, "mesh has no dcn axis (ParallelismConfig.dcn_size <= 1)"
+            return False, None
+        bad, params_sharded, strategy = self._ddp_shape()
+        offload_opt, _ = self._offload_flags()
+        blockers = []
+        if bad:
+            blockers.append(f"non-dp axes {bad}")
+        if params_sharded:
+            blockers.append(f"params sharded ({strategy})")
+        if offload_opt:
+            blockers.append("cpu_offload")
+        if self.gradient_state.num_steps > 1:
+            blockers.append("gradient accumulation > 1")
+        if self.policy.needs_loss_scaling:
+            blockers.append("fp16 loss scaling")
+        if gsk.comm_dtype or gsk.grad_dtype:
+            blockers.append("comm_dtype/grad_dtype")
+        if gsk.compression:
+            blockers.append("compression='powersgd' (the flat DDP codec owns the step)")
+        if blockers:
+            return False, "; ".join(blockers)
+        return True, None
+
     @property
-    def dcn_sync(self):
-        raise _not_ported("the hierarchical gradient reduction", "A13e")
+    def dcn_sync(self) -> Optional[dict]:
+        """How the newest prepared train step resolved the hierarchical
+        reduction (None before ``prepare_train_step``): ``{"enabled",
+        "dcn_size", "ici_size", "compression", "why_not"}``."""
+        return self._dcn_sync
 
     def dcn_sync_accounting(self, params, step_compute_s: Optional[float] = None) -> dict:
-        raise _not_ported("the hierarchical gradient reduction's accounting", "A13e")
+        """Predicted DCN bytes a rank moves a step for ``params``' gradient
+        sync on this mesh (``parallel/hierarchical.dcn_comm_accounting``):
+        the hierarchical schedule against the flat one, with the PowerSGD
+        codec where ``GradSyncKwargs.dcn_compression`` sets it.  Zeros on a
+        mesh without a ``dcn`` axis."""
+        from .parallel.hierarchical import dcn_comm_accounting
 
-    def recover(self, *args, **kwargs):
-        raise _not_ported("recover (the rank-loss recovery ladder)", "A13f")
-
-    @property
-    def peer_snapshotter(self):
-        raise _not_ported("peer snapshots (buddy ranks)", "A13f")
+        sync = self.dcn_sync
+        compression = (sync["compression"] if sync is not None
+                       else self.grad_sync_kwargs.dcn_compression)
+        return dcn_comm_accounting(params, ici_size=self._ici_size(),
+                                   dcn_size=self._mesh_sizes().get("dcn", 1),
+                                   compression=compression, rank=self.grad_sync_kwargs.rank,
+                                   step_compute_s=step_compute_s)
 
     @contextlib.contextmanager
     def maybe_context_parallel(self, buffers=None, buffer_seq_dims=None,
@@ -722,6 +826,18 @@ class Accelerator:
         accum = (self.gradient_state.num_steps > 1
                  and self.gradient_state.plugin.mode == "across_steps")
         offload_opt, offload_params = self._offload_flags()
+        gsk = self.grad_sync_kwargs
+        comm_state = None
+        if gsk.compression == "powersgd":
+            from .parallel.powersgd import init_powersgd_state
+
+            comm_state = init_powersgd_state(params, gsk.rank, device=dev)
+        elif gsk.dcn_compression == "powersgd" and self._resolve_hierarchical()[0]:
+            # the DCN codec's state only where the hierarchical path engages
+            # (prepare_train_step raises on a config where it cannot)
+            from .parallel.hierarchical import init_dcn_powersgd_state
+
+            comm_state = init_dcn_powersgd_state(params, gsk.rank, self._ici_size(), device=dev)
         plan = None
         if self._parallel:
             from .parallel.fsdp import DataParallelPlan, parallel_align
@@ -779,6 +895,7 @@ class Accelerator:
             loss_scale=(DynamicLossScale(device=dev) if self.policy.needs_loss_scaling
                         else None),
             fp8_state=fp8_state,
+            comm_state=comm_state,
         )
 
     # -- the train step --------------------------------------------------
@@ -807,10 +924,12 @@ class Accelerator:
         otherwise (the offloaded step waits on its copies besides).  In a
         world the step runs the sharding plan's collectives
         (``parallel/fsdp.py``) and ``loss`` is the global token mean: each
-        rank's loss weighted by its share of the valid tokens, summed."""
+        rank's loss weighted by its share of the valid tokens, summed.  On a
+        ``dcn`` mesh the replicated step reduces hierarchically, and
+        ``GradSyncKwargs(compression="powersgd")`` runs the PowerSGD step
+        (:meth:`dcn_sync` says which)."""
         gsk = self.grad_sync_kwargs
-        if gsk.compression or gsk.dcn_compression or gsk.hierarchical:
-            raise _not_ported("gradient compression / hierarchical reduction", "A13e")
+        codec = self._resolve_grad_sync(has_aux)
         if not donate_state and self._offload_flags()[0]:
             raise ValueError("donate_state=False under cpu_offload: the offloaded state lives "
                              "in reused page-locked buffers, updated in place")
@@ -932,11 +1051,23 @@ class Accelerator:
                  prev]).tolist()
             return bool(finite), consecutive
 
-        def apply_update(state: TrainState, grads: list, loss):
+        # sum semantics (average_grads=False): the optimizer sees the sum over
+        # the data-parallel ranks, the reduction's mean times their number
+        grad_scale = 1 if gsk.average_grads else self._dp_world()
+
+        def apply_update(state: TrainState, grads: list, loss, reduced: bool = False):
+            """The update from this rank's gradients and loss, or, with
+            ``reduced``, from the whole mean gradients and the reduced loss
+            of a codec step."""
             plan = self._dp_plan
             if plan is not None:
-                grads = plan.reduce_grads(grads)
-                loss = plan.psum(loss)
+                if reduced:
+                    grads = plan.local_grads(grads)
+                else:
+                    grads = plan.reduce_grads(grads)
+                    loss = plan.psum(loss)
+                if grad_scale != 1:
+                    grads = [g * grad_scale for g in grads]
             loss_scale = state.loss_scale
             flags = []
             metrics = {"loss": loss}
@@ -1032,7 +1163,10 @@ class Accelerator:
                 return x[i * n:(i + 1) * n]
             return [{k: piece(v, i) for k, v in batch.items()} for i in range(accum_steps)]
 
-        if accum_steps > 1 and mode == "across_steps":
+        if codec is not None:
+            step_fn = self._codec_step(codec, compute_grads, fetch_params, apply_update)
+
+        elif accum_steps > 1 and mode == "across_steps":
 
             def step_fn(state: TrainState, batch):
                 loss, grads, aux = compute_grads(state, fetch_params(state), batch, state.rng)
@@ -1093,8 +1227,16 @@ class Accelerator:
                     os.kill(os.getpid(), handler.signals[0])
                 elif ev.kind == "nan_grad":
                     batch = _faults.poison_batch(batch)
-                elif ev.kind in ("straggler", "rank_loss"):
-                    raise _not_ported(f"the {ev.kind!r} fault (rank loss and stragglers)", "A13f")
+                elif ev.kind == "straggler":
+                    # a deterministic host stall: this rank reaches the step
+                    # boundary late, which the agreed preemption stop absorbs
+                    time.sleep(_faults.STRAGGLER_STALL_S)
+                elif ev.kind == "rank_loss":
+                    # this rank's state is gone, not retryable: the caller
+                    # routes the gang through recover()'s ladder
+                    raise _faults.RankLostError(
+                        f"injected rank loss at step {self.step_count + 1} "
+                        f"(process {self.process_index})")
             if not self._in_accumulate:
                 self.step_count += 1
                 self.goodput.record_step()
@@ -1122,6 +1264,18 @@ class Accelerator:
                 if guard_read["skipped"]:
                     self.goodput.record_nan_skip()
                 _guard.check_abort(guard_read["consecutive"], guard_abort_after)
+            rp = self.resilience_plugin
+            if rp.peer_snapshot_every > 0 and not self._in_accumulate:
+                # buddy-rank host-RAM snapshot (resilience/peer_ckpt.py),
+                # armed at the first update so the schema gate sees the real
+                # state; its host copy is the only synchronous part
+                if self._peer_snapshotter is None:
+                    from .resilience.peer_ckpt import PeerSnapshotter
+
+                    self._peer_snapshotter = PeerSnapshotter(
+                        new_state, rp.peer_snapshot_every, keep=rp.peer_snapshot_keep,
+                        plan=self._dp_plan)
+                self._peer_snapshotter.maybe_snapshot(new_state, self.step_count)
             if self._preemption is not None and self._agreed_preemption():
                 # stop at the step boundary: the post-step state agrees with
                 # the data loader position and the step counters
@@ -1129,6 +1283,135 @@ class Accelerator:
             return new_state, metrics
 
         return wrapped
+
+    def _resolve_grad_sync(self, has_aux: bool) -> Optional[dict]:
+        """Check ``GradSyncKwargs``' codec knobs against the config (JAX
+        :1400-1447, its errors and warning), record :attr:`dcn_sync` and
+        return the codec step's plan: ``{"kind": "powersgd", "axes"}``,
+        ``{"kind": "hierarchical", "ici_axes", "dcn_codec"}``, or None for
+        the flat reduction.  Axes of one rank are left out of the
+        collectives."""
+        gsk = self.grad_sync_kwargs
+        compression = gsk.compression
+        if compression not in (None, "powersgd"):
+            raise ValueError(f"unknown GradSyncKwargs.compression {compression!r}; "
+                             "options: 'powersgd'")
+        dcn_codec = gsk.dcn_compression
+        if dcn_codec not in (None, "powersgd"):
+            raise ValueError(f"unknown GradSyncKwargs.dcn_compression {dcn_codec!r}; "
+                             "options: 'powersgd'")
+        hier_engage, hier_why = self._resolve_hierarchical()
+        if hier_engage and has_aux:
+            hier_engage, hier_why = False, "has_aux"
+        sizes = self._mesh_sizes()
+        dcn_size = sizes.get("dcn", 1)
+        if gsk.hierarchical and not hier_engage:
+            raise ValueError(
+                "GradSyncKwargs.hierarchical=True but the ICI->DCN path cannot "
+                f"engage: {hier_why}. The hierarchical reduction is the DDP "
+                "comm-hook shape: a dcn mesh axis > 1 plus pure data "
+                "parallelism with replicated params (sharding_strategy "
+                "NO_SHARD or SHARD_GRAD_OP), no cpu_offload, accumulation of "
+                "1, no fp16 scaling, no aux outputs, no comm_dtype/grad_dtype.")
+        if dcn_codec and not hier_engage:
+            raise ValueError(
+                f"GradSyncKwargs.dcn_compression={dcn_codec!r} rides the "
+                f"hierarchical ICI->DCN path, which cannot engage: "
+                f"{hier_why or 'mesh has no dcn axis'}")
+        if not hier_engage and hier_why and dcn_size > 1:
+            logger.warning(
+                "mesh has a dcn axis (size %d) but the hierarchical gradient "
+                "sync cannot engage (%s): falling back to the flat joint-axis "
+                "reduction, whose cross-slice hop carries ici_size redundant "
+                "full-gradient copies over DCN", dcn_size, hier_why)
+        self._dcn_sync = {"enabled": bool(hier_engage), "dcn_size": int(dcn_size),
+                          "ici_size": self._ici_size(),
+                          "compression": dcn_codec if hier_engage else None,
+                          "why_not": None if hier_engage else hier_why}
+        live = tuple(a for a in self._compression_axes() if sizes[a] > 1)
+        if compression == "powersgd":
+            offload_opt, _ = self._offload_flags()
+            accum = self.gradient_state.num_steps > 1
+            width_knobs = gsk.comm_dtype or gsk.grad_dtype
+            fp16 = self.policy.needs_loss_scaling
+            bad, params_sharded, strategy = self._ddp_shape()
+            if bad or params_sharded or offload_opt or accum or fp16 or has_aux or width_knobs:
+                raise ValueError(
+                    "compression='powersgd' is the DDP comm-hook analog: pure "
+                    "data parallelism with replicated params (sharding_strategy "
+                    "NO_SHARD or SHARD_GRAD_OP — FULL_SHARD/HYBRID would "
+                    "all-gather every param each step inside the shard_map), "
+                    "no cpu_offload, accumulation of 1, no "
+                    "fp16 scaling, no aux outputs, and no comm_dtype/"
+                    "grad_dtype (the factor psums are fp32 — a width knob "
+                    "would be silently ignored). Offending config: "
+                    f"{bad or ''}"
+                    f"{' params-sharded(' + str(strategy) + ')' if params_sharded else ''}"
+                    f"{' offload' if offload_opt else ''}"
+                    f"{' accum>1' if accum else ''}"
+                    f"{' fp16' if fp16 else ''}"
+                    f"{' has_aux' if has_aux else ''}"
+                    f"{' comm_dtype/grad_dtype' if width_knobs else ''}")
+            return {"kind": "powersgd", "axes": live}
+        if hier_engage:
+            return {"kind": "hierarchical", "ici_axes": tuple(a for a in live if a != "dcn"),
+                    "dcn_codec": dcn_codec}
+        return None
+
+    def _codec_step(self, codec: dict, compute_grads, fetch_params, apply_update):
+        """The step of a codec plan from :meth:`_resolve_grad_sync`: each
+        rank's f32 gradients through the flat PowerSGD codec (JAX
+        :1448-1536) or the hierarchical sync (JAX :1538-1600), then the
+        update on the mean.  The codec sees each rank's gradient at the
+        scale JAX's does, its own mean loss's: the step weights a rank's
+        loss by its token share, ``1 / world`` on equal shares, so the
+        gradient is multiplied back by the world."""
+        from .parallel import collectives
+
+        rank = self.grad_sync_kwargs.rank
+        mesh = self.mesh if self._parallel else None
+
+        def rank_grads(state: TrainState, batch):
+            loss, grads, _ = compute_grads(state, fetch_params(state), batch, state.rng)
+            world = self._dp_plan.world if self._dp_plan is not None else 1
+            return loss, {n: (g * world if world != 1 else g)
+                          for n, g in zip(state.params, grads)}
+
+        if codec["kind"] == "powersgd":
+            from .parallel.powersgd import compress_decompress
+
+            axes = codec["axes"]
+
+            def step_fn(state: TrainState, batch):
+                loss, grads = rank_grads(state, batch)
+                qs, errs = state.comm_state
+                g_hat, new_qs, new_errs = compress_decompress(grads, qs, errs, axes, rank, mesh)
+                if self._dp_plan is not None:
+                    loss = self._dp_plan.psum(loss)
+                return apply_update(state.replace(comm_state=(new_qs, new_errs)),
+                                    list(g_hat.values()), loss, reduced=True)
+
+            return step_fn
+
+        from .parallel.hierarchical import hierarchical_sync
+
+        ici_axes, dcn_codec = codec["ici_axes"], codec["dcn_codec"]
+
+        def step_fn(state: TrainState, batch):
+            loss, grads = rank_grads(state, batch)
+            qs, errs = state.comm_state if dcn_codec else (None, None)
+            g_hat, new_qs, new_errs = hierarchical_sync(grads, ici_axes, "dcn", qs=qs,
+                                                        errs=errs, rank=rank, mesh=mesh)
+            # the loss reduced in the gradients' two-stage order, inside the
+            # node first: the same sum whatever the process count
+            if ici_axes:
+                loss = collectives.psum(loss, ici_axes, mesh)
+            loss = collectives.psum(loss, "dcn", mesh)
+            if dcn_codec:
+                state = state.replace(comm_state=(new_qs, new_errs))
+            return apply_update(state, list(g_hat.values()), loss, reduced=True)
+
+        return step_fn
 
     def reset_step_cadence(self) -> None:
         """Re-anchor the SLO monitor's ``step_time_s`` cadence after a pause
@@ -1512,12 +1795,19 @@ class Accelerator:
         the train state, data loader positions, RNG streams, schedulers,
         goodput and custom objects; automatic naming and retention under
         ``ProjectConfiguration``; ``async_save=True`` returns once the
-        train state is snapshotted."""
+        train state is snapshotted.  In a world of several processes the save
+        is collective (every rank calls it) and synchronous, for a train
+        state whole on every rank (NO_SHARD data parallelism): rank 0
+        writes the train state, each rank its RNG streams."""
         from .checkpointing import save_accelerator_state
 
-        if train_state is not None and self._dp_plan is not None and (
-                self._dp_plan.world > 1 or self._dp_plan.tp > 1 or self._dp_plan.ep > 1):
-            raise _not_ported("checkpoints of a train state across several ranks", "A13h")
+        plan = self._dp_plan
+        if train_state is not None and plan is not None and (
+                plan.any_sharded or plan.tp > 1 or plan.ep > 1):
+            raise _not_ported("checkpoints of a train state sharded or split across ranks",
+                              "A13h")
+        if self.num_processes > 1 and save_kwargs.get("async_save"):
+            raise _not_ported("asynchronous checkpoints across several processes", "A13h")
 
         return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)
 
@@ -1590,9 +1880,21 @@ class Accelerator:
         return self._preemption is not None and self._preemption.requested
 
     def _agreed_preemption(self) -> bool:
-        """The local flag (the JAX package agrees it across ranks: ROADMAP
-        item A13f)."""
-        return self._preemption.requested
+        """The graceful stop agreed across the processes: True when ANY
+        rank's handler saw the signal, so the whole gang stops at the same
+        step boundary (the emergency checkpoint is collective).  An int32
+        all-gather, only in a world of several processes, paced by
+        ``ResiliencePlugin.preemption_check_every``: whether to enter it
+        depends only on the lockstep ``step_count``, never on the local
+        flag, or ranks would disagree on entering the collective."""
+        requested = self._preemption.requested
+        if self.num_processes <= 1:
+            return requested
+        every = max(1, int(self.resilience_plugin.preemption_check_every))
+        if self.step_count % every != 0:
+            return False
+        flag = torch.tensor([int(bool(requested))], dtype=torch.int32, device=self.device)
+        return bool(_ops.gather(flag).sum() > 0)
 
     def _preemption_exit(self, train_state=None):
         """The graceful-stop tail: drain the in-flight async save, write an
@@ -1644,3 +1946,70 @@ class Accelerator:
         logger.warning("resumed from checkpoint at step_count=%d (restart #%d)",
                        self.step_count, self.goodput.restarts)
         return restored
+
+    @property
+    def peer_snapshotter(self):
+        """The buddy-rank host-RAM snapshotter, or None until the prepared
+        step arms it (``ResiliencePlugin.peer_snapshot_every > 0``, after
+        its first update)."""
+        return self._peer_snapshotter
+
+    def recover(self, train_state=None, *, lost_local: bool = False, **load_kwargs):
+        """Walk the recovery ladder after a fault (``RankLostError``, a
+        restarted rank, a torn snapshot): the newest consistent **peer-RAM**
+        wave, else the newest **verified disk** checkpoint, else a **fresh
+        start**.
+
+        Collective in a world of several processes: every rank calls it
+        together.  ``lost_local=True`` marks THIS rank's own state as gone
+        (the ``rank_loss`` fault): its own waves are dropped first, so the
+        buddy's copy is what restores it.
+
+        Returns ``(train_state_or_None, report)``, ``report`` holding
+        ``restore_path`` (``"peer"`` / ``"disk"`` / ``"fresh"``),
+        ``restored_step``, ``steps_recomputed``, ``peer_snapshot_bytes``
+        and ``restore_time_s``; records the measured
+        ``recovery.restore_time_s`` twin."""
+        from .telemetry import twin_registry
+
+        t0 = time.perf_counter()
+        prev_step = self.step_count
+        report = {"restore_path": "fresh", "restored_step": 0, "steps_recomputed": 0,
+                  "peer_snapshot_bytes": 0, "restore_time_s": 0.0}
+        restored = None
+        snap = self._peer_snapshotter
+        if snap is not None and train_state is not None:
+            if lost_local:
+                snap.forget_local()
+            got = snap.recover(train_state)
+            if got is not None:
+                restored, step = got
+                self.step_count = int(step)
+                report["restore_path"] = "peer"
+                report["restored_step"] = int(step)
+                report["peer_snapshot_bytes"] = snap.schema["snapshot_bytes"]
+                self.goodput.record_restart(steps_recomputed=max(0, prev_step - int(step)))
+        if restored is None:
+            # the disk rung: the newest VERIFIED checkpoint (corrupt ones
+            # fall through inside load_state's fallback scan)
+            try:
+                restored = self.maybe_resume(train_state=train_state, **load_kwargs)
+            except Exception as e:  # corrupt beyond the fallback: fresh
+                logger.error("disk recovery failed (%s: %s); starting fresh",
+                             type(e).__name__, e)
+                restored = None
+            if restored is not None or self.step_count != prev_step:
+                report["restore_path"] = "disk"
+                report["restored_step"] = int(self.step_count)
+                self.goodput.steps_recomputed += max(0, prev_step - self.step_count)
+            else:
+                self.step_count = 0
+                self.goodput.record_restart(steps_recomputed=prev_step)
+        report["steps_recomputed"] = max(0, prev_step - report["restored_step"])
+        report["restore_time_s"] = round(time.perf_counter() - t0, 6)
+        twin_registry().record_measured("recovery.restore_time_s", report["restore_time_s"],
+                                        source="Accelerator.recover")
+        logger.warning("recovered via %s rung at step %d (replaying %d steps, %.3fs)",
+                       report["restore_path"], report["restored_step"],
+                       report["steps_recomputed"], report["restore_time_s"])
+        return restored, report

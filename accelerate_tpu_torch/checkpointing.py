@@ -24,13 +24,21 @@ one tensor per leaf — ``params.safetensors`` (params by name),
 ``opt_state.safetensors`` (the optimizer state's tensors by flatten index,
 its ``count`` and hyperparameters in the header's metadata) and
 ``state.safetensors`` (``step``, the ``TrainState.rng`` generator's state,
-``guard_state``, the carried accumulator, the fp16 loss scale and the fp8
-metas).  The port's step updates the
+``guard_state``, the carried accumulator, the fp16 loss scale, the fp8
+metas and the gradient codec's ``comm_state``: every rank's Qs and
+residuals stacked ``[world, ...]``, as the JAX package lays the residuals
+out, each rank restoring its own row).  The port's step updates the
 params in place, so a save first **snapshots** every leaf: a copy to
 pinned host memory issued on the current stream, ordered before the next
 step's update.  ``async_save=True`` returns after issuing that copy; a
 background thread waits for it and writes the files, and the publish runs
 at the next save or load, ``wait_for_checkpoint``, or interpreter exit.
+
+In a world of several processes whose train state is whole on every rank
+(NO_SHARD data parallelism), a save is collective and synchronous: rank 0
+names the directory and writes the train state and the shared files, every
+rank writes its own ``random_states_<i>.pkl``, and the ranks meet at a
+barrier before rank 0 publishes and again after.
 """
 
 from __future__ import annotations
@@ -503,7 +511,7 @@ class _TrainStateSnapshot:
     """A train state's leaves copied to the host: what the writer needs,
     with no reference to the live (in-place updated) tensors."""
 
-    def __init__(self, train_state, buffers: list):
+    def __init__(self, train_state, buffers: list, comm: Optional[dict] = None):
         from .optimizer import flatten_opt_state
 
         params = train_state.params
@@ -521,6 +529,7 @@ class _TrainStateSnapshot:
         for name, meta in (train_state.fp8_state or {}).items():
             extra.update({f"fp8_state.{name}.amax_history": meta.amax_history,
                           f"fp8_state.{name}.scale": meta.scale})
+        extra.update(comm or {})
         live = [*params.values(), *opt_tensors, *hyper_tensors.values(), *extra.values()]
         host = _snapshot(live, buffers)
         self.event = None
@@ -566,11 +575,29 @@ def _restore_leaf(template: torch.Tensor, loaded: torch.Tensor, what: str) -> to
     return loaded.reshape(template.shape)
 
 
-def _read_train_state(in_dir: Path, template):
+def _comm_tensors(train_state, world: int) -> dict:
+    """The codec state's tensors as saved: every rank's Qs and residuals
+    stacked ``[world, ...]`` (gathered over the processes, every rank
+    calling this together; the DCN codec's Qs differ between a node's
+    ranks, each compressing its own slab)."""
+    if train_state.comm_state is None:
+        return {}
+    from .ops.operations import gather
+
+    out = {}
+    for kind, tree in zip("qe", train_state.comm_state):
+        for n, t in tree.items():
+            if t is not None:
+                out[f"comm_state.{kind}.{n}"] = gather(t[None]) if world > 1 else t[None]
+    return out
+
+
+def _read_train_state(in_dir: Path, template, rank: int = 0, world: int = 1):
     """The train state of ``in_dir`` over ``template`` (a train state from
     ``create_train_state`` with the same structure): the params are
     copied into the template's own tensors (a module trains in place), the
-    rest comes back as new tensors on the template's devices."""
+    rest comes back as new tensors on the template's devices; process
+    ``rank`` of ``world`` takes its own row of the codec residuals."""
     from .optimizer import unflatten_opt_state
 
     pin = torch.cuda.is_available()
@@ -613,6 +640,18 @@ def _read_train_state(in_dir: Path, template):
             _restore_leaf(meta.scale, extra[f"fp8_state.{name}.scale"],
                           f"fp8_state.{name}.scale").to(meta.scale.device))
             for name, meta in fp8_state.items()}
+    comm_state = template.comm_state
+    if comm_state is not None:
+        def row(kind, n, t):
+            key = f"comm_state.{kind}.{n}"
+            if extra[key].shape[0] != world:
+                raise ValueError(f"checkpoint {key} holds {extra[key].shape[0]} ranks' rows, "
+                                 f"this world has {world}")
+            return _restore_leaf(t, extra[key][rank], key).to(t.device)
+
+        comm_state = tuple({n: row(kind, n, t) if t is not None else None
+                            for n, t in tree.items()}
+                           for kind, tree in zip("qe", comm_state))
     # every check passed: only now overwrite the template's params in place
     with torch.no_grad():
         for name, p in template.params.items():
@@ -622,7 +661,7 @@ def _read_train_state(in_dir: Path, template):
     return template.replace(step=int(extra["step"]), params=template.params,
                             opt_state=opt_state, guard_state=guard, grad_accum=accum,
                             accum_step=int(extra["accum_step"]), loss_scale=loss_scale,
-                            fp8_state=fp8_state)
+                            fp8_state=fp8_state, comm_state=comm_state)
 
 
 # ---------------------------------------------------------------------------
@@ -641,24 +680,41 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
     # directories and before a second writer starts
     wait_for_pending_checkpoint(accelerator)
     t0 = time.perf_counter()
-    final_dir = Path(_auto_checkpoint_dir(accelerator, output_dir)).absolute()
+    world = accelerator.num_processes
+    main = accelerator.is_main_process
+    if world > 1:
+        # one directory for the gang: rank 0 names it (retention GC and the
+        # stale sweep included) and the others take its name
+        from .ops.operations import broadcast_object_list
+
+        name = broadcast_object_list(
+            [str(_auto_checkpoint_dir(accelerator, output_dir)) if main else None])[0]
+        final_dir = Path(name).absolute()
+        pc = accelerator.project_configuration
+        if not main and output_dir is None and pc.automatic_checkpoint_naming:
+            pc.iteration = int(final_dir.name.split("_")[1]) + 1
+    else:
+        final_dir = Path(_auto_checkpoint_dir(accelerator, output_dir)).absolute()
     # the save's timings: host seconds blocked in this call, the train
     # state's bytes and write seconds, the manifest's seconds (crc32 of
     # every file) and the publish time
     record = accelerator.checkpoint_log[str(final_dir)] = {"async": async_save, "started_at": t0}
     verify, io_policy = _resilience_knobs(accelerator)
     staging = final_dir.parent / (final_dir.name + CHECKPOINT_TMP_SUFFIX)
-    if staging.exists():
-        shutil.rmtree(staging)  # a crashed writer's staging dir: never a checkpoint
-    staging.mkdir(parents=True, exist_ok=True)
+    if main:
+        if staging.exists():
+            shutil.rmtree(staging)  # a crashed writer's staging dir: never a checkpoint
+        staging.mkdir(parents=True, exist_ok=True)
+    accelerator.wait_for_everyone()
 
     # pre-hooks get the staging dir, so their files ride the manifest
     for hook in accelerator._save_model_state_pre_hooks.values():
         hook(accelerator._models, [], str(staging))
 
     pending = None
-    if train_state is not None:
-        snap = _TrainStateSnapshot(train_state, accelerator._checkpoint_buffers)
+    comm = _comm_tensors(train_state, world) if train_state is not None else {}
+    if train_state is not None and main:
+        snap = _TrainStateSnapshot(train_state, accelerator._checkpoint_buffers, comm)
 
         def write():
             t_write = time.perf_counter()
@@ -682,28 +738,34 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
 
     with open(staging / RNG_STATE_NAME.format(accelerator.process_index), "wb") as f:
         pickle.dump(_collect_rng_state(), f)
-    sampler_states = [dl.state_dict() for dl in accelerator._dataloaders
-                      if hasattr(dl, "state_dict")]
-    (staging / SAMPLER_STATES_NAME).write_text(json.dumps(sampler_states))
-    (staging / SCHEDULER_STATES_NAME).write_text(
-        json.dumps([s.state_dict() for s in accelerator._schedulers]))
-    meta = {
-        "step_count": accelerator.step_count,
-        "num_processes": accelerator.num_processes,
-        "mixed_precision": accelerator.mixed_precision,
-        # goodput counters ride the metadata, so goodput_frac spans restarts
-        "goodput": accelerator.goodput.state_dict(),
-    }
-    (staging / METADATA_NAME).write_text(json.dumps(meta))
-    for i, obj in enumerate(accelerator._custom_objects):
-        with open(staging / CUSTOM_STATES_NAME.format(i), "wb") as f:
-            pickle.dump(obj.state_dict(), f)
+    if main:
+        sampler_states = [dl.state_dict() for dl in accelerator._dataloaders
+                          if hasattr(dl, "state_dict")]
+        (staging / SAMPLER_STATES_NAME).write_text(json.dumps(sampler_states))
+        (staging / SCHEDULER_STATES_NAME).write_text(
+            json.dumps([s.state_dict() for s in accelerator._schedulers]))
+        meta = {
+            "step_count": accelerator.step_count,
+            "num_processes": accelerator.num_processes,
+            "mixed_precision": accelerator.mixed_precision,
+            # goodput counters ride the metadata, so goodput_frac spans restarts
+            "goodput": accelerator.goodput.state_dict(),
+        }
+        (staging / METADATA_NAME).write_text(json.dumps(meta))
+        for i, obj in enumerate(accelerator._custom_objects):
+            with open(staging / CUSTOM_STATES_NAME.format(i), "wb") as f:
+                pickle.dump(obj.state_dict(), f)
 
     if pending is not None:
         _PENDING_FINALIZES[pending] = (staging, final_dir, verify, record)
         accelerator._pending_checkpointer = pending
     else:
-        _finalize_checkpoint(staging, final_dir, manifest=verify, record=record)
+        # every rank's files are staged before rank 0 publishes, and the
+        # directory is published before any rank goes on
+        accelerator.wait_for_everyone()
+        if main:
+            _finalize_checkpoint(staging, final_dir, manifest=verify, record=record)
+        accelerator.wait_for_everyone()
     record["blocking_s"] = time.perf_counter() - t0
     return str(final_dir)
 
@@ -772,7 +834,9 @@ def _load_checkpoint_dir(accelerator, input_dir: Path, train_state=None,
     restored_state = None
     if train_state is not None:
         restored_state = _io_retry(
-            accelerator, lambda: _read_train_state(input_dir / TRAIN_STATE_DIR, train_state),
+            accelerator, lambda: _read_train_state(input_dir / TRAIN_STATE_DIR, train_state,
+                                                   accelerator.process_index,
+                                                   accelerator.num_processes),
             site=f"checkpoint-restore {input_dir.name}")
 
     rng_file = input_dir / RNG_STATE_NAME.format(accelerator.process_index)

@@ -51,6 +51,15 @@ AxisNames = Union[str, Sequence[str]]
 # group over those axes; emptied with the process group
 _GROUPS: dict = {}
 
+# the open recording of parallel/hierarchical.record_collectives, or None:
+# one check on the path when nothing records
+_RECORDER = None
+
+
+def _record(kind: str, x, names: tuple, mesh) -> None:
+    if _RECORDER is not None:
+        _RECORDER.add(kind, names, x, mesh)
+
 
 def _names(axis_names: AxisNames) -> tuple:
     return (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
@@ -163,6 +172,7 @@ def psum(x, axis_names: AxisNames, mesh=None):
     """The sum over the dimension (an all-reduce); differentiable, with the
     identity for backward."""
     mesh = _mesh(mesh)
+    _record("psum", x, _names(axis_names), mesh)
     if _virtual(mesh):
         return mesh.collective("psum", x, _names(axis_names))
     if _wants_grad(x):
@@ -187,6 +197,7 @@ def pmean(x, axis_names: AxisNames, mesh=None):
 
 def pmax(x, axis_names: AxisNames, mesh=None):
     mesh = _mesh(mesh)
+    _record("pmax", x, _names(axis_names), mesh)
     if _virtual(mesh):
         return mesh.collective("pmax", x, _names(axis_names))
     return _all_reduce(x, axis_names, "MAX", mesh)
@@ -194,6 +205,7 @@ def pmax(x, axis_names: AxisNames, mesh=None):
 
 def pmin(x, axis_names: AxisNames, mesh=None):
     mesh = _mesh(mesh)
+    _record("pmin", x, _names(axis_names), mesh)
     if _virtual(mesh):
         return mesh.collective("pmin", x, _names(axis_names))
     return _all_reduce(x, axis_names, "MIN", mesh)
@@ -286,6 +298,7 @@ def all_gather(x, axis_names: AxisNames, axis: int = 0, tiled: bool = True, mesh
     stacked on a new dimension at ``axis``; the backward reduce-scatters."""
     mesh = _mesh(mesh)
     names = _names(axis_names)
+    _record("all_gather", x, names, mesh)
     if _virtual(mesh):
         return mesh.collective("all_gather", x, names, axis=axis, tiled=tiled)
     if _wants_grad(x):
@@ -299,6 +312,7 @@ def all_gather_invariant(x, axis_names: AxisNames, axis: int = 0, mesh=None):
     rank computes alike): the backward keeps this rank's slice."""
     mesh = _mesh(mesh)
     names = _names(axis_names)
+    _record("all_gather", x, names, mesh)
     if _virtual(mesh):
         return mesh.collective("all_gather_invariant", x, names, axis=axis)
     if _wants_grad(x):
@@ -312,6 +326,7 @@ def reduce_scatter(x, axis_names: AxisNames, axis: int = 0, mesh=None):
     all-gathers."""
     mesh = _mesh(mesh)
     names = _names(axis_names)
+    _record("reduce_scatter", x, names, mesh)
     if _virtual(mesh):
         return mesh.collective("reduce_scatter", x, names, axis=axis)
     if _wants_grad(x):

@@ -203,6 +203,13 @@ class DataParallelPlan:
             out.append(g)
         return out
 
+    def local_grads(self, grads: list) -> list:
+        """Whole gradients already reduced (a codec step's, on replicated
+        parameters) as this rank's optimizer ranges, or whole: what
+        :meth:`reduce_grads` gives, without the reduction."""
+        return [self._flat_range(g, self._coord(lay.opt_axes) * lay.chunk, lay.chunk)
+                if lay.sharded else g for g, lay in zip(grads, self.layouts.values())]
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data-parallel ranks (``x`` in a world of
         one)."""

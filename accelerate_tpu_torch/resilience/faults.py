@@ -20,9 +20,12 @@ site                      kinds
                           ``nan_grad`` (the incoming batch is NaN-poisoned by
                           :func:`poison_batch`, so the non-finite gradients
                           flow through the real loss and backward into the
-                          NaN guard); ``straggler`` and ``rank_loss`` need
-                          ranks (ROADMAP item A13) and raise
-                          ``NotImplementedError`` there
+                          NaN guard), ``straggler`` (a host stall of
+                          :data:`STRAGGLER_STALL_S`) and ``rank_loss``
+                          (:class:`RankLostError` from the prepared step)
+``peer_snapshot``         ``partial_ckpt`` — the newest stored peer-snapshot
+                          copy is torn (``resilience/peer_ckpt.py``), which
+                          recovery's crc gate must skip
 ``transfer``              ``transfer`` — the data loader's host-to-device
                           staging (and ``LayerPrefetcher``'s) fails, inside
                           the bounded-retry wrapper
@@ -113,9 +116,19 @@ class InjectedTransferError(TransientIOError):
 
 
 class RankLostError(RuntimeError):
-    """An injected ``rank_loss`` fault: this rank's training state is gone
-    (not retryable).  The port's training step raises none: rank loss and
-    the recovery ladder it feeds need ranks, ROADMAP item A13."""
+    """An injected ``rank_loss`` fault: this rank's training state is gone.
+
+    Raised by the prepared step at the boundary the plan names, and not
+    retryable: the caller routes the gang through the recovery ladder
+    (:meth:`~accelerate_tpu_torch.Accelerator.recover`): the lost rank's
+    newest snapshot lives in its buddy's host RAM, and the whole gang rolls
+    back to the newest wave every rank can restore."""
+
+
+# the deterministic host stall a ``straggler`` fault injects (seconds):
+# long enough to skew the ranks' arrival at a step boundary, short enough
+# for a test
+STRAGGLER_STALL_S = 0.25
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,9 +16,10 @@ imports no JAX).
    ``Accelerator.maybe_resume`` picks up the newest *valid* checkpoint.
 
 ``RESUME_EXIT_CODE`` is 75 — BSD ``EX_TEMPFAIL``, "transient failure,
-re-run me" — distinct from 0 (done) and 1 (crash).  The port drives one
-process: the boundary check is the local flag (the JAX package agrees it
-across ranks; ranks are ROADMAP item A13).
+re-run me" — distinct from 0 (done) and 1 (crash).  In a world of several
+processes the boundary check is agreed across the ranks
+(``Accelerator._agreed_preemption``: any rank's flag stops them all at the
+same step, so the emergency checkpoint's collectives meet).
 """
 
 from __future__ import annotations

@@ -9,6 +9,8 @@ concurrent gangs cannot collide).  Each process runs single-threaded
 (``torch.set_num_threads(1)``).  The whole gang has one timeout; a
 process that fails or outlives it fails the gang, and every process is
 stopped.  Returns each rank's return value, unpickled, in rank order.
+``exit_code`` names another code every process must exit with (a
+preempted gang's resume code, 75): such a gang returns nothing.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ def _worker_main(target: str, kwargs_path: str, out_path: str) -> None:
     state.destroy_process_group()
 
 
-def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, **kwargs) -> list:
+def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, exit_code: int = 0,
+             **kwargs) -> list:
     """Run ``target`` on a gloo world of ``nprocs`` CPU processes (see the
-    module doc); ``kwargs`` must pickle."""
+    module doc); ``kwargs`` must pickle.  Every process must exit with
+    ``exit_code``; with another than 0 the result is ``[None] * nprocs``."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     store = workdir / "store"
@@ -77,13 +81,13 @@ def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, **kwargs
             if time.monotonic() > deadline:
                 failed = f"the gang outlived its {timeout:.0f} s timeout"
                 break
-            bad = [r for r, p in enumerate(procs) if p.returncode not in (None, 0)]
+            bad = [r for r, p in enumerate(procs) if p.returncode not in (None, exit_code)]
             if bad:
                 failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
                 break
             time.sleep(0.05)
         if failed is None:
-            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            bad = [r for r, p in enumerate(procs) if p.returncode != exit_code]
             if bad:
                 failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
     finally:
@@ -97,6 +101,8 @@ def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, **kwargs
         tails = "\n".join(f"--- rank {r} ---\n" + (workdir / f"rank{r}.log").read_text()[-4000:]
                           for r in range(nprocs))
         raise RuntimeError(f"{target}: {failed}\n{tails}")
+    if exit_code != 0:
+        return [None] * nprocs
     out = []
     for rank in range(nprocs):
         with open(workdir / f"out{rank}.pkl", "rb") as f:

@@ -150,18 +150,22 @@ class GradSyncKwargs:
     """How gradients are formed and reduced (the JAX package's fields).
     ``grad_dtype="bf16"`` differentiates with respect to the compute-width
     copy of the params, so every gradient is born bf16.  ``comm_dtype``
-    casts the gradients before the (single-device, so absent) reduction;
-    ``average_grads`` is moot on one device.  The compression and
-    hierarchical knobs are multi-GPU reductions, ROADMAP item A13: the
-    train step raises when one is set."""
+    casts the gradients before the data-parallel reduction;
+    ``average_grads=False`` hands the optimizer the sum over the
+    data-parallel ranks in place of their mean.  ``compression="powersgd"``
+    runs the DDP PowerSGD step at ``rank`` (``parallel/powersgd.py``);
+    ``hierarchical`` (None: wherever it can) reduces over a ``dcn`` axis
+    with the intra-node / inter-node schedule, whose inter-node hop
+    ``dcn_compression="powersgd"`` compresses
+    (``parallel/hierarchical.py``)."""
 
     comm_dtype: Optional[str] = None     # None | "bf16" | "fp16"
     average_grads: bool = True
     grad_dtype: Optional[str] = None     # None | "bf16"
-    compression: Optional[str] = None    # "powersgd" (A13)
+    compression: Optional[str] = None    # None | "powersgd"
     rank: int = 4
-    hierarchical: Optional[bool] = None  # True requires a dcn axis (A13)
-    dcn_compression: Optional[str] = None
+    hierarchical: Optional[bool] = None  # True requires a dcn axis
+    dcn_compression: Optional[str] = None  # None | "powersgd"
 
 
 @dataclass
@@ -347,9 +351,10 @@ class ResiliencePlugin:
     by default; ``ACCELERATE_NAN_GUARD`` / ``ACCELERATE_PREEMPTION``
     override each.  Checkpoint verification and bounded I/O retry are on
     regardless.  ``preemption_check_every`` paces the cross-rank agreement
-    of a multi-process run and the peer snapshots need ranks: both are
-    ROADMAP item A13 (the Accelerator raises for ``peer_snapshot_every >
-    0``)."""
+    of the preemption stop in a multi-process run; ``peer_snapshot_every``
+    arms buddy-rank host-RAM snapshots every that many steps, the newest
+    ``peer_snapshot_keep`` kept (``resilience/peer_ckpt.py``, the first
+    rung of ``Accelerator.recover``)."""
 
     nan_guard: Optional[bool] = None        # skip a step whose loss or grad norm
                                             # is non-finite; counters persist in
@@ -372,7 +377,7 @@ class ResiliencePlugin:
     io_retries: int = 3                     # bounded retry budget for
                                             # checkpoint I/O + host transfers
     io_backoff_s: float = 0.05              # first backoff; doubles per retry
-    peer_snapshot_every: int = 0            # A13
+    peer_snapshot_every: int = 0            # 0: no peer snapshots
     peer_snapshot_keep: int = 2
 
     def __post_init__(self):

@@ -6,7 +6,7 @@ python3 chip_smoke.py [--before DIR] [--seed N] [--only PHASE[,PHASE]]
 
 The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
-``train_resume``: 6a; ``memory_recipes``: 6b; ``lora_train``: 6c;
+``train_resume``: 6a and its recovery ladder; ``memory_recipes``: 6b; ``lora_train``: 6c;
 ``examples``: 6d; ``parallel``: 6e; ``moe``: 6f) and prints the kernels
 line for the kernels they reached.
 
@@ -215,7 +215,19 @@ line for the kernels they reached.
    the goodput counters, #1-#3 16 launches a step through the loader, and
    the native IO engine in use; prints the ``train_resume`` line (save
    sync / async blocking / async total ms, bytes and GB/s, crc32, verify
-   and load ms, data wait, peak memory, the verdicts, the card);
+   and load ms, data wait, peak memory, the verdicts, the card); then
+   (h) the recovery ladder (``recovery_ladder``) on the 600m step at 2 x
+   2048 in one process with ``ResiliencePlugin(peer_snapshot_every=2)``:
+   an uninterrupted reference pass, a ``rank_loss`` at step 5 recovered
+   by ``Accelerator.recover`` from the peer rung (wave 4: the odd rank out
+   is its own buddy), a ``partial_ckpt`` tearing wave 4 (dropped by its
+   crc, wave 2 restored), ``forget_local()`` falling to the disk rung (a
+   checkpoint at step 2) and ``reset()`` with the checkpoints gone (a
+   fresh start); each restoring pass continues bitwise with the
+   reference, every #1-#3 launch of the faulted passes held to its plain
+   version, the snapshot's bytes equal to ``peer_ckpt_accounting``; times
+   phase 1's pinned copy and crc32s beside the step, each rung's restore
+   and one ``straggler`` stall;
 6b. the memory and precision recipes (``memory_recipes_phase``): bench.py's
    1.34B config (``_1b_config``: hidden 2048, 24 layers, 16 heads of 128,
    flash, bf16) at batch 3 x 2048, fused CE over 4 vocab chunks,
@@ -312,6 +324,19 @@ line for the kernels they reached.
    largest), the loss, the grad norm and every re-assembled leaf gradient
    under the batch-2 rule of the unsharded fwd + bwd; ms and peak memory
    beside the unsharded step's, one profiled step;
+   (g) multi-node data parallelism (``virtual_dcn``): the 600m model's
+   fwd + bwd for each rank of a virtual dcn 2 x dp_shard 2 world on its
+   row of a 4 x 2048 batch (#1-#3 held to their plain versions, 64
+   launches each), then through ``VirtualMesh.run`` the dense
+   ``hierarchical_sync`` against the flat mean of the four f32 gradients,
+   three syncs with ``dcn_compression`` at rank 4 and three of the flat
+   ``compress_decompress`` over the four ranks, the codecs' residuals
+   carried: per-leaf relative error (of each sync and of the syncs'
+   running mean), residual norms, ms; the DCN bytes the recorder saw
+   equal to ``dcn_comm_accounting``'s, exactly, beside the flat
+   schedule's bytes and each one's seconds at 50 GB/s; (g') the
+   Accelerator's PowerSGD step (rank 4) in an NCCL world of one, 4 steps
+   at 4 x 2048: losses finite and falling, step ms beside (a)'s;
 6f. the Mixtral MoE family (``moe_phase``) at Mixtral 8x7B's widths
    (vocab 32000, hidden 4096, intermediate 14336, 32 q / 8 kv heads of
    128, 8 experts, top 2, capacity factor 1.25), depth cut to 2 layers,
@@ -333,8 +358,10 @@ line for the kernels they reached.
    serves (``big_model_serve``, ``big_model_serve_int8``), the int8
    streamed decode (``streamed``) and beam search (``beam``) and, for
    #1-#3, the ``train_resume`` runs, the ``memory_*`` runs of step 6b,
-   the ``lora_train`` steps of step 6c, the ``parallel`` ring pass,
-   Ulysses pass, tp steps and pipelined step of step 6e and the ``moe``
+   the ``lora_train`` steps of step 6c, the recovery ladder's steps
+   (``train_resume_ladder``), the ``parallel`` ring pass, Ulysses pass,
+   tp steps, pipelined step, (g)'s rank passes (``parallel_dcn``) and
+   PowerSGD steps (``parallel_powersgd``) of step 6e and the ``moe``
    step and ep pass of step 6f; #1-#3's ``cases`` and ``f16`` hold
    their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
@@ -2082,6 +2109,207 @@ def train_resume_phase(torch, fa, card: str, seed: int, step_ms: float, n_params
         return {"launches": launches, "report": rep}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+# (h) the recovery ladder on the 600m loop in one process: peer snapshots
+# every 2 steps (JAX's _buddy pairs the odd rank out with itself, so the
+# peer rung reads the rank's own host waves), batch 2 x 2048 (cut from the
+# step's 10: the ladder replays steps, the rows are not what it measures)
+LADDER = dict(batch=2, steps=6, every=2, fault_step=5, disk_save=2)
+
+
+def recovery_ladder(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(h): an uninterrupted reference pass, then a ``rank_loss`` at step 5
+    recovered from the peer rung (wave 4), a ``partial_ckpt`` tearing wave
+    4 (recovery drops it by crc, restores wave 2), ``forget_local()`` (the
+    disk rung, a checkpoint at step 2), ``reset()`` with the checkpoints
+    gone (a fresh start); each restoring pass continues bitwise with the
+    reference, every #1-#3 launch of the faulted passes held to its plain
+    version.  Times phase 1's host copy and crc against the step, each
+    rung's restore, one ``straggler`` stall."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import (
+        Accelerator, GradSyncKwargs, LlamaConfig, LlamaForCausalLM, ProjectConfiguration,
+        ResiliencePlugin, make_llama_loss_fn,
+    )
+    from accelerate_tpu_torch.resilience import (
+        STRAGGLER_STALL_S, FaultEvent, FaultPlan, RankLostError, install_fault_plan,
+    )
+    from accelerate_tpu_torch.resilience import peer_ckpt as pc
+    from accelerate_tpu_torch.telemetry import twin_registry
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=8)
+    root = Path(tempfile.mkdtemp(prefix="recovery-"))
+    acc = Accelerator(mixed_precision="bf16", device=device,
+                      kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")],
+                      project_config=ProjectConfiguration(project_dir=str(root),
+                                                          automatic_checkpoint_naming=True),
+                      resilience_plugin=ResiliencePlugin(peer_snapshot_every=LADDER["every"]))
+    try:
+        state0 = acc.create_train_state(model, TRAIN["optimizer"])
+        init = pc.capture_host_snapshot(state0)
+        step = acc.prepare_train_step(make_llama_loss_fn(model,
+                                                         fused_vocab_chunks=TRAIN["ce_chunks"]))
+        tokens = np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (LADDER["steps"], LADDER["batch"], TRAIN["seq"]))
+        batches = [{"input_ids": t, "labels": t}
+                   for t in torch.from_numpy(tokens).to(device).unbind(0)]
+        reg = twin_registry()
+        reg.reset()
+        reset_counts()
+        executed = 0
+
+        def fresh():
+            acc.step_count = 0
+            return pc.restore_host_snapshot(init, state0)
+
+        # the reference pass, timed, kernels not held (their launches count)
+        state, ref, step_ms = fresh(), [], []
+        for b in batches:
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            ref.append(m["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        executed += len(batches)
+        snapper = acc.peer_snapshotter
+        predicted = pc.peer_ckpt_accounting(state)["snapshot_bytes"]
+        measured = snapper.local[-1].nbytes
+
+        # phase 1 alone: the synchronous host copy, then the crc32s
+        copy_ms, crc_ms = [], []
+        for _ in range(3):
+            leaves = pc._flat_leaves(state)
+            sync(torch)
+            t0 = time.perf_counter()
+            host = {k: pc._host_copy(v) for k, v in leaves.items()}
+            sync(torch)
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for v in host.values():
+                pc._crc(v)
+            crc_ms.append((time.perf_counter() - t0) * 1e3)
+            del host
+
+        readings = {n: [] for n in FLASH_REPLACES}
+
+        def run_pass(plan, disk_save_at=None, before_recover=None):
+            nonlocal executed
+            snapper.reset()
+            install_fault_plan(FaultPlan(plan))
+            state = fresh()
+            losses, report, prefix, i = [], None, 0, 0
+            try:
+                while i < len(batches):
+                    try:
+                        out, m = step(state, batches[i])
+                    except RankLostError:
+                        prefix = len(losses)
+                        if before_recover is not None:
+                            before_recover()
+                        sync(torch)
+                        state, report = acc.recover(train_state=state,
+                                                    load_sampler_states=False)
+                        if state is None:
+                            raise AssertionError(f"recovery fell through to fresh: {report}")
+                        i = acc.step_count
+                        continue
+                    executed += 1
+                    state = out
+                    losses.append(m["loss"].item())
+                    i += 1
+                    if disk_save_at == i:
+                        acc.save_state(train_state=state)
+            finally:
+                install_fault_plan(None)
+            if report is None:
+                raise AssertionError("the fault plan never fired")
+            expect = ref[:prefix] + ref[report["restored_step"]:]
+            return {**{k: report[k] for k in ("restore_path", "restored_step",
+                                              "steps_recomputed", "peer_snapshot_bytes")},
+                    "restore_ms": report["restore_time_s"] * 1e3,
+                    "losses": losses, "bitwise": losses == expect}, state
+
+        at = LADDER["fault_step"]
+        with checked_flash_kernels(torch, fa, readings):
+            peer, _ = run_pass([FaultEvent("rank_loss", at=at)])
+            torn, _ = run_pass([FaultEvent("partial_ckpt", at=2),
+                                FaultEvent("rank_loss", at=at)])
+            disk, state = run_pass([FaultEvent("rank_loss", at=at)],
+                                   disk_save_at=LADDER["disk_save"],
+                                   before_recover=snapper.forget_local)
+        snapper.reset()
+        shutil.rmtree(root / "checkpoints")
+        gone, fresh_rep = acc.recover(train_state=state, load_sampler_states=False)
+        fresh_step_count = acc.step_count
+        # one straggler stall, against the step without it (no snapshot in
+        # either step)
+        acc.resilience_plugin.peer_snapshot_every = 0
+        timed = []
+        for plan in ([], [FaultEvent("straggler", at=1)]):
+            install_fault_plan(FaultPlan(plan))
+            try:
+                sync(torch)
+                t0 = time.perf_counter()
+                state, _ = step(state, batches[0])
+                sync(torch)
+                timed.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                install_fault_plan(None)
+        executed += 2
+        launches = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+        twin = reg.get("recovery.peer_snapshot_bytes")
+        nbytes = measured
+        odd = [ms for i, ms in enumerate(step_ms) if (i + 1) % LADDER["every"] and i]
+        rep = {
+            "card": card, "batch": [LADDER["batch"], TRAIN["seq"]], "every": LADDER["every"],
+            "snapshot_bytes_predicted": predicted, "snapshot_bytes_measured": measured,
+            "twin_rel_err": twin.rel_err if twin is not None else None,
+            "ref_losses": ref, "step_ms": step_ms,
+            "step_ms_without_snapshot": float(np.median(odd)),
+            "phase1_copy_ms": float(np.median(copy_ms)),
+            "phase1_copy_gb_s": nbytes / (float(np.median(copy_ms)) / 1e3) / 1e9,
+            "phase1_crc_ms": float(np.median(crc_ms)),
+            "phase1_crc_gb_s": nbytes / (float(np.median(crc_ms)) / 1e3) / 1e9,
+            "peer": peer, "peer_older_wave": torn, "disk": disk,
+            "fresh": {"restore_path": fresh_rep["restore_path"], "restored": gone is not None,
+                      "step_count": fresh_step_count,
+                      "restore_ms": fresh_rep["restore_time_s"] * 1e3},
+            "goodput": acc.goodput.state_dict(),
+            "straggler": {"step_ms": timed[0], "with_stall_ms": timed[1],
+                          "stall_ms": timed[1] - timed[0], "stall_s_set": STRAGGLER_STALL_S},
+            "launches": launches, "executed_steps": executed,
+            "in_path": worst_of(readings, {n: (executed - len(batches) - 2)
+                                           * cfg.num_hidden_layers for n in FLASH_REPLACES}),
+        }
+        log("train_resume (h) recovery ladder:", json.dumps(rep))
+        failures = []
+        if predicted != measured or (twin is not None and twin.rel_err != 0.0):
+            failures.append(f"snapshot bytes predicted {predicted}, measured {measured}")
+        for label, want_path, want_step in (("peer", "peer", 4), ("peer_older_wave", "peer", 2),
+                                            ("disk", "disk", LADDER["disk_save"])):
+            r = rep[label]
+            if (r["restore_path"], r["restored_step"]) != (want_path, want_step) \
+                    or not r["bitwise"]:
+                failures.append(f"{label}: {r}")
+        if fresh_rep["restore_path"] != "fresh" or gone is not None or fresh_step_count != 0:
+            failures.append(f"fresh: {rep['fresh']}")
+        if rep["straggler"]["stall_ms"] < STRAGGLER_STALL_S * 1e3 * 0.9:
+            failures.append(f"straggler: {rep['straggler']}")
+        for n, c in launches.items():
+            if c != executed * cfg.num_hidden_layers:
+                failures.append(f"{n} launched {c} times in {executed} steps")
+        if failures:
+            raise AssertionError("train_resume (h): " + "; ".join(failures))
+        return rep
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        acc = model = None
         if device == "cuda":
             torch.cuda.empty_cache()
 
@@ -5942,21 +6170,265 @@ def virtual_pp(torch, fa, card: str, device: str = "cuda") -> dict:
     return rep
 
 
+# (g) multi-node data parallelism: the 600m model's gradients on a virtual
+# dcn 2 x dp_shard 2 world, each rank's row of a 4 x 2048 batch, reduced
+# hierarchically (dense, then PowerSGD across dcn) and by the flat PowerSGD
+# codec; then the Accelerator's PowerSGD step in an NCCL world of one
+DCN = dict(dcn=2, ici=2, rank=4, syncs=3, steps=4)
+
+
+def leaf_rel_errs(torch, got: dict, ref: dict) -> dict:
+    """``||got - ref|| / ||ref||`` of each leaf."""
+    return {n: ((got[n] - ref[n]).norm() / ref[n].norm().clamp(min=1e-30)).item() for n in ref}
+
+
+def rel_summary(errs: dict) -> dict:
+    worst = max(errs, key=errs.get)
+    return {"worst_leaf": worst, "worst_rel_err": errs[worst],
+            "median_rel_err": float(np.median(list(errs.values())))}
+
+
+def virtual_dcn(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(g): each rank's fwd + bwd (#1-#3 held to their plain versions in the
+    path), then through ``VirtualMesh.run`` the dense hierarchical sync
+    against the flat mean, three syncs with the DCN codec at rank 4, three
+    of the flat codec over all four ranks; per-leaf errors, residual norms,
+    ms, and the DCN bytes the recorder saw against ``dcn_comm_accounting``
+    (equal, exactly)."""
+    from accelerate_tpu_torch.parallel.hierarchical import (
+        dcn_comm_accounting, hierarchical_sync, init_dcn_powersgd_state, measure_dcn_bytes,
+        record_collectives,
+    )
+    from accelerate_tpu_torch.parallel.powersgd import (
+        compress_decompress, init_powersgd_state, residual_norms,
+    )
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+
+    world, ici = DCN["dcn"] * DCN["ici"], DCN["ici"]
+    cfg, model, params, _, loss_fn = train_setup(torch, seed=6, device=device)
+    names = list(params)
+    batch = token_batch(torch, cfg.vocab_size, world, device)
+    readings = {n: [] for n in FLASH_REPLACES}
+    reset_counts()
+    grads = []
+    sync(torch)
+    t0 = time.perf_counter()
+    with checked_flash_kernels(torch, fa, readings):
+        for r in range(world):
+            leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+            loss = loss_fn(leaves, {k: v[r:r + 1] for k, v in batch.items()}).float()
+            grads.append({n: g.float() for n, g in
+                          zip(names, torch.autograd.grad(loss, list(leaves.values())))})
+            del leaves, loss
+    sync(torch)
+    out = {"card": card, "world": {"dcn": DCN["dcn"], "dp_shard": ici}, "batch": [world, TRAIN["seq"]],
+           "rank_passes_ms_checked": (time.perf_counter() - t0) * 1e3,
+           "launches": {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES},
+           "in_path": worst_of(readings, {n: world * cfg.num_hidden_layers
+                                          for n in FLASH_REPLACES})}
+    mean = {n: sum(g[n] for g in grads) / world for n in names}
+    mesh = VirtualMesh(("dcn", "dp_shard"), (DCN["dcn"], ici))
+
+    def timed(fn):
+        sync(torch)
+        t = time.perf_counter()
+        res = fn()
+        sync(torch)
+        return res, (time.perf_counter() - t) * 1e3
+
+    predicted = dcn_comm_accounting(params, ici_size=ici, dcn_size=DCN["dcn"])
+
+    def dense_sync():
+        return mesh.run(lambda r: hierarchical_sync(grads[r], ("dp_shard",), "dcn",
+                                                    mesh=mesh)[0])
+
+    # the first sync allocates the world's buffers; the second is warm
+    first_ms = timed(lambda: dense_sync() and None)[1]
+    with record_collectives() as rec:
+        dense, ms = timed(dense_sync)
+    measured = measure_dcn_bytes(rec, dcn_size=DCN["dcn"])
+    same_on_ranks = all(torch.equal(dense[r][n], dense[0][n]) for r in range(1, world)
+                        for n in names)
+    out["dense"] = {"ms": ms, "first_ms": first_ms,
+                    **rel_summary(leaf_rel_errs(torch, dense[0], mean)),
+                    "same_on_every_rank": same_on_ranks,
+                    "dcn_bytes_measured": measured["dcn_bytes"],
+                    "dcn_bytes_per_rank": measured["per_rank"],
+                    "dcn_bytes_predicted": predicted["dcn_bytes"],
+                    "dcn_bytes_flat": predicted["dcn_bytes_flat"],
+                    "dcn_s_per_step_at_50_gb_s": predicted["dcn_s_per_step"],
+                    "flat_dcn_s_per_step_at_50_gb_s": predicted["dcn_bytes_flat"] / 50e9}
+    del dense
+    out["dense"]["profile"] = profiled_step(torch, dense_sync, top=6)
+
+    def codec_syncs(run_one, state, pred=None):
+        """``DCN["syncs"]`` syncs of the same gradients, each rank's codec
+        state carried: per sync its error against the mean, and the error of
+        the syncs' running average (error feedback drives it down)."""
+        rows, total = [], None
+        for k in range(1, DCN["syncs"] + 1):
+            with record_collectives() as rec:
+                res, ms = timed(lambda: mesh.run(lambda r: run_one(r, state[r])))
+            state = [(o[1], o[2]) for o in res]
+            total = dict(res[0][0]) if total is None else {n: total[n] + res[0][0][n]
+                                                            for n in names}
+            norms = residual_norms(state[0][1])
+            running = rel_summary(leaf_rel_errs(torch, {n: total[n] / k for n in names}, mean))
+            row = {"ms": ms, **rel_summary(leaf_rel_errs(torch, res[0][0], mean)),
+                   "running_mean_worst_rel_err": running["worst_rel_err"],
+                   "running_mean_median_rel_err": running["median_rel_err"],
+                   "residual_norm_total": math.sqrt(sum(v * v for v in norms.values())),
+                   "residual_norm_worst_leaf": max(norms, key=norms.get),
+                   "residual_norm_worst": max(norms.values())}
+            if pred is not None:
+                row["dcn_bytes_measured"] = measure_dcn_bytes(rec, dcn_size=DCN["dcn"])[
+                    "dcn_bytes"]
+                row["dcn_bytes_predicted"] = pred["dcn_bytes"]
+            rows.append(row)
+            del res
+        return rows
+
+    qs, errs = init_dcn_powersgd_state(params, DCN["rank"], ici, device=device)
+    pred_c = dcn_comm_accounting(params, ici_size=ici, dcn_size=DCN["dcn"],
+                                 compression="powersgd", rank=DCN["rank"])
+    out["dcn_powersgd"] = codec_syncs(
+        lambda r, st: hierarchical_sync(grads[r], ("dp_shard",), "dcn", qs=st[0], errs=st[1],
+                                        rank=DCN["rank"], mesh=mesh),
+        [(qs, {n: e.clone() if e is not None else None for n, e in errs.items()})
+         for _ in range(world)], pred_c)
+    out["dcn_powersgd_bytes"] = {k: pred_c[k] for k in ("dcn_bytes", "dcn_bytes_flat", "ratio",
+                                                         "eligible_leaves", "dense_leaves",
+                                                         "dcn_s_per_step")}
+    del qs, errs
+    torch.cuda.empty_cache()
+    fq, fe = init_powersgd_state(params, DCN["rank"], device=device)
+    out["flat_powersgd"] = codec_syncs(
+        lambda r, st: compress_decompress(grads[r], st[0], st[1], ("dcn", "dp_shard"),
+                                          DCN["rank"], mesh),
+        [(fq, {n: e.clone() if e is not None else None for n, e in fe.items()})
+         for _ in range(world)])
+    sync(torch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("parallel (g) virtual dcn:", json.dumps(out))
+    failures = []
+    for n, c in out["launches"].items():
+        if c != world * cfg.num_hidden_layers:
+            failures.append(f"{n} launched {c} times, not {world * cfg.num_hidden_layers}")
+    if not same_on_ranks or out["dense"]["worst_rel_err"] > 1e-5:
+        failures.append(f"the dense sync is off the flat mean: {out['dense']}")
+    if not (out["dense"]["dcn_bytes_measured"] == out["dense"]["dcn_bytes_predicted"]
+            and set(out["dense"]["dcn_bytes_per_rank"].values()) == {predicted["dcn_bytes"]}):
+        failures.append(f"dense DCN bytes measured {measured} against {predicted}")
+    for row in out["dcn_powersgd"]:
+        if row["dcn_bytes_measured"] != row["dcn_bytes_predicted"]:
+            failures.append(f"codec DCN bytes {row}")
+    for label in ("dcn_powersgd", "flat_powersgd"):
+        if not all(math.isfinite(r["worst_rel_err"]) and math.isfinite(r["residual_norm_total"])
+                   for r in out[label]):
+            failures.append(f"{label} not finite: {out[label]}")
+    del grads, mean, fq, fe, params, model
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("parallel (g): " + "; ".join(failures))
+    return out
+
+
+def powersgd_world_of_one(torch, card: str, device: str = "cuda") -> dict:
+    """(g'): the Accelerator's PowerSGD step (rank 4, NO_SHARD) in an NCCL
+    world of one, 4 steps on one 4 x 2048 batch: the codec compresses a
+    world of one too (the JAX package's step engages it on a one-device
+    mesh); losses finite and falling, step ms beside the flat step's on a
+    copy of the same weights and batch."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.parallel.powersgd import residual_norms
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils.dataclasses import (
+        FullyShardedDataParallelPlugin, GradSyncKwargs,
+    )
+
+    with tempfile.TemporaryDirectory() as rendezvous:
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store",
+                                world_size=1, rank=0)
+        try:
+            cfg, model, params, _, loss_fn = train_setup(torch, seed=3, device=device)
+            first = {n: p.clone() for n, p in params.items()}
+            batch = token_batch(torch, cfg.vocab_size, PARALLEL["batch"], device)
+
+            def run(weights, handlers):
+                acc = Accelerator(mixed_precision="bf16", parallelism_config=ParallelismConfig(),
+                                  fsdp_plugin=FullyShardedDataParallelPlugin(
+                                      sharding_strategy="NO_SHARD"),
+                                  kwargs_handlers=handlers)
+                state = acc.create_train_state(weights, TRAIN["optimizer"])
+                step = acc.prepare_train_step(loss_fn)
+                losses, step_ms = [], []
+                for _ in range(DCN["steps"]):
+                    sync(torch)
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    sync(torch)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].item())
+                return acc, state, losses, step_ms
+
+            _, _, flat_losses, flat_ms = run(first, [])
+            reset_counts()
+            acc, state, losses, step_ms = run(params, [GradSyncKwargs(compression="powersgd",
+                                                                      rank=DCN["rank"])])
+            launches = {n: fa_launches(n) for n in FLASH_REPLACES}
+            norms = residual_norms(state.comm_state[1])
+            rep = {"card": card, "rank": DCN["rank"], "losses": losses,
+                   "flat_losses": flat_losses, "step_ms": step_ms, "flat_step_ms": flat_ms,
+                   "median_ms_after_first": float(np.median(step_ms[1:])),
+                   "flat_median_ms_after_first": float(np.median(flat_ms[1:])),
+                   "dcn_sync": acc.dcn_sync,
+                   "residual_norm_total": math.sqrt(sum(v * v for v in norms.values())),
+                   "codec_leaves": sum(q is not None for q in state.comm_state[0].values()),
+                   "launches": launches}
+            rep["over_flat"] = rep["median_ms_after_first"] / rep["flat_median_ms_after_first"]
+            log("parallel (g') PowerSGD step, world of one:", json.dumps(rep))
+            want = DCN["steps"] * cfg.num_hidden_layers
+            if not (all(math.isfinite(v) for v in rep["losses"])
+                    and rep["losses"][-1] < rep["losses"][0]
+                    and all(c == want for c in launches.values())
+                    and rep["residual_norm_total"] > 0):
+                raise AssertionError(f"the PowerSGD step: {rep}")
+        finally:
+            acc = model = params = first = state = None
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def fa_launches(name: str) -> int:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    return fa._WRAPPERS[name].launches
+
+
 def parallel_phase(torch, fa, card: str) -> dict:
-    """Step 6e: (a), (b), (c), (d) and (e); returns each and the launches
-    of one ring pass, one Ulysses pass, one tp step in each mode and one
-    pipelined step."""
+    """Step 6e: (a)-(e) and (g); returns each and the launches of one ring
+    pass, one Ulysses pass, one tp step in each mode, one pipelined step,
+    (g)'s rank passes and its PowerSGD steps."""
     one = world_of_one(torch, card)
     ring = virtual_ring(torch, fa, card)
     uly = virtual_ulysses(torch, fa, card, ring)
     tp = virtual_tp(torch, fa, card)
     pipe = virtual_pp(torch, fa, card)
+    dcn = virtual_dcn(torch, fa, card)
+    psgd = powersgd_world_of_one(torch, card)
     return {"world_of_one": one, "ring": ring, "ulysses": uly, "tp": tp, "pp": pipe,
+            "dcn": dcn, "powersgd": psgd,
             "launches": ring["causal"]["launches"],
             "ulysses_launches": uly["causal"]["launches"],
             "tp_launches": {n: sum(tp[m]["launches"][n] for m in TP["modes"])
                             for n in FLASH_REPLACES},
-            "pp_launches": pipe["launches"]}
+            "pp_launches": pipe["launches"], "dcn_launches": dcn["launches"],
+            "powersgd_launches": psgd["launches"]}
 
 
 # (f) the Mixtral MoE family: Mixtral 8x7B's published widths (vocab 32000,
@@ -6368,6 +6840,8 @@ def main() -> int:
         resumed = train_resume_phase(torch, fa, card, args.seed, train["report"]["step_ms"],
                                      train["report"]["params"])
         PATH_LAUNCHES["train_resume"] = resumed["launches"]
+        ladder = recovery_ladder(torch, fa, card)
+        PATH_LAUNCHES["train_resume_ladder"] = ladder["launches"]
         phase_done("train_resume")
     if "memory_recipes" in only:
         memory = memory_recipes_phase(torch, F, fa, card)
@@ -6406,6 +6880,8 @@ def main() -> int:
         PATH_LAUNCHES["parallel_ulysses"] = parallel["ulysses_launches"]
         PATH_LAUNCHES["parallel_tp"] = parallel["tp_launches"]
         PATH_LAUNCHES["parallel_pp"] = parallel["pp_launches"]
+        PATH_LAUNCHES["parallel_dcn"] = parallel["dcn_launches"]
+        PATH_LAUNCHES["parallel_powersgd"] = parallel["powersgd_launches"]
         phase_done("parallel")
     if "moe" in only:
         moe = moe_phase(torch, fa, card)

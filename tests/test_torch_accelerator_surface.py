@@ -83,12 +83,14 @@ A13_CALLS = {
     "mesh": lambda a: a.mesh,
     "parallelism_config": lambda a: a.parallelism_config,
 }
-# ported since: the collectives façade and the data / context parallel
-# surface, each held here to its one-process meaning (tests/
-# test_torch_operations.py and test_torch_data_parallel.py hold them on
-# gangs of processes)
+# ported since: the collectives façade, the data / context parallel
+# surface and the multi-node data parallelism and recovery surface, each
+# held here to its one-process meaning (tests/test_torch_operations.py,
+# test_torch_data_parallel.py, test_torch_hierarchical.py and
+# test_torch_peer_ckpt.py hold them on gangs of processes)
 PORTED = {"gather", "reduce", "pad_across_processes", "split_between_processes",
-          "maybe_context_parallel", "join_uneven_inputs", "mesh", "parallelism_config"}
+          "maybe_context_parallel", "join_uneven_inputs", "mesh", "parallelism_config",
+          "dcn_sync", "dcn_sync_accounting", "recover", "peer_snapshotter"}
 
 
 @pytest.mark.parametrize("name", sorted(A13_CALLS))
@@ -110,6 +112,15 @@ def test_multi_gpu_surface_raises_naming_a13(name):
     elif name == "join_uneven_inputs":
         with out as value:
             assert value is None
+    elif name in ("dcn_sync", "peer_snapshotter"):
+        # nothing resolved before a prepared step, nothing armed before one
+        assert out is None
+    elif name == "dcn_sync_accounting":
+        assert out["dcn_bytes"] == out["dcn_bytes_flat"] == 0 and out["dcn_size"] == 1
+    elif name == "recover":
+        # no snapshots, no checkpoints: the fresh rung
+        restored, report = out
+        assert restored is None and report["restore_path"] == "fresh"
     elif name == "mesh":
         # a world of one process: every axis of the JAX package's mesh, size 1
         assert dict(zip(out.mesh_dim_names, out.mesh.shape)) == {

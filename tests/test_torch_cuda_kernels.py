@@ -64,6 +64,12 @@ its row's largest value of the plain version, both f32 (the same codes,
 two summation orders); #1 twice a layer under every remat policy with the
 plain stack's gradients bitwise; ZeRO-offload's monolithic update bitwise
 the resident one and its pipelined chunked update the serial one.
+Multi-node data parallelism and the recovery ladder: four ranks' gradients
+of a 2-layer Llama at the 600m widths (through #1-#3) synced by the dense
+hierarchical schedule on the card against the same sync on the CPU (rtol
+1e-5, atol 1e-6), the PowerSGD codec on the card against the CPU within
+1e-4 of the reference's largest |value|, and a card train state's host
+snapshot restored bitwise after two more steps.
 """
 
 import pytest
@@ -2607,3 +2613,117 @@ def test_virtual_mixtral_ep_on_the_kernels(cuda):
         finally:
             setattr(tfa, kernel, orig)
         assert len(checked) == 8, kernel
+
+
+def _rank_grads(cuda, ranks: int = 4):
+    """f32 gradients of a 2-layer Llama at the 600m widths (vocab cut to
+    2048), bf16, each of ``ranks`` ranks' fwd + bwd through #1-#3 on its
+    own row of T 512."""
+    from accelerate_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(vocab_size=2048, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=11)
+    loss_fn = tl.make_llama_loss_fn(model, fused_vocab_chunks=2)
+    ids = torch.randint(0, cfg.vocab_size, (ranks, 512), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(12))
+    out = []
+    for r in range(ranks):
+        leaves = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
+        loss = loss_fn(leaves, {"input_ids": ids[r:r + 1], "labels": ids[r:r + 1]})
+        out.append({n: g.float() for n, g in
+                    zip(leaves, torch.autograd.grad(loss, list(leaves.values())))})
+    return out
+
+
+@pytest.mark.cuda
+def test_hierarchical_sync_on_the_card_equals_the_cpu(cuda):
+    """The dense hierarchical sync of four ranks' gradients (a virtual dcn 2
+    x dp_shard 2 world) on the card against the same sync of the same
+    gradients on the CPU, f32 (rtol 1e-5, atol 1e-6), and against their
+    mean; #1-#3 launched once a layer a rank."""
+    from accelerate_tpu_torch.parallel.hierarchical import hierarchical_sync
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+
+    tfa.reset_launch_counts()
+    grads = _rank_grads(cuda)
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == (8,) * 3
+
+    def sync(gs):
+        mesh = VirtualMesh(("dcn", "dp_shard"), (2, 2))
+        return mesh.run(lambda r: hierarchical_sync(gs[r], ("dp_shard",), "dcn", mesh=mesh)[0])
+
+    card = sync(grads)
+    host = sync([{n: g.cpu() for n, g in gs.items()} for gs in grads])
+    for n in grads[0]:
+        mean = sum(gs[n].cpu() for gs in grads) / 4
+        for r in range(4):
+            torch.testing.assert_close(card[r][n].cpu(), host[r][n], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(card[0][n].cpu(), mean, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_powersgd_codec_on_the_card_equals_the_cpu(cuda):
+    """The PowerSGD codec over four ranks (a virtual dp_shard 4 world) at rank
+    4 on the card against the CPU: the averaged approximation and each
+    rank's residual within 1e-4 of the reference's largest |value| (the
+    QRs run on different libraries; a flipped column of P leaves both as
+    they are)."""
+    from accelerate_tpu_torch.parallel.powersgd import compress_decompress, init_powersgd_state
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+
+    grads = _rank_grads(cuda)
+    qs, errs = init_powersgd_state(grads[0], rank=4, device=cuda)
+
+    def codec(gs, qs, errs):
+        mesh = VirtualMesh(("dp_shard",), (4,))
+        return mesh.run(lambda r: compress_decompress(gs[r], qs, errs, ("dp_shard",), 4, mesh))
+
+    card = codec(grads, qs, errs)
+    to_cpu = lambda tree: {n: t.cpu() if t is not None else None for n, t in tree.items()}
+    host = codec([to_cpu(g) for g in grads], to_cpu(qs), to_cpu(errs))
+    for r in range(4):
+        for i in (0, 2):   # g_hat, residuals
+            for n, ref in host[r][i].items():
+                if ref is None:
+                    continue
+                err = (card[r][i][n].cpu() - ref).abs().max().item()
+                assert err <= 1e-4 * ref.abs().max().item(), (n, i, err)
+
+
+@pytest.mark.cuda
+def test_peer_snapshot_of_a_card_state_is_bitwise(cuda):
+    """A card train state's host snapshot (params, lion-sr momentum and
+    count, the CUDA generator) restores bitwise after two more steps
+    changed it in place, and verifies."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.resilience.peer_ckpt import (
+        capture_host_snapshot, restore_host_snapshot,
+    )
+
+    cfg = tl.LlamaConfig(vocab_size=2048, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=13)
+    acc = Accelerator(mixed_precision="bf16", device=cuda)
+    state = acc.create_train_state(model, "lion-sr")
+    step = acc.prepare_train_step(tl.make_llama_loss_fn(model, fused_vocab_chunks=2))
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(14))
+    batch = {"input_ids": ids, "labels": ids}
+    state, _ = step(state, batch)
+    snap = capture_host_snapshot(state, step=1)
+    want = {n: p.clone() for n, p in state.params.items()}
+    mu = [m.clone() for m in state.opt_state.mu]
+    rng = state.rng.get_state().clone()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    assert snap.verify()
+    restored = restore_host_snapshot(snap, state)
+    assert all(torch.equal(restored.params[n], w) for n, w in want.items())
+    assert all(torch.equal(a, b) for a, b in zip(restored.opt_state.mu, mu))
+    assert restored.opt_state.count == 1 and restored.step == 1
+    assert restored.params[next(iter(want))].device.type == "cuda"
+    assert torch.equal(restored.rng.get_state(), rng)

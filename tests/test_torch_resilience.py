@@ -465,16 +465,33 @@ def test_fault_plans_poison_and_unported_kinds():
     assert torch.isnan(poisoned["x"]).all() and torch.equal(poisoned["ids"], batch["ids"])
     ref = jres.poison_batch({"m": [np.ones(2, np.float32)], "i": np.arange(3)})
     assert np.isnan(poisoned["m"][0]).all() and np.isnan(ref["m"][0]).all()
-    with pytest.raises(NotImplementedError, match="A13"):
-        Accelerator(cpu=True, resilience_plugin=ResiliencePlugin(peer_snapshot_every=2))
+    # the peer snapshots are ported: armed by the first update, not before
+    acc = Accelerator(cpu=True, resilience_plugin=ResiliencePlugin(peer_snapshot_every=2))
+    assert acc.peer_snapshotter is None
 
 
 @pytest.mark.parametrize("kind", ["straggler", "rank_loss"])
 def test_rank_faults_name_a13(tmp_path, kind):
+    """The rank faults of ROADMAP item A13f fire in the step: a straggler
+    stalls the step by STRAGGLER_STALL_S, a rank loss raises RankLostError
+    before the step counts."""
+    import time
+
+    from accelerate_tpu_torch.resilience import STRAGGLER_STALL_S, RankLostError
+
     acc, dl, state, step = _setup(tmp_path)
+    batch = next(iter(dl))
     with fault_plan(FaultPlan([FaultEvent(kind, at=1)])):
-        with pytest.raises(NotImplementedError, match="A13"):
-            step(state, next(iter(dl)))
+        if kind == "rank_loss":
+            with pytest.raises(RankLostError, match="injected rank loss at step 1"):
+                step(state, batch)
+            assert acc.step_count == 0
+        else:
+            t0 = time.perf_counter()
+            step(state, batch)
+            assert time.perf_counter() - t0 >= STRAGGLER_STALL_S
+            assert acc.step_count == 1
+    assert STRAGGLER_STALL_S == jres.faults.STRAGGLER_STALL_S
 
 
 def test_goodput_counters_and_model_equal_jax(tmp_path):

@@ -357,9 +357,9 @@ def test_off_path_options_raise():
     carried = Accelerator(cpu=True, gradient_accumulation_plugin=GradientAccumulationPlugin(
         num_steps=2, mode="across_steps"))
     assert carried.gradient_state.plugin.mode == "across_steps"
-    # the peer snapshots need ranks
-    with pytest.raises(NotImplementedError, match="A13"):
-        Accelerator(cpu=True, resilience_plugin=ResiliencePlugin(peer_snapshot_every=1))
+    # the peer snapshots are ported (A13f): armed by the first update
+    assert Accelerator(cpu=True, resilience_plugin=ResiliencePlugin(
+        peer_snapshot_every=1)).peer_snapshotter is None
     # each accelerator keeps its own settings: a later construction
     # neither takes an earlier one's nor changes it
     first = Accelerator(cpu=True, mixed_precision="bf16", gradient_accumulation_steps=2)
@@ -369,9 +369,11 @@ def test_off_path_options_raise():
     assert isinstance(second.state, tstate.AcceleratorState) and second.device.type == "cpu"
     with pytest.raises(ValueError, match="block_size"):
         make_optimizer("lion-sr", block_size=256)
+    # PowerSGD is ported (A13e): in a world of one the codec owns the step
     acc = Accelerator(cpu=True, kwargs_handlers=[GradSyncKwargs(compression="powersgd")])
-    with pytest.raises(NotImplementedError, match="A13"):
-        acc.prepare_train_step(lambda p, b: None)
+    acc.prepare_train_step(lambda p, b: None)
+    assert acc.dcn_sync == {"enabled": False, "dcn_size": 1, "ici_size": 1,
+                            "compression": None, "why_not": None}
     with pytest.raises(RuntimeError, match="prepared train step"):
         acc.backward()
     assert tl.LlamaConfig.tiny(remat=True, remat_policy="dots", scan_layers=True).remat
