@@ -87,6 +87,10 @@ PowerSGD codec (``parallel/hierarchical.py``, ``parallel/powersgd.py``,
 (``resilience/peer_ckpt.py``), ``Accelerator.recover``, the rank-loss
 and straggler faults, a preemption stop agreed across ranks and
 checkpoints of a replicated state across several processes.
+Its twenty-first slice is the two-process serving fabric
+(``test_utils/scripts/fleet_fabric.py``) and checkpoints of a train state
+sharded or split across ranks, saved by each rank and restored onto any
+plan (``checkpointing.py``).
 """
 
 from . import hooks

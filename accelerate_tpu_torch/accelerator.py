@@ -95,10 +95,13 @@ host-RAM snapshots (``resilience/peer_ckpt.py``), the ``rank_loss`` and
 peer RAM, the verified disk checkpoint, then a fresh start, and a
 preemption stop is agreed across the ranks.
 
-Off this path, and raising ``NotImplementedError`` with their ROADMAP
-item: ``cpu_offload``, fp8 delayed scaling and checkpoints of a train
-state that is sharded or split over several ranks, Mixtral under tp and
-pp composed with tp / cp / sp (A13h).  The donation audit and compile
+Checkpoints of a train state that is sharded or split over several
+ranks are each rank's own ranges with one index of the global layout,
+saved synchronously or asynchronously, and restore onto any plan and
+process count (``checkpointing.py``).  Off this path, and raising
+``NotImplementedError`` with their ROADMAP item: ``cpu_offload`` and fp8
+delayed scaling under a parallelism config, Mixtral under tp and pp
+composed with tp / cp / sp (A13h).  The donation audit and compile
 counter (``audit_step``, ``compile_events``) have no eager meaning and are
 not ported.
 """
@@ -342,6 +345,8 @@ class Accelerator:
         # in-flight async train-state write and its long-lived writer
         # (checkpointing.py), and the pinned host buffers saves snapshot into
         self._pending_checkpointer = None
+        # a save across processes awaiting its collective publish
+        self._pending_publish = None
         self._async_checkpointer = None
         self._checkpoint_buffers: list = []
         self.last_restored_checkpoint: Optional[str] = None
@@ -927,7 +932,8 @@ class Accelerator:
         rank's loss weighted by its share of the valid tokens, summed.  On a
         ``dcn`` mesh the replicated step reduces hierarchically, and
         ``GradSyncKwargs(compression="powersgd")`` runs the PowerSGD step
-        (:meth:`dcn_sync` says which)."""
+        (:meth:`dcn_sync` says which); those two codec steps take JAX's
+        mean of the ranks' own mean losses (:meth:`_codec_step`)."""
         gsk = self.grad_sync_kwargs
         codec = self._resolve_grad_sync(has_aux)
         if not donate_state and self._offload_flags()[0]:
@@ -1005,7 +1011,7 @@ class Accelerator:
             self.offload_log["h2d_bytes"] = h2d
             return compute
 
-        def compute_grads(state: TrainState, params: dict, batch, rng):
+        def compute_grads(state: TrainState, params: dict, batch, rng, weighted: bool = True):
             names = list(params)
             if compute_width:
                 # differentiate with respect to the compute-width copy: every
@@ -1023,7 +1029,8 @@ class Accelerator:
                 out = loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
-            weight = self._dp_plan.token_weight(batch) if self._dp_plan is not None else None
+            weight = (self._dp_plan.token_weight(batch)
+                      if weighted and self._dp_plan is not None else None)
             if weight is not None:
                 loss = loss * weight
             # the scalar loss lives in f32, so scaling it by 2^16 cannot overflow
@@ -1362,20 +1369,23 @@ class Accelerator:
         """The step of a codec plan from :meth:`_resolve_grad_sync`: each
         rank's f32 gradients through the flat PowerSGD codec (JAX
         :1448-1536) or the hierarchical sync (JAX :1538-1600), then the
-        update on the mean.  The codec sees each rank's gradient at the
-        scale JAX's does, its own mean loss's: the step weights a rank's
-        loss by its token share, ``1 / world`` on equal shares, so the
-        gradient is multiplied back by the world."""
+        update on the mean.  As in JAX's ``_psgd_local`` / ``_hier_grads``,
+        the codec is fed the gradient of each rank's own mean loss (no
+        token weighting: the reduced gradient is the mean of the ranks'
+        means, whatever each rank's count of valid tokens), and the
+        reported loss is the ``pmean`` of the ranks' own losses: over the
+        codec's axes for the flat codec, inside the node and then across
+        ``dcn`` for the hierarchical step, the gradients' two-stage order.
+        The dense step keeps its global token mean (:meth:`prepare_train_step`)."""
         from .parallel import collectives
 
         rank = self.grad_sync_kwargs.rank
         mesh = self.mesh if self._parallel else None
 
         def rank_grads(state: TrainState, batch):
-            loss, grads, _ = compute_grads(state, fetch_params(state), batch, state.rng)
-            world = self._dp_plan.world if self._dp_plan is not None else 1
-            return loss, {n: (g * world if world != 1 else g)
-                          for n, g in zip(state.params, grads)}
+            loss, grads, _ = compute_grads(state, fetch_params(state), batch, state.rng,
+                                           weighted=False)
+            return loss, dict(zip(state.params, grads))
 
         if codec["kind"] == "powersgd":
             from .parallel.powersgd import compress_decompress
@@ -1386,8 +1396,8 @@ class Accelerator:
                 loss, grads = rank_grads(state, batch)
                 qs, errs = state.comm_state
                 g_hat, new_qs, new_errs = compress_decompress(grads, qs, errs, axes, rank, mesh)
-                if self._dp_plan is not None:
-                    loss = self._dp_plan.psum(loss)
+                if axes:
+                    loss = collectives.pmean(loss, axes, mesh)
                 return apply_update(state.replace(comm_state=(new_qs, new_errs)),
                                     list(g_hat.values()), loss, reduced=True)
 
@@ -1402,11 +1412,11 @@ class Accelerator:
             qs, errs = state.comm_state if dcn_codec else (None, None)
             g_hat, new_qs, new_errs = hierarchical_sync(grads, ici_axes, "dcn", qs=qs,
                                                         errs=errs, rank=rank, mesh=mesh)
-            # the loss reduced in the gradients' two-stage order, inside the
-            # node first: the same sum whatever the process count
+            # the loss averaged in the gradients' two-stage order, inside the
+            # node first: the same value whatever the process count
             if ici_axes:
-                loss = collectives.psum(loss, ici_axes, mesh)
-            loss = collectives.psum(loss, "dcn", mesh)
+                loss = collectives.pmean(loss, ici_axes, mesh)
+            loss = collectives.pmean(loss, "dcn", mesh)
             if dcn_codec:
                 state = state.replace(comm_state=(new_qs, new_errs))
             return apply_update(state, list(g_hat.values()), loss, reduced=True)
@@ -1796,18 +1806,15 @@ class Accelerator:
         goodput and custom objects; automatic naming and retention under
         ``ProjectConfiguration``; ``async_save=True`` returns once the
         train state is snapshotted.  In a world of several processes the save
-        is collective (every rank calls it) and synchronous, for a train
-        state whole on every rank (NO_SHARD data parallelism): rank 0
-        writes the train state, each rank its RNG streams."""
+        is collective (every rank calls it): under a parallelism config each
+        rank writes its own ranges of the train state (sharded, tp or ep
+        split, or replicated: the first rank holding each range writes it)
+        and rank 0 one index of the global layout; each rank writes its RNG
+        streams; rank 0 publishes once every rank's files are written, and
+        every rank confirms the publish (after an ``async_save``, at the
+        next save or load, ``wait_for_checkpoint`` or ``end_training``).
+        :meth:`load_state` restores onto any plan and process count."""
         from .checkpointing import save_accelerator_state
-
-        plan = self._dp_plan
-        if train_state is not None and plan is not None and (
-                plan.any_sharded or plan.tp > 1 or plan.ep > 1):
-            raise _not_ported("checkpoints of a train state sharded or split across ranks",
-                              "A13h")
-        if self.num_processes > 1 and save_kwargs.get("async_save"):
-            raise _not_ported("asynchronous checkpoints across several processes", "A13h")
 
         return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)
 

@@ -1,4 +1,4 @@
-"""Checkpoint / resume (mirrors the single-process surface of
+"""Checkpoint / resume (mirrors
 ``accelerate_tpu/checkpointing.py``).
 
 ``save_accelerator_state`` writes the train state and everything that
@@ -34,11 +34,33 @@ step's update.  ``async_save=True`` returns after issuing that copy; a
 background thread waits for it and writes the files, and the publish runs
 at the next save or load, ``wait_for_checkpoint``, or interpreter exit.
 
-In a world of several processes whose train state is whole on every rank
-(NO_SHARD data parallelism), a save is collective and synchronous: rank 0
-names the directory and writes the train state and the shared files, every
-rank writes its own ``random_states_<i>.pkl``, and the ranks meet at a
-barrier before rank 0 publishes and again after.
+In a world of several processes a save is collective.  Rank 0 names the
+directory and writes the shared files; every rank writes its own
+``random_states_<i>.pkl``.  Under a parallelism config the train state is
+written in the **sharded layout**: each rank writes only its own ranges of
+the params and the optimizer state (the -sr8 codes with their per-block
+scales, momentum) to ``train_state/shard_<rank>.safetensors``, in global
+coordinates (runs of the whole leaf's row-major flatten, packed in the
+file's metadata; padding lanes are never written), and rank 0 writes
+``index.json`` (each leaf's global shape and dtype, the optimizer state's
+tensors and their global lengths, the shard files) and ``state.safetensors``
+(the replicated extras); a range held by several ranks is written by the
+first of them.  No rank gathers the state.  Each rank's carried
+accumulator rides its own shard.  Rank 0 publishes once every rank has
+written its files (the ranks agree on it first) and every rank confirms
+the manifest before the save returns; after ``async_save=True`` each rank
+snapshots its own leaves, writes them on its writer thread, and the
+publish runs at the next save or load, ``wait_for_checkpoint`` or
+``end_training``, on every rank together.  The interpreter-exit flush of a
+save across processes only waits for its own writer: one rank alone never
+publishes.  Without a parallelism config rank 0 writes the whole leaves.
+
+A restore reads onto any template plan (another process count; FULL_SHARD,
+SHARD_GRAD_OP or NO_SHARD; another tp or ep size; one process without a
+plan), from either layout: each rank computes the runs its tensors hold
+and reads only those, at their file offsets (:class:`_Source`).  The
+codec's rows restore only onto the same world, as the carried
+accumulators do.  :func:`merge_weights` consolidates either layout.
 """
 
 from __future__ import annotations
@@ -78,7 +100,12 @@ from .utils.constants import (
     SCHEDULER_STATES_NAME,
     TRAIN_STATE_DIR,
 )
-from .utils.serialization import load_safetensors, safetensors_metadata, save_safetensors
+from .utils.serialization import (
+    _DTYPE_TO_STR as _DTYPE_NAME,
+    load_safetensors,
+    safetensors_metadata,
+    save_safetensors,
+)
 
 logger = get_logger(__name__)
 
@@ -86,6 +113,9 @@ PARAMS_FILE = "params.safetensors"
 OPT_STATE_FILE = "opt_state.safetensors"
 STATE_FILE = "state.safetensors"
 TRAIN_STATE_FORMAT = "accelerate_tpu_torch.train_state.v1"
+SHARDED_FORMAT = "accelerate_tpu_torch.train_state.sharded.v1"
+INDEX_FILE = "index.json"
+SHARD_FILE = "shard_{:05d}.safetensors"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -345,26 +375,69 @@ def wait_for_published_checkpoint(final_dir, verify: bool = True, timeout_s: flo
         time.sleep(poll_s)
 
 
+def _drain(accelerator, ckptr) -> None:
+    """Wait for ``ckptr``'s write: the timeline's checkpoint_drain phase,
+    and a pause that is not a step (the SLO step cadence starts afresh
+    after it)."""
+    timeline = getattr(accelerator, "timeline", None)
+    if getattr(accelerator, "_slo_prev_step_t", None) is not None:
+        accelerator._slo_prev_step_t = None
+    with (timeline.phase("checkpoint_drain") if timeline is not None
+          else contextlib.nullcontext()):
+        ckptr.wait_until_finished()
+
+
+def _publish_across(accelerator, error, staging, final_dir, verify, record) -> None:
+    """The publish of a save across processes, every rank together: the
+    ranks agree that each wrote its files (``error``: this rank's failure),
+    rank 0 writes the manifest and renames, and every rank confirms the
+    manifest is visible before going on.  A failed rank anywhere publishes
+    nothing: the ``.tmp`` stays until the next save sweeps it."""
+    from .ops.operations import gather_object
+
+    failed = [r for r, bad in enumerate(gather_object(error is not None)) if bad]
+    if failed:
+        if error is not None:
+            raise error
+        raise RuntimeError(f"checkpoint {final_dir} not published: rank(s) {failed} failed "
+                           "to write their files")
+    if accelerator.is_main_process:
+        _finalize_checkpoint(staging, final_dir, manifest=verify, record=record)
+    accelerator.wait_for_everyone()
+    if not accelerator.is_main_process:
+        wait_for_published_checkpoint(final_dir, verify=verify)
+
+
 def wait_for_pending_checkpoint(accelerator) -> None:
     """Block until this process's in-flight ``async_save`` write has
     committed, then publish it.  No-op when nothing is pending.  The next
     ``save_state`` (so retention GC never deletes a directory being
     written), ``load_state`` and the interpreter-exit flush go through
-    here."""
+    here.  After a save across processes this is collective (every rank
+    calls it at the same point: the next save or load,
+    ``wait_for_checkpoint``, ``end_training``), and the interpreter-exit
+    flush only waits for this rank's writer: one rank alone never
+    publishes."""
+    publish = getattr(accelerator, "_pending_publish", None)
+    if publish is not None:
+        accelerator._pending_publish = None
+        ckptr, accelerator._pending_checkpointer = accelerator._pending_checkpointer, None
+        error = None
+        if ckptr is not None:
+            try:
+                _drain(accelerator, ckptr)
+            except Exception as e:
+                _release_async_checkpointer(accelerator, ckptr)
+                error = e
+        _publish_across(accelerator, error, *publish)
+        return
     ckptr = getattr(accelerator, "_pending_checkpointer", None)
     if ckptr is None:
         return
     # clear first: a failed write surfaces once, not at every later save
     accelerator._pending_checkpointer = None
-    # the drain is the timeline's checkpoint_drain phase, and a pause that
-    # is not a step: the SLO step cadence starts afresh after it
-    timeline = getattr(accelerator, "timeline", None)
-    if getattr(accelerator, "_slo_prev_step_t", None) is not None:
-        accelerator._slo_prev_step_t = None
     try:
-        with (timeline.phase("checkpoint_drain") if timeline is not None
-              else contextlib.nullcontext()):
-            ckptr.wait_until_finished()
+        _drain(accelerator, ckptr)
     except BaseException:
         # a failed write poisons the checkpointer: release its thread; the
         # .tmp stays for post-mortem and the next save sweeps it
@@ -507,67 +580,6 @@ def _snapshot(tensors: list, buffers: list) -> list:
     return out
 
 
-class _TrainStateSnapshot:
-    """A train state's leaves copied to the host: what the writer needs,
-    with no reference to the live (in-place updated) tensors."""
-
-    def __init__(self, train_state, buffers: list, comm: Optional[dict] = None):
-        from .optimizer import flatten_opt_state
-
-        params = train_state.params
-        opt_tensors, opt_meta = flatten_opt_state(train_state.opt_state)
-        hyper = opt_meta["hyperparams"]
-        hyper_tensors = {k: v for k, v in hyper.items() if isinstance(v, torch.Tensor)}
-        extra = {}
-        if train_state.guard_state is not None:
-            extra.update({f"guard_state.{k}": v for k, v in train_state.guard_state.items()})
-        if train_state.grad_accum is not None:
-            extra.update({f"grad_accum.{i}": g for i, g in enumerate(train_state.grad_accum)})
-        if train_state.loss_scale is not None:
-            extra.update({"loss_scale.scale": train_state.loss_scale.scale,
-                          "loss_scale.counter": train_state.loss_scale.counter})
-        for name, meta in (train_state.fp8_state or {}).items():
-            extra.update({f"fp8_state.{name}.amax_history": meta.amax_history,
-                          f"fp8_state.{name}.scale": meta.scale})
-        extra.update(comm or {})
-        live = [*params.values(), *opt_tensors, *hyper_tensors.values(), *extra.values()]
-        host = _snapshot(live, buffers)
-        self.event = None
-        if any(t.device.type == "cuda" for t in live):
-            self.event = torch.cuda.Event()
-            self.event.record()
-        n_p, n_o, n_h = len(params), len(opt_tensors), len(hyper_tensors)
-        self.params = dict(zip(params, host[:n_p]))
-        self.opt_tensors = {str(i): t for i, t in enumerate(host[n_p:n_p + n_o])}
-        self.hyper = dict(hyper)
-        self.hyper.update(zip(hyper_tensors, host[n_p + n_o:n_p + n_o + n_h]))
-        self.opt_type, self.opt_fields = opt_meta["type"], opt_meta["fields"]
-        self.extra = dict(zip(extra, host[n_p + n_o + n_h:]))
-        self.step = int(train_state.step)
-        self.accum_step = int(train_state.accum_step)
-        self.rng = train_state.rng.get_state() if train_state.rng is not None else None
-
-    def write(self, out_dir: Path) -> int:
-        """Wait for the host copies, then write the three files; returns
-        the bytes written."""
-        if self.event is not None:
-            self.event.synchronize()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        hyper = {k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in self.hyper.items()}
-        save_safetensors(out_dir / PARAMS_FILE, self.params,
-                         metadata={"format": TRAIN_STATE_FORMAT})
-        save_safetensors(out_dir / OPT_STATE_FILE, self.opt_tensors, metadata={
-            "format": TRAIN_STATE_FORMAT, "type": self.opt_type,
-            "fields": json.dumps(self.opt_fields), "hyperparams": json.dumps(hyper)})
-        state = {"step": torch.tensor(self.step, dtype=torch.int64),
-                 "accum_step": torch.tensor(self.accum_step, dtype=torch.int64),
-                 **self.extra}
-        if self.rng is not None:
-            state["rng"] = self.rng
-        save_safetensors(out_dir / STATE_FILE, state, metadata={"format": TRAIN_STATE_FORMAT})
-        return sum((out_dir / f).stat().st_size for f in (PARAMS_FILE, OPT_STATE_FILE, STATE_FILE))
-
-
 def _restore_leaf(template: torch.Tensor, loaded: torch.Tensor, what: str) -> torch.Tensor:
     if loaded.dtype != template.dtype or loaded.numel() != template.numel():
         raise ValueError(f"checkpoint {what}: {loaded.dtype} {tuple(loaded.shape)} does not "
@@ -592,30 +604,405 @@ def _comm_tensors(train_state, world: int) -> dict:
     return out
 
 
-def _read_train_state(in_dir: Path, template, rank: int = 0, world: int = 1):
+def _extras(train_state, comm: Optional[dict] = None) -> dict:
+    """The train state's tensors beside params and optimizer state, by
+    their saved names: the guard's counters, the carried accumulator, the
+    fp16 loss scale, the fp8 metas and the codec's stacked rows."""
+    extra = {}
+    if train_state.guard_state is not None:
+        extra.update({f"guard_state.{k}": v for k, v in train_state.guard_state.items()})
+    if train_state.grad_accum is not None:
+        extra.update({f"grad_accum.{i}": g for i, g in enumerate(train_state.grad_accum)})
+    if train_state.loss_scale is not None:
+        extra.update({"loss_scale.scale": train_state.loss_scale.scale,
+                      "loss_scale.counter": train_state.loss_scale.counter})
+    for name, meta in (train_state.fp8_state or {}).items():
+        extra.update({f"fp8_state.{name}.amax_history": meta.amax_history,
+                      f"fp8_state.{name}.scale": meta.scale})
+    extra.update(comm or {})
+    return extra
+
+
+def _record_event(tensors: list):
+    """A CUDA event after the host copies just issued (None without card
+    tensors): the writer waits on it, not on the stream."""
+    if any(t.device.type == "cuda" for t in tensors):
+        event = torch.cuda.Event()
+        event.record()
+        return event
+    return None
+
+
+class _TrainStateSnapshot:
+    """A train state's leaves copied to the host: what the writer needs,
+    with no reference to the live (in-place updated) tensors."""
+
+    def __init__(self, train_state, buffers: list, comm: Optional[dict] = None):
+        from .optimizer import flatten_opt_state
+
+        params = train_state.params
+        opt_tensors, opt_meta = flatten_opt_state(train_state.opt_state)
+        hyper = opt_meta["hyperparams"]
+        hyper_tensors = {k: v for k, v in hyper.items() if isinstance(v, torch.Tensor)}
+        extra = _extras(train_state, comm)
+        live = [*params.values(), *opt_tensors, *hyper_tensors.values(), *extra.values()]
+        host = _snapshot(live, buffers)
+        self.event = _record_event(live)
+        n_p, n_o, n_h = len(params), len(opt_tensors), len(hyper_tensors)
+        self.params = dict(zip(params, host[:n_p]))
+        self.opt_tensors = {str(i): t for i, t in enumerate(host[n_p:n_p + n_o])}
+        self.hyper = dict(hyper)
+        self.hyper.update(zip(hyper_tensors, host[n_p + n_o:n_p + n_o + n_h]))
+        self.opt_type, self.opt_fields = opt_meta["type"], opt_meta["fields"]
+        self.extra = dict(zip(extra, host[n_p + n_o + n_h:]))
+        self.step = int(train_state.step)
+        self.accum_step = int(train_state.accum_step)
+        self.rng = train_state.rng.get_state() if train_state.rng is not None else None
+
+    def _hyper_numbers(self) -> dict:
+        return {k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in self.hyper.items()}
+
+    def _write_state(self, out_dir: Path, extra: dict) -> None:
+        state = {"step": torch.tensor(self.step, dtype=torch.int64),
+                 "accum_step": torch.tensor(self.accum_step, dtype=torch.int64), **extra}
+        if self.rng is not None:
+            state["rng"] = self.rng
+        save_safetensors(out_dir / STATE_FILE, state, metadata={"format": TRAIN_STATE_FORMAT})
+
+    def write(self, out_dir: Path) -> int:
+        """Wait for the host copies, then write the three files; returns
+        the bytes written."""
+        if self.event is not None:
+            self.event.synchronize()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        save_safetensors(out_dir / PARAMS_FILE, self.params,
+                         metadata={"format": TRAIN_STATE_FORMAT})
+        save_safetensors(out_dir / OPT_STATE_FILE, self.opt_tensors, metadata={
+            "format": TRAIN_STATE_FORMAT, "type": self.opt_type,
+            "fields": json.dumps(self.opt_fields), "hyperparams": json.dumps(self._hyper_numbers())})
+        self._write_state(out_dir, self.extra)
+        return sum((out_dir / f).stat().st_size for f in (PARAMS_FILE, OPT_STATE_FILE, STATE_FILE))
+
+
+# ---------------------------------------------------------------------------
+# the sharded layout: each rank its own ranges
+# ---------------------------------------------------------------------------
+
+
+def _opt_leaves(opt_state, names: list) -> list:
+    """The leaf each tensor of ``flatten_opt_state(opt_state)`` belongs to
+    (a per-parameter list field), or None (a tensor of its own)."""
+    out: list = []
+    for value in opt_state:
+        if isinstance(value, torch.Tensor):
+            out.append(None)
+        elif isinstance(value, (list, tuple)):
+            out.extend(names if len(value) == len(names) else [None] * len(value))
+    return out
+
+
+def _whole_runs(n: int):
+    return np.asarray([[0, 0, n]] if n else [], dtype=np.int64).reshape(-1, 3)
+
+
+def _block_count(numel: int, block: int) -> int:
+    """Per-block tensor length of a run of ``numel`` elements (one block
+    spanning a leaf smaller than ``block``, ``ops.int8_state``'s rule)."""
+    return -(-numel // max(1, min(block, numel))) if numel else 0
+
+
+def _layout(train_state, plan) -> dict:
+    """Every tensor of the train state's params and optimizer state, as
+    this rank holds it: ``{key: (local tensor, runs, global length,
+    leaf)}`` with keys ``p/<name>`` and ``o/<flatten index>``.  ``runs``
+    place the local flatten in the whole tensor's (``parallel/sharding``'s
+    runs); a per-block tensor (-sr8 scales) runs over blocks of
+    ``plan.align`` elements.  Without a plan every tensor is whole."""
+    from .optimizer import flatten_opt_state
+
+    out = {}
+    for name, p in train_state.params.items():
+        if plan is None:
+            out[f"p/{name}"] = (p, _whole_runs(p.numel()), p.numel(), name)
+        else:
+            lay = plan.layouts[name]
+            out[f"p/{name}"] = (p, plan.param_runs(name), lay.whole_numel, name)
+    tensors, _ = flatten_opt_state(train_state.opt_state)
+    for i, (t, leaf) in enumerate(zip(tensors, _opt_leaves(train_state.opt_state,
+                                                           list(train_state.params)))):
+        if plan is None or leaf is None:
+            out[f"o/{i}"] = (t, _whole_runs(t.numel()), t.numel(), leaf)
+            continue
+        lay = plan.layouts[leaf]
+        span = lay.chunk if lay.sharded else lay.numel
+        if t.numel() == span:
+            out[f"o/{i}"] = (t, plan.opt_runs(leaf), lay.whole_numel, leaf)
+        elif t.numel() == _block_count(span, plan.align):
+            out[f"o/{i}"] = (t, plan.opt_runs(leaf, plan.align),
+                             _block_count(lay.whole_numel, plan.align), leaf)
+        else:
+            raise ValueError(f"optimizer tensor {i} of {leaf}: {t.numel()} elements, neither "
+                             f"its range's {span} nor its {plan.align}-element blocks'")
+    return out
+
+
+def _plan_rank(plan) -> tuple[int, int, dict]:
+    """``(rank, world, {axis: size})`` of this rank in the plan's mesh (the
+    process in a gang, the thread in a virtual world)."""
+    from .parallel import collectives
+
+    sizes = collectives.mesh_sizes(plan.mesh)
+    names = tuple(a for a in sizes)
+    return collectives.axis_index(names, plan.mesh), int(np.prod(list(sizes.values()))), sizes
+
+
+def _writes(plan, key: str, leaf: Optional[str], first: bool) -> bool:
+    if leaf is None:
+        return first
+    return plan.writes(leaf, opt=key.startswith("o/"))
+
+
+class _ShardSnapshot(_TrainStateSnapshot):
+    """One rank's part of a sharded train state copied to the host: the
+    ranges of params and optimizer state it writes (the first of the ranks
+    holding them), its own extras (the carried accumulator), and on the
+    first rank the index and the replicated extras."""
+
+    def __init__(self, train_state, plan, buffers: list, comm: Optional[dict] = None):
+        from .optimizer import flatten_opt_state
+
+        self.rank, self.world, sizes = _plan_rank(plan)
+        first = self.rank == 0
+        layout = _layout(train_state, plan)
+        own = {k: v for k, v in layout.items() if _writes(plan, k, v[3], first)}
+        opt_tensors, opt_meta = flatten_opt_state(train_state.opt_state)
+        hyper = opt_meta["hyperparams"]
+        hyper_tensors = {k: v for k, v in hyper.items() if isinstance(v, torch.Tensor)}
+        extra = _extras(train_state, comm)
+        local = {k: v for k, v in extra.items() if k.startswith("grad_accum.")}
+        shared = {k: v for k, v in extra.items() if k not in local} if first else {}
+        live = ([t for t, *_ in own.values()] + list(hyper_tensors.values())
+                + list(local.values()) + list(shared.values()))
+        host = _snapshot(live, buffers)
+        self.event = _record_event(live)
+        n_o, n_h, n_l = len(own), len(hyper_tensors), len(local)
+        self.pieces = {k: (h.reshape(-1), runs) for (k, (_, runs, _, _)), h
+                       in zip(own.items(), host[:n_o])}
+        self.hyper = dict(hyper)
+        self.hyper.update(zip(hyper_tensors, host[n_o:n_o + n_h]))
+        self.local = dict(zip(local, host[n_o + n_h:n_o + n_h + n_l]))
+        self.extra = dict(zip(shared, host[n_o + n_h + n_l:]))
+        self.opt_type, self.opt_fields = opt_meta["type"], opt_meta["fields"]
+        self.step = int(train_state.step)
+        self.accum_step = int(train_state.accum_step)
+        self.rng = train_state.rng.get_state() if train_state.rng is not None else None
+        self.index = {
+            "format": SHARDED_FORMAT, "world": self.world, "mesh": sizes, "align": plan.align,
+            "params": {n: {"shape": list(plan.layouts[n].whole_shape),
+                           "dtype": _DTYPE_NAME[p.dtype]}
+                       for n, p in train_state.params.items()},
+            "opt_tensors": [{"leaf": leaf, "length": length, "dtype": _DTYPE_NAME[t.dtype]}
+                            for k, (t, _, length, leaf) in layout.items() if k.startswith("o/")],
+            "shards": [SHARD_FILE.format(r) for r in range(self.world)],
+        } if first else None
+        self.payload_bytes = sum(int(runs[:, 2].sum()) * h.element_size()
+                                 for h, runs in self.pieces.values())
+
+    def write(self, out_dir: Path) -> int:
+        """Wait for the host copies, then write this rank's shard file (and
+        on the first rank the index and the state file); returns the bytes
+        written."""
+        from .parallel.sharding import pack_runs
+
+        if self.event is not None:
+            self.event.synchronize()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tensors, runs_meta = {}, {}
+        for key, (flat, runs) in self.pieces.items():
+            parts = [flat[l:l + n] for _, l, n in runs.tolist()]
+            tensors[key] = parts[0] if len(parts) == 1 else torch.cat(parts)
+            runs_meta[key] = pack_runs(runs)
+        tensors.update({f"x/{k}": v for k, v in self.local.items()})
+        shard = out_dir / SHARD_FILE.format(self.rank)
+        save_safetensors(shard, tensors, metadata={"format": SHARDED_FORMAT, "rank": self.rank,
+                                                   "runs": json.dumps(runs_meta)})
+        written = shard.stat().st_size
+        if self.index is not None:
+            index = dict(self.index, opt={"type": self.opt_type, "fields": self.opt_fields,
+                                          "hyperparams": self._hyper_numbers()})
+            (out_dir / INDEX_FILE).write_text(json.dumps(index))
+            self._write_state(out_dir, self.extra)
+            written += sum((out_dir / f).stat().st_size for f in (INDEX_FILE, STATE_FILE))
+        return written
+
+
+def save_train_state(out_dir, train_state, plan=None, buffers: Optional[list] = None,
+                     comm: Optional[dict] = None) -> int:
+    """Write ``train_state`` under ``out_dir`` (a ``train_state/``
+    directory) and return the bytes this rank wrote: the three whole-leaf
+    files without a plan, else this rank's shard of the sharded layout
+    (every rank of the plan's mesh calls this, in a gang or in a virtual
+    world's threads).  The checkpoint's manifest and publish are the
+    caller's."""
+    snap = (_TrainStateSnapshot(train_state, buffers if buffers is not None else [], comm)
+            if plan is None else
+            _ShardSnapshot(train_state, plan, buffers if buffers is not None else [], comm))
+    return snap.write(Path(out_dir))
+
+
+# ---------------------------------------------------------------------------
+# reading a train state onto any template
+# ---------------------------------------------------------------------------
+
+
+class _Source:
+    """A saved train state's tensors, each a list of pieces ``(file,
+    payload offset of its bytes, runs)`` over the whole tensor, with the
+    state's global description: the whole-leaf format (one piece a
+    tensor) or the sharded one (the index and every shard's runs)."""
+
+    def __init__(self, in_dir: Path):
+        from .parallel.sharding import unpack_runs
+        from .utils.serialization import read_safetensors_header
+
+        self.dir = in_dir
+        self.pieces: dict = {}
+        # params: name -> (dtype name, whole shape); opt: per tensor (dtype
+        # name, whole length)
+        index_file = in_dir / INDEX_FILE
+        self.sharded = index_file.exists()
+        if self.sharded:
+            index = json.loads(index_file.read_text())
+            if index.get("format") != SHARDED_FORMAT:
+                raise ValueError(f"{index_file}: format {index.get('format')!r}")
+            self.world = int(index["world"])
+            self.opt_meta = index["opt"]
+            self.params = {n: (d["dtype"], tuple(d["shape"])) for n, d in index["params"].items()}
+            self.opt = [(d["dtype"], int(d["length"])) for d in index["opt_tensors"]]
+            self.shard_files = [in_dir / f for f in index["shards"]]
+            for path in self.shard_files:
+                header, base = read_safetensors_header(path)
+                runs = json.loads(header.get("__metadata__", {}).get("runs", "{}"))
+                for key, packed in runs.items():
+                    self.pieces.setdefault(key, []).append(
+                        (path, base + header[key]["data_offsets"][0], unpack_runs(packed)))
+        else:
+            self.world = 1
+            meta = safetensors_metadata(in_dir / OPT_STATE_FILE)
+            self.opt_meta = {"type": meta.get("type"), "fields": json.loads(meta["fields"]),
+                             "hyperparams": json.loads(meta["hyperparams"])}
+            self.params, opt = {}, {}
+            for fname, prefix in ((PARAMS_FILE, "p/"), (OPT_STATE_FILE, "o/")):
+                header, base = read_safetensors_header(in_dir / fname)
+                for key, info in header.items():
+                    if key == "__metadata__":
+                        continue
+                    n = int(np.prod(info["shape"]))
+                    self.pieces[prefix + key] = [(in_dir / fname,
+                                                  base + info["data_offsets"][0], _whole_runs(n))]
+                    if prefix == "p/":
+                        self.params[key] = (info["dtype"], tuple(info["shape"]))
+                    else:
+                        opt[int(key)] = (info["dtype"], n)
+            self.opt = [opt[i] for i in range(len(opt))]
+
+    def fill(self, key: str, dst: torch.Tensor, runs) -> None:
+        """Read the elements ``runs`` name (global start, local start,
+        length) of tensor ``key`` into the host tensor ``dst`` (its flatten):
+        each overlap of a saved piece with a wanted run is one read at its
+        file offset.  Raises unless every wanted element was saved."""
+        flat = dst.reshape(-1)
+        view = flat.view(torch.uint8).numpy()
+        size = flat.element_size()
+        want = sorted(runs.tolist())
+        need = sum(n for _, _, n in want)
+        got = 0
+        per_file: dict = {}
+        for path, base, src in self.pieces.get(key, []):
+            src = sorted(src.tolist())
+            i = j = 0
+            while i < len(src) and j < len(want):
+                sg, sl, sn = src[i]
+                wg, wl, wn = want[j]
+                lo, hi = max(sg, wg), min(sg + sn, wg + wn)
+                if lo < hi:
+                    d = (wl + lo - wg) * size
+                    per_file.setdefault(path, []).append(
+                        (base + (sl + lo - sg) * size, view[d:d + (hi - lo) * size]))
+                    got += hi - lo
+                if sg + sn <= wg + wn:
+                    i += 1
+                else:
+                    j += 1
+        if got != need:
+            raise ValueError(f"checkpoint {self.dir}: {key} holds {got} of the {need} elements "
+                             "this rank needs")
+        for path, segments in per_file.items():
+            native.read_file_segments(path, segments)
+
+
+def _host_like(t: torch.Tensor, pin: bool, init: bool) -> torch.Tensor:
+    """A contiguous host tensor of ``t``'s shape and dtype: zeros, or (with
+    ``init``) a copy of ``t`` (padding lanes keep the template's values)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    if init:
+        out.copy_(t)
+    else:
+        out.zero_()
+    return out
+
+
+def _read_train_state(in_dir: Path, template, rank: int = 0, world: int = 1, plan=None):
     """The train state of ``in_dir`` over ``template`` (a train state from
-    ``create_train_state`` with the same structure): the params are
-    copied into the template's own tensors (a module trains in place), the
-    rest comes back as new tensors on the template's devices; process
-    ``rank`` of ``world`` takes its own row of the codec residuals."""
-    from .optimizer import unflatten_opt_state
+    ``create_train_state`` with the same structure), in either layout and
+    onto any plan (``plan``: the template's ``DataParallelPlan``, None for
+    one process without one): each rank reads only the elements its
+    tensors hold, at their file offsets.  The params are copied into the
+    template's own tensors (a module, or the stored shards, train in
+    place); the rest comes back as new tensors on the template's devices;
+    padding lanes keep the template's values.  Process ``rank`` of
+    ``world`` takes its own row of the codec residuals, and its own
+    carried accumulator from a sharded checkpoint of the same world."""
+    from .optimizer import flatten_opt_state, unflatten_opt_state
 
     pin = torch.cuda.is_available()
-    params = load_safetensors(in_dir / PARAMS_FILE, pin_memory=pin)
-    if set(params) != set(template.params):
-        raise ValueError(f"checkpoint params {sorted(set(params) ^ set(template.params))} "
+    src = _Source(in_dir)
+    whole = {n: (plan.layouts[n].whole_shape if plan is not None else tuple(p.shape))
+             for n, p in template.params.items()}
+    if set(src.params) != set(template.params):
+        raise ValueError(f"checkpoint params {sorted(set(src.params) ^ set(template.params))} "
                          "do not match the template's")
     for name, p in template.params.items():
-        _restore_leaf(p, params[name], name)
-    opt = load_safetensors(in_dir / OPT_STATE_FILE, pin_memory=pin)
-    opt_meta = safetensors_metadata(in_dir / OPT_STATE_FILE)
-    if opt_meta.get("type") != type(template.opt_state).__name__:
-        raise ValueError(f"checkpoint optimizer state {opt_meta.get('type')} does not match "
+        dtype, shape = src.params[name]
+        if dtype != _DTYPE_NAME[p.dtype] or int(np.prod(shape)) != int(np.prod(whole[name])):
+            raise ValueError(f"checkpoint {name}: {dtype} {shape} does not match the "
+                             f"template's {p.dtype} {whole[name]}")
+    if src.opt_meta.get("type") != type(template.opt_state).__name__:
+        raise ValueError(f"checkpoint optimizer state {src.opt_meta.get('type')} does not match "
                          f"the template's {type(template.opt_state).__name__}")
-    opt_state = unflatten_opt_state(template.opt_state, [opt[str(i)] for i in range(len(opt))],
-                                    json.loads(opt_meta["fields"]),
-                                    json.loads(opt_meta["hyperparams"]))
+    layout = _layout(template, plan)
+    n_opt = len(flatten_opt_state(template.opt_state)[0])
+    if len(src.opt) != n_opt:
+        raise ValueError(f"optimizer state has {len(src.opt)} tensors, the template {n_opt}")
+    for i in range(n_opt):
+        t, _, length, _ = layout[f"o/{i}"]
+        if src.opt[i] != (_DTYPE_NAME[t.dtype], length):
+            raise ValueError(f"optimizer state tensor {i}: {src.opt[i]} does not match the "
+                             f"template's {(_DTYPE_NAME[t.dtype], length)}")
+    staged = {}
+    for key, (t, runs, _, _) in layout.items():
+        staged[key] = _host_like(t, pin, init=key.startswith("o/"))
+        src.fill(key, staged[key], runs)
+    opt_state = unflatten_opt_state(template.opt_state,
+                                    [staged[f"o/{i}"] for i in range(n_opt)],
+                                    src.opt_meta["fields"], src.opt_meta["hyperparams"])
     extra = load_safetensors(in_dir / STATE_FILE)
+    if src.sharded and template.grad_accum is not None:
+        if src.world != world:
+            raise ValueError(f"checkpoint {in_dir} carries the accumulators of {src.world} "
+                             f"ranks, this world has {world}")
+        extra.update({k[2:]: v for k, v in load_safetensors(src.shard_files[rank]).items()
+                      if k.startswith("x/")})
     guard = template.guard_state
     if guard is not None:
         guard = {k: _restore_leaf(v, extra[f"guard_state.{k}"], f"guard_state.{k}")
@@ -655,13 +1042,49 @@ def _read_train_state(in_dir: Path, template, rank: int = 0, world: int = 1):
     # every check passed: only now overwrite the template's params in place
     with torch.no_grad():
         for name, p in template.params.items():
-            p.copy_(params[name].reshape(p.shape), non_blocking=True)
+            p.copy_(staged[f"p/{name}"].reshape(p.shape), non_blocking=True)
     if template.rng is not None and "rng" in extra:
         template.rng.set_state(extra["rng"])
     return template.replace(step=int(extra["step"]), params=template.params,
                             opt_state=opt_state, guard_state=guard, grad_accum=accum,
                             accum_step=int(extra["accum_step"]), loss_scale=loss_scale,
                             fp8_state=fp8_state, comm_state=comm_state)
+
+
+def load_train_state(in_dir, template, plan=None):
+    """:func:`save_train_state`'s inverse onto ``template`` under ``plan``
+    (any plan, or None for one process): each rank of the plan's mesh
+    calls this, in a gang or in a virtual world's threads."""
+    rank, world = (_plan_rank(plan)[:2] if plan is not None else (0, 1))
+    return _read_train_state(Path(in_dir), template, rank, world, plan)
+
+
+def gathered_state(train_state, plan=None) -> dict:
+    """This rank's holding of every param and optimizer tensor, as
+    ``{key: (host flatten, runs, whole length)}`` (see :func:`_layout`):
+    the pieces that :func:`assemble_state` puts together into whole
+    tensors, padding left out."""
+    return {k: (t.detach().reshape(-1).to("cpu", copy=True), runs, length)
+            for k, (t, runs, length, _) in _layout(train_state, plan).items()}
+
+
+def assemble_state(holdings: list) -> dict:
+    """Whole tensors from every rank's :func:`gathered_state`: ``{key:
+    1-D tensor}``; raises where the ranks leave an element unheld."""
+    out: dict = {}
+    seen: dict = {}
+    for holding in holdings:
+        for key, (flat, runs, length) in holding.items():
+            if key not in out:
+                out[key] = torch.zeros(length, dtype=flat.dtype)
+                seen[key] = np.zeros(length, dtype=bool)
+            for g, l, n in runs.tolist():
+                out[key][g:g + n] = flat[l:l + n]
+                seen[key][g:g + n] = True
+    missing = [k for k, s in seen.items() if not s.all()]
+    if missing:
+        raise ValueError(f"no rank holds every element of {missing[:4]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -712,9 +1135,15 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
         hook(accelerator._models, [], str(staging))
 
     pending = None
+    error = None
     comm = _comm_tensors(train_state, world) if train_state is not None else {}
-    if train_state is not None and main:
-        snap = _TrainStateSnapshot(train_state, accelerator._checkpoint_buffers, comm)
+    # across processes under a plan every rank writes its own ranges; else
+    # rank 0 writes the whole leaves
+    plan = getattr(accelerator, "_dp_plan", None) if world > 1 else None
+    if train_state is not None and (main or plan is not None):
+        snap = (_ShardSnapshot(train_state, plan, accelerator._checkpoint_buffers, comm)
+                if plan is not None else
+                _TrainStateSnapshot(train_state, accelerator._checkpoint_buffers, comm))
 
         def write():
             t_write = time.perf_counter()
@@ -733,6 +1162,12 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
             _register_exit_flush()
             ckptr.save(write)
             pending = ckptr
+        elif world > 1:
+            # a rank whose write fails still joins the publish's agreement
+            try:
+                write()
+            except Exception as e:
+                error = e
         else:
             write()
 
@@ -756,16 +1191,19 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
             with open(staging / CUSTOM_STATES_NAME.format(i), "wb") as f:
                 pickle.dump(obj.state_dict(), f)
 
-    if pending is not None:
+    if world > 1 and async_save:
+        # the publish is collective: at the next save or load,
+        # wait_for_checkpoint or end_training, every rank together; never
+        # from one rank's interpreter-exit flush
+        accelerator._pending_checkpointer = pending
+        accelerator._pending_publish = (staging, final_dir, verify, record)
+    elif pending is not None:
         _PENDING_FINALIZES[pending] = (staging, final_dir, verify, record)
         accelerator._pending_checkpointer = pending
+    elif world > 1:
+        _publish_across(accelerator, error, staging, final_dir, verify, record)
     else:
-        # every rank's files are staged before rank 0 publishes, and the
-        # directory is published before any rank goes on
-        accelerator.wait_for_everyone()
-        if main:
-            _finalize_checkpoint(staging, final_dir, manifest=verify, record=record)
-        accelerator.wait_for_everyone()
+        _finalize_checkpoint(staging, final_dir, manifest=verify, record=record)
     record["blocking_s"] = time.perf_counter() - t0
     return str(final_dir)
 
@@ -833,10 +1271,11 @@ def _load_checkpoint_dir(accelerator, input_dir: Path, train_state=None,
 
     restored_state = None
     if train_state is not None:
+        plan = getattr(accelerator, "_dp_plan", None)
         restored_state = _io_retry(
             accelerator, lambda: _read_train_state(input_dir / TRAIN_STATE_DIR, train_state,
                                                    accelerator.process_index,
-                                                   accelerator.num_processes),
+                                                   accelerator.num_processes, plan),
             site=f"checkpoint-restore {input_dir.name}")
 
     rng_file = input_dir / RNG_STATE_NAME.format(accelerator.process_index)
@@ -962,7 +1401,16 @@ def load_model_params(save_directory: str) -> dict:
 
 def merge_weights(checkpoint_dir: str, output_dir: str, safe_serialization: bool = True) -> str:
     """Consolidate a train-state checkpoint's params into one
-    ``model.safetensors`` in :func:`save_model`'s layout."""
-    params = load_safetensors(Path(checkpoint_dir).absolute() / TRAIN_STATE_DIR / PARAMS_FILE)
+    ``model.safetensors`` in :func:`save_model`'s layout: the whole-leaf
+    file as it is, or a sharded checkpoint's ranges read into whole leaves
+    through its index."""
+    from .utils.serialization import _STR_TO_DTYPE
+
+    src = _Source(Path(checkpoint_dir).absolute() / TRAIN_STATE_DIR)
+    params = {}
+    for name, (dtype, shape) in src.params.items():
+        whole = torch.empty(shape, dtype=_STR_TO_DTYPE[dtype])
+        src.fill(f"p/{name}", whole, _whole_runs(whole.numel()))
+        params[name] = whole
     return save_model(None, params, output_dir, max_shard_size=f"{2**40}B",
                       safe_serialization=safe_serialization)[0]

@@ -267,6 +267,26 @@ def broadcast(tensor, from_process: int = 0):
     return recursively_apply(_on_tensor(_bcast), tensor, error_on_other_type=True)
 
 
+def broadcast_raw(tensor: torch.Tensor, from_process: int = 0, group=None) -> torch.Tensor:
+    """``from_process``'s ``tensor`` on every process, sent as its raw bytes:
+    a ``uint8`` view of a host copy crosses the group and the receiver
+    views it back as ``tensor``'s dtype and shape, on ``tensor``'s device
+    (a receiver's ``tensor`` is the template; its values are not read).
+    Every dtype crosses a gloo group this way (gloo has no fp8 lane), and a
+    card tensor crosses through host memory, which a gloo group needs.  The
+    input itself in a world of one."""
+    import torch.distributed as dist
+
+    n, _ = _world()
+    if n == 1:
+        return tensor
+    host = tensor.detach().to("cpu", copy=True).contiguous()
+    raw = host.reshape(-1).view(torch.uint8)
+    dist.broadcast(raw, src=from_process, group=group)
+    out = raw.view(tensor.dtype).reshape(tensor.shape)
+    return out if tensor.device.type == "cpu" else out.to(tensor.device)
+
+
 def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
     """``from_process``'s picklable objects into ``object_list`` on every
     process (mutated and returned)."""

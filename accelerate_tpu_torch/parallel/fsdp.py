@@ -48,7 +48,7 @@ import torch
 
 from ..parallelism_config import ParallelismConfig
 from . import collectives
-from .sharding import LeafLayout, leaf_layouts, tp_shard
+from .sharding import LeafLayout, block_runs, clip_runs, leaf_layouts, tp_runs, tp_shard
 
 
 def _size(axes, mesh) -> int:
@@ -62,6 +62,7 @@ class DataParallelPlan:
     def __init__(self, mesh, parallelism_config: ParallelismConfig, fsdp_plugin, params: dict,
                  align: int = 1, tp_rules=None):
         self.mesh = mesh
+        self.align = align
         self.layouts: dict[str, LeafLayout] = leaf_layouts(params, mesh, parallelism_config,
                                                            fsdp_plugin, align, tp_rules)
         # the ranks whose gradients sum: every data-parallel axis, cp and sp
@@ -154,6 +155,56 @@ class DataParallelPlan:
                 leaves.append(self._flat_range(p, self._coord(lay.opt_axes) * lay.chunk,
                                                lay.chunk))
         return leaves
+
+    # -- what this rank holds, in global coordinates -------------------------------
+
+    def _slice_runs(self, lay: LeafLayout):
+        """The runs of this rank's tp / ep slice of the leaf (the whole
+        leaf without a model split)."""
+        return tp_runs(lay.whole_shape, lay.tp_dim, lay.tp_ways,
+                       self._coord((lay.model_axis,)) if lay.tp_dim is not None else 0)
+
+    def param_runs(self, name: str):
+        """The runs (``sharding.tp_runs``' rows: global start, local start,
+        length) of this rank's stored parameter: its range of the slice
+        under a parameter split, else the slice; padding in none."""
+        lay = self.layouts[name]
+        runs = self._slice_runs(lay)
+        if lay.param_ways > 1:
+            span = lay.chunk * lay.extra
+            k = self._coord(lay.param_axes)
+            runs = clip_runs(runs, k * span, (k + 1) * span)
+        return runs
+
+    def opt_runs(self, name: str, block: int = 1):
+        """The runs of this rank's optimizer range of the leaf (``block`` >
+        1: of a per-block tensor, in blocks): a range of the whole leaf
+        for a ``relay`` leaf, a range of the slice where the state is
+        sharded, else the stored parameter's."""
+        lay = self.layouts[name]
+        if lay.relay:
+            k = self._coord(lay.opt_axes)
+            runs = clip_runs(tp_runs(lay.whole_shape, None, 1, 0), k * lay.chunk,
+                             (k + 1) * lay.chunk)
+        elif lay.sharded:
+            k = self._coord(lay.opt_axes)
+            runs = clip_runs(self._slice_runs(lay), k * lay.chunk, (k + 1) * lay.chunk)
+        else:
+            runs = self._slice_runs(lay)
+        return block_runs(runs, block) if block > 1 else runs
+
+    def writes(self, name: str, opt: bool = False) -> bool:
+        """Whether this rank writes the leaf's parameter (``opt``: its
+        optimizer range) to a checkpoint: the first of the ranks holding
+        the same elements, coordinate 0 on every mesh axis that does not
+        split them."""
+        lay = self.layouts[name]
+        split = lay.opt_axes if opt else lay.param_axes
+        if lay.tp_dim is not None and lay.model_axis not in split:
+            split = split + (lay.model_axis,)
+        sizes = collectives.mesh_sizes(self.mesh)
+        return all(self._coord((a,)) == 0 for a, n in sizes.items()
+                   if n > 1 and a not in split)
 
     # -- the step's collectives --------------------------------------------------
 

@@ -460,3 +460,92 @@ def leaf_layouts(params: dict, mesh, parallelism_config: ParallelismConfig,
                                opt_ways=o_ways, chunk=chunk, whole_shape=whole, tp_dim=tp_dim,
                                tp_ways=tp_ways, relay=relay, model_axis=axis)
     return out
+
+
+# ---------------------------------------------------------------------------
+# a rank's holding in global coordinates
+# ---------------------------------------------------------------------------
+#
+# A rank's tensor of a leaf holds elements of the whole leaf's row-major
+# flatten.  Its holding is a list of runs ``(global start, local start,
+# length)``: ``length`` consecutive elements of the whole flatten at
+# ``global start`` lie at ``local start`` of the rank's own flatten.
+# Padding lanes belong to no run.  The sharded checkpoint writes and reads
+# runs (``checkpointing.py``); a tp slice along a dimension past the first
+# is one run per row of the dimensions before it.
+
+
+def tp_runs(whole_shape: tuple, dim: Optional[int], ways: int, index: int):
+    """The runs of rank ``index``'s slice of a leaf of ``whole_shape`` split
+    ``ways`` ways along ``dim`` (the whole leaf: one run), as an int64
+    ``[n, 3]`` array."""
+    import numpy as np
+
+    numel = math.prod(whole_shape)
+    if dim is None or ways == 1:
+        return np.asarray([[0, 0, numel]] if numel else [], dtype=np.int64).reshape(-1, 3)
+    outer = math.prod(whole_shape[:dim])
+    inner = math.prod(whole_shape[dim + 1:])
+    run = whole_shape[dim] // ways * inner
+    o = np.arange(outer, dtype=np.int64)
+    return np.stack([o * whole_shape[dim] * inner + index * run, o * run,
+                     np.full(outer, run, dtype=np.int64)], axis=1).reshape(-1, 3)
+
+
+def clip_runs(runs, start: int, stop: int):
+    """The part of ``runs`` whose local positions lie in ``[start, stop)``,
+    local starts taken from ``start``."""
+    import numpy as np
+
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 3)
+    lo = np.maximum(runs[:, 1], start)
+    hi = np.minimum(runs[:, 1] + runs[:, 2], stop)
+    keep = lo < hi
+    g, l, lo, hi = runs[keep, 0], runs[keep, 1], lo[keep], hi[keep]
+    return np.stack([g + lo - l, lo - start, hi - lo], axis=1).reshape(-1, 3)
+
+
+def block_runs(runs, block: int):
+    """``runs`` of elements as runs of the ``block``-element scale blocks
+    they cover (each run starts on a block boundary, in the whole flatten
+    and locally; the last may end mid-block, at the leaf's end)."""
+    import numpy as np
+
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 3)
+    if ((runs[:, 0] % block) | (runs[:, 1] % block)).any():
+        raise ValueError(f"runs {runs[:4].tolist()} do not start on {block}-element blocks")
+    return np.stack([runs[:, 0] // block, runs[:, 1] // block, -(-runs[:, 2] // block)],
+                    axis=1).reshape(-1, 3)
+
+
+def pack_runs(runs) -> list:
+    """Runs stored contiguously (local starts ascending, no gaps) as
+    ``[[global start, length, count, stride], ...]``: ``count`` runs of
+    ``length`` whose global starts step by ``stride`` (a tp slice's rows
+    pack into one entry)."""
+    out: list = []
+    for g, _, n in runs.tolist():
+        if out and out[-1][1] == n and (out[-1][2] == 1 or g - out[-1][0] - (out[-1][2] - 1)
+                                        * out[-1][3] == out[-1][3]):
+            last = out[-1]
+            if last[2] == 1:
+                last[3] = g - last[0]
+            last[2] += 1
+        else:
+            out.append([g, n, 1, 0])
+    return out
+
+
+def unpack_runs(packed: list):
+    """:func:`pack_runs`' inverse: runs with local starts laid end to end."""
+    import numpy as np
+
+    parts = []
+    for g, n, count, stride in packed:
+        k = np.arange(count, dtype=np.int64)
+        parts.append(np.stack([g + k * stride, np.full(count, n, dtype=np.int64)], axis=1))
+    if not parts:
+        return np.zeros((0, 3), dtype=np.int64)
+    gn = np.concatenate(parts)
+    local = np.concatenate([[0], np.cumsum(gn[:-1, 1])]).astype(np.int64)
+    return np.stack([gn[:, 0], local, gn[:, 1]], axis=1)

@@ -23,8 +23,11 @@ its own batch shape, so neither workload pads out the other's step.
   (``hold_finished=True``) and a decode-role engine.  Greedy tokens equal
   the same trace through one engine: the payload is the K / V itself.
 
-The JAX package's two-process fabric (the same payload across a process
-boundary) waits for ROADMAP item A13 (``torch.distributed``).
+The same payload crosses a process boundary in the two-process fabric
+(``test_utils/scripts/fleet_fabric.py``): each process holds one role's
+engine and a transport over it alone (``PagedKVTransport(engine,
+engine)``), its ``send`` on the prefill side and its ``recv`` on the
+decode side, the payload on a gloo group between them.
 """
 
 from __future__ import annotations

@@ -147,16 +147,26 @@ class PartialState:
     ``split_between_processes``, ``print`` on the main process and
     ``destroy_process_group``.  ``world_of_one=True`` makes a group of this
     one process when no world is asked for (an accelerator with a
-    parallelism config needs a mesh)."""
+    parallelism config needs a mesh).
+
+    ``backend="gloo"`` with a card device is a world whose collectives run
+    on the host while its processes compute on the card: the way several
+    processes share one GPU (NCCL refuses two ranks on one device).  Such a
+    world is asked for explicitly; its collectives take host tensors, and
+    each process keeps the device it was given (``cuda:0`` for all)."""
 
     def __init__(self, cpu: bool = False, device=None,
                  init_process_group_kwargs: Optional[InitProcessGroupKwargs] = None,
-                 world_of_one: bool = False):
+                 world_of_one: bool = False, backend: Optional[str] = None):
         import torch.distributed as dist
 
         dev = resolve_device("cpu" if cpu else device)
         self.debug = parse_flag_from_env("ACCELERATE_DEBUG_MODE")
-        self.backend = "gloo" if dev.type == "cpu" else "nccl"
+        if backend not in (None, "gloo", "nccl"):
+            raise ValueError(f"backend {backend!r}: 'gloo' or 'nccl'")
+        if backend == "nccl" and dev.type == "cpu":
+            raise ValueError("backend='nccl' needs a card device")
+        self.backend = backend or ("gloo" if dev.type == "cpu" else "nccl")
         _init_world(init_process_group_kwargs, self.backend, world_of_one)
         self.num_processes, self.process_index = world()
         if dist.is_initialized():

@@ -37,10 +37,13 @@ def _worker_main(target: str, kwargs_path: str, out_path: str) -> None:
 
     from ..state import PartialState
 
-    state = PartialState(cpu=True)
-    module, fn = target.split(":")
     with open(kwargs_path, "rb") as f:
         kwargs = pickle.load(f)
+    device = kwargs.get("device", "cpu")
+    # a card gang shares one GPU: its world is gloo on the host
+    state = (PartialState(cpu=True) if device == "cpu"
+             else PartialState(device=device, backend="gloo"))
+    module, fn = target.split(":")
     result = getattr(importlib.import_module(module), fn)(state.process_index,
                                                          state.num_processes, **kwargs)
     with open(out_path, "wb") as f:
@@ -49,10 +52,13 @@ def _worker_main(target: str, kwargs_path: str, out_path: str) -> None:
 
 
 def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, exit_code: int = 0,
-             **kwargs) -> list:
+             device: str = "cpu", **kwargs) -> list:
     """Run ``target`` on a gloo world of ``nprocs`` CPU processes (see the
     module doc); ``kwargs`` must pickle.  Every process must exit with
-    ``exit_code``; with another than 0 the result is ``[None] * nprocs``."""
+    ``exit_code``; with another than 0 the result is ``[None] * nprocs``.
+    ``device="cuda:0"`` puts every process on that card, their world still
+    gloo on the host (``PartialState(backend="gloo")``); the worker then
+    gets ``device`` among its keyword arguments."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     store = workdir / "store"
@@ -60,7 +66,7 @@ def run_gang(target: str, nprocs: int, workdir, timeout: float = 120.0, exit_cod
         store.unlink()
     kwargs_path = workdir / "kwargs.pkl"
     with open(kwargs_path, "wb") as f:
-        pickle.dump(kwargs, f)
+        pickle.dump(dict(kwargs, device=device) if device != "cpu" else kwargs, f)
     procs, logs = [], []
     for rank in range(nprocs):
         env = dict(os.environ, ACCELERATE_COORDINATOR_ADDRESS=f"file://{store}",

@@ -4,6 +4,7 @@ PowerSGD train steps on a gloo world, on the JAX tests' two-layer MLP."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...parallel import collectives
@@ -157,3 +158,81 @@ def powersgd_checks(rank: int, world: int, params: dict, batches: list) -> dict:
         FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD"),
         [GradSyncKwargs(compression="powersgd")]))
     return out
+
+
+def masked_ce_loss(params, batch):
+    """A token mean over labels, ``-100`` masked: a one-layer tanh model's
+    next-token cross entropy (``labels`` shifted by one, as
+    ``DataParallelPlan.token_weight`` reads them)."""
+    logits = torch.tanh(batch["x"] @ params["w1"]) @ params["w2"]
+    logits, labels = logits[:, :-1], batch["labels"][:, 1:]
+    valid = labels != -100
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ce = torch.logsumexp(logits, -1) - picked
+    return (ce * valid).sum() / valid.sum().clamp(min=1)
+
+
+def _recording_sgd(lr: float, seen: list):
+    """:func:`sgd` that keeps a copy of every gradient list it is given
+    (the step's reduced gradients)."""
+    inner = sgd(lr)
+
+    def update(grads, state, params):
+        seen.append([g.detach().clone() for g in grads])
+        return inner.update(grads, state, params)
+
+    return type(inner)(inner.init, update)
+
+
+def masked_codec_steps(rank: int, world: int, params: dict, batches: list, qs: dict,
+                       kind: str, rank_q: int = 2, lr: float = 0.1) -> dict:
+    """``len(batches)`` codec steps of :func:`masked_ce_loss` whose ranks
+    hold unequal counts of valid labels: ``kind`` ``"powersgd"`` (the flat
+    codec over ``dp_shard = world``), ``"hier"`` (the dense hierarchical
+    step on ``dcn 2 x dp_shard world/2``) or ``"hier_powersgd"`` (its DCN
+    codec).  ``qs`` are the codec's starting Qs (JAX's, carried over).
+    Returns each step's loss, reduced gradients and this rank's
+    residuals."""
+    from ...accelerator import Accelerator
+    from ...data_loader import shard_global_batch
+    from ...parallelism_config import ParallelismConfig
+    from ...utils.dataclasses import FullyShardedDataParallelPlugin, GradSyncKwargs
+
+    if kind == "powersgd":
+        pcfg = ParallelismConfig(dp_shard_size=world)
+        handlers = [GradSyncKwargs(compression="powersgd", rank=rank_q)]
+    else:
+        pcfg = ParallelismConfig(dcn_size=2, dp_shard_size=world // 2)
+        handlers = ([GradSyncKwargs(dcn_compression="powersgd", rank=rank_q)]
+                    if kind == "hier_powersgd" else [])
+    acc = Accelerator(cpu=True, parallelism_config=pcfg, kwargs_handlers=handlers,
+                      fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD"))
+    seen: list = []
+    state = acc.create_train_state({k: torch.from_numpy(v.copy()) for k, v in params.items()},
+                                   _recording_sgd(lr, seen))
+    if state.comm_state is not None:
+        q0, e0 = state.comm_state
+        state = state.replace(comm_state=(
+            {n: None if q is None else torch.from_numpy(np.array(qs[n])) for n, q in q0.items()},
+            e0))
+    step = acc.prepare_train_step(masked_ce_loss)
+    spec = pcfg.batch_spec(seq_axis=None, ndim=3)
+    out = {"losses": [], "grads": [], "errs": [], "dcn_sync": acc.dcn_sync}
+    for b in batches:
+        local = shard_global_batch({k: torch.from_numpy(v) for k, v in b.items()}, acc.mesh,
+                                   lambda x: spec if x.dim() == 3 else spec[:2])
+        state, m = step(state, local)
+        out["losses"].append(m["loss"].item())
+        out["grads"].append(dict(zip(state.params, [_np(g) for g in seen[-1]])))
+        if state.comm_state is not None:
+            out["errs"].append({n: None if e is None else _np(e)
+                                for n, e in state.comm_state[1].items()})
+    return out
+
+
+def masked_codec_checks(rank: int, world: int, params: dict, batches: list,
+                        qs: dict) -> dict:
+    """:func:`masked_codec_steps` for each kind ``qs`` names (kind ->
+    starting Qs)."""
+    return {kind: masked_codec_steps(rank, world, params, batches, q, kind)
+            for kind, q in qs.items()}

@@ -7,8 +7,9 @@ python3 chip_smoke.py [--before DIR] [--seed N] [--only PHASE[,PHASE]]
 The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
 ``train_resume``: 6a and its recovery ladder; ``memory_recipes``: 6b; ``lora_train``: 6c;
-``examples``: 6d; ``parallel``: 6e; ``moe``: 6f) and prints the kernels
-line for the kernels they reached.
+``examples``: 6d; ``parallel``: 6e; ``moe``: 6f; ``fleet_fabric``: 6g;
+``sharded_ckpt``: 6h) and prints the kernels line for the kernels they
+reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -351,6 +352,39 @@ line for the kernels they reached.
    launches each of #1-#3 a step held to their plain versions, step ms,
    tokens/s, MFU on ``count_active_params`` plus attention, peak memory,
    one profiled step;
+6g. the two-process serving fabric (``fleet_fabric_phase``): two
+   processes of a gloo world (``test_utils/gang.run_gang`` with
+   ``device="cuda:0"``; NCCL refuses two ranks on one card, so no NCCL
+   collective runs, barriers included) share the H100, each with its
+   engine on ``cuda:0`` and the 600m model (random weights from seed 0)
+   over int8 pages: rank 0 the prefill role, rank 1 the decode role with
+   n-gram speculation at k 2 (``FABRIC_PREFILL`` / ``FABRIC_DECODE``:
+   JAX's independent geometries at the serving engine's pages), 8 requests
+   of the serving trace at 32-64 new tokens, no EOS, through
+   ``test_utils/scripts/fleet_fabric.serve_fabric`` (the header, then the
+   ``pps``-wide payload leaf by leaf as raw bytes over gloo): every request
+   finishes; bytes sent = received = ``transfer_accounting``, exactly; #7
+   once per layer of every prefill step and verify pass and #5 once per
+   layer of every plain decode tick, counted per role; rank 1's tokens
+   under the token rule against its fused serve of the same trace; one
+   checked pass on rank 1 (every #5 / #7 launch against its plain
+   version); the resource contract on both roles after every tick; the
+   router smoke on rank 0; prints the wire's ms and GB/s a request (host
+   copy plus gloo), TTFT and tokens/s beside the in-process int8 pair's,
+   and both processes' peak memory;
+6h. sharded checkpoints (``sharded_ckpt_phase``): the 600m train state
+   (bf16 params, lion-sr momentum) after 2 steps at 4 x 2048 in one
+   process (#1-#3 held to plain on the second), saved whole, laid out
+   under FULL_SHARD over a virtual world of 4 ranks in this process (each
+   rank restored from that checkpoint onto zeroed shards), each rank's
+   own save (synchronous; then asynchronous: the four snapshots, then the
+   four writes at once, the files equal to the synchronous ones), the
+   bytes each rank wrote equal to its ranges without padding, restores
+   onto 2 virtual ranks and onto one process (every param and momentum
+   element bitwise the plan's layout of the state), ``merge_weights``
+   byte for byte ``save_model`` of the params, and one more step on the
+   restored process bitwise the step on the state (loss and params, #1-#3
+   held to plain); save and restore ms and GB/s per rank;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
@@ -361,8 +395,10 @@ line for the kernels they reached.
    the ``lora_train`` steps of step 6c, the recovery ladder's steps
    (``train_resume_ladder``), the ``parallel`` ring pass, Ulysses pass,
    tp steps, pipelined step, (g)'s rank passes (``parallel_dcn``) and
-   PowerSGD steps (``parallel_powersgd``) of step 6e and the ``moe``
-   step and ep pass of step 6f; #1-#3's ``cases`` and ``f16`` hold
+   PowerSGD steps (``parallel_powersgd``) of step 6e, the ``moe``
+   step and ep pass of step 6f, the fabric's roles of step 6g
+   (``fleet_fabric_prefill``, ``fleet_fabric_decode``) and the first
+   step of 6h (``sharded_ckpt``); #1-#3's ``cases`` and ``f16`` hold
    their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
@@ -497,6 +533,8 @@ PREFIX_SHARE = 0.5
 PREFIX_QUANT_REQUESTS = 4
 # each new path's kernel-wrapper launches, counts zeroed just before it
 PATH_LAUNCHES: dict = {}
+# the in-process pairs' reports, printed beside the two-process fabric's
+PAIR_REPORTS: dict = {}
 # overload: 32 requests of the bench trace through the speculative bf16
 # engine with a bounded queue, a KV-pressure watermark and a default
 # deadline, under a seeded cancel / deadline storm (FaultPlan.from_seed); the
@@ -3277,6 +3315,7 @@ def disaggregate_phase(torch, card: str, bf16: dict, quant: dict) -> dict:
                       "launches": launches, "token_rule": rule,
                       "in_path": in_path}
         log(label, json.dumps(out[label]))
+        PAIR_REPORTS[label] = out[label]
         log(f"{label} on {card}: {rep['page_transfers']} transfers, {rep['page_transfer_pages']} "
             f"pages, {rep['page_transfer_bytes']} bytes (accounting "
             f"{acc['page_transfer_bytes']}); a slot's gather + scatter {times['slot_ms']:.4f} ms "
@@ -6697,9 +6736,399 @@ def moe_phase(torch, fa, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- the two-process serving fabric and sharded checkpoints (6g, 6h) ---------------
+
+# the fabric's roles: JAX's independent geometries at the 600m serving
+# engine's page geometry, int8 pages; every request arrives at once with no
+# deadline and no EOS, so each ships its pages exactly once
+FABRIC = dict(requests=8, new_tokens=(32, 64), kv_dtype="int8", timeout=900)
+FABRIC_SHARED = dict(page_size=PLUGIN["page_size"], pages_per_slot=PLUGIN["pages_per_slot"],
+                     default_deadline_ticks=0)
+FABRIC_PREFILL = dict(num_slots=4, num_pages=96, prefill_chunk=512, speculate="off")
+FABRIC_DECODE = dict(num_slots=8, num_pages=160, prefill_chunk=256, speculate="ngram",
+                     speculate_k=2)
+
+
+def fabric_trace(torch):
+    import dataclasses
+
+    from accelerate_tpu_torch import synthesize_trace
+
+    return [dataclasses.replace(r, arrival_step=0, deadline_ticks=0)
+            for r in synthesize_trace(0, FABRIC["requests"],
+                                      **dict(TRACE, new_tokens_range=FABRIC["new_tokens"]))]
+
+
+def fabric_worker(rank: int, world: int, device: str = "cpu") -> dict:
+    """One process of the fabric (``test_utils/gang.run_gang`` on a gloo
+    world whose two processes both compute on ``device``): the 600m model
+    (random weights from seed 0) in the role of this rank through
+    ``fleet_fabric.serve_fabric``, the resource contract checked after
+    every tick, each kernel's launches counted from the warm engine to the
+    end of its rounds; rank 1 holds its tokens to the fused serve's by the
+    token rule and then runs one checked pass of the same trace with the
+    decode plugin (every #5 / #7 launch against its plain version)."""
+    import torch
+    import torch.distributed as dist
+
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch import GenerationConfig, LlamaConfig, LlamaForCausalLM, ServingPlugin
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+    from accelerate_tpu_torch.serving import verify_serving_invariants
+    from accelerate_tpu_torch.test_utils.scripts.fleet_fabric import serve_fabric
+
+    on_card = torch.device(device).type == "cuda"
+    # the kernel libraries build once: one process after the other (the
+    # script built them before starting the gang; this finds them in build/)
+    for r in range(world):
+        if r == rank and on_card:
+            _build.build_all(["paged_decode", "paged_prefill"])
+        dist.barrier()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    trace = fabric_trace(torch)
+    kv = FABRIC["kv_dtype"]
+    prefill = ServingPlugin(**FABRIC_SHARED, **FABRIC_PREFILL, kv_dtype=kv)
+    decode = ServingPlugin(**FABRIC_SHARED, **FABRIC_DECODE, kv_dtype=kv)
+    gen = GenerationConfig(max_new_tokens=FABRIC["new_tokens"][1], eos_token_id=None)
+    seen: dict = {"ticks": 0}
+
+    def on_tick(engine):
+        seen["ticks"] += 1
+        problems = verify_serving_invariants(engine)
+        if problems:
+            raise AssertionError(f"fabric rank {rank} tick {seen['ticks']}: {problems}")
+
+    def on_phase(name, engine):
+        if name == "warm":
+            reset_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+        else:
+            seen["launches"] = launch_counts()
+            seen["metrics"] = dict(engine.metrics)
+
+    rule: dict = {}
+
+    def judge(got, fused):
+        rule.update(token_rule(torch, model, llama_mod, fa, qmm, trace, fused, got,
+                               kv_dtype=kv, label="fleet_fabric"))
+        return True
+
+    out = serve_fabric(rank, model, prefill, decode, gen, trace, device=device, on_tick=on_tick,
+                       on_phase=on_phase, judge=judge)
+    layers = cfg.num_hidden_layers
+    m = seen["metrics"]
+    want = {"paged_multitoken_attention_quant":
+            (m["prefill_steps"] + m.get("verify_steps", 0)) * layers,
+            "paged_decode_attention_quant": m["decode_steps"] * layers}
+    if on_card:
+        expect_launches(seen["launches"], {k: v for k, v in want.items() if v})
+    out.update(launches={k: v for k, v in seen["launches"].items() if v}, expected=want,
+               invariants_checked_ticks=seen["ticks"],
+               peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0,
+               tick_kinds={k: m.get(k, 0) for k in ("prefill_steps", "decode_steps",
+                                                    "verify_steps")})
+    if rank == 1:
+        out["token_rule"] = rule
+        out.pop("results"), out.pop("fused")
+        out["in_path"] = in_path_check(
+            torch, model, llama_mod, fa, qmm, trace, kv_dtype=kv,
+            plugin=dict(FABRIC_SHARED, **FABRIC_DECODE), invariants=True,
+            required=["paged_multitoken_attention"])
+    return out
+
+
+def fleet_fabric_phase(torch, card: str, device: str = "cuda:0",
+                       worker: str = "chip_smoke:fabric_worker") -> dict:
+    """(6g) The two-process fabric on one card: rank 0 the prefill role,
+    rank 1 the decode role (n-gram speculation, k 2), over int8 pages,
+    their wire gloo on the host; each process on ``device``.  Checks every
+    request finished, bytes sent = received = ``transfer_accounting``
+    exactly, the per-role launch counts, the token rule, the checked pass
+    and the contract; prints the wire's ms and GB/s a request, TTFT and
+    tokens/s beside the in-process int8 pair's, and each process's peak
+    memory."""
+    import tempfile
+
+    from accelerate_tpu_torch.test_utils.gang import run_gang
+
+    work = tempfile.mkdtemp(prefix="fleet_fabric_")
+    t0 = time.perf_counter()
+    prefill, decode = run_gang(worker, 2, work, timeout=FABRIC["timeout"], device=device)
+    wall = time.perf_counter() - t0
+    fleet = prefill["fleet"]
+    n = FABRIC["requests"]
+    per_req = prefill["wire_bytes"] / n
+    send_ms = [1e3 * s for s in prefill["wire_s"]]
+    recv_ms = [1e3 * s for s in decode["wire_s"]]
+    ttft = sorted(1e3 * s for s in prefill["first_token_s"].values())
+    e2e_s = decode["recv_s"] + decode["decode_s"]
+    pair = PAIR_REPORTS.get("disaggregate_int8")
+    out = {"card": card, "requests": n, "kv_dtype": FABRIC["kv_dtype"],
+           "bytes_pred": prefill["bytes_pred"], "bytes_sent": prefill["bytes_sent"],
+           "bytes_recv": decode["bytes_recv"], "bytes_per_page": prefill["bytes_per_page"],
+           "wire_bytes_per_request": per_req,
+           "wire_send_ms_mean": sum(send_ms) / n, "wire_recv_ms_mean": sum(recv_ms) / n,
+           "wire_send_gb_s": per_req / (sum(send_ms) / n) / 1e6,
+           "wire_recv_gb_s": per_req / (sum(recv_ms) / n) / 1e6,
+           "ttft_p50_ms": ttft[len(ttft) // 2], "prefill_serve_s": prefill["serve_s"],
+           "decode_tokens": decode["tokens"], "decode_s": decode["decode_s"],
+           "recv_s": decode["recv_s"], "decode_tokens_per_sec": decode["tokens"] / decode["decode_s"],
+           "tokens_per_sec_from_first_recv": decode["tokens"] / e2e_s,
+           "pair_int8": ({k: pair[k] for k in ("tokens_per_sec", "wall_s", "requests",
+                                               "ttft_p50_ms") if k in pair}
+                         if pair else None),
+           "launches": {"prefill": prefill["launches"], "decode": decode["launches"]},
+           "tick_kinds": {"prefill": prefill["tick_kinds"], "decode": decode["tick_kinds"]},
+           "invariants_checked_ticks": {"prefill": prefill["invariants_checked_ticks"],
+                                        "decode": decode["invariants_checked_ticks"]},
+           "peak_bytes": {"prefill": prefill["peak_bytes"], "decode": decode["peak_bytes"]},
+           "token_rule": decode["token_rule"], "in_path": decode["in_path"], "fleet": fleet,
+           "gang_wall_s": wall}
+    log("fleet_fabric", json.dumps(out))
+    log(f"fleet_fabric on {card}: {n} requests, {out['bytes_sent']} bytes sent = received = "
+        f"predicted; wire {per_req / 1e6:.2f} MB a request, send {out['wire_send_ms_mean']:.2f} "
+        f"ms ({out['wire_send_gb_s']:.3f} GB/s), recv {out['wire_recv_ms_mean']:.2f} ms; TTFT "
+        f"p50 {out['ttft_p50_ms']:.1f} ms; {out['decode_tokens_per_sec']:.1f} decode tokens/s "
+        f"(in-process int8 pair: {pair['tokens_per_sec'] if pair else 'not run'}); peak "
+        f"{prefill['peak_bytes'] / 2**30:.2f} / {decode['peak_bytes'] / 2**30:.2f} GiB")
+    if not (prefill["bytes_sent"] == prefill["bytes_recv"] == decode["bytes_recv"]
+            == prefill["bytes_pred"] > 0):
+        raise AssertionError(f"fleet_fabric bytes: sent {prefill['bytes_sent']}, received "
+                             f"{decode['bytes_recv']}, predicted {prefill['bytes_pred']}")
+    if prefill["completed"] != FABRIC["requests"] or not prefill["parity"]:
+        raise AssertionError(f"fleet_fabric: {prefill['completed']} requests finished, "
+                             f"verdict {prefill['parity']}")
+    if fleet["goodput_frac"] != 1.0 or fleet["routed_by_prefix"] <= 0:
+        raise AssertionError(f"fleet_fabric router smoke: {fleet}")
+    return out
+
+
+SHARDED = dict(ranks=4, restore_ranks=2, batch=4, optimizer="lion-sr")
+
+
+def checked_step_metrics(torch, fa, acc, loss_fn, state, batch, layers: int):
+    """:func:`checked_step` with the step's metrics."""
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        state, m = acc.prepare_train_step(loss_fn)(state, batch)
+    return state, m, worst_of(readings, {n: layers for n in FLASH_REPLACES})
+
+
+def _mesh_of(dp_shard: int):
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    names, shape = _layout(dp_shard=dp_shard)
+    return VirtualMesh(names, shape), ParallelismConfig(dp_shard_size=dp_shard)
+
+
+def _payload_bytes(path: Path) -> int:
+    from accelerate_tpu_torch.utils.serialization import read_safetensors_header
+
+    header, _ = read_safetensors_header(path)
+    return sum(v["data_offsets"][1] - v["data_offsets"][0] for k, v in header.items()
+               if k != "__metadata__")
+
+
+def _predicted_rank_bytes(plan, state) -> int:
+    """The bytes a rank writes of params and momentum, from its layouts
+    alone: its range of each sharded leaf less the padding, a replicated
+    leaf on rank 0 only."""
+    from accelerate_tpu_torch.parallel import collectives
+
+    total = 0
+    first = collectives.axis_index("dp_shard", plan.mesh) == 0
+    for (name, p), mu in zip(state.params.items(), state.opt_state.mu):
+        lay = plan.layouts[name]
+        if lay.sharded:
+            k = collectives.axis_index(lay.opt_axes, plan.mesh)
+            n = max(0, min(lay.chunk, lay.numel - k * lay.chunk))
+        else:
+            n = lay.numel if first else 0
+        total += n * (p.element_size() + mu.element_size())
+    return total
+
+
+def sharded_ckpt_phase(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(6h) The 600m train state (bf16 params, lion-sr momentum) after 2
+    steps at 4 x 2048 in one process (the second's #1-#3 held to plain),
+    laid out under FULL_SHARD over a virtual world of 4 ranks in this
+    process (each rank restored from the one-process checkpoint), each
+    rank's own save (synchronous, then asynchronous: snapshots, then the
+    four writes at once), the bytes a rank wrote against its layouts',
+    restores onto 2 virtual ranks and onto one process, bitwise against the
+    state (params and momentum), ``merge_weights`` against ``save_model``,
+    and one more step on the restored process bitwise the step on the
+    state it was saved from (#1-#3 held to plain)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.checkpointing import (
+        _ShardSnapshot, load_train_state, merge_weights, save_model, save_train_state,
+    )
+    from accelerate_tpu_torch.native import file_crc32
+    from accelerate_tpu_torch.parallel.fsdp import DataParallelPlan, parallel_align
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    cfg, model, params, acc, loss_fn = train_setup(torch, device=device)
+    layers = cfg.num_hidden_layers
+    state = acc.create_train_state(params, SHARDED["optimizer"])
+    step = acc.prepare_train_step(loss_fn)
+    batch = token_batch(torch, cfg.vocab_size, SHARDED["batch"], device=device)
+    reset_counts()
+    state, m1 = step(state, batch)
+    launches = {n: fa_launches(n) for n in FLASH_REPLACES}
+    if any(v != layers for v in launches.values()):
+        raise AssertionError(f"sharded_ckpt: step launches {launches}, {layers} each expected")
+    state, m2, held = checked_step_metrics(torch, fa, acc, loss_fn, state, batch, layers)
+    sync(torch)
+    plugin = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
+    align = parallel_align(plugin)
+    root = Path(tempfile.mkdtemp(prefix="sharded_ckpt_"))
+    out = {"card": card, "world": SHARDED["ranks"], "virtual": True,
+           "state_bytes": sum(p.numel() * p.element_size() for p in state.params.values())
+           + sum(m.numel() * m.element_size() for m in state.opt_state.mu),
+           "loss": [m1["loss"].item(), m2["loss"].item()], "in_path": held}
+    try:
+        t0 = time.perf_counter()
+        save_train_state(root / "whole" / "train_state", state)
+        out["whole_save_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        def zeros_template(plan):
+            stored = {n: torch.zeros_like(t) for n, t in plan.shard_params(state.params).items()}
+            return state.replace(params=stored, opt_state=state.tx.init(plan.opt_params(stored)),
+                                 rng=torch.Generator(device=device))
+
+        def same_as_state(plan, got):
+            """Each stored tensor bitwise the plan's layout of the state."""
+            want_p = plan.shard_params(state.params)
+            mu = dict(zip(state.params, state.opt_state.mu))
+            want_m = plan.opt_params(plan.shard_params(mu))
+            return (all(torch.equal(got.params[n], w) for n, w in want_p.items())
+                    and all(torch.equal(a, b) for a, b in zip(got.opt_state.mu, want_m))
+                    and got.opt_state.count == state.opt_state.count)
+
+        mesh4, pcfg4 = _mesh_of(SHARDED["ranks"])
+
+        def lay_out(r):
+            plan = DataParallelPlan(mesh4, pcfg4, plugin, state.params, align=align)
+            template = zeros_template(plan)
+            sync(torch)
+            t = time.perf_counter()
+            mine = load_train_state(root / "whole" / "train_state", template, plan)
+            sync(torch)
+            return plan, mine, 1e3 * (time.perf_counter() - t)
+
+        ranks = mesh4.run(lay_out, pcfg4)
+        shutil.rmtree(root / "whole")
+        out["restore_1_to_4_ms"] = [ms for _, _, ms in ranks]
+        out["laid_out_bitwise"] = all(mesh4.run(lambda r: same_as_state(*ranks[r][:2]), pcfg4))
+
+        def rank_save(r):
+            plan, mine, _ = ranks[r]
+            sync(torch)
+            t = time.perf_counter()
+            written = save_train_state(root / "sync" / "train_state", mine, plan)
+            ms = 1e3 * (time.perf_counter() - t)
+            shard = root / "sync" / "train_state" / f"shard_{r:05d}.safetensors"
+            return {"ms": ms, "file_bytes": written, "payload": _payload_bytes(shard),
+                    "predicted": _predicted_rank_bytes(plan, mine)}
+
+        saves = mesh4.run(rank_save, pcfg4)
+        if any(s["payload"] != s["predicted"] for s in saves):
+            raise AssertionError(f"sharded_ckpt: bytes a rank wrote vs predicted: {saves}")
+
+        def snapshot(r):
+            plan, mine, _ = ranks[r]
+            t = time.perf_counter()
+            snap = _ShardSnapshot(mine, plan, [])
+            return snap, 1e3 * (time.perf_counter() - t)
+
+        t = time.perf_counter()
+        snaps = mesh4.run(snapshot, pcfg4)
+        with concurrent.futures.ThreadPoolExecutor(len(snaps)) as pool:
+            list(pool.map(lambda s: s[0].write(root / "async" / "train_state"), snaps))
+        async_total_ms = 1e3 * (time.perf_counter() - t)
+        async_blocking_ms = [ms for _, ms in snaps]
+        files = sorted(p.name for p in (root / "sync" / "train_state").iterdir())
+        same_files = all(file_crc32(root / "sync" / "train_state" / f)
+                         == file_crc32(root / "async" / "train_state" / f) for f in files)
+        shutil.rmtree(root / "async")
+        del ranks, snaps
+        mesh2, pcfg2 = _mesh_of(SHARDED["restore_ranks"])
+
+        def restore2(r):
+            plan = DataParallelPlan(mesh2, pcfg2, plugin, state.params, align=align)
+            template = zeros_template(plan)
+            sync(torch)
+            t = time.perf_counter()
+            got = load_train_state(root / "sync" / "train_state", template, plan)
+            sync(torch)
+            ms = 1e3 * (time.perf_counter() - t)
+            return ms, same_as_state(plan, got), sum(
+                p.numel() * p.element_size() for p in got.params.values()) + sum(
+                m.numel() * m.element_size() for m in got.opt_state.mu)
+
+        restored2 = mesh2.run(restore2, pcfg2)
+        zeros = {n: torch.zeros_like(p) for n, p in state.params.items()}
+        one = state.replace(params=zeros, opt_state=state.tx.init(list(zeros.values())),
+                            rng=torch.Generator(device=device))
+        sync(torch)
+        t = time.perf_counter()
+        one = load_train_state(root / "sync" / "train_state", one)
+        sync(torch)
+        one_ms = 1e3 * (time.perf_counter() - t)
+        one_bitwise = (all(torch.equal(one.params[n], p) for n, p in state.params.items())
+                       and all(torch.equal(a, b) for a, b in zip(one.opt_state.mu,
+                                                                 state.opt_state.mu))
+                       and torch.equal(one.rng.get_state(), state.rng.get_state()))
+        t = time.perf_counter()
+        merged = merge_weights(str(root / "sync"), str(root / "merged"))
+        merge_ms = 1e3 * (time.perf_counter() - t)
+        want = save_model(None, state.params, str(root / "model"), max_shard_size=f"{2**40}B")[0]
+        merged_equal = (Path(merged).stat().st_size == Path(want).stat().st_size
+                        and file_crc32(merged) == file_crc32(want))
+        # one more step on each: the restored process and the state it was
+        # saved from
+        one, m_one, held_one = checked_step_metrics(torch, fa, acc, loss_fn, one, batch, layers)
+        state, m_ref, held_ref = checked_step_metrics(torch, fa, acc, loss_fn, state, batch,
+                                                      layers)
+        step_bitwise = (m_one["loss"].item() == m_ref["loss"].item()
+                        and all(torch.equal(one.params[n], p) for n, p in state.params.items()))
+        out["loss"] += [m_ref["loss"].item(), m_one["loss"].item()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rank_gb = [s["payload"] / s["ms"] / 1e6 for s in saves]
+    out.update({
+        "save_sync": saves, "save_sync_gb_s": rank_gb,
+        "save_async_blocking_ms": async_blocking_ms,
+        "save_async_total_ms": async_total_ms, "async_files_equal_sync": same_files,
+        "restore_4_to_2_ms": [ms for ms, _, _ in restored2],
+        "restore_4_to_2_gb_s": [b / ms / 1e6 for ms, _, b in restored2],
+        "restore_4_to_2_bitwise": all(ok for _, ok, _ in restored2),
+        "restore_4_to_1_ms": one_ms,
+        "restore_4_to_1_gb_s": out["state_bytes"] / one_ms / 1e6,
+        "restore_4_to_1_bitwise": one_bitwise, "merge_ms": merge_ms,
+        "merge_equals_save_model": merged_equal, "next_step_bitwise": step_bitwise,
+        "in_path_after_restore": held_one, "launches": launches})
+    bad = [k for k in ("laid_out_bitwise", "async_files_equal_sync", "restore_4_to_2_bitwise",
+                       "restore_4_to_1_bitwise", "merge_equals_save_model", "next_step_bitwise")
+           if not out[k]]
+    if bad:
+        raise AssertionError(f"sharded_ckpt: {bad} failed: {out}")
+    log("sharded_ckpt", json.dumps(out))
+    return out
+
+
 # the phases --only selects, in the order the bare call runs them
 PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
-          "examples", "parallel", "moe")
+          "examples", "parallel", "moe", "fleet_fabric", "sharded_ckpt")
 
 
 
@@ -6888,6 +7317,15 @@ def main() -> int:
         PATH_LAUNCHES["moe"] = moe["launches"]
         PATH_LAUNCHES["moe_ep"] = moe["ep_launches"]
         phase_done("moe")
+    if "fleet_fabric" in only:
+        fabric = fleet_fabric_phase(torch, card)
+        PATH_LAUNCHES["fleet_fabric_prefill"] = fabric["launches"]["prefill"]
+        PATH_LAUNCHES["fleet_fabric_decode"] = fabric["launches"]["decode"]
+        phase_done("fleet_fabric")
+    if "sharded_ckpt" in only:
+        sharded = sharded_ckpt_phase(torch, fa, card)
+        PATH_LAUNCHES["sharded_ckpt"] = sharded["launches"]
+        phase_done("sharded_ckpt")
 
     # each kernel's launches on its main path, and its checked calls there
     main_path = {}

@@ -2727,3 +2727,58 @@ def test_peer_snapshot_of_a_card_state_is_bitwise(cuda):
     assert restored.opt_state.count == 1 and restored.step == 1
     assert restored.params[next(iter(want))].device.type == "cuda"
     assert torch.equal(restored.rng.get_state(), rng)
+
+
+@pytest.mark.cuda
+def test_sharded_checkpoint_of_a_card_state_over_a_virtual_world_is_bitwise(cuda, tmp_path):
+    """A card train state (lion-sr8: bf16 params, int8 codes and per-block
+    scales) laid out under FULL_SHARD over a virtual world of 2 (each rank
+    restored from the one-process checkpoint), each rank's own shard
+    saved from its card tensors, then restored onto one process: every
+    param, code and scale bitwise the original state's."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.checkpointing import load_train_state, save_train_state
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.optimizer import flatten_opt_state
+    from accelerate_tpu_torch.parallel.fsdp import DataParallelPlan, parallel_align
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    cfg = tl.LlamaConfig(vocab_size=2048, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=13)
+    acc = Accelerator(mixed_precision="bf16", device=cuda)
+    state = acc.create_train_state(model, "lion-sr8")
+    step = acc.prepare_train_step(tl.make_llama_loss_fn(model, fused_vocab_chunks=2))
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(14))
+    state, _ = step(state, {"input_ids": ids, "labels": ids})
+    whole_dir, shard_dir = tmp_path / "whole", tmp_path / "sharded"
+    save_train_state(whole_dir, state)
+    pcfg = ParallelismConfig(dp_shard_size=2)
+    plugin = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(2 if a == "dp_shard" else 1
+                                              for a in MESH_AXIS_ORDER))
+
+    def rank_save(r):
+        plan = DataParallelPlan(mesh, pcfg, plugin, state.params, align=parallel_align(plugin))
+        stored = plan.shard_params(state.params)
+        template = state.replace(params=stored, opt_state=state.tx.init(plan.opt_params(stored)))
+        mine = load_train_state(whole_dir, template, plan)
+        return save_train_state(shard_dir, mine, plan), plan.any_sharded
+
+    written = mesh.run(rank_save, pcfg)
+    assert all(sharded for _, sharded in written)
+    assert {p.name for p in (shard_dir).iterdir()} == {
+        "index.json", "shard_00000.safetensors", "shard_00001.safetensors", "state.safetensors"}
+    fresh = {n: torch.zeros_like(p) for n, p in state.params.items()}
+    template = state.replace(params=fresh, opt_state=state.tx.init(list(fresh.values())),
+                             rng=torch.Generator(device=cuda))
+    restored = load_train_state(shard_dir, template)
+    assert all(torch.equal(restored.params[n], p) for n, p in state.params.items())
+    got, want = flatten_opt_state(restored.opt_state)[0], flatten_opt_state(state.opt_state)[0]
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert restored.opt_state.count == state.opt_state.count and restored.step == state.step
+    assert restored.params[next(iter(fresh))].device.type == "cuda"

@@ -330,3 +330,33 @@ def test_gang_flat_powersgd_spans_dcn_axis(gang):
     assert not out["flat_powersgd_sync"]["enabled"]
     assert out["flat_powersgd"][-1] < 0.2, out["flat_powersgd"][-5:]
     assert out["flat_powersgd_errs"]["w1"].shape == (8, 32)
+
+
+def test_gang_hierarchical_steps_on_unequal_valid_counts_equal_jax(tmp_path):
+    """C3: the dense hierarchical step and its DCN codec on a dcn 2 x
+    dp_shard 2 gang whose ranks hold different counts of ``-100`` labels,
+    JAX's Qs carried over: losses (averaged inside the node, then over
+    dcn), reduced gradients and each rank's residuals against JAX's
+    ``_hier_grads`` shard_map over 3 steps, at this file's codec tolerance."""
+    from test_torch_powersgd import (
+        assert_codec_steps_equal_jax,
+        jax_masked_codec_steps,
+        masked_batches,
+        masked_params,
+    )
+
+    params, batches = masked_params(), masked_batches(4)
+    qs, errs = jh.init_dcn_powersgd_state(params, rank=2, dp_world=4, ici_size=2)
+    refs = {"hier": jax_masked_codec_steps(params, batches, 4, "hier"),
+            "hier_powersgd": jax_masked_codec_steps(params, batches, 4, "hier_powersgd",
+                                                    qs, errs)}
+    port = run_gang("accelerate_tpu_torch.test_utils.scripts.hierarchical_checks:"
+                    "masked_codec_checks", 4, tmp_path, timeout=120, params=params,
+                    batches=batches,
+                    qs={"hier": None,
+                        "hier_powersgd": {k: None if v is None else np.asarray(v)
+                                          for k, v in qs.items()}})
+    for kind, ref in refs.items():
+        runs = [r[kind] for r in port]
+        assert runs[0]["dcn_sync"]["enabled"]
+        assert_codec_steps_equal_jax(runs, ref, dict(rtol=1e-5, atol=1e-5))

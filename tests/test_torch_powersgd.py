@@ -283,3 +283,124 @@ def test_powersgd_rejects_bad_configs(gang):
     assert "ValueError" in out["raise_tp"] and "tp" in out["raise_tp"]
     assert "params-sharded" in out["raise_full_shard"]
     assert "params-sharded" in out["raise_hybrid"]
+
+
+# -- C3: ranks with unequal counts of valid labels ------------------------------
+
+
+def masked_params() -> dict:
+    rng = np.random.default_rng(3)
+    return {"w1": (rng.standard_normal((8, 32)) * 0.3).astype(np.float32),
+            "w2": (rng.standard_normal((32, 16)) * 0.3).astype(np.float32)}
+
+
+def masked_batches(world: int, steps: int = 3, rows: int = 2, t: int = 6) -> list:
+    """Global batches whose ranks hold different counts of ``-100`` labels
+    (rank ``r``'s rows lose ``(r + step) % t`` of their shifted labels)."""
+    rng = np.random.default_rng(5)
+    out = []
+    for s in range(steps):
+        x = rng.standard_normal((world * rows, t, 8)).astype(np.float32)
+        labels = rng.integers(0, 16, size=(world * rows, t)).astype(np.int64)
+        for r in range(world):
+            labels[r * rows:(r + 1) * rows, 1:1 + (r * 2 + s) % t] = -100
+        out.append({"x": x, "labels": labels})
+    return out
+
+
+def jax_masked_ce(p, b):
+    logits = jnp.tanh(b["x"] @ p["w1"]) @ p["w2"]
+    logits, labels = logits[:, :-1], b["labels"][:, 1:]
+    valid = labels != -100
+    picked = jnp.take_along_axis(logits, jnp.clip(labels, 0)[..., None], -1)[..., 0]
+    ce = jax.nn.logsumexp(logits, -1) - picked
+    return jnp.sum(ce * valid) / jnp.maximum(jnp.sum(valid), 1)
+
+
+def jax_masked_codec_steps(params, batches, world: int, kind: str, qs=None, errs=None,
+                           lr: float = 0.1) -> dict:
+    """JAX's shard_map steps (``_psgd_local`` / ``_hier_grads``): each rank's
+    own mean loss and its gradient through the codec, the loss ``pmean``-ed
+    (inside the node, then over dcn, for the hierarchical step), then SGD."""
+    from accelerate_tpu.parallel import hierarchical as jh
+
+    if kind == "powersgd":
+        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:world]), ("dp_shard",))
+        spec, axes = P("dp_shard"), ("dp_shard",)
+    else:
+        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:world]).reshape(2, world // 2),
+                                 ("dcn", "dp_shard"))
+        spec, axes = P(("dcn", "dp_shard")), ("dcn", "dp_shard")
+
+    def local(p, b, qs, errs):
+        loss, grads = jax.value_and_grad(jax_masked_ce)(p, b)
+        grads = jax.tree_util.tree_map(lambda g: g.astype(jnp.float32), grads)
+        if kind == "hier":
+            g_hat, _, _ = jh.hierarchical_sync(grads, ("dp_shard",), "dcn")
+            nq, ne = qs, errs
+        else:
+            e_local = jax.tree_util.tree_map(lambda e: e[0], errs)
+            if kind == "powersgd":
+                g_hat, nq, ne = jps.compress_decompress(grads, qs, e_local, axes, 2)
+            else:
+                g_hat, nq, ne = jh.hierarchical_sync(grads, ("dp_shard",), "dcn", qs=qs,
+                                                     errs=e_local, rank=2)
+            ne = jax.tree_util.tree_map(lambda e: e[None], ne)
+        if kind == "powersgd":
+            loss = jax.lax.pmean(loss, axes)
+        else:
+            loss = jax.lax.pmean(jax.lax.pmean(loss, "dp_shard"), "dcn")
+        return loss, g_hat, nq, ne
+
+    fn = jax.jit(shard_map(local, mesh=mesh, in_specs=(P(), spec, P(), spec),
+                           out_specs=(P(), P(), P(), spec), **NO_CHECK))
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    out = {"losses": [], "grads": [], "errs": []}
+    for b in batches:
+        loss, g_hat, qs, errs = fn(p, {k: jnp.asarray(v) for k, v in b.items()}, qs, errs)
+        p = {k: p[k] - lr * g_hat[k] for k in p}
+        out["losses"].append(float(loss))
+        out["grads"].append({k: np.asarray(v) for k, v in g_hat.items()})
+        if errs is not None:
+            out["errs"].append({k: None if v is None else np.asarray(v)
+                                for k, v in errs.items()})
+    return out
+
+
+def assert_codec_steps_equal_jax(port: list, ref: dict, tol: dict) -> None:
+    """Every rank's losses and reduced gradients, and its own residuals,
+    against JAX's, step by step."""
+    for rank, got in enumerate(port):
+        np.testing.assert_allclose(got["losses"], ref["losses"], **tol)
+        for step, (g, want) in enumerate(zip(got["grads"], ref["grads"])):
+            for k in want:
+                np.testing.assert_allclose(g[k], want[k], err_msg=f"{k} step {step}", **tol)
+        for step, (e, want) in enumerate(zip(got["errs"], ref["errs"])):
+            for k, w in want.items():
+                assert (w is None) == (e[k] is None)
+                if w is not None:
+                    assert np.abs(w[rank]).max() > 0
+                    np.testing.assert_allclose(e[k], w[rank], err_msg=f"{k} step {step}",
+                                               **tol)
+
+
+def test_masked_batches_have_unequal_valid_counts():
+    for b in masked_batches(2):
+        counts = [(b["labels"][r * 2:(r + 1) * 2, 1:] != -100).sum() for r in range(2)]
+        assert counts[0] != counts[1]
+
+
+def test_gang_codec_steps_on_unequal_valid_counts_equal_jax(tmp_path):
+    """C3: the flat codec step on 2 ranks whose batches hold different
+    counts of ``-100`` labels, JAX's Qs carried over: losses, reduced
+    gradients and each rank's residuals against JAX's ``_psgd_local``
+    shard_map over 3 steps, at this file's tolerance."""
+    params, batches = masked_params(), masked_batches(2)
+    qs, errs = jps.init_powersgd_state(params, 2, 2)
+    ref = jax_masked_codec_steps(params, batches, 2, "powersgd", qs, errs)
+    port = run_gang("accelerate_tpu_torch.test_utils.scripts.hierarchical_checks:"
+                    "masked_codec_checks", 2, tmp_path, timeout=120, params=params,
+                    batches=batches,
+                    qs={"powersgd": {k: None if v is None else np.asarray(v)
+                                     for k, v in qs.items()}})
+    assert_codec_steps_equal_jax([r["powersgd"] for r in port], ref, TOL)
