@@ -47,7 +47,8 @@ The memory and precision recipes (JAX :770-1330):
   with ``host_update_pipeline`` every group's copy is queued at once so
   group k + 1's gradients cross while group k updates.  Global-norm
   clipping then takes the norm on the host.  ``offload_log`` holds the last
-  step's bytes and host times.
+  step's bytes and host times.  Under a sharding plan each rank offloads
+  its own ranges and stages its reduced f32 gradient ranges.
 
 The one-process surface of the JAX class (JAX :418-506, :1968-2240,
 :2475-2521): ``prepare_eval_step``, ``has_aux`` steps, ``autocast``,
@@ -98,10 +99,24 @@ preemption stop is agreed across the ranks.
 Checkpoints of a train state that is sharded or split over several
 ranks are each rank's own ranges with one index of the global layout,
 saved synchronously or asynchronously, and restore onto any plan and
-process count (``checkpointing.py``).  Off this path, and raising
-``NotImplementedError`` with their ROADMAP item: ``cpu_offload`` and fp8
-delayed scaling under a parallelism config, Mixtral under tp and pp
-composed with tp / cp / sp (A13h).  The donation audit and compile
+process count (``checkpointing.py``).
+
+The sharded step's memory and precision recipes: under FULL_SHARD /
+HYBRID_SHARD the forward gathers the weights one unit at a time (the
+embedding, each decoder block, the head: ``parallel/fsdp.py``'s
+:class:`~.parallel.fsdp.UnitGathers`, units named by the loss function's
+model), frees them after the unit (``reshard_after_forward=True``, gathered
+again in the backward) or keeps them until its backward (``False``), and
+reduces each unit's gradient in its backward, bitwise the whole-tree step;
+a step with accumulation or a gradient codec, or a loss function that names
+no units, gathers the whole tree.  ZeRO-offload keeps each rank's ranges on
+the host (the update with the whole leaves' salts, the chunk groups from the
+global shapes, the norm summed over the ranks), and fp8 takes every amax
+of the global tensor (``precision.fp8_amax_over``), so the metas agree on
+every rank.  Off this path, and raising ``NotImplementedError`` with their
+ROADMAP item: quantized and LoRA denses, the LoRA head, the scanned stack
+and cached decoding under tp (A13h.4), Mixtral under tp / cp / sp (A13h.5),
+pp composed with tp / cp / sp (A13h.6).  The donation audit and compile
 counter (``audit_step``, ``compile_events``) have no eager meaning and are
 not ported.
 """
@@ -130,7 +145,14 @@ from .logging import get_logger
 from .ops import fp8 as _fp8
 from .ops import operations as _ops
 from .ops import streaming as _streaming
-from .ops.precision import DynamicLossScale, Policy, all_finite, fp8_autocast, get_policy
+from .ops.precision import (
+    DynamicLossScale,
+    Policy,
+    all_finite,
+    fp8_amax_over,
+    fp8_autocast,
+    get_policy,
+)
 from .ops.stochastic_rounding import GradientTransformation, flax_leaf_order
 from .optimizer import AcceleratedOptimizer, make_optimizer
 from .parallelism_config import ParallelismConfig
@@ -255,7 +277,7 @@ class Accelerator:
                                 f"{type(parallelism_config).__name__}")
             pc = parallelism_config
             if pc.pp_size > 1 and max(pc.tp_size, pc.cp_size, pc.sp_size) > 1:
-                raise _not_ported("pipeline parallelism composed with tp / cp / sp", "A13h")
+                raise _not_ported("pipeline parallelism composed with tp / cp / sp", "A13h.6")
         if fsdp_plugin is not None and not isinstance(fsdp_plugin,
                                                       FullyShardedDataParallelPlugin):
             raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallelPlugin, got "
@@ -846,18 +868,12 @@ class Accelerator:
         plan = None
         if self._parallel:
             from .parallel.fsdp import DataParallelPlan, parallel_align
-
-            if offload_opt:
-                raise _not_ported("cpu_offload under a parallelism config", "A13h")
             from .parallel.sharding import tp_rules_for
 
             pcfg = self.state.parallelism_config
             plan = DataParallelPlan(self.mesh, pcfg, self.fsdp_plugin, params,
                                     align=parallel_align(self.fsdp_plugin),
                                     tp_rules=tp_rules_for(pcfg, self.tp_config))
-            if self.mixed_precision == "fp8" and (plan.world > 1 or plan.tp > 1
-                                                  or plan.ep > 1):
-                raise _not_ported("fp8 delayed scaling across several ranks", "A13h")
             stored = plan.shard_params(params)
             if module is not None:
                 for name, p in module.named_parameters():
@@ -870,13 +886,22 @@ class Accelerator:
             recipe = self.fp8_recipe
             fp8_state = _fp8.init_fp8_state(
                 params, history_len=recipe.amax_history_len if recipe else None,
-                margin=recipe.margin if recipe else None)
+                margin=recipe.margin if recipe else None, plan=plan)
         if offload_opt:
-            # the stored params' compute copies: the given device tensors
+            # the stored params' compute copies: the given device tensors (a
+            # rank's ranges under a plan: no whole leaf crosses)
             self._offload_buffers = {"compute": dict(params), "grads": {}, "params": [],
                                      "fetch": {}}
             host_params = {n: self._to_host(p) for n, p in params.items()}
-            opt_state = tx.init(list(host_params.values()))
+            if plan is None:
+                opt_leaves = list(host_params.values())
+            elif any(lay.relay for lay in plan.layouts.values()):
+                # a relay leaf's range lies over the whole leaf: cut on the card
+                opt_leaves = [self._to_host(t) for t in plan.opt_params(params)]
+            else:
+                opt_leaves = plan.opt_params(host_params)
+            # the optimizer state is made on the host
+            opt_state = tx.init(opt_leaves)
             opt_state = type(opt_state)(*[
                 [self._to_host(t) for t in v] if isinstance(v, list) else v
                 for v in opt_state])
@@ -978,15 +1003,38 @@ class Accelerator:
         gnorm_on_host = offload_opt and max_grad_norm is not None
         # the guard's host reading of the step just run: (skipped, consecutive)
         guard_read: dict = {}
+        # per-unit gathering under a sharding plan (parallel/fsdp.py): the
+        # loss_fn's model names its units; a step with accumulation or a
+        # codec gathers the whole tree
+        units_of = getattr(loss_fn, "fsdp_units", None)
+        reshard = plugin.reshard_after_forward if plugin is not None else True
+        owned_by_plan: dict = {}
+        # which gradients the last compute_grads handed over reduced
+        unit_done: dict = {}
+
+        def owned_leaves() -> frozenset:
+            plan = self._dp_plan
+            if plan is None or units_of is None or codec is not None or accum_steps > 1:
+                return frozenset()
+            if owned_by_plan.get("plan") is not plan:
+                from .parallel.fsdp import owned_leaves as plan_owned
+
+                owned_by_plan.update(plan=plan, owned=frozenset(plan_owned(plan, units_of())))
+            return owned_by_plan["owned"]
 
         def fetch_params(state: TrainState) -> dict:
-            """The params the forward reads: the stored ones (gathered
-            whole under a sharding plan), or under ``offload_params`` their
-            compute-width copies fetched into the device buffers (cast on
-            the host first where the widths differ: only the compute copy
-            crosses)."""
+            """The params the forward reads: the stored ones (gathered whole
+            under a sharding plan, but for the leaves its units gather), or
+            under ``offload_params`` their compute-width copies fetched into
+            the device buffers (cast on the host first where the widths
+            differ: only the compute copy crosses; under a plan a rank's
+            ranges, gathered after)."""
+            params = fetch_compute(state)
             if self._dp_plan is not None:
-                return self._dp_plan.gather_params(state.params)
+                return self._dp_plan.gather_params(params, skip=owned_leaves())
+            return params
+
+        def fetch_compute(state: TrainState) -> dict:
             if offload_opt:
                 self.offload_log = {"h2d_bytes": 0}
             if not offload_params:
@@ -1011,8 +1059,22 @@ class Accelerator:
             self.offload_log["h2d_bytes"] = h2d
             return compute
 
+        def grad_widths(g: torch.Tensor, state: TrainState) -> torch.Tensor:
+            """A gradient in the widths the reduction and the update take."""
+            if comm_dtype is not None:
+                g = g.to(comm_dtype)
+            if not compute_width and (not offload_opt or state.loss_scale is not None
+                                      or self._dp_plan is not None):
+                # f32 on the card; the offloaded step sends the compute width
+                # and widens on the host (fp16 must unscale in f32 first),
+                # but under a plan reduces in f32 as the resident step does
+                # and sends the rank's f32 ranges
+                g = g.float()
+            return g
+
         def compute_grads(state: TrainState, params: dict, batch, rng, weighted: bool = True):
             names = list(params)
+            owned = owned_leaves()
             if compute_width:
                 # differentiate with respect to the compute-width copy: every
                 # gradient is born bf16
@@ -1022,10 +1084,27 @@ class Accelerator:
             else:
                 leaves = [p.detach().requires_grad_() for p in params.values()]
                 p_in = policy.cast_to_compute(dict(zip(names, leaves)))
+            units = None
+            if owned:
+                from .parallel.fsdp import UnitGathers
+
+                # the owned leaves go in as the stored ranges: each unit
+                # gathers (and casts) its own
+                ranges = {n: leaf for n, leaf in zip(names, leaves) if n in owned}
+                p_in.update(ranges)
+                units = UnitGathers(self._dp_plan, ranges, policy.compute_dtype,
+                                    lambda g: grad_widths(g, state), reshard)
             with contextlib.ExitStack() as regions:
                 if use_fp8:
                     regions.enter_context(fp8_autocast())
                     regions.enter_context(_fp8.merge_fp8_collection(state.fp8_state))
+                    if self._dp_plan is not None:
+                        # every amax the fp8 products take is the global
+                        # tensor's (JAX's under GSPMD)
+                        regions.enter_context(fp8_amax_over(self._dp_plan.mesh,
+                                                            self._dp_plan.all_axes))
+                if units is not None:
+                    regions.enter_context(units.active())
                 out = loss_fn(p_in, batch, rng) if wants_rng else loss_fn(p_in, batch)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
@@ -1035,14 +1114,20 @@ class Accelerator:
                 loss = loss * weight
             # the scalar loss lives in f32, so scaling it by 2^16 cannot overflow
             scaled = state.loss_scale.scale_loss(loss) if state.loss_scale is not None else loss
-            grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-            if comm_dtype is not None:
-                grads = [g.to(comm_dtype) for g in grads]
-            if not compute_width and (not offload_opt or state.loss_scale is not None):
-                # f32 on the card; the offloaded step sends the compute width
-                # and widens on the host (fp16 must unscale in f32 first)
-                grads = [g.float() for g in grads]
+            plan = self._dp_plan
+            if plan is not None and plan.virtual:
+                from .parallel.collectives import joint_grad
+
+                grads = joint_grad(scaled, leaves, plan.mesh)
+            else:
+                grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+            grads = [grad_widths(torch.zeros_like(p) if g is None else g, state)
+                     if n not in owned else None
+                     for n, g, p in zip(names, grads, leaves)]
+            unit_done.clear()
+            if units is not None:
+                grads, unit_done["done"] = units.grads(names, grads)
+                units.close()
             if aux is not None:
                 aux = torch.utils._pytree.tree_map(
                     lambda x: x.detach() if isinstance(x, torch.Tensor) else x, aux)
@@ -1071,7 +1156,7 @@ class Accelerator:
                 if reduced:
                     grads = plan.local_grads(grads)
                 else:
-                    grads = plan.reduce_grads(grads)
+                    grads = plan.reduce_grads(grads, done=unit_done.pop("done", None))
                     loss = plan.psum(loss)
                 if grad_scale != 1:
                     grads = [g * grad_scale for g in grads]
@@ -1155,8 +1240,8 @@ class Accelerator:
             # they are.  The fp8 histories tick either way, on the weights
             # the next step reads (JAX :1381-1389)
             if state.fp8_state is not None:
-                state = state.replace(fp8_state=_fp8.update_fp8_state(state.fp8_state,
-                                                                      state.params))
+                state = state.replace(fp8_state=_fp8.update_fp8_state(
+                    state.fp8_state, state.params, plan=self._dp_plan))
             return state.replace(step=state.step + 1), metrics
 
         def microbatches(batch):
@@ -1456,7 +1541,8 @@ class Accelerator:
         gradient is on the host before the global norm is taken there."""
         buf = self._offload_buffers
         n = len(grads)
-        groups = (_streaming.chunk_groups(state.params, chunk_bytes) if chunk_bytes
+        plan = self._dp_plan
+        groups = (_streaming.chunk_groups(self._global_leaves(state), chunk_bytes) if chunk_bytes
                   else [list(range(n))])
         cuda = grads[0].device.type == "cuda"
         log = self.offload_log
@@ -1482,8 +1568,20 @@ class Accelerator:
             t0 = time.perf_counter()
             host = whole.wait_host()
             log["host_wait_ms"] += (time.perf_counter() - t0) * 1e3
-            staged["gnorm"] = global_norm([g.float() for g in host])
+            host = [g.float() for g in host]
+            # under a plan the ranks' squares summed (padding lanes are zero)
+            staged["gnorm"] = (plan.global_norm(host, global_norm) if plan is not None
+                               else global_norm(host))
         return staged
+
+    def _global_leaves(self, state: TrainState):
+        """The train state's leaves at their global shapes (the chunk groups
+        are a numerics contract: the -sr salts are group-relative leaf
+        indices, so a rank's ranges group as JAX's global leaves do)."""
+        plan = self._dp_plan
+        if plan is None:
+            return state.params
+        return [torch.empty(lay.whole_shape, device="meta") for lay in plan.layouts.values()]
 
     def _host_update(self, state: TrainState, staged: dict, max_grad_norm: Optional[float]):
         """The optimizer update on the host, group by group over the staged
@@ -1495,46 +1593,64 @@ class Accelerator:
         Returns the merged optimizer state."""
         buf, log = self._offload_buffers, self.offload_log
         _, offload_params = self._offload_flags()
+        plan = self._dp_plan
         names = list(state.params)
         n = len(names)
         groups = staged["groups"]
         if offload_params:
-            host_p = list(state.params.values())
+            host_p = (plan.opt_params(state.params) if plan is not None
+                      else list(state.params.values()))
         else:
-            host_p = _streaming.stage_put(list(state.params.values()),
-                                          buf["params"]).wait_host()
+            dev_p = (plan.opt_params(state.params) if plan is not None
+                     else list(state.params.values()))
+            host_p = _streaming.stage_put(dev_p, buf["params"]).wait_host()
             log["d2h_bytes"] += sum(p.numel() * p.element_size() for p in host_p)
+        # a range's -sr salts take its whole leaf's size
+        numels = (plan.numels if plan is not None and plan.any_sharded
+                  and "numels" in inspect.signature(state.tx.update).parameters else None)
         clip = None
         if max_grad_norm is not None:
             clip = torch.clamp(max_grad_norm / (staged["gnorm"] + 1e-6), max=1.0)
         whole = staged.get("whole")
         self_widening = isinstance(getattr(state.opt_state, "hyperparams", None), dict)
-        outs = []
-        for gi, idxs in enumerate(groups):
-            t0 = time.perf_counter()
-            if whole is not None:
-                host_g = whole.wait_host()
-                g = [host_g[i] for i in idxs]
-            else:
-                if staged["stages"][gi] is None:
-                    staged["stages"][gi] = _streaming.stage_put(
-                        [staged["grads"][i] for i in idxs], buf["grads"].setdefault(gi, []))
-                g = staged["stages"][gi].wait_host()
-            t1 = time.perf_counter()
-            # the -sr / -sr8 recipes (states with hyperparameters) widen each
-            # gradient themselves, slice by slice; the others take f32
-            g32 = g if clip is None and self_widening else [x.float() for x in g]
-            if clip is not None:
-                g32 = [x * clip for x in g32]
-            sub = _streaming.slice_congruent(state.opt_state, n, idxs)
-            p_sub = [host_p[i] for i in idxs]
-            new_p, new_sub = state.tx.update(g32, sub, p_sub)
-            with torch.no_grad():
-                for p, x in zip(p_sub, new_p):
-                    p.copy_(x)
-            outs.append(new_sub)
-            log["host_wait_ms"] += (t1 - t0) * 1e3
-            log["host_update_ms"] += (time.perf_counter() - t1) * 1e3
+
+        def update_groups() -> list:
+            """Every group's update, in order."""
+            outs = []
+            for gi, idxs in enumerate(groups):
+                t0 = time.perf_counter()
+                if whole is not None:
+                    host_g = whole.wait_host()
+                    g = [host_g[i] for i in idxs]
+                else:
+                    if staged["stages"][gi] is None:
+                        staged["stages"][gi] = _streaming.stage_put(
+                            [staged["grads"][i] for i in idxs],
+                            buf["grads"].setdefault(gi, []))
+                    g = staged["stages"][gi].wait_host()
+                t1 = time.perf_counter()
+                # the -sr / -sr8 recipes (states with hyperparameters) widen
+                # each gradient themselves, slice by slice; the others take f32
+                g32 = g if clip is None and self_widening else [x.float() for x in g]
+                if clip is not None:
+                    g32 = [x * clip for x in g32]
+                sub = _streaming.slice_congruent(state.opt_state, n, idxs)
+                p_sub = [host_p[i] for i in idxs]
+                kw = {"numels": [numels[i] for i in idxs]} if numels is not None else {}
+                new_p, new_sub = state.tx.update(g32, sub, p_sub, **kw)
+                with torch.no_grad():
+                    for p, x in zip(p_sub, new_p):
+                        p.copy_(x)
+                outs.append(new_sub)
+                log["host_wait_ms"] += (t1 - t0) * 1e3
+                log["host_update_ms"] += (time.perf_counter() - t1) * 1e3
+            return outs
+
+        # on a virtual world the ranks' host work runs on the caller's thread
+        # (VirtualMesh.on_caller: a rank thread's CPU ops run several times
+        # slower)
+        outs = (plan.mesh.on_caller(update_groups) if plan is not None and plan.virtual
+                else update_groups())
         stages = [whole] if whole is not None else staged["stages"]
         log["d2h_ms"] = sum(st.copy_ms() for st in stages)
         if log["d2h_ms"] > 0:
@@ -1551,7 +1667,18 @@ class Accelerator:
                     fields.append(old)
                 else:
                     fields.append(new)
-        if not offload_params:
+        if plan is not None:
+            # the new ranges into the stored params: in place where a range
+            # is a view of its stored range, else gathered over the axes the
+            # state splits finer (on the card: the H2D copy first)
+            if offload_params:
+                plan.write_back(state.params, host_p)
+            else:
+                dev = [h.to(self.device, non_blocking=True) for h in host_p]
+                log["h2d_bytes"] = log.get("h2d_bytes", 0) + sum(
+                    p.numel() * p.element_size() for p in dev)
+                plan.write_back(state.params, dev)
+        elif not offload_params:
             with torch.no_grad():
                 for p, h in zip(state.params.values(), host_p):
                     if p is not h:

@@ -820,6 +820,10 @@ class _ShardSnapshot(_TrainStateSnapshot):
         tensors, runs_meta = {}, {}
         for key, (flat, runs) in self.pieces.items():
             parts = [flat[l:l + n] for _, l, n in runs.tolist()]
+            if not parts:
+                # a range of padding only (a leaf smaller than the ranks'
+                # ranges): nothing of it lives here
+                continue
             tensors[key] = parts[0] if len(parts) == 1 else torch.cat(parts)
             runs_meta[key] = pack_runs(runs)
         tensors.update({f"x/{k}": v for k, v in self.local.items()})

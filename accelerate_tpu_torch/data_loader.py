@@ -501,11 +501,16 @@ def batch_rows_by_rank(mesh, spec, shape) -> dict:
 
 def process_local_rows(mesh, spec, shape, process_index: Optional[int] = None) -> slice:
     """The ``[start, stop)`` rows of the global batch that
-    ``process_index`` (this process's rank by default) feeds under
-    ``(mesh, spec)`` (JAX :471)."""
+    ``process_index`` (this process's rank by default; on a virtual mesh,
+    the running rank's) feeds under ``(mesh, spec)`` (JAX :471)."""
     from .state import world
 
-    pid = world()[1] if process_index is None else process_index
+    if process_index is not None:
+        pid = process_index
+    elif getattr(mesh, "is_virtual", False):
+        pid = mesh.rank
+    else:
+        pid = world()[1]
     rows = batch_rows_by_rank(mesh, spec, shape)
     if pid not in rows:
         raise ValueError(f"process {pid} owns no position of the mesh {_layout(mesh)}")

@@ -41,9 +41,11 @@ Mode ``off``: a column dense's output is feature-sharded, a row dense's
 partial sums meet in a ``psum`` over the axis.  Modes ``ring`` /
 ``bidir``: the activations between denses are sequence-sharded over the
 axis, a column dense runs the ring all-gather -> matmul and a row dense
-the ring matmul -> reduce-scatter (``ops/collective_matmul.py``).  A
-quantized, LoRA or fp8 dense under a route raises (fp8 x tp is ROADMAP
-item A13h; JAX's ring takes fake-quantized e4m3 operands).
+the ring matmul -> reduce-scatter (``ops/collective_matmul.py``).  In
+fp8 (:func:`tp_linear`): the rank's slices through the fp8 product at the
+global scales with the ring off, operands fake-quantized through e4m3 into
+the ring with it on (JAX :80-91).  A quantized or LoRA dense under a route
+raises (ROADMAP item A13h.4).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fp8 import fp8_delayed_dot, fp8_meta
+from ..ops.fp8 import fp8_delayed_dot, fp8_fake_quantize, fp8_meta
 from ..ops.lora import lora_apply
 from ..ops.precision import fp8_current_scaled_dot, fp8_enabled
 from ..ops.quantized_matmul import quantized_matmul
@@ -74,10 +76,16 @@ class DenseRoute:
 
 
 def tp_linear(x, weight, kind: str, route: DenseRoute, in_features: int, out_features: int,
-              out_dtype: Optional[torch.dtype] = None):
+              out_dtype: Optional[torch.dtype] = None, fp8: bool = False, meta=None):
     """This rank's product of a ``kind`` ("column" / "row") dense whose
     whole weight is ``[out_features, in_features]`` under ``route``;
-    ``weight`` is the rank's shard or the whole tensor (sliced here)."""
+    ``weight`` is the rank's shard or the whole tensor (sliced here).
+    ``fp8`` (inside ``fp8_autocast``; ``meta`` the layer's delayed-scaling
+    meta, or None for current scaling): with the ring off, the fp8 product
+    of the rank's slices at the global tensors' scales; with the ring on,
+    both operands rounded through e4m3 at their global amax
+    (``fp8_fake_quantize``) and handed to the ring, as JAX's dense does
+    (JAX :80-91)."""
     from ..ops.collective_matmul import dense_collective_matmul, linear, make_collective_dense
     from ..parallel import collectives as C
 
@@ -89,8 +97,10 @@ def tp_linear(x, weight, kind: str, route: DenseRoute, in_features: int, out_fea
     elif kind == "row" and weight.shape[1] == in_features:
         k = in_features // p
         weight = weight[:, i * k:(i + 1) * k]
+    if fp8 and route.mode != "off":
+        x, weight = fp8_fake_quantize(x), fp8_fake_quantize(weight)
     if route.mode == "off":
-        y = linear(x, weight, out_dtype)
+        y = _fp8_linear(x, weight, meta, out_dtype) if fp8 else linear(x, weight, out_dtype)
         return C.psum(y, route.axis, route.mesh) if kind == "row" else y
     y = dense_collective_matmul(x, weight, kind, axis_name=route.axis, out_dtype=out_dtype)
     if y is None:
@@ -99,6 +109,15 @@ def tp_linear(x, weight, kind: str, route: DenseRoute, in_features: int, out_fea
         y = make_collective_dense(route.mesh, route.axis, kind, "monolithic",
                                   out_dtype)(x, weight)
     return y
+
+
+def _fp8_linear(x, weight, meta, out_dtype):
+    """``x @ weight.T`` in fp8: delayed scaling with ``meta``, current
+    scaling without."""
+    pet = out_dtype or x.dtype
+    if meta is not None:
+        return fp8_delayed_dot(x, weight.t(), meta, preferred_element_type=pet)
+    return fp8_current_scaled_dot(x, weight.t(), preferred_element_type=pet)
 
 
 class QuantizableDense(nn.Module):
@@ -141,12 +160,14 @@ class QuantizableDense(nn.Module):
                 route: Optional[DenseRoute] = None) -> torch.Tensor:
         qt = self.quantized
         if route is not None and self.tp_mode is not None:
-            if qt is not None or (adapter_ids is not None and lora) or fp8_enabled():
+            if qt is not None or (adapter_ids is not None and lora):
                 raise NotImplementedError(
-                    "a quantized, LoRA or fp8 dense under tensor / sequence parallelism is not "
-                    "ported yet (ROADMAP item A13h)")
+                    "a quantized or LoRA dense under tensor / sequence parallelism is not "
+                    "ported yet (ROADMAP item A13h.4)")
+            fp8 = fp8_enabled()
             return tp_linear(x.to(self.weight.dtype), self.weight, self.tp_mode, route,
-                             self.in_features, self.out_features)
+                             self.in_features, self.out_features, fp8=fp8,
+                             meta=fp8_meta(self.lora_key) if fp8 else None)
         if qt is not None:
             y = quantized_matmul(x.to(self.dtype), qt, out_dtype=self.dtype)
         elif fp8_enabled():

@@ -845,6 +845,7 @@ class _LlamaModel(nn.Module):
         if cfg.scan_layers:
             bs = cfg.scan_block_size
             n_iter = cfg.num_hidden_layers // bs
+            self.n_iter = n_iter
             self.layers_scan = nn.Module()
             for j in range(bs):
                 self.layers_scan.add_module("block" if bs == 1 else f"block_{j}",
@@ -853,23 +854,30 @@ class _LlamaModel(nn.Module):
             self.layers = nn.ModuleList(block_cls(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
 
-    def layer_calls(self) -> list:
+    def layer_calls(self, units=None) -> list:
         """One callable per layer, in order, each taking a layer's forward
         arguments: the layer modules, or for a scanned stack its block
         module run on the layer's slice of the stacked weights (the slices
         formed once per call, so the backward stacks their gradients
-        once)."""
+        once).  A stacked leaf the sharded step's ``units`` gather per
+        iteration (``parallel/fsdp.py``) stays the stored range, gathered
+        slice by slice at each call."""
         if not hasattr(self, "layers_scan"):
             return list(self.layers)
-        blocks = list(self.layers_scan.children())
         stacks = []
-        for blk in blocks:
+        for bname, blk in self.layers_scan.named_children():
+            prefix = f"model.layers_scan.{bname}."
             names = [n for n, _ in blk.named_parameters()]
-            stacks.append((blk, names, [_get_path(blk, n).unbind(0) for n in names]))
+            owned = [units is not None and units.owns(prefix + n) for n in names]
+            stacks.append((blk, prefix, names, owned,
+                           [_get_path(blk, n) if o else _get_path(blk, n).unbind(0)
+                            for n, o in zip(names, owned)]))
         calls = []
-        for it in range(len(stacks[0][2][0])):
-            for blk, names, slices in stacks:
-                calls.append(_ScanSlice(blk, names, [sl[it] for sl in slices]))
+        for it in range(self.n_iter):
+            for blk, prefix, names, owned, slices in stacks:
+                calls.append(_ScanSlice(blk, names, [sl if o else sl[it]
+                                                     for sl, o in zip(slices, owned)],
+                                        prefix, it))
         return calls
 
 
@@ -881,10 +889,13 @@ def _get_path(module: nn.Module, name: str):
 
 class _ScanSlice:
     """A scanned block's forward on one iteration's slice of its stacked
-    weights (``torch.func.functional_call``)."""
+    weights (``torch.func.functional_call``); ``prefix`` and ``iteration``
+    name the train-state leaves the slices come from."""
 
-    def __init__(self, block: nn.Module, names: list, tensors: list):
+    def __init__(self, block: nn.Module, names: list, tensors: list, prefix: str = "",
+                 iteration: Optional[int] = None):
         self.block, self.names, self.tensors = block, names, tensors
+        self.prefix, self.iteration = prefix, iteration
 
     def params(self) -> list:
         return self.tensors
@@ -912,6 +923,43 @@ def _rebind(layer, names, tensors):
     if isinstance(layer, _ScanSlice):
         return layer.with_params(tensors)
     return _ScanSlice(layer, names, list(tensors))
+
+
+def _active_units():
+    from ..parallel.fsdp import active_units
+
+    return active_units()
+
+
+def _unit(names, tensors, iteration=None, units=None) -> list:
+    """``parallel.fsdp.unit_weights``: the sharded step's per-unit gather
+    of these train-state leaves (the tensors themselves outside one)."""
+    from ..parallel.fsdp import unit_weights
+
+    return unit_weights(names, tensors, iteration, units)
+
+
+def _gathered(layer, prefix: str, units):
+    """``layer`` run on its weights as the sharded step gathers them (one
+    unit)."""
+    names, tensors = _layer_params(layer)
+    full = _unit([prefix + n for n in names], tensors, getattr(layer, "iteration", None), units)
+    return _rebind(layer, names, full)
+
+
+def _layer_prefix(layer, i: int) -> str:
+    """The train-state name prefix of layer call ``i``'s weights."""
+    return layer.prefix if isinstance(layer, _ScanSlice) else f"model.layers.{i}."
+
+
+def _bound_shape(name: str, t: torch.Tensor) -> tuple:
+    """The shape of leaf ``name`` the forward computes with: the stored
+    range's layout under the sharded step's per-unit gathers, else
+    ``t``'s."""
+    units = _active_units()
+    if units is not None and units.owns(name):
+        return tuple(units.plan.layouts[name].shape)
+    return tuple(t.shape)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -1094,16 +1142,22 @@ class LlamaForCausalLM(nn.Module):
 
         cfg = self.config
         args = (positions, self.rope_cos, self.rope_sin)
+        # the sharded step's per-unit gathers: the weights go in as the
+        # rank's ranges and each call gathers them, so the recompute gathers
+        # them again
+        units = _active_units()
         if cfg.remat_policy in ("full", "dots"):
             extra = ({} if cfg.remat_policy == "full" else {"context_fn": functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy)})
-            for layer in layers:
+            for i, layer in enumerate(layers):
                 # the weights go in as inputs: the recompute runs at the
                 # backward, after a surrounding functional_call has put the
                 # module's own tensors back
                 names, weights = _layer_params(layer)
+                full = [_layer_prefix(layer, i) + n for n in names]
 
-                def call(h, *ws, layer=layer, names=names):
+                def call(h, *ws, layer=layer, names=names, full=full):
+                    ws = _unit(full, ws, getattr(layer, "iteration", None), units)
                     return _rebind(layer, names, ws)(h, *args, **kw)
 
                 x = checkpoint(call, x, *weights, use_reentrant=False, **extra)
@@ -1113,11 +1167,14 @@ class LlamaForCausalLM(nn.Module):
         for start in range(0, len(layers), bs):
             group = layers[start:start + bs]
             named = [_layer_params(layer) for layer in group]
+            prefixes = [_layer_prefix(layer, start + j) for j, layer in enumerate(group)]
 
-            def body(h, weights, group=group, named=named):
+            def body(h, weights, group=group, named=named, prefixes=prefixes):
                 it = iter(weights)
-                for layer, (names, _) in zip(group, named):
-                    call = _rebind(layer, names, [next(it) for _ in names])
+                for layer, (names, _), prefix in zip(group, named, prefixes):
+                    ws = _unit([prefix + n for n in names], [next(it) for _ in names],
+                               getattr(layer, "iteration", None), units)
+                    call = _rebind(layer, names, ws)
                     if len(group) > 1:
                         h = checkpoint(call, h, *args, use_reentrant=False, **kw)
                     else:
@@ -1133,11 +1190,15 @@ class LlamaForCausalLM(nn.Module):
         plan) rather than whole weights."""
         cfg = self.config
         scan = hasattr(self.model, "layers_scan")
-        block = next(iter(self.model.layers_scan.children())) if scan else self.model.layers[0]
+        bname, block = (next(iter(self.model.layers_scan.named_children())) if scan
+                        else ("0", self.model.layers[0]))
         weight = block.self_attn.q_proj.weight
         if weight is None:      # quantized: whole codes, never a tp slice
             return False
-        return weight.shape[1 if scan else 0] != cfg.num_attention_heads * cfg.head_dim
+        name = (f"model.layers_scan.{bname}" if scan else "model.layers.0") + \
+            ".self_attn.q_proj.weight"
+        return _bound_shape(name, weight)[1 if scan else 0] != (cfg.num_attention_heads
+                                                                  * cfg.head_dim)
 
     def parallel_forward(self, t_local: int, impl: str) -> Optional[ParallelForward]:
         """How an uncached forward of ``t_local`` tokens a rank lies over the
@@ -1160,7 +1221,7 @@ class LlamaForCausalLM(nn.Module):
                              f"got {impl!r}")
         if tp > 1 and hasattr(self.model, "layers_scan"):
             raise NotImplementedError("scan_layers under tensor parallelism is not ported yet "
-                                      "(ROADMAP item A13h)")
+                                      "(ROADMAP item A13h.4)")
         mode = collective_matmul_mode()
         if tp == 1 or t_local % tp or t_local < tp:
             mode = "off"
@@ -1179,9 +1240,10 @@ class LlamaForCausalLM(nn.Module):
         table's rows) or, replicated, sliced to the rank's tokens in the
         sequence-sharded layout."""
         emb = self.model.embed_tokens
+        w = _unit(["model.embed_tokens.weight"], [emb.weight])[0]
         if par is None or par.tp == 1:
-            return emb(input_ids)
-        w = emb.weight
+            return emb(input_ids) if w is emb.weight else torch.nn.functional.embedding(
+                input_ids, w)
         if w.shape[0] != self.config.vocab_size:
             rows = w.shape[0]
             local = input_ids - par.tp_rank * rows
@@ -1194,10 +1256,39 @@ class LlamaForCausalLM(nn.Module):
         if par.seq_sharded:
             e = torch.nn.functional.embedding(input_ids, C.pbroadcast(w, "tp", par.mesh))
             return torch.chunk(e, par.tp, dim=1)[par.tp_rank]
-        return emb(input_ids)
+        return emb(input_ids) if w is emb.weight else torch.nn.functional.embedding(input_ids, w)
+
+    @property
+    def head_name(self) -> str:
+        """The train-state name of the head's weight (the embedding's when
+        they are tied)."""
+        return "model.embed_tokens.weight" if self.config.tie_word_embeddings else "lm_head.weight"
+
+    def fsdp_units(self) -> list:
+        """The units the sharded step gathers one at a time, as lists of
+        train-state names: the embedding, each decoder block (each block
+        of the scanned stack, gathered iteration by iteration), the final
+        norm and the head (``parallel/fsdp.py``)."""
+        canon = {id(p): n for n, p in self.named_parameters()}
+
+        def names(mod):
+            return [canon[id(p)] for p in mod.parameters()]
+
+        blocks = (list(self.model.layers_scan.children()) if hasattr(self.model, "layers_scan")
+                  else list(self.model.layers))
+        return ([names(self.model.embed_tokens)] + [names(b) for b in blocks]
+                + [names(self.model.norm), names(self.lm_head)])
+
+    def _head(self):
+        """The head module on its weight as the sharded step gathers it,
+        and that weight."""
+        w = _unit([self.head_name], [self.lm_head.weight])[0]
+        head = self.lm_head if w is self.lm_head.weight else _rebind(self.lm_head, ["weight"],
+                                                                    [w])
+        return head, w
 
     def _head_sharded(self) -> bool:
-        return self.lm_head.weight.shape[0] != self.config.vocab_size
+        return _bound_shape(self.head_name, self.lm_head.weight)[0] != self.config.vocab_size
 
     def _hidden_out(self, x, par: Optional[ParallelForward]):
         """The final-norm states under tp, whole over the rank's sequence:
@@ -1215,16 +1306,19 @@ class LlamaForCausalLM(nn.Module):
         """f32 logits ``[B, T, V]``; under tp the head is column-parallel
         over the vocabulary (the ring gathers the sequence inside its
         product, JAX :738-757) and the shards are gathered whole."""
+        head, w = self._head()
         if par is None or par.tp == 1:
-            return self.lm_head(x, adapter_ids, lora)
+            return head(x, adapter_ids, lora)
         if not self._head_sharded():
-            return self.lm_head(self._hidden_out(x, par), adapter_ids, lora)
-        if (adapter_ids is not None and lora) or fp8_enabled():
-            raise NotImplementedError("a LoRA or fp8 head under tensor parallelism is not "
-                                      "ported yet (ROADMAP item A13h)")
+            return head(self._hidden_out(x, par), adapter_ids, lora)
+        if adapter_ids is not None and lora:
+            raise NotImplementedError("a LoRA head under tensor parallelism is not ported yet "
+                                      "(ROADMAP item A13h.4)")
         cfg = self.config
-        logits = tp_linear(par.tp_input(x), self.lm_head.weight, "column", par.tp_route(),
-                           cfg.hidden_size, cfg.vocab_size, out_dtype=torch.float32)
+        logits = tp_linear(par.tp_input(x), w, "column", par.tp_route(),
+                           cfg.hidden_size, cfg.vocab_size, out_dtype=torch.float32,
+                           fp8=fp8_enabled(), meta=fp8_meta(self.lm_head.lora_key)
+                           if fp8_enabled() else None)
         return C.all_gather_invariant(logits.contiguous(), "tp", axis=logits.dim() - 1,
                                       mesh=par.mesh)
 
@@ -1238,7 +1332,7 @@ class LlamaForCausalLM(nn.Module):
             par = self.parallel_forward(t, impl)
         elif self._tp_sharded():
             raise NotImplementedError("cached decoding on tensor-parallel shards is not ported "
-                                      "yet (ROADMAP item A13h)")
+                                      "yet (ROADMAP item A13h.4)")
         if positions is None and par is not None and par.sp > 1:
             # this rank's contiguous slice: rotary embeddings at the tokens'
             # global positions
@@ -1274,7 +1368,8 @@ class LlamaForCausalLM(nn.Module):
                 "scan_layers=False")
         x = self._embed(input_ids, par)
         new_cache = [] if cache is not None else None
-        layers = self.model.layer_calls()
+        units = _active_units() if cache is None else None
+        layers = self.model.layer_calls(units)
         if cache is None and cfg.remat and torch.is_grad_enabled():
             x = self._remat_stack(layers, x, positions, dict(
                 attn_implementation=attn_implementation, segment_ids=segment_ids,
@@ -1287,10 +1382,14 @@ class LlamaForCausalLM(nn.Module):
                                        attn_implementation, adapter_ids=adapter_ids, lora=lora)
                 new_cache.append(layer_cache)
             else:
+                if units is not None:
+                    layer = _gathered(layer, _layer_prefix(layer, i), units)
                 x = layer(x, positions, self.rope_cos, self.rope_sin,
                           attn_implementation=attn_implementation, segment_ids=segment_ids,
                           adapter_ids=adapter_ids, lora=lora, par=par)
-        x = self.model.norm(x, par)
+        norm = self.model.norm
+        w = _unit(["model.norm.weight"], [norm.weight])[0]
+        x = norm(x, par) if w is norm.weight else _rebind(norm, ["weight"], [w])(x, par)
         if output_hidden:
             return (x, new_cache) if cache is not None else self._hidden_out(x, par)
         if cache is not None:
@@ -1359,6 +1458,7 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
                 return causal_lm_loss(logits, batch["shift_labels"], shifted=True)
             return causal_lm_loss(logits, batch["labels"])
 
+        loss_fn.fsdp_units = model.fsdp_units
         return loss_fn
 
     from ..ops.fused_xent import fused_causal_lm_loss
@@ -1370,7 +1470,7 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
         hidden = _apply(model, params, batch["input_ids"],
                         segment_ids=batch.get("segment_ids"), output_hidden=True)
         head = (params if params is not None else dict(model.named_parameters()))
-        weight = head["lm_head.weight"].to(cfg.dtype)  # [V, H]
+        weight = _unit([model.head_name], [head[model.head_name]])[0].to(cfg.dtype)  # [V, H]
         shifted = "shift_labels" in batch
         if weight.shape[0] != cfg.vocab_size:
             from ..ops.fused_xent import vocab_parallel_causal_lm_loss
@@ -1387,6 +1487,7 @@ def make_llama_loss_fn(model: LlamaForCausalLM, fused_vocab_chunks: Optional[int
             vocab_major=True, num_chunks=fused_vocab_chunks, shifted=shifted,
         )
 
+    fused_loss_fn.fsdp_units = model.fsdp_units
     return fused_loss_fn
 
 

@@ -23,7 +23,7 @@ SwiGLU experts.
   reduce-scattered back), every rank routes all tokens alike (the
   capacity and the queue order of the whole batch) and dispatches its own
   rows.  Mixtral under tp, cp or sp, and its cached decoding under such a
-  mesh, are not ported (ROADMAP A13h).
+  mesh, are not ported (ROADMAP A13h.5).
 
 JAX ``sow``s each layer's router losses into the ``intermediates``
 collection; here :func:`collect_router_losses` opens a collector for the
@@ -271,7 +271,7 @@ class MixtralForCausalLM(LlamaForCausalLM):
         split = [a for a in ("tp", "cp", "sp") if sizes.get(a, 1) > 1]
         if split:
             raise NotImplementedError(f"Mixtral under {' / '.join(split)} is not ported yet "
-                                      "(ROADMAP item A13h)")
+                                      "(ROADMAP item A13h.5)")
         return super().parallel_forward(t_local, impl)
 
     def forward(self, input_ids, *args, cache=None, **kwargs):
@@ -279,7 +279,7 @@ class MixtralForCausalLM(LlamaForCausalLM):
 
         if cache is not None and batch_axes(ambient_mesh()[0]):
             raise NotImplementedError("cached Mixtral decoding over several data-parallel "
-                                      "ranks is not ported yet (ROADMAP item A13h)")
+                                      "ranks is not ported yet (ROADMAP item A13h.5)")
         return super().forward(input_ids, *args, cache=cache, **kwargs)
 
 
@@ -304,6 +304,7 @@ def make_mixtral_loss_fn(model: MixtralForCausalLM):
             loss = loss + cfg.router_z_loss_coef * torch.stack(sown["router_z_loss"]).mean()
         return loss
 
+    loss_fn.fsdp_units = model.fsdp_units
     return loss_fn
 
 

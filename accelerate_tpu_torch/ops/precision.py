@@ -271,10 +271,11 @@ def fp8_dot(x, w, x_meta: Fp8Meta, w_meta: Fp8Meta, preferred_element_type=torch
 
 def fp8_current_scaled_dot(x, w, preferred_element_type=torch.bfloat16):
     """Stateless fp8 product with current-step scaling (JAX :265): each
-    operand's scale is ``448 / max(|t|, 1e-12)``; the backward is the bf16
+    operand's scale is ``448 / max(|t|, 1e-12)`` (the global tensor's amax
+    under :func:`fp8_amax_over`); the backward is the bf16
     straight-through one.  ``w`` is ``[K, N]``."""
-    x_scale = _over(E4M3_MAX, torch.clamp_min(_amax(x), 1e-12))
-    w_scale = _over(E4M3_MAX, torch.clamp_min(_amax(w), 1e-12))
+    x_scale = _over(E4M3_MAX, torch.clamp_min(global_amax(x), 1e-12))
+    w_scale = _over(E4M3_MAX, torch.clamp_min(global_amax(w), 1e-12))
     return _Fp8Matmul.apply(x, w, x_scale, w_scale, preferred_element_type)
 
 
@@ -298,6 +299,38 @@ def fp8_autocast(enabled: bool = True):
 
 def fp8_enabled() -> bool:
     return getattr(_FP8_STATE, "enabled", False)
+
+
+@contextlib.contextmanager
+def fp8_amax_over(mesh, axes):
+    """Inside, every amax fp8 takes (an activation's, a gradient's, a
+    weight's fake quantization) is the global tensor's: this rank's part's
+    amax maxed over the mesh ``axes`` (the train step under a sharding plan:
+    JAX takes every amax of a global array under GSPMD).  No axes, no
+    change."""
+    prev = getattr(_FP8_STATE, "amax_axes", None)
+    _FP8_STATE.amax_axes = (mesh, tuple(axes)) if axes else None
+    try:
+        yield
+    finally:
+        _FP8_STATE.amax_axes = prev
+
+
+def amax_axes():
+    """``(mesh, axes)`` of the enclosing :func:`fp8_amax_over`, or None."""
+    return getattr(_FP8_STATE, "amax_axes", None)
+
+
+def global_amax(x: torch.Tensor) -> torch.Tensor:
+    """The amax of the global tensor whose part this rank holds as ``x``
+    (:func:`_amax` of ``x`` itself outside :func:`fp8_amax_over`)."""
+    a = _amax(x)
+    over = amax_axes()
+    if over is None:
+        return a
+    from ..parallel import collectives
+
+    return collectives.pmax(a, over[1], over[0])
 
 
 def layerwise_casting(params, storage_dtype=torch.float8_e4m3fn, compute_dtype=torch.bfloat16,

@@ -489,6 +489,17 @@ def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, tiled: bool
     return _all_to_all(x, axis_name, split_axis, concat_axis, tiled, mesh)
 
 
+def joint_grad(output, inputs, mesh=None):
+    """``torch.autograd.grad(output, inputs, allow_unused=True)`` for this
+    rank.  On a virtual mesh every rank's graph meets the others' in the
+    in-memory collectives, so the last rank to ask differentiates every
+    rank's output at once (:class:`~.virtual.VirtualMesh`)."""
+    mesh = _mesh(mesh)
+    if _virtual(mesh):
+        return mesh.collective("grad", (output, list(inputs)), tuple(mesh.mesh_dim_names))
+    return list(torch.autograd.grad(output, list(inputs), allow_unused=True))
+
+
 def broadcast_from(x, axis_name: str, src: int = 0, mesh=None):
     """The ``src`` coordinate's shard on every rank of the dimension."""
     import torch.distributed as dist

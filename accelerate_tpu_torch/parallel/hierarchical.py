@@ -244,10 +244,12 @@ class CollectiveRecord:
         self.rows: list = []
         self._lock = threading.Lock()
 
-    def add(self, kind: str, axes: tuple, x: torch.Tensor, mesh) -> None:
-        if getattr(mesh, "is_virtual", False):
+    def add(self, kind: str, axes: tuple, x: torch.Tensor, mesh, rank=None) -> None:
+        """One collective of ``rank`` (the calling rank's by default: a
+        virtual mesh's running rank, else this process's)."""
+        if rank is None and getattr(mesh, "is_virtual", False):
             rank = mesh.rank
-        else:
+        elif rank is None:
             from ..state import world
 
             rank = world()[1]

@@ -207,7 +207,7 @@ class PipelinedModel:
         sizes = C.mesh_sizes(self.mesh)
         if any(sizes.get(a, 1) > 1 for a in ("tp", "cp", "sp")):
             raise NotImplementedError("pipeline parallelism composed with tp / cp / sp is not "
-                                      "ported yet (ROADMAP item A13h)")
+                                      "ported yet (ROADMAP item A13h.6)")
         self.axis_name = axis_name
         self.num_microbatches = num_microbatches
         # the config's activation checkpointing unless overridden: a

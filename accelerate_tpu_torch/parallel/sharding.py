@@ -330,12 +330,12 @@ def tp_split_dim(spec, axis: str = "tp") -> Optional[int]:
 def model_split(spec, sizes: dict) -> tuple[Optional[str], Optional[int]]:
     """``(axis, dimension)`` of the model axis (``tp`` or ``ep``, the
     first of more than one rank) a spec splits a leaf over, or ``(None,
-    None)``.  A leaf split over both is not ported (ROADMAP A13h)."""
+    None)``.  A leaf split over both is not ported (ROADMAP A13h.5)."""
     found = [(a, tp_split_dim(spec, a)) for a in MODEL_AXES
              if sizes.get(a, 1) > 1 and tp_split_dim(spec, a) is not None]
     if len(found) > 1:
         raise NotImplementedError("a leaf split over both tp and ep is not ported yet "
-                                  "(ROADMAP item A13h)")
+                                  "(ROADMAP item A13h.5)")
     return found[0] if found else (None, None)
 
 

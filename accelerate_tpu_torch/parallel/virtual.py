@@ -21,11 +21,23 @@ all the ranks' tensors at once.  The backward then runs in one call
 (``torch.autograd.backward`` on every rank's loss, from any thread): it
 calls no collective, so nothing waits on another rank.  Ranks' tensors
 are never shared: each rank receives tensors of its own.
+
+A rank's train step (``Accelerator.prepare_train_step`` inside
+:meth:`VirtualMesh.run`) reaches that one backward through
+``collectives.joint_grad``: the last rank to ask runs
+``torch.autograd.grad`` over every rank's loss and leaves at once and hands
+each rank its gradients.  Work a gang does inside the backward (the
+sharded step's per-unit gathers, ``parallel/fsdp.py``) is done there in
+memory: ``unit_gather`` hands each rank the gathered tensor with the
+group's inputs, from which a backward re-gather rebuilds it, and
+:attr:`VirtualMesh.deposits` collects each rank's gradient of a unit until
+every rank's is in, then reduces them in the ranks' order.
 """
 
 from __future__ import annotations
 
 import copy
+import queue
 import threading
 from typing import Callable, Optional
 
@@ -118,6 +130,19 @@ def _exchange(kind: str, xs: list, kw: dict) -> list:
         if kw["tiled"]:
             return [torch.cat(xs, dim=axis) for _ in xs]
         return [torch.stack(xs, dim=axis) for _ in xs]
+    if kind == "call":
+        return kw["fn"](xs)
+    if kind == "unit_gather":
+        return [(torch.cat(xs), list(xs)) for _ in xs]
+    if kind == "grad":
+        losses = [x[0] for x in xs]
+        leaves = [t for x in xs for t in x[1]]
+        got = torch.autograd.grad(losses, leaves, allow_unused=True)
+        out, start = [], 0
+        for x in xs:
+            out.append(list(got[start:start + len(x[1])]))
+            start += len(x[1])
+        return out
     if kind == "all_gather_invariant":
         if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
             return list(_GatherInvariant.apply(kw["axis"], *xs))
@@ -159,6 +184,10 @@ class VirtualMesh:
         self._results: dict = {}
         self._error: Optional[BaseException] = None
         self.calls: dict = {}   # collective kind -> calls per rank, last run
+        # the backward's unit gradients awaiting every rank's (parallel/fsdp.py)
+        self.deposits: dict = {}
+        self.in_backward = False   # the joint backward is running
+        self._tasks: Optional[queue.Queue] = None   # on_caller's, while run runs
 
     # -- the DeviceMesh surface ------------------------------------------------
 
@@ -220,11 +249,29 @@ class VirtualMesh:
             if r in done:
                 continue
             _, _, members = self._group_of(r, names)
-            got = _exchange(kind, [self._pending[m][1] for m in members], kw)
+            self.in_backward = kind == "grad"
+            try:
+                got = _exchange(kind, [self._pending[m][1] for m in members], kw)
+            finally:
+                self.in_backward = False
             for m, t in zip(members, got):
                 out[m] = t
             done.update(members)
         return out
+
+    def on_caller(self, task: Callable[[], object]):
+        """``task()`` run on the thread that called :meth:`run` while this
+        rank waits (called outside a rank, run here): host work that wants
+        the CPU's cores (the ZeRO-offload host update), where a rank's thread
+        runs its CPU ops on one core (:meth:`run`)."""
+        if getattr(self._local, "rank", None) is None or self._tasks is None:
+            return task()
+        box = {"done": threading.Event()}
+        self._tasks.put((task, box))
+        box["done"].wait()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
 
     def _wait_turn(self, r: int) -> None:
         self._cv.wait_for(lambda: self._turn == r or self._error is not None)
@@ -240,7 +287,7 @@ class VirtualMesh:
 
         results: list = [None] * self.size
         self._turn, self._pending, self._results, self._error = 0, {}, {}, None
-        self.calls = {}
+        self.calls, self.deposits = {}, {}
         grad = torch.is_grad_enabled()
         # each rank's thread works on the caller's card with its context
         # current: a kernel library launched from a thread that has run no
@@ -248,8 +295,16 @@ class VirtualMesh:
         device = (torch.cuda.current_device()
                   if torch.cuda.is_available() and torch.cuda.is_initialized() else None)
 
+        # a rank's CPU ops run on one core: each thread that parallelises a
+        # CPU op masters an OpenMP team of its own, and the ranks' idle teams
+        # slow every other team's ops several times over; the caller's own
+        # count comes back after the run (host work that wants the cores runs
+        # on the caller: on_caller)
+        threads_before = torch.get_num_threads()
+
         def worker(r):
             self._local.rank = r
+            torch.set_num_threads(1)
             try:
                 if device is not None:
                     torch.cuda.set_device(device)
@@ -268,14 +323,28 @@ class VirtualMesh:
 
         saved = dict(state._AMBIENT)
         state._AMBIENT.update(mesh=self, config=config)
+        self._tasks = queue.Queue()
         try:
             threads = [threading.Thread(target=worker, args=(r,), daemon=True)
                        for r in range(self.size)]
             for t in threads:
                 t.start()
+            # the caller's thread runs what the ranks hand it (on_caller)
+            while any(t.is_alive() for t in threads):
+                try:
+                    task, box = self._tasks.get(timeout=0.01)
+                except queue.Empty:
+                    continue
+                try:
+                    box["result"] = task()
+                except BaseException as exc:   # handed back to the rank
+                    box["error"] = exc
+                box["done"].set()
             for t in threads:
                 t.join()
         finally:
+            self._tasks = None
+            torch.set_num_threads(threads_before)
             state._AMBIENT.clear()
             state._AMBIENT.update(saved)
         if self._error is not None:

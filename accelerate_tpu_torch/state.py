@@ -321,7 +321,9 @@ class AcceleratorState(PartialState):
     falls back to bf16, JAX :356-372) and the parallelism config with its
     mesh (JAX :417): validated against the world's size at construction;
     ``PARALLELISM_CONFIG_*`` in the environment supplies one when none is
-    given."""
+    given.  Built inside ``parallel.virtual.VirtualMesh.run`` with a
+    config, the state is that rank's of the virtual world: its mesh is the
+    virtual mesh, validated against its size."""
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None,
                  parallelism_config=None,
@@ -335,9 +337,14 @@ class AcceleratorState(PartialState):
             )
         if parallelism_config is None and os.environ.get("PARALLELISM_CONFIG_DP_SHARD_SIZE"):
             parallelism_config = ParallelismConfig.from_env()
+        # built inside parallel/virtual.VirtualMesh.run: that virtual world's
+        # rank, on the running rank's mesh
+        ambient = _AMBIENT["mesh"]
+        virtual = (ambient if parallelism_config is not None
+                   and getattr(ambient, "is_virtual", False) else None)
         super().__init__(cpu=cpu, device=device,
                          init_process_group_kwargs=init_process_group_kwargs,
-                         world_of_one=parallelism_config is not None)
+                         world_of_one=parallelism_config is not None and virtual is None)
         if mp == "fp8" and not (self.device.type == "cuda" and fp8_hardware_supported()):
             if parse_flag_from_env("ACCELERATE_FP8_FALLBACK_BF16"):
                 logger.warning(
@@ -353,9 +360,10 @@ class AcceleratorState(PartialState):
         get_policy(mp)
         self.mixed_precision = mp
         if parallelism_config is not None:
-            parallelism_config._validate(self.num_processes)
+            parallelism_config._validate(virtual.size if virtual is not None
+                                         else self.num_processes)
         self.parallelism_config = parallelism_config
-        self._mesh = None
+        self._mesh = virtual
         global _accelerator_state_built
         _accelerator_state_built = True
 

@@ -213,13 +213,21 @@ class FullyShardedDataParallelPlugin:
       across the data-parallel ranks (:class:`ShardingStrategy`; default
       env ``FSDP_SHARDING_STRATEGY`` or FULL_SHARD), read under a
       parallelism config (``parallel/sharding.py``);
-    - ``min_weight_size``: leaves of fewer elements stay replicated.
+    - ``min_weight_size``: leaves of fewer elements stay replicated;
+    - ``reshard_after_forward``: under FULL_SHARD / HYBRID_SHARD the
+      forward gathers each unit's weights (an embedding, a decoder block,
+      the head) just before the unit and frees them after it, and the
+      backward gathers them again (``True``, ZeRO-3, JAX's default); with
+      ``False`` a unit's gathered weights stay until its backward.  Either
+      way each unit's gradient is reduced in its backward
+      (``parallel/fsdp.py``).  No effect where the parameters are whole.
 
     ``collective_matmul`` other than ``"off"`` needs a tensor-parallel
     mesh: the Accelerator raises for it (ROADMAP A13).  Activation
     checkpointing is ``LlamaConfig.remat``."""
 
     sharding_strategy: Optional[ShardingStrategy] = None
+    reshard_after_forward: bool = True
     min_weight_size: int = 2**12
     cpu_offload: Optional[bool] = None
     offload_params: Optional[bool] = None

@@ -8,8 +8,8 @@ The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
 ``train_resume``: 6a and its recovery ladder; ``memory_recipes``: 6b; ``lora_train``: 6c;
 ``examples``: 6d; ``parallel``: 6e; ``moe``: 6f; ``fleet_fabric``: 6g;
-``sharded_ckpt``: 6h) and prints the kernels line for the kernels they
-reached.
+``sharded_ckpt``: 6h; ``sharded_recipes``: 6i) and prints the kernels line
+for the kernels they reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -385,6 +385,21 @@ reached.
    byte for byte ``save_model`` of the params, and one more step on the
    restored process bitwise the step on the state (loss and params, #1-#3
    held to plain); save and restore ms and GB/s per rank;
+6i. the sharded step's memory and precision recipes
+   (``sharded_recipes_phase``): the 600m at full widths and depth over a
+   virtual world of 4, FULL_SHARD, one row of 2048 a rank, bf16
+   gradients: (a) ``reshard_after_forward`` True and False and the
+   whole-tree step, 2 lion-sr8 steps each (the first counted: 64 launches
+   each of #1-#3; the second held to plain), the memory each step adds
+   after the forward and at its peak, step ms, all three bitwise; (b)
+   ZeRO-offload of each rank's ranges: a monolithic step bitwise the
+   resident plan step and a chunked pipelined one, each rank's D2H / H2D
+   bytes equal to ``offload_transfer_accounting`` of its ranges, its host
+   ms; (c) fp8 under dp 4 and tp 2 x dp_shard 2, one step each beside
+   bf16: the metas bitwise equal on every rank, every ``_scaled_mm``
+   product of a second step held to plain (1e-3 of each row's largest sum
+   of |terms|, its error against the row's largest value reported),
+   tokens/s;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
@@ -398,7 +413,9 @@ reached.
    PowerSGD steps (``parallel_powersgd``) of step 6e, the ``moe``
    step and ep pass of step 6f, the fabric's roles of step 6g
    (``fleet_fabric_prefill``, ``fleet_fabric_decode``) and the first
-   step of 6h (``sharded_ckpt``); #1-#3's ``cases`` and ``f16`` hold
+   step of 6h (``sharded_ckpt``), 6i's first per-unit step
+   (``sharded_recipes``) and its bf16 / fp8 steps
+   (``sharded_recipes_{bf16,fp8}_{dp4,tp2_dp2}``); #1-#3's ``cases`` and ``f16`` hold
    their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
@@ -7126,9 +7143,257 @@ def sharded_ckpt_phase(torch, fa, card: str, device: str = "cuda") -> dict:
     return out
 
 
+RECIPES_6I = dict(ranks=4, steps=2, optimizer="lion-sr8", modes=("True", "False", "whole"))
+
+
+def _recipe_world(torch, pcfg, start, replicas, *, plugin, mixed_precision="bf16",
+                  wrap=None, device="cuda"):
+    """Every rank of a virtual world of ``pcfg``: its Accelerator (bf16
+    gradients, the 600m recipe), train state over ``start`` and prepared
+    step, each rank's loss on its own module replica (``wrap`` applied)."""
+    from accelerate_tpu_torch import Accelerator, GradSyncKwargs, make_llama_loss_fn
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+
+    mesh = VirtualMesh(*pcfg.mesh_layout(RECIPES_6I["ranks"]))
+
+    def make(r):
+        acc = Accelerator(mixed_precision=mixed_precision, device=device,
+                          parallelism_config=pcfg, fsdp_plugin=plugin,
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+        state = acc.create_train_state({n: p.clone() for n, p in start.items()},
+                                       RECIPES_6I["optimizer"])
+        loss_fn = make_llama_loss_fn(replicas[r], fused_vocab_chunks=TRAIN["ce_chunks"])
+        return [acc, state, acc.prepare_train_step(wrap(loss_fn) if wrap else loss_fn)]
+
+    return mesh, mesh.run(make, pcfg)
+
+
+def _recipe_step(torch, mesh, pcfg, ranks, ids) -> tuple[list, float]:
+    """One step of every rank on its rows of ``ids``: the ranks' metrics
+    and the step's ms (host clock to a device sync)."""
+    from accelerate_tpu_torch.data_loader import shard_global_batch
+
+    def one(r):
+        acc, state, step = ranks[r]
+        local = shard_global_batch(ids, acc.mesh, pcfg.batch_spec(seq_axis=None, ndim=2))
+        ranks[r][1], m = step(state, {"input_ids": local, "labels": local})
+        return m
+
+    sync(torch)
+    t0 = time.perf_counter()
+    metrics = mesh.run(one, pcfg)
+    sync(torch)
+    return metrics, 1e3 * (time.perf_counter() - t0)
+
+
+def _rank_snapshot(state) -> list:
+    return [p.detach().to("cpu", copy=True) for p in state.params.values()] + \
+        [t.detach().to("cpu", copy=True) for t in opt_tensors(state)]
+
+
+def sharded_recipes_phase(torch, fa, card: str, device: str = "cuda") -> dict:
+    """(6i) the sharded step's memory and precision recipes on the 600m at
+    full widths and depth over a virtual world of 4, FULL_SHARD, one row of
+    2048 a rank.  (a) per-unit gathering: ``reshard_after_forward`` True
+    and False and the whole-tree step (the loss without its model's
+    units), 2 lion-sr8 steps each from one state: #1-#3's launches of the
+    first step counted and each held to plain, the memory the second step
+    adds after the forward and at its peak and its ms, losses, params,
+    codes and scales bitwise across the three; (b) ZeRO-offload of each rank's
+    ranges: one monolithic step bitwise the resident plan step (the first
+    step of (a)'s ``True``), one chunked pipelined step (the same loss; its
+    salts are group-relative), each rank's D2H / H2D bytes against
+    ``offload_transfer_accounting`` of its ranges and its host-update ms;
+    (c) fp8 delayed scaling under dp 4 and under tp 2 x dp_shard 2, one step
+    each beside bf16: the metas bitwise equal on every rank, every
+    ``torch._scaled_mm`` product of a second step held to its plain
+    version (``FP8_MM_RTOL`` of each row's largest sum of |terms|; the
+    error against each row's largest value beside it), tokens/s."""
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import fp8 as fp8_mod
+    from accelerate_tpu_torch.ops import precision as prec
+    from accelerate_tpu_torch.ops.streaming import offload_transfer_accounting
+    from accelerate_tpu_torch.parallel.virtual import module_replica
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    world = RECIPES_6I["ranks"]
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    start = {n: p.detach().to(torch.bfloat16).clone() for n, p in model.named_parameters()}
+    replicas = [module_replica(model) for _ in range(world)]
+    del model
+    ids = token_batch(torch, cfg.vocab_size, world, device)["input_ids"]
+    layers = cfg.num_hidden_layers
+    dp4 = ParallelismConfig(dp_shard_size=world)
+    out = {"card": card, "world": world, "virtual": True, "rows_a_rank": 1,
+           "seq": TRAIN["seq"], "optimizer": RECIPES_6I["optimizer"]}
+
+    # (a) per-unit gathering against the whole-tree step
+    finals, first_resident, mem = {}, None, {}
+    for mode in RECIPES_6I["modes"]:
+        after_forward: list = []
+
+        def wrap(loss_fn, after_forward=after_forward, mode=mode):
+            def measured(params, batch):
+                loss = loss_fn(params, batch)
+                after_forward.append(torch.cuda.memory_allocated())
+                return loss
+
+            if mode != "whole":
+                measured.fsdp_units = loss_fn.fsdp_units
+            return measured
+
+        plugin = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD",
+                                                reshard_after_forward=mode != "False")
+        mesh, ranks = _recipe_world(torch, dp4, start, replicas, plugin=plugin, wrap=wrap,
+                                    device=device)
+        # the first step counted, every launch held to plain (the plain
+        # versions launch no kernel); the second measured
+        readings = {n: [] for n in FLASH_REPLACES}
+        reset_counts()
+        with checked_flash_kernels(torch, fa, readings):
+            metrics, ms1 = _recipe_step(torch, mesh, dp4, ranks, ids)
+        launches = {n: fa_launches(n) for n in FLASH_REPLACES}
+        if any(v != world * layers for v in launches.values()):
+            raise AssertionError(f"sharded_recipes {mode}: launches {launches}, "
+                                 f"{world * layers} each expected")
+        if mode == "True":
+            PATH_LAUNCHES["sharded_recipes"] = launches
+            first_resident = [_rank_snapshot(r[1]) for r in ranks]
+        sync(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        after_forward.clear()
+        metrics2, ms = _recipe_step(torch, mesh, dp4, ranks, ids)
+        peak = torch.cuda.max_memory_allocated()
+        mem[mode] = {"after_forward_gb": (max(after_forward) - base) / 1e9,
+                     "peak_gb": (peak - base) / 1e9, "state_gb": base / 1e9,
+                     "step_ms": ms, "checked_step_ms": ms1, "launches": launches,
+                     "in_path": worst_of(readings, {n: world * layers for n in FLASH_REPLACES}),
+                     "loss": [metrics[0]["loss"].item(), metrics2[0]["loss"].item()]}
+        finals[mode] = [_rank_snapshot(r[1]) for r in ranks]
+        log("sharded_recipes (a)", mode, json.dumps(mem[mode]))
+        del ranks, mesh
+        torch.cuda.empty_cache()
+    out["per_unit"] = mem
+    out["per_unit_bitwise"] = {
+        mode: all(all_equal(torch, a, b) for a, b in zip(finals[mode], finals["whole"]))
+        and mem[mode]["loss"] == mem["whole"]["loss"] for mode in ("True", "False")}
+    del finals
+    if not all(out["per_unit_bitwise"].values()):
+        raise AssertionError(f"sharded_recipes: per-unit gathering is not the whole-tree step "
+                             f"bitwise: {out['per_unit_bitwise']}")
+
+    # (b) ZeRO-offload of each rank's ranges
+    off = {}
+    for label, chunk in (("monolithic", None), ("chunked_pipelined", MEM_OFFLOAD["chunk_gib"])):
+        plugin = FullyShardedDataParallelPlugin(
+            sharding_strategy="FULL_SHARD", cpu_offload=True, offload_params=True,
+            host_update_chunk_gib=chunk, host_update_pipeline=True)
+        mesh, ranks = _recipe_world(torch, dp4, start, replicas, plugin=plugin, device=device)
+        metrics, ms = _recipe_step(torch, mesh, dp4, ranks, ids)
+        rank_rep = []
+        for acc, state, _ in ranks:
+            n_range = sum(p.numel() for p in state.params.values())
+            want = offload_transfer_accounting(n_range, optimizer=RECIPES_6I["optimizer"])
+            log_ = acc.offload_log
+            rank_rep.append({k: log_[k] for k in ("d2h_bytes", "h2d_bytes", "groups",
+                                                  "host_update_ms", "host_wait_ms", "d2h_ms")
+                             if k in log_} | {
+                "predicted_d2h": want["d2h_bytes"], "predicted_h2d": want["h2d_bytes"],
+                "pinned": all(p.is_pinned() for p in state.params.values())
+                and all(t.is_pinned() for t in opt_tensors(state))})
+        off[label] = {"step_ms": ms, "loss": metrics[0]["loss"].item(), "ranks": rank_rep}
+        if label == "monolithic":
+            off[label]["bitwise_resident"] = all(
+                all_equal(torch, _rank_snapshot(r[1]), want)
+                for r, want in zip(ranks, first_resident))
+        log("sharded_recipes (b)", label, json.dumps(off[label]))
+        del ranks, mesh
+        torch.cuda.empty_cache()
+    out["offload"] = off
+    bad = [r for rep in off.values() for r in rep["ranks"]
+           if r["d2h_bytes"] != r["predicted_d2h"] or r["h2d_bytes"] != r["predicted_h2d"]
+           or not r["pinned"]]
+    if bad or not off["monolithic"]["bitwise_resident"] or \
+            off["chunked_pipelined"]["loss"] != mem["True"]["loss"][0]:
+        raise AssertionError(f"sharded_recipes offload: {off}")
+    del first_resident
+
+    # (c) fp8 across ranks, each product held to plain
+    fp8 = {}
+    checked = {"products": 0, "worst": 0.0, "worst_of_row_max": 0.0,
+               "products_over_row_max_rtol": 0}
+    real = prec.fp8_mm
+
+    def held_mm(a, b, descale, out_dtype):
+        """The product in f32 beside the plain f32 one on the same codes;
+        the step goes on with the product it asked for.  Each row's error
+        is held to ``FP8_MM_RTOL`` of the row's largest sum of |terms|
+        (sum_k |a_ik| |b_kj| / descale): a gradient product whose row sum
+        cancels leaves the fp8 tensor cores' partial sums as large as the
+        terms (fp8_gemm_checks' random operands never do), so its error against
+        the row's largest |value| is reported beside it."""
+        got = real(a, b, descale, torch.float32)
+        ref = prec.fp8_mm_plain(a, b, descale, torch.float32)
+        err = (got - ref).abs().amax(dim=1)
+        terms = (a.float().abs() @ b.float().abs()) / descale.float()
+        over_terms = (err / terms.amax(dim=1).clamp(min=1e-30)).max().item()
+        over_row = (err / ref.abs().amax(dim=1).clamp(min=1e-30)).max().item()
+        checked["products"] += 1
+        checked["worst"] = max(checked["worst"], over_terms)
+        checked["worst_of_row_max"] = max(checked["worst_of_row_max"], over_row)
+        checked["products_over_row_max_rtol"] += int(over_row > FP8_MM_RTOL)
+        return real(a, b, descale, out_dtype)
+
+    for label, pcfg in (("dp4", dp4), ("tp2_dp2", ParallelismConfig(tp_size=2, dp_shard_size=2))):
+        rep = {}
+        for mp in ("bf16", "fp8"):
+            plugin = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
+            mesh, ranks = _recipe_world(torch, pcfg, start, replicas, plugin=plugin,
+                                        mixed_precision=mp, device=device)
+            if mp == "fp8" and ranks[0][0].mixed_precision != "fp8":
+                raise AssertionError(f"fp8 resolved to {ranks[0][0].mixed_precision}")
+            reset_counts()
+            real.launches = 0
+            metrics, ms = _recipe_step(torch, mesh, pcfg, ranks, ids)
+            rep[mp] = {"step_ms": ms, "tokens_per_s": world * TRAIN["seq"] / (ms / 1e3),
+                       "loss": metrics[0]["loss"].item(),
+                       "launches": {n: fa_launches(n) for n in FLASH_REPLACES},
+                       "fp8_products": real.launches}
+            PATH_LAUNCHES[f"sharded_recipes_{mp}_{label}"] = rep[mp]["launches"]
+            if mp == "fp8":
+                metas = [r[1].fp8_state for r in ranks]
+                rep["metas_equal_on_every_rank"] = all(
+                    torch.equal(m[k].amax_history, metas[0][k].amax_history)
+                    and torch.equal(m[k].scale, metas[0][k].scale) for m in metas for k in m)
+                rep["metas"] = len(metas[0])
+                # the delayed-scaling products call ops/fp8's name
+                fp8_mod.fp8_mm = held_mm
+                try:
+                    _recipe_step(torch, mesh, pcfg, ranks, ids)
+                finally:
+                    fp8_mod.fp8_mm = real
+            del ranks, mesh
+            torch.cuda.empty_cache()
+        rep["fp8_over_bf16_tokens"] = rep["fp8"]["tokens_per_s"] / rep["bf16"]["tokens_per_s"]
+        fp8[label] = rep
+        log("sharded_recipes (c)", label, json.dumps(rep))
+    out["fp8"] = fp8
+    out["fp8_products_checked"] = checked
+    if not all(r["metas_equal_on_every_rank"] for r in fp8.values()) or \
+            checked["worst"] > FP8_MM_RTOL or not checked["products"]:
+        raise AssertionError(f"sharded_recipes fp8: {fp8} {checked}")
+    log("sharded_recipes", json.dumps({k: v for k, v in out.items()
+                                        if k not in ("per_unit", "offload", "fp8")}))
+    return out
+
+
 # the phases --only selects, in the order the bare call runs them
 PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
-          "examples", "parallel", "moe", "fleet_fabric", "sharded_ckpt")
+          "examples", "parallel", "moe", "fleet_fabric", "sharded_ckpt",
+          "sharded_recipes")
 
 
 
@@ -7326,6 +7591,9 @@ def main() -> int:
         sharded = sharded_ckpt_phase(torch, fa, card)
         PATH_LAUNCHES["sharded_ckpt"] = sharded["launches"]
         phase_done("sharded_ckpt")
+    if "sharded_recipes" in only:
+        sharded_recipes_phase(torch, fa, card)
+        phase_done("sharded_recipes")
 
     # each kernel's launches on its main path, and its checked calls there
     main_path = {}

@@ -70,6 +70,10 @@ hierarchical schedule on the card against the same sync on the CPU (rtol
 1e-5, atol 1e-6), the PowerSGD codec on the card against the CPU within
 1e-4 of the reference's largest |value|, and a card train state's host
 snapshot restored bitwise after two more steps.
+The sharded step's recipes: per-unit gathering over a virtual world of 4 at
+the 600m widths (2 layers) bitwise the whole-tree step through #1-#3, and
+fp8 under tp 2 x dp_shard 2 with every ``_scaled_mm`` product within 1e-3
+of its row's largest value of the plain f32 product.
 """
 
 import pytest
@@ -2782,3 +2786,121 @@ def test_sharded_checkpoint_of_a_card_state_over_a_virtual_world_is_bitwise(cuda
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
     assert restored.opt_state.count == state.opt_state.count and restored.step == state.step
     assert restored.params[next(iter(fresh))].device.type == "cuda"
+
+
+def _recipe_world(cuda, pcfg, start, replicas, mixed_precision="bf16", units=True, **plugin_kw):
+    """Every rank of a virtual world of 4 under ``pcfg``: its Accelerator,
+    train state over ``start`` (lion-sr8) and prepared step on its module
+    replica (``units=False``: the loss without its model's units, so the
+    step gathers the whole tree)."""
+    from accelerate_tpu_torch import Accelerator, GradSyncKwargs
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    mesh = VirtualMesh(*pcfg.mesh_layout(4))
+
+    def make(r):
+        acc = Accelerator(mixed_precision=mixed_precision, device=cuda, parallelism_config=pcfg,
+                          fsdp_plugin=FullyShardedDataParallelPlugin(
+                              sharding_strategy="FULL_SHARD", **plugin_kw),
+                          kwargs_handlers=[GradSyncKwargs(grad_dtype="bf16")])
+        state = acc.create_train_state({n: p.clone() for n, p in start.items()}, "lion-sr8")
+        loss_fn = tl.make_llama_loss_fn(replicas[r], fused_vocab_chunks=2)
+        if not units:
+            inner = loss_fn
+            loss_fn = lambda p, b: inner(p, b)  # noqa: E731
+        return [acc, state, acc.prepare_train_step(loss_fn)]
+
+    return mesh, mesh.run(make, pcfg)
+
+
+def _recipe_steps(mesh, pcfg, ranks, ids, steps: int) -> list:
+    from accelerate_tpu_torch.data_loader import shard_global_batch
+
+    losses = []
+    for _ in range(steps):
+        def one(r):
+            acc, state, step = ranks[r]
+            local = shard_global_batch(ids, acc.mesh, pcfg.batch_spec(seq_axis=None, ndim=2))
+            ranks[r][1], m = step(state, {"input_ids": local, "labels": local})
+            return m["loss"].item()
+        losses.append(mesh.run(one, pcfg))
+    return losses
+
+
+def _recipe_start(cuda):
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.parallel.virtual import module_replica
+
+    cfg = tl.LlamaConfig(vocab_size=2048, hidden_size=1536, intermediate_size=4096,
+                         num_hidden_layers=2, num_attention_heads=16, num_key_value_heads=8,
+                         attn_implementation="flash", dtype=torch.bfloat16)
+    model = tl.LlamaForCausalLM(cfg, device=cuda, seed=17)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ids = torch.randint(0, cfg.vocab_size, (4, 512), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(18))
+    return start, [module_replica(model) for _ in range(4)], ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reshard", [True, False])
+def test_per_unit_gathering_on_the_card_is_the_whole_tree_step(cuda, reshard):
+    """A virtual world of 4 on the card, FULL_SHARD, 2 layers at the 600m
+    widths: 2 lion-sr8 steps with per-unit gathering are the whole-tree
+    step's bitwise (losses, each rank's params, codes and scales), through
+    #1-#3 (8 launches each a step: 4 ranks x 2 layers)."""
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    start, replicas, ids = _recipe_start(cuda)
+    pcfg = ParallelismConfig(dp_shard_size=4)
+    runs = {}
+    for units in (True, False):
+        mesh, ranks = _recipe_world(cuda, pcfg, start, replicas, units=units,
+                                    reshard_after_forward=reshard)
+        tfa.reset_launch_counts()
+        losses = _recipe_steps(mesh, pcfg, ranks, ids, 2)
+        counts = {n: tfa._WRAPPERS[n].launches for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+        assert counts == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16}
+        runs[units] = (losses, [list(r[1].params.values())
+                                + [t for f in r[1].opt_state if isinstance(f, list) for t in f]
+                                for r in ranks])
+    assert runs[True][0] == runs[False][0]
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_fp8_under_tp_and_dp_on_the_card_holds_every_scaled_mm_to_plain(cuda):
+    """fp8 delayed scaling over a virtual tp 2 x dp_shard 2 world on the
+    card: every ``torch._scaled_mm`` product of a step within 1e-3 of its
+    row's largest value of the plain f32 product on the same codes, the
+    metas equal on every rank, the losses finite."""
+    from accelerate_tpu_torch.ops import fp8 as tfp8
+    from accelerate_tpu_torch.ops import precision as prec
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    start, replicas, ids = _recipe_start(cuda)
+    pcfg = ParallelismConfig(tp_size=2, dp_shard_size=2)
+    mesh, ranks = _recipe_world(cuda, pcfg, start, replicas, mixed_precision="fp8")
+    real, seen = prec.fp8_mm, []
+
+    def held(a, b, descale, out_dtype):
+        got = real(a, b, descale, torch.float32)
+        ref = prec.fp8_mm_plain(a, b, descale, torch.float32)
+        seen.append(((got - ref).abs().amax(dim=1)
+                     / ref.abs().amax(dim=1).clamp(min=1e-30)).max().item())
+        return real(a, b, descale, out_dtype)
+
+    tfp8.fp8_mm = held      # the delayed-scaling products call ops/fp8's name
+    try:
+        losses = _recipe_steps(mesh, pcfg, ranks, ids, 2)
+    finally:
+        tfp8.fp8_mm = real
+    # 7 denses x 3 products x 2 layers x 4 ranks a step
+    assert len(seen) == 2 * 7 * 3 * 2 * 4 and max(seen) <= 1e-3
+    assert all(torch.isfinite(torch.tensor(step)).all() for step in losses)
+    metas = [r[1].fp8_state for r in ranks]
+    assert all(torch.equal(m[k].scale, metas[0][k].scale)
+               and torch.equal(m[k].amax_history, metas[0][k].amax_history)
+               for m in metas for k in m)

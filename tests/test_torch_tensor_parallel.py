@@ -250,8 +250,9 @@ def test_accelerator_surface_under_tp():
     ``test_torch_accelerator_surface.py``), but pp composed with tp names
     A13h;
     ``tp_config`` / ``cp_config`` / ``sp_config`` are kept, ``plan`` picks
-    the rules; ``ContextParallelConfig`` checks its rotate method; fp8
-    under tp names A13h; ``attn_implementation="ulysses"`` is a config."""
+    the rules; ``ContextParallelConfig`` checks its rotate method (fp8
+    under tp trains: ``test_torch_sharded_recipes.py``);
+    ``attn_implementation="ulysses"`` is a config."""
     from accelerate_tpu_torch.utils.dataclasses import (
         ContextParallelConfig,
         SequenceParallelConfig,
