@@ -114,9 +114,10 @@ the host (the update with the whole leaves' salts, the chunk groups from the
 global shapes, the norm summed over the ranks), and fp8 takes every amax
 of the global tensor (``precision.fp8_amax_over``), so the metas agree on
 every rank.  Off this path, and raising ``NotImplementedError`` with their
-ROADMAP item: quantized and LoRA denses, the LoRA head, the scanned stack
-and cached decoding under tp (A13h.4), Mixtral under tp / cp / sp (A13h.5),
-pp composed with tp / cp / sp (A13h.6).  The donation audit and compile
+ROADMAP item: Mixtral under tp / cp / sp (A13h.5), pp composed with tp /
+cp / sp (A13h.6).  Quantized and LoRA denses, the LoRA head and the
+scanned stack run under tp (A13h.4; ``models/layers.py``), their denses
+with the collective matmul off.  The donation audit and compile
 counter (``audit_step``, ``compile_events``) have no eager meaning and are
 not ported.
 """

@@ -14,6 +14,14 @@ bits; greedy decoding is an f32 argmax (first index on ties) on both sides.
 Beam search ranks candidates by a stable descending sort: among equal
 scores the lower index first, ``jax.lax.top_k``'s order (``torch.topk``
 promises none).
+
+In a tp world (each rank's module from ``parallel.sharding.
+bind_tp_slices``, every rank calling alike) :func:`generate`,
+:func:`beam_search` and :func:`generate_paged` run on the rank's module:
+its cache holds the kv heads of its query heads
+(``LlamaForCausalLM.cache_kv_heads``), and the logits every rank samples
+from are gathered whole, so ranks whose generators are seeded alike pick
+the same tokens.
 """
 
 from __future__ import annotations
@@ -90,7 +98,8 @@ def generate(model, input_ids, generation_config: Optional[GenerationConfig] = N
         prompt_lengths = torch.full((b,), t_prompt, dtype=torch.long, device=dev)
     else:
         prompt_lengths = torch.as_tensor(prompt_lengths, device=dev).long()
-    cache = init_cache(model.config, b, t_prompt + gc.max_new_tokens, device=dev)
+    cache = init_cache(model.config, b, t_prompt + gc.max_new_tokens, device=dev,
+                       num_kv_heads=model.cache_kv_heads())
 
     positions = torch.arange(t_prompt, device=dev).expand(b, t_prompt)
     write_mask = positions < prompt_lengths[:, None]
@@ -240,7 +249,8 @@ def beam_search(model, input_ids, generation_config: Optional[GenerationConfig] 
     n = gc.max_new_tokens
     neg = -1e9
     eos, pad = gc.eos_token_id, gc.pad_token_id
-    cache = init_cache(model.config, b, t_prompt + n, device=dev)
+    cache = init_cache(model.config, b, t_prompt + n, device=dev,
+                       num_kv_heads=model.cache_kv_heads())
     positions = torch.arange(t_prompt, device=dev).expand(b, t_prompt)
     logits, cache = apply(input_ids, positions=positions, cache=cache,
                           cache_write_mask=positions < lens[:, None])

@@ -80,6 +80,24 @@ Head counts ``tp`` does not divide (JAX's plan shards q / k / v wherever
 their features divide, GSPMD re-lays the half heads): the rank gathers
 the q / k / v features over ``tp``, attends over the heads its o_proj
 rows read (kv repeated to q width) and keeps its features.
+
+Whether a forward runs the tp split is read per leaf (the embedding, the
+head, each dense of the first layer): quantized denses hold whole codes
+beside a vocab-sharded embedding and head.  LoRA adapters reach every
+dense and the vocab-sharded head (each takes its part of the whole pool,
+``models/layers.py``).  A forward with LoRA or quantized denses runs with
+the collective matmul off, as does a cached one.
+
+Cached decoding under tp (``generate``, ``beam_search``, the serving
+engine on a rank's module from ``parallel.sharding.bind_tp_slices``): the
+rank's query heads and the kv heads they read (:func:`rank_heads`; where
+tp does not divide the kv heads, k / v's features are gathered and the
+rank keeps the one its query heads share), its dense cache or page pools
+holding those kv heads only (:meth:`LlamaForCausalLM.cache_kv_heads`), the
+paged kernels launched on them, o_proj's partial sums in a ``psum``, the
+vocab-parallel head's f32 logits gathered whole (``all_gather_invariant``):
+every rank samples the same token.  The scanned stack runs under tp as the
+unrolled one, each scan slice on its tp slices of the stacked weights.
 ``attn_implementation="ulysses"`` is Ulysses sequence parallelism over
 ``sp`` (``parallel/sequence_parallel.py``): each rank holds a contiguous
 slice of the sequence, and its rotary embeddings take the tokens' global
@@ -280,13 +298,16 @@ def get_attention_impl(name: str):
 CACHE_PAD_POSITION = 2**30
 
 
-def init_cache(config, batch_size: int, max_len: int, dtype=None, device=None):
+def init_cache(config, batch_size: int, max_len: int, dtype=None, device=None,
+               num_kv_heads: Optional[int] = None):
     """Per-layer dense KV cache: ``k``/``v`` [B, max_len, Hkv, D], per-slot
     positions ``pos`` [B, max_len] int32 (``CACHE_PAD_POSITION`` = dead)
-    and the write ``index`` (a Python int)."""
+    and the write ``index`` (a Python int).  ``num_kv_heads``: the kv heads
+    the cache holds (a tp rank's, :meth:`LlamaForCausalLM.cache_kv_heads`;
+    default all of the config's)."""
     dev = resolve_device(device)
     dtype = dtype or config.dtype
-    hkv, d = config.num_key_value_heads, config.head_dim
+    hkv, d = num_kv_heads or config.num_key_value_heads, config.head_dim
     return [
         {
             "k": torch.zeros(batch_size, max_len, hkv, d, dtype=dtype, device=dev),
@@ -323,7 +344,8 @@ def kv_dtype_of(pages) -> str:
 
 
 def init_paged_cache(config, num_pages: int, page_size: int, num_slots: int,
-                     pages_per_slot: int, dtype=None, kv_dtype=None, device=None):
+                     pages_per_slot: int, dtype=None, kv_dtype=None, device=None,
+                     num_kv_heads: Optional[int] = None):
     """The serving engine's paged KV pool, in the JAX layout:
 
     - per layer ``k_pages``/``v_pages`` ``[Hkv, num_pages, page_size, D]``;
@@ -333,11 +355,14 @@ def init_paged_cache(config, num_pages: int, page_size: int, num_slots: int,
     - ``block_tables`` ``[num_slots, pages_per_slot]`` int32;
     - ``seq_lens`` ``[num_slots]`` int32;
     - ``free_stack`` ``[num_pages]`` int32 and ``free_top`` (0-d int32),
-      the allocator's free list (``serving/paged_cache.py``)."""
+      the allocator's free list (``serving/paged_cache.py``).
+
+    ``num_kv_heads``: the kv heads the pages hold (a tp rank's, default all
+    of the config's)."""
     kv_dtype = resolve_kv_dtype(kv_dtype)
     dev = resolve_device(device)
     dtype = dtype or config.dtype
-    hkv, d = config.num_key_value_heads, config.head_dim
+    hkv, d = num_kv_heads or config.num_key_value_heads, config.head_dim
     shape = (hkv, num_pages, page_size, d)
     page_dtype = KV_QUANT_DTYPES[kv_dtype] if kv_dtype else dtype
 
@@ -570,10 +595,35 @@ class ParallelForward:
 
     def tp_input(self, x):
         """A replicated activation read by the column denses of every tp
-        rank (mode off): its gradient is summed over ``tp``."""
-        if self.tp > 1 and self.mode == "off":
+        rank (mode off): its gradient is summed over ``tp`` (no collective
+        where no gradient is taken)."""
+        if self.tp > 1 and self.mode == "off" and torch.is_grad_enabled():
             return C.pbroadcast(x, "tp", self.mesh)
         return x
+
+
+def rank_heads(config, tp: int, rank: int) -> tuple[int, int, int, int]:
+    """``(h0, h1, kv0, kv1)``: the query heads ``[h0, h1)`` tp rank ``rank``
+    of ``tp`` attends over in a cached forward and the kv heads ``[kv0,
+    kv1)`` they read, which its cache holds.  Where ``tp`` divides the kv
+    heads a rank holds ``Hkv / tp`` of them; where it does not (tiny's 2 at
+    tp 4) the one its query heads share.  Query heads ``tp`` does not
+    divide, or a rank's query heads reading more than one kv head unevenly,
+    are not ported (ROADMAP item A13h.7)."""
+    h, hkv = config.num_attention_heads, config.num_key_value_heads
+    rep = h // hkv
+    if h % tp:
+        raise NotImplementedError(f"cached decoding where tp={tp} does not divide the "
+                                  f"{h} query heads is not ported yet (ROADMAP item A13h.7)")
+    hq = h // tp
+    h0 = rank * hq
+    kv0, kv1 = h0 // rep, (h0 + hq - 1) // rep + 1
+    if hq % (kv1 - kv0) or any((h0 + j) // rep - kv0 != j // (hq // (kv1 - kv0))
+                               for j in range(hq)):
+        raise NotImplementedError(f"cached decoding where tp={tp} splits the query groups "
+                                  f"of {hkv} kv heads unevenly is not ported yet (ROADMAP "
+                                  f"item A13h.7)")
+    return h0, h0 + hq, kv0, kv1
 
 
 class LlamaAttention(nn.Module):
@@ -594,11 +644,19 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         impl = attn_implementation or cfg.attn_implementation
         if par is not None and cache is None:
-            return self._parallel_forward(x, positions, cos, sin, impl, segment_ids, par)
+            return self._parallel_forward(x, positions, cos, sin, impl, segment_ids, par,
+                                          adapter_ids, lora)
         b, t = x.shape[:2]
-        q = self.q_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_attention_heads, cfg.head_dim)
-        k = self.k_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
-        v = self.v_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads, cfg.head_dim)
+        route = par.tp_route() if par is not None else None
+        if route is None:
+            q = self.q_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_attention_heads,
+                                                          cfg.head_dim)
+            k = self.k_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads,
+                                                          cfg.head_dim)
+            v = self.v_proj(x, adapter_ids, lora).reshape(b, t, cfg.num_key_value_heads,
+                                                          cfg.head_dim)
+        else:
+            q, k, v = self._rank_qkv(x, adapter_ids, lora, par, route)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -639,7 +697,7 @@ class LlamaAttention(nn.Module):
                 out = cached_attention(q, k_lin, v_lin, kv_pos, pos_i32)
             new_cache = {"k_pages": k_pages, "v_pages": v_pages,
                          "block_tables": cache["block_tables"], **scales}
-            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora), new_cache
+            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora, route=route), new_cache
 
         if cache is not None:
             # dense autoregressive path: write K/V and positions at the
@@ -655,17 +713,37 @@ class LlamaAttention(nn.Module):
             out = cached_attention(q, cache["k"], cache["v"], cache["pos"], positions)
             new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
                          "index": idx + t}
-            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora), new_cache
+            return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora, route=route), new_cache
 
         out = get_attention_impl(impl)(q, k, v, causal=True, segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, t, -1), adapter_ids, lora)
 
+    def _rank_qkv(self, x, adapter_ids, lora, par: ParallelForward, route: DenseRoute):
+        """A cached forward's q / k / v on this tp rank: its query heads
+        and the kv heads they read (:func:`rank_heads`), ``[B, T, heads,
+        D]``.  q / k / v are column slices; where tp does not divide the kv
+        heads, k / v's features are gathered over ``tp`` and the rank keeps
+        the kv heads its query heads read."""
+        cfg = self.config
+        d = cfg.head_dim
+        b, t = x.shape[:2]
+        h0, h1, kv0, kv1 = rank_heads(cfg, par.tp, par.tp_rank)
+        q = self.q_proj(x, adapter_ids, lora, route=route).reshape(b, t, h1 - h0, d)
+        k = self.k_proj(x, adapter_ids, lora, route=route)
+        v = self.v_proj(x, adapter_ids, lora, route=route)
+        if cfg.num_key_value_heads % par.tp:
+            k, v = (C.all_gather(z.contiguous(), "tp", axis=2, mesh=par.mesh)
+                    .reshape(b, t, cfg.num_key_value_heads, d)[:, :, kv0:kv1] for z in (k, v))
+            return q, k.contiguous(), v.contiguous()
+        return q, k.reshape(b, t, kv1 - kv0, d), v.reshape(b, t, kv1 - kv0, d)
+
     def _parallel_forward(self, x, positions, cos, sin, impl, segment_ids,
-                          par: ParallelForward):
+                          par: ParallelForward, adapter_ids=None, lora=None):
         """One rank's attention under tp and / or sp (see the module doc):
         the column q / k / v on this rank's shards (rings over ``sp`` at
         the Ulysses boundary), rotary embeddings at the global positions,
-        attention over the rank's heads, the row o_proj."""
+        attention over the rank's heads, the row o_proj; LoRA adapters on
+        each targeted dense (``models/layers.py``)."""
         cfg = self.config
         d = cfg.head_dim
         if par.sp_boundary:
@@ -679,9 +757,9 @@ class LlamaAttention(nn.Module):
         else:
             route = par.tp_route()
             x_in = par.tp_input(x)
-        q = self.q_proj(x_in, route=route)
-        k = self.k_proj(x_in, route=route)
-        v = self.v_proj(x_in, route=route)
+        q = self.q_proj(x_in, adapter_ids, lora, route=route)
+        k = self.k_proj(x_in, adapter_ids, lora, route=route)
+        v = self.v_proj(x_in, adapter_ids, lora, route=route)
         b, t = q.shape[:2]
         attend = get_attention_impl(impl)
         kw = {"heads_sharded": True} if par.sp_boundary else {}
@@ -709,7 +787,7 @@ class LlamaAttention(nn.Module):
             k = apply_rope(k.reshape(b, t, kvf // d, d), cos, sin, positions)
             v = v.reshape(b, t, kvf // d, d)
             out = attend(q, k, v, causal=True, segment_ids=segment_ids, **kw).reshape(b, t, -1)
-        return self.o_proj(out, route=route)
+        return self.o_proj(out, adapter_ids, lora, route=route)
 
 
 class LlamaMLP(nn.Module):
@@ -724,9 +802,10 @@ class LlamaMLP(nn.Module):
         if par is not None and par.tp > 1:
             route = par.tp_route()
             x_in = par.tp_input(x)
-            gate = self.gate_proj(x_in, route=route)
-            up = self.up_proj(x_in, route=route)
-            return self.down_proj(torch.nn.functional.silu(gate) * up, route=route)
+            gate = self.gate_proj(x_in, adapter_ids, lora, route=route)
+            up = self.up_proj(x_in, adapter_ids, lora, route=route)
+            return self.down_proj(torch.nn.functional.silu(gate) * up, adapter_ids, lora,
+                                  route=route)
         gate = self.gate_proj(x, adapter_ids, lora)
         up = self.up_proj(x, adapter_ids, lora)
         return self.down_proj(torch.nn.functional.silu(gate) * up, adapter_ids, lora)
@@ -1186,23 +1265,46 @@ class LlamaForCausalLM(nn.Module):
         return x
 
     def _tp_sharded(self) -> bool:
-        """Whether the layers hold tp shards (the train state's under a tp
-        plan) rather than whole weights."""
+        """Whether any leaf the tp plan splits is held as a tp slice (the
+        train state's under a tp plan, or :func:`~..parallel.sharding.
+        bind_tp_slices`'s) rather than whole: the embedding, the head or a
+        full-precision dense of the first layer, each read on its own (a
+        quantized dense holds whole codes beside a vocab-sharded
+        embedding and head)."""
         cfg = self.config
+        emb = self.model.embed_tokens.weight
+        if _bound_shape("model.embed_tokens.weight", emb)[0] != cfg.vocab_size:
+            return True
+        if self._head_sharded():
+            return True
         scan = hasattr(self.model, "layers_scan")
         bname, block = (next(iter(self.model.layers_scan.named_children())) if scan
                         else ("0", self.model.layers[0]))
-        weight = block.self_attn.q_proj.weight
-        if weight is None:      # quantized: whole codes, never a tp slice
-            return False
-        name = (f"model.layers_scan.{bname}" if scan else "model.layers.0") + \
-            ".self_attn.q_proj.weight"
-        return _bound_shape(name, weight)[1 if scan else 0] != (cfg.num_attention_heads
-                                                                  * cfg.head_dim)
+        prefix = f"model.layers_scan.{bname}." if scan else "model.layers.0."
+        for name, mod in block.named_modules():
+            if not isinstance(mod, QuantizableDense) or mod.weight is None or not mod.tp_mode:
+                continue
+            column = mod.tp_mode == "column"
+            shape = _bound_shape(prefix + name + ".weight", mod.weight)
+            if shape[(0 if column else 1) + scan] != (mod.out_features if column
+                                                      else mod.in_features):
+                return True
+        return False
 
-    def parallel_forward(self, t_local: int, impl: str) -> Optional[ParallelForward]:
-        """How an uncached forward of ``t_local`` tokens a rank lies over the
-        newest accelerator state's mesh, or None outside tp / sp."""
+    def _plain_denses(self, adapter_ids) -> bool:
+        """Whether this forward runs LoRA or quantized denses, which take
+        their tp route with the collective matmul off."""
+        return adapter_ids is not None or any(
+            isinstance(mod, QuantizableDense) and mod.weight is None for mod in self.modules())
+
+    def parallel_forward(self, t_local: int, impl: str, cached: bool = False,
+                         adapter_ids=None) -> Optional[ParallelForward]:
+        """How a forward of ``t_local`` tokens a rank lies over the newest
+        accelerator state's mesh, or None outside tp / sp.  A ``cached``
+        forward (``generate``, the serving engine) runs over ``tp`` alone,
+        with the collective matmul off, as JAX's hook falls back for it
+        (``accelerate_tpu/ops/collective_matmul.py:315-336``); so does one
+        with LoRA (``adapter_ids``) or quantized denses."""
         from ..ops.collective_matmul import collective_matmul_mode, ulysses_sp_boundary
         from ..state import ambient_mesh
 
@@ -1210,7 +1312,7 @@ class LlamaForCausalLM(nn.Module):
         if mesh is None:
             return None
         sizes = C.mesh_sizes(mesh)
-        tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+        tp, sp = sizes.get("tp", 1), 1 if cached else sizes.get("sp", 1)
         if tp > 1 and not self._tp_sharded():
             tp = 1      # whole weights: every rank computes the whole forward
         if tp == 1 and sp == 1:
@@ -1219,14 +1321,12 @@ class LlamaForCausalLM(nn.Module):
         if sp > 1 and impl != "ulysses":
             raise ValueError(f"an sp axis of {sp} ranks needs attn_implementation='ulysses', "
                              f"got {impl!r}")
-        if tp > 1 and hasattr(self.model, "layers_scan"):
-            raise NotImplementedError("scan_layers under tensor parallelism is not ported yet "
-                                      "(ROADMAP item A13h.4)")
-        mode = collective_matmul_mode()
+        ring = not cached and not self._plain_denses(adapter_ids)
+        mode = collective_matmul_mode() if ring else "off"
         if tp == 1 or t_local % tp or t_local < tp:
             mode = "off"
         sp_mode = "off"
-        if (impl == "ulysses" and sp > 1
+        if (ring and impl == "ulysses" and sp > 1
                 and ulysses_sp_boundary(cfg.num_attention_heads, cfg.num_key_value_heads,
                                         t_local * sp)):
             sp_mode = collective_matmul_mode()
@@ -1234,6 +1334,23 @@ class LlamaForCausalLM(nn.Module):
                                tp_rank=C.axis_index("tp", mesh) if tp > 1 else 0, sp=sp,
                                sp_rank=C.axis_index("sp", mesh) if sp > 1 else 0, mode=mode,
                                sp_mode=sp_mode)
+
+    def cache_kv_heads(self) -> int:
+        """The kv heads a KV cache of this model holds on the calling rank
+        (:func:`init_cache` / :func:`init_paged_cache`'s ``num_kv_heads``):
+        all of the config's outside a tp world, else the rank's
+        (:func:`rank_heads`)."""
+        par = self.parallel_forward(1, self.config.attn_implementation, cached=True)
+        if par is None or par.tp == 1:
+            return self.config.num_key_value_heads
+        _, _, kv0, kv1 = rank_heads(self.config, par.tp, par.tp_rank)
+        return kv1 - kv0
+
+    def tp_degree(self) -> int:
+        """The ranks of the tp world whose slices this model holds (1
+        outside one)."""
+        par = self.parallel_forward(1, self.config.attn_implementation, cached=True)
+        return 1 if par is None else par.tp
 
     def _embed(self, input_ids, par: Optional[ParallelForward]):
         """The token embeddings; under tp vocab-parallel (a shard of the
@@ -1311,14 +1428,18 @@ class LlamaForCausalLM(nn.Module):
             return head(x, adapter_ids, lora)
         if not self._head_sharded():
             return head(self._hidden_out(x, par), adapter_ids, lora)
-        if adapter_ids is not None and lora:
-            raise NotImplementedError("a LoRA head under tensor parallelism is not ported yet "
-                                      "(ROADMAP item A13h.4)")
         cfg = self.config
-        logits = tp_linear(par.tp_input(x), w, "column", par.tp_route(),
+        x_in = par.tp_input(x)
+        logits = tp_linear(x_in, w, "column", par.tp_route(),
                            cfg.hidden_size, cfg.vocab_size, out_dtype=torch.float32,
                            fp8=fp8_enabled(), meta=fp8_meta(self.lm_head.lora_key)
                            if fp8_enabled() else None)
+        entry = lora.get(self.lm_head.lora_key) if (adapter_ids is not None and lora) else None
+        if entry is not None:
+            # the rank's vocabulary columns of b
+            n = logits.shape[-1]
+            b = entry["b"][..., par.tp_rank * n:(par.tp_rank + 1) * n].contiguous()
+            logits = lora_apply(x_in, logits, entry["a"], b, adapter_ids)
         return C.all_gather_invariant(logits.contiguous(), "tp", axis=logits.dim() - 1,
                                       mesh=par.mesh)
 
@@ -1327,12 +1448,7 @@ class LlamaForCausalLM(nn.Module):
                 adapter_ids=None, lora: Optional[dict] = None):
         b, t = input_ids.shape
         impl = attn_implementation or self.config.attn_implementation
-        par = None
-        if cache is None:
-            par = self.parallel_forward(t, impl)
-        elif self._tp_sharded():
-            raise NotImplementedError("cached decoding on tensor-parallel shards is not ported "
-                                      "yet (ROADMAP item A13h.4)")
+        par = self.parallel_forward(t, impl, cached=cache is not None, adapter_ids=adapter_ids)
         if positions is None and par is not None and par.sp > 1:
             # this rank's contiguous slice: rotary embeddings at the tokens'
             # global positions
@@ -1379,7 +1495,8 @@ class LlamaForCausalLM(nn.Module):
             if cache is not None:
                 x, layer_cache = layer(x, positions, self.rope_cos, self.rope_sin,
                                        cache[i], cache_write_mask, paged_write,
-                                       attn_implementation, adapter_ids=adapter_ids, lora=lora)
+                                       attn_implementation, adapter_ids=adapter_ids, lora=lora,
+                                       par=par)
                 new_cache.append(layer_cache)
             else:
                 if units is not None:
@@ -1392,9 +1509,8 @@ class LlamaForCausalLM(nn.Module):
         x = norm(x, par) if w is norm.weight else _rebind(norm, ["weight"], [w])(x, par)
         if output_hidden:
             return (x, new_cache) if cache is not None else self._hidden_out(x, par)
-        if cache is not None:
-            return self.lm_head(x, adapter_ids, lora), new_cache
-        return self._logits(x, par, adapter_ids, lora)
+        logits = self._logits(x, par, adapter_ids, lora)
+        return (logits, new_cache) if cache is not None else logits
 
 
 def causal_lm_loss(logits, labels, ignore_index: int = -100, shifted: bool = False):

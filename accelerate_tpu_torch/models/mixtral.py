@@ -263,16 +263,21 @@ class MixtralForCausalLM(LlamaForCausalLM):
             std *= 1.0 / (2 * self.config.num_hidden_layers)
         return std
 
-    def parallel_forward(self, t_local: int, impl: str) -> Optional[ParallelForward]:
+    def parallel_forward(self, t_local: int, impl: str, cached: bool = False,
+                         adapter_ids=None) -> Optional[ParallelForward]:
         from ..state import ambient_mesh
 
+        if cached:
+            # cached decoding runs on whole weights (forward refuses it
+            # over data-parallel ranks)
+            return None
         mesh = ambient_mesh()[0]
         sizes = C.mesh_sizes(mesh) if mesh is not None else {}
         split = [a for a in ("tp", "cp", "sp") if sizes.get(a, 1) > 1]
         if split:
             raise NotImplementedError(f"Mixtral under {' / '.join(split)} is not ported yet "
                                       "(ROADMAP item A13h.5)")
-        return super().parallel_forward(t_local, impl)
+        return super().parallel_forward(t_local, impl, adapter_ids=adapter_ids)
 
     def forward(self, input_ids, *args, cache=None, **kwargs):
         from ..state import ambient_mesh

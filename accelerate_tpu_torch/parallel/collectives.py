@@ -40,6 +40,7 @@ the ranks' tensors in memory with the same forward and backward.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import numpy as np
@@ -87,7 +88,7 @@ def mesh_sizes(mesh) -> dict:
 
 def axis_size(axis_names: AxisNames, mesh=None) -> int:
     sizes = mesh_sizes(_mesh(mesh))
-    return int(np.prod([sizes[a] for a in _names(axis_names)]))
+    return math.prod(int(sizes[a]) for a in _names(axis_names))
 
 
 def axis_index(axis_names: AxisNames, mesh=None) -> int:

@@ -348,6 +348,69 @@ def tp_shard(t, dim: Optional[int], ways: int, index: int):
     return t.narrow(dim, index * size, size).contiguous()
 
 
+def bind_tp_slices(model):
+    """This rank's module for inference in a tp world (a gloo gang, or
+    :meth:`~.virtual.VirtualMesh.run` on the card): JAX's
+    ``make_sharding_plan(params, mesh, pcfg, tp_rules)`` followed by
+    ``jax.device_put``, before ``generate(model, sharded, ...)`` or
+    ``ServingEngine(model, sharded, ...)``.
+
+    Call it on every rank, inside the world.  The plan is
+    :func:`make_sharding_plan`'s over the model's state (parameters and the
+    quantized denses' codes and scales) on the ambient mesh with
+    :func:`tp_rules_for` its parallelism config; the returned module holds
+    this rank's :func:`tp_shard` of each leaf the plan splits over ``tp``
+    as its own tensor, so the whole ``model`` may be released.  The rest is
+    as JAX's plan leaves it: the norms, and the quantized codes and scales
+    (the tp rules end in ``kernel$``), whole on every rank, shared with
+    ``model``; the data-parallel axes hold whole copies (the binding keeps
+    no FSDP ranges: every call would gather them back).  The adapter pool
+    of :class:`~..serving.adapters.AdapterStore` is outside the plan, whole
+    on every rank.  The plan is kept as the module's ``tp_plan``:
+    :func:`plan_bytes_per_device` of the state's whole shapes under it is
+    what the rank holds (:func:`held_bytes`).  The module is for
+    inference: its tensors take no gradient."""
+    import copy
+
+    import torch
+
+    from ..state import ambient_mesh
+    from .collectives import axis_index
+
+    mesh, cfg = ambient_mesh()
+    if mesh is None:
+        raise ValueError("bind_tp_slices runs inside a world: build an Accelerator with a "
+                         "parallelism_config, or call it inside VirtualMesh.run")
+    cfg = cfg or ParallelismConfig()
+    tp = mesh_sizes(mesh).get("tp", 1)
+    state = model.state_dict(keep_vars=True)
+    plan = make_sharding_plan(state, mesh, cfg, FullyShardedDataParallelPlugin(
+        sharding_strategy=ShardingStrategy.NO_SHARD), tp_rules_for(cfg))
+    index = axis_index("tp", mesh) if tp > 1 else 0
+    memo = {}
+    for name, t in state.items():
+        dim = tp_split_dim(plan[name]) if tp > 1 else None
+        held = tp_shard(t.detach(), dim, tp, index) if dim is not None else t.detach()
+        memo[id(t)] = (torch.nn.Parameter(held, requires_grad=False)
+                       if isinstance(t, torch.nn.Parameter) else held)
+    # the rope tables and other non-persistent buffers are shared too
+    for buf in model.buffers():
+        memo.setdefault(id(buf), buf)
+    bound = copy.deepcopy(model, memo)
+    bound.tp_plan = plan
+    return bound
+
+
+def held_bytes(module) -> int:
+    """Bytes of the tensors a module's state holds (each once)."""
+    seen, total = set(), 0
+    for t in module.state_dict(keep_vars=True).values():
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
 def get_tp_rules(plan: str = "auto"):
     if plan in ("auto", "transformer"):
         return TRANSFORMER_TP_RULES

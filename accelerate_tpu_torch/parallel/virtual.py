@@ -188,6 +188,10 @@ class VirtualMesh:
         self.deposits: dict = {}
         self.in_backward = False   # the joint backward is running
         self._tasks: Optional[queue.Queue] = None   # on_caller's, while run runs
+        # each rank's coordinates and groups, worked out once (a decode
+        # tick asks for them at every dense and collective)
+        self._coords: dict = {}
+        self._groups: dict = {}
 
     # -- the DeviceMesh surface ------------------------------------------------
 
@@ -199,11 +203,19 @@ class VirtualMesh:
         return rank
 
     def get_local_rank(self, axis: str) -> int:
-        coords = np.unravel_index(self.rank, tuple(self.mesh.shape))
-        return int(coords[self.mesh_dim_names.index(axis)])
+        rank = self.rank
+        if rank not in self._coords:
+            self._coords[rank] = tuple(int(c) for c in np.unravel_index(
+                rank, tuple(self.mesh.shape)))
+        return self._coords[rank][self.mesh_dim_names.index(axis)]
 
     def _group_of(self, rank: int, names: tuple) -> tuple:
         """(the group key, this rank's index in it, its ranks in order)."""
+        if (rank, names) not in self._groups:
+            self._groups[rank, names] = self._make_group(rank, names)
+        return self._groups[rank, names]
+
+    def _make_group(self, rank: int, names: tuple) -> tuple:
         shape = tuple(self.mesh.shape)
         coords = list(np.unravel_index(rank, shape))
         dims = [self.mesh_dim_names.index(a) for a in names]

@@ -72,6 +72,17 @@ index), ``cancel`` (the oldest live request cancels) and ``deadline``
 dispatches).  Request tracing (:meth:`ServingEngine.enable_tracing`)
 records host-side spans, the ``shed`` / ``cancel`` / ``ladder`` /
 ``page_transfer`` instants included.
+
+Tensor parallelism (JAX :764-771 warms the engine for a mesh-sharded param
+tree whose KV pools come back tp-sharded): an engine over a tp rank's
+module (``parallel.sharding.bind_tp_slices``), one per rank, every rank
+stepping alike, sizes its pools from the rank's kv heads
+(``LlamaForCausalLM.cache_kv_heads``) and runs the model's tp forward on
+them; the logits are gathered whole, so every rank samples the same token
+from the same seeded generator, and every rank's scheduler, block tables,
+refcounts and event log stay the one-process engine's.  Speculation, the
+prefix cache, the overload ladder, transfer and the router under tp are
+not ported (ROADMAP item A13h.7): each refuses a tp engine.
 """
 
 from __future__ import annotations
@@ -90,7 +101,7 @@ from ..resilience import faults as _faults
 from ..telemetry import RequestTracer
 from ..utils.dataclasses import ServingPlugin, TelemetryPlugin
 from ..utils.device import resolve_device
-from .overload import DegradationLadder
+from .overload import DegradationLadder, refuse_tensor_parallel
 from .paged_cache import allocate, pages_for, push_pages, release
 from .prefix_cache import PrefixCache
 from .scheduler import ContinuousBatchingScheduler, Request, SlotState
@@ -144,13 +155,18 @@ class ServingEngine:
                 and adapters.device.index != self.device.index)):
             raise ValueError(f"the adapter pool lives on {adapters.device}, the engine "
                              f"on {self.device}")
+        # the ranks of the model's tp world (1 outside one); its pools hold
+        # the rank's kv heads
+        self.tp = model.tp_degree()
+        self.kv_heads = model.cache_kv_heads()
         self.cache = init_paged_cache(model.config, p.num_pages, p.page_size,
                                       p.num_slots, p.pages_per_slot, kv_dtype=p.kv_dtype,
-                                      device=self.device)
+                                      device=self.device, num_kv_heads=self.kv_heads)
         # speculative decode: greedy only, because the acceptance rule IS
         # the token-parity pin (a sampled verify needs rejection sampling)
         self._spec: Optional[Speculator] = None
         if p.speculate != "off":
+            refuse_tensor_parallel("speculative decoding", self)
             if self.gen_config.do_sample:
                 raise ValueError(
                     "speculative decode supports greedy decoding only (do_sample=True "
@@ -161,6 +177,7 @@ class ServingEngine:
             self._spec = Speculator(provider, p.speculate_k, p.speculate_buckets)
         self.prefix: Optional[PrefixCache] = None
         if p.prefix_cache == "on":
+            refuse_tensor_parallel("the prefix cache", self)
             self.prefix = PrefixCache(p.page_size, kv_dtype=p.kv_dtype)
         self.sched = ContinuousBatchingScheduler(
             p.num_slots, p.num_pages, p.page_size, p.pages_per_slot,

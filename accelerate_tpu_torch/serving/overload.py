@@ -32,7 +32,18 @@ from __future__ import annotations
 from collections import Counter
 from typing import Optional
 
-from .paged_cache import pages_for
+import torch
+
+from .paged_cache import kv_pool_accounting, pages_for
+
+
+def refuse_tensor_parallel(what: str, *engines) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item A13h.7 where any
+    of ``engines`` serves a tp rank's module (``ServingEngine.tp`` > 1):
+    ``what`` is not ported under tensor parallelism."""
+    if any(e.tp > 1 for e in engines):
+        raise NotImplementedError(f"{what} on a tensor-parallel engine is not ported yet "
+                                  "(ROADMAP item A13h.7)")
 
 
 class DegradationLadder:
@@ -65,6 +76,7 @@ class DegradationLadder:
     def escalate(self, metric=None, quantile=None, value=None) -> str:
         """Move one stage up (no-op at the top).  The optional arguments
         match the :class:`SLOMonitor` trip-callback signature."""
+        refuse_tensor_parallel("the overload ladder", self.engine)
         if self.level >= len(self.STAGES) - 1:
             return self.stage
         self.level += 1
@@ -137,7 +149,9 @@ def verify_serving_invariants(engine) -> list[str]:
     - device ``seq_lens`` match the host ``kv_tokens`` per occupied slot and
       read 0 for free slots;
     - slot accounting: ``free_slots`` ∪ occupied == all slots, disjoint;
-    - adapter refcounts balance the in-flight census per tenant.
+    - adapter refcounts balance the in-flight census per tenant;
+    - the KV pool's bytes are :func:`~.paged_cache.kv_pool_accounting`'s
+      at the engine's kv heads (a tp rank's: its heads' pages only).
 
     One host sync (the cache fetch) — a test/replay-time checker, never
     called from the hot path.
@@ -208,6 +222,18 @@ def verify_serving_invariants(engine) -> list[str]:
                 problems.append(
                     f"adapter {tid}: refcount={got} vs {want} in-flight holds"
                 )
+    layers = cache["layers"]
+    if layers:
+        pages = layers[0]["k_pages"]
+        kv_dtype = "" if "k_scales" not in layers[0] else (
+            "int8" if pages.dtype == torch.int8 else "fp8")
+        pool = sum(t.numel() * t.element_size() for layer in layers for t in layer.values())
+        want = kv_pool_accounting(engine.model.config, sched.num_pages, page,
+                                  pages.element_size(), kv_dtype,
+                                  num_kv_heads=engine.kv_heads)["pool_bytes"]
+        if pool != want:
+            problems.append(f"KV pool of {pool} B vs kv_pool_accounting's {want} B at the "
+                            f"engine's {engine.kv_heads} kv heads")
     return problems
 
 

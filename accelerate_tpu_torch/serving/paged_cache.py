@@ -20,6 +20,8 @@ for integer the JAX package's:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -80,28 +82,31 @@ def push_pages(free_stack, free_top, pages, mask):
 
 
 def kv_page_bytes(config, page_size: int, dtype_bytes: int = 2,
-                  kv_dtype: str = "") -> int:
+                  kv_dtype: str = "", num_kv_heads: Optional[int] = None) -> int:
     """Bytes of ONE physical page across all layers — the unit the
     allocator hands out.  Dense pages: ``2 (K+V) * L * page_size * Hkv * D
     * dtype_bytes``.  Quantized pages (``kv_dtype`` ``"int8"`` / ``"fp8"``):
     one byte per code plus the per-(kv head, page) f32 scale, ``2 * L *
-    Hkv * 4`` bytes (JAX ``kv_page_bytes``)."""
+    Hkv * 4`` bytes (JAX ``kv_page_bytes``).  ``num_kv_heads``: the heads
+    a pool holds (a tp rank's; default the config's)."""
+    hkv = num_kv_heads or config.num_key_value_heads
     if kv_dtype in ("int8", "fp8"):
-        data = (2 * config.num_hidden_layers * page_size
-                * config.num_key_value_heads * config.head_dim)
-        return data + 2 * config.num_hidden_layers * config.num_key_value_heads * 4
-    return (2 * config.num_hidden_layers * page_size
-            * config.num_key_value_heads * config.head_dim * dtype_bytes)
+        data = (2 * config.num_hidden_layers * page_size * hkv * config.head_dim)
+        return data + 2 * config.num_hidden_layers * hkv * 4
+    return (2 * config.num_hidden_layers * page_size * hkv * config.head_dim * dtype_bytes)
 
 
 def kv_pool_accounting(config, num_pages: int, page_size: int,
-                       dtype_bytes: int = 2, kv_dtype: str = "") -> dict:
+                       dtype_bytes: int = 2, kv_dtype: str = "",
+                       num_kv_heads: Optional[int] = None) -> dict:
     """Predicted KV memory of a pool geometry: bytes per physical page
     across all layers, the pool's bytes and token capacity, and the share
     of one H100's 80 GB the pool takes.  A quantized pool also reports its
     ``kv_dtype`` and ``capacity_vs_bf16``, the token-capacity multiple at
-    equal memory (JAX ``kv_pool_accounting``)."""
-    per_page = kv_page_bytes(config, page_size, dtype_bytes, kv_dtype)
+    equal memory (JAX ``kv_pool_accounting``).  ``num_kv_heads``: a tp
+    rank's heads (``ServingEngine.kv_heads``), its pool being their
+    pages only."""
+    per_page = kv_page_bytes(config, page_size, dtype_bytes, kv_dtype, num_kv_heads)
     total = per_page * num_pages
     out = {
         "page_size_tokens": page_size,
@@ -114,5 +119,6 @@ def kv_pool_accounting(config, num_pages: int, page_size: int,
     }
     if kv_dtype in ("int8", "fp8"):
         out["kv_dtype"] = kv_dtype
-        out["capacity_vs_bf16"] = round(kv_page_bytes(config, page_size, 2) / per_page, 4)
+        out["capacity_vs_bf16"] = round(kv_page_bytes(config, page_size, 2, "", num_kv_heads)
+                                        / per_page, 4)
     return out

@@ -37,6 +37,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..telemetry import twin_registry
+from .overload import refuse_tensor_parallel
 from .scheduler import Request
 
 
@@ -182,6 +183,7 @@ class FleetRouter:
             raise ValueError(f"unknown routing policy {policy!r}: "
                              "expected 'affinity' or 'round_robin'")
         self.replicas = [_Replica(i, b) for i, b in enumerate(replicas)]
+        refuse_tensor_parallel("the fleet router", *(e for r in self.replicas for e in r.engines))
         self.policy = policy
         self.respawn = respawn
         self.routed_by = {"prefix": 0, "adapter": 0, "load": 0}

@@ -38,6 +38,7 @@ import torch
 
 from ..telemetry import twin_registry
 from .engine import ServingEngine
+from .overload import refuse_tensor_parallel
 from .paged_cache import allocate, kv_page_bytes, pages_for
 from .scheduler import Request
 
@@ -92,6 +93,7 @@ class PagedKVTransport:
     def __init__(self, src: ServingEngine, dst: ServingEngine):
         from ..analysis.distributed_audit import check_wire_schemas, wire_schema
 
+        refuse_tensor_parallel("KV page transfer", src, dst)
         schema_src = wire_schema(src.model.config, src.plugin)
         check_wire_schemas(schema_src, wire_schema(dst.model.config, dst.plugin))
         self.src, self.dst = src, dst

@@ -8,8 +8,8 @@ The bare call runs every phase below; ``--only`` runs the named ones
 (``kernels``: steps 3, 4, 5c; ``serving``: 5-5e; ``training``: 6;
 ``train_resume``: 6a and its recovery ladder; ``memory_recipes``: 6b; ``lora_train``: 6c;
 ``examples``: 6d; ``parallel``: 6e; ``moe``: 6f; ``fleet_fabric``: 6g;
-``sharded_ckpt``: 6h; ``sharded_recipes``: 6i) and prints the kernels line
-for the kernels they reached.
+``sharded_ckpt``: 6h; ``sharded_recipes``: 6i; ``tp_serving``: 6j) and
+prints the kernels line for the kernels they reached.
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``accelerate_tpu_torch/csrc`` with
@@ -400,6 +400,28 @@ for the kernels they reached.
    product of a second step held to plain (1e-3 of each row's largest sum
    of |terms|, its error against the row's largest value reported),
    tokens/s;
+6j. tensor-parallel serving and generation (``tp_serving_phase``): the
+   600m at full widths and depth, every rank of a virtual tp world bound to
+   its slices (``bind_tp_slices``), the collective matmul off, each serve
+   the trace's first 2 requests at its 32-128 new tokens: (a) bf16 pages
+   at tp 2 and tp 4; (b) int8 weights (embedding, norms, ``lm_head``
+   skipped) over int8 pages, tp 2, the W8A16 route each rank's dense took
+   printed; (c) the 8-tenant LoRA trace (rank-16 q / v, pool 4), tp 2,
+   every rank's store swapping as the one-process store; (d) ``generate`` at B 4 x
+   prompt 128, 32 new tokens, and ``beam_search`` with 4 beams, 8 new
+   tokens, bf16 and int8, tp 2 (int8 ``generate`` again at 4 new tokens
+   with every #11 / #12 launch held to plain); (e) one fwd + bwd of the
+   scanned stack at 4 x 2048 under tp 2 against the one-process scanned
+   step (the batch-2 rule), then with every #1-#3 launch held to plain.
+   Each serve: launches as the path says, a rank's KV pool ``kv_heads /
+   Hkv`` of the one-process pool (1 / tp where tp divides them), a rank's
+   weight bytes equal to ``plan_bytes_per_device``, tokens equal to the
+   one-process serve's or first different at a near-tie (teacher-forced
+   through both), TTFT p50 and tokens/s beside the one-process serve's; a
+   checked rerun of its requests, until one of them wrote into a page past
+   its prompt's, with every launch held to plain, the serving
+   contract on every rank after every tick and every rank's block tables
+   and event log equal to rank 0's;
 7. prints the kernels' JSON line (all twelve kernels; #8 / #9 with the
    launches of the op phase, since no engine calls them; ``paths``: each
    kernel's launches on the speculative, draft-model, prefix-cache, int8
@@ -415,8 +437,12 @@ for the kernels they reached.
    (``fleet_fabric_prefill``, ``fleet_fabric_decode``) and the first
    step of 6h (``sharded_ckpt``), 6i's first per-unit step
    (``sharded_recipes``) and its bf16 / fp8 steps
-   (``sharded_recipes_{bf16,fp8}_{dp4,tp2_dp2}``); #1-#3's ``cases`` and ``f16`` hold
-   their f16 instances, ``lora_train_in_path`` their checked LoRA step), then
+   (``sharded_recipes_{bf16,fp8}_{dp4,tp2_dp2}``), 6j's serves
+   (``tp_serving_{bf16_tp2,bf16_tp4,int8_tp2,lora_tp2}``), generation
+   (``tp_serving_{generate,beam}_{bf16,int8}_tp2``) and scanned step
+   (``tp_serving_scan_tp2``); #1-#3's ``cases`` and ``f16`` hold their f16
+   instances, ``lora_train_in_path`` their checked LoRA step,
+   ``tp_serving_in_path`` each kernel's checked launches in 6j), then
    ``{"ok": true,
    "device": {...}}`` as the last line.
 
@@ -2524,6 +2550,39 @@ def worst_readings(readings: dict, required) -> dict:
     return rep
 
 
+def capped(trace, new: int) -> list:
+    """``trace``'s requests with their new tokens capped at ``new``."""
+    import dataclasses
+
+    return [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, new)) for r in trace]
+
+
+def hold_contract(engine, label: str = "") -> None:
+    """Raise where the serving resource contract
+    (``verify_serving_invariants``) fails on ``engine``."""
+    from accelerate_tpu_torch.serving import verify_serving_invariants
+
+    problems = verify_serving_invariants(engine)
+    if problems:
+        raise AssertionError(f"{label}tick {engine.steps}: {problems}")
+
+
+def drive(engine, trace, on_tick=None) -> int:
+    """Serve ``trace`` on ``engine`` tick by tick, each request added at
+    its arrival step, calling ``on_tick(engine)`` after every tick;
+    returns the ticks."""
+    pending = sorted(trace, key=lambda r: (r.arrival_step, r.uid))
+    ticks = 0
+    while pending or not engine.idle():
+        while pending and pending[0].arrival_step <= engine.steps:
+            engine.add_request(pending.pop(0))
+        engine.step()
+        ticks += 1
+        if on_tick is not None:
+            on_tick(engine)
+    return ticks
+
+
 def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
                   adapters=None, plugin=PLUGIN, required=None, draft_model=None,
                   invariants=False) -> dict:
@@ -2538,30 +2597,15 @@ def in_path_check(torch, model, llama_mod, fa, qmm, trace, kv_dtype="bf16",
     (``verify_serving_invariants``: the page mirror, refcounts, the free
     stack) is checked after every tick.  Returns each kernel's worst
     readings."""
-    import dataclasses
-
     from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
-    from accelerate_tpu_torch.serving import verify_serving_invariants
 
-    trace = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, CHECKED_NEW))
-             for r in trace]
     engine = ServingEngine(model, ServingPlugin(**plugin, kv_dtype=kv_dtype),
                            GenerationConfig(max_new_tokens=MAX_NEW), device=model.device,
                            adapters=adapters, draft_model=draft_model)
     engine.warmup()
     readings = {}
-    ticks = 0
     with checked_kernels(torch, llama_mod, fa, qmm, readings):
-        pending = sorted(trace, key=lambda r: (r.arrival_step, r.uid))
-        while pending or not engine.idle():
-            while pending and pending[0].arrival_step <= engine.steps:
-                engine.add_request(pending.pop(0))
-            engine.step()
-            ticks += 1
-            if invariants:
-                problems = verify_serving_invariants(engine)
-                if problems:
-                    raise AssertionError(f"tick {engine.steps}: {problems}")
+        ticks = drive(engine, capped(trace, CHECKED_NEW), hold_contract if invariants else None)
     if required is None:
         required = ["paged_decode_attention", "paged_multitoken_attention"]
         if kv_dtype != "bf16":
@@ -3885,8 +3929,7 @@ def big_model_phase(torch, card: str, bf16: dict, quant: dict) -> dict:
 
     model, qref = bf16["model"], quant["model"]
     layers = model.config.num_hidden_layers
-    trace = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, CHECKED_NEW))
-             for r in bf16["trace"]]
+    trace = capped(bf16["trace"], CHECKED_NEW)
     check_trace = trace[:BIG["check_requests"]]
     folder = Path(tempfile.mkdtemp(prefix="big_model_"))
     out = {"card": card}
@@ -7390,10 +7433,464 @@ def sharded_recipes_phase(torch, fa, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# 6j. tensor-parallel serving and generation: the 600m serve over virtual
+# tp worlds on one card (every rank a thread of this process, bound to its
+# tp slices by bind_tp_slices), the collective matmul off.  The serves keep
+# the trace's 32-128 new tokens on its first 2 requests, cut for the time
+# limit (the ranks run one at a time, and a tp 2 / tp 4 tick took 3x / 8x
+# the one-process tick's host time; a checked tick, every launch held to
+# plain, 0.3-0.6 s; with 8 / 2 / 2 / 4 requests a bare call took 1,156 s).
+# Each checked rerun serves them until one of them wrote into a page past
+# its prompt's
+TP_SERVE = dict(tps=(2, 4), requests=2, gen_batch=4, gen_prompt=128, gen_new=32, beams=4,
+                beam_new=8, checked_gen_new=4, scan_batch=4)
+
+
+def tp_world(tp: int):
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    return VirtualMesh(*_layout(tp=tp)), ParallelismConfig(tp_size=tp)
+
+
+def tp_bind(torch, model, tp: int) -> tuple:
+    """``(mesh, pcfg, ranks, bytes report)``: every rank's module bound to
+    its tp slices, and the bytes each rank holds against
+    ``plan_bytes_per_device`` of the whole state under the rank's plan."""
+    from accelerate_tpu_torch.parallel.sharding import (
+        bind_tp_slices, held_bytes, plan_bytes_per_device,
+    )
+
+    mesh, pcfg = tp_world(tp)
+    ranks = mesh.run(lambda r: bind_tp_slices(model), pcfg)
+    shapes = {n: (tuple(t.shape), t.dtype) for n, t in model.state_dict().items()}
+    held = [held_bytes(m) for m in ranks]
+    planned = plan_bytes_per_device(shapes, ranks[0].tp_plan, mesh)
+    if any(h != planned for h in held):
+        raise AssertionError(f"tp {tp}: ranks hold {held} B, the plan {planned} B")
+    return mesh, pcfg, ranks, {"rank_weight_bytes": held[0], "plan_bytes_per_device": planned,
+                               "one_process_weight_bytes": held_bytes(model)}
+
+
+def tp_engines(torch, mesh, pcfg, ranks, kv_dtype="bf16", stores=None):
+    from accelerate_tpu_torch import GenerationConfig, ServingEngine, ServingPlugin
+
+    def make(r):
+        eng = ServingEngine(ranks[r], ServingPlugin(**PLUGIN, kv_dtype=kv_dtype),
+                            GenerationConfig(max_new_tokens=MAX_NEW), device=ranks[r].device,
+                            adapters=stores[r] if stores else None)
+        eng.warmup()
+        return eng
+
+    return mesh.run(make, pcfg)
+
+
+def pool_bytes_of(engine) -> int:
+    return sum(t.numel() * t.element_size() for layer in engine.cache["layers"]
+               for t in layer.values())
+
+
+def tp_near_tie(torch, model, mesh, pcfg, ranks, prompt, ref: list, got: list,
+                label: str, adapters=None, tenant: int = 0) -> dict:
+    """Where a tp run's tokens first differ from the one-process run's, at
+    ``i``: the reference sequence up to its token ``i`` teacher-forced
+    through the one-process model and the tp world (uncached forwards;
+    with ``adapters``, the one-process store and the ranks' stores,
+    through ``tenant``'s adapter, pinned for the run); near-tie iff the two
+    tokens' logit gap (one process) is within the largest |logit
+    difference| between the two at that position."""
+    i = next(j for j, (a, b) in enumerate(zip(ref, got)) if a != b)
+    ids = torch.tensor(list(prompt) + list(ref[:i]), device=model.device)[None]
+    stores = [adapters[0]] + list(adapters[1]) if adapters and tenant else []
+    kw = [dict(adapter_ids=torch.tensor([st.pin(tenant)[0]], device=model.device),
+               lora=st.pool) for st in stores] or [{}] * (1 + len(ranks))
+    with torch.inference_mode():
+        one = model(ids, **kw[0])[0, -1]
+        tp = mesh.run(lambda r: ranks[r](ids, **kw[1 + r]), pcfg)[0][0, -1]
+    for st in stores:
+        st.unpin(tenant)
+    gap = abs(one[ref[i]] - one[got[i]]).item()
+    dlogit = (one - tp).abs().max().item()
+    div = {"index": i, "reference_token": ref[i], "token": got[i], "logit_gap": gap,
+           "max_abs_dlogit_one_process_vs_tp": dlogit, "near_tie": gap <= dlogit}
+    log(f"tp_serving token rule {label}", json.dumps(div))
+    if not div["near_tie"]:
+        raise AssertionError(f"{label}: tokens diverge at {i} without a near-tie: {div}")
+    return div
+
+
+def tp_token_rule(torch, model, mesh, pcfg, ranks, trace, ref: dict, got: list,
+                  label: str, adapters=None) -> dict:
+    """Every rank's tokens equal rank 0's; rank 0's equal the one-process
+    engine's or first differ at a near-tie (:func:`tp_near_tie`;
+    ``adapters``: the one-process store and the ranks')."""
+    for r, res in enumerate(got):
+        if res != got[0]:
+            raise AssertionError(f"{label}: rank {r}'s tokens differ from rank 0's")
+    equal, divergences = 0, []
+    for req in trace:
+        a, b = list(ref[req.uid]), list(got[0][req.uid])
+        if a == b:
+            equal += 1
+            continue
+        if len(a) != len(b) and a[:len(b)] == b[:len(a)]:
+            raise AssertionError(f"{label} request {req.uid}: {len(b)} tokens, reference {len(a)}")
+        divergences.append({"uid": req.uid, **tp_near_tie(
+            torch, model, mesh, pcfg, ranks, req.prompt, a, b, f"{label} {req.uid}",
+            adapters, req.adapter_id)})
+    return {"requests": len(trace), "equal": equal, "divergences": divergences}
+
+
+def tp_serve_timed(torch, mesh, pcfg, engines, trace) -> tuple:
+    """Every rank's engine replays ``trace`` with the launch counts zeroed
+    first; rank 0's report (its wall spans the world's, the ranks taking
+    turns), every rank's results and launches."""
+    from accelerate_tpu_torch import replay
+
+    reset_counts()
+    reports = mesh.run(lambda r: replay(engines[r], trace), pcfg)
+    sync(torch)
+    launches = launch_counts()
+    return reports[0], [dict(e.results) for e in engines], launches
+
+
+def past_a_page(trace) -> list:
+    """``trace``'s requests with their new tokens cut to the fewest with
+    which one of them writes into a page past its prompt's (decode step
+    ``k`` writes position ``prompt_len + k - 1``)."""
+    page = PLUGIN["page_size"]
+    return capped(trace, min(-(-r.prompt_len // page) * page - r.prompt_len + 2 for r in trace))
+
+
+def tp_checked(torch, mesh, pcfg, ranks, trace, kv_dtype="bf16", stores=None, required=()):
+    """The trace (until one of its requests wrote into a page past its
+    prompt's, :func:`past_a_page`) on fresh engines with every kernel launch
+    held against its plain version; after every tick the serving contract
+    on every rank, and each rank's block tables and event log equal to rank
+    0's.  Returns each kernel's worst readings and the W8A16 routes taken
+    (dense shape and rows -> route)."""
+    import accelerate_tpu_torch.models.llama as llama_mod
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+    engines = tp_engines(torch, mesh, pcfg, ranks, kv_dtype, stores)
+    readings: dict = {}
+    routes: dict = {}
+    route = qmm._route
+    tables: list = [[] for _ in engines]
+
+    def spy(m, qt, wholef):
+        got = route(m, qt, wholef)
+        routes[f"{qt.shape[0]}x{qt.shape[1]} m={m}"] = got
+        return got
+
+    def on_tick(r):
+        def check(eng):
+            hold_contract(eng, f"rank {r} ")
+            tables[r].append((len(eng.sched.events), eng.cache["block_tables"].cpu()))
+        return check
+
+    qmm._route = spy
+    try:
+        with checked_kernels(torch, llama_mod, fa, qmm, readings):
+            mesh.run(lambda r: drive(engines[r], past_a_page(trace), on_tick(r)), pcfg)
+    finally:
+        qmm._route = route
+    for r, eng in enumerate(engines):
+        if eng.sched.events != engines[0].sched.events or eng.results != engines[0].results:
+            raise AssertionError(f"rank {r}: event log or tokens differ from rank 0's")
+        if len(tables[r]) != len(tables[0]) or any(
+                a[0] != b[0] or not torch.equal(a[1], b[1]) for a, b in zip(tables[r], tables[0])):
+            raise AssertionError(f"rank {r}: block tables differ from rank 0's at a tick")
+    rep = worst_readings(readings, required)
+    rep["invariants_checked_ticks"] = len(tables[0])
+    return rep, routes
+
+
+def tp_serve_case(torch, label: str, model, trace, tp: int = 2, kv_dtype="bf16",
+                  lora: bool = False) -> dict:
+    """One tp serve of (a)-(c): ``trace`` on the one-process engine, then
+    on every rank of a tp world (with ``lora``, 8-tenant stores, every
+    rank's swapping as the one-process store): the launches as the path
+    says, a rank's KV pool ``kv_heads / Hkv`` of the one-process pool (1 /
+    tp where tp divides them), the token rule, TTFT and tokens/s beside
+    the one-process serve's, then the checked rerun."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    stamps = {"start": time.perf_counter()}
+    one_store = lora_store(torch, model) if lora else None
+    one_engine, one_report, _, _ = serve_once(torch, model, trace, kv_dtype, adapters=one_store)
+    stamps["one_process"] = time.perf_counter()
+    mesh, pcfg, ranks, weights = tp_bind(torch, model, tp)
+    stores = mesh.run(lambda r: lora_store(torch, ranks[r]), pcfg) if lora else None
+    engines = tp_engines(torch, mesh, pcfg, ranks, kv_dtype, stores)
+    report, results, launches = tp_serve_timed(torch, mesh, pcfg, engines, trace)
+    stamps["bind_and_serve"] = time.perf_counter()
+    PATH_LAUNCHES[f"tp_serving_{label}"] = launches
+    m = engines[0].metrics
+    quant = "" if kv_dtype == "bf16" else "_quant"
+    # launches a decode and a prefill step: one per layer and rank, #11 on
+    # the 7 denses of a layer (each rank's whole call or its row slice's),
+    # #10 on the targeted denses of a decode step
+    decode = {f"paged_decode_attention{quant}": tp * layers}
+    prefill = {f"paged_multitoken_attention{quant}": tp * layers}
+    required = ["paged_decode_attention", "paged_multitoken_attention"]
+    if model.model.layers[0].mlp.down_proj.quantized is not None:
+        decode["quantized_matmul_tiled"] = prefill["quantized_matmul_tiled"] = tp * 7 * layers
+        required.append("quantized_matmul_tiled")
+    if lora:
+        decode["bgmv_apply"] = tp * len(LORA["targets"]) * layers
+        required.append("bgmv_apply")
+    want = {k: decode.get(k, 0) * m["decode_steps"] + prefill.get(k, 0) * m["prefill_steps"]
+            for k in {**decode, **prefill}}
+    if lora:
+        for eng in engines:
+            if (eng.adapters.swaps, eng.adapters.hits) != (one_engine.adapters.swaps,
+                                                           one_engine.adapters.hits):
+                raise AssertionError(f"{label}: a rank's adapter store decided otherwise than "
+                                     "the one-process store")
+    expect_launches(launches, want)
+    hkv, one_pool = cfg.num_key_value_heads, pool_bytes_of(one_engine)
+    pools = [pool_bytes_of(e) for e in engines]
+    want_pool = one_pool * engines[0].kv_heads // hkv
+    if any(p != want_pool for p in pools) or (hkv % tp == 0 and want_pool * tp != one_pool):
+        raise AssertionError(f"{label}: rank pools {pools} B, one process {one_pool} B")
+    tokens = tp_token_rule(torch, model, mesh, pcfg, ranks, trace, one_engine.results, results,
+                           label, adapters=(one_engine.adapters, stores) if lora else None)
+    stamps["token_rule"] = time.perf_counter()
+    fresh = mesh.run(lambda r: lora_store(torch, ranks[r]), pcfg) if lora else None
+    checked, routes = tp_checked(torch, mesh, pcfg, ranks, trace, kv_dtype, fresh, required)
+    stamps["checked"] = time.perf_counter()
+    timing = ("tokens_per_sec", "ttft_p50_ms", "p50_token_latency_ms", "wall_s")
+    rep = {"requests": len(trace), "new_tokens": [r.max_new_tokens for r in trace],
+           "rank_heads": [cfg.num_attention_heads // tp, engines[0].kv_heads],
+           "rank_pool_bytes": pools[0], "one_process_pool_bytes": one_pool, **weights,
+           "launches": launches, "decode_launches_per_tick": decode,
+           "tokens": tokens, "in_path": checked,
+           **{k: report[k] for k in timing + ("p99_token_latency_ms",)},
+           "one_process": {k: one_report[k] for k in timing},
+           "tokens_per_sec_over_one_process": report["tokens_per_sec"]
+           / one_report["tokens_per_sec"],
+           "seconds": {k: stamps[k] - t for (_, t), k in zip(stamps.items(), list(stamps)[1:])}}
+    if quant or "quantized_matmul_tiled" in want:
+        rep["qmm_routes"] = routes
+        log(f"tp_serving {label} W8A16 routes (rank's dense H x F, rows -> route):",
+            json.dumps(routes))
+    if lora:
+        rep["adapter_swaps"] = one_engine.adapters.swaps
+    log(f"tp_serving {label}:", json.dumps(rep))
+    return rep
+
+
+def tp_generation_case(torch, card: str, label: str, model) -> dict:
+    """(d) ``generate`` (B 4 x prompt 128, 32 new tokens) and
+    ``beam_search`` (4 beams) at tp 2 against the one-process calls."""
+    from accelerate_tpu_torch import GenerationConfig, beam_search, generate
+
+    cfg = model.config
+    b, t = TP_SERVE["gen_batch"], TP_SERVE["gen_prompt"]
+    ids = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (b, t))).to(
+        model.device)
+    gc = GenerationConfig(max_new_tokens=TP_SERVE["gen_new"])
+    bc = GenerationConfig(max_new_tokens=TP_SERVE["beam_new"])
+    ref = generate(model, ids, gc)
+    ref_beam = beam_search(model, ids, bc, num_beams=TP_SERVE["beams"])
+    mesh, pcfg, ranks, weights = tp_bind(torch, model, 2)
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    got = mesh.run(lambda r: generate(ranks[r], ids, gc), pcfg)
+    sync(torch)
+    gen_s = time.perf_counter() - t0
+    launches = launch_counts()
+    PATH_LAUNCHES[f"tp_serving_generate_{label}_tp2"] = launches
+    reset_counts()
+    beams = mesh.run(lambda r: beam_search(ranks[r], ids, bc, num_beams=TP_SERVE["beams"]), pcfg)
+    PATH_LAUNCHES[f"tp_serving_beam_{label}_tp2"] = launch_counts()
+    for r in range(2):
+        if not (torch.equal(got[r], got[0]) and torch.equal(beams[r], beams[0])):
+            raise AssertionError(f"generate {label}: rank {r}'s tokens differ from rank 0's")
+    rows = []
+    for i in range(b):
+        a, g = ref[i].tolist(), got[0][i].tolist()
+        rows.append("equal" if a == g else tp_near_tie(torch, model, mesh, pcfg, ranks,
+                                                        ids[i].tolist(), a, g,
+                                                        f"generate {label} row {i}"))
+
+    def score(tokens):
+        seq = torch.cat([ids.long(), tokens.long()], dim=1)
+        with torch.inference_mode():
+            logp = torch.log_softmax(model(seq).float(), dim=-1)[:, t - 1:-1]
+        return (logp.gather(-1, tokens.long()[..., None])[..., 0].sum(-1)
+                / tokens.shape[1]).tolist()
+
+    beam_equal = torch.equal(beams[0], ref_beam)
+    beam_rep = {"equal": beam_equal}
+    if not beam_equal:
+        tp_score, one_score = score(beams[0]), score(ref_beam)
+        beam_rep.update(tp_score_per_token=tp_score, one_process_score_per_token=one_score)
+        if any(a < o - BEAM_SCORE_TOL for a, o in zip(tp_score, one_score)):
+            raise AssertionError(f"beam {label}: tp beams {tp_score} below the one-process "
+                                 f"beams {one_score}")
+    if not all(torch.isfinite(x).all() for x in (got[0].float(), beams[0].float())):
+        raise AssertionError(f"generate {label}: non-finite tokens")
+    if label == "int8":
+        need = {"quantized_matmul_tiled", "quantized_matmul_wholef"}
+    else:
+        need = set()
+    missing = [n for n in need if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"generate {label}: {missing} never launched")
+    rep = {"batch": b, "prompt": t, "new": TP_SERVE["gen_new"], **weights,
+           "tokens_per_s": b * TP_SERVE["gen_new"] / gen_s, "rows": rows, "beam": beam_rep,
+           "launches": launches}
+    if need:
+        # the checked rerun: every W8A16 launch held to its plain version
+        import accelerate_tpu_torch.models.llama as llama_mod
+        from accelerate_tpu_torch.ops import flash_attention as fa
+        from accelerate_tpu_torch.ops import quantized_matmul as qmm
+
+        readings: dict = {}
+        checked_gc = GenerationConfig(max_new_tokens=TP_SERVE["checked_gen_new"])
+        with checked_kernels(torch, llama_mod, fa, qmm, readings):
+            again = mesh.run(lambda r: generate(ranks[r], ids, checked_gc), pcfg)
+        if any(not torch.equal(a, again[0]) for a in again):
+            raise AssertionError(f"generate {label}: the ranks' checked tokens differ")
+        rep["in_path"] = worst_readings(readings, sorted(need))
+    log(f"tp_serving (d) generation {label} tp 2:", json.dumps(rep))
+    return rep
+
+
+def tp_scan_case(torch, fa, card: str, device: str) -> dict:
+    """(e) one training step of the scanned stack at 4 x 2048 under tp 2
+    against the one-process scanned step (the batch-2 rule), then a
+    checked rerun holding every launch of #1-#3 to its plain version."""
+    import dataclasses
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, make_llama_loss_fn
+    from accelerate_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, make_sharding_plan, tp_shard, tp_split_dim,
+    )
+    from accelerate_tpu_torch.parallel.virtual import module_replica
+
+    tp = 2
+    cfg = dataclasses.replace(LlamaConfig(**MODEL, dtype=torch.bfloat16), scan_layers=True)
+    model = LlamaForCausalLM(cfg, device=device, seed=5)
+    params = {n: p.detach().to(torch.bfloat16) for n, p in model.named_parameters()}
+    names = list(params)
+    loss_fn = make_llama_loss_fn(model, fused_vocab_chunks=TRAIN["ce_chunks"])
+    batch = token_batch(torch, cfg.vocab_size, TP_SERVE["scan_batch"], device)
+    mesh, pcfg = tp_world(tp)
+    plan = make_sharding_plan(params, mesh, pcfg, None, TRANSFORMER_TP_RULES)
+    dims = {n: tp_split_dim(plan[n]) for n in names}
+    replicas = [module_replica(model) for _ in range(tp)]
+    rank_loss = [make_llama_loss_fn(m, fused_vocab_chunks=TRAIN["ce_chunks"]) for m in replicas]
+
+    def unsharded():
+        leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+        loss = loss_fn(leaves, batch).float()
+        return loss, list(torch.autograd.grad(loss, list(leaves.values())))
+
+    def sharded():
+        shards = [{n: tp_shard(params[n], dims[n], tp, r).detach().requires_grad_()
+                   for n in names} for r in range(tp)]
+        losses = mesh.run(lambda r: rank_loss[r](shards[r], batch).float(), pcfg)
+        flat = torch.autograd.grad(losses, [s[n] for s in shards for n in names])
+        by_rank = [flat[r * len(names):(r + 1) * len(names)] for r in range(tp)]
+        return losses[0], [torch.cat([by_rank[r][i] for r in range(tp)], dim=dims[n])
+                           if dims[n] is not None else by_rank[0][i]
+                           for i, n in enumerate(names)]
+
+    ref = unsharded()
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    got = sharded()
+    sync(torch)
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {n: fa._WRAPPERS[n].launches for n in FLASH_REPLACES}
+    PATH_LAUNCHES["tp_serving_scan_tp2"] = launch_counts()
+    want = tp * cfg.num_hidden_layers
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"scanned tp 2: launches {counts}, want {want} each")
+    rep = grads_against(torch, "scanned tp 2", names, got, ref)
+    readings = {n: [] for n in FLASH_REPLACES}
+    with checked_flash_kernels(torch, fa, readings):
+        sharded()
+    rep.update(launches=counts, step_ms=step_ms, in_path=worst_of(readings, {
+        n: want for n in FLASH_REPLACES}), plan_dims={
+        "q_proj": dims["model.layers_scan.block.self_attn.q_proj.weight"],
+        "o_proj": dims["model.layers_scan.block.self_attn.o_proj.weight"]})
+    log("tp_serving (e) scanned stack tp 2:", json.dumps(rep))
+    del ref, got, replicas, params, model
+    return rep
+
+
+def tp_serving_phase(torch, fa, card: str, device: str = "cuda") -> dict:
+    """6j: tensor-parallel serving and generation (module doc, 6j)."""
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, QuantizationConfig
+    from accelerate_tpu_torch import quantize_model_, synthesize_trace
+
+    cfg = LlamaConfig(**MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    trace = synthesize_trace(0, N_REQUESTS, **TRACE)[:TP_SERVE["requests"]]
+    out = {"card": card}
+    stamps = {}
+    t = time.perf_counter()
+    out["bf16"] = {f"tp{tp}": tp_serve_case(torch, f"bf16_tp{tp}", model, trace, tp)
+                   for tp in TP_SERVE["tps"]}
+    stamps["a_bf16"] = time.perf_counter() - t
+    t = time.perf_counter()
+    qmodel = quantize_model_(LlamaForCausalLM(cfg, device=device, seed=0),
+                             QuantizationConfig(load_in_8bit=True))
+    out["int8"] = tp_serve_case(torch, "int8_tp2", qmodel, trace, kv_dtype=QUANT_KV)
+    stamps["b_int8"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["lora"] = tp_serve_case(torch, "lora_tp2", model, synthesize_trace(
+        0, N_REQUESTS, **TRACE, adapters=LORA_TENANTS)[:TP_SERVE["requests"]], lora=True)
+    stamps["c_lora"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["generate_bf16"] = tp_generation_case(torch, card, "bf16", model)
+    out["generate_int8"] = tp_generation_case(torch, card, "int8", qmodel)
+    stamps["d_generation"] = time.perf_counter() - t
+    del qmodel, model
+    sync(torch)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["scan"] = tp_scan_case(torch, fa, card, device)
+    stamps["e_scan"] = time.perf_counter() - t
+    out["seconds"] = stamps
+    log("tp_serving seconds by case:", json.dumps(stamps))
+    log(f"tp serving on {card}:", json.dumps({
+        f"{case} {tp}": {k: rep[k] for k in ("tokens_per_sec", "ttft_p50_ms", "rank_pool_bytes",
+                                              "one_process_pool_bytes", "one_process")}
+        for case, reps in (("bf16", out["bf16"]), ("int8", {"tp2": out["int8"]}),
+                           ("lora", {"tp2": out["lora"]})) for tp, rep in reps.items()}))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_in_path(out: dict) -> dict:
+    """Each kernel's checked readings in the tp cases, by case."""
+    rename = {"int8": {"paged_decode_attention": "paged_decode_attention_quant",
+                       "paged_multitoken_attention": "paged_multitoken_attention_quant"}}
+    cases = {"bf16_tp2": out["bf16"]["tp2"]["in_path"], "bf16_tp4": out["bf16"]["tp4"]["in_path"],
+             "int8": out["int8"]["in_path"], "lora": out["lora"]["in_path"],
+             "generate_int8": out["generate_int8"]["in_path"], "scan": out["scan"]["in_path"]}
+    got: dict = {}
+    for case, readings in cases.items():
+        for name, rep in readings.items():
+            if isinstance(rep, dict):
+                got.setdefault(rename.get(case, {}).get(name, name), {})[case] = rep
+    return got
+
+
 # the phases --only selects, in the order the bare call runs them
 PHASES = ("kernels", "serving", "training", "train_resume", "memory_recipes", "lora_train",
           "examples", "parallel", "moe", "fleet_fabric", "sharded_ckpt",
-          "sharded_recipes")
+          "sharded_recipes", "tp_serving")
 
 
 
@@ -7594,6 +8091,12 @@ def main() -> int:
     if "sharded_recipes" in only:
         sharded_recipes_phase(torch, fa, card)
         phase_done("sharded_recipes")
+    if "tp_serving" in only:
+        tp_serving = tp_serving_phase(torch, fa, card)
+        for name, rep in tp_in_path(tp_serving).items():
+            if name in kernels:
+                kernels[name]["tp_serving_in_path"] = rep
+        phase_done("tp_serving")
 
     # each kernel's launches on its main path, and its checked calls there
     main_path = {}
@@ -7651,7 +8154,8 @@ def main() -> int:
                         "card": card, "shape": rep["shape"],
                         **{k: rep[k] for k in ("before_ms", "bitwise", "ptxas", "cases",
                                                "delta_ms", "four_launch_ms", "composed_ms",
-                                               "f16", "lora_train_in_path")
+                                               "f16", "lora_train_in_path",
+                                               "tp_serving_in_path")
                            if k in rep}})
     if len(entries) != 12 and args.only is None:
         raise AssertionError(f"the kernels line holds {len(entries)} kernels, not 12")

@@ -74,6 +74,12 @@ The sharded step's recipes: per-unit gathering over a virtual world of 4 at
 the 600m widths (2 layers) bitwise the whole-tree step through #1-#3, and
 fp8 under tp 2 x dp_shard 2 with every ``_scaled_mm`` product within 1e-3
 of its row's largest value of the plain f32 product.
+Tensor-parallel serving: #4 / #5 on a tp rank's heads of the 600m serve
+(8 q / 4 kv at tp 2, 4 q / 2 kv at tp 4) against their plain versions and
+the one-process launch's rows of the same heads; #10 on a rank's columns
+of ``b``; #11 / #12 on a rank's rows of the codes with the matching k2d
+scale columns, the ranks' partial products summing to the whole call's;
+and a virtual tp 2 engine's every #4 / #6 launch held to its plain version.
 """
 
 import pytest
@@ -2904,3 +2910,166 @@ def test_fp8_under_tp_and_dp_on_the_card_holds_every_scaled_mm_to_plain(cuda):
     assert all(torch.equal(m[k].scale, metas[0][k].scale)
                and torch.equal(m[k].amax_history, metas[0][k].amax_history)
                for m in metas for k in m)
+
+
+# -- tensor-parallel serving: the kernels on a tp rank's operands ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_decode_kernel_at_a_tp_rank_heads(cuda, kv_dtype, tp):
+    """#4 / #5 on a tp rank's heads of the 600m serve (16 q / 8 kv heads of
+    96: 8 q / 4 kv at tp 2, 4 q / 2 kv at tp 4; ``decode_split_plan``
+    splits by the head count): each rank's launch against its plain
+    version, and against the one-process launch's rows of the same heads
+    within the kernel tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(tp)
+    q, kp, vp, kw, bt, pos = _decode_operands(gen, cuda, (PAGE, N, HKV, 2, 96), kv_dtype,
+                                              pos=DEC_POS)
+    whole = tfa.paged_decode_attention(q, kp, vp, bt, pos, **kw)
+    hq, hkv = H // tp, HKV // tp
+    for r in range(tp):
+        tfa.reset_launch_counts()
+        sl = {k: v[r * hkv:(r + 1) * hkv].contiguous() for k, v in kw.items()}
+        ops = (q[:, r * hq:(r + 1) * hq].contiguous(), kp[r * hkv:(r + 1) * hkv].contiguous(),
+               vp[r * hkv:(r + 1) * hkv].contiguous(), sl, bt, pos)
+        _check_decode(*ops)
+        out = tfa.paged_decode_attention(ops[0], ops[1], ops[2], bt, pos, **sl)
+        _assert_rows_close(out, whole[:, r * hq:(r + 1) * hq])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_bgmv_apply_on_a_column_slice_of_b(cuda, tp):
+    """#10 on a column dense's rank: the rank's columns of ``b`` (q_proj's
+    1536 and v_proj's 768 outputs, rank 16), held to its plain version and
+    to the whole call's columns within the kernel tolerance, id-0 rows
+    ``y`` bitwise."""
+    for d_out in (1536, 768):
+        tlora.reset_launch_counts()
+        gen = torch.Generator(device=cuda).manual_seed(d_out + tp)
+        a, b = _lora_stacks(gen, cuda, 1536, 16, d_out)
+        x = torch.randn(16, 1536, generator=gen, device=cuda).bfloat16()
+        y = torch.randn(16, d_out, generator=gen, device=cuda).bfloat16()
+        ids = torch.tensor(LORA_IDS, dtype=torch.int32, device=cuda)
+        whole = tlora.bgmv_apply(x, y, a, b, ids)
+        n = d_out // tp
+        for r in range(tp):
+            bs, ys = b[..., r * n:(r + 1) * n].contiguous(), y[:, r * n:(r + 1) * n].contiguous()
+            out = tlora.bgmv_apply(x, ys, a, bs, ids)
+            delta = tlora.bgmv_plain(x.float(), a, bs, ids)
+            ref = torch.where((ids > 0)[:, None], ys.float() + delta, ys.float())
+            _assert_rows_close(out[:, None], ref[:, None], rounding_slack=True)
+            _assert_rows_close(out[:, None], whole[:, r * n:(r + 1) * n][:, None],
+                               rounding_slack=True)
+            assert torch.equal(out[ids == 0].view(torch.int16), ys[ids == 0].view(torch.int16))
+        torch.cuda.synchronize()
+        assert tlora.bgmv_apply.launches == 1 + tp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("h, f", [(1536, 1536), (4096, 1536)])
+def test_qmm_on_a_row_slice_of_the_codes(cuda, tp, h, f):
+    """#11 / #12 on a row dense's rank (o_proj, down_proj of the 600m):
+    the rank's rows of the codes and the matching columns of the k2d
+    scales, each launch held to its plain version; the ranks' partial
+    products sum to the whole call's within the kernel tolerance; the
+    route picks the kernel the whole call takes."""
+    from accelerate_tpu_torch.models.layers import row_slice
+
+    gen = torch.Generator(device=cuda).manual_seed(h + tp)
+    qt = _qweight(gen, cuda, h, f)
+    for m, wrapper, plain in ((16, tqm.quantized_matmul_tiled, tqm.quantized_matmul_plain),
+                              (512, tqm.quantized_matmul_tiled, tqm.quantized_matmul_plain),
+                              (4, tqm.quantized_matmul_wholef,
+                               tqm.quantized_matmul_wholef_plain)):
+        x = torch.randn(m, h, generator=gen, device=cuda).bfloat16()
+        whole = tqm.quantized_matmul(x, qt, out_dtype=torch.float32)
+        total = torch.zeros_like(whole)
+        k = h // tp
+        for r in range(tp):
+            local = row_slice(qt, tp, r)
+            assert tqm._route(m, local, None) == tqm._route(m, qt, None)
+            xs = x[:, r * k:(r + 1) * k].contiguous()
+            before = wrapper.launches
+            out = wrapper(xs, local.data, local.scale, qblock=128, out_dtype=torch.float32)
+            assert wrapper.launches == before + 1
+            ref = plain(xs, local.data, local.scale, qblock=128, out_dtype=torch.float32)
+            _assert_rows_close(out[:, None], ref[:, None])
+            total += out
+        _assert_rows_close(total[:, None], whole[:, None])
+
+
+@pytest.mark.cuda
+def test_tp2_engine_first_ticks_held_launch_by_launch(cuda):
+    """A tiny bf16 model at head dim 64 (4 q / 2 kv heads) served by a
+    virtual tp 2 world on the card: every launch of #4 and #6 over each
+    rank's pool of one kv head held to its plain version, the serving
+    contract on both ranks after every tick, both ranks' event logs and
+    block tables equal, and each rank's pool half the one-process pool."""
+    from accelerate_tpu_torch import (
+        GenerationConfig, LlamaConfig, LlamaForCausalLM, ServingEngine, ServingPlugin,
+        synthesize_trace,
+    )
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.parallel.sharding import bind_tp_slices
+    from accelerate_tpu_torch.parallel.virtual import VirtualMesh
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_ORDER, ParallelismConfig
+    from accelerate_tpu_torch.serving import verify_serving_invariants
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=256, attn_implementation="flash")
+    model = LlamaForCausalLM(cfg, seed=0)
+    plugin = ServingPlugin(num_slots=4, page_size=16, pages_per_slot=4, num_pages=16,
+                           prefill_chunk=32)
+    mesh = VirtualMesh(MESH_AXIS_ORDER, tuple(2 if a == "tp" else 1 for a in MESH_AXIS_ORDER))
+    pcfg = ParallelismConfig(tp_size=2)
+    ranks = mesh.run(lambda r: bind_tp_slices(model), pcfg)
+    held = {"decode": 0, "prefill": 0}
+    real = (tl.paged_decode_attention, tl.paged_multitoken_attention)
+
+    def checked(kind, kernel, plain):
+        def call(q, kp, vp, bt, pos, **kw):
+            out = kernel(q, kp, vp, bt, pos, **kw)
+            ref = plain(q.float(), kp.float(), vp.float(), bt, pos, **kw)
+            _assert_rows_close(out.reshape(-1, *out.shape[-2:]), ref.reshape(-1, *ref.shape[-2:]))
+            held[kind] += 1
+            return out
+        return call
+
+    def engine(r):
+        eng = ServingEngine(ranks[r], plugin, GenerationConfig(max_new_tokens=12))
+        eng.warmup()
+        return eng
+
+    engines = mesh.run(engine, pcfg)
+
+    def serve(r):
+        eng = engines[r]
+        trace = synthesize_trace(0, 6)
+        log = []
+        pending = sorted(trace, key=lambda q: (q.arrival_step, q.uid))
+        while pending or not eng.idle():
+            while pending and pending[0].arrival_step <= eng.steps:
+                eng.add_request(pending.pop(0))
+            eng.step()
+            assert verify_serving_invariants(eng) == []
+            log.append(eng.cache["block_tables"].cpu().clone())
+        return eng, log
+
+    tl.paged_decode_attention = checked("decode", real[0], tfa.paged_decode_attention_plain)
+    tl.paged_multitoken_attention = checked("prefill", real[1],
+                                            tfa.paged_multitoken_attention_plain)
+    try:
+        (e0, log0), (e1, log1) = mesh.run(serve, pcfg)
+    finally:
+        tl.paged_decode_attention, tl.paged_multitoken_attention = real
+    layers = cfg.num_hidden_layers
+    assert held["decode"] == 2 * layers * e0.metrics["decode_steps"] > 0
+    assert held["prefill"] == 2 * layers * e0.metrics["prefill_steps"] > 0
+    assert e0.sched.events == e1.sched.events and e0.results == e1.results
+    assert all(torch.equal(a, b) for a, b in zip(log0, log1))
+    assert e0.kv_heads == e1.kv_heads == 1
+    assert e0.cache["layers"][0]["k_pages"].shape[0] == 1

@@ -636,8 +636,10 @@ def test_fp8_ring_operands_are_jax_fake_quantized_global_tensors():
 
 def test_what_is_left_raises_naming_its_item():
     """The rest of A13h still raises, each naming its sub-item: a quantized
-    dense and cached decoding on tp slices (A13h.4), a leaf split over both
-    tp and ep and Mixtral under tp (A13h.5), pp composed with tp (A13h.6)."""
+    dense inside a collective-matmul ring (A13h.7; with the ring off it and
+    cached decoding on tp slices run since A13h.4: ``test_torch_tp_serving.
+    py``), a leaf split over both tp and ep and Mixtral under tp (A13h.5),
+    pp composed with tp (A13h.6)."""
     from accelerate_tpu_torch.models import mixtral as tm
     from accelerate_tpu_torch.models.layers import DenseRoute, QuantizableDense
     from accelerate_tpu_torch.parallel.sharding import model_split
@@ -647,14 +649,8 @@ def test_what_is_left_raises_naming_its_item():
     dense = QuantizableDense(16, 8, torch.float32)
     dense.tp_mode = "column"
     dense.set_quantized(quantize(torch.randn(16, 8), QuantizationConfig(load_in_8bit=True)))
-    with pytest.raises(NotImplementedError, match=r"A13h\.4"):
-        dense(torch.randn(2, 16), route=DenseRoute(None, "tp", "off"))
-    model = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(dtype=torch.float32), device="cpu")
-    attn = model.model.layers[0].self_attn
-    attn.q_proj.weight = torch.nn.Parameter(attn.q_proj.weight[:32].detach())
-    cache = tl.init_cache(model.config, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A13h\.4"):
-        model(torch.zeros(1, 4, dtype=torch.long), cache=cache)
+    with pytest.raises(NotImplementedError, match=r"A13h\.7"):
+        dense(torch.randn(2, 16), route=DenseRoute(None, "tp", "ring"))
     with pytest.raises(NotImplementedError, match=r"A13h\.5"):
         model_split(PartitionSpec(("tp", "ep"), None), {"tp": 2, "ep": 2})
     mixtral = tm.MixtralForCausalLM(tm.MixtralConfig.tiny(dtype=torch.float32), device="cpu")
